@@ -1,0 +1,252 @@
+"""Typed, validated Social-Force-Model parameters (port of models/params.py).
+
+Plain frozen dataclasses of Python numbers: the JAX package needed pytree
+registration so sweeps could trace its leaves; here the values that a
+kernel reads on the device travel as a small tensor
+(:func:`moussaid_vector`), so nothing else has to be a tensor.
+
+The TOML surface, the config-key quirks and ``strict_parity`` are those of
+the JAX package (see its module docstring): the keys as written in the
+config are honoured, falling back to the reference's read-keys and then to
+the reference defaults.
+"""
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass, field
+
+import torch
+
+
+@dataclass(frozen=True)
+class AccelerationParams:
+    """Helbing-Molnar (1995) relaxation force. Reference: forces.py:35-53."""
+
+    tau: float = 0.5
+
+
+@dataclass(frozen=True)
+class MoussaidParams:
+    """Moussaid et al. (2009) interaction-force parameters.
+
+    Shared by the pedestrian-pedestrian force and the static/dynamic
+    obstacle forces; ``perception_threshold`` is only read by the obstacle
+    variants.
+    """
+
+    lambda_: float = 2.0
+    A: float = 4.5
+    gamma: float = 0.35
+    n: float = 2.0
+    n_prime: float = 3.0
+    epsilon: float = 0.005
+    perception_threshold: float = 20.0
+
+
+@dataclass(frozen=True)
+class BorderParams:
+    """Exponential wall-repulsion parameters. Reference: forces.py:120-137."""
+
+    a: float = 3.0
+    b: float = 0.1
+
+
+@dataclass(frozen=True)
+class PedRepulsiveParams:
+    """Helbing-Molnar (1995) elliptical pedestrian repulsion (see the JAX
+    package for the ``b_min`` regularisation)."""
+
+    v0: float = 2.1
+    sigma: float = 0.3
+    fov_phi: float = 100.0   # degrees
+    fov_factor: float = 0.5
+    step_width: float = 1.0  # Delta-t of the anticipation term [s]
+    b_min: float = 0.1       # semi-minor-axis floor [m]
+
+
+@dataclass(frozen=True)
+class PowerLawParams:
+    """Karamouzas-Skinner-Guy (PRL 2014) time-to-collision power law."""
+
+    k: float = 1.5
+    tau0: float = 3.0
+    tau_max: float = 20.0
+    tau_min: float = 1e-2
+
+
+@dataclass(frozen=True)
+class OrcaParams:
+    """ORCA (van den Berg et al., ISRR 2011) velocity-projection law."""
+
+    tau: float = 2.0
+    neighbor_dist: float = 15.0
+    tau_static: float = 2.0
+    max_neighbors: int = 10
+    window: int = 64
+    max_vehicles: int = 4
+    max_statics: int = 3
+
+
+@dataclass(frozen=True)
+class SpaceRepulsiveParams:
+    """Helbing-Molnar (1995) boundary repulsion U(d) = U0*exp(-d/R)."""
+
+    u0: float = 10.0
+    r: float = 0.2
+
+
+@dataclass(frozen=True)
+class GroupParams:
+    """Moussaid et al. (2010) social-group forces."""
+
+    beta_vis: float = 4.0
+    beta_att: float = 3.0
+    beta_rep: float = 1.0
+    rep_distance: float = 0.55
+
+
+def _moussaid_from_dict(section: dict, default_threshold: float) -> MoussaidParams:
+    return MoussaidParams(
+        lambda_=float(section.get("lambda", 2.0)),
+        A=float(section.get("A", 4.5)),
+        gamma=float(section.get("gamma", 0.35)),
+        n=float(section.get("n", 2.0)),
+        n_prime=float(section.get("n_prime", 3.0)),
+        epsilon=float(section.get("epsilon", 0.005)),
+        perception_threshold=float(section.get("perception_threshold", default_threshold)),
+    )
+
+
+@dataclass(frozen=True)
+class SfmParams:
+    """Full SFM parameter set (the reference's sfm_config.toml surface)."""
+
+    acceleration: AccelerationParams = field(default_factory=AccelerationParams)
+    pedestrian: MoussaidParams = field(default_factory=MoussaidParams)
+    border: BorderParams = field(default_factory=BorderParams)
+    static_obstacle: MoussaidParams = field(default_factory=MoussaidParams)
+    dynamic_obstacle: MoussaidParams = field(
+        default_factory=lambda: MoussaidParams(perception_threshold=50.0))
+    max_speed_factor: float = 1.3
+    use_ped_radius: bool = False
+    # force on/off flags ([forces] table; pedestrian_simulation.py:32-55)
+    enable_acceleration: bool = True
+    enable_pedestrian: bool = True
+    enable_border: bool = True
+    enable_static_obstacle: bool = False
+    enable_dynamic_obstacle: bool = False
+    ped_repulsive: PedRepulsiveParams = field(default_factory=PedRepulsiveParams)
+    space_repulsive: SpaceRepulsiveParams = field(
+        default_factory=SpaceRepulsiveParams)
+    enable_ped_repulsive: bool = False
+    enable_space_repulsive: bool = False
+    powerlaw: PowerLawParams = field(default_factory=PowerLawParams)
+    enable_powerlaw: bool = False
+    group: GroupParams = field(default_factory=GroupParams)
+    enable_group: bool = False
+    orca: OrcaParams = field(default_factory=OrcaParams)
+    enable_orca: bool = False
+    # reproduce reference-inert config keys & first-vehicle-extent quirk
+    strict_parity: bool = False
+
+    @staticmethod
+    def from_dict(cfg: dict, strict_parity: bool = False) -> "SfmParams":
+        """Build params from a parsed sfm_config.toml-style dict.
+
+        Enabling the reference's dead force flags under ``strict_parity``
+        raises, as in the JAX package.
+        """
+        forces = cfg.get("forces", {})
+        if strict_parity:
+            for dead in ("ped_repulsive_force", "space_repulsive_force",
+                         "powerlaw_force", "group_force", "orca_law"):
+                if forces.get(dead, False):
+                    raise ValueError(
+                        f"strict parity: force '{dead}' is a dead config path "
+                        "in the reference (enabling it crashes init_forces "
+                        "with an AttributeError); disable strict_parity to "
+                        "use this framework's working implementation")
+
+        goal = cfg.get("goal_force", {})
+        accel = cfg.get("acceleration_force", {})
+        if strict_parity:
+            tau = float(goal.get("tau", 0.5))
+            max_speed_factor = float(cfg.get("max_speed_factor", 1.3))
+        else:
+            tau = float(accel.get("tau", goal.get("tau", 0.5)))
+            max_speed_factor = float(
+                cfg.get("max_speed_multiplier", cfg.get("max_speed_factor", 1.3))
+            )
+
+        border_cfg = cfg.get("border_force", {})
+        pr = cfg.get("ped_repulsive_force", {})
+        sr = cfg.get("space_repulsive_force", {})
+        pw = cfg.get("powerlaw_force", {})
+        gr = cfg.get("group_force", {})
+        oc = cfg.get("orca_law", {})
+        return SfmParams(
+            orca=OrcaParams(
+                tau=float(oc.get("tau", 2.0)),
+                neighbor_dist=float(oc.get("neighbor_dist", 15.0)),
+                tau_static=float(oc.get("tau_static", 2.0)),
+                max_neighbors=int(oc.get("max_neighbors", 10)),
+                window=int(oc.get("window", 64)),
+                max_vehicles=int(oc.get("max_vehicles", 4)),
+                max_statics=int(oc.get("max_statics", 3))),
+            enable_orca=bool(forces.get("orca_law", False))
+            and not strict_parity,
+            group=GroupParams(
+                beta_vis=float(gr.get("beta_vis", 4.0)),
+                beta_att=float(gr.get("beta_att", 3.0)),
+                beta_rep=float(gr.get("beta_rep", 1.0)),
+                rep_distance=float(gr.get("rep_distance", 0.55))),
+            enable_group=bool(forces.get("group_force", False))
+            and not strict_parity,
+            powerlaw=PowerLawParams(
+                k=float(pw.get("k", 1.5)),
+                tau0=float(pw.get("tau0", 3.0)),
+                tau_max=float(pw.get("tau_max", 20.0)),
+                tau_min=float(pw.get("tau_min", 1e-2))),
+            enable_powerlaw=bool(forces.get("powerlaw_force", False))
+            and not strict_parity,
+            ped_repulsive=PedRepulsiveParams(
+                v0=float(pr.get("v0", 2.1)),
+                sigma=float(pr.get("sigma", 0.3)),
+                fov_phi=float(pr.get("fov_phi", 100.0)),
+                fov_factor=float(pr.get("fov_factor", 0.5)),
+                step_width=float(pr.get("step_width", 1.0)),
+                b_min=float(pr.get("b_min", 0.1))),
+            space_repulsive=SpaceRepulsiveParams(
+                u0=float(sr.get("u0", 10.0)), r=float(sr.get("r", 0.2))),
+            enable_ped_repulsive=bool(forces.get("ped_repulsive_force", False))
+            and not strict_parity,
+            enable_space_repulsive=bool(forces.get("space_repulsive_force", False))
+            and not strict_parity,
+            acceleration=AccelerationParams(tau=tau),
+            pedestrian=_moussaid_from_dict(cfg.get("pedestrian_force", {}), 20.0),
+            border=BorderParams(
+                a=float(border_cfg.get("a", 3.0)), b=float(border_cfg.get("b", 0.1))
+            ),
+            static_obstacle=_moussaid_from_dict(cfg.get("static_obstacle_force", {}), 20.0),
+            dynamic_obstacle=_moussaid_from_dict(cfg.get("dynamic_obstacle_force", {}), 50.0),
+            max_speed_factor=max_speed_factor,
+            use_ped_radius=bool(cfg.get("use_ped_radius", False)),
+            enable_acceleration=bool(forces.get("acceleration_force", False)),
+            enable_pedestrian=bool(forces.get("pedestrian_force", False)),
+            enable_border=bool(forces.get("border_force", False)),
+            enable_static_obstacle=bool(forces.get("static_obstacle_force", False)),
+            enable_dynamic_obstacle=bool(forces.get("dynamic_obstacle_force", False)),
+            strict_parity=strict_parity,
+        )
+
+
+@functools.lru_cache(maxsize=32)
+def moussaid_vector(p: MoussaidParams, device: torch.device | str) -> torch.Tensor:
+    """``(lambda_, A, gamma, n, n_prime, epsilon)`` as a float32 ``(6,)``
+    tensor on ``device`` -- the counterpart of ``_params_vec`` in the JAX
+    package's ops/pallas_forces.py.  The pair-force kernels read their
+    parameters through this tensor's device pointer, so a step never copies
+    them from the host.  Cached per (params, device): callers must not
+    write to the returned tensor."""
+    return torch.tensor([p.lambda_, p.A, p.gamma, p.n, p.n_prime, p.epsilon],
+                        dtype=torch.float32, device=device)
