@@ -13,6 +13,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..utils.device import DEFAULT_DEVICE, resolve_device
+
 
 @dataclass(frozen=True)
 class RouteBuffer:
@@ -34,7 +36,7 @@ class RouteBuffer:
 def build_route_buffer(routes: Sequence[np.ndarray],
                        crossing_flags: Sequence[Sequence[bool]],
                        capacity: int | None = None,
-                       device: torch.device | str = "cpu",
+                       device: torch.device | str = DEFAULT_DEVICE,
                        dtype=np.float32) -> RouteBuffer:
     """Pack per-ped waypoint lists into a RouteBuffer on ``device``.
 
@@ -42,6 +44,7 @@ def build_route_buffer(routes: Sequence[np.ndarray],
     Mismatched lengths are trimmed to the shorter (the reference's zip
     semantics, pedestrian_spawner.py:209).
     """
+    device = resolve_device(device)
     n = capacity if capacity is not None else len(routes)
     w_max = max([1] + [min(len(r), len(c)) for r, c in zip(routes, crossing_flags)])
     wp = np.zeros((n, w_max, 2), dtype=dtype)

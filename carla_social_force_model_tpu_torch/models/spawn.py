@@ -5,7 +5,8 @@ is deterministic); on the device, spawning is a masked write at the slot
 when the rollout reaches the slot's spawn step.  Building schedules from
 scenario spawner specs (``build_spawn_schedule``) belongs to the scenario
 slice of the port; until then schedules come from :mod:`..api.synthetic` or
-from the JAX package through :mod:`..utils.convert`.
+from the JAX package through :mod:`..utils.convert`.  Scripted vehicles
+(:mod:`.vehicles`) share :func:`realized_spawn_steps`.
 """
 from __future__ import annotations
 
@@ -48,6 +49,23 @@ class SpawnSchedule:
     @property
     def capacity(self) -> int:
         return self.step.shape[0]
+
+
+def realized_spawn_steps(spawn_time: float, spawn_interval: float,
+                         quantity: int, dt: float, num_steps: int) -> list[int]:
+    """Steps at which a spawner spawns: the reference's greedy
+    one-spawn-per-tick readiness loop (a copy of the JAX package's)."""
+    steps = []
+    next_time = spawn_time
+    remaining = quantity
+    for step in range(num_steps):
+        if remaining <= 0:
+            break
+        if next_time <= step * dt:
+            steps.append(step)
+            next_time += spawn_interval
+            remaining -= 1
+    return steps
 
 
 def apply_spawn(state: PedState, schedule: SpawnSchedule, t_idx: int) -> PedState:

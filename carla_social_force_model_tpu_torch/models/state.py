@@ -13,6 +13,7 @@ from dataclasses import dataclass
 import torch
 
 from ..ops.vecmath import stack_xy
+from ..utils.device import DEFAULT_DEVICE, resolve_device
 from . import modes
 
 
@@ -64,8 +65,10 @@ class PedState:
         return self.applied_target * max_speed_factor
 
     @staticmethod
-    def empty(capacity: int, device: torch.device | str = "cpu",
+    def empty(capacity: int, device: torch.device | str = DEFAULT_DEVICE,
               dtype: torch.dtype = torch.float32) -> "PedState":
+        device = resolve_device(device)
+
         def z():
             return torch.zeros((capacity,), dtype=dtype, device=device)
         return PedState(

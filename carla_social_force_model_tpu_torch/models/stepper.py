@@ -5,21 +5,25 @@ One step keeps the reference's per-tick order (see the JAX package):
 1. spawn due pedestrians;
 2. capture the applied target speeds, before any transition this tick;
 3. IDLE promotion;
-4. gap acceptance for CHECKING_TRAFFIC pedestrians (with no vehicles every
-   gap is accepted);
+4. gap acceptance for CHECKING_TRAFFIC pedestrians against this step's
+   scripted vehicles (with no vehicles every gap is accepted);
 5. the recorded snapshot;
-6. the force sum: acceleration plus the Moussaid pair force;
+6. the force sum: acceleration, the Moussaid pair force, and the
+   environment forces (borders, space repulsion, static and dynamic
+   obstacles);
 7. v' = cap(v + dt*F, applied_target * factor);
 8. waypoint arrival: advance and mode change, or despawn;
 9. x' = x + dt*v'.
 
-This slice covers the headless crowd (BASELINE config #1).  Terms the JAX
-step computes and this port does not have yet raise ``NotImplementedError``
-naming the slice that brings them, rather than being skipped.
+This covers the headless crowd (BASELINE config #1) and its environment
+(configs #2 and #3).  Terms the JAX step computes and this port does not
+have yet raise ``NotImplementedError`` naming the slice that brings them,
+rather than being skipped.
 
-The device chooses the pair-force path: the CUDA kernels on a card, the
-plain PyTorch version on the CPU (ops/cuda_forces.py).  A rollout is an
-eager Python loop over steps; capturing it as a CUDA graph is later work.
+The device chooses the kernel path: the CUDA kernels on a card, the plain
+PyTorch versions on the CPU (ops/cuda_forces.py, ops/cuda_env.py).  A
+rollout is an eager Python loop over steps; capturing it as a CUDA graph is
+later work.
 """
 from __future__ import annotations
 
@@ -30,28 +34,60 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..env.pointsets import ChunkedPointSet, SegmentPointSet, segment_major
 from ..ops import forces, vecmath
+from ..ops.cuda_env import fused_environment_terms
 from ..ops.cuda_forces import pedestrian_force_kernel
 from . import modes
+from .gap import gap_ready
 from .params import SfmParams
 from .spawn import SpawnSchedule, apply_spawn
 from .state import PedState
+from .vehicles import (VehicleSnapshot, VehicleStates,
+                       snapshot_segment_pointset, vehicle_snapshot_at)
 
 
 @dataclass(frozen=True)
 class Scene:
     """Everything the stepper needs besides the pedestrian state.
 
-    Only ``spawn`` is supported by this slice; the other fields exist so
-    that a scene carrying them fails loudly instead of being simulated
-    without them."""
+    ``borders`` and ``static_obstacles`` are the host-side point sets;
+    :func:`prepare_scene` adds their segment-major layouts on the spawn
+    schedule's device (``borders_seg``, ``static_obstacles_seg``), which is
+    what the forces read.  ``autopilot`` and ``groups`` exist so that a
+    scene carrying them fails loudly instead of being simulated without
+    them."""
 
     spawn: SpawnSchedule
-    borders: object | None = None
-    static_obstacles: object | None = None
-    vehicles: object | None = None
+    borders: ChunkedPointSet | None = None
+    static_obstacles: ChunkedPointSet | None = None
+    static_obstacle_vel: torch.Tensor | None = None  # (S, 2), zeros
+    vehicles: VehicleStates | None = None
     autopilot: object | None = None
     groups: object | None = None
+    borders_seg: SegmentPointSet | None = None
+    static_obstacles_seg: SegmentPointSet | None = None
+
+
+def prepare_scene(scene: Scene) -> Scene:
+    """Add the segment-major layouts of the scene's borders and static
+    obstacles on the spawn schedule's device, and zero obstacle velocities
+    where none are given.  Host-side work, done once per scenario;
+    idempotent.  (The JAX package's ``analytic`` and ``orca`` layouts
+    belong to later slices of the port.)"""
+    device = scene.spawn.step.device
+    upd = {}
+    if scene.borders is not None and scene.borders_seg is None:
+        upd["borders_seg"] = segment_major(scene.borders, device)
+    if scene.static_obstacles is not None:
+        if scene.static_obstacles_seg is None:
+            upd["static_obstacles_seg"] = segment_major(
+                scene.static_obstacles, device)
+        if scene.static_obstacle_vel is None:
+            upd["static_obstacle_vel"] = torch.zeros(
+                (scene.static_obstacles.num_segments, 2),
+                dtype=torch.float32, device=device)
+    return dataclasses.replace(scene, **upd) if upd else scene
 
 
 @dataclass(frozen=True)
@@ -71,7 +107,15 @@ class StepConfig:
     #: run the plain PyTorch pair force even on a card: the reference the
     #: kernel path is compared with, never the default
     plain_pair_force: bool = False
-    #: interaction cutoff [m]; not supported by this slice (raises)
+    #: run the plain PyTorch environment forces even on a card (no sort, no
+    #: kernel): the reference the kernel path is compared with, never the
+    #: default
+    plain_env_force: bool = False
+    #: the JAX package's compacted environment grid (the urban slice of the
+    #: port) and analytic border geometry (the analytic slice); True raises
+    env_compact: bool = False
+    env_analytic: bool = False
+    #: interaction cutoff [m]; not supported yet (raises)
     interaction_cutoff: float | None = None
 
 
@@ -112,14 +156,12 @@ def check_supported(scene: Scene, params: SfmParams, cfg: StepConfig) -> None:
     compute for this (scene, params, cfg) that this slice does not have."""
     if cfg.interaction_cutoff is not None:
         _not_ported("interaction_cutoff", "large-N cutoff")
-    if scene.borders is not None and (params.enable_border
-                                      or params.enable_space_repulsive):
-        _not_ported("the border and space-repulsive forces", "environment")
-    if scene.static_obstacles is not None and params.enable_static_obstacle:
-        _not_ported("the static obstacle force", "environment")
-    if scene.vehicles is not None:
-        _not_ported("vehicles (gap acceptance, dynamic obstacle force)",
-                    "environment")
+    if cfg.env_compact:
+        _not_ported("env_compact (the compacted environment kernels)",
+                    "urban")
+    if cfg.env_analytic:
+        _not_ported("env_analytic (the analytic border geometry)",
+                    "analytic border")
     if scene.autopilot is not None:
         _not_ported("the autopilot vehicle fleet", "urban")
     if params.enable_powerlaw:
@@ -134,10 +176,29 @@ def check_supported(scene: Scene, params: SfmParams, cfg: StepConfig) -> None:
         _not_ported("per-agent pair_scale/law_id", "model-family")
 
 
+def _segments(pset, seg, name):
+    """The segment-major layout of a scene's point set: raises when the
+    scene was not prepared; None when the set holds no point (its force is
+    zero)."""
+    if seg is None and pset is not None and bool(np.asarray(pset.valid).any()):
+        raise ValueError(f"scene.{name} has no segment-major layout: build "
+                         f"the scene with prepare_scene (make_rollout_fn "
+                         f"and rollout do)")
+    return seg
+
+
 def force_terms(state: PedState, scene: Scene, params: SfmParams,
-                cfg: StepConfig) -> dict:
-    """Enabled force terms by name, each an ``(fx, fy)`` plane pair."""
+                cfg: StepConfig, veh_snap: VehicleSnapshot | None = None
+                ) -> dict:
+    """Enabled force terms by name, each an ``(fx, fy)`` plane pair, in the
+    JAX package's order.  ``veh_snap``: this step's vehicles."""
     check_supported(scene, params, cfg)
+    borders = _segments(scene.borders, scene.borders_seg, "borders")
+    statics = _segments(scene.static_obstacles, scene.static_obstacles_seg,
+                        "static_obstacles")
+    env = ({} if cfg.plain_env_force
+           else fused_environment_terms(state, scene, params, veh_snap))
+    zero = torch.zeros_like(state.pos_x)
     terms: dict = {}
     if params.enable_acceleration:
         terms["acceleration_force"] = forces.acceleration_force_xy(
@@ -155,13 +216,47 @@ def force_terms(state: PedState, scene: Scene, params: SfmParams,
             terms["pedestrian_force"] = pedestrian_force_kernel(
                 *args, use_ped_radius=params.use_ped_radius,
                 symmetric=cfg.symmetric_pairs, row_block=cfg.row_block)
+    if params.enable_border and scene.borders is not None:
+        terms["border_force"] = (
+            env["border_force"] if "border_force" in env
+            else (zero, zero) if borders is None
+            else forces.border_force(
+                state.pos_x, state.pos_y, state.mode, state.radius,
+                state.alive, borders, params.border,
+                use_ped_radius=params.use_ped_radius))
+    if params.enable_static_obstacle and scene.static_obstacles is not None:
+        terms["static_obstacle_force"] = (
+            env["static_obstacle_force"] if "static_obstacle_force" in env
+            else (zero, zero) if statics is None
+            else forces.obstacle_force(
+                state.pos_x, state.pos_y, state.vel_x, state.vel_y,
+                state.radius, state.alive, statics, scene.static_obstacle_vel,
+                params.static_obstacle, use_ped_radius=params.use_ped_radius))
+    if params.enable_space_repulsive and scene.borders is not None:
+        terms["space_repulsive_force"] = (
+            env["space_repulsive_force"] if "space_repulsive_force" in env
+            else (zero, zero) if borders is None
+            else forces.space_repulsive_force(
+                state.pos_x, state.pos_y, state.mode, state.alive, borders,
+                params.space_repulsive))
+    if params.enable_dynamic_obstacle and veh_snap is not None:
+        if "dynamic_obstacle_force" in env:
+            terms["dynamic_obstacle_force"] = env["dynamic_obstacle_force"]
+        else:
+            p = params.dynamic_obstacle
+            vset, vvel, vact = snapshot_segment_pointset(
+                veh_snap, p.perception_threshold)
+            terms["dynamic_obstacle_force"] = forces.obstacle_force(
+                state.pos_x, state.pos_y, state.vel_x, state.vel_y,
+                state.radius, state.alive, vset, vvel, p,
+                use_ped_radius=params.use_ped_radius, obstacle_active=vact)
     return terms
 
 
 def compute_forces(state: PedState, scene: Scene, params: SfmParams,
-                   cfg: StepConfig):
+                   cfg: StepConfig, veh_snap: VehicleSnapshot | None = None):
     """Sum of enabled forces, masked to alive pedestrians: ``(fx, fy)``."""
-    terms = force_terms(state, scene, params, cfg)
+    terms = force_terms(state, scene, params, cfg, veh_snap)
     fx = torch.zeros_like(state.pos_x)
     fy = torch.zeros_like(state.pos_y)
     for tx, ty in terms.values():
@@ -172,12 +267,14 @@ def compute_forces(state: PedState, scene: Scene, params: SfmParams,
 
 
 def tick_core(state: PedState, scene: Scene, params: SfmParams,
-              cfg: StepConfig, sim_time: float):
+              cfg: StepConfig, sim_time: float,
+              veh_snap: VehicleSnapshot | None = None):
     """Steps 2-8 of the tick (everything except spawn and integration).
 
-    ``sim_time`` is a Python float holding a float32 value.  Returns
-    ``(state', (vx, vy), finished, record)``: the commanded velocity and the
-    pedestrians that arrived at their final waypoint this tick."""
+    ``sim_time`` is a Python float holding a float32 value; ``veh_snap``
+    this step's vehicles.  Returns ``(state', (vx, vy), finished,
+    record)``: the commanded velocity and the pedestrians that arrived at
+    their final waypoint this tick."""
     check_supported(scene, params, cfg)
     alive = state.alive
 
@@ -191,6 +288,12 @@ def tick_core(state: PedState, scene: Scene, params: SfmParams,
 
     # 4. gap acceptance: with no vehicles in the scene every gap is accepted
     checking = alive & (mode == modes.CHECKING_TRAFFIC)
+    if veh_snap is not None:
+        checking = checking & gap_ready(
+            state.pos_x, state.pos_y, state.wp_x, state.wp_y,
+            state.crossing_speed, state.safety_margin, veh_snap.center,
+            veh_snap.vel, veh_snap.extent, veh_snap.active,
+            strict_parity=params.strict_parity)
     mode, fsm_t, nmt = modes.set_mode(
         mode, fsm_t, nmt, state.base_speed, state.crossing_speed,
         modes.CROSSING_ROAD, checking, sim_time)
@@ -205,7 +308,7 @@ def tick_core(state: PedState, scene: Scene, params: SfmParams,
                       mode=state.mode, alive=state.alive)
 
     # 6-7. forces and commanded velocity
-    fx, fy = compute_forces(state, scene, params, cfg)
+    fx, fy = compute_forces(state, scene, params, cfg, veh_snap)
     vx, vy = vecmath.cap_velocity_xy(state.vel_x + cfg.dt * fx,
                                      state.vel_y + cfg.dt * fy,
                                      state.max_speed(params.max_speed_factor))
@@ -253,15 +356,18 @@ def sim_time_of(t_idx: int, dt: float) -> float:
 
 def simulation_step(state: PedState, scene: Scene, params: SfmParams,
                     cfg: StepConfig, t_idx: int):
-    """One headless tick (spawn, core, Euler step).  Returns
-    ``(new_state, RecordXY)``."""
+    """One headless tick (spawn, core, Euler step) of a prepared scene
+    (:func:`prepare_scene`).  Returns ``(new_state, RecordXY)``."""
+    check_supported(scene, params, cfg)
     sim_time = sim_time_of(t_idx, cfg.dt)
 
     # 1. spawn
     state = apply_spawn(state, scene.spawn, t_idx)
 
+    veh_snap = (vehicle_snapshot_at(scene.vehicles, t_idx)
+                if scene.vehicles is not None else None)
     state, (vx, vy), finished, record = tick_core(
-        state, scene, params, cfg, sim_time)
+        state, scene, params, cfg, sim_time, veh_snap)
 
     alive = state.alive
     if cfg.despawn_on_arrival:
@@ -286,7 +392,11 @@ def rollout(state: PedState, scene: Scene, params: SfmParams, cfg: StepConfig,
     ``(final_state, None)``.  ``record_stride=k`` keeps every k-th tick's
     snapshot (the first of each stride); ``num_steps`` must then be a
     multiple of ``k``.  The records are preallocated and filled in place.
+    The scene is prepared first (:func:`prepare_scene`; a no-op when it
+    already is).
     """
+    check_supported(scene, params, cfg)
+    scene = prepare_scene(scene)
     recs = None
     if record:
         if record_stride < 1:
@@ -313,8 +423,11 @@ def make_rollout_fn(scene: Scene, params: SfmParams, cfg: StepConfig,
                     num_steps: int, record: bool = True,
                     record_stride: int = 1):
     """Rollout closure ``run(state) -> (final_state, StepRecord | None)``,
-    the counterpart of the JAX package's jitted closure.  The state is not
-    modified, so callers may reuse it across runs."""
+    the counterpart of the JAX package's jitted closure.  The scene is
+    prepared once, here.  The state is not modified, so callers may reuse
+    it across runs."""
+    check_supported(scene, params, cfg)
+    scene = prepare_scene(scene)
 
     def run(state: PedState):
         return rollout(state, scene, params, cfg, num_steps, record=record,

@@ -20,11 +20,13 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..env.pointsets import ChunkedPointSet
 from ..models import params as P
 from ..models.routes import RouteBuffer
 from ..models.spawn import SpawnSchedule
 from ..models.state import PedState
-from ..models.stepper import StepConfig
+from ..models.stepper import Scene, StepConfig
+from ..models.vehicles import VehicleStates
 
 #: nested parameter groups of SfmParams and their dataclasses
 _PARAM_GROUPS = {
@@ -63,11 +65,19 @@ def params_from_fields(d: dict) -> P.SfmParams:
 def step_config_from_fields(d: dict) -> StepConfig:
     """The port's StepConfig from a flattened JAX ``StepConfig``.
 
-    ``pallas_symmetric`` becomes ``symmetric_pairs``.  ``use_pallas``, the
-    tile, VMEM, interpret and division knobs and the environment-kernel
-    settings are TPU launch choices with no counterpart: the device chooses
-    the path here.  ``interaction_cutoff`` carries over (and raises when a
-    step runs, until the cutoff slice is ported)."""
+    ``pallas_symmetric`` becomes ``symmetric_pairs``.  ``use_pallas``,
+    ``use_pallas_env``, the tile, VMEM, interpret and division knobs are
+    TPU launch choices with no counterpart: the device chooses the path
+    here.  ``env_compact`` and ``env_analytic`` raise when True (their
+    kernels belong to the urban and analytic slices of the port).
+    ``interaction_cutoff`` carries over (and raises when a step runs, until
+    the cutoff slice is ported)."""
+    for name, slice_name in (("env_compact", "urban"),
+                             ("env_analytic", "analytic border")):
+        if d[name]:
+            raise NotImplementedError(
+                f"{name}=True is not ported to PyTorch yet (the "
+                f"{slice_name} slice of the port)")
     return StepConfig(
         dt=float(d["dt"]), waypoint_threshold=float(d["waypoint_threshold"]),
         despawn_on_arrival=bool(d["despawn_on_arrival"]),
@@ -101,3 +111,43 @@ def spawn_schedule_from_fields(d: dict,
         else:
             kw[f.name] = None if v is None else _tensor(v, device)
     return SpawnSchedule(**kw)
+
+
+def chunked_pointset_from_fields(d: dict | None) -> ChunkedPointSet | None:
+    """The port's host-side ChunkedPointSet (numpy arrays) from a flattened
+    JAX ``ChunkedPointSet``."""
+    if d is None:
+        return None
+    return ChunkedPointSet(
+        **{f.name: (int(d[f.name]) if f.name == "num_segments"
+                    else np.array(d[f.name], copy=True))
+           for f in dataclasses.fields(ChunkedPointSet)})
+
+
+def vehicle_states_from_fields(d: dict | None, device: torch.device | str
+                               ) -> VehicleStates | None:
+    """The port's VehicleStates from a flattened JAX ``VehicleStates``."""
+    if d is None:
+        return None
+    return VehicleStates(
+        **{f.name: (int(d[f.name]) if f.name == "points_per_chunk"
+                    else _tensor(d[f.name], device))
+           for f in dataclasses.fields(VehicleStates)})
+
+
+def scene_from_fields(d: dict, device: torch.device | str) -> Scene:
+    """The port's Scene from a flattened JAX ``Scene``: the spawn schedule,
+    the border and static-obstacle point sets, the obstacle velocities and
+    the scripted vehicles.  The JAX scene's derived layouts (segment-major,
+    analytic, ORCA features) are not carried: the port's ``prepare_scene``
+    builds its own.  An autopilot fleet or social groups are carried as
+    their field dicts, so that a step of the port refuses them."""
+    vel = d.get("static_obstacle_vel")
+    return Scene(
+        spawn=spawn_schedule_from_fields(d["spawn"], device),
+        borders=chunked_pointset_from_fields(d.get("borders")),
+        static_obstacles=chunked_pointset_from_fields(
+            d.get("static_obstacles")),
+        static_obstacle_vel=None if vel is None else _tensor(vel, device),
+        vehicles=vehicle_states_from_fields(d.get("vehicles"), device),
+        autopilot=d.get("autopilot"), groups=d.get("groups"))

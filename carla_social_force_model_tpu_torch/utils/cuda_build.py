@@ -3,8 +3,9 @@
 The sources under ``csrc/`` compile into one shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds), placed in the
 package's ``build/`` directory and rebuilt whenever a source is newer than
-it.  Nothing here runs at import: the build happens on the first call that
-launches a kernel on a CUDA tensor.
+it.  Each ``.cu`` compiles in its own nvcc process, all started together,
+and one more nvcc links the objects.  Nothing here runs at import: the
+build happens on the first call that launches a kernel on a CUDA tensor.
 
 There is no fallback.  A missing nvcc or a failed build raises; callers
 holding CUDA tensors must not carry on with another implementation.
@@ -28,13 +29,25 @@ BUILD_LOG = BUILD_DIR / "nvcc.log"
 #: --use_fast_math: the kernels' exact f32 semantics are tested against the
 #: plain PyTorch versions
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _PTR = ctypes.c_void_p
-#: C signature of each pair-force entry: x, y, vx, vy, radius, alive, prm,
-#: use_radius, n, fx, fy, stream
-PAIR_FORCE_ARGTYPES = [_PTR] * 7 + [ctypes.c_int, ctypes.c_int] + [_PTR] * 3
-PAIR_FORCE_ENTRIES = ("sfm_pair_force_dense", "sfm_pair_force_sym")
+_INT = ctypes.c_int
+_FLOAT = ctypes.c_float
+#: C signature of each entry, by name (see the extern "C" blocks in csrc/)
+ARGTYPES = {
+    # x, y, vx, vy, radius, alive, prm, use_radius, n, fx, fy, stream
+    "sfm_pair_force_dense": [_PTR] * 7 + [_INT, _INT] + [_PTR] * 3,
+    "sfm_pair_force_sym": [_PTR] * 7 + [_INT, _INT] + [_PTR] * 3,
+    # px, py, prad, alive, ptx, pty, k, cx, cy, r2, s_count, a, b,
+    # use_radius, n, fx, fy, stream
+    "sfm_env_exp": ([_PTR] * 6 + [_INT] + [_PTR] * 3
+                    + [_INT, _FLOAT, _FLOAT, _INT, _INT] + [_PTR] * 3),
+    # px, py, pvx, pvy, prad, alive, ptx, pty, k, cx, cy, r2, ov, s_count,
+    # prm, use_radius, n, fx, fy, stream
+    "sfm_env_moussaid": ([_PTR] * 8 + [_INT] + [_PTR] * 4 + [_INT, _PTR]
+                         + [_INT, _INT] + [_PTR] * 3),
+}
 
 
 def find_nvcc() -> str:
@@ -55,23 +68,44 @@ def sources() -> list[Path]:
 
 def build_kernels() -> Path:
     """Compile ``csrc/*.cu`` into ``build/libsfm_kernels.so`` unless the
-    library is newer than every source.  nvcc's output (with ptxas's
-    register and shared-memory report) is kept in ``build/nvcc.log``.
-    Raises ``RuntimeError`` when nvcc is missing or fails."""
+    library is newer than every source: one nvcc per source, in parallel,
+    then one link.  nvcc's output (with ptxas's register and shared-memory
+    report) is kept in ``build/nvcc.log``.  Raises ``RuntimeError`` when
+    nvcc is missing or fails."""
     srcs = sources()
     if LIBRARY.exists() and LIBRARY.stat().st_mtime >= max(
             s.stat().st_mtime for s in srcs):
         return LIBRARY
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIBRARY.with_name(f"{LIBRARY.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in srcs if s.suffix == ".cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_LOG.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    nvcc = find_nvcc()
+    tag = os.getpid()
+    compiles = []
+    for src in (s for s in srcs if s.suffix == ".cu"):
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        compiles.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    log, failed = [], []
+    for cmd, _, proc in compiles:
+        out, err = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out + err)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]}: exit code {proc.returncode}\n{err}")
+    objs = [obj for _, obj, _ in compiles]
+    tmp = LIBRARY.with_name(f"{LIBRARY.name}.{tag}.tmp")
+    if not failed:
+        cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+               *(str(o) for o in objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link: exit code {proc.returncode}\n{proc.stderr}")
+    BUILD_LOG.write_text("".join(log))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
-                           f"{proc.stderr}")
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, LIBRARY)  # atomic: a concurrent build never sees half
     return LIBRARY
 
@@ -81,9 +115,9 @@ def load_kernels() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, with every entry's
     argument and result types declared."""
     lib = ctypes.CDLL(str(build_kernels()))
-    for name in PAIR_FORCE_ENTRIES:
+    for name, argtypes in ARGTYPES.items():
         fn = getattr(lib, name)
-        fn.argtypes = PAIR_FORCE_ARGTYPES
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     lib.sfm_cuda_error_string.argtypes = [ctypes.c_int]
     lib.sfm_cuda_error_string.restype = ctypes.c_char_p

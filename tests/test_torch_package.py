@@ -4,9 +4,12 @@ The port imports no JAX; its CUDA module imports on a host without nvcc or
 a card (the kernels build at their first launch); ``chip_smoke.py`` refuses
 to run without a card.
 """
+import ctypes
 import importlib
+import inspect
 import os
 import pkgutil
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -46,7 +49,11 @@ def test_port_imports_without_jax():
 
 
 def test_port_sources_never_import_jax():
-    for path in (ROOT / "carla_social_force_model_tpu_torch").rglob("*.py"):
+    """No module of the port, and not chip_smoke.py, imports JAX or the
+    JAX package (at any indentation)."""
+    paths = [*(ROOT / "carla_social_force_model_tpu_torch").rglob("*.py"),
+             ROOT / "chip_smoke.py"]
+    for path in paths:
         for line in path.read_text().splitlines():
             words = line.split()
             if words and words[0] in ("import", "from") and len(words) > 1:
@@ -91,7 +98,8 @@ def test_kernel_sources_are_packaged():
     srcs = [p.name for p in
             importlib.import_module(
                 "carla_social_force_model_tpu_torch.utils.cuda_build").sources()]
-    assert srcs == ["pair_forces.cu", "pair_forces.cuh"]
+    assert srcs == ["env_forces.cu", "pair_forces.cu", "env_forces.cuh",
+                    "pair_forces.cuh"]
     pyproject = (ROOT / "pyproject.toml").read_text()
     assert "csrc/*.cu" in pyproject and "csrc/*.cuh" in pyproject
 
@@ -117,6 +125,75 @@ def test_public_names():
     assert port.SfmParams is importlib.import_module(
         "carla_social_force_model_tpu_torch.models.params").SfmParams
     assert port.modes.CROSSING_ROAD == 2
-    state = port.PedState.empty(4)
+    state = port.PedState.empty(4, device="cpu")
     assert state.capacity == 4 and state.pos.shape == (4, 2)
     assert state.mode.dtype == torch.int32 and not state.alive.any()
+
+
+def _c_entries():
+    """Each ``sfm_*`` entry of the extern "C" blocks in csrc/*.cu, with the
+    ctypes type of each parameter as its C declaration gives it."""
+    entries = {}
+    for path in sorted((ROOT / "carla_social_force_model_tpu_torch"
+                        / "csrc").glob("*.cu")):
+        text = path.read_text()
+        for name, params in re.findall(r"\bint (sfm_\w+)\(([^)]*)\)\s*\{",
+                                       text):
+            types = []
+            for decl in params.split(","):
+                decl = " ".join(decl.split())
+                types.append(ctypes.c_void_p if "*" in decl
+                             else ctypes.c_float if decl.startswith("float")
+                             else ctypes.c_int)
+            entries[name] = types
+    return entries
+
+
+def test_declared_argtypes_match_the_c_entries():
+    """utils/cuda_build.ARGTYPES declares every C entry with the types of
+    its C signature (ctypes would cut a pointer declared as an int)."""
+    from carla_social_force_model_tpu_torch.utils import cuda_build
+    entries = _c_entries()
+    assert sorted(entries) == sorted(cuda_build.ARGTYPES)
+    for name, types in entries.items():
+        assert cuda_build.ARGTYPES[name] == types, name
+
+
+def _entry_points():
+    from carla_social_force_model_tpu_torch.api import synthetic
+    from carla_social_force_model_tpu_torch.env.borders import (
+        build_border_set)
+    from carla_social_force_model_tpu_torch.env.pointsets import (
+        segment_major)
+    from carla_social_force_model_tpu_torch.models import routes, vehicles
+    import numpy as np
+    spec = vehicles.VehicleSpec(trajectory=np.zeros((3, 2)),
+                                headings=np.zeros(3), speeds=np.ones(3))
+    borders = build_border_set([np.zeros((3, 2))], [np.zeros(2)], [1.0])
+    return {
+        "synthetic_crowd": (synthetic.synthetic_crowd, (4,)),
+        "benchmark_bundle": (synthetic.benchmark_bundle, (4,)),
+        "synthetic_vehicles": (synthetic.synthetic_vehicles,
+                               (10.0, 2, 0.05, 5)),
+        "PedState.empty": (port.PedState.empty, (4,)),
+        "build_route_buffer": (routes.build_route_buffer,
+                               ([np.zeros((2, 2))], [[False, True]])),
+        "build_vehicle_states": (vehicles.build_vehicle_states,
+                                 ([spec], 0.05, 5)),
+        "segment_major": (segment_major, (borders,)),
+    }
+
+
+@pytest.mark.parametrize("name", ["synthetic_crowd", "benchmark_bundle",
+                                  "synthetic_vehicles", "PedState.empty",
+                                  "build_route_buffer", "build_vehicle_states",
+                                  "segment_major"])
+def test_entry_points_default_to_the_card(name, monkeypatch):
+    """Every entry point that takes a device defaults to CUDA: without a
+    card it raises (no fallback to the CPU), and ``device="cpu"`` runs."""
+    fn, args = _entry_points()[name]
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    assert fn(*args, device="cpu") is not None
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        fn(*args)

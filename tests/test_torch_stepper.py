@@ -174,7 +174,7 @@ def test_benchmark_bundle_is_the_jax_scene():
     """Same seed, same crowd: the port draws the synthetic scene with numpy
     in the JAX package's order, and the two roll out alike."""
     js, jp, jc, jst = jax_benchmark_bundle(64, extent=10.0, use_pallas=False)
-    ps, pp, pc, pst = benchmark_bundle(64, extent=10.0)
+    ps, pp, pc, pst = benchmark_bundle(64, extent=10.0, device="cpu")
     jsched = fields_of(js.spawn)
     for f in dataclasses.fields(ps.spawn):
         got = getattr(ps.spawn, f.name)
@@ -230,7 +230,7 @@ def test_idle_promotion_at_a_float32_boundary_tick():
 
 
 def test_record_stride_keeps_first_of_each_stride():
-    ps, pp, pc, pst = benchmark_bundle(32, extent=8.0)
+    ps, pp, pc, pst = benchmark_bundle(32, extent=8.0, device="cpu")
     _, full = stepper.make_rollout_fn(ps, pp, pc, 12)(pst)
     final, strided = stepper.make_rollout_fn(ps, pp, pc, 12,
                                              record_stride=3)(pst)
@@ -243,7 +243,7 @@ def test_record_stride_keeps_first_of_each_stride():
 
 
 def test_rollout_leaves_the_initial_state_untouched():
-    ps, pp, pc, pst = benchmark_bundle(16, extent=6.0)
+    ps, pp, pc, pst = benchmark_bundle(16, extent=6.0, device="cpu")
     before = {f.name: getattr(pst, f.name).clone()
               for f in dataclasses.fields(pst)}
     stepper.make_rollout_fn(ps, pp, pc, 5, record=False)(pst)
@@ -253,13 +253,12 @@ def test_rollout_leaves_the_initial_state_untouched():
 
 UNPORTED = {
     "cutoff": (dict(), dict(), dict(interaction_cutoff=30.0)),
-    "borders": (dict(borders=object()), dict(enable_border=True), dict()),
-    "space_repulsive": (dict(borders=object()),
-                        dict(enable_border=False,
-                             enable_space_repulsive=True), dict()),
-    "static_obstacles": (dict(static_obstacles=object()),
-                         dict(enable_static_obstacle=True), dict()),
-    "vehicles": (dict(vehicles=object()), dict(), dict()),
+    "cutoff_with_borders": (dict(borders=object()), dict(enable_border=True),
+                            dict(interaction_cutoff=30.0)),
+    "env_compact": (dict(), dict(), dict(env_compact=True)),
+    "env_analytic": (dict(), dict(), dict(env_analytic=True)),
+    "autopilot_with_vehicles": (dict(autopilot=object(), vehicles=object()),
+                                dict(enable_dynamic_obstacle=True), dict()),
     "autopilot": (dict(autopilot=object()), dict(), dict()),
     "groups": (dict(groups=object()), dict(enable_group=True), dict()),
     "powerlaw": (dict(), dict(enable_powerlaw=True), dict()),
@@ -271,7 +270,7 @@ UNPORTED = {
 @pytest.mark.parametrize("feature", sorted(UNPORTED))
 def test_unported_terms_raise(feature):
     scene_kw, params_kw, cfg_kw = UNPORTED[feature]
-    ps, pp, pc, pst = benchmark_bundle(8, extent=5.0)
+    ps, pp, pc, pst = benchmark_bundle(8, extent=5.0, device="cpu")
     scene = dataclasses.replace(ps, **scene_kw)
     params = dataclasses.replace(pp, **params_kw)
     cfg = dataclasses.replace(pc, **cfg_kw)
@@ -282,7 +281,7 @@ def test_unported_terms_raise(feature):
 
 
 def test_pair_scale_and_law_id_raise():
-    ps, pp, pc, pst = benchmark_bundle(8, extent=5.0)
+    ps, pp, pc, pst = benchmark_bundle(8, extent=5.0, device="cpu")
     for col in ("pair_scale", "law_id"):
         spawn = dataclasses.replace(ps.spawn, **{col: torch.ones(8)})
         with pytest.raises(NotImplementedError, match="pair_scale/law_id"):
@@ -291,9 +290,27 @@ def test_pair_scale_and_law_id_raise():
 
 
 def test_benchmark_bundle_raises_for_environment_configs():
-    for kw in (dict(with_borders=True), dict(with_obstacles=True)):
-        with pytest.raises(NotImplementedError, match="environment slice"):
-            benchmark_bundle(8, **kw)
+    """Configs #2 and #3 (formerly refused here) build the JAX package's
+    scene: the same border and obstacle point sets, vehicle timeline and
+    params for the same arguments."""
+    for kw in (dict(with_borders=True), dict(with_obstacles=True),
+               dict(with_borders=True, with_obstacles=True)):
+        js, jp, _, _ = jax_benchmark_bundle(8, use_pallas=False,
+                                            num_steps_hint=30, **kw)
+        ps, pp, _, _ = benchmark_bundle(8, num_steps_hint=30, device="cpu",
+                                        **kw)
+        assert pp == convert.params_from_fields(fields_of(jp))
+        for name in ("borders", "static_obstacles", "vehicles"):
+            want, got = getattr(js, name), getattr(ps, name)
+            assert (got is None) == (want is None), name
+            if got is None:
+                continue
+            want = fields_of(want)
+            for f in dataclasses.fields(got):
+                value = getattr(got, f.name)
+                if isinstance(value, torch.Tensor):
+                    value = value.numpy()
+                np.testing.assert_array_equal(value, want[f.name])
 
 
 @pytest.mark.parametrize("strict", [False, True])
