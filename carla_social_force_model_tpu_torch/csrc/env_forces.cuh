@@ -12,31 +12,17 @@
 // would then be picked differently, and near a wall the force direction
 // would differ by up to (point spacing)/d radians.  With the rounding kept,
 // the kernel selects the same point and the same filter outcome as the
-// plain version on the same inputs.
+// plain version on the same inputs.  (The rounding macros and sq_norm_rn
+// live in pair_forces.cuh.)
 #pragma once
 
 #include <math.h>
 
 #include "pair_forces.cuh"
 
-// (the intrinsics exist in device code only: the host pass of nvcc and the
-// host compiler take the plain operators)
-#ifdef __CUDA_ARCH__
-#define SFM_MUL_RN(a, b) __fmul_rn(a, b)
-#define SFM_ADD_RN(a, b) __fadd_rn(a, b)
-#else
-#define SFM_MUL_RN(a, b) ((a) * (b))
-#define SFM_ADD_RN(a, b) ((a) + (b))
-#endif
-
 // squared distances at or above this are padding (PAD_COORD = 1e8), not a
 // closest point: ops/forces.py PAD_DIST2
 constexpr float kPadDist2 = 1e13f;
-
-// dx*dx + dy*dy, each operation rounded (no contraction)
-SFM_HD float sq_norm_rn(float dx, float dy) {
-  return SFM_ADD_RN(SFM_MUL_RN(dx, dx), SFM_MUL_RN(dy, dy));
-}
 
 // One step of the first-occurrence argmin over a segment's points, scanned
 // in ascending order: strict < keeps the earliest of equal distances (the

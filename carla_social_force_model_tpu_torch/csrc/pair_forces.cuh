@@ -23,6 +23,39 @@
 #define SFM_RSQRT(v) (1.0f / sqrtf(v))
 #endif
 
+// (the intrinsics exist in device code only: the host pass of nvcc and the
+// host compiler take the plain operators)
+#ifdef __CUDA_ARCH__
+#define SFM_MUL_RN(a, b) __fmul_rn(a, b)
+#define SFM_ADD_RN(a, b) __fadd_rn(a, b)
+#else
+#define SFM_MUL_RN(a, b) ((a) * (b))
+#define SFM_ADD_RN(a, b) ((a) + (b))
+#endif
+
+// dx*dx + dy*dy, each operation rounded (no contraction).  Every squared
+// distance that decides something -- a pair within the cutoff, a box test,
+// a closest point -- is taken so: nvcc would otherwise contract it into one
+// FMA, which the plain version's separate PyTorch multiplications and
+// addition never do, and a pair at the boundary would then be in on one
+// side and out on the other.
+SFM_HD float sq_norm_rn(float dx, float dy) {
+  return SFM_ADD_RN(SFM_MUL_RN(dx, dx), SFM_MUL_RN(dy, dy));
+}
+
+// Squared gap between a row box and a column box, each [min_x, max_x,
+// min_y, max_y] over alive agents (ops/pair_grid.py _bbox_hits).  It never
+// exceeds sq_norm_rn of any (row, column) pair of the two boxes: max,
+// subtraction and rounding are monotonic, and fl(a - b) = -fl(b - a).  So
+// a tile pair whose gap exceeds the squared cutoff holds no pair within
+// it.  An empty box is (+inf, -inf, +inf, -inf): its gap is +inf.
+SFM_HD float box_gap2(float rx0, float rx1, float ry0, float ry1, float cx0,
+                      float cx1, float cy0, float cy1) {
+  const float gx = fmaxf(fmaxf(cx0 - rx1, rx0 - cx1), 0.0f);
+  const float gy = fmaxf(fmaxf(cy0 - ry1, ry0 - cy1), 0.0f);
+  return sq_norm_rn(gx, gy);
+}
+
 struct MoussaidPrm {
   float lam, A, gamma, n, n_prime, eps;
 };

@@ -15,10 +15,11 @@ One step keeps the reference's per-tick order (see the JAX package):
 8. waypoint arrival: advance and mode change, or despawn;
 9. x' = x + dt*v'.
 
-This covers the headless crowd (BASELINE config #1) and its environment
-(configs #2 and #3).  Terms the JAX step computes and this port does not
-have yet raise ``NotImplementedError`` naming the slice that brings them,
-rather than being skipped.
+This covers the headless crowd (BASELINE config #1), its environment
+(configs #2 and #3) and the interaction cutoff of large crowds.  Terms the
+JAX step computes and this port does not have yet raise
+``NotImplementedError`` naming the slice that brings them, rather than
+being skipped.
 
 The device chooses the kernel path: the CUDA kernels on a card, the plain
 PyTorch versions on the CPU (ops/cuda_forces.py, ops/cuda_env.py).  A
@@ -37,7 +38,8 @@ import torch
 from ..env.pointsets import ChunkedPointSet, SegmentPointSet, segment_major
 from ..ops import forces, vecmath
 from ..ops.cuda_env import fused_environment_terms
-from ..ops.cuda_forces import pedestrian_force_kernel
+from ..ops.cuda_forces import pedestrian_force_kernel, pedestrian_force_sorted
+from ..ops.spatial import morton_order
 from . import modes
 from .gap import gap_ready
 from .params import SfmParams
@@ -115,8 +117,20 @@ class StepConfig:
     #: port) and analytic border geometry (the analytic slice); True raises
     env_compact: bool = False
     env_analytic: bool = False
-    #: interaction cutoff [m]; not supported yet (raises)
+    #: interaction cutoff [m]: pairs farther apart contribute nothing, and
+    #: the pair force runs on curve-sorted planes whose tile pairs beyond
+    #: the cutoff are skipped (ops/cuda_forces.pedestrian_force_sorted).
+    #: None = all pairs.  A cutoff >= 110*gamma*(2*lambda*v_max + 1) is
+    #: f32-exact; smaller ones truncate the interaction range
     interaction_cutoff: float | None = None
+    #: with a cutoff, drive the launch by a per-step survivor table above
+    #: the static gate of ops/pair_grid.compact_gate (exact either way).
+    #: The JAX package's ``pallas_compact``
+    compact_pairs: bool = True
+    #: survivor-table width (0 = auto); the JAX package's ``pallas_max_surv``
+    pair_max_surv: int = 0
+    #: space-filling curve of the cutoff sort: "hilbert" or "morton"
+    spatial_order: str = "hilbert"
 
 
 class StepRecord(NamedTuple):
@@ -154,8 +168,6 @@ def _not_ported(what: str, slice_name: str):
 def check_supported(scene: Scene, params: SfmParams, cfg: StepConfig) -> None:
     """Raise ``NotImplementedError`` for every term the JAX step would
     compute for this (scene, params, cfg) that this slice does not have."""
-    if cfg.interaction_cutoff is not None:
-        _not_ported("interaction_cutoff", "large-N cutoff")
     if cfg.env_compact:
         _not_ported("env_compact (the compacted environment kernels)",
                     "urban")
@@ -196,8 +208,17 @@ def force_terms(state: PedState, scene: Scene, params: SfmParams,
     borders = _segments(scene.borders, scene.borders_seg, "borders")
     statics = _segments(scene.static_obstacles, scene.static_obstacles_seg,
                         "static_obstacles")
+    cutoff = cfg.interaction_cutoff
+    order = None
+    if (cutoff is not None and params.enable_pedestrian
+            and not cfg.plain_pair_force and not cfg.plain_env_force
+            and cfg.spatial_order == "hilbert"):
+        # the environment kernels sort by the same key with the same stable
+        # sort: one permutation serves both (it changes no result)
+        order = morton_order(state.pos_x, state.pos_y, state.alive, "hilbert")
     env = ({} if cfg.plain_env_force
-           else fused_environment_terms(state, scene, params, veh_snap))
+           else fused_environment_terms(state, scene, params, veh_snap,
+                                        order=order))
     zero = torch.zeros_like(state.pos_x)
     terms: dict = {}
     if params.enable_acceleration:
@@ -211,7 +232,13 @@ def force_terms(state: PedState, scene: Scene, params: SfmParams,
         if cfg.plain_pair_force:
             terms["pedestrian_force"] = forces.pedestrian_force(
                 *args, use_ped_radius=params.use_ped_radius,
-                row_block=cfg.row_block)
+                row_block=cfg.row_block, cutoff=cutoff)
+        elif cutoff is not None:
+            terms["pedestrian_force"] = pedestrian_force_sorted(
+                *args, cutoff, use_ped_radius=params.use_ped_radius,
+                symmetric=cfg.symmetric_pairs, compact=cfg.compact_pairs,
+                max_surv=cfg.pair_max_surv, spatial_order=cfg.spatial_order,
+                row_block=cfg.row_block, order=order)
         else:
             terms["pedestrian_force"] = pedestrian_force_kernel(
                 *args, use_ped_radius=params.use_ped_radius,

@@ -187,11 +187,17 @@ def environment_jobs(scene, params, veh_snap):
 
 
 def fused_environment_terms(state, scene, params, veh_snap,
-                            compact: bool = False, analytic: bool = False):
+                            compact: bool = False, analytic: bool = False,
+                            order=None):
     """Environment force terms through the kernels, keyed like
     ``models.stepper.force_terms``: one Hilbert sort of the pedestrians
     shared by every term, one kernel launch per term, then the scatter
     back to slot order and the crossing-mode rule.
+
+    ``order``: an optional ``(perm, inv)`` of :func:`.spatial.morton_order`
+    with ``"hilbert"`` on the state's positions and liveness (the same
+    permutation this function would compute), so that a caller sorting for
+    another kernel sorts once.
 
     Covers the dense form over sampled points (``prepare_scene``'s
     segment-major layouts).  ``compact`` and ``analytic`` raise: their
@@ -205,8 +211,8 @@ def fused_environment_terms(state, scene, params, veh_snap,
     jobs = environment_jobs(scene, params, veh_snap)
     if not jobs:
         return {}
-    perm, inv = morton_order(state.pos_x, state.pos_y, state.alive,
-                             order="hilbert")
+    perm, inv = order if order is not None else morton_order(
+        state.pos_x, state.pos_y, state.alive, order="hilbert")
     px, py, vx, vy, rad, alive = (
         a[perm] for a in (state.pos_x, state.pos_y, state.vel_x,
                           state.vel_y, state.radius, state.alive))

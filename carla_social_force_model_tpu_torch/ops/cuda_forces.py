@@ -1,6 +1,6 @@
 """CUDA pair-force kernels and their dispatch (port of ops/pallas_forces.py).
 
-Two kernels from ``csrc/pair_forces.cu``, each behind a ctypes wrapper that
+The kernels of ``csrc/pair_forces.cu``, each behind a ctypes wrapper that
 checks its inputs, allocates its outputs, launches on PyTorch's current
 stream and counts the launch:
 
@@ -8,22 +8,35 @@ stream and counts the launch:
   to the column (the JAX package's ``_pair_kernel_sym``); the default.
 * :func:`pair_force_dense` -- every row summed over every column (the JAX
   package's ``_pair_kernel``); deterministic.
+* :func:`pair_force_cutoff` -- their cutoff forms, on Hilbert-sorted
+  planes with the boxes and table of ``ops/pair_grid.cutoff_grid``, one
+  kernel per form: ``pair_force_sym_cutoff`` (the static triangle with the
+  box test), ``pair_force_sym_compact`` (driven by the survivor table of
+  hits and triangle), ``pair_force_dense_cutoff`` (every column tile with
+  the box test) and ``pair_force_compact`` (the JAX package's
+  ``_pair_kernel_compact``: only the surviving column tiles; equal to
+  ``pair_force_dense_cutoff`` bitwise).
 
-:func:`pedestrian_force_kernel` chooses by the tensors' device: CPU tensors
-go to the plain PyTorch version (:func:`..ops.forces.pedestrian_force`),
-CUDA tensors go to a kernel or raise.  No path falls back from the kernel to
-the plain version.
+:func:`pedestrian_force_kernel` (all pairs) and
+:func:`pedestrian_force_sorted` (the cutoff path: sort, force, unsort)
+choose by the tensors' device: CPU tensors go to the plain PyTorch version
+(:func:`..ops.forces.pedestrian_force`), CUDA tensors go to a kernel or
+raise.  No path falls back from the kernel to the plain version.
 """
 from __future__ import annotations
 
 import torch
 
 from . import forces
+from .pair_grid import COL_TILE, SYM_TILE, CutoffGrid, cutoff_grid
+from .spatial import morton_order
 from ..models.params import MoussaidParams, moussaid_vector
 
 #: launches per kernel since the last :func:`reset_launch_counts`; each
 #: wrapper adds one where it launches its kernel and nowhere else
-LAUNCHES = {"pair_force_sym": 0, "pair_force_dense": 0}
+LAUNCHES = {"pair_force_sym": 0, "pair_force_dense": 0,
+            "pair_force_sym_cutoff": 0, "pair_force_sym_compact": 0,
+            "pair_force_dense_cutoff": 0, "pair_force_compact": 0}
 
 
 def reset_launch_counts() -> None:
@@ -53,14 +66,40 @@ def _check_inputs(planes, alive, prm):
                          f"{x.device}")
 
 
+def _check_grid(grid: CutoffGrid, n: int, dev):
+    """The boxes and table a cutoff kernel reads, against the shapes its C
+    entry assumes for ``n`` agents."""
+    tile = SYM_TILE if grid.form.startswith("sym") else COL_TILE
+    want = [("boxes", grid.boxes, torch.float32, (4, -(-n // tile)))]
+    if grid.form.endswith("compact"):
+        rows = -(-n // SYM_TILE)
+        if grid.max_surv < 1:
+            raise ValueError("a survivor table needs max_surv >= 1")
+        want += [("surv", grid.surv, torch.int32, (rows, grid.max_surv)),
+                 ("counts", grid.counts, torch.int32, (rows,))]
+    for name, t, dtype, shape in want:
+        if (t is None or t.device != dev or t.dtype != dtype
+                or t.shape != shape or not t.is_contiguous()):
+            raise ValueError(f"{grid.form} needs {name} as a contiguous "
+                             f"{dtype} {shape} tensor on {dev}")
+
+
 def _launch(name: str, pos_x, pos_y, vel_x, vel_y, radius, alive, prm,
-            use_radius: bool):
+            use_radius: bool, grid: CutoffGrid | None = None):
     from ..utils.cuda_build import load_kernels
     planes = (pos_x, pos_y, vel_x, vel_y, radius)
     _check_inputs(planes, alive, prm)
+    n = pos_x.shape[0]
+    grid_args = []
+    if grid is not None:
+        _check_grid(grid, n, pos_x.device)
+        grid_args.append(grid.boxes.data_ptr())
+        if grid.surv is not None:
+            grid_args += [grid.surv.data_ptr(), grid.counts.data_ptr(),
+                          grid.max_surv]
+        grid_args.append(grid.c2)
     fx = torch.zeros_like(pos_x)
     fy = torch.zeros_like(pos_y)
-    n = pos_x.shape[0]
     if n == 0:
         return fx, fy
     lib = load_kernels()
@@ -68,7 +107,8 @@ def _launch(name: str, pos_x, pos_y, vel_x, vel_y, radius, alive, prm,
         stream = torch.cuda.current_stream(pos_x.device).cuda_stream
         err = getattr(lib, f"sfm_{name}")(
             *(t.data_ptr() for t in planes), alive.data_ptr(), prm.data_ptr(),
-            int(use_radius), n, fx.data_ptr(), fy.data_ptr(), stream)
+            int(use_radius), n, *grid_args, fx.data_ptr(), fy.data_ptr(),
+            stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err} "
                            f"({lib.sfm_cuda_error_string(err).decode()})")
@@ -94,6 +134,19 @@ def pair_force_dense(pos_x, pos_y, vel_x, vel_y, radius, alive, prm,
                    alive, prm, use_radius)
 
 
+def pair_force_cutoff(pos_x, pos_y, vel_x, vel_y, radius, alive, prm,
+                      grid: CutoffGrid, use_radius: bool = False):
+    """Moussaid pair force over the pairs within the cutoff, ``(fx, fy)``,
+    through the kernel ``pair_force_<grid.form>`` (the grid comes from
+    :func:`..ops.pair_grid.cutoff_grid` of the same planes).  The planes should be sorted along a space-filling
+    curve, or few tile pairs skip; the result does not depend on the order
+    beyond f32 summation order.  The symmetric forms use atomics (the last
+    bits vary from run to run); the dense forms are deterministic, and
+    ``"compact"`` equals ``"dense_cutoff"`` bitwise."""
+    return _launch("pair_force_" + grid.form, pos_x, pos_y, vel_x, vel_y,
+                   radius, alive, prm, use_radius, grid)
+
+
 def pedestrian_force_kernel(pos_x, pos_y, vel_x, vel_y, radius, alive,
                             p: MoussaidParams, use_ped_radius: bool = False,
                             symmetric: bool = True, row_block: int = 1024):
@@ -113,3 +166,41 @@ def pedestrian_force_kernel(pos_x, pos_y, vel_x, vel_y, radius, alive,
     kernel = pair_force_sym if symmetric else pair_force_dense
     return kernel(pos_x, pos_y, vel_x, vel_y, radius, alive,
                   moussaid_vector(p, dev), use_radius=use_ped_radius)
+
+
+def pedestrian_force_sorted(pos_x, pos_y, vel_x, vel_y, radius, alive,
+                            p: MoussaidParams, cutoff: float,
+                            use_ped_radius: bool = False,
+                            symmetric: bool = True, compact: bool = True,
+                            max_surv: int = 0, spatial_order: str = "hilbert",
+                            row_block: int = 1024, order=None):
+    """The cutoff pair force, ``(fx, fy)`` in slot order: the counterpart of
+    the JAX package's ``pedestrian_force_pallas_sorted``.
+
+    Sorts the operands along the space-filling curve (``spatial_order``;
+    ``order`` may pass a ``(perm, inv)`` from :func:`..ops.spatial.
+    morton_order` of the same positions and liveness, which is the same
+    permutation), computes the force over the pairs within ``cutoff``, and
+    scatters it back.  On CPU tensors the force is the plain version; on
+    CUDA tensors it is the kernel of :func:`..ops.pair_grid.cutoff_grid`
+    (``symmetric``, ``compact``, ``max_surv`` choose it), or it raises.  A
+    cutoff >= 110*gamma*(2*lambda*v_max + 1) gives the no-cutoff result
+    exactly."""
+    dev = pos_x.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no pair-force path for device {dev}")
+    perm, inv = order if order is not None else morton_order(
+        pos_x, pos_y, alive, spatial_order)
+    planes = [a[perm] for a in (pos_x, pos_y, vel_x, vel_y, radius)]
+    salive = alive[perm]
+    if dev.type == "cpu":
+        fx, fy = forces.pedestrian_force(*planes, salive, p,
+                                         use_ped_radius=use_ped_radius,
+                                         row_block=row_block, cutoff=cutoff)
+    else:
+        grid = cutoff_grid(planes[0], planes[1], salive, cutoff,
+                           symmetric=symmetric, compact=compact,
+                           max_surv=max_surv)
+        fx, fy = pair_force_cutoff(*planes, salive, moussaid_vector(p, dev),
+                                   grid, use_radius=use_ped_radius)
+    return fx[inv], fy[inv]

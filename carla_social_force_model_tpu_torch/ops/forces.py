@@ -5,10 +5,11 @@ CPU path, the reference the kernels are held against on the card, and the
 parity target of the CPU tests against the JAX package.
 
 * :func:`pedestrian_force` -- the pair-force kernels
-  (``csrc/pair_forces.cu``).  The masks and zero-guards are those of the
-  JAX package's ``forces._moussaid_pair_force`` (forces.py:76-113): a pair
-  contributes only when both agents are alive, it is not a self pair, the
-  positions differ (``d2 > 0``) and the interaction vector does not vanish
+  (``csrc/pair_forces.cu``), with ``cutoff`` their cutoff forms.  The masks
+  and zero-guards are those of the JAX package's
+  ``forces._moussaid_pair_force`` (forces.py:76-113): a pair contributes
+  only when both agents are alive, it is not a self pair, the positions
+  differ (``d2 > 0``) and the interaction vector does not vanish
   (``B > 0``), so coincident agents give exactly zero, never NaN.
 * :func:`env_exp_force` and :func:`env_moussaid_force` -- the environment
   kernels (``csrc/env_forces.cu``), on the segment-major layout they read
@@ -24,6 +25,7 @@ import torch
 
 from . import vecmath
 from .geometry import segment_filter_mask
+from .pair_grid import cutoff_sq
 from ..models import modes
 from ..models.params import (AccelerationParams, BorderParams, MoussaidParams,
                              SpaceRepulsiveParams)
@@ -88,27 +90,40 @@ def _moussaid_pair_force(dx, dy, radius_sub, dvx, dvy, p: MoussaidParams,
 
 def pedestrian_force(pos_x, pos_y, vel_x, vel_y, radius, alive,
                      p: MoussaidParams, use_ped_radius: bool = False,
-                     row_block: int = 1024):
+                     row_block: int = 1024, cutoff: float | None = None,
+                     rows=None):
     """Full N x N pedestrian interaction force (reference forces.py:74-117),
     planar: returns ``(fx, fy)``.
 
     Row-blocked so the pairwise intermediates stay ``(row_block, N)``
     regardless of the population.  Dead rows come out exactly zero.
+
+    ``cutoff`` [m]: pairs farther apart contribute nothing -- the plain
+    version of the cutoff kernels (the JAX package's per-pair
+    ``d2 <= cutoff * cutoff`` in ``_pair_tile``), with no sort and no
+    tiles.  ``rows``: an optional index tensor; only those rows' forces are
+    computed (against every column) and returned, in its order.
     """
     n = pos_x.shape[0]
     col = torch.arange(n, device=pos_x.device)
-    fx_out = torch.empty_like(pos_x)
-    fy_out = torch.empty_like(pos_y)
-    for lo in range(0, n, row_block):
-        hi = min(lo + row_block, n)
-        dx = pos_x[None, :] - pos_x[lo:hi, None]        # x_j - x_i
-        dy = pos_y[None, :] - pos_y[lo:hi, None]
-        dvx = vel_x[lo:hi, None] - vel_x[None, :]       # v_i - v_j
-        dvy = vel_y[lo:hi, None] - vel_y[None, :]
-        radius_sub = ((radius[lo:hi, None] + radius[None, :])
+    ids = col if rows is None else rows
+    m = ids.shape[0]
+    c2 = None if cutoff is None else cutoff_sq(cutoff)
+    fx_out = torch.empty(m, dtype=pos_x.dtype, device=pos_x.device)
+    fy_out = torch.empty(m, dtype=pos_y.dtype, device=pos_y.device)
+    for lo in range(0, m, row_block):
+        hi = min(lo + row_block, m)
+        r = slice(lo, hi) if rows is None else rows[lo:hi]
+        dx = pos_x[None, :] - pos_x[r, None]            # x_j - x_i
+        dy = pos_y[None, :] - pos_y[r, None]
+        dvx = vel_x[r, None] - vel_x[None, :]           # v_i - v_j
+        dvy = vel_y[r, None] - vel_y[None, :]
+        radius_sub = ((radius[r, None] + radius[None, :])
                       if use_ped_radius else 0.0)
-        not_self = col[lo:hi, None] != col[None, :]
-        pair_ok = alive[lo:hi, None] & alive[None, :] & not_self
+        not_self = ids[lo:hi, None] != col[None, :]
+        pair_ok = alive[r, None] & alive[None, :] & not_self
+        if c2 is not None:
+            pair_ok = pair_ok & (dx * dx + dy * dy <= c2)
         fx, fy = _moussaid_pair_force(dx, dy, radius_sub, dvx, dvy, p,
                                       pair_ok)
         fx_out[lo:hi] = fx.sum(dim=1)

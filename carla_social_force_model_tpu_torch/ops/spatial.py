@@ -1,10 +1,12 @@
-"""Spatial locality ordering for the environment kernels (port of
-ops/spatial.py: the curve keys and the sort).
+"""Spatial locality ordering and tile bookkeeping for the kernels that skip
+work by distance (port of ops/spatial.py).
 
 Sorting pedestrians along a space-filling curve puts nearby agents in the
-same kernel block, so a block's bounding box is tight and the environment
-kernels skip every segment whose filter circle misses it.  The force sums
-are per pedestrian, so the order changes no result.
+same kernel block, so a block's bounding box is tight: the environment
+kernels skip every segment whose filter circle misses it, and the cutoff
+pair kernels every tile pair whose boxes lie farther apart than the cutoff
+(:func:`tile_bboxes`, :func:`surv_table`).  The force sums are per
+pedestrian, so the order changes no result beyond f32 summation order.
 
 Keys are int64 holding the JAX package's uint32 values exactly (torch's sort
 of ``uint32`` is not dependable): dead slots key to ``0xFFFFFFFF``, alive
@@ -94,3 +96,50 @@ def morton_sort(pos_x, pos_y, alive, arrays, order: str = "morton"):
     JAX package's ``lax.sort`` order exactly."""
     perm, inv = morton_order(pos_x, pos_y, alive, order)
     return tuple(a[perm] for a in arrays), inv
+
+
+def surv_counts(hits, max_surv: int):
+    """Each row's surviving column indices, ascending, compacted to the
+    front: ``(surv, counts)`` with ``surv`` (R, max_surv) int32 padded with
+    -1 and ``counts`` (R,) int32, the number of hits of each row (a row
+    with ``counts > max_surv`` has overflowed: its table lists only its
+    first ``max_surv`` hits).
+
+    No sort and no host synchronisation: a row-wise running count of the
+    hits gives each hit its slot, and a batched binary search finds the
+    column where the count first reaches ``s + 1`` -- the ``s``-th hit."""
+    r, c = hits.shape
+    cum = torch.cumsum(hits, dim=1, dtype=torch.int32)
+    counts = (cum[:, -1].contiguous() if c
+              else torch.zeros(r, dtype=torch.int32, device=hits.device))
+    want = torch.arange(1, max_surv + 1, dtype=torch.int32,
+                        device=hits.device).expand(r, max_surv).contiguous()
+    col = torch.searchsorted(cum, want, out_int32=True) if c else want * 0
+    return torch.where(want <= counts[:, None], col, -1), counts
+
+
+def surv_table(hits, max_surv: int):
+    """Compact each row's surviving column-tile indices to the front.
+
+    ``hits``: (R, C) bool tile-pair hit matrix.  Returns ``(surv, fits)``:
+    ``surv`` (R, max_surv) int32 of ascending surviving column indices with
+    -1 padding, ``fits`` a 0-d bool tensor -- True iff no row overflows
+    ``max_surv``.  The ascending order makes a compacted kernel's
+    accumulation order that of the dense grid."""
+    surv, counts = surv_counts(hits, max_surv)
+    return surv, (counts <= max_surv).all()
+
+
+def tile_bboxes(x, y, alive, tile: int):
+    """Per-tile bounding boxes of alive agents.
+
+    ``x``/``y``/``alive``: (n_pad,) with n_pad a multiple of ``tile``.
+    Returns (n_tiles, 4) f32 [min_x, max_x, min_y, max_y]; empty tiles get
+    (+inf, -inf, +inf, -inf) so any distance test skips them."""
+    n_tiles = x.shape[0] // tile
+    xm = torch.where(alive, x, torch.inf).reshape(n_tiles, tile)
+    xM = torch.where(alive, x, -torch.inf).reshape(n_tiles, tile)
+    ym = torch.where(alive, y, torch.inf).reshape(n_tiles, tile)
+    yM = torch.where(alive, y, -torch.inf).reshape(n_tiles, tile)
+    return torch.stack([xm.amin(dim=1), xM.amax(dim=1),
+                        ym.amin(dim=1), yM.amax(dim=1)], dim=1)

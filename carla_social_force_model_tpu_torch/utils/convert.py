@@ -65,13 +65,15 @@ def params_from_fields(d: dict) -> P.SfmParams:
 def step_config_from_fields(d: dict) -> StepConfig:
     """The port's StepConfig from a flattened JAX ``StepConfig``.
 
-    ``pallas_symmetric`` becomes ``symmetric_pairs``.  ``use_pallas``,
-    ``use_pallas_env``, the tile, VMEM, interpret and division knobs are
-    TPU launch choices with no counterpart: the device chooses the path
-    here.  ``env_compact`` and ``env_analytic`` raise when True (their
-    kernels belong to the urban and analytic slices of the port).
-    ``interaction_cutoff`` carries over (and raises when a step runs, until
-    the cutoff slice is ported)."""
+    ``pallas_symmetric`` becomes ``symmetric_pairs``, ``pallas_compact``
+    ``compact_pairs`` and ``pallas_max_surv`` ``pair_max_surv``;
+    ``interaction_cutoff`` and ``spatial_order`` carry over (the port
+    applies the cutoff on every device, where the JAX package applies it on
+    its Pallas path only).  ``use_pallas``, ``use_pallas_env``, the tile,
+    VMEM, interpret and division knobs are TPU launch choices with no
+    counterpart: the device chooses the path here.  ``env_compact`` and
+    ``env_analytic`` raise when True (their kernels belong to the urban and
+    analytic slices of the port)."""
     for name, slice_name in (("env_compact", "urban"),
                              ("env_analytic", "analytic border")):
         if d[name]:
@@ -84,7 +86,10 @@ def step_config_from_fields(d: dict) -> StepConfig:
         row_block=int(d["row_block"]),
         symmetric_pairs=bool(d["pallas_symmetric"]),
         interaction_cutoff=(None if d["interaction_cutoff"] is None
-                            else float(d["interaction_cutoff"])))
+                            else float(d["interaction_cutoff"])),
+        compact_pairs=bool(d["pallas_compact"]),
+        pair_max_surv=int(d["pallas_max_surv"]),
+        spatial_order=str(d["spatial_order"]))
 
 
 def ped_state_from_fields(d: dict, device: torch.device | str) -> PedState:

@@ -39,6 +39,18 @@ ARGTYPES = {
     # x, y, vx, vy, radius, alive, prm, use_radius, n, fx, fy, stream
     "sfm_pair_force_dense": [_PTR] * 7 + [_INT, _INT] + [_PTR] * 3,
     "sfm_pair_force_sym": [_PTR] * 7 + [_INT, _INT] + [_PTR] * 3,
+    # x, y, vx, vy, radius, alive, prm, use_radius, n, col_bb, c2, fx, fy,
+    # stream
+    "sfm_pair_force_dense_cutoff": ([_PTR] * 7 + [_INT, _INT, _PTR, _FLOAT]
+                                    + [_PTR] * 3),
+    "sfm_pair_force_sym_cutoff": ([_PTR] * 7 + [_INT, _INT, _PTR, _FLOAT]
+                                  + [_PTR] * 3),
+    # x, y, vx, vy, radius, alive, prm, use_radius, n, col_bb, surv, counts,
+    # max_surv, c2, fx, fy, stream
+    "sfm_pair_force_compact": ([_PTR] * 7 + [_INT, _INT] + [_PTR] * 3
+                               + [_INT, _FLOAT] + [_PTR] * 3),
+    "sfm_pair_force_sym_compact": ([_PTR] * 7 + [_INT, _INT] + [_PTR] * 3
+                                   + [_INT, _FLOAT] + [_PTR] * 3),
     # px, py, prad, alive, ptx, pty, k, cx, cy, r2, s_count, a, b,
     # use_radius, n, fx, fy, stream
     "sfm_env_exp": ([_PTR] * 6 + [_INT] + [_PTR] * 3

@@ -8,9 +8,11 @@ and ``models.stepper.make_rollout_fn`` at N = 10,000 pedestrians, 1,000
 steps of dt = 0.05 s each: BASELINE config #1 (the headless crowd: the
 pair-force kernels), config #2 (+ sidewalk borders: ``env_exp``) and
 config #3 (+ parked cars and moving vehicles: ``env_exp`` and
-``env_moussaid``).  It counts the kernel launches of each path, and checks
-recorded 50-step rollouts through the kernels against the same rollouts
-through the plain versions.
+``env_moussaid``); then config #1 with a 30 m interaction cutoff at 10,000
+and 50,000 (1,000 steps) and 1,000,000 pedestrians (200 steps), through the
+cutoff forms of the pair kernels.  It counts the kernel launches of each
+path, and checks every step of 50-step rollouts through the kernels
+against the same step through the plain versions from the same state.
 
 Run from the repository root, with no arguments:
 
@@ -37,10 +39,30 @@ PARITY_STEPS = 50
 #: f32 summation order (the symmetric kernel's atomics change it from run
 #: to run) and last-ulp differences of rsqrt/atan2/exp
 ATOL = RTOL = 1e-4
-#: end to end, 50 steps through the kernel vs through the plain version:
-#: f32 summation order only, over a horizon short enough that the crowd's
-#: chaotic divergence does not amplify it
+#: end to end, one step from the same state through the kernels and through
+#: the plain versions, at every step of a 50-step rollout: the kernels'
+#: force error (ATOL/RTOL) moves an agent by at most dt^2 * 1e-4 * |f| (or,
+#: velocity-capped, dt * 2 m/s * 1e-4), plus a few ulps of a 100 m position
+POS_STEP_TOL_M = 1e-4
+#: end to end, 50 free-running steps through the kernels vs through the
+#: plain versions (config #1 only: no agent there amplifies a difference
+#: within 50 steps; in config #3 an agent pinned against a border doubles
+#: a one-ulp difference about every five steps, so that comparison is
+#: printed, not held to a limit)
 POS_TOL_M = 1e-3
+#: the cutoff path: BASELINE config #1 with a 30 m interaction cutoff at
+#: the sizes users run it (extent sqrt(N): 0.25 pedestrians/m^2); the
+#: kernel checks use seeded crowds of CUT_CHECK_N and a row sample at CUT_BIG_N
+CUTOFF_M = 30.0
+CUT_CHECK_N = (10_000, 50_000)
+CUT_N = 50_000
+CUT_STEPS = 1_000
+CUT_BIG_N = 1_000_000
+CUT_BIG_STEPS = 200
+SAMPLE_ROWS = 4_096
+#: an explicit survivor-table width that forces the compacted kernels at
+#: N = 10,000 (79 tiles of 128, 40 of 256 per row)
+FORCED_MAX_SURV = 32
 #: kernel vs the float64 numpy oracle (tests/oracle.py) on a small crowd
 ORACLE_N = 200
 ORACLE_TOL = 1e-4
@@ -67,7 +89,10 @@ EXP_TERM_OPS, EXP_TERM_MUFU = 21, 3
 
 
 def fail(msg: str) -> None:
+    """Print the failure on both streams (a caller that keeps only the end
+    of standard error still sees it) and exit 1."""
     print(f"FAIL: {msg}", flush=True)
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -162,6 +187,400 @@ def env_work(seg, px, py, alive, active, moussaid):
     n_bytes = (n * 4 * (5 if moussaid else 3) + n + seg.x.numel() * 8
                + s * 4 * (5 if moussaid else 3) + n * 8)
     return n_bytes, ops, mufu, int(pairs.sum())
+
+
+def sorted_crowd(n, seed, dev):
+    """A seeded crowd (10% dead, one coincident pair, extent sqrt(N)) in the
+    Hilbert order the cutoff path gives its kernels."""
+    import numpy as np
+    from carla_social_force_model_tpu_torch.ops.spatial import morton_order
+    planes = to_planes(*seeded_crowd(n, seed, float(np.sqrt(n))), dev)
+    perm, _ = morton_order(planes[0], planes[1], planes[5], "hilbert")
+    return [t[perm].contiguous() for t in planes]
+
+
+def cutoff_grids(planes):
+    """The launch grids of the four cutoff kernels on ``planes``: each
+    form with the table the auto gate would build, the compacted forms also
+    with a table just wide enough for the widest row (the compact branch,
+    never the overflow) and with one slot (every row with two or more hits
+    overflows)."""
+    from carla_social_force_model_tpu_torch.ops import pair_grid as pg
+    x, y, alive = planes[0], planes[1], planes[5]
+    row_bb = pg.box_planes(x, y, alive, pg.SYM_TILE)
+    grids = {}
+    for sym, base in ((True, "sym_"), (False, "")):
+        col_bb = row_bb if sym else pg.box_planes(x, y, alive, pg.COL_TILE)
+        hits = pg._bbox_hits(row_bb, col_bb, CUTOFF_M)
+        if sym:
+            hits &= pg.triangle_mask(hits.shape[0], hits.shape[1],
+                                     pg.SYM_TILE, pg.SYM_TILE, hits.device)
+        counts = hits.sum(dim=1)
+        widest = max(int(counts.max()), 1)
+        grids[base + "counts"] = (counts, hits.shape[1])
+        grids[base + "cutoff"] = pg.cutoff_grid(x, y, alive, CUTOFF_M,
+                                                symmetric=sym, compact=False)
+        grids[base + "compact"] = pg.cutoff_grid(
+            x, y, alive, CUTOFF_M, symmetric=sym, max_surv=widest)
+        grids[base + "compact overflow"] = pg.cutoff_grid(
+            x, y, alive, CUTOFF_M, symmetric=sym, max_surv=1)
+    grids["dense_cutoff"] = grids.pop("cutoff")
+    return grids
+
+
+def pairs_within(planes, sym_counts_grid):
+    """Unordered pairs of alive agents within the cutoff, counted over the
+    tile pairs of a symmetric survivor table wide enough for every row
+    (``cutoff_grids``'s ``"sym_compact"``; exact because the box test is
+    conservative, which the brute-force count at 50k checks)."""
+    import torch
+    from carla_social_force_model_tpu_torch.ops.pair_grid import SYM_TILE
+    x, y, alive = planes[0], planes[1], planes[5]
+    n = x.shape[0]
+    g = sym_counts_grid
+    total = 0
+    idx = torch.arange(SYM_TILE, device=x.device)
+    # a batch of row tiles against their surviving column tiles at a time
+    for r0 in range(0, g.surv.shape[0], 64):
+        rows = torch.arange(r0, min(r0 + 64, g.surv.shape[0]),
+                            device=x.device)
+        ri = rows[:, None] * SYM_TILE + idx[None, :]           # (B, 128)
+        tiles = g.surv[rows].long()                            # (B, S)
+        ci = (tiles[:, :, None] * SYM_TILE + idx).flatten(1)   # (B, S*128)
+        listed = (tiles[:, :, None] >= 0).expand(-1, -1, SYM_TILE).flatten(1)
+        ri_c, ci_c = ri.clamp(max=n - 1), ci.clamp(0, n - 1)
+        dx = x[ci_c][:, None, :] - x[ri_c][:, :, None]
+        dy = y[ci_c][:, None, :] - y[ri_c][:, :, None]
+        hit = ((dx * dx + dy * dy <= g.c2) & listed[:, None, :]
+               & (ci[:, None, :] > ri[:, :, None]) & (ci[:, None, :] < n)
+               & (ri[:, :, None] < n) & alive[ri_c][:, :, None]
+               & alive[ci_c][:, None, :])
+        total += int(hit.sum())
+    return total
+
+
+#: the cutoff kernels, the grid each is checked on (cutoff_grids), and
+#: the N of the main path that runs it
+CUTOFF_FORMS = {"pair_force_dense_cutoff": ("dense_cutoff", N),
+                "pair_force_sym_cutoff": ("sym_cutoff", N),
+                "pair_force_compact": ("compact", CUT_N),
+                "pair_force_sym_compact": ("sym_compact", CUT_N)}
+
+
+def cutoff_kernel_checks(dev, card):
+    """Phase 9: the four cutoff kernels against the plain version (with
+    ``cutoff``) on seeded Hilbert-sorted crowds at 10k and 50k, and on a
+    4,096-row sample at 1M; the compacted kernel against the dense cutoff
+    kernel bitwise, with a table that fits and one that overflows; the
+    dense cutoff kernel at the f32-exact cutoff against the no-cutoff
+    kernel bitwise.  Returns ``(worst, results)``: each kernel's largest
+    error, and its device time, plain time and bound at its main path's N
+    (with the timings at every N printed)."""
+    import numpy as np
+    import torch
+    from carla_social_force_model_tpu_torch.models.params import (
+        MoussaidParams, moussaid_vector)
+    from carla_social_force_model_tpu_torch.ops import (
+        cuda_forces, forces, pair_grid)
+    from carla_social_force_model_tpu_torch.ops.spatial import (
+        morton_order, surv_counts)
+    p = MoussaidParams()
+    prm = moussaid_vector(p, dev)
+    worst = dict.fromkeys(CUTOFF_FORMS, 0.0)
+    results = {}
+
+    def run(planes, grid, use_radius=False):
+        return torch.stack(cuda_forces.pair_force_cutoff(
+            *planes[:5], planes[5], prm, grid, use_radius=use_radius))
+
+    def check(label, got, want, dead, name):
+        err = (got - want).abs()
+        rel = (err / (1.0 + want.abs())).max().item()
+        say(f"phase 9 {label}: max abs err {err.max().item():.3e}, max "
+            f"err/(1+|f|) {rel:.3e}, max |f| {want.abs().max().item():.3e}, "
+            f"tolerance {ATOL:g} + {RTOL:g}*|f|")
+        if not torch.isfinite(got).all():
+            fail(f"{label}: non-finite forces")
+        if bool((err > ATOL + RTOL * want.abs()).any()):
+            fail(f"{label}: disagrees with the plain version")
+        if bool((got[:, dead] != 0).any()):
+            fail(f"{label}: dead rows are not exactly zero")
+        worst[name] = max(worst[name], err.max().item())
+
+    def survivors(n, grids):
+        for base, what in (("sym_", "symmetric, hits and triangle, "
+                                    "128 x 128 tiles"),
+                           ("", "dense, 128-row table rows x 256-column "
+                                "tiles")):
+            counts, n_cols = grids[base + "counts"]
+            c = counts.float()
+            say(f"phase 9 survivors per table row at N={n} ({what}): mean "
+                f"{c.mean().item():.2f}, max {int(counts.max())}, of "
+                f"{n_cols} column tiles; {counts.shape[0]} table rows; auto "
+                f"table width {pair_grid.AUTO_MAX_SURV}, rows over it "
+                f"{int((counts > pair_grid.AUTO_MAX_SURV).sum())}")
+
+    def work(n, grids, pairs_u):
+        out = {}
+        for name, (key, _) in CUTOFF_FORMS.items():
+            g = grids[key]
+            n_bytes = (n * (5 * 4 + 1) + 6 * 4 + n * 8
+                       + 4 * g.boxes.numel()
+                       + (4 * (g.surv.numel() + g.counts.numel())
+                          if g.surv is not None else 0))
+            if key.startswith("sym"):
+                out[name] = bound(n_bytes, pairs_u * (PAIR_OPS + 2),
+                                  pairs_u * PAIR_MUFU)
+            else:
+                out[name] = bound(n_bytes, 2 * pairs_u * PAIR_OPS,
+                                  2 * pairs_u * PAIR_MUFU)
+        return out
+
+    def times(n, planes, grids, pairs_u, reps):
+        bounds = work(n, grids, pairs_u)
+        ms = {}
+        for name, (key, _) in CUTOFF_FORMS.items():
+            kernel = ("pair_force_sym_kernel" if key.startswith("sym")
+                      else "pair_force_dense_kernel")
+            ms[name] = device_ms(lambda g=grids[key]: run(planes, g), kernel,
+                                 reps=reps)
+            if ms[name] is None:
+                ms[name] = cuda_ms(lambda g=grids[key]: run(planes, g),
+                                   reps=reps)
+                say(f"phase 9 {name}: no profiler device time; CUDA events "
+                    f"around the wrapper instead")
+            say(f"phase 9 time {name} at N={n}, {CUTOFF_M:g} m cutoff: "
+                f"{ms[name]:.4f} ms on the device, bound "
+                f"{bounds[name][0]:.6f} ms ({bounds[name][1]}; "
+                f"{pairs_u} unordered pairs within the cutoff) ({card})")
+        return ms, bounds
+
+    for n in CUT_CHECK_N:
+        planes = sorted_crowd(n, 11, dev)
+        x, y, alive = planes[0], planes[1], planes[5]
+        grids = cutoff_grids(planes)
+        for key in ("dense_cutoff", "compact", "sym_cutoff", "sym_compact"):
+            if grids[key].form != key:
+                fail(f"N={n}: the {key} grid came out {grids[key].form}")
+        survivors(n, grids)
+        for use_radius in (False, True):
+            want = torch.stack(forces.pedestrian_force(
+                *planes[:5], alive, p, use_ped_radius=use_radius,
+                cutoff=CUTOFF_M))
+            outs = {}
+            for key in ("dense_cutoff", "compact", "compact overflow",
+                        "sym_cutoff", "sym_compact", "sym_compact overflow"):
+                g = grids[key]
+                outs[key] = run(planes, g, use_radius)
+                torch.cuda.synchronize()
+                check(f"{key} (max_surv {g.max_surv}) N={n} use_radius="
+                      f"{use_radius}", outs[key], want, ~alive,
+                      "pair_force_" + g.form)
+            for key in ("compact", "compact overflow"):
+                if not torch.equal(outs[key], outs["dense_cutoff"]):
+                    fail(f"N={n}: {key} differs from dense_cutoff bitwise")
+            say(f"phase 9 N={n} use_radius={use_radius}: compact == "
+                f"dense_cutoff bitwise, with a fitting table and with "
+                f"max_surv=1 (overflow)")
+        # the f32-exact cutoff: every skipped pair's exp underflows to +0
+        speed = torch.sqrt(planes[2] ** 2 + planes[3] ** 2)[alive].max()
+        exact_m = float(np.ceil(110.0 * p.gamma
+                                * (2.0 * p.lambda_ * speed.item() + 1.0)))
+        big = pair_grid.cutoff_grid(x, y, alive, exact_m, symmetric=False,
+                                    compact=False)
+        got = run(planes, big)
+        ref = torch.stack(cuda_forces.pair_force_dense(*planes[:5], alive,
+                                                       prm))
+        if not torch.equal(got, ref):
+            fail(f"N={n}: dense_cutoff at the f32-exact cutoff {exact_m} m "
+                 f"differs from pair_force_dense")
+        # pairs within the cutoff: over the survivor table, and brute force
+        pairs_u = pairs_within(planes, grids["sym_compact"])
+        brute = 0
+        idx = torch.arange(n, device=dev)
+        for lo in range(0, n, 2048):
+            dx = x[None, :] - x[lo:lo + 2048, None]
+            dy = y[None, :] - y[lo:lo + 2048, None]
+            d2 = dx * dx + dy * dy
+            brute += int(((d2 <= grids["sym_compact"].c2)
+                          & (idx[None, :] > idx[lo:lo + 2048, None])
+                          & alive[None, :] & alive[lo:lo + 2048, None]).sum())
+        if brute != pairs_u:
+            fail(f"N={n}: {pairs_u} in-cutoff pairs over the table, {brute} "
+                 f"by brute force: the box test skipped a pair")
+        say(f"phase 9 N={n}: dense_cutoff at the f32-exact cutoff "
+            f"{exact_m:g} m == pair_force_dense bitwise; {pairs_u} unordered "
+            f"pairs within {CUTOFF_M:g} m (table and brute force agree)")
+        ms, bounds = times(n, planes, grids, pairs_u, reps=10)
+        plain = cuda_ms(lambda: forces.pedestrian_force(
+            *planes[:5], alive, p, cutoff=CUTOFF_M), reps=2)
+        grid_ms = {sym: cuda_ms(lambda s=sym: pair_grid.cutoff_grid(
+            x, y, alive, CUTOFF_M, symmetric=s)) for sym in (True, False)}
+        say(f"phase 9 N={n}: plain version with the cutoff {plain:.4f} ms; "
+            f"launch grid (auto gate) {grid_ms[True]:.4f} ms symmetric, "
+            f"{grid_ms[False]:.4f} ms dense (CUDA events) ({card})")
+        for name, (_, n_main) in CUTOFF_FORMS.items():
+            if n == n_main:
+                results[name] = dict(ms=ms[name], plain_ms=plain,
+                                     bound=bounds[name])
+
+    # N = 1M: a row sample against the plain version for those rows only
+    with ClockSampler() as sampler:
+        n = CUT_BIG_N
+        planes = sorted_crowd(n, 13, dev)
+        x, y, alive = planes[0], planes[1], planes[5]
+        grids = cutoff_grids(planes)
+        survivors(n, grids)
+        rng = np.random.default_rng(17)
+        rows = torch.from_numpy(
+            rng.choice(n, SAMPLE_ROWS, replace=False)).to(dev)
+        dead = ~alive[rows]
+        t0 = time.perf_counter()
+        for use_radius in (False, True):
+            want = torch.stack(forces.pedestrian_force(
+                *planes[:5], alive, p, use_ped_radius=use_radius,
+                cutoff=CUTOFF_M, rows=rows, row_block=64))
+            torch.cuda.synchronize()
+            if not use_radius:
+                plain_rows_s = time.perf_counter() - t0
+            outs = {}
+            for key in ("dense_cutoff", "compact", "compact overflow",
+                        "sym_cutoff", "sym_compact", "sym_compact overflow"):
+                g = grids[key]
+                outs[key] = run(planes, g, use_radius)
+                torch.cuda.synchronize()
+                check(f"{key} (max_surv {g.max_surv}) N={n}, {SAMPLE_ROWS} "
+                      f"sampled rows, use_radius={use_radius}",
+                      outs[key][:, rows], want, dead,
+                      "pair_force_" + g.form)
+            for key in ("compact", "compact overflow"):
+                if not torch.equal(outs[key], outs["dense_cutoff"]):
+                    fail(f"N={n}: {key} differs from dense_cutoff bitwise")
+        pairs_u = pairs_within(planes, grids["sym_compact"])
+        times(n, planes, grids, pairs_u, reps=3)
+        # the per-step work around the kernel at 1M (CUDA events)
+        sym_grid = grids["sym_compact"]
+        row_bb = pair_grid.box_planes(x, y, alive, pair_grid.SYM_TILE)
+        hits = pair_grid._bbox_hits(row_bb, row_bb, CUTOFF_M)
+        perm, _ = morton_order(x, y, alive, "hilbert")
+        parts = {
+            "Hilbert key and sort": lambda: morton_order(x, y, alive,
+                                                         "hilbert"),
+            "gather of 6 planes": lambda: [a[perm] for a in planes],
+            "boxes of 128-agent tiles": lambda: pair_grid.box_planes(
+                x, y, alive, pair_grid.SYM_TILE),
+            "hit matrix (symmetric)": lambda: pair_grid._bbox_hits(
+                row_bb, row_bb, CUTOFF_M),
+            "survivor table from hits": lambda: surv_counts(
+                hits, pair_grid.AUTO_MAX_SURV),
+            "whole launch grid (symmetric, auto)":
+                lambda: pair_grid.cutoff_grid(x, y, alive, CUTOFF_M),
+            "whole launch grid (dense, auto)": lambda: pair_grid.cutoff_grid(
+                x, y, alive, CUTOFF_M, symmetric=False)}
+        say(f"phase 9 N={n}: compact == dense_cutoff bitwise (fitting table "
+            f"and overflow); plain version for {SAMPLE_ROWS} rows "
+            f"{1e3 * plain_rows_s:.1f} ms (host clock); hit matrix "
+            f"{tuple(hits.shape)}, table {tuple(sym_grid.surv.shape)}; "
+            f"per step "
+            + "; ".join(f"{k} {cuda_ms(f, reps=5):.4f} ms"
+                        for k, f in parts.items()) + f" ({card})")
+        # the main path's own crowd (synthetic_crowd: all alive, each walking
+        # to its antipode) against the seeded one, one difference at a time
+        from carla_social_force_model_tpu_torch.api.synthetic import (
+            synthetic_crowd)
+        sched = synthetic_crowd(n, extent=float(np.sqrt(n)), device=dev)
+        crowd = [sched.pos_x, sched.pos_y, sched.vel_x, sched.vel_y,
+                 sched.radius, torch.ones(n, dtype=torch.bool, device=dev)]
+        seeded = to_planes(*seeded_crowd(n, 13, float(np.sqrt(n))), dev)
+        for label, pl in (
+                ("main-path crowd", crowd),
+                ("main-path positions, seeded velocities",
+                 crowd[:2] + seeded[2:4] + crowd[4:]),
+                ("main-path crowd, seeded alive mask", crowd[:5] + seeded[5:]),
+                ("seeded crowd", seeded)):
+            perm, _ = morton_order(pl[0], pl[1], pl[5], "hilbert")
+            pl = [t[perm].contiguous() for t in pl]
+            g = pair_grid.cutoff_grid(pl[0], pl[1], pl[5], CUTOFF_M)
+            t_ms = device_ms(lambda: run(pl, g), "pair_force_sym_kernel",
+                             reps=3)
+            c = g.counts.float()
+            say(f"phase 9 N={n} {label}: pair_force_sym_compact "
+                f"{t_ms:.4f} ms on the device (auto table width {g.max_surv}; "
+                f"survivors mean {c.mean().item():.2f}, max "
+                f"{int(g.counts.max())}) ({card})")
+        # the same kernel on the main-path crowd in the main path's call
+        # sequence, one part of it at a time
+        perm, _ = morton_order(crowd[0], crowd[1], crowd[5], "hilbert")
+        pl = [t[perm].contiguous() for t in crowd]
+        g = pair_grid.cutoff_grid(pl[0], pl[1], pl[5], CUTOFF_M)
+        junk = torch.empty(64 << 20, device=dev)
+        p = MoussaidParams()
+        def after_pause(fn):
+            torch.cuda.synchronize()
+            time.sleep(0.01)
+            return fn()
+
+        def rebuilt_then_pause():
+            g2 = pair_grid.cutoff_grid(pl[0], pl[1], pl[5], CUTOFF_M)
+            return after_pause(lambda: run(pl, g2))
+
+        contexts = {
+            "after a 256 MB write": lambda: (junk.fill_(1.0), run(pl, g)),
+            "after a 32 MB write": lambda: (junk[:8 << 20].fill_(1.0),
+                                            run(pl, g)),
+            "after a 256 MB read": lambda: (junk.sum(), run(pl, g)),
+            "after a 256 MB write, a synchronize and 10 ms": lambda: (
+                junk.fill_(1.0), after_pause(lambda: run(pl, g))),
+            "launch grid rebuilt before each call": lambda: run(
+                pl, pair_grid.cutoff_grid(pl[0], pl[1], pl[5], CUTOFF_M)),
+            "launch grid rebuilt, then a synchronize": rebuilt_then_pause,
+            "launch grid copied to new tensors before each call":
+                lambda: run(pl, g._replace(
+                    boxes=g.boxes.clone(), surv=g.surv.clone(),
+                    counts=g.counts.clone())),
+            "sort, grid, kernel and unsort (pedestrian_force_sorted)":
+                lambda: cuda_forces.pedestrian_force_sorted(
+                    *crowd, p, CUTOFF_M)}
+        for label, fn in contexts.items():
+            t_ms = device_ms(fn, "pair_force_sym_kernel", reps=3)
+            say(f"phase 9 N={n} main-path crowd, {label}: "
+                f"pair_force_sym_compact {t_ms:.4f} ms on the device "
+                f"({card})")
+        del junk
+    say(f"phase 9 N={CUT_BIG_N}: {sampler.summary()}")
+    return worst, results
+
+
+class ClockSampler:
+    """Samples the card's SM clock, power draw and temperature with
+    ``nvidia-smi -lms`` while a block runs; ``summary()`` reads them."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+             "--format=csv,noheader,nounits", "-lms", "200"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=30)
+        self.rows = []
+        for line in out.splitlines():
+            try:
+                self.rows.append([float(v) for v in line.split(",")])
+            except ValueError:
+                continue
+        return False
+
+    def summary(self):
+        if not self.rows:
+            return "no nvidia-smi samples"
+        clk, pwr, tmp = zip(*self.rows)
+        clk = sorted(clk)
+        return (f"SM clock min {clk[0]:.0f} / median {clk[len(clk) // 2]:.0f}"
+                f" / max {clk[-1]:.0f} MHz, power max {max(pwr):.1f} W, "
+                f"temperature max {max(tmp):.0f} C over {len(clk)} samples")
 
 
 def reset_counts(*modules):
@@ -381,16 +800,13 @@ def main() -> None:
                   "phase 4 config #1")
 
     # -- phase 5: end to end, kernel vs plain version on the same card -------
-    ref_cfg = dataclasses.replace(cfg, plain_pair_force=True)
     t0 = time.perf_counter()
-    _, rec_plain = stepper.make_rollout_fn(scene, params, ref_cfg,
+    _, rec_plain = stepper.make_rollout_fn(scene, params, plain_cfg(cfg),
                                            PARITY_STEPS)(state)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
-    _, rec_kern = stepper.make_rollout_fn(scene, params, cfg,
-                                          PARITY_STEPS)(state)
-    torch.cuda.synchronize()
-    check_records("phase 5 config #1", rec_kern, rec_plain)
+    check_rollout("phase 5 config #1", scene, params, cfg, state, rec_plain,
+                  free_limit=True)
     say(f"phase 5 plain-path rollout: {N * PARITY_STEPS / plain_s:.1f} "
         f"agent-steps/s over {PARITY_STEPS} steps ({card})")
 
@@ -511,20 +927,83 @@ def main() -> None:
                           f"phase 7 {label}")
 
     # -- phase 8: config #3 end to end, kernels vs plain versions ------------
-    ref_cfg = dataclasses.replace(cfg, plain_pair_force=True,
-                                  plain_env_force=True)
     t0 = time.perf_counter()
-    _, rec_plain = stepper.make_rollout_fn(scene, params, ref_cfg,
+    _, rec_plain = stepper.make_rollout_fn(scene, params, plain_cfg(cfg),
                                            PARITY_STEPS)(state)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
-    _, rec_kern = stepper.make_rollout_fn(scene, params, cfg,
-                                          PARITY_STEPS)(state)
-    torch.cuda.synchronize()
-    check_records("phase 8 config #3", rec_kern, rec_plain)
+    check_rollout("phase 8 config #3", scene, params, cfg, state, rec_plain,
+                  free_limit=False)
     say(f"phase 8 plain-path rollout, config #3: "
         f"{N * PARITY_STEPS / plain_s:.1f} agent-steps/s over "
         f"{PARITY_STEPS} steps ({card})")
+
+    # -- phase 9: the cutoff kernels against the plain version -------------
+    cut_worst, cut = cutoff_kernel_checks(dev, card)
+    worst.update(cut_worst)
+    torch.cuda.synchronize()
+
+    # -- phase 10: main paths, config #1 with the 30 m cutoff ----------------
+    # below the gate (N = 10k) the static grids with the box test, above it
+    # (50k, 1M) the survivor-table kernels
+    for n_c, steps, symmetric, name in (
+            (N, STEPS, True, "pair_force_sym_cutoff"),
+            (N, STEPS, False, "pair_force_dense_cutoff"),
+            (CUT_N, CUT_STEPS, True, "pair_force_sym_compact"),
+            (CUT_N, CUT_STEPS, False, "pair_force_compact"),
+            (CUT_BIG_N, CUT_BIG_STEPS, True, "pair_force_sym_compact")):
+        scene, params, cfg, state = benchmark_bundle(n_c, device=dev)
+        cfg = dataclasses.replace(cfg, interaction_cutoff=CUTOFF_M,
+                                  symmetric_pairs=symmetric)
+        label = (f"phase 10 config #1 + {CUTOFF_M:g} m cutoff, N={n_c}, via "
+                 f"{name}")
+        with ClockSampler() as clocks:
+            counts, step_ms[label] = drive(label, scene, params, cfg, state,
+                                           steps, dict(zero, **{name: steps}))
+            if symmetric and n_c != N:
+                profile_steps(scene, params, cfg, state, step_ms[label],
+                              label)
+        say(f"{label}: {clocks.summary()}")
+        if n_c != CUT_BIG_N:
+            launches[name] = counts[name]
+        if n_c != N:
+            # the kernel of the path's first step timed alone, right after
+            from carla_social_force_model_tpu_torch.models.spawn import (
+                apply_spawn)
+            st = apply_spawn(state, scene.spawn, 0)
+            one = device_ms(lambda: cuda_forces.pedestrian_force_sorted(
+                st.pos_x, st.pos_y, st.vel_x, st.vel_y, st.radius, st.alive,
+                params.pedestrian, CUTOFF_M, symmetric=symmetric),
+                "pair_force_" + ("sym" if symmetric else "dense") + "_kernel",
+                reps=5)
+            say(f"{label}: its step-0 pair force alone, {one:.4f} ms of "
+                f"kernel on the device ({card})")
+
+    # -- phase 11: end to end with the cutoff, kernels vs plain versions -----
+    # an explicit table width forces the compacted kernels at N = 10k
+    for label, kw, forms in (
+            ("config #1", {}, (("pair_force_sym_compact", True),
+                               ("pair_force_compact", False))),
+            ("config #3", dict(with_borders=True, with_obstacles=True,
+                               num_steps_hint=PARITY_STEPS),
+             (("pair_force_sym_compact", True),))):
+        scene, params, cfg, state = benchmark_bundle(N, device=dev, **kw)
+        for name, symmetric in forms:
+            kcfg = dataclasses.replace(
+                cfg, interaction_cutoff=CUTOFF_M, symmetric_pairs=symmetric,
+                pair_max_surv=FORCED_MAX_SURV)
+            _, rec_plain = stepper.make_rollout_fn(
+                scene, params, plain_cfg(kcfg), PARITY_STEPS)(state)
+            torch.cuda.synchronize()
+            reset_counts(cuda_forces, cuda_env)
+            check_rollout(f"phase 11 {label} + {CUTOFF_M:g} m cutoff via "
+                          f"{name} (max_surv {FORCED_MAX_SURV})", scene,
+                          params, kcfg, state, rec_plain,
+                          free_limit=label == "config #1")
+            counts = read_counts(cuda_forces, cuda_env)
+            if counts[name] != PARITY_STEPS:
+                fail(f"phase 11 {label}: {name} launched {counts[name]} "
+                     f"times in {PARITY_STEPS} steps")
 
     csrc = "carla_social_force_model_tpu_torch/csrc/"
     table = [
@@ -544,6 +1023,13 @@ def main() -> None:
          "carla_social_force_model_tpu/ops/pallas_env.py:268",
          env_ms["env_moussaid"], plain_ms["env_moussaid"],
          bounds_env["env_moussaid"]),
+        *((name, csrc + "pair_forces.cu",
+           "carla_social_force_model_tpu/ops/pallas_forces.py:" + line,
+           cut[name]["ms"], cut[name]["plain_ms"], cut[name]["bound"])
+          for name, line in (("pair_force_dense_cutoff", "162"),
+                             ("pair_force_sym_cutoff", "239"),
+                             ("pair_force_compact", "205"),
+                             ("pair_force_sym_compact", "239"))),
     ]
     for name, *_ in table:
         if launches[name] == 0:
@@ -560,21 +1046,61 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
-def check_records(label, rec_kern, rec_plain):
-    """Alive and modes equal, positions finite and within POS_TOL_M."""
+def plain_cfg(cfg):
+    """``cfg`` with every kernel replaced by its plain version."""
+    import dataclasses
+    return dataclasses.replace(cfg, plain_pair_force=True,
+                               plain_env_force=True)
+
+
+def check_rollout(label, scene, params, cfg, state, rec_plain, free_limit):
+    """The kernels' PARITY_STEPS-step rollout against the plain versions'.
+
+    At every step the plain versions step again from the kernels' own state
+    and must land within POS_STEP_TOL_M of the kernels' step, with equal
+    modes and alive masks and finite positions: the one-step error, which
+    no earlier difference can amplify.  The free-running distance to the
+    plain rollout ``rec_plain`` is printed, and, where ``free_limit``, held
+    to POS_TOL_M with equal modes and alive masks."""
     import torch
-    linf = (rec_kern.pos - rec_plain.pos).abs().amax(dim=(1, 2)).cpu()
-    say(f"{label} position L-inf kernels vs plain, steps 1..{PARITY_STEPS}: "
-        + " ".join(f"{v:.2e}" for v in linf.tolist()))
-    if not torch.equal(rec_kern.alive, rec_plain.alive):
-        fail(f"{label}: alive masks differ between kernel and plain rollouts")
-    if not torch.equal(rec_kern.mode, rec_plain.mode):
-        fail(f"{label}: modes differ between kernel and plain rollouts")
-    if not torch.isfinite(rec_kern.pos).all():
-        fail(f"{label}: non-finite positions in the recorded rollout")
-    if linf.max().item() > POS_TOL_M:
-        fail(f"{label}: position L-inf {linf.max().item():.3e} m exceeds "
-             f"{POS_TOL_M} m")
+    from carla_social_force_model_tpu_torch.models import stepper
+    scene = stepper.prepare_scene(scene)
+    ref_cfg = plain_cfg(cfg)
+    s, one, free, free_modes = state, [], [], 0
+    for k in range(PARITY_STEPS):
+        nxt, rec = stepper.simulation_step(s, scene, params, cfg, k)
+        ref, _ = stepper.simulation_step(s, scene, params, ref_cfg, k)
+        one.append(max((nxt.pos_x - ref.pos_x).abs().max().item(),
+                       (nxt.pos_y - ref.pos_y).abs().max().item()))
+        if not (torch.equal(nxt.alive, ref.alive)
+                and torch.equal(nxt.mode, ref.mode)):
+            fail(f"{label}: step {k} from the same state gives other modes "
+                 f"or alive masks through the kernels than through the "
+                 f"plain versions")
+        if not (torch.isfinite(nxt.pos_x).all()
+                and torch.isfinite(nxt.pos_y).all()):
+            fail(f"{label}: non-finite positions after step {k}")
+        free.append(max(
+            (rec.pos_x - rec_plain.pos[k, :, 0]).abs().max().item(),
+            (rec.pos_y - rec_plain.pos[k, :, 1]).abs().max().item()))
+        free_modes += int((rec.mode != rec_plain.mode[k]).sum()
+                          + (rec.alive != rec_plain.alive[k]).sum())
+        s = nxt
+    say(f"{label} one-step position L-inf kernels vs plain from the same "
+        f"state, steps 1..{PARITY_STEPS} (limit {POS_STEP_TOL_M:g} m): "
+        + " ".join(f"{v:.2e}" for v in one))
+    say(f"{label} free-running position L-inf kernels vs plain, steps "
+        f"1..{PARITY_STEPS} ("
+        + (f"limit {POS_TOL_M:g} m" if free_limit else "printed only") + "): "
+        + " ".join(f"{v:.2e}" for v in free)
+        + f"; {free_modes} (step, agent) cells with other modes or alive")
+    if max(one) > POS_STEP_TOL_M:
+        fail(f"{label}: one-step position L-inf {max(one):.3e} m exceeds "
+             f"{POS_STEP_TOL_M} m")
+    if free_limit and (max(free) > POS_TOL_M or free_modes):
+        fail(f"{label}: free-running position L-inf {max(free):.3e} m "
+             f"(limit {POS_TOL_M} m), {free_modes} cells with other modes "
+             f"or alive")
 
 
 def env_oracle(dev, card):

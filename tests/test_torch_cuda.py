@@ -1,5 +1,6 @@
 """PyTorch port on an NVIDIA card: the CUDA pair-force and environment-force
-kernels against their plain PyTorch versions, and the rollouts through them.
+kernels (with the cutoff forms of the pair kernels) against their plain
+PyTorch versions, and the rollouts through them.
 
 Every test here needs a card and skips without one.  This file imports
 neither JAX nor the JAX package, so on a machine with a card and no JAX it
@@ -18,7 +19,8 @@ from carla_social_force_model_tpu_torch.models import stepper
 from carla_social_force_model_tpu_torch.models.params import (
     MoussaidParams, moussaid_vector)
 from carla_social_force_model_tpu_torch.models import vehicles
-from carla_social_force_model_tpu_torch.ops import cuda_env, cuda_forces, forces
+from carla_social_force_model_tpu_torch.ops import (cuda_env, cuda_forces,
+                                                    forces, pair_grid)
 from carla_social_force_model_tpu_torch.ops.spatial import morton_order
 
 pytestmark = pytest.mark.cuda
@@ -74,8 +76,9 @@ def test_launch_counts_and_dispatch(cuda_device):
     for symmetric in (True, False, True):
         cuda_forces.pedestrian_force_kernel(*planes, MoussaidParams(),
                                             symmetric=symmetric)
-    assert cuda_forces.LAUNCHES == {"pair_force_sym": 2,
-                                    "pair_force_dense": 1}
+    assert cuda_forces.LAUNCHES == dict(
+        dict.fromkeys(cuda_forces.LAUNCHES, 0), pair_force_sym=2,
+        pair_force_dense=1)
 
 
 def test_kernel_rejects_bad_inputs(cuda_device):
@@ -236,6 +239,100 @@ def test_env_rollout_through_kernels_matches_plain_rollout(cuda_device,
     _, kern = stepper.make_rollout_fn(scene, params, cfg, 20)(state)
     assert cuda_env.LAUNCHES == {"env_exp": 20,
                                  "env_moussaid": 40 if with_obstacles else 0}
+    assert torch.equal(kern.alive, plain.alive)
+    assert torch.equal(kern.mode, plain.mode)
+    assert (kern.pos - plain.pos).abs().max().item() <= 1e-4
+
+
+def cutoff_case(n, seed, device):
+    """A seeded crowd at 0.25 agents/m^2 (half-width sqrt(n)), in the
+    Hilbert order the cutoff path gives the kernels."""
+    planes = crowd_planes(max(n, 7), seed, device, extent=float(np.sqrt(n)))
+    planes = [t[:n].contiguous() for t in planes]
+    perm, _ = morton_order(planes[0], planes[1], planes[5], "hilbert")
+    return [t[perm].contiguous() for t in planes]
+
+
+def cutoff_run(planes, grid, use_radius=False):
+    prm = moussaid_vector(MoussaidParams(), planes[0].device)
+    return torch.stack(cuda_forces.pair_force_cutoff(
+        *planes, prm, grid, use_radius=use_radius))
+
+
+@pytest.mark.parametrize("use_radius", [False, True])
+@pytest.mark.parametrize("n", [1, 130, 3000, 20000])
+@pytest.mark.parametrize("symmetric,compact,max_surv", [
+    (True, False, 0), (True, True, 8), (True, True, 1),
+    (False, False, 0), (False, True, 8), (False, True, 1)])
+def test_cutoff_kernels_match_plain_version(cuda_device, symmetric, compact,
+                                            max_surv, n, use_radius):
+    """Each cutoff kernel (static grid with the box test, survivor table
+    that fits or overflows) against the plain version with a 10 m cutoff:
+    |err| <= 1e-4 + 1e-4*|f| (f32 summation order; the per-pair cutoff
+    decides alike on both sides, its squared distance rounded the same)."""
+    planes = cutoff_case(n, seed=n + 5, device=cuda_device)
+    grid = pair_grid.cutoff_grid(planes[0], planes[1], planes[5], 10.0,
+                                 symmetric=symmetric, compact=compact,
+                                 max_surv=max_surv)
+    want = torch.stack(forces.pedestrian_force(
+        *planes, MoussaidParams(), use_ped_radius=use_radius, cutoff=10.0))
+    got = cutoff_run(planes, grid, use_radius)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert bool((got[:, ~planes[5]] == 0).all())
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("n", [3000, 20000])
+def test_compact_kernel_equals_dense_cutoff_kernel_bitwise(cuda_device, n):
+    """The compacted kernel walks the same tiles in the same order as the
+    dense cutoff kernel and sums them alike: equal bitwise, with a table
+    that fits and with one slot (every row overflows)."""
+    planes = cutoff_case(n, seed=3, device=cuda_device)
+    x, y, alive = planes[0], planes[1], planes[5]
+    dense = pair_grid.cutoff_grid(x, y, alive, 30.0, symmetric=False,
+                                  compact=False)
+    want = cutoff_run(planes, dense)
+    for max_surv in (dense.boxes.shape[1] - 1, 1):
+        grid = pair_grid.cutoff_grid(x, y, alive, 30.0, symmetric=False,
+                                     max_surv=max_surv)
+        assert grid.form == "compact"
+        assert torch.equal(cutoff_run(planes, grid), want)
+
+
+def test_f32_exact_cutoff_equals_the_dense_kernel_bitwise(cuda_device):
+    """At a cutoff >= 110*gamma*(2*lambda*v_max + 1) every skipped pair's
+    exponential underflows to +0, so the dense cutoff kernel equals the
+    no-cutoff dense kernel bitwise."""
+    planes = cutoff_case(40000, seed=4, device=cuda_device)
+    p = MoussaidParams()
+    v_max = torch.sqrt(planes[2] ** 2 + planes[3] ** 2).max().item()
+    exact = float(np.ceil(110 * p.gamma * (2 * p.lambda_ * v_max + 1)))
+    grid = pair_grid.cutoff_grid(planes[0], planes[1], planes[5], exact,
+                                 symmetric=False, compact=False)
+    want = torch.stack(cuda_forces.pair_force_dense(
+        *planes, moussaid_vector(p, cuda_device)))
+    assert torch.equal(cutoff_run(planes, grid), want)
+
+
+@pytest.mark.parametrize("symmetric", [True, False])
+def test_cutoff_rollout_through_kernels_matches_plain_rollout(cuda_device,
+                                                              symmetric):
+    """Twenty steps of a 3,000-agent crowd with a 30 m cutoff, the table
+    forced by an explicit width, through the kernels and through the plain
+    version: alive and mode equal, positions within 1e-4 m, one launch of
+    the compacted kernel per step and none of another pair kernel."""
+    scene, params, cfg, state = benchmark_bundle(3000, device=cuda_device)
+    cfg = dataclasses.replace(cfg, interaction_cutoff=30.0, pair_max_surv=8,
+                              symmetric_pairs=symmetric)
+    _, plain = stepper.make_rollout_fn(
+        scene, params, dataclasses.replace(cfg, plain_pair_force=True),
+        20)(state)
+    cuda_forces.reset_launch_counts()
+    _, kern = stepper.make_rollout_fn(scene, params, cfg, 20)(state)
+    name = "pair_force_sym_compact" if symmetric else "pair_force_compact"
+    assert cuda_forces.LAUNCHES == dict(
+        dict.fromkeys(cuda_forces.LAUNCHES, 0), **{name: 20})
     assert torch.equal(kern.alive, plain.alive)
     assert torch.equal(kern.mode, plain.mode)
     assert (kern.pos - plain.pos).abs().max().item() <= 1e-4

@@ -146,8 +146,7 @@ def test_kernel_dispatch_uses_plain_version_on_cpu():
         np.testing.assert_array_equal(
             np.stack([fx.numpy(), fy.numpy()], -1),
             port_force(pos, vel, radius, alive))
-    assert cuda_forces.LAUNCHES == {"pair_force_sym": 0,
-                                    "pair_force_dense": 0}
+    assert set(cuda_forces.LAUNCHES.values()) == {0}
 
 
 @pytest.mark.parametrize("kernel", ["pair_force_sym", "pair_force_dense"])

@@ -252,9 +252,6 @@ def test_rollout_leaves_the_initial_state_untouched():
 
 
 UNPORTED = {
-    "cutoff": (dict(), dict(), dict(interaction_cutoff=30.0)),
-    "cutoff_with_borders": (dict(borders=object()), dict(enable_border=True),
-                            dict(interaction_cutoff=30.0)),
     "env_compact": (dict(), dict(), dict(env_compact=True)),
     "env_analytic": (dict(), dict(), dict(env_analytic=True)),
     "autopilot_with_vehicles": (dict(autopilot=object(), vehicles=object()),
