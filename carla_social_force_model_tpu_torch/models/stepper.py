@@ -16,10 +16,12 @@ One step keeps the reference's per-tick order (see the JAX package):
 9. x' = x + dt*v'.
 
 This covers the headless crowd (BASELINE config #1), its environment
-(configs #2 and #3) and the interaction cutoff of large crowds.  Terms the
-JAX step computes and this port does not have yet raise
-``NotImplementedError`` naming the slice that brings them, rather than
-being skipped.
+(configs #2 and #3), the interaction cutoff of large crowds and the urban
+slice (config #4): a reactive autopilot fleet stepped before the
+pedestrians each tick (``models/autopilot.py``) and the compacted
+environment kernels.  Terms the JAX step computes and this port does not
+have yet raise ``NotImplementedError`` naming the slice that brings them,
+rather than being skipped.
 
 The device chooses the kernel path: the CUDA kernels on a card, the plain
 PyTorch versions on the CPU (ops/cuda_forces.py, ops/cuda_env.py).  A
@@ -41,6 +43,8 @@ from ..ops.cuda_env import fused_environment_terms
 from ..ops.cuda_forces import pedestrian_force_kernel, pedestrian_force_sorted
 from ..ops.spatial import morton_order
 from . import modes
+from .autopilot import (AutopilotFleet, AutopilotRecord, AutopilotState,
+                        autopilot_snapshot, autopilot_step)
 from .gap import gap_ready
 from .params import SfmParams
 from .spawn import SpawnSchedule, apply_spawn
@@ -56,16 +60,17 @@ class Scene:
     ``borders`` and ``static_obstacles`` are the host-side point sets;
     :func:`prepare_scene` adds their segment-major layouts on the spawn
     schedule's device (``borders_seg``, ``static_obstacles_seg``), which is
-    what the forces read.  ``autopilot`` and ``groups`` exist so that a
-    scene carrying them fails loudly instead of being simulated without
-    them."""
+    what the forces read.  ``autopilot`` is a reactive fleet, stepped
+    before the pedestrians each tick (its snapshot replaces ``vehicles``).
+    ``groups`` exists so that a scene carrying it fails loudly instead of
+    being simulated without it."""
 
     spawn: SpawnSchedule
     borders: ChunkedPointSet | None = None
     static_obstacles: ChunkedPointSet | None = None
     static_obstacle_vel: torch.Tensor | None = None  # (S, 2), zeros
     vehicles: VehicleStates | None = None
-    autopilot: object | None = None
+    autopilot: AutopilotFleet | None = None
     groups: object | None = None
     borders_seg: SegmentPointSet | None = None
     static_obstacles_seg: SegmentPointSet | None = None
@@ -113,9 +118,15 @@ class StepConfig:
     #: kernel): the reference the kernel path is compared with, never the
     #: default
     plain_env_force: bool = False
-    #: the JAX package's compacted environment grid (the urban slice of the
-    #: port) and analytic border geometry (the analytic slice); True raises
+    #: the compacted environment kernels: each term whose job passes the
+    #: JAX package's static gate walks a per-step survivor table of its
+    #: groups of sections (ops/env_grid.py); exact either way.  The urban
+    #: bundle sets it
     env_compact: bool = False
+    #: survivor-table width of the compacted environment kernels (0 = auto:
+    #: a third of the groups, at least 8)
+    env_max_surv: int = 0
+    #: analytic border geometry (the analytic border slice); True raises
     env_analytic: bool = False
     #: interaction cutoff [m]: pairs farther apart contribute nothing, and
     #: the pair force runs on curve-sorted planes whose tile pairs beyond
@@ -168,14 +179,9 @@ def _not_ported(what: str, slice_name: str):
 def check_supported(scene: Scene, params: SfmParams, cfg: StepConfig) -> None:
     """Raise ``NotImplementedError`` for every term the JAX step would
     compute for this (scene, params, cfg) that this slice does not have."""
-    if cfg.env_compact:
-        _not_ported("env_compact (the compacted environment kernels)",
-                    "urban")
     if cfg.env_analytic:
         _not_ported("env_analytic (the analytic border geometry)",
                     "analytic border")
-    if scene.autopilot is not None:
-        _not_ported("the autopilot vehicle fleet", "urban")
     if params.enable_powerlaw:
         _not_ported("the power-law pair force", "model-family")
     if params.enable_ped_repulsive:
@@ -218,6 +224,8 @@ def force_terms(state: PedState, scene: Scene, params: SfmParams,
         order = morton_order(state.pos_x, state.pos_y, state.alive, "hilbert")
     env = ({} if cfg.plain_env_force
            else fused_environment_terms(state, scene, params, veh_snap,
+                                        compact=cfg.env_compact,
+                                        max_surv=cfg.env_max_surv,
                                         order=order))
     zero = torch.zeros_like(state.pos_x)
     terms: dict = {}
@@ -382,17 +390,20 @@ def sim_time_of(t_idx: int, dt: float) -> float:
 
 
 def simulation_step(state: PedState, scene: Scene, params: SfmParams,
-                    cfg: StepConfig, t_idx: int):
+                    cfg: StepConfig, t_idx: int,
+                    veh_snap: VehicleSnapshot | None = None):
     """One headless tick (spawn, core, Euler step) of a prepared scene
-    (:func:`prepare_scene`).  Returns ``(new_state, RecordXY)``."""
+    (:func:`prepare_scene`).  Returns ``(new_state, RecordXY)``.
+    ``veh_snap`` overrides the scene's scripted vehicles (the autopilot
+    rollout passes its fleet's snapshot here)."""
     check_supported(scene, params, cfg)
     sim_time = sim_time_of(t_idx, cfg.dt)
 
     # 1. spawn
     state = apply_spawn(state, scene.spawn, t_idx)
 
-    veh_snap = (vehicle_snapshot_at(scene.vehicles, t_idx)
-                if scene.vehicles is not None else None)
+    if veh_snap is None and scene.vehicles is not None:
+        veh_snap = vehicle_snapshot_at(scene.vehicles, t_idx)
     state, (vx, vy), finished, record = tick_core(
         state, scene, params, cfg, sim_time, veh_snap)
 
@@ -409,9 +420,28 @@ def simulation_step(state: PedState, scene: Scene, params: SfmParams,
                                vel_x=vel_x, vel_y=vel_y, alive=alive), record
 
 
+def fleet_tick(state: PedState, ap: AutopilotState, scene: Scene,
+               params: SfmParams, cfg: StepConfig, t_idx: int):
+    """One tick with the reactive fleet, in the reference's order
+    (run_simulation.py:53-95; JAX package stepper.py:711-745): the walkers
+    spawn, the vehicles move seeing this tick's walkers, then the
+    pedestrian tick reads the fleet's snapshot (its own ``apply_spawn`` is
+    then a no-op).  Returns ``(new_state, new_fleet_state, RecordXY)``."""
+    state = apply_spawn(state, scene.spawn, t_idx)
+    ap = autopilot_step(scene.autopilot, ap, (state.pos_x, state.pos_y),
+                        (state.vel_x, state.vel_y), state.alive, t_idx,
+                        cfg.dt)
+    snap = autopilot_snapshot(scene.autopilot, ap)
+    state, rec = simulation_step(state, scene, params, cfg, t_idx,
+                                 veh_snap=snap)
+    return state, ap, rec
+
+
 def rollout(state: PedState, scene: Scene, params: SfmParams, cfg: StepConfig,
             num_steps: int, record: bool = True, start_step: int = 0,
-            record_stride: int = 1):
+            record_stride: int = 1,
+            autopilot_state: AutopilotState | None = None,
+            return_autopilot_state: bool = False):
     """Run ``num_steps`` ticks from ``start_step``.
 
     Returns ``(final_state, StepRecord)`` with ``(T, N)`` planes
@@ -421,10 +451,28 @@ def rollout(state: PedState, scene: Scene, params: SfmParams, cfg: StepConfig,
     multiple of ``k``.  The records are preallocated and filled in place.
     The scene is prepared first (:func:`prepare_scene`; a no-op when it
     already is).
+
+    With a reactive fleet (``scene.autopilot``) each tick runs
+    :func:`fleet_tick`, and the record is a ``(StepRecord,
+    AutopilotRecord)`` pair.  The fleet starts from ``autopilot_state``
+    (default: the fleet's initial state, allowed only at ``start_step``
+    0); ``return_autopilot_state`` makes the first element the
+    ``(PedState, AutopilotState)`` pair.
     """
     check_supported(scene, params, cfg)
     scene = prepare_scene(scene)
-    recs = None
+    fleet = scene.autopilot
+    if fleet is not None and autopilot_state is None and start_step != 0:
+        raise NotImplementedError(
+            "rollouts with a reactive autopilot fleet cannot resume from "
+            "start_step != 0 without the saved fleet state: a fresh "
+            "AutopilotState restarts vehicles from their route origins "
+            "(pass autopilot_state from the checkpoint)")
+    ap = None
+    if fleet is not None:
+        ap = (autopilot_state if autopilot_state is not None
+              else fleet.initial_state())
+    recs = ap_recs = None
     if record:
         if record_stride < 1:
             raise ValueError("record_stride must be positive")
@@ -432,25 +480,46 @@ def rollout(state: PedState, scene: Scene, params: SfmParams, cfg: StepConfig,
             raise ValueError("num_steps must be a multiple of record_stride")
         t_rec = num_steps // record_stride
         n, dev = state.capacity, state.device
-        recs = RecordXY(
-            *(torch.empty((t_rec, n), dtype=torch.float32, device=dev)
-              for _ in range(4)),
-            mode=torch.empty((t_rec, n), dtype=torch.int32, device=dev),
-            alive=torch.empty((t_rec, n), dtype=torch.bool, device=dev))
+
+        def buf(shape, dtype=torch.float32, device=dev):
+            return torch.empty((t_rec, *shape), dtype=dtype, device=device)
+
+        recs = RecordXY(*(buf((n,)) for _ in range(4)),
+                        mode=buf((n,), torch.int32),
+                        alive=buf((n,), torch.bool))
+        if fleet is not None:
+            v, fdev = fleet.num_vehicles, fleet.device
+            ap_recs = AutopilotRecord(
+                pos=buf((v, 2), device=fdev), heading=buf((v,), device=fdev),
+                speed=buf((v,), device=fdev),
+                active=buf((v,), torch.bool, fdev))
     for k in range(num_steps):
-        state, rec = simulation_step(state, scene, params, cfg,
-                                     start_step + k)
+        t_idx = start_step + k
+        if fleet is None:
+            state, rec = simulation_step(state, scene, params, cfg, t_idx)
+        else:
+            state, ap, rec = fleet_tick(state, ap, scene, params, cfg, t_idx)
         if record and k % record_stride == 0:
-            for buf, val in zip(recs, rec):
-                buf[k // record_stride].copy_(val)
-    return state, (recs.assemble() if record else None)
+            for b, val in zip(recs, rec):
+                b[k // record_stride].copy_(val)
+            if fleet is not None:
+                for b, val in zip(ap_recs, (ap.pos, ap.heading, ap.speed,
+                                            ap.active)):
+                    b[k // record_stride].copy_(val)
+    final = (state, ap) if fleet is not None and return_autopilot_state \
+        else state
+    if not record:
+        return final, None
+    return final, (recs.assemble() if fleet is None
+                   else (recs.assemble(), ap_recs))
 
 
 def make_rollout_fn(scene: Scene, params: SfmParams, cfg: StepConfig,
                     num_steps: int, record: bool = True,
                     record_stride: int = 1):
-    """Rollout closure ``run(state) -> (final_state, StepRecord | None)``,
-    the counterpart of the JAX package's jitted closure.  The scene is
+    """Rollout closure ``run(state) -> (final_state, record | None)``, the
+    counterpart of the JAX package's jitted closure (see :func:`rollout`
+    for the record of a scene with a reactive fleet).  The scene is
     prepared once, here.  The state is not modified, so callers may reuse
     it across runs."""
     check_supported(scene, params, cfg)

@@ -1,7 +1,7 @@
 """CUDA environment-force kernels and the fused environment terms (port of
-ops/pallas_env.py, dense form with sampled points).
+ops/pallas_env.py, sampled points, dense and compacted forms).
 
-Two kernels from ``csrc/env_forces.cu``, each behind a wrapper that checks
+Four kernels from ``csrc/env_forces.cu``, each behind a wrapper that checks
 its inputs, allocates its outputs, launches on PyTorch's current stream and
 counts the launch:
 
@@ -11,31 +11,37 @@ counts the launch:
 * :func:`env_moussaid` -- the Moussaid interaction against each segment's
   closest point with the obstacle's velocity: the static and dynamic
   obstacle forces.  The JAX package's ``_moussaid_kernel``.
+* :func:`env_exp_compact`, :func:`env_moussaid_compact` -- the same over the
+  groups of sections that a per-step survivor table lists for each block
+  of 128 sorted pedestrians (``ops/env_grid.py``).  The JAX package's
+  ``_exp_kernel_compact`` and ``_moussaid_kernel_compact``.  Their output
+  equals the dense kernels' bitwise.
 
 On CPU tensors each wrapper runs its plain PyTorch version
-(``ops/forces.py``); on CUDA tensors it launches the kernel or raises.
-No path falls back from the kernel to the plain version.
+(``ops/forces.py``; the table changes no value, so the compacted forms have
+the same one); on CUDA tensors it launches the kernel or raises.  No path
+falls back from the kernel to the plain version.
 
 :func:`fused_environment_terms` sorts the pedestrians once per step along
 the Hilbert curve (the kernels skip, per block of consecutive pedestrians,
 every segment whose filter circle misses the block), launches one kernel
-per term on the sorted planes, scatters each result back to slot order and
-applies the crossing-mode rule of the border-family terms.
+per term on the sorted planes (the compacted form where the JAX package's
+static gate would, with ``compact``), scatters each result back to slot
+order and applies the crossing-mode rule of the border-family terms.
 """
 from __future__ import annotations
 
 import torch
 
 from . import forces
+from .env_grid import EnvGrid, env_gate, env_grid
 from .spatial import morton_order
 from ..models.params import MoussaidParams, moussaid_vector
 
 #: launches per kernel since the last :func:`reset_launch_counts`; each
 #: wrapper adds one where it launches its kernel and nowhere else
-LAUNCHES = {"env_exp": 0, "env_moussaid": 0}
-
-#: where each still-unported form of the JAX environment kernels belongs
-_UNPORTED_FORMS = {"compact": "urban", "analytic": "analytic border"}
+LAUNCHES = {"env_exp": 0, "env_moussaid": 0, "env_exp_compact": 0,
+            "env_moussaid_compact": 0}
 
 
 def reset_launch_counts() -> None:
@@ -69,6 +75,20 @@ def _check_segments(seg, extra, dev):
                              f"{tuple(t.shape)} on {t.device}")
 
 
+def _check_grid(grid: EnvGrid, n: int, dev):
+    blocks = -(-n // 128)
+    for name, t, shape in (("surv", grid.surv, (blocks, grid.max_surv)),
+                           ("counts", grid.counts, (blocks,))):
+        if (t.device != dev or t.dtype != torch.int32 or t.shape != shape
+                or not t.is_contiguous()):
+            raise ValueError(f"survivor table {name} must be a contiguous "
+                             f"int32 {shape} tensor on {dev}; got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if grid.max_surv < 1 or grid.group < 1:
+        raise ValueError(f"survivor table width {grid.max_surv} and group "
+                         f"{grid.group} must be positive")
+
+
 def filter_r2(seg, active=None) -> torch.Tensor:
     """(S,) squared filter radius as the kernels read it: ``r*r`` of the
     radius clamped at 0, and -1 (never inside) for inactive segments."""
@@ -77,17 +97,24 @@ def filter_r2(seg, active=None) -> torch.Tensor:
     return r2 if active is None else torch.where(active, r2, -1.0)
 
 
-def _launch(name, lib_args_fn, pos_x):
+def _launch(name, args, pos_x, grid=None):
+    """Launch ``sfm_<name>`` with ``args`` (everything before ``n``), then
+    ``n``, the table (``grid``, compacted forms), the outputs and the
+    stream."""
     from ..utils.cuda_build import load_kernels
     fx = torch.empty_like(pos_x)
     fy = torch.empty_like(pos_x)
     n = pos_x.shape[0]
     if n == 0:
         return fx, fy
+    table = () if grid is None else (grid.surv.data_ptr(),
+                                     grid.counts.data_ptr(), grid.max_surv,
+                                     grid.group)
     lib = load_kernels()
     with torch.cuda.device(pos_x.device):
         stream = torch.cuda.current_stream(pos_x.device).cuda_stream
-        err = getattr(lib, f"sfm_{name}")(*lib_args_fn(n, fx, fy), stream)
+        err = getattr(lib, f"sfm_{name}")(*args, n, *table, fx.data_ptr(),
+                                          fy.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err} "
                            f"({lib.sfm_cuda_error_string(err).decode()})")
@@ -102,6 +129,37 @@ def _device_of(pos_x) -> str:
     return dev.type
 
 
+def _exp_args(pos_x, pos_y, radius, alive, seg, a, b, use_radius, active):
+    """The exp entries' arguments before ``n``, checked, and the tensors
+    made here that they point into (the caller holds them until the
+    launch is queued)."""
+    dev = pos_x.device
+    _check_planes((pos_x, pos_y, radius), alive, dev)
+    _check_segments(seg, (), dev)
+    r2 = filter_r2(seg, active)
+    s, k = seg.x.shape
+    return (pos_x.data_ptr(), pos_y.data_ptr(), radius.data_ptr(),
+            alive.data_ptr(), seg.x.data_ptr(), seg.y.data_ptr(), k,
+            seg.center_x.data_ptr(), seg.center_y.data_ptr(), r2.data_ptr(),
+            s, float(a), float(b), int(use_radius)), r2
+
+
+def _moussaid_args(pos_x, pos_y, vel_x, vel_y, radius, alive, seg,
+                   obstacle_vel, p, use_radius, active):
+    """The Moussaid entries' arguments before ``n`` (see :func:`_exp_args`)."""
+    dev = pos_x.device
+    _check_planes((pos_x, pos_y, vel_x, vel_y, radius), alive, dev)
+    s, k = seg.x.shape
+    _check_segments(seg, (("velocity", obstacle_vel, (s, 2)),), dev)
+    r2 = filter_r2(seg, active)
+    prm = moussaid_vector(p, dev)
+    return (pos_x.data_ptr(), pos_y.data_ptr(), vel_x.data_ptr(),
+            vel_y.data_ptr(), radius.data_ptr(), alive.data_ptr(),
+            seg.x.data_ptr(), seg.y.data_ptr(), k, seg.center_x.data_ptr(),
+            seg.center_y.data_ptr(), r2.data_ptr(), obstacle_vel.data_ptr(),
+            s, prm.data_ptr(), int(use_radius)), (r2, prm)
+
+
 def env_exp(pos_x, pos_y, radius, alive, seg, a: float, b: float,
             use_radius: bool = False, active=None):
     """Exp-magnitude environment force ``(fx, fy)``: ``a * exp(-d/b)`` away
@@ -112,20 +170,24 @@ def env_exp(pos_x, pos_y, radius, alive, seg, a: float, b: float,
     if _device_of(pos_x) == "cpu":
         return forces.env_exp_force(pos_x, pos_y, radius, alive, seg, a, b,
                                     use_radius=use_radius, active=active)
-    dev = pos_x.device
-    _check_planes((pos_x, pos_y, radius), alive, dev)
-    _check_segments(seg, (), dev)
-    r2 = filter_r2(seg, active)
-    s, k = seg.x.shape
-
-    def args(n, fx, fy):
-        return (pos_x.data_ptr(), pos_y.data_ptr(), radius.data_ptr(),
-                alive.data_ptr(), seg.x.data_ptr(), seg.y.data_ptr(), k,
-                seg.center_x.data_ptr(), seg.center_y.data_ptr(),
-                r2.data_ptr(), s, float(a), float(b), int(use_radius), n,
-                fx.data_ptr(), fy.data_ptr())
-
+    args, _held = _exp_args(pos_x, pos_y, radius, alive, seg, a, b,
+                            use_radius, active)
     return _launch("env_exp", args, pos_x)
+
+
+def env_exp_compact(pos_x, pos_y, radius, alive, seg, a: float, b: float,
+                    grid: EnvGrid, use_radius: bool = False, active=None):
+    """:func:`env_exp` over the sections of the groups that ``grid``
+    (:func:`.env_grid.env_grid`, built on the same sorted planes, segments
+    and ``active``) lists for each block; a block that overflowed its row
+    walks every section.  Equal to :func:`env_exp` bitwise."""
+    if _device_of(pos_x) == "cpu":
+        return forces.env_exp_force(pos_x, pos_y, radius, alive, seg, a, b,
+                                    use_radius=use_radius, active=active)
+    args, _held = _exp_args(pos_x, pos_y, radius, alive, seg, a, b,
+                            use_radius, active)
+    _check_grid(grid, pos_x.shape[0], pos_x.device)
+    return _launch("env_exp_compact", args, pos_x, grid)
 
 
 def env_moussaid(pos_x, pos_y, vel_x, vel_y, radius, alive, seg,
@@ -138,22 +200,25 @@ def env_moussaid(pos_x, pos_y, vel_x, vel_y, radius, alive, seg,
         return forces.env_moussaid_force(
             pos_x, pos_y, vel_x, vel_y, radius, alive, seg, obstacle_vel, p,
             use_radius=use_radius, active=active)
-    dev = pos_x.device
-    _check_planes((pos_x, pos_y, vel_x, vel_y, radius), alive, dev)
-    s, k = seg.x.shape
-    _check_segments(seg, (("velocity", obstacle_vel, (s, 2)),), dev)
-    r2 = filter_r2(seg, active)
-    prm = moussaid_vector(p, dev)
-
-    def args(n, fx, fy):
-        return (pos_x.data_ptr(), pos_y.data_ptr(), vel_x.data_ptr(),
-                vel_y.data_ptr(), radius.data_ptr(), alive.data_ptr(),
-                seg.x.data_ptr(), seg.y.data_ptr(), k,
-                seg.center_x.data_ptr(), seg.center_y.data_ptr(),
-                r2.data_ptr(), obstacle_vel.data_ptr(), s, prm.data_ptr(),
-                int(use_radius), n, fx.data_ptr(), fy.data_ptr())
-
+    args, _held = _moussaid_args(pos_x, pos_y, vel_x, vel_y, radius, alive,
+                                 seg, obstacle_vel, p, use_radius, active)
     return _launch("env_moussaid", args, pos_x)
+
+
+def env_moussaid_compact(pos_x, pos_y, vel_x, vel_y, radius, alive, seg,
+                         obstacle_vel, p: MoussaidParams, grid: EnvGrid,
+                         use_radius: bool = False, active=None):
+    """:func:`env_moussaid` over the groups of sections that ``grid`` lists
+    for each block (see :func:`env_exp_compact`).  Equal to
+    :func:`env_moussaid` bitwise."""
+    if _device_of(pos_x) == "cpu":
+        return forces.env_moussaid_force(
+            pos_x, pos_y, vel_x, vel_y, radius, alive, seg, obstacle_vel, p,
+            use_radius=use_radius, active=active)
+    args, _held = _moussaid_args(pos_x, pos_y, vel_x, vel_y, radius, alive,
+                                 seg, obstacle_vel, p, use_radius, active)
+    _check_grid(grid, pos_x.shape[0], pos_x.device)
+    return _launch("env_moussaid_compact", args, pos_x, grid)
 
 
 def environment_jobs(scene, params, veh_snap):
@@ -187,27 +252,32 @@ def environment_jobs(scene, params, veh_snap):
 
 
 def fused_environment_terms(state, scene, params, veh_snap,
-                            compact: bool = False, analytic: bool = False,
-                            order=None):
+                            compact: bool = False, max_surv: int = 0,
+                            analytic: bool = False, order=None):
     """Environment force terms through the kernels, keyed like
     ``models.stepper.force_terms``: one Hilbert sort of the pedestrians
     shared by every term, one kernel launch per term, then the scatter
     back to slot order and the crossing-mode rule.
+
+    ``compact`` (``StepConfig.env_compact``): each term whose job passes the
+    JAX package's static gate (:func:`.env_grid.env_gate`, table width
+    ``max_surv`` or auto at 0) gets a survivor table built on the sorted
+    planes and launches the compacted kernel; the others launch the dense
+    one.  The values are the same either way.
 
     ``order``: an optional ``(perm, inv)`` of :func:`.spatial.morton_order`
     with ``"hilbert"`` on the state's positions and liveness (the same
     permutation this function would compute), so that a caller sorting for
     another kernel sorts once.
 
-    Covers the dense form over sampled points (``prepare_scene``'s
-    segment-major layouts).  ``compact`` and ``analytic`` raise: their
-    kernels belong to later slices of the port.
+    Covers the sampled points (``prepare_scene``'s segment-major layouts);
+    ``analytic`` raises: its kernel belongs to the analytic border slice of
+    the port.
     """
-    for form, on in (("compact", compact), ("analytic", analytic)):
-        if on:
-            raise NotImplementedError(
-                f"the {form} environment kernels are not ported to PyTorch "
-                f"yet (the {_UNPORTED_FORMS[form]} slice of the port)")
+    if analytic:
+        raise NotImplementedError(
+            "the analytic environment kernels are not ported to PyTorch yet "
+            "(the analytic border slice of the port)")
     jobs = environment_jobs(scene, params, veh_snap)
     if not jobs:
         return {}
@@ -219,12 +289,20 @@ def fused_environment_terms(state, scene, params, veh_snap,
     crossing = forces.crossing_mask(state.mode)
     terms = {}
     for name, kind, seg, args, use_radius, active in jobs:
+        engage, group, ms = env_gate(seg.num_segments,
+                                     seg.points_per_segment, compact,
+                                     max_surv)
+        grid = (env_grid(px, py, alive, seg, filter_r2(seg, active), group,
+                         ms) if engage else None)
+        table = () if grid is None else (grid,)
         if kind == "exp":
-            fx, fy = env_exp(px, py, rad, alive, seg, *args,
-                             use_radius=use_radius, active=active)
+            fn = env_exp if grid is None else env_exp_compact
+            fx, fy = fn(px, py, rad, alive, seg, *args, *table,
+                        use_radius=use_radius, active=active)
         else:
-            fx, fy = env_moussaid(px, py, vx, vy, rad, alive, seg, *args,
-                                  use_radius=use_radius, active=active)
+            fn = env_moussaid if grid is None else env_moussaid_compact
+            fx, fy = fn(px, py, vx, vy, rad, alive, seg, *args, *table,
+                        use_radius=use_radius, active=active)
         fx, fy = fx[inv], fy[inv]
         if kind == "exp":
             fx = torch.where(crossing, 0.0, fx)

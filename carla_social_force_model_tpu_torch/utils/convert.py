@@ -22,6 +22,7 @@ import torch
 
 from ..env.pointsets import ChunkedPointSet
 from ..models import params as P
+from ..models.autopilot import AutopilotFleet, AutopilotState
 from ..models.routes import RouteBuffer
 from ..models.spawn import SpawnSchedule
 from ..models.state import PedState
@@ -72,14 +73,14 @@ def step_config_from_fields(d: dict) -> StepConfig:
     its Pallas path only).  ``use_pallas``, ``use_pallas_env``, the tile,
     VMEM, interpret and division knobs are TPU launch choices with no
     counterpart: the device chooses the path here.  ``env_compact`` and
-    ``env_analytic`` raise when True (their kernels belong to the urban and
-    analytic slices of the port)."""
-    for name, slice_name in (("env_compact", "urban"),
-                             ("env_analytic", "analytic border")):
-        if d[name]:
-            raise NotImplementedError(
-                f"{name}=True is not ported to PyTorch yet (the "
-                f"{slice_name} slice of the port)")
+    ``env_max_surv`` carry over (the port's compacted environment kernels
+    run on the gate of the JAX package's default ``env_point_tile``);
+    ``env_analytic`` raises when True (its kernel belongs to the analytic
+    border slice of the port)."""
+    if d["env_analytic"]:
+        raise NotImplementedError(
+            "env_analytic=True is not ported to PyTorch yet (the analytic "
+            "border slice of the port)")
     return StepConfig(
         dt=float(d["dt"]), waypoint_threshold=float(d["waypoint_threshold"]),
         despawn_on_arrival=bool(d["despawn_on_arrival"]),
@@ -89,7 +90,9 @@ def step_config_from_fields(d: dict) -> StepConfig:
                             else float(d["interaction_cutoff"])),
         compact_pairs=bool(d["pallas_compact"]),
         pair_max_surv=int(d["pallas_max_surv"]),
-        spatial_order=str(d["spatial_order"]))
+        spatial_order=str(d["spatial_order"]),
+        env_compact=bool(d["env_compact"]),
+        env_max_surv=int(d["env_max_surv"]))
 
 
 def ped_state_from_fields(d: dict, device: torch.device | str) -> PedState:
@@ -140,13 +143,33 @@ def vehicle_states_from_fields(d: dict | None, device: torch.device | str
            for f in dataclasses.fields(VehicleStates)})
 
 
+def autopilot_fleet_from_fields(d: dict | None, device: torch.device | str
+                                ) -> AutopilotFleet | None:
+    """The port's AutopilotFleet from a flattened JAX ``AutopilotFleet``
+    (traffic-light fields stay None where the JAX fleet has none)."""
+    if d is None:
+        return None
+    return AutopilotFleet(
+        **{f.name: (int(d[f.name]) if f.name == "points_per_chunk"
+                    else None if d[f.name] is None
+                    else _tensor(d[f.name], device))
+           for f in dataclasses.fields(AutopilotFleet)})
+
+
+def autopilot_state_from_fields(d: dict, device: torch.device | str
+                                ) -> AutopilotState:
+    """The port's AutopilotState from a flattened JAX ``AutopilotState``."""
+    return AutopilotState(**{f.name: _tensor(d[f.name], device)
+                             for f in dataclasses.fields(AutopilotState)})
+
+
 def scene_from_fields(d: dict, device: torch.device | str) -> Scene:
     """The port's Scene from a flattened JAX ``Scene``: the spawn schedule,
-    the border and static-obstacle point sets, the obstacle velocities and
-    the scripted vehicles.  The JAX scene's derived layouts (segment-major,
-    analytic, ORCA features) are not carried: the port's ``prepare_scene``
-    builds its own.  An autopilot fleet or social groups are carried as
-    their field dicts, so that a step of the port refuses them."""
+    the border and static-obstacle point sets, the obstacle velocities, the
+    scripted vehicles and the autopilot fleet.  The JAX scene's derived
+    layouts (segment-major, analytic, ORCA features) are not carried: the
+    port's ``prepare_scene`` builds its own.  Social groups are carried as
+    their field dict, so that a step of the port refuses them."""
     vel = d.get("static_obstacle_vel")
     return Scene(
         spawn=spawn_schedule_from_fields(d["spawn"], device),
@@ -155,4 +178,5 @@ def scene_from_fields(d: dict, device: torch.device | str) -> Scene:
             d.get("static_obstacles")),
         static_obstacle_vel=None if vel is None else _tensor(vel, device),
         vehicles=vehicle_states_from_fields(d.get("vehicles"), device),
-        autopilot=d.get("autopilot"), groups=d.get("groups"))
+        autopilot=autopilot_fleet_from_fields(d.get("autopilot"), device),
+        groups=d.get("groups"))

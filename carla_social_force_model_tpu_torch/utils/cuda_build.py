@@ -59,6 +59,16 @@ ARGTYPES = {
     # prm, use_radius, n, fx, fy, stream
     "sfm_env_moussaid": ([_PTR] * 8 + [_INT] + [_PTR] * 4 + [_INT, _PTR]
                          + [_INT, _INT] + [_PTR] * 3),
+    # sfm_env_exp's arguments up to n, then surv, counts, max_surv, gs, fx,
+    # fy, stream
+    "sfm_env_exp_compact": ([_PTR] * 6 + [_INT] + [_PTR] * 3
+                            + [_INT, _FLOAT, _FLOAT, _INT, _INT] + [_PTR] * 2
+                            + [_INT, _INT] + [_PTR] * 3),
+    # sfm_env_moussaid's arguments up to n, then surv, counts, max_surv, gs,
+    # fx, fy, stream
+    "sfm_env_moussaid_compact": ([_PTR] * 8 + [_INT] + [_PTR] * 4
+                                 + [_INT, _PTR] + [_INT, _INT] + [_PTR] * 2
+                                 + [_INT, _INT] + [_PTR] * 3),
 }
 
 

@@ -10,9 +10,14 @@ pair-force kernels), config #2 (+ sidewalk borders: ``env_exp``) and
 config #3 (+ parked cars and moving vehicles: ``env_exp`` and
 ``env_moussaid``); then config #1 with a 30 m interaction cutoff at 10,000
 and 50,000 (1,000 steps) and 1,000,000 pedestrians (200 steps), through the
-cutoff forms of the pair kernels.  It counts the kernel launches of each
-path, and checks every step of 50-step rollouts through the kernels
-against the same step through the plain versions from the same state.
+cutoff forms of the pair kernels; then the urban path, BASELINE config #4
+(``api.synthetic.urban_bundle``: nav-graph routes, a reactive autopilot
+fleet, gap-acceptance crossing, the compacted border kernel
+``env_exp_compact``) at N = 10,000 x 1,000 steps, and config #3 with
+``env_compact`` (``env_moussaid_compact`` on the parked cars).  It counts
+the kernel launches of each path, and checks every step of 50-step
+rollouts through the kernels against the same step through the plain
+versions from the same state.
 
 Run from the repository root, with no arguments:
 
@@ -63,6 +68,9 @@ SAMPLE_ROWS = 4_096
 #: an explicit survivor-table width that forces the compacted kernels at
 #: N = 10,000 (79 tiles of 128, 40 of 256 per row)
 FORCED_MAX_SURV = 32
+#: steps of the config #3 + env_compact main path (phase 14), which
+#: launches env_moussaid_compact
+C3_COMPACT_STEPS = 200
 #: kernel vs the float64 numpy oracle (tests/oracle.py) on a small crowd
 ORACLE_N = 200
 ORACLE_TOL = 1e-4
@@ -138,22 +146,31 @@ def cuda_ms(fn, reps=20):
 
 
 def device_ms(fn, kernel, reps=20):
-    """Mean device milliseconds of the kernel whose name contains
-    ``kernel`` per call of ``fn()``, from the profiler's device times over
-    ``reps`` calls (after one warm-up call); None when the profiler reports
-    no device time for it.  Unlike CUDA events around the calls, this leaves
-    out the wrapper's host time, which exceeds a short kernel's."""
+    """Mean device milliseconds of the kernels whose name contains
+    ``kernel`` (every kernel when ``kernel`` is empty) per call of
+    ``fn()``, from the profiler's device times over ``reps`` calls (after
+    one warm-up call).  Unlike CUDA events around the calls, this leaves
+    out the wrapper's host time, which exceeds a short kernel's.  The
+    profiler now and then reports no device time at all: then it is asked
+    once more, and if it still reports none, the time is CUDA events
+    around the calls (``cuda_ms``), which the printed note says."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if kernel in e.key)
-    return total / 1e3 / reps if total > 0 else None
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if kernel in e.key)
+        if total > 0:
+            return total / 1e3 / reps
+    say(f"(the profiler reports no device time for "
+        f"{kernel or 'any kernel'}: the next time is CUDA events around the "
+        f"calls)")
+    return cuda_ms(fn, reps=reps)
 
 
 def bound(n_bytes, ops, mufu):
@@ -344,11 +361,6 @@ def cutoff_kernel_checks(dev, card):
                       else "pair_force_dense_kernel")
             ms[name] = device_ms(lambda g=grids[key]: run(planes, g), kernel,
                                  reps=reps)
-            if ms[name] is None:
-                ms[name] = cuda_ms(lambda g=grids[key]: run(planes, g),
-                                   reps=reps)
-                say(f"phase 9 {name}: no profiler device time; CUDA events "
-                    f"around the wrapper instead")
             say(f"phase 9 time {name} at N={n}, {CUTOFF_M:g} m cutoff: "
                 f"{ms[name]:.4f} ms on the device, bound "
                 f"{bounds[name][0]:.6f} ms ({bounds[name][1]}; "
@@ -725,10 +737,12 @@ def main() -> None:
 
     launches = {}
 
-    def drive(label, scene, params, cfg, state, steps, expect):
+    def drive(label, scene, params, cfg, state, steps, expect,
+              all_alive=True):
         """One main path: a warm-up run, then best of 3 timed runs, each
         with every count set to 0 just before and read just after; the
-        counts must equal ``expect`` (per run) exactly."""
+        counts must equal ``expect`` (per run) exactly.  Every position
+        ends finite, and with ``all_alive`` every agent alive."""
         run = stepper.make_rollout_fn(scene, params, cfg, steps, record=False)
         run(state)
         torch.cuda.synchronize()
@@ -742,16 +756,16 @@ def main() -> None:
             counts = read_counts(cuda_forces, cuda_env)
             if counts != expect:
                 fail(f"{label} launched {counts}, expected {expect}")
-        if not bool(final.alive.all()):
+        n, n_alive = state.capacity, int(final.alive.sum())
+        if all_alive and n_alive != n:
             fail(f"agents died in the {label} rollout")
         if not (torch.isfinite(final.pos_x).all()
                 and torch.isfinite(final.pos_y).all()):
             fail(f"non-finite positions after the {label} rollout")
-        n = state.capacity
         say(f"{label}: N={n}, {steps} steps, best of 3 {best:.3f} s = "
             f"{n * steps / best:.1f} agent-steps/s, "
-            f"{1e3 * best / steps:.4f} ms/step, launches {counts}; all {n} "
-            f"alive and finite ({card})")
+            f"{1e3 * best / steps:.4f} ms/step, launches {counts}; "
+            f"{n_alive} of {n} alive, all finite ({card})")
         return counts, 1e3 * best / steps
 
     def profile_steps(scene, params, cfg, state, step_ms, label):
@@ -890,12 +904,7 @@ def main() -> None:
         _, seg, _, active, _ = env_cases[key]
         call = (lambda k=key: env_call(k, False, plain=False))
         wrapper_ms[key] = cuda_ms(call)
-        env_ms[key] = device_ms(call, "env_force_kernel<" + (
-            "false>" if key == "env_exp" else "true>"))
-        if env_ms[key] is None:
-            say(f"phase 6 {key}: the profiler reports no device time; the "
-                f"kernel time below is the wrapper's (CUDA events)")
-            env_ms[key] = wrapper_ms[key]
+        env_ms[key] = device_ms(call, "env_force_kernel")
         plain_ms[key] = cuda_ms(lambda k=key: env_call(k, False, plain=True),
                                 reps=5)
         n_bytes, ops, mufu, pairs[key] = env_work(
@@ -1005,6 +1014,60 @@ def main() -> None:
                 fail(f"phase 11 {label}: {name} launched {counts[name]} "
                      f"times in {PARITY_STEPS} steps")
 
+    # -- phase 12: the compacted environment kernels at their paths' shapes -
+    comp_worst, comp = env_compact_checks(dev, card)
+    worst.update(comp_worst)
+    torch.cuda.synchronize()
+
+    # -- phase 13: the urban main path (BASELINE config #4) ------------------
+    from carla_social_force_model_tpu_torch.api.synthetic import urban_bundle
+    scene, params, cfg, state = urban_bundle(N, num_steps_hint=STEPS,
+                                             device=dev)
+    urban_record_checks(scene, params, cfg, state, card)
+    counts, step_ms["urban"] = drive(
+        "phase 13 urban (BASELINE config #4)", scene, params, cfg, state,
+        STEPS, dict(zero, pair_force_sym=STEPS, env_exp_compact=STEPS,
+                    env_moussaid=STEPS), all_alive=False)
+    launches["env_exp_compact"] = counts["env_exp_compact"]
+    profile_steps(scene, params, cfg, state, step_ms["urban"],
+                  "phase 13 urban")
+
+    # -- phase 14: the urban path and config #3 + env_compact, step by step --
+    t0 = time.perf_counter()
+    _, (rec_plain, _) = stepper.make_rollout_fn(
+        scene, params, plain_cfg(cfg), PARITY_STEPS)(state)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    reset_counts(cuda_forces, cuda_env)
+    check_rollout("phase 14 urban", scene, params, cfg, state, rec_plain,
+                  free_limit=False)
+    expect_counts("phase 14 urban", zero, pair_force_sym=PARITY_STEPS,
+                  env_exp_compact=PARITY_STEPS, env_moussaid=PARITY_STEPS)
+    say(f"phase 14 plain-path rollout, urban: "
+        f"{N * PARITY_STEPS / plain_s:.1f} agent-steps/s over "
+        f"{PARITY_STEPS} steps ({card})")
+    scene, params, cfg, state = benchmark_bundle(
+        N, with_borders=True, with_obstacles=True, num_steps_hint=STEPS,
+        device=dev)
+    cfg = dataclasses.replace(cfg, env_compact=True)
+    counts, step_ms["config #3 compact"] = drive(
+        "phase 14 config #3 + env_compact", scene, params, cfg, state,
+        C3_COMPACT_STEPS, dict(zero, pair_force_sym=C3_COMPACT_STEPS,
+                               env_exp_compact=C3_COMPACT_STEPS,
+                               env_moussaid_compact=C3_COMPACT_STEPS,
+                               env_moussaid=C3_COMPACT_STEPS))
+    launches["env_moussaid_compact"] = counts["env_moussaid_compact"]
+    _, rec_plain = stepper.make_rollout_fn(scene, params, plain_cfg(cfg),
+                                           PARITY_STEPS)(state)
+    torch.cuda.synchronize()
+    reset_counts(cuda_forces, cuda_env)
+    check_rollout("phase 14 config #3 + env_compact", scene, params, cfg,
+                  state, rec_plain, free_limit=False)
+    expect_counts("phase 14 config #3 + env_compact", zero,
+                  pair_force_sym=PARITY_STEPS, env_exp_compact=PARITY_STEPS,
+                  env_moussaid_compact=PARITY_STEPS,
+                  env_moussaid=PARITY_STEPS)
+
     csrc = "carla_social_force_model_tpu_torch/csrc/"
     table = [
         ("pair_force_sym", csrc + "pair_forces.cu",
@@ -1030,6 +1093,11 @@ def main() -> None:
                              ("pair_force_sym_cutoff", "239"),
                              ("pair_force_compact", "205"),
                              ("pair_force_sym_compact", "239"))),
+        *((name, csrc + "env_forces.cu",
+           "carla_social_force_model_tpu/ops/pallas_env.py:" + line,
+           comp[name]["ms"], comp[name]["plain_ms"], comp[name]["bound"])
+          for name, line in (("env_exp_compact", "297"),
+                             ("env_moussaid_compact", "327"))),
     ]
     for name, *_ in table:
         if launches[name] == 0:
@@ -1046,6 +1114,239 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
+def expect_counts(label, zero, **expect):
+    """Fail unless the launch counts since the last reset are ``expect``
+    exactly (every other kernel 0)."""
+    from carla_social_force_model_tpu_torch.ops import cuda_env, cuda_forces
+    counts = read_counts(cuda_forces, cuda_env)
+    if counts != dict(zero, **expect):
+        fail(f"{label} launched {counts}, expected {dict(zero, **expect)}")
+    say(f"{label}: launches {counts}")
+
+
+def urban_record_checks(scene, params, cfg, state, card):
+    """Phase 13: a recorded run of the urban main path whose record shows
+    that the gap and hazard paths ran (walkers reached CHECKING_TRAFFIC and
+    CROSSING_ROAD, vehicles braked) and whose positions stay finite."""
+    import torch
+    from carla_social_force_model_tpu_torch.models import modes, stepper
+    label = "phase 13 urban (BASELINE config #4)"
+    t0 = time.perf_counter()
+    final, (rec, veh) = stepper.make_rollout_fn(scene, params, cfg,
+                                                STEPS)(state)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    if not (torch.isfinite(final.pos_x).all()
+            and torch.isfinite(final.pos_y).all()
+            and torch.isfinite(rec.pos).all()):
+        fail(f"{label}: non-finite positions")
+    # a record is taken after gap acceptance: a walker whose gap is
+    # accepted at once goes from WALKING_SIDEWALK in one record to
+    # CROSSING_ROAD in the next, through CHECKING_TRAFFIC in between; one
+    # seen in CHECKING_TRAFFIC waited at the curb for a vehicle
+    alive, mode = rec.alive, rec.mode
+    waited = ((mode == modes.CHECKING_TRAFFIC) & alive).any(dim=0)
+    through = ((mode[:-1] == modes.WALKING_SIDEWALK)
+               & (mode[1:] == modes.CROSSING_ROAD) & alive[1:]).any(dim=0)
+    checking = waited | through
+    crossing = ((mode == modes.CROSSING_ROAD) & alive).any(dim=0)
+    fleet = scene.autopilot
+    slowed = (veh.active[1:] & veh.active[:-1]
+              & (veh.speed[1:] < veh.speed[:-1]))            # (T-1, V)
+    below = slowed & (veh.speed[1:] < fleet.target_speed[None, :])
+    n_braked = int(below.any(dim=0).sum())
+    n_alive = int(final.alive.sum())
+    n_gone = int((final.spawned & ~final.alive).sum())
+    say(f"{label} record: alive at the end {n_alive}, despawned "
+        f"{n_gone}, of {state.capacity}; pedestrians that reached "
+        f"CHECKING_TRAFFIC {int(checking.sum())} (of them waited at the "
+        f"curb {int(waited.sum())}), CROSSING_ROAD "
+        f"{int(crossing.sum())}; vehicles {fleet.num_vehicles}, of which "
+        f"{n_braked} braked below their target speed "
+        f"({int(below.sum())} braking vehicle-steps); recorded run "
+        f"{first_s:.3f} s ({card})")
+    if int(checking.sum()) == 0 or int(crossing.sum()) == 0:
+        fail(f"{label}: no pedestrian reached CHECKING_TRAFFIC or "
+             f"CROSSING_ROAD (the gap-acceptance path did not run)")
+    if n_braked == 0:
+        fail(f"{label}: no vehicle ever braked (the hazard path did not "
+             f"run)")
+
+
+def env_compact_checks(dev, card):
+    """Phase 12: the compacted environment kernels at their paths' shapes:
+    ``env_exp_compact`` on the urban borders around the spawned urban crowd
+    at N = 10,000 (Hilbert-sorted, 10% dead, crossing pedestrians), and
+    ``env_moussaid_compact`` on config #3's parked cars.  Each against its
+    plain version (both radius modes) and against the dense kernel bitwise
+    with the auto table, a fitting one and one slot (every block with two
+    or more groups overflows); survivors per block; device times of the
+    dense and compacted kernels and of the plan; bounds from the in-filter
+    pairs.  Returns ``(worst, results)``."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from carla_social_force_model_tpu_torch.api.synthetic import (
+        benchmark_bundle, urban_bundle)
+    from carla_social_force_model_tpu_torch.models import (autopilot, modes,
+                                                           stepper)
+    from carla_social_force_model_tpu_torch.models.spawn import apply_spawn
+    from carla_social_force_model_tpu_torch.ops import (cuda_env, env_grid,
+                                                        forces)
+    from carla_social_force_model_tpu_torch.ops.spatial import morton_order
+    worst, results = {}, {}
+
+    def sorted_state(state, seed):
+        """10% dead and 10% crossing the road; the planes sorted."""
+        rng = np.random.default_rng(seed)
+        n = state.capacity
+        dead = torch.from_numpy(rng.uniform(size=n) < 0.1).to(dev)
+        cross = torch.from_numpy(rng.uniform(size=n) < 0.1).to(dev)
+        state = dataclasses.replace(
+            state, alive=state.alive & ~dead,
+            mode=torch.where(cross, modes.CROSSING_ROAD, state.mode))
+        perm, _ = morton_order(state.pos_x, state.pos_y, state.alive,
+                               "hilbert")
+        return [a[perm].contiguous() for a in (
+            state.pos_x, state.pos_y, state.vel_x, state.vel_y,
+            state.radius, state.alive)], state
+
+    scene, params, cfg, state = urban_bundle(N, num_steps_hint=STEPS,
+                                             device=dev)
+    scene = stepper.prepare_scene(scene)
+    planes, ustate = sorted_state(apply_spawn(state, scene.spawn, 0), 21)
+    n_cross = int((ustate.mode == modes.CROSSING_ROAD).sum())
+    # the fused terms of an urban step (one sort, the table, the crossing
+    # rule) against the plain terms, with the fleet as it moved at step 0
+    fleet = scene.autopilot
+    ap = autopilot.autopilot_step(
+        fleet, fleet.initial_state(), (ustate.pos_x, ustate.pos_y),
+        (ustate.vel_x, ustate.vel_y), ustate.alive, 0, cfg.dt)
+    snap = autopilot.autopilot_snapshot(fleet, ap)
+    fused = cuda_env.fused_environment_terms(ustate, scene, params, snap,
+                                             compact=True)
+    plain = stepper.force_terms(
+        ustate, scene, params, dataclasses.replace(cfg, plain_env_force=True),
+        snap)
+    for name, got in fused.items():
+        got, want = torch.stack(got), torch.stack(plain[name])
+        err = (got - want).abs()
+        say(f"phase 12 fused urban {name}, N={N} with crossing and dead "
+            f"agents: max abs err {err.max().item():.3e}")
+        if bool((err > ENV_ATOL + ENV_RTOL * want.abs()).any()):
+            fail(f"fused urban {name} disagrees with the plain force term")
+    b = params.border
+    cases = {"env_exp_compact": ("urban borders", scene.borders_seg, None,
+                                 (b.a, b.b))}
+    scene3, params3, cfg3, state3 = benchmark_bundle(
+        N, with_borders=True, with_obstacles=True, num_steps_hint=STEPS,
+        device=dev)
+    scene3 = stepper.prepare_scene(scene3)
+    state3, _ = stepper.rollout(state3, scene3, params3, cfg3, 1,
+                                record=False)
+    planes3, _ = sorted_state(state3, 22)
+    cases["env_moussaid_compact"] = (
+        "config #3 parked cars", scene3.static_obstacles_seg,
+        scene3.static_obstacle_vel, params3.static_obstacle)
+    say(f"phase 12 urban crowd: N={N} spawned, "
+        f"{int((~planes[5]).sum())} dead, {n_cross} in CROSSING_ROAD")
+
+    for name, (what, seg, ovel, prm) in cases.items():
+        pl = planes if name == "env_exp_compact" else planes3
+        px, py, vx, vy, rad, alive = pl
+        moussaid = name == "env_moussaid_compact"
+
+        def call(grid, use_radius, plain=False):
+            if moussaid:
+                args = (px, py, vx, vy, rad, alive, seg, ovel, prm)
+                if plain:
+                    return forces.env_moussaid_force(*args,
+                                                     use_radius=use_radius)
+                if grid is None:
+                    return cuda_env.env_moussaid(*args, use_radius=use_radius)
+                return cuda_env.env_moussaid_compact(*args, grid,
+                                                     use_radius=use_radius)
+            args = (px, py, rad, alive, seg, *prm)
+            if plain:
+                return forces.env_exp_force(*args, use_radius=use_radius)
+            if grid is None:
+                return cuda_env.env_exp(*args, use_radius=use_radius)
+            return cuda_env.env_exp_compact(*args, grid,
+                                            use_radius=use_radius)
+
+        engage, group, ms = env_grid.env_gate(
+            seg.num_segments, seg.points_per_segment, True, 0)
+        if not engage:
+            fail(f"phase 12 {what}: the gate does not engage the table")
+        r2 = cuda_env.filter_r2(seg)
+        hits = env_grid.group_hits(env_grid.block_boxes(px, py, alive),
+                                   seg.center_x, seg.center_y, r2, group)
+        per_block = hits.sum(dim=1)
+        c = per_block.float()
+        say(f"phase 12 {name} ({what}, {seg.num_segments} sections x "
+            f"{seg.points_per_segment} slots, groups of {group}): groups "
+            f"per block mean {c.mean().item():.2f}, max "
+            f"{int(per_block.max())}, of {hits.shape[1]} groups; "
+            f"{hits.shape[0]} blocks; auto table width {ms}, blocks over it "
+            f"{int((per_block > ms).sum())}")
+        grids = {f"auto ({ms})": env_grid.env_grid(px, py, alive, seg, r2,
+                                                   group, ms),
+                 "fitting": env_grid.env_grid(
+                     px, py, alive, seg, r2, group,
+                     max(int(per_block.max()), 1)),
+                 "max_surv=1": env_grid.env_grid(px, py, alive, seg, r2,
+                                                 group, 1)}
+        worst[name] = 0.0
+        for use_radius in (False, True):
+            want = torch.stack(call(None, use_radius, plain=True))
+            dense = torch.stack(call(None, use_radius))
+            for label, g in grids.items():
+                got = torch.stack(call(g, use_radius))
+                torch.cuda.synchronize()
+                err = (got - want).abs()
+                say(f"phase 12 {name} table {label} use_radius="
+                    f"{use_radius}: max abs err {err.max().item():.3e}, max "
+                    f"|f| {want.abs().max().item():.3e}, tolerance "
+                    f"{ENV_ATOL:g} + {ENV_RTOL:g}*|f|")
+                if not torch.isfinite(got).all():
+                    fail(f"{name} returned non-finite forces")
+                if bool((err > ENV_ATOL + ENV_RTOL * want.abs()).any()):
+                    fail(f"{name} ({label}) disagrees with the plain "
+                         f"version")
+                if bool((got[:, ~alive] != 0).any()):
+                    fail(f"{name}: dead agents' forces are not exactly zero")
+                if not torch.equal(got, dense):
+                    fail(f"{name} ({label}) differs from the dense kernel "
+                         f"bitwise")
+                worst[name] = max(worst[name], err.max().item())
+        say(f"phase 12 {name}: equal to the dense kernel bitwise with every "
+            f"table, both radius modes")
+        auto = grids[f"auto ({ms})"]
+
+        def plan():
+            return env_grid.env_grid(px, py, alive, seg,
+                                     cuda_env.filter_r2(seg), group, ms)
+
+        ms_k = device_ms(lambda: call(auto, False), "env_force_kernel")
+        dense_ms = device_ms(lambda: call(None, False), "env_force_kernel")
+        plan_ms = device_ms(plan, "")
+        plan_ev = cuda_ms(plan)
+        plain_ms = cuda_ms(lambda: call(None, False, plain=True), reps=3)
+        n_bytes, ops, mufu, pairs = env_work(seg, px, py, alive, None,
+                                             moussaid)
+        n_bytes += 4 * (auto.surv.numel() + auto.counts.numel())
+        bnd = bound(n_bytes, ops, mufu)
+        say(f"phase 12 time {name} ({what}), N={N}: compacted kernel "
+            f"{ms_k:.4f} ms, dense kernel {dense_ms:.4f} ms on the device; "
+            f"plan (boxes, hits, table) {plan_ms:.4f} ms of device kernels, "
+            f"{plan_ev:.4f} ms with its launches (CUDA events); plain "
+            f"{plain_ms:.4f} ms; bound {bnd[0]:.6f} ms ({bnd[1]}; {pairs} "
+            f"in-filter pairs, {ops:.3e} operations, {mufu:.3e} "
+            f"special-function operations, {n_bytes} bytes) ({card})")
+        results[name] = dict(ms=ms_k, plain_ms=plain_ms, bound=bnd)
+    return worst, results
+
+
 def plain_cfg(cfg):
     """``cfg`` with every kernel replaced by its plain version."""
     import dataclasses
@@ -1057,19 +1358,33 @@ def check_rollout(label, scene, params, cfg, state, rec_plain, free_limit):
     """The kernels' PARITY_STEPS-step rollout against the plain versions'.
 
     At every step the plain versions step again from the kernels' own state
-    and must land within POS_STEP_TOL_M of the kernels' step, with equal
-    modes and alive masks and finite positions: the one-step error, which
-    no earlier difference can amplify.  The free-running distance to the
+    (with a reactive fleet, the kernels' own fleet state too) and must land
+    within POS_STEP_TOL_M of the kernels' step, with equal modes and alive
+    masks (and an equal fleet state) and finite positions: the one-step
+    error, which no earlier difference can amplify.  The free-running distance to the
     plain rollout ``rec_plain`` is printed, and, where ``free_limit``, held
     to POS_TOL_M with equal modes and alive masks."""
     import torch
     from carla_social_force_model_tpu_torch.models import stepper
     scene = stepper.prepare_scene(scene)
     ref_cfg = plain_cfg(cfg)
+    fleet = scene.autopilot
+    ap = fleet.initial_state() if fleet is not None else None
     s, one, free, free_modes = state, [], [], 0
     for k in range(PARITY_STEPS):
-        nxt, rec = stepper.simulation_step(s, scene, params, cfg, k)
-        ref, _ = stepper.simulation_step(s, scene, params, ref_cfg, k)
+        if fleet is None:
+            nxt, rec = stepper.simulation_step(s, scene, params, cfg, k)
+            ref, _ = stepper.simulation_step(s, scene, params, ref_cfg, k)
+        else:
+            nxt, ap_k, rec = stepper.fleet_tick(s, ap, scene, params, cfg, k)
+            ref, ap_r, _ = stepper.fleet_tick(s, ap, scene, params, ref_cfg,
+                                              k)
+            if not all(torch.equal(getattr(ap_k, f), getattr(ap_r, f))
+                       for f in ap_k.__dataclass_fields__):
+                fail(f"{label}: step {k} from the same state gives another "
+                     f"fleet state through the kernels than through the "
+                     f"plain versions")
+            ap = ap_k
         one.append(max((nxt.pos_x - ref.pos_x).abs().max().item(),
                        (nxt.pos_y - ref.pos_y).abs().max().item()))
         if not (torch.equal(nxt.alive, ref.alive)

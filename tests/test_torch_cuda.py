@@ -1,6 +1,7 @@
 """PyTorch port on an NVIDIA card: the CUDA pair-force and environment-force
-kernels (with the cutoff forms of the pair kernels) against their plain
-PyTorch versions, and the rollouts through them.
+kernels (with the cutoff forms of the pair kernels and the compacted forms
+of the environment kernels) against their plain PyTorch versions, and the
+rollouts through them (the urban slice's too).
 
 Every test here needs a card and skips without one.  This file imports
 neither JAX nor the JAX package, so on a machine with a card and no JAX it
@@ -20,7 +21,8 @@ from carla_social_force_model_tpu_torch.models.params import (
     MoussaidParams, moussaid_vector)
 from carla_social_force_model_tpu_torch.models import vehicles
 from carla_social_force_model_tpu_torch.ops import (cuda_env, cuda_forces,
-                                                    forces, pair_grid)
+                                                    env_grid, forces,
+                                                    pair_grid)
 from carla_social_force_model_tpu_torch.ops.spatial import morton_order
 
 pytestmark = pytest.mark.cuda
@@ -201,7 +203,8 @@ def test_env_launch_counts_and_fused_terms(cuda_device):
     snap = vehicles.vehicle_snapshot_at(scene.vehicles, 3)
     cuda_env.reset_launch_counts()
     fused = cuda_env.fused_environment_terms(state, scene, params, snap)
-    assert cuda_env.LAUNCHES == {"env_exp": 2, "env_moussaid": 2}
+    assert cuda_env.LAUNCHES == dict(dict.fromkeys(cuda_env.LAUNCHES, 0),
+                                     env_exp=2, env_moussaid=2)
     plain = stepper.force_terms(
         state, scene, params, dataclasses.replace(cfg, plain_env_force=True),
         snap)
@@ -237,8 +240,9 @@ def test_env_rollout_through_kernels_matches_plain_rollout(cuda_device,
                                            plain_env_force=True), 20)(state)
     cuda_env.reset_launch_counts()
     _, kern = stepper.make_rollout_fn(scene, params, cfg, 20)(state)
-    assert cuda_env.LAUNCHES == {"env_exp": 20,
-                                 "env_moussaid": 40 if with_obstacles else 0}
+    assert cuda_env.LAUNCHES == dict(
+        dict.fromkeys(cuda_env.LAUNCHES, 0), env_exp=20,
+        env_moussaid=40 if with_obstacles else 0)
     assert torch.equal(kern.alive, plain.alive)
     assert torch.equal(kern.mode, plain.mode)
     assert (kern.pos - plain.pos).abs().max().item() <= 1e-4
@@ -333,6 +337,119 @@ def test_cutoff_rollout_through_kernels_matches_plain_rollout(cuda_device,
     name = "pair_force_sym_compact" if symmetric else "pair_force_compact"
     assert cuda_forces.LAUNCHES == dict(
         dict.fromkeys(cuda_forces.LAUNCHES, 0), **{name: 20})
+    assert torch.equal(kern.alive, plain.alive)
+    assert torch.equal(kern.mode, plain.mode)
+    assert (kern.pos - plain.pos).abs().max().item() <= 1e-4
+
+
+def env_compact_run(kernel, planes, seg, ovel, active, grid, use_radius):
+    px, py, vx, vy, rad, alive = planes
+    if kernel == "env_exp":
+        args = (px, py, rad, alive, seg, 3.0, 0.1)
+    else:
+        args = (px, py, vx, vy, rad, alive, seg, ovel, MoussaidParams())
+    if grid is None:
+        out = getattr(cuda_env, kernel)(*args, use_radius=use_radius,
+                                        active=active)
+    else:
+        out = getattr(cuda_env, kernel + "_compact")(
+            *args, grid, use_radius=use_radius, active=active)
+    return torch.stack(out)
+
+
+def env_compact_grids(planes, seg, active):
+    """The table of the widest block (the compact walk) and one slot
+    (every block with two or more groups overflows)."""
+    px, py, alive = planes[0], planes[1], planes[5]
+    r2 = cuda_env.filter_r2(seg, active)
+    hits = env_grid.group_hits(env_grid.block_boxes(px, py, alive),
+                               seg.center_x, seg.center_y, r2, 8)
+    widest = max(int(hits.sum(dim=1).max()), 1)
+    return [env_grid.env_grid(px, py, alive, seg, r2, 8, ms)
+            for ms in (widest, 1)]
+
+
+@pytest.mark.parametrize("use_radius", [False, True])
+@pytest.mark.parametrize("n", [1, 130, 3000])
+@pytest.mark.parametrize("kernel,sets", [("env_exp", "borders"),
+                                         ("env_moussaid", "statics"),
+                                         ("env_moussaid", "vehicles")])
+def test_env_compact_kernel_matches_plain_and_dense(cuda_device, kernel, sets,
+                                                    n, use_radius):
+    """Each compacted environment kernel, on Hilbert-sorted planes with a
+    table that fits and with one slot: within 1e-5 + 1e-5*|f| of the plain
+    version, and equal to the dense kernel bitwise (the same sections in
+    the same order); dead agents get exactly 0."""
+    planes, env = env_case(max(n, 2), seed=n + 1, device=cuda_device,
+                           sort=True)
+    planes = [t[:n].contiguous() for t in planes]
+    seg, ovel, active = env[sets]
+    dense = env_compact_run(kernel, planes, seg, ovel, active, None,
+                            use_radius)
+    px, py, vx, vy, rad, alive = planes
+    if kernel == "env_exp":
+        want = torch.stack(forces.env_exp_force(
+            px, py, rad, alive, seg, 3.0, 0.1, use_radius=use_radius))
+    else:
+        want = torch.stack(forces.env_moussaid_force(
+            px, py, vx, vy, rad, alive, seg, ovel, MoussaidParams(),
+            use_radius=use_radius, active=active))
+    for grid in env_compact_grids(planes, seg, active):
+        got = env_compact_run(kernel, planes, seg, ovel, active, grid,
+                              use_radius)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        assert bool((got[:, ~alive] == 0).all())
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        assert torch.equal(got, dense), grid.max_surv
+
+
+def test_env_compact_launch_counts_and_bad_tables(cuda_device):
+    planes, env = env_case(300, seed=4, device=cuda_device, sort=True)
+    seg = env["borders"][0]
+    grid, _ = env_compact_grids(planes, seg, None)
+    px, py, _, _, rad, alive = planes
+    cuda_env.reset_launch_counts()
+    cuda_env.env_exp_compact(px, py, rad, alive, seg, 3.0, 0.1, grid)
+    assert cuda_env.LAUNCHES == dict(dict.fromkeys(cuda_env.LAUNCHES, 0),
+                                     env_exp_compact=1)
+    with pytest.raises(ValueError, match="survivor table surv"):
+        cuda_env.env_exp_compact(px, py, rad, alive, seg, 3.0, 0.1,
+                                 grid._replace(surv=grid.surv.long()))
+    with pytest.raises(ValueError, match="survivor table counts"):
+        cuda_env.env_exp_compact(px, py, rad, alive, seg, 3.0, 0.1,
+                                 grid._replace(counts=grid.counts[:1]))
+
+
+@pytest.mark.parametrize("config", ["urban", "obstacles"])
+def test_compact_rollout_through_kernels_matches_plain_rollout(cuda_device,
+                                                               config):
+    """Twenty steps through the kernels and through the plain versions on
+    the same card: the urban bundle at N = 2,000 (its compacted border
+    kernel, the fleet's dense obstacle kernel) and config #3 with
+    ``env_compact`` (compacted border and parked-car kernels): alive and
+    mode equal, positions within 1e-4 m, and the launch counts."""
+    from carla_social_force_model_tpu_torch.api.synthetic import urban_bundle
+    if config == "urban":
+        scene, params, cfg, state = urban_bundle(2000, num_steps_hint=20,
+                                                 device=cuda_device)
+        expect = dict(env_exp_compact=20, env_moussaid=20)
+    else:
+        scene, params, cfg, state = benchmark_bundle(
+            2000, with_borders=True, with_obstacles=True, num_steps_hint=20,
+            device=cuda_device)
+        cfg = dataclasses.replace(cfg, env_compact=True, env_max_surv=2)
+        expect = dict(env_exp_compact=20, env_moussaid_compact=20,
+                      env_moussaid=20)
+    _, plain = stepper.make_rollout_fn(
+        scene, params, dataclasses.replace(cfg, plain_pair_force=True,
+                                           plain_env_force=True), 20)(state)
+    cuda_env.reset_launch_counts()
+    _, kern = stepper.make_rollout_fn(scene, params, cfg, 20)(state)
+    assert cuda_env.LAUNCHES == dict(dict.fromkeys(cuda_env.LAUNCHES, 0),
+                                     **expect)
+    if config == "urban":
+        plain, kern = plain[0], kern[0]
     assert torch.equal(kern.alive, plain.alive)
     assert torch.equal(kern.mode, plain.mode)
     assert (kern.pos - plain.pos).abs().max().item() <= 1e-4

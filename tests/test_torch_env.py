@@ -541,7 +541,10 @@ def test_fused_environment_terms_equal_the_plain_versions():
     snap = pvehicles.vehicle_snapshot_at(scene.vehicles, 12)
     cuda_env.reset_launch_counts()
     fused = cuda_env.fused_environment_terms(state, scene, params, snap)
-    assert cuda_env.LAUNCHES == {"env_exp": 0, "env_moussaid": 0}
+    assert cuda_env.LAUNCHES == dict.fromkeys(cuda_env.LAUNCHES, 0)
+    assert sorted(cuda_env.LAUNCHES) == ["env_exp", "env_exp_compact",
+                                         "env_moussaid",
+                                         "env_moussaid_compact"]
     plain = stepper.force_terms(
         state, scene, params, stepper.StepConfig(plain_env_force=True), snap)
     assert sorted(fused) == ["border_force", "dynamic_obstacle_force",
@@ -554,7 +557,7 @@ def test_fused_environment_terms_equal_the_plain_versions():
     assert bool(fused["dynamic_obstacle_force"][0].abs().sum() > 0)
 
 
-@pytest.mark.parametrize("form", ["compact", "analytic"])
+@pytest.mark.parametrize("form", ["analytic"])
 def test_unported_environment_forms_raise(form):
     scene, params, state = env_scene(n=16)
     with pytest.raises(NotImplementedError, match="not ported"):
@@ -666,7 +669,7 @@ def test_converted_environment_scene_matches_jax_step_by_step():
     assert {jmodes.CHECKING_TRAFFIC, modes.CROSSING_ROAD} <= seen
 
 
-@pytest.mark.parametrize("field", ["env_compact", "env_analytic"])
+@pytest.mark.parametrize("field", ["env_analytic"])
 def test_conversion_refuses_unported_environment_forms(field):
     jcfg = jstepper.StepConfig(dt=DT, **{field: True})
     with pytest.raises(NotImplementedError, match="not ported"):

@@ -165,10 +165,13 @@ def _entry_points():
         build_border_set)
     from carla_social_force_model_tpu_torch.env.pointsets import (
         segment_major)
-    from carla_social_force_model_tpu_torch.models import routes, vehicles
+    from carla_social_force_model_tpu_torch.models import (autopilot, routes,
+                                                           vehicles)
     import numpy as np
     spec = vehicles.VehicleSpec(trajectory=np.zeros((3, 2)),
                                 headings=np.zeros(3), speeds=np.ones(3))
+    ap_spec = autopilot.AutopilotSpec(waypoints=np.array([[0.0, 0.0],
+                                                          [10.0, 0.0]]))
     borders = build_border_set([np.zeros((3, 2))], [np.zeros(2)], [1.0])
     return {
         "synthetic_crowd": (synthetic.synthetic_crowd, (4,)),
@@ -181,19 +184,26 @@ def _entry_points():
         "build_vehicle_states": (vehicles.build_vehicle_states,
                                  ([spec], 0.05, 5)),
         "segment_major": (segment_major, (borders,)),
+        "urban_bundle": (synthetic.urban_bundle,
+                         (8,), dict(num_steps_hint=4, n_routes=2, n_roads=2,
+                                    width=100.0, cross_spacing=40.0)),
+        "build_autopilot_fleet": (autopilot.build_autopilot_fleet,
+                                  ([ap_spec], 0.05, 5)),
     }
 
 
 @pytest.mark.parametrize("name", ["synthetic_crowd", "benchmark_bundle",
                                   "synthetic_vehicles", "PedState.empty",
                                   "build_route_buffer", "build_vehicle_states",
-                                  "segment_major"])
+                                  "segment_major", "urban_bundle",
+                                  "build_autopilot_fleet"])
 def test_entry_points_default_to_the_card(name, monkeypatch):
     """Every entry point that takes a device defaults to CUDA: without a
     card it raises (no fallback to the CPU), and ``device="cpu"`` runs."""
-    fn, args = _entry_points()[name]
+    fn, args, *kw = _entry_points()[name]
+    kw = kw[0] if kw else {}
     assert inspect.signature(fn).parameters["device"].default == "cuda"
-    assert fn(*args, device="cpu") is not None
+    assert fn(*args, device="cpu", **kw) is not None
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA card"):
-        fn(*args)
+        fn(*args, **kw)

@@ -252,11 +252,7 @@ def test_rollout_leaves_the_initial_state_untouched():
 
 
 UNPORTED = {
-    "env_compact": (dict(), dict(), dict(env_compact=True)),
     "env_analytic": (dict(), dict(), dict(env_analytic=True)),
-    "autopilot_with_vehicles": (dict(autopilot=object(), vehicles=object()),
-                                dict(enable_dynamic_obstacle=True), dict()),
-    "autopilot": (dict(autopilot=object()), dict(), dict()),
     "groups": (dict(groups=object()), dict(enable_group=True), dict()),
     "powerlaw": (dict(), dict(enable_powerlaw=True), dict()),
     "helbing": (dict(), dict(enable_ped_repulsive=True), dict()),
