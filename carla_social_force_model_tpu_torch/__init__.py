@@ -2,9 +2,10 @@
 
 The counterpart of ``carla_social_force_model_tpu`` (the JAX package, which
 stays the reference): the same headless crowd tick on planar ``(N,)``
-tensors, with the Moussaid pair force in hand-written CUDA kernels for
-Hopper (``csrc/pair_forces.cu``) and a plain PyTorch version of each kernel
-for the CPU.  This package imports ``torch`` and never ``jax``.
+tensors, with the pair forces (the Moussaid force, the power law, the
+Helbing ellipse) and the environment forces in hand-written CUDA kernels
+for Hopper (``csrc/``) and a plain PyTorch version of each kernel for the
+CPU.  This package imports ``torch`` and never ``jax``.
 """
 
 from .models.params import SfmParams

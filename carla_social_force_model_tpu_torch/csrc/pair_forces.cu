@@ -1,9 +1,23 @@
-// Moussaid pair-force kernels for Hopper (sm_90a), with a plain C interface
-// for ctypes (utils/cuda_build.py builds this file, ops/cuda_forces.py binds
-// it).  The plain PyTorch version of all of them is
-// ops/forces.py::pedestrian_force (with ``cutoff`` for the cutoff forms).
+// Pair-force kernels for Hopper (sm_90a), with a plain C interface for ctypes
+// (utils/cuda_build.py builds this file, ops/cuda_forces.py binds it).  Each
+// kernel is a template over its walk (which tile pairs a block visits) and
+// its pair law (pair_forces.cuh): the Moussaid force, the Karamouzas power
+// law and the Helbing ellipse.  The plain PyTorch versions are
+// ops/forces.py::pedestrian_force, ::powerlaw_force and
+// ::ped_repulsive_force (with ``cutoff`` for the cutoff forms).
 //
-// What each function replaces (JAX package, ops/pallas_forces.py):
+// The laws replace the JAX package's per-law tile functions
+// (ops/pallas_forces.py, all launched through _tile_fn :608): _pair_tile
+// (:375, Moussaid), _pair_tile_powerlaw (:462) and _pair_tile_helbing
+// (:528).  Moussaid and the power law take every walk below; Helbing, which
+// is not antisymmetric, takes the dense walks only (the JAX package forces
+// symmetric=False for it, :714-719).  The TPU kernel staged Helbing's row
+// desired directions in the row velocity slots, because its row and column
+// planes were separate arrays; here rows and columns are read from the same
+// planes, so the Helbing entries take explicit ex, ey row planes beside the
+// column velocities.
+//
+// What each walk replaces (JAX package, ops/pallas_forces.py):
 //   pair_force_dense_kernel<kAllTiles>  <- _pair_kernel (:162), the dense
 //       per-row sum over all column tiles (_slab_call with surv=None).
 //   pair_force_dense_kernel<kBoxSkip>   <- _pair_kernel with a cutoff: the
@@ -22,14 +36,18 @@
 //   pair_force_sym_kernel<kSymTable>    <- _pair_kernel_sym driven by the
 //       per-step table of hits AND triangle (:924-938).
 //
-// What bounds them on this card.  Each pair costs about 85 f32 operations
-// and 6 special-function operations (2 rsqrt, atan2, 2 exp, a division);
-// a kernel reads O(N) state and writes O(N) forces.  So the pair count
-// bounds them: N^2/2 (N^2) pairs without a cutoff, and under a cutoff the
-// pairs within it, about pi*c^2*density per agent -- at 0.25 agents/m^2 and
-// c = 30 m, 707 per agent.  A tile-granular walk evaluates every pair of a
-// surviving tile pair, several times the pairs within the cutoff; the
-// per-pair mask keeps the result that of the pairs within it.
+// What bounds them on this card.  Each Moussaid pair costs about 85 f32
+// operations and 6 special-function operations (2 rsqrt, atan2, 2 exp, a
+// division); a power-law pair about 40 and 7 (a root, an exp, 5
+// divisions), a Helbing pair about 50 and 11 (4 roots, an exp, 6
+// divisions); a kernel reads O(N) state and writes O(N) forces.  So the
+// pair count bounds them: N^2/2 (N^2) pairs without a cutoff, and under a
+// cutoff the pairs within it, about pi*c^2*density per agent -- at 0.25
+// agents/m^2 and c = 30 m, 707 per agent.  A tile-granular walk evaluates
+// every pair of a surviving tile pair, several times the pairs within the
+// cutoff; the per-pair mask keeps the result that of the pairs within it.
+// The power law's gates make most pairs do no work beyond the gate values,
+// but a warp pays for every lane whose pair passes.
 //
 // What the design does about that.  Every block stages its column tile in
 // shared memory once and each thread keeps its row sum in registers, so the
@@ -89,16 +107,63 @@ enum DenseWalk { kAllTiles, kBoxSkip, kTable };
 // how a symmetric block finds its tile pair(s)
 enum SymWalk { kTriangle, kTriangleBox, kSymTable };
 
-__device__ __forceinline__ MoussaidPrm load_prm(const float* __restrict__ prm) {
-  MoussaidPrm p;
-  p.lam = prm[0];
-  p.A = prm[1];
-  p.gamma = prm[2];
-  p.n = prm[3];
-  p.n_prime = prm[4];
-  p.eps = prm[5];
-  return p;
-}
+// The pair laws the kernels are instantiated for.  Each reads its
+// parameter vector (models/params.py *_vector), says whether it reads radii
+// and whether it is antisymmetric, and evaluates one pair from the row's
+// position and velocity slots (u, v) and the column's position, velocity
+// (cu, cv) and radius.  The row slots hold v_i, except for Helbing, whose
+// entries pass the row's desired direction e_i there.
+struct Moussaid {
+  using Prm = MoussaidPrm;
+  static constexpr bool kRadius = true;
+  static constexpr bool kAntisymmetric = true;
+  static __device__ __forceinline__ Prm load(const float* __restrict__ prm) {
+    return Prm{prm[0], prm[1], prm[2], prm[3], prm[4], prm[5]};
+  }
+  static __device__ __forceinline__ void pair(float dx, float dy, float u,
+                                              float v, float cu, float cv,
+                                              float ri, float rj,
+                                              int use_radius, bool ok,
+                                              const Prm& p, float& fx,
+                                              float& fy) {
+    const float rsub = use_radius ? ri + rj : 0.0f;
+    moussaid_pair(dx, dy, u - cu, v - cv, rsub, ok, p, fx, fy);
+  }
+};
+
+struct PowerLaw {  // disc radii always participate
+  using Prm = PowerLawPrm;
+  static constexpr bool kRadius = true;
+  static constexpr bool kAntisymmetric = true;
+  static __device__ __forceinline__ Prm load(const float* __restrict__ prm) {
+    return Prm{prm[0], prm[1], prm[2], prm[3]};
+  }
+  static __device__ __forceinline__ void pair(float dx, float dy, float u,
+                                              float v, float cu, float cv,
+                                              float ri, float rj, int,
+                                              bool ok, const Prm& p,
+                                              float& fx, float& fy) {
+    powerlaw_pair(dx, dy, u - cu, v - cv, ri + rj, ok, p, fx, fy);
+  }
+};
+
+struct Helbing {  // (u, v) = e_i; reads the column velocity, no radii
+  using Prm = HelbingPrm;
+  static constexpr bool kRadius = false;
+  static constexpr bool kAntisymmetric = false;
+  static __device__ __forceinline__ Prm load(const float* __restrict__ prm) {
+    return Prm{prm[0], prm[1], prm[2], prm[3], prm[4], prm[5]};
+  }
+  static __device__ __forceinline__ void pair(float dx, float dy, float u,
+                                              float v, float cu, float cv,
+                                              float, float, int, bool ok,
+                                              const Prm& p, float& fx,
+                                              float& fy) {
+    helbing_pair(dx, dy, cu, cv, u, v, ok, p, fx, fy);
+  }
+};
+static_assert(!Helbing::kAntisymmetric,
+              "Helbing is not antisymmetric: it has the dense entries only");
 
 // Box test of row box (rx0, rx1, ry0, ry1) against column tile t of a
 // (4, n_tiles) box array.
@@ -110,10 +175,13 @@ __device__ __forceinline__ bool box_hits(const float* __restrict__ bb,
                   bb[2 * n_tiles + t], bb[3 * n_tiles + t]) <= c2;
 }
 
-template <int kWalk>
+template <int kWalk, class Law>
 __global__ void __launch_bounds__(kDenseThreads)
 pair_force_dense_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                        const float* __restrict__ vx, const float* __restrict__ vy,
+                        const float* __restrict__ vx,
+                        const float* __restrict__ vy,
+                        const float* __restrict__ ru,
+                        const float* __restrict__ rv,
                         const float* __restrict__ rad,
                         const uint8_t* __restrict__ alive,
                         const float* __restrict__ prm, int use_radius, int n,
@@ -128,7 +196,7 @@ pair_force_dense_kernel(const float* __restrict__ x, const float* __restrict__ y
   __shared__ float part_y[kDenseRows][kDenseSplit + 1];
   __shared__ float rbox[4];
 
-  const MoussaidPrm p = load_prm(prm);
+  const typename Law::Prm p = Law::load(prm);
   const int tid = threadIdx.x;
   const int lrow = tid / kDenseSplit;
   const int lane = tid % kDenseSplit;
@@ -136,9 +204,10 @@ pair_force_dense_kernel(const float* __restrict__ x, const float* __restrict__ y
   const bool row_in = i < n;
   const float xi = row_in ? x[i] : 0.0f;
   const float yi = row_in ? y[i] : 0.0f;
-  const float vxi = row_in ? vx[i] : 0.0f;
-  const float vyi = row_in ? vy[i] : 0.0f;
-  const float ri = row_in ? rad[i] : 0.0f;
+  const float ui = row_in ? ru[i] : 0.0f;  // the row slots: v_i, or e_i
+  const float vi = row_in ? rv[i] : 0.0f;
+  float ri = 0.0f;
+  if constexpr (Law::kRadius) ri = row_in ? rad[i] : 0.0f;
   const bool ai = row_in && alive[i] != 0;
   const long long n_col_tiles = (n + kDenseThreads - 1) / kDenseThreads;
 
@@ -177,7 +246,7 @@ pair_force_dense_kernel(const float* __restrict__ x, const float* __restrict__ y
     sy[tid] = col_in ? y[jt] : 0.0f;
     svx[tid] = col_in ? vx[jt] : 0.0f;
     svy[tid] = col_in ? vy[jt] : 0.0f;
-    sr[tid] = col_in ? rad[jt] : 0.0f;
+    if constexpr (Law::kRadius) sr[tid] = col_in ? rad[jt] : 0.0f;
     sa[tid] = col_in ? alive[jt] : 0;
     __syncthreads();
     const int cnt = min(kDenseThreads, n - c0);
@@ -186,10 +255,9 @@ pair_force_dense_kernel(const float* __restrict__ x, const float* __restrict__ y
       const float dy = sy[k] - yi;
       bool ok = ai && sa[k] != 0 && (c0 + k) != i;
       if (kWalk != kAllTiles) ok = ok && sq_norm_rn(dx, dy) <= c2;
-      const float rsub = use_radius ? ri + sr[k] : 0.0f;
       float fxk, fyk;
-      moussaid_pair(dx, dy, vxi - svx[k], vyi - svy[k], rsub, ok, p, fxk,
-                    fyk);
+      Law::pair(dx, dy, ui, vi, svx[k], svy[k], ri,
+                Law::kRadius ? sr[k] : 0.0f, use_radius, ok, p, fxk, fyk);
       ax += fxk;
       ay += fyk;
     }
@@ -246,13 +314,16 @@ struct SymShared {
 // One tile pair (ti, tj), tj >= ti, of the symmetric kernel: every pair
 // with column index above row index once, +f to the row and -f to the
 // column (atomics into fx, fy).  Block-uniform; may be called repeatedly.
-template <bool kCutoff>
+template <bool kCutoff, class Law>
 __device__ __forceinline__ void sym_tile_pair(
     SymShared& sm, long long ti, long long tj, const float* __restrict__ x,
     const float* __restrict__ y, const float* __restrict__ vx,
     const float* __restrict__ vy, const float* __restrict__ rad,
-    const uint8_t* __restrict__ alive, const MoussaidPrm& p, int use_radius,
-    int n, float c2, float* __restrict__ fx, float* __restrict__ fy) {
+    const uint8_t* __restrict__ alive, const typename Law::Prm& p,
+    int use_radius, int n, float c2, float* __restrict__ fx,
+    float* __restrict__ fy) {
+  static_assert(Law::kAntisymmetric,
+                "the Newton's-third-law walk needs an antisymmetric law");
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
@@ -293,10 +364,9 @@ __device__ __forceinline__ void sym_tile_pair(
       const float dy = sm.cy[jj] - yi;
       bool ok = ai && sm.ca[jj] != 0 && (j0 + jj) > i;
       if (kCutoff) ok = ok && sq_norm_rn(dx, dy) <= c2;
-      const float rsub = use_radius ? ri + sm.cr[jj] : 0.0f;
       float fxk, fyk;
-      moussaid_pair(dx, dy, vxi - sm.cvx[jj], vyi - sm.cvy[jj], rsub, ok, p,
-                    fxk, fyk);
+      Law::pair(dx, dy, vxi, vyi, sm.cvx[jj], sm.cvy[jj], ri, sm.cr[jj],
+                use_radius, ok, p, fxk, fyk);
       ax += fxk;
       ay += fyk;
       sm.col_x[warp][jj] -= fxk;  // Newton's third law: f_ji = -f_ij
@@ -321,7 +391,7 @@ __device__ __forceinline__ void sym_tile_pair(
   }
 }
 
-template <int kWalk>
+template <int kWalk, class Law>
 __global__ void __launch_bounds__(kSymTile)
 pair_force_sym_kernel(const float* __restrict__ x, const float* __restrict__ y,
                       const float* __restrict__ vx, const float* __restrict__ vy,
@@ -333,7 +403,7 @@ pair_force_sym_kernel(const float* __restrict__ x, const float* __restrict__ y,
                       const int* __restrict__ counts, int max_surv, float c2,
                       float* __restrict__ fx, float* __restrict__ fy) {
   __shared__ SymShared sm;
-  const MoussaidPrm p = load_prm(prm);
+  const typename Law::Prm p = Law::load(prm);
   const long long b = blockIdx.x;
   const long long nt = n_tiles;
   // block-uniform box test of tile pair (ti, tj)
@@ -351,13 +421,13 @@ pair_force_sym_kernel(const float* __restrict__ x, const float* __restrict__ y,
     if (counts[r] <= max_surv) {
       const int tj = surv[r * max_surv + s];
       if (tj >= 0)
-        sym_tile_pair<true>(sm, r, tj, x, y, vx, vy, rad, alive, p,
-                            use_radius, n, c2, fx, fy);
+        sym_tile_pair<true, Law>(sm, r, tj, x, y, vx, vy, rad, alive, p,
+                                 use_radius, n, c2, fx, fy);
     } else {
       for (long long tj = r + s; tj < nt; tj += max_surv)
         if (hits(r, tj))
-          sym_tile_pair<true>(sm, r, tj, x, y, vx, vy, rad, alive, p,
-                              use_radius, n, c2, fx, fy);
+          sym_tile_pair<true, Law>(sm, r, tj, x, y, vx, vy, rad, alive, p,
+                                   use_radius, n, c2, fx, fy);
     }
     return;
   }
@@ -371,28 +441,48 @@ pair_force_sym_kernel(const float* __restrict__ x, const float* __restrict__ y,
   while (ti + 1 < nt && tri_start(ti + 1, nt) <= b) ++ti;
   const long long tj = ti + (b - tri_start(ti, nt));
   if (kWalk == kTriangleBox && !hits(ti, tj)) return;  // before any staging
-  sym_tile_pair<kWalk == kTriangleBox>(sm, ti, tj, x, y, vx, vy, rad, alive,
-                                       p, use_radius, n, c2, fx, fy);
+  sym_tile_pair<kWalk == kTriangleBox, Law>(sm, ti, tj, x, y, vx, vy, rad,
+                                            alive, p, use_radius, n, c2, fx,
+                                            fy);
 }
 
-int sym_triangle_launch(bool cutoff, const float* x, const float* y,
-                        const float* vx, const float* vy, const float* rad,
-                        const uint8_t* alive, const float* prm, int use_radius,
-                        int n, const float* bb, float c2, float* fx,
-                        float* fy, cudaStream_t stream) {
+// Launch of a dense-layout walk with law Law: one block of kDenseRows rows
+// per 32 agents.  ru, rv are the row slots (vx, vy; Helbing: ex, ey).
+template <int kWalk, class Law>
+int dense_launch(const float* x, const float* y, const float* vx,
+                 const float* vy, const float* ru, const float* rv,
+                 const float* rad, const uint8_t* alive, const float* prm,
+                 int use_radius, int n, const float* col_bb, const int* surv,
+                 const int* counts, int max_surv, float c2, float* fx,
+                 float* fy, void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  if (kWalk == kTable && max_surv < 1) return (int)cudaErrorInvalidValue;
+  const int blocks = (n + kDenseRows - 1) / kDenseRows;
+  pair_force_dense_kernel<kWalk, Law><<<blocks, kDenseThreads, 0,
+                                        (cudaStream_t)stream>>>(
+      x, y, vx, vy, ru, rv, rad, alive, prm, use_radius, n, col_bb, surv,
+      counts, max_surv, c2, fx, fy);
+  return (int)cudaGetLastError();
+}
+
+// Launch of a symmetric walk with law Law: one block per tile pair of the
+// upper triangle (kTriangle, kTriangleBox) or per table slot (kSymTable).
+template <int kWalk, class Law>
+int sym_launch(const float* x, const float* y, const float* vx,
+               const float* vy, const float* rad, const uint8_t* alive,
+               const float* prm, int use_radius, int n, const float* bb,
+               const int* surv, const int* counts, int max_surv, float c2,
+               float* fx, float* fy, void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  if (kWalk == kSymTable && max_surv < 1) return (int)cudaErrorInvalidValue;
   const long long nt = (n + kSymTile - 1) / kSymTile;
-  const long long pairs = nt * (nt + 1) / 2;
-  if (pairs > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  if (cutoff)
-    pair_force_sym_kernel<kTriangleBox><<<(unsigned)pairs, kSymTile, 0,
-                                          stream>>>(
-        x, y, vx, vy, rad, alive, prm, use_radius, n, (int)nt, bb, nullptr,
-        nullptr, 1, c2, fx, fy);
-  else
-    pair_force_sym_kernel<kTriangle><<<(unsigned)pairs, kSymTile, 0,
-                                       stream>>>(
-        x, y, vx, vy, rad, alive, prm, use_radius, n, (int)nt, nullptr,
-        nullptr, nullptr, 1, 0.0f, fx, fy);
+  const long long blocks =
+      kWalk == kSymTable ? nt * max_surv : nt * (nt + 1) / 2;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  pair_force_sym_kernel<kWalk, Law><<<(unsigned)blocks, kSymTile, 0,
+                                      (cudaStream_t)stream>>>(
+      x, y, vx, vy, rad, alive, prm, use_radius, n, (int)nt, bb, surv, counts,
+      max_surv, c2, fx, fy);
   return (int)cudaGetLastError();
 }
 
@@ -408,18 +498,17 @@ extern "C" {
 // max_y] (256-column tiles for the dense forms, 128 for the symmetric);
 // surv is the (ceil(n / 128), max_surv) survivor table, ascending and
 // padded with -1, and counts each table row's number of hits.
+//
+// sfm_pair_force_*: the Moussaid law (prm: lambda, A, gamma, n, n_prime,
+// epsilon; use_radius subtracts the radii from the distance).
 int sfm_pair_force_dense(const float* x, const float* y, const float* vx,
                          const float* vy, const float* rad,
                          const uint8_t* alive, const float* prm,
                          int use_radius, int n, float* fx, float* fy,
                          void* stream) {
-  if (n <= 0) return (int)cudaSuccess;
-  const int blocks = (n + kDenseRows - 1) / kDenseRows;
-  pair_force_dense_kernel<kAllTiles><<<blocks, kDenseThreads, 0,
-                                       (cudaStream_t)stream>>>(
-      x, y, vx, vy, rad, alive, prm, use_radius, n, nullptr, nullptr, nullptr,
-      1, 0.0f, fx, fy);
-  return (int)cudaGetLastError();
+  return dense_launch<kAllTiles, Moussaid>(
+      x, y, vx, vy, vx, vy, rad, alive, prm, use_radius, n, nullptr, nullptr,
+      nullptr, 1, 0.0f, fx, fy, stream);
 }
 
 int sfm_pair_force_dense_cutoff(const float* x, const float* y,
@@ -428,13 +517,9 @@ int sfm_pair_force_dense_cutoff(const float* x, const float* y,
                                 const float* prm, int use_radius, int n,
                                 const float* col_bb, float c2, float* fx,
                                 float* fy, void* stream) {
-  if (n <= 0) return (int)cudaSuccess;
-  const int blocks = (n + kDenseRows - 1) / kDenseRows;
-  pair_force_dense_kernel<kBoxSkip><<<blocks, kDenseThreads, 0,
-                                      (cudaStream_t)stream>>>(
-      x, y, vx, vy, rad, alive, prm, use_radius, n, col_bb, nullptr, nullptr,
-      1, c2, fx, fy);
-  return (int)cudaGetLastError();
+  return dense_launch<kBoxSkip, Moussaid>(
+      x, y, vx, vy, vx, vy, rad, alive, prm, use_radius, n, col_bb, nullptr,
+      nullptr, 1, c2, fx, fy, stream);
 }
 
 int sfm_pair_force_compact(const float* x, const float* y, const float* vx,
@@ -443,24 +528,18 @@ int sfm_pair_force_compact(const float* x, const float* y, const float* vx,
                            int use_radius, int n, const float* col_bb,
                            const int* surv, const int* counts, int max_surv,
                            float c2, float* fx, float* fy, void* stream) {
-  if (n <= 0) return (int)cudaSuccess;
-  if (max_surv < 1) return (int)cudaErrorInvalidValue;
-  const int blocks = (n + kDenseRows - 1) / kDenseRows;
-  pair_force_dense_kernel<kTable><<<blocks, kDenseThreads, 0,
-                                    (cudaStream_t)stream>>>(
-      x, y, vx, vy, rad, alive, prm, use_radius, n, col_bb, surv, counts,
-      max_surv, c2, fx, fy);
-  return (int)cudaGetLastError();
+  return dense_launch<kTable, Moussaid>(
+      x, y, vx, vy, vx, vy, rad, alive, prm, use_radius, n, col_bb, surv,
+      counts, max_surv, c2, fx, fy, stream);
 }
 
 int sfm_pair_force_sym(const float* x, const float* y, const float* vx,
                        const float* vy, const float* rad, const uint8_t* alive,
                        const float* prm, int use_radius, int n, float* fx,
                        float* fy, void* stream) {
-  if (n <= 0) return (int)cudaSuccess;
-  return sym_triangle_launch(false, x, y, vx, vy, rad, alive, prm,
-                             use_radius, n, nullptr, 0.0f, fx, fy,
-                             (cudaStream_t)stream);
+  return sym_launch<kTriangle, Moussaid>(
+      x, y, vx, vy, rad, alive, prm, use_radius, n, nullptr, nullptr,
+      nullptr, 1, 0.0f, fx, fy, stream);
 }
 
 int sfm_pair_force_sym_cutoff(const float* x, const float* y, const float* vx,
@@ -468,9 +547,9 @@ int sfm_pair_force_sym_cutoff(const float* x, const float* y, const float* vx,
                               const uint8_t* alive, const float* prm,
                               int use_radius, int n, const float* bb,
                               float c2, float* fx, float* fy, void* stream) {
-  if (n <= 0) return (int)cudaSuccess;
-  return sym_triangle_launch(true, x, y, vx, vy, rad, alive, prm, use_radius,
-                             n, bb, c2, fx, fy, (cudaStream_t)stream);
+  return sym_launch<kTriangleBox, Moussaid>(
+      x, y, vx, vy, rad, alive, prm, use_radius, n, bb, nullptr, nullptr, 1,
+      c2, fx, fy, stream);
 }
 
 int sfm_pair_force_sym_compact(const float* x, const float* y,
@@ -480,16 +559,105 @@ int sfm_pair_force_sym_compact(const float* x, const float* y,
                                const float* bb, const int* surv,
                                const int* counts, int max_surv, float c2,
                                float* fx, float* fy, void* stream) {
-  if (n <= 0) return (int)cudaSuccess;
-  if (max_surv < 1) return (int)cudaErrorInvalidValue;
-  const long long nt = (n + kSymTile - 1) / kSymTile;
-  const long long blocks = nt * max_surv;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  pair_force_sym_kernel<kSymTable><<<(unsigned)blocks, kSymTile, 0,
-                                     (cudaStream_t)stream>>>(
-      x, y, vx, vy, rad, alive, prm, use_radius, n, (int)nt, bb, surv, counts,
-      max_surv, c2, fx, fy);
-  return (int)cudaGetLastError();
+  return sym_launch<kSymTable, Moussaid>(
+      x, y, vx, vy, rad, alive, prm, use_radius, n, bb, surv, counts,
+      max_surv, c2, fx, fy, stream);
+}
+
+// sfm_powerlaw_*: the power law (prm: k, tau0, tau_max, tau_min), the same
+// forms and arguments as the Moussaid entries without use_radius (disc
+// radii always participate).
+int sfm_powerlaw_dense(const float* x, const float* y, const float* vx,
+                       const float* vy, const float* rad, const uint8_t* alive,
+                       const float* prm, int n, float* fx, float* fy,
+                       void* stream) {
+  return dense_launch<kAllTiles, PowerLaw>(
+      x, y, vx, vy, vx, vy, rad, alive, prm, 0, n, nullptr, nullptr, nullptr,
+      1, 0.0f, fx, fy, stream);
+}
+
+int sfm_powerlaw_dense_cutoff(const float* x, const float* y, const float* vx,
+                              const float* vy, const float* rad,
+                              const uint8_t* alive, const float* prm, int n,
+                              const float* col_bb, float c2, float* fx,
+                              float* fy, void* stream) {
+  return dense_launch<kBoxSkip, PowerLaw>(
+      x, y, vx, vy, vx, vy, rad, alive, prm, 0, n, col_bb, nullptr, nullptr,
+      1, c2, fx, fy, stream);
+}
+
+int sfm_powerlaw_compact(const float* x, const float* y, const float* vx,
+                         const float* vy, const float* rad,
+                         const uint8_t* alive, const float* prm, int n,
+                         const float* col_bb, const int* surv,
+                         const int* counts, int max_surv, float c2, float* fx,
+                         float* fy, void* stream) {
+  return dense_launch<kTable, PowerLaw>(
+      x, y, vx, vy, vx, vy, rad, alive, prm, 0, n, col_bb, surv, counts,
+      max_surv, c2, fx, fy, stream);
+}
+
+int sfm_powerlaw_sym(const float* x, const float* y, const float* vx,
+                     const float* vy, const float* rad, const uint8_t* alive,
+                     const float* prm, int n, float* fx, float* fy,
+                     void* stream) {
+  return sym_launch<kTriangle, PowerLaw>(
+      x, y, vx, vy, rad, alive, prm, 0, n, nullptr, nullptr, nullptr, 1,
+      0.0f, fx, fy, stream);
+}
+
+int sfm_powerlaw_sym_cutoff(const float* x, const float* y, const float* vx,
+                            const float* vy, const float* rad,
+                            const uint8_t* alive, const float* prm, int n,
+                            const float* bb, float c2, float* fx, float* fy,
+                            void* stream) {
+  return sym_launch<kTriangleBox, PowerLaw>(
+      x, y, vx, vy, rad, alive, prm, 0, n, bb, nullptr, nullptr, 1, c2, fx,
+      fy, stream);
+}
+
+int sfm_powerlaw_sym_compact(const float* x, const float* y, const float* vx,
+                             const float* vy, const float* rad,
+                             const uint8_t* alive, const float* prm, int n,
+                             const float* bb, const int* surv,
+                             const int* counts, int max_surv, float c2,
+                             float* fx, float* fy, void* stream) {
+  return sym_launch<kSymTable, PowerLaw>(
+      x, y, vx, vy, rad, alive, prm, 0, n, bb, surv, counts, max_surv, c2, fx,
+      fy, stream);
+}
+
+// sfm_helbing_*: the Helbing ellipse (prm: v0, sigma, cos_phi, fov_factor,
+// step_width, b_min), dense forms only.  vx, vy are the partners'
+// velocities; ex, ey each pedestrian's unit desired direction.
+int sfm_helbing_dense(const float* x, const float* y, const float* vx,
+                      const float* vy, const float* ex, const float* ey,
+                      const uint8_t* alive, const float* prm, int n,
+                      float* fx, float* fy, void* stream) {
+  return dense_launch<kAllTiles, Helbing>(
+      x, y, vx, vy, ex, ey, nullptr, alive, prm, 0, n, nullptr, nullptr,
+      nullptr, 1, 0.0f, fx, fy, stream);
+}
+
+int sfm_helbing_dense_cutoff(const float* x, const float* y, const float* vx,
+                             const float* vy, const float* ex,
+                             const float* ey, const uint8_t* alive,
+                             const float* prm, int n, const float* col_bb,
+                             float c2, float* fx, float* fy, void* stream) {
+  return dense_launch<kBoxSkip, Helbing>(
+      x, y, vx, vy, ex, ey, nullptr, alive, prm, 0, n, col_bb, nullptr,
+      nullptr, 1, c2, fx, fy, stream);
+}
+
+int sfm_helbing_compact(const float* x, const float* y, const float* vx,
+                        const float* vy, const float* ex, const float* ey,
+                        const uint8_t* alive, const float* prm, int n,
+                        const float* col_bb, const int* surv,
+                        const int* counts, int max_surv, float c2, float* fx,
+                        float* fy, void* stream) {
+  return dense_launch<kTable, Helbing>(
+      x, y, vx, vy, ex, ey, nullptr, alive, prm, 0, n, col_bb, surv, counts,
+      max_surv, c2, fx, fy, stream);
 }
 
 const char* sfm_cuda_error_string(int err) {

@@ -3,7 +3,8 @@
 Plain frozen dataclasses of Python numbers: the JAX package needed pytree
 registration so sweeps could trace its leaves; here the values that a
 kernel reads on the device travel as a small tensor
-(:func:`moussaid_vector`), so nothing else has to be a tensor.
+(:func:`moussaid_vector`, :func:`powerlaw_vector`, :func:`helbing_vector`),
+so nothing else has to be a tensor.
 
 The TOML surface, the config-key quirks and ``strict_parity`` are those of
 the JAX package (see its module docstring): the keys as written in the
@@ -249,4 +250,34 @@ def moussaid_vector(p: MoussaidParams, device: torch.device | str) -> torch.Tens
     them from the host.  Cached per (params, device): callers must not
     write to the returned tensor."""
     return torch.tensor([p.lambda_, p.A, p.gamma, p.n, p.n_prime, p.epsilon],
+                        dtype=torch.float32, device=device)
+
+
+@functools.lru_cache(maxsize=32)
+def powerlaw_vector(p: PowerLawParams, device: torch.device | str
+                    ) -> torch.Tensor:
+    """``(k, tau0, tau_max, tau_min)`` as a float32 ``(4,)`` tensor on
+    ``device``: the power-law kernels' parameters (the JAX package's
+    ``_params_vec(p, "powerlaw")``).  Cached as :func:`moussaid_vector`."""
+    return torch.tensor([p.k, p.tau0, p.tau_max, p.tau_min],
+                        dtype=torch.float32, device=device)
+
+
+def helbing_cos_phi(p: PedRepulsiveParams) -> float:
+    """cos of the field-of-view half-angle, evaluated in float32 as the JAX
+    package does (``jnp.cos(jnp.deg2rad(fov_phi))``), so that the plain
+    version and the kernels decide the FoV test on the same float."""
+    phi = torch.tensor(p.fov_phi, dtype=torch.float32)
+    return float(torch.cos(torch.deg2rad(phi)))
+
+
+@functools.lru_cache(maxsize=32)
+def helbing_vector(p: PedRepulsiveParams, device: torch.device | str
+                   ) -> torch.Tensor:
+    """``(v0, sigma, cos_phi, fov_factor, step_width, b_min)`` as a float32
+    ``(6,)`` tensor on ``device``: the Helbing kernels' parameters (the JAX
+    package's ``_params_vec(p, "helbing")``; ``cos_phi`` from
+    :func:`helbing_cos_phi`).  Cached as :func:`moussaid_vector`."""
+    return torch.tensor([p.v0, p.sigma, helbing_cos_phi(p), p.fov_factor,
+                         p.step_width, p.b_min],
                         dtype=torch.float32, device=device)

@@ -8,20 +8,24 @@ One step keeps the reference's per-tick order (see the JAX package):
 4. gap acceptance for CHECKING_TRAFFIC pedestrians against this step's
    scripted vehicles (with no vehicles every gap is accepted);
 5. the recorded snapshot;
-6. the force sum: acceleration, the Moussaid pair force, and the
-   environment forces (borders, space repulsion, static and dynamic
-   obstacles);
+6. the force sum: acceleration, the pair forces (the Moussaid force, the
+   Karamouzas power law, the Helbing ellipse), the social-group force and
+   the environment forces (borders, space repulsion, static and dynamic
+   obstacles), with the per-agent ``law_id``/``pair_scale`` row masks on
+   the pair families;
 7. v' = cap(v + dt*F, applied_target * factor);
 8. waypoint arrival: advance and mode change, or despawn;
 9. x' = x + dt*v'.
 
 This covers the headless crowd (BASELINE config #1), its environment
-(configs #2 and #3), the interaction cutoff of large crowds and the urban
+(configs #2 and #3), the interaction cutoff of large crowds, the urban
 slice (config #4): a reactive autopilot fleet stepped before the
 pedestrians each tick (``models/autopilot.py``) and the compacted
-environment kernels.  Terms the JAX step computes and this port does not
-have yet raise ``NotImplementedError`` naming the slice that brings them,
-rather than being skipped.
+environment kernels, and the model families: the power-law and Helbing
+pair laws, mixed-law crowds and social groups (``models/groups.py``).
+Terms the JAX step computes and this port does not have yet (ORCA, the
+analytic border geometry) raise ``NotImplementedError`` naming the slice
+that brings them, rather than being skipped.
 
 The device chooses the kernel path: the CUDA kernels on a card, the plain
 PyTorch versions on the CPU (ops/cuda_forces.py, ops/cuda_env.py).  A
@@ -38,7 +42,7 @@ import numpy as np
 import torch
 
 from ..env.pointsets import ChunkedPointSet, SegmentPointSet, segment_major
-from ..ops import forces, vecmath
+from ..ops import cuda_forces, forces, vecmath
 from ..ops.cuda_env import fused_environment_terms
 from ..ops.cuda_forces import pedestrian_force_kernel, pedestrian_force_sorted
 from ..ops.spatial import morton_order
@@ -46,8 +50,9 @@ from . import modes
 from .autopilot import (AutopilotFleet, AutopilotRecord, AutopilotState,
                         autopilot_snapshot, autopilot_step)
 from .gap import gap_ready
+from .groups import GroupSet, group_force
 from .params import SfmParams
-from .spawn import SpawnSchedule, apply_spawn
+from .spawn import LAW_IDS, SpawnSchedule, apply_spawn
 from .state import PedState
 from .vehicles import (VehicleSnapshot, VehicleStates,
                        snapshot_segment_pointset, vehicle_snapshot_at)
@@ -62,8 +67,9 @@ class Scene:
     schedule's device (``borders_seg``, ``static_obstacles_seg``), which is
     what the forces read.  ``autopilot`` is a reactive fleet, stepped
     before the pedestrians each tick (its snapshot replaces ``vehicles``).
-    ``groups`` exists so that a scene carrying it fails loudly instead of
-    being simulated without it."""
+    ``groups`` is the social-group member table (:class:`.groups.GroupSet`,
+    from :func:`.groups.build_groups`), read when the group force is
+    enabled."""
 
     spawn: SpawnSchedule
     borders: ChunkedPointSet | None = None
@@ -71,7 +77,7 @@ class Scene:
     static_obstacle_vel: torch.Tensor | None = None  # (S, 2), zeros
     vehicles: VehicleStates | None = None
     autopilot: AutopilotFleet | None = None
-    groups: object | None = None
+    groups: GroupSet | None = None
     borders_seg: SegmentPointSet | None = None
     static_obstacles_seg: SegmentPointSet | None = None
 
@@ -109,10 +115,11 @@ class StepConfig:
     row_block: int = 1024
     #: Newton's-third-law pair kernel (each unordered pair once, results
     #: equal up to f32 summation order); False runs the dense kernel.  The
-    #: JAX package's ``pallas_symmetric``
+    #: JAX package's ``pallas_symmetric``; the Helbing law, which is not
+    #: antisymmetric, always runs the dense kernels
     symmetric_pairs: bool = True
-    #: run the plain PyTorch pair force even on a card: the reference the
-    #: kernel path is compared with, never the default
+    #: run the plain PyTorch pair forces (every family) even on a card: the
+    #: reference the kernel path is compared with, never the default
     plain_pair_force: bool = False
     #: run the plain PyTorch environment forces even on a card (no sort, no
     #: kernel): the reference the kernel path is compared with, never the
@@ -178,20 +185,33 @@ def _not_ported(what: str, slice_name: str):
 
 def check_supported(scene: Scene, params: SfmParams, cfg: StepConfig) -> None:
     """Raise ``NotImplementedError`` for every term the JAX step would
-    compute for this (scene, params, cfg) that this slice does not have."""
+    compute for this (scene, params, cfg) that the port does not have yet,
+    and ``ValueError`` or ``TypeError`` for per-agent columns and groups of
+    the wrong form."""
     if cfg.env_analytic:
         _not_ported("env_analytic (the analytic border geometry)",
                     "analytic border")
-    if params.enable_powerlaw:
-        _not_ported("the power-law pair force", "model-family")
-    if params.enable_ped_repulsive:
-        _not_ported("the Helbing pair force", "model-family")
-    if params.enable_group and scene.groups is not None:
-        _not_ported("the social-group force", "model-family")
     if params.enable_orca:
-        _not_ported("ORCA", "model-family")
-    if scene.spawn.pair_scale is not None or scene.spawn.law_id is not None:
-        _not_ported("per-agent pair_scale/law_id", "model-family")
+        _not_ported("ORCA", "ORCA")
+    if (params.enable_group and scene.groups is not None
+            and not isinstance(scene.groups, GroupSet)):
+        raise TypeError(f"scene.groups must be a GroupSet (models/groups."
+                        f"build_groups), got {type(scene.groups).__name__}")
+    n = scene.spawn.capacity
+    for name, kinds in (("pair_scale", (torch.float32,)),
+                        ("law_id", (torch.int32, torch.int64))):
+        col = getattr(scene.spawn, name)
+        if col is not None and (not isinstance(col, torch.Tensor)
+                                or col.shape != (n,) or col.dtype not in kinds):
+            raise ValueError(
+                f"spawn.{name} (per-agent pair_scale/law_id) must be a ({n},) "
+                f"tensor of {' or '.join(map(str, kinds))}")
+
+
+#: the pair families by SpawnSchedule.law_id (models/spawn.LAW_IDS)
+_FAMILY_ID = {"pedestrian_force": LAW_IDS["moussaid"],
+              "powerlaw_force": LAW_IDS["powerlaw"],
+              "ped_repulsive_force": LAW_IDS["helbing"]}
 
 
 def _segments(pset, seg, name):
@@ -215,12 +235,14 @@ def force_terms(state: PedState, scene: Scene, params: SfmParams,
     statics = _segments(scene.static_obstacles, scene.static_obstacles_seg,
                         "static_obstacles")
     cutoff = cfg.interaction_cutoff
+    families = (params.enable_pedestrian or params.enable_powerlaw
+                or params.enable_ped_repulsive)
     order = None
-    if (cutoff is not None and params.enable_pedestrian
-            and not cfg.plain_pair_force and not cfg.plain_env_force
+    if (cutoff is not None and families and not cfg.plain_pair_force
             and cfg.spatial_order == "hilbert"):
-        # the environment kernels sort by the same key with the same stable
-        # sort: one permutation serves both (it changes no result)
+        # the pair kernels of every family and the environment kernels sort
+        # by the same key with the same stable sort: one permutation serves
+        # them all (it changes no result)
         order = morton_order(state.pos_x, state.pos_y, state.alive, "hilbert")
     env = ({} if cfg.plain_env_force
            else fused_environment_terms(state, scene, params, veh_snap,
@@ -228,6 +250,30 @@ def force_terms(state: PedState, scene: Scene, params: SfmParams,
                                         max_surv=cfg.env_max_surv,
                                         order=order))
     zero = torch.zeros_like(state.pos_x)
+    desired = None
+    if params.enable_ped_repulsive or (params.enable_group
+                                       and scene.groups is not None):
+        ex, ey, _ = vecmath.normalize_xy(state.wp_x - state.pos_x,
+                                         state.wp_y - state.pos_y)
+        desired = (ex, ey)
+
+    def pair_term(law, p, radius, use_radius=False, desired=None):
+        args = (state.pos_x, state.pos_y, state.vel_x, state.vel_y, radius,
+                state.alive, p)
+        if cfg.plain_pair_force:
+            return cuda_forces.plain_law_force(
+                law, *args, use_radius, cfg.row_block, cutoff, desired)
+        if cutoff is not None:
+            return pedestrian_force_sorted(
+                *args, cutoff, use_ped_radius=use_radius,
+                symmetric=cfg.symmetric_pairs, compact=cfg.compact_pairs,
+                max_surv=cfg.pair_max_surv, spatial_order=cfg.spatial_order,
+                row_block=cfg.row_block, order=order, law=law,
+                desired=desired)
+        return pedestrian_force_kernel(
+            *args, use_ped_radius=use_radius, symmetric=cfg.symmetric_pairs,
+            row_block=cfg.row_block, law=law, desired=desired)
+
     terms: dict = {}
     if params.enable_acceleration:
         terms["acceleration_force"] = forces.acceleration_force_xy(
@@ -235,22 +281,9 @@ def force_terms(state: PedState, scene: Scene, params: SfmParams,
             state.wp_x, state.wp_y, state.applied_target,
             params.acceleration)
     if params.enable_pedestrian:
-        args = (state.pos_x, state.pos_y, state.vel_x, state.vel_y,
-                state.radius, state.alive, params.pedestrian)
-        if cfg.plain_pair_force:
-            terms["pedestrian_force"] = forces.pedestrian_force(
-                *args, use_ped_radius=params.use_ped_radius,
-                row_block=cfg.row_block, cutoff=cutoff)
-        elif cutoff is not None:
-            terms["pedestrian_force"] = pedestrian_force_sorted(
-                *args, cutoff, use_ped_radius=params.use_ped_radius,
-                symmetric=cfg.symmetric_pairs, compact=cfg.compact_pairs,
-                max_surv=cfg.pair_max_surv, spatial_order=cfg.spatial_order,
-                row_block=cfg.row_block, order=order)
-        else:
-            terms["pedestrian_force"] = pedestrian_force_kernel(
-                *args, use_ped_radius=params.use_ped_radius,
-                symmetric=cfg.symmetric_pairs, row_block=cfg.row_block)
+        terms["pedestrian_force"] = pair_term(
+            "moussaid", params.pedestrian, state.radius,
+            use_radius=params.use_ped_radius)
     if params.enable_border and scene.borders is not None:
         terms["border_force"] = (
             env["border_force"] if "border_force" in env
@@ -267,6 +300,16 @@ def force_terms(state: PedState, scene: Scene, params: SfmParams,
                 state.pos_x, state.pos_y, state.vel_x, state.vel_y,
                 state.radius, state.alive, statics, scene.static_obstacle_vel,
                 params.static_obstacle, use_ped_radius=params.use_ped_radius))
+    if params.enable_powerlaw:
+        terms["powerlaw_force"] = pair_term("powerlaw", params.powerlaw,
+                                            state.radius)
+    if params.enable_ped_repulsive:
+        terms["ped_repulsive_force"] = pair_term(
+            "helbing", params.ped_repulsive, None, desired=desired)
+    if params.enable_group and scene.groups is not None:
+        terms["group_force"] = group_force(
+            state.pos_x, state.pos_y, state.vel_x, state.vel_y, *desired,
+            state.alive, scene.groups, params.group)
     if params.enable_space_repulsive and scene.borders is not None:
         terms["space_repulsive_force"] = (
             env["space_repulsive_force"] if "space_repulsive_force" in env
@@ -285,6 +328,24 @@ def force_terms(state: PedState, scene: Scene, params: SfmParams,
                 state.pos_x, state.pos_y, state.vel_x, state.vel_y,
                 state.radius, state.alive, vset, vvel, p,
                 use_ped_radius=params.use_ped_radius, obstacle_active=vact)
+    # per-agent heterogeneity of the pair families (the JAX package's
+    # stepper.py:452-477): F_i = s_i * sum_j g_ij is a row-wise post-scale
+    # of the summed term, so it composes with every kernel (the symmetric
+    # ones compute the unscaled antisymmetric g); law_id keeps each family
+    # on the agents that perceive the crowd through it (-1 = every enabled
+    # family).  Borders, obstacles and groups are not scaled.
+    ps, law = scene.spawn.pair_scale, scene.spawn.law_id
+    if ps is not None or law is not None:
+        for name, fid in _FAMILY_ID.items():
+            if name not in terms:
+                continue
+            fx, fy = terms[name]
+            if law is not None:
+                m = ((law < 0) | (law == fid)).to(fx.dtype)
+                fx, fy = fx * m, fy * m
+            if ps is not None:
+                fx, fy = fx * ps, fy * ps
+            terms[name] = (fx, fy)
     return terms
 
 

@@ -11,6 +11,12 @@ parity target of the CPU tests against the JAX package.
   only when both agents are alive, it is not a self pair, the positions
   differ (``d2 > 0``) and the interaction vector does not vanish
   (``B > 0``), so coincident agents give exactly zero, never NaN.
+* :func:`powerlaw_force` and :func:`ped_repulsive_force` -- the
+  power-law and Helbing forms of the pair kernels (the JAX package's
+  forces.py:231-335 and :365-468), with the same ``cutoff`` and row
+  blocking.  Each decides its gates (collision course, ellipse, field of
+  view) on values rounded after every operation, as the kernels compute
+  them.
 * :func:`env_exp_force` and :func:`env_moussaid_force` -- the environment
   kernels (``csrc/env_forces.cu``), on the segment-major layout they read
   (``env/pointsets.SegmentPointSet``).  :func:`border_force`,
@@ -21,6 +27,7 @@ Every function takes and returns planar ``(N,)`` x/y tensors.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import vecmath
@@ -28,7 +35,8 @@ from .geometry import segment_filter_mask
 from .pair_grid import cutoff_sq
 from ..models import modes
 from ..models.params import (AccelerationParams, BorderParams, MoussaidParams,
-                             SpaceRepulsiveParams)
+                             PedRepulsiveParams, PowerLawParams,
+                             SpaceRepulsiveParams, helbing_cos_phi)
 
 #: squared distances at or above this are padding (PAD_COORD = 1e8 puts a
 #: padded slot ~1e16 away), not a closest point
@@ -88,6 +96,39 @@ def _moussaid_pair_force(dx, dy, radius_sub, dvx, dvy, p: MoussaidParams,
     return fx, fy
 
 
+def _pair_sum(pos_x, pos_y, alive, pair_fn, row_block: int,
+              cutoff: float | None, rows):
+    """Row-blocked sum over partners of a pair law: ``(fx, fy)``.
+
+    ``pair_fn(r, dx, dy, pair_ok)`` returns the ``(rows, N)`` force planes
+    of row index (or slice) ``r`` against every column, with ``(dx, dy)``
+    the raw vector x_j - x_i and ``pair_ok`` the mask of pairs that may
+    contribute: both alive, not a self pair and, with ``cutoff``, within
+    it (the JAX package's per-pair ``d2 <= cutoff * cutoff``).  Blocks of
+    ``row_block`` rows bound the intermediates; ``rows`` optionally lists
+    the rows to compute, in its order."""
+    n = pos_x.shape[0]
+    col = torch.arange(n, device=pos_x.device)
+    ids = col if rows is None else rows
+    m = ids.shape[0]
+    c2 = None if cutoff is None else cutoff_sq(cutoff)
+    fx_out = torch.empty(m, dtype=pos_x.dtype, device=pos_x.device)
+    fy_out = torch.empty(m, dtype=pos_y.dtype, device=pos_y.device)
+    for lo in range(0, m, row_block):
+        hi = min(lo + row_block, m)
+        r = slice(lo, hi) if rows is None else rows[lo:hi]
+        dx = pos_x[None, :] - pos_x[r, None]            # x_j - x_i
+        dy = pos_y[None, :] - pos_y[r, None]
+        not_self = ids[lo:hi, None] != col[None, :]
+        pair_ok = alive[r, None] & alive[None, :] & not_self
+        if c2 is not None:
+            pair_ok = pair_ok & (dx * dx + dy * dy <= c2)
+        fx, fy = pair_fn(r, dx, dy, pair_ok)
+        fx_out[lo:hi] = fx.sum(dim=1)
+        fy_out[lo:hi] = fy.sum(dim=1)
+    return fx_out, fy_out
+
+
 def pedestrian_force(pos_x, pos_y, vel_x, vel_y, radius, alive,
                      p: MoussaidParams, use_ped_radius: bool = False,
                      row_block: int = 1024, cutoff: float | None = None,
@@ -104,31 +145,125 @@ def pedestrian_force(pos_x, pos_y, vel_x, vel_y, radius, alive,
     tiles.  ``rows``: an optional index tensor; only those rows' forces are
     computed (against every column) and returned, in its order.
     """
-    n = pos_x.shape[0]
-    col = torch.arange(n, device=pos_x.device)
-    ids = col if rows is None else rows
-    m = ids.shape[0]
-    c2 = None if cutoff is None else cutoff_sq(cutoff)
-    fx_out = torch.empty(m, dtype=pos_x.dtype, device=pos_x.device)
-    fy_out = torch.empty(m, dtype=pos_y.dtype, device=pos_y.device)
-    for lo in range(0, m, row_block):
-        hi = min(lo + row_block, m)
-        r = slice(lo, hi) if rows is None else rows[lo:hi]
-        dx = pos_x[None, :] - pos_x[r, None]            # x_j - x_i
-        dy = pos_y[None, :] - pos_y[r, None]
+    def pair(r, dx, dy, pair_ok):
         dvx = vel_x[r, None] - vel_x[None, :]           # v_i - v_j
         dvy = vel_y[r, None] - vel_y[None, :]
         radius_sub = ((radius[r, None] + radius[None, :])
                       if use_ped_radius else 0.0)
-        not_self = ids[lo:hi, None] != col[None, :]
-        pair_ok = alive[r, None] & alive[None, :] & not_self
-        if c2 is not None:
-            pair_ok = pair_ok & (dx * dx + dy * dy <= c2)
-        fx, fy = _moussaid_pair_force(dx, dy, radius_sub, dvx, dvy, p,
-                                      pair_ok)
-        fx_out[lo:hi] = fx.sum(dim=1)
-        fy_out[lo:hi] = fy.sum(dim=1)
-    return fx_out, fy_out
+        return _moussaid_pair_force(dx, dy, radius_sub, dvx, dvy, p, pair_ok)
+
+    return _pair_sum(pos_x, pos_y, alive, pair, row_block, cutoff, rows)
+
+
+def _powerlaw_pair_force(dx, dy, rad_sum, dvx, dvy, p: PowerLawParams,
+                         pair_ok):
+    """Karamouzas et al. (2014) time-to-collision pair force (the JAX
+    package's forces.py:231-270), per pair, with the conventions of
+    :func:`_moussaid_pair_force`: ``(dx, dy)`` = x_j - x_i, ``(dvx, dvy)``
+    = v_i - v_j, ``rad_sum`` the summed disc radii.
+
+    With x = x_i - x_j, a = v.v, b = x.v, c = x.x - R^2 and D = b^2 - a*c,
+    tau = (-b - sqrt(D)) / a is the time to collision, and the force is
+    k*exp(-tau/tau0)*(2/tau + 1/tau0)/tau^2 * (a*x - (sqrt(D) + b)*v) /
+    (a*sqrt(D)).  Only pairs on a collision course contribute: c > 0
+    (not overlapping), D > 0, a > 1e-8 and 0 < tau < tau_max; tau is then
+    clipped to [tau_min, tau_max].  Masked pairs select 0.  The
+    coefficient ``1/tau0`` is taken in float32, as the kernels read it."""
+    xx = -dx                                   # x = x_i - x_j
+    xy = -dy
+    a = dvx * dvx + dvy * dvy
+    b = xx * dvx + xy * dvy
+    c = xx * xx + xy * xy - rad_sum * rad_sum
+    disc = b * b - a * c
+    ok = pair_ok & (c > 0.0) & (disc > 0.0) & (a > 1e-8)
+    disc_safe = torch.where(ok, disc, 1.0)
+    a_safe = torch.where(ok, a, 1.0)
+    s = torch.sqrt(disc_safe)
+    tau = (-b - s) / a_safe
+    ok = ok & (tau > 0.0) & (tau < p.tau_max)
+    tau = torch.clamp(tau, p.tau_min, p.tau_max)
+    inv_tau0 = float(np.float32(1.0) / np.float32(p.tau0))
+    mag = (p.k * torch.exp(-tau / p.tau0)
+           * (2.0 / tau + inv_tau0) / (tau * tau))
+    scale = mag / (a_safe * s)
+    sb = s + b
+    fx = torch.where(ok, scale * (a * xx - sb * dvx), 0.0)
+    fy = torch.where(ok, scale * (a * xy - sb * dvy), 0.0)
+    return fx, fy
+
+
+def powerlaw_force(pos_x, pos_y, vel_x, vel_y, radius, alive,
+                   p: PowerLawParams, row_block: int = 1024,
+                   cutoff: float | None = None, rows=None):
+    """Full N x N Karamouzas power-law interaction (the JAX package's
+    forces.py:273-335), planar: ``(fx, fy)``.  The plain version of the
+    ``powerlaw_*`` kernels; disc radii always participate (the law is
+    defined on discs).  ``row_block``, ``cutoff`` and ``rows`` as in
+    :func:`pedestrian_force`.  Dead rows come out exactly zero."""
+    def pair(r, dx, dy, pair_ok):
+        return _powerlaw_pair_force(
+            dx, dy, radius[r, None] + radius[None, :],
+            vel_x[r, None] - vel_x[None, :], vel_y[r, None] - vel_y[None, :],
+            p, pair_ok)
+
+    return _pair_sum(pos_x, pos_y, alive, pair, row_block, cutoff, rows)
+
+
+def _helbing_pair_force(dx, dy, yx, yy, ex, ey, p: PedRepulsiveParams,
+                        pair_ok):
+    """Helbing-Molnar (1995) elliptical pair force with field-of-view
+    weight (the JAX package's forces.py:365-408), per pair.
+
+    ``(dx, dy)`` = r_i - r_j, ``(yx, yy)`` = step_width * v_j the
+    partner's anticipated step, ``(ex, ey)`` the pedestrian's desired
+    direction.  V(b) = v0*exp(-b/sigma), with 2b the minor axis of the
+    ellipse through r_i around r_j and r_j + y; the force on i is -grad V,
+    weighted by ``fov_factor`` when the partner lies outside i's field of
+    view.  Pairs with b == 0 or a vanishing |d| or |d - y| contribute 0; b
+    is floored at ``b_min``.  The law reads neither radii nor v_i.  The
+    coefficient ``v0/sigma`` is taken in float32, as the kernels read it."""
+    mx = dx - yx                               # d - y
+    my = dy - yy
+    nd = torch.sqrt(dx * dx + dy * dy)
+    nm = torch.sqrt(mx * mx + my * my)
+    s = nd + nm
+    y2 = yx * yx + yy * yy
+    b2 = torch.clamp(s * s - y2, min=0.0) * 0.25
+    b = torch.sqrt(b2)
+    ok = pair_ok & (b > 0.0) & (nd > 0.0) & (nm > 0.0)
+    nd_s = torch.where(nd == 0.0, 1.0, nd)
+    nm_s = torch.where(nm == 0.0, 1.0, nm)
+    b_s = torch.clamp(torch.where(ok, b, 1.0), min=p.b_min)
+    g = s / (4.0 * b_s)
+    coef = float(np.float32(p.v0) / np.float32(p.sigma))
+    e = coef * torch.exp(-b_s / p.sigma)
+    fx = e * (g * (dx / nd_s + mx / nm_s))
+    fy = e * (g * (dy / nd_s + my / nm_s))
+    # field of view (Helbing eq. 7): -f points from i toward the source j
+    tx, ty = -fx, -fy
+    seen = (ex * tx + ey * ty
+            >= torch.sqrt(tx * tx + ty * ty) * helbing_cos_phi(p))
+    w = torch.where(seen, 1.0, p.fov_factor)
+    return torch.where(ok, w * fx, 0.0), torch.where(ok, w * fy, 0.0)
+
+
+def ped_repulsive_force(pos_x, pos_y, vel_x, vel_y, ex, ey, alive,
+                        p: PedRepulsiveParams, row_block: int = 1024,
+                        cutoff: float | None = None, rows=None):
+    """Helbing-Molnar (1995) elliptical pedestrian repulsion with field of
+    view (the JAX package's forces.py:411-468), planar: ``(fx, fy)``.  The
+    plain version of the ``helbing_*`` kernels.  ``(ex, ey)``: each
+    pedestrian's unit desired direction (zero at its waypoint).  The law is
+    not antisymmetric: it anticipates the partner's step and never reads
+    the pedestrian's own velocity.  ``row_block``, ``cutoff`` and ``rows``
+    as in :func:`pedestrian_force`."""
+    def pair(r, dx, dy, pair_ok):
+        return _helbing_pair_force(
+            -dx, -dy, p.step_width * vel_x[None, :],
+            p.step_width * vel_y[None, :], ex[r, None], ey[r, None], p,
+            pair_ok)
+
+    return _pair_sum(pos_x, pos_y, alive, pair, row_block, cutoff, rows)
 
 
 def _ped_blocks(n: int, seg, max_group_elems: int):

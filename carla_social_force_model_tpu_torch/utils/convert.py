@@ -23,6 +23,7 @@ import torch
 from ..env.pointsets import ChunkedPointSet
 from ..models import params as P
 from ..models.autopilot import AutopilotFleet, AutopilotState
+from ..models.groups import GroupSet
 from ..models.routes import RouteBuffer
 from ..models.spawn import SpawnSchedule
 from ..models.state import PedState
@@ -163,13 +164,24 @@ def autopilot_state_from_fields(d: dict, device: torch.device | str
                              for f in dataclasses.fields(AutopilotState)})
 
 
+def group_set_from_fields(d: dict | None, device: torch.device | str
+                          ) -> GroupSet | None:
+    """The port's GroupSet from a flattened JAX ``GroupSet`` (its int32
+    member table as the port's int64 one)."""
+    if d is None:
+        return None
+    return GroupSet(member_slot=torch.from_numpy(
+        np.asarray(d["member_slot"], np.int64)).to(device))
+
+
 def scene_from_fields(d: dict, device: torch.device | str) -> Scene:
-    """The port's Scene from a flattened JAX ``Scene``: the spawn schedule,
-    the border and static-obstacle point sets, the obstacle velocities, the
-    scripted vehicles and the autopilot fleet.  The JAX scene's derived
-    layouts (segment-major, analytic, ORCA features) are not carried: the
-    port's ``prepare_scene`` builds its own.  Social groups are carried as
-    their field dict, so that a step of the port refuses them."""
+    """The port's Scene from a flattened JAX ``Scene``: the spawn schedule
+    (with its per-slot ``group_id``, ``pair_scale`` and ``law_id``), the
+    border and static-obstacle point sets, the obstacle velocities, the
+    scripted vehicles, the autopilot fleet and the social groups' member
+    table.  The JAX scene's derived layouts (segment-major, analytic, ORCA
+    features) are not carried: the port's ``prepare_scene`` builds its
+    own."""
     vel = d.get("static_obstacle_vel")
     return Scene(
         spawn=spawn_schedule_from_fields(d["spawn"], device),
@@ -179,4 +191,4 @@ def scene_from_fields(d: dict, device: torch.device | str) -> Scene:
         static_obstacle_vel=None if vel is None else _tensor(vel, device),
         vehicles=vehicle_states_from_fields(d.get("vehicles"), device),
         autopilot=autopilot_fleet_from_fields(d.get("autopilot"), device),
-        groups=d.get("groups"))
+        groups=group_set_from_fields(d.get("groups"), device))

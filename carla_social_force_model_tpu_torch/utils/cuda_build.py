@@ -51,6 +51,21 @@ ARGTYPES = {
                                + [_INT, _FLOAT] + [_PTR] * 3),
     "sfm_pair_force_sym_compact": ([_PTR] * 7 + [_INT, _INT] + [_PTR] * 3
                                    + [_INT, _FLOAT] + [_PTR] * 3),
+    # the power-law entries: the Moussaid ones without use_radius
+    "sfm_powerlaw_dense": [_PTR] * 7 + [_INT] + [_PTR] * 3,
+    "sfm_powerlaw_sym": [_PTR] * 7 + [_INT] + [_PTR] * 3,
+    "sfm_powerlaw_dense_cutoff": [_PTR] * 7 + [_INT, _PTR, _FLOAT] + [_PTR] * 3,
+    "sfm_powerlaw_sym_cutoff": [_PTR] * 7 + [_INT, _PTR, _FLOAT] + [_PTR] * 3,
+    "sfm_powerlaw_compact": ([_PTR] * 7 + [_INT] + [_PTR] * 3
+                             + [_INT, _FLOAT] + [_PTR] * 3),
+    "sfm_powerlaw_sym_compact": ([_PTR] * 7 + [_INT] + [_PTR] * 3
+                                 + [_INT, _FLOAT] + [_PTR] * 3),
+    # x, y, vx, vy, ex, ey, alive, prm, n, [col_bb, [surv, counts,
+    # max_surv,] c2,] fx, fy, stream
+    "sfm_helbing_dense": [_PTR] * 8 + [_INT] + [_PTR] * 3,
+    "sfm_helbing_dense_cutoff": [_PTR] * 8 + [_INT, _PTR, _FLOAT] + [_PTR] * 3,
+    "sfm_helbing_compact": ([_PTR] * 8 + [_INT] + [_PTR] * 3 + [_INT, _FLOAT]
+                            + [_PTR] * 3),
     # px, py, prad, alive, ptx, pty, k, cx, cy, r2, s_count, a, b,
     # use_radius, n, fx, fy, stream
     "sfm_env_exp": ([_PTR] * 6 + [_INT] + [_PTR] * 3

@@ -6,15 +6,21 @@ csrc`` with nvcc, holds each kernel against its plain PyTorch version on the
 card, and drives the main paths through ``api.synthetic.benchmark_bundle``
 and ``models.stepper.make_rollout_fn`` at N = 10,000 pedestrians, 1,000
 steps of dt = 0.05 s each: BASELINE config #1 (the headless crowd: the
-pair-force kernels), config #2 (+ sidewalk borders: ``env_exp``) and
-config #3 (+ parked cars and moving vehicles: ``env_exp`` and
-``env_moussaid``); then config #1 with a 30 m interaction cutoff at 10,000
-and 50,000 (1,000 steps) and 1,000,000 pedestrians (200 steps), through the
-cutoff forms of the pair kernels; then the urban path, BASELINE config #4
+pair-force kernels), config #2 (+ sidewalk borders: ``env_exp``; 200
+steps) and config #3 (+ parked cars and moving vehicles: ``env_exp`` and
+``env_moussaid``); then config #1 with a 30 m interaction cutoff at 10,000,
+50,000 and 1,000,000 pedestrians (200 steps each), through the cutoff
+forms of the pair kernels; then the urban path, BASELINE config #4
 (``api.synthetic.urban_bundle``: nav-graph routes, a reactive autopilot
 fleet, gap-acceptance crossing, the compacted border kernel
 ``env_exp_compact``) at N = 10,000 x 1,000 steps, and config #3 with
-``env_compact`` (``env_moussaid_compact`` on the parked cars).  It counts
+``env_compact`` (``env_moussaid_compact`` on the parked cars); then the
+model families (phases 15-17): the power-law and Helbing forms of the pair
+kernels against their plain versions and float64 oracles, and config #1
+under ``bench.py``'s family switches at N = 10,000 x 1,000 steps (the
+power law, the Helbing ellipse, a mixed Moussaid / power-law / Helbing
+crowd, social groups of four over half the crowd, the power law with the
+30 m cutoff), with shorter paths that launch the other forms.  It counts
 the kernel launches of each path, and checks every step of 50-step
 rollouts through the kernels against the same step through the plain
 versions from the same state.
@@ -61,7 +67,10 @@ POS_TOL_M = 1e-3
 CUTOFF_M = 30.0
 CUT_CHECK_N = (10_000, 50_000)
 CUT_N = 50_000
-CUT_STEPS = 1_000
+#: steps of the Moussaid cutoff paths at 10k and 50k (phase 10), and of
+#: config #2 (phase 7): cut from 1,000 to keep the run within its time
+#: limit as later slices add paths
+CUT_STEPS = 200
 CUT_BIG_N = 1_000_000
 CUT_BIG_STEPS = 200
 SAMPLE_ROWS = 4_096
@@ -80,6 +89,16 @@ ORACLE_TOL = 1e-4
 #: and the division
 ENV_ATOL = ENV_RTOL = 1e-5
 
+#: the model-family main paths: bench.py's BENCH_LAW=powerlaw,
+#: BENCH_LAW=helbing, BENCH_MIX=moussaid,powerlaw,helbing and
+#: BENCH_GROUPS=0.5:4 switches on config #1 (phases 16 and 17)
+FAMILY_SWITCHES = ("powerlaw", "helbing", "mix-moussaid-powerlaw-helbing",
+                   "groups-0.5:4")
+#: steps of the family paths that exist to launch the other forms of the
+#: family kernels (dense, dense cutoff, the tables at 50k); the headline
+#: family paths run STEPS
+FAMILY_FORM_STEPS = 200
+
 #: the card's peak rates (NVIDIA H100 SXM data sheet; the f32 rate outside
 #: the tensor cores) and its special-function units (CUDA C++ Programming
 #: Guide, arithmetic throughput for compute capability 9.0: 16 results per
@@ -94,6 +113,20 @@ PEAK_MUFU_S = 132 * 16 * 1.98e9
 PAIR_OPS, PAIR_MUFU = 85, 6
 SCAN_OPS = 5
 EXP_TERM_OPS, EXP_TERM_MUFU = 21, 3
+#: the family laws per pair (csrc/pair_forces.cuh), counting only what the
+#: function needs on these inputs (no per-pair work on the constant
+#: parameters: v0/sigma, 1/sigma, 1/tau0 are computed once): the power
+#: law's gate values (a, b, c, D, the compares) for every pair, its time to
+#: collision (a root, a reciprocal of a) for the pairs on a collision
+#: course, the rest (an exp, the reciprocals of tau and of s) for the pairs
+#: that contribute; the Helbing ellipse for every pair: 4 reciprocal roots
+#: (of |d|^2 and |d - y|^2, which give |d|, |d - y| and the two unit
+#: vectors; of b^2, which gives b and 1/b; of the field-of-view |f|^2) and
+#: an exp
+PL_GATE_OPS = 16
+PL_TAU_OPS, PL_TAU_MUFU = 4, 2
+PL_FORCE_OPS, PL_FORCE_MUFU = 18, 3
+HB_OPS, HB_MUFU = 50, 5
 
 
 def fail(msg: str) -> None:
@@ -149,11 +182,14 @@ def device_ms(fn, kernel, reps=20):
     """Mean device milliseconds of the kernels whose name contains
     ``kernel`` (every kernel when ``kernel`` is empty) per call of
     ``fn()``, from the profiler's device times over ``reps`` calls (after
-    one warm-up call).  Unlike CUDA events around the calls, this leaves
-    out the wrapper's host time, which exceeds a short kernel's.  The
-    profiler now and then reports no device time at all: then it is asked
-    once more, and if it still reports none, the time is CUDA events
-    around the calls (``cuda_ms``), which the printed note says."""
+    one warm-up call); each call must launch one such kernel.  Unlike CUDA
+    events around the calls, this leaves out the wrapper's host time, which
+    exceeds a short kernel's.  The profiler now and then reports no device
+    time, or records only some of the launches (one of three, one of ten:
+    the time then reads a whole fraction of the kernel's): so it must
+    record exactly ``reps`` launches of ``kernel``, or it is asked once
+    more, and then the time is CUDA events around the calls (``cuda_ms``),
+    which the printed note says."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -163,13 +199,16 @@ def device_ms(fn, kernel, reps=20):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total = sum(e.self_device_time_total for e in prof.key_averages()
-                    if kernel in e.key)
-        if total > 0:
+        events = [e for e in prof.key_averages()
+                  if kernel in e.key and e.self_device_time_total > 0]
+        total = sum(e.self_device_time_total for e in events)
+        count = sum(e.count for e in events)
+        if total > 0 and (not kernel or count == reps):
             return total / 1e3 / reps
-    say(f"(the profiler reports no device time for "
-        f"{kernel or 'any kernel'}: the next time is CUDA events around the "
-        f"calls)")
+        say(f"(the profiler recorded {count} of {reps} launches of "
+            f"{kernel or 'any kernel'}, {total / 1e3:.4f} ms)")
+    say(f"(the next time of {kernel or 'all kernels'} is CUDA events around "
+        f"the calls)")
     return cuda_ms(fn, reps=reps)
 
 
@@ -607,6 +646,364 @@ def read_counts(*modules):
     return counts
 
 
+def family_scene(scene, params, switch):
+    """bench.py's family switches (bench.py:101-169) on a config #1
+    bundle: ``powerlaw`` / ``helbing`` swap the pair law for the power law
+    or the Helbing ellipse; ``mix-<law>-<law>...`` splits ``law_id`` into
+    equal contiguous chunks, one law each; ``groups-<frac>:<size>`` puts
+    the first ``frac`` of the slots into parties of ``size`` and enables
+    the group force."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from carla_social_force_model_tpu_torch.models.groups import build_groups
+    from carla_social_force_model_tpu_torch.models.spawn import LAW_IDS
+    cap = scene.spawn.capacity
+    dev = scene.spawn.step.device
+    if switch in ("powerlaw", "helbing"):
+        flag = ("enable_powerlaw" if switch == "powerlaw"
+                else "enable_ped_repulsive")
+        return scene, dataclasses.replace(params, enable_pedestrian=False,
+                                          **{flag: True})
+    if switch.startswith("mix-"):
+        fams = switch[len("mix-"):].split("-")
+        law = np.full(cap, -1, np.int32)
+        for fam, chunk in zip(fams, np.array_split(np.arange(cap),
+                                                   len(fams))):
+            law[chunk] = LAW_IDS[fam]
+        scene = dataclasses.replace(scene, spawn=dataclasses.replace(
+            scene.spawn, law_id=torch.from_numpy(law).to(dev)))
+        return scene, dataclasses.replace(
+            params, enable_pedestrian="moussaid" in fams,
+            enable_powerlaw="powerlaw" in fams,
+            enable_ped_repulsive="helbing" in fams)
+    frac, size = switch[len("groups-"):].split(":")
+    k = int(float(frac) * cap)
+    gid = np.full(cap, -1, np.int32)
+    gid[:k] = np.arange(k) // int(size)
+    return (dataclasses.replace(scene, groups=build_groups(
+                gid, max_members=int(size), device=dev)),
+            dataclasses.replace(params, enable_group=True))
+
+
+def family_work(law, planes, cutoff, sym, grid=None):
+    """``(bound_ms, bound_by, pairs)`` of one launch of ``law`` on these
+    planes: each plane read once and the forces written once (with the
+    grid's boxes and table); the ordered pairs of alive agents (within
+    ``cutoff``) and, for the power law, how many of them are on a collision
+    course and how many contribute, counted with the gate formulas on this
+    data.  ``sym``: each unordered pair once, plus the column update."""
+    import torch
+    from carla_social_force_model_tpu_torch.ops.pair_grid import cutoff_sq
+    from family_cases import family_params
+    x, y, vx, vy, rad, alive, ex, ey = planes
+    p = family_params(law)
+    n = x.shape[0]
+    idx = torch.arange(n, device=x.device)
+    pairs = course = active = 0
+    for lo in range(0, n, 512):
+        hi = min(lo + 512, n)
+        dx = x[None, :] - x[lo:hi, None]
+        dy = y[None, :] - y[lo:hi, None]
+        ok = (alive[lo:hi, None] & alive[None, :]
+              & (idx[None, :] != idx[lo:hi, None]))
+        if cutoff is not None:
+            ok &= dx * dx + dy * dy <= cutoff_sq(cutoff)
+        pairs += int(ok.sum())
+        if law == "powerlaw":
+            dvx = vx[lo:hi, None] - vx[None, :]
+            dvy = vy[lo:hi, None] - vy[None, :]
+            a = dvx * dvx + dvy * dvy
+            b = -dx * dvx - dy * dvy
+            rs = rad[lo:hi, None] + rad[None, :]
+            c = dx * dx + dy * dy - rs * rs
+            disc = b * b - a * c
+            on = ok & (c > 0.0) & (disc > 0.0) & (a > 1e-8)
+            tau = ((-b - torch.sqrt(torch.where(on, disc, 1.0)))
+                   / torch.where(on, a, 1.0))
+            course += int(on.sum())
+            active += int((on & (tau > 0.0) & (tau < p.tau_max)).sum())
+    if sym:
+        pairs, course, active = pairs // 2, course // 2, active // 2
+    if law == "powerlaw":
+        ops = (pairs * (PL_GATE_OPS + (2 if sym else 0))
+               + course * PL_TAU_OPS + active * PL_FORCE_OPS)
+        mufu = course * PL_TAU_MUFU + active * PL_FORCE_MUFU
+    else:
+        ops, mufu = pairs * HB_OPS, pairs * HB_MUFU
+    n_bytes = n * (4 * (5 if law == "powerlaw" else 6) + 1 + 8) + 4 * 6
+    if grid is not None:
+        n_bytes += 4 * grid.boxes.numel() + (
+            4 * (grid.surv.numel() + grid.counts.numel())
+            if grid.surv is not None else 0)
+    return (*bound(n_bytes, ops, mufu), (pairs, course, active))
+
+
+def powerlaw_oracle(pos, vel, rad, alive, p):
+    """Loop-based float64 oracle of the time-to-collision power law (a copy
+    of tests/test_powerlaw.py's, which imports JAX)."""
+    import numpy as np
+    pos = np.asarray(pos, np.float64)
+    vel = np.asarray(vel, np.float64)
+    rad = np.asarray(rad, np.float64)
+    n = pos.shape[0]
+    f = np.zeros((n, 2))
+    for i in range(n):
+        if not alive[i]:
+            continue
+        for j in range(n):
+            if j == i or not alive[j]:
+                continue
+            x = pos[i] - pos[j]
+            v = vel[i] - vel[j]
+            r = rad[i] + rad[j]
+            a = v @ v
+            b = x @ v
+            c = x @ x - r * r
+            disc = b * b - a * c
+            if c <= 0.0 or disc <= 0.0 or a <= 1e-8:
+                continue
+            s = np.sqrt(disc)
+            tau = (-b - s) / a
+            if tau <= 0.0 or tau >= p.tau_max:
+                continue
+            t = min(max(tau, p.tau_min), p.tau_max)
+            mag = p.k * np.exp(-t / p.tau0) * (2.0 / t + 1.0 / p.tau0) / t**2
+            f[i] += mag * (a * x - (s + b) * v) / (a * s)
+    return f
+
+
+#: the family kernels: law, form, and the N of the main path that runs it
+#: (phase 16)
+FAMILY_FORMS = {
+    "powerlaw_sym": ("powerlaw", "sym", N),
+    "powerlaw_dense": ("powerlaw", "dense", N),
+    "helbing_dense": ("helbing", "dense", N),
+    "powerlaw_sym_cutoff": ("powerlaw", "sym_cutoff", N),
+    "powerlaw_dense_cutoff": ("powerlaw", "dense_cutoff", N),
+    "helbing_dense_cutoff": ("helbing", "dense_cutoff", N),
+    "powerlaw_sym_compact": ("powerlaw", "sym_compact", CUT_N),
+    "powerlaw_compact": ("powerlaw", "compact", CUT_N),
+    "helbing_compact": ("helbing", "compact", CUT_N)}
+
+
+def family_kernel_checks(dev, card):
+    """Phase 15: every power-law form and every Helbing form against its
+    plain version on seeded crowds with random headings (dead agents, a
+    coincident pair, a zero desired direction): the all-pairs forms at
+    N = 10,000, the cutoff forms on Hilbert-sorted crowds at 10,000 and
+    50,000 with the static grids, a table that fits and a one-slot table
+    (every row with two or more hits overflows); each compacted kernel
+    equal to its dense cutoff kernel bitwise; the float64 oracles on a
+    small crowd.  The crowds, the launches, the plain versions and the
+    tolerance are those of tests/test_torch_cuda.py, from
+    tests/family_cases.py.  Returns ``(worst, results)``: each kernel's
+    largest error, and its device time, plain time and bound at its main
+    path's N."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import oracle
+    from family_cases import (TOLERANCE, family_params, family_plain,
+                              family_planes, family_reference, family_run)
+    worst = dict.fromkeys(FAMILY_FORMS, 0.0)
+    results = {}
+
+    def check(label, law, got, want, lim, dead, name):
+        err = (got - want).abs()
+        say(f"phase 15 {label}: max abs err {err.max().item():.3e}, max "
+            f"err/limit {(err / lim).max().item():.3e}, max |f| "
+            f"{want.abs().max().item():.3e}, tolerance {TOLERANCE[law]}")
+        if not torch.isfinite(got).all():
+            fail(f"{label}: non-finite forces")
+        if bool((err > lim).any()):
+            fail(f"{label}: disagrees with the plain version")
+        if bool((got[:, dead] != 0).any()):
+            fail(f"{label}: dead rows are not exactly zero")
+        worst[name] = max(worst[name], err.max().item())
+
+    def timed(name, planes, grid, cutoff):
+        law, form, _ = FAMILY_FORMS[name]
+        kernel = ("pair_force_sym_kernel" if form.startswith("sym")
+                  else "pair_force_dense_kernel")
+        ms = device_ms(lambda: family_run(law, planes, form, grid), kernel,
+                       reps=10)
+        plain = cuda_ms(lambda: family_plain(law, planes, cutoff), reps=2)
+        bnd = family_work(law, planes, cutoff, form.startswith("sym"), grid)
+        pairs, course, active = bnd[2]
+        say(f"phase 15 time {name} at N={planes[0].shape[0]}"
+            + ("" if cutoff is None else f", {cutoff:g} m cutoff")
+            + f": {ms:.4f} ms on the device, plain {plain:.4f} ms, bound "
+            f"{bnd[0]:.6f} ms ({bnd[1]}; {pairs} pairs"
+            + (f", {course} on a collision course, {active} contributing"
+               if law == "powerlaw" else "") + f") ({card})")
+        results[name] = dict(ms=ms, plain_ms=plain, bound=bnd[:2])
+
+    # the all-pairs forms at N = 10k
+    planes = family_planes(N, 31, dev)
+    dead = ~planes[5]
+    for law, forms in (("powerlaw", ("sym", "dense")), ("helbing", ("dense",))):
+        want, limit = family_reference(law, planes)
+        for form in forms:
+            got = family_run(law, planes, form)
+            torch.cuda.synchronize()
+            check(f"{law}_{form} N={N}", law, got, want, limit, dead,
+                  f"{law}_{form}")
+    for name in ("powerlaw_sym", "powerlaw_dense", "helbing_dense"):
+        timed(name, planes, None, None)
+
+    # the float64 oracles on a small crowd
+    pos, vel, radius, alive = seeded_crowd(ORACLE_N, 3, 12.0)
+    small = to_planes(pos, vel, radius, alive, dev)
+    e = np.random.default_rng(4).normal(size=(ORACLE_N, 2))
+    e = (e / np.linalg.norm(e, axis=1, keepdims=True)).astype(np.float32)
+    small += [torch.from_numpy(np.ascontiguousarray(e[:, k])).to(dev)
+              for k in (0, 1)]
+    pl, hb = family_params("powerlaw"), family_params("helbing")
+    f64 = np.float64
+    refs = {"powerlaw": (powerlaw_oracle(pos, vel, radius, alive, pl),
+                         family_plain("powerlaw", small, magnitudes=True)),
+            "helbing": (oracle.ped_repulsive_force(
+                pos.astype(f64), vel.astype(f64), e.astype(f64), alive,
+                hb.v0, hb.sigma, hb.fov_phi, hb.fov_factor, hb.step_width,
+                hb.b_min), None)}
+    # the JAX package's bounds against these oracles (tests/test_powerlaw.py
+    # :66, tests/test_helbing_forces.py:29): the power law's tau^-3 near
+    # contact amplifies f32 rounding to about 1e-3 relative
+    tol = {"powerlaw": (5e-5, 1e-3), "helbing": (2e-4, 2e-3)}
+    for law, form in (("powerlaw", "sym"), ("powerlaw", "dense"),
+                      ("helbing", "dense")):
+        want, mag = refs[law]
+        got = family_run(law, small, form).T.cpu().numpy()
+        atol, rtol = tol[law]
+        scale = (np.abs(want) if mag is None
+                 else np.maximum(np.abs(want), mag.T.cpu().numpy()))
+        err = np.abs(got - want)
+        say(f"phase 15 {law}_{form} vs float64 oracle, N={ORACLE_N}: max abs "
+            f"err {err.max():.3e}, max |f| {np.abs(want).max():.3e} "
+            f"(tolerance {atol:g} + {rtol:g}*"
+            + ("|f|" if mag is None else "max(|f|, sum_j |f_ij|)") + ")")
+        if np.any(err > atol + rtol * scale):
+            fail(f"{law}_{form} disagrees with the float64 oracle")
+
+    # the cutoff forms on Hilbert-sorted crowds at 10k and 50k
+    for n in CUT_CHECK_N:
+        planes = family_planes(n, 33, dev, sort=True)
+        dead = ~planes[5]
+        grids = cutoff_grids(planes)
+        for law in ("powerlaw", "helbing"):
+            want, limit = family_reference(law, planes, CUTOFF_M)
+            keys = ["dense_cutoff", "compact", "compact overflow"]
+            if law == "powerlaw":
+                keys += ["sym_cutoff", "sym_compact", "sym_compact overflow"]
+            outs = {}
+            for key in keys:
+                g = grids[key]
+                outs[key] = family_run(law, planes, g.form, g)
+                torch.cuda.synchronize()
+                check(f"{law}_{g.form} (max_surv {g.max_surv}) N={n}", law,
+                      outs[key], want, limit, dead, f"{law}_{g.form}")
+            for key in ("compact", "compact overflow"):
+                if not torch.equal(outs[key], outs["dense_cutoff"]):
+                    fail(f"N={n}: {law} {key} differs from dense_cutoff "
+                         f"bitwise")
+            say(f"phase 15 N={n} {law}: compact == dense_cutoff bitwise, "
+                f"with a fitting table and with max_surv=1 (overflow)")
+        # times of the forms the main paths run at this N (auto grids)
+        for name, (law, form, n_main) in FAMILY_FORMS.items():
+            if n_main != n or form in ("sym", "dense"):
+                continue
+            from carla_social_force_model_tpu_torch.ops import pair_grid
+            g = pair_grid.cutoff_grid(planes[0], planes[1], planes[5],
+                                      CUTOFF_M,
+                                      symmetric=form.startswith("sym"))
+            if g.form != form:
+                fail(f"N={n}: the auto grid for {name} came out {g.form}")
+            timed(name, planes, g, CUTOFF_M)
+    return worst, results
+
+
+def family_paths(dev, zero, drive, profile_steps, step_ms, launches):
+    """Phases 16 and 17: the family main paths through ``drive`` (main's
+    warm-up, best of 3 and exact launch counts; ``launches`` takes each
+    family kernel's count per run, ``step_ms`` each path's step), profiled
+    where they run STEPS; then each headline family path step by step
+    through the kernels against the plain versions."""
+    import dataclasses
+    import torch
+    from carla_social_force_model_tpu_torch.api.synthetic import (
+        benchmark_bundle)
+    from carla_social_force_model_tpu_torch.models import stepper
+    from carla_social_force_model_tpu_torch.ops import cuda_env, cuda_forces
+
+    # -- phase 16: main paths, the model families ---------------------------
+    # the four bench.py family switches and the power law with the 30 m
+    # cutoff at N = 10k x 1,000 steps; then, at a cut depth, the paths that
+    # launch the other forms (the dense kernels, the cutoff forms of
+    # Helbing and the survivor tables at 50k)
+    cut = dict(interaction_cutoff=CUTOFF_M)
+    dense = dict(symmetric_pairs=False)
+    fam_paths = [
+        ("powerlaw", "powerlaw", {}, N, STEPS, ("powerlaw_sym",)),
+        ("helbing", "helbing", {}, N, STEPS, ("helbing_dense",)),
+        ("mix-moussaid-powerlaw-helbing", "mix-moussaid-powerlaw-helbing",
+         {}, N, STEPS, ("pair_force_sym", "powerlaw_sym", "helbing_dense")),
+        ("groups-0.5:4", "groups-0.5:4", {}, N, STEPS, ("pair_force_sym",)),
+        (f"powerlaw + {CUTOFF_M:g} m cutoff", "powerlaw", cut, N, STEPS,
+         ("powerlaw_sym_cutoff",)),
+        ("powerlaw, dense kernel", "powerlaw", dense, N, FAMILY_FORM_STEPS,
+         ("powerlaw_dense",)),
+        (f"powerlaw + {CUTOFF_M:g} m cutoff, dense kernel", "powerlaw",
+         dict(cut, **dense), N, FAMILY_FORM_STEPS,
+         ("powerlaw_dense_cutoff",)),
+        (f"helbing + {CUTOFF_M:g} m cutoff", "helbing", cut, N,
+         FAMILY_FORM_STEPS, ("helbing_dense_cutoff",)),
+        (f"powerlaw + {CUTOFF_M:g} m cutoff", "powerlaw", cut, CUT_N,
+         FAMILY_FORM_STEPS, ("powerlaw_sym_compact",)),
+        (f"powerlaw + {CUTOFF_M:g} m cutoff, dense kernel", "powerlaw",
+         dict(cut, **dense), CUT_N, FAMILY_FORM_STEPS,
+         ("powerlaw_compact",)),
+        (f"helbing + {CUTOFF_M:g} m cutoff", "helbing", cut, CUT_N,
+         FAMILY_FORM_STEPS, ("helbing_compact",))]
+    for label, switch, kw, n_f, steps, names in fam_paths:
+        scene, params, cfg, state = benchmark_bundle(n_f, device=dev)
+        scene, params = family_scene(scene, params, switch)
+        cfg = dataclasses.replace(cfg, **kw)
+        label = f"phase 16 {label}, N={n_f}"
+        counts, step_ms[label] = drive(
+            label, scene, params, cfg, state, steps,
+            dict(zero, **dict.fromkeys(names, steps)))
+        for name in names:
+            launches.setdefault(name, counts[name])
+        if steps == STEPS:
+            profile_steps(scene, params, cfg, state, step_ms[label], label)
+
+    # -- phase 17: the family paths step by step, kernels vs plain -----------
+    # the four switches and the power law with the cutoff, its table forced
+    # by an explicit width (the compacted kernel in the rollout)
+    for switch, kw, names in (
+            ("powerlaw", {}, ("powerlaw_sym",)),
+            ("helbing", {}, ("helbing_dense",)),
+            ("mix-moussaid-powerlaw-helbing", {},
+             ("pair_force_sym", "powerlaw_sym", "helbing_dense")),
+            ("groups-0.5:4", {}, ("pair_force_sym",)),
+            ("powerlaw", dict(cut, pair_max_surv=FORCED_MAX_SURV),
+             ("powerlaw_sym_compact",))):
+        scene, params, cfg, state = benchmark_bundle(N, device=dev)
+        scene, params = family_scene(scene, params, switch)
+        cfg = dataclasses.replace(cfg, **kw)
+        label = f"phase 17 {switch}" + (
+            f" + {CUTOFF_M:g} m cutoff (max_surv {FORCED_MAX_SURV})"
+            if kw else "")
+        _, rec_plain = stepper.make_rollout_fn(scene, params, plain_cfg(cfg),
+                                               PARITY_STEPS)(state)
+        torch.cuda.synchronize()
+        reset_counts(cuda_forces, cuda_env)
+        check_rollout(label, scene, params, cfg, state, rec_plain,
+                      free_limit=False)
+        expect_counts(label, zero, **dict.fromkeys(names, PARITY_STEPS))
+
+
 def main() -> None:
     try:
         import torch
@@ -921,14 +1318,15 @@ def main() -> None:
     torch.cuda.synchronize()
 
     # -- phase 7: main paths, configs #2 and #3 ------------------------------
-    for label, with_obstacles in (("config #2", False), ("config #3", True)):
+    for label, with_obstacles, steps in (("config #2", False, CUT_STEPS),
+                                         ("config #3", True, STEPS)):
         scene, params, cfg, state = benchmark_bundle(
             N, with_borders=True, with_obstacles=with_obstacles,
             num_steps_hint=STEPS, device=dev)
-        expect = dict(zero, pair_force_sym=STEPS, env_exp=STEPS,
-                      env_moussaid=2 * STEPS if with_obstacles else 0)
+        expect = dict(zero, pair_force_sym=steps, env_exp=steps,
+                      env_moussaid=2 * steps if with_obstacles else 0)
         counts, step_ms[label] = drive(f"phase 7 {label}", scene, params, cfg,
-                                       state, STEPS, expect)
+                                       state, steps, expect)
         if with_obstacles:
             launches["env_exp"] = counts["env_exp"]
             launches["env_moussaid"] = counts["env_moussaid"]
@@ -956,8 +1354,8 @@ def main() -> None:
     # below the gate (N = 10k) the static grids with the box test, above it
     # (50k, 1M) the survivor-table kernels
     for n_c, steps, symmetric, name in (
-            (N, STEPS, True, "pair_force_sym_cutoff"),
-            (N, STEPS, False, "pair_force_dense_cutoff"),
+            (N, CUT_STEPS, True, "pair_force_sym_cutoff"),
+            (N, CUT_STEPS, False, "pair_force_dense_cutoff"),
             (CUT_N, CUT_STEPS, True, "pair_force_sym_compact"),
             (CUT_N, CUT_STEPS, False, "pair_force_compact"),
             (CUT_BIG_N, CUT_BIG_STEPS, True, "pair_force_sym_compact")):
@@ -1068,6 +1466,14 @@ def main() -> None:
                   env_moussaid_compact=PARITY_STEPS,
                   env_moussaid=PARITY_STEPS)
 
+    # -- phase 15: the family kernels against their plain versions ----------
+    fam_worst, fam = family_kernel_checks(dev, card)
+    worst.update(fam_worst)
+    torch.cuda.synchronize()
+
+    # -- phases 16 and 17: the family main paths, then step by step ---------
+    family_paths(dev, zero, drive, profile_steps, step_ms, launches)
+
     csrc = "carla_social_force_model_tpu_torch/csrc/"
     table = [
         ("pair_force_sym", csrc + "pair_forces.cu",
@@ -1098,6 +1504,11 @@ def main() -> None:
            comp[name]["ms"], comp[name]["plain_ms"], comp[name]["bound"])
           for name, line in (("env_exp_compact", "297"),
                              ("env_moussaid_compact", "327"))),
+        *((name, csrc + "pair_forces.cu",
+           "carla_social_force_model_tpu/ops/pallas_forces.py:"
+           + ("462" if law == "powerlaw" else "528"),
+           fam[name]["ms"], fam[name]["plain_ms"], fam[name]["bound"])
+          for name, (law, _, _) in FAMILY_FORMS.items()),
     ]
     for name, *_ in table:
         if launches[name] == 0:

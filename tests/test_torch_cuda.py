@@ -1,7 +1,8 @@
 """PyTorch port on an NVIDIA card: the CUDA pair-force and environment-force
-kernels (with the cutoff forms of the pair kernels and the compacted forms
-of the environment kernels) against their plain PyTorch versions, and the
-rollouts through them (the urban slice's too).
+kernels (with the cutoff forms of the pair kernels, their power-law and
+Helbing forms, and the compacted forms of the environment kernels) against
+their plain PyTorch versions, and the rollouts through them (the urban
+slice's and the model families' too).
 
 Every test here needs a card and skips without one.  This file imports
 neither JAX nor the JAX package, so on a machine with a card and no JAX it
@@ -18,12 +19,13 @@ import torch
 from carla_social_force_model_tpu_torch.api.synthetic import benchmark_bundle
 from carla_social_force_model_tpu_torch.models import stepper
 from carla_social_force_model_tpu_torch.models.params import (
-    MoussaidParams, moussaid_vector)
+    MoussaidParams, PedRepulsiveParams, PowerLawParams, moussaid_vector)
 from carla_social_force_model_tpu_torch.models import vehicles
 from carla_social_force_model_tpu_torch.ops import (cuda_env, cuda_forces,
                                                     env_grid, forces,
                                                     pair_grid)
 from carla_social_force_model_tpu_torch.ops.spatial import morton_order
+from family_cases import family_planes, family_reference, family_run
 
 pytestmark = pytest.mark.cuda
 
@@ -453,3 +455,148 @@ def test_compact_rollout_through_kernels_matches_plain_rollout(cuda_device,
     assert torch.equal(kern.alive, plain.alive)
     assert torch.equal(kern.mode, plain.mode)
     assert (kern.pos - plain.pos).abs().max().item() <= 1e-4
+
+
+# -- the model families: the power-law and Helbing forms of the pair kernels --
+
+def assert_family_close(law, got, planes, cutoff=None):
+    """Within the shared limit of the plain version (``family_cases.ATOL``),
+    finite, dead rows exactly 0."""
+    want, limit = family_reference(law, planes, cutoff)
+    assert torch.isfinite(got).all()
+    assert bool((got[:, ~planes[5]] == 0).all())
+    err = (got - want).abs()
+    assert bool((err <= limit).all()), err.max().item()
+
+
+@pytest.mark.parametrize("n", [1, 130, 1000])
+@pytest.mark.parametrize("law,form", [("powerlaw", "sym"),
+                                      ("powerlaw", "dense"),
+                                      ("helbing", "dense")])
+def test_family_kernel_matches_plain_version(cuda_device, law, form, n):
+    planes = family_planes(n, seed=n + 11, device=cuda_device, extent=20.0)
+    got = family_run(law, planes, form)
+    torch.cuda.synchronize()
+    assert_family_close(law, got, planes)
+
+
+@pytest.mark.parametrize("n", [130, 3000, 20000])
+@pytest.mark.parametrize("law,symmetric,compact,max_surv", [
+    ("powerlaw", True, False, 0), ("powerlaw", True, True, 8),
+    ("powerlaw", True, True, 1), ("powerlaw", False, False, 0),
+    ("powerlaw", False, True, 8), ("powerlaw", False, True, 1),
+    ("helbing", False, False, 0), ("helbing", False, True, 8),
+    ("helbing", False, True, 1)])
+def test_family_cutoff_kernels_match_plain_version(cuda_device, law,
+                                                   symmetric, compact,
+                                                   max_surv, n):
+    """Each cutoff form of each family law (static grid with the box test,
+    survivor table that fits or overflows) against the plain version with
+    a 10 m cutoff, on Hilbert-sorted planes at 0.25 agents/m^2."""
+    planes = family_planes(n, seed=n + 3, device=cuda_device,
+                           extent=float(np.sqrt(n)), sort=True)
+    grid = pair_grid.cutoff_grid(planes[0], planes[1], planes[5], 10.0,
+                                 symmetric=symmetric, compact=compact,
+                                 max_surv=max_surv)
+    got = family_run(law, planes, grid.form, grid)
+    torch.cuda.synchronize()
+    assert_family_close(law, got, planes, cutoff=10.0)
+
+
+@pytest.mark.parametrize("law", ["powerlaw", "helbing"])
+def test_family_compact_equals_dense_cutoff_bitwise(cuda_device, law):
+    planes = family_planes(20000, seed=8, device=cuda_device,
+                           extent=float(np.sqrt(20000)), sort=True)
+    x, y, alive = planes[0], planes[1], planes[5]
+    dense = pair_grid.cutoff_grid(x, y, alive, 30.0, symmetric=False,
+                                  compact=False)
+    want = family_run(law, planes, "dense_cutoff", dense)
+    for max_surv in (dense.boxes.shape[1] - 1, 1):
+        grid = pair_grid.cutoff_grid(x, y, alive, 30.0, symmetric=False,
+                                     max_surv=max_surv)
+        assert grid.form == "compact"
+        assert torch.equal(family_run(law, planes, "compact", grid), want)
+
+
+def test_family_launch_counts_dispatch_and_checks(cuda_device):
+    """One launch per call under each law's name; Helbing launches the
+    dense kernel whatever ``symmetric`` says; a parameter vector of another
+    law's length is refused."""
+    planes = family_planes(300, seed=1, device=cuda_device)
+    x, y, vx, vy, rad, alive, ex, ey = planes
+    cuda_forces.reset_launch_counts()
+    for symmetric in (True, False, True):
+        cuda_forces.pedestrian_force_kernel(x, y, vx, vy, rad, alive,
+                                            PowerLawParams(), law="powerlaw",
+                                            symmetric=symmetric)
+        cuda_forces.pedestrian_force_kernel(x, y, vx, vy, None, alive,
+                                            PedRepulsiveParams(),
+                                            law="helbing", desired=(ex, ey),
+                                            symmetric=symmetric)
+    assert cuda_forces.LAUNCHES == dict(
+        dict.fromkeys(cuda_forces.LAUNCHES, 0), powerlaw_sym=2,
+        powerlaw_dense=1, helbing_dense=3)
+    with pytest.raises(ValueError, match="prm"):
+        cuda_forces.pair_force_dense(x, y, vx, vy, rad, alive,
+                                     moussaid_vector(MoussaidParams(),
+                                                     cuda_device),
+                                     law="powerlaw")
+
+
+@pytest.mark.parametrize("switch,cutoff", [
+    ("powerlaw", None), ("helbing", None),
+    ("mix-moussaid-powerlaw-helbing", None), ("groups-0.5:4", None),
+    ("powerlaw", 30.0), ("mix-moussaid-powerlaw-helbing", 10.0)])
+def test_family_steps_through_kernels_match_plain_steps(cuda_device, switch,
+                                                        cutoff):
+    """The bench.py family scenes at N = 2,000: twenty steps through the
+    kernels, each against the same step through the plain versions from
+    the kernels' own state: positions within 1e-4 m, modes and alive
+    equal; and the launches of the path."""
+    from carla_social_force_model_tpu_torch.models import groups
+    from carla_social_force_model_tpu_torch.models.spawn import LAW_IDS
+    scene, params, cfg, state = benchmark_bundle(2000, device=cuda_device)
+    n = 2000
+    if switch in ("powerlaw", "helbing"):
+        flag = ("enable_powerlaw" if switch == "powerlaw"
+                else "enable_ped_repulsive")
+        params = dataclasses.replace(params, enable_pedestrian=False,
+                                     **{flag: True})
+    elif switch.startswith("mix-"):
+        law = np.full(n, -1, np.int32)
+        for fam, chunk in zip(("moussaid", "powerlaw", "helbing"),
+                              np.array_split(np.arange(n), 3)):
+            law[chunk] = LAW_IDS[fam]
+        scene = dataclasses.replace(scene, spawn=dataclasses.replace(
+            scene.spawn, law_id=torch.from_numpy(law).to(cuda_device)))
+        params = dataclasses.replace(params, enable_powerlaw=True,
+                                     enable_ped_repulsive=True)
+    else:
+        gid = np.full(n, -1, np.int32)
+        gid[:n // 2] = np.arange(n // 2) // 4
+        scene = dataclasses.replace(scene, groups=groups.build_groups(
+            gid, max_members=4, device=cuda_device))
+        params = dataclasses.replace(params, enable_group=True)
+    cfg = dataclasses.replace(cfg, interaction_cutoff=cutoff)
+    ref_cfg = dataclasses.replace(cfg, plain_pair_force=True)
+    scene = stepper.prepare_scene(scene)
+    cuda_forces.reset_launch_counts()
+    s = state
+    for k in range(20):
+        nxt, _ = stepper.simulation_step(s, scene, params, cfg, k)
+        ref, _ = stepper.simulation_step(s, scene, params, ref_cfg, k)
+        assert torch.equal(nxt.alive, ref.alive)
+        assert torch.equal(nxt.mode, ref.mode)
+        err = max((nxt.pos_x - ref.pos_x).abs().max().item(),
+                  (nxt.pos_y - ref.pos_y).abs().max().item())
+        assert err <= 1e-4, (k, err)
+        s = nxt
+    launched = {k: v for k, v in cuda_forces.LAUNCHES.items() if v}
+    form = ("sym" if cutoff is None else "sym_cutoff")
+    dense = ("dense" if cutoff is None else "dense_cutoff")
+    expect = {"powerlaw": {f"powerlaw_{form}": 20},
+              "helbing": {f"helbing_{dense}": 20},
+              "groups-0.5:4": {f"pair_force_{form}": 20}}.get(
+        switch, {f"pair_force_{form}": 20, f"powerlaw_{form}": 20,
+                 f"helbing_{dense}": 20})
+    assert launched == expect

@@ -165,8 +165,8 @@ def _entry_points():
         build_border_set)
     from carla_social_force_model_tpu_torch.env.pointsets import (
         segment_major)
-    from carla_social_force_model_tpu_torch.models import (autopilot, routes,
-                                                           vehicles)
+    from carla_social_force_model_tpu_torch.models import (autopilot, groups,
+                                                           routes, vehicles)
     import numpy as np
     spec = vehicles.VehicleSpec(trajectory=np.zeros((3, 2)),
                                 headings=np.zeros(3), speeds=np.ones(3))
@@ -189,6 +189,7 @@ def _entry_points():
                                     width=100.0, cross_spacing=40.0)),
         "build_autopilot_fleet": (autopilot.build_autopilot_fleet,
                                   ([ap_spec], 0.05, 5)),
+        "build_groups": (groups.build_groups, ([0, 0, -1, 1, 1],)),
     }
 
 
@@ -196,7 +197,7 @@ def _entry_points():
                                   "synthetic_vehicles", "PedState.empty",
                                   "build_route_buffer", "build_vehicle_states",
                                   "segment_major", "urban_bundle",
-                                  "build_autopilot_fleet"])
+                                  "build_autopilot_fleet", "build_groups"])
 def test_entry_points_default_to_the_card(name, monkeypatch):
     """Every entry point that takes a device defaults to CUDA: without a
     card it raises (no fallback to the CPU), and ``device="cpu"`` runs."""

@@ -253,9 +253,6 @@ def test_rollout_leaves_the_initial_state_untouched():
 
 UNPORTED = {
     "env_analytic": (dict(), dict(), dict(env_analytic=True)),
-    "groups": (dict(groups=object()), dict(enable_group=True), dict()),
-    "powerlaw": (dict(), dict(enable_powerlaw=True), dict()),
-    "helbing": (dict(), dict(enable_ped_repulsive=True), dict()),
     "orca": (dict(), dict(enable_orca=True), dict()),
 }
 
@@ -274,12 +271,23 @@ def test_unported_terms_raise(feature):
 
 
 def test_pair_scale_and_law_id_raise():
+    """Per-agent ``pair_scale``/``law_id`` columns step when they are
+    (N,) float32 / int32 tensors, and raise when they are of another shape
+    or type."""
     ps, pp, pc, pst = benchmark_bundle(8, extent=5.0, device="cpu")
-    for col in ("pair_scale", "law_id"):
-        spawn = dataclasses.replace(ps.spawn, **{col: torch.ones(8)})
-        with pytest.raises(NotImplementedError, match="pair_scale/law_id"):
-            stepper.make_rollout_fn(dataclasses.replace(ps, spawn=spawn),
-                                    pp, pc, 2)(pst)
+    for col, good, bads in (
+            ("pair_scale", torch.ones(8), (torch.ones(7),
+                                           torch.ones(8, dtype=torch.int32))),
+            ("law_id", torch.zeros(8, dtype=torch.int32),
+             (torch.ones(8), np.zeros(8, np.int32)))):
+        spawn = dataclasses.replace(ps.spawn, **{col: good})
+        stepper.make_rollout_fn(dataclasses.replace(ps, spawn=spawn),
+                                pp, pc, 2)(pst)
+        for bad in bads:
+            spawn = dataclasses.replace(ps.spawn, **{col: bad})
+            with pytest.raises(ValueError, match="pair_scale/law_id"):
+                stepper.make_rollout_fn(dataclasses.replace(ps, spawn=spawn),
+                                        pp, pc, 2)(pst)
 
 
 def test_benchmark_bundle_raises_for_environment_configs():
