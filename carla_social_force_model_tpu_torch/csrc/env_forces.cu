@@ -4,23 +4,33 @@
 // env_moussaid_force; the compacted forms' launch plan is ops/env_grid.py.
 //
 // What each function replaces (JAX package, ops/pallas_env.py):
-//   env_force_kernel<false, kAllSections> ("env_exp")  <- _exp_kernel (:235)
-//       with _closest_sel (:82), _exp_tilework (:156) and _tile_hit (:131):
-//       the border force and the space-repulsive force, a * exp(-d/b) away
-//       from each segment's closest sampled point, summed over the segments
-//       whose filter circle holds the pedestrian.
-//   env_force_kernel<true, kAllSections> ("env_moussaid")  <- _moussaid_kernel
-//       (:268) with _moussaid_tilework (:180): the static and dynamic
-//       obstacle forces, the Moussaid interaction against each obstacle's
-//       closest point with the relative velocity v_ped - v_obstacle.  The
-//       per-pair math is moussaid_pair of pair_forces.cuh, the pair
-//       kernels' own.
-//   env_force_kernel<false, kTable> ("env_exp_compact")  <-
-//       _exp_kernel_compact (:297), and env_force_kernel<true, kTable>
-//       ("env_moussaid_compact")  <- _moussaid_kernel_compact (:327): the
-//       same terms over the surviving groups of sections of each block only
-//       (the urban path's borders; parked cars under env_compact).
-// The analytic closest point (_closest_seg) is not on these paths.
+//   env_force_kernel<false, kAllSections, kSampled> ("env_exp")  <-
+//       _exp_kernel (:235) with _closest_sel (:82), _exp_tilework (:156)
+//       and _tile_hit (:131): the border force and the space-repulsive
+//       force, a * exp(-d/b) away from each segment's closest sampled point,
+//       summed over the segments whose filter circle holds the pedestrian.
+//   env_force_kernel<true, kAllSections, kSampled> ("env_moussaid")  <-
+//       _moussaid_kernel (:268) with _moussaid_tilework (:180): the static
+//       and dynamic obstacle forces, the Moussaid interaction against each
+//       obstacle's closest point with the relative velocity v_ped -
+//       v_obstacle.  The per-pair math is moussaid_pair of pair_forces.cuh,
+//       the pair kernels' own.
+//   env_force_kernel<false, kTable, kSampled> ("env_exp_compact")  <-
+//       _exp_kernel_compact (:297), and env_force_kernel<true, kTable,
+//       kSampled> ("env_moussaid_compact")  <- _moussaid_kernel_compact
+//       (:327): the same terms over the surviving groups of sections of
+//       each block only (the urban path's borders; parked cars under
+//       env_compact).
+//   env_force_kernel<false, kAllSections, kAnalytic> ("env_exp_analytic")
+//       and <false, kTable, kAnalytic> ("env_exp_analytic_compact")  <-
+//       _exp_kernel and _exp_kernel_compact with analytic=True, whose
+//       _closest_seg (:97) takes each section's closest point ON its up to
+//       M Douglas-Peucker segments (planes ax, ay, ux, uy, il2 of shape
+//       (S, M)) instead of over its sampled points: the analytic border tier
+//       (StepConfig.env_analytic).  The geometry is one template parameter,
+//       so both scans share the walk, the block box test and the table
+//       walk; the segment projection is closest_on_segment of
+//       env_forces.cuh, rounded per operation like the sampled distance.
 //
 // What bounds them on this card.  The work is data-dependent: per
 // (segment, pedestrian) pair inside the segment's filter circle, a scan of
@@ -77,84 +87,41 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "block_box.cuh"
 #include "env_forces.cuh"
 
 namespace {
 
-constexpr int kEnvPeds = 128;     // pedestrians per block, one per thread
-constexpr int kEnvWarps = kEnvPeds / 32;
-constexpr int kEnvStage = 1024;   // points of a row staged per piece
-
-struct Box {
-  float minx, maxx, miny, maxy;
-};
-
-__device__ __forceinline__ float warp_min(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Bounding box of the block's alive pedestrians; a block with none gets
-// the inverted infinite box, which no segment touches.
-__device__ Box block_box(float x, float y, bool live) {
-  __shared__ float part[4][kEnvWarps];
-  const float x_lo = warp_min(live ? x : INFINITY);
-  const float x_hi = warp_max(live ? x : -INFINITY);
-  const float y_lo = warp_min(live ? y : INFINITY);
-  const float y_hi = warp_max(live ? y : -INFINITY);
-  const int warp = threadIdx.x / 32;
-  if (threadIdx.x % 32 == 0) {
-    part[0][warp] = x_lo;
-    part[1][warp] = x_hi;
-    part[2][warp] = y_lo;
-    part[3][warp] = y_hi;
-  }
-  __syncthreads();
-  Box box{INFINITY, -INFINITY, INFINITY, -INFINITY};
-#pragma unroll
-  for (int w = 0; w < kEnvWarps; ++w) {
-    box.minx = fminf(box.minx, part[0][w]);
-    box.maxx = fmaxf(box.maxx, part[1][w]);
-    box.miny = fminf(box.miny, part[2][w]);
-    box.maxy = fmaxf(box.maxy, part[3][w]);
-  }
-  return box;
-}
-
-// Does the filter circle (cx, cy, r2) touch the box?  Block-uniform.  Each
-// gap is at most the matching |center - ped| of any pedestrian in the box
-// (rounding is monotone), so a pedestrian that passes in_filter always
-// lies in a touched segment.
-__device__ __forceinline__ bool touches(float cx, float cy, float r2,
-                                        const Box& box) {
-  const float gx = fmaxf(fmaxf(cx - box.maxx, box.minx - cx), 0.0f);
-  const float gy = fmaxf(fmaxf(cy - box.maxy, box.miny - cy), 0.0f);
-  return sq_norm_rn(gx, gy) <= r2;
-}
+constexpr int kEnvPeds = kBoxPeds;  // pedestrians per block, one per thread
+constexpr int kEnvStage = 1024;     // points of a row staged per piece
+// segments of an analytic row staged per piece (five planes in the same
+// shared memory as the sampled pieces' two)
+constexpr int kGeomStage = 2 * kEnvStage / 5;
 
 // Which sections a block walks: all of them (the dense form), or the
 // groups its survivor-table row lists (the compacted form).
 enum Walk { kAllSections, kTable };
+
+// What a section row holds: K sampled points (ptx, pty), or M line segments
+// (ptx = ax, pty = ay, pux, puy, pil2).
+enum Geom { kSampled, kAnalytic };
 
 // kMoussaid = false: the exp form (a, b by value; pvx, pvy, ov, prm unused).
 // kMoussaid = true: the Moussaid form (ov = (S, 2) obstacle velocities,
 // prm = the six Moussaid parameters on the device).
 // kWalk = kTable: surv (blocks, max_surv) ascending group indices, counts
 // (blocks,) hits per block, gs sections per group; unused for kAllSections.
-template <bool kMoussaid, Walk kWalk>
+// kGeom = kAnalytic: k = M segments per row, pux/puy/pil2 the segment
+// vectors and 1/|u|^2; unused (null) for kSampled.
+template <bool kMoussaid, Walk kWalk, Geom kGeom>
 __global__ void __launch_bounds__(kEnvPeds)
 env_force_kernel(const float* __restrict__ px_, const float* __restrict__ py_,
                  const float* __restrict__ pvx_, const float* __restrict__ pvy_,
                  const float* __restrict__ prad_,
                  const uint8_t* __restrict__ alive_,
                  const float* __restrict__ ptx, const float* __restrict__ pty,
+                 const float* __restrict__ pux, const float* __restrict__ puy,
+                 const float* __restrict__ pil2,
                  int k, const float* __restrict__ cx,
                  const float* __restrict__ cy, const float* __restrict__ r2,
                  const float* __restrict__ ov, int s_count,
@@ -162,7 +129,9 @@ env_force_kernel(const float* __restrict__ px_, const float* __restrict__ py_,
                  int use_radius, int n, const int* __restrict__ surv,
                  const int* __restrict__ counts, int max_surv, int gs,
                  float* __restrict__ fx, float* __restrict__ fy) {
-  __shared__ float sx[kEnvStage], sy[kEnvStage];
+  __shared__ float stage[2 * kEnvStage];
+  float* const sx = stage;
+  float* const sy = stage + kEnvStage;
 
   const int i = blockIdx.x * kEnvPeds + threadIdx.x;
   const bool in = i < n;
@@ -191,20 +160,43 @@ env_force_kernel(const float* __restrict__ px_, const float* __restrict__ py_,
     const float scx = cx[s], scy = cy[s], sr2 = r2[s];
     if (!touches(scx, scy, sr2, box)) return;
 
-    const float* row_x = ptx + (size_t)s * k;
-    const float* row_y = pty + (size_t)s * k;
+    const size_t row = (size_t)s * k;
     float best = INFINITY, bx = 0.0f, by = 0.0f;
-    for (int c0 = 0; c0 < k; c0 += kEnvStage) {
-      const int cnt = min(kEnvStage, k - c0);
-      __syncthreads();  // the previous piece is consumed
-      for (int j = threadIdx.x; j < cnt; j += kEnvPeds) {
-        sx[j] = row_x[c0 + j];
-        sy[j] = row_y[c0 + j];
-      }
-      __syncthreads();
-      if (live) {
+    if constexpr (kGeom == kSampled) {
+      for (int c0 = 0; c0 < k; c0 += kEnvStage) {
+        const int cnt = min(kEnvStage, k - c0);
+        __syncthreads();  // the previous piece is consumed
+        for (int j = threadIdx.x; j < cnt; j += kEnvPeds) {
+          sx[j] = ptx[row + c0 + j];
+          sy[j] = pty[row + c0 + j];
+        }
+        __syncthreads();
+        if (live) {
 #pragma unroll 4
-        for (int j = 0; j < cnt; ++j) closest_update(sx[j], sy[j], px, py, best, bx, by);
+          for (int j = 0; j < cnt; ++j) closest_update(sx[j], sy[j], px, py, best, bx, by);
+        }
+      }
+    } else {
+      float* const sax = stage;
+      float* const say = stage + kGeomStage;
+      float* const sux = stage + 2 * kGeomStage;
+      float* const suy = stage + 3 * kGeomStage;
+      float* const sil = stage + 4 * kGeomStage;
+      for (int c0 = 0; c0 < k; c0 += kGeomStage) {
+        const int cnt = min(kGeomStage, k - c0);
+        __syncthreads();  // the previous piece is consumed
+        for (int j = threadIdx.x; j < cnt; j += kEnvPeds) {
+          sax[j] = ptx[row + c0 + j];
+          say[j] = pty[row + c0 + j];
+          sux[j] = pux[row + c0 + j];
+          suy[j] = puy[row + c0 + j];
+          sil[j] = pil2[row + c0 + j];
+        }
+        __syncthreads();
+        if (live) {
+          for (int j = 0; j < cnt; ++j)
+            closest_seg_update(sax[j], say[j], sux[j], suy[j], sil[j], px, py, best, bx, by);
+        }
       }
     }
     if (!live) return;
@@ -248,6 +240,8 @@ extern "C" {
 // r2 = -1 for segments that must not act.  Every output row is written.
 // The _compact entries also take the survivor table surv (ceil(n/128),
 // max_surv) int32, its counts (ceil(n/128),) and gs sections per group.
+// The _analytic entries take the segment planes ax, ay, ux, uy, il2
+// (s_count, m) in place of the point rows.
 int sfm_env_exp(const float* px, const float* py, const float* prad,
                 const uint8_t* alive, const float* ptx, const float* pty,
                 int k, const float* cx, const float* cy, const float* r2,
@@ -255,11 +249,11 @@ int sfm_env_exp(const float* px, const float* py, const float* prad,
                 float* fx, float* fy, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   const int blocks = (n + kEnvPeds - 1) / kEnvPeds;
-  env_force_kernel<false, kAllSections>
+  env_force_kernel<false, kAllSections, kSampled>
       <<<blocks, kEnvPeds, 0, (cudaStream_t)stream>>>(
-          px, py, nullptr, nullptr, prad, alive, ptx, pty, k, cx, cy, r2,
-          nullptr, s_count, nullptr, a, b, use_radius, n, nullptr, nullptr,
-          0, 1, fx, fy);
+          px, py, nullptr, nullptr, prad, alive, ptx, pty, nullptr, nullptr,
+          nullptr, k, cx, cy, r2, nullptr, s_count, nullptr, a, b, use_radius,
+          n, nullptr, nullptr, 0, 1, fx, fy);
   return (int)cudaGetLastError();
 }
 
@@ -272,11 +266,11 @@ int sfm_env_moussaid(const float* px, const float* py, const float* pvx,
                      void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   const int blocks = (n + kEnvPeds - 1) / kEnvPeds;
-  env_force_kernel<true, kAllSections>
+  env_force_kernel<true, kAllSections, kSampled>
       <<<blocks, kEnvPeds, 0, (cudaStream_t)stream>>>(
-          px, py, pvx, pvy, prad, alive, ptx, pty, k, cx, cy, r2, ov,
-          s_count, prm, 0.0f, 1.0f, use_radius, n, nullptr, nullptr, 0, 1,
-          fx, fy);
+          px, py, pvx, pvy, prad, alive, ptx, pty, nullptr, nullptr, nullptr,
+          k, cx, cy, r2, ov, s_count, prm, 0.0f, 1.0f, use_radius, n, nullptr,
+          nullptr, 0, 1, fx, fy);
   return (int)cudaGetLastError();
 }
 
@@ -289,11 +283,11 @@ int sfm_env_exp_compact(const float* px, const float* py, const float* prad,
                         int gs, float* fx, float* fy, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   const int blocks = (n + kEnvPeds - 1) / kEnvPeds;
-  env_force_kernel<false, kTable>
+  env_force_kernel<false, kTable, kSampled>
       <<<blocks, kEnvPeds, 0, (cudaStream_t)stream>>>(
-          px, py, nullptr, nullptr, prad, alive, ptx, pty, k, cx, cy, r2,
-          nullptr, s_count, nullptr, a, b, use_radius, n, surv, counts,
-          max_surv, gs, fx, fy);
+          px, py, nullptr, nullptr, prad, alive, ptx, pty, nullptr, nullptr,
+          nullptr, k, cx, cy, r2, nullptr, s_count, nullptr, a, b, use_radius,
+          n, surv, counts, max_surv, gs, fx, fy);
   return (int)cudaGetLastError();
 }
 
@@ -308,11 +302,48 @@ int sfm_env_moussaid_compact(const float* px, const float* py,
                              int gs, float* fx, float* fy, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   const int blocks = (n + kEnvPeds - 1) / kEnvPeds;
-  env_force_kernel<true, kTable>
+  env_force_kernel<true, kTable, kSampled>
       <<<blocks, kEnvPeds, 0, (cudaStream_t)stream>>>(
-          px, py, pvx, pvy, prad, alive, ptx, pty, k, cx, cy, r2, ov,
-          s_count, prm, 0.0f, 1.0f, use_radius, n, surv, counts, max_surv,
-          gs, fx, fy);
+          px, py, pvx, pvy, prad, alive, ptx, pty, nullptr, nullptr, nullptr,
+          k, cx, cy, r2, ov, s_count, prm, 0.0f, 1.0f, use_radius, n, surv,
+          counts, max_surv, gs, fx, fy);
+  return (int)cudaGetLastError();
+}
+
+int sfm_env_exp_analytic(const float* px, const float* py, const float* prad,
+                         const uint8_t* alive, const float* ax,
+                         const float* ay, const float* ux, const float* uy,
+                         const float* il2, int m, const float* cx,
+                         const float* cy, const float* r2, int s_count,
+                         float a, float b, int use_radius, int n, float* fx,
+                         float* fy, void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  const int blocks = (n + kEnvPeds - 1) / kEnvPeds;
+  env_force_kernel<false, kAllSections, kAnalytic>
+      <<<blocks, kEnvPeds, 0, (cudaStream_t)stream>>>(
+          px, py, nullptr, nullptr, prad, alive, ax, ay, ux, uy, il2, m, cx,
+          cy, r2, nullptr, s_count, nullptr, a, b, use_radius, n, nullptr,
+          nullptr, 0, 1, fx, fy);
+  return (int)cudaGetLastError();
+}
+
+int sfm_env_exp_analytic_compact(const float* px, const float* py,
+                                 const float* prad, const uint8_t* alive,
+                                 const float* ax, const float* ay,
+                                 const float* ux, const float* uy,
+                                 const float* il2, int m, const float* cx,
+                                 const float* cy, const float* r2,
+                                 int s_count, float a, float b,
+                                 int use_radius, int n, const int* surv,
+                                 const int* counts, int max_surv, int gs,
+                                 float* fx, float* fy, void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  const int blocks = (n + kEnvPeds - 1) / kEnvPeds;
+  env_force_kernel<false, kTable, kAnalytic>
+      <<<blocks, kEnvPeds, 0, (cudaStream_t)stream>>>(
+          px, py, nullptr, nullptr, prad, alive, ax, ay, ux, uy, il2, m, cx,
+          cy, r2, nullptr, s_count, nullptr, a, b, use_radius, n, surv, counts,
+          max_surv, gs, fx, fy);
   return (int)cudaGetLastError();
 }
 

@@ -37,6 +37,40 @@ SFM_HD void closest_update(float ptx, float pty, float px, float py,
   }
 }
 
+// The closest point ON the segment a + t*u to the pedestrian (the analytic
+// border tier and the ORCA segment features; ops/geometry.py
+// closest_on_segments): t = clip(((p - a) . u) * il2, 0, 1), c = a + t*u,
+// every operation that decides the argmin rounded on its own, the clamp as
+// torch.clamp (min, then max).  A padding segment (a at PAD_COORD,
+// u = il2 = 0) lands on the PAD sentinel; a single point (u = il2 = 0) on
+// itself.
+SFM_HD float closest_on_segment(float ax, float ay, float ux, float uy,
+                                float il2, float px, float py, float& cx,
+                                float& cy) {
+  const float dxa = px - ax;
+  const float dya = py - ay;
+  float t = SFM_MUL_RN(SFM_ADD_RN(SFM_MUL_RN(dxa, ux), SFM_MUL_RN(dya, uy)),
+                       il2);
+  t = fminf(fmaxf(t, 0.0f), 1.0f);
+  cx = SFM_ADD_RN(ax, SFM_MUL_RN(t, ux));
+  cy = SFM_ADD_RN(ay, SFM_MUL_RN(t, uy));
+  return sq_norm_rn(px - cx, py - cy);
+}
+
+// One step of the first-occurrence argmin over a section's segments, in
+// ascending order (strict <, as closest_update).
+SFM_HD void closest_seg_update(float ax, float ay, float ux, float uy,
+                               float il2, float px, float py, float& best,
+                               float& bx, float& by) {
+  float cx, cy;
+  const float d2 = closest_on_segment(ax, ay, ux, uy, il2, px, py, cx, cy);
+  if (d2 < best) {
+    best = d2;
+    bx = cx;
+    by = cy;
+  }
+}
+
 // |center - ped|^2 < r2, the segment filter (ops/geometry.py
 // segment_filter_mask); inactive or padded segments carry r2 = -1.
 SFM_HD bool in_filter(float cx, float cy, float r2, float px, float py) {

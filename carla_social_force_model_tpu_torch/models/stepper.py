@@ -18,17 +18,20 @@ One step keeps the reference's per-tick order (see the JAX package):
 9. x' = x + dt*v'.
 
 This covers the headless crowd (BASELINE config #1), its environment
-(configs #2 and #3), the interaction cutoff of large crowds, the urban
-slice (config #4): a reactive autopilot fleet stepped before the
+(configs #2 and #3) with the sampled or the analytic border geometry
+(``StepConfig.env_analytic``), the interaction cutoff of large crowds, the
+urban slice (config #4): a reactive autopilot fleet stepped before the
 pedestrians each tick (``models/autopilot.py``) and the compacted
-environment kernels, and the model families: the power-law and Helbing
-pair laws, mixed-law crowds and social groups (``models/groups.py``).
-Terms the JAX step computes and this port does not have yet (ORCA, the
-analytic border geometry) raise ``NotImplementedError`` naming the slice
-that brings them, rather than being skipped.
+environment kernels, the model families: the power-law and Helbing pair
+laws, mixed-law crowds and social groups (``models/groups.py``), and the
+ORCA velocity law: after step 7 the capped velocity is the preferred
+velocity of a projection onto the half-planes of the neighbours, the
+vehicles and the nearest wall features (``ops/orca.py``), for the agents
+whose ``law_id`` is ORCA's (every agent without a ``law_id`` column).
 
 The device chooses the kernel path: the CUDA kernels on a card, the plain
-PyTorch versions on the CPU (ops/cuda_forces.py, ops/cuda_env.py).  A
+PyTorch versions on the CPU (ops/cuda_forces.py, ops/cuda_env.py,
+ops/statics.py).  A
 rollout is an eager Python loop over steps; capturing it as a CUDA graph is
 later work.
 """
@@ -41,10 +44,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..env.pointsets import ChunkedPointSet, SegmentPointSet, segment_major
+from ..env.pointsets import (ChunkedPointSet, SegmentGeomSet,
+                             SegmentPointSet, StaticFeatures, analytic_split,
+                             build_static_features, segment_major)
 from ..ops import cuda_forces, forces, vecmath
-from ..ops.cuda_env import fused_environment_terms
+from ..ops.cuda_env import fused_environment_terms, plain_environment_terms
 from ..ops.cuda_forces import pedestrian_force_kernel, pedestrian_force_sorted
+from ..ops.orca import orca_velocities
 from ..ops.spatial import morton_order
 from . import modes
 from .autopilot import (AutopilotFleet, AutopilotRecord, AutopilotState,
@@ -54,8 +60,7 @@ from .groups import GroupSet, group_force
 from .params import SfmParams
 from .spawn import LAW_IDS, SpawnSchedule, apply_spawn
 from .state import PedState
-from .vehicles import (VehicleSnapshot, VehicleStates,
-                       snapshot_segment_pointset, vehicle_snapshot_at)
+from .vehicles import VehicleSnapshot, VehicleStates, vehicle_snapshot_at
 
 
 @dataclass(frozen=True)
@@ -65,11 +70,14 @@ class Scene:
     ``borders`` and ``static_obstacles`` are the host-side point sets;
     :func:`prepare_scene` adds their segment-major layouts on the spawn
     schedule's device (``borders_seg``, ``static_obstacles_seg``), which is
-    what the forces read.  ``autopilot`` is a reactive fleet, stepped
-    before the pedestrians each tick (its snapshot replaces ``vehicles``).
-    ``groups`` is the social-group member table (:class:`.groups.GroupSet`,
-    from :func:`.groups.build_groups`), read when the group force is
-    enabled."""
+    what the forces read; with ``analytic`` the line-segment form of the
+    borders (``borders_geom``, and ``borders_seg_rest`` for the sections
+    that stay sampled); with ``orca`` the ORCA wall feeds of both
+    (``borders_feat``, ``obstacles_feat``).  ``autopilot`` is a reactive
+    fleet, stepped before the pedestrians each tick (its snapshot replaces
+    ``vehicles``).  ``groups`` is the social-group member table
+    (:class:`.groups.GroupSet`, from :func:`.groups.build_groups`), read
+    when the group force is enabled."""
 
     spawn: SpawnSchedule
     borders: ChunkedPointSet | None = None
@@ -80,18 +88,38 @@ class Scene:
     groups: GroupSet | None = None
     borders_seg: SegmentPointSet | None = None
     static_obstacles_seg: SegmentPointSet | None = None
+    borders_geom: SegmentGeomSet | None = None
+    borders_seg_rest: SegmentPointSet | None = None
+    borders_feat: StaticFeatures | None = None
+    obstacles_feat: StaticFeatures | None = None
 
 
-def prepare_scene(scene: Scene) -> Scene:
+def prepare_scene(scene: Scene, analytic: bool = False,
+                  orca: bool = False) -> Scene:
     """Add the segment-major layouts of the scene's borders and static
     obstacles on the spawn schedule's device, and zero obstacle velocities
-    where none are given.  Host-side work, done once per scenario;
-    idempotent.  (The JAX package's ``analytic`` and ``orca`` layouts
-    belong to later slices of the port.)"""
+    where none are given.  ``analytic``: also the Douglas-Peucker border
+    geometry of ``StepConfig.env_analytic`` (``env/pointsets.
+    analytic_split``); ``orca``: also the ORCA wall feeds of the borders
+    and the static obstacles (``env/pointsets.build_static_features``).
+    Host-side work, done once per scenario; idempotent.  ``make_rollout_fn``
+    and ``rollout`` pass ``cfg.env_analytic`` and ``params.enable_orca``
+    (the JAX package's stepper.py:83-119)."""
     device = scene.spawn.step.device
     upd = {}
     if scene.borders is not None and scene.borders_seg is None:
         upd["borders_seg"] = segment_major(scene.borders, device)
+    if (analytic and scene.borders is not None
+            and scene.borders_geom is None):
+        gset, rest = analytic_split(scene.borders, device=device)
+        upd["borders_geom"] = gset
+        upd["borders_seg_rest"] = segment_major(rest, device)
+    if orca and scene.borders is not None and scene.borders_feat is None:
+        upd["borders_feat"] = build_static_features(scene.borders, device)
+    if (orca and scene.static_obstacles is not None
+            and scene.obstacles_feat is None):
+        upd["obstacles_feat"] = build_static_features(scene.static_obstacles,
+                                                      device)
     if scene.static_obstacles is not None:
         if scene.static_obstacles_seg is None:
             upd["static_obstacles_seg"] = segment_major(
@@ -121,9 +149,9 @@ class StepConfig:
     #: run the plain PyTorch pair forces (every family) even on a card: the
     #: reference the kernel path is compared with, never the default
     plain_pair_force: bool = False
-    #: run the plain PyTorch environment forces even on a card (no sort, no
-    #: kernel): the reference the kernel path is compared with, never the
-    #: default
+    #: run the plain PyTorch environment forces and ORCA's wall feed even on
+    #: a card (no sort, no kernel): the reference the kernel path is
+    #: compared with, never the default
     plain_env_force: bool = False
     #: the compacted environment kernels: each term whose job passes the
     #: JAX package's static gate walks a per-step survivor table of its
@@ -133,7 +161,10 @@ class StepConfig:
     #: survivor-table width of the compacted environment kernels (0 = auto:
     #: a third of the groups, at least 8)
     env_max_surv: int = 0
-    #: analytic border geometry (the analytic border slice); True raises
+    #: analytic border geometry: the border-family forces take each
+    #: section's closest point ON its Douglas-Peucker line segments
+    #: (``prepare_scene(analytic=True)``, the ``env_exp_analytic`` kernels);
+    #: sections that do not simplify stay sampled and their term is added
     env_analytic: bool = False
     #: interaction cutoff [m]: pairs farther apart contribute nothing, and
     #: the pair force runs on curve-sorted planes whose tile pairs beyond
@@ -177,22 +208,9 @@ class RecordXY(NamedTuple):
             mode=self.mode, alive=self.alive)
 
 
-def _not_ported(what: str, slice_name: str):
-    raise NotImplementedError(
-        f"{what} is not ported to PyTorch yet (the {slice_name} slice of "
-        f"the port); run it on the JAX package")
-
-
 def check_supported(scene: Scene, params: SfmParams, cfg: StepConfig) -> None:
-    """Raise ``NotImplementedError`` for every term the JAX step would
-    compute for this (scene, params, cfg) that the port does not have yet,
-    and ``ValueError`` or ``TypeError`` for per-agent columns and groups of
-    the wrong form."""
-    if cfg.env_analytic:
-        _not_ported("env_analytic (the analytic border geometry)",
-                    "analytic border")
-    if params.enable_orca:
-        _not_ported("ORCA", "ORCA")
+    """Raise ``ValueError`` or ``TypeError`` for per-agent columns and
+    groups of the wrong form."""
     if (params.enable_group and scene.groups is not None
             and not isinstance(scene.groups, GroupSet)):
         raise TypeError(f"scene.groups must be a GroupSet (models/groups."
@@ -221,33 +239,42 @@ def _segments(pset, seg, name):
     if seg is None and pset is not None and bool(np.asarray(pset.valid).any()):
         raise ValueError(f"scene.{name} has no segment-major layout: build "
                          f"the scene with prepare_scene (make_rollout_fn "
-                         f"and rollout do)")
+                         f"and rollout do, with cfg.env_analytic)")
     return seg
 
 
 def force_terms(state: PedState, scene: Scene, params: SfmParams,
-                cfg: StepConfig, veh_snap: VehicleSnapshot | None = None
-                ) -> dict:
+                cfg: StepConfig, veh_snap: VehicleSnapshot | None = None,
+                order=None) -> dict:
     """Enabled force terms by name, each an ``(fx, fy)`` plane pair, in the
-    JAX package's order.  ``veh_snap``: this step's vehicles."""
+    JAX package's order.  ``veh_snap``: this step's vehicles.  ``order``:
+    an optional ``(perm, inv)`` Hilbert permutation of the state's
+    positions and liveness (:func:`..ops.spatial.morton_order`), which the
+    sorting kernels then share."""
     check_supported(scene, params, cfg)
-    borders = _segments(scene.borders, scene.borders_seg, "borders")
-    statics = _segments(scene.static_obstacles, scene.static_obstacles_seg,
-                        "static_obstacles")
+    _segments(scene.borders, scene.borders_seg, "borders")
+    _segments(scene.static_obstacles, scene.static_obstacles_seg,
+              "static_obstacles")
+    if (cfg.env_analytic and scene.borders_geom is None
+            and scene.borders_seg_rest is None):
+        # the split of a prepared scene always has a part
+        _segments(scene.borders, None, "borders (analytic)")
     cutoff = cfg.interaction_cutoff
     families = (params.enable_pedestrian or params.enable_powerlaw
                 or params.enable_ped_repulsive)
-    order = None
-    if (cutoff is not None and families and not cfg.plain_pair_force
-            and cfg.spatial_order == "hilbert"):
+    if (order is None and cutoff is not None and families
+            and not cfg.plain_pair_force and cfg.spatial_order == "hilbert"):
         # the pair kernels of every family and the environment kernels sort
         # by the same key with the same stable sort: one permutation serves
         # them all (it changes no result)
         order = morton_order(state.pos_x, state.pos_y, state.alive, "hilbert")
-    env = ({} if cfg.plain_env_force
+    env = (plain_environment_terms(state, scene, params, veh_snap,
+                                   analytic=cfg.env_analytic)
+           if cfg.plain_env_force
            else fused_environment_terms(state, scene, params, veh_snap,
                                         compact=cfg.env_compact,
                                         max_surv=cfg.env_max_surv,
+                                        analytic=cfg.env_analytic,
                                         order=order))
     zero = torch.zeros_like(state.pos_x)
     desired = None
@@ -284,22 +311,13 @@ def force_terms(state: PedState, scene: Scene, params: SfmParams,
         terms["pedestrian_force"] = pair_term(
             "moussaid", params.pedestrian, state.radius,
             use_radius=params.use_ped_radius)
+    # the environment terms: every job of an empty point set (no layout) is
+    # absent, and its term is zero
     if params.enable_border and scene.borders is not None:
-        terms["border_force"] = (
-            env["border_force"] if "border_force" in env
-            else (zero, zero) if borders is None
-            else forces.border_force(
-                state.pos_x, state.pos_y, state.mode, state.radius,
-                state.alive, borders, params.border,
-                use_ped_radius=params.use_ped_radius))
+        terms["border_force"] = env.get("border_force", (zero, zero))
     if params.enable_static_obstacle and scene.static_obstacles is not None:
-        terms["static_obstacle_force"] = (
-            env["static_obstacle_force"] if "static_obstacle_force" in env
-            else (zero, zero) if statics is None
-            else forces.obstacle_force(
-                state.pos_x, state.pos_y, state.vel_x, state.vel_y,
-                state.radius, state.alive, statics, scene.static_obstacle_vel,
-                params.static_obstacle, use_ped_radius=params.use_ped_radius))
+        terms["static_obstacle_force"] = env.get("static_obstacle_force",
+                                                 (zero, zero))
     if params.enable_powerlaw:
         terms["powerlaw_force"] = pair_term("powerlaw", params.powerlaw,
                                             state.radius)
@@ -311,23 +329,10 @@ def force_terms(state: PedState, scene: Scene, params: SfmParams,
             state.pos_x, state.pos_y, state.vel_x, state.vel_y, *desired,
             state.alive, scene.groups, params.group)
     if params.enable_space_repulsive and scene.borders is not None:
-        terms["space_repulsive_force"] = (
-            env["space_repulsive_force"] if "space_repulsive_force" in env
-            else (zero, zero) if borders is None
-            else forces.space_repulsive_force(
-                state.pos_x, state.pos_y, state.mode, state.alive, borders,
-                params.space_repulsive))
+        terms["space_repulsive_force"] = env.get("space_repulsive_force",
+                                                 (zero, zero))
     if params.enable_dynamic_obstacle and veh_snap is not None:
-        if "dynamic_obstacle_force" in env:
-            terms["dynamic_obstacle_force"] = env["dynamic_obstacle_force"]
-        else:
-            p = params.dynamic_obstacle
-            vset, vvel, vact = snapshot_segment_pointset(
-                veh_snap, p.perception_threshold)
-            terms["dynamic_obstacle_force"] = forces.obstacle_force(
-                state.pos_x, state.pos_y, state.vel_x, state.vel_y,
-                state.radius, state.alive, vset, vvel, p,
-                use_ped_radius=params.use_ped_radius, obstacle_active=vact)
+        terms["dynamic_obstacle_force"] = env["dynamic_obstacle_force"]
     # per-agent heterogeneity of the pair families (the JAX package's
     # stepper.py:452-477): F_i = s_i * sum_j g_ij is a row-wise post-scale
     # of the summed term, so it composes with every kernel (the symmetric
@@ -350,9 +355,11 @@ def force_terms(state: PedState, scene: Scene, params: SfmParams,
 
 
 def compute_forces(state: PedState, scene: Scene, params: SfmParams,
-                   cfg: StepConfig, veh_snap: VehicleSnapshot | None = None):
-    """Sum of enabled forces, masked to alive pedestrians: ``(fx, fy)``."""
-    terms = force_terms(state, scene, params, cfg, veh_snap)
+                   cfg: StepConfig, veh_snap: VehicleSnapshot | None = None,
+                   order=None):
+    """Sum of enabled forces, masked to alive pedestrians: ``(fx, fy)``
+    (``order`` as in :func:`force_terms`)."""
+    terms = force_terms(state, scene, params, cfg, veh_snap, order)
     fx = torch.zeros_like(state.pos_x)
     fy = torch.zeros_like(state.pos_y)
     for tx, ty in terms.values():
@@ -404,12 +411,39 @@ def tick_core(state: PedState, scene: Scene, params: SfmParams,
                       mode=state.mode, alive=state.alive)
 
     # 6-7. forces and commanded velocity
-    fx, fy = compute_forces(state, scene, params, cfg, veh_snap)
+    n = state.capacity
+    order = None
+    if (params.enable_orca and cfg.spatial_order == "hilbert"
+            and 0 < params.orca.window < n):
+        # ORCA's neighbour band and the sorting kernels sort by the same
+        # key with the same stable sort: one permutation serves them all
+        order = morton_order(state.pos_x, state.pos_y, alive, "hilbert")
+    fx, fy = compute_forces(state, scene, params, cfg, veh_snap, order)
+    vmax = state.max_speed(params.max_speed_factor)
     vx, vy = vecmath.cap_velocity_xy(state.vel_x + cfg.dt * fx,
-                                     state.vel_y + cfg.dt * fy,
-                                     state.max_speed(params.max_speed_factor))
+                                     state.vel_y + cfg.dt * fy, vmax)
     vx = torch.where(alive, vx, 0.0)
     vy = torch.where(alive, vy, 0.0)
+
+    # ORCA (the JAX package's stepper.py:552-584): the capped velocity is
+    # the preferred one, and the projection replaces it for the agents of
+    # the ORCA law; road-crossing modes are exempt from the walls (they
+    # step over the curb, as the border force's crossing rule has it)
+    if params.enable_orca:
+        ovx, ovy = orca_velocities(
+            (state.pos_x, state.pos_y), (state.vel_x, state.vel_y),
+            state.radius, alive, (vx, vy), vmax, params.orca, cfg.dt,
+            veh_snap=veh_snap, spatial_order=cfg.spatial_order,
+            borders=(scene.borders_feat if scene.borders_feat is not None
+                     else scene.borders),
+            obstacles=(scene.obstacles_feat if scene.obstacles_feat
+                       is not None else scene.static_obstacles),
+            static_exempt=forces.crossing_mask(state.mode), order=order,
+            plain_feed=cfg.plain_env_force)
+        law = scene.spawn.law_id
+        om = alive if law is None else alive & (law == LAW_IDS["orca"])
+        vx = torch.where(om, ovx, vx)
+        vy = torch.where(om, ovy, vy)
 
     # 8. waypoint arrival (2-D distance)
     dist_wp = vecmath.norm_xy(state.wp_x - state.pos_x,
@@ -521,7 +555,8 @@ def rollout(state: PedState, scene: Scene, params: SfmParams, cfg: StepConfig,
     ``(PedState, AutopilotState)`` pair.
     """
     check_supported(scene, params, cfg)
-    scene = prepare_scene(scene)
+    scene = prepare_scene(scene, analytic=cfg.env_analytic,
+                          orca=params.enable_orca)
     fleet = scene.autopilot
     if fleet is not None and autopilot_state is None and start_step != 0:
         raise NotImplementedError(
@@ -584,7 +619,8 @@ def make_rollout_fn(scene: Scene, params: SfmParams, cfg: StepConfig,
     prepared once, here.  The state is not modified, so callers may reuse
     it across runs."""
     check_supported(scene, params, cfg)
-    scene = prepare_scene(scene)
+    scene = prepare_scene(scene, analytic=cfg.env_analytic,
+                          orca=params.enable_orca)
 
     def run(state: PedState):
         return rollout(state, scene, params, cfg, num_steps, record=record,

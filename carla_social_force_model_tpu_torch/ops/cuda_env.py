@@ -1,7 +1,8 @@
 """CUDA environment-force kernels and the fused environment terms (port of
-ops/pallas_env.py, sampled points, dense and compacted forms).
+ops/pallas_env.py: sampled points and the analytic border geometry, dense
+and compacted forms).
 
-Four kernels from ``csrc/env_forces.cu``, each behind a wrapper that checks
+Six kernels from ``csrc/env_forces.cu``, each behind a wrapper that checks
 its inputs, allocates its outputs, launches on PyTorch's current stream and
 counts the launch:
 
@@ -16,6 +17,10 @@ counts the launch:
   of 128 sorted pedestrians (``ops/env_grid.py``).  The JAX package's
   ``_exp_kernel_compact`` and ``_moussaid_kernel_compact``.  Their output
   equals the dense kernels' bitwise.
+* :func:`env_exp_analytic`, :func:`env_exp_analytic_compact` -- the exp
+  force with each section's closest point taken ON its Douglas-Peucker
+  line segments (``env/pointsets.SegmentGeomSet``).  The JAX package's
+  ``_exp_kernel`` and ``_exp_kernel_compact`` with ``analytic=True``.
 
 On CPU tensors each wrapper runs its plain PyTorch version
 (``ops/forces.py``; the table changes no value, so the compacted forms have
@@ -25,9 +30,11 @@ falls back from the kernel to the plain version.
 :func:`fused_environment_terms` sorts the pedestrians once per step along
 the Hilbert curve (the kernels skip, per block of consecutive pedestrians,
 every segment whose filter circle misses the block), launches one kernel
-per term on the sorted planes (the compacted form where the JAX package's
+per job on the sorted planes (the compacted form where the JAX package's
 static gate would, with ``compact``), scatters each result back to slot
 order and applies the crossing-mode rule of the border-family terms.
+:func:`plain_environment_terms` computes the same jobs with the plain
+versions.
 """
 from __future__ import annotations
 
@@ -36,12 +43,14 @@ import torch
 from . import forces
 from .env_grid import EnvGrid, env_gate, env_grid
 from .spatial import morton_order
+from ..env.pointsets import SegmentGeomSet
 from ..models.params import MoussaidParams, moussaid_vector
 
 #: launches per kernel since the last :func:`reset_launch_counts`; each
 #: wrapper adds one where it launches its kernel and nowhere else
 LAUNCHES = {"env_exp": 0, "env_moussaid": 0, "env_exp_compact": 0,
-            "env_moussaid_compact": 0}
+            "env_moussaid_compact": 0, "env_exp_analytic": 0,
+            "env_exp_analytic_compact": 0}
 
 
 def reset_launch_counts() -> None:
@@ -190,6 +199,60 @@ def env_exp_compact(pos_x, pos_y, radius, alive, seg, a: float, b: float,
     return _launch("env_exp_compact", args, pos_x, grid)
 
 
+def _analytic_args(pos_x, pos_y, radius, alive, geom, a, b, use_radius,
+                   active):
+    """The analytic exp entries' arguments before ``n`` (see
+    :func:`_exp_args`)."""
+    dev = pos_x.device
+    _check_planes((pos_x, pos_y, radius), alive, dev)
+    s, m = geom.ax.shape
+    for name, t, shape in (("ax", geom.ax, (s, m)), ("ay", geom.ay, (s, m)),
+                           ("ux", geom.ux, (s, m)), ("uy", geom.uy, (s, m)),
+                           ("inv_len2", geom.inv_len2, (s, m)),
+                           ("center_x", geom.center_x, (s,)),
+                           ("center_y", geom.center_y, (s,))):
+        if (t.device != dev or t.dtype != torch.float32 or t.shape != shape
+                or not t.is_contiguous()):
+            raise ValueError(f"segment geometry {name} must be a contiguous "
+                             f"float32 {shape} tensor on {dev}; got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    r2 = filter_r2(geom, active)
+    return (pos_x.data_ptr(), pos_y.data_ptr(), radius.data_ptr(),
+            alive.data_ptr(), geom.ax.data_ptr(), geom.ay.data_ptr(),
+            geom.ux.data_ptr(), geom.uy.data_ptr(), geom.inv_len2.data_ptr(),
+            m, geom.center_x.data_ptr(), geom.center_y.data_ptr(),
+            r2.data_ptr(), s, float(a), float(b), int(use_radius)), r2
+
+
+def env_exp_analytic(pos_x, pos_y, radius, alive, geom, a: float, b: float,
+                     use_radius: bool = False, active=None):
+    """:func:`env_exp` with the closest point of each section taken ON its
+    line segments: ``geom`` is a :class:`..env.pointsets.SegmentGeomSet`
+    on the planes' device (the analytic border tier; the JAX package's
+    ``_exp_kernel`` with ``analytic=True``)."""
+    if _device_of(pos_x) == "cpu":
+        return forces.env_exp_force(pos_x, pos_y, radius, alive, geom, a, b,
+                                    use_radius=use_radius, active=active)
+    args, _held = _analytic_args(pos_x, pos_y, radius, alive, geom, a, b,
+                                 use_radius, active)
+    return _launch("env_exp_analytic", args, pos_x)
+
+
+def env_exp_analytic_compact(pos_x, pos_y, radius, alive, geom, a: float,
+                             b: float, grid: EnvGrid,
+                             use_radius: bool = False, active=None):
+    """:func:`env_exp_analytic` over the groups of sections that ``grid``
+    lists for each block (see :func:`env_exp_compact`).  Equal to
+    :func:`env_exp_analytic` bitwise."""
+    if _device_of(pos_x) == "cpu":
+        return forces.env_exp_force(pos_x, pos_y, radius, alive, geom, a, b,
+                                    use_radius=use_radius, active=active)
+    args, _held = _analytic_args(pos_x, pos_y, radius, alive, geom, a, b,
+                                 use_radius, active)
+    _check_grid(grid, pos_x.shape[0], pos_x.device)
+    return _launch("env_exp_analytic_compact", args, pos_x, grid)
+
+
 def env_moussaid(pos_x, pos_y, vel_x, vel_y, radius, alive, seg,
                  obstacle_vel, p: MoussaidParams, use_radius: bool = False,
                  active=None):
@@ -221,21 +284,35 @@ def env_moussaid_compact(pos_x, pos_y, vel_x, vel_y, radius, alive, seg,
     return _launch("env_moussaid_compact", args, pos_x, grid)
 
 
-def environment_jobs(scene, params, veh_snap):
+def environment_jobs(scene, params, veh_snap, analytic: bool = False):
     """The environment terms this step computes, in the JAX package's
     order: ``(name, kind, segments, args, use_radius, active)`` with
     ``args`` ``(a, b)`` for the exp kind and ``(obstacle_vel, params)``
-    for the Moussaid kind."""
+    for the Moussaid kind.  With ``analytic`` and an analytic border
+    geometry (``scene.borders_geom``), each border-family term reads it,
+    and a ``<term>#rest`` job the sampled remainder of the split
+    (``scene.borders_seg_rest``), which is summed into its term
+    (pallas_env.py:513-528 of the JAX package)."""
     from ..models.vehicles import snapshot_segment_pointset
     jobs = []
+    use_geom = analytic and scene.borders_geom is not None
+
+    def border_jobs(name, args, use_radius):
+        if not use_geom:
+            jobs.append((name, "exp", scene.borders_seg, args, use_radius,
+                         None))
+            return
+        jobs.append((name, "exp", scene.borders_geom, args, use_radius, None))
+        if scene.borders_seg_rest is not None:
+            jobs.append((name + "#rest", "exp", scene.borders_seg_rest, args,
+                         use_radius, None))
+
     if params.enable_border and scene.borders_seg is not None:
         b = params.border
-        jobs.append(("border_force", "exp", scene.borders_seg, (b.a, b.b),
-                     params.use_ped_radius, None))
+        border_jobs("border_force", (b.a, b.b), params.use_ped_radius)
     if params.enable_space_repulsive and scene.borders_seg is not None:
         sp = params.space_repulsive
-        jobs.append(("space_repulsive_force", "exp", scene.borders_seg,
-                     (sp.u0 / sp.r, sp.r), False, None))
+        border_jobs("space_repulsive_force", (sp.u0 / sp.r, sp.r), False)
     if (params.enable_static_obstacle
             and scene.static_obstacles_seg is not None):
         jobs.append(("static_obstacle_force", "moussaid",
@@ -270,15 +347,13 @@ def fused_environment_terms(state, scene, params, veh_snap,
     permutation this function would compute), so that a caller sorting for
     another kernel sorts once.
 
-    Covers the sampled points (``prepare_scene``'s segment-major layouts);
-    ``analytic`` raises: its kernel belongs to the analytic border slice of
-    the port.
+    ``analytic`` (``StepConfig.env_analytic``): the border-family terms
+    read the line-segment geometry (``prepare_scene(analytic=True)``)
+    through :func:`env_exp_analytic` (or its compacted form, gated with
+    ``K`` = segments per section), and their sampled remainder through
+    the sampled kernel, summed into the term.
     """
-    if analytic:
-        raise NotImplementedError(
-            "the analytic environment kernels are not ported to PyTorch yet "
-            "(the analytic border slice of the port)")
-    jobs = environment_jobs(scene, params, veh_snap)
+    jobs = environment_jobs(scene, params, veh_snap, analytic)
     if not jobs:
         return {}
     perm, inv = order if order is not None else morton_order(
@@ -290,22 +365,58 @@ def fused_environment_terms(state, scene, params, veh_snap,
     terms = {}
     for name, kind, seg, args, use_radius, active in jobs:
         engage, group, ms = env_gate(seg.num_segments,
-                                     seg.points_per_segment, compact,
+                                     forces.section_slots(seg), compact,
                                      max_surv)
         grid = (env_grid(px, py, alive, seg, filter_r2(seg, active), group,
                          ms) if engage else None)
         table = () if grid is None else (grid,)
         if kind == "exp":
-            fn = env_exp if grid is None else env_exp_compact
+            if isinstance(seg, SegmentGeomSet):
+                fn = env_exp_analytic if grid is None \
+                    else env_exp_analytic_compact
+            else:
+                fn = env_exp if grid is None else env_exp_compact
             fx, fy = fn(px, py, rad, alive, seg, *args, *table,
                         use_radius=use_radius, active=active)
         else:
             fn = env_moussaid if grid is None else env_moussaid_compact
             fx, fy = fn(px, py, vx, vy, rad, alive, seg, *args, *table,
                         use_radius=use_radius, active=active)
-        fx, fy = fx[inv], fy[inv]
-        if kind == "exp":
-            fx = torch.where(crossing, 0.0, fx)
-            fy = torch.where(crossing, 0.0, fy)
-        terms[name] = (fx, fy)
+        _collect(terms, name, kind, fx[inv], fy[inv], crossing)
     return terms
+
+
+def plain_environment_terms(state, scene, params, veh_snap,
+                            analytic: bool = False):
+    """The terms of :func:`fused_environment_terms` through the plain
+    versions on the unsorted planes (no sort, no kernel, no table): the
+    reference the kernel path is compared with."""
+    crossing = forces.crossing_mask(state.mode)
+    terms = {}
+    for name, kind, seg, args, use_radius, active in environment_jobs(
+            scene, params, veh_snap, analytic):
+        if kind == "exp":
+            fx, fy = forces.env_exp_force(
+                state.pos_x, state.pos_y, state.radius, state.alive, seg,
+                *args, use_radius=use_radius, active=active)
+        else:
+            fx, fy = forces.env_moussaid_force(
+                state.pos_x, state.pos_y, state.vel_x, state.vel_y,
+                state.radius, state.alive, seg, *args, use_radius=use_radius,
+                active=active)
+        _collect(terms, name, kind, fx, fy, crossing)
+    return terms
+
+
+def _collect(terms, name, kind, fx, fy, crossing):
+    """Add one job's slot-order force to ``terms``: the border-family
+    (exp) terms are off for pedestrians crossing the road (reference
+    forces.py:176-177), and a ``<term>#rest`` job sums into its term."""
+    if kind == "exp":
+        fx = torch.where(crossing, 0.0, fx)
+        fy = torch.where(crossing, 0.0, fy)
+    base = name.split("#")[0]
+    if base in terms:
+        gx, gy = terms[base]
+        fx, fy = gx + fx, gy + fy
+    terms[base] = (fx, fy)

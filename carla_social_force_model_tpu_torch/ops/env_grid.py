@@ -55,13 +55,14 @@ class EnvGrid(NamedTuple):
     group: int
 
 
-def env_gate(num_segments: int, points_per_segment: int, compact: bool,
+def env_gate(num_segments: int, slots: int, compact: bool,
              max_surv: int) -> tuple[bool, int, int]:
     """``(engage, group, max_surv)`` for one environment job: whether the
     survivor table drives its launch, the sections per group and the
-    table's width.  Static, from shapes only (pallas_env.py:584-589)."""
-    group = _round_up(max(1, JAX_POINT_TILE // max(points_per_segment, 1)),
-                      8)
+    table's width.  ``slots``: points per section row, or segments (M) for
+    the analytic geometry, as the JAX package gates either.  Static, from
+    shapes only (pallas_env.py:584-589)."""
+    group = _round_up(max(1, JAX_POINT_TILE // max(slots, 1)), 8)
     n_groups = -(-num_segments // group)
     ms = max_surv if max_surv > 0 else min(n_groups,
                                            max(8, -(-n_groups // 3)))

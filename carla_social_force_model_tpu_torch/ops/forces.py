@@ -19,7 +19,11 @@ parity target of the CPU tests against the JAX package.
   them.
 * :func:`env_exp_force` and :func:`env_moussaid_force` -- the environment
   kernels (``csrc/env_forces.cu``), on the segment-major layout they read
-  (``env/pointsets.SegmentPointSet``).  :func:`border_force`,
+  (``env/pointsets.SegmentPointSet``) or, for the analytic border tier, on
+  the line-segment geometry (``env/pointsets.SegmentGeomSet``: the closest
+  point is taken on each section's segments,
+  ``geometry.closest_on_segments``).
+  :func:`border_force`,
   :func:`space_repulsive_force` and :func:`obstacle_force` are the JAX
   package's environment forces (forces.py:338-362, :471-511) on top of them.
 
@@ -31,8 +35,9 @@ import numpy as np
 import torch
 
 from . import vecmath
-from .geometry import segment_filter_mask
+from .geometry import closest_on_segments, segment_filter_mask
 from .pair_grid import cutoff_sq
+from ..env.pointsets import SegmentGeomSet
 from ..models import modes
 from ..models.params import (AccelerationParams, BorderParams, MoussaidParams,
                              PedRepulsiveParams, PowerLawParams,
@@ -266,19 +271,34 @@ def ped_repulsive_force(pos_x, pos_y, vel_x, vel_y, ex, ey, alive,
     return _pair_sum(pos_x, pos_y, alive, pair, row_block, cutoff, rows)
 
 
+def section_slots(seg) -> int:
+    """Points (sampled set) or segments (analytic set) per section row."""
+    return (seg.max_segments if isinstance(seg, SegmentGeomSet)
+            else seg.points_per_segment)
+
+
 def _ped_blocks(n: int, seg, max_group_elems: int):
     """Pedestrian row blocks bounding the (S, K, rows) temporaries of the
     closest-point search to about ``max_group_elems`` elements."""
     rows = max(1, max_group_elems // max(1, seg.num_segments
-                                         * seg.points_per_segment))
+                                         * section_slots(seg)))
     return ((lo, min(lo + rows, n)) for lo in range(0, n, rows))
 
 
 def _closest_points(pos_x, pos_y, seg):
-    """Per (segment, ped) closest sampled point: ``(dmin2, bx, by)`` of
-    shape (S, B), with the first-occurrence argmin of the reference's
-    ``np.argmin``.  Padded slots sit at ``PAD_COORD``: a segment with no
-    point in reach gives ``dmin2 >= PAD_DIST2``."""
+    """Per (segment, ped) closest point: ``(dmin2, bx, by)`` of shape
+    (S, B), with the first-occurrence argmin of the reference's
+    ``np.argmin`` over a sampled row, or over a section's line segments
+    for an analytic set (:class:`..env.pointsets.SegmentGeomSet`, the
+    JAX package's ``_closest_seg``).  Padded slots sit at ``PAD_COORD``: a
+    segment with no point in reach gives ``dmin2 >= PAD_DIST2``."""
+    if isinstance(seg, SegmentGeomSet):
+        d2, cx, cy = closest_on_segments(
+            pos_x[None, None, :], pos_y[None, None, :],
+            *(a[:, :, None] for a in (seg.ax, seg.ay, seg.ux, seg.uy,
+                                      seg.inv_len2)))        # (S, M, B)
+        idx = torch.argmin(d2, dim=1)[:, None, :]            # first
+        return tuple(torch.gather(a, 1, idx)[:, 0, :] for a in (d2, cx, cy))
     dx = seg.x[:, :, None] - pos_x[None, None, :]          # (S, K, B)
     dy = seg.y[:, :, None] - pos_y[None, None, :]
     d2 = dx * dx + dy * dy

@@ -73,15 +73,11 @@ def step_config_from_fields(d: dict) -> StepConfig:
     applies the cutoff on every device, where the JAX package applies it on
     its Pallas path only).  ``use_pallas``, ``use_pallas_env``, the tile,
     VMEM, interpret and division knobs are TPU launch choices with no
-    counterpart: the device chooses the path here.  ``env_compact`` and
-    ``env_max_surv`` carry over (the port's compacted environment kernels
-    run on the gate of the JAX package's default ``env_point_tile``);
-    ``env_analytic`` raises when True (its kernel belongs to the analytic
-    border slice of the port)."""
-    if d["env_analytic"]:
-        raise NotImplementedError(
-            "env_analytic=True is not ported to PyTorch yet (the analytic "
-            "border slice of the port)")
+    counterpart: the device chooses the path here.  ``env_compact``,
+    ``env_max_surv`` and ``env_analytic`` carry over (the port's compacted
+    environment kernels run on the gate of the JAX package's default
+    ``env_point_tile``).  The port applies ``env_analytic`` on every
+    device, where the JAX package applies it on its Pallas path only."""
     return StepConfig(
         dt=float(d["dt"]), waypoint_threshold=float(d["waypoint_threshold"]),
         despawn_on_arrival=bool(d["despawn_on_arrival"]),
@@ -93,7 +89,8 @@ def step_config_from_fields(d: dict) -> StepConfig:
         pair_max_surv=int(d["pallas_max_surv"]),
         spatial_order=str(d["spatial_order"]),
         env_compact=bool(d["env_compact"]),
-        env_max_surv=int(d["env_max_surv"]))
+        env_max_surv=int(d["env_max_surv"]),
+        env_analytic=bool(d["env_analytic"]))
 
 
 def ped_state_from_fields(d: dict, device: torch.device | str) -> PedState:
@@ -181,7 +178,7 @@ def scene_from_fields(d: dict, device: torch.device | str) -> Scene:
     scripted vehicles, the autopilot fleet and the social groups' member
     table.  The JAX scene's derived layouts (segment-major, analytic, ORCA
     features) are not carried: the port's ``prepare_scene`` builds its
-    own."""
+    own from the point sets."""
     vel = d.get("static_obstacle_vel")
     return Scene(
         spawn=spawn_schedule_from_fields(d["spawn"], device),

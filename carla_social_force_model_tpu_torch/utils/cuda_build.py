@@ -84,6 +84,28 @@ ARGTYPES = {
     "sfm_env_moussaid_compact": ([_PTR] * 8 + [_INT] + [_PTR] * 4
                                  + [_INT, _PTR] + [_INT, _INT] + [_PTR] * 2
                                  + [_INT, _INT] + [_PTR] * 3),
+    # px, py, prad, alive, ax, ay, ux, uy, il2, m, cx, cy, r2, s_count, a, b,
+    # use_radius, n, fx, fy, stream
+    "sfm_env_exp_analytic": ([_PTR] * 9 + [_INT] + [_PTR] * 3
+                             + [_INT, _FLOAT, _FLOAT, _INT, _INT]
+                             + [_PTR] * 3),
+    # sfm_env_exp_analytic's arguments up to n, then surv, counts, max_surv,
+    # gs, fx, fy, stream
+    "sfm_env_exp_analytic_compact": ([_PTR] * 9 + [_INT] + [_PTR] * 3
+                                     + [_INT, _FLOAT, _FLOAT, _INT, _INT]
+                                     + [_PTR] * 2 + [_INT, _INT]
+                                     + [_PTR] * 3),
+    # px, py, alive, ax, ay, ux, uy, il2, ccx, ccy, rad, f, nd, nd2, k, n,
+    # d2, wx, wy, stream
+    "sfm_seg_topk": ([_PTR] * 11 + [_INT, _FLOAT, _FLOAT, _INT, _INT]
+                     + [_PTR] * 4),
+    # px, py, alive, x, y, c, kk, cx, cy, rad, nd, nd2, k, n, d2, wx, wy,
+    # stream
+    "sfm_chunk_topk": ([_PTR] * 5 + [_INT, _INT] + [_PTR] * 3
+                       + [_FLOAT, _FLOAT, _INT, _INT] + [_PTR] * 4),
+    # sfm_chunk_topk's arguments without k
+    "sfm_chunk_closest": ([_PTR] * 5 + [_INT, _INT] + [_PTR] * 3
+                          + [_FLOAT, _FLOAT, _INT] + [_PTR] * 4),
 }
 
 

@@ -13,17 +13,24 @@ steps) and config #3 (+ parked cars and moving vehicles: ``env_exp`` and
 forms of the pair kernels; then the urban path, BASELINE config #4
 (``api.synthetic.urban_bundle``: nav-graph routes, a reactive autopilot
 fleet, gap-acceptance crossing, the compacted border kernel
-``env_exp_compact``) at N = 10,000 x 1,000 steps, and config #3 with
-``env_compact`` (``env_moussaid_compact`` on the parked cars); then the
-model families (phases 15-17): the power-law and Helbing forms of the pair
-kernels against their plain versions and float64 oracles, and config #1
-under ``bench.py``'s family switches at N = 10,000 x 1,000 steps (the
-power law, the Helbing ellipse, a mixed Moussaid / power-law / Helbing
-crowd, social groups of four over half the crowd, the power law with the
-30 m cutoff), with shorter paths that launch the other forms.  It counts
-the kernel launches of each path, and checks every step of 50-step
-rollouts through the kernels against the same step through the plain
-versions from the same state.
+``env_exp_compact``) at N = 10,000 (a recorded run of 1,000 steps, timed
+runs of 200), and config #3 with ``env_compact`` (``env_moussaid_compact``
+on the parked cars); then the model families (phases 15-17): the power-law
+and Helbing forms of the pair kernels against their plain versions and
+float64 oracles, and config #1 under ``bench.py``'s family switches at
+N = 10,000 x 200 steps (the power law, the Helbing ellipse, a mixed
+Moussaid / power-law / Helbing crowd, social groups of four over half the
+crowd, the power law with the 30 m cutoff), with shorter paths that
+launch the other forms; then the ORCA slice (phases 18-20): the analytic form of the border kernel
+(``env_exp_analytic`` and its compacted form) and the wall-feed kernels
+(``seg_topk``, ``chunk_topk``, ``chunk_closest``) against their plain
+versions, and ``bench.py``'s ORCA switches: config #3 with ORCA and the
+analytic border tier at N = 10,000 x 1,000 steps, and at 200 steps config
+#1 with ORCA, the urban path with ORCA, a mixed Moussaid / power-law /
+ORCA crowd and config #2 with ORCA at N = 50,000.  It counts the kernel
+launches of each path, and checks every step of 50-step rollouts through
+the kernels against the same step through the plain versions from the same
+state.
 
 Run from the repository root, with no arguments:
 
@@ -67,10 +74,13 @@ POS_TOL_M = 1e-3
 CUTOFF_M = 30.0
 CUT_CHECK_N = (10_000, 50_000)
 CUT_N = 50_000
-#: steps of the Moussaid cutoff paths at 10k and 50k (phase 10), and of
-#: config #2 (phase 7): cut from 1,000 to keep the run within its time
-#: limit as later slices add paths
+#: steps of the Moussaid cutoff paths at 10k and 50k (phase 10), of
+#: config #2 (phase 7) and of the urban path's timed runs (phase 13; its
+#: recorded run keeps STEPS): cut from 1,000 to keep the run within its
+#: time limit as later slices add paths
 CUT_STEPS = 200
+#: steps of each main path's warm-up run before its timed runs
+WARMUP_STEPS = 20
 CUT_BIG_N = 1_000_000
 CUT_BIG_STEPS = 200
 SAMPLE_ROWS = 4_096
@@ -94,9 +104,10 @@ ENV_ATOL = ENV_RTOL = 1e-5
 #: BENCH_GROUPS=0.5:4 switches on config #1 (phases 16 and 17)
 FAMILY_SWITCHES = ("powerlaw", "helbing", "mix-moussaid-powerlaw-helbing",
                    "groups-0.5:4")
-#: steps of the family paths that exist to launch the other forms of the
-#: family kernels (dense, dense cutoff, the tables at 50k); the headline
-#: family paths run STEPS
+#: steps of every family path (phase 16): the headline ones (cut from STEPS
+#: to keep the run within its time limit as later slices add paths) and
+#: those that exist to launch the other forms of the family kernels (dense,
+#: dense cutoff, the tables at 50k)
 FAMILY_FORM_STEPS = 200
 
 #: the card's peak rates (NVIDIA H100 SXM data sheet; the f32 rate outside
@@ -127,6 +138,22 @@ PL_GATE_OPS = 16
 PL_TAU_OPS, PL_TAU_MUFU = 4, 2
 PL_FORCE_OPS, PL_FORCE_MUFU = 18, 3
 HB_OPS, HB_MUFU = 50, 5
+#: the ORCA slice per pair (csrc/env_forces.cuh closest_on_segment: the
+#: projection of a pedestrian on a segment, clamp, closest point and squared
+#: distance; csrc/statics.cuh topk_insert: a candidate's compares against
+#: the running list)
+SEG_OPS = 19
+TOPK_OPS = 8
+
+#: the ORCA paths (phases 18-20): bench.py's BENCH_LAW=orca switch with
+#: BENCH_MODE=obstacles, borders or urban and BENCH_ENV_ANALYTIC=1, and
+#: BENCH_MIX=moussaid,powerlaw,orca; the headline path (config #3) runs
+#: STEPS, the others ORCA_FORM_STEPS, the config #2 path at ORCA_BIG_N
+ORCA_FORM_STEPS = 200
+ORCA_BIG_N = 50_000
+#: the urban path's survivor-table width: its 320 analytic border sections
+#: make 5 groups of 64, which the auto width (5) never compacts
+ORCA_URBAN_MAX_SURV = 4
 
 
 def fail(msg: str) -> None:
@@ -634,14 +661,21 @@ class ClockSampler:
                 f"temperature max {max(tmp):.0f} C over {len(clk)} samples")
 
 
-def reset_counts(*modules):
-    for m in modules:
+def kernel_modules():
+    """The port's modules that count kernel launches."""
+    from carla_social_force_model_tpu_torch.ops import (cuda_env, cuda_forces,
+                                                        statics)
+    return cuda_forces, cuda_env, statics
+
+
+def reset_counts():
+    for m in kernel_modules():
         m.reset_launch_counts()
 
 
-def read_counts(*modules):
+def read_counts():
     counts = {}
-    for m in modules:
+    for m in kernel_modules():
         counts.update(m.LAUNCHES)
     return counts
 
@@ -938,34 +972,33 @@ def family_paths(dev, zero, drive, profile_steps, step_ms, launches):
 
     # -- phase 16: main paths, the model families ---------------------------
     # the four bench.py family switches and the power law with the 30 m
-    # cutoff at N = 10k x 1,000 steps; then, at a cut depth, the paths that
-    # launch the other forms (the dense kernels, the cutoff forms of
-    # Helbing and the survivor tables at 50k)
+    # cutoff (profiled); then the paths that launch the other forms (the
+    # dense kernels, the cutoff forms of Helbing and the survivor tables at
+    # 50k); all FAMILY_FORM_STEPS
     cut = dict(interaction_cutoff=CUTOFF_M)
     dense = dict(symmetric_pairs=False)
     fam_paths = [
-        ("powerlaw", "powerlaw", {}, N, STEPS, ("powerlaw_sym",)),
-        ("helbing", "helbing", {}, N, STEPS, ("helbing_dense",)),
+        ("powerlaw", "powerlaw", {}, N, True, ("powerlaw_sym",)),
+        ("helbing", "helbing", {}, N, True, ("helbing_dense",)),
         ("mix-moussaid-powerlaw-helbing", "mix-moussaid-powerlaw-helbing",
-         {}, N, STEPS, ("pair_force_sym", "powerlaw_sym", "helbing_dense")),
-        ("groups-0.5:4", "groups-0.5:4", {}, N, STEPS, ("pair_force_sym",)),
-        (f"powerlaw + {CUTOFF_M:g} m cutoff", "powerlaw", cut, N, STEPS,
+         {}, N, True, ("pair_force_sym", "powerlaw_sym", "helbing_dense")),
+        ("groups-0.5:4", "groups-0.5:4", {}, N, True, ("pair_force_sym",)),
+        (f"powerlaw + {CUTOFF_M:g} m cutoff", "powerlaw", cut, N, True,
          ("powerlaw_sym_cutoff",)),
-        ("powerlaw, dense kernel", "powerlaw", dense, N, FAMILY_FORM_STEPS,
+        ("powerlaw, dense kernel", "powerlaw", dense, N, False,
          ("powerlaw_dense",)),
         (f"powerlaw + {CUTOFF_M:g} m cutoff, dense kernel", "powerlaw",
-         dict(cut, **dense), N, FAMILY_FORM_STEPS,
-         ("powerlaw_dense_cutoff",)),
-        (f"helbing + {CUTOFF_M:g} m cutoff", "helbing", cut, N,
-         FAMILY_FORM_STEPS, ("helbing_dense_cutoff",)),
-        (f"powerlaw + {CUTOFF_M:g} m cutoff", "powerlaw", cut, CUT_N,
-         FAMILY_FORM_STEPS, ("powerlaw_sym_compact",)),
+         dict(cut, **dense), N, False, ("powerlaw_dense_cutoff",)),
+        (f"helbing + {CUTOFF_M:g} m cutoff", "helbing", cut, N, False,
+         ("helbing_dense_cutoff",)),
+        (f"powerlaw + {CUTOFF_M:g} m cutoff", "powerlaw", cut, CUT_N, False,
+         ("powerlaw_sym_compact",)),
         (f"powerlaw + {CUTOFF_M:g} m cutoff, dense kernel", "powerlaw",
-         dict(cut, **dense), CUT_N, FAMILY_FORM_STEPS,
-         ("powerlaw_compact",)),
-        (f"helbing + {CUTOFF_M:g} m cutoff", "helbing", cut, CUT_N,
-         FAMILY_FORM_STEPS, ("helbing_compact",))]
-    for label, switch, kw, n_f, steps, names in fam_paths:
+         dict(cut, **dense), CUT_N, False, ("powerlaw_compact",)),
+        (f"helbing + {CUTOFF_M:g} m cutoff", "helbing", cut, CUT_N, False,
+         ("helbing_compact",))]
+    steps = FAMILY_FORM_STEPS
+    for label, switch, kw, n_f, profiled, names in fam_paths:
         scene, params, cfg, state = benchmark_bundle(n_f, device=dev)
         scene, params = family_scene(scene, params, switch)
         cfg = dataclasses.replace(cfg, **kw)
@@ -975,7 +1008,7 @@ def family_paths(dev, zero, drive, profile_steps, step_ms, launches):
             dict(zero, **dict.fromkeys(names, steps)))
         for name in names:
             launches.setdefault(name, counts[name])
-        if steps == STEPS:
+        if profiled:
             profile_steps(scene, params, cfg, state, step_ms[label], label)
 
     # -- phase 17: the family paths step by step, kernels vs plain -----------
@@ -998,10 +1031,380 @@ def family_paths(dev, zero, drive, profile_steps, step_ms, launches):
         _, rec_plain = stepper.make_rollout_fn(scene, params, plain_cfg(cfg),
                                                PARITY_STEPS)(state)
         torch.cuda.synchronize()
-        reset_counts(cuda_forces, cuda_env)
+        reset_counts()
         check_rollout(label, scene, params, cfg, state, rec_plain,
                       free_limit=False)
         expect_counts(label, zero, **dict.fromkeys(names, PARITY_STEPS))
+
+
+def feed_work(kind, planes, src, k, neigh_dist):
+    """``(bound_ms, bound_by, pairs, kept)`` of one wall-feed launch on
+    these planes: each input read once and each output written once; for
+    every (feature, alive pedestrian) pair within the feature's circle
+    inflated by the neighbour distance (what a spatial index would still
+    have to look at), the projection on a segment or the scan of a chunk's
+    real points, and for every candidate within the neighbour distance its
+    insertion into the running list (``topk`` kinds)."""
+    import torch
+    from carla_social_force_model_tpu_torch.env.pointsets import PAD_COORD
+    from carla_social_force_model_tpu_torch.ops.geometry import (
+        chunk_closest_plain, feature_closest_planes, squared_reach)
+    x, y, alive = planes[0], planes[1], planes[5]
+    n = x.shape[0]
+    seg = kind == "seg_topk"
+    if seg:
+        cx, cy, rad = src.ccx, src.ccy, src.rad
+        per = torch.full_like(cx, SEG_OPS)
+        feat_bytes = 8 * 4 * cx.shape[0]
+    else:
+        cx, cy, rad = src.center_x, src.center_y, src.radius
+        real = (src.x != PAD_COORD).sum(dim=1)
+        per = SCAN_OPS * real.float()
+        feat_bytes = 8 * src.x.numel() + 3 * 4 * cx.shape[0]
+    nd2 = squared_reach(neigh_dist)
+    pairs = kept = 0
+    ops = 0.0
+    for lo in range(0, n, 2048):
+        px, py = x[lo:lo + 2048], y[lo:lo + 2048]
+        dx = cx[:, None] - px[None, :]
+        dy = cy[:, None] - py[None, :]
+        reach = (rad.clamp(min=0.0) + neigh_dist)[:, None]
+        ok = ((dx * dx + dy * dy <= reach * reach) & (rad >= 0)[:, None]
+              & alive[None, lo:lo + 2048])
+        pairs += int(ok.sum())
+        ops += float((ok.float() * per[:, None]).sum())
+        if kind != "chunk_closest":
+            closest = feature_closest_planes if seg else chunk_closest_plain
+            d2 = closest(px, py, src, neigh_dist)[0]
+            kept += int((ok & (d2 <= nd2)).sum())
+    ops += kept * TOPK_OPS
+    out = 3 * 4 * n * (k if kind != "chunk_closest" else cx.shape[0])
+    n_bytes = 9 * n + feat_bytes + out
+    return (*bound(n_bytes, ops, 0), pairs, kept)
+
+
+def orca_kernel_checks(dev, card, urban):
+    """Phase 18: the ORCA slice's kernels against their plain versions at
+    the shapes of its paths.  On config #3 at N = 10,000 (Hilbert-sorted,
+    10% dead, 10% on the road): the analytic border kernel (both radius
+    modes), the segment top-k over the border features and the chunk
+    top-k and chunk scan over the 169 parked cars (k = 3, ORCA's
+    max_statics, and k = 8; the boxes of the alive rows and of every row),
+    bitwise; on the urban crowd, the compacted analytic kernel with the
+    path's table, a fitting one and one slot, bitwise equal to the dense
+    kernel.  Each kernel's device time, its plain version's and its bound
+    from this data.  ``urban``: the urban path's bundle.  Returns
+    ``(worst, results)``."""
+    import torch
+    from orca_cases import (ENV_ATOL, ENV_RTOL, NEIGHBOR_DIST, analytic_run,
+                            feed_mismatch, feed_run, feed_scene)
+    from carla_social_force_model_tpu_torch.env.pointsets import PAD_COORD
+    from carla_social_force_model_tpu_torch.models import stepper
+    from carla_social_force_model_tpu_torch.models.spawn import apply_spawn
+    from carla_social_force_model_tpu_torch.ops import cuda_env, env_grid
+    from carla_social_force_model_tpu_torch.ops.spatial import morton_order
+    worst, results = {}, {}
+    scene, params, planes = feed_scene(N, dev)
+    geom, b = scene.borders_geom, params.border
+    seg, cars = scene.borders_feat.seg, scene.obstacles_feat.rest
+    m_real = int((geom.ax != PAD_COORD).sum())
+    say(f"phase 18 config #3 sets, N={N}: borders {scene.borders.num_segments}"
+        f" sections -> analytic {geom.num_segments} sections x M="
+        f"{geom.max_segments} slots ({m_real} real segments), sampled "
+        f"remainder "
+        + ("none" if scene.borders_seg_rest is None else
+           f"{scene.borders_seg_rest.num_segments} sections")
+        + f"; ORCA feed: borders {seg.num_features} segment features, "
+        + ("no" if scene.borders_feat.rest is None else
+           str(scene.borders_feat.rest.num_chunks))
+        + " chunks; parked cars "
+        + ("no" if scene.obstacles_feat.seg is None else
+           str(scene.obstacles_feat.seg.num_features))
+        + f" segment features, {cars.num_chunks} chunks of "
+        f"{cars.chunk_size} points")
+
+    def env_check(label, name, got, want, alive):
+        err = (got - want).abs()
+        say(f"phase 18 {label}: max abs err {err.max().item():.3e}, max |f| "
+            f"{want.abs().max().item():.3e}, tolerance {ENV_ATOL:g} + "
+            f"{ENV_RTOL:g}*|f|")
+        if not torch.isfinite(got).all():
+            fail(f"{label}: non-finite forces")
+        if bool((err > ENV_ATOL + ENV_RTOL * want.abs()).any()):
+            fail(f"{label}: disagrees with the plain version")
+        if bool((got[:, ~alive] != 0).any()):
+            fail(f"{label}: dead agents' forces are not exactly zero")
+        worst[name] = max(worst.get(name, 0.0), err.max().item())
+
+    for use_radius in (False, True):
+        want = analytic_run(planes, geom, b.a, b.b, use_radius, plain=True)
+        got = analytic_run(planes, geom, b.a, b.b, use_radius)
+        torch.cuda.synchronize()
+        env_check(f"env_exp_analytic config #3 borders use_radius="
+                  f"{use_radius}, N={N}", "env_exp_analytic", got, want,
+                  planes[5])
+
+    nd = NEIGHBOR_DIST
+    feeds = {"seg_topk": seg, "chunk_topk": cars, "chunk_closest": cars}
+    for kind, src in feeds.items():
+        worst[kind] = 0.0
+        for k in ((3, 8) if kind != "chunk_closest" else (0,)):
+            want = feed_run(kind, planes, src, k, plain=True)
+            for use_alive in (True, False):
+                got = feed_run(kind, planes, src, k, use_alive=use_alive)
+                torch.cuda.synchronize()
+                rows = planes[5] if use_alive else torch.ones_like(planes[5])
+                bad = feed_mismatch(kind, got, want, rows)
+                fin = torch.isfinite(want[0][..., rows])
+                err = (got[0][..., rows] - want[0][..., rows])[fin].abs()
+                e = err.max().item() if err.numel() else 0.0
+                say(f"phase 18 {kind} k={k or '-'} N={N} rows "
+                    f"{'alive' if use_alive else 'all'}: {bad} elements "
+                    f"differ from the plain version (d2, points, "
+                    f"selection; bitwise), {int(fin.sum())} finite "
+                    f"entries, max abs d2 err {e:.3e}")
+                if bad:
+                    fail(f"{kind} (k={k}) differs from its plain version")
+                worst[kind] = max(worst[kind], e)
+
+    # the compacted analytic kernel at the urban path's shapes, with the
+    # path's table (ORCA_URBAN_MAX_SURV), a fitting one and one slot
+    uscene, uparams, _, ustate = urban
+    uscene = stepper.prepare_scene(uscene, analytic=True)
+    ust = apply_spawn(ustate, uscene.spawn, 0)
+    perm, _ = morton_order(ust.pos_x, ust.pos_y, ust.alive, "hilbert")
+    uplanes = [a[perm].contiguous() for a in (
+        ust.pos_x, ust.pos_y, ust.vel_x, ust.vel_y, ust.radius, ust.alive)]
+    ugeom = uscene.borders_geom
+    engage, group, ms = env_grid.env_gate(
+        ugeom.num_segments, ugeom.max_segments, True, ORCA_URBAN_MAX_SURV)
+    if not engage:
+        fail("phase 18: the urban analytic borders do not engage the table")
+    r2 = cuda_env.filter_r2(ugeom)
+    x, y, alive = uplanes[0], uplanes[1], uplanes[5]
+    hits = env_grid.group_hits(env_grid.block_boxes(x, y, alive),
+                               ugeom.center_x, ugeom.center_y, r2, group)
+    grids = {f"path ({ms})": env_grid.env_grid(x, y, alive, ugeom, r2, group,
+                                               ms),
+             "fitting": env_grid.env_grid(x, y, alive, ugeom, r2, group,
+                                          max(int(hits.sum(dim=1).max()), 1)),
+             "max_surv=1": env_grid.env_grid(x, y, alive, ugeom, r2, group,
+                                             1)}
+    say(f"phase 18 urban analytic borders: {ugeom.num_segments} sections x "
+        f"M={ugeom.max_segments}, groups of {group}, groups per block mean "
+        f"{hits.sum(dim=1).float().mean().item():.2f}, max "
+        f"{int(hits.sum(dim=1).max())}")
+    ub = uparams.border
+    for use_radius in (False, True):
+        want = analytic_run(uplanes, ugeom, ub.a, ub.b, use_radius,
+                            plain=True)
+        dense = analytic_run(uplanes, ugeom, ub.a, ub.b, use_radius)
+        for label, g in grids.items():
+            got = analytic_run(uplanes, ugeom, ub.a, ub.b, use_radius, grid=g)
+            torch.cuda.synchronize()
+            env_check(f"env_exp_analytic_compact urban table {label} "
+                      f"use_radius={use_radius}, N={N}",
+                      "env_exp_analytic_compact", got, want, alive)
+            if not torch.equal(got, dense):
+                fail(f"env_exp_analytic_compact ({label}) differs from the "
+                     f"dense kernel bitwise")
+    say("phase 18 env_exp_analytic_compact: equal to the dense kernel "
+        "bitwise with every table, both radius modes")
+
+    # times and bounds at the paths' shapes
+    def analytic_bound(pl, g, table):
+        xx, yy, al = pl[0], pl[1], pl[5]
+        from carla_social_force_model_tpu_torch.ops.geometry import (
+            segment_filter_mask)
+        real = (g.ax != PAD_COORD).sum(dim=1)
+        ok = segment_filter_mask(xx, yy, g) & al[None, :] & (real > 0)[:, None]
+        per = ok.sum(dim=1)
+        ops = int((per * (SEG_OPS * real + EXP_TERM_OPS)).sum())
+        mufu = int(per.sum()) * EXP_TERM_MUFU
+        n_bytes = (xx.shape[0] * (4 * 3 + 1 + 8) + 5 * 4 * g.ax.numel()
+                   + 3 * 4 * g.num_segments)
+        if table is not None:
+            n_bytes += 4 * (table.surv.numel() + table.counts.numel())
+        return (*bound(n_bytes, ops, mufu), int(per.sum()))
+
+    timed = (("env_exp_analytic", planes, geom, b, None, "config #3 borders"),
+             ("env_exp_analytic_compact", uplanes, ugeom, ub,
+              grids[f"path ({ms})"], "urban borders"))
+    for name, pl, g, prm, table, what in timed:
+        ms_k = device_ms(lambda: analytic_run(pl, g, prm.a, prm.b,
+                                              grid=table),
+                         "env_force_kernel")
+        plain = cuda_ms(lambda: analytic_run(pl, g, prm.a, prm.b, plain=True),
+                        reps=3)
+        bnd = analytic_bound(pl, g, table)
+        say(f"phase 18 time {name} ({what}, {g.num_segments} x "
+            f"{g.max_segments}), N={N}: kernel {ms_k:.4f} ms on the device, "
+            f"plain {plain:.4f} ms, bound {bnd[0]:.6f} ms ({bnd[1]}; "
+            f"{bnd[2]} in-filter pairs) ({card})")
+        results[name] = dict(ms=ms_k, plain_ms=plain, bound=bnd[:2])
+    for kind, src in feeds.items():
+        k = 3
+        kern = "chunk_closest_kernel" if kind == "chunk_closest" \
+            else "topk_kernel"
+        ms_k = device_ms(lambda: feed_run(kind, planes, src, k), kern)
+        plain = cuda_ms(lambda: feed_run(kind, planes, src, k, plain=True),
+                        reps=3)
+        bnd = feed_work(kind, planes, src, k, nd)
+        say(f"phase 18 time {kind}"
+            + ("" if kind == "chunk_closest" else f" (k={k})")
+            + f", N={N}: kernel {ms_k:.4f} ms on "
+            f"the device, plain {plain:.4f} ms, bound {bnd[0]:.6f} ms "
+            f"({bnd[1]}; {bnd[2]} in-filter pairs, {bnd[3]} within "
+            f"{nd:g} m) ({card})")
+        results[kind] = dict(ms=ms_k, plain_ms=plain, bound=bnd[:2])
+    return worst, results
+
+
+def orca_scene(path, n, steps, dev, urban):
+    """bench.py's ORCA switches (bench.py:111-156, :186-187) applied by
+    hand: ``headline`` BENCH_MODE=obstacles BENCH_LAW=orca
+    BENCH_ENV_ANALYTIC=1 (config #3); ``pure`` BENCH_LAW=orca (config #1);
+    ``urban`` BENCH_MODE=urban BENCH_LAW=orca BENCH_ENV_ANALYTIC=1 with an
+    explicit ``env_max_surv`` (the compacted analytic kernel engages);
+    ``mixed`` BENCH_MIX=moussaid,powerlaw,orca (config #1); ``borders``
+    BENCH_MODE=borders BENCH_LAW=orca BENCH_ENV_ANALYTIC=1 (config #2).
+    ``urban``: the urban path's bundle, built once.  Returns ``(scene,
+    params, cfg, state, expect)``: ``expect`` the launches of a run of
+    ``steps``."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from carla_social_force_model_tpu_torch.api.synthetic import (
+        benchmark_bundle)
+    from carla_social_force_model_tpu_torch.models.spawn import LAW_IDS
+    if path == "urban":
+        scene, params, cfg, state = urban
+    else:
+        scene, params, cfg, state = benchmark_bundle(
+            n, with_borders=path in ("headline", "borders"),
+            with_obstacles=path == "headline", num_steps_hint=steps,
+            device=dev)
+    if path == "mixed":
+        law = np.full(n, -1, np.int32)
+        for fam, chunk in zip(("moussaid", "powerlaw", "orca"),
+                              np.array_split(np.arange(n), 3)):
+            law[chunk] = LAW_IDS[fam]
+        scene = dataclasses.replace(scene, spawn=dataclasses.replace(
+            scene.spawn, law_id=torch.from_numpy(law).to(dev)))
+        params = dataclasses.replace(params, enable_powerlaw=True,
+                                     enable_orca=True)
+        return (scene, params, cfg, state,
+                dict(pair_force_sym=steps, powerlaw_sym=steps))
+    params = dataclasses.replace(params, enable_pedestrian=False,
+                                 enable_orca=True)
+    expect = {
+        "headline": dict(env_exp_analytic=steps, env_moussaid=2 * steps,
+                         seg_topk=steps, chunk_topk=steps),
+        "pure": {},
+        "urban": dict(env_exp_analytic_compact=steps, env_moussaid=steps,
+                      seg_topk=steps),
+        "borders": dict(env_exp_analytic=steps, seg_topk=steps)}[path]
+    if path != "pure":
+        cfg = dataclasses.replace(cfg, env_analytic=True)
+    if path == "urban":
+        cfg = dataclasses.replace(cfg, env_max_surv=ORCA_URBAN_MAX_SURV)
+    return scene, params, cfg, state, expect
+
+
+def orca_paths(dev, zero, drive, profile_steps, step_ms, launches, card,
+               urban):
+    """Phases 19 and 20: the ORCA main paths through ``drive`` (main's
+    warm-up, best of 3 and exact launch counts), the headline one profiled,
+    the urban one recorded (walkers through CHECKING_TRAFFIC and
+    CROSSING_ROAD); then the headline and urban paths step by step through
+    the kernels against the plain versions, the chunk scan (``chunk_closest``,
+    the entry ``geometry.closest_point_per_chunk``) held against its plain
+    version on the parked cars at every step of the headline path."""
+    import torch
+    from carla_social_force_model_tpu_torch.models import modes, stepper
+    from carla_social_force_model_tpu_torch.ops import geometry, statics
+    from carla_social_force_model_tpu_torch.ops.spatial import morton_order
+
+    # -- phase 19: main paths, ORCA ------------------------------------------
+    paths = (("headline", N, STEPS), ("pure", N, ORCA_FORM_STEPS),
+             ("urban", N, ORCA_FORM_STEPS), ("mixed", N, ORCA_FORM_STEPS),
+             ("borders", ORCA_BIG_N, ORCA_FORM_STEPS))
+    labels = {"headline": "config #3 + ORCA + env_analytic",
+              "pure": "config #1 + ORCA",
+              "urban": "urban + ORCA + env_analytic "
+                       f"(env_max_surv {ORCA_URBAN_MAX_SURV})",
+              "mixed": "config #1, mixed moussaid/powerlaw/orca",
+              "borders": "config #2 + ORCA + env_analytic"}
+    for path, n, steps in paths:
+        scene, params, cfg, state, expect = orca_scene(path, n, steps, dev,
+                                                       urban)
+        label = f"phase 19 {labels[path]}, N={n}"
+        counts, step_ms[label] = drive(label, scene, params, cfg, state,
+                                       steps, dict(zero, **expect),
+                                       all_alive=path != "urban")
+        for name in expect:
+            launches.setdefault(name, counts[name])
+        if path == "headline":
+            profile_steps(scene, params, cfg, state, step_ms[label], label)
+        if path == "urban":
+            final, (rec, _) = stepper.make_rollout_fn(scene, params, cfg,
+                                                      steps)(state)
+            torch.cuda.synchronize()
+            alive, mode = rec.alive, rec.mode
+            checking = (((mode == modes.CHECKING_TRAFFIC) & alive).any(dim=0)
+                        | ((mode[:-1] == modes.WALKING_SIDEWALK)
+                           & (mode[1:] == modes.CROSSING_ROAD)
+                           & alive[1:]).any(dim=0))
+            crossing = ((mode == modes.CROSSING_ROAD) & alive).any(dim=0)
+            say(f"{label} record, {steps} steps: pedestrians that reached "
+                f"CHECKING_TRAFFIC {int(checking.sum())}, CROSSING_ROAD "
+                f"{int(crossing.sum())} (their wall constraints off while "
+                f"on the road); alive at the end {int(final.alive.sum())} "
+                f"({card})")
+            if int(crossing.sum()) == 0:
+                fail(f"{label}: no pedestrian crossed the road")
+
+    # -- phase 20: the ORCA paths step by step, kernels vs plain -------------
+    for path in ("headline", "urban"):
+        scene, params, cfg, state, expect = orca_scene(path, N, PARITY_STEPS,
+                                                       dev, urban)
+        label = f"phase 20 {labels[path]}"
+        out = stepper.make_rollout_fn(scene, params, plain_cfg(cfg),
+                                      PARITY_STEPS)(state)
+        rec_plain = out[1][0] if path == "urban" else out[1]
+        torch.cuda.synchronize()
+        reset_counts()
+        check_rollout(label, scene, params, cfg, state, rec_plain,
+                      free_limit=False)
+        expect_counts(label, zero, **expect)
+    # the chunk scan through its entry, at every step of the headline path
+    scene, params, cfg, state, _ = orca_scene("headline", N, PARITY_STEPS,
+                                              dev, urban)
+    scene = stepper.prepare_scene(scene, analytic=True, orca=True)
+    cars = scene.obstacles_feat.rest
+    nd = params.orca.neighbor_dist
+    s, calls = state, 0
+    for k in range(PARITY_STEPS):
+        s, _ = stepper.simulation_step(s, scene, params, cfg, k)
+        perm, _ = morton_order(s.pos_x, s.pos_y, s.alive, "hilbert")
+        x, y, alive = (a[perm].contiguous() for a in (s.pos_x, s.pos_y,
+                                                      s.alive))
+        before = statics.LAUNCHES["chunk_closest"]
+        got = torch.stack(geometry.closest_point_per_chunk(x, y, cars, nd,
+                                                           alive))
+        calls += statics.LAUNCHES["chunk_closest"] - before
+        want = torch.stack(geometry.chunk_closest_plain(x, y, cars, nd))
+        fin = torch.isfinite(want[0][:, alive])
+        bad = int(((got[0] != want[0])[:, alive]).sum()
+                  + ((got[1:] != want[1:])[:, :, alive] & fin).sum())
+        if bad:
+            fail(f"phase 20 closest_point_per_chunk step {k}: {bad} "
+                 f"elements differ from the plain version")
+    launches["chunk_closest"] = calls
+    say(f"phase 20 closest_point_per_chunk (the chunk_closest kernel) on the "
+        f"parked cars at each of the {PARITY_STEPS} steps of the headline "
+        f"path: {calls} launches, equal to the plain version bitwise on the "
+        f"alive rows")
 
 
 def main() -> None:
@@ -1136,21 +1539,25 @@ def main() -> None:
 
     def drive(label, scene, params, cfg, state, steps, expect,
               all_alive=True):
-        """One main path: a warm-up run, then best of 3 timed runs, each
-        with every count set to 0 just before and read just after; the
-        counts must equal ``expect`` (per run) exactly.  Every position
-        ends finite, and with ``all_alive`` every agent alive."""
+        """One main path: a warm-up run of WARMUP_STEPS (every kernel and
+        the allocator's pools warm), then best of 3 timed runs, each with
+        every count set to 0 just before and read just after; the counts
+        must equal ``expect`` (per run) exactly.  Every position ends
+        finite, and with ``all_alive`` every agent alive."""
+        scene = stepper.prepare_scene(scene, analytic=cfg.env_analytic,
+                                      orca=params.enable_orca)
         run = stepper.make_rollout_fn(scene, params, cfg, steps, record=False)
-        run(state)
+        stepper.make_rollout_fn(scene, params, cfg, min(steps, WARMUP_STEPS),
+                                record=False)(state)
         torch.cuda.synchronize()
         best = float("inf")
         for _ in range(3):
-            reset_counts(cuda_forces, cuda_env)
+            reset_counts()
             t0 = time.perf_counter()
             final, _ = run(state)
             torch.cuda.synchronize()
             best = min(best, time.perf_counter() - t0)
-            counts = read_counts(cuda_forces, cuda_env)
+            counts = read_counts()
             if counts != expect:
                 fail(f"{label} launched {counts}, expected {expect}")
         n, n_alive = state.capacity, int(final.alive.sum())
@@ -1198,7 +1605,7 @@ def main() -> None:
 
     # -- phase 4: main path, config #1 (the pair kernels) -------------------
     scene, params, cfg, state = benchmark_bundle(N, device=dev)
-    zero = {k: 0 for k in read_counts(cuda_forces, cuda_env)}
+    zero = {k: 0 for k in read_counts()}
     step_ms = {}
     for name, symmetric in (("pair_force_sym", True),
                             ("pair_force_dense", False)):
@@ -1402,12 +1809,12 @@ def main() -> None:
             _, rec_plain = stepper.make_rollout_fn(
                 scene, params, plain_cfg(kcfg), PARITY_STEPS)(state)
             torch.cuda.synchronize()
-            reset_counts(cuda_forces, cuda_env)
+            reset_counts()
             check_rollout(f"phase 11 {label} + {CUTOFF_M:g} m cutoff via "
                           f"{name} (max_surv {FORCED_MAX_SURV})", scene,
                           params, kcfg, state, rec_plain,
                           free_limit=label == "config #1")
-            counts = read_counts(cuda_forces, cuda_env)
+            counts = read_counts()
             if counts[name] != PARITY_STEPS:
                 fail(f"phase 11 {label}: {name} launched {counts[name]} "
                      f"times in {PARITY_STEPS} steps")
@@ -1419,13 +1826,14 @@ def main() -> None:
 
     # -- phase 13: the urban main path (BASELINE config #4) ------------------
     from carla_social_force_model_tpu_torch.api.synthetic import urban_bundle
-    scene, params, cfg, state = urban_bundle(N, num_steps_hint=STEPS,
-                                             device=dev)
+    scene, params, cfg, state = urban = urban_bundle(
+        N, num_steps_hint=STEPS, device=dev)
     urban_record_checks(scene, params, cfg, state, card)
     counts, step_ms["urban"] = drive(
         "phase 13 urban (BASELINE config #4)", scene, params, cfg, state,
-        STEPS, dict(zero, pair_force_sym=STEPS, env_exp_compact=STEPS,
-                    env_moussaid=STEPS), all_alive=False)
+        CUT_STEPS, dict(zero, pair_force_sym=CUT_STEPS,
+                        env_exp_compact=CUT_STEPS, env_moussaid=CUT_STEPS),
+        all_alive=False)
     launches["env_exp_compact"] = counts["env_exp_compact"]
     profile_steps(scene, params, cfg, state, step_ms["urban"],
                   "phase 13 urban")
@@ -1436,7 +1844,7 @@ def main() -> None:
         scene, params, plain_cfg(cfg), PARITY_STEPS)(state)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
-    reset_counts(cuda_forces, cuda_env)
+    reset_counts()
     check_rollout("phase 14 urban", scene, params, cfg, state, rec_plain,
                   free_limit=False)
     expect_counts("phase 14 urban", zero, pair_force_sym=PARITY_STEPS,
@@ -1458,7 +1866,7 @@ def main() -> None:
     _, rec_plain = stepper.make_rollout_fn(scene, params, plain_cfg(cfg),
                                            PARITY_STEPS)(state)
     torch.cuda.synchronize()
-    reset_counts(cuda_forces, cuda_env)
+    reset_counts()
     check_rollout("phase 14 config #3 + env_compact", scene, params, cfg,
                   state, rec_plain, free_limit=False)
     expect_counts("phase 14 config #3 + env_compact", zero,
@@ -1473,6 +1881,15 @@ def main() -> None:
 
     # -- phases 16 and 17: the family main paths, then step by step ---------
     family_paths(dev, zero, drive, profile_steps, step_ms, launches)
+
+    # -- phase 18: the ORCA slice's kernels against their plain versions ----
+    orca_worst, orc = orca_kernel_checks(dev, card, urban)
+    worst.update(orca_worst)
+    torch.cuda.synchronize()
+
+    # -- phases 19 and 20: the ORCA main paths, then step by step -----------
+    orca_paths(dev, zero, drive, profile_steps, step_ms, launches, card,
+               urban)
 
     csrc = "carla_social_force_model_tpu_torch/csrc/"
     table = [
@@ -1509,6 +1926,15 @@ def main() -> None:
            + ("462" if law == "powerlaw" else "528"),
            fam[name]["ms"], fam[name]["plain_ms"], fam[name]["bound"])
           for name, (law, _, _) in FAMILY_FORMS.items()),
+        *((name, csrc + source, "carla_social_force_model_tpu/ops/" + line,
+           orc[name]["ms"], orc[name]["plain_ms"], orc[name]["bound"])
+          for name, source, line in (
+              ("env_exp_analytic", "env_forces.cu", "pallas_env.py:235"),
+              ("env_exp_analytic_compact", "env_forces.cu",
+               "pallas_env.py:297"),
+              ("seg_topk", "statics.cu", "pallas_statics.py:111"),
+              ("chunk_topk", "statics.cu", "pallas_statics.py:137"),
+              ("chunk_closest", "statics.cu", "geometry.py:214"))),
     ]
     for name, *_ in table:
         if launches[name] == 0:
@@ -1529,7 +1955,7 @@ def expect_counts(label, zero, **expect):
     """Fail unless the launch counts since the last reset are ``expect``
     exactly (every other kernel 0)."""
     from carla_social_force_model_tpu_torch.ops import cuda_env, cuda_forces
-    counts = read_counts(cuda_forces, cuda_env)
+    counts = read_counts()
     if counts != dict(zero, **expect):
         fail(f"{label} launched {counts}, expected {dict(zero, **expect)}")
     say(f"{label}: launches {counts}")
@@ -1777,7 +2203,8 @@ def check_rollout(label, scene, params, cfg, state, rec_plain, free_limit):
     to POS_TOL_M with equal modes and alive masks."""
     import torch
     from carla_social_force_model_tpu_torch.models import stepper
-    scene = stepper.prepare_scene(scene)
+    scene = stepper.prepare_scene(scene, analytic=cfg.env_analytic,
+                                  orca=params.enable_orca)
     ref_cfg = plain_cfg(cfg)
     fleet = scene.autopilot
     ap = fleet.initial_state() if fleet is not None else None

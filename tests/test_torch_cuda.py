@@ -1,8 +1,9 @@
 """PyTorch port on an NVIDIA card: the CUDA pair-force and environment-force
 kernels (with the cutoff forms of the pair kernels, their power-law and
-Helbing forms, and the compacted forms of the environment kernels) against
+Helbing forms, the compacted forms of the environment kernels and the
+analytic form of the border kernel) and the ORCA wall-feed kernels against
 their plain PyTorch versions, and the rollouts through them (the urban
-slice's and the model families' too).
+slice's, the model families' and the ORCA slice's too).
 
 Every test here needs a card and skips without one.  This file imports
 neither JAX nor the JAX package, so on a machine with a card and no JAX it
@@ -26,6 +27,8 @@ from carla_social_force_model_tpu_torch.ops import (cuda_env, cuda_forces,
                                                     pair_grid)
 from carla_social_force_model_tpu_torch.ops.spatial import morton_order
 from family_cases import family_planes, family_reference, family_run
+from orca_cases import (ENV_ATOL, ENV_RTOL, analytic_run, feed_mismatch,
+                        feed_run, feed_scene)
 
 pytestmark = pytest.mark.cuda
 
@@ -600,3 +603,129 @@ def test_family_steps_through_kernels_match_plain_steps(cuda_device, switch,
         switch, {f"pair_force_{form}": 20, f"powerlaw_{form}": 20,
                  f"helbing_{dense}": 20})
     assert launched == expect
+
+
+# -- the ORCA slice: the analytic border kernel and the wall feed ---------------
+
+@pytest.mark.parametrize("use_radius", [False, True])
+@pytest.mark.parametrize("n", [1, 130, 3000])
+def test_analytic_env_kernel_matches_plain_and_dense(cuda_device, n,
+                                                     use_radius):
+    """The analytic border kernel on config #3's borders (Hilbert-sorted,
+    10% dead) against its plain version, and its compacted form with the
+    auto table, a fitting one and one slot equal to it bitwise."""
+    scene, params, planes = feed_scene(n, cuda_device)
+    geom, b = scene.borders_geom, params.border
+    want = analytic_run(planes, geom, b.a, b.b, use_radius, plain=True)
+    dense = analytic_run(planes, geom, b.a, b.b, use_radius)
+    torch.cuda.synchronize()
+    assert torch.isfinite(dense).all()
+    assert bool((dense[:, ~planes[5]] == 0).all())
+    assert bool(((dense - want).abs() <= ENV_ATOL + ENV_RTOL * want.abs())
+                .all())
+    r2 = cuda_env.filter_r2(geom)
+    _, group, ms = env_grid.env_gate(geom.num_segments, geom.max_segments,
+                                     True, 0)
+    x, y, alive = planes[0], planes[1], planes[5]
+    hits = env_grid.group_hits(env_grid.block_boxes(x, y, alive),
+                               geom.center_x, geom.center_y, r2, group)
+    for width in (ms, max(int(hits.sum(dim=1).max()), 1), 1):
+        grid = env_grid.env_grid(x, y, alive, geom, r2, group, width)
+        got = analytic_run(planes, geom, b.a, b.b, use_radius, grid=grid)
+        torch.cuda.synchronize()
+        assert torch.equal(got, dense), width
+
+
+@pytest.mark.parametrize("use_alive", [True, False])
+@pytest.mark.parametrize("k", [1, 3, 8])
+@pytest.mark.parametrize("kind", ["seg_topk", "chunk_topk",
+                                  "chunk_closest"])
+def test_feed_kernels_match_plain_version_bitwise(cuda_device, kind, k,
+                                                  use_alive):
+    """Each wall-feed kernel on config #3's sets at N = 3,000 (the border
+    segment features, the parked cars' chunks) against its plain version:
+    d2, the points and the selection equal bitwise on every row its boxes
+    hold (the alive rows with ``alive``, else all)."""
+    if kind == "chunk_closest" and k != 1:
+        pytest.skip("chunk_closest keeps every chunk (no k)")
+    scene, _, planes = feed_scene(3000, cuda_device)
+    src = (scene.borders_feat.seg if kind == "seg_topk"
+           else scene.obstacles_feat.rest)
+    got = feed_run(kind, planes, src, k, use_alive=use_alive)
+    want = feed_run(kind, planes, src, k, plain=True)
+    torch.cuda.synchronize()
+    rows = planes[5] if use_alive else torch.ones_like(planes[5])
+    assert feed_mismatch(kind, got, want, rows) == 0
+    assert bool(torch.isfinite(want[0][..., planes[5]]).any())
+
+
+@pytest.mark.parametrize("k", [2, 8])
+def test_feed_kernels_keep_tie_order(cuda_device, k):
+    """Every feature twice (exact ties in d2 and the point): the kernels
+    keep the lower index first among equals, as k_smallest_features does,
+    so the selection equals the plain version's bitwise."""
+    from carla_social_force_model_tpu_torch.env.pointsets import (
+        ChunkFeatures, SegmentFeatures)
+    scene, _, planes = feed_scene(1000, cuda_device)
+    seg, cars = scene.borders_feat.seg, scene.obstacles_feat.rest
+    twice = lambda src, cls: cls(*(torch.cat([getattr(src, f.name)] * 2)
+                                   for f in dataclasses.fields(cls)))
+    for kind, src in (("seg_topk", twice(seg, SegmentFeatures)),
+                      ("chunk_topk", twice(cars, ChunkFeatures))):
+        got = feed_run(kind, planes, src, k)
+        want = feed_run(kind, planes, src, k, plain=True)
+        torch.cuda.synchronize()
+        assert feed_mismatch(kind, got, want, planes[5]) == 0, kind
+
+
+def test_feed_launch_counts_and_checks(cuda_device):
+    from carla_social_force_model_tpu_torch.ops import geometry, statics
+    scene, _, planes = feed_scene(500, cuda_device)
+    seg, rest = scene.borders_feat.seg, scene.obstacles_feat.rest
+    x, y, alive = planes[0], planes[1], planes[5]
+    statics.reset_launch_counts()
+    statics.nearest_features_topk(x, y, seg, 3, 15.0, alive)
+    statics.nearest_features_topk(x, y, rest, 3, 15.0, alive)
+    geometry.closest_point_per_chunk(x, y, rest, 15.0, alive)
+    assert statics.LAUNCHES == {"seg_topk": 1, "chunk_topk": 1,
+                                "chunk_closest": 1}
+    with pytest.raises(ValueError, match="k must be"):
+        statics.seg_topk(x, y, seg, 9, 15.0)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        statics.seg_topk(x[::2], y[::2], seg, 3, 15.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        statics.chunk_topk(x.cpu(), y.cpu(), rest, 3, 15.0)
+    assert statics.LAUNCHES["seg_topk"] == 1
+
+
+def test_orca_steps_through_kernels_match_plain_steps(cuda_device):
+    """Config #3 with ORCA and the analytic tier at N = 2,000 (window 64 <
+    N): twenty steps through the kernels, each against the same step
+    through the plain versions from the kernels' own state: positions
+    within 1e-4 m, modes and alive equal; and the launches of the path."""
+    from carla_social_force_model_tpu_torch.ops import statics
+    scene, params, cfg, state = benchmark_bundle(
+        2000, with_borders=True, with_obstacles=True, num_steps_hint=20,
+        device=cuda_device)
+    params = dataclasses.replace(params, enable_pedestrian=False,
+                                 enable_orca=True)
+    cfg = dataclasses.replace(cfg, env_analytic=True)
+    ref_cfg = dataclasses.replace(cfg, plain_pair_force=True,
+                                  plain_env_force=True)
+    scene = stepper.prepare_scene(scene, analytic=True, orca=True)
+    for m in (cuda_forces, cuda_env, statics):
+        m.reset_launch_counts()
+    s = state
+    for k in range(20):
+        nxt, _ = stepper.simulation_step(s, scene, params, cfg, k)
+        ref, _ = stepper.simulation_step(s, scene, params, ref_cfg, k)
+        assert torch.equal(nxt.alive, ref.alive)
+        assert torch.equal(nxt.mode, ref.mode)
+        err = max((nxt.pos_x - ref.pos_x).abs().max().item(),
+                  (nxt.pos_y - ref.pos_y).abs().max().item())
+        assert err <= 1e-4, (k, err)
+        s = nxt
+    launched = {k: v for m in (cuda_forces, cuda_env, statics)
+                for k, v in m.LAUNCHES.items() if v}
+    assert launched == {"env_exp_analytic": 20, "env_moussaid": 40,
+                        "seg_topk": 20, "chunk_topk": 20}

@@ -542,8 +542,9 @@ def test_fused_environment_terms_equal_the_plain_versions():
     cuda_env.reset_launch_counts()
     fused = cuda_env.fused_environment_terms(state, scene, params, snap)
     assert cuda_env.LAUNCHES == dict.fromkeys(cuda_env.LAUNCHES, 0)
-    assert sorted(cuda_env.LAUNCHES) == ["env_exp", "env_exp_compact",
-                                         "env_moussaid",
+    assert sorted(cuda_env.LAUNCHES) == ["env_exp", "env_exp_analytic",
+                                         "env_exp_analytic_compact",
+                                         "env_exp_compact", "env_moussaid",
                                          "env_moussaid_compact"]
     plain = stepper.force_terms(
         state, scene, params, stepper.StepConfig(plain_env_force=True), snap)
@@ -555,14 +556,6 @@ def test_fused_environment_terms_equal_the_plain_versions():
         assert bool((fx[~state.alive] == 0).all())
     assert bool(fused["border_force"][0].abs().sum() > 0)
     assert bool(fused["dynamic_obstacle_force"][0].abs().sum() > 0)
-
-
-@pytest.mark.parametrize("form", ["analytic"])
-def test_unported_environment_forms_raise(form):
-    scene, params, state = env_scene(n=16)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        cuda_env.fused_environment_terms(state, scene, params, None,
-                                         **{form: True})
 
 
 def test_force_terms_need_a_prepared_scene():
@@ -667,13 +660,3 @@ def test_converted_environment_scene_matches_jax_step_by_step():
     assert_records_match(jrec, prec)
     seen = set(np.unique(prec.mode.numpy()[prec.alive.numpy()]).tolist())
     assert {jmodes.CHECKING_TRAFFIC, modes.CROSSING_ROAD} <= seen
-
-
-@pytest.mark.parametrize("field", ["env_analytic"])
-def test_conversion_refuses_unported_environment_forms(field):
-    jcfg = jstepper.StepConfig(dt=DT, **{field: True})
-    with pytest.raises(NotImplementedError, match="not ported"):
-        convert.step_config_from_fields(fields_of(jcfg))
-    got = convert.step_config_from_fields(fields_of(
-        jstepper.StepConfig(dt=DT, use_pallas_env=False)))
-    assert not got.env_compact and not got.env_analytic

@@ -570,11 +570,8 @@ def test_cutoff_step_sorts_once_for_every_family(monkeypatch):
     np.testing.assert_allclose(rec.pos.numpy(), want.pos.numpy(), atol=1e-5)
 
 
-def test_check_supported_refuses_orca_and_foreign_groups():
+def test_check_supported_refuses_foreign_groups():
     ps, pp, pc, pst = benchmark_bundle(8, extent=5.0, device=CPU)
-    with pytest.raises(NotImplementedError, match="ORCA"):
-        stepper.simulation_step(pst, ps, dataclasses.replace(
-            pp, enable_orca=True), pc, 0)
     with pytest.raises(TypeError, match="GroupSet"):
         stepper.simulation_step(
             pst, dataclasses.replace(ps, groups={"member_slot": np.zeros(

@@ -98,8 +98,9 @@ def test_kernel_sources_are_packaged():
     srcs = [p.name for p in
             importlib.import_module(
                 "carla_social_force_model_tpu_torch.utils.cuda_build").sources()]
-    assert srcs == ["env_forces.cu", "pair_forces.cu", "env_forces.cuh",
-                    "pair_forces.cuh"]
+    assert srcs == ["env_forces.cu", "pair_forces.cu", "statics.cu",
+                    "block_box.cuh", "env_forces.cuh", "pair_forces.cuh",
+                    "statics.cuh"]
     pyproject = (ROOT / "pyproject.toml").read_text()
     assert "csrc/*.cu" in pyproject and "csrc/*.cuh" in pyproject
 
@@ -164,7 +165,7 @@ def _entry_points():
     from carla_social_force_model_tpu_torch.env.borders import (
         build_border_set)
     from carla_social_force_model_tpu_torch.env.pointsets import (
-        segment_major)
+        analytic_split, build_static_features, segment_major)
     from carla_social_force_model_tpu_torch.models import (autopilot, groups,
                                                            routes, vehicles)
     import numpy as np
@@ -184,6 +185,8 @@ def _entry_points():
         "build_vehicle_states": (vehicles.build_vehicle_states,
                                  ([spec], 0.05, 5)),
         "segment_major": (segment_major, (borders,)),
+        "analytic_split": (analytic_split, (borders,)),
+        "build_static_features": (build_static_features, (borders,)),
         "urban_bundle": (synthetic.urban_bundle,
                          (8,), dict(num_steps_hint=4, n_routes=2, n_roads=2,
                                     width=100.0, cross_spacing=40.0)),
@@ -196,7 +199,8 @@ def _entry_points():
 @pytest.mark.parametrize("name", ["synthetic_crowd", "benchmark_bundle",
                                   "synthetic_vehicles", "PedState.empty",
                                   "build_route_buffer", "build_vehicle_states",
-                                  "segment_major", "urban_bundle",
+                                  "segment_major", "analytic_split",
+                                  "build_static_features", "urban_bundle",
                                   "build_autopilot_fleet", "build_groups"])
 def test_entry_points_default_to_the_card(name, monkeypatch):
     """Every entry point that takes a device defaults to CUDA: without a

@@ -251,25 +251,6 @@ def test_rollout_leaves_the_initial_state_untouched():
         assert torch.equal(getattr(pst, name), t), name
 
 
-UNPORTED = {
-    "env_analytic": (dict(), dict(), dict(env_analytic=True)),
-    "orca": (dict(), dict(enable_orca=True), dict()),
-}
-
-
-@pytest.mark.parametrize("feature", sorted(UNPORTED))
-def test_unported_terms_raise(feature):
-    scene_kw, params_kw, cfg_kw = UNPORTED[feature]
-    ps, pp, pc, pst = benchmark_bundle(8, extent=5.0, device="cpu")
-    scene = dataclasses.replace(ps, **scene_kw)
-    params = dataclasses.replace(pp, **params_kw)
-    cfg = dataclasses.replace(pc, **cfg_kw)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        stepper.make_rollout_fn(scene, params, cfg, 2)(pst)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        stepper.simulation_step(pst, scene, params, cfg, 0)
-
-
 def test_pair_scale_and_law_id_raise():
     """Per-agent ``pair_scale``/``law_id`` columns step when they are
     (N,) float32 / int32 tensors, and raise when they are of another shape
