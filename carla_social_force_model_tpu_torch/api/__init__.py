@@ -1,1 +1,2 @@
-"""User-facing API: synthetic benchmark crowds."""
+"""User-facing API: synthetic benchmark crowds, scenarios, the simulation
+and the command line."""

@@ -71,29 +71,40 @@ struct MoussaidPrm {
 // Force on the pedestrian from its partner.  (dx, dy) = x_partner - x_ped,
 // (dvx, dvy) = v_ped - v_partner, rsub = radii to subtract (0 when radii are
 // off), ok_in = liveness and pair mask.
+//
+// sign(theta) is a hard gate: at the branch cut of the atan2 (t_hat
+// anti-parallel to e, cross ~ 0 with dot < 0) the tangential term flips with
+// the sign of cross, a jump of up to 2A.  Pairs sit exactly there when two
+// agents spawn on the same point and walk apart (e = -dv_hat up to
+// rounding), so every value up to cross and dot is rounded per operation
+// (no FMA contraction) with the reciprocal root PyTorch's rsqrt uses on the
+// card: cross and dot are then the plain version's bitwise, and both take
+// the same side of the cut.
 SFM_HD void moussaid_pair(float dx, float dy, float dvx, float dvy, float rsub,
                           bool ok_in, const MoussaidPrm& p, float& fx,
                           float& fy) {
-  const float d2 = dx * dx + dy * dy;
+  const float d2 = sq_norm_rn(dx, dy);
   const float r = SFM_RSQRT(d2 == 0.0f ? 1.0f : d2);
-  const float ex = dx * r;  // zero-safe unit vector toward the partner
-  const float ey = dy * r;
-  const float d = d2 * r - rsub;
+  const float ex = SFM_MUL_RN(dx, r);  // zero-safe unit vector to the partner
+  const float ey = SFM_MUL_RN(dy, r);
+  const float d = SFM_SUB_RN(SFM_MUL_RN(d2, r), rsub);
 
-  const float tx = p.lam * dvx + ex;
-  const float ty = p.lam * dvy + ey;
-  const float t2 = tx * tx + ty * ty;
+  const float tx = SFM_ADD_RN(SFM_MUL_RN(p.lam, dvx), ex);
+  const float ty = SFM_ADD_RN(SFM_MUL_RN(p.lam, dvy), ey);
+  const float t2 = sq_norm_rn(tx, ty);
   const float rt = SFM_RSQRT(t2 == 0.0f ? 1.0f : t2);
-  const float thx = tx * rt;
-  const float thy = ty * rt;
-  const float t_len = t2 * rt;
+  const float thx = SFM_MUL_RN(tx, rt);
+  const float thy = SFM_MUL_RN(ty, rt);
+  const float t_len = SFM_MUL_RN(t2, rt);
 
-  const float B = p.gamma * t_len;
+  const float B = SFM_MUL_RN(p.gamma, t_len);
   const bool ok = ok_in && (B > 0.0f) && (d2 > 0.0f);
 
   // signed angle from t_hat to e as one atan2 of (cross, dot)
-  const float cross = ok ? thx * ey - thy * ex : 0.0f;
-  const float dot = ok ? ex * thx + ey * thy : 1.0f;
+  const float cross =
+      ok ? SFM_SUB_RN(SFM_MUL_RN(thx, ey), SFM_MUL_RN(thy, ex)) : 0.0f;
+  const float dot =
+      ok ? SFM_ADD_RN(SFM_MUL_RN(ex, thx), SFM_MUL_RN(ey, thy)) : 1.0f;
   const float theta = atan2f(cross, dot) + B * (-p.eps);
   const float common = -d / (ok ? B : 1.0f);
   const float Bt = B * theta;

@@ -1,7 +1,8 @@
-// ORCA wall-feed kernels for Hopper (sm_90a), with a plain C interface for
-// ctypes (utils/cuda_build.py builds this file, ops/statics.py binds it).
-// Their plain PyTorch versions are ops/geometry.py feature_closest_planes,
-// closest_point_per_chunk and k_smallest_features.
+// ORCA wall-feed kernels and the chunk scan of the chunked environment
+// forces for Hopper (sm_90a), with a plain C interface for ctypes
+// (utils/cuda_build.py builds this file, ops/statics.py binds it).  Their
+// plain PyTorch versions are ops/geometry.py feature_closest_planes,
+// closest_point_per_chunk, k_smallest_features and chunk_argmin_plain.
 //
 // What each function replaces (JAX package):
 //   topk_kernel<kSegments> ("seg_topk")  <- ops/pallas_statics.py
@@ -17,6 +18,13 @@
 //   chunk_closest_kernel ("chunk_closest")  <- ops/geometry.py _cpc_kernel
 //       (:214): every chunk's closest point as three (C, N) planes, the chunk
 //       scan of chunk_topk without the merge.
+//   chunk_argmin_kernel ("chunk_argmin")  <- ops/geometry.py _cp_kernel
+//       (:117, pallas_call :181): for every (128-point chunk, pedestrian)
+//       the minimum squared distance over the chunk's points and the flat
+//       index of the first point that reaches it, as (C, N) f32 and i32
+//       planes; no filter and no skip.  The segmented minimum over each
+//       segment's chunks stays in PyTorch (ops/geometry.py
+//       closest_point_per_segment), as it stayed in jnp.
 //
 // What bounds them on this card.  Per (feature, pedestrian) pair that
 // survives the block skip: a projection (about 15 flops) or a scan of the
@@ -45,6 +53,16 @@
 // never enters (it would carry kPadDist2, which no slot is above).  The
 // distances are rounded per operation as the plain versions compute them,
 // so kernel and plain version pick the same features and points bitwise.
+//
+// chunk_argmin scans every (point, pedestrian) pair: about 8 operations
+// each, 2e8 pairs at the Town02 crowd's shape (2e4 padded points, 1e4
+// pedestrians), 25 us at the card's f32 rate, against 12 MB of (C, N)
+// output, 4 us at its memory rate: bound by the operations.  Its grid is
+// (pedestrian blocks of 128, groups of kArgminChunks chunks), so that a
+// crowd of 10,000 still fills the card with blocks; each block stages one
+// chunk's points in shared memory at a time and each thread scans them for
+// its pedestrian with a strict <, every squared distance rounded per
+// operation, so that dmin and idx equal the plain version's bitwise.
 //
 // Where the TPU design does not carry over.  The TPU kept the running list
 // in the revisited (8, ped tile) output block over a sequential feature grid
@@ -213,6 +231,54 @@ chunk_closest_kernel(const float* __restrict__ px_,
   }
 }
 
+// Every (chunk, pedestrian)'s minimum squared distance over the chunk's kk
+// points of the staged planes fx, fy ((c, kk), PAD_COORD in invalid slots)
+// and the flat index chunk * kk + j of the first point that reaches it.
+// Grid: (pedestrian blocks, groups of kArgminChunks chunks).
+constexpr int kArgminChunks = 8;
+
+__global__ void __launch_bounds__(kPeds)
+chunk_argmin_kernel(const float* __restrict__ px_,
+                    const float* __restrict__ py_,
+                    const float* __restrict__ fx,
+                    const float* __restrict__ fy, int c, int kk, int n,
+                    float* __restrict__ out_d2, int* __restrict__ out_idx) {
+  __shared__ float sx[kTile], sy[kTile];
+  const int i = blockIdx.x * kPeds + threadIdx.x;
+  const bool in = i < n;
+  const float px = in ? px_[i] : 0.0f;
+  const float py = in ? py_[i] : 0.0f;
+  const int c0 = blockIdx.y * kArgminChunks;
+  const int c1 = min(c0 + kArgminChunks, c);
+  for (int ch = c0; ch < c1; ++ch) {
+    const size_t row = (size_t)ch * kk;
+    float best = INFINITY;
+    int arg = 0;
+    for (int p0 = 0; p0 < kk; p0 += kTile) {
+      __syncthreads();  // the previous piece is consumed
+      const int j = p0 + threadIdx.x;
+      sx[threadIdx.x] = j < kk ? fx[row + j] : kPadCoord;
+      sy[threadIdx.x] = j < kk ? fy[row + j] : kPadCoord;
+      __syncthreads();
+      if (in) {
+        const int cnt = min(kTile, kk - p0);
+#pragma unroll 4
+        for (int t = 0; t < cnt; ++t) {
+          const float d2 = sq_norm_rn(sx[t] - px, sy[t] - py);
+          if (d2 < best) {  // strict: the first of equal distances
+            best = d2;
+            arg = p0 + t;
+          }
+        }
+      }
+    }
+    if (in) {
+      out_d2[(size_t)ch * n + i] = best;
+      out_idx[(size_t)ch * n + i] = (int)(row + arg);
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -261,6 +327,19 @@ int sfm_chunk_closest(const float* px, const float* py, const uint8_t* alive,
   const int blocks = (n + kPeds - 1) / kPeds;
   chunk_closest_kernel<<<blocks, kPeds, 0, (cudaStream_t)stream>>>(
       px, py, alive, x, y, c, kk, cx, cy, rad, nd, nd2, n, d2, wx, wy);
+  return (int)cudaGetLastError();
+}
+
+// fx, fy (c, kk) staged chunk planes (PAD_COORD in invalid slots); d2 (c, n)
+// f32 and idx (c, n) i32 outputs.
+int sfm_chunk_argmin(const float* px, const float* py, const float* fx,
+                     const float* fy, int c, int kk, int n, float* d2,
+                     int* idx, void* stream) {
+  if (n <= 0 || c <= 0) return (int)cudaSuccess;
+  const dim3 grid((n + kPeds - 1) / kPeds,
+                  (c + kArgminChunks - 1) / kArgminChunks);
+  chunk_argmin_kernel<<<grid, kPeds, 0, (cudaStream_t)stream>>>(
+      px, py, fx, fy, c, kk, n, d2, idx);
   return (int)cudaGetLastError();
 }
 

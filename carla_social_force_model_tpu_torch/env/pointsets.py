@@ -14,7 +14,9 @@ point (forces.py:145-155, :217-229).  Two layouts carry them here:
   segment, as x and y planes on the device.  Within a row the
   first-occurrence argmin is the reference's ``np.argmin``.
 
-:func:`segment_major` turns the first into the second.  The JAX package caps
+:func:`segment_major` turns the first into the second, and
+:func:`chunked_on` moves the first to the device as tensors (the layout the
+chunked environment forces read: ``ops/geometry.closest_point_per_segment``).  The JAX package caps
 a row at 4,096 points (a TPU VMEM limit, beyond which it keeps the chunked
 path); the CUDA kernels stage a row in fixed pieces, so here any row length
 is taken and there is no second path.
@@ -246,6 +248,27 @@ def segment_major(pset: ChunkedPointSet | None,
         *(torch.from_numpy(np.ascontiguousarray(a)).to(device)
           for a in (out[..., 0], out[..., 1], centers[:, 0], centers[:, 1],
                     np.asarray(pset.filter_radius))))
+
+
+def chunked_on(pset: ChunkedPointSet | None,
+               device: torch.device | str = DEFAULT_DEVICE
+               ) -> ChunkedPointSet | None:
+    """A host-side :class:`ChunkedPointSet` with every array moved to
+    ``device`` as a tensor (``chunk_segment`` as int64), the form
+    ``ops/geometry.closest_point_per_segment`` reads; None for None.
+    Scenes take this once per scenario through
+    :func:`..models.stepper.prepare_scene` with ``chunked``."""
+    if pset is None:
+        return None
+    device = resolve_device(device)
+    points, valid, seg, centers, radius = _on(
+        device, np.asarray(pset.points, np.float32), np.asarray(pset.valid),
+        np.asarray(pset.chunk_segment, np.int64),
+        np.asarray(pset.centers, np.float32),
+        np.asarray(pset.filter_radius, np.float32))
+    return ChunkedPointSet(points=points, valid=valid, chunk_segment=seg,
+                           centers=centers, filter_radius=radius,
+                           num_segments=pset.num_segments)
 
 
 def _on(device, *arrays):

@@ -29,6 +29,14 @@ velocity of a projection onto the half-planes of the neighbours, the
 vehicles and the nearest wall features (``ops/orca.py``), for the agents
 whose ``law_id`` is ORCA's (every agent without a ``law_id`` column).
 
+The scenarios (``api/scenario.build_scenario``, ``api/simulation.Simulation``
+and the CLI) take the JAX package's default engine: with
+``StepConfig.env_chunked`` the environment forces read each segment's
+closest point from the chunked point sets (``ops/forces.
+chunked_environment_terms``; on a card the ``chunk_argmin`` kernel), as the
+JAX package's jnp environment path does, in place of the fused environment
+kernels.
+
 The device chooses the kernel path: the CUDA kernels on a card, the plain
 PyTorch versions on the CPU (ops/cuda_forces.py, ops/cuda_env.py,
 ops/statics.py).  A
@@ -46,7 +54,7 @@ import torch
 
 from ..env.pointsets import (ChunkedPointSet, SegmentGeomSet,
                              SegmentPointSet, StaticFeatures, analytic_split,
-                             build_static_features, segment_major)
+                             build_static_features, chunked_on, segment_major)
 from ..ops import cuda_forces, forces, vecmath
 from ..ops.cuda_env import fused_environment_terms, plain_environment_terms
 from ..ops.cuda_forces import pedestrian_force_kernel, pedestrian_force_sorted
@@ -73,7 +81,10 @@ class Scene:
     what the forces read; with ``analytic`` the line-segment form of the
     borders (``borders_geom``, and ``borders_seg_rest`` for the sections
     that stay sampled); with ``orca`` the ORCA wall feeds of both
-    (``borders_feat``, ``obstacles_feat``).  ``autopilot`` is a reactive
+    (``borders_feat``, ``obstacles_feat``); with ``chunked`` the point sets
+    themselves as tensors on the device (``borders_chunked``,
+    ``static_obstacles_chunked``), which the chunked environment forces of
+    ``StepConfig.env_chunked`` read.  ``autopilot`` is a reactive
     fleet, stepped before the pedestrians each tick (its snapshot replaces
     ``vehicles``).  ``groups`` is the social-group member table
     (:class:`.groups.GroupSet`, from :func:`.groups.build_groups`), read
@@ -92,22 +103,34 @@ class Scene:
     borders_seg_rest: SegmentPointSet | None = None
     borders_feat: StaticFeatures | None = None
     obstacles_feat: StaticFeatures | None = None
+    borders_chunked: ChunkedPointSet | None = None
+    static_obstacles_chunked: ChunkedPointSet | None = None
 
 
 def prepare_scene(scene: Scene, analytic: bool = False,
-                  orca: bool = False) -> Scene:
+                  orca: bool = False, chunked: bool = False) -> Scene:
     """Add the segment-major layouts of the scene's borders and static
     obstacles on the spawn schedule's device, and zero obstacle velocities
     where none are given.  ``analytic``: also the Douglas-Peucker border
     geometry of ``StepConfig.env_analytic`` (``env/pointsets.
     analytic_split``); ``orca``: also the ORCA wall feeds of the borders
-    and the static obstacles (``env/pointsets.build_static_features``).
-    Host-side work, done once per scenario; idempotent.  ``make_rollout_fn``
-    and ``rollout`` pass ``cfg.env_analytic`` and ``params.enable_orca``
+    and the static obstacles (``env/pointsets.build_static_features``);
+    ``chunked``: the chunked point sets on the device
+    (``env/pointsets.chunked_on``) in place of the segment-major layouts,
+    for ``StepConfig.env_chunked``.  Host-side work, done once per
+    scenario; idempotent.  ``make_rollout_fn`` and ``rollout`` pass
+    ``cfg.env_analytic``, ``params.enable_orca`` and ``cfg.env_chunked``
     (the JAX package's stepper.py:83-119)."""
     device = scene.spawn.step.device
     upd = {}
-    if scene.borders is not None and scene.borders_seg is None:
+    if chunked:
+        if scene.borders is not None and scene.borders_chunked is None:
+            upd["borders_chunked"] = chunked_on(scene.borders, device)
+        if (scene.static_obstacles is not None
+                and scene.static_obstacles_chunked is None):
+            upd["static_obstacles_chunked"] = chunked_on(
+                scene.static_obstacles, device)
+    elif scene.borders is not None and scene.borders_seg is None:
         upd["borders_seg"] = segment_major(scene.borders, device)
     if (analytic and scene.borders is not None
             and scene.borders_geom is None):
@@ -121,7 +144,7 @@ def prepare_scene(scene: Scene, analytic: bool = False,
         upd["obstacles_feat"] = build_static_features(scene.static_obstacles,
                                                       device)
     if scene.static_obstacles is not None:
-        if scene.static_obstacles_seg is None:
+        if not chunked and scene.static_obstacles_seg is None:
             upd["static_obstacles_seg"] = segment_major(
                 scene.static_obstacles, device)
         if scene.static_obstacle_vel is None:
@@ -166,6 +189,15 @@ class StepConfig:
     #: (``prepare_scene(analytic=True)``, the ``env_exp_analytic`` kernels);
     #: sections that do not simplify stay sampled and their term is added
     env_analytic: bool = False
+    #: the JAX package's default (jnp) environment path, which its
+    #: scenarios take: each term takes every segment's closest point from
+    #: the chunked point sets (``prepare_scene(chunked=True)``) through
+    #: ``ops/geometry.closest_point_per_segment`` -- on a card the
+    #: ``chunk_argmin`` kernel, the JAX package's ``_cp_kernel`` -- in place
+    #: of the fused environment kernels' segment-major scan.  The same
+    #: forces; not combined with ``env_analytic`` or ``env_compact``, which
+    #: belong to the fused path (the JAX package's stepper.py:273)
+    env_chunked: bool = False
     #: interaction cutoff [m]: pairs farther apart contribute nothing, and
     #: the pair force runs on curve-sorted planes whose tile pairs beyond
     #: the cutoff are skipped (ops/cuda_forces.pedestrian_force_sorted).
@@ -210,7 +242,12 @@ class RecordXY(NamedTuple):
 
 def check_supported(scene: Scene, params: SfmParams, cfg: StepConfig) -> None:
     """Raise ``ValueError`` or ``TypeError`` for per-agent columns and
-    groups of the wrong form."""
+    groups of the wrong form, and for ``env_chunked`` together with a knob
+    of the fused environment path."""
+    if cfg.env_chunked and (cfg.env_analytic or cfg.env_compact):
+        raise ValueError("env_chunked (the jnp environment path) does not "
+                         "combine with env_analytic or env_compact, which "
+                         "belong to the fused environment kernels")
     if (params.enable_group and scene.groups is not None
             and not isinstance(scene.groups, GroupSet)):
         raise TypeError(f"scene.groups must be a GroupSet (models/groups."
@@ -232,14 +269,15 @@ _FAMILY_ID = {"pedestrian_force": LAW_IDS["moussaid"],
               "ped_repulsive_force": LAW_IDS["helbing"]}
 
 
-def _segments(pset, seg, name):
-    """The segment-major layout of a scene's point set: raises when the
-    scene was not prepared; None when the set holds no point (its force is
+def _segments(pset, seg, name, layout="segment-major"):
+    """The prepared layout of a scene's point set: raises when the scene
+    was not prepared; None when the set holds no point (its force is
     zero)."""
     if seg is None and pset is not None and bool(np.asarray(pset.valid).any()):
-        raise ValueError(f"scene.{name} has no segment-major layout: build "
-                         f"the scene with prepare_scene (make_rollout_fn "
-                         f"and rollout do, with cfg.env_analytic)")
+        raise ValueError(f"scene.{name} has no {layout} layout: build the "
+                         f"scene with prepare_scene (make_rollout_fn and "
+                         f"rollout do, with cfg.env_analytic and "
+                         f"cfg.env_chunked)")
     return seg
 
 
@@ -252,9 +290,14 @@ def force_terms(state: PedState, scene: Scene, params: SfmParams,
     positions and liveness (:func:`..ops.spatial.morton_order`), which the
     sorting kernels then share."""
     check_supported(scene, params, cfg)
-    _segments(scene.borders, scene.borders_seg, "borders")
-    _segments(scene.static_obstacles, scene.static_obstacles_seg,
-              "static_obstacles")
+    if cfg.env_chunked:
+        _segments(scene.borders, scene.borders_chunked, "borders", "chunked")
+        _segments(scene.static_obstacles, scene.static_obstacles_chunked,
+                  "static_obstacles", "chunked")
+    else:
+        _segments(scene.borders, scene.borders_seg, "borders")
+        _segments(scene.static_obstacles, scene.static_obstacles_seg,
+                  "static_obstacles")
     if (cfg.env_analytic and scene.borders_geom is None
             and scene.borders_seg_rest is None):
         # the split of a prepared scene always has a part
@@ -268,14 +311,17 @@ def force_terms(state: PedState, scene: Scene, params: SfmParams,
         # by the same key with the same stable sort: one permutation serves
         # them all (it changes no result)
         order = morton_order(state.pos_x, state.pos_y, state.alive, "hilbert")
-    env = (plain_environment_terms(state, scene, params, veh_snap,
-                                   analytic=cfg.env_analytic)
-           if cfg.plain_env_force
-           else fused_environment_terms(state, scene, params, veh_snap,
-                                        compact=cfg.env_compact,
-                                        max_surv=cfg.env_max_surv,
-                                        analytic=cfg.env_analytic,
-                                        order=order))
+    if cfg.env_chunked:
+        env = forces.chunked_environment_terms(state, scene, params, veh_snap,
+                                               plain=cfg.plain_env_force)
+    elif cfg.plain_env_force:
+        env = plain_environment_terms(state, scene, params, veh_snap,
+                                      analytic=cfg.env_analytic)
+    else:
+        env = fused_environment_terms(state, scene, params, veh_snap,
+                                      compact=cfg.env_compact,
+                                      max_surv=cfg.env_max_surv,
+                                      analytic=cfg.env_analytic, order=order)
     zero = torch.zeros_like(state.pos_x)
     desired = None
     if params.enable_ped_repulsive or (params.enable_group
@@ -556,7 +602,7 @@ def rollout(state: PedState, scene: Scene, params: SfmParams, cfg: StepConfig,
     """
     check_supported(scene, params, cfg)
     scene = prepare_scene(scene, analytic=cfg.env_analytic,
-                          orca=params.enable_orca)
+                          orca=params.enable_orca, chunked=cfg.env_chunked)
     fleet = scene.autopilot
     if fleet is not None and autopilot_state is None and start_step != 0:
         raise NotImplementedError(
@@ -620,7 +666,7 @@ def make_rollout_fn(scene: Scene, params: SfmParams, cfg: StepConfig,
     it across runs."""
     check_supported(scene, params, cfg)
     scene = prepare_scene(scene, analytic=cfg.env_analytic,
-                          orca=params.enable_orca)
+                          orca=params.enable_orca, chunked=cfg.env_chunked)
 
     def run(state: PedState):
         return rollout(state, scene, params, cfg, num_steps, record=record,

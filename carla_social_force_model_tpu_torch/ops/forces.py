@@ -26,6 +26,12 @@ parity target of the CPU tests against the JAX package.
   :func:`border_force`,
   :func:`space_repulsive_force` and :func:`obstacle_force` are the JAX
   package's environment forces (forces.py:338-362, :471-511) on top of them.
+* Their ``_chunked`` forms (and :func:`chunked_environment_terms`, the
+  terms of ``StepConfig.env_chunked``) take each segment's closest point
+  from a :class:`..env.pointsets.ChunkedPointSet` through
+  ``geometry.closest_point_per_segment`` (the ``chunk_argmin`` kernel on a
+  card), as the JAX package's jnp path does; the force math after the
+  closest point is the same function for both layouts.
 
 Every function takes and returns planar ``(N,)`` x/y tensors.
 """
@@ -35,18 +41,14 @@ import numpy as np
 import torch
 
 from . import vecmath
-from .geometry import closest_on_segments, segment_filter_mask
+from .geometry import (PAD_DIST2, closest_on_segments,
+                       closest_point_per_segment, segment_filter_mask)
 from .pair_grid import cutoff_sq
 from ..env.pointsets import SegmentGeomSet
 from ..models import modes
 from ..models.params import (AccelerationParams, BorderParams, MoussaidParams,
                              PedRepulsiveParams, PowerLawParams,
                              SpaceRepulsiveParams, helbing_cos_phi)
-
-#: squared distances at or above this are padding (PAD_COORD = 1e8 puts a
-#: padded slot ~1e16 away), not a closest point
-PAD_DIST2 = 1e13
-
 
 def acceleration_force_xy(pos_x, pos_y, vel_x, vel_y, wp_x, wp_y,
                           applied_target, p: AccelerationParams):
@@ -307,15 +309,45 @@ def _closest_points(pos_x, pos_y, seg):
     return dmin2, torch.gather(seg.x, 1, idx), torch.gather(seg.y, 1, idx)
 
 
-def _segment_ok(pos_x, pos_y, alive, seg, dmin2, active):
+def _segment_ok(pos_x, pos_y, alive, seg, has_point, active):
     """(S, B) mask of the (segment, ped) pairs that contribute: a real
-    closest point, inside the segment's filter circle, an alive pedestrian
-    and (when given) an active segment."""
-    ok = ((dmin2 < PAD_DIST2) & segment_filter_mask(pos_x, pos_y, seg)
-          & alive[None, :])
+    closest point (``has_point``), inside the segment's filter circle, an
+    alive pedestrian and (when given) an active segment."""
+    ok = has_point & segment_filter_mask(pos_x, pos_y, seg) & alive[None, :]
     if active is not None:
         ok = ok & active[:, None]
     return ok
+
+
+def _exp_sum(pos_x, pos_y, bx, by, ok, radius, a: float, b: float):
+    """The exponential terms ``a * exp(-d/b)`` away from the (S, B) closest
+    points ``(bx, by)``, summed over the segments where ``ok``:
+    ``(fx, fy)`` of shape (B,).  ``d`` is the distance to the point, less
+    ``radius`` when one is given.  A pedestrian standing on its point gets
+    0 from it (the direction vector is 0), never NaN."""
+    dx = pos_x[None, :] - bx                               # point -> ped
+    dy = pos_y[None, :] - by
+    d2 = dx * dx + dy * dy
+    r = torch.rsqrt(torch.where(d2 == 0.0, 1.0, d2))
+    d = d2 * r
+    if radius is not None:
+        d = d - radius[None, :]
+    mag = torch.where(ok, (a * torch.exp(-d / b)) * r, 0.0)
+    return (mag * dx).sum(dim=0), (mag * dy).sum(dim=0)
+
+
+def _moussaid_sum(pos_x, pos_y, vel_x, vel_y, bx, by, ok, radius,
+                  obstacle_vel, p: MoussaidParams):
+    """The Moussaid terms against the (S, B) closest points ``(bx, by)``
+    with the relative velocity ``v_ped - obstacle_vel[s]``, summed over the
+    segments where ``ok``: ``(fx, fy)``.  ``radius`` (or None) is
+    subtracted from the distance."""
+    dvx = vel_x[None, :] - obstacle_vel[:, 0, None]
+    dvy = vel_y[None, :] - obstacle_vel[:, 1, None]
+    radius_sub = 0.0 if radius is None else radius[None, :]
+    fx, fy = _moussaid_pair_force(bx - pos_x[None, :], by - pos_y[None, :],
+                                  radius_sub, dvx, dvy, p, ok)
+    return fx.sum(dim=0), fy.sum(dim=0)
 
 
 def env_exp_force(pos_x, pos_y, radius, alive, seg, a: float, b: float,
@@ -326,25 +358,19 @@ def env_exp_force(pos_x, pos_y, radius, alive, seg, a: float, b: float,
     pedestrian; ``(fx, fy)``.  The plain version of the ``env_exp`` kernel.
 
     ``d`` is the distance to the point, less the pedestrian's radius when
-    ``use_radius`` (``radius`` may be None otherwise).  A pedestrian standing on a point gets 0 from it (its
-    direction vector is 0), never NaN.  Dead pedestrians get exactly 0.
+    ``use_radius`` (``radius`` may be None otherwise).  A pedestrian
+    standing on a point gets 0 from it (its direction vector is 0), never
+    NaN.  Dead pedestrians get exactly 0.
     """
     fx_out = torch.empty_like(pos_x)
     fy_out = torch.empty_like(pos_y)
     for lo, hi in _ped_blocks(pos_x.shape[0], seg, max_group_elems):
         px, py = pos_x[lo:hi], pos_y[lo:hi]
         dmin2, bx, by = _closest_points(px, py, seg)
-        ok = _segment_ok(px, py, alive[lo:hi], seg, dmin2, active)
-        dx = px[None, :] - bx                              # point -> ped
-        dy = py[None, :] - by
-        d2 = dx * dx + dy * dy
-        r = torch.rsqrt(torch.where(d2 == 0.0, 1.0, d2))
-        d = d2 * r
-        if use_radius:
-            d = d - radius[None, lo:hi]
-        mag = torch.where(ok, (a * torch.exp(-d / b)) * r, 0.0)
-        fx_out[lo:hi] = (mag * dx).sum(dim=0)
-        fy_out[lo:hi] = (mag * dy).sum(dim=0)
+        ok = _segment_ok(px, py, alive[lo:hi], seg, dmin2 < PAD_DIST2,
+                         active)
+        fx_out[lo:hi], fy_out[lo:hi] = _exp_sum(
+            px, py, bx, by, ok, radius[lo:hi] if use_radius else None, a, b)
     return fx_out, fy_out
 
 
@@ -362,15 +388,41 @@ def env_moussaid_force(pos_x, pos_y, vel_x, vel_y, radius, alive, seg,
     for lo, hi in _ped_blocks(pos_x.shape[0], seg, max_group_elems):
         px, py = pos_x[lo:hi], pos_y[lo:hi]
         dmin2, bx, by = _closest_points(px, py, seg)
-        ok = _segment_ok(px, py, alive[lo:hi], seg, dmin2, active)
-        dvx = vel_x[None, lo:hi] - obstacle_vel[:, 0, None]
-        dvy = vel_y[None, lo:hi] - obstacle_vel[:, 1, None]
-        radius_sub = radius[None, lo:hi] if use_radius else 0.0
-        fx, fy = _moussaid_pair_force(bx - px[None, :], by - py[None, :],
-                                      radius_sub, dvx, dvy, p, ok)
-        fx_out[lo:hi] = fx.sum(dim=0)
-        fy_out[lo:hi] = fy.sum(dim=0)
+        ok = _segment_ok(px, py, alive[lo:hi], seg, dmin2 < PAD_DIST2,
+                         active)
+        fx_out[lo:hi], fy_out[lo:hi] = _moussaid_sum(
+            px, py, vel_x[lo:hi], vel_y[lo:hi], bx, by, ok,
+            radius[lo:hi] if use_radius else None, obstacle_vel, p)
     return fx_out, fy_out
+
+
+def env_exp_force_chunked(pos_x, pos_y, radius, alive, pset, a: float,
+                          b: float, use_radius: bool = False, active=None,
+                          plain: bool = False):
+    """:func:`env_exp_force` on a :class:`..env.pointsets.ChunkedPointSet`
+    of tensors: the closest points from
+    :func:`.geometry.closest_point_per_segment` (the ``chunk_argmin``
+    kernel on a card; its plain version on the CPU or with ``plain``),
+    the same force math.  The JAX package's jnp environment path."""
+    _, bx, by, has = closest_point_per_segment(pos_x, pos_y, pset,
+                                               plain=plain)
+    ok = _segment_ok(pos_x, pos_y, alive, pset, has, active)
+    return _exp_sum(pos_x, pos_y, bx, by, ok,
+                    radius if use_radius else None, a, b)
+
+
+def env_moussaid_force_chunked(pos_x, pos_y, vel_x, vel_y, radius, alive,
+                               pset, obstacle_vel, p: MoussaidParams,
+                               use_radius: bool = False, active=None,
+                               plain: bool = False):
+    """:func:`env_moussaid_force` on a
+    :class:`..env.pointsets.ChunkedPointSet` of tensors (see
+    :func:`env_exp_force_chunked`)."""
+    _, bx, by, has = closest_point_per_segment(pos_x, pos_y, pset,
+                                               plain=plain)
+    ok = _segment_ok(pos_x, pos_y, alive, pset, has, active)
+    return _moussaid_sum(pos_x, pos_y, vel_x, vel_y, bx, by, ok,
+                         radius if use_radius else None, obstacle_vel, p)
 
 
 def crossing_mask(mode):
@@ -414,3 +466,79 @@ def obstacle_force(pos_x, pos_y, vel_x, vel_y, radius, alive, obstacles,
                               obstacles, obstacle_vel, p,
                               use_radius=use_ped_radius,
                               active=obstacle_active)
+
+
+def border_force_chunked(pos_x, pos_y, mode, radius, alive, borders,
+                         p: BorderParams, use_ped_radius: bool = False,
+                         plain: bool = False):
+    """:func:`border_force` on a :class:`..env.pointsets.ChunkedPointSet`
+    of tensors (the JAX package's forces.py:338-362)."""
+    fx, fy = env_exp_force_chunked(pos_x, pos_y, radius, alive, borders,
+                                   p.a, p.b, use_radius=use_ped_radius,
+                                   plain=plain)
+    crossing = crossing_mask(mode)
+    return torch.where(crossing, 0.0, fx), torch.where(crossing, 0.0, fy)
+
+
+def space_repulsive_force_chunked(pos_x, pos_y, mode, alive, borders,
+                                  p: SpaceRepulsiveParams,
+                                  plain: bool = False):
+    """:func:`space_repulsive_force` on a
+    :class:`..env.pointsets.ChunkedPointSet` of tensors (the JAX package's
+    forces.py:471-489)."""
+    fx, fy = env_exp_force_chunked(pos_x, pos_y, None, alive, borders,
+                                   p.u0 / p.r, p.r, plain=plain)
+    crossing = crossing_mask(mode)
+    return torch.where(crossing, 0.0, fx), torch.where(crossing, 0.0, fy)
+
+
+def obstacle_force_chunked(pos_x, pos_y, vel_x, vel_y, radius, alive,
+                           obstacles, obstacle_vel, p: MoussaidParams,
+                           use_ped_radius: bool = False,
+                           obstacle_active=None, plain: bool = False):
+    """:func:`obstacle_force` on a :class:`..env.pointsets.ChunkedPointSet`
+    of tensors (the JAX package's forces.py:492-511): static obstacles, or
+    the vehicles of ``models.vehicles.snapshot_pointset`` with
+    ``obstacle_active``."""
+    return env_moussaid_force_chunked(
+        pos_x, pos_y, vel_x, vel_y, radius, alive, obstacles, obstacle_vel,
+        p, use_radius=use_ped_radius, active=obstacle_active, plain=plain)
+
+
+def chunked_environment_terms(state, scene, params, veh_snap,
+                              plain: bool = False) -> dict:
+    """The environment terms of ``StepConfig.env_chunked``, keyed like
+    ``models.stepper.force_terms``: the JAX package's jnp environment path
+    (stepper.py:319-450), each term from its own closest points over the
+    scene's chunked sets on the device (``prepare_scene(chunked=True)``:
+    ``borders_chunked``, ``static_obstacles_chunked``) and, for the
+    vehicles, ``models.vehicles.snapshot_pointset``.  ``plain`` runs the
+    plain chunk scan on a card too."""
+    from ..models.vehicles import snapshot_pointset
+    terms = {}
+    args = (state.pos_x, state.pos_y)
+    if params.enable_border and scene.borders_chunked is not None:
+        terms["border_force"] = border_force_chunked(
+            *args, state.mode, state.radius, state.alive,
+            scene.borders_chunked, params.border,
+            use_ped_radius=params.use_ped_radius, plain=plain)
+    if (params.enable_static_obstacle
+            and scene.static_obstacles_chunked is not None):
+        terms["static_obstacle_force"] = obstacle_force_chunked(
+            *args, state.vel_x, state.vel_y, state.radius, state.alive,
+            scene.static_obstacles_chunked, scene.static_obstacle_vel,
+            params.static_obstacle, use_ped_radius=params.use_ped_radius,
+            plain=plain)
+    if params.enable_space_repulsive and scene.borders_chunked is not None:
+        terms["space_repulsive_force"] = space_repulsive_force_chunked(
+            *args, state.mode, state.alive, scene.borders_chunked,
+            params.space_repulsive, plain=plain)
+    if params.enable_dynamic_obstacle and veh_snap is not None:
+        vset, vvel, vact = snapshot_pointset(
+            veh_snap, params.dynamic_obstacle.perception_threshold)
+        terms["dynamic_obstacle_force"] = obstacle_force_chunked(
+            *args, state.vel_x, state.vel_y, state.radius, state.alive,
+            vset, vvel, params.dynamic_obstacle,
+            use_ped_radius=params.use_ped_radius, obstacle_active=vact,
+            plain=plain)
+    return terms

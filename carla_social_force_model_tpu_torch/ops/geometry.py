@@ -1,5 +1,6 @@
-"""Geometry: the segment filter, 2-D segment intersection and the closest
-wall features of the ORCA feed (port of ops/geometry.py).
+"""Geometry: the segment filter, 2-D segment intersection, the chunked
+closest point of the environment forces and the closest wall features of
+the ORCA feed (port of ops/geometry.py).
 
 ``segment_filter_mask`` is the reference's coarse per-border / per-obstacle
 relevance filter; the environment kernels apply the same test per
@@ -15,14 +16,30 @@ exact closest point on each segment feature), :func:`closest_point_per_chunk`
 occurrence on ties).  ``ops/statics.py`` fuses them into one running top-k
 on the card.
 
-The JAX module's ``closest_point_per_segment`` and its ``_cp_kernel`` are
-not here: the port's environment forces read the segment-major layout
-(``env/pointsets.SegmentPointSet``) directly.
+:func:`closest_point_per_segment` is the closest point of each segment of a
+:class:`..env.pointsets.ChunkedPointSet` (the JAX package's function of the
+same name): every 128-point chunk's first-occurrence minimum and flat
+argmin, as (C, N) planes, then the segmented minimum over each segment's
+chunks and the first chunk that reaches it.  On a card the chunk scan is
+the ``chunk_argmin`` kernel of ``csrc/statics.cu`` (the JAX package's
+``_cp_kernel``), on the CPU its plain version :func:`chunk_argmin_plain`.
+The scenarios' default engine reaches it through the chunked environment
+forces (``ops/forces.py``, ``StepConfig.env_chunked``); the fused
+environment kernels read the segment-major layout
+(``env/pointsets.SegmentPointSet``) instead.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..env.pointsets import PAD_COORD, ChunkedPointSet
+
+#: squared distances at or above this are padding (PAD_COORD = 1e8 puts a
+#: padded slot ~1e16 away), not a closest point
+PAD_DIST2 = 1e13
+#: the "no chunk" sentinel of the first-chunk reduction (int32 max)
+_BIG_INDEX = 2**31 - 1
 
 
 def closest_on_segments(pos_x, pos_y, ax, ay, ux, uy, il2):
@@ -139,6 +156,95 @@ def k_smallest_features(d2, planes, k: int):
                   for p in planes), valid)
 
 
+def staged_chunk_planes(pset: ChunkedPointSet):
+    """The (C, K) x/y planes the chunk scan reads: each chunk's points with
+    its invalid slots moved to ``PAD_COORD`` (live templates of inactive
+    vehicles keep real coordinates with ``valid`` False; the JAX package's
+    geometry.py:159-166)."""
+    return (torch.where(pset.valid, pset.points[..., 0], PAD_COORD),
+            torch.where(pset.valid, pset.points[..., 1], PAD_COORD))
+
+
+def chunk_argmin_plain(pos_x, pos_y, fx, fy,
+                       max_group_elems: int = 4_000_000):
+    """The plain version of the ``chunk_argmin`` kernel: for every (chunk,
+    pedestrian), the minimum of ``dx*dx + dy*dy`` over the chunk's points
+    of the staged planes ``fx, fy`` (C, K) and the global flat index
+    ``c*K + j`` of the first point that reaches it (the reference's
+    ``np.argmin``; the JAX package's ``_cp_kernel``).  Returns ``(dmin,
+    idx)`` of shape (C, N), float32 and int32.  Pedestrians are taken in
+    blocks bounding the (C, K, B) temporaries to about ``max_group_elems``
+    elements."""
+    c, k = fx.shape
+    n = pos_x.shape[0]
+    dmin = torch.empty((c, n), dtype=torch.float32, device=pos_x.device)
+    idx = torch.empty((c, n), dtype=torch.int32, device=pos_x.device)
+    base = (torch.arange(c, dtype=torch.int64, device=pos_x.device)
+            * k)[:, None]
+    rows = max(1, max_group_elems // max(1, c * k))
+    for lo in range(0, n, rows):
+        hi = min(lo + rows, n)
+        dx = fx[:, :, None] - pos_x[None, None, lo:hi]        # (C, K, B)
+        dy = fy[:, :, None] - pos_y[None, None, lo:hi]
+        d2 = dx * dx + dy * dy
+        first = torch.argmin(d2, dim=1)                        # (C, B)
+        dmin[:, lo:hi] = torch.gather(d2, 1, first[:, None, :])[:, 0, :]
+        idx[:, lo:hi] = (base + first).to(torch.int32)
+    return dmin, idx
+
+
+def chunk_argmin(pos_x, pos_y, fx, fy, plain: bool = False):
+    """Per (chunk, pedestrian) minimum squared distance and flat argmin
+    (:func:`chunk_argmin_plain`'s ``(dmin, idx)``).  On CUDA tensors the
+    ``chunk_argmin`` kernel (``ops/statics.chunk_argmin``), bitwise equal to
+    the plain version; on CPU tensors, or with ``plain``, the plain
+    version."""
+    if pos_x.device.type == "cuda" and not plain:
+        from .statics import chunk_argmin as kernel
+        return kernel(pos_x, pos_y, fx, fy)
+    return chunk_argmin_plain(pos_x, pos_y, fx, fy)
+
+
+def closest_point_per_segment(pos_x, pos_y, pset: ChunkedPointSet,
+                              plain: bool = False):
+    """Per (segment, pedestrian) closest outline point of a
+    :class:`..env.pointsets.ChunkedPointSet` of tensors on the pedestrians'
+    device (the JAX package's ``closest_point_per_segment`` with its chunk
+    scan ``_cp_kernel``, geometry.py:36-211).
+
+    The chunk scan (:func:`chunk_argmin`) gives each chunk's minimum and
+    first-occurrence flat index; the segmented minimum over each segment's
+    chunks and the first chunk that reaches it follow, so ties go to the
+    lower chunk and, within it, to the lower point (the reference's
+    ``np.argmin`` over the segment).  Returns ``(dist, bx, by, has_point)``
+    of shape (S, N): ``has_point`` is False where no real point is within
+    reach (``dmin^2 >= PAD_DIST2``: a segment with no valid point, or a
+    pedestrian parked at the dead sentinel), and ``dist`` is 0 there.  The
+    point is the set's own coordinate, as the JAX package gathers it.
+    ``plain`` runs the plain chunk scan on a card too."""
+    c, k = pset.valid.shape
+    s, n = pset.num_segments, pos_x.shape[0]
+    fx, fy = staged_chunk_planes(pset)
+    dmin, idx = chunk_argmin(pos_x, pos_y, fx.contiguous(), fy.contiguous(),
+                             plain=plain)
+    seg = pset.chunk_segment.to(torch.int64)[:, None].expand(c, n)
+    dseg2 = pos_x.new_full((s, n), torch.inf).scatter_reduce(
+        0, seg, dmin, "amin")
+    chunk = torch.arange(c, dtype=torch.int64, device=pos_x.device)[:, None]
+    cand = torch.where(dmin == torch.gather(dseg2, 0, seg), chunk,
+                       _BIG_INDEX)
+    first = torch.full((s, n), _BIG_INDEX, dtype=torch.int64,
+                       device=pos_x.device).scatter_reduce(0, seg, cand,
+                                                           "amin")
+    has_point = (dseg2 < PAD_DIST2) & (first < _BIG_INDEX)
+    flat = torch.gather(idx, 0, first.clamp(0, max(c - 1, 0))).to(
+        torch.int64)
+    bx = pset.points[..., 0].reshape(-1)[flat]
+    by = pset.points[..., 1].reshape(-1)[flat]
+    dist = torch.sqrt(torch.where(has_point, dseg2, 0.0))
+    return dist, bx, by, has_point
+
+
 def segment_filter_mask(pos_x, pos_y, pset):
     """Per-(segment, ped) relevance filter ``|pos - center| < radius``,
     ``(S, N)`` bool.
@@ -146,10 +252,17 @@ def segment_filter_mask(pos_x, pos_y, pset):
     Matches the reference's border section filter (forces.py:149-151) and
     the obstacle perception filter (forces.py:222-224), both strict ``<``,
     as a squared comparison with the radius clamped at 0.  ``pset`` is a
-    :class:`..env.pointsets.SegmentPointSet`.
+    :class:`..env.pointsets.SegmentPointSet` (or another set with
+    ``center_x``/``center_y`` planes) or a
+    :class:`..env.pointsets.ChunkedPointSet` of tensors (``centers``, the
+    JAX package's geometry.py:531-543).
     """
-    dx = pset.center_x[:, None] - pos_x[None, :]
-    dy = pset.center_y[:, None] - pos_y[None, :]
+    if isinstance(pset, ChunkedPointSet):
+        cx, cy = pset.centers[:, 0], pset.centers[:, 1]
+    else:
+        cx, cy = pset.center_x, pset.center_y
+    dx = cx[:, None] - pos_x[None, :]
+    dy = cy[:, None] - pos_y[None, :]
     d2 = dx * dx + dy * dy
     r = torch.clamp(pset.filter_radius, min=0.0)
     return d2 < (r * r)[:, None]

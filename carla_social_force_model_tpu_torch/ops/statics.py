@@ -1,8 +1,10 @@
 """The ORCA wall feed: each pedestrian's ``k`` nearest wall features (port
 of ops/pallas_statics.py, and of the JAX package's ``_cpc_kernel`` behind
-``geometry.closest_point_per_chunk``).
+``geometry.closest_point_per_chunk``), and the chunk scan of the chunked
+environment forces (the JAX package's ``_cp_kernel`` behind
+``geometry.closest_point_per_segment``).
 
-Three kernels from ``csrc/statics.cu``, each behind a wrapper that checks
+Four kernels from ``csrc/statics.cu``, each behind a wrapper that checks
 its inputs, allocates its outputs, launches on PyTorch's current stream and
 counts the launch:
 
@@ -16,9 +18,15 @@ counts the launch:
 * :func:`chunk_closest` -- the (C, N) planes of every chunk's closest
   point, the scan of :func:`chunk_topk` without the merge.  The JAX
   package's ``_cpc_kernel``.
+* :func:`chunk_argmin` -- every (chunk, pedestrian)'s minimum squared
+  distance and the flat index of the first point that reaches it, (C, N),
+  over every pair (no skip).  The JAX package's ``_cp_kernel``; its plain
+  version is ``geometry.chunk_argmin_plain``, its entry
+  ``geometry.closest_point_per_segment``.
 
-Each block holds 128 consecutive pedestrians (the caller's order: ORCA's
-are Hilbert-sorted, so the boxes are tight) and skips every feature whose
+Each block of the three wall-feed kernels holds 128 consecutive
+pedestrians (the caller's order: ORCA's are Hilbert-sorted, so the boxes
+are tight) and skips every feature whose
 filter circle, inflated by the neighbour distance, misses the box of its
 alive pedestrians; the in-kernel ``d2 <= neigh_dist^2`` test keeps the skip
 exact.  Features are visited in ascending index, and each enters its
@@ -48,7 +56,8 @@ MAX_K = 8
 
 #: launches per kernel since the last :func:`reset_launch_counts`; each
 #: wrapper adds one where it launches its kernel and nowhere else
-LAUNCHES = {"seg_topk": 0, "chunk_topk": 0, "chunk_closest": 0}
+LAUNCHES = {"seg_topk": 0, "chunk_topk": 0, "chunk_closest": 0,
+            "chunk_argmin": 0}
 
 
 def reset_launch_counts() -> None:
@@ -164,6 +173,24 @@ def chunk_closest(pos_x, pos_y, chunks, neigh_dist, alive=None):
     if n == 0 or chunks.num_chunks == 0:
         return outs
     return _launch("chunk_closest", (*args, n), outs, dev)
+
+
+def chunk_argmin(pos_x, pos_y, fx, fy):
+    """Every chunk's minimum squared distance and first-occurrence flat
+    index on the card: ``(dmin, idx)`` of shape (C, N), float32 and int32,
+    from the staged (C, K) chunk planes ``fx, fy`` (``PAD_COORD`` in invalid
+    slots, ``geometry.staged_chunk_planes``); see
+    ``geometry.chunk_argmin_plain``."""
+    peds = _peds(pos_x, pos_y, None)[:2]
+    c, kk = fx.shape
+    n, dev = pos_x.shape[0], pos_x.device
+    _check((("fx", fx, (c, kk)), ("fy", fy, (c, kk))), dev)
+    outs = (torch.empty((c, n), dtype=torch.float32, device=dev),
+            torch.empty((c, n), dtype=torch.int32, device=dev))
+    if n == 0 or c == 0:
+        return outs
+    return _launch("chunk_argmin", (*peds, fx.data_ptr(), fy.data_ptr(), c,
+                                    kk, n), outs, dev)
 
 
 def topk_plain(pos_x, pos_y, src, k: int, neigh_dist):

@@ -20,6 +20,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..api.scenario import ScenarioBundle
 from ..env.pointsets import ChunkedPointSet
 from ..models import params as P
 from ..models.autopilot import AutopilotFleet, AutopilotState
@@ -64,7 +65,8 @@ def params_from_fields(d: dict) -> P.SfmParams:
     return P.SfmParams(**kw)
 
 
-def step_config_from_fields(d: dict) -> StepConfig:
+def step_config_from_fields(d: dict, engine_path: bool = False
+                            ) -> StepConfig:
     """The port's StepConfig from a flattened JAX ``StepConfig``.
 
     ``pallas_symmetric`` becomes ``symmetric_pairs``, ``pallas_compact``
@@ -77,7 +79,24 @@ def step_config_from_fields(d: dict) -> StepConfig:
     ``env_max_surv`` and ``env_analytic`` carry over (the port's compacted
     environment kernels run on the gate of the JAX package's default
     ``env_point_tile``).  The port applies ``env_analytic`` on every
-    device, where the JAX package applies it on its Pallas path only."""
+    device, where the JAX package applies it on its Pallas path only.
+
+    ``engine_path``: decide the path as the JAX package does from its
+    ``use_pallas``/``use_pallas_env`` (the mapping of ``api/scenario.py``):
+    without both, the jnp environment path (``env_chunked``) with the
+    environment knobs dropped; without ``use_pallas``, no cutoff either
+    (the JAX package applies them on its Pallas path only).  The existing
+    parity tests keep the default, which carries every knob."""
+    if engine_path:
+        pallas = bool(d["use_pallas"])
+        fused = pallas and bool(d["use_pallas_env"])
+        d = dict(d, env_compact=d["env_compact"] and fused,
+                 env_max_surv=d["env_max_surv"] if fused else 0,
+                 env_analytic=d["env_analytic"] and fused,
+                 interaction_cutoff=(d["interaction_cutoff"] if pallas
+                                     else None))
+        return dataclasses.replace(step_config_from_fields(d),
+                                   env_chunked=not fused)
     return StepConfig(
         dt=float(d["dt"]), waypoint_threshold=float(d["waypoint_threshold"]),
         despawn_on_arrival=bool(d["despawn_on_arrival"]),
@@ -189,3 +208,25 @@ def scene_from_fields(d: dict, device: torch.device | str) -> Scene:
         vehicles=vehicle_states_from_fields(d.get("vehicles"), device),
         autopilot=autopilot_fleet_from_fields(d.get("autopilot"), device),
         groups=group_set_from_fields(d.get("groups"), device))
+
+
+def scenario_bundle_from_fields(d: dict, device: torch.device | str
+                                ) -> ScenarioBundle:
+    """The port's ScenarioBundle from a flattened JAX ``ScenarioBundle``:
+    its scene, its parameters, its step configuration under the
+    scenarios' engine mapping (``step_config_from_fields(...,
+    engine_path=True)``) and its initial state, so that both packages can
+    step the same objects.  ``border_lines``, ``obstacle_outlines`` and
+    ``obstacle_centers`` are lists of arrays."""
+    return ScenarioBundle(
+        scene=scene_from_fields(d["scene"], device),
+        cfg=step_config_from_fields(d["cfg"], engine_path=True),
+        params=params_from_fields(d["params"]),
+        initial_state=ped_state_from_fields(d["initial_state"], device),
+        num_steps=int(d["num_steps"]), dt=float(d["dt"]),
+        scenario_name=str(d["scenario_name"]),
+        border_lines=[np.array(a, copy=True) for a in d["border_lines"]],
+        obstacle_outlines=[np.array(a, copy=True)
+                           for a in d["obstacle_outlines"]],
+        obstacle_centers=[np.array(a, copy=True)
+                          for a in d["obstacle_centers"]])

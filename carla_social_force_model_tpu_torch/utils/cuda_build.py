@@ -106,6 +106,8 @@ ARGTYPES = {
     # sfm_chunk_topk's arguments without k
     "sfm_chunk_closest": ([_PTR] * 5 + [_INT, _INT] + [_PTR] * 3
                           + [_FLOAT, _FLOAT, _INT] + [_PTR] * 4),
+    # px, py, fx, fy, c, kk, n, d2, idx, stream
+    "sfm_chunk_argmin": [_PTR] * 4 + [_INT, _INT, _INT] + [_PTR] * 3,
 }
 
 

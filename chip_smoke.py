@@ -2,35 +2,41 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
 Builds the port's CUDA kernels from ``carla_social_force_model_tpu_torch/
-csrc`` with nvcc, holds each kernel against its plain PyTorch version on the
-card, and drives the main paths through ``api.synthetic.benchmark_bundle``
-and ``models.stepper.make_rollout_fn`` at N = 10,000 pedestrians, 1,000
-steps of dt = 0.05 s each: BASELINE config #1 (the headless crowd: the
-pair-force kernels), config #2 (+ sidewalk borders: ``env_exp``; 200
-steps) and config #3 (+ parked cars and moving vehicles: ``env_exp`` and
-``env_moussaid``); then config #1 with a 30 m interaction cutoff at 10,000,
-50,000 and 1,000,000 pedestrians (200 steps each), through the cutoff
-forms of the pair kernels; then the urban path, BASELINE config #4
-(``api.synthetic.urban_bundle``: nav-graph routes, a reactive autopilot
-fleet, gap-acceptance crossing, the compacted border kernel
-``env_exp_compact``) at N = 10,000 (a recorded run of 1,000 steps, timed
-runs of 200), and config #3 with ``env_compact`` (``env_moussaid_compact``
-on the parked cars); then the model families (phases 15-17): the power-law
-and Helbing forms of the pair kernels against their plain versions and
-float64 oracles, and config #1 under ``bench.py``'s family switches at
-N = 10,000 x 200 steps (the power law, the Helbing ellipse, a mixed
-Moussaid / power-law / Helbing crowd, social groups of four over half the
-crowd, the power law with the 30 m cutoff), with shorter paths that
-launch the other forms; then the ORCA slice (phases 18-20): the analytic form of the border kernel
-(``env_exp_analytic`` and its compacted form) and the wall-feed kernels
-(``seg_topk``, ``chunk_topk``, ``chunk_closest``) against their plain
-versions, and ``bench.py``'s ORCA switches: config #3 with ORCA and the
-analytic border tier at N = 10,000 x 1,000 steps, and at 200 steps config
-#1 with ORCA, the urban path with ORCA, a mixed Moussaid / power-law /
-ORCA crowd and config #2 with ORCA at N = 50,000.  It counts the kernel
-launches of each path, and checks every step of 50-step rollouts through
-the kernels against the same step through the plain versions from the same
-state.
+csrc`` with nvcc, holds each kernel against its plain PyTorch version on
+the card, and drives the main paths through
+``api.synthetic.benchmark_bundle`` and ``models.stepper.make_rollout_fn``
+at N = 10,000 pedestrians, timed runs of 200 steps of dt = 0.05 s each:
+BASELINE config #1 (the headless crowd: the pair-force kernels), config #2
+(+ sidewalk borders: ``env_exp``; 100 steps) and config #3 (+ parked cars
+and moving vehicles: ``env_exp`` and ``env_moussaid``); then config #1 with
+a 30 m interaction cutoff at 10,000, 50,000 and 1,000,000 pedestrians (100
+steps each), through the cutoff forms of the pair kernels; then the urban
+path, BASELINE config #4 (``api.synthetic.urban_bundle``: nav-graph routes,
+a reactive autopilot fleet, gap-acceptance crossing, the compacted border
+kernel ``env_exp_compact``) at N = 10,000 (a recorded run of 1,000 steps,
+timed runs of 100), and config #3 with ``env_compact``
+(``env_moussaid_compact`` on the parked cars); then the model families
+(phases 15-17): the power-law and Helbing forms of the pair kernels against
+their plain versions and float64 oracles, and config #1 under
+``bench.py``'s family switches at N = 10,000 x 100 steps (the power law,
+the Helbing ellipse, a mixed Moussaid / power-law / Helbing crowd, social
+groups of four over half the crowd, the power law with the 30 m cutoff),
+with shorter paths that launch the other forms; then the ORCA slice (phases
+18-20): the analytic form of the border kernel (``env_exp_analytic`` and
+its compacted form) and the wall-feed kernels (``seg_topk``,
+``chunk_topk``, ``chunk_closest``) against their plain versions, and
+``bench.py``'s ORCA switches: config #3 with ORCA and the analytic border
+tier at N = 10,000 x 200 steps, and at 200 steps config #1 with ORCA, the
+urban path with ORCA, a mixed Moussaid / power-law / ORCA crowd and config
+#2 with ORCA at N = 50,000; then the scenario slice (phases 21-23): the
+chunk scan of the chunked environment forces (``chunk_argmin``) against its
+plain version bitwise, every shipped scenario through
+``api.simulation.Simulation`` at its golden's horizon (with
+``run_streamed`` and the CLI), and a Town02 crowd of 10,000 random
+pedestrians built through ``api.scenario.build_scenario`` at 200 steps. It
+counts the kernel launches of each path, and checks every step of 50-step
+rollouts through the kernels against the same step through the plain
+versions from the same state.
 
 Run from the repository root, with no arguments:
 
@@ -52,6 +58,11 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N = 10_000
 STEPS = 1_000
+#: steps of the timed runs of the headline paths (configs #1 and #3, phases
+#: 4 and 7; config #3 + ORCA, phase 19): cut from STEPS to keep the run
+#: within half its time limit once the scenario phases came in (the urban
+#: record keeps STEPS: its walkers need the time to reach the crossings)
+MAIN_STEPS = 200
 PARITY_STEPS = 50
 #: kernel vs plain version, elementwise |got - want| <= ATOL + RTOL*|want|:
 #: f32 summation order (the symmetric kernel's atomics change it from run
@@ -76,13 +87,13 @@ CUT_CHECK_N = (10_000, 50_000)
 CUT_N = 50_000
 #: steps of the Moussaid cutoff paths at 10k and 50k (phase 10), of
 #: config #2 (phase 7) and of the urban path's timed runs (phase 13; its
-#: recorded run keeps STEPS): cut from 1,000 to keep the run within its
-#: time limit as later slices add paths
-CUT_STEPS = 200
+#: recorded run keeps STEPS): cut from 1,000 (and from 200 once the
+#: scenario phases came in) to keep the run within half its time limit
+CUT_STEPS = 100
 #: steps of each main path's warm-up run before its timed runs
 WARMUP_STEPS = 20
 CUT_BIG_N = 1_000_000
-CUT_BIG_STEPS = 200
+CUT_BIG_STEPS = 100
 SAMPLE_ROWS = 4_096
 #: an explicit survivor-table width that forces the compacted kernels at
 #: N = 10,000 (79 tiles of 128, 40 of 256 per row)
@@ -104,11 +115,11 @@ ENV_ATOL = ENV_RTOL = 1e-5
 #: BENCH_GROUPS=0.5:4 switches on config #1 (phases 16 and 17)
 FAMILY_SWITCHES = ("powerlaw", "helbing", "mix-moussaid-powerlaw-helbing",
                    "groups-0.5:4")
-#: steps of every family path (phase 16): the headline ones (cut from STEPS
-#: to keep the run within its time limit as later slices add paths) and
-#: those that exist to launch the other forms of the family kernels (dense,
-#: dense cutoff, the tables at 50k)
-FAMILY_FORM_STEPS = 200
+#: steps of every family path (phase 16): the headline ones (cut from STEPS,
+#: then from 200, to keep the run within half its time limit as later
+#: slices add paths) and those that exist to launch the other forms of the
+#: family kernels (dense, dense cutoff, the tables at 50k)
+FAMILY_FORM_STEPS = 100
 
 #: the card's peak rates (NVIDIA H100 SXM data sheet; the f32 rate outside
 #: the tensor cores) and its special-function units (CUDA C++ Programming
@@ -155,6 +166,37 @@ ORCA_BIG_N = 50_000
 #: make 5 groups of 64, which the auto width (5) never compacts
 ORCA_URBAN_MAX_SURV = 4
 
+#: the scenario slice (phases 21-23): the Town02 crowd built through
+#: api/scenario.build_scenario from configs/scenarios/routed_town.toml with
+#: the full Town02 sidewalk capture and walker.random_pedestrians (random
+#: nav-graph origins and A* routes), on the jnp environment path
+#: (env_chunked: the chunk_argmin kernel); its timed runs, and every
+#: shipped scenario at its golden's horizon (tests/golden/README.md)
+TOWN_N = 10_000
+TOWN_STEPS = 200
+#: operations per (point slot, pedestrian) pair of the chunk scan
+#: (csrc/statics.cu chunk_argmin_kernel: two differences, two products, a
+#: sum, a compare and two selects)
+ARGMIN_OPS = 8
+#: the goldens' scenarios, horizons (s) and force files (tests/golden)
+GOLDENS = (("corridor_counterflow", 15.0, None, None),
+           ("road_crossing", 15.0, None, None),
+           ("obstacle_evasion", 15.0, None, None),
+           ("circle_holding", 15.0, None, None),
+           ("orthogonal_crossing", 15.0, None, None),
+           ("orthogonal_crossing", 90.0, "orthogonal_crossing_90s", None),
+           ("jaywalking_reactive", 25.0, None, None),
+           ("sidewalk_counterflow", 15.0, None, None),
+           ("routed_town", 15.0, None, None),
+           ("routed_town_walled", 15.0, None, None),
+           ("vehicle_evasion", 15.0, None, None),
+           ("destination_vehicle", 25.0, None, None),
+           ("corridor_counterflow", 15.0, "orca_corridor", "sfm_orca.toml"),
+           ("grouped_crossing", 15.0, None, "sfm_groups.toml"),
+           ("mixed_crossing", 15.0, None, "sfm_mixed.toml"),
+           ("antipodal_circle", 30.0, None, None),
+           ("overtaking", 30.0, None, None))
+
 
 def fail(msg: str) -> None:
     """Print the failure on both streams (a caller that keeps only the end
@@ -166,6 +208,16 @@ def fail(msg: str) -> None:
 
 def say(msg: str) -> None:
     print(msg, flush=True)
+
+
+#: the run's start on the host clock (main sets it)
+START = [time.perf_counter()]
+
+
+def lap(phase: str) -> None:
+    """Print the seconds since the run started, as a phase begins (where
+    the command's time goes)."""
+    say(f"[{time.perf_counter() - START[0]:.1f} s] {phase}")
 
 
 def seeded_crowd(n, seed, extent, alive_frac=0.9):
@@ -970,6 +1022,7 @@ def family_paths(dev, zero, drive, profile_steps, step_ms, launches):
     from carla_social_force_model_tpu_torch.models import stepper
     from carla_social_force_model_tpu_torch.ops import cuda_env, cuda_forces
 
+    lap("phase 16")
     # -- phase 16: main paths, the model families ---------------------------
     # the four bench.py family switches and the power law with the 30 m
     # cutoff (profiled); then the paths that launch the other forms (the
@@ -1011,6 +1064,7 @@ def family_paths(dev, zero, drive, profile_steps, step_ms, launches):
         if profiled:
             profile_steps(scene, params, cfg, state, step_ms[label], label)
 
+    lap("phase 17")
     # -- phase 17: the family paths step by step, kernels vs plain -----------
     # the four switches and the power law with the cutoff, its table forced
     # by an explicit width (the compacted kernel in the rollout)
@@ -1325,8 +1379,9 @@ def orca_paths(dev, zero, drive, profile_steps, step_ms, launches, card,
     from carla_social_force_model_tpu_torch.ops import geometry, statics
     from carla_social_force_model_tpu_torch.ops.spatial import morton_order
 
+    lap("phase 19")
     # -- phase 19: main paths, ORCA ------------------------------------------
-    paths = (("headline", N, STEPS), ("pure", N, ORCA_FORM_STEPS),
+    paths = (("headline", N, MAIN_STEPS), ("pure", N, ORCA_FORM_STEPS),
              ("urban", N, ORCA_FORM_STEPS), ("mixed", N, ORCA_FORM_STEPS),
              ("borders", ORCA_BIG_N, ORCA_FORM_STEPS))
     labels = {"headline": "config #3 + ORCA + env_analytic",
@@ -1364,6 +1419,7 @@ def orca_paths(dev, zero, drive, profile_steps, step_ms, launches, card,
             if int(crossing.sum()) == 0:
                 fail(f"{label}: no pedestrian crossed the road")
 
+    lap("phase 20")
     # -- phase 20: the ORCA paths step by step, kernels vs plain -------------
     for path in ("headline", "urban"):
         scene, params, cfg, state, expect = orca_scene(path, N, PARITY_STEPS,
@@ -1407,6 +1463,257 @@ def orca_paths(dev, zero, drive, profile_steps, step_ms, launches, card,
         f"alive rows")
 
 
+def read_bytes(path):
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def town_crowd(dev):
+    """The Town02 crowd (phases 21 and 23): configs/scenarios/
+    routed_town.toml with the full Town02 sidewalk capture (38 sections,
+    15,966 points) and ``walker.random_pedestrians = TOWN_N`` (random
+    nav-graph origins, A* routes), built through
+    ``api.simulation.Simulation.from_config`` (``build_scenario``) for
+    TOWN_STEPS steps on the scenarios' default engine.  Returns ``(sim,
+    set-up seconds)``."""
+    from carla_social_force_model_tpu_torch.api.simulation import Simulation
+    from carla_social_force_model_tpu_torch.utils.config import load_config
+    data = os.path.join(ROOT, "configs", "data")
+    cfg = load_config(os.path.join(ROOT, "configs", "scenarios",
+                                   "routed_town.toml"))
+    cfg["map"] = {
+        "nav_graph_npz": os.path.join(data, "town2_navgraph.npz"),
+        "sidewalk_borders_npz": os.path.join(data, "town2_sidewalks_full.npz")}
+    cfg["walker"]["random_pedestrians"] = TOWN_N
+    t0 = time.perf_counter()
+    sim = Simulation.from_config(cfg, os.path.join(ROOT, "configs",
+                                                   "sfm.toml"),
+                                 num_steps=TOWN_STEPS, device=dev)
+    return sim, time.perf_counter() - t0
+
+
+def scenario_kernel_checks(dev, card, town):
+    """Phase 21: the chunk scan (``chunk_argmin``, the JAX package's
+    ``_cp_kernel``) against its plain version on the card: at the Town02
+    crowd's shapes (its 38 border sections at step 0, where agents stand
+    stacked on nav-graph nodes, and at step 10), at CrossTown's walls
+    (routed_town_walled) under a seeded crowd of TOWN_N, and on the seeded
+    case of tests/scenario_cases.py (dead agents at the far sentinel, a
+    chunk whose slots are all invalid, exact ties across the chunks of one
+    segment).  dmin and idx must be equal bitwise, then the (S, N)
+    ``dist, bx, by, has_point`` of ``geometry.closest_point_per_segment``.
+    The kernel's device time at the Town02 crowd's shape (every launch
+    recorded), its plain version's and its bound.  Returns ``(worst,
+    result)``."""
+    import numpy as np
+    import torch
+    from scenario_cases import (chunk_scan_pair, closest_mismatches,
+                                closest_pair, scan_mismatches,
+                                seeded_chunk_set, seeded_crowd_planes,
+                                to_device)
+    from carla_social_force_model_tpu_torch.api.scenario import (
+        build_scenario)
+    from carla_social_force_model_tpu_torch.env.pointsets import chunked_on
+    from carla_social_force_model_tpu_torch.models import stepper
+    from carla_social_force_model_tpu_torch.models.spawn import apply_spawn
+    from carla_social_force_model_tpu_torch.ops import geometry, statics
+    sim, _ = town
+    b = sim.bundle
+    scene = stepper.prepare_scene(b.scene, chunked=True)
+    borders = scene.borders_chunked
+    start = apply_spawn(b.initial_state, b.scene.spawn, 0)
+    later, _ = stepper.make_rollout_fn(scene, b.params, b.cfg, 10,
+                                       record=False)(b.initial_state)
+    walled = build_scenario(
+        os.path.join(ROOT, "configs", "scenarios", "routed_town_walled.toml"),
+        os.path.join(ROOT, "configs", "sfm.toml"), 20, device=dev)
+    walls = walled.scene.borders
+    pts = walls.points[walls.valid]
+    rng = np.random.default_rng(21)
+    xy = rng.uniform(pts.min(0) - 5.0, pts.max(0) + 5.0,
+                     (TOWN_N, 2)).astype(np.float32)
+    cx, cy, _ = to_device(xy[:, 0].copy(), xy[:, 1].copy(),
+                          np.ones(TOWN_N, bool), dev)
+    sx, sy, _ = to_device(*seeded_crowd_planes(TOWN_N, seed=22), dev)
+    cases = (
+        ("Town02 crowd, step 0", start.pos_x, start.pos_y, borders),
+        ("Town02 crowd, step 10", later.pos_x, later.pos_y, borders),
+        ("CrossTown walls, seeded crowd", cx, cy, chunked_on(walls, dev)),
+        ("seeded case (dead agents, an all-invalid chunk, ties across "
+         "chunks)", sx, sy, chunked_on(seeded_chunk_set(21), dev)))
+    worst = 0.0
+    for label, px, py, pset in cases:
+        got, want = chunk_scan_pair(px, py, pset)
+        cgot, cwant = closest_pair(px, py, pset)
+        torch.cuda.synchronize()
+        c, kk = pset.valid.shape
+        bad, cbad = scan_mismatches(got, want), closest_mismatches(cgot,
+                                                                   cwant)
+        err = (got[0] - want[0]).abs().max().item()
+        say(f"phase 21 chunk_argmin, {label}: {pset.num_segments} segments, "
+            f"{c} chunks of {kk}, N={px.shape[0]}: dmin/idx elements that "
+            f"differ from the plain version {bad} of {2 * c * px.shape[0]}; "
+            f"closest points that differ {cbad}; has_point "
+            f"{int(cgot[3].sum())} of {cgot[3].numel()} (segment, "
+            f"pedestrian) pairs")
+        if bad or cbad:
+            fail(f"phase 21 chunk_argmin ({label}) differs from its plain "
+                 f"version")
+        worst = max(worst, err)
+    fx, fy = (a.contiguous() for a in geometry.staged_chunk_planes(borders))
+    px, py = later.pos_x, later.pos_y
+    ms = device_ms(lambda: statics.chunk_argmin(px, py, fx, fy),
+                   "chunk_argmin_kernel")
+    plain_ms = cuda_ms(lambda: geometry.chunk_argmin_plain(px, py, fx, fy),
+                       reps=3)
+    c, kk = fx.shape
+    n = px.shape[0]
+    n_bytes = 4 * (2 * c * kk + 2 * n) + 8 * c * n
+    ops = ARGMIN_OPS * c * kk * n
+    bnd = bound(n_bytes, ops, 0)
+    say(f"phase 21 time chunk_argmin at the Town02 crowd's shape ({c} chunks "
+        f"of {kk} points, N={n}): kernel {ms:.4f} ms on the device, plain "
+        f"{plain_ms:.4f} ms; bound {bnd[0]:.6f} ms ({bnd[1]}; {c * kk * n} "
+        f"pairs x {ARGMIN_OPS} operations, {n_bytes} bytes) ({card})")
+    return {"chunk_argmin": worst}, dict(ms=ms, plain_ms=plain_ms, bound=bnd)
+
+
+def scenario_paths(dev, zero, drive, profile_steps, step_ms, launches, card,
+                   town):
+    """Phases 22 and 23.  Phase 22: every shipped scenario on the card
+    through ``Simulation.from_config(...).run()`` at its golden's horizon,
+    with the chunk scan launched on every step of a scene with borders or
+    obstacles, the largest deviation from the golden printed (not held:
+    the goldens are the JAX package's CPU runs), and every step of the
+    first PARITY_STEPS against the plain versions' step from the same
+    state; one ``run_streamed`` whose CSVs equal ``run()`` +
+    ``write_csv()`` byte for byte (with the dense pair kernel, whose sums
+    do not change from run to run as the symmetric kernel's atomics do),
+    and one CLI run with ``--csv``.  Phase 23: the Town02 crowd's main
+    path (``drive``: warm-up, best of 3 over TOWN_STEPS, exact launch
+    counts), its profile and PARITY_STEPS steps against the plain
+    versions."""
+    import shutil
+    import numpy as np
+    import torch
+    from carla_social_force_model_tpu_torch.api import cli
+    from carla_social_force_model_tpu_torch.api.simulation import Simulation
+    from carla_social_force_model_tpu_torch.models import stepper
+
+    scen_dir = os.path.join(ROOT, "configs", "scenarios")
+    out_root = os.path.join(ROOT, "output", "chip_smoke")
+
+    lap("phase 22")
+    # -- phase 22: every shipped scenario on the card -------------------------
+    for scen, duration, fixture, sfm in GOLDENS:
+        name = fixture or scen
+        sim = Simulation.from_config(
+            os.path.join(scen_dir, f"{scen}.toml"),
+            os.path.join(ROOT, "configs", sfm or "sfm.toml"),
+            duration=duration, device=dev)
+        b = sim.bundle
+        if not b.cfg.env_chunked:
+            fail(f"phase 22 {name}: not on the jnp environment path")
+        reset_counts()
+        _, recs = sim.run()
+        counts = read_counts()
+        env = (b.scene.borders is not None
+               or b.scene.static_obstacles is not None)
+        if env and counts["chunk_argmin"] < b.num_steps:
+            fail(f"phase 22 {name}: chunk_argmin launched "
+                 f"{counts['chunk_argmin']} times in {b.num_steps} steps")
+        want = np.load(os.path.join(ROOT, "tests", "golden", f"{name}.npz"))
+        alive = want["alive"]
+        pos = recs.pos.cpu().numpy()
+        if not np.isfinite(pos[recs.alive.cpu().numpy()]).all():
+            fail(f"phase 22 {name}: non-finite positions")
+        dev_m = float(np.where(alive[..., None],
+                               np.abs(pos - want["pos"]), 0.0).max())
+        cells = int((recs.alive.cpu().numpy() != alive).sum())
+        say(f"phase 22 {name}: N={b.capacity}, {b.num_steps} steps in "
+            f"{sim.elapsed:.3f} s ({1e3 * sim.elapsed / b.num_steps:.3f} "
+            f"ms/step), launches {({k: v for k, v in counts.items() if v})}"
+            f"; largest deviation from the golden {dev_m:.3e} m, {cells} "
+            f"(step, agent) cells alive otherwise (printed, not held) "
+            f"({card})")
+        out = stepper.make_rollout_fn(b.scene, b.params, plain_cfg(b.cfg),
+                                      PARITY_STEPS)(b.initial_state)
+        rec_plain = out[1][0] if b.scene.autopilot is not None else out[1]
+        check_rollout(f"phase 22 {name}", b.scene, b.params, b.cfg,
+                      b.initial_state, rec_plain, free_limit=False)
+    shutil.rmtree(out_root, ignore_errors=True)
+    for scen, duration, chunk in (("jaywalking_reactive", 25.0, 128),
+                                  ("corridor_counterflow", 15.0, 100)):
+        dirs = []
+        for mode in ("memory", "streamed"):
+            sim = Simulation.from_config(
+                os.path.join(scen_dir, f"{scen}.toml"),
+                os.path.join(ROOT, "configs", "sfm.toml"), duration=duration,
+                device=dev, engine={"pallas_symmetric": False})
+            if mode == "memory":
+                sim.run()
+                dirs.append(sim.write_csv(os.path.join(out_root, mode)))
+            else:
+                dirs.append(sim.run_streamed(os.path.join(out_root, mode),
+                                             chunk_steps=chunk))
+        sizes = []
+        for csv_name in ("pedestrian.csv", "vehicle.csv", "borders.csv",
+                         "obstacles.csv"):
+            memory, streamed = (read_bytes(os.path.join(d, csv_name))
+                                for d in dirs)
+            if memory != streamed:
+                fail(f"phase 22 {scen}: run_streamed's {csv_name} differs "
+                     f"from run() + write_csv()")
+            sizes.append(len(memory))
+        say(f"phase 22 {scen}: run_streamed (segments of {chunk} steps) "
+            f"wrote the bytes of run() + write_csv(), all four CSVs "
+            f"({sizes} bytes)")
+    rc = cli.main(["--scenario-config",
+                   os.path.join(scen_dir, "obstacle_evasion.toml"),
+                   "--steps", "40", "--csv", "--output",
+                   os.path.join(out_root, "cli")])
+    (cli_dir,) = os.listdir(os.path.join(out_root, "cli"))
+    with open(os.path.join(out_root, "cli", cli_dir, "pedestrian.csv")) as f:
+        header, rows = f.readline().strip(), len(f.readlines())
+    if rc != 0 or header != "ped_id,frame,time,x,y,v_x,v_y,mode" or not rows:
+        fail(f"phase 22 CLI run: exit {rc}, header {header!r}, {rows} rows")
+    say(f"phase 22 CLI run (obstacle_evasion, 40 steps, --csv, on the card): "
+        f"exit 0, the reference schema, {rows} pedestrian rows")
+    shutil.rmtree(out_root, ignore_errors=True)
+
+    lap("phase 23")
+    # -- phase 23: the Town02 crowd at N = TOWN_N -----------------------------
+    sim, setup_s = town
+    b = sim.bundle
+    label = (f"phase 23 Town02 crowd (routed_town, full Town02 borders, "
+             f"{TOWN_N} random pedestrians), N={b.capacity}")
+    say(f"{label}: set-up {setup_s:.2f} s (build_scenario: random A* "
+        f"routes, {b.scene.borders.num_segments} border sections in "
+        f"{b.scene.borders.num_chunks} chunks of "
+        f"{b.scene.borders.chunk_size})")
+    counts, step_ms[label] = drive(
+        label, b.scene, b.params, b.cfg, b.initial_state, TOWN_STEPS,
+        dict(zero, pair_force_sym=TOWN_STEPS, chunk_argmin=TOWN_STEPS),
+        all_alive=False)
+    launches["chunk_argmin"] = counts["chunk_argmin"]
+    say(f"{label}: {sum(counts.values()) / TOWN_STEPS:.0f} kernel launches "
+        f"of the port per step, chunk_argmin "
+        f"{counts['chunk_argmin'] / TOWN_STEPS:.0f} per step")
+    profile_steps(b.scene, b.params, b.cfg, b.initial_state, step_ms[label],
+                  label)
+    final, recs = sim.run()
+    if not (torch.isfinite(final.pos_x).all()
+            and torch.isfinite(final.pos_y).all()):
+        fail(f"{label}: non-finite positions after Simulation.run()")
+    say(f"{label}: Simulation.run() recorded {tuple(recs.pos.shape)} in "
+        f"{sim.elapsed:.3f} s, {int(final.alive.sum())} alive at the end")
+    _, rec_plain = stepper.make_rollout_fn(b.scene, b.params,
+                                           plain_cfg(b.cfg),
+                                           PARITY_STEPS)(b.initial_state)
+    check_rollout(label, b.scene, b.params, b.cfg, b.initial_state,
+                  rec_plain, free_limit=False)
+
+
 def main() -> None:
     try:
         import torch
@@ -1415,6 +1722,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs an "
              "NVIDIA card")
+    START[0] = time.perf_counter()
     sys.path.insert(0, ROOT)
     try:
         from carla_social_force_model_tpu_torch.api.synthetic import (
@@ -1432,6 +1740,7 @@ def main() -> None:
     import dataclasses
     import numpy as np
 
+    lap("phase 1")
     # -- phase 1: the card --------------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1447,6 +1756,7 @@ def main() -> None:
         f"{torch.cuda.device_count()} visible; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}; nvidia-smi: {card}")
 
+    lap("phase 2")
     # -- phase 2: build the kernels from csrc/ (one nvcc per source) ---------
     t0 = time.perf_counter()
     cuda_build.build_kernels()
@@ -1457,6 +1767,7 @@ def main() -> None:
     say(f"phase 2 build: {build_s:.2f} s, {cuda_build.LIBRARY.name}; "
         f"ptxas: {' | '.join(ptxas)}")
 
+    lap("phase 3")
     # -- phase 3: each pair kernel against its plain version, on the card ----
     kernels = {"pair_force_sym": cuda_forces.pair_force_sym,
                "pair_force_dense": cuda_forces.pair_force_dense}
@@ -1545,7 +1856,8 @@ def main() -> None:
         must equal ``expect`` (per run) exactly.  Every position ends
         finite, and with ``all_alive`` every agent alive."""
         scene = stepper.prepare_scene(scene, analytic=cfg.env_analytic,
-                                      orca=params.enable_orca)
+                                      orca=params.enable_orca,
+                                      chunked=cfg.env_chunked)
         run = stepper.make_rollout_fn(scene, params, cfg, steps, record=False)
         stepper.make_rollout_fn(scene, params, cfg, min(steps, WARMUP_STEPS),
                                 record=False)(state)
@@ -1603,6 +1915,7 @@ def main() -> None:
             + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms"
                         f" x{e.count}" for e in top))
 
+    lap("phase 4")
     # -- phase 4: main path, config #1 (the pair kernels) -------------------
     scene, params, cfg, state = benchmark_bundle(N, device=dev)
     zero = {k: 0 for k in read_counts()}
@@ -1611,12 +1924,13 @@ def main() -> None:
                             ("pair_force_dense", False)):
         counts, step_ms[name] = drive(
             f"phase 4 config #1 via {name}", scene, params,
-            dataclasses.replace(cfg, symmetric_pairs=symmetric), state, STEPS,
-            dict(zero, **{name: STEPS}))
+            dataclasses.replace(cfg, symmetric_pairs=symmetric), state,
+            MAIN_STEPS, dict(zero, **{name: MAIN_STEPS}))
         launches[name] = counts[name]
     profile_steps(scene, params, cfg, state, step_ms["pair_force_sym"],
                   "phase 4 config #1")
 
+    lap("phase 5")
     # -- phase 5: end to end, kernel vs plain version on the same card -------
     t0 = time.perf_counter()
     _, rec_plain = stepper.make_rollout_fn(scene, params, plain_cfg(cfg),
@@ -1628,6 +1942,7 @@ def main() -> None:
     say(f"phase 5 plain-path rollout: {N * PARITY_STEPS / plain_s:.1f} "
         f"agent-steps/s over {PARITY_STEPS} steps ({card})")
 
+    lap("phase 6")
     # -- phase 6: the environment kernels at config #3's shapes --------------
     scene, params, cfg, state = benchmark_bundle(
         N, with_borders=True, with_obstacles=True, num_steps_hint=STEPS,
@@ -1724,9 +2039,10 @@ def main() -> None:
             f"({card})")
     torch.cuda.synchronize()
 
+    lap("phase 7")
     # -- phase 7: main paths, configs #2 and #3 ------------------------------
     for label, with_obstacles, steps in (("config #2", False, CUT_STEPS),
-                                         ("config #3", True, STEPS)):
+                                         ("config #3", True, MAIN_STEPS)):
         scene, params, cfg, state = benchmark_bundle(
             N, with_borders=True, with_obstacles=with_obstacles,
             num_steps_hint=STEPS, device=dev)
@@ -1740,6 +2056,7 @@ def main() -> None:
             profile_steps(scene, params, cfg, state, step_ms[label],
                           f"phase 7 {label}")
 
+    lap("phase 8")
     # -- phase 8: config #3 end to end, kernels vs plain versions ------------
     t0 = time.perf_counter()
     _, rec_plain = stepper.make_rollout_fn(scene, params, plain_cfg(cfg),
@@ -1752,11 +2069,13 @@ def main() -> None:
         f"{N * PARITY_STEPS / plain_s:.1f} agent-steps/s over "
         f"{PARITY_STEPS} steps ({card})")
 
+    lap("phase 9")
     # -- phase 9: the cutoff kernels against the plain version -------------
     cut_worst, cut = cutoff_kernel_checks(dev, card)
     worst.update(cut_worst)
     torch.cuda.synchronize()
 
+    lap("phase 10")
     # -- phase 10: main paths, config #1 with the 30 m cutoff ----------------
     # below the gate (N = 10k) the static grids with the box test, above it
     # (50k, 1M) the survivor-table kernels
@@ -1793,6 +2112,7 @@ def main() -> None:
             say(f"{label}: its step-0 pair force alone, {one:.4f} ms of "
                 f"kernel on the device ({card})")
 
+    lap("phase 11")
     # -- phase 11: end to end with the cutoff, kernels vs plain versions -----
     # an explicit table width forces the compacted kernels at N = 10k
     for label, kw, forms in (
@@ -1819,11 +2139,13 @@ def main() -> None:
                 fail(f"phase 11 {label}: {name} launched {counts[name]} "
                      f"times in {PARITY_STEPS} steps")
 
+    lap("phase 12")
     # -- phase 12: the compacted environment kernels at their paths' shapes -
     comp_worst, comp = env_compact_checks(dev, card)
     worst.update(comp_worst)
     torch.cuda.synchronize()
 
+    lap("phase 13")
     # -- phase 13: the urban main path (BASELINE config #4) ------------------
     from carla_social_force_model_tpu_torch.api.synthetic import urban_bundle
     scene, params, cfg, state = urban = urban_bundle(
@@ -1838,6 +2160,7 @@ def main() -> None:
     profile_steps(scene, params, cfg, state, step_ms["urban"],
                   "phase 13 urban")
 
+    lap("phase 14")
     # -- phase 14: the urban path and config #3 + env_compact, step by step --
     t0 = time.perf_counter()
     _, (rec_plain, _) = stepper.make_rollout_fn(
@@ -1874,6 +2197,7 @@ def main() -> None:
                   env_moussaid_compact=PARITY_STEPS,
                   env_moussaid=PARITY_STEPS)
 
+    lap("phase 15")
     # -- phase 15: the family kernels against their plain versions ----------
     fam_worst, fam = family_kernel_checks(dev, card)
     worst.update(fam_worst)
@@ -1882,6 +2206,7 @@ def main() -> None:
     # -- phases 16 and 17: the family main paths, then step by step ---------
     family_paths(dev, zero, drive, profile_steps, step_ms, launches)
 
+    lap("phase 18")
     # -- phase 18: the ORCA slice's kernels against their plain versions ----
     orca_worst, orc = orca_kernel_checks(dev, card, urban)
     worst.update(orca_worst)
@@ -1891,6 +2216,18 @@ def main() -> None:
     orca_paths(dev, zero, drive, profile_steps, step_ms, launches, card,
                urban)
 
+    lap("phase 21")
+    # -- phase 21: the chunk scan against its plain version ------------------
+    town = town_crowd(dev)
+    scn_worst, scn = scenario_kernel_checks(dev, card, town)
+    worst.update(scn_worst)
+    torch.cuda.synchronize()
+
+    # -- phases 22 and 23: the shipped scenarios and the Town02 crowd -------
+    scenario_paths(dev, zero, drive, profile_steps, step_ms, launches, card,
+                   town)
+
+    lap("the kernels line")
     csrc = "carla_social_force_model_tpu_torch/csrc/"
     table = [
         ("pair_force_sym", csrc + "pair_forces.cu",
@@ -1935,6 +2272,9 @@ def main() -> None:
               ("seg_topk", "statics.cu", "pallas_statics.py:111"),
               ("chunk_topk", "statics.cu", "pallas_statics.py:137"),
               ("chunk_closest", "statics.cu", "geometry.py:214"))),
+        ("chunk_argmin", csrc + "statics.cu",
+         "carla_social_force_model_tpu/ops/geometry.py:117", scn["ms"],
+         scn["plain_ms"], scn["bound"]),
     ]
     for name, *_ in table:
         if launches[name] == 0:
@@ -2204,7 +2544,8 @@ def check_rollout(label, scene, params, cfg, state, rec_plain, free_limit):
     import torch
     from carla_social_force_model_tpu_torch.models import stepper
     scene = stepper.prepare_scene(scene, analytic=cfg.env_analytic,
-                                  orca=params.enable_orca)
+                                  orca=params.enable_orca,
+                                  chunked=cfg.env_chunked)
     ref_cfg = plain_cfg(cfg)
     fleet = scene.autopilot
     ap = fleet.initial_state() if fleet is not None else None

@@ -1,9 +1,10 @@
 """PyTorch port on an NVIDIA card: the CUDA pair-force and environment-force
 kernels (with the cutoff forms of the pair kernels, their power-law and
 Helbing forms, the compacted forms of the environment kernels and the
-analytic form of the border kernel) and the ORCA wall-feed kernels against
-their plain PyTorch versions, and the rollouts through them (the urban
-slice's, the model families' and the ORCA slice's too).
+analytic form of the border kernel), the ORCA wall-feed kernels and the
+chunk scan of the chunked environment forces against their plain PyTorch
+versions, and the rollouts through them (the urban slice's, the model
+families', the ORCA slice's and a scenario's too).
 
 Every test here needs a card and skips without one.  This file imports
 neither JAX nor the JAX package, so on a machine with a card and no JAX it
@@ -29,6 +30,9 @@ from carla_social_force_model_tpu_torch.ops.spatial import morton_order
 from family_cases import family_planes, family_reference, family_run
 from orca_cases import (ENV_ATOL, ENV_RTOL, analytic_run, feed_mismatch,
                         feed_run, feed_scene)
+from scenario_cases import (chunk_scan_pair, chunked_on, closest_mismatches,
+                            closest_pair, scan_mismatches, seeded_chunk_set,
+                            seeded_crowd_planes, to_device)
 
 pytestmark = pytest.mark.cuda
 
@@ -75,6 +79,40 @@ def test_kernel_matches_plain_version(cuda_device, kernel, n, use_radius,
     assert torch.isfinite(got).all()
     assert bool((got[:, ~planes[5]] == 0).all())
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("kernel", ["pair_force_sym", "pair_force_dense"])
+def test_kernel_matches_plain_version_on_stacked_starts(cuda_device, kernel):
+    """Agents that spawned on the same point and took one step apart sit on
+    the branch cut of the force's atan2 (t_hat anti-parallel to e, cross
+    exactly 0 for many pairs), where the tangential term flips with the
+    sign of cross: the kernels round cross and dot per operation, with the
+    rsqrtf that PyTorch's rsqrt uses, so both take the same side
+    (|err| <= 1e-4 + 1e-4*|f|; with FMA-contracted math 44 elements of
+    these eight crowds were off by up to 4.8)."""
+    p = MoussaidParams()
+    for seed in range(8):
+        rng = np.random.default_rng(seed)
+        n_nodes, per_node = 64, 24
+        nodes = rng.uniform(-30, 30, (n_nodes, 2)).astype(np.float32)
+        heading = rng.uniform(-np.pi, np.pi, (n_nodes, per_node))
+        speed = rng.uniform(1.0, 1.6, (n_nodes, per_node))
+        vel = np.stack([speed * np.cos(heading), speed * np.sin(heading)],
+                       -1).reshape(-1, 2).astype(np.float32)
+        start = torch.from_numpy(np.repeat(nodes, per_node, axis=0)).to(
+            cuda_device)
+        v = torch.from_numpy(vel).to(cuda_device)
+        pos = start + 0.05 * v                  # one Euler step apart
+        n = pos.shape[0]
+        planes = [pos[:, 0].contiguous(), pos[:, 1].contiguous(),
+                  v[:, 0].contiguous(), v[:, 1].contiguous(),
+                  torch.full((n,), 0.3, device=cuda_device),
+                  torch.ones(n, dtype=torch.bool, device=cuda_device)]
+        want = torch.stack(forces.pedestrian_force(*planes, p))
+        got = torch.stack(getattr(cuda_forces, kernel)(
+            *planes, moussaid_vector(p, cuda_device)))
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
 def test_launch_counts_and_dispatch(cuda_device):
@@ -688,7 +726,7 @@ def test_feed_launch_counts_and_checks(cuda_device):
     statics.nearest_features_topk(x, y, rest, 3, 15.0, alive)
     geometry.closest_point_per_chunk(x, y, rest, 15.0, alive)
     assert statics.LAUNCHES == {"seg_topk": 1, "chunk_topk": 1,
-                                "chunk_closest": 1}
+                                "chunk_closest": 1, "chunk_argmin": 0}
     with pytest.raises(ValueError, match="k must be"):
         statics.seg_topk(x, y, seg, 9, 15.0)
     with pytest.raises(ValueError, match="contiguous float32"):
@@ -729,3 +767,79 @@ def test_orca_steps_through_kernels_match_plain_steps(cuda_device):
                 for k, v in m.LAUNCHES.items() if v}
     assert launched == {"env_exp_analytic": 20, "env_moussaid": 40,
                         "seg_topk": 20, "chunk_topk": 20}
+
+
+# -- the chunk scan of the chunked environment forces (kernel #11) -----------
+
+@pytest.mark.parametrize("chunk_size", [128, 64, 200])
+@pytest.mark.parametrize("n", [1, 129, 1000])
+def test_chunk_argmin_matches_plain_version_bitwise(cuda_device, n,
+                                                    chunk_size):
+    """The chunk scan against its plain version on the card: pads, an
+    all-invalid chunk with real coordinates, an empty segment, ties across
+    the chunks of a segment, dead agents at the far sentinel: dmin and idx
+    bitwise, then the segmented closest points bitwise."""
+    from carla_social_force_model_tpu_torch.ops import statics
+    pset = chunked_on(seeded_chunk_set(n, chunk_size=chunk_size),
+                      cuda_device)
+    x, y, _ = seeded_crowd_planes(n, seed=n + 7)
+    px, py, _ = to_device(x, y, np.ones(n, bool), cuda_device)
+    before = statics.LAUNCHES["chunk_argmin"]
+    got, want = chunk_scan_pair(px, py, pset)
+    torch.cuda.synchronize()
+    assert statics.LAUNCHES["chunk_argmin"] == before + 1
+    assert scan_mismatches(got, want) == 0
+    got, want = closest_pair(px, py, pset)
+    torch.cuda.synchronize()
+    assert closest_mismatches(got, want) == 0
+
+
+def test_chunk_argmin_checks_and_empty(cuda_device):
+    """The wrapper refuses CPU, non-contiguous and mistyped planes and
+    launches nothing for an empty crowd."""
+    from carla_social_force_model_tpu_torch.ops import geometry, statics
+    pset = chunked_on(seeded_chunk_set(1), cuda_device)
+    fx, fy = (a.contiguous() for a in geometry.staged_chunk_planes(pset))
+    x = torch.zeros(4, device=cuda_device)
+    with pytest.raises(ValueError):
+        statics.chunk_argmin(x.cpu(), x.cpu(), fx, fy)
+    with pytest.raises(ValueError):
+        statics.chunk_argmin(x, x, fx.t(), fy)
+    with pytest.raises(ValueError):
+        statics.chunk_argmin(x, x, fx.double(), fy)
+    before = statics.LAUNCHES["chunk_argmin"]
+    dmin, idx = statics.chunk_argmin(x[:0], x[:0], fx, fy)
+    assert dmin.shape == (fx.shape[0], 0) and idx.dtype == torch.int32
+    assert statics.LAUNCHES["chunk_argmin"] == before
+
+
+def test_scenario_steps_through_kernels_match_plain_steps(cuda_device):
+    """A shipped scenario with borders, parked cars and the chunked
+    environment path (obstacle_evasion): 30 steps through the kernels, each
+    against the plain versions' step from the same state (1e-4 m), with
+    the chunk scan launched on every step."""
+    import os
+    from carla_social_force_model_tpu_torch.api.simulation import Simulation
+    from carla_social_force_model_tpu_torch.ops import statics
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sim = Simulation.from_config(
+        os.path.join(root, "configs", "scenarios", "obstacle_evasion.toml"),
+        os.path.join(root, "configs", "sfm.toml"), num_steps=30,
+        device=cuda_device)
+    b = sim.bundle
+    assert b.cfg.env_chunked
+    scene = stepper.prepare_scene(b.scene, chunked=True)
+    ref = dataclasses.replace(b.cfg, plain_pair_force=True,
+                              plain_env_force=True)
+    s = b.initial_state
+    before = statics.LAUNCHES["chunk_argmin"]
+    for k in range(30):
+        nxt, _ = stepper.simulation_step(s, scene, b.params, b.cfg, k)
+        want, _ = stepper.simulation_step(s, scene, b.params, ref, k)
+        assert torch.equal(nxt.alive, want.alive)
+        assert torch.equal(nxt.mode, want.mode)
+        err = max((nxt.pos_x - want.pos_x).abs().max().item(),
+                  (nxt.pos_y - want.pos_y).abs().max().item())
+        assert err <= 1e-4, (k, err)
+        s = nxt
+    assert statics.LAUNCHES["chunk_argmin"] - before >= 30

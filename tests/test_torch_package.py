@@ -161,19 +161,25 @@ def test_declared_argtypes_match_the_c_entries():
 
 
 def _entry_points():
-    from carla_social_force_model_tpu_torch.api import synthetic
+    from carla_social_force_model_tpu_torch.api import scenario, synthetic
+    from carla_social_force_model_tpu_torch.api.simulation import Simulation
     from carla_social_force_model_tpu_torch.env.borders import (
         build_border_set)
     from carla_social_force_model_tpu_torch.env.pointsets import (
-        analytic_split, build_static_features, segment_major)
+        analytic_split, build_static_features, chunked_on, segment_major)
     from carla_social_force_model_tpu_torch.models import (autopilot, groups,
-                                                           routes, vehicles)
+                                                           routes, spawn,
+                                                           vehicles)
     import numpy as np
     spec = vehicles.VehicleSpec(trajectory=np.zeros((3, 2)),
                                 headings=np.zeros(3), speeds=np.ones(3))
     ap_spec = autopilot.AutopilotSpec(waypoints=np.array([[0.0, 0.0],
                                                           [10.0, 0.0]]))
     borders = build_border_set([np.zeros((3, 2))], [np.zeros(2)], [1.0])
+    walker = spawn.SpawnerSpec(spawn_location=np.zeros(2),
+                               waypoints=np.ones((1, 2)),
+                               crossing_road=[False])
+    toml = str(ROOT / "configs" / "scenarios" / "road_crossing.toml")
     return {
         "synthetic_crowd": (synthetic.synthetic_crowd, (4,)),
         "benchmark_bundle": (synthetic.benchmark_bundle, (4,)),
@@ -193,6 +199,12 @@ def _entry_points():
         "build_autopilot_fleet": (autopilot.build_autopilot_fleet,
                                   ([ap_spec], 0.05, 5)),
         "build_groups": (groups.build_groups, ([0, 0, -1, 1, 1],)),
+        "chunked_on": (chunked_on, (borders,)),
+        "build_spawn_schedule": (spawn.build_spawn_schedule,
+                                 ([walker], 0.05, 5)),
+        "build_scenario": (scenario.build_scenario, (toml, {}, 5)),
+        "Simulation.from_config": (Simulation.from_config, (toml, {}),
+                                   dict(num_steps=5)),
     }
 
 
@@ -201,7 +213,9 @@ def _entry_points():
                                   "build_route_buffer", "build_vehicle_states",
                                   "segment_major", "analytic_split",
                                   "build_static_features", "urban_bundle",
-                                  "build_autopilot_fleet", "build_groups"])
+                                  "build_autopilot_fleet", "build_groups",
+                                  "chunked_on", "build_spawn_schedule",
+                                  "build_scenario", "Simulation.from_config"])
 def test_entry_points_default_to_the_card(name, monkeypatch):
     """Every entry point that takes a device defaults to CUDA: without a
     card it raises (no fallback to the CPU), and ``device="cpu"`` runs."""
