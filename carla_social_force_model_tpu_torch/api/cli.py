@@ -55,7 +55,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--comm", choices=("gather", "ring", "ring_kernel"),
                    default=None,
                    help="column-state communication under agent-sharding "
-                        "(refused: multi-device is not ported yet)")
+                        "(StepConfig.axis_comm; one device ignores it)")
     p.add_argument("--exact-div", action="store_true", default=None,
                    help="exact division in the Pallas in-kernel atan2 "
                         "(refused: a TPU launch knob)")
@@ -131,7 +131,6 @@ REFUSED = {
     "checkpoint_backend": "checkpoints are not ported yet (ROADMAP Queue 1 "
                           "item 20)",
     "profile": "profiling is not ported yet (ROADMAP Queue 1 item 20)",
-    "comm": "multi-device is not ported yet (ROADMAP Queue 1 item 23)",
     "vmem_mb": "a TPU launch knob with no counterpart on the port",
     "exact_div": "a TPU launch knob with no counterpart on the port",
 }
@@ -167,7 +166,8 @@ def main(argv=None) -> int:
                 "env_compact": args.env_compact,
                 "env_analytic": args.env_analytic,
                 "pallas_compact": args.pallas_compact,
-                "pallas_symmetric": args.symmetric})
+                "pallas_symmetric": args.symmetric,
+                "axis_comm": args.comm})
 
     if args.stream:
         out = sim.run_streamed(args.output, chunk_steps=args.chunk_steps,

@@ -25,9 +25,11 @@ simulation from the same file:
   ``utils/convert.step_config_from_fields`` carries them.
 
 The TPU launch knobs (``pallas_exact_div``, ``pallas_vmem_mb``,
-``env_ped_tile``, ``env_point_tile``) other than at their defaults, and an
-``axis_comm`` other than ``gather`` (multi-device), have no counterpart and
-raise ``ValueError``.
+``env_ped_tile``, ``env_point_tile``) other than at their defaults have no
+counterpart and raise ``ValueError``.  ``axis_comm`` carries over into
+``StepConfig.axis_comm``, as in the JAX package, whose ``Simulation`` never
+shards either: it acts under ``parallel.sharding.make_sharded_rollout``
+only.
 
 Headless coverage notes:
 * ``generate_route`` requires a navigation graph; headless it is served by
@@ -367,21 +369,18 @@ def step_config_from_engine(eng: dict, dt: float, waypoint_threshold: float,
     stepper.py:273): without ``use_pallas`` the jnp environment path
     (``env_chunked``), with the Pallas-only knobs dropped under the JAX
     package's warning; with it the fused environment kernels and every
-    knob.  Raises ``ValueError`` for a TPU launch knob or a multi-device
-    ``axis_comm``."""
+    knob, and ``axis_comm`` on both.  Raises ``ValueError`` for a TPU
+    launch knob."""
     for key, default in _TPU_ENGINE_DEFAULTS.items():
         if key in eng and eng[key] != default:
             raise ValueError(f"engine.{key} = {eng[key]!r} is a TPU launch "
                              f"knob with no counterpart on the port")
-    if str(eng.get("axis_comm", "gather")) != "gather":
-        raise ValueError("engine.axis_comm selects the multi-device column "
-                         "exchange, which the port does not have yet "
-                         "(ROADMAP Queue 1 item 23)")
     use_pallas = bool(eng.get("use_pallas", False))
     common = dict(dt=dt, waypoint_threshold=waypoint_threshold,
                   despawn_on_arrival=despawn_on_arrival,
                   symmetric_pairs=bool(eng.get("pallas_symmetric", True)),
-                  spatial_order=str(eng.get("spatial_order", "hilbert")))
+                  spatial_order=str(eng.get("spatial_order", "hilbert")),
+                  axis_comm=str(eng.get("axis_comm", "gather")))
     if not use_pallas:
         if eng.get("interaction_cutoff") is not None:
             log.warning("interaction_cutoff only takes effect on the fused "

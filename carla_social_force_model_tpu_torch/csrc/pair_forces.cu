@@ -1,21 +1,29 @@
 // Pair-force kernels for Hopper (sm_90a), with a plain C interface for ctypes
 // (utils/cuda_build.py builds this file, ops/cuda_forces.py binds it).  Each
 // kernel is a template over its walk (which tile pairs a block visits) and
-// its pair law (pair_forces.cuh): the Moussaid force, the Karamouzas power
-// law and the Helbing ellipse.  The plain PyTorch versions are
-// ops/forces.py::pedestrian_force, ::powerlaw_force and
-// ::ped_repulsive_force (with ``cutoff`` for the cutoff forms).
+// its pair law (pair_laws.cuh): the Moussaid force, the Karamouzas power
+// law and the Helbing ellipse.  There is one C entry per walk, sfm_pair_<form>,
+// which takes the law's id (LawId) first and switches on it.  The plain
+// PyTorch versions are ops/forces.py::pedestrian_force, ::powerlaw_force and
+// ::ped_repulsive_force (with ``cutoff`` for the cutoff forms, and
+// ``cols``/``row_offset`` for the rectangular ones).
 //
 // The laws replace the JAX package's per-law tile functions
 // (ops/pallas_forces.py, all launched through _tile_fn :608): _pair_tile
 // (:375, Moussaid), _pair_tile_powerlaw (:462) and _pair_tile_helbing
 // (:528).  Moussaid and the power law take every walk below; Helbing, which
 // is not antisymmetric, takes the dense walks only (the JAX package forces
-// symmetric=False for it, :714-719).  The TPU kernel staged Helbing's row
-// desired directions in the row velocity slots, because its row and column
-// planes were separate arrays; here rows and columns are read from the same
-// planes, so the Helbing entries take explicit ex, ey row planes beside the
-// column velocities.
+// symmetric=False for it, :714-719).
+//
+// Rows and columns.  The dense walks and the full-block walk take row planes
+// and column planes, each with its own count and the global slot of its
+// first agent: under agent sharding a shard's rows meet the gathered
+// columns (``gather``) or one shard's block at a time (``ring``), the JAX
+// package's _slab_call(row_args, row_bb, col_args, col_bb) (:1000).  The
+// square call passes the same planes twice.  The self-pair test compares
+// global slots.  Helbing's row planes carry the desired directions in their
+// velocity slots and its column planes the true velocities, as the JAX
+// package staged them (pallas_ring.py:218-225).
 //
 // What each walk replaces (JAX package, ops/pallas_forces.py):
 //   pair_force_dense_kernel<kAllTiles>  <- _pair_kernel (:162), the dense
@@ -35,6 +43,12 @@
 //       box test exits before it stages anything.
 //   pair_force_sym_kernel<kSymTable>    <- _pair_kernel_sym driven by the
 //       per-step table of hits AND triangle (:924-938).
+//   pair_force_sym_dense_kernel<kFullBlock(Box)> <- _pair_kernel_sym_dense
+//       (:296), the off-diagonal step of the half-ring: every pair of a
+//       rectangular (rows x columns) block once, +f to the row output and -f
+//       to a separate column output, with no triangle (rows and columns are
+//       different shards' agents); with a cutoff, the box skip of both
+//       sides' 128-agent tiles.
 //
 // What bounds them on this card.  Each Moussaid pair costs about 85 f32
 // operations and 6 special-function operations (2 rsqrt, atan2, 2 exp, a
@@ -62,9 +76,9 @@
 // Where the TPU design does not carry over.  The TPU walks its grid in order
 // and kept one (1, n_cols) column accumulator resident in VMEM for the whole
 // launch (pallas_forces.py:264-272, :453-459, :1065-1071).  Blocks here run
-// in parallel and in no order, so the symmetric kernel reduces its column
+// in parallel and in no order, so the symmetric kernels reduce their column
 // partials inside the block (per-warp rows of shared memory, written without
-// conflicts in a staggered order) and then adds them with one atomicAdd per
+// conflicts in a staggered order) and then add them with one atomicAdd per
 // column per block; rows need atomicAdd too, because every tile pair of a row
 // tile is its own block.  The order of those float additions varies from run
 // to run, so the symmetric result matches the plain version only up to f32
@@ -90,7 +104,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "pair_forces.cuh"
+#include "pair_laws.cuh"
 
 namespace {
 
@@ -107,84 +121,24 @@ enum DenseWalk { kAllTiles, kBoxSkip, kTable };
 // how a symmetric block finds its tile pair(s)
 enum SymWalk { kTriangle, kTriangleBox, kSymTable };
 
-// The pair laws the kernels are instantiated for.  Each reads its
-// parameter vector (models/params.py *_vector), says whether it reads radii
-// and whether it is antisymmetric, and evaluates one pair from the row's
-// position and velocity slots (u, v) and the column's position, velocity
-// (cu, cv) and radius.  The row slots hold v_i, except for Helbing, whose
-// entries pass the row's desired direction e_i there.
-struct Moussaid {
-  using Prm = MoussaidPrm;
-  static constexpr bool kRadius = true;
-  static constexpr bool kAntisymmetric = true;
-  static __device__ __forceinline__ Prm load(const float* __restrict__ prm) {
-    return Prm{prm[0], prm[1], prm[2], prm[3], prm[4], prm[5]};
-  }
-  static __device__ __forceinline__ void pair(float dx, float dy, float u,
-                                              float v, float cu, float cv,
-                                              float ri, float rj,
-                                              int use_radius, bool ok,
-                                              const Prm& p, float& fx,
-                                              float& fy) {
-    const float rsub = use_radius ? ri + rj : 0.0f;
-    moussaid_pair(dx, dy, u - cu, v - cv, rsub, ok, p, fx, fy);
-  }
+// One side of a launch: the planes of n agents whose first has global slot
+// off.  (u, v) are the velocity slots: v for the columns; v, or Helbing's
+// desired direction e, for the rows.  rad may be null for Helbing.
+struct Planes {
+  const float* __restrict__ x;
+  const float* __restrict__ y;
+  const float* __restrict__ u;
+  const float* __restrict__ v;
+  const float* __restrict__ rad;
+  const uint8_t* __restrict__ alive;
+  int n;
+  int off;
 };
-
-struct PowerLaw {  // disc radii always participate
-  using Prm = PowerLawPrm;
-  static constexpr bool kRadius = true;
-  static constexpr bool kAntisymmetric = true;
-  static __device__ __forceinline__ Prm load(const float* __restrict__ prm) {
-    return Prm{prm[0], prm[1], prm[2], prm[3]};
-  }
-  static __device__ __forceinline__ void pair(float dx, float dy, float u,
-                                              float v, float cu, float cv,
-                                              float ri, float rj, int,
-                                              bool ok, const Prm& p,
-                                              float& fx, float& fy) {
-    powerlaw_pair(dx, dy, u - cu, v - cv, ri + rj, ok, p, fx, fy);
-  }
-};
-
-struct Helbing {  // (u, v) = e_i; reads the column velocity, no radii
-  using Prm = HelbingPrm;
-  static constexpr bool kRadius = false;
-  static constexpr bool kAntisymmetric = false;
-  static __device__ __forceinline__ Prm load(const float* __restrict__ prm) {
-    return Prm{prm[0], prm[1], prm[2], prm[3], prm[4], prm[5]};
-  }
-  static __device__ __forceinline__ void pair(float dx, float dy, float u,
-                                              float v, float cu, float cv,
-                                              float, float, int, bool ok,
-                                              const Prm& p, float& fx,
-                                              float& fy) {
-    helbing_pair(dx, dy, cu, cv, u, v, ok, p, fx, fy);
-  }
-};
-static_assert(!Helbing::kAntisymmetric,
-              "Helbing is not antisymmetric: it has the dense entries only");
-
-// Box test of row box (rx0, rx1, ry0, ry1) against column tile t of a
-// (4, n_tiles) box array.
-__device__ __forceinline__ bool box_hits(const float* __restrict__ bb,
-                                         long long n_tiles, long long t,
-                                         float rx0, float rx1, float ry0,
-                                         float ry1, float c2) {
-  return box_gap2(rx0, rx1, ry0, ry1, bb[t], bb[n_tiles + t],
-                  bb[2 * n_tiles + t], bb[3 * n_tiles + t]) <= c2;
-}
 
 template <int kWalk, class Law>
 __global__ void __launch_bounds__(kDenseThreads)
-pair_force_dense_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                        const float* __restrict__ vx,
-                        const float* __restrict__ vy,
-                        const float* __restrict__ ru,
-                        const float* __restrict__ rv,
-                        const float* __restrict__ rad,
-                        const uint8_t* __restrict__ alive,
-                        const float* __restrict__ prm, int use_radius, int n,
+pair_force_dense_kernel(Planes rows, Planes cols,
+                        const float* __restrict__ prm, int use_radius,
                         const float* __restrict__ col_bb,
                         const int* __restrict__ surv,
                         const int* __restrict__ counts, int max_surv, float c2,
@@ -201,23 +155,25 @@ pair_force_dense_kernel(const float* __restrict__ x, const float* __restrict__ y
   const int lrow = tid / kDenseSplit;
   const int lane = tid % kDenseSplit;
   const int i = blockIdx.x * kDenseRows + lrow;
-  const bool row_in = i < n;
-  const float xi = row_in ? x[i] : 0.0f;
-  const float yi = row_in ? y[i] : 0.0f;
-  const float ui = row_in ? ru[i] : 0.0f;  // the row slots: v_i, or e_i
-  const float vi = row_in ? rv[i] : 0.0f;
+  const int n = cols.n;
+  const bool row_in = i < rows.n;
+  const float xi = row_in ? rows.x[i] : 0.0f;
+  const float yi = row_in ? rows.y[i] : 0.0f;
+  const float ui = row_in ? rows.u[i] : 0.0f;  // the row slots: v_i, or e_i
+  const float vi = row_in ? rows.v[i] : 0.0f;
   float ri = 0.0f;
-  if constexpr (Law::kRadius) ri = row_in ? rad[i] : 0.0f;
-  const bool ai = row_in && alive[i] != 0;
+  if constexpr (Law::kRadius) ri = row_in ? rows.rad[i] : 0.0f;
+  const bool ai = row_in && rows.alive[i] != 0;
+  const int gi = rows.off + i;  // the row's global slot
   const long long n_col_tiles = (n + kDenseThreads - 1) / kDenseThreads;
 
   if (kWalk != kAllTiles) {
     // the box of the block's alive rows (warp 0, one row per lane)
     if (tid < 32) {
       const int r = blockIdx.x * kDenseRows + tid;
-      const bool a = r < n && alive[r] != 0;
-      float x0 = a ? x[r] : INFINITY, x1 = a ? x[r] : -INFINITY;
-      float y0 = a ? y[r] : INFINITY, y1 = a ? y[r] : -INFINITY;
+      const bool a = r < rows.n && rows.alive[r] != 0;
+      float x0 = a ? rows.x[r] : INFINITY, x1 = a ? rows.x[r] : -INFINITY;
+      float y0 = a ? rows.y[r] : INFINITY, y1 = a ? rows.y[r] : -INFINITY;
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) {
         x0 = fminf(x0, __shfl_xor_sync(0xffffffffu, x0, off));
@@ -242,18 +198,19 @@ pair_force_dense_kernel(const float* __restrict__ x, const float* __restrict__ y
     __syncthreads();  // the previous column tile is consumed
     const int jt = c0 + tid;
     const bool col_in = jt < n;
-    sx[tid] = col_in ? x[jt] : 0.0f;
-    sy[tid] = col_in ? y[jt] : 0.0f;
-    svx[tid] = col_in ? vx[jt] : 0.0f;
-    svy[tid] = col_in ? vy[jt] : 0.0f;
-    if constexpr (Law::kRadius) sr[tid] = col_in ? rad[jt] : 0.0f;
-    sa[tid] = col_in ? alive[jt] : 0;
+    sx[tid] = col_in ? cols.x[jt] : 0.0f;
+    sy[tid] = col_in ? cols.y[jt] : 0.0f;
+    svx[tid] = col_in ? cols.u[jt] : 0.0f;
+    svy[tid] = col_in ? cols.v[jt] : 0.0f;
+    if constexpr (Law::kRadius) sr[tid] = col_in ? cols.rad[jt] : 0.0f;
+    sa[tid] = col_in ? cols.alive[jt] : 0;
     __syncthreads();
     const int cnt = min(kDenseThreads, n - c0);
+    const int g0 = cols.off + c0;
     for (int k = lane; k < cnt; k += kDenseSplit) {
       const float dx = sx[k] - xi;
       const float dy = sy[k] - yi;
-      bool ok = ai && sa[k] != 0 && (c0 + k) != i;
+      bool ok = ai && sa[k] != 0 && (g0 + k) != gi;
       if (kWalk != kAllTiles) ok = ok && sq_norm_rn(dx, dy) <= c2;
       float fxk, fyk;
       Law::pair(dx, dy, ui, vi, svx[k], svy[k], ri,
@@ -311,17 +268,18 @@ struct SymShared {
   float col_y[kSymWarps][kSymTile];
 };
 
-// One tile pair (ti, tj), tj >= ti, of the symmetric kernel: every pair
-// with column index above row index once, +f to the row and -f to the
-// column (atomics into fx, fy).  Block-uniform; may be called repeatedly.
-template <bool kCutoff, class Law>
+// One tile pair (row tile ti, column tile tj) of a Newton's-third-law walk:
+// +f to the row (atomics into fx, fy) and -f to the column (atomics into
+// fxc, fyc).  kTriangle: rows and columns are the same planes, and only the
+// pairs with column index above row index count (each unordered pair once);
+// otherwise every pair of the two tiles counts once (the full block of two
+// different shards).  fxc, fyc may be fx, fy (the square walks).
+// Block-uniform; may be called repeatedly.
+template <bool kTri, bool kCutoff, class Law>
 __device__ __forceinline__ void sym_tile_pair(
-    SymShared& sm, long long ti, long long tj, const float* __restrict__ x,
-    const float* __restrict__ y, const float* __restrict__ vx,
-    const float* __restrict__ vy, const float* __restrict__ rad,
-    const uint8_t* __restrict__ alive, const typename Law::Prm& p,
-    int use_radius, int n, float c2, float* __restrict__ fx,
-    float* __restrict__ fy) {
+    SymShared& sm, long long ti, long long tj, const Planes& rows,
+    const Planes& cols, const typename Law::Prm& p, int use_radius, float c2,
+    float* fx, float* fy, float* fxc, float* fyc) {
   static_assert(Law::kAntisymmetric,
                 "the Newton's-third-law walk needs an antisymmetric law");
   const int tid = threadIdx.x;
@@ -330,13 +288,13 @@ __device__ __forceinline__ void sym_tile_pair(
 
   __syncthreads();  // the previous tile pair's column sums are read
   const int jt = (int)(tj * kSymTile) + tid;
-  const bool col_in = jt < n;
-  sm.cx[tid] = col_in ? x[jt] : 0.0f;
-  sm.cy[tid] = col_in ? y[jt] : 0.0f;
-  sm.cvx[tid] = col_in ? vx[jt] : 0.0f;
-  sm.cvy[tid] = col_in ? vy[jt] : 0.0f;
-  sm.cr[tid] = col_in ? rad[jt] : 0.0f;
-  sm.ca[tid] = col_in ? alive[jt] : 0;
+  const bool col_in = jt < cols.n;
+  sm.cx[tid] = col_in ? cols.x[jt] : 0.0f;
+  sm.cy[tid] = col_in ? cols.y[jt] : 0.0f;
+  sm.cvx[tid] = col_in ? cols.u[jt] : 0.0f;
+  sm.cvy[tid] = col_in ? cols.v[jt] : 0.0f;
+  sm.cr[tid] = col_in ? cols.rad[jt] : 0.0f;
+  sm.ca[tid] = col_in ? cols.alive[jt] : 0;
 #pragma unroll
   for (int w = 0; w < kSymWarps; ++w) {
     sm.col_x[w][tid] = 0.0f;
@@ -344,14 +302,16 @@ __device__ __forceinline__ void sym_tile_pair(
   }
 
   const int i = (int)(ti * kSymTile) + tid;
-  const bool row_in = i < n;
-  const float xi = row_in ? x[i] : 0.0f;
-  const float yi = row_in ? y[i] : 0.0f;
-  const float vxi = row_in ? vx[i] : 0.0f;
-  const float vyi = row_in ? vy[i] : 0.0f;
-  const float ri = row_in ? rad[i] : 0.0f;
-  const bool ai = row_in && alive[i] != 0;
+  const bool row_in = i < rows.n;
+  const float xi = row_in ? rows.x[i] : 0.0f;
+  const float yi = row_in ? rows.y[i] : 0.0f;
+  const float vxi = row_in ? rows.u[i] : 0.0f;
+  const float vyi = row_in ? rows.v[i] : 0.0f;
+  const float ri = row_in ? rows.rad[i] : 0.0f;
+  const bool ai = row_in && rows.alive[i] != 0;
   const int j0 = (int)(tj * kSymTile);
+  const int gi = rows.off + i;
+  const int g0 = cols.off + j0;
   __syncthreads();
 
   float ax = 0.0f, ay = 0.0f;
@@ -362,7 +322,8 @@ __device__ __forceinline__ void sym_tile_pair(
       const int jj = c0 + ((lane + k) & 31);
       const float dx = sm.cx[jj] - xi;
       const float dy = sm.cy[jj] - yi;
-      bool ok = ai && sm.ca[jj] != 0 && (j0 + jj) > i;
+      bool ok = ai && sm.ca[jj] != 0;
+      ok = ok && (kTri ? (j0 + jj) > i : (g0 + jj) != gi);
       if (kCutoff) ok = ok && sq_norm_rn(dx, dy) <= c2;
       float fxk, fyk;
       Law::pair(dx, dy, vxi, vyi, sm.cvx[jj], sm.cvy[jj], ri, sm.cr[jj],
@@ -386,19 +347,15 @@ __device__ __forceinline__ void sym_tile_pair(
       sx_sum += sm.col_x[w][tid];
       sy_sum += sm.col_y[w][tid];
     }
-    atomicAdd(&fx[jt], sx_sum);
-    atomicAdd(&fy[jt], sy_sum);
+    atomicAdd(&fxc[jt], sx_sum);
+    atomicAdd(&fyc[jt], sy_sum);
   }
 }
 
 template <int kWalk, class Law>
 __global__ void __launch_bounds__(kSymTile)
-pair_force_sym_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                      const float* __restrict__ vx, const float* __restrict__ vy,
-                      const float* __restrict__ rad,
-                      const uint8_t* __restrict__ alive,
-                      const float* __restrict__ prm, int use_radius, int n,
-                      int n_tiles, const float* __restrict__ bb,
+pair_force_sym_kernel(Planes pl, const float* __restrict__ prm,
+                      int use_radius, int n_tiles, const float* __restrict__ bb,
                       const int* __restrict__ surv,
                       const int* __restrict__ counts, int max_surv, float c2,
                       float* __restrict__ fx, float* __restrict__ fy) {
@@ -421,13 +378,13 @@ pair_force_sym_kernel(const float* __restrict__ x, const float* __restrict__ y,
     if (counts[r] <= max_surv) {
       const int tj = surv[r * max_surv + s];
       if (tj >= 0)
-        sym_tile_pair<true, Law>(sm, r, tj, x, y, vx, vy, rad, alive, p,
-                                 use_radius, n, c2, fx, fy);
+        sym_tile_pair<true, true, Law>(sm, r, tj, pl, pl, p, use_radius, c2,
+                                       fx, fy, fx, fy);
     } else {
       for (long long tj = r + s; tj < nt; tj += max_surv)
         if (hits(r, tj))
-          sym_tile_pair<true, Law>(sm, r, tj, x, y, vx, vy, rad, alive, p,
-                                   use_radius, n, c2, fx, fy);
+          sym_tile_pair<true, true, Law>(sm, r, tj, pl, pl, p, use_radius,
+                                         c2, fx, fy, fx, fy);
     }
     return;
   }
@@ -441,38 +398,60 @@ pair_force_sym_kernel(const float* __restrict__ x, const float* __restrict__ y,
   while (ti + 1 < nt && tri_start(ti + 1, nt) <= b) ++ti;
   const long long tj = ti + (b - tri_start(ti, nt));
   if (kWalk == kTriangleBox && !hits(ti, tj)) return;  // before any staging
-  sym_tile_pair<kWalk == kTriangleBox, Law>(sm, ti, tj, x, y, vx, vy, rad,
-                                            alive, p, use_radius, n, c2, fx,
-                                            fy);
+  sym_tile_pair<true, kWalk == kTriangleBox, Law>(sm, ti, tj, pl, pl, p,
+                                                  use_radius, c2, fx, fy, fx,
+                                                  fy);
+}
+
+// The full-block walk: block b is tile pair (b / n_col_tiles, b %
+// n_col_tiles) of the rectangular (rows x columns) grid of 128-agent tiles.
+// kBox: the pair runs only when the rows' tile box (row_bb) and the
+// columns' (col_bb) lie within the cutoff.
+template <bool kBox, class Law>
+__global__ void __launch_bounds__(kSymTile)
+pair_force_sym_dense_kernel(Planes rows, Planes cols,
+                            const float* __restrict__ prm, int use_radius,
+                            int n_row_tiles, int n_col_tiles,
+                            const float* __restrict__ row_bb,
+                            const float* __restrict__ col_bb, float c2,
+                            float* __restrict__ fx, float* __restrict__ fy,
+                            float* __restrict__ fxc, float* __restrict__ fyc) {
+  __shared__ SymShared sm;
+  const typename Law::Prm p = Law::load(prm);
+  const long long ti = blockIdx.x / n_col_tiles;
+  const long long tj = blockIdx.x % n_col_tiles;
+  const long long nr = n_row_tiles;
+  if (kBox && !box_hits(col_bb, n_col_tiles, tj, row_bb[ti], row_bb[nr + ti],
+                        row_bb[2 * nr + ti], row_bb[3 * nr + ti], c2))
+    return;  // before any staging
+  sym_tile_pair<false, kBox, Law>(sm, ti, tj, rows, cols, p, use_radius, c2,
+                                  fx, fy, fxc, fyc);
 }
 
 // Launch of a dense-layout walk with law Law: one block of kDenseRows rows
-// per 32 agents.  ru, rv are the row slots (vx, vy; Helbing: ex, ey).
+// per 32 row agents.
 template <int kWalk, class Law>
-int dense_launch(const float* x, const float* y, const float* vx,
-                 const float* vy, const float* ru, const float* rv,
-                 const float* rad, const uint8_t* alive, const float* prm,
-                 int use_radius, int n, const float* col_bb, const int* surv,
+int dense_launch(const Planes& rows, const Planes& cols, const float* prm,
+                 int use_radius, const float* col_bb, const int* surv,
                  const int* counts, int max_surv, float c2, float* fx,
                  float* fy, void* stream) {
-  if (n <= 0) return (int)cudaSuccess;
+  if (rows.n <= 0) return (int)cudaSuccess;
+  if (cols.n < 0) return (int)cudaErrorInvalidValue;
   if (kWalk == kTable && max_surv < 1) return (int)cudaErrorInvalidValue;
-  const int blocks = (n + kDenseRows - 1) / kDenseRows;
+  const int blocks = (rows.n + kDenseRows - 1) / kDenseRows;
   pair_force_dense_kernel<kWalk, Law><<<blocks, kDenseThreads, 0,
                                         (cudaStream_t)stream>>>(
-      x, y, vx, vy, ru, rv, rad, alive, prm, use_radius, n, col_bb, surv,
-      counts, max_surv, c2, fx, fy);
+      rows, cols, prm, use_radius, col_bb, surv, counts, max_surv, c2, fx, fy);
   return (int)cudaGetLastError();
 }
 
 // Launch of a symmetric walk with law Law: one block per tile pair of the
 // upper triangle (kTriangle, kTriangleBox) or per table slot (kSymTable).
 template <int kWalk, class Law>
-int sym_launch(const float* x, const float* y, const float* vx,
-               const float* vy, const float* rad, const uint8_t* alive,
-               const float* prm, int use_radius, int n, const float* bb,
-               const int* surv, const int* counts, int max_surv, float c2,
-               float* fx, float* fy, void* stream) {
+int sym_launch(const Planes& pl, const float* prm, int use_radius,
+               const float* bb, const int* surv, const int* counts,
+               int max_surv, float c2, float* fx, float* fy, void* stream) {
+  const int n = pl.n;
   if (n <= 0) return (int)cudaSuccess;
   if (kWalk == kSymTable && max_surv < 1) return (int)cudaErrorInvalidValue;
   const long long nt = (n + kSymTile - 1) / kSymTile;
@@ -481,9 +460,30 @@ int sym_launch(const float* x, const float* y, const float* vx,
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   pair_force_sym_kernel<kWalk, Law><<<(unsigned)blocks, kSymTile, 0,
                                       (cudaStream_t)stream>>>(
-      x, y, vx, vy, rad, alive, prm, use_radius, n, (int)nt, bb, surv, counts,
-      max_surv, c2, fx, fy);
+      pl, prm, use_radius, (int)nt, bb, surv, counts, max_surv, c2, fx, fy);
   return (int)cudaGetLastError();
+}
+
+// Launch of the full-block walk with law Law: one block per tile pair.
+template <bool kBox, class Law>
+int sym_dense_launch(const Planes& rows, const Planes& cols, const float* prm,
+                     int use_radius, const float* row_bb, const float* col_bb,
+                     float c2, float* fx, float* fy, float* fxc, float* fyc,
+                     void* stream) {
+  if (rows.n <= 0 || cols.n <= 0) return (int)cudaSuccess;
+  const long long nr = (rows.n + kSymTile - 1) / kSymTile;
+  const long long nc = (cols.n + kSymTile - 1) / kSymTile;
+  if (nr * nc > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  pair_force_sym_dense_kernel<kBox, Law><<<(unsigned)(nr * nc), kSymTile, 0,
+                                           (cudaStream_t)stream>>>(
+      rows, cols, prm, use_radius, (int)nr, (int)nc, row_bb, col_bb, c2, fx,
+      fy, fxc, fyc);
+  return (int)cudaGetLastError();
+}
+
+Planes planes(const float* x, const float* y, const float* u, const float* v,
+              const float* rad, const uint8_t* alive, int n, int off) {
+  return Planes{x, y, u, v, rad, alive, n, off};
 }
 
 }  // namespace
@@ -491,173 +491,156 @@ int sym_launch(const float* x, const float* y, const float* vx,
 extern "C" {
 
 // Each entry launches on `stream` and returns cudaGetLastError(): non-zero
-// means the launch was refused.  fx and fy must hold zeros on entry for the
-// symmetric kernels (they accumulate); the dense ones overwrite every row.
-// Cutoff forms: c2 is the squared cutoff; col_bb / bb hold the column
-// tiles' boxes of alive agents as (4, n_tiles) rows [min_x, max_x, min_y,
-// max_y] (256-column tiles for the dense forms, 128 for the symmetric);
-// surv is the (ceil(n / 128), max_surv) survivor table, ascending and
-// padded with -1, and counts each table row's number of hits.
+// means the launch was refused (an unknown law id, or a law the walk does
+// not take: cudaErrorInvalidValue).  `law` is a LawId: 0 the Moussaid law
+// (prm: lambda, A, gamma, n, n_prime, epsilon; use_radius subtracts the
+// radii from the distance), 1 the power law (prm: k, tau0, tau_max,
+// tau_min; disc radii always participate, use_radius is not read), 2 the
+// Helbing ellipse (prm: v0, sigma, cos_phi, fov_factor, step_width, b_min;
+// dense walks only; rad is not read, and the row planes ru, rv carry each
+// row's unit desired direction).
 //
-// sfm_pair_force_*: the Moussaid law (prm: lambda, A, gamma, n, n_prime,
-// epsilon; use_radius subtracts the radii from the distance).
-int sfm_pair_force_dense(const float* x, const float* y, const float* vx,
-                         const float* vy, const float* rad,
+// The dense walks take row planes (rx, ry, ru, rv, rrad, ralive: n_rows
+// agents from global slot row_off) and column planes (cx, cy, cvx, cvy,
+// crad, calive: n_cols agents from global slot col_off) and overwrite every
+// row of fx, fy; the square call passes the same planes twice with both
+// offsets 0.  The symmetric walks take one set of planes and accumulate into
+// fx, fy, which must hold zeros on entry.  The full-block walks take row and
+// column planes and accumulate +f into the rows' fx, fy and -f into the
+// columns' fxc, fyc, all zero on entry.
+//
+// Cutoff forms: c2 is the squared cutoff; col_bb / bb / row_bb hold tile
+// boxes of alive agents as (4, n_tiles) rows [min_x, max_x, min_y, max_y]:
+// 256-column tiles for the dense forms, 128-agent tiles for the symmetric
+// and full-block forms; surv is the (ceil(n_rows / 128), max_surv) survivor
+// table, ascending and padded with -1, and counts each table row's number
+// of hits.
+int sfm_pair_dense(int law, const float* rx, const float* ry, const float* ru,
+                   const float* rv, const float* rrad, const uint8_t* ralive,
+                   int n_rows, int row_off, const float* cx, const float* cy,
+                   const float* cvx, const float* cvy, const float* crad,
+                   const uint8_t* calive, int n_cols, int col_off,
+                   const float* prm, int use_radius, float* fx, float* fy,
+                   void* stream) {
+  const Planes rows = planes(rx, ry, ru, rv, rrad, ralive, n_rows, row_off);
+  const Planes cols = planes(cx, cy, cvx, cvy, crad, calive, n_cols, col_off);
+  return with_any_law(law, [&](auto l) {
+    return dense_launch<kAllTiles, decltype(l)>(rows, cols, prm, use_radius,
+                                                nullptr, nullptr, nullptr, 1,
+                                                0.0f, fx, fy, stream);
+  });
+}
+
+int sfm_pair_dense_cutoff(int law, const float* rx, const float* ry,
+                          const float* ru, const float* rv, const float* rrad,
+                          const uint8_t* ralive, int n_rows, int row_off,
+                          const float* cx, const float* cy, const float* cvx,
+                          const float* cvy, const float* crad,
+                          const uint8_t* calive, int n_cols, int col_off,
+                          const float* prm, int use_radius,
+                          const float* col_bb, float c2, float* fx, float* fy,
+                          void* stream) {
+  const Planes rows = planes(rx, ry, ru, rv, rrad, ralive, n_rows, row_off);
+  const Planes cols = planes(cx, cy, cvx, cvy, crad, calive, n_cols, col_off);
+  return with_any_law(law, [&](auto l) {
+    return dense_launch<kBoxSkip, decltype(l)>(rows, cols, prm, use_radius,
+                                               col_bb, nullptr, nullptr, 1,
+                                               c2, fx, fy, stream);
+  });
+}
+
+int sfm_pair_compact(int law, const float* rx, const float* ry,
+                     const float* ru, const float* rv, const float* rrad,
+                     const uint8_t* ralive, int n_rows, int row_off,
+                     const float* cx, const float* cy, const float* cvx,
+                     const float* cvy, const float* crad,
+                     const uint8_t* calive, int n_cols, int col_off,
+                     const float* prm, int use_radius, const float* col_bb,
+                     const int* surv, const int* counts, int max_surv,
+                     float c2, float* fx, float* fy, void* stream) {
+  const Planes rows = planes(rx, ry, ru, rv, rrad, ralive, n_rows, row_off);
+  const Planes cols = planes(cx, cy, cvx, cvy, crad, calive, n_cols, col_off);
+  return with_any_law(law, [&](auto l) {
+    return dense_launch<kTable, decltype(l)>(rows, cols, prm, use_radius,
+                                             col_bb, surv, counts, max_surv,
+                                             c2, fx, fy, stream);
+  });
+}
+
+int sfm_pair_sym(int law, const float* x, const float* y, const float* vx,
+                 const float* vy, const float* rad, const uint8_t* alive,
+                 const float* prm, int use_radius, int n, float* fx,
+                 float* fy, void* stream) {
+  const Planes pl = planes(x, y, vx, vy, rad, alive, n, 0);
+  return with_antisymmetric_law(law, [&](auto l) {
+    return sym_launch<kTriangle, decltype(l)>(pl, prm, use_radius, nullptr,
+                                              nullptr, nullptr, 1, 0.0f, fx,
+                                              fy, stream);
+  });
+}
+
+int sfm_pair_sym_cutoff(int law, const float* x, const float* y,
+                        const float* vx, const float* vy, const float* rad,
+                        const uint8_t* alive, const float* prm,
+                        int use_radius, int n, const float* bb, float c2,
+                        float* fx, float* fy, void* stream) {
+  const Planes pl = planes(x, y, vx, vy, rad, alive, n, 0);
+  return with_antisymmetric_law(law, [&](auto l) {
+    return sym_launch<kTriangleBox, decltype(l)>(pl, prm, use_radius, bb,
+                                                 nullptr, nullptr, 1, c2, fx,
+                                                 fy, stream);
+  });
+}
+
+int sfm_pair_sym_compact(int law, const float* x, const float* y,
+                         const float* vx, const float* vy, const float* rad,
                          const uint8_t* alive, const float* prm,
-                         int use_radius, int n, float* fx, float* fy,
-                         void* stream) {
-  return dense_launch<kAllTiles, Moussaid>(
-      x, y, vx, vy, vx, vy, rad, alive, prm, use_radius, n, nullptr, nullptr,
-      nullptr, 1, 0.0f, fx, fy, stream);
+                         int use_radius, int n, const float* bb,
+                         const int* surv, const int* counts, int max_surv,
+                         float c2, float* fx, float* fy, void* stream) {
+  const Planes pl = planes(x, y, vx, vy, rad, alive, n, 0);
+  return with_antisymmetric_law(law, [&](auto l) {
+    return sym_launch<kSymTable, decltype(l)>(pl, prm, use_radius, bb, surv,
+                                              counts, max_surv, c2, fx, fy,
+                                              stream);
+  });
 }
 
-int sfm_pair_force_dense_cutoff(const float* x, const float* y,
-                                const float* vx, const float* vy,
-                                const float* rad, const uint8_t* alive,
-                                const float* prm, int use_radius, int n,
-                                const float* col_bb, float c2, float* fx,
-                                float* fy, void* stream) {
-  return dense_launch<kBoxSkip, Moussaid>(
-      x, y, vx, vy, vx, vy, rad, alive, prm, use_radius, n, col_bb, nullptr,
-      nullptr, 1, c2, fx, fy, stream);
+int sfm_pair_sym_dense(int law, const float* rx, const float* ry,
+                       const float* rvx, const float* rvy, const float* rrad,
+                       const uint8_t* ralive, int n_rows, int row_off,
+                       const float* cx, const float* cy, const float* cvx,
+                       const float* cvy, const float* crad,
+                       const uint8_t* calive, int n_cols, int col_off,
+                       const float* prm, int use_radius, float* fx, float* fy,
+                       float* fxc, float* fyc, void* stream) {
+  const Planes rows = planes(rx, ry, rvx, rvy, rrad, ralive, n_rows, row_off);
+  const Planes cols = planes(cx, cy, cvx, cvy, crad, calive, n_cols, col_off);
+  return with_antisymmetric_law(law, [&](auto l) {
+    return sym_dense_launch<false, decltype(l)>(rows, cols, prm, use_radius,
+                                                nullptr, nullptr, 0.0f, fx,
+                                                fy, fxc, fyc, stream);
+  });
 }
 
-int sfm_pair_force_compact(const float* x, const float* y, const float* vx,
-                           const float* vy, const float* rad,
-                           const uint8_t* alive, const float* prm,
-                           int use_radius, int n, const float* col_bb,
-                           const int* surv, const int* counts, int max_surv,
-                           float c2, float* fx, float* fy, void* stream) {
-  return dense_launch<kTable, Moussaid>(
-      x, y, vx, vy, vx, vy, rad, alive, prm, use_radius, n, col_bb, surv,
-      counts, max_surv, c2, fx, fy, stream);
-}
-
-int sfm_pair_force_sym(const float* x, const float* y, const float* vx,
-                       const float* vy, const float* rad, const uint8_t* alive,
-                       const float* prm, int use_radius, int n, float* fx,
-                       float* fy, void* stream) {
-  return sym_launch<kTriangle, Moussaid>(
-      x, y, vx, vy, rad, alive, prm, use_radius, n, nullptr, nullptr,
-      nullptr, 1, 0.0f, fx, fy, stream);
-}
-
-int sfm_pair_force_sym_cutoff(const float* x, const float* y, const float* vx,
-                              const float* vy, const float* rad,
-                              const uint8_t* alive, const float* prm,
-                              int use_radius, int n, const float* bb,
-                              float c2, float* fx, float* fy, void* stream) {
-  return sym_launch<kTriangleBox, Moussaid>(
-      x, y, vx, vy, rad, alive, prm, use_radius, n, bb, nullptr, nullptr, 1,
-      c2, fx, fy, stream);
-}
-
-int sfm_pair_force_sym_compact(const float* x, const float* y,
-                               const float* vx, const float* vy,
-                               const float* rad, const uint8_t* alive,
-                               const float* prm, int use_radius, int n,
-                               const float* bb, const int* surv,
-                               const int* counts, int max_surv, float c2,
-                               float* fx, float* fy, void* stream) {
-  return sym_launch<kSymTable, Moussaid>(
-      x, y, vx, vy, rad, alive, prm, use_radius, n, bb, surv, counts,
-      max_surv, c2, fx, fy, stream);
-}
-
-// sfm_powerlaw_*: the power law (prm: k, tau0, tau_max, tau_min), the same
-// forms and arguments as the Moussaid entries without use_radius (disc
-// radii always participate).
-int sfm_powerlaw_dense(const float* x, const float* y, const float* vx,
-                       const float* vy, const float* rad, const uint8_t* alive,
-                       const float* prm, int n, float* fx, float* fy,
-                       void* stream) {
-  return dense_launch<kAllTiles, PowerLaw>(
-      x, y, vx, vy, vx, vy, rad, alive, prm, 0, n, nullptr, nullptr, nullptr,
-      1, 0.0f, fx, fy, stream);
-}
-
-int sfm_powerlaw_dense_cutoff(const float* x, const float* y, const float* vx,
-                              const float* vy, const float* rad,
-                              const uint8_t* alive, const float* prm, int n,
-                              const float* col_bb, float c2, float* fx,
-                              float* fy, void* stream) {
-  return dense_launch<kBoxSkip, PowerLaw>(
-      x, y, vx, vy, vx, vy, rad, alive, prm, 0, n, col_bb, nullptr, nullptr,
-      1, c2, fx, fy, stream);
-}
-
-int sfm_powerlaw_compact(const float* x, const float* y, const float* vx,
-                         const float* vy, const float* rad,
-                         const uint8_t* alive, const float* prm, int n,
-                         const float* col_bb, const int* surv,
-                         const int* counts, int max_surv, float c2, float* fx,
-                         float* fy, void* stream) {
-  return dense_launch<kTable, PowerLaw>(
-      x, y, vx, vy, vx, vy, rad, alive, prm, 0, n, col_bb, surv, counts,
-      max_surv, c2, fx, fy, stream);
-}
-
-int sfm_powerlaw_sym(const float* x, const float* y, const float* vx,
-                     const float* vy, const float* rad, const uint8_t* alive,
-                     const float* prm, int n, float* fx, float* fy,
-                     void* stream) {
-  return sym_launch<kTriangle, PowerLaw>(
-      x, y, vx, vy, rad, alive, prm, 0, n, nullptr, nullptr, nullptr, 1,
-      0.0f, fx, fy, stream);
-}
-
-int sfm_powerlaw_sym_cutoff(const float* x, const float* y, const float* vx,
-                            const float* vy, const float* rad,
-                            const uint8_t* alive, const float* prm, int n,
-                            const float* bb, float c2, float* fx, float* fy,
-                            void* stream) {
-  return sym_launch<kTriangleBox, PowerLaw>(
-      x, y, vx, vy, rad, alive, prm, 0, n, bb, nullptr, nullptr, 1, c2, fx,
-      fy, stream);
-}
-
-int sfm_powerlaw_sym_compact(const float* x, const float* y, const float* vx,
-                             const float* vy, const float* rad,
-                             const uint8_t* alive, const float* prm, int n,
-                             const float* bb, const int* surv,
-                             const int* counts, int max_surv, float c2,
-                             float* fx, float* fy, void* stream) {
-  return sym_launch<kSymTable, PowerLaw>(
-      x, y, vx, vy, rad, alive, prm, 0, n, bb, surv, counts, max_surv, c2, fx,
-      fy, stream);
-}
-
-// sfm_helbing_*: the Helbing ellipse (prm: v0, sigma, cos_phi, fov_factor,
-// step_width, b_min), dense forms only.  vx, vy are the partners'
-// velocities; ex, ey each pedestrian's unit desired direction.
-int sfm_helbing_dense(const float* x, const float* y, const float* vx,
-                      const float* vy, const float* ex, const float* ey,
-                      const uint8_t* alive, const float* prm, int n,
-                      float* fx, float* fy, void* stream) {
-  return dense_launch<kAllTiles, Helbing>(
-      x, y, vx, vy, ex, ey, nullptr, alive, prm, 0, n, nullptr, nullptr,
-      nullptr, 1, 0.0f, fx, fy, stream);
-}
-
-int sfm_helbing_dense_cutoff(const float* x, const float* y, const float* vx,
-                             const float* vy, const float* ex,
-                             const float* ey, const uint8_t* alive,
-                             const float* prm, int n, const float* col_bb,
-                             float c2, float* fx, float* fy, void* stream) {
-  return dense_launch<kBoxSkip, Helbing>(
-      x, y, vx, vy, ex, ey, nullptr, alive, prm, 0, n, col_bb, nullptr,
-      nullptr, 1, c2, fx, fy, stream);
-}
-
-int sfm_helbing_compact(const float* x, const float* y, const float* vx,
-                        const float* vy, const float* ex, const float* ey,
-                        const uint8_t* alive, const float* prm, int n,
-                        const float* col_bb, const int* surv,
-                        const int* counts, int max_surv, float c2, float* fx,
-                        float* fy, void* stream) {
-  return dense_launch<kTable, Helbing>(
-      x, y, vx, vy, ex, ey, nullptr, alive, prm, 0, n, col_bb, surv, counts,
-      max_surv, c2, fx, fy, stream);
+int sfm_pair_sym_dense_cutoff(int law, const float* rx, const float* ry,
+                              const float* rvx, const float* rvy,
+                              const float* rrad, const uint8_t* ralive,
+                              int n_rows, int row_off, const float* cx,
+                              const float* cy, const float* cvx,
+                              const float* cvy, const float* crad,
+                              const uint8_t* calive, int n_cols, int col_off,
+                              const float* prm, int use_radius,
+                              const float* row_bb, const float* col_bb,
+                              float c2, float* fx, float* fy, float* fxc,
+                              float* fyc, void* stream) {
+  const Planes rows = planes(rx, ry, rvx, rvy, rrad, ralive, n_rows, row_off);
+  const Planes cols = planes(cx, cy, cvx, cvy, crad, calive, n_cols, col_off);
+  return with_antisymmetric_law(law, [&](auto l) {
+    return sym_dense_launch<true, decltype(l)>(rows, cols, prm, use_radius,
+                                               row_bb, col_bb, c2, fx, fy,
+                                               fxc, fyc, stream);
+  });
 }
 
 const char* sfm_cuda_error_string(int err) {

@@ -73,21 +73,32 @@ def build_groups(group_id, max_members: int = 8,
 
 
 def group_force(pos_x, pos_y, vel_x, vel_y, ex, ey, alive, groups: GroupSet,
-                p: GroupParams):
+                p: GroupParams, axis=None):
     """``(fx, fy)`` planes of the Moussaid-2010 group force on every slot.
 
     ``ex, ey``: the members' desired (gaze) directions; the stepper passes
     the unit direction toward the next waypoint.  Slots in no group, dead
     members and the last alive member of a group get exactly 0, and no
     operand that vanishes (a member on the others' centroid, a zero gaze,
-    two coincident members) reaches a root, a division or an atan2."""
+    two coincident members) reaches a root, a division or an atan2.
+
+    ``axis``: the planes are this shard's slots of an agent axis; the
+    member table holds global slots, so the planes are all-gathered and
+    each shard keeps the forces of its own slots (the JAX package's
+    groups.py:85-99)."""
     n = pos_x.shape[0]
+    planes = (pos_x, pos_y, vel_x, vel_y, ex, ey, alive)
+    offset = 0
+    if axis is not None:
+        planes = tuple(axis.all_gather(a) for a in planes)
+        offset = axis.index * n
+    n_global = planes[0].shape[0]
     ms = groups.member_slot                               # (G, M)
     valid = ms >= 0
     idx = ms.clamp(min=0)
     # one packed gather of the members' seven planes
-    packed = torch.stack([pos_x, pos_y, vel_x, vel_y, ex, ey,
-                          alive.to(pos_x.dtype)], dim=-1)  # (N, 7)
+    packed = torch.stack([*planes[:6], planes[6].to(pos_x.dtype)],
+                         dim=-1)                          # (N, 7)
     m = packed[idx]                                       # (G, M, 7)
     mpx, mpy, mvx, mvy, mex, mey = m.unbind(-1)[:6]
     mal = (m[..., 6] > 0.0) & valid                       # member liveness
@@ -141,9 +152,10 @@ def group_force(pos_x, pos_y, vel_x, vel_y, ex, ey, alive, groups: GroupSet,
     fx = fx + (rw * rdx).sum(dim=2)
     fy = fy + (rw * rdy).sum(dim=2)
 
-    # one packed scatter back to the slots; padded and dead members go to
-    # a spare row that is dropped
-    tgt = torch.where(mal, idx, n).reshape(-1)
+    # one packed scatter back to this shard's slots; padded and dead
+    # members, and other shards' members, go to a spare row that is dropped
+    tgt = torch.where(mal, idx, n_global).reshape(-1) - offset
+    tgt = torch.where((tgt >= 0) & (tgt < n), tgt, n)
     out = torch.zeros((n + 1, 2), dtype=pos_x.dtype, device=pos_x.device)
     out.index_add_(0, tgt, torch.stack([fx.reshape(-1), fy.reshape(-1)],
                                        dim=-1))

@@ -37,6 +37,12 @@ chunked_environment_terms``; on a card the ``chunk_argmin`` kernel), as the
 JAX package's jnp environment path does, in place of the fused environment
 kernels.
 
+Agent sharding (``parallel/``): with ``axis``, every function from
+``force_terms`` to ``rollout`` runs one shard's slots of an agent axis;
+the pair forces bring in their columns by ``StepConfig.axis_comm``, the
+group force, ORCA and the fleet's hazard check all-gather what they read,
+and the rest is slot-local (``parallel/sharding.make_sharded_rollout``).
+
 The device chooses the kernel path: the CUDA kernels on a card, the plain
 PyTorch versions on the CPU (ops/cuda_forces.py, ops/cuda_env.py,
 ops/statics.py).  A
@@ -212,6 +218,13 @@ class StepConfig:
     pair_max_surv: int = 0
     #: space-filling curve of the cutoff sort: "hilbert" or "morton"
     spatial_order: str = "hilbert"
+    #: column communication of the pair forces when the slots are sharded
+    #: over an agent axis (``parallel/``): "gather" (all-gather the column
+    #: planes), "ring" (rotate one shard's block per step; with
+    #: ``symmetric_pairs`` the half-ring) or "ring_kernel" (the in-kernel
+    #: ring).  The plain path runs the plain ring for both rings, as the JAX
+    #: package's jnp path does; one device ignores it
+    axis_comm: str = "gather"
 
 
 class StepRecord(NamedTuple):
@@ -283,12 +296,16 @@ def _segments(pset, seg, name, layout="segment-major"):
 
 def force_terms(state: PedState, scene: Scene, params: SfmParams,
                 cfg: StepConfig, veh_snap: VehicleSnapshot | None = None,
-                order=None) -> dict:
+                order=None, axis=None) -> dict:
     """Enabled force terms by name, each an ``(fx, fy)`` plane pair, in the
     JAX package's order.  ``veh_snap``: this step's vehicles.  ``order``:
     an optional ``(perm, inv)`` Hilbert permutation of the state's
     positions and liveness (:func:`..ops.spatial.morton_order`), which the
-    sorting kernels then share."""
+    sorting kernels then share.  ``axis``: the state holds this shard's
+    slots of an agent axis (:mod:`..parallel`); the pair forces bring in
+    their columns by ``cfg.axis_comm`` and the group force all-gathers its
+    members, every other term is slot-local (and ``order`` the shard's
+    own)."""
     check_supported(scene, params, cfg)
     if cfg.env_chunked:
         _segments(scene.borders, scene.borders_chunked, "borders", "chunked")
@@ -333,6 +350,12 @@ def force_terms(state: PedState, scene: Scene, params: SfmParams,
     def pair_term(law, p, radius, use_radius=False, desired=None):
         args = (state.pos_x, state.pos_y, state.vel_x, state.vel_y, radius,
                 state.alive, p)
+        if axis is not None and cfg.plain_pair_force:
+            return cuda_forces.plain_sharded_force(
+                law, *args, axis, cfg.axis_comm, use_radius, cfg.row_block,
+                cutoff, desired)
+        sharded = ({} if axis is None
+                   else dict(axis=axis, comm=cfg.axis_comm))
         if cfg.plain_pair_force:
             return cuda_forces.plain_law_force(
                 law, *args, use_radius, cfg.row_block, cutoff, desired)
@@ -342,10 +365,10 @@ def force_terms(state: PedState, scene: Scene, params: SfmParams,
                 symmetric=cfg.symmetric_pairs, compact=cfg.compact_pairs,
                 max_surv=cfg.pair_max_surv, spatial_order=cfg.spatial_order,
                 row_block=cfg.row_block, order=order, law=law,
-                desired=desired)
+                desired=desired, **sharded)
         return pedestrian_force_kernel(
             *args, use_ped_radius=use_radius, symmetric=cfg.symmetric_pairs,
-            row_block=cfg.row_block, law=law, desired=desired)
+            row_block=cfg.row_block, law=law, desired=desired, **sharded)
 
     terms: dict = {}
     if params.enable_acceleration:
@@ -373,7 +396,7 @@ def force_terms(state: PedState, scene: Scene, params: SfmParams,
     if params.enable_group and scene.groups is not None:
         terms["group_force"] = group_force(
             state.pos_x, state.pos_y, state.vel_x, state.vel_y, *desired,
-            state.alive, scene.groups, params.group)
+            state.alive, scene.groups, params.group, axis=axis)
     if params.enable_space_repulsive and scene.borders is not None:
         terms["space_repulsive_force"] = env.get("space_repulsive_force",
                                                  (zero, zero))
@@ -402,10 +425,10 @@ def force_terms(state: PedState, scene: Scene, params: SfmParams,
 
 def compute_forces(state: PedState, scene: Scene, params: SfmParams,
                    cfg: StepConfig, veh_snap: VehicleSnapshot | None = None,
-                   order=None):
+                   order=None, axis=None):
     """Sum of enabled forces, masked to alive pedestrians: ``(fx, fy)``
-    (``order`` as in :func:`force_terms`)."""
-    terms = force_terms(state, scene, params, cfg, veh_snap, order)
+    (``order`` and ``axis`` as in :func:`force_terms`)."""
+    terms = force_terms(state, scene, params, cfg, veh_snap, order, axis)
     fx = torch.zeros_like(state.pos_x)
     fy = torch.zeros_like(state.pos_y)
     for tx, ty in terms.values():
@@ -417,11 +440,12 @@ def compute_forces(state: PedState, scene: Scene, params: SfmParams,
 
 def tick_core(state: PedState, scene: Scene, params: SfmParams,
               cfg: StepConfig, sim_time: float,
-              veh_snap: VehicleSnapshot | None = None):
+              veh_snap: VehicleSnapshot | None = None, axis=None):
     """Steps 2-8 of the tick (everything except spawn and integration).
 
     ``sim_time`` is a Python float holding a float32 value; ``veh_snap``
-    this step's vehicles.  Returns ``(state', (vx, vy), finished,
+    this step's vehicles; ``axis`` as in :func:`force_terms` (ORCA then
+    sees the all-gathered crowd).  Returns ``(state', (vx, vy), finished,
     record)``: the commanded velocity and the pedestrians that arrived at
     their final waypoint this tick."""
     check_supported(scene, params, cfg)
@@ -459,12 +483,15 @@ def tick_core(state: PedState, scene: Scene, params: SfmParams,
     # 6-7. forces and commanded velocity
     n = state.capacity
     order = None
-    if (params.enable_orca and cfg.spatial_order == "hilbert"
+    if (axis is None and params.enable_orca
+            and cfg.spatial_order == "hilbert"
             and 0 < params.orca.window < n):
         # ORCA's neighbour band and the sorting kernels sort by the same
         # key with the same stable sort: one permutation serves them all
+        # (under sharding ORCA sorts the gathered crowd, the kernels each
+        # shard's own slots)
         order = morton_order(state.pos_x, state.pos_y, alive, "hilbert")
-    fx, fy = compute_forces(state, scene, params, cfg, veh_snap, order)
+    fx, fy = compute_forces(state, scene, params, cfg, veh_snap, order, axis)
     vmax = state.max_speed(params.max_speed_factor)
     vx, vy = vecmath.cap_velocity_xy(state.vel_x + cfg.dt * fx,
                                      state.vel_y + cfg.dt * fy, vmax)
@@ -485,7 +512,7 @@ def tick_core(state: PedState, scene: Scene, params: SfmParams,
             obstacles=(scene.obstacles_feat if scene.obstacles_feat
                        is not None else scene.static_obstacles),
             static_exempt=forces.crossing_mask(state.mode), order=order,
-            plain_feed=cfg.plain_env_force)
+            plain_feed=cfg.plain_env_force, axis=axis)
         law = scene.spawn.law_id
         om = alive if law is None else alive & (law == LAW_IDS["orca"])
         vx = torch.where(om, ovx, vx)
@@ -532,11 +559,13 @@ def sim_time_of(t_idx: int, dt: float) -> float:
 
 def simulation_step(state: PedState, scene: Scene, params: SfmParams,
                     cfg: StepConfig, t_idx: int,
-                    veh_snap: VehicleSnapshot | None = None):
+                    veh_snap: VehicleSnapshot | None = None, axis=None):
     """One headless tick (spawn, core, Euler step) of a prepared scene
     (:func:`prepare_scene`).  Returns ``(new_state, RecordXY)``.
     ``veh_snap`` overrides the scene's scripted vehicles (the autopilot
-    rollout passes its fleet's snapshot here)."""
+    rollout passes its fleet's snapshot here).  ``axis``: the state and
+    ``scene.spawn`` hold this shard's slots of an agent axis (see
+    :func:`force_terms`)."""
     check_supported(scene, params, cfg)
     sim_time = sim_time_of(t_idx, cfg.dt)
 
@@ -546,7 +575,7 @@ def simulation_step(state: PedState, scene: Scene, params: SfmParams,
     if veh_snap is None and scene.vehicles is not None:
         veh_snap = vehicle_snapshot_at(scene.vehicles, t_idx)
     state, (vx, vy), finished, record = tick_core(
-        state, scene, params, cfg, sim_time, veh_snap)
+        state, scene, params, cfg, sim_time, veh_snap, axis)
 
     alive = state.alive
     if cfg.despawn_on_arrival:
@@ -562,19 +591,25 @@ def simulation_step(state: PedState, scene: Scene, params: SfmParams,
 
 
 def fleet_tick(state: PedState, ap: AutopilotState, scene: Scene,
-               params: SfmParams, cfg: StepConfig, t_idx: int):
+               params: SfmParams, cfg: StepConfig, t_idx: int, axis=None):
     """One tick with the reactive fleet, in the reference's order
     (run_simulation.py:53-95; JAX package stepper.py:711-745): the walkers
     spawn, the vehicles move seeing this tick's walkers, then the
     pedestrian tick reads the fleet's snapshot (its own ``apply_spawn`` is
-    then a no-op).  Returns ``(new_state, new_fleet_state, RecordXY)``."""
+    then a no-op).  Returns ``(new_state, new_fleet_state, RecordXY)``.
+    ``axis``: the state holds this shard's slots; the fleet's hazard check
+    reads the all-gathered walkers, and every shard steps the same fleet
+    (stepper.py:724-731)."""
     state = apply_spawn(state, scene.spawn, t_idx)
-    ap = autopilot_step(scene.autopilot, ap, (state.pos_x, state.pos_y),
-                        (state.vel_x, state.vel_y), state.alive, t_idx,
-                        cfg.dt)
+    walkers = (state.pos_x, state.pos_y, state.vel_x, state.vel_y,
+               state.alive)
+    if axis is not None:
+        walkers = tuple(axis.all_gather(a) for a in walkers)
+    ap = autopilot_step(scene.autopilot, ap, walkers[:2], walkers[2:4],
+                        walkers[4], t_idx, cfg.dt)
     snap = autopilot_snapshot(scene.autopilot, ap)
     state, rec = simulation_step(state, scene, params, cfg, t_idx,
-                                 veh_snap=snap)
+                                 veh_snap=snap, axis=axis)
     return state, ap, rec
 
 
@@ -582,7 +617,7 @@ def rollout(state: PedState, scene: Scene, params: SfmParams, cfg: StepConfig,
             num_steps: int, record: bool = True, start_step: int = 0,
             record_stride: int = 1,
             autopilot_state: AutopilotState | None = None,
-            return_autopilot_state: bool = False):
+            return_autopilot_state: bool = False, axis=None):
     """Run ``num_steps`` ticks from ``start_step``.
 
     Returns ``(final_state, StepRecord)`` with ``(T, N)`` planes
@@ -598,7 +633,10 @@ def rollout(state: PedState, scene: Scene, params: SfmParams, cfg: StepConfig,
     AutopilotRecord)`` pair.  The fleet starts from ``autopilot_state``
     (default: the fleet's initial state, allowed only at ``start_step``
     0); ``return_autopilot_state`` makes the first element the
-    ``(PedState, AutopilotState)`` pair.
+    ``(PedState, AutopilotState)`` pair.  ``axis``: the state and
+    ``scene.spawn`` are this shard's slots of an agent axis
+    (:func:`..parallel.sharding.make_sharded_rollout` calls this for every
+    shard).
     """
     check_supported(scene, params, cfg)
     scene = prepare_scene(scene, analytic=cfg.env_analytic,
@@ -638,9 +676,11 @@ def rollout(state: PedState, scene: Scene, params: SfmParams, cfg: StepConfig,
     for k in range(num_steps):
         t_idx = start_step + k
         if fleet is None:
-            state, rec = simulation_step(state, scene, params, cfg, t_idx)
+            state, rec = simulation_step(state, scene, params, cfg, t_idx,
+                                         axis=axis)
         else:
-            state, ap, rec = fleet_tick(state, ap, scene, params, cfg, t_idx)
+            state, ap, rec = fleet_tick(state, ap, scene, params, cfg, t_idx,
+                                        axis)
         if record and k % record_stride == 0:
             for b, val in zip(recs, rec):
                 b[k // record_stride].copy_(val)

@@ -104,42 +104,68 @@ def _moussaid_pair_force(dx, dy, radius_sub, dvx, dvy, p: MoussaidParams,
 
 
 def _pair_sum(pos_x, pos_y, alive, pair_fn, row_block: int,
-              cutoff: float | None, rows):
+              cutoff: float | None, rows, cols=None, row_offset: int = 0,
+              col_offset: int = 0, mirror: bool = False):
     """Row-blocked sum over partners of a pair law: ``(fx, fy)``.
 
-    ``pair_fn(r, dx, dy, pair_ok)`` returns the ``(rows, N)`` force planes
+    ``pair_fn(r, dx, dy, pair_ok)`` returns the ``(rows, C)`` force planes
     of row index (or slice) ``r`` against every column, with ``(dx, dy)``
     the raw vector x_j - x_i and ``pair_ok`` the mask of pairs that may
     contribute: both alive, not a self pair and, with ``cutoff``, within
     it (the JAX package's per-pair ``d2 <= cutoff * cutoff``).  Blocks of
     ``row_block`` rows bound the intermediates; ``rows`` optionally lists
-    the rows to compute, in its order."""
+    the rows to compute, in its order.
+
+    ``cols``: the partners' ``(x, y, alive)`` when they are not the rows
+    (a shard's rows against gathered or rotated columns); the self-pair
+    test then compares global slots, ``row_offset + i`` with
+    ``col_offset + j`` (the JAX package's ``row_offset``, forces.py:149).
+    ``mirror``: also return minus the column sums of the same pair forces,
+    ``(fx, fy, fxc, fyc)`` -- the plain version of the full-block kernel,
+    whose columns take -f of every pair."""
+    cx, cy, calive = (pos_x, pos_y, alive) if cols is None else cols
     n = pos_x.shape[0]
-    col = torch.arange(n, device=pos_x.device)
-    ids = col if rows is None else rows
+    col = torch.arange(cx.shape[0], device=pos_x.device)
+    ids = torch.arange(n, device=pos_x.device) if rows is None else rows
     m = ids.shape[0]
     c2 = None if cutoff is None else cutoff_sq(cutoff)
     fx_out = torch.empty(m, dtype=pos_x.dtype, device=pos_x.device)
     fy_out = torch.empty(m, dtype=pos_y.dtype, device=pos_y.device)
+    fxc = torch.zeros(cx.shape[0], dtype=pos_x.dtype, device=pos_x.device)
+    fyc = torch.zeros_like(fxc)
     for lo in range(0, m, row_block):
         hi = min(lo + row_block, m)
         r = slice(lo, hi) if rows is None else rows[lo:hi]
-        dx = pos_x[None, :] - pos_x[r, None]            # x_j - x_i
-        dy = pos_y[None, :] - pos_y[r, None]
-        not_self = ids[lo:hi, None] != col[None, :]
-        pair_ok = alive[r, None] & alive[None, :] & not_self
+        dx = cx[None, :] - pos_x[r, None]               # x_j - x_i
+        dy = cy[None, :] - pos_y[r, None]
+        not_self = (ids[lo:hi, None] + row_offset) != (col[None, :]
+                                                       + col_offset)
+        pair_ok = alive[r, None] & calive[None, :] & not_self
         if c2 is not None:
             pair_ok = pair_ok & (dx * dx + dy * dy <= c2)
         fx, fy = pair_fn(r, dx, dy, pair_ok)
         fx_out[lo:hi] = fx.sum(dim=1)
         fy_out[lo:hi] = fy.sum(dim=1)
+        if mirror:
+            fxc -= fx.sum(dim=0)
+            fyc -= fy.sum(dim=0)
+    if mirror:
+        return fx_out, fy_out, fxc, fyc
     return fx_out, fy_out
+
+
+def _columns(cols, pos_x, pos_y, vel_x, vel_y, radius, alive):
+    """The partners' planes ``(x, y, vx, vy, radius, alive)``: ``cols``, or
+    the rows' own."""
+    return ((pos_x, pos_y, vel_x, vel_y, radius, alive) if cols is None
+            else cols)
 
 
 def pedestrian_force(pos_x, pos_y, vel_x, vel_y, radius, alive,
                      p: MoussaidParams, use_ped_radius: bool = False,
                      row_block: int = 1024, cutoff: float | None = None,
-                     rows=None):
+                     rows=None, cols=None, row_offset: int = 0,
+                     col_offset: int = 0, mirror: bool = False):
     """Full N x N pedestrian interaction force (reference forces.py:74-117),
     planar: returns ``(fx, fy)``.
 
@@ -150,16 +176,24 @@ def pedestrian_force(pos_x, pos_y, vel_x, vel_y, radius, alive,
     version of the cutoff kernels (the JAX package's per-pair
     ``d2 <= cutoff * cutoff`` in ``_pair_tile``), with no sort and no
     tiles.  ``rows``: an optional index tensor; only those rows' forces are
-    computed (against every column) and returned, in its order.
+    computed (against every column) and returned, in its order.  ``cols``:
+    the partners' planes ``(x, y, vx, vy, radius, alive)`` when they are
+    not the rows -- the rectangular form of the kernels, with global slots
+    ``row_offset + i`` and ``col_offset + j`` for the self-pair test;
+    ``mirror`` also returns minus the column sums (see :func:`_pair_sum`).
     """
+    cx, cy, cvx, cvy, crad, calive = _columns(cols, pos_x, pos_y, vel_x,
+                                              vel_y, radius, alive)
+
     def pair(r, dx, dy, pair_ok):
-        dvx = vel_x[r, None] - vel_x[None, :]           # v_i - v_j
-        dvy = vel_y[r, None] - vel_y[None, :]
-        radius_sub = ((radius[r, None] + radius[None, :])
+        dvx = vel_x[r, None] - cvx[None, :]             # v_i - v_j
+        dvy = vel_y[r, None] - cvy[None, :]
+        radius_sub = ((radius[r, None] + crad[None, :])
                       if use_ped_radius else 0.0)
         return _moussaid_pair_force(dx, dy, radius_sub, dvx, dvy, p, pair_ok)
 
-    return _pair_sum(pos_x, pos_y, alive, pair, row_block, cutoff, rows)
+    return _pair_sum(pos_x, pos_y, alive, pair, row_block, cutoff, rows,
+                     (cx, cy, calive), row_offset, col_offset, mirror)
 
 
 def _powerlaw_pair_force(dx, dy, rad_sum, dvx, dvy, p: PowerLawParams,
@@ -201,19 +235,26 @@ def _powerlaw_pair_force(dx, dy, rad_sum, dvx, dvy, p: PowerLawParams,
 
 def powerlaw_force(pos_x, pos_y, vel_x, vel_y, radius, alive,
                    p: PowerLawParams, row_block: int = 1024,
-                   cutoff: float | None = None, rows=None):
+                   cutoff: float | None = None, rows=None, cols=None,
+                   row_offset: int = 0, col_offset: int = 0,
+                   mirror: bool = False):
     """Full N x N Karamouzas power-law interaction (the JAX package's
     forces.py:273-335), planar: ``(fx, fy)``.  The plain version of the
     ``powerlaw_*`` kernels; disc radii always participate (the law is
-    defined on discs).  ``row_block``, ``cutoff`` and ``rows`` as in
-    :func:`pedestrian_force`.  Dead rows come out exactly zero."""
+    defined on discs).  ``row_block``, ``cutoff``, ``rows``, ``cols``, the
+    offsets and ``mirror`` as in :func:`pedestrian_force`.  Dead rows come
+    out exactly zero."""
+    cx, cy, cvx, cvy, crad, calive = _columns(cols, pos_x, pos_y, vel_x,
+                                              vel_y, radius, alive)
+
     def pair(r, dx, dy, pair_ok):
         return _powerlaw_pair_force(
-            dx, dy, radius[r, None] + radius[None, :],
-            vel_x[r, None] - vel_x[None, :], vel_y[r, None] - vel_y[None, :],
+            dx, dy, radius[r, None] + crad[None, :],
+            vel_x[r, None] - cvx[None, :], vel_y[r, None] - cvy[None, :],
             p, pair_ok)
 
-    return _pair_sum(pos_x, pos_y, alive, pair, row_block, cutoff, rows)
+    return _pair_sum(pos_x, pos_y, alive, pair, row_block, cutoff, rows,
+                     (cx, cy, calive), row_offset, col_offset, mirror)
 
 
 def _helbing_pair_force(dx, dy, yx, yy, ex, ey, p: PedRepulsiveParams,
@@ -256,21 +297,27 @@ def _helbing_pair_force(dx, dy, yx, yy, ex, ey, p: PedRepulsiveParams,
 
 def ped_repulsive_force(pos_x, pos_y, vel_x, vel_y, ex, ey, alive,
                         p: PedRepulsiveParams, row_block: int = 1024,
-                        cutoff: float | None = None, rows=None):
+                        cutoff: float | None = None, rows=None, cols=None,
+                        row_offset: int = 0, col_offset: int = 0):
     """Helbing-Molnar (1995) elliptical pedestrian repulsion with field of
     view (the JAX package's forces.py:411-468), planar: ``(fx, fy)``.  The
     plain version of the ``helbing_*`` kernels.  ``(ex, ey)``: each
     pedestrian's unit desired direction (zero at its waypoint).  The law is
     not antisymmetric: it anticipates the partner's step and never reads
-    the pedestrian's own velocity.  ``row_block``, ``cutoff`` and ``rows``
-    as in :func:`pedestrian_force`."""
+    the pedestrian's own velocity.  ``row_block``, ``cutoff``, ``rows``,
+    ``cols`` (whose radius entry is not read) and the offsets as in
+    :func:`pedestrian_force`."""
+    cx, cy, cvx, cvy, _, calive = _columns(cols, pos_x, pos_y, vel_x, vel_y,
+                                           None, alive)
+
     def pair(r, dx, dy, pair_ok):
         return _helbing_pair_force(
-            -dx, -dy, p.step_width * vel_x[None, :],
-            p.step_width * vel_y[None, :], ex[r, None], ey[r, None], p,
+            -dx, -dy, p.step_width * cvx[None, :],
+            p.step_width * cvy[None, :], ex[r, None], ey[r, None], p,
             pair_ok)
 
-    return _pair_sum(pos_x, pos_y, alive, pair, row_block, cutoff, rows)
+    return _pair_sum(pos_x, pos_y, alive, pair, row_block, cutoff, rows,
+                     (cx, cy, calive), row_offset, col_offset)
 
 
 def section_slots(seg) -> int:

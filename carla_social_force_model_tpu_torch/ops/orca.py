@@ -482,9 +482,9 @@ def _static_constraints(ex, ey, er, exempt, alive, src, k: int,
 def orca_velocities(pos, vel, radius, alive, pref, vmax, params, dt: float,
                     veh_snap=None, spatial_order: str = "hilbert",
                     borders=None, obstacles=None, static_exempt=None,
-                    order=None, plain_feed: bool = False):
+                    order=None, plain_feed: bool = False, axis=None):
     """New velocities of every agent under ORCA (the JAX package's
-    orca.py:546-663, one device).
+    orca.py:546-663).
 
     ``pos``/``vel``/``pref``: (x, y) plane pairs (N,); ``radius``/``vmax``
     (N,); ``alive`` (N,) bool.  ``pref`` is the preferred velocity (the
@@ -497,7 +497,11 @@ def orca_velocities(pos, vel, radius, alive, pref, vmax, params, dt: float,
     :func:`.spatial.morton_order` with ``spatial_order`` on these positions
     and ``alive``, so that a step sorting for another kernel sorts once.
     ``plain_feed``: the wall feed's plain version even on a card (the
-    reference its kernels are compared with).
+    reference its kernels are compared with).  ``axis``: the planes are
+    this shard's slots of an agent axis; they are all-gathered, every
+    shard solves the whole crowd (neighbour windows span the shards as on
+    one device) and keeps its own rows (orca.py:591-597, :659-660);
+    ``order`` must then be None.
 
     Returns ``(vx, vy)``, valid where ``alive`` (dead rows undefined)."""
     px, py = pos
@@ -507,6 +511,14 @@ def orca_velocities(pos, vel, radius, alive, pref, vmax, params, dt: float,
                    and params.max_statics > 0)
     exm = (static_exempt if static_exempt is not None
            else torch.zeros_like(alive))
+    if axis is not None:
+        if order is not None:
+            raise ValueError("a sharded ORCA sorts the gathered crowd: pass "
+                             "no order")
+        local_n = px.shape[0]
+        px, py, vx, vy, radius, alive, prx, pry, vmax, exm = (
+            axis.all_gather(a) for a in (px, py, vx, vy, radius, alive, prx,
+                                         pry, vmax, exm))
     n = px.shape[0]
     k = params.max_neighbors
     window = params.window if params.window else n
@@ -548,4 +560,7 @@ def orca_velocities(pos, vel, radius, alive, pref, vmax, params, dt: float,
     ovx, ovy = solve_orca_lp(eprx, epry, ptx, pty, hx, hy, valid, evmax)
     if inv is not None:
         ovx, ovy = ovx[inv], ovy[inv]
+    if axis is not None:
+        rows = slice(axis.index * local_n, (axis.index + 1) * local_n)
+        ovx, ovy = ovx[rows], ovy[rows]
     return ovx, ovy

@@ -124,8 +124,10 @@ class CutoffGrid(NamedTuple):
     ``"sym_cutoff"`` (static triangle with the box test),
     ``"sym_compact"`` (survivor table over tile pairs), ``"dense_cutoff"``
     (every column tile, box test per block) or ``"compact"`` (survivor
-    table per 128-row table row).  ``boxes``: (4, n) column-tile boxes (128
-    for the symmetric forms, 256 for the others).  ``surv``/``counts``:
+    table per 128-row table row), or ``"sym_dense_cutoff"`` (the full
+    block of two shards' agents, the box test on both sides' 128-agent
+    tiles).  ``boxes``: (4, n) column-tile boxes (128 for the symmetric
+    forms, 256 for the others).  ``surv``/``counts``:
     the table and each row's hit count (None without a table)."""
 
     form: str
@@ -134,6 +136,9 @@ class CutoffGrid(NamedTuple):
     counts: torch.Tensor | None
     max_surv: int
     c2: float
+    #: the rows' 128-agent tile boxes of a ``"sym_dense_cutoff"`` launch
+    #: (the other forms take the rows' boxes from the same planes)
+    row_boxes: torch.Tensor | None = None
 
 
 def cutoff_grid(x, y, alive, cutoff: float, symmetric: bool = True,
@@ -155,3 +160,28 @@ def cutoff_grid(x, y, alive, cutoff: float, symmetric: bool = True,
     surv, counts = surv_counts(hits, ms)
     return CutoffGrid("sym_compact" if symmetric else "compact", col_bb,
                       surv.contiguous(), counts, ms, c2)
+
+
+def rect_grid(row_x, row_y, row_alive, col_bb, n_cols: int, cutoff: float,
+              compact: bool = True, max_surv: int = 0) -> CutoffGrid:
+    """The grid of a dense cutoff launch of sorted row planes against a
+    block of ``n_cols`` sorted columns with 256-column tile boxes ``col_bb``
+    (:func:`box_planes`): the box test alone, or above the gate (on the
+    column count) the survivor table of the rows' 128-row tiles against the
+    column tiles.  The square grid of :func:`cutoff_grid` with
+    ``symmetric=False`` is this grid with the rows as the columns."""
+    engage, ms = compact_gate(n_cols, False, compact, max_surv)
+    c2 = cutoff_sq(cutoff)
+    if not engage:
+        return CutoffGrid("dense_cutoff", col_bb, None, None, 0, c2)
+    hits = _bbox_hits(box_planes(row_x, row_y, row_alive, SYM_TILE), col_bb,
+                      cutoff)
+    surv, counts = surv_counts(hits, ms)
+    return CutoffGrid("compact", col_bb, surv.contiguous(), counts, ms, c2)
+
+
+def block_grid(row_bb, col_bb, cutoff: float) -> CutoffGrid:
+    """The grid of a full-block (``"sym_dense_cutoff"``) launch: the rows'
+    and the columns' 128-agent tile boxes (:func:`box_planes`)."""
+    return CutoffGrid("sym_dense_cutoff", col_bb, None, None, 0,
+                      cutoff_sq(cutoff), row_bb)

@@ -76,7 +76,7 @@ def step_config_from_fields(d: dict, engine_path: bool = False
     its Pallas path only).  ``use_pallas``, ``use_pallas_env``, the tile,
     VMEM, interpret and division knobs are TPU launch choices with no
     counterpart: the device chooses the path here.  ``env_compact``,
-    ``env_max_surv`` and ``env_analytic`` carry over (the port's compacted
+    ``env_max_surv``, ``env_analytic`` and ``axis_comm`` carry over (the port's compacted
     environment kernels run on the gate of the JAX package's default
     ``env_point_tile``).  The port applies ``env_analytic`` on every
     device, where the JAX package applies it on its Pallas path only.
@@ -109,7 +109,8 @@ def step_config_from_fields(d: dict, engine_path: bool = False
         spatial_order=str(d["spatial_order"]),
         env_compact=bool(d["env_compact"]),
         env_max_surv=int(d["env_max_surv"]),
-        env_analytic=bool(d["env_analytic"]))
+        env_analytic=bool(d["env_analytic"]),
+        axis_comm=str(d["axis_comm"]))
 
 
 def ped_state_from_fields(d: dict, device: torch.device | str) -> PedState:

@@ -34,38 +34,32 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _FLOAT = ctypes.c_float
+#: the pair entries' leading arguments: law, then the row planes (x, y, u,
+#: v, radius, alive), n_rows, row_off, the column planes, n_cols, col_off,
+#: prm, use_radius (the rectangular walks); or law, x, y, vx, vy, radius,
+#: alive, prm, use_radius, n (the square symmetric walks)
+_RECT = ([_INT] + [_PTR] * 6 + [_INT, _INT] + [_PTR] * 6 + [_INT, _INT]
+         + [_PTR, _INT])
+_SQUARE = [_INT] + [_PTR] * 7 + [_INT, _INT]
 #: C signature of each entry, by name (see the extern "C" blocks in csrc/)
 ARGTYPES = {
-    # x, y, vx, vy, radius, alive, prm, use_radius, n, fx, fy, stream
-    "sfm_pair_force_dense": [_PTR] * 7 + [_INT, _INT] + [_PTR] * 3,
-    "sfm_pair_force_sym": [_PTR] * 7 + [_INT, _INT] + [_PTR] * 3,
-    # x, y, vx, vy, radius, alive, prm, use_radius, n, col_bb, c2, fx, fy,
-    # stream
-    "sfm_pair_force_dense_cutoff": ([_PTR] * 7 + [_INT, _INT, _PTR, _FLOAT]
-                                    + [_PTR] * 3),
-    "sfm_pair_force_sym_cutoff": ([_PTR] * 7 + [_INT, _INT, _PTR, _FLOAT]
-                                  + [_PTR] * 3),
-    # x, y, vx, vy, radius, alive, prm, use_radius, n, col_bb, surv, counts,
-    # max_surv, c2, fx, fy, stream
-    "sfm_pair_force_compact": ([_PTR] * 7 + [_INT, _INT] + [_PTR] * 3
-                               + [_INT, _FLOAT] + [_PTR] * 3),
-    "sfm_pair_force_sym_compact": ([_PTR] * 7 + [_INT, _INT] + [_PTR] * 3
-                                   + [_INT, _FLOAT] + [_PTR] * 3),
-    # the power-law entries: the Moussaid ones without use_radius
-    "sfm_powerlaw_dense": [_PTR] * 7 + [_INT] + [_PTR] * 3,
-    "sfm_powerlaw_sym": [_PTR] * 7 + [_INT] + [_PTR] * 3,
-    "sfm_powerlaw_dense_cutoff": [_PTR] * 7 + [_INT, _PTR, _FLOAT] + [_PTR] * 3,
-    "sfm_powerlaw_sym_cutoff": [_PTR] * 7 + [_INT, _PTR, _FLOAT] + [_PTR] * 3,
-    "sfm_powerlaw_compact": ([_PTR] * 7 + [_INT] + [_PTR] * 3
-                             + [_INT, _FLOAT] + [_PTR] * 3),
-    "sfm_powerlaw_sym_compact": ([_PTR] * 7 + [_INT] + [_PTR] * 3
-                                 + [_INT, _FLOAT] + [_PTR] * 3),
-    # x, y, vx, vy, ex, ey, alive, prm, n, [col_bb, [surv, counts,
-    # max_surv,] c2,] fx, fy, stream
-    "sfm_helbing_dense": [_PTR] * 8 + [_INT] + [_PTR] * 3,
-    "sfm_helbing_dense_cutoff": [_PTR] * 8 + [_INT, _PTR, _FLOAT] + [_PTR] * 3,
-    "sfm_helbing_compact": ([_PTR] * 8 + [_INT] + [_PTR] * 3 + [_INT, _FLOAT]
-                            + [_PTR] * 3),
+    # ..., fx, fy, stream
+    "sfm_pair_dense": _RECT + [_PTR] * 3,
+    "sfm_pair_sym": _SQUARE + [_PTR] * 3,
+    # ..., col_bb (bb), c2, fx, fy, stream
+    "sfm_pair_dense_cutoff": _RECT + [_PTR, _FLOAT] + [_PTR] * 3,
+    "sfm_pair_sym_cutoff": _SQUARE + [_PTR, _FLOAT] + [_PTR] * 3,
+    # ..., col_bb (bb), surv, counts, max_surv, c2, fx, fy, stream
+    "sfm_pair_compact": _RECT + [_PTR] * 3 + [_INT, _FLOAT] + [_PTR] * 3,
+    "sfm_pair_sym_compact": (_SQUARE + [_PTR] * 3 + [_INT, _FLOAT]
+                             + [_PTR] * 3),
+    # ..., [row_bb, col_bb, c2,] fx, fy, fxc, fyc, stream
+    "sfm_pair_sym_dense": _RECT + [_PTR] * 5,
+    "sfm_pair_sym_dense_cutoff": _RECT + [_PTR, _PTR, _FLOAT] + [_PTR] * 5,
+    # law, n_dev, n_local, rx, ry, ru, rv, rrad, ralive, cols, comm, sync,
+    # prm, use_radius, cutoff, c2, fx, fy, stream
+    "sfm_ring_force": ([_INT] * 3 + [_PTR] * 10 + [_INT, _INT, _FLOAT]
+                       + [_PTR] * 3),
     # px, py, prad, alive, ptx, pty, k, cx, cy, r2, s_count, a, b,
     # use_radius, n, fx, fy, stream
     "sfm_env_exp": ([_PTR] * 6 + [_INT] + [_PTR] * 3

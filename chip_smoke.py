@@ -33,10 +33,18 @@ chunk scan of the chunked environment forces (``chunk_argmin``) against its
 plain version bitwise, every shipped scenario through
 ``api.simulation.Simulation`` at its golden's horizon (with
 ``run_streamed`` and the CLI), and a Town02 crowd of 10,000 random
-pedestrians built through ``api.scenario.build_scenario`` at 200 steps. It
-counts the kernel launches of each path, and checks every step of 50-step
-rollouts through the kernels against the same step through the plain
-versions from the same state.
+pedestrians built through ``api.scenario.build_scenario`` at 200 steps;
+then agent sharding (phases 24-26): the rectangular forms of the dense
+pair kernels, the full-block kernel ``pair_force_sym_dense`` and the
+in-kernel ring ``ring_force`` against their plain versions, config #1 at
+N = 10,000 over 4 virtual shards on the one card (a ``LocalMesh``) under
+each column schedule (``gather``, ``ring``, the half-ring,
+``ring_kernel``) and with the 30 m cutoff at N = 50,000, each step checked
+against the single-device kernel path, then 100 timed steps; the urban
+path, groups and config #3 + ORCA sharded, and a 1-rank NCCL
+process-group run.  It counts the kernel launches of each path, and checks
+every step of 50-step rollouts through the kernels against the same step
+through the plain versions from the same state.
 
 Run from the repository root, with no arguments:
 
@@ -99,8 +107,9 @@ SAMPLE_ROWS = 4_096
 #: N = 10,000 (79 tiles of 128, 40 of 256 per row)
 FORCED_MAX_SURV = 32
 #: steps of the config #3 + env_compact main path (phase 14), which
-#: launches env_moussaid_compact
-C3_COMPACT_STEPS = 200
+#: launches env_moussaid_compact (cut from 200 when the sharding phases
+#: came in)
+C3_COMPACT_STEPS = 100
 #: kernel vs the float64 numpy oracle (tests/oracle.py) on a small crowd
 ORACLE_N = 200
 ORACLE_TOL = 1e-4
@@ -116,10 +125,10 @@ ENV_ATOL = ENV_RTOL = 1e-5
 FAMILY_SWITCHES = ("powerlaw", "helbing", "mix-moussaid-powerlaw-helbing",
                    "groups-0.5:4")
 #: steps of every family path (phase 16): the headline ones (cut from STEPS,
-#: then from 200, to keep the run within half its time limit as later
-#: slices add paths) and those that exist to launch the other forms of the
-#: family kernels (dense, dense cutoff, the tables at 50k)
-FAMILY_FORM_STEPS = 100
+#: then from 200 and 100, to keep the run within half its time limit as
+#: later slices add paths) and those that exist to launch the other forms of
+#: the family kernels (dense, dense cutoff, the tables at 50k)
+FAMILY_FORM_STEPS = 50
 
 #: the card's peak rates (NVIDIA H100 SXM data sheet; the f32 rate outside
 #: the tensor cores) and its special-function units (CUDA C++ Programming
@@ -159,8 +168,9 @@ TOPK_OPS = 8
 #: the ORCA paths (phases 18-20): bench.py's BENCH_LAW=orca switch with
 #: BENCH_MODE=obstacles, borders or urban and BENCH_ENV_ANALYTIC=1, and
 #: BENCH_MIX=moussaid,powerlaw,orca; the headline path (config #3) runs
-#: STEPS, the others ORCA_FORM_STEPS, the config #2 path at ORCA_BIG_N
-ORCA_FORM_STEPS = 200
+#: STEPS, the others ORCA_FORM_STEPS (cut from 200 when the sharding
+#: phases came in), the config #2 path at ORCA_BIG_N
+ORCA_FORM_STEPS = 100
 ORCA_BIG_N = 50_000
 #: the urban path's survivor-table width: its 320 analytic border sections
 #: make 5 groups of 64, which the auto width (5) never compacts
@@ -179,6 +189,22 @@ TOWN_STEPS = 200
 #: sum, a compare and two selects)
 ARGMIN_OPS = 8
 #: the goldens' scenarios, horizons (s) and force files (tests/golden)
+#: agent sharding (phases 24-26): virtual shards on the one card (a
+#: LocalMesh), the ring kernel's device counts, the timed run of each
+#: sharded path, the groups and ORCA paths' checked steps, the steps of the
+#: 50k path also checked against the sharded plain path (its plain cutoff
+#: force evaluates all N^2 pairs) and those of the 1-rank NCCL run
+SHARDS = 4
+RING_DEVICES = (2, 3, 4, 8)
+SHARD_STEPS = 100
+SHARD_SIDE_STEPS = 20
+SHARD_BIG_PLAIN_STEPS = 3
+#: steps of the 10k paths also checked against the sharded plain path (the
+#: rest against the single-device kernel path only), and of the sharded
+#: timed runs' warm-up
+SHARD_PLAIN_STEPS = 10
+SHARD_WARMUP_STEPS = 5
+NCCL_STEPS = 10
 GOLDENS = (("corridor_counterflow", 15.0, None, None),
            ("road_crossing", 15.0, None, None),
            ("obstacle_evasion", 15.0, None, None),
@@ -417,8 +443,6 @@ def cutoff_kernel_checks(dev, card):
         MoussaidParams, moussaid_vector)
     from carla_social_force_model_tpu_torch.ops import (
         cuda_forces, forces, pair_grid)
-    from carla_social_force_model_tpu_torch.ops.spatial import (
-        morton_order, surv_counts)
     p = MoussaidParams()
     prm = moussaid_vector(p, dev)
     worst = dict.fromkeys(CUTOFF_FORMS, 0.0)
@@ -588,95 +612,9 @@ def cutoff_kernel_checks(dev, card):
                     fail(f"N={n}: {key} differs from dense_cutoff bitwise")
         pairs_u = pairs_within(planes, grids["sym_compact"])
         times(n, planes, grids, pairs_u, reps=3)
-        # the per-step work around the kernel at 1M (CUDA events)
-        sym_grid = grids["sym_compact"]
-        row_bb = pair_grid.box_planes(x, y, alive, pair_grid.SYM_TILE)
-        hits = pair_grid._bbox_hits(row_bb, row_bb, CUTOFF_M)
-        perm, _ = morton_order(x, y, alive, "hilbert")
-        parts = {
-            "Hilbert key and sort": lambda: morton_order(x, y, alive,
-                                                         "hilbert"),
-            "gather of 6 planes": lambda: [a[perm] for a in planes],
-            "boxes of 128-agent tiles": lambda: pair_grid.box_planes(
-                x, y, alive, pair_grid.SYM_TILE),
-            "hit matrix (symmetric)": lambda: pair_grid._bbox_hits(
-                row_bb, row_bb, CUTOFF_M),
-            "survivor table from hits": lambda: surv_counts(
-                hits, pair_grid.AUTO_MAX_SURV),
-            "whole launch grid (symmetric, auto)":
-                lambda: pair_grid.cutoff_grid(x, y, alive, CUTOFF_M),
-            "whole launch grid (dense, auto)": lambda: pair_grid.cutoff_grid(
-                x, y, alive, CUTOFF_M, symmetric=False)}
         say(f"phase 9 N={n}: compact == dense_cutoff bitwise (fitting table "
             f"and overflow); plain version for {SAMPLE_ROWS} rows "
-            f"{1e3 * plain_rows_s:.1f} ms (host clock); hit matrix "
-            f"{tuple(hits.shape)}, table {tuple(sym_grid.surv.shape)}; "
-            f"per step "
-            + "; ".join(f"{k} {cuda_ms(f, reps=5):.4f} ms"
-                        for k, f in parts.items()) + f" ({card})")
-        # the main path's own crowd (synthetic_crowd: all alive, each walking
-        # to its antipode) against the seeded one, one difference at a time
-        from carla_social_force_model_tpu_torch.api.synthetic import (
-            synthetic_crowd)
-        sched = synthetic_crowd(n, extent=float(np.sqrt(n)), device=dev)
-        crowd = [sched.pos_x, sched.pos_y, sched.vel_x, sched.vel_y,
-                 sched.radius, torch.ones(n, dtype=torch.bool, device=dev)]
-        seeded = to_planes(*seeded_crowd(n, 13, float(np.sqrt(n))), dev)
-        for label, pl in (
-                ("main-path crowd", crowd),
-                ("main-path positions, seeded velocities",
-                 crowd[:2] + seeded[2:4] + crowd[4:]),
-                ("main-path crowd, seeded alive mask", crowd[:5] + seeded[5:]),
-                ("seeded crowd", seeded)):
-            perm, _ = morton_order(pl[0], pl[1], pl[5], "hilbert")
-            pl = [t[perm].contiguous() for t in pl]
-            g = pair_grid.cutoff_grid(pl[0], pl[1], pl[5], CUTOFF_M)
-            t_ms = device_ms(lambda: run(pl, g), "pair_force_sym_kernel",
-                             reps=3)
-            c = g.counts.float()
-            say(f"phase 9 N={n} {label}: pair_force_sym_compact "
-                f"{t_ms:.4f} ms on the device (auto table width {g.max_surv}; "
-                f"survivors mean {c.mean().item():.2f}, max "
-                f"{int(g.counts.max())}) ({card})")
-        # the same kernel on the main-path crowd in the main path's call
-        # sequence, one part of it at a time
-        perm, _ = morton_order(crowd[0], crowd[1], crowd[5], "hilbert")
-        pl = [t[perm].contiguous() for t in crowd]
-        g = pair_grid.cutoff_grid(pl[0], pl[1], pl[5], CUTOFF_M)
-        junk = torch.empty(64 << 20, device=dev)
-        p = MoussaidParams()
-        def after_pause(fn):
-            torch.cuda.synchronize()
-            time.sleep(0.01)
-            return fn()
-
-        def rebuilt_then_pause():
-            g2 = pair_grid.cutoff_grid(pl[0], pl[1], pl[5], CUTOFF_M)
-            return after_pause(lambda: run(pl, g2))
-
-        contexts = {
-            "after a 256 MB write": lambda: (junk.fill_(1.0), run(pl, g)),
-            "after a 32 MB write": lambda: (junk[:8 << 20].fill_(1.0),
-                                            run(pl, g)),
-            "after a 256 MB read": lambda: (junk.sum(), run(pl, g)),
-            "after a 256 MB write, a synchronize and 10 ms": lambda: (
-                junk.fill_(1.0), after_pause(lambda: run(pl, g))),
-            "launch grid rebuilt before each call": lambda: run(
-                pl, pair_grid.cutoff_grid(pl[0], pl[1], pl[5], CUTOFF_M)),
-            "launch grid rebuilt, then a synchronize": rebuilt_then_pause,
-            "launch grid copied to new tensors before each call":
-                lambda: run(pl, g._replace(
-                    boxes=g.boxes.clone(), surv=g.surv.clone(),
-                    counts=g.counts.clone())),
-            "sort, grid, kernel and unsort (pedestrian_force_sorted)":
-                lambda: cuda_forces.pedestrian_force_sorted(
-                    *crowd, p, CUTOFF_M)}
-        for label, fn in contexts.items():
-            t_ms = device_ms(fn, "pair_force_sym_kernel", reps=3)
-            say(f"phase 9 N={n} main-path crowd, {label}: "
-                f"pair_force_sym_compact {t_ms:.4f} ms on the device "
-                f"({card})")
-        del junk
+            f"{1e3 * plain_rows_s:.1f} ms (host clock) ({card})")
     say(f"phase 9 N={CUT_BIG_N}: {sampler.summary()}")
     return worst, results
 
@@ -716,8 +654,8 @@ class ClockSampler:
 def kernel_modules():
     """The port's modules that count kernel launches."""
     from carla_social_force_model_tpu_torch.ops import (cuda_env, cuda_forces,
-                                                        statics)
-    return cuda_forces, cuda_env, statics
+                                                        cuda_ring, statics)
+    return cuda_forces, cuda_env, statics, cuda_ring
 
 
 def reset_counts():
@@ -1011,7 +949,7 @@ def family_kernel_checks(dev, card):
 
 def family_paths(dev, zero, drive, profile_steps, step_ms, launches):
     """Phases 16 and 17: the family main paths through ``drive`` (main's
-    warm-up, best of 3 and exact launch counts; ``launches`` takes each
+    warm-up, best of 2 and exact launch counts; ``launches`` takes each
     family kernel's count per run, ``step_ms`` each path's step), profiled
     where they run STEPS; then each headline family path step by step
     through the kernels against the plain versions."""
@@ -1368,7 +1306,7 @@ def orca_scene(path, n, steps, dev, urban):
 def orca_paths(dev, zero, drive, profile_steps, step_ms, launches, card,
                urban):
     """Phases 19 and 20: the ORCA main paths through ``drive`` (main's
-    warm-up, best of 3 and exact launch counts), the headline one profiled,
+    warm-up, best of 2 and exact launch counts), the headline one profiled,
     the urban one recorded (walkers through CHECKING_TRAFFIC and
     CROSSING_ROAD); then the headline and urban paths step by step through
     the kernels against the plain versions, the chunk scan (``chunk_closest``,
@@ -1590,7 +1528,7 @@ def scenario_paths(dev, zero, drive, profile_steps, step_ms, launches, card,
     ``write_csv()`` byte for byte (with the dense pair kernel, whose sums
     do not change from run to run as the symmetric kernel's atomics do),
     and one CLI run with ``--csv``.  Phase 23: the Town02 crowd's main
-    path (``drive``: warm-up, best of 3 over TOWN_STEPS, exact launch
+    path (``drive``: warm-up, best of 2 over TOWN_STEPS, exact launch
     counts), its profile and PARITY_STEPS steps against the plain
     versions."""
     import shutil
@@ -1712,6 +1650,420 @@ def scenario_paths(dev, zero, drive, profile_steps, step_ms, launches, card,
                                            PARITY_STEPS)(b.initial_state)
     check_rollout(label, b.scene, b.params, b.cfg, b.initial_state,
                   rec_plain, free_limit=False)
+
+
+def shard_kernel_checks(dev, card):
+    """Phase 24: the agent-sharding kernels against their plain versions at
+    the shapes of phase 25 (N = 10,000 over 4 shards): the rectangular
+    dense, box-skip and table forms of one shard's 2,500 rows against a
+    2,500-wide block and against the 10,000 gathered columns, and bitwise
+    against the square kernels on equal planes; the full-block kernel
+    ``pair_force_sym_dense`` (both antisymmetric laws, with and without
+    the cutoff); the in-kernel ring ``ring_force`` at D = 2, 3, 4 and 8
+    over N = 10,000 (three laws, with and without the cutoff) against the
+    gathered dense kernel and against the plain ring, relaunched to show
+    its counters reset.  Returns ``(worst, results)``: each new kernel's
+    largest error and its time, plain time and bound."""
+    import torch
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import shard_cases as sc
+    from carla_social_force_model_tpu_torch.ops import (cuda_forces,
+                                                        cuda_ring, pair_grid)
+    worst = dict.fromkeys(("pair_force_sym_dense",
+                           "pair_force_sym_dense_cutoff", "ring_force"), 0.0)
+    results = {}
+
+    def held(label, got, want, lim, name=None):
+        err = (got - want).abs()
+        say(f"phase 24 {label}: max abs err {err.max().item():.3e}, max "
+            f"|f| {want.abs().max().item():.3e}, worst err/limit "
+            f"{(err / lim).max().item():.3f} (limit {sc.ATOL:g} + "
+            f"{sc.RTOL:g}*S)")
+        if not torch.isfinite(got).all():
+            fail(f"{label}: non-finite forces")
+        if bool((err > lim).any()):
+            fail(f"{label} disagrees with its plain version")
+        if name is not None:
+            worst[name] = max(worst[name], err.max().item())
+
+    k = N // SHARDS
+    # the rectangular forms of the dense walks
+    for law in sc.LAWS:
+        planes = sc.shard_planes(N, 24, dev, n_shards=SHARDS, sort=True)
+        for gathered in (False, True):
+            n_cols = N if gathered else k
+            for cutoff, ms in ((None, 0), (CUTOFF_M, 0), (CUTOFF_M, 4)):
+                got, want, lim = sc.rect_case(law, planes, SHARDS, 1, cutoff,
+                                              gathered, max_surv=ms)
+                torch.cuda.synchronize()
+                form = ("dense" if cutoff is None
+                        else "compact" if ms else "dense_cutoff")
+                held(f"{law} {form}, {k} rows x {n_cols} columns", got,
+                     want, lim)
+    planes = sc.shard_planes(N, 25, dev, sort=True)
+    x, y, vx, vy, rad, alive, ex, ey = planes
+    p = sc.law_params("moussaid")
+    prm = cuda_forces.law_vector("moussaid", p, dev)
+    cols = (x, y, vx, vy, rad, alive)
+    for form in ("dense", "dense_cutoff", "compact"):
+        grid = None
+        if form != "dense":
+            grid = pair_grid.cutoff_grid(x, y, alive, CUTOFF_M,
+                                         symmetric=False,
+                                         max_surv=(FORCED_MAX_SURV
+                                                   if form == "compact"
+                                                   else 0))
+        square = (cuda_forces.pair_force_dense(*cols, prm) if grid is None
+                  else cuda_forces.pair_force_cutoff(*cols, prm, grid))
+        rect = cuda_forces.pair_force_rect(*cols, prm, cols, grid=grid)
+        torch.cuda.synchronize()
+        if grid is not None and grid.form != form:
+            fail(f"the {form} check drew a {grid.form} grid")
+        if not torch.equal(torch.stack(square), torch.stack(rect)):
+            fail(f"the rectangular {form} form differs from the square one "
+                 f"on equal planes")
+        say(f"phase 24 rectangular {form} == square {form} bitwise on equal "
+            f"planes, N={N}")
+
+    # the full-block kernel: shard 0's rows against shard 1's block
+    for law in ("moussaid", "powerlaw"):
+        for cutoff in (None, CUTOFF_M):
+            pl = sc.shard_planes(N, 26, dev, n_shards=SHARDS,
+                                 sort=cutoff is not None)
+            rows, blk = sc.split(pl, 0, k), sc.split(pl, k, 2 * k)
+            got_r, got_c, want_r, want_c, lim_r, lim_c = sc.sym_dense_case(
+                law, rows, blk, cutoff)
+            torch.cuda.synchronize()
+            name = ("pair_force_sym_dense" if cutoff is None
+                    else "pair_force_sym_dense_cutoff")
+            form = f"{law} sym_dense{'' if cutoff is None else ' cutoff'}"
+            held(f"{form} rows, {k} x {k}", got_r, want_r, lim_r, name)
+            held(f"{form} columns, {k} x {k}", got_c, want_c, lim_c, name)
+
+    # the in-kernel ring: every law, every device count, twice
+    for n_dev in RING_DEVICES:
+        n = (N // n_dev) * n_dev
+        for law in sc.LAWS:
+            for cutoff in (None, CUTOFF_M):
+                pl = sc.shard_planes(n, 27, dev, n_shards=n_dev,
+                                     sort=cutoff is not None)
+                got, want, lim, dense = sc.ring_case(law, pl, n_dev, cutoff)
+                again, *_ = sc.ring_case(law, pl, n_dev, cutoff)
+                torch.cuda.synchronize()
+                label = (f"ring_force {law} D={n_dev}, N={n}"
+                         + ("" if cutoff is None else f", {CUTOFF_M:g} m"))
+                held(label + " vs plain ring", got, want, lim, "ring_force")
+                held(label + " vs gather + dense kernel", got, dense,
+                     2 * lim)
+                if not torch.equal(got, again):
+                    fail(f"{label}: a second launch on the same buffers "
+                         f"gives another result")
+        say(f"phase 24 ring_force D={n_dev}: relaunched on the same buffers, "
+            f"bitwise equal")
+
+    # times at the main path's shapes (Moussaid, 4 shards of 2,500), each
+    # beside its bound: the bytes each input is read once and each output
+    # written once, and the pairs (operations, special functions)
+    pl = sc.shard_planes(N, 28, dev, n_shards=SHARDS)
+    rows, blk = sc.split(pl, 0, k), sc.split(pl, k, 2 * k)
+    p = sc.law_params("moussaid")
+    prm = cuda_forces.law_vector("moussaid", p, dev)
+    side = lambda q: tuple(q[:6])  # noqa: E731
+    n_rows, n_blk = int(rows[5].sum()), int(blk[5].sum())
+    n_all = int(pl[5].sum())
+    plane_bytes = 5 * 4 + 1
+
+    def sym_dense():
+        return cuda_forces.pair_force_sym_dense(*side(rows), prm, side(blk),
+                                                col_offset=k)
+
+    def gathered():
+        return cuda_forces.pair_force_rect(*side(rows), prm, side(pl))
+
+    def ring():
+        return cuda_ring.ring_force(*side(pl), prm, SHARDS)
+
+    def ring_plain():
+        return cuda_ring.ring_force_plain(*side(pl), p, SHARDS)
+
+    slot = 6 * k + 4 * -(-k // pair_grid.COL_TILE)
+    timing = {
+        "pair_force_sym_dense": (
+            sym_dense, "pair_force_sym_dense_kernel",
+            lambda: sc.plain_pairs("moussaid", rows, blk, 0, k, mirror=True),
+            bound(2 * k * plane_bytes + 4 * 4 * k + 6 * 4,
+                  n_rows * n_blk * (PAIR_OPS + 2), n_rows * n_blk * PAIR_MUFU),
+            f"{k} x {k} block"),
+        "pair_force_dense (rectangular)": (
+            gathered, "pair_force_dense_kernel",
+            lambda: sc.plain_pairs("moussaid", rows, pl, 0, 0),
+            bound((k + N) * plane_bytes + 2 * 4 * k + 6 * 4,
+                  n_rows * (n_all - 1) * PAIR_OPS,
+                  n_rows * (n_all - 1) * PAIR_MUFU),
+            f"{k} rows x {N} gathered columns"),
+        "ring_force": (
+            ring, "ring_force_kernel", ring_plain,
+            bound(N * (plane_bytes + 8) + SHARDS * slot * 4
+                  + 2 * SHARDS * (SHARDS - 1) * slot * 4 + 6 * 4,
+                  n_all * (n_all - 1) * PAIR_OPS,
+                  n_all * (n_all - 1) * PAIR_MUFU),
+            f"D={SHARDS}, N={N}")}
+    for name, (fn, kernel, plain, bnd, shape) in timing.items():
+        t_ms = device_ms(fn, kernel)
+        p_ms = cuda_ms(plain, reps=3)
+        results[name] = dict(ms=t_ms, plain_ms=p_ms, bound=bnd)
+        say(f"phase 24 time {name} ({shape}): kernel {t_ms:.4f} ms on the "
+            f"device, plain {p_ms:.4f} ms, bound {bnd[0]:.6f} ms ({bnd[1]}) "
+            f"({card})")
+    # the full-block kernel with the cutoff at the 50k path's shape: shard
+    # 0's sorted rows against shard 1's sorted block, 12,500 each
+    kb = CUT_N // SHARDS
+    pl = sc.shard_planes(CUT_N, 29, dev, n_shards=SHARDS, sort=True)
+    rows, blk = sc.split(pl, 0, kb), sc.split(pl, kb, 2 * kb)
+    grid = pair_grid.block_grid(
+        pair_grid.box_planes(rows[0], rows[1], rows[5], pair_grid.SYM_TILE),
+        pair_grid.box_planes(blk[0], blk[1], blk[5], pair_grid.SYM_TILE),
+        CUTOFF_M)
+    c2 = pair_grid.cutoff_sq(CUTOFF_M)
+    within = 0
+    for lo in range(0, kb, 1024):
+        dx = blk[0][None, :] - rows[0][lo:lo + 1024, None]
+        dy = blk[1][None, :] - rows[1][lo:lo + 1024, None]
+        within += int((rows[5][lo:lo + 1024, None] & blk[5][None, :]
+                       & (dx * dx + dy * dy <= c2)).sum())
+    bnd = bound(2 * kb * plane_bytes + 4 * 4 * kb + 4 * grid.boxes.numel()
+                + 4 * grid.row_boxes.numel() + 6 * 4,
+                within * (PAIR_OPS + 2), within * PAIR_MUFU)
+    t_ms = device_ms(lambda: cuda_forces.pair_force_sym_dense(
+        *side(rows), prm, side(blk), col_offset=kb, grid=grid),
+        "pair_force_sym_dense_kernel")
+    p_ms = cuda_ms(lambda: sc.plain_pairs("moussaid", rows, blk, 0, kb,
+                                          cutoff=CUTOFF_M, mirror=True),
+                   reps=2)
+    results["pair_force_sym_dense_cutoff"] = dict(ms=t_ms, plain_ms=p_ms,
+                                                  bound=bnd)
+    say(f"phase 24 time pair_force_sym_dense_cutoff ({kb} x {kb} sorted "
+        f"block of the {CUT_N} path, {CUTOFF_M:g} m, {within} pairs within "
+        f"it of {kb * kb}): kernel {t_ms:.4f} ms on the device, plain "
+        f"{p_ms:.4f} ms, bound {bnd[0]:.6f} ms ({bnd[1]}) ({card})")
+    return worst, results
+
+
+def shard_paths(dev, zero, card, step_ms, launches, urban):
+    """Phases 25 and 26: the sharded main paths on a LocalMesh of SHARDS
+    virtual shards on the one card.  Each schedule's checked run steps the
+    sharded kernel path and, from the same state, the single-device kernel
+    path (and, for a few steps or all, the sharded plain path); its timed
+    runs count every launch per step.  Then the rest of the step under
+    sharding (the urban fleet, groups, config #3 + ORCA) and one 1-rank
+    NCCL process-group run."""
+    import dataclasses
+    import socket
+    import torch
+    import torch.distributed as dist
+    from carla_social_force_model_tpu_torch.api.synthetic import (
+        benchmark_bundle)
+    from carla_social_force_model_tpu_torch.models import stepper
+    from carla_social_force_model_tpu_torch.models.state import PedState
+    from carla_social_force_model_tpu_torch.parallel import (
+        ProcessGroupAxis, make_mesh)
+    from carla_social_force_model_tpu_torch.parallel.sharding import (
+        make_sharded_rollout, prepare_sharded_scene, shard_of)
+    mesh = make_mesh(SHARDS, device=dev)
+    label4 = f"{SHARDS} virtual shards on one card"
+
+    def gather_state(outs):
+        return PedState(**{f.name: torch.cat([getattr(o, f.name)
+                                              for o in outs])
+                           for f in dataclasses.fields(PedState)})
+
+    def prepared(scene, params, cfg):
+        scene, cap = prepare_sharded_scene(scene, SHARDS)
+        scene = stepper.prepare_scene(scene, analytic=cfg.env_analytic,
+                                      orca=params.enable_orca,
+                                      chunked=cfg.env_chunked)
+        return scene, cap
+
+    def sharded_step(shards, params, cfg, state, t, ap):
+        def body(ax, st, scn):
+            if ap is None:
+                return stepper.simulation_step(st, scn, params, cfg, t,
+                                               axis=ax)[0], None
+            st, nap, _ = stepper.fleet_tick(st, ap, scn, params, cfg, t, ax)
+            return st, nap
+        outs = mesh.run(body, [shard_of(state, d, SHARDS)
+                               for d in range(SHARDS)], shards)
+        return gather_state([o[0] for o in outs]), outs[0][1]
+
+    def check_steps(label, scene, params, cfg, steps, plain_steps):
+        """``steps`` sharded kernel steps, each against the single-device
+        kernel path's step from the same state, the first ``plain_steps``
+        also against the sharded plain path's: positions within
+        POS_STEP_TOL_M, modes, alive and the fleet state equal."""
+        scene, cap = prepared(scene, params, cfg)
+        shards = [dataclasses.replace(scene, spawn=shard_of(scene.spawn, d,
+                                                            SHARDS))
+                  for d in range(SHARDS)]
+        ref_plain = plain_cfg(cfg)
+        fleet = scene.autopilot
+        ap = None if fleet is None else fleet.initial_state()
+        s = PedState.empty(cap, device=dev)
+        one, plain = [], []
+        t0 = time.perf_counter()
+        for t in range(steps):
+            got, gap = sharded_step(shards, params, cfg, s, t, ap)
+            if fleet is None:
+                want, _ = stepper.simulation_step(s, scene, params, cfg, t)
+                wap = None
+            else:
+                want, wap, _ = stepper.fleet_tick(s, ap, scene, params, cfg,
+                                                  t)
+            refs = [(want, wap, one)]
+            if t < plain_steps:
+                refs.append((*sharded_step(shards, params, ref_plain, s, t,
+                                           ap), plain))
+            for ref, rap, errs in refs:
+                errs.append(max((got.pos_x - ref.pos_x).abs().max().item(),
+                                (got.pos_y - ref.pos_y).abs().max().item()))
+                if not (torch.equal(got.alive, ref.alive)
+                        and torch.equal(got.mode, ref.mode)):
+                    fail(f"{label}: step {t} gives other modes or alive "
+                         f"masks sharded than on one device / plain")
+                if rap is not None and not all(
+                        torch.equal(getattr(gap, f), getattr(rap, f))
+                        for f in gap.__dataclass_fields__):
+                    fail(f"{label}: step {t} gives another fleet state "
+                         f"sharded than on one device / plain")
+            if not (torch.isfinite(got.pos_x).all()
+                    and torch.isfinite(got.pos_y).all()):
+                fail(f"{label}: non-finite positions after step {t}")
+            s, ap = got, gap
+        torch.cuda.synchronize()
+        say(f"{label}: {steps} sharded steps ({label4}), one-step position "
+            f"L-inf vs the single-device kernel path max {max(one):.3e} m, "
+            f"vs the sharded plain path ({len(plain)} steps) max "
+            f"{max(plain) if plain else float('nan'):.3e} m (limit "
+            f"{POS_STEP_TOL_M:g} m); {int(s.alive.sum())} alive; "
+            f"{time.perf_counter() - t0:.1f} s ({card})")
+        if max(one) > POS_STEP_TOL_M or (plain and max(plain)
+                                          > POS_STEP_TOL_M):
+            fail(f"{label}: a sharded step lands more than "
+                 f"{POS_STEP_TOL_M} m from its reference")
+
+    def timed(label, scene, params, cfg, steps, expect, single_ms):
+        """One timed sharded run of ``steps`` after a short warm-up, the
+        counts set to 0 just before it and read just after: they must
+        equal ``expect`` exactly."""
+        scene, cap = prepared(scene, params, cfg)
+        state = PedState.empty(cap, device=dev)
+        make_sharded_rollout(mesh, scene, params, cfg,
+                             SHARD_WARMUP_STEPS)(state)
+        run = make_sharded_rollout(mesh, scene, params, cfg, steps)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        final, _ = run(state)
+        torch.cuda.synchronize()
+        best = time.perf_counter() - t0
+        counts = read_counts()
+        if counts != dict(zero, **expect):
+            fail(f"{label} launched {counts}, expected "
+                 f"{dict(zero, **expect)}")
+        if not (torch.isfinite(final.pos_x).all()
+                and torch.isfinite(final.pos_y).all()):
+            fail(f"non-finite positions after the {label} run")
+        per_step = {k: v / steps for k, v in expect.items()}
+        say(f"{label}: N={cap}, {steps} steps, {label4}: one run "
+            f"{1e3 * best / steps:.4f} ms/step = "
+            f"{cap * steps / best:.1f} agent-steps/s; launches per step "
+            f"{per_step}; single-device config #1 (phase 4, same call) "
+            f"{single_ms:.4f} ms/step ({card})")
+        return counts
+
+    lap("phase 25")
+    scene, params, cfg, _ = benchmark_bundle(N, device=dev)
+    n_pairs = SHARDS * (SHARDS - 1) // 2
+    schedules = (
+        ("gather", True, dict(pair_force_dense=SHARDS)),
+        ("ring", False, dict(pair_force_dense=SHARDS * SHARDS)),
+        ("ring", True, dict(pair_force_sym=SHARDS,
+                            pair_force_sym_dense=n_pairs)),
+        ("ring_kernel", True, dict(ring_force=1)))
+    for comm, symmetric, per_step in schedules:
+        name = ("half-ring" if comm == "ring" and symmetric else
+                "ring, symmetric_pairs=False" if comm == "ring" else comm)
+        kcfg = dataclasses.replace(cfg, axis_comm=comm,
+                                   symmetric_pairs=symmetric)
+        label = f"phase 25 config #1 sharded, {name}"
+        check_steps(label, scene, params, kcfg, PARITY_STEPS,
+                    SHARD_PLAIN_STEPS)
+        counts = timed(label, scene, params, kcfg, SHARD_STEPS,
+                       {k: v * SHARD_STEPS for k, v in per_step.items()},
+                       step_ms["pair_force_sym"])
+        for k in per_step:
+            if k in ("pair_force_sym_dense", "ring_force"):
+                launches[k] = counts[k]
+    scene, params, cfg, _ = benchmark_bundle(CUT_N, device=dev)
+    kcfg = dataclasses.replace(cfg, axis_comm="ring",
+                               interaction_cutoff=CUTOFF_M)
+    label = (f"phase 25 config #1 + {CUTOFF_M:g} m cutoff, N={CUT_N}, "
+             f"sharded half-ring (sorted)")
+    check_steps(label, scene, params, kcfg, PARITY_STEPS,
+                SHARD_BIG_PLAIN_STEPS)
+    counts = timed(label, scene, params, kcfg, SHARD_STEPS,
+                   dict(pair_force_sym_cutoff=SHARDS * SHARD_STEPS,
+                        pair_force_sym_dense_cutoff=n_pairs * SHARD_STEPS),
+                   step_ms.get(f"phase 10 config #1 + {CUTOFF_M:g} m cutoff, "
+                               f"N={CUT_N}, via pair_force_sym_compact",
+                               float("nan")))
+    launches["pair_force_sym_dense_cutoff"] = counts[
+        "pair_force_sym_dense_cutoff"]
+
+    lap("phase 26")
+    uscene, uparams, ucfg, _ = urban
+    check_steps("phase 26 urban (BASELINE config #4) sharded, half-ring",
+                uscene, uparams, dataclasses.replace(ucfg, axis_comm="ring"),
+                PARITY_STEPS, 2)
+    scene, params, cfg, _ = benchmark_bundle(N, device=dev)
+    gscene, gparams = family_scene(scene, params, "groups-0.5:4")
+    check_steps("phase 26 config #1 + groups-0.5:4 sharded, gather", gscene,
+                gparams, dataclasses.replace(cfg, axis_comm="gather"),
+                SHARD_SIDE_STEPS, 2)
+    oscene, oparams, ocfg, _, _ = orca_scene("headline", N,
+                                             SHARD_SIDE_STEPS, dev, urban)
+    check_steps("phase 26 config #3 + ORCA + env_analytic sharded, gather",
+                oscene, oparams, dataclasses.replace(ocfg,
+                                                     axis_comm="gather"),
+                SHARD_SIDE_STEPS, 2)
+    # one process, one rank, NCCL: the process-group axis on CUDA tensors
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1,
+                            device_id=torch.device(dev))
+    try:
+        axis = ProcessGroupAxis()
+        one = stepper.make_rollout_fn(scene, params, cfg, NCCL_STEPS)(
+            PedState.empty(N, device=dev))[1]
+        for comm in ("gather", "ring_kernel"):
+            reset_counts()
+            _, rec = make_sharded_rollout(
+                axis, stepper.prepare_scene(scene), params,
+                dataclasses.replace(cfg, axis_comm=comm), NCCL_STEPS,
+                record=True)(PedState.empty(N, device=dev))
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in read_counts().items() if v}
+            err = (rec.pos - one.pos).abs().max().item()
+            say(f"phase 26 1-rank NCCL ProcessGroupAxis, config #1, "
+                f"{comm}, {NCCL_STEPS} steps: launches {counts}; position "
+                f"L-inf vs the single-device run {err:.3e} m (limit "
+                f"{POS_TOL_M:g} m) ({card})")
+            if err > POS_TOL_M or not torch.equal(rec.alive, one.alive):
+                fail(f"the 1-rank NCCL run ({comm}) leaves the single-device "
+                     f"run")
+    finally:
+        dist.destroy_process_group()
 
 
 def main() -> None:
@@ -1851,7 +2203,8 @@ def main() -> None:
     def drive(label, scene, params, cfg, state, steps, expect,
               all_alive=True):
         """One main path: a warm-up run of WARMUP_STEPS (every kernel and
-        the allocator's pools warm), then best of 3 timed runs, each with
+        the allocator's pools warm), then best of 2 timed runs (3 before the
+        sharding phases came in), each with
         every count set to 0 just before and read just after; the counts
         must equal ``expect`` (per run) exactly.  Every position ends
         finite, and with ``all_alive`` every agent alive."""
@@ -1863,7 +2216,7 @@ def main() -> None:
                                 record=False)(state)
         torch.cuda.synchronize()
         best = float("inf")
-        for _ in range(3):
+        for _ in range(2):
             reset_counts()
             t0 = time.perf_counter()
             final, _ = run(state)
@@ -1878,7 +2231,7 @@ def main() -> None:
         if not (torch.isfinite(final.pos_x).all()
                 and torch.isfinite(final.pos_y).all()):
             fail(f"non-finite positions after the {label} rollout")
-        say(f"{label}: N={n}, {steps} steps, best of 3 {best:.3f} s = "
+        say(f"{label}: N={n}, {steps} steps, best of 2 {best:.3f} s = "
             f"{n * steps / best:.1f} agent-steps/s, "
             f"{1e3 * best / steps:.4f} ms/step, launches {counts}; "
             f"{n_alive} of {n} alive, all finite ({card})")
@@ -2227,6 +2580,15 @@ def main() -> None:
     scenario_paths(dev, zero, drive, profile_steps, step_ms, launches, card,
                    town)
 
+    lap("phase 24")
+    # -- phase 24: the agent-sharding kernels against their plain versions -
+    shard_worst, shard = shard_kernel_checks(dev, card)
+    worst.update(shard_worst)
+    torch.cuda.synchronize()
+
+    # -- phases 25 and 26: the sharded main paths, then the rest of the step
+    shard_paths(dev, zero, card, step_ms, launches, urban)
+
     lap("the kernels line")
     csrc = "carla_social_force_model_tpu_torch/csrc/"
     table = [
@@ -2275,6 +2637,14 @@ def main() -> None:
         ("chunk_argmin", csrc + "statics.cu",
          "carla_social_force_model_tpu/ops/geometry.py:117", scn["ms"],
          scn["plain_ms"], scn["bound"]),
+        *((name, csrc + source, "carla_social_force_model_tpu/ops/" + line,
+           shard[name]["ms"], shard[name]["plain_ms"], shard[name]["bound"])
+          for name, source, line in (
+              ("pair_force_sym_dense", "pair_forces.cu",
+               "pallas_forces.py:296"),
+              ("pair_force_sym_dense_cutoff", "pair_forces.cu",
+               "pallas_forces.py:296"),
+              ("ring_force", "ring.cu", "pallas_ring.py:65"))),
     ]
     for name, *_ in table:
         if launches[name] == 0:

@@ -1,10 +1,12 @@
 """PyTorch port on an NVIDIA card: the CUDA pair-force and environment-force
 kernels (with the cutoff forms of the pair kernels, their power-law and
 Helbing forms, the compacted forms of the environment kernels and the
-analytic form of the border kernel), the ORCA wall-feed kernels and the
-chunk scan of the chunked environment forces against their plain PyTorch
-versions, and the rollouts through them (the urban slice's, the model
-families', the ORCA slice's and a scenario's too).
+analytic form of the border kernel), the ORCA wall-feed kernels, the
+chunk scan of the chunked environment forces, and the agent-sharding
+kernels (the rectangular forms of the dense kernels, the full-block kernel
+and the in-kernel ring) against their plain PyTorch versions, and the
+rollouts through them (the urban slice's, the model families', the ORCA
+slice's, a scenario's and the sharded schedules' too).
 
 Every test here needs a card and skips without one.  This file imports
 neither JAX nor the JAX package, so on a machine with a card and no JAX it
@@ -30,6 +32,8 @@ from carla_social_force_model_tpu_torch.ops.spatial import morton_order
 from family_cases import family_planes, family_reference, family_run
 from orca_cases import (ENV_ATOL, ENV_RTOL, analytic_run, feed_mismatch,
                         feed_run, feed_scene)
+from shard_cases import (law_params, rect_case, ring_case, shard_planes,
+                         split, sym_dense_case)
 from scenario_cases import (chunk_scan_pair, chunked_on, closest_mismatches,
                             closest_pair, scan_mismatches, seeded_chunk_set,
                             seeded_crowd_planes, to_device)
@@ -843,3 +847,157 @@ def test_scenario_steps_through_kernels_match_plain_steps(cuda_device):
         assert err <= 1e-4, (k, err)
         s = nxt
     assert statics.LAUNCHES["chunk_argmin"] - before >= 30
+
+
+# -- agent sharding --------------------------------------------------------
+
+@pytest.mark.parametrize("law", ["moussaid", "powerlaw", "helbing"])
+@pytest.mark.parametrize("form", ["dense", "dense_cutoff", "compact"])
+def test_rect_forms_equal_square_forms_bitwise(cuda_device, law, form):
+    """The rectangular entry on equal row and column planes (offsets 0) is
+    the square call: the same kernel, bitwise."""
+    planes = shard_planes(3000, seed=3, device=cuda_device, sort=True)
+    x, y, vx, vy, rad, alive, ex, ey = planes
+    hel = law == "helbing"
+    rad = None if hel else rad
+    kw = dict(law=law, desired=(ex, ey) if hel else None)
+    prm = cuda_forces.law_vector(law, law_params(law), cuda_device)
+    grid = None
+    if form != "dense":
+        grid = pair_grid.cutoff_grid(x, y, alive, 10.0, symmetric=False,
+                                     compact=form == "compact",
+                                     max_surv=4 if form == "compact" else 0)
+        assert grid.form == form
+        square = cuda_forces.pair_force_cutoff(x, y, vx, vy, rad, alive, prm,
+                                               grid, **kw)
+    else:
+        square = cuda_forces.pair_force_dense(x, y, vx, vy, rad, alive, prm,
+                                              **kw)
+    rect = cuda_forces.pair_force_rect(x, y, vx, vy, rad, alive, prm,
+                                       (x, y, vx, vy, rad, alive),
+                                       grid=grid, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.stack(square), torch.stack(rect))
+
+
+@pytest.mark.parametrize("law", ["moussaid", "powerlaw", "helbing"])
+@pytest.mark.parametrize("gathered", [True, False])
+@pytest.mark.parametrize("cutoff,max_surv", [(None, 0), (8.0, 0), (8.0, 2)])
+def test_rect_forms_match_plain_version(cuda_device, law, gathered, cutoff,
+                                        max_surv):
+    """A shard's rows against the gathered columns or the next shard's
+    block (4 shards of 2,000), all three dense walks, against the plain
+    rectangular force with the global self-pair test."""
+    planes = shard_planes(8000, seed=4, device=cuda_device, n_shards=4,
+                          sort=cutoff is not None)
+    for shard in (0, 3):
+        got, want, lim = rect_case(law, planes, 4, shard, cutoff, gathered,
+                                   max_surv=max_surv)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        assert bool(((got - want).abs() <= lim).all()), (law, shard)
+
+
+@pytest.mark.parametrize("law", ["moussaid", "powerlaw"])
+@pytest.mark.parametrize("cutoff", [None, 8.0])
+@pytest.mark.parametrize("n_rows,n_cols", [(1, 1), (130, 257), (2500, 2500)])
+def test_sym_dense_matches_plain_version(cuda_device, law, cutoff, n_rows,
+                                         n_cols):
+    """The full-block kernel (the JAX package's ``_pair_kernel_sym_dense``):
+    +f on the rows and -f on the columns of one pair matrix, against the
+    plain version's row sums and minus its column sums."""
+    planes = shard_planes(n_rows + n_cols, seed=5, device=cuda_device,
+                          extent=30.0, n_shards=2, sort=cutoff is not None)
+    rows = split(planes, 0, n_rows)
+    cols = split(planes, n_rows, n_rows + n_cols)
+    got_r, got_c, want_r, want_c, lim_r, lim_c = sym_dense_case(
+        law, rows, cols, cutoff)
+    torch.cuda.synchronize()
+    for got, want, lim in ((got_r, want_r, lim_r), (got_c, want_c, lim_c)):
+        assert torch.isfinite(got).all()
+        assert bool(((got - want).abs() <= lim).all())
+    assert bool((got_r[:, ~rows[5]] == 0).all())
+    assert bool((got_c[:, ~cols[5]] == 0).all())
+
+
+@pytest.mark.parametrize("law", ["moussaid", "powerlaw", "helbing"])
+@pytest.mark.parametrize("n_shards", [1, 2, 3, 8])
+@pytest.mark.parametrize("cutoff", [None, 8.0])
+def test_ring_kernel_matches_gather_and_plain(cuda_device, law, n_shards,
+                                              cutoff):
+    """The in-kernel ring over 1, 2, 3 and 8 virtual devices against the
+    plain ring and against the gathered dense kernel, launched twice on the
+    same buffers (its counters reset on every launch)."""
+    from carla_social_force_model_tpu_torch.ops import cuda_ring
+    n = 480 * n_shards
+    planes = shard_planes(n, seed=6, device=cuda_device, n_shards=n_shards,
+                          sort=cutoff is not None)
+    for _ in range(2):
+        before = cuda_ring.LAUNCHES["ring_force"]
+        got, want, lim, dense = ring_case(law, planes, n_shards, cutoff)
+        torch.cuda.synchronize()
+        assert cuda_ring.LAUNCHES["ring_force"] == before + 1
+        assert torch.isfinite(got).all()
+        assert bool(((got - want).abs() <= lim).all())
+        assert bool(((got - dense).abs() <= 2 * lim).all())
+        assert bool((got[:, ~planes[5]] == 0).all())
+
+
+@pytest.mark.parametrize("comm,symmetric", [
+    ("gather", True), ("ring", False), ("ring", True), ("ring_kernel", True)])
+@pytest.mark.parametrize("n_shards", [2, 3, 4])
+@pytest.mark.parametrize("cutoff", [None, 10.0])
+def test_sharded_steps_through_kernels_match_single_device(
+        cuda_device, comm, symmetric, n_shards, cutoff):
+    """Config #1 on a mesh of virtual shards on the card: ten steps of each
+    schedule, every step against the single-device kernel path's step from
+    the same state (1e-4 m, modes and alive equal), and the schedule's own
+    kernels launched on every step."""
+    from carla_social_force_model_tpu_torch.models.state import PedState
+    from carla_social_force_model_tpu_torch.ops import cuda_ring
+    from carla_social_force_model_tpu_torch.parallel import make_mesh
+    from carla_social_force_model_tpu_torch.parallel.sharding import (
+        prepare_sharded_scene, shard_of)
+    scene, params, cfg, _ = benchmark_bundle(1000, device=cuda_device)
+    cfg = dataclasses.replace(cfg, axis_comm=comm, symmetric_pairs=symmetric,
+                              interaction_cutoff=cutoff)
+    scene, cap = prepare_sharded_scene(scene, n_shards)
+    scene = stepper.prepare_scene(scene)
+    mesh = make_mesh(n_shards, device=cuda_device)
+    scenes = [dataclasses.replace(scene, spawn=shard_of(scene.spawn, d,
+                                                        n_shards))
+              for d in range(n_shards)]
+    state = PedState.empty(cap, device=cuda_device)
+    for k in range(10):
+        want, _ = stepper.simulation_step(state, scene, params, cfg, k)
+        cuda_forces.reset_launch_counts()
+        cuda_ring.reset_launch_counts()
+        outs = mesh.run(
+            lambda ax, st, sc: stepper.simulation_step(st, sc, params, cfg,
+                                                       k, axis=ax)[0],
+            [shard_of(state, d, n_shards) for d in range(n_shards)], scenes)
+        got = {f: torch.cat([getattr(o, f) for o in outs])
+               for f in ("pos_x", "pos_y", "alive", "mode")}
+        torch.cuda.synchronize()
+        assert torch.equal(got["alive"], want.alive)
+        assert torch.equal(got["mode"], want.mode)
+        err = max((got["pos_x"] - want.pos_x).abs().max().item(),
+                  (got["pos_y"] - want.pos_y).abs().max().item())
+        assert err <= 1e-4, (k, err)
+        launched = {**cuda_forces.LAUNCHES, **cuda_ring.LAUNCHES}
+        if comm == "ring_kernel":
+            assert launched["ring_force"] == 1
+        elif comm == "ring" and symmetric:
+            assert launched["pair_force_sym" + ("_cutoff" if cutoff else "")
+                             ] == n_shards
+            # each cross-shard block pair once
+            assert launched["pair_force_sym_dense"
+                            + ("_cutoff" if cutoff else "")] == (
+                n_shards * (n_shards - 1) // 2)
+        else:
+            name = "pair_force_dense" + ("_cutoff" if cutoff else "")
+            want_n = n_shards * (n_shards if comm == "ring" else 1)
+            assert launched[name] == want_n, launched
+        state = PedState(**{
+            f.name: torch.cat([getattr(o, f.name) for o in outs])
+            for f in dataclasses.fields(PedState)})

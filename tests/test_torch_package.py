@@ -98,9 +98,9 @@ def test_kernel_sources_are_packaged():
     srcs = [p.name for p in
             importlib.import_module(
                 "carla_social_force_model_tpu_torch.utils.cuda_build").sources()]
-    assert srcs == ["env_forces.cu", "pair_forces.cu", "statics.cu",
-                    "block_box.cuh", "env_forces.cuh", "pair_forces.cuh",
-                    "statics.cuh"]
+    assert srcs == ["env_forces.cu", "pair_forces.cu", "ring.cu",
+                    "statics.cu", "block_box.cuh", "env_forces.cuh",
+                    "pair_forces.cuh", "pair_laws.cuh", "statics.cuh"]
     pyproject = (ROOT / "pyproject.toml").read_text()
     assert "csrc/*.cu" in pyproject and "csrc/*.cuh" in pyproject
 
@@ -170,6 +170,7 @@ def _entry_points():
     from carla_social_force_model_tpu_torch.models import (autopilot, groups,
                                                            routes, spawn,
                                                            vehicles)
+    from carla_social_force_model_tpu_torch.parallel import make_mesh
     import numpy as np
     spec = vehicles.VehicleSpec(trajectory=np.zeros((3, 2)),
                                 headings=np.zeros(3), speeds=np.ones(3))
@@ -199,6 +200,7 @@ def _entry_points():
         "build_autopilot_fleet": (autopilot.build_autopilot_fleet,
                                   ([ap_spec], 0.05, 5)),
         "build_groups": (groups.build_groups, ([0, 0, -1, 1, 1],)),
+        "make_mesh": (make_mesh, (2,)),
         "chunked_on": (chunked_on, (borders,)),
         "build_spawn_schedule": (spawn.build_spawn_schedule,
                                  ([walker], 0.05, 5)),
@@ -214,6 +216,7 @@ def _entry_points():
                                   "segment_major", "analytic_split",
                                   "build_static_features", "urban_bundle",
                                   "build_autopilot_fleet", "build_groups",
+                                  "make_mesh",
                                   "chunked_on", "build_spawn_schedule",
                                   "build_scenario", "Simulation.from_config"])
 def test_entry_points_default_to_the_card(name, monkeypatch):

@@ -143,7 +143,7 @@ def test_cli_matches_jax_cli(tmp_path, scen):
     (["--carla-port", "2000"], "item 22"),
     (["--checkpoint-dir", "ck"], "item 20"), (["--resume"], "item 20"),
     (["--checkpoint-backend", "npz"], "item 20"),
-    (["--profile", "prof"], "item 20"), (["--comm", "ring"], "item 23"),
+    (["--profile", "prof"], "item 20"),
     (["--vmem-mb", "64"], "TPU launch knob"),
     (["--exact-div"], "TPU launch knob"),
     (["--platform", "tpu"], "one of cpu"),
@@ -157,6 +157,25 @@ def test_cli_refuses_flags_not_ported(capsys, flag, item):
         cli.main(args + flag)
     assert exc.value.code == 2
     assert item in capsys.readouterr().err
+
+
+def test_cli_accepts_comm(tmp_path, monkeypatch):
+    """``--comm`` carries into ``StepConfig.axis_comm``, as in the JAX
+    package; the CLI's ``Simulation`` runs one device, which ignores it."""
+    args = ["--scenario-config", os.path.join(SCEN, "road_crossing.toml"),
+            "--steps", "5", "--platform", "cpu", "--csv", "--output",
+            str(tmp_path)]
+    seen = []
+    real = Simulation.from_config
+
+    def spy(*a, **kw):
+        sim = real(*a, **kw)
+        seen.append(sim.bundle.cfg.axis_comm)
+        return sim
+
+    monkeypatch.setattr(Simulation, "from_config", spy)
+    assert cli.main(args + ["--comm", "ring"]) == 0
+    assert seen == ["ring"]
 
 
 def test_force_breakdown_matches_jax():

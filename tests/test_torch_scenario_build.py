@@ -130,7 +130,7 @@ def test_engine_mapping(caplog):
     """``--pallas`` runs the fused kernels with the cutoff and the env
     knobs; a cutoff or an env knob without it is dropped with the JAX
     package's warning (the JAX package ignores them there); a TPU launch
-    knob or a multi-device exchange raises."""
+    knob raises, and ``axis_comm`` carries over."""
     scen = "sidewalk_counterflow"
     knobs = {"interaction_cutoff": 30.0, "env_compact": True,
              "env_max_surv": 4, "pallas_symmetric": False}
@@ -154,13 +154,17 @@ def test_engine_mapping(caplog):
     path = os.path.join(SCEN, f"{scen}.toml")
     sfm = os.path.join(REPO, "configs", "sfm.toml")
     for engine in ({"pallas_exact_div": True}, {"pallas_vmem_mb": 64},
-                   {"env_point_tile": 256}, {"axis_comm": "ring"}):
-        with pytest.raises(ValueError, match="no counterpart|multi-device"):
+                   {"env_point_tile": 256}):
+        with pytest.raises(ValueError, match="no counterpart"):
             pscenario.build_scenario(path, sfm, 40, engine=engine,
                                      device=CPU)
     pscenario.build_scenario(path, sfm, 40, device=CPU, engine={
         "pallas_exact_div": False, "pallas_vmem_mb": 32, "axis_comm":
         "gather"})
+    for comm in ("ring", "ring_kernel"):
+        pb = pscenario.build_scenario(path, sfm, 40, device=CPU,
+                                      engine={"axis_comm": comm})
+        assert pb.cfg.axis_comm == comm
 
 
 def test_random_pedestrians_on_town_routes_equal_jax():
