@@ -9,7 +9,6 @@
 #include "pair_forces.cuh"
 
 constexpr int kBoxPeds = 128;     // pedestrians per block, one per thread
-constexpr int kBoxWarps = kBoxPeds / 32;
 
 struct Box {
   float minx, maxx, miny, maxy;
@@ -27,11 +26,15 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// Bounding box of the block's alive pedestrians (blocks of kBoxPeds
-// threads); a block with none gets the inverted infinite box, which no
-// circle touches.  Every thread of the block must call it.
+// Bounding box of the block's alive pedestrians (blocks of kThreads
+// threads; several threads may hold the same pedestrian); a block with
+// none gets the inverted infinite box, which no circle touches.  Every
+// thread of the block must call it.
+template <int kThreads = kBoxPeds>
 static __device__ Box block_box(float x, float y, bool live) {
-  __shared__ float part[4][kBoxWarps];
+  constexpr int kWarps = kThreads / 32;
+  static_assert(kThreads % 32 == 0, "whole warps");
+  __shared__ float part[4][kWarps];
   const float x_lo = warp_min(live ? x : INFINITY);
   const float x_hi = warp_max(live ? x : -INFINITY);
   const float y_lo = warp_min(live ? y : INFINITY);
@@ -46,7 +49,7 @@ static __device__ Box block_box(float x, float y, bool live) {
   __syncthreads();
   Box box{INFINITY, -INFINITY, INFINITY, -INFINITY};
 #pragma unroll
-  for (int w = 0; w < kBoxWarps; ++w) {
+  for (int w = 0; w < kWarps; ++w) {
     box.minx = fminf(box.minx, part[0][w]);
     box.maxx = fmaxf(box.maxx, part[1][w]);
     box.miny = fminf(box.miny, part[2][w]);

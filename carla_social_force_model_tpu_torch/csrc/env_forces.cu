@@ -33,58 +33,78 @@
 //       env_forces.cuh, rounded per operation like the sampled distance.
 //
 // What bounds them on this card.  The work is data-dependent: per
-// (segment, pedestrian) pair inside the segment's filter circle, a scan of
-// the segment's K points (about 5 flops each) and one force term.  At
-// N = 10,000 in BASELINE config #3 that is of the order of 1e5 in-filter
-// pairs times a few hundred points: a few times 1e8 flops, a few
-// microseconds at the card's f32 rate; the inputs are under 1 MB.  So the
-// bound is the operations.  What decides the time is the work the segment
-// skip cannot remove (a block scans all of a touched segment for all of
-// its pedestrians) and latency: at N = 10,000 the 79 blocks of 4 warps
-// leave one warp per scheduler, so the scan runs at its dependent-chain
-// latency, far above the bound (PERF.md).
+// (section, pedestrian) pair inside the section's filter circle, a scan of
+// the section's real points (5 f32 operations each; PAD_COORD slots are
+// not needed) and one force term.  At N = 10,000 in BASELINE config #3
+// that is about 1e5 in-filter pairs times 285 points: about 1e8
+// operations, a few microseconds at the card's f32 rate; the inputs are
+// under 1 MB.  So the bound is the operations.  The issue rate sets a
+// floor above it: the scan's loop issues about a dozen instructions per
+// point (the distance, the strict-< select of three values, the shared
+// loads, the loop), which tools/sass_census.py counts; PERF.md carries
+// both beside the times.  What keeps the time above that floor is the
+// scan of sections the box test cannot skip (a block scans every touched
+// section for all of its pedestrians) and the latency of its dependent
+// chain where few warps share a scheduler.
 //
-// What the design does about that.  One block is 128 consecutive
-// pedestrians of the Hilbert-sorted order (ops/cuda_env.py sorts once per
-// step), one thread per pedestrian.  The block reduces its alive
-// pedestrians' bounding box and walks the segments in ascending order;
-// a segment whose filter circle misses the box is skipped by the whole
-// block (the TPU's _tile_hit at segment granularity).  The skip is exact:
-// the box test is a lower bound of every pedestrian's own filter test,
-// computed with the same rounding.  A touched segment's points are staged
-// through shared memory in pieces of 1,024 (8 KB for x and y), so any row
-// length works, and each thread scans them from shared memory (all lanes
-// read the same word: a broadcast).  The force accumulates in registers in
-// ascending segment order: deterministic, no atomics.  Sorting is what
-// makes the skip work: 128 pedestrians spread over a 200 m arena would
-// touch nearly every section.  Faster forms (several threads per
-// pedestrian, skipping the padding of a row) are later work.
+// What the design does about that.  A block is 32 consecutive pedestrians
+// of the Hilbert-sorted order (ops/cuda_env.py sorts once per step) and
+// L = kEnvLanes threads per pedestrian (256 threads): 313 blocks at
+// N = 10,000, eight warps each, where one thread per pedestrian gave 79
+// blocks of four warps and left 53 of the 132 SMs idle.  The block reduces
+// its alive pedestrians' bounding box and walks the sections in ascending
+// order; a section whose filter circle misses the box is skipped by the
+// whole block (the TPU's _tile_hit at section granularity; exact: the box
+// test is a lower bound of every pedestrian's own filter test, computed
+// with the same rounding).  A touched section's real points (lens[s] of
+// them, from the point set's per-row lengths; all of the row when lens is
+// null) are staged through shared memory in pieces of 1,024 (8 KB of (x,
+// y) pairs), so any row length works.  The L lanes of a pedestrian scan
+// every L-th point of a piece, each keeping its own strict-< running best
+// and that point's slot; then a shuffle merge takes the least (distance,
+// slot) -- the lower slot on a tie -- which is exactly the point the
+// sequential first-occurrence scan picks (the reference's np.argmin).
+// Padding is never nearer than a real point, and a row without one keeps
+// best = inf, masked like the padding's 1e16 by best < kPadDist2.  The
+// force terms are deferred: lane q of a pedestrian keeps the closest
+// point of the q-th touched section of a batch of L, so one pass of the
+// term code evaluates L sections, and rows of at most kEnvShortRow slots
+// (the analytic geometry's M) are not staged at all: lane q scans the
+// q-th section's whole row from global memory in order, with no barrier
+// and no merge, because a section's fixed cost (two barriers, the merge)
+// outweighs such a scan; and the batch's terms are added to the
+// pedestrian's sum in ascending section order by shuffles -- the same
+// additions in the same order as a section-by-section sum, so the result
+// is deterministic (no atomics).
 //
-// The compacted walk (kTable).  Block b reads counts[b].  Up to max_surv
-// hits it walks its table row surv[b, 0..counts[b]) (ascending group
-// indices) and, in each group, sections g*gs .. g*gs+gs-1 with the same box
-// test; above it (a block that overflowed its row) it walks every section
-// as the dense form does, decided on the device: no host sync, no second
-// grid.  The table (ops/env_grid.py) is built from the same sorted planes,
-// alive mask and squared radii with the same per-operation rounding, so it
-// lists every group holding a section the box test accepts: the compacted
-// form visits exactly the dense form's sections in the same order and its
-// output equals the dense kernel's bitwise.  On this card it saves only the
-// skipped sections' three-float box tests; the scans of touched sections
-// are the same work in both forms.
+// The compacted walk (kTable).  A survivor-table row covers 128 sorted
+// pedestrians (ops/env_grid.py ENV_BLOCK), four blocks of 32; block b
+// reads counts[b / 4].  Up to max_surv hits it walks its table row
+// (ascending group indices) and, in each group, sections g*gs ..
+// g*gs+gs-1 with its own 32-pedestrian box test; above it (an overflowing
+// row) it walks every section as the dense form does, decided on the
+// device: no host sync, no second grid.  The table is built from the same
+// sorted planes, alive mask and squared radii with the same per-operation
+// rounding, over the 128-pedestrian box that holds the block's box, so it
+// lists every group holding a section the block's test accepts: the
+// compacted form visits exactly the dense form's sections in the same
+// order, batches them alike, and its output equals the dense kernel's
+// bitwise.  It saves only the skipped sections' box tests; the scans of
+// touched sections are the same work in both forms.
 //
 // Where the TPU design does not carry over.  The TPU grid walked
 // (ped tile, point tile) pairs in order and accumulated into one resident
-// output block; here the segment loop runs inside the block, so nothing is
+// output block; here the section loop runs inside the block, so nothing is
 // carried between blocks.  The TPU's compacted grid summed a tile of gs
 // sections at a time and equalled its dense grid only up to f32 grouping;
 // here every form sums section by section.  The TPU staged dead
 // pedestrians at a far sentinel; here `alive` is read, and a dead
 // pedestrian's output is exactly 0.  The TPU chose its closest point with
-// an iota-min over a tile; here a sequential strict-< scan gives the same
-// first occurrence.
+// an iota-min over a tile; here the split scan's merge by (distance, slot)
+// gives the same first occurrence.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include "block_box.cuh"
@@ -92,11 +112,24 @@
 
 namespace {
 
-constexpr int kEnvPeds = kBoxPeds;  // pedestrians per block, one per thread
+// L: lanes per pedestrian (a divisor of 32; PERF.md: L = 4, 8 and 16
+// measured)
+constexpr int kEnvLanes = 8;
+constexpr int kEnvPeds = 32;                        // pedestrians per block
+constexpr int kEnvThreads = kEnvPeds * kEnvLanes;   // threads per block
+// pedestrians per survivor-table row (ops/env_grid.py ENV_BLOCK)
+constexpr int kEnvTableRow = 128;
+constexpr int kEnvTableBlocks = kEnvTableRow / kEnvPeds;
 constexpr int kEnvStage = 1024;     // points of a row staged per piece
 // segments of an analytic row staged per piece (five planes in the same
 // shared memory as the sampled pieces' two)
 constexpr int kGeomStage = 2 * kEnvStage / 5;
+// rows of at most this many slots (the analytic geometry's M segments)
+// skip the staging and the split scan: lane q of a pedestrian scans the
+// whole row of the q-th section of a batch itself
+constexpr int kEnvShortRow = 16;
+static_assert(32 % kEnvLanes == 0, "a pedestrian's lanes lie in one warp");
+static_assert(kEnvTableRow % kEnvPeds == 0, "blocks tile a table row");
 
 // Which sections a block walks: all of them (the dense form), or the
 // groups its survivor-table row lists (the compacted form).
@@ -109,12 +142,15 @@ enum Geom { kSampled, kAnalytic };
 // kMoussaid = false: the exp form (a, b by value; pvx, pvy, ov, prm unused).
 // kMoussaid = true: the Moussaid form (ov = (S, 2) obstacle velocities,
 // prm = the six Moussaid parameters on the device).
-// kWalk = kTable: surv (blocks, max_surv) ascending group indices, counts
-// (blocks,) hits per block, gs sections per group; unused for kAllSections.
+// kWalk = kTable: surv (table rows, max_surv) ascending group indices,
+// counts (table rows,) hits per row, gs sections per group; unused for
+// kAllSections.
 // kGeom = kAnalytic: k = M segments per row, pux/puy/pil2 the segment
 // vectors and 1/|u|^2; unused (null) for kSampled.
+// lens: the real points (segments) of each row, all before its padding;
+// null: every slot of every row.
 template <bool kMoussaid, Walk kWalk, Geom kGeom>
-__global__ void __launch_bounds__(kEnvPeds)
+__global__ void __launch_bounds__(kEnvThreads)
 env_force_kernel(const float* __restrict__ px_, const float* __restrict__ py_,
                  const float* __restrict__ pvx_, const float* __restrict__ pvy_,
                  const float* __restrict__ prad_,
@@ -122,18 +158,18 @@ env_force_kernel(const float* __restrict__ px_, const float* __restrict__ py_,
                  const float* __restrict__ ptx, const float* __restrict__ pty,
                  const float* __restrict__ pux, const float* __restrict__ puy,
                  const float* __restrict__ pil2,
-                 int k, const float* __restrict__ cx,
-                 const float* __restrict__ cy, const float* __restrict__ r2,
-                 const float* __restrict__ ov, int s_count,
-                 const float* __restrict__ prm, float a, float b,
+                 int k, const int* __restrict__ lens,
+                 const float* __restrict__ cx, const float* __restrict__ cy,
+                 const float* __restrict__ r2, const float* __restrict__ ov,
+                 int s_count, const float* __restrict__ prm, float a, float b,
                  int use_radius, int n, const int* __restrict__ surv,
                  const int* __restrict__ counts, int max_surv, int gs,
                  float* __restrict__ fx, float* __restrict__ fy) {
-  __shared__ float stage[2 * kEnvStage];
-  float* const sx = stage;
-  float* const sy = stage + kEnvStage;
+  __shared__ __align__(16) float stage[2 * kEnvStage];
+  constexpr unsigned kAll = 0xffffffffu;
 
-  const int i = blockIdx.x * kEnvPeds + threadIdx.x;
+  const int lane = threadIdx.x % kEnvLanes;  // this pedestrian's lane
+  const int i = blockIdx.x * kEnvPeds + threadIdx.x / kEnvLanes;
   const bool in = i < n;
   const bool live = in && alive_[i] != 0;
   const float px = in ? px_[i] : 0.0f;
@@ -151,29 +187,86 @@ env_force_kernel(const float* __restrict__ px_, const float* __restrict__ py_,
     p.n_prime = prm[4];
     p.eps = prm[5];
   }
-  const Box box = block_box(px, py, live);
+  const Box box = block_box<kEnvThreads>(px, py, live);
 
   float ax = 0.0f, ay = 0.0f;
-  // one section: skipped by the whole block unless its circle touches the
-  // box (block-uniform, so the barriers inside are reached by all threads)
-  auto section = [&](int s) {
-    const float scx = cx[s], scy = cy[s], sr2 = r2[s];
-    if (!touches(scx, scy, sr2, box)) return;
+  // the deferred batch: nb touched sections so far (block-uniform); lane q
+  // holds the q-th one's section and closest point
+  int nb = 0, q_s = 0;
+  float q_best = INFINITY, q_bx = 0.0f, q_by = 0.0f;
 
+  // short rows: no staging, no barrier, no merge (block-uniform)
+  const bool short_rows = k <= kEnvShortRow;
+
+  // the batch's force terms, one section per lane, added to the sum in
+  // ascending section order
+  auto flush = [&]() {
+    float tx = 0.0f, ty = 0.0f;
+    if (lane < nb && live) {
+      if (short_rows) {  // this lane's section: the whole row, in order
+        const int len = lens != nullptr ? min(lens[q_s], k) : k;
+        const size_t row = (size_t)q_s * k;
+        float best = INFINITY, bx = 0.0f, by = 0.0f;
+        int bj = INT_MAX;
+        for (int j = 0; j < len; ++j) {
+          if constexpr (kGeom == kSampled) {
+            closest_update_at(ptx[row + j], pty[row + j], px, py, j, best,
+                              bj, bx, by);
+          } else {
+            closest_seg_update(ptx[row + j], pty[row + j], pux[row + j],
+                               puy[row + j], pil2[row + j], px, py, j, best,
+                               bj, bx, by);
+          }
+        }
+        q_best = best;
+        q_bx = bx;
+        q_by = by;
+      }
+      const bool ok = in_filter(cx[q_s], cy[q_s], r2[q_s], px, py) &&
+                      q_best < kPadDist2;
+      if (kMoussaid) {
+        moussaid_pair(q_bx - px, q_by - py, pvx - ov[2 * q_s],
+                      pvy - ov[2 * q_s + 1], rsub, ok, p, tx, ty);
+      } else {
+        exp_term(px, py, q_bx, q_by, rsub, a, b, ok, tx, ty);
+      }
+    }
+    for (int q = 0; q < nb; ++q) {
+      ax += __shfl_sync(kAll, tx, q, kEnvLanes);
+      ay += __shfl_sync(kAll, ty, q, kEnvLanes);
+    }
+    nb = 0;
+  };
+
+  // one section: skipped by the whole block unless its circle touches the
+  // box (block-uniform, so the barriers and shuffles inside are reached by
+  // all threads)
+  auto section = [&](int s) {
+    if (!touches(cx[s], cy[s], r2[s], box)) return;
+    if (short_rows) {  // scanned in flush, one section per lane
+      if (lane == nb) q_s = s;
+      if (++nb == kEnvLanes) flush();
+      return;
+    }
+    const int len = lens != nullptr ? min(lens[s], k) : k;
     const size_t row = (size_t)s * k;
     float best = INFINITY, bx = 0.0f, by = 0.0f;
+    int bj = INT_MAX;
     if constexpr (kGeom == kSampled) {
-      for (int c0 = 0; c0 < k; c0 += kEnvStage) {
-        const int cnt = min(kEnvStage, k - c0);
+      // (x, y) pairs side by side: one 8-byte shared load per point
+      float2* const sxy = reinterpret_cast<float2*>(stage);
+      for (int c0 = 0; c0 < len; c0 += kEnvStage) {
+        const int cnt = min(kEnvStage, len - c0);
         __syncthreads();  // the previous piece is consumed
-        for (int j = threadIdx.x; j < cnt; j += kEnvPeds) {
-          sx[j] = ptx[row + c0 + j];
-          sy[j] = pty[row + c0 + j];
-        }
+        for (int j = threadIdx.x; j < cnt; j += kEnvThreads)
+          sxy[j] = make_float2(ptx[row + c0 + j], pty[row + c0 + j]);
         __syncthreads();
         if (live) {
 #pragma unroll 4
-          for (int j = 0; j < cnt; ++j) closest_update(sx[j], sy[j], px, py, best, bx, by);
+          for (int j = lane; j < cnt; j += kEnvLanes) {
+            const float2 pt = sxy[j];
+            closest_update_at(pt.x, pt.y, px, py, c0 + j, best, bj, bx, by);
+          }
         }
       }
     } else {
@@ -182,10 +275,10 @@ env_force_kernel(const float* __restrict__ px_, const float* __restrict__ py_,
       float* const sux = stage + 2 * kGeomStage;
       float* const suy = stage + 3 * kGeomStage;
       float* const sil = stage + 4 * kGeomStage;
-      for (int c0 = 0; c0 < k; c0 += kGeomStage) {
-        const int cnt = min(kGeomStage, k - c0);
+      for (int c0 = 0; c0 < len; c0 += kGeomStage) {
+        const int cnt = min(kGeomStage, len - c0);
         __syncthreads();  // the previous piece is consumed
-        for (int j = threadIdx.x; j < cnt; j += kEnvPeds) {
+        for (int j = threadIdx.x; j < cnt; j += kEnvThreads) {
           sax[j] = ptx[row + c0 + j];
           say[j] = pty[row + c0 + j];
           sux[j] = pux[row + c0 + j];
@@ -194,28 +287,40 @@ env_force_kernel(const float* __restrict__ px_, const float* __restrict__ py_,
         }
         __syncthreads();
         if (live) {
-          for (int j = 0; j < cnt; ++j)
-            closest_seg_update(sax[j], say[j], sux[j], suy[j], sil[j], px, py, best, bx, by);
+          for (int j = lane; j < cnt; j += kEnvLanes)
+            closest_seg_update(sax[j], say[j], sux[j], suy[j], sil[j], px,
+                               py, c0 + j, best, bj, bx, by);
         }
       }
     }
-    if (!live) return;
-
-    const bool ok = in_filter(scx, scy, sr2, px, py) && best < kPadDist2;
-    float fxs, fys;
-    if (kMoussaid) {
-      moussaid_pair(bx - px, by - py, pvx - ov[2 * s], pvy - ov[2 * s + 1],
-                    rsub, ok, p, fxs, fys);
-    } else {
-      exp_term(px, py, bx, by, rsub, a, b, ok, fxs, fys);
+    // the lanes' merge: the least (distance, slot), so a tie goes to the
+    // earlier slot, as in one ascending strict-< scan
+#pragma unroll
+    for (int o = kEnvLanes / 2; o > 0; o >>= 1) {
+      const float o_best = __shfl_xor_sync(kAll, best, o);
+      const int o_bj = __shfl_xor_sync(kAll, bj, o);
+      const float o_bx = __shfl_xor_sync(kAll, bx, o);
+      const float o_by = __shfl_xor_sync(kAll, by, o);
+      if (o_best < best || (o_best == best && o_bj < bj)) {
+        best = o_best;
+        bj = o_bj;
+        bx = o_bx;
+        by = o_by;
+      }
     }
-    ax += fxs;
-    ay += fys;
+    if (lane == nb) {
+      q_s = s;
+      q_best = best;
+      q_bx = bx;
+      q_by = by;
+    }
+    if (++nb == kEnvLanes) flush();
   };
 
-  const int hits = kWalk == kTable ? counts[blockIdx.x] : 0;
+  const int trow = blockIdx.x / kEnvTableBlocks;
+  const int hits = kWalk == kTable ? counts[trow] : 0;
   if (kWalk == kTable && hits <= max_surv) {
-    const int* row = surv + (size_t)blockIdx.x * max_surv;
+    const int* row = surv + (size_t)trow * max_surv;
     for (int t = 0; t < hits; ++t) {
       const int g = row[t];
       const int end = min(s_count, (g + 1) * gs);
@@ -224,10 +329,31 @@ env_force_kernel(const float* __restrict__ px_, const float* __restrict__ py_,
   } else {
     for (int s = 0; s < s_count; ++s) section(s);
   }
-  if (in) {
+  flush();
+  if (in && lane == 0) {
     fx[i] = live ? ax : 0.0f;
     fy[i] = live ? ay : 0.0f;
   }
+}
+
+template <bool kMoussaid, Walk kWalk, Geom kGeom>
+int env_launch(const float* px, const float* py, const float* pvx,
+               const float* pvy, const float* prad, const uint8_t* alive,
+               const float* ptx, const float* pty, const float* pux,
+               const float* puy, const float* pil2, int k, const int* lens,
+               const float* cx, const float* cy, const float* r2,
+               const float* ov, int s_count, const float* prm, float a,
+               float b, int use_radius, int n, const int* surv,
+               const int* counts, int max_surv, int gs, float* fx, float* fy,
+               void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  const int blocks = (n + kEnvPeds - 1) / kEnvPeds;
+  env_force_kernel<kMoussaid, kWalk, kGeom>
+      <<<blocks, kEnvThreads, 0, (cudaStream_t)stream>>>(
+          px, py, pvx, pvy, prad, alive, ptx, pty, pux, puy, pil2, k, lens,
+          cx, cy, r2, ov, s_count, prm, a, b, use_radius, n, surv, counts,
+          max_surv, gs, fx, fy);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -236,115 +362,95 @@ extern "C" {
 
 // Each entry launches on `stream` and returns cudaGetLastError(): non-zero
 // means the launch was refused.  Pedestrian planes (n,) in the sorted order;
-// ptx/pty (s_count, k) row-major, PAD_COORD-padded; cx/cy/r2 (s_count,) with
-// r2 = -1 for segments that must not act.  Every output row is written.
-// The _compact entries also take the survivor table surv (ceil(n/128),
-// max_surv) int32, its counts (ceil(n/128),) and gs sections per group.
-// The _analytic entries take the segment planes ax, ay, ux, uy, il2
-// (s_count, m) in place of the point rows.
+// ptx/pty (s_count, k) row-major, PAD_COORD-padded; lens (s_count,) int32
+// the real points of each row, all before its padding, or null (every
+// slot); cx/cy/r2 (s_count,) with r2 = -1 for segments that must not act.
+// Every output row is written.  The _compact entries also take the
+// survivor table surv (ceil(n/128), max_surv) int32, its counts
+// (ceil(n/128),) and gs sections per group.  The _analytic entries take
+// the segment planes ax, ay, ux, uy, il2 (s_count, m) in place of the
+// point rows, and lens counts segments.
 int sfm_env_exp(const float* px, const float* py, const float* prad,
                 const uint8_t* alive, const float* ptx, const float* pty,
-                int k, const float* cx, const float* cy, const float* r2,
-                int s_count, float a, float b, int use_radius, int n,
-                float* fx, float* fy, void* stream) {
-  if (n <= 0) return (int)cudaSuccess;
-  const int blocks = (n + kEnvPeds - 1) / kEnvPeds;
-  env_force_kernel<false, kAllSections, kSampled>
-      <<<blocks, kEnvPeds, 0, (cudaStream_t)stream>>>(
-          px, py, nullptr, nullptr, prad, alive, ptx, pty, nullptr, nullptr,
-          nullptr, k, cx, cy, r2, nullptr, s_count, nullptr, a, b, use_radius,
-          n, nullptr, nullptr, 0, 1, fx, fy);
-  return (int)cudaGetLastError();
+                int k, const int* lens, const float* cx, const float* cy,
+                const float* r2, int s_count, float a, float b,
+                int use_radius, int n, float* fx, float* fy, void* stream) {
+  return env_launch<false, kAllSections, kSampled>(
+      px, py, nullptr, nullptr, prad, alive, ptx, pty, nullptr, nullptr,
+      nullptr, k, lens, cx, cy, r2, nullptr, s_count, nullptr, a, b,
+      use_radius, n, nullptr, nullptr, 0, 1, fx, fy, stream);
 }
 
 int sfm_env_moussaid(const float* px, const float* py, const float* pvx,
                      const float* pvy, const float* prad, const uint8_t* alive,
                      const float* ptx, const float* pty, int k,
-                     const float* cx, const float* cy, const float* r2,
-                     const float* ov, int s_count, const float* prm,
-                     int use_radius, int n, float* fx, float* fy,
-                     void* stream) {
-  if (n <= 0) return (int)cudaSuccess;
-  const int blocks = (n + kEnvPeds - 1) / kEnvPeds;
-  env_force_kernel<true, kAllSections, kSampled>
-      <<<blocks, kEnvPeds, 0, (cudaStream_t)stream>>>(
-          px, py, pvx, pvy, prad, alive, ptx, pty, nullptr, nullptr, nullptr,
-          k, cx, cy, r2, ov, s_count, prm, 0.0f, 1.0f, use_radius, n, nullptr,
-          nullptr, 0, 1, fx, fy);
-  return (int)cudaGetLastError();
+                     const int* lens, const float* cx, const float* cy,
+                     const float* r2, const float* ov, int s_count,
+                     const float* prm, int use_radius, int n, float* fx,
+                     float* fy, void* stream) {
+  return env_launch<true, kAllSections, kSampled>(
+      px, py, pvx, pvy, prad, alive, ptx, pty, nullptr, nullptr, nullptr, k,
+      lens, cx, cy, r2, ov, s_count, prm, 0.0f, 1.0f, use_radius, n, nullptr,
+      nullptr, 0, 1, fx, fy, stream);
 }
 
 int sfm_env_exp_compact(const float* px, const float* py, const float* prad,
                         const uint8_t* alive, const float* ptx,
-                        const float* pty, int k, const float* cx,
-                        const float* cy, const float* r2, int s_count,
-                        float a, float b, int use_radius, int n,
+                        const float* pty, int k, const int* lens,
+                        const float* cx, const float* cy, const float* r2,
+                        int s_count, float a, float b, int use_radius, int n,
                         const int* surv, const int* counts, int max_surv,
                         int gs, float* fx, float* fy, void* stream) {
-  if (n <= 0) return (int)cudaSuccess;
-  const int blocks = (n + kEnvPeds - 1) / kEnvPeds;
-  env_force_kernel<false, kTable, kSampled>
-      <<<blocks, kEnvPeds, 0, (cudaStream_t)stream>>>(
-          px, py, nullptr, nullptr, prad, alive, ptx, pty, nullptr, nullptr,
-          nullptr, k, cx, cy, r2, nullptr, s_count, nullptr, a, b, use_radius,
-          n, surv, counts, max_surv, gs, fx, fy);
-  return (int)cudaGetLastError();
+  return env_launch<false, kTable, kSampled>(
+      px, py, nullptr, nullptr, prad, alive, ptx, pty, nullptr, nullptr,
+      nullptr, k, lens, cx, cy, r2, nullptr, s_count, nullptr, a, b,
+      use_radius, n, surv, counts, max_surv, gs, fx, fy, stream);
 }
 
 int sfm_env_moussaid_compact(const float* px, const float* py,
                              const float* pvx, const float* pvy,
                              const float* prad, const uint8_t* alive,
                              const float* ptx, const float* pty, int k,
-                             const float* cx, const float* cy,
-                             const float* r2, const float* ov, int s_count,
-                             const float* prm, int use_radius, int n,
-                             const int* surv, const int* counts, int max_surv,
-                             int gs, float* fx, float* fy, void* stream) {
-  if (n <= 0) return (int)cudaSuccess;
-  const int blocks = (n + kEnvPeds - 1) / kEnvPeds;
-  env_force_kernel<true, kTable, kSampled>
-      <<<blocks, kEnvPeds, 0, (cudaStream_t)stream>>>(
-          px, py, pvx, pvy, prad, alive, ptx, pty, nullptr, nullptr, nullptr,
-          k, cx, cy, r2, ov, s_count, prm, 0.0f, 1.0f, use_radius, n, surv,
-          counts, max_surv, gs, fx, fy);
-  return (int)cudaGetLastError();
+                             const int* lens, const float* cx,
+                             const float* cy, const float* r2,
+                             const float* ov, int s_count, const float* prm,
+                             int use_radius, int n, const int* surv,
+                             const int* counts, int max_surv, int gs,
+                             float* fx, float* fy, void* stream) {
+  return env_launch<true, kTable, kSampled>(
+      px, py, pvx, pvy, prad, alive, ptx, pty, nullptr, nullptr, nullptr, k,
+      lens, cx, cy, r2, ov, s_count, prm, 0.0f, 1.0f, use_radius, n, surv,
+      counts, max_surv, gs, fx, fy, stream);
 }
 
 int sfm_env_exp_analytic(const float* px, const float* py, const float* prad,
                          const uint8_t* alive, const float* ax,
                          const float* ay, const float* ux, const float* uy,
-                         const float* il2, int m, const float* cx,
-                         const float* cy, const float* r2, int s_count,
-                         float a, float b, int use_radius, int n, float* fx,
-                         float* fy, void* stream) {
-  if (n <= 0) return (int)cudaSuccess;
-  const int blocks = (n + kEnvPeds - 1) / kEnvPeds;
-  env_force_kernel<false, kAllSections, kAnalytic>
-      <<<blocks, kEnvPeds, 0, (cudaStream_t)stream>>>(
-          px, py, nullptr, nullptr, prad, alive, ax, ay, ux, uy, il2, m, cx,
-          cy, r2, nullptr, s_count, nullptr, a, b, use_radius, n, nullptr,
-          nullptr, 0, 1, fx, fy);
-  return (int)cudaGetLastError();
+                         const float* il2, int m, const int* lens,
+                         const float* cx, const float* cy, const float* r2,
+                         int s_count, float a, float b, int use_radius, int n,
+                         float* fx, float* fy, void* stream) {
+  return env_launch<false, kAllSections, kAnalytic>(
+      px, py, nullptr, nullptr, prad, alive, ax, ay, ux, uy, il2, m, lens,
+      cx, cy, r2, nullptr, s_count, nullptr, a, b, use_radius, n, nullptr,
+      nullptr, 0, 1, fx, fy, stream);
 }
 
 int sfm_env_exp_analytic_compact(const float* px, const float* py,
                                  const float* prad, const uint8_t* alive,
                                  const float* ax, const float* ay,
                                  const float* ux, const float* uy,
-                                 const float* il2, int m, const float* cx,
-                                 const float* cy, const float* r2,
-                                 int s_count, float a, float b,
-                                 int use_radius, int n, const int* surv,
-                                 const int* counts, int max_surv, int gs,
-                                 float* fx, float* fy, void* stream) {
-  if (n <= 0) return (int)cudaSuccess;
-  const int blocks = (n + kEnvPeds - 1) / kEnvPeds;
-  env_force_kernel<false, kTable, kAnalytic>
-      <<<blocks, kEnvPeds, 0, (cudaStream_t)stream>>>(
-          px, py, nullptr, nullptr, prad, alive, ax, ay, ux, uy, il2, m, cx,
-          cy, r2, nullptr, s_count, nullptr, a, b, use_radius, n, surv, counts,
-          max_surv, gs, fx, fy);
-  return (int)cudaGetLastError();
+                                 const float* il2, int m, const int* lens,
+                                 const float* cx, const float* cy,
+                                 const float* r2, int s_count, float a,
+                                 float b, int use_radius, int n,
+                                 const int* surv, const int* counts,
+                                 int max_surv, int gs, float* fx, float* fy,
+                                 void* stream) {
+  return env_launch<false, kTable, kAnalytic>(
+      px, py, nullptr, nullptr, prad, alive, ax, ay, ux, uy, il2, m, lens,
+      cx, cy, r2, nullptr, s_count, nullptr, a, b, use_radius, n, surv,
+      counts, max_surv, gs, fx, fy, stream);
 }
 
 }  // extern "C"

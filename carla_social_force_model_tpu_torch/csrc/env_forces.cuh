@@ -37,6 +37,22 @@ SFM_HD void closest_update(float ptx, float pty, float px, float py,
   }
 }
 
+// closest_update for one lane of a split scan: the lane takes every L-th
+// slot in ascending order and keeps, with strict <, its earliest least
+// distance and that slot j (bj), so that the lanes' results merge into the
+// sequential scan's by the least (distance, slot) (env_forces.cu).
+SFM_HD void closest_update_at(float ptx, float pty, float px, float py,
+                              int j, float& best, int& bj, float& bx,
+                              float& by) {
+  const float d2 = sq_norm_rn(ptx - px, pty - py);
+  if (d2 < best) {
+    best = d2;
+    bj = j;
+    bx = ptx;
+    by = pty;
+  }
+}
+
 // The closest point ON the segment a + t*u to the pedestrian (the analytic
 // border tier and the ORCA segment features; ops/geometry.py
 // closest_on_segments): t = clip(((p - a) . u) * il2, 0, 1), c = a + t*u,
@@ -58,14 +74,15 @@ SFM_HD float closest_on_segment(float ax, float ay, float ux, float uy,
 }
 
 // One step of the first-occurrence argmin over a section's segments, in
-// ascending order (strict <, as closest_update).
+// ascending order, keeping the winning segment j (as closest_update_at).
 SFM_HD void closest_seg_update(float ax, float ay, float ux, float uy,
-                               float il2, float px, float py, float& best,
-                               float& bx, float& by) {
+                               float il2, float px, float py, int j,
+                               float& best, int& bj, float& bx, float& by) {
   float cx, cy;
   const float d2 = closest_on_segment(ax, ay, ux, uy, il2, px, py, cx, cy);
   if (d2 < best) {
     best = d2;
+    bj = j;
     bx = cx;
     by = cy;
   }

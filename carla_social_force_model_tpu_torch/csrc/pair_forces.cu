@@ -57,21 +57,37 @@
 // divisions); a kernel reads O(N) state and writes O(N) forces.  So the
 // pair count bounds them: N^2/2 (N^2) pairs without a cutoff, and under a
 // cutoff the pairs within it, about pi*c^2*density per agent -- at 0.25
-// agents/m^2 and c = 30 m, 707 per agent.  A tile-granular walk evaluates
-// every pair of a surviving tile pair, several times the pairs within the
-// cutoff; the per-pair mask keeps the result that of the pairs within it.
-// The power law's gates make most pairs do no work beyond the gate values,
-// but a warp pays for every lane whose pair passes.
+// agents/m^2 and c = 30 m, 707 per agent.  Above that bound sits the issue
+// rate: the symmetric walk's loop issues about 168 SASS instructions per
+// Moussaid pair (tools/sass_census.py), of which the special functions
+// take 106 -- atan2f alone 65, and it stays: sign(theta) is a hard gate --
+// while the bound counts 85 operations as if every one were an FMA, which
+// the per-operation rounding up to cross and dot forbids.  At N = 10,000
+// that floor is about 0.25 ms against the 0.072 ms bound (PERF.md).
 //
 // What the design does about that.  Every block stages its column tile in
-// shared memory once and each thread keeps its row sum in registers, so the
-// only device-memory traffic is O(N) per tile.  The symmetric kernel's grid
-// is the upper triangle of 128 x 128 tile pairs (or the table's slots); the
-// dense kernels give each row 8 threads so that N = 10k still yields 313
-// blocks of 256 threads.  Parameters are read through a device pointer, and
-// the compacted forms decide an overflowing row on the device, so a step
-// never synchronises with the host.  Making the kernels themselves faster
-// and removing the eager launches (CUDA graphs) are later work.
+// shared memory once and each thread keeps its row sums in registers, so
+// the only device-memory traffic is O(N) per tile.  The symmetric walks
+// (grid: the upper triangle of 128 x 128 tile pairs, or the table's
+// slots) give each thread R rows (kSymRows; kSymRowsCut in the cutoff
+// walks, SymLayout): each column value read from shared memory serves R
+// pairs and the column's reaction is summed over them in registers before
+// one shared update, so the shared-memory operations and __syncwarp per
+// pair fall from 10 to under 3.  The cutoff walks cull twice inside a
+// surviving tile pair, warp-uniformly: a (32 rows, 32 columns) chunk pair
+// whose alive boxes lie beyond the cutoff is skipped, and a column step
+// runs the law only when some lane's pair is within it (a ballot); with
+// R = 1 there, that took the 1M table from 8.0 to about 4.6 ms.  Past the hard
+// gates the symmetric walks take the Moussaid law's fast tail
+// (pair_forces.cuh: both exponentials as __expf), which took the 10k
+// triangle from 0.37 to 0.35 ms.  The dense kernels give each row 8
+// threads so that N = 10k still yields 313 blocks of 256 threads, and keep
+// the exact law: their time is set by their walk (1.0 ms at 10k for twice
+// the symmetric walk's pairs, three times its time), whose redesign comes
+// next (ROADMAP) and will measure the fast tail there.  Parameters are
+// read through a device pointer, and the compacted forms decide an
+// overflowing row on the device, so a step never synchronises with the
+// host.  The eager launches (CUDA graphs) are later work.
 //
 // Where the TPU design does not carry over.  The TPU walks its grid in order
 // and kept one (1, n_cols) column accumulator resident in VMEM for the whole
@@ -104,12 +120,19 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "block_box.cuh"
 #include "pair_laws.cuh"
 
 namespace {
 
 constexpr int kSymTile = 128;  // rows == columns of one tile pair
-constexpr int kSymWarps = kSymTile / 32;
+constexpr int kSymWarps = kSymTile / 32;  // threads per block: kSymTile
+// R: rows per thread of the symmetric walks: kSymRows for the walks
+// without a cutoff, kSymRowsCut for the cutoff walks, where the per-row
+// culling branches between the rows' law evaluations and R = 1 measured
+// faster (PERF.md: R = 1, 2 and 4 measured)
+constexpr int kSymRows = 4;
+constexpr int kSymRowsCut = 1;
 constexpr int kDenseRows = 32;  // rows per block
 constexpr int kDenseSplit = 8;  // threads per row
 constexpr int kDenseThreads = kDenseRows * kDenseSplit;  // == columns staged
@@ -260,12 +283,33 @@ __device__ __forceinline__ long long tri_start(long long ti, long long nt) {
   return ti * nt - ti * (ti - 1) / 2;
 }
 
+// The symmetric walks' thread layout for R rows per thread: a block's
+// four warps cover its 128 x 128 tile pair as kRowGroups row groups of
+// 32 * R rows times R column groups of 128 / R columns.  Each lane holds
+// its R rows in registers, so each column value read from shared memory
+// serves R pairs, and the column's reaction is summed over the R rows in
+// registers before one shared update per column step.
+template <int kR>
+struct SymLayout {
+  static_assert(kSymWarps % kR == 0, "R divides the block's warps");
+  static constexpr int kRowGroups = kSymWarps / kR;
+  static constexpr int kColGroups = kR;
+  static constexpr int kWarpRows = 32 * kR;
+  static constexpr int kWarpChunks = kRowGroups;  // 32-column chunks
+};
+
 struct SymShared {
   float cx[kSymTile], cy[kSymTile], cvx[kSymTile], cvy[kSymTile];
   float cr[kSymTile];
   uint8_t ca[kSymTile];
+  // -f partials of each column, one row per row group; +f partials of each
+  // row, one row per column group
   float col_x[kSymWarps][kSymTile];
   float col_y[kSymWarps][kSymTile];
+  float row_x[kSymWarps][kSymTile];
+  float row_y[kSymWarps][kSymTile];
+  // the box of each 32-column chunk's alive agents (the cutoff walks)
+  float cbox[kSymWarps][4];
 };
 
 // One tile pair (row tile ti, column tile tj) of a Newton's-third-law walk:
@@ -275,77 +319,169 @@ struct SymShared {
 // otherwise every pair of the two tiles counts once (the full block of two
 // different shards).  fxc, fyc may be fx, fy (the square walks).
 // Block-uniform; may be called repeatedly.
-template <bool kTri, bool kCutoff, class Law>
+//
+// Culling, all warp-uniform: a warp skips a 32-column chunk when the
+// triangle leaves none of its rows a pair there.  With kCutoff, a (32
+// rows, 32 columns) chunk pair is skipped when the box of the 32 rows'
+// alive agents lies beyond the cutoff from the chunk's box (box_gap2,
+// exact as the tile-pair test), and then, per column step and row, the
+// law runs only when some lane's pair lies within the cutoff (a ballot).
+// A skipped pair's force is exactly the +0 the law's mask gives.  Without
+// a cutoff nothing branches between a lane's R law evaluations, so the
+// compiler can interleave them.
+template <int kR, bool kTri, bool kCutoff, class Law>
 __device__ __forceinline__ void sym_tile_pair(
     SymShared& sm, long long ti, long long tj, const Planes& rows,
     const Planes& cols, const typename Law::Prm& p, int use_radius, float c2,
     float* fx, float* fy, float* fxc, float* fyc) {
   static_assert(Law::kAntisymmetric,
                 "the Newton's-third-law walk needs an antisymmetric law");
+  constexpr unsigned kAll = 0xffffffffu;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
+  using L = SymLayout<kR>;
+  const int rg = warp % L::kRowGroups;  // this warp's row group
+  const int cg = warp / L::kRowGroups;  // and column group
 
-  __syncthreads();  // the previous tile pair's column sums are read
-  const int jt = (int)(tj * kSymTile) + tid;
+  __syncthreads();  // the previous tile pair's sums are read
+  const int j0 = (int)(tj * kSymTile);
+  const int jt = j0 + tid;
   const bool col_in = jt < cols.n;
-  sm.cx[tid] = col_in ? cols.x[jt] : 0.0f;
-  sm.cy[tid] = col_in ? cols.y[jt] : 0.0f;
+  const float cxt = col_in ? cols.x[jt] : 0.0f;
+  const float cyt = col_in ? cols.y[jt] : 0.0f;
+  const uint8_t cat = col_in ? cols.alive[jt] : 0;
+  sm.cx[tid] = cxt;
+  sm.cy[tid] = cyt;
   sm.cvx[tid] = col_in ? cols.u[jt] : 0.0f;
   sm.cvy[tid] = col_in ? cols.v[jt] : 0.0f;
   sm.cr[tid] = col_in ? cols.rad[jt] : 0.0f;
-  sm.ca[tid] = col_in ? cols.alive[jt] : 0;
+  sm.ca[tid] = cat;
 #pragma unroll
-  for (int w = 0; w < kSymWarps; ++w) {
-    sm.col_x[w][tid] = 0.0f;
-    sm.col_y[w][tid] = 0.0f;
+  for (int g = 0; g < L::kRowGroups; ++g) {
+    sm.col_x[g][tid] = 0.0f;
+    sm.col_y[g][tid] = 0.0f;
+  }
+  if (kCutoff) {  // warp w stages chunk w: its box
+    const float bx0 = warp_min(cat ? cxt : INFINITY);
+    const float bx1 = warp_max(cat ? cxt : -INFINITY);
+    const float by0 = warp_min(cat ? cyt : INFINITY);
+    const float by1 = warp_max(cat ? cyt : -INFINITY);
+    if (lane == 0) {
+      sm.cbox[warp][0] = bx0;
+      sm.cbox[warp][1] = bx1;
+      sm.cbox[warp][2] = by0;
+      sm.cbox[warp][3] = by1;
+    }
   }
 
-  const int i = (int)(ti * kSymTile) + tid;
-  const bool row_in = i < rows.n;
-  const float xi = row_in ? rows.x[i] : 0.0f;
-  const float yi = row_in ? rows.y[i] : 0.0f;
-  const float vxi = row_in ? rows.u[i] : 0.0f;
-  const float vyi = row_in ? rows.v[i] : 0.0f;
-  const float ri = row_in ? rows.rad[i] : 0.0f;
-  const bool ai = row_in && rows.alive[i] != 0;
-  const int j0 = (int)(tj * kSymTile);
-  const int gi = rows.off + i;
+  // this lane's R rows: local rows lr0 + 32 r
+  const int lr0 = rg * L::kWarpRows + lane;
+  const int i0 = (int)(ti * kSymTile);
+  float xi[kR], yi[kR], vxi[kR], vyi[kR];
+  float ri[kR], ax[kR], ay[kR];
+  float rbox[kR][4];
+  bool ai[kR];
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    const int i = i0 + lr0 + 32 * r;
+    const bool row_in = i < rows.n;
+    xi[r] = row_in ? rows.x[i] : 0.0f;
+    yi[r] = row_in ? rows.y[i] : 0.0f;
+    vxi[r] = row_in ? rows.u[i] : 0.0f;
+    vyi[r] = row_in ? rows.v[i] : 0.0f;
+    ri[r] = row_in ? rows.rad[i] : 0.0f;
+    ai[r] = row_in && rows.alive[i] != 0;
+    ax[r] = 0.0f;
+    ay[r] = 0.0f;
+    if (kCutoff) {  // the box of these 32 rows' alive agents
+      rbox[r][0] = warp_min(ai[r] ? xi[r] : INFINITY);
+      rbox[r][1] = warp_max(ai[r] ? xi[r] : -INFINITY);
+      rbox[r][2] = warp_min(ai[r] ? yi[r] : INFINITY);
+      rbox[r][3] = warp_max(ai[r] ? yi[r] : -INFINITY);
+    }
+  }
+  const int gi0 = rows.off + i0 + lr0;  // global slot of row r: gi0 + 32 r
   const int g0 = cols.off + j0;
   __syncthreads();
 
-  float ax = 0.0f, ay = 0.0f;
-  for (int c0 = 0; c0 < kSymTile; c0 += 32) {
+#pragma unroll 1
+  for (int q = 0; q < L::kWarpChunks; ++q) {
+    const int chunk = cg * L::kWarpChunks + q;
+    const int c0 = chunk * 32;
+    bool hit[kR];
+    bool any = false;
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      // the triangle: some column of the chunk above some row of the 32
+      hit[r] = !kTri || j0 + c0 + 31 > i0 + lr0 - lane + 32 * r;
+      if (kCutoff)
+        hit[r] = hit[r] &&
+                 box_gap2(rbox[r][0], rbox[r][1], rbox[r][2], rbox[r][3],
+                          sm.cbox[chunk][0], sm.cbox[chunk][1],
+                          sm.cbox[chunk][2], sm.cbox[chunk][3]) <= c2;
+      any = any || hit[r];
+    }
+    if (!any) continue;  // (the rows' own triangle test is in ok below)
+#pragma unroll 1
     for (int k = 0; k < 32; ++k) {
       // staggered: at each step the 32 lanes of a warp hold 32 distinct
-      // columns, so the warp's row of col_x/col_y is written without races
+      // columns, so the row group's column partials are written without
+      // races or bank conflicts
       const int jj = c0 + ((lane + k) & 31);
-      const float dx = sm.cx[jj] - xi;
-      const float dy = sm.cy[jj] - yi;
-      bool ok = ai && sm.ca[jj] != 0;
-      ok = ok && (kTri ? (j0 + jj) > i : (g0 + jj) != gi);
-      if (kCutoff) ok = ok && sq_norm_rn(dx, dy) <= c2;
-      float fxk, fyk;
-      Law::pair(dx, dy, vxi, vyi, sm.cvx[jj], sm.cvy[jj], ri, sm.cr[jj],
-                use_radius, ok, p, fxk, fyk);
-      ax += fxk;
-      ay += fyk;
-      sm.col_x[warp][jj] -= fxk;  // Newton's third law: f_ji = -f_ij
-      sm.col_y[warp][jj] -= fyk;
+      const float cxj = sm.cx[jj], cyj = sm.cy[jj];
+      const float cvxj = sm.cvx[jj], cvyj = sm.cvy[jj], crj = sm.cr[jj];
+      const bool caj = sm.ca[jj] != 0;
+      float cfx = 0.0f, cfy = 0.0f;
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        if (kCutoff && !hit[r]) continue;
+        const float dx = cxj - xi[r];
+        const float dy = cyj - yi[r];
+        bool ok = ai[r] && caj;
+        ok = ok && (kTri ? (j0 + jj) > (i0 + lr0 + 32 * r)
+                         : (g0 + jj) != (gi0 + 32 * r));
+        if (kCutoff) {
+          ok = ok && sq_norm_rn(dx, dy) <= c2;
+          if (!__any_sync(kAll, ok)) continue;
+        }
+        float fxk, fyk;
+        Law::template pair<true>(dx, dy, vxi[r], vyi[r], cvxj, cvyj, ri[r],
+                                 crj, use_radius, ok, p, fxk, fyk);
+        ax[r] += fxk;
+        ay[r] += fyk;
+        cfx += fxk;
+        cfy += fyk;
+      }
+      sm.col_x[rg][jj] -= cfx;  // Newton's third law: f_ji = -f_ij
+      sm.col_y[rg][jj] -= cfy;
       __syncwarp();
     }
   }
-  if (ai) {
-    atomicAdd(&fx[i], ax);
-    atomicAdd(&fy[i], ay);
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    sm.row_x[cg][lr0 + 32 * r] = ax[r];
+    sm.row_y[cg][lr0 + 32 * r] = ay[r];
   }
   __syncthreads();
-  if (col_in && sm.ca[tid] != 0) {
+  // thread t adds row t's and column t's partials, in a fixed order
+  const int it = i0 + tid;
+  if (it < rows.n && rows.alive[it] != 0) {
     float sx_sum = 0.0f, sy_sum = 0.0f;
 #pragma unroll
-    for (int w = 0; w < kSymWarps; ++w) {
-      sx_sum += sm.col_x[w][tid];
-      sy_sum += sm.col_y[w][tid];
+    for (int g = 0; g < L::kColGroups; ++g) {
+      sx_sum += sm.row_x[g][tid];
+      sy_sum += sm.row_y[g][tid];
+    }
+    atomicAdd(&fx[it], sx_sum);
+    atomicAdd(&fy[it], sy_sum);
+  }
+  if (col_in && cat != 0) {
+    float sx_sum = 0.0f, sy_sum = 0.0f;
+#pragma unroll
+    for (int g = 0; g < L::kRowGroups; ++g) {
+      sx_sum += sm.col_x[g][tid];
+      sy_sum += sm.col_y[g][tid];
     }
     atomicAdd(&fxc[jt], sx_sum);
     atomicAdd(&fyc[jt], sy_sum);
@@ -378,13 +514,13 @@ pair_force_sym_kernel(Planes pl, const float* __restrict__ prm,
     if (counts[r] <= max_surv) {
       const int tj = surv[r * max_surv + s];
       if (tj >= 0)
-        sym_tile_pair<true, true, Law>(sm, r, tj, pl, pl, p, use_radius, c2,
-                                       fx, fy, fx, fy);
+        sym_tile_pair<kSymRowsCut, true, true, Law>(
+            sm, r, tj, pl, pl, p, use_radius, c2, fx, fy, fx, fy);
     } else {
       for (long long tj = r + s; tj < nt; tj += max_surv)
         if (hits(r, tj))
-          sym_tile_pair<true, true, Law>(sm, r, tj, pl, pl, p, use_radius,
-                                         c2, fx, fy, fx, fy);
+          sym_tile_pair<kSymRowsCut, true, true, Law>(
+              sm, r, tj, pl, pl, p, use_radius, c2, fx, fy, fx, fy);
     }
     return;
   }
@@ -398,9 +534,9 @@ pair_force_sym_kernel(Planes pl, const float* __restrict__ prm,
   while (ti + 1 < nt && tri_start(ti + 1, nt) <= b) ++ti;
   const long long tj = ti + (b - tri_start(ti, nt));
   if (kWalk == kTriangleBox && !hits(ti, tj)) return;  // before any staging
-  sym_tile_pair<true, kWalk == kTriangleBox, Law>(sm, ti, tj, pl, pl, p,
-                                                  use_radius, c2, fx, fy, fx,
-                                                  fy);
+  constexpr bool kCut = kWalk == kTriangleBox;
+  sym_tile_pair<kCut ? kSymRowsCut : kSymRows, true, kCut, Law>(
+      sm, ti, tj, pl, pl, p, use_radius, c2, fx, fy, fx, fy);
 }
 
 // The full-block walk: block b is tile pair (b / n_col_tiles, b %
@@ -424,8 +560,8 @@ pair_force_sym_dense_kernel(Planes rows, Planes cols,
   if (kBox && !box_hits(col_bb, n_col_tiles, tj, row_bb[ti], row_bb[nr + ti],
                         row_bb[2 * nr + ti], row_bb[3 * nr + ti], c2))
     return;  // before any staging
-  sym_tile_pair<false, kBox, Law>(sm, ti, tj, rows, cols, p, use_radius, c2,
-                                  fx, fy, fxc, fyc);
+  sym_tile_pair<kBox ? kSymRowsCut : kSymRows, false, kBox, Law>(
+      sm, ti, tj, rows, cols, p, use_radius, c2, fx, fy, fxc, fyc);
 }
 
 // Launch of a dense-layout walk with law Law: one block of kDenseRows rows

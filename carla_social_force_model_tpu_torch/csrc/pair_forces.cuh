@@ -68,6 +68,16 @@ struct MoussaidPrm {
   float lam, A, gamma, n, n_prime, eps;
 };
 
+// e^x: expf, or with kFast the card's ex2.approx (__expf: about 2 ulp plus
+// |x| * 2^-24 relative), at the sites the caller names
+template <bool kFast>
+SFM_HD float sfm_exp(float x) {
+#ifdef __CUDA_ARCH__
+  if (kFast) return __expf(x);
+#endif
+  return expf(x);
+}
+
 // Force on the pedestrian from its partner.  (dx, dy) = x_partner - x_ped,
 // (dvx, dvy) = v_ped - v_partner, rsub = radii to subtract (0 when radii are
 // off), ok_in = liveness and pair mask.
@@ -80,6 +90,14 @@ struct MoussaidPrm {
 // (no FMA contraction) with the reciprocal root PyTorch's rsqrt uses on the
 // card: cross and dot are then the plain version's bitwise, and both take
 // the same side of the cut.
+//
+// kFastTail (the symmetric walks): past those gates, one cheaper form at a
+// named site, both exponentials as __expf.  The magnitude moves by at most
+// about (|common| + |w|^2) * 1e-7 relative; the gates, cross, dot,
+// sign(theta), the division and the masks are the same instructions in
+// both forms.  (-d / B as a product with the reciprocal root at hand was
+// measured too and dropped: it doubled the error and slowed the 1M table.)
+template <bool kFastTail = false>
 SFM_HD void moussaid_pair(float dx, float dy, float dvx, float dvy, float rsub,
                           bool ok_in, const MoussaidPrm& p, float& fx,
                           float& fy) {
@@ -110,9 +128,10 @@ SFM_HD void moussaid_pair(float dx, float dy, float dvx, float dvy, float rsub,
   const float Bt = B * theta;
   const float wv = p.n_prime * Bt;
   const float wt = p.n * Bt;
-  const float f_v = -p.A * expf(common - wv * wv);
+  // the fast-tail site: the two exponentials
+  const float f_v = -p.A * sfm_exp<kFastTail>(common - wv * wv);
   const float sgn = (float)((theta > 0.0f) - (theta < 0.0f));
-  const float f_t = -p.A * sgn * expf(common - wt * wt);
+  const float f_t = -p.A * sgn * sfm_exp<kFastTail>(common - wt * wt);
   // f = f_v * t_hat + f_t * left_normal(t_hat)
   fx = ok ? f_v * thx - f_t * thy : 0.0f;
   fy = ok ? f_v * thy + f_t * thx : 0.0f;

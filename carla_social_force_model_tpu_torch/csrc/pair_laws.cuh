@@ -17,6 +17,8 @@ enum LawId { kLawMoussaid = 0, kLawPowerLaw = 1, kLawHelbing = 2 };
 // pair from the row's position and velocity slots (u, v) and the column's
 // position, velocity (cu, cv) and radius.  The row slots hold v_i, except
 // for Helbing, whose row planes carry the row's desired direction e_i there.
+// pair<true> is the symmetric walks' call: the Moussaid law's fast tail
+// (pair_forces.cuh); the other laws have one form.
 struct Moussaid {
   using Prm = MoussaidPrm;
   static constexpr bool kRadius = true;
@@ -24,6 +26,7 @@ struct Moussaid {
   static __device__ __forceinline__ Prm load(const float* __restrict__ prm) {
     return Prm{prm[0], prm[1], prm[2], prm[3], prm[4], prm[5]};
   }
+  template <bool kFast = false>
   static __device__ __forceinline__ void pair(float dx, float dy, float u,
                                               float v, float cu, float cv,
                                               float ri, float rj,
@@ -31,7 +34,7 @@ struct Moussaid {
                                               const Prm& p, float& fx,
                                               float& fy) {
     const float rsub = use_radius ? ri + rj : 0.0f;
-    moussaid_pair(dx, dy, u - cu, v - cv, rsub, ok, p, fx, fy);
+    moussaid_pair<kFast>(dx, dy, u - cu, v - cv, rsub, ok, p, fx, fy);
   }
 };
 
@@ -42,6 +45,7 @@ struct PowerLaw {  // disc radii always participate
   static __device__ __forceinline__ Prm load(const float* __restrict__ prm) {
     return Prm{prm[0], prm[1], prm[2], prm[3]};
   }
+  template <bool kFast = false>
   static __device__ __forceinline__ void pair(float dx, float dy, float u,
                                               float v, float cu, float cv,
                                               float ri, float rj, int,
@@ -58,6 +62,7 @@ struct Helbing {  // (u, v) = e_i; reads the column velocity, no radii
   static __device__ __forceinline__ Prm load(const float* __restrict__ prm) {
     return Prm{prm[0], prm[1], prm[2], prm[3], prm[4], prm[5]};
   }
+  template <bool kFast = false>
   static __device__ __forceinline__ void pair(float dx, float dy, float u,
                                               float v, float cu, float cv,
                                               float, float, int, bool ok,

@@ -84,7 +84,10 @@ class SegmentPointSet:
 
     ``x[s]``/``y[s]`` hold the sampled points of segment ``s`` in their
     original order, padded with ``PAD_COORD`` to a common ``K`` (a multiple
-    of the chunk size).  Planar, as the kernels read them.
+    of the chunk size).  Planar, as the kernels read them.  ``lengths[s]``
+    is the number of real points of row ``s``, all before its padding:
+    the environment kernels scan no further (a padding slot is never the
+    closest point).  None (the per-step vehicle rows) means every slot.
     """
 
     x: torch.Tensor              # (S, K) f32, PAD_COORD in padding slots
@@ -92,6 +95,7 @@ class SegmentPointSet:
     center_x: torch.Tensor       # (S,) per-segment filter center
     center_y: torch.Tensor       # (S,)
     filter_radius: torch.Tensor  # (S,) per-segment filter radius
+    lengths: torch.Tensor | None = None  # (S,) int32 real points per row
 
     @property
     def num_segments(self) -> int:
@@ -123,7 +127,9 @@ class SegmentGeomSet:
     segments carry ``ax = ay = PAD_COORD`` and ``ux = uy = inv_len2 = 0``, so
     their closest point is the PAD sentinel; a single-point section is one
     segment with ``ux = uy = inv_len2 = 0`` whose closest point is the point
-    itself.  The filter circle of each section is the sampled set's."""
+    itself.  The filter circle of each section is the sampled set's.
+    ``lengths[s]``: the real segments of row ``s``, all before its padding
+    (None: every slot), as :class:`SegmentPointSet`'s."""
 
     ax: torch.Tensor             # (S, M) f32 segment start x, PAD_COORD pad
     ay: torch.Tensor             # (S, M)
@@ -133,6 +139,7 @@ class SegmentGeomSet:
     center_x: torch.Tensor       # (S,) per-section filter center
     center_y: torch.Tensor       # (S,)
     filter_radius: torch.Tensor  # (S,) per-section filter radius
+    lengths: torch.Tensor | None = None  # (S,) int32 real segments per row
 
     @property
     def num_segments(self) -> int:
@@ -243,11 +250,12 @@ def segment_major(pset: ChunkedPointSet | None,
                   np.asarray(pset.points).dtype)
     for si, p in enumerate(per_seg):
         out[si, : p.shape[0]] = p
+    lengths = np.array([p.shape[0] for p in per_seg], np.int32)
     centers = np.asarray(pset.centers)
     return SegmentPointSet(
         *(torch.from_numpy(np.ascontiguousarray(a)).to(device)
           for a in (out[..., 0], out[..., 1], centers[:, 0], centers[:, 1],
-                    np.asarray(pset.filter_radius))))
+                    np.asarray(pset.filter_radius), lengths)))
 
 
 def chunked_on(pset: ChunkedPointSet | None,
@@ -455,6 +463,7 @@ def analytic_split(pset: ChunkedPointSet | None, tol: float = 1e-3,
         il2 = np.zeros((s_g, m), np.float32)
         c_g = np.zeros((s_g, 2), np.float32)
         r_g = np.zeros((s_g,), np.float32)
+        n_g = np.array([max(v.shape[0] - 1, 1) for _, v in geom], np.int32)
         for row, (si, v) in enumerate(geom):
             nv = v.shape[0]
             if nv == 1:                        # single-point section
@@ -472,7 +481,7 @@ def analytic_split(pset: ChunkedPointSet | None, tol: float = 1e-3,
             c_g[row] = centers[si]
             r_g[row] = radius[si]
         gset = SegmentGeomSet(*_on(resolve_device(device), ax, ay, ux, uy,
-                                   il2, c_g[:, 0], c_g[:, 1], r_g))
+                                   il2, c_g[:, 0], c_g[:, 1], r_g, n_g))
 
     rset = None
     if rest:

@@ -13,8 +13,9 @@ counts the launch:
   closest point with the obstacle's velocity: the static and dynamic
   obstacle forces.  The JAX package's ``_moussaid_kernel``.
 * :func:`env_exp_compact`, :func:`env_moussaid_compact` -- the same over the
-  groups of sections that a per-step survivor table lists for each block
-  of 128 sorted pedestrians (``ops/env_grid.py``).  The JAX package's
+  groups of sections that a per-step survivor table lists for each 128
+  sorted pedestrians (``ops/env_grid.py``; four kernel blocks of 32 read
+  one table row).  The JAX package's
   ``_exp_kernel_compact`` and ``_moussaid_kernel_compact``.  Their output
   equals the dense kernels' bitwise.
 * :func:`env_exp_analytic`, :func:`env_exp_analytic_compact` -- the exp
@@ -84,6 +85,21 @@ def _check_segments(seg, extra, dev):
                              f"{tuple(t.shape)} on {t.device}")
 
 
+def _lengths_ptr(seg, dev) -> int:
+    """Address of the set's per-row real lengths (int32 (S,)), or 0 (a
+    null pointer: the kernel scans every slot) when it has none."""
+    lengths = seg.lengths
+    if lengths is None:
+        return 0
+    s = seg.center_x.shape[0]
+    if (lengths.device != dev or lengths.dtype != torch.int32
+            or lengths.shape != (s,) or not lengths.is_contiguous()):
+        raise ValueError(f"segment lengths must be a contiguous int32 ({s},) "
+                         f"tensor on {dev}; got {lengths.dtype} "
+                         f"{tuple(lengths.shape)} on {lengths.device}")
+    return lengths.data_ptr()
+
+
 def _check_grid(grid: EnvGrid, n: int, dev):
     blocks = -(-n // 128)
     for name, t, shape in (("surv", grid.surv, (blocks, grid.max_surv)),
@@ -149,8 +165,9 @@ def _exp_args(pos_x, pos_y, radius, alive, seg, a, b, use_radius, active):
     s, k = seg.x.shape
     return (pos_x.data_ptr(), pos_y.data_ptr(), radius.data_ptr(),
             alive.data_ptr(), seg.x.data_ptr(), seg.y.data_ptr(), k,
-            seg.center_x.data_ptr(), seg.center_y.data_ptr(), r2.data_ptr(),
-            s, float(a), float(b), int(use_radius)), r2
+            _lengths_ptr(seg, dev), seg.center_x.data_ptr(),
+            seg.center_y.data_ptr(), r2.data_ptr(), s, float(a), float(b),
+            int(use_radius)), r2
 
 
 def _moussaid_args(pos_x, pos_y, vel_x, vel_y, radius, alive, seg,
@@ -164,9 +181,10 @@ def _moussaid_args(pos_x, pos_y, vel_x, vel_y, radius, alive, seg,
     prm = moussaid_vector(p, dev)
     return (pos_x.data_ptr(), pos_y.data_ptr(), vel_x.data_ptr(),
             vel_y.data_ptr(), radius.data_ptr(), alive.data_ptr(),
-            seg.x.data_ptr(), seg.y.data_ptr(), k, seg.center_x.data_ptr(),
-            seg.center_y.data_ptr(), r2.data_ptr(), obstacle_vel.data_ptr(),
-            s, prm.data_ptr(), int(use_radius)), (r2, prm)
+            seg.x.data_ptr(), seg.y.data_ptr(), k, _lengths_ptr(seg, dev),
+            seg.center_x.data_ptr(), seg.center_y.data_ptr(), r2.data_ptr(),
+            obstacle_vel.data_ptr(), s, prm.data_ptr(),
+            int(use_radius)), (r2, prm)
 
 
 def env_exp(pos_x, pos_y, radius, alive, seg, a: float, b: float,
@@ -220,8 +238,9 @@ def _analytic_args(pos_x, pos_y, radius, alive, geom, a, b, use_radius,
     return (pos_x.data_ptr(), pos_y.data_ptr(), radius.data_ptr(),
             alive.data_ptr(), geom.ax.data_ptr(), geom.ay.data_ptr(),
             geom.ux.data_ptr(), geom.uy.data_ptr(), geom.inv_len2.data_ptr(),
-            m, geom.center_x.data_ptr(), geom.center_y.data_ptr(),
-            r2.data_ptr(), s, float(a), float(b), int(use_radius)), r2
+            m, _lengths_ptr(geom, dev), geom.center_x.data_ptr(),
+            geom.center_y.data_ptr(), r2.data_ptr(), s, float(a), float(b),
+            int(use_radius)), r2
 
 
 def env_exp_analytic(pos_x, pos_y, radius, alive, geom, a: float, b: float,

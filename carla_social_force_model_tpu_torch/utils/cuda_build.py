@@ -27,9 +27,10 @@ BUILD_LOG = BUILD_DIR / "nvcc.log"
 
 #: Hopper target with the architecture-specific features (sm_90a); no
 #: --use_fast_math: the kernels' exact f32 semantics are tested against the
-#: plain PyTorch versions
+#: plain PyTorch versions; -lineinfo keeps each instruction's source line
+#: (no change to the code) for tools/sass_census.py
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -60,32 +61,32 @@ ARGTYPES = {
     # prm, use_radius, cutoff, c2, fx, fy, stream
     "sfm_ring_force": ([_INT] * 3 + [_PTR] * 10 + [_INT, _INT, _FLOAT]
                        + [_PTR] * 3),
-    # px, py, prad, alive, ptx, pty, k, cx, cy, r2, s_count, a, b,
+    # px, py, prad, alive, ptx, pty, k, lens, cx, cy, r2, s_count, a, b,
     # use_radius, n, fx, fy, stream
-    "sfm_env_exp": ([_PTR] * 6 + [_INT] + [_PTR] * 3
+    "sfm_env_exp": ([_PTR] * 6 + [_INT] + [_PTR] * 4
                     + [_INT, _FLOAT, _FLOAT, _INT, _INT] + [_PTR] * 3),
-    # px, py, pvx, pvy, prad, alive, ptx, pty, k, cx, cy, r2, ov, s_count,
-    # prm, use_radius, n, fx, fy, stream
-    "sfm_env_moussaid": ([_PTR] * 8 + [_INT] + [_PTR] * 4 + [_INT, _PTR]
+    # px, py, pvx, pvy, prad, alive, ptx, pty, k, lens, cx, cy, r2, ov,
+    # s_count, prm, use_radius, n, fx, fy, stream
+    "sfm_env_moussaid": ([_PTR] * 8 + [_INT] + [_PTR] * 5 + [_INT, _PTR]
                          + [_INT, _INT] + [_PTR] * 3),
     # sfm_env_exp's arguments up to n, then surv, counts, max_surv, gs, fx,
     # fy, stream
-    "sfm_env_exp_compact": ([_PTR] * 6 + [_INT] + [_PTR] * 3
+    "sfm_env_exp_compact": ([_PTR] * 6 + [_INT] + [_PTR] * 4
                             + [_INT, _FLOAT, _FLOAT, _INT, _INT] + [_PTR] * 2
                             + [_INT, _INT] + [_PTR] * 3),
     # sfm_env_moussaid's arguments up to n, then surv, counts, max_surv, gs,
     # fx, fy, stream
-    "sfm_env_moussaid_compact": ([_PTR] * 8 + [_INT] + [_PTR] * 4
+    "sfm_env_moussaid_compact": ([_PTR] * 8 + [_INT] + [_PTR] * 5
                                  + [_INT, _PTR] + [_INT, _INT] + [_PTR] * 2
                                  + [_INT, _INT] + [_PTR] * 3),
-    # px, py, prad, alive, ax, ay, ux, uy, il2, m, cx, cy, r2, s_count, a, b,
-    # use_radius, n, fx, fy, stream
-    "sfm_env_exp_analytic": ([_PTR] * 9 + [_INT] + [_PTR] * 3
+    # px, py, prad, alive, ax, ay, ux, uy, il2, m, lens, cx, cy, r2,
+    # s_count, a, b, use_radius, n, fx, fy, stream
+    "sfm_env_exp_analytic": ([_PTR] * 9 + [_INT] + [_PTR] * 4
                              + [_INT, _FLOAT, _FLOAT, _INT, _INT]
                              + [_PTR] * 3),
     # sfm_env_exp_analytic's arguments up to n, then surv, counts, max_surv,
     # gs, fx, fy, stream
-    "sfm_env_exp_analytic_compact": ([_PTR] * 9 + [_INT] + [_PTR] * 3
+    "sfm_env_exp_analytic_compact": ([_PTR] * 9 + [_INT] + [_PTR] * 4
                                      + [_INT, _FLOAT, _FLOAT, _INT, _INT]
                                      + [_PTR] * 2 + [_INT, _INT]
                                      + [_PTR] * 3),

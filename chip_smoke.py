@@ -44,7 +44,12 @@ against the single-device kernel path, then 100 timed steps; the urban
 path, groups and config #3 + ORCA sharded, and a 1-rank NCCL
 process-group run.  It counts the kernel launches of each path, and checks
 every step of 50-step rollouts through the kernels against the same step
-through the plain versions from the same state.
+through the plain versions from the same state.  Phase 2 also counts the
+SASS instructions of the symmetric pair kernel's and the environment
+kernel's inner loops (``tools/sass_census.py``, with cuobjdump and
+nvdisasm), and the kernel times of phases 3, 6, 9, 12, 18 and 24 print the
+issue-rate floor they give beside the bound (phase 15: the power law's
+symmetric forms).
 
 Run from the repository root, with no arguments:
 
@@ -326,6 +331,94 @@ def bound(n_bytes, ops, mufu):
             "bytes" if t_bytes > t_ops else "operations")
 
 
+#: the SASS census of phase 2 (tools/sass_census.py): {kernel label: its
+#: inner loop's instructions per pair or scanned point, and its layout:
+#: rows per thread R of a symmetric walk, lanes per pedestrian L of an
+#: environment kernel}
+CENSUS = {}
+
+
+def floor_note(label, units):
+    """The issue-rate floor of ``units`` pairs (or scanned points) through
+    the inner loop of the census kernel ``label``, with its SASS
+    instructions per unit and the layout."""
+    from sass_census import floor_ms
+    c = CENSUS[label]
+    return (f"issue floor {floor_ms(c['per_unit'], units):.6f} ms "
+            f"({c['per_unit']:.2f} SASS instructions per {c['unit']} x "
+            f"{units} {c['unit']}s; {c['layout']})")
+
+
+def scanned(seg, px, py, alive, active=None):
+    """The slots an environment launch must scan on these inputs: each
+    (section, alive pedestrian) pair inside the section's filter circle
+    times the section's real points (or segments)."""
+    from carla_social_force_model_tpu_torch.env.pointsets import PAD_COORD
+    from carla_social_force_model_tpu_torch.ops.geometry import (
+        segment_filter_mask)
+    rows = seg.x if hasattr(seg, "x") else seg.ax
+    real = (rows != PAD_COORD).sum(dim=1)
+    ok = segment_filter_mask(px, py, seg) & alive[None, :]
+    if active is not None:
+        ok = ok & active[:, None]
+    return int((ok.sum(dim=1) * real).sum())
+
+
+def config3_env_inputs(dev):
+    """Phase 6's inputs: config #3 at ``N`` after one step, 10% of it dead
+    and the modes drawn at random (seed 5); its planes (x, y, vx, vy,
+    radius, alive) Hilbert-sorted; the vehicles at step 0 and their rows
+    (point set, velocities, active).  Returns ``(scene, params, cfg, state,
+    snapshot, planes, rows)``."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from carla_social_force_model_tpu_torch.api.synthetic import (
+        benchmark_bundle)
+    from carla_social_force_model_tpu_torch.models import stepper, vehicles
+    from carla_social_force_model_tpu_torch.ops.spatial import morton_order
+    scene, params, cfg, state = benchmark_bundle(
+        N, with_borders=True, with_obstacles=True, num_steps_hint=STEPS,
+        device=dev)
+    scene = stepper.prepare_scene(scene)
+    state, _ = stepper.rollout(state, scene, params, cfg, 1, record=False)
+    rng = np.random.default_rng(5)
+    dead = torch.from_numpy(rng.uniform(size=N) < 0.1).to(dev)
+    mode = torch.from_numpy(rng.integers(0, 5, N).astype(np.int32)).to(dev)
+    state = dataclasses.replace(state, alive=state.alive & ~dead, mode=mode)
+    perm, _ = morton_order(state.pos_x, state.pos_y, state.alive, "hilbert")
+    planes = [a[perm].contiguous() for a in (
+        state.pos_x, state.pos_y, state.vel_x, state.vel_y, state.radius,
+        state.alive)]
+    snap = vehicles.vehicle_snapshot_at(scene.vehicles, 0)
+    dyn, dvel, dact = vehicles.snapshot_segment_pointset(
+        snap, params.dynamic_obstacle.perception_threshold)
+    return scene, params, cfg, state, snap, planes, (dyn, dvel.contiguous(),
+                                                     dact)
+
+
+def sorted_env_state(state, seed):
+    """Phase 12's crowd: ``state`` with 10% of it dead and 10% crossing the
+    road (``seed``); returns its planes (x, y, vx, vy, radius, alive)
+    Hilbert-sorted, and the state."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from carla_social_force_model_tpu_torch.models import modes
+    from carla_social_force_model_tpu_torch.ops.spatial import morton_order
+    rng = np.random.default_rng(seed)
+    n, dev = state.capacity, state.pos_x.device
+    dead = torch.from_numpy(rng.uniform(size=n) < 0.1).to(dev)
+    cross = torch.from_numpy(rng.uniform(size=n) < 0.1).to(dev)
+    state = dataclasses.replace(
+        state, alive=state.alive & ~dead,
+        mode=torch.where(cross, modes.CROSSING_ROAD, state.mode))
+    perm, _ = morton_order(state.pos_x, state.pos_y, state.alive, "hilbert")
+    return [a[perm].contiguous() for a in (
+        state.pos_x, state.pos_y, state.vel_x, state.vel_y, state.radius,
+        state.alive)], state
+
+
 def env_work(seg, px, py, alive, active, moussaid):
     """Bytes and operations one environment launch needs on these inputs:
     each input read once and each output written once; for every (segment,
@@ -503,10 +596,17 @@ def cutoff_kernel_checks(dev, card):
                       else "pair_force_dense_kernel")
             ms[name] = device_ms(lambda g=grids[key]: run(planes, g), kernel,
                                  reps=reps)
+            floor = ""
+            if key.startswith("sym"):
+                floor = "; " + floor_note(
+                    "pair_force_sym<kTriangleBox, Moussaid>"
+                    if grids[key].form == "sym_cutoff"
+                    else "pair_force_sym<kSymTable, Moussaid>", pairs_u)
             say(f"phase 9 time {name} at N={n}, {CUTOFF_M:g} m cutoff: "
                 f"{ms[name]:.4f} ms on the device, bound "
                 f"{bounds[name][0]:.6f} ms ({bounds[name][1]}; "
-                f"{pairs_u} unordered pairs within the cutoff) ({card})")
+                f"{pairs_u} unordered pairs within the cutoff){floor} "
+                f"({card})")
         return ms, bounds
 
     for n in CUT_CHECK_N:
@@ -855,12 +955,17 @@ def family_kernel_checks(dev, card):
         plain = cuda_ms(lambda: family_plain(law, planes, cutoff), reps=2)
         bnd = family_work(law, planes, cutoff, form.startswith("sym"), grid)
         pairs, course, active = bnd[2]
+        walk = {"sym": "kTriangle", "sym_cutoff": "kTriangleBox",
+                "sym_compact": "kSymTable"}.get(
+                    form if grid is None else grid.form)
+        floor = ("" if law != "powerlaw" or walk is None else "; " +
+                 floor_note(f"pair_force_sym<{walk}, PowerLaw>", pairs))
         say(f"phase 15 time {name} at N={planes[0].shape[0]}"
             + ("" if cutoff is None else f", {cutoff:g} m cutoff")
             + f": {ms:.4f} ms on the device, plain {plain:.4f} ms, bound "
             f"{bnd[0]:.6f} ms ({bnd[1]}; {pairs} pairs"
             + (f", {course} on a collision course, {active} contributing"
-               if law == "powerlaw" else "") + f") ({card})")
+               if law == "powerlaw" else "") + f"){floor} ({card})")
         results[name] = dict(ms=ms, plain_ms=plain, bound=bnd[:2])
 
     # the all-pairs forms at N = 10k
@@ -1229,10 +1334,14 @@ def orca_kernel_checks(dev, card, urban):
         plain = cuda_ms(lambda: analytic_run(pl, g, prm.a, prm.b, plain=True),
                         reps=3)
         bnd = analytic_bound(pl, g, table)
+        census = ("env_force<exp, kAllSections, kAnalytic>" if table is None
+                  else "env_force<exp, kTable, kAnalytic>")
         say(f"phase 18 time {name} ({what}, {g.num_segments} x "
             f"{g.max_segments}), N={N}: kernel {ms_k:.4f} ms on the device, "
             f"plain {plain:.4f} ms, bound {bnd[0]:.6f} ms ({bnd[1]}; "
-            f"{bnd[2]} in-filter pairs) ({card})")
+            f"{bnd[2]} in-filter pairs); "
+            f"{floor_note(census, scanned(g, pl[0], pl[1], pl[5]))} "
+            f"({card})")
         results[name] = dict(ms=ms_k, plain_ms=plain, bound=bnd[:2])
     for kind, src in feeds.items():
         k = 3
@@ -1812,9 +1921,12 @@ def shard_kernel_checks(dev, card):
         t_ms = device_ms(fn, kernel)
         p_ms = cuda_ms(plain, reps=3)
         results[name] = dict(ms=t_ms, plain_ms=p_ms, bound=bnd)
+        floor = ("; " + floor_note("pair_force_sym_dense<false, Moussaid>",
+                                   n_rows * n_blk)
+                 if name == "pair_force_sym_dense" else "")
         say(f"phase 24 time {name} ({shape}): kernel {t_ms:.4f} ms on the "
-            f"device, plain {p_ms:.4f} ms, bound {bnd[0]:.6f} ms ({bnd[1]}) "
-            f"({card})")
+            f"device, plain {p_ms:.4f} ms, bound {bnd[0]:.6f} ms ({bnd[1]})"
+            f"{floor} ({card})")
     # the full-block kernel with the cutoff at the 50k path's shape: shard
     # 0's sorted rows against shard 1's sorted block, 12,500 each
     kb = CUT_N // SHARDS
@@ -1845,7 +1957,9 @@ def shard_kernel_checks(dev, card):
     say(f"phase 24 time pair_force_sym_dense_cutoff ({kb} x {kb} sorted "
         f"block of the {CUT_N} path, {CUTOFF_M:g} m, {within} pairs within "
         f"it of {kb * kb}): kernel {t_ms:.4f} ms on the device, plain "
-        f"{p_ms:.4f} ms, bound {bnd[0]:.6f} ms ({bnd[1]}) ({card})")
+        f"{p_ms:.4f} ms, bound {bnd[0]:.6f} ms ({bnd[1]}); "
+        f"{floor_note('pair_force_sym_dense<true, Moussaid>', within)} "
+        f"({card})")
     return worst, results
 
 
@@ -2079,13 +2193,11 @@ def main() -> None:
     try:
         from carla_social_force_model_tpu_torch.api.synthetic import (
             benchmark_bundle)
-        from carla_social_force_model_tpu_torch.models import stepper, vehicles
+        from carla_social_force_model_tpu_torch.models import stepper
         from carla_social_force_model_tpu_torch.models.params import (
             MoussaidParams, moussaid_vector)
         from carla_social_force_model_tpu_torch.ops import (
             cuda_env, cuda_forces, forces)
-        from carla_social_force_model_tpu_torch.ops.spatial import (
-            morton_order)
         from carla_social_force_model_tpu_torch.utils import cuda_build
     except ImportError as exc:
         fail(f"the port package is not beside chip_smoke.py ({exc})")
@@ -2118,6 +2230,26 @@ def main() -> None:
              if "registers" in ln or "spill" in ln]
     say(f"phase 2 build: {build_s:.2f} s, {cuda_build.LIBRARY.name}; "
         f"ptxas: {' | '.join(ptxas)}")
+    # the inner loops' SASS (cuobjdump, nvdisasm): instructions per pair or
+    # per scanned point, the issue-rate floors of phases 3-24
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import sass_census
+    try:
+        CENSUS.update(sass_census.census(cuda_build.LIBRARY))
+    except (RuntimeError, OSError, subprocess.CalledProcessError) as exc:
+        fail(f"the SASS census failed: {exc}")
+    missing = [k for k, c in CENSUS.items() if c is None]
+    if missing:
+        fail(f"the SASS census found no inner loop of {missing}")
+    for label, c in CENSUS.items():
+        g = c["groups_per_unit"]
+        say(f"phase 2 SASS census {c['kernel']} ({label}): "
+            f"{c['per_unit']:.2f} instructions per {c['unit']} (law "
+            f"arithmetic {g['law']:.2f}, special functions "
+            f"{g['special']:.2f}, memory and sync {g['memory']:.2f}, mask, "
+            f"loop and select {g['control']:.2f}; {c['mufu_per_unit']:g} "
+            f"MUFU), {c['units_per_trip']:g} {c['unit']}s per trip of "
+            f"{c['loop_instructions']}; {c['layout']}")
 
     lap("phase 3")
     # -- phase 3: each pair kernel against its plain version, on the card ----
@@ -2195,7 +2327,8 @@ def main() -> None:
         f"{bounds['pair_force_dense'][1]}), plain PyTorch "
         f"{plain_ms['pair']:.4f} ms; f32-only bounds "
         f"{1e3 * n_sym * (PAIR_OPS + 2) / PEAK_F32_S:.4f} / "
-        f"{1e3 * n_dense * PAIR_OPS / PEAK_F32_S:.4f} ms")
+        f"{1e3 * n_dense * PAIR_OPS / PEAK_F32_S:.4f} ms; pair_force_sym "
+        f"{floor_note('pair_force_sym<kTriangle, Moussaid>', n_sym)}")
     torch.cuda.synchronize()
 
     launches = {}
@@ -2297,31 +2430,17 @@ def main() -> None:
 
     lap("phase 6")
     # -- phase 6: the environment kernels at config #3's shapes --------------
-    scene, params, cfg, state = benchmark_bundle(
-        N, with_borders=True, with_obstacles=True, num_steps_hint=STEPS,
-        device=dev)
-    scene = stepper.prepare_scene(scene)
-    state, _ = stepper.rollout(state, scene, params, cfg, 1, record=False)
-    rng = np.random.default_rng(5)
-    dead = torch.from_numpy(rng.uniform(size=N) < 0.1).to(dev)
-    mode = torch.from_numpy(rng.integers(0, 5, N).astype(np.int32)).to(dev)
-    state = dataclasses.replace(state, alive=state.alive & ~dead, mode=mode)
-    perm, _ = morton_order(state.pos_x, state.pos_y, state.alive, "hilbert")
-    px, py, vx, vy, rad, alive = (
-        a[perm].contiguous() for a in (state.pos_x, state.pos_y, state.vel_x,
-                                       state.vel_y, state.radius, state.alive))
-    snap = vehicles.vehicle_snapshot_at(scene.vehicles, 0)
+    scene, params, cfg, state, snap, planes, vrows = config3_env_inputs(dev)
+    px, py, vx, vy, rad, alive = planes
+    dyn, dvel, dact = vrows
     pdyn = params.dynamic_obstacle
-    dyn, dvel, dact = vehicles.snapshot_segment_pointset(
-        snap, pdyn.perception_threshold)
     b = params.border
     env_cases = {
         "env_exp": ("borders", scene.borders_seg, None, None, b),
         "env_moussaid": ("parked cars", scene.static_obstacles_seg,
                          scene.static_obstacle_vel, None,
                          params.static_obstacle),
-        "env_moussaid vehicles": ("vehicles", dyn, dvel.contiguous(), dact,
-                                  pdyn)}
+        "env_moussaid vehicles": ("vehicles", dyn, dvel, dact, pdyn)}
 
     def env_call(key, use_radius, plain):
         _, seg, ovel, active, prm_ = env_cases[key]
@@ -2382,13 +2501,16 @@ def main() -> None:
         n_bytes, ops, mufu, pairs[key] = env_work(
             seg, px, py, alive, active, key != "env_exp")
         bounds_env[key] = bound(n_bytes, ops, mufu)
+        census = ("env_force<exp, kAllSections, kSampled>" if key == "env_exp"
+                  else "env_force<moussaid, kAllSections, kSampled>")
         say(f"phase 6 time {key} ({env_cases[key][0]}, "
             f"{seg.num_segments} x {seg.points_per_segment} slots), N={N}: "
             f"kernel {env_ms[key]:.4f} ms on the device, wrapper "
             f"{wrapper_ms[key]:.4f} ms, plain {plain_ms[key]:.4f} ms, "
             f"bound {bounds_env[key][0]:.6f} ms ({bounds_env[key][1]}; "
             f"{pairs[key]} in-filter pairs, {ops:.3e} operations, "
-            f"{mufu:.3e} special-function operations, {n_bytes} bytes) "
+            f"{mufu:.3e} special-function operations, {n_bytes} bytes); "
+            f"{floor_note(census, scanned(seg, px, py, alive, active))} "
             f"({card})")
     torch.cuda.synchronize()
 
@@ -2731,7 +2853,6 @@ def env_compact_checks(dev, card):
     dense and compacted kernels and of the plan; bounds from the in-filter
     pairs.  Returns ``(worst, results)``."""
     import dataclasses
-    import numpy as np
     import torch
     from carla_social_force_model_tpu_torch.api.synthetic import (
         benchmark_bundle, urban_bundle)
@@ -2740,28 +2861,13 @@ def env_compact_checks(dev, card):
     from carla_social_force_model_tpu_torch.models.spawn import apply_spawn
     from carla_social_force_model_tpu_torch.ops import (cuda_env, env_grid,
                                                         forces)
-    from carla_social_force_model_tpu_torch.ops.spatial import morton_order
     worst, results = {}, {}
-
-    def sorted_state(state, seed):
-        """10% dead and 10% crossing the road; the planes sorted."""
-        rng = np.random.default_rng(seed)
-        n = state.capacity
-        dead = torch.from_numpy(rng.uniform(size=n) < 0.1).to(dev)
-        cross = torch.from_numpy(rng.uniform(size=n) < 0.1).to(dev)
-        state = dataclasses.replace(
-            state, alive=state.alive & ~dead,
-            mode=torch.where(cross, modes.CROSSING_ROAD, state.mode))
-        perm, _ = morton_order(state.pos_x, state.pos_y, state.alive,
-                               "hilbert")
-        return [a[perm].contiguous() for a in (
-            state.pos_x, state.pos_y, state.vel_x, state.vel_y,
-            state.radius, state.alive)], state
 
     scene, params, cfg, state = urban_bundle(N, num_steps_hint=STEPS,
                                              device=dev)
     scene = stepper.prepare_scene(scene)
-    planes, ustate = sorted_state(apply_spawn(state, scene.spawn, 0), 21)
+    planes, ustate = sorted_env_state(apply_spawn(state, scene.spawn, 0),
+                                     21)
     n_cross = int((ustate.mode == modes.CROSSING_ROAD).sum())
     # the fused terms of an urban step (one sort, the table, the crossing
     # rule) against the plain terms, with the fleet as it moved at step 0
@@ -2791,7 +2897,7 @@ def env_compact_checks(dev, card):
     scene3 = stepper.prepare_scene(scene3)
     state3, _ = stepper.rollout(state3, scene3, params3, cfg3, 1,
                                 record=False)
-    planes3, _ = sorted_state(state3, 22)
+    planes3, _ = sorted_env_state(state3, 22)
     cases["env_moussaid_compact"] = (
         "config #3 parked cars", scene3.static_obstacles_seg,
         scene3.static_obstacle_vel, params3.static_obstacle)
@@ -2883,13 +2989,16 @@ def env_compact_checks(dev, card):
                                              moussaid)
         n_bytes += 4 * (auto.surv.numel() + auto.counts.numel())
         bnd = bound(n_bytes, ops, mufu)
+        census = ("env_force<moussaid, kTable, kSampled>" if moussaid
+                  else "env_force<exp, kTable, kSampled>")
         say(f"phase 12 time {name} ({what}), N={N}: compacted kernel "
             f"{ms_k:.4f} ms, dense kernel {dense_ms:.4f} ms on the device; "
             f"plan (boxes, hits, table) {plan_ms:.4f} ms of device kernels, "
             f"{plan_ev:.4f} ms with its launches (CUDA events); plain "
             f"{plain_ms:.4f} ms; bound {bnd[0]:.6f} ms ({bnd[1]}; {pairs} "
             f"in-filter pairs, {ops:.3e} operations, {mufu:.3e} "
-            f"special-function operations, {n_bytes} bytes) ({card})")
+            f"special-function operations, {n_bytes} bytes); "
+            f"{floor_note(census, scanned(seg, px, py, alive))} ({card})")
         results[name] = dict(ms=ms_k, plain_ms=plain_ms, bound=bnd)
     return worst, results
 

@@ -1001,3 +1001,267 @@ def test_sharded_steps_through_kernels_match_single_device(
         state = PedState(**{
             f.name: torch.cat([getattr(o, f.name) for o in outs])
             for f in dataclasses.fields(PedState)})
+
+
+# -- the symmetric walk's row tiles and culling; the environment kernel's ------
+# -- split scan, real row lengths and deferred terms ----------------------------
+
+def sym_form_run(planes, form, p, cutoff=None, max_surv=0):
+    """``(got, want)``: one symmetric-walk launch in ``form`` (``"sym"``,
+    ``"sym_cutoff"`` or ``"sym_compact"`` with a table ``max_surv`` wide)
+    and the plain version, both (2, N)."""
+    prm = moussaid_vector(p, planes[0].device)
+    if form == "sym":
+        got = cuda_forces.pair_force_sym(*planes, prm)
+        want = forces.pedestrian_force(*planes, p)
+    else:
+        grid = pair_grid.cutoff_grid(
+            planes[0], planes[1], planes[5], cutoff, symmetric=True,
+            compact=form == "sym_compact", max_surv=max_surv)
+        assert grid.form == form
+        got = cuda_forces.pair_force_cutoff(*planes, prm, grid)
+        want = forces.pedestrian_force(*planes, p, cutoff=cutoff)
+    torch.cuda.synchronize()
+    return torch.stack(got), torch.stack(want)
+
+
+@pytest.mark.parametrize("form,n", [
+    (form, n) for form in ("sym", "sym_cutoff", "sym_compact")
+    for n in (31, 33, 127, 129, 255, 257, 383, 1000)
+    if form != "sym_compact" or n > 128])  # a table needs two tiles
+def test_sym_walks_on_ragged_n_match_plain_version(cuda_device, form, n):
+    """N that is not a multiple of a thread's 32 * R rows nor of the
+    128-agent tile: the last tile pair's missing rows and columns take no
+    part, in every symmetric form (|err| <= 1e-4 + 1e-4*|f|)."""
+    planes = cutoff_case(n, seed=n + 40, device=cuda_device)
+    got, want = sym_form_run(planes, form, MoussaidParams(), cutoff=10.0,
+                             max_surv=1)
+    assert torch.isfinite(got).all()
+    assert bool((got[:, ~planes[5]] == 0).all())
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("form", ["sym", "sym_cutoff", "sym_compact"])
+def test_sym_walks_with_dead_agents_in_every_lane_position(cuda_device,
+                                                           form):
+    """Dead agents at every lane position of every 32-row group, a whole
+    dead 32-row group and a whole dead 128-agent tile: their rows stay
+    exactly 0, the chunk boxes ignore them, the rest matches the plain
+    version."""
+    n = 1101
+    planes = cutoff_case(n, seed=9, device=cuda_device)
+    idx = torch.arange(n, device=cuda_device)
+    dead = (((idx // 32 + idx) % 5 == 0) | ((idx >= 256) & (idx < 288))
+            | ((idx >= 512) & (idx < 640)))
+    planes[5] = planes[5] & ~dead
+    got, want = sym_form_run(planes, form, MoussaidParams(), cutoff=10.0,
+                             max_surv=1)
+    assert torch.isfinite(got).all()
+    assert bool((got[:, ~planes[5]] == 0).all())
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def stacked_crowd(seed, device):
+    """64 nodes with 24 agents each that spawned on their node and took one
+    Euler step apart: many pairs sit on the atan2 branch cut."""
+    rng = np.random.default_rng(seed)
+    n_nodes, per_node = 64, 24
+    nodes = rng.uniform(-30, 30, (n_nodes, 2)).astype(np.float32)
+    heading = rng.uniform(-np.pi, np.pi, (n_nodes, per_node))
+    speed = rng.uniform(1.0, 1.6, (n_nodes, per_node))
+    vel = np.stack([speed * np.cos(heading), speed * np.sin(heading)],
+                   -1).reshape(-1, 2).astype(np.float32)
+    start = torch.from_numpy(np.repeat(nodes, per_node, axis=0)).to(device)
+    v = torch.from_numpy(vel).to(device)
+    pos = start + 0.05 * v
+    n = pos.shape[0]
+    return [pos[:, 0].contiguous(), pos[:, 1].contiguous(),
+            v[:, 0].contiguous(), v[:, 1].contiguous(),
+            torch.full((n,), 0.3, device=device),
+            torch.ones(n, dtype=torch.bool, device=device)]
+
+
+@pytest.mark.parametrize("form", ["sym", "sym_cutoff", "sym_compact"])
+def test_sym_walks_on_stacked_starts(cuda_device, form):
+    """The eight stacked crowds of the branch-cut test through every
+    symmetric form (sorted along the Hilbert curve for the cutoff forms):
+    the row tiles, the culling and the fast tail leave cross, dot and
+    sign(theta) as the plain version computes them."""
+    for seed in range(8):
+        planes = stacked_crowd(seed, cuda_device)
+        if form != "sym":
+            perm, _ = morton_order(planes[0], planes[1], planes[5],
+                                   "hilbert")
+            planes = [t[perm].contiguous() for t in planes]
+        got, want = sym_form_run(planes, form, MoussaidParams(),
+                                 cutoff=10.0, max_surv=1)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_sym_table_with_overflowing_rows_matches_plain_version(cuda_device):
+    """The 1M crowd's pattern at N = 20,000: 0.25 agents/m^2, Hilbert-
+    sorted, the 30 m cutoff, a table that some rows overflow (they walk
+    every column tile of their triangle with the box test) and others fit;
+    against the plain version."""
+    planes = cutoff_case(20_000, seed=13, device=cuda_device)
+    grid = pair_grid.cutoff_grid(planes[0], planes[1], planes[5], 30.0,
+                                 symmetric=True, max_surv=8)
+    assert grid.form == "sym_compact"
+    assert bool((grid.counts > 8).any()) and bool((grid.counts <= 8).any())
+    got = torch.stack(cuda_forces.pair_force_cutoff(
+        *planes, moussaid_vector(MoussaidParams(), cuda_device), grid))
+    want = torch.stack(forces.pedestrian_force(*planes, MoussaidParams(),
+                                               cutoff=30.0))
+    torch.cuda.synchronize()
+    assert bool((got[:, ~planes[5]] == 0).all())
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def point_rows(rows, k, centers, radius, device, lengths=True):
+    """A SegmentPointSet of the given rows of points, each padded with
+    PAD_COORD to ``k`` slots, with its real lengths (or None)."""
+    from carla_social_force_model_tpu_torch.env.pointsets import (
+        PAD_COORD, SegmentPointSet)
+    s = len(rows)
+    x = np.full((s, k), PAD_COORD, np.float32)
+    y = np.full((s, k), PAD_COORD, np.float32)
+    for i, pts in enumerate(rows):
+        pts = np.asarray(pts, np.float32).reshape(-1, 2)
+        x[i, :len(pts)], y[i, :len(pts)] = pts[:, 0], pts[:, 1]
+    centers = np.asarray(centers, np.float32)
+    lens = np.array([len(np.asarray(r).reshape(-1, 2)) for r in rows],
+                    np.int32)
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+         for a in (x, y, centers[:, 0], centers[:, 1],
+                   np.full(s, radius, np.float32), lens)]
+    return SegmentPointSet(*t[:5], lengths=t[5] if lengths else None)
+
+
+def env_pair(kernel, planes, seg, plain=False):
+    """One launch of ``kernel`` (``env_exp`` or ``env_moussaid``, the
+    obstacles at rest) or its plain version, as a (2, N) tensor."""
+    px, py, vx, vy, rad, alive = planes
+    if kernel == "env_exp":
+        args = (px, py, rad, alive, seg, 3.0, 0.4)
+        fn = forces.env_exp_force if plain else cuda_env.env_exp
+    else:
+        ovel = torch.zeros((seg.num_segments, 2), device=px.device)
+        args = (px, py, vx, vy, rad, alive, seg, ovel, MoussaidParams())
+        fn = forces.env_moussaid_force if plain else cuda_env.env_moussaid
+    return torch.stack(fn(*args))
+
+
+@pytest.mark.parametrize("k,slot_sets", [
+    (1103, [(3, 12, 13, 40), (5, 8, 9, 24), (7, 9, 15, 16), (0, 31, 32, 33),
+            (9, 1025, 1026, 1030), (1023, 1024, 1027, 1100)]),
+    (14, [(3, 9, 10, 12), (0, 5, 7, 11), (8, 9, 10, 11)])])
+@pytest.mark.parametrize("kernel", ["env_exp", "env_moussaid"])
+def test_env_scan_keeps_the_first_of_tied_points(cuda_device, kernel, k,
+                                                 slot_sets):
+    """Pedestrian s stands at equal distance (exactly 1 m) from four points
+    of row s, placed in slots that fall to different lanes of the split
+    scan (an earlier slot in a later lane, a later slot in lane 0, both
+    sides of a staged piece of 1,024), or in a row short enough for one
+    lane's whole scan: the kernel takes the earliest slot, as the
+    sequential scan and the plain version's argmin do, so the force points
+    away from that point."""
+    rows, centers, peds = [], [], []
+    for s, slots in enumerate(slot_sets):
+        cx = 100.0 * s
+        pts = np.stack([cx + 50.0 + np.arange(k, dtype=np.float32),
+                        np.full(k, 50.0, np.float32)], -1)
+        for slot, (dx, dy) in zip(slots, ((1, 0), (-1, 0), (0, 1), (0, -1))):
+            pts[slot] = (cx + dx, dy)
+        rows.append(pts[:slots[-1] + 3])
+        centers.append((cx, 0.0))
+        peds.append((cx, 0.0))
+    seg = point_rows(rows, k, centers, 5.0, cuda_device)
+    n = len(peds)
+    pos = np.asarray(peds, np.float32)
+    planes = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)
+              for a in (pos[:, 0], pos[:, 1], np.full(n, 0.5, np.float32),
+                        np.zeros(n, np.float32), np.full(n, 0.3, np.float32),
+                        np.ones(n, bool))]
+    got = env_pair(kernel, planes, seg)
+    want = env_pair(kernel, planes, seg, plain=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    if kernel == "env_exp":   # away from (cx + 1, 0): along -x
+        assert bool((got[0] < 0).all()) and bool((got[1] == 0).all())
+
+
+@pytest.mark.parametrize("n", [1, 31, 45, 130])
+@pytest.mark.parametrize("kernel", ["env_exp", "env_moussaid"])
+def test_env_rows_of_padding_and_ragged_k(cuda_device, kernel, n):
+    """Rows of 13 slots (not a multiple of the lanes per pedestrian): one
+    all padding, one of one point, one full, one of five; N not a multiple
+    of the 32 pedestrians of a block.  Against the plain version, and equal
+    bitwise to the same set without its lengths (every slot scanned):
+    padding is never the closest point, and an empty row stays masked."""
+    rng = np.random.default_rng(n)
+    rows = [np.zeros((0, 2)), [[1.0, 2.0]],
+            rng.uniform(-6, 6, (13, 2)), rng.uniform(-6, 6, (5, 2))]
+    seg = point_rows(rows, 13, [(0, 0), (1, 2), (0, 0), (0, 0)], 8.0,
+                     cuda_device)
+    bare = dataclasses.replace(seg, lengths=None)
+    planes = crowd_planes(max(n, 7), seed=n, device=cuda_device, extent=8.0)
+    planes = [t[:n].contiguous() for t in planes]
+    got = env_pair(kernel, planes, seg)
+    want = env_pair(kernel, planes, seg, plain=True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert bool((got[:, ~planes[5]] == 0).all())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, env_pair(kernel, planes, bare))
+
+
+@pytest.mark.parametrize("kernel,sets", [("env_exp", "borders"),
+                                         ("env_moussaid", "statics"),
+                                         ("analytic", "borders")])
+def test_env_compact_equals_dense_bitwise_on_ragged_n(cuda_device, kernel,
+                                                      sets):
+    """N = 1,013 (not a multiple of 32 nor 128): four 32-pedestrian blocks
+    read one table row and re-test its groups against their own boxes, so
+    the compacted forms equal the dense ones bitwise -- with a table that
+    fits and one that overflows -- and the dense ones without the row
+    lengths."""
+    n = 1013
+    if kernel == "analytic":
+        scene, params, planes = feed_scene(n, cuda_device)
+        geom, b = scene.borders_geom, params.border
+        dense = analytic_run(planes, geom, b.a, b.b, False)
+        bare = analytic_run(planes, dataclasses.replace(geom, lengths=None),
+                            b.a, b.b, False)
+        r2 = cuda_env.filter_r2(geom)
+        x, y, alive = planes[0], planes[1], planes[5]
+        hits = env_grid.group_hits(env_grid.block_boxes(x, y, alive),
+                                   geom.center_x, geom.center_y, r2, 8)
+        outs = [analytic_run(planes, geom, b.a, b.b, False,
+                             grid=env_grid.env_grid(x, y, alive, geom, r2, 8,
+                                                    w))
+                for w in (max(int(hits.sum(dim=1).max()), 1), 1)]
+    else:
+        planes, env = env_case(n, seed=n, device=cuda_device, sort=True)
+        seg, ovel, active = env[sets]
+        dense = env_compact_run(kernel, planes, seg, ovel, active, None,
+                                False)
+        bare = env_compact_run(kernel, planes,
+                               dataclasses.replace(seg, lengths=None), ovel,
+                               active, None, False)
+        outs = [env_compact_run(kernel, planes, seg, ovel, active, g, False)
+                for g in env_compact_grids(planes, seg, active)]
+    torch.cuda.synchronize()
+    assert torch.equal(dense, bare)
+    for got in outs:
+        assert torch.equal(got, dense)
+
+
+def test_env_lengths_are_checked(cuda_device):
+    planes, env = env_case(64, seed=3, device=cuda_device, sort=False)
+    px, py, vx, vy, rad, alive = planes
+    seg = env["borders"][0]
+    with pytest.raises(ValueError, match="segment lengths"):
+        cuda_env.env_exp(px, py, rad, alive,
+                         dataclasses.replace(seg, lengths=seg.lengths.long()),
+                         3.0, 0.1)
+

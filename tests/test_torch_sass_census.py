@@ -1,0 +1,73 @@
+"""The host side of ``tools/sass_census.py``, which ``chip_smoke.py``
+phase 2 runs on the card: the layout constants it reads from the port's
+CUDA sources, the demangled-name normaliser, and the loop census on a
+small hand-written disassembly.  Runs on the CPU (no nvdisasm needed).
+"""
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT / "tools"))
+
+import sass_census  # noqa: E402
+
+#: two trips' worth of a loop: a marker pair (two MUFU.EX2), a shared load,
+#: an FMUL on a special-function line, a compare and the backward branch
+LISTING = """
+\t.section\t.text._Z6kernelv,"ax",@progbits
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+.L_x_0:
+\t//## File "pair_forces.cuh", line 10
+        /*0010*/                   LDS R2, [R3] ;
+\t//## File "pair_forces.cuh", line 12
+        /*0020*/                   FMUL R4, R2, R2 ;
+        /*0030*/                   MUFU.EX2 R5, R4 ;
+        /*0040*/                   MUFU.EX2 R6, R4 ;
+\t//## File "pair_forces.cu", line 30
+        /*0050*/                   ISETP.GE.AND P0, PT, R7, R8, PT ;
+        /*0060*/              @!P0 BRA `(.L_x_0) ;
+        /*0070*/                   EXIT ;
+"""
+
+
+def test_layout_constants_are_read_from_the_sources():
+    """Every layout constant the census names is found in csrc/: R rows
+    per thread divides the symmetric block's four warps, L lanes per
+    pedestrian divides a warp."""
+    got = sass_census.layout_constants(ROOT)
+    assert set(got) == {k[5] for k in sass_census.KERNELS}
+    assert got["kSymRows"] in (1, 2, 4)
+    assert got["kSymRowsCut"] in (1, 2, 4)
+    assert 32 % got["kEnvLanes"] == 0
+
+
+@pytest.mark.parametrize("demangled, want", [
+    ("void (anonymous namespace)::env_force_kernel<(bool)0, "
+     "((anonymous namespace)::Walk)1, ((anonymous namespace)::Geom)0>"
+     "(const float *)", "env_force_kernel<false, 1, 0>(const float *)"),
+    ("void <unnamed>::pair_force_sym_kernel<(int)2, <unnamed>::Moussaid>"
+     "(int)", "pair_force_sym_kernel<2, Moussaid>(int)"),
+])
+def test_normalize(demangled, want):
+    assert sass_census.normalize(demangled) == want
+
+
+def test_loop_census_counts_one_trip_per_marker_pair():
+    funcs = sass_census.parse(LISTING)
+    insts = funcs["_Z6kernelv"]
+    assert insts[-2]["target"] == 0x10
+    got = sass_census.loop_census(insts, ("MUFU.EX2", None, None), 2,
+                                  {"pair_forces.cuh": {12}})
+    assert got["loop_instructions"] == 6
+    assert got["units_per_trip"] == 1
+    assert got["groups_per_unit"] == {"law": 0, "special": 3, "memory": 1,
+                                      "control": 2}
+    assert got["mufu_per_unit"] == 2
+
+
+def test_floor_ms():
+    """One unit of one instruction per lane of every scheduler for one
+    clock is the issue rate."""
+    assert sass_census.floor_ms(1.0, sass_census.ISSUE_RATE) == 1e3

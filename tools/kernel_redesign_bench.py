@@ -1,0 +1,227 @@
+#!/usr/bin/env python3
+"""Device times of the symmetric pair kernel and the environment kernel at
+the main paths' shapes, for one checkout of the port, on one card.
+
+The shapes, and the builders of their inputs, are ``chip_smoke.py``'s (of
+this checkout): phase 3 (config #1's seeded crowd, N = 10,000:
+``pair_force_sym``; the power law's form of phase 15), phase 9 (the 30 m
+cutoff on Hilbert-sorted seeded crowds: ``pair_force_sym_cutoff`` at
+10,000, ``pair_force_sym_compact`` at 50,000 and 1,000,000), phase 24
+(``pair_force_sym_dense`` on a 2,500 x 2,500 block, its cutoff form on the
+50k path's sorted 12,500 x 12,500 block), phase 6 (config #3 at 10,000:
+``env_exp`` on the borders, ``env_moussaid`` on the parked cars and the
+vehicles, ``env_moussaid_compact`` on the parked cars), phase 12
+(``env_exp_compact`` on the urban borders) and phase 18
+(``env_exp_analytic`` on config #3's analytic borders,
+``env_exp_analytic_compact`` on the urban ones with a table of width 4).
+Each time is the profiler's device time of the named kernel over 20
+launches (5 at 1M), ``chip_smoke.device_ms``; before them, phase 3's
+errors of ``pair_force_sym`` against its plain version.
+
+    python3 tools/kernel_redesign_bench.py [--root DIR] [--label NAME] \\
+        [--out FILE]
+
+``--root`` is the checkout whose package is imported and whose kernels are
+built (into its own ``build/``).  One JSON line per time goes to standard
+output (and to ``--out``).  To compare two commits, unpack each into a
+directory that ``.gitignore`` lists and run the tool on each in one call on
+the card, in turns (parent, change, change, parent); to compare a layout
+constant (``kSymRows``, ``kSymRowsCut`` in ``csrc/pair_forces.cu``,
+``kEnvLanes`` in ``csrc/env_forces.cu``), edit it in such a copy.
+"""
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent.parent
+N = 10_000
+CUTOFF_M = 30.0
+#: (N, seed, reps) of the cutoff cases, phase 9's crowds
+CUT_CASES = ((N, 11, 20), (50_000, 11, 20), (1_000_000, 13, 5))
+CUT_BLOCK_N = 50_000
+
+
+def smoke():
+    """This checkout's ``chip_smoke`` module (its case builders and
+    ``device_ms``), whichever checkout ``--root`` names."""
+    if "chip_smoke" not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            "chip_smoke", HERE / "chip_smoke.py")
+        module = importlib.util.module_from_spec(spec)
+        sys.modules["chip_smoke"] = module
+        spec.loader.exec_module(module)
+    return sys.modules["chip_smoke"]
+
+
+def sym_cases(dev):
+    """(name, call, kernel name filter, reps) of the symmetric kernel."""
+    import numpy as np
+    import shard_cases as sc
+    from carla_social_force_model_tpu_torch.models.params import (
+        MoussaidParams, PowerLawParams, moussaid_vector)
+    from carla_social_force_model_tpu_torch.ops import cuda_forces, pair_grid
+    cs = smoke()
+    prm = moussaid_vector(MoussaidParams(), dev)
+    planes = cs.to_planes(*cs.seeded_crowd(N, 7, float(np.sqrt(N))), dev)
+    pl_prm = cuda_forces.law_vector("powerlaw", PowerLawParams(), dev)
+    out = [("sym 10k", lambda: cuda_forces.pair_force_sym(*planes, prm),
+            "pair_force_sym_kernel", 20),
+           ("sym powerlaw 10k", lambda: cuda_forces.pair_force_sym(
+               *planes, pl_prm, law="powerlaw"), "pair_force_sym_kernel", 20)]
+    for n, seed, reps in CUT_CASES:
+        sp = cs.sorted_crowd(n, seed, dev)
+        grid = pair_grid.cutoff_grid(sp[0], sp[1], sp[5], CUTOFF_M,
+                                     symmetric=True)
+        out.append((f"{grid.form} N={n}", lambda sp=sp, g=grid:
+                    cuda_forces.pair_force_cutoff(*sp, prm, g),
+                    "pair_force_sym_kernel", reps))
+    k = N // 4
+    pl = sc.shard_planes(N, 28, dev, n_shards=4)
+    rows, blk = sc.split(pl, 0, k), sc.split(pl, k, 2 * k)
+    out.append((f"sym_dense {k} x {k}",
+                lambda rows=rows, blk=blk: cuda_forces.pair_force_sym_dense(
+                    *rows[:6], prm, tuple(blk[:6]), col_offset=k),
+                "pair_force_sym_dense_kernel", 20))
+    kb = CUT_BLOCK_N // 4
+    pl = sc.shard_planes(CUT_BLOCK_N, 29, dev, n_shards=4, sort=True)
+    rows, blk = sc.split(pl, 0, kb), sc.split(pl, kb, 2 * kb)
+    grid = pair_grid.block_grid(
+        pair_grid.box_planes(rows[0], rows[1], rows[5], pair_grid.SYM_TILE),
+        pair_grid.box_planes(blk[0], blk[1], blk[5], pair_grid.SYM_TILE),
+        CUTOFF_M)
+    out.append((f"sym_dense_cutoff {kb} x {kb}", lambda: cuda_forces.
+                pair_force_sym_dense(*rows[:6], prm, tuple(blk[:6]),
+                                     col_offset=kb, grid=grid),
+                "pair_force_sym_dense_kernel", 20))
+    return out
+
+
+def sym_errors(dev):
+    """Phase 3's checks of ``pair_force_sym`` against its plain version:
+    {case: (max abs err, max err / (1 + |f|))} for each epsilon and radius
+    mode on config #1's seeded crowd."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from carla_social_force_model_tpu_torch.models.params import (
+        MoussaidParams, moussaid_vector)
+    from carla_social_force_model_tpu_torch.ops import cuda_forces, forces
+    cs = smoke()
+    planes = cs.to_planes(*cs.seeded_crowd(N, 7, float(np.sqrt(N))), dev)
+    out = {}
+    for eps, use_radius in ((0.005, False), (0.005, True), (0.0, False),
+                            (0.0, True)):
+        p = dataclasses.replace(MoussaidParams(), epsilon=eps)
+        want = torch.stack(forces.pedestrian_force(*planes, p,
+                                                   use_ped_radius=use_radius))
+        got = torch.stack(cuda_forces.pair_force_sym(
+            *planes, moussaid_vector(p, dev), use_radius=use_radius))
+        err = (got - want).abs()
+        out[f"sym 10k eps={eps} use_radius={use_radius}"] = (
+            err.max().item(), (err / (1.0 + want.abs())).max().item())
+    return out
+
+
+def env_cases(dev):
+    """(name, call, kernel name filter, reps) of the environment kernel."""
+    from orca_cases import feed_scene
+    from carla_social_force_model_tpu_torch.api.synthetic import urban_bundle
+    from carla_social_force_model_tpu_torch.models import stepper
+    from carla_social_force_model_tpu_torch.models.spawn import apply_spawn
+    from carla_social_force_model_tpu_torch.ops import cuda_env, env_grid
+    cs = smoke()
+
+    def table(pl, seg, max_surv):
+        rows = seg.x if hasattr(seg, "x") else seg.ax
+        _, group, ms = env_grid.env_gate(seg.num_segments, rows.shape[1],
+                                         True, max_surv)
+        return env_grid.env_grid(pl[0], pl[1], pl[5], seg,
+                                 cuda_env.filter_r2(seg), group, ms)
+
+    scene, params, _, _, _, pl, (dyn, dvel, dact) = cs.config3_env_inputs(
+        dev)
+    px, py, vx, vy, rad, alive = pl
+    b, so = params.border, params.static_obstacle
+    cars, cvel = scene.static_obstacles_seg, scene.static_obstacle_vel
+    cars_grid = table(pl, cars, 0)
+    ascene, _, apl = feed_scene(N, dev)
+    out = [
+        ("env_exp borders", lambda: cuda_env.env_exp(
+            px, py, rad, alive, scene.borders_seg, b.a, b.b), 20),
+        ("env_moussaid parked cars", lambda: cuda_env.env_moussaid(
+            px, py, vx, vy, rad, alive, cars, cvel, so), 20),
+        ("env_moussaid vehicles", lambda: cuda_env.env_moussaid(
+            px, py, vx, vy, rad, alive, dyn, dvel, params.dynamic_obstacle,
+            active=dact), 20),
+        ("env_moussaid_compact parked cars", lambda: cuda_env.
+         env_moussaid_compact(px, py, vx, vy, rad, alive, cars, cvel, so,
+                              cars_grid), 20),
+        ("env_exp_analytic borders", lambda: cuda_env.env_exp_analytic(
+            apl[0], apl[1], apl[4], apl[5], ascene.borders_geom, b.a, b.b),
+         20)]
+    uscene, uparams, _, ustate = urban_bundle(N, num_steps_hint=1_000,
+                                              device=dev)
+    uscene = stepper.prepare_scene(uscene, analytic=True)
+    upl, _ = cs.sorted_env_state(apply_spawn(ustate, uscene.spawn, 0), 21)
+    ub = uparams.border
+    ugrid = table(upl, uscene.borders_seg, 0)
+    ageom = uscene.borders_geom
+    agrid = table(upl, ageom, 4)
+    out += [
+        ("env_exp_compact urban borders", lambda: cuda_env.env_exp_compact(
+            upl[0], upl[1], upl[4], upl[5], uscene.borders_seg, ub.a, ub.b,
+            ugrid), 20),
+        ("env_exp_analytic_compact urban borders", lambda: cuda_env.
+         env_exp_analytic_compact(upl[0], upl[1], upl[4], upl[5], ageom,
+                                  ub.a, ub.b, agrid), 20)]
+    return [(name, fn, "env_force_kernel", reps) for name, fn, reps in out]
+
+
+def run(cases, label, card, sink):
+    device_ms = smoke().device_ms
+    for name, fn, kernel, reps in cases:
+        ms = device_ms(fn, kernel, reps=reps)
+        line = json.dumps({"root": label, "case": name, "ms": ms,
+                           "card": card})
+        print(line, flush=True)
+        sink.append(line)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
+    ap.add_argument("--root", type=Path, default=HERE)
+    ap.add_argument("--label", default="change")
+    ap.add_argument("--out", type=Path, default=None)
+    args = ap.parse_args()
+    root = args.root.resolve()
+    sys.path[:0] = [str(root), str(root / "tests")]
+    import torch
+    if not torch.cuda.is_available():
+        print("no CUDA card", file=sys.stderr)
+        return 1
+    from carla_social_force_model_tpu_torch.utils import cuda_build
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    dev = torch.device("cuda", 0)
+    cuda_build.load_kernels()
+    lines: list[str] = []
+    for case, (err, rel) in sym_errors(dev).items():
+        lines.append(json.dumps({"root": args.label, "case": case,
+                                 "max_abs_err": err, "max_rel_err": rel}))
+        print(lines[-1], flush=True)
+    run(sym_cases(dev) + env_cases(dev), args.label, card, lines)
+    if args.out is not None:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        with args.out.open("a") as f:
+            f.write("".join(line + "\n" for line in lines))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

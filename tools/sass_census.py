@@ -1,0 +1,398 @@
+#!/usr/bin/env python3
+"""SASS census of the inner loops of the port's pair and environment
+kernels, and the issue-rate floor it gives.
+
+Builds the kernel library (``utils/cuda_build.py``, compiled with
+``-lineinfo``), extracts its cubin with ``cuobjdump -xelf``, disassembles
+it with ``nvdisasm -g`` (each instruction with its source line) and, for
+each kernel of ``KERNELS``, finds the innermost loop (a backward branch)
+that holds the kernel's per-unit marker: the two ``expf`` of a Moussaid
+pair (``MUFU.EX2``), the one ``expf`` of a power-law pair, the two
+products of the squared distance of a scanned point (``sq_norm_rn``).  The
+loop's instructions over the units one trip covers give the instructions
+per pair (or per scanned point), split into four groups:
+
+* ``law``: the law's f32 arithmetic;
+* ``special``: every ``MUFU`` and every instruction whose source line is a
+  special-function call site (``atan2f``, the division, ``expf``,
+  ``rsqrtf``, ``__expf``; ``SPECIAL_LINES``);
+* ``memory``: shared and global loads and stores, shuffles, votes and
+  warp or block barriers;
+* ``control``: compares, selects, predicates, integer index and loop
+  arithmetic, branches.
+
+The issue-rate floor is instructions x units / (132 SMs x 4 schedulers x
+32 lanes x clock): one warp instruction per scheduler per clock, at the
+1,980 MHz SM clock of an H100 SXM.
+
+Run on a machine with the CUDA toolkit (nvcc, cuobjdump, nvdisasm,
+cu++filt under /usr/local/cuda/bin):
+
+    python3 tools/sass_census.py [--out DIR]
+
+It prints one JSON object per kernel; with ``--out`` it also writes each
+loop's disassembly there.  ``chip_smoke.py`` phase 2 imports
+:func:`census` for the same numbers.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+SMS, SCHEDULERS, LANES, CLOCK_HZ = 132, 4, 32, 1.98e9
+#: thread instructions the card issues per second at most
+ISSUE_RATE = SMS * SCHEDULERS * LANES * CLOCK_HZ
+
+#: (label, demangled-name prefix after normalize(), marker, markers per
+#: unit, unit, layout constant): the marker is (opcode prefix, source file
+#: suffix or None, source line or None); a trip of the loop covers (marker
+#: count / markers per unit) units; the layout constant of csrc/ is the
+#: kernel's rows per thread (R) or lanes per pedestrian (L)
+KERNELS = (
+    ("pair_force_sym<kTriangle, Moussaid>",
+     "pair_force_sym_kernel<0, Moussaid", ("MUFU.EX2", None, None), 2,
+     "pair", "kSymRows"),
+    ("pair_force_sym<kTriangleBox, Moussaid>",
+     "pair_force_sym_kernel<1, Moussaid", ("MUFU.EX2", None, None), 2,
+     "pair", "kSymRowsCut"),
+    ("pair_force_sym<kSymTable, Moussaid>",
+     "pair_force_sym_kernel<2, Moussaid", ("MUFU.EX2", None, None), 2,
+     "pair", "kSymRowsCut"),
+    ("pair_force_sym<kTriangle, PowerLaw>",
+     "pair_force_sym_kernel<0, PowerLaw", ("MUFU.EX2", None, None), 1,
+     "pair", "kSymRows"),
+    ("pair_force_sym<kTriangleBox, PowerLaw>",
+     "pair_force_sym_kernel<1, PowerLaw", ("MUFU.EX2", None, None), 1,
+     "pair", "kSymRowsCut"),
+    ("pair_force_sym<kSymTable, PowerLaw>",
+     "pair_force_sym_kernel<2, PowerLaw", ("MUFU.EX2", None, None), 1,
+     "pair", "kSymRowsCut"),
+    ("pair_force_sym_dense<false, Moussaid>",
+     "pair_force_sym_dense_kernel<false, Moussaid", ("MUFU.EX2", None, None),
+     2, "pair", "kSymRows"),
+    ("pair_force_sym_dense<true, Moussaid>",
+     "pair_force_sym_dense_kernel<true, Moussaid", ("MUFU.EX2", None, None),
+     2, "pair", "kSymRowsCut"),
+    ("env_force<exp, kAllSections, kSampled>",
+     "env_force_kernel<false, 0, 0", ("FMUL", "pair_forces.cuh", None), 2,
+     "point", "kEnvLanes"),
+    ("env_force<moussaid, kAllSections, kSampled>",
+     "env_force_kernel<true, 0, 0", ("FMUL", "pair_forces.cuh", None), 2,
+     "point", "kEnvLanes"),
+    ("env_force<exp, kAllSections, kAnalytic>",
+     "env_force_kernel<false, 0, 1", ("FMUL", "pair_forces.cuh", None), 2,
+     "segment", "kEnvLanes"),
+    ("env_force<exp, kTable, kSampled>",
+     "env_force_kernel<false, 1, 0", ("FMUL", "pair_forces.cuh", None), 2,
+     "point", "kEnvLanes"),
+    ("env_force<moussaid, kTable, kSampled>",
+     "env_force_kernel<true, 1, 0", ("FMUL", "pair_forces.cuh", None), 2,
+     "point", "kEnvLanes"),
+    ("env_force<exp, kTable, kAnalytic>",
+     "env_force_kernel<false, 1, 1", ("FMUL", "pair_forces.cuh", None), 2,
+     "segment", "kEnvLanes"),
+)
+
+#: the special-function call sites: (file suffix, function whose body
+#: holds them).  Their lines are looked up in the source, so that they
+#: follow edits: every line of that function which calls one of
+#: SPECIAL_CALLS counts.
+SPECIAL_SOURCES = (("pair_forces.cuh", "sfm_exp"),
+                   ("pair_forces.cuh", "moussaid_pair"),
+                   ("pair_forces.cuh", "powerlaw_pair"),
+                   ("env_forces.cuh", "exp_term"))
+SPECIAL_CALLS = re.compile(
+    r"atan2f|expf|__expf|sfm_exp|SFM_RSQRT|rsqrtf|SFM_DIV_RN|__fdividef|"
+    r"(?<![A-Za-z_])-?\s*d\s*/|/\s*\(|SFM_SQRT_RN")
+
+#: the mangled-name tags of the sources whose kernels KERNELS lists
+SOURCES = (b"_pair_forces_cu_", b"_env_forces_cu_")
+
+MEMORY_OPS = ("LDS", "STS", "LDG", "STG", "LD.", "ST.", "LDC", "ATOM",
+              "RED", "SHFL", "VOTE", "WARPSYNC", "BAR", "MEMBAR",
+              "SYNCS", "ULDC", "LDSM")
+CONTROL_OPS = ("ISETP", "FSETP", "DSETP", "PLOP3", "PSETP", "SEL", "FSEL",
+               "BRA", "BRX", "JMP", "CALL", "RET", "EXIT", "BSSY", "BSYNC",
+               "IADD", "IMAD", "IMUL", "LEA", "LOP", "SHF", "SHL", "SHR",
+               "MOV", "UMOV", "UIADD", "ULOP", "USHF", "ULEA", "UISETP",
+               "USEL", "S2R", "S2UR", "CS2R", "P2R", "R2P", "I2F", "F2I",
+               "IABS", "IMNMX", "POPC", "FLO", "BREV", "PRMT", "NOP",
+               "YIELD", "ISCADD", "VIMNMX", "R2UR", "UPRMT", "FCHK",
+               "PLOP", "ULDC", "BMSK", "SGXT", "WARPGROUP")
+
+
+def normalize(name: str) -> str:
+    """A demangled kernel name without its return type, namespaces or
+    casts: ``env_force_kernel<false, 0, 0>(...)``."""
+    name = re.sub(r"^void\s+", "", name)
+    name = name.replace("(anonymous namespace)::", "").replace(
+        "<unnamed>::", "")
+    name = name.replace("(bool)0", "false").replace("(bool)1", "true")
+    name = re.sub(r"\((?:[A-Za-z_]\w*::)*[A-Za-z_]\w*\)(?=-?\d)", "", name)
+    return name
+
+
+def special_lines(root: Path = ROOT) -> dict[str, set[int]]:
+    """{file name: source lines that call a special function} from
+    SPECIAL_SOURCES, in the checkout at ``root``."""
+    out: dict[str, set[int]] = {}
+    csrc = root / "carla_social_force_model_tpu_torch" / "csrc"
+    for fname, func in SPECIAL_SOURCES:
+        lines = (csrc / fname).read_text().splitlines()
+        start = next((i for i, ln in enumerate(lines)
+                      if re.search(rf"\b{func}\s*\(", ln)
+                      and not ln.strip().startswith("//")), None)
+        if start is None:   # an older checkout without this function
+            continue
+        depth, seen = 0, False
+        for i in range(start, len(lines)):
+            code = lines[i].split("//")[0]
+            if seen and SPECIAL_CALLS.search(code):
+                out.setdefault(fname, set()).add(i + 1)
+            depth += code.count("{") - code.count("}")
+            seen = seen or "{" in code
+            if seen and depth == 0:
+                break
+    return out
+
+
+def layout_constants(root: Path = ROOT) -> dict[str, int]:
+    """{name: value} of the layout constants KERNELS names, read from the
+    ``constexpr int`` lines of csrc/ in the checkout at ``root``."""
+    wanted = {k[5] for k in KERNELS}
+    out: dict[str, int] = {}
+    for src in sorted((root / "carla_social_force_model_tpu_torch"
+                       / "csrc").glob("*.cu")):
+        for name, value in re.findall(r"constexpr int (\w+) = (\d+);",
+                                      src.read_text()):
+            if name in wanted:
+                out[name] = int(value)
+    return out
+
+
+def tool(name: str) -> str:
+    found = shutil.which(name)
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / name).is_file():
+            return str(Path(root) / "bin" / name)
+    raise RuntimeError(f"{name} not found (PATH, $CUDA_HOME, /usr/local/cuda)")
+
+
+def demangle(names: list[str]) -> dict[str, str]:
+    for prog in ("cu++filt", "c++filt"):
+        try:
+            path = tool(prog)
+        except RuntimeError:
+            continue
+        out = subprocess.run([path], input="\n".join(names),
+                             capture_output=True, text=True, check=True)
+        return dict(zip(names, out.stdout.splitlines()))
+    raise RuntimeError("no demangler (cu++filt, c++filt)")
+
+
+INST = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+LINE = re.compile(r'//## File "([^"]*)", line (\d+)')
+FUNC = re.compile(r"^\s*\.section\s+\.text\.([^,\s]+)")
+TARGET = re.compile(r"\b(?:BRA|BRX)\b[^;]*?(?:0x|`\(\.L_x_)([0-9a-fA-F]+)")
+LABEL = re.compile(r"^\s*\.L_x_(\d+):")
+
+
+def parse(text: str) -> dict[str, list[dict]]:
+    """{mangled kernel name: [instruction dicts (addr, text, op, file,
+    line)]} from the output of ``nvdisasm -g``; branch targets resolved to
+    addresses."""
+    funcs: dict[str, list[dict]] = {}
+    labels: dict[str, dict[str, int]] = {}
+    cur, where, pending = None, (None, None), []
+    for raw in text.splitlines():
+        m = FUNC.match(raw)
+        if m:
+            cur = m.group(1)
+            funcs.setdefault(cur, [])
+            labels.setdefault(cur, {})
+            where = (None, None)
+            continue
+        if cur is None:
+            continue
+        m = LINE.search(raw)
+        if m:
+            where = (os.path.basename(m.group(1)), int(m.group(2)))
+            continue
+        m = LABEL.match(raw)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = INST.search(raw)
+        if m:
+            addr = int(m.group(1), 16)
+            for lab in pending:
+                labels[cur][lab] = addr
+            pending = []
+            body = m.group(2).strip()
+            op = re.sub(r"^@!?U?P[T0-9]+\s+", "", body).split()[0]
+            funcs[cur].append(dict(addr=addr, text=body, op=op,
+                                   file=where[0], line=where[1]))
+    for name, insts in funcs.items():
+        for ins in insts:
+            if not ins["op"].startswith(("BRA", "BRX")):
+                continue
+            m = re.search(r"`\(\.L_x_(\d+)\)", ins["text"])
+            if m and m.group(1) in labels[name]:
+                ins["target"] = labels[name][m.group(1)]
+                continue
+            m = re.search(r"\b0x([0-9a-f]+)\b", ins["text"])
+            if m:
+                ins["target"] = int(m.group(1), 16)
+    return funcs
+
+
+def group_of(ins: dict, special: dict[str, set[int]]) -> str:
+    op = ins["op"]
+    if op.startswith("MUFU") or ins["line"] in special.get(ins["file"], ()):
+        return "special"
+    if op.startswith(MEMORY_OPS):
+        return "memory"
+    if op.startswith(CONTROL_OPS):
+        return "control"
+    return "law"
+
+
+def loop_census(insts: list[dict], marker, per_unit: int,
+                special: dict[str, set[int]]) -> dict | None:
+    """The innermost loop holding the marker: its instructions per unit,
+    by group."""
+    m_op, m_file, m_line = marker
+
+    def is_marker(ins):
+        return (ins["op"].startswith(m_op)
+                and (m_file is None or ins["file"] == m_file)
+                and (m_line is None or ins["line"] == m_line))
+
+    loops = []
+    for i, ins in enumerate(insts):
+        tgt = ins.get("target")
+        if tgt is None or tgt > ins["addr"]:
+            continue
+        lo = next((j for j, x in enumerate(insts) if x["addr"] >= tgt), None)
+        if lo is None:
+            continue
+        marks = sum(is_marker(x) for x in insts[lo:i + 1])
+        if marks >= per_unit:
+            loops.append((lo, i, marks))
+    # innermost loops (no other marked loop inside), then the one whose
+    # trip covers the most units: the unrolled body, not its remainder
+    inner = [a for a in loops
+             if not any(b != a and b[0] >= a[0] and b[1] <= a[1]
+                        for b in loops)]
+    if not inner:
+        return None
+    lo, hi, marks = max(inner, key=lambda a: (a[2], a[0] - a[1]))
+    body = insts[lo:hi + 1]
+    size = len(body)
+    units = marks / per_unit
+    groups = {"law": 0, "special": 0, "memory": 0, "control": 0}
+    for ins in body:
+        groups[group_of(ins, special)] += 1
+    return {"loop_instructions": size, "units_per_trip": units,
+            "per_unit": size / units,
+            "groups_per_unit": {k: v / units for k, v in groups.items()},
+            "mufu_per_unit": sum(x["op"].startswith("MUFU")
+                                 for x in body) / units,
+            "body": [f"{x['addr']:05x} {x['text']}  // {x['file']}:"
+                     f"{x['line']}" for x in body]}
+
+
+def census(library: Path, out_dir: Path | None = None,
+           root: Path = ROOT) -> dict[str, dict]:
+    """{label: loop census} of every kernel of KERNELS found in the
+    built ``library`` of the checkout at ``root`` (``None`` where a kernel
+    or its loop is missing).  ``out_dir``: where each loop's disassembly,
+    the whole disassembly and the kernel names go."""
+    work = Path(tempfile.mkdtemp(prefix="sass_", dir=library.parent))
+    if out_dir is not None:
+        out_dir.mkdir(parents=True, exist_ok=True)
+    try:
+        subprocess.run([tool("cuobjdump"), "-xelf", "all", str(library)],
+                       cwd=work, capture_output=True, text=True, check=True)
+        cubins = sorted(work.glob("*.cubin"))
+        if not cubins:
+            raise RuntimeError(f"cuobjdump found no cubin in {library}")
+        # only the objects of SOURCES, disassembled in parallel
+        cubins = [c for c in cubins
+                  if any(tag in c.read_bytes() for tag in SOURCES)]
+        procs = [subprocess.Popen([tool("nvdisasm"), "-g", str(c)],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for c in cubins]
+        funcs = {}
+        for n, proc in enumerate(procs):
+            text, err = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvdisasm failed on {cubins[n].name}: "
+                                   f"{err}")
+            if out_dir is not None:
+                (out_dir / f"all_{n}.sass").write_text(text)
+            funcs.update(parse(text))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    names = demangle(list(funcs))
+    if out_dir is not None:
+        (out_dir / "names.txt").write_text(
+            "".join(f"{m}\t{d}\n" for m, d in names.items()))
+    special = special_lines(root)
+    layout = layout_constants(root)
+    result = {}
+    for label, prefix, marker, per_unit, unit, const in KERNELS:
+        hits = [m for m, d in names.items()
+                if normalize(d).startswith(prefix)]
+        if not hits:
+            result[label] = None
+            continue
+        got = loop_census(funcs[hits[0]], marker, per_unit, special)
+        if got is not None:
+            got["unit"] = unit
+            got["layout"] = (f"{'L' if const == 'kEnvLanes' else 'R'} = "
+                             f"{layout.get(const, 'not set')}")
+            got["kernel"] = normalize(names[hits[0]]).split("(")[0]
+            if out_dir is not None:
+                out_dir.mkdir(parents=True, exist_ok=True)
+                safe = re.sub(r"[^A-Za-z0-9]+", "_", label).strip("_")
+                (out_dir / f"{safe}.sass").write_text("\n".join(got["body"]))
+            got.pop("body")
+        result[label] = got
+    return result
+
+
+def floor_ms(per_unit: float, units: float) -> float:
+    """Issue-rate floor in ms of ``units`` units at ``per_unit`` thread
+    instructions each."""
+    return 1e3 * per_unit * units / ISSUE_RATE
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", type=Path, default=None,
+                    help="directory for each loop's disassembly")
+    ap.add_argument("--root", type=Path, default=ROOT,
+                    help="the checkout whose kernels to build and count")
+    args = ap.parse_args()
+    sys.path.insert(0, str(args.root.resolve()))
+    from carla_social_force_model_tpu_torch.utils import cuda_build
+    lib = cuda_build.build_kernels()
+    for label, got in census(lib, args.out, args.root.resolve()).items():
+        print(json.dumps({"kernel": label, "census": got}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
