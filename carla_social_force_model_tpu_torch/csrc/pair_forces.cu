@@ -63,31 +63,42 @@
 // take 106 -- atan2f alone 65, and it stays: sign(theta) is a hard gate --
 // while the bound counts 85 operations as if every one were an FMA, which
 // the per-operation rounding up to cross and dot forbids.  At N = 10,000
-// that floor is about 0.25 ms against the 0.072 ms bound (PERF.md).
+// that floor is about 0.25 ms against the 0.072 ms bound, and the dense
+// walk's (about 168 per pair, R = 2) 0.50 ms for its 1e8 ordered pairs
+// (PERF.md).
 //
 // What the design does about that.  Every block stages its column tile in
-// shared memory once and each thread keeps its row sums in registers, so
-// the only device-memory traffic is O(N) per tile.  The symmetric walks
-// (grid: the upper triangle of 128 x 128 tile pairs, or the table's
-// slots) give each thread R rows (kSymRows; kSymRowsCut in the cutoff
-// walks, SymLayout): each column value read from shared memory serves R
-// pairs and the column's reaction is summed over them in registers before
-// one shared update, so the shared-memory operations and __syncwarp per
-// pair fall from 10 to under 3.  The cutoff walks cull twice inside a
-// surviving tile pair, warp-uniformly: a (32 rows, 32 columns) chunk pair
-// whose alive boxes lie beyond the cutoff is skipped, and a column step
-// runs the law only when some lane's pair is within it (a ballot); with
-// R = 1 there, that took the 1M table from 8.0 to about 4.6 ms.  Past the hard
-// gates the symmetric walks take the Moussaid law's fast tail
-// (pair_forces.cuh: both exponentials as __expf), which took the 10k
-// triangle from 0.37 to 0.35 ms.  The dense kernels give each row 8
-// threads so that N = 10k still yields 313 blocks of 256 threads, and keep
-// the exact law: their time is set by their walk (1.0 ms at 10k for twice
-// the symmetric walk's pairs, three times its time), whose redesign comes
-// next (ROADMAP) and will measure the fast tail there.  Parameters are
-// read through a device pointer, and the compacted forms decide an
-// overflowing row on the device, so a step never synchronises with the
-// host.  The eager launches (CUDA graphs) are later work.
+// shared memory once and each thread keeps its rows' sums in registers, so
+// the only device-memory traffic is O(N) per tile.  Both families give each
+// thread R rows (lane + 32 r of its warp's row group): each column value
+// read from shared memory serves R pairs.  The symmetric walks (grid: the
+// upper triangle of 128 x 128 tile pairs, or the table's slots; R =
+// kSymRows, kSymRowsCut in the cutoff walks, SymLayout) also sum each
+// column's reaction over the R rows in registers before one shared update.
+// The dense walks (R = kDenseRows) stage 256-column tiles as one float4
+// (x, y, u, v) and one float2 (radius, alive) per column, which all 32
+// lanes of a warp read at once (a broadcast); the block's eight warps
+// share each staged tile, one 32-column chunk each (pair_laws.cuh
+// rows_vs_chunk, which the ring shares).  Where the rows give fewer blocks
+// than the card holds, a launch splits each row's columns over up to
+// kMaxSplit blocks of one thread block cluster, which fold their sums in a
+// fixed order through distributed shared memory (dense_splits: a function
+// of the shapes only).  The cutoff walks cull twice inside a tile,
+// warp-uniformly: a (32 rows, 32 columns) chunk pair whose alive boxes lie
+// beyond the cutoff is skipped, and a column step runs the law only when
+// some lane's pair is within it (a ballot).  They test their candidate
+// tiles' boxes together, one per thread, and walk the compacted hit list:
+// every tile of the block's parts (the box-skip walk and an overflowing
+// table row) or the tiles its table row lists.  A block holds 32 rows, so
+// the four blocks of a 128-row table row each stage the listed tiles their
+// own box reaches: one 128-row block per table row, staging each tile
+// once, measured slower (its barriers wait for the warp with the most
+// pairs left after culling).  Past the hard gates every walk takes the
+// Moussaid law's fast tail (pair_forces.cuh: both exponentials as
+// __expf).
+// Parameters are read through a device pointer, and the compacted forms
+// decide an overflowing row on the device, so a step never synchronises
+// with the host.  The eager launches (CUDA graphs) are later work.
 //
 // Where the TPU design does not carry over.  The TPU walks its grid in order
 // and kept one (1, n_cols) column accumulator resident in VMEM for the whole
@@ -98,17 +109,18 @@
 // column per block; rows need atomicAdd too, because every tile pair of a row
 // tile is its own block.  The order of those float additions varies from run
 // to run, so the symmetric result matches the plain version only up to f32
-// summation order.  The dense kernels use no atomics: each row's eight
-// partial sums are combined in a fixed order, so their results are
-// deterministic, and the compacted kernel equals the dense cutoff kernel
-// bitwise: it stages the same tiles in the same ascending order (each block
-// re-tests every listed tile against its own 32-row box, the test the dense
-// cutoff kernel applies to every tile) and sums them the same way.  The
-// TPU's compacted grid fell back to the whole dense grid with a lax.cond when
-// any row overflowed its table; here only the overflowing row walks every
-// column tile with the box test.  The TPU's 1 MB SMEM bounded its static
-// triangle table and survivor table; here the triangle is decoded from the
-// block index and the table lives in device memory.
+// summation order.  The dense kernels use no atomics: each row's sum is
+// taken in one fixed order (over its column parts, the chunk slots, the
+// part's tiles, the chunk's columns: pair_force_dense_kernel), the same in
+// every walk whatever its layout, so their results are deterministic and
+// the compacted kernel equals the dense cutoff kernel bitwise: a tile or
+// chunk one walk skips holds no pair within the cutoff, whose terms are
+// exactly +0 in a walk that evaluates them.  The TPU's compacted grid fell
+// back to the whole dense grid with a lax.cond when any row overflowed its
+// table; here only the overflowing row walks its tiles with the box test.
+// The TPU's 1 MB SMEM bounded its static triangle table and survivor
+// table; here the triangle is decoded from the block index and the table
+// lives in device memory.
 //
 // Liveness is an explicit mask (alive, one byte per agent): dead agents give
 // and receive nothing, and dead rows come out exactly 0.  The JAX kernels
@@ -120,8 +132,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <cooperative_groups.h>
+
 #include "block_box.cuh"
 #include "pair_laws.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -133,11 +149,24 @@ constexpr int kSymWarps = kSymTile / 32;  // threads per block: kSymTile
 // faster (PERF.md: R = 1, 2 and 4 measured)
 constexpr int kSymRows = 4;
 constexpr int kSymRowsCut = 1;
-constexpr int kDenseRows = 32;  // rows per block
-constexpr int kDenseSplit = 8;  // threads per row
-constexpr int kDenseThreads = kDenseRows * kDenseSplit;  // == columns staged
-// a survivor-table row covers one 128-row tile: kTableBlocks dense blocks
-constexpr int kTableBlocks = kSymTile / kDenseRows;
+// The dense walks: a block of kDenseCols warps holds 32 * R rows, R =
+// kDenseRows per lane (lane + 32 r), and each warp walks kDenseChunks
+// 32-column chunks of every staged tile (PERF.md: R = 1, 2 and 4, 2 to 8
+// warps and 128-row table blocks measured).  Each row's columns fall into
+// at most kMaxSplit parts, which up to that many blocks of one cluster
+// share.  The launch bounds ask for 2,048 resident threads an SM, so at
+// most 32 registers a thread: the law spills some bytes to local memory,
+// which measured faster than fewer resident warps.  The dense walks take
+// the Moussaid law's fast tail too (pair_forces.cuh).
+constexpr int kDenseRows = 1;
+constexpr int kDenseCols = 8;
+constexpr int kDenseChunks = kTileChunks / kDenseCols;
+constexpr int kDenseThreads = 32 * kDenseCols;
+constexpr int kDenseBlockRows = 32 * kDenseRows;
+constexpr int kMaxSplit = 8;
+constexpr bool kDenseFastTail = true;
+static_assert(kSymTile % kDenseBlockRows == 0,
+              "a survivor-table row covers whole blocks");
 
 // how a dense-layout block chooses its column tiles
 enum DenseWalk { kAllTiles, kBoxSkip, kTable };
@@ -158,123 +187,228 @@ struct Planes {
   int off;
 };
 
+// The (128-row tile, block) pairs a launch of a walk aims for: the cutoff
+// walks' blocks are cheaper and uneven, so they want fewer splits.
+constexpr int dense_fill(int walk) { return walk == kAllTiles ? 640 : 120; }
+
+// Parts of a row's nct column tiles: part p is tiles [p * nct / P,
+// (p + 1) * nct / P), P = min(kMaxSplit, nct) -- a function of the column
+// count only.
+__host__ __device__ __forceinline__ int dense_parts(int nct) {
+  return nct < kMaxSplit ? (nct < 1 ? 1 : nct) : kMaxSplit;
+}
+
+// The blocks that share a row block's parts: the least power of two that
+// gives about dense_fill (128-row tile, block) pairs (so that they share
+// kMaxSplit parts evenly), at most one per part.  A function of the
+// launch's shapes only.
+template <int kWalk>
+int dense_splits(int n_rows, int n_cols) {
+  const long long row_tiles = (n_rows + kSymTile - 1) / kSymTile;
+  const int parts = dense_parts(n_cols / kColTile + (n_cols % kColTile != 0));
+  int s = 1;
+  while (s < parts && (long long)s * row_tiles < dense_fill(kWalk)) s *= 2;
+  return s < parts ? s : parts;
+}
+
+// The dense walks.  Block b holds row block b / S and parts [s * P / S,
+// (s + 1) * P / S) of its columns, s = b % S, walked in ascending tile
+// order.  Each row's sum is one fixed order of additions, whatever the
+// walk, R, kDenseCols or S: over the parts, of the sum over a tile's eight
+// 32-column chunk slots, of the slot's sum over the part's tiles, of the
+// chunk's 32 columns (each level a left fold from +0).  A tile or chunk a
+// walk skips holds no pair within the cutoff, whose terms are exactly +0
+// where a walk evaluates them, and adding +0 to a sum that started at +0
+// changes nothing: so the walks agree bitwise.  The S blocks of a row
+// block form one cluster and fold their parts' sums in order through
+// distributed shared memory.
 template <int kWalk, class Law>
-__global__ void __launch_bounds__(kDenseThreads)
+__global__ void __launch_bounds__(kDenseThreads, 2048 / kDenseThreads)
 pair_force_dense_kernel(Planes rows, Planes cols,
                         const float* __restrict__ prm, int use_radius,
                         const float* __restrict__ col_bb,
                         const int* __restrict__ surv,
                         const int* __restrict__ counts, int max_surv, float c2,
-                        float* __restrict__ fx, float* __restrict__ fy) {
-  __shared__ float sx[kDenseThreads], sy[kDenseThreads];
-  __shared__ float svx[kDenseThreads], svy[kDenseThreads], sr[kDenseThreads];
-  __shared__ uint8_t sa[kDenseThreads];
-  __shared__ float part_x[kDenseRows][kDenseSplit + 1];
-  __shared__ float part_y[kDenseRows][kDenseSplit + 1];
-  __shared__ float rbox[4];
+                        int n_split, float* __restrict__ fx,
+                        float* __restrict__ fy) {
+  constexpr int kR = kDenseRows;
+  constexpr bool kCut = kWalk != kAllTiles;
+  constexpr int kWarps = kDenseCols;
+  constexpr int kRows = kDenseBlockRows;
+  __shared__ ColTile tile;
+  __shared__ float slot_x[kTileChunks][kRows], slot_y[kTileChunks][kRows];
+  __shared__ float part_x[kMaxSplit][kRows], part_y[kMaxSplit][kRows];
+  __shared__ int list[kCut ? kDenseThreads : 1];
+  __shared__ int wcount[kWarps];
 
   const typename Law::Prm p = Law::load(prm);
   const int tid = threadIdx.x;
-  const int lrow = tid / kDenseSplit;
-  const int lane = tid % kDenseSplit;
-  const int i = blockIdx.x * kDenseRows + lrow;
+  const int warp = tid / 32;  // the column group
+  const int lane = tid % 32;
+  const int rb = blockIdx.x / n_split;
+  const int split = (int)(blockIdx.x % n_split);
   const int n = cols.n;
-  const bool row_in = i < rows.n;
-  const float xi = row_in ? rows.x[i] : 0.0f;
-  const float yi = row_in ? rows.y[i] : 0.0f;
-  const float ui = row_in ? rows.u[i] : 0.0f;  // the row slots: v_i, or e_i
-  const float vi = row_in ? rows.v[i] : 0.0f;
-  float ri = 0.0f;
-  if constexpr (Law::kRadius) ri = row_in ? rows.rad[i] : 0.0f;
-  const bool ai = row_in && rows.alive[i] != 0;
-  const int gi = rows.off + i;  // the row's global slot
-  const long long n_col_tiles = (n + kDenseThreads - 1) / kDenseThreads;
+  const int nct = n / kColTile + (n % kColTile != 0);
+  const int n_parts = dense_parts(nct);
+  const int p_lo = split * n_parts / n_split;
+  const int p_hi = (split + 1) * n_parts / n_split;
+  const int t0 = p_lo * nct / n_parts;  // this block's tiles
+  const int t1 = p_hi * nct / n_parts;
+  const int i_blk = rb * kRows;
 
-  if (kWalk != kAllTiles) {
-    // the box of the block's alive rows (warp 0, one row per lane)
-    if (tid < 32) {
-      const int r = blockIdx.x * kDenseRows + tid;
-      const bool a = r < rows.n && rows.alive[r] != 0;
-      float x0 = a ? rows.x[r] : INFINITY, x1 = a ? rows.x[r] : -INFINITY;
-      float y0 = a ? rows.y[r] : INFINITY, y1 = a ? rows.y[r] : -INFINITY;
+  RowSet<kR> rw;
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        x0 = fminf(x0, __shfl_xor_sync(0xffffffffu, x0, off));
-        x1 = fmaxf(x1, __shfl_xor_sync(0xffffffffu, x1, off));
-        y0 = fminf(y0, __shfl_xor_sync(0xffffffffu, y0, off));
-        y1 = fmaxf(y1, __shfl_xor_sync(0xffffffffu, y1, off));
-      }
-      if (tid == 0) {
-        rbox[0] = x0;
-        rbox[1] = x1;
-        rbox[2] = y0;
-        rbox[3] = y1;
-      }
-    }
-    __syncthreads();
+  for (int r = 0; r < kR; ++r) {
+    const int i = i_blk + lane + 32 * r;
+    const bool in = i < rows.n;
+    rw.template load<kCut>(r, in ? rows.x[i] : 0.0f, in ? rows.y[i] : 0.0f,
+                           in ? rows.u[i] : 0.0f, in ? rows.v[i] : 0.0f,
+                           (in && Law::kRadius) ? rows.rad[i] : 0.0f,
+                           in && rows.alive[i] != 0, rows.off + i);
+  }
+  for (int e = tid; e < kTileChunks * kRows; e += kDenseThreads) {
+    slot_x[e / kRows][e % kRows] = 0.0f;
+    slot_y[e / kRows][e % kRows] = 0.0f;
+  }
+  for (int e = tid; e < kMaxSplit * kRows; e += kDenseThreads) {
+    part_x[e / kRows][e % kRows] = 0.0f;
+    part_y[e / kRows][e % kRows] = 0.0f;
   }
 
-  float ax = 0.0f, ay = 0.0f;
-  // stage column tile t and add its pairs to this thread's row sum
-  auto run_tile = [&](long long t) {
-    const int c0 = (int)(t * kDenseThreads);
-    __syncthreads();  // the previous column tile is consumed
-    const int jt = c0 + tid;
-    const bool col_in = jt < n;
-    sx[tid] = col_in ? cols.x[jt] : 0.0f;
-    sy[tid] = col_in ? cols.y[jt] : 0.0f;
-    svx[tid] = col_in ? cols.u[jt] : 0.0f;
-    svy[tid] = col_in ? cols.v[jt] : 0.0f;
-    if constexpr (Law::kRadius) sr[tid] = col_in ? cols.rad[jt] : 0.0f;
-    sa[tid] = col_in ? cols.alive[jt] : 0;
+  // the sum of the current part's slots, into part_[x|y][part - p_lo]; the
+  // slots start again from 0 (the next tile's first barrier orders that
+  // before any warp adds)
+  int cur = -1;
+  auto flush = [&]() {
     __syncthreads();
-    const int cnt = min(kDenseThreads, n - c0);
-    const int g0 = cols.off + c0;
-    for (int k = lane; k < cnt; k += kDenseSplit) {
-      const float dx = sx[k] - xi;
-      const float dy = sy[k] - yi;
-      bool ok = ai && sa[k] != 0 && (g0 + k) != gi;
-      if (kWalk != kAllTiles) ok = ok && sq_norm_rn(dx, dy) <= c2;
-      float fxk, fyk;
-      Law::pair(dx, dy, ui, vi, svx[k], svy[k], ri,
-                Law::kRadius ? sr[k] : 0.0f, use_radius, ok, p, fxk, fyk);
-      ax += fxk;
-      ay += fyk;
+    for (int row = tid; row < kRows; row += kDenseThreads) {
+      float sx = slot_x[0][row], sy = slot_y[0][row];
+      slot_x[0][row] = 0.0f;
+      slot_y[0][row] = 0.0f;
+#pragma unroll
+      for (int q = 1; q < kTileChunks; ++q) {
+        sx += slot_x[q][row];
+        sy += slot_y[q][row];
+        slot_x[q][row] = 0.0f;
+        slot_y[q][row] = 0.0f;
+      }
+      part_x[cur - p_lo][row] = sx;
+      part_y[cur - p_lo][row] = sy;
     }
-  };
-  // block-uniform: rbox and the column boxes are the same for every thread
-  auto hits = [&](long long t) {
-    return box_hits(col_bb, n_col_tiles, t, rbox[0], rbox[1], rbox[2],
-                    rbox[3], c2);
   };
 
-  const long long trow = blockIdx.x / kTableBlocks;
-  if (kWalk == kTable && counts[trow] <= max_surv) {
-    // the row's surviving tiles, ascending (a superset of the tiles this
-    // block's own box hits: the table row's box contains it)
-    for (int s = 0; s < max_surv; ++s) {
-      const int t = surv[trow * max_surv + s];
-      if (t < 0) break;
-      if (hits(t)) run_tile(t);
+  // stage column tile t and add each of the column group's chunks to the
+  // rows' slots
+  auto run_tile = [&](int t) {
+    const int part = ((t + 1) * n_parts - 1) / nct;
+    if (part != cur) {  // block-uniform
+      if (cur >= 0) flush();
+      cur = part;
     }
+    const int j0 = (int)(t * kColTile);
+    __syncthreads();  // the previous tile is consumed
+    for (int c = tid; c < kColTile; c += kDenseThreads) {
+      const int j = j0 + c;
+      const bool in = j < n;
+      stage_column<kCut>(tile, c, in ? cols.x[j] : 0.0f,
+                         in ? cols.y[j] : 0.0f, in ? cols.u[j] : 0.0f,
+                         in ? cols.v[j] : 0.0f,
+                         (in && Law::kRadius) ? cols.rad[j] : 0.0f,
+                         in && cols.alive[j] != 0);
+    }
+    __syncthreads();
+#pragma unroll 1
+    for (int q = 0; q < kDenseChunks; ++q) {
+      const int chunk = warp * kDenseChunks + q;
+      const int jc = j0 + chunk * kChunk;
+      if (jc >= n) break;
+#pragma unroll
+      for (int r = 0; r < kR; ++r) rw.ax[r] = rw.ay[r] = 0.0f;
+      if (rows_vs_chunk<kCut, kDenseFastTail, Law, kR>(
+              rw, tile, chunk, min(kChunk, n - jc), cols.off + jc, p,
+              use_radius, c2)) {
+#pragma unroll
+        for (int r = 0; r < kR; ++r) {  // this warp's slot of these rows
+          slot_x[chunk][lane + 32 * r] += rw.ax[r];
+          slot_y[chunk][lane + 32 * r] += rw.ay[r];
+        }
+      }
+    }
+  };
+
+  if constexpr (kWalk == kAllTiles) {
+    for (int t = t0; t < t1; ++t) run_tile(t);
   } else {
-    // every column tile (an overflowing table row walks them all too)
-    for (long long t = 0; t < n_col_tiles; ++t)
-      if (kWalk == kAllTiles || hits(t)) run_tile(t);
-  }
-
-  part_x[lrow][lane] = ax;
-  part_y[lrow][lane] = ay;
-  __syncthreads();
-  if (lane == 0 && row_in) {
-    float sx_sum = 0.0f, sy_sum = 0.0f;
-    for (int s = 0; s < kDenseSplit; ++s) {  // fixed order: deterministic
-      sx_sum += part_x[lrow][s];
-      sy_sum += part_y[lrow][s];
+    // the block's box: its row sets' boxes (every warp holds them all)
+    float bx0 = INFINITY, bx1 = -INFINITY, by0 = INFINITY, by1 = -INFINITY;
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      bx0 = fminf(bx0, rw.box[r][0]);
+      bx1 = fmaxf(bx1, rw.box[r][1]);
+      by0 = fminf(by0, rw.box[r][2]);
+      by1 = fmaxf(by1, rw.box[r][3]);
     }
-    fx[i] = sx_sum;
-    fy[i] = sy_sum;
+    // the candidate tiles: the listed tiles of this block's parts in its
+    // 128-row survivor-table row, or, in the box-skip walk and for a table
+    // row that overflowed, every tile of its parts; those whose box the
+    // block's box reaches, tested kDenseThreads at a time, one per thread,
+    // and compacted in ascending order
+    const int trow = i_blk / kSymTile;
+    bool table = false;
+    if constexpr (kWalk == kTable) table = counts[trow] <= max_surv;
+    const int n_cand = table ? max_surv : t1 - t0;
+    for (int base = 0; base < n_cand; base += kDenseThreads) {
+      const int k = base + tid;
+      int t = -1;
+      bool h = false;
+      if (k < n_cand) {
+        if (table) {
+          t = surv[(long long)trow * max_surv + k];
+          h = t >= t0 && t < t1 &&
+              box_hits(col_bb, nct, t, bx0, bx1, by0, by1, c2);
+        } else {
+          t = t0 + k;
+          h = box_hits(col_bb, nct, t, bx0, bx1, by0, by1, c2);
+        }
+      }
+      const unsigned m = __ballot_sync(kAllLanes, h);
+      if (lane == 0) wcount[warp] = __popc(m);
+      __syncthreads();
+      int off = 0, total = 0;
+      for (int w = 0; w < kWarps; ++w) {
+        off += w < warp ? wcount[w] : 0;
+        total += wcount[w];
+      }
+      if (h) list[off + __popc(m & ((1u << lane) - 1u))] = t;
+      __syncthreads();
+      for (int q = 0; q < total; ++q) run_tile(list[q]);
+    }
   }
+  if (cur >= 0) flush();
+
+  // each row: its parts' sums in order, from every block of the cluster
+  // (at n_split = 1 the cluster is this block alone)
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();  // every block's part sums are in its shared memory
+  const int per = (kRows + n_split - 1) / n_split;
+  for (int k = tid; k < per; k += kDenseThreads) {
+    const int row = split * per + k;
+    const int i = i_blk + row;
+    if (row >= kRows || i >= rows.n) continue;
+    float sx = 0.0f, sy = 0.0f;
+    for (int b = 0; b < n_split; ++b) {
+      const float* px = cluster.map_shared_rank(&part_x[0][0], b);
+      const float* py = cluster.map_shared_rank(&part_y[0][0], b);
+      const int q_n = (b + 1) * n_parts / n_split - b * n_parts / n_split;
+      for (int q = 0; q < q_n; ++q) {
+        sx += px[q * kRows + row];
+        sy += py[q * kRows + row];
+      }
+    }
+    fx[i] = sx;
+    fy[i] = sy;
+  }
+  cluster.sync();  // no block leaves while another reads its sums
 }
 
 // Row-major position of tile pair (ti, tj), tj >= ti, in the upper triangle
@@ -564,8 +698,8 @@ pair_force_sym_dense_kernel(Planes rows, Planes cols,
       sm, ti, tj, rows, cols, p, use_radius, c2, fx, fy, fxc, fyc);
 }
 
-// Launch of a dense-layout walk with law Law: one block of kDenseRows rows
-// per 32 row agents.
+// Launch of a dense walk with law Law: one block per row block and split,
+// the splits of a row block one cluster (of one block when n_split = 1).
 template <int kWalk, class Law>
 int dense_launch(const Planes& rows, const Planes& cols, const float* prm,
                  int use_radius, const float* col_bb, const int* surv,
@@ -574,10 +708,26 @@ int dense_launch(const Planes& rows, const Planes& cols, const float* prm,
   if (rows.n <= 0) return (int)cudaSuccess;
   if (cols.n < 0) return (int)cudaErrorInvalidValue;
   if (kWalk == kTable && max_surv < 1) return (int)cudaErrorInvalidValue;
-  const int blocks = (rows.n + kDenseRows - 1) / kDenseRows;
-  pair_force_dense_kernel<kWalk, Law><<<blocks, kDenseThreads, 0,
-                                        (cudaStream_t)stream>>>(
-      rows, cols, prm, use_radius, col_bb, surv, counts, max_surv, c2, fx, fy);
+  const int n_split = dense_splits<kWalk>(rows.n, cols.n);
+  const long long blocks =
+      (long long)((rows.n + kDenseBlockRows - 1) / kDenseBlockRows) * n_split;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.blockDim = dim3(kDenseThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)n_split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, pair_force_dense_kernel<kWalk, Law>, rows, cols, prm, use_radius,
+      col_bb, surv, counts, max_surv, c2, n_split, fx, fy);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 

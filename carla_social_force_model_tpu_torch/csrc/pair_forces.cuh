@@ -91,9 +91,10 @@ SFM_HD float sfm_exp(float x) {
 // card: cross and dot are then the plain version's bitwise, and both take
 // the same side of the cut.
 //
-// kFastTail (the symmetric walks): past those gates, one cheaper form at a
-// named site, both exponentials as __expf.  The magnitude moves by at most
-// about (|common| + |w|^2) * 1e-7 relative; the gates, cross, dot,
+// kFastTail (the symmetric and dense pair walks and the ring): past those
+// gates, one cheaper form at a named site, both exponentials as __expf.
+// The magnitude moves by at most about (|common| + |w|^2) * 1e-7
+// relative; the gates, cross, dot,
 // sign(theta), the division and the masks are the same instructions in
 // both forms.  (-d / B as a product with the reciprocal root at hand was
 // measured too and dropped: it doubled the error and slowed the 1M table.)

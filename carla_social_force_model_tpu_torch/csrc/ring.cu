@@ -39,16 +39,24 @@
 // What bounds it on this card.  The pairs: each device's n_local rows meet
 // all N = D * n_local columns, N^2 pairs in all without a cutoff (each at the
 // cost of the dense kernels', pair_forces.cu), beside which the bytes of the
-// D * (D - 1) block copies are small.  What
-// the design does about it: the layout of the dense kernel (32 rows of 8
-// threads each per row tile, 256 columns staged in shared memory), with
-// each block keeping the sums of up to kMaxRowTiles row tiles in registers
-// across all D steps, so the forces are written once, at the end; with a
-// cutoff a staged column tile is skipped when no row tile of the block
-// reaches its box.  Data of the rotating block is read and written through
-// L2 (__ldcg / __stcg): L1 is not coherent across SMs.  Making it fast
-// (overlapping the forward with the compute, wgmma) and copies across cards
-// (peer pointers) are later work.
+// D * (D - 1) block copies are small.  What the design does about it: the
+// dense walk's inner loop (pair_laws.cuh rows_vs_chunk: R rows per thread
+// in registers, 256-column tiles staged as float4 + float2 and
+// read by broadcast, the block's eight warps sharing each tile, and
+// with a cutoff the chunk culling and the ballot), each block keeping its
+// rows' sums in registers across all D steps, so the forces are written
+// once, at the end; with a cutoff a column tile is skipped when the
+// block's box misses its box.  Blocks must all be resident (the spins), so
+// the grid cannot split a row's columns over blocks as the dense walk
+// does: a block holds 32 * R rows, so a launch takes up to 32 * R agents
+// per resident block of the card.  It takes R = 1 where that grid fits and
+// R = 2 or 4 where only a larger R fits (more rows per block, more
+// registers, fewer resident blocks), and fails beyond.  Every R sums each
+// row in the same order (each warp's chunk over the ring steps, tiles and
+// columns, then the warps in order), so R never changes a result.  Data of the
+// rotating block is read and written through L2 (__ldcg / __stcg): L1 is
+// not coherent across SMs.  Copies across cards (peer pointers) are later
+// work.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -58,10 +66,23 @@
 
 namespace {
 
-constexpr int kRows = 32;     // rows per row tile
-constexpr int kSplit = 8;     // threads per row
-constexpr int kThreads = kRows * kSplit;  // == columns per column tile
-constexpr int kMaxRowTiles = 4;           // row tiles a block may hold
+// The dense walk's layout (pair_laws.cuh): R rows per thread, a block
+// holds 32 * R rows of one device and its eight warps share each staged
+// tile, one 32-column chunk each (PERF.md: 4, 8 and 16 warps measured; 16
+// keep too few blocks resident for N = 10,000 under the power law and
+// Helbing).  A launch takes the least R of kRingRows, 2 kRingRows and 4
+// kRingRows whose grid is resident at once: R = 1 measured faster than R =
+// 2, and a larger R takes more agents.  Every R keeps at least kRingMinBlocks
+// blocks resident an SM (at most 80 registers a thread; without that bound
+// R = 4 keeps 2 under the power law and the cutoff forms), so R = 4 takes
+// 128 rows a block at 3 blocks an SM: 50,688 agents over all devices on
+// 132 SMs.  The bound holds for R = 1 and 2 too: with a minimum of 1
+// block for them, ptxas gave R = 1 96 registers and the ring 1.45x its
+// time at N = 10,000 (PERF.md).
+constexpr int kRingRows = 1;
+constexpr int kRingMinBlocks = 3;
+constexpr int kThreads = 32 * kTileChunks;
+constexpr bool kRingFastTail = true;  // as the dense walks
 constexpr int kPlanes = 6;    // x, y, vx, vy, radius, alive (0 or 1)
 constexpr long long kSpinLimit = 1LL << 26;
 
@@ -129,70 +150,49 @@ __device__ bool wait_at_least(const int* p, int want, int* err,
   return ok;
 }
 
-template <bool kCutoff, class Law>
-__global__ void __launch_bounds__(kThreads)
+template <bool kCutoff, class Law, int kR>
+__global__ void __launch_bounds__(kThreads, kRingMinBlocks)
 ring_force_kernel(RingArgs a) {
-  __shared__ float sx[kThreads], sy[kThreads], svx[kThreads], svy[kThreads];
-  __shared__ float sr[kThreads], sa[kThreads];
-  __shared__ float part_x[kRows][kSplit + 1], part_y[kRows][kSplit + 1];
-  __shared__ float rbox[kMaxRowTiles][4];
+  constexpr int kBlockRows = 32 * kR;
+  __shared__ ColTile tile;
+  __shared__ float part_x[kTileChunks][kBlockRows];
+  __shared__ float part_y[kTileChunks][kBlockRows];
   __shared__ int s_ok;
 
   const typename Law::Prm p = Law::load(a.prm);
   const int tid = threadIdx.x;
-  const int lrow = tid / kSplit;
-  const int lane = tid % kSplit;
+  const int lane = tid % 32;
+  const int warp = tid / 32;  // and the chunk of each tile it walks
   const int d = blockIdx.y;
   const int D = a.n_dev;
   const int G = gridDim.x;
   const int n = a.n_local;
-  const int n_row_tiles = (n + kRows - 1) / kRows;
   const int right = (d + 1) % D;
-  const long long base = (long long)d * n;  // this device's first row
+  const int base = d * n;  // this device's first row
+  const int i_blk = blockIdx.x * kBlockRows;
 
-  // this block's row tiles b, b + G, ... and their rows, in registers
-  float xi[kMaxRowTiles], yi[kMaxRowTiles], ui[kMaxRowTiles],
-      vi[kMaxRowTiles], ri[kMaxRowTiles];
-  bool ai[kMaxRowTiles];
-  float ax[kMaxRowTiles], ay[kMaxRowTiles];
+  // this block's rows, R per lane, in registers (every warp holds them all)
+  RowSet<kR> rw;
 #pragma unroll
-  for (int r = 0; r < kMaxRowTiles; ++r) {
-    const int t = blockIdx.x + r * G;
-    const int i = t * kRows + lrow;
-    const bool in = t < n_row_tiles && i < n;
-    xi[r] = in ? a.rx[base + i] : 0.0f;
-    yi[r] = in ? a.ry[base + i] : 0.0f;
-    ui[r] = in ? a.ru[base + i] : 0.0f;
-    vi[r] = in ? a.rv[base + i] : 0.0f;
-    ri[r] = (in && Law::kRadius) ? a.rrad[base + i] : 0.0f;
-    ai[r] = in && a.ralive[base + i] != 0;
-    ax[r] = 0.0f;
-    ay[r] = 0.0f;
-    if (kCutoff && tid < 32) {
-      // the box of the tile's alive rows (warp 0, one row per lane)
-      const int rr = t * kRows + tid;
-      const bool live =
-          t < n_row_tiles && rr < n && a.ralive[base + rr] != 0;
-      float x0 = live ? a.rx[base + rr] : INFINITY;
-      float x1 = live ? a.rx[base + rr] : -INFINITY;
-      float y0 = live ? a.ry[base + rr] : INFINITY;
-      float y1 = live ? a.ry[base + rr] : -INFINITY;
+  for (int r = 0; r < kR; ++r) {
+    const int i = i_blk + lane + 32 * r;
+    const bool in = i < n;
+    rw.template load<kCutoff>(
+        r, in ? a.rx[base + i] : 0.0f, in ? a.ry[base + i] : 0.0f,
+        in ? a.ru[base + i] : 0.0f, in ? a.rv[base + i] : 0.0f,
+        (in && Law::kRadius) ? a.rrad[base + i] : 0.0f,
+        in && a.ralive[base + i] != 0, base + i);
+  }
+  float bx0 = INFINITY, bx1 = -INFINITY, by0 = INFINITY, by1 = -INFINITY;
+  if (kCutoff) {  // the block's box
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        x0 = fminf(x0, __shfl_xor_sync(0xffffffffu, x0, off));
-        x1 = fmaxf(x1, __shfl_xor_sync(0xffffffffu, x1, off));
-        y0 = fminf(y0, __shfl_xor_sync(0xffffffffu, y0, off));
-        y1 = fmaxf(y1, __shfl_xor_sync(0xffffffffu, y1, off));
-      }
-      if (tid == 0) {
-        rbox[r][0] = x0;
-        rbox[r][1] = x1;
-        rbox[r][2] = y0;
-        rbox[r][3] = y1;
-      }
+    for (int r = 0; r < kR; ++r) {
+      bx0 = fminf(bx0, rw.box[r][0]);
+      bx1 = fmaxf(bx1, rw.box[r][1]);
+      by0 = fminf(by0, rw.box[r][2]);
+      by1 = fmaxf(by1, rw.box[r][3]);
     }
   }
-  __syncthreads();
 
   const int nct = a.n_col_tiles;
   for (int k = 0; k < D; ++k) {
@@ -220,50 +220,32 @@ ring_force_kernel(RingArgs a) {
     }
 
     const float* bb = blk + kPlanes * n;  // (4, n_col_tiles) boxes
-    const long long g_src = (long long)src * n;
+    const int g_src = src * n;
     for (int t = 0; t < nct; ++t) {
-      bool hit[kMaxRowTiles];
-      bool any = false;
-#pragma unroll
-      for (int r = 0; r < kMaxRowTiles; ++r) {
-        hit[r] = (int)blockIdx.x + r * G < n_row_tiles;
-        if (kCutoff && hit[r])
-          hit[r] = box_gap2(rbox[r][0], rbox[r][1], rbox[r][2], rbox[r][3],
-                            __ldcg(bb + t), __ldcg(bb + nct + t),
-                            __ldcg(bb + 2 * nct + t),
-                            __ldcg(bb + 3 * nct + t)) <= a.c2;
-        any = any || hit[r];
-      }
-      if (!any) continue;  // block-uniform
-      const int c0 = t * kThreads;
+      if (kCutoff &&  // block-uniform
+          box_gap2(bx0, bx1, by0, by1, __ldcg(bb + t), __ldcg(bb + nct + t),
+                   __ldcg(bb + 2 * nct + t),
+                   __ldcg(bb + 3 * nct + t)) > a.c2)
+        continue;
+      const int j0 = t * kColTile;
       __syncthreads();  // the previous column tile is consumed
-      const int jt = c0 + tid;
-      const bool col_in = jt < n;
-      sx[tid] = col_in ? __ldcg(blk + jt) : 0.0f;
-      sy[tid] = col_in ? __ldcg(blk + n + jt) : 0.0f;
-      svx[tid] = col_in ? __ldcg(blk + 2 * n + jt) : 0.0f;
-      svy[tid] = col_in ? __ldcg(blk + 3 * n + jt) : 0.0f;
-      sr[tid] = col_in ? __ldcg(blk + 4 * n + jt) : 0.0f;
-      sa[tid] = col_in ? __ldcg(blk + 5 * n + jt) : 0.0f;
-      __syncthreads();
-      const int cnt = min(kThreads, n - c0);
-#pragma unroll
-      for (int r = 0; r < kMaxRowTiles; ++r) {
-        if (!hit[r]) continue;
-        const long long gi =
-            base + (long long)(blockIdx.x + r * G) * kRows + lrow;
-        for (int c = lane; c < cnt; c += kSplit) {
-          const float dx = sx[c] - xi[r];
-          const float dy = sy[c] - yi[r];
-          bool ok = ai[r] && sa[c] != 0.0f && (g_src + c0 + c) != gi;
-          if (kCutoff) ok = ok && sq_norm_rn(dx, dy) <= a.c2;
-          float fxk, fyk;
-          Law::pair(dx, dy, ui[r], vi[r], svx[c], svy[c], ri[r], sr[c],
-                    a.use_radius, ok, p, fxk, fyk);
-          ax[r] += fxk;
-          ay[r] += fyk;
-        }
+      for (int c = tid; c < kColTile; c += kThreads) {
+        const int j = j0 + c;
+        const bool in = j < n;
+        stage_column<kCutoff>(
+            tile, c, in ? __ldcg(blk + j) : 0.0f,
+            in ? __ldcg(blk + n + j) : 0.0f,
+            in ? __ldcg(blk + 2 * n + j) : 0.0f,
+            in ? __ldcg(blk + 3 * n + j) : 0.0f,
+            in ? __ldcg(blk + 4 * n + j) : 0.0f,
+            in && __ldcg(blk + 5 * n + j) != 0.0f);
       }
+      __syncthreads();
+      const int jc = j0 + warp * kChunk;
+      if (jc < n)
+        rows_vs_chunk<kCutoff, kRingFastTail, Law, kR>(
+            rw, tile, warp, min(kChunk, n - jc), g_src + jc, p,
+            a.use_radius, a.c2);
     }
     if (k > 0) {
       // this block has computed against slot k % 2 and forwarded it
@@ -275,55 +257,68 @@ ring_force_kernel(RingArgs a) {
     }
   }
 
+  // each row's sum over the warps, in order
 #pragma unroll
-  for (int r = 0; r < kMaxRowTiles; ++r) {
-    const int t = blockIdx.x + r * G;
-    if (t >= n_row_tiles) break;  // block-uniform
-    __syncthreads();
-    part_x[lrow][lane] = ax[r];
-    part_y[lrow][lane] = ay[r];
-    __syncthreads();
-    const int i = t * kRows + lrow;
-    if (lane == 0 && i < n) {
-      float sx_sum = 0.0f, sy_sum = 0.0f;
-      for (int s = 0; s < kSplit; ++s) {  // fixed order
-        sx_sum += part_x[lrow][s];
-        sy_sum += part_y[lrow][s];
-      }
-      a.fx[base + i] = sx_sum;
-      a.fy[base + i] = sy_sum;
+  for (int r = 0; r < kR; ++r) {
+    part_x[warp][lane + 32 * r] = rw.ax[r];
+    part_y[warp][lane + 32 * r] = rw.ay[r];
+  }
+  __syncthreads();
+  for (int row = tid; row < kBlockRows; row += kThreads) {
+    const int i = i_blk + row;
+    if (i >= n) continue;
+    float sx = part_x[0][row], sy = part_y[0][row];
+#pragma unroll
+    for (int g = 1; g < kTileChunks; ++g) {
+      sx += part_x[g][row];
+      sy += part_y[g][row];
     }
+    a.fx[base + i] = sx;
+    a.fy[base + i] = sy;
   }
 }
 
-template <bool kCutoff, class Law>
-int ring_launch(RingArgs a, void* stream) {
-  auto kernel = ring_force_kernel<kCutoff, Law>;
-  int dev = 0, sms = 0, per_sm = 0, coop = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, 0);
-  if (e != cudaSuccess) return (int)e;
-  if (!coop) return (int)cudaErrorNotSupported;
-  const int n_row_tiles = (a.n_local + kRows - 1) / kRows;
-  // every block of every device resident at once; at most kMaxRowTiles
-  // row tiles per block
-  const int resident = per_sm * sms / a.n_dev;
-  const int g = min(n_row_tiles, resident);
-  if (g < 1 || (long long)g * kMaxRowTiles < n_row_tiles)
-    return (int)cudaErrorCooperativeLaunchTooLarge;
+// Launch the ring with R = kR rows per thread if every block of every
+// device, one per 32 * R rows, can be resident at once; *fits says whether
+// it could.
+template <bool kCutoff, class Law, int kR>
+cudaError_t ring_try(RingArgs a, int sms, void* stream, bool* fits) {
+  auto kernel = ring_force_kernel<kCutoff, Law, kR>;
+  int per_sm = 0;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kernel, kThreads, 0);
+  const long long g = (a.n_local + 32 * kR - 1) / (32 * kR);
+  *fits = e == cudaSuccess && (long long)per_sm * sms >= g * a.n_dev;
+  if (!*fits) return e;
   void* args[] = {&a};
   e = cudaLaunchCooperativeKernel((const void*)kernel,
                                   dim3((unsigned)g, (unsigned)a.n_dev),
                                   dim3(kThreads), args, 0,
                                   (cudaStream_t)stream);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+template <bool kCutoff, class Law>
+int ring_launch(RingArgs a, void* stream) {
+  int dev = 0, sms = 0, coop = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  if (!coop) return (int)cudaErrorNotSupported;
+  // the least R whose grid fits
+  bool fits = false;
+  e = ring_try<kCutoff, Law, kRingRows>(a, sms, stream, &fits);
+  if (!fits && e == cudaSuccess)
+    e = ring_try<kCutoff, Law, 2 * kRingRows>(a, sms, stream, &fits);
+  if (!fits && e == cudaSuccess)
+    e = ring_try<kCutoff, Law, 4 * kRingRows>(a, sms, stream, &fits);
+  if (!fits && e == cudaSuccess)
+    return (int)cudaErrorCooperativeLaunchTooLarge;
+  return (int)e;
 }
 
 }  // namespace
@@ -354,7 +349,7 @@ int sfm_ring_force(int law, int n_dev, int n_local, const float* rx,
   RingArgs a;
   a.n_dev = n_dev;
   a.n_local = n_local;
-  a.n_col_tiles = (n_local + kThreads - 1) / kThreads;
+  a.n_col_tiles = (n_local + kColTile - 1) / kColTile;
   a.slot = kPlanes * n_local + 4 * a.n_col_tiles;
   a.rx = rx;
   a.ry = ry;

@@ -15,11 +15,12 @@ Tile geometry of this port (the TPU's 192 x 512 tiles, auto ``max_surv`` of
 * ``SYM_TILE`` = 128: the symmetric kernel's square tile pair (one thread
   per row, the column tile staged in shared memory), and the row unit of
   both survivor tables.
-* ``COL_TILE`` = 256 columns staged per step by the dense and compacted
-  kernels, whose blocks hold 32 rows (the dense kernel's layout without a
-  cutoff).  A table row (128 rows) serves four such blocks; each block
-  re-tests every listed tile against the box of its own 32 rows, so the
-  compacted kernel walks exactly the tiles the dense cutoff kernel walks.
+* ``COL_TILE`` = 256 columns staged per step by the dense, compacted and
+  ring kernels, whose blocks hold 32 rows: a table row (128 rows) serves
+  four blocks, each of which re-tests the listed tiles against its own
+  box.  Every dense walk sums a row's columns in one fixed order, and a
+  tile one walk skips adds exactly +0 in another, so the compacted kernel
+  equals the dense cutoff kernel bitwise.
 * ``AUTO_MAX_SURV`` = 32 table slots per row.  At a uniform 0.25
   pedestrians/m^2 a 128-agent box is about 22 m wide, so a 30 m cutoff
   reaches about 13 tiles of 256 (dense) or 11 of 128 after the triangle

@@ -45,11 +45,11 @@ path, groups and config #3 + ORCA sharded, and a 1-rank NCCL
 process-group run.  It counts the kernel launches of each path, and checks
 every step of 50-step rollouts through the kernels against the same step
 through the plain versions from the same state.  Phase 2 also counts the
-SASS instructions of the symmetric pair kernel's and the environment
-kernel's inner loops (``tools/sass_census.py``, with cuobjdump and
-nvdisasm), and the kernel times of phases 3, 6, 9, 12, 18 and 24 print the
-issue-rate floor they give beside the bound (phase 15: the power law's
-symmetric forms).
+SASS instructions of the symmetric and dense pair walks', the ring's and
+the environment kernel's inner loops (``tools/sass_census.py``, with
+cuobjdump and nvdisasm), and the kernel times of phases 3, 6, 9, 12, 18
+and 24 print the issue-rate floor they give beside the bound (phase 15:
+the power law's symmetric forms and Helbing's dense form).
 
 Run from the repository root, with no arguments:
 
@@ -596,12 +596,14 @@ def cutoff_kernel_checks(dev, card):
                       else "pair_force_dense_kernel")
             ms[name] = device_ms(lambda g=grids[key]: run(planes, g), kernel,
                                  reps=reps)
-            floor = ""
             if key.startswith("sym"):
                 floor = "; " + floor_note(
                     "pair_force_sym<kTriangleBox, Moussaid>"
                     if grids[key].form == "sym_cutoff"
                     else "pair_force_sym<kSymTable, Moussaid>", pairs_u)
+            else:  # the box-skip and table walks share one inner loop
+                floor = "; " + floor_note(
+                    "pair_force_dense<kTable, Moussaid>", 2 * pairs_u)
             say(f"phase 9 time {name} at N={n}, {CUTOFF_M:g} m cutoff: "
                 f"{ms[name]:.4f} ms on the device, bound "
                 f"{bounds[name][0]:.6f} ms ({bounds[name][1]}; "
@@ -960,6 +962,9 @@ def family_kernel_checks(dev, card):
                     form if grid is None else grid.form)
         floor = ("" if law != "powerlaw" or walk is None else "; " +
                  floor_note(f"pair_force_sym<{walk}, PowerLaw>", pairs))
+        if law == "helbing" and form == "dense":
+            floor = "; " + floor_note("pair_force_dense<kAllTiles, Helbing>",
+                                      pairs)
         say(f"phase 15 time {name} at N={planes[0].shape[0]}"
             + ("" if cutoff is None else f", {cutoff:g} m cutoff")
             + f": {ms:.4f} ms on the device, plain {plain:.4f} ms, bound "
@@ -1825,14 +1830,17 @@ def shard_kernel_checks(dev, card):
         square = (cuda_forces.pair_force_dense(*cols, prm) if grid is None
                   else cuda_forces.pair_force_cutoff(*cols, prm, grid))
         rect = cuda_forces.pair_force_rect(*cols, prm, cols, grid=grid)
+        again = cuda_forces.pair_force_rect(*cols, prm, cols, grid=grid)
         torch.cuda.synchronize()
         if grid is not None and grid.form != form:
             fail(f"the {form} check drew a {grid.form} grid")
         if not torch.equal(torch.stack(square), torch.stack(rect)):
             fail(f"the rectangular {form} form differs from the square one "
                  f"on equal planes")
+        if not torch.equal(torch.stack(rect), torch.stack(again)):
+            fail(f"two launches of the {form} form differ")
         say(f"phase 24 rectangular {form} == square {form} bitwise on equal "
-            f"planes, N={N}")
+            f"planes, N={N}, and relaunched bitwise equal")
 
     # the full-block kernel: shard 0's rows against shard 1's block
     for law in ("moussaid", "powerlaw"):
@@ -1921,9 +1929,14 @@ def shard_kernel_checks(dev, card):
         t_ms = device_ms(fn, kernel)
         p_ms = cuda_ms(plain, reps=3)
         results[name] = dict(ms=t_ms, plain_ms=p_ms, bound=bnd)
-        floor = ("; " + floor_note("pair_force_sym_dense<false, Moussaid>",
-                                   n_rows * n_blk)
-                 if name == "pair_force_sym_dense" else "")
+        floor = "; " + {
+            "pair_force_sym_dense": lambda: floor_note(
+                "pair_force_sym_dense<false, Moussaid>", n_rows * n_blk),
+            "pair_force_dense (rectangular)": lambda: floor_note(
+                "pair_force_dense<kAllTiles, Moussaid>",
+                n_rows * (n_all - 1)),
+            "ring_force": lambda: floor_note(
+                "ring_force<false, Moussaid>", n_all * (n_all - 1))}[name]()
         say(f"phase 24 time {name} ({shape}): kernel {t_ms:.4f} ms on the "
             f"device, plain {p_ms:.4f} ms, bound {bnd[0]:.6f} ms ({bnd[1]})"
             f"{floor} ({card})")
@@ -2328,7 +2341,9 @@ def main() -> None:
         f"{plain_ms['pair']:.4f} ms; f32-only bounds "
         f"{1e3 * n_sym * (PAIR_OPS + 2) / PEAK_F32_S:.4f} / "
         f"{1e3 * n_dense * PAIR_OPS / PEAK_F32_S:.4f} ms; pair_force_sym "
-        f"{floor_note('pair_force_sym<kTriangle, Moussaid>', n_sym)}")
+        f"{floor_note('pair_force_sym<kTriangle, Moussaid>', n_sym)}; "
+        f"pair_force_dense "
+        f"{floor_note('pair_force_dense<kAllTiles, Moussaid>', n_dense)}")
     torch.cuda.synchronize()
 
     launches = {}

@@ -32,8 +32,8 @@ from carla_social_force_model_tpu_torch.ops.spatial import morton_order
 from family_cases import family_planes, family_reference, family_run
 from orca_cases import (ENV_ATOL, ENV_RTOL, analytic_run, feed_mismatch,
                         feed_run, feed_scene)
-from shard_cases import (law_params, rect_case, ring_case, shard_planes,
-                         split, sym_dense_case)
+from shard_cases import (law_params, limit, plain_pairs, rect_case,
+                         ring_case, shard_planes, split, sym_dense_case)
 from scenario_cases import (chunk_scan_pair, chunked_on, closest_mismatches,
                             closest_pair, scan_mismatches, seeded_chunk_set,
                             seeded_crowd_planes, to_device)
@@ -1265,3 +1265,182 @@ def test_env_lengths_are_checked(cuda_device):
                          dataclasses.replace(seg, lengths=seg.lengths.long()),
                          3.0, 0.1)
 
+
+
+# -- the dense walk's split columns, culling and fast tail; the ring on it ----
+
+def dense_launch(law, planes, n_rows, form, cutoff=10.0, max_surv=0):
+    """One launch of the dense walk in ``form`` (``"dense"``,
+    ``"dense_cutoff"`` or ``"compact"`` with a table ``max_surv`` wide) of
+    the first ``n_rows`` rows of ``planes`` (as :func:`shard_planes` gives
+    them) against all of its columns: ``(got, grid)``, got (2, n_rows)."""
+    x, y, vx, vy, rad, alive, ex, ey = planes
+    rows = split(planes, 0, n_rows)
+    grid = None
+    if form != "dense":
+        grid = pair_grid.rect_grid(
+            rows[0], rows[1], rows[5],
+            pair_grid.box_planes(x, y, alive, pair_grid.COL_TILE),
+            x.shape[0], cutoff, compact=form == "compact",
+            max_surv=max_surv)
+        assert grid.form == form
+    hel = law == "helbing"
+    prm = cuda_forces.law_vector(law, law_params(law), x.device)
+    got = torch.stack(cuda_forces.pair_force_rect(
+        *rows[:4], None if hel else rows[4], rows[5], prm, tuple(planes[:6]),
+        grid=grid, law=law, desired=(rows[6], rows[7]) if hel else None))
+    return got, grid
+
+
+def assert_dense_walk_close(law, planes, n_rows, form, cutoff=10.0,
+                            max_surv=0):
+    """The dense walk against the plain version within the shared limit
+    (``shard_cases.limit``), finite, dead rows exactly 0; returns got."""
+    got, _ = dense_launch(law, planes, n_rows, form, cutoff, max_surv)
+    rows = split(planes, 0, n_rows)
+    cut = None if form == "dense" else cutoff
+    want = plain_pairs(law, rows, planes, 0, 0, cut)
+    lim = limit(law, want, plain_pairs(law, rows, planes, 0, 0, cut,
+                                       magnitudes=True))
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert bool((got[:, ~rows[5]] == 0).all())
+    err = (got - want).abs()
+    assert bool((err <= lim).all()), (err / lim).max().item()
+    return got
+
+
+@pytest.mark.parametrize("form", ["dense", "dense_cutoff", "compact"])
+@pytest.mark.parametrize("n_rows", [1, 31, 33, 255, 257, 2500])
+def test_dense_walks_on_ragged_rows_split_columns(cuda_device, n_rows,
+                                                  form):
+    """1 to 2,500 rows against 10,000 columns: each row's columns split
+    over up to eight blocks of one cluster, partial row tiles and a partial
+    last column tile, the splits added in a fixed order.  Within the plain
+    version's limit; the compacted walk (a four-slot table: some rows fit,
+    others overflow) equals the box-skip walk bitwise."""
+    planes = shard_planes(10_000, seed=n_rows, device=cuda_device,
+                          sort=form != "dense")
+    got = assert_dense_walk_close("moussaid", planes, n_rows, form,
+                                  max_surv=4)
+    if form == "compact":
+        box, _ = dense_launch("moussaid", planes, n_rows, "dense_cutoff")
+        assert torch.equal(got, box)
+
+
+@pytest.mark.parametrize("form", ["dense", "dense_cutoff", "compact"])
+@pytest.mark.parametrize("law", ["moussaid", "powerlaw", "helbing"])
+def test_dense_walks_with_dead_agents_in_every_lane_position(cuda_device,
+                                                             law, form):
+    """Dead agents at every lane position of every 32-row set, a whole dead
+    32-row set and a whole dead 128-row tile, through every dense walk of
+    every law (a one-slot table: every row with two hits overflows): their
+    rows stay exactly 0, the chunk boxes ignore them, the rest is within
+    the plain version's limit."""
+    n = 1101
+    planes = shard_planes(n, seed=9, device=cuda_device,
+                          sort=form != "dense")
+    idx = torch.arange(n, device=cuda_device)
+    dead = (((idx // 32 + idx) % 5 == 0) | ((idx >= 256) & (idx < 288))
+            | ((idx >= 512) & (idx < 640)))
+    planes[5] = planes[5] & ~dead
+    assert_dense_walk_close(law, planes, n, form, max_surv=1)
+
+
+@pytest.mark.parametrize("form", ["dense", "dense_cutoff", "compact"])
+@pytest.mark.parametrize("law", ["moussaid", "powerlaw", "helbing"])
+def test_dense_walks_on_stacked_starts(cuda_device, law, form):
+    """Four of the stacked crowds of the branch-cut test (Helbing's desired
+    direction along the velocity) through every dense walk of every law:
+    the row sets, the culling and the fast tail leave cross, dot, sign
+    (theta) and the power law's and Helbing's gates as the plain version
+    decides them."""
+    for seed in range(4):
+        planes = stacked_crowd(seed, cuda_device)
+        speed = torch.sqrt(planes[2] ** 2 + planes[3] ** 2)
+        planes += [(planes[2] / speed).contiguous(),
+                   (planes[3] / speed).contiguous()]
+        if form != "dense":
+            perm, _ = morton_order(planes[0], planes[1], planes[5],
+                                   "hilbert")
+            planes = [t[perm].contiguous() for t in planes]
+        assert_dense_walk_close(law, planes, planes[0].shape[0], form,
+                                max_surv=1)
+
+
+@pytest.mark.parametrize("law", ["moussaid", "powerlaw", "helbing"])
+def test_dense_table_with_overflowing_rows_matches_plain_version(
+        cuda_device, law):
+    """The 1M crowd's pattern at N = 20,000: 0.25 agents/m^2, Hilbert-
+    sorted, the 30 m cutoff, a table of eight slots that some rows
+    overflow (they walk their splits' tiles with the box test) and others
+    fit; every law against the plain version."""
+    planes = shard_planes(20_000, seed=13, device=cuda_device, sort=True)
+    _, grid = dense_launch(law, planes, 20_000, "compact", 30.0, 8)
+    assert bool((grid.counts > 8).any()) and bool((grid.counts <= 8).any())
+    assert_dense_walk_close(law, planes, 20_000, "compact", 30.0, 8)
+
+
+@pytest.mark.parametrize("form", ["dense", "dense_cutoff", "compact"])
+@pytest.mark.parametrize("law", ["moussaid", "powerlaw", "helbing"])
+def test_dense_walks_are_deterministic(cuda_device, law, form):
+    """Two launches of each dense walk on the same inputs are equal
+    bitwise: no float atomics, the splits added in a fixed order."""
+    planes = shard_planes(5_000, seed=21, device=cuda_device,
+                          sort=form != "dense")
+    first, _ = dense_launch(law, planes, 5_000, form, max_surv=4)
+    again, _ = dense_launch(law, planes, 5_000, form, max_surv=4)
+    assert torch.equal(first, again)
+
+
+@pytest.mark.parametrize("cutoff", [None, 8.0])
+@pytest.mark.parametrize("n_local", [31, 257, 1001])
+@pytest.mark.parametrize("n_shards", [2, 8])
+def test_ring_kernel_on_ragged_shards(cuda_device, n_shards, n_local,
+                                      cutoff):
+    """The ring on shards whose size is no multiple of a block's rows or of
+    a column tile, every law: against the plain ring and the gathered
+    dense kernel, and relaunched on the same buffers bitwise equal."""
+    n = n_local * n_shards
+    planes = shard_planes(n, seed=n_local, device=cuda_device,
+                          n_shards=n_shards, sort=cutoff is not None)
+    for law in ("moussaid", "powerlaw", "helbing"):
+        got, want, lim, dense = ring_case(law, planes, n_shards, cutoff)
+        again, *_ = ring_case(law, planes, n_shards, cutoff)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        assert bool(((got - want).abs() <= lim).all()), law
+        assert bool(((got - dense).abs() <= 2 * lim).all()), law
+        assert bool((got[:, ~planes[5]] == 0).all())
+        assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("cutoff", [None, 8.0])
+@pytest.mark.parametrize("law", ["moussaid", "powerlaw", "helbing"])
+def test_ring_kernel_takes_large_shards(cuda_device, law, cutoff):
+    """The ring at the most agents it must take: D = 4 virtual devices of
+    floor(3 * SMs / 4) * 128 agents each (N = 50,688 on 132 SMs), one
+    block of 128 rows (4 per thread) per 128 agents at 3 resident blocks
+    an SM.  Against the plain ring and the gathered dense kernel, and
+    relaunched bitwise equal; one block more raises (CUDA error 720)
+    rather than launch a grid that cannot be resident at once."""
+    from carla_social_force_model_tpu_torch.ops import cuda_ring
+    n_shards = 4
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    n_local = 3 * sms // n_shards * 128
+    planes = shard_planes(n_local * n_shards, seed=31, device=cuda_device,
+                          n_shards=n_shards, sort=cutoff is not None)
+    got, want, lim, dense = ring_case(law, planes, n_shards, cutoff)
+    again, *_ = ring_case(law, planes, n_shards, cutoff)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert bool(((got - want).abs() <= lim).all())
+    assert bool(((got - dense).abs() <= 2 * lim).all())
+    assert bool((got[:, ~planes[5]] == 0).all())
+    assert torch.equal(got, again)
+    big = shard_planes((n_local + 128) * n_shards, seed=32,
+                       device=cuda_device, n_shards=n_shards)
+    before = cuda_ring.LAUNCHES["ring_force"]
+    with pytest.raises(RuntimeError, match="CUDA error 720"):
+        ring_case(law, big, n_shards, cutoff)
+    assert cuda_ring.LAUNCHES["ring_force"] == before

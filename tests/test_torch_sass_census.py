@@ -43,6 +43,44 @@ def test_layout_constants_are_read_from_the_sources():
     assert 32 % got["kEnvLanes"] == 0
 
 
+@pytest.mark.parametrize("label, const", [
+    ("pair_force_dense<kAllTiles, Moussaid>", "kDenseRows"),
+    ("pair_force_dense<kTable, Moussaid>", "kDenseRows"),
+    ("pair_force_dense<kAllTiles, Helbing>", "kDenseRows"),
+    ("ring_force<false, Moussaid>", "kRingRows")])
+def test_dense_walk_and_ring_entries_name_their_rows_per_thread(label,
+                                                                 const):
+    """The dense walks' and the ring's census entries name the constant of
+    their rows per thread, and csrc/ sets it to 1, 2 or 4 (a lane's rows of
+    a 128-row table tile).  The ring is a template of its rows per thread
+    (a launch takes R = kRingRows, 2 kRingRows or 4 kRingRows, the least
+    that fits): its entry counts the R = kRingRows instantiation, the one
+    the main path's 10,000 agents take."""
+    entry = {k[0]: k for k in sass_census.KERNELS}[label]
+    rows = sass_census.layout_constants(ROOT)[const]
+    assert entry[5] == const
+    assert rows in (1, 2, 4)
+    if const == "kRingRows":
+        assert entry[1].endswith(f", {rows}>")
+        src = (ROOT / "carla_social_force_model_tpu_torch" / "csrc"
+               / "ring.cu").read_text()
+        for r in ("kRingRows", "2 * kRingRows", "4 * kRingRows"):
+            assert f"ring_try<kCutoff, Law, {r}>" in src
+
+
+def test_special_lines_cover_every_law():
+    """The special-function call sites of all three pair laws are found in
+    the sources: Helbing's correctly rounded roots and divisions too."""
+    lines = sass_census.special_lines(ROOT)["pair_forces.cuh"]
+    src = (ROOT / "carla_social_force_model_tpu_torch" / "csrc"
+           / "pair_forces.cuh").read_text().splitlines()
+    for func in ("moussaid_pair", "powerlaw_pair", "helbing_pair"):
+        start = next(i for i, ln in enumerate(src)
+                     if f"{func}(" in ln and not ln.startswith("//"))
+        end = next(i for i in range(start, len(src)) if src[i] == "}")
+        assert any(start < ln <= end + 1 for ln in lines), func
+
+
 @pytest.mark.parametrize("demangled, want", [
     ("void (anonymous namespace)::env_force_kernel<(bool)0, "
      "((anonymous namespace)::Walk)1, ((anonymous namespace)::Geom)0>"

@@ -1,32 +1,45 @@
 #!/usr/bin/env python3
-"""Device times of the symmetric pair kernel and the environment kernel at
+"""Device times of the redesigned pair, ring and environment kernels at
 the main paths' shapes, for one checkout of the port, on one card.
 
 The shapes, and the builders of their inputs, are ``chip_smoke.py``'s (of
 this checkout): phase 3 (config #1's seeded crowd, N = 10,000:
-``pair_force_sym``; the power law's form of phase 15), phase 9 (the 30 m
-cutoff on Hilbert-sorted seeded crowds: ``pair_force_sym_cutoff`` at
-10,000, ``pair_force_sym_compact`` at 50,000 and 1,000,000), phase 24
-(``pair_force_sym_dense`` on a 2,500 x 2,500 block, its cutoff form on the
-50k path's sorted 12,500 x 12,500 block), phase 6 (config #3 at 10,000:
-``env_exp`` on the borders, ``env_moussaid`` on the parked cars and the
-vehicles, ``env_moussaid_compact`` on the parked cars), phase 12
+``pair_force_sym`` and ``pair_force_dense``; the power law's and Helbing's
+forms of phase 15), phase 9 (the 30 m cutoff on Hilbert-sorted seeded
+crowds: ``pair_force_sym_cutoff`` and ``pair_force_dense_cutoff`` at
+10,000, ``pair_force_sym_compact`` and ``pair_force_compact`` at 50,000
+and 1,000,000, and ``pair_force_dense_cutoff`` at 1,000,000, the table's
+overflow walk), phase 24 (``pair_force_sym_dense`` on a 2,500 x 2,500
+block, its cutoff form on the 50k path's sorted 12,500 x 12,500 block; the
+rectangular dense kernel on one shard's 2,500 rows against the 10,000
+gathered columns; ``ring_force`` at D = 4 and D = 1 over N = 10,000, and
+at D = 4 over the most agents it must take, 128 per 3 / 4 of an SM:
+N = 50,688 on 132 SMs, ``"ms": null`` where the launch is refused),
+phase 6 (config #3 at 10,000: ``env_exp`` on the borders,
+``env_moussaid`` on the parked cars and the vehicles,
+``env_moussaid_compact`` on the parked cars), phase 12
 (``env_exp_compact`` on the urban borders) and phase 18
 (``env_exp_analytic`` on config #3's analytic borders,
 ``env_exp_analytic_compact`` on the urban ones with a table of width 4).
 Each time is the profiler's device time of the named kernel over 20
-launches (5 at 1M), ``chip_smoke.device_ms``; before them, phase 3's
-errors of ``pair_force_sym`` against its plain version.
+launches (5 at 1M), ``chip_smoke.device_ms``; before them, the errors of
+the Moussaid pair kernels against their plain versions as phases 3, 9
+and 24 check them (the fast tail moves them).
 
     python3 tools/kernel_redesign_bench.py [--root DIR] [--label NAME] \\
-        [--out FILE]
+        [--out FILE] [--cases sym,env,dense,capacity]
+
+``--cases capacity`` finds, by bisection on the launch's refusal, the most
+agents per device that one ``ring_force`` launch takes at D = 1, 4 and 8,
+for each law with and without the cutoff (one JSON line each).
 
 ``--root`` is the checkout whose package is imported and whose kernels are
 built (into its own ``build/``).  One JSON line per time goes to standard
 output (and to ``--out``).  To compare two commits, unpack each into a
 directory that ``.gitignore`` lists and run the tool on each in one call on
 the card, in turns (parent, change, change, parent); to compare a layout
-constant (``kSymRows``, ``kSymRowsCut`` in ``csrc/pair_forces.cu``,
+constant (``kSymRows``, ``kSymRowsCut``, ``kDenseRows``, ``kDenseCols``
+in ``csrc/pair_forces.cu``, ``kRingRows`` in ``csrc/ring.cu``,
 ``kEnvLanes`` in ``csrc/env_forces.cu``), edit it in such a copy.
 """
 from __future__ import annotations
@@ -98,6 +111,147 @@ def sym_cases(dev):
                 pair_force_sym_dense(*rows[:6], prm, tuple(blk[:6]),
                                      col_offset=kb, grid=grid),
                 "pair_force_sym_dense_kernel", 20))
+    return out
+
+
+def dense_cases(dev):
+    """(name, call, kernel name filter, reps) of the dense walks and the
+    ring at the shapes of the main paths."""
+    import numpy as np
+    import torch
+    import shard_cases as sc
+    from family_cases import family_planes, family_run
+    from carla_social_force_model_tpu_torch.models.params import (
+        MoussaidParams, moussaid_vector)
+    from carla_social_force_model_tpu_torch.ops import (cuda_forces,
+                                                        cuda_ring, pair_grid)
+    cs = smoke()
+    prm = moussaid_vector(MoussaidParams(), dev)
+    planes = cs.to_planes(*cs.seeded_crowd(N, 7, float(np.sqrt(N))), dev)
+    fam = family_planes(N, 31, dev)
+    dense = "pair_force_dense_kernel"
+    out = [("dense 10k", lambda: cuda_forces.pair_force_dense(*planes, prm),
+            dense, 20)]
+    out += [(f"{law} dense 10k", lambda law=law: family_run(law, fam,
+                                                             "dense"),
+             dense, 20) for law in ("powerlaw", "helbing")]
+    for n, seed, reps in CUT_CASES:
+        sp = cs.sorted_crowd(n, seed, dev)
+        forms = [pair_grid.cutoff_grid(sp[0], sp[1], sp[5], CUTOFF_M,
+                                       symmetric=False)]
+        if forms[0].form == "compact":  # the overflow walk at the same N
+            forms.append(pair_grid.cutoff_grid(
+                sp[0], sp[1], sp[5], CUTOFF_M, symmetric=False,
+                compact=False))
+        out += [(f"{g.form} N={n}", lambda sp=sp, g=g: cuda_forces.
+                 pair_force_cutoff(*sp, prm, g), dense, reps) for g in forms]
+    k = N // 4
+    pl = sc.shard_planes(N, 28, dev, n_shards=4)
+    rows = sc.split(pl, 0, k)
+    out.append((f"dense rect {k} x {N}", lambda: cuda_forces.pair_force_rect(
+        *rows[:6], prm, tuple(pl[:6])), dense, 20))
+    out += [(f"ring_force D={d} N={N}", lambda d=d: cuda_ring.ring_force(
+        *pl[:6], prm, d), "ring_force_kernel", 20) for d in (4, 1)]
+    # the most agents the ring must take at D = 4: 128 rows a block at 3
+    # resident blocks an SM
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    big = 3 * sms // 4 * 128 * 4
+    bpl = sc.shard_planes(big, 31, dev, n_shards=4)
+    out.append((f"ring_force D=4 N={big}", lambda: cuda_ring.ring_force(
+        *bpl[:6], prm, 4), "ring_force_kernel", 5))
+    return out
+
+
+def ring_capacity(dev):
+    """The most agents per device that one launch of ``ring_force`` takes
+    (its grid must be resident at once), by law, cutoff and device count
+    D: {case: n_local}, found by bisection on the launch's refusal (CUDA
+    error 720)."""
+    import torch
+    from carla_social_force_model_tpu_torch.ops import cuda_forces, cuda_ring
+    import shard_cases as sc
+    gen = torch.Generator(device=dev).manual_seed(3)
+    out = {}
+
+    def takes(law, prm, n_dev, n_local, cutoff):
+        n = n_dev * n_local
+        pos = torch.rand((2, n), generator=gen, device=dev) * 400.0
+        vel = torch.rand((2, n), generator=gen, device=dev) - 0.5
+        rad = torch.full((n,), 0.3, device=dev)
+        alive = torch.ones(n, dtype=torch.bool, device=dev)
+        hel = law == "helbing"
+        try:
+            cuda_ring.ring_force(
+                pos[0], pos[1], vel[0], vel[1], None if hel else rad, alive,
+                prm, n_dev, law=law, desired=(vel[0], vel[1]) if hel
+                else None, cutoff=cutoff)
+        except RuntimeError as e:
+            if "CUDA error 720" not in str(e):
+                raise
+            return False
+        torch.cuda.synchronize()
+        return True
+
+    for law in ("moussaid", "powerlaw", "helbing"):
+        prm = cuda_forces.law_vector(law, sc.law_params(law), dev)
+        for cutoff in (None, CUTOFF_M):
+            for n_dev in (1, 4, 8):
+                lo, hi = 0, 1 << 18  # takes lo agents, refuses hi
+                while hi - lo > 1:
+                    mid = (lo + hi) // 2
+                    lo, hi = ((mid, hi) if takes(law, prm, n_dev, mid, cutoff)
+                              else (lo, mid))
+                out[f"ring_force {law} cutoff={cutoff} D={n_dev}"] = lo
+    return out
+
+
+def dense_errors(dev):
+    """The Moussaid dense walks' and the ring's errors as phases 3, 9 and
+    24 check them: {case: (max abs err, max err / limit)}, the limit
+    1e-4 + 1e-4 * |f|."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import shard_cases as sc
+    from carla_social_force_model_tpu_torch.models.params import (
+        MoussaidParams, moussaid_vector)
+    from carla_social_force_model_tpu_torch.ops import (cuda_forces, forces,
+                                                        pair_grid)
+    cs = smoke()
+    out = {}
+
+    def held(name, got, want, lim=None):
+        err = (got - want).abs()
+        lim = 1e-4 + 1e-4 * want.abs() if lim is None else lim
+        out[name] = (err.max().item(), (err / lim).max().item())
+
+    planes = cs.to_planes(*cs.seeded_crowd(N, 7, float(np.sqrt(N))), dev)
+    for eps, use_radius in ((0.005, False), (0.005, True), (0.0, False),
+                            (0.0, True)):
+        p = dataclasses.replace(MoussaidParams(), epsilon=eps)
+        held(f"phase 3 dense 10k eps={eps} use_radius={use_radius}",
+             torch.stack(cuda_forces.pair_force_dense(
+                 *planes, moussaid_vector(p, dev), use_radius=use_radius)),
+             torch.stack(forces.pedestrian_force(
+                 *planes, p, use_ped_radius=use_radius)))
+    p = MoussaidParams()
+    prm = moussaid_vector(p, dev)
+    for n in (N, 50_000):
+        sp = cs.sorted_crowd(n, 11, dev)
+        g = pair_grid.cutoff_grid(sp[0], sp[1], sp[5], CUTOFF_M,
+                                  symmetric=False)
+        for use_radius in (False, True):
+            held(f"phase 9 {g.form} N={n} use_radius={use_radius}",
+                 torch.stack(cuda_forces.pair_force_cutoff(
+                     *sp, prm, g, use_radius=use_radius)),
+                 torch.stack(forces.pedestrian_force(
+                     *sp, p, use_ped_radius=use_radius, cutoff=CUTOFF_M)))
+    pl = sc.shard_planes(N, 24, dev, n_shards=4, sort=True)
+    got, want, lim = sc.rect_case("moussaid", pl, 4, 1, None, True)
+    held(f"phase 24 dense rect {N // 4} x {N}", got, want, lim)
+    pl = sc.shard_planes(N, 27, dev, n_shards=4)
+    got, want, lim, _ = sc.ring_case("moussaid", pl, 4, None)
+    held(f"phase 24 ring_force D=4 N={N}", got, want, lim)
     return out
 
 
@@ -185,7 +339,12 @@ def env_cases(dev):
 def run(cases, label, card, sink):
     device_ms = smoke().device_ms
     for name, fn, kernel, reps in cases:
-        ms = device_ms(fn, kernel, reps=reps)
+        try:
+            ms = device_ms(fn, kernel, reps=reps)
+        except RuntimeError as e:  # a ring grid this checkout cannot hold
+            if "CUDA error 720" not in str(e):
+                raise
+            ms = None
         line = json.dumps({"root": label, "case": name, "ms": ms,
                            "card": card})
         print(line, flush=True)
@@ -197,7 +356,11 @@ def main() -> int:
     ap.add_argument("--root", type=Path, default=HERE)
     ap.add_argument("--label", default="change")
     ap.add_argument("--out", type=Path, default=None)
+    ap.add_argument("--cases", default="sym,env,dense",
+                    help="comma-separated groups: sym, env, dense, "
+                    "capacity")
     args = ap.parse_args()
+    groups = set(args.cases.split(","))
     root = args.root.resolve()
     sys.path[:0] = [str(root), str(root / "tests")]
     import torch
@@ -211,11 +374,23 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     cuda_build.load_kernels()
     lines: list[str] = []
-    for case, (err, rel) in sym_errors(dev).items():
+    errors = {}
+    if "sym" in groups:
+        errors.update(sym_errors(dev))
+    if "dense" in groups:
+        errors.update(dense_errors(dev))
+    for case, (err, rel) in errors.items():
         lines.append(json.dumps({"root": args.label, "case": case,
                                  "max_abs_err": err, "max_rel_err": rel}))
         print(lines[-1], flush=True)
-    run(sym_cases(dev) + env_cases(dev), args.label, card, lines)
+    if "capacity" in groups:
+        for case, n_local in ring_capacity(dev).items():
+            lines.append(json.dumps({"root": args.label, "case": case,
+                                     "max_n_local": n_local, "card": card}))
+            print(lines[-1], flush=True)
+    cases = {"sym": sym_cases, "env": env_cases, "dense": dense_cases}
+    run([c for g in ("sym", "env", "dense") if g in groups
+         for c in cases[g](dev)], args.label, card, lines)
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         with args.out.open("a") as f:

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""SASS census of the inner loops of the port's pair and environment
+"""SASS census of the inner loops of the port's pair, ring and environment
 kernels, and the issue-rate floor it gives.
 
 Builds the kernel library (``utils/cuda_build.py``, compiled with
@@ -7,7 +7,7 @@ Builds the kernel library (``utils/cuda_build.py``, compiled with
 it with ``nvdisasm -g`` (each instruction with its source line) and, for
 each kernel of ``KERNELS``, finds the innermost loop (a backward branch)
 that holds the kernel's per-unit marker: the two ``expf`` of a Moussaid
-pair (``MUFU.EX2``), the one ``expf`` of a power-law pair, the two
+pair (``MUFU.EX2``), the one ``expf`` of a power-law or Helbing pair, the two
 products of the squared distance of a scanned point (``sq_norm_rn``).  The
 loop's instructions over the units one trip covers give the instructions
 per pair (or per scanned point), split into four groups:
@@ -81,6 +81,18 @@ KERNELS = (
     ("pair_force_sym_dense<true, Moussaid>",
      "pair_force_sym_dense_kernel<true, Moussaid", ("MUFU.EX2", None, None),
      2, "pair", "kSymRowsCut"),
+    ("pair_force_dense<kAllTiles, Moussaid>",
+     "pair_force_dense_kernel<0, Moussaid", ("MUFU.EX2", None, None), 2,
+     "pair", "kDenseRows"),
+    ("pair_force_dense<kTable, Moussaid>",
+     "pair_force_dense_kernel<2, Moussaid", ("MUFU.EX2", None, None), 2,
+     "pair", "kDenseRows"),
+    ("pair_force_dense<kAllTiles, Helbing>",
+     "pair_force_dense_kernel<0, Helbing", ("MUFU.EX2", None, None), 1,
+     "pair", "kDenseRows"),
+    ("ring_force<false, Moussaid>",
+     "ring_force_kernel<false, Moussaid, 1>", ("MUFU.EX2", None, None), 2,
+     "pair", "kRingRows"),
     ("env_force<exp, kAllSections, kSampled>",
      "env_force_kernel<false, 0, 0", ("FMUL", "pair_forces.cuh", None), 2,
      "point", "kEnvLanes"),
@@ -108,13 +120,14 @@ KERNELS = (
 SPECIAL_SOURCES = (("pair_forces.cuh", "sfm_exp"),
                    ("pair_forces.cuh", "moussaid_pair"),
                    ("pair_forces.cuh", "powerlaw_pair"),
+                   ("pair_forces.cuh", "helbing_pair"),
                    ("env_forces.cuh", "exp_term"))
 SPECIAL_CALLS = re.compile(
     r"atan2f|expf|__expf|sfm_exp|SFM_RSQRT|rsqrtf|SFM_DIV_RN|__fdividef|"
     r"(?<![A-Za-z_])-?\s*d\s*/|/\s*\(|SFM_SQRT_RN")
 
 #: the mangled-name tags of the sources whose kernels KERNELS lists
-SOURCES = (b"_pair_forces_cu_", b"_env_forces_cu_")
+SOURCES = (b"_pair_forces_cu_", b"_env_forces_cu_", b"_ring_cu_")
 
 MEMORY_OPS = ("LDS", "STS", "LDG", "STG", "LD.", "ST.", "LDC", "ATOM",
               "RED", "SHFL", "VOTE", "WARPSYNC", "BAR", "MEMBAR",
