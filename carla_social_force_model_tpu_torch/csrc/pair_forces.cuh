@@ -89,7 +89,13 @@ SFM_HD float sfm_exp(float x) {
 // rounding), so every value up to cross and dot is rounded per operation
 // (no FMA contraction) with the reciprocal root PyTorch's rsqrt uses on the
 // card: cross and dot are then the plain version's bitwise, and both take
-// the same side of the cut.
+// the same side of the cut.  theta itself is the sum of atan2f and the
+// product B * -eps rounded on its own, as the plain version adds them: an
+// FMA would keep the product's rounding error, and where atan2 equals minus
+// the rounded product the plain theta is exactly 0 (no tangential term)
+// while the fused one has a sign (a tangential term of A exp(-d / B)).
+// Phase 23 of chip_smoke.py met such a pair once in about 200 runs of the
+// Town02 crowd (PERF.md).
 //
 // kFastTail (the symmetric and dense pair walks and the ring): past those
 // gates, one cheaper form at a named site, both exponentials as __expf.
@@ -124,7 +130,7 @@ SFM_HD void moussaid_pair(float dx, float dy, float dvx, float dvy, float rsub,
       ok ? SFM_SUB_RN(SFM_MUL_RN(thx, ey), SFM_MUL_RN(thy, ex)) : 0.0f;
   const float dot =
       ok ? SFM_ADD_RN(SFM_MUL_RN(ex, thx), SFM_MUL_RN(ey, thy)) : 1.0f;
-  const float theta = atan2f(cross, dot) + B * (-p.eps);
+  const float theta = SFM_ADD_RN(atan2f(cross, dot), SFM_MUL_RN(B, -p.eps));
   const float common = -d / (ok ? B : 1.0f);
   const float Bt = B * theta;
   const float wv = p.n_prime * Bt;

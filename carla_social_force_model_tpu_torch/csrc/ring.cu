@@ -25,16 +25,22 @@
 //     of the sender have filled it for the ((k + 1) / 2)-th time (acquire
 //     loads), the TPU kernel's receive semaphore.
 //   * done: each block of the device adds 1 once it has computed against
-//     slot k % 2 and forwarded it (steps k >= 1).  A sender at step k >= 2
-//     writes into its neighbour's slot (k + 1) % 2 only after the neighbour
-//     has finished with it at step k - 1, i.e. after k / 2 uses by all G
-//     blocks: the TPU kernel's credit.
-// Blocks that spin on a neighbour must never wait for a block that has not
-// been scheduled, so the launch is cooperative: the wrapper sizes the grid
-// from the occupancy calculator so that every block is resident at once,
-// and the launch fails rather than run a grid that does not fit.  Every
-// spin is bounded: on overrun a block sets the error word and exits, every
-// other spin then stops too, and the wrapper raises.
+//     slot k % 2 with all of its row sets and forwarded it (steps k >= 1).
+//     A sender at step k >= 2 writes into its neighbour's slot (k + 1) % 2
+//     only after the neighbour has finished with it at step k - 1, i.e.
+//     after k / 2 uses by all G blocks: the TPU kernel's credit.
+// Both counters count blocks, not row sets: a block forwards its share of
+// a column block (every G-th 256-float piece of the slot, G the blocks of
+// a device) once per step and signals once per step, however many row
+// sets it walks, so the targets G * ((k + 1) / 2) and G * (k / 2) hold for
+// any G.  Blocks that spin on a neighbour must never wait for a block that
+// has not been scheduled, so the launch is cooperative: the grid holds at
+// most as many blocks as the card keeps resident (the occupancy
+// calculator): one block per 32 * R-row set where they fit, else that many
+// blocks, each walking the row sets blockIdx.x, blockIdx.x + G, ... of its
+// device (kMulti), so any shard that fits in memory runs.  Every spin is
+// bounded: on overrun a block sets the error word and exits, every other
+// spin then stops too, and the wrapper raises.
 //
 // What bounds it on this card.  The pairs: each device's n_local rows meet
 // all N = D * n_local columns, N^2 pairs in all without a cutoff (each at the
@@ -43,17 +49,20 @@
 // dense walk's inner loop (pair_laws.cuh rows_vs_chunk: R rows per thread
 // in registers, 256-column tiles staged as float4 + float2 and
 // read by broadcast, the block's eight warps sharing each tile, and
-// with a cutoff the chunk culling and the ballot), each block keeping its
-// rows' sums in registers across all D steps, so the forces are written
-// once, at the end; with a cutoff a column tile is skipped when the
-// block's box misses its box.  Blocks must all be resident (the spins), so
-// the grid cannot split a row's columns over blocks as the dense walk
-// does: a block holds 32 * R rows, so a launch takes up to 32 * R agents
-// per resident block of the card.  It takes R = 1 where that grid fits and
-// R = 2 or 4 where only a larger R fits (more rows per block, more
-// registers, fewer resident blocks), and fails beyond.  Every R sums each
-// row in the same order (each warp's chunk over the ring steps, tiles and
-// columns, then the warps in order), so R never changes a result.  Data of the
+// with a cutoff the chunk culling and the ballot), each row's sums kept
+// across all D steps, so the forces are written once, at the end; with a
+// cutoff a column tile is skipped when the row set's box misses its box.
+// Blocks must all be resident (the spins), so the grid cannot split a
+// row's columns over blocks as the dense walk does.  A block with one row
+// set keeps its rows' sums in registers across all D steps; with several
+// (kMulti: more than 32 R rows per resident block of a device, 3,168
+// agents per device at D = 4 with R = 1 on 132 SMs) a block walks them in
+// turn at every step and keeps each one's per-warp sums between steps in
+// its own slice of a global accumulator (acc), which no other block
+// touches.  Every row is summed in one fixed order whatever the number of
+// row sets a block walks (each warp's chunk over the ring steps, tiles and
+// columns, then the warps in order): a float stored and loaded again is
+// the same float, so the grid never changes a result.  Data of the
 // rotating block is read and written through L2 (__ldcg / __stcg): L1 is
 // not coherent across SMs.  Copies across cards (peer pointers) are later
 // work.
@@ -66,19 +75,15 @@
 
 namespace {
 
-// The dense walk's layout (pair_laws.cuh): R rows per thread, a block
-// holds 32 * R rows of one device and its eight warps share each staged
+// The dense walk's layout (pair_laws.cuh): R = kRingRows rows per thread,
+// a row set of 32 * R rows, and the block's eight warps share each staged
 // tile, one 32-column chunk each (PERF.md: 4, 8 and 16 warps measured; 16
 // keep too few blocks resident for N = 10,000 under the power law and
-// Helbing).  A launch takes the least R of kRingRows, 2 kRingRows and 4
-// kRingRows whose grid is resident at once: R = 1 measured faster than R =
-// 2, and a larger R takes more agents.  Every R keeps at least kRingMinBlocks
-// blocks resident an SM (at most 80 registers a thread; without that bound
-// R = 4 keeps 2 under the power law and the cutoff forms), so R = 4 takes
-// 128 rows a block at 3 blocks an SM: 50,688 agents over all devices on
-// 132 SMs.  The bound holds for R = 1 and 2 too: with a minimum of 1
-// block for them, ptxas gave R = 1 96 registers and the ring 1.45x its
-// time at N = 10,000 (PERF.md).
+// Helbing).  kRingMinBlocks blocks stay resident an SM (at most 80
+// registers a thread; with a minimum of 1 block ptxas gave R = 1 96
+// registers and the ring 1.45x its time at N = 10,000, PERF.md), so one
+// row set per block covers 3 x 132 x 32 R agents over all devices; beyond
+// that the blocks loop over row sets.
 constexpr int kRingRows = 1;
 constexpr int kRingMinBlocks = 3;
 constexpr int kThreads = 32 * kTileChunks;
@@ -100,6 +105,7 @@ struct RingArgs {
   int* fill;          // (n_dev, 2)
   int* done;          // (n_dev, 2)
   int* err;           // (1,)
+  float* acc;         // per row set: kTileChunks x 2 x 32 R floats
   const float* prm;
   int use_radius;
   float c2;
@@ -150,7 +156,9 @@ __device__ bool wait_at_least(const int* p, int want, int* err,
   return ok;
 }
 
-template <bool kCutoff, class Law, int kR>
+// kMulti: the blocks walk several row sets each (keeping their sums in
+// acc); else one row set a block, its sums in registers.
+template <bool kCutoff, class Law, int kR, bool kMulti>
 __global__ void __launch_bounds__(kThreads, kRingMinBlocks)
 ring_force_kernel(RingArgs a) {
   constexpr int kBlockRows = 32 * kR;
@@ -169,30 +177,43 @@ ring_force_kernel(RingArgs a) {
   const int n = a.n_local;
   const int right = (d + 1) % D;
   const int base = d * n;  // this device's first row
-  const int i_blk = blockIdx.x * kBlockRows;
+  // this block's row sets: blockIdx.x + q * G for q < sets
+  const int nsets = (n + kBlockRows - 1) / kBlockRows;
+  const int sets = kMulti ? (nsets - (int)blockIdx.x + G - 1) / G : 1;
+  constexpr bool keep = !kMulti;  // the sums stay in registers
 
-  // this block's rows, R per lane, in registers (every warp holds them all)
+  // a row set's rows, R per lane, in registers (every warp holds them all),
+  // its box, and this warp's slice of the accumulator
   RowSet<kR> rw;
-#pragma unroll
-  for (int r = 0; r < kR; ++r) {
-    const int i = i_blk + lane + 32 * r;
-    const bool in = i < n;
-    rw.template load<kCutoff>(
-        r, in ? a.rx[base + i] : 0.0f, in ? a.ry[base + i] : 0.0f,
-        in ? a.ru[base + i] : 0.0f, in ? a.rv[base + i] : 0.0f,
-        (in && Law::kRadius) ? a.rrad[base + i] : 0.0f,
-        in && a.ralive[base + i] != 0, base + i);
-  }
   float bx0 = INFINITY, bx1 = -INFINITY, by0 = INFINITY, by1 = -INFINITY;
-  if (kCutoff) {  // the block's box
+  auto load_rows = [&](int set) {
+    const int i_blk = set * kBlockRows;
 #pragma unroll
     for (int r = 0; r < kR; ++r) {
-      bx0 = fminf(bx0, rw.box[r][0]);
-      bx1 = fmaxf(bx1, rw.box[r][1]);
-      by0 = fminf(by0, rw.box[r][2]);
-      by1 = fmaxf(by1, rw.box[r][3]);
+      const int i = i_blk + lane + 32 * r;
+      const bool in = i < n;
+      rw.template load<kCutoff>(
+          r, in ? a.rx[base + i] : 0.0f, in ? a.ry[base + i] : 0.0f,
+          in ? a.ru[base + i] : 0.0f, in ? a.rv[base + i] : 0.0f,
+          (in && Law::kRadius) ? a.rrad[base + i] : 0.0f,
+          in && a.ralive[base + i] != 0, base + i);
     }
-  }
+    if (kCutoff) {  // the row set's box
+      bx0 = INFINITY, bx1 = -INFINITY, by0 = INFINITY, by1 = -INFINITY;
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        bx0 = fminf(bx0, rw.box[r][0]);
+        bx1 = fmaxf(bx1, rw.box[r][1]);
+        by0 = fminf(by0, rw.box[r][2]);
+        by1 = fmaxf(by1, rw.box[r][3]);
+      }
+    }
+  };
+  auto acc_of = [&](int set) {
+    return a.acc + (((long long)d * nsets + set) * kTileChunks + warp) * 2 *
+                       kBlockRows;
+  };
+  if (keep) load_rows(blockIdx.x);
 
   const int nct = a.n_col_tiles;
   for (int k = 0; k < D; ++k) {
@@ -221,31 +242,52 @@ ring_force_kernel(RingArgs a) {
 
     const float* bb = blk + kPlanes * n;  // (4, n_col_tiles) boxes
     const int g_src = src * n;
-    for (int t = 0; t < nct; ++t) {
-      if (kCutoff &&  // block-uniform
-          box_gap2(bx0, bx1, by0, by1, __ldcg(bb + t), __ldcg(bb + nct + t),
-                   __ldcg(bb + 2 * nct + t),
-                   __ldcg(bb + 3 * nct + t)) > a.c2)
-        continue;
-      const int j0 = t * kColTile;
-      __syncthreads();  // the previous column tile is consumed
-      for (int c = tid; c < kColTile; c += kThreads) {
-        const int j = j0 + c;
-        const bool in = j < n;
-        stage_column<kCutoff>(
-            tile, c, in ? __ldcg(blk + j) : 0.0f,
-            in ? __ldcg(blk + n + j) : 0.0f,
-            in ? __ldcg(blk + 2 * n + j) : 0.0f,
-            in ? __ldcg(blk + 3 * n + j) : 0.0f,
-            in ? __ldcg(blk + 4 * n + j) : 0.0f,
-            in && __ldcg(blk + 5 * n + j) != 0.0f);
+    for (int q = 0; q < sets; ++q) {
+      float* acc = nullptr;
+      if (!keep) {  // this row set's sums so far
+        load_rows(blockIdx.x + q * G);
+        acc = acc_of(blockIdx.x + q * G);
+        if (k > 0) {
+#pragma unroll
+          for (int r = 0; r < kR; ++r) {
+            rw.ax[r] = acc[lane + 32 * r];
+            rw.ay[r] = acc[kBlockRows + lane + 32 * r];
+          }
+        }
       }
-      __syncthreads();
-      const int jc = j0 + warp * kChunk;
-      if (jc < n)
-        rows_vs_chunk<kCutoff, kRingFastTail, Law, kR>(
-            rw, tile, warp, min(kChunk, n - jc), g_src + jc, p,
-            a.use_radius, a.c2);
+      for (int t = 0; t < nct; ++t) {
+        if (kCutoff &&  // block-uniform
+            box_gap2(bx0, bx1, by0, by1, __ldcg(bb + t), __ldcg(bb + nct + t),
+                     __ldcg(bb + 2 * nct + t),
+                     __ldcg(bb + 3 * nct + t)) > a.c2)
+          continue;
+        const int j0 = t * kColTile;
+        __syncthreads();  // the previous column tile is consumed
+        for (int c = tid; c < kColTile; c += kThreads) {
+          const int j = j0 + c;
+          const bool in = j < n;
+          stage_column<kCutoff>(
+              tile, c, in ? __ldcg(blk + j) : 0.0f,
+              in ? __ldcg(blk + n + j) : 0.0f,
+              in ? __ldcg(blk + 2 * n + j) : 0.0f,
+              in ? __ldcg(blk + 3 * n + j) : 0.0f,
+              in ? __ldcg(blk + 4 * n + j) : 0.0f,
+              in && __ldcg(blk + 5 * n + j) != 0.0f);
+        }
+        __syncthreads();
+        const int jc = j0 + warp * kChunk;
+        if (jc < n)
+          rows_vs_chunk<kCutoff, kRingFastTail, Law, kR>(
+              rw, tile, warp, min(kChunk, n - jc), g_src + jc, p,
+              a.use_radius, a.c2);
+      }
+      if (!keep) {
+#pragma unroll
+        for (int r = 0; r < kR; ++r) {
+          acc[lane + 32 * r] = rw.ax[r];
+          acc[kBlockRows + lane + 32 * r] = rw.ay[r];
+        }
+      }
     }
     if (k > 0) {
       // this block has computed against slot k % 2 and forwarded it
@@ -258,38 +300,53 @@ ring_force_kernel(RingArgs a) {
   }
 
   // each row's sum over the warps, in order
+  for (int q = 0; q < sets; ++q) {
+    const int set = blockIdx.x + q * G;
+    if (!keep) {
+      const float* acc = acc_of(set);
 #pragma unroll
-  for (int r = 0; r < kR; ++r) {
-    part_x[warp][lane + 32 * r] = rw.ax[r];
-    part_y[warp][lane + 32 * r] = rw.ay[r];
-  }
-  __syncthreads();
-  for (int row = tid; row < kBlockRows; row += kThreads) {
-    const int i = i_blk + row;
-    if (i >= n) continue;
-    float sx = part_x[0][row], sy = part_y[0][row];
-#pragma unroll
-    for (int g = 1; g < kTileChunks; ++g) {
-      sx += part_x[g][row];
-      sy += part_y[g][row];
+      for (int r = 0; r < kR; ++r) {
+        rw.ax[r] = acc[lane + 32 * r];
+        rw.ay[r] = acc[kBlockRows + lane + 32 * r];
+      }
     }
-    a.fx[base + i] = sx;
-    a.fy[base + i] = sy;
+    __syncthreads();  // the previous row set's parts are consumed
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      part_x[warp][lane + 32 * r] = rw.ax[r];
+      part_y[warp][lane + 32 * r] = rw.ay[r];
+    }
+    __syncthreads();
+    for (int row = tid; row < kBlockRows; row += kThreads) {
+      const int i = set * kBlockRows + row;
+      if (i >= n) continue;
+      float sx = part_x[0][row], sy = part_y[0][row];
+#pragma unroll
+      for (int g = 1; g < kTileChunks; ++g) {
+        sx += part_x[g][row];
+        sy += part_y[g][row];
+      }
+      a.fx[base + i] = sx;
+      a.fy[base + i] = sy;
+    }
   }
 }
 
-// Launch the ring with R = kR rows per thread if every block of every
-// device, one per 32 * R rows, can be resident at once; *fits says whether
-// it could.
-template <bool kCutoff, class Law, int kR>
+// Launch the ring with R = kRingRows rows per thread on one block per row
+// set where the card keeps them all resident, else on as many blocks per
+// device as it keeps resident, each walking several row sets.
+template <bool kCutoff, class Law, bool kMulti>
 cudaError_t ring_try(RingArgs a, int sms, void* stream, bool* fits) {
-  auto kernel = ring_force_kernel<kCutoff, Law, kR>;
+  auto kernel = ring_force_kernel<kCutoff, Law, kRingRows, kMulti>;
   int per_sm = 0;
   cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &per_sm, kernel, kThreads, 0);
-  const long long g = (a.n_local + 32 * kR - 1) / (32 * kR);
-  *fits = e == cudaSuccess && (long long)per_sm * sms >= g * a.n_dev;
-  if (!*fits) return e;
+  if (e != cudaSuccess) return e;
+  const long long per_dev = (long long)per_sm * sms / a.n_dev;
+  const long long nsets = (a.n_local + 32 * kRingRows - 1) / (32 * kRingRows);
+  *fits = kMulti ? per_dev >= 1 : nsets <= per_dev;
+  if (!*fits) return cudaSuccess;
+  const long long g = nsets < per_dev ? nsets : per_dev;
   void* args[] = {&a};
   e = cudaLaunchCooperativeKernel((const void*)kernel,
                                   dim3((unsigned)g, (unsigned)a.n_dev),
@@ -309,13 +366,10 @@ int ring_launch(RingArgs a, void* stream) {
     e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (e != cudaSuccess) return (int)e;
   if (!coop) return (int)cudaErrorNotSupported;
-  // the least R whose grid fits
   bool fits = false;
-  e = ring_try<kCutoff, Law, kRingRows>(a, sms, stream, &fits);
+  e = ring_try<kCutoff, Law, false>(a, sms, stream, &fits);
   if (!fits && e == cudaSuccess)
-    e = ring_try<kCutoff, Law, 2 * kRingRows>(a, sms, stream, &fits);
-  if (!fits && e == cudaSuccess)
-    e = ring_try<kCutoff, Law, 4 * kRingRows>(a, sms, stream, &fits);
+    e = ring_try<kCutoff, Law, true>(a, sms, stream, &fits);
   if (!fits && e == cudaSuccess)
     return (int)cudaErrorCooperativeLaunchTooLarge;
   return (int)e;
@@ -327,8 +381,8 @@ extern "C" {
 
 // One launch of the ring over n_dev virtual devices of n_local agents each,
 // on `stream`; returns cudaGetLastError() (non-zero: the launch was refused,
-// for example cudaErrorCooperativeLaunchTooLarge when the grid cannot be
-// resident at once).
+// for example cudaErrorCooperativeLaunchTooLarge when not even one block
+// per device can be resident).
 // law: a LawId, as for the sfm_pair_* entries (Helbing: ru, rv carry the
 // rows' desired directions; rrad is not read).  rx .. ralive: every
 // device's rows, device d's at [d * n_local, (d + 1) * n_local).  cols: each
@@ -337,13 +391,16 @@ extern "C" {
 // the (4, n_col_tiles) boxes of its 256-column tiles (read with cutoff only;
 // n_col_tiles = ceil(n_local / 256)).  comm: (n_dev, 2, slot) floats of
 // scratch; sync: 4 * n_dev + 1 ints, zero on entry (the fill and done
-// counters, then the error word, which is non-zero after a spin overran).
+// counters, then the error word, which is non-zero after a spin overran);
+// acc: at least n_dev * ceil(n_local / 128) * 128 * 16 floats of scratch
+// (the row sets' per-warp sums of blocks that walk several).
 // cutoff != 0 applies c2, the squared cutoff, per pair and per tile box.
 int sfm_ring_force(int law, int n_dev, int n_local, const float* rx,
                    const float* ry, const float* ru, const float* rv,
                    const float* rrad, const uint8_t* ralive, const float* cols,
-                   float* comm, int* sync, const float* prm, int use_radius,
-                   int cutoff, float c2, float* fx, float* fy, void* stream) {
+                   float* comm, int* sync, float* acc, const float* prm,
+                   int use_radius, int cutoff, float c2, float* fx, float* fy,
+                   void* stream) {
   if (n_dev < 1 || n_local < 0) return (int)cudaErrorInvalidValue;
   if (n_local == 0) return (int)cudaSuccess;
   RingArgs a;
@@ -362,6 +419,7 @@ int sfm_ring_force(int law, int n_dev, int n_local, const float* rx,
   a.fill = sync;
   a.done = sync + 2 * n_dev;
   a.err = sync + 4 * n_dev;
+  a.acc = acc;
   a.prm = prm;
   a.use_radius = use_radius;
   a.c2 = c2;

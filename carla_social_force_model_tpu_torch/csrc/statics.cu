@@ -5,13 +5,13 @@
 // closest_point_per_chunk, k_smallest_features and chunk_argmin_plain.
 //
 // What each function replaces (JAX package):
-//   topk_kernel<kSegments> ("seg_topk")  <- ops/pallas_statics.py
+//   seg_topk_kernel ("seg_topk")  <- ops/pallas_statics.py
 //       _seg_topk_kernel (:111) with _merge_topk (:57), _tile_hit (:96) and
 //       _tile_circles (:181): per pedestrian, a running top-k (k <= 8) of
 //       (d2, wx, wy) over the Douglas-Peucker segment features of the walls
 //       that simplify, the closest point taken exactly ON each segment, only
 //       features within neighbor_dist.
-//   topk_kernel<kChunks> ("chunk_topk")  <- _chunk_topk_kernel (:137): the
+//   chunk_topk_kernel ("chunk_topk")  <- _chunk_topk_kernel (:137): the
 //       same over 128-point chunks of the walls that do not simplify (config
 //       #3's ellipse cars), each chunk's first-occurrence closest point being
 //       one candidate.
@@ -32,10 +32,10 @@
 // are 3 k floats per pedestrian, the features a few hundred kB.  At the ORCA
 // path's N = 10,000 that is of the order of 1e7-1e8 flops, microseconds at
 // the card's f32 rate, and a few hundred kB of traffic: the bound is a few
-// microseconds either way, and what decides the time is latency (79 blocks
-// of 4 warps at N = 10,000) and the barriers of the staging.
+// microseconds either way, and what decides the time is latency and the
+// barriers of the staging.
 //
-// What the design does about that.  One block is 128 consecutive
+// The segment top-k and chunk_closest.  One block is 128 consecutive
 // pedestrians of the caller's order (ORCA's windowed path passes its
 // Hilbert-sorted planes, so a block's box is tight), one thread per
 // pedestrian.  The block reduces its alive pedestrians' box (block_box.cuh)
@@ -47,22 +47,44 @@
 // its feature and the kernel keeps only candidates with d2 <= nd2 (nd2 a
 // runtime argument: neighbor_dist is a sweepable parameter).  A chunk's
 // points are staged the same way, 128 at a time.  The running list lives in
-// registers: 8 slots, an unrolled compare-swap insertion with strict <, so
-// with features in ascending index it holds the k_smallest_features
-// selection in its order (first occurrence on ties); an invalid candidate
-// never enters (it would carry kPadDist2, which no slot is above).  The
-// distances are rounded per operation as the plain versions compute them,
-// so kernel and plain version pick the same features and points bitwise.
+// registers: 8 slots, an insertion before the first strictly larger entry
+// (topk_insert), so with features in ascending index it holds the
+// k_smallest_features selection in its order (first occurrence on ties); an
+// invalid candidate never enters (it would carry kPadDist2, which no slot is
+// above).  The distances are rounded per operation as the plain versions
+// compute them, so kernel and plain version pick the same features and
+// points bitwise.
 //
-// chunk_argmin scans every (point, pedestrian) pair: about 8 operations
-// each, 2e8 pairs at the Town02 crowd's shape (2e4 padded points, 1e4
-// pedestrians), 25 us at the card's f32 rate, against 12 MB of (C, N)
-// output, 4 us at its memory rate: bound by the operations.  Its grid is
-// (pedestrian blocks of 128, groups of kArgminChunks chunks), so that a
-// crowd of 10,000 still fills the card with blocks; each block stages one
-// chunk's points in shared memory at a time and each thread scans them for
-// its pedestrian with a strict <, every squared distance rounded per
-// operation, so that dmin and idx equal the plain version's bitwise.
+// The chunk top-k (chunk_topk_kernel) takes the environment kernels' layout
+// (env_forces.cu): a block is 32 pedestrians x L = kTopkLanes lanes (313
+// blocks of eight warps at N = 10,000, where one thread per pedestrian gave
+// 79 blocks of four and left 53 of the 132 SMs idle).  The block tests the
+// circles of a tile of 256 chunks against the box of its 32 pedestrians,
+// one chunk a thread, and compacts the hits in ascending order (ballots);
+// it stages the real points of up to kTopkStage / K hit chunks at once as
+// float2 behind one pair of barriers (each chunk's real length, the slots
+// up to its last valid one, comes with the feed: ChunkFeatures.lengths),
+// and each pedestrian whose own circle test passes scans every L-th point
+// of each staged chunk with a strict <, keeping the slot of its best.  A
+// shuffle merge takes the least (distance, slot), the lower slot on a tie:
+// the sequential scan's first occurrence.  Lane 0 inserts the candidate.
+//
+// chunk_argmin scans every (point, pedestrian) pair: five operations for
+// the distance and three for the first-occurrence minimum, 2e8 pairs at
+// the Town02 crowd's shape (2e4 padded points, 1e4 pedestrians), against
+// 12 MB of (C, N) output: bound by the operations, and by the issue rate
+// above that (tools/sass_census.py counts the loop).  A thread holds R =
+// kArgminRows pedestrians, so one shared load of four points' x (and one
+// of their y) serves 4 R pairs, in 32-point sub-groups unrolled whole.  A
+// block stages a group of whole chunks (kArgminStage points, the K-slot
+// rows padded to a multiple of four) with cp.async into a two-stage
+// buffer, so the next group's copy overlaps this group's scan; the grid is
+// (pedestrian blocks, chunk splits) with the splits chosen so that about
+// kArgminBlocksPerSM blocks per SM run at the Town02 shape.  A two-pass
+// minimum (fminf over a sub-group, its first index searched again only
+// when it beats the running best) measured 2.6x slower at that shape: the
+// pedestrians of a warp improve in different sub-groups, so nearly every
+// sub-group was scanned twice (PERF.md).
 //
 // Where the TPU design does not carry over.  The TPU kept the running list
 // in the revisited (8, ped tile) output block over a sequential feature grid
@@ -74,6 +96,7 @@
 // block's box: its row is undefined (the callers mask it).
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include "block_box.cuh"
@@ -84,7 +107,23 @@ namespace {
 constexpr int kPeds = kBoxPeds;   // pedestrians per block, one per thread
 constexpr int kTile = kBoxPeds;   // features (or chunk points) per stage
 
-enum Source { kSegments, kChunks };
+// the chunk top-k: L lanes per pedestrian (a divisor of 32), 32
+// pedestrians a block, and the points of hit chunks staged per batch
+constexpr int kTopkLanes = 8;
+constexpr int kTopkPeds = 32;
+constexpr int kTopkThreads = kTopkPeds * kTopkLanes;
+constexpr int kTopkStage = 1024;
+static_assert(32 % kTopkLanes == 0, "a pedestrian's lanes lie in one warp");
+
+// chunk_argmin: R pedestrians per thread (PERF.md: 2 and 4 measured),
+// threads per block, points per stage (two stages), points per unrolled
+// sub-group, and the blocks per SM the grid aims at
+constexpr int kArgminRows = 4;
+constexpr int kArgminThreads = 128;
+constexpr int kArgminStage = 1024;
+constexpr int kArgminSub = 32;
+constexpr int kArgminBlocksPerSM = 4;
+static_assert(kArgminStage % kArgminSub == 0, "whole sub-groups per stage");
 
 // Load chunk c's points [p0, p0 + kTile) into shared memory (PAD past the
 // row) and scan them for the first-occurrence closest point.  Every thread
@@ -105,20 +144,17 @@ __device__ __forceinline__ void chunk_piece(
   }
 }
 
-// kSegments: f features, planes a0..a4 = ax, ay, ux, uy, il2 and the filter
-// circles (ccx, ccy, rad).  kChunks: f chunks of kk points, a0/a1 = the
-// (f, kk) x/y planes (PAD_COORD in invalid slots), circles (ccx, ccy, rad)
-// with rad < 0 for an empty chunk.  Outputs (k, n) d2 (inf in an empty
-// slot), wx, wy (0 in an empty slot).
-template <Source kSrc>
+// f segment features, planes a0..a4 = ax, ay, ux, uy, il2 and the filter
+// circles (ccx, ccy, rad).  Outputs (k, n) d2 (inf in an empty slot), wx,
+// wy (0 in an empty slot).
 __global__ void __launch_bounds__(kPeds)
-topk_kernel(const float* __restrict__ px_, const float* __restrict__ py_,
+seg_topk_kernel(const float* __restrict__ px_, const float* __restrict__ py_,
             const uint8_t* __restrict__ alive_,
             const float* __restrict__ a0, const float* __restrict__ a1,
             const float* __restrict__ a2, const float* __restrict__ a3,
             const float* __restrict__ a4, const float* __restrict__ ccx,
             const float* __restrict__ ccy, const float* __restrict__ rad,
-            int f, int kk, float nd, float nd2, int k, int n,
+            int f, float nd, float nd2, int k, int n,
             float* __restrict__ out_d2, float* __restrict__ out_x,
             float* __restrict__ out_y) {
   __shared__ float sa[5][kTile];
@@ -146,44 +182,173 @@ topk_kernel(const float* __restrict__ px_, const float* __restrict__ py_,
     float v[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
     if (fi < f) {
       hit = touches(ccx[fi], ccy[fi], feature_reach2(rad[fi], nd), box);
-      if (kSrc == kSegments) {
-        v[0] = a0[fi];
-        v[1] = a1[fi];
-        v[2] = a2[fi];
-        v[3] = a3[fi];
-        v[4] = a4[fi];
-      }
+      v[0] = a0[fi];
+      v[1] = a1[fi];
+      v[2] = a2[fi];
+      v[3] = a3[fi];
+      v[4] = a4[fi];
     }
     __syncthreads();  // the previous tile is consumed
     shit[threadIdx.x] = hit;
-    if (kSrc == kSegments) {
 #pragma unroll
-      for (int p = 0; p < 5; ++p) sa[p][threadIdx.x] = v[p];
-    }
+    for (int p = 0; p < 5; ++p) sa[p][threadIdx.x] = v[p];
     if (!__syncthreads_or(hit)) continue;
     const int cnt = min(kTile, f - f0);
     for (int t = 0; t < cnt; ++t) {
       if (!shit[t]) continue;  // block-uniform
-      float cd, cx, cy;
-      if (kSrc == kSegments) {
-        cd = closest_on_segment(sa[0][t], sa[1][t], sa[2][t], sa[3][t],
-                                sa[4][t], px, py, cx, cy);
-      } else {
-        // the chunk's points through sa[0], sa[1] (the segment planes are
-        // unused for chunks)
-        float best = INFINITY, bx = 0.0f, by = 0.0f;
-        const size_t row = (size_t)(f0 + t) * kk;
-        for (int p0 = 0; p0 < kk; p0 += kTile)
-          chunk_piece(a0, a1, row, kk, p0, sa[0], sa[1], in, px, py, best, bx,
-                      by);
-        cd = best;
-        cx = bx;
-        cy = by;
-      }
+      float cx, cy;
+      const float cd = closest_on_segment(sa[0][t], sa[1][t], sa[2][t],
+                                          sa[3][t], sa[4][t], px, py, cx, cy);
       if (in && cd <= nd2) topk_insert(cd, cx, cy, d, x, y);
     }
   }
   if (!in) return;
+#pragma unroll
+  for (int s = 0; s < kTopK; ++s) {
+    if (s < k) {
+      out_d2[(size_t)s * n + i] = d[s] < kPadDist2 ? d[s] : INFINITY;
+      out_x[(size_t)s * n + i] = x[s];
+      out_y[(size_t)s * n + i] = y[s];
+    }
+  }
+}
+
+// The chunk top-k: f chunks of kk slots in the (f, kk) planes cxs, cys
+// (PAD_COORD in invalid slots), lens (f,) the slots up to each chunk's last
+// valid one, circles (ccx, ccy, rad) with rad < 0 for an empty chunk.
+// Outputs as seg_topk_kernel's.
+__global__ void __launch_bounds__(kTopkThreads)
+chunk_topk_kernel(const float* __restrict__ px_, const float* __restrict__ py_,
+                  const uint8_t* __restrict__ alive_,
+                  const float* __restrict__ cxs, const float* __restrict__ cys,
+                  int f, int kk, const int* __restrict__ lens,
+                  const float* __restrict__ ccx,
+                  const float* __restrict__ ccy,
+                  const float* __restrict__ rad, float nd, float nd2, int k,
+                  int n, float* __restrict__ out_d2,
+                  float* __restrict__ out_x, float* __restrict__ out_y) {
+  __shared__ __align__(16) float2 sxy[kTopkStage];
+  __shared__ int hits[kTopkThreads];
+  __shared__ int wcount[kTopkThreads / 32];
+  constexpr unsigned kAll = 0xffffffffu;
+
+  const int tid = threadIdx.x;
+  const int lane = tid % kTopkLanes;  // this pedestrian's lane
+  const int i = blockIdx.x * kTopkPeds + tid / kTopkLanes;
+  const bool in = i < n;
+  const bool live = in && (alive_ == nullptr || alive_[i] != 0);
+  const float px = in ? px_[i] : 0.0f;
+  const float py = in ? py_[i] : 0.0f;
+  const Box box = block_box<kTopkThreads>(px, py, live);
+  const Box mine{px, px, py, py};  // this pedestrian's own circle test
+
+  float d[kTopK], x[kTopK], y[kTopK];
+#pragma unroll
+  for (int s = 0; s < kTopK; ++s) {
+    d[s] = kPadDist2;
+    x[s] = 0.0f;
+    y[s] = 0.0f;
+  }
+
+  auto len_of = [&](int c) { return min(lens[c], kk); };
+  // the lanes' merge of one chunk's scan and lane 0's insertion
+  auto finish = [&](float best, int bj, float bx, float by, bool scan) {
+#pragma unroll
+    for (int o = kTopkLanes / 2; o > 0; o >>= 1) {
+      const float o_best = __shfl_xor_sync(kAll, best, o);
+      const int o_bj = __shfl_xor_sync(kAll, bj, o);
+      const float o_bx = __shfl_xor_sync(kAll, bx, o);
+      const float o_by = __shfl_xor_sync(kAll, by, o);
+      if (o_best < best || (o_best == best && o_bj < bj)) {
+        best = o_best;
+        bj = o_bj;
+        bx = o_bx;
+        by = o_by;
+      }
+    }
+    if (lane == 0 && scan && best <= nd2) topk_insert(best, bx, by, d, x, y);
+  };
+  // chunks per batch (kk <= kTopkStage), or pieces of one chunk
+  const int per_batch = kk <= kTopkStage ? kTopkStage / kk : 1;
+
+  for (int f0 = 0; f0 < f; f0 += kTopkThreads) {
+    // each thread tests one chunk of the tile against the block's box; the
+    // hits are listed in ascending order
+    const int fi = f0 + tid;
+    const bool hit = fi < f && touches(ccx[fi], ccy[fi],
+                                       feature_reach2(rad[fi], nd), box);
+    const unsigned ballot = __ballot_sync(kAll, hit);
+    __syncthreads();  // the previous tile's list and batch are consumed
+    if (tid % 32 == 0) wcount[tid / 32] = __popc(ballot);
+    __syncthreads();
+    int before = 0, nhit = 0;
+#pragma unroll
+    for (int w = 0; w < kTopkThreads / 32; ++w) {
+      before += w < tid / 32 ? wcount[w] : 0;
+      nhit += wcount[w];
+    }
+    if (hit) hits[before + __popc(ballot & ((1u << (tid % 32)) - 1u))] = fi;
+    __syncthreads();
+
+    for (int h0 = 0; h0 < nhit; h0 += per_batch) {
+      const int nb = min(per_batch, nhit - h0);
+      if (kk <= kTopkStage) {
+        __syncthreads();  // the previous batch is consumed
+        for (int e = tid; e < nb * kk; e += kTopkThreads) {
+          const int b = e / kk;
+          const int j = e - b * kk;
+          const int c = hits[h0 + b];
+          if (j < len_of(c)) {
+            const size_t g = (size_t)c * kk + j;
+            sxy[e] = make_float2(cxs[g], cys[g]);
+          }
+        }
+        __syncthreads();
+        for (int b = 0; b < nb; ++b) {
+          const int c = hits[h0 + b];
+          const int len = len_of(c);
+          const bool scan =
+              in && touches(ccx[c], ccy[c], feature_reach2(rad[c], nd), mine);
+          float best = INFINITY, bx = 0.0f, by = 0.0f;
+          int bj = INT_MAX;
+          if (scan) {
+            const float2* row = sxy + b * kk;
+#pragma unroll 4
+            for (int j = lane; j < len; j += kTopkLanes) {
+              const float2 pt = row[j];
+              closest_update_at(pt.x, pt.y, px, py, j, best, bj, bx, by);
+            }
+          }
+          finish(best, bj, bx, by, scan);
+        }
+      } else {  // one chunk of more than kTopkStage slots, piece by piece
+        const int c = hits[h0];
+        const int len = len_of(c);
+        const bool scan =
+            in && touches(ccx[c], ccy[c], feature_reach2(rad[c], nd), mine);
+        float best = INFINITY, bx = 0.0f, by = 0.0f;
+        int bj = INT_MAX;
+        for (int p0 = 0; p0 < len; p0 += kTopkStage) {
+          const int cnt = min(kTopkStage, len - p0);
+          __syncthreads();  // the previous piece is consumed
+          for (int j = tid; j < cnt; j += kTopkThreads) {
+            const size_t g = (size_t)c * kk + p0 + j;
+            sxy[j] = make_float2(cxs[g], cys[g]);
+          }
+          __syncthreads();
+          if (scan) {
+            for (int j = lane; j < cnt; j += kTopkLanes) {
+              const float2 pt = sxy[j];
+              closest_update_at(pt.x, pt.y, px, py, p0 + j, best, bj, bx,
+                                by);
+            }
+          }
+        }
+        finish(best, bj, bx, by, scan);
+      }
+    }
+  }
+  if (!in || lane != 0) return;
 #pragma unroll
   for (int s = 0; s < kTopK; ++s) {
     if (s < k) {
@@ -231,51 +396,175 @@ chunk_closest_kernel(const float* __restrict__ px_,
   }
 }
 
+// cp.async of 4 or 16 bytes from global into shared memory, and its group
+// fences
+__device__ __forceinline__ void cp_async4(float* s, const float* g) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(s)),
+               "l"(g)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* s, const float* g) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(s)),
+               "l"(g)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// One step of the first-occurrence argmin at slot j: the squared distance
+// rounded per operation as the plain version computes it, kept with a
+// strict < (the first of equal distances).  The running minimum is an
+// fminf (the same value: no distance is NaN or -0), so the chain from one
+// point to the next is one instruction and the index select hangs off it.
+__device__ __forceinline__ void argmin_step(float x, float y, float px,
+                                            float py, int j, float& best,
+                                            int& arg) {
+  const float d2 = sq_norm_rn(x - px, y - py);
+  arg = d2 < best ? j : arg;
+  best = fminf(best, d2);
+}
+
+// The geometry of chunk_argmin's stages: the (c, kk) rows padded to kkp
+// slots in shared memory; a group is cps whole chunks (kkp <= kArgminStage)
+// or one chunk in ppc pieces of kArgminStage points.
+struct ArgminStages {
+  int kk, kkp, cps, ppc, groups;
+  __host__ __device__ ArgminStages(int c, int kk_) : kk(kk_) {
+    kkp = (kk + 3) & ~3;
+    cps = kkp <= kArgminStage ? kArgminStage / kkp : 1;
+    ppc = kkp <= kArgminStage ? 1 : (kk + kArgminStage - 1) / kArgminStage;
+    groups = (c + cps - 1) / cps;
+  }
+};
+
 // Every (chunk, pedestrian)'s minimum squared distance over the chunk's kk
 // points of the staged planes fx, fy ((c, kk), PAD_COORD in invalid slots)
 // and the flat index chunk * kk + j of the first point that reaches it.
-// Grid: (pedestrian blocks, groups of kArgminChunks chunks).
-constexpr int kArgminChunks = 8;
-
-__global__ void __launch_bounds__(kPeds)
+// Grid: (pedestrian blocks of kArgminThreads * kArgminRows, chunk splits);
+// split y takes groups [y * groups / Y, (y + 1) * groups / Y).  vec: the
+// planes' rows can be copied 16 bytes at a time (kk % 4 == 0, aligned).
+__global__ void __launch_bounds__(kArgminThreads)
 chunk_argmin_kernel(const float* __restrict__ px_,
                     const float* __restrict__ py_,
                     const float* __restrict__ fx,
                     const float* __restrict__ fy, int c, int kk, int n,
-                    float* __restrict__ out_d2, int* __restrict__ out_idx) {
-  __shared__ float sx[kTile], sy[kTile];
-  const int i = blockIdx.x * kPeds + threadIdx.x;
-  const bool in = i < n;
-  const float px = in ? px_[i] : 0.0f;
-  const float py = in ? py_[i] : 0.0f;
-  const int c0 = blockIdx.y * kArgminChunks;
-  const int c1 = min(c0 + kArgminChunks, c);
-  for (int ch = c0; ch < c1; ++ch) {
-    const size_t row = (size_t)ch * kk;
-    float best = INFINITY;
-    int arg = 0;
-    for (int p0 = 0; p0 < kk; p0 += kTile) {
-      __syncthreads();  // the previous piece is consumed
-      const int j = p0 + threadIdx.x;
-      sx[threadIdx.x] = j < kk ? fx[row + j] : kPadCoord;
-      sy[threadIdx.x] = j < kk ? fy[row + j] : kPadCoord;
-      __syncthreads();
-      if (in) {
-        const int cnt = min(kTile, kk - p0);
-#pragma unroll 4
-        for (int t = 0; t < cnt; ++t) {
-          const float d2 = sq_norm_rn(sx[t] - px, sy[t] - py);
-          if (d2 < best) {  // strict: the first of equal distances
-            best = d2;
-            arg = p0 + t;
+                    int vec, float* __restrict__ out_d2,
+                    int* __restrict__ out_idx) {
+  constexpr int R = kArgminRows;
+  constexpr int T = kArgminThreads;
+  __shared__ __align__(16) float sx[2][kArgminStage];
+  __shared__ __align__(16) float sy[2][kArgminStage];
+
+  const ArgminStages g(c, kk);
+  const int tid = threadIdx.x;
+  const int i0 = blockIdx.x * T * R + tid;  // row r: i0 + r * T
+  float px[R], py[R], best[R];
+  int arg[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = i0 + r * T;
+    px[r] = i < n ? px_[i] : 0.0f;
+    py[r] = i < n ? py_[i] : 0.0f;
+    best[r] = INFINITY;
+    arg[r] = 0;
+  }
+  const int g0 = (int)((long long)blockIdx.y * g.groups / gridDim.y);
+  const int g1 = (int)((long long)(blockIdx.y + 1) * g.groups / gridDim.y);
+  const int nst = (g1 - g0) * g.ppc;  // stages of this block
+
+  // stage q's chunks [ch0, ch0 + nch) and slots [p0, p0 + len) of each
+  auto stage_of = [&](int q, int& ch0, int& nch, int& p0, int& len) {
+    const int grp = g0 + q / g.ppc;
+    const int piece = q % g.ppc;
+    ch0 = grp * g.cps;
+    nch = min(g.cps, c - ch0);
+    p0 = piece * kArgminStage;
+    len = min(kk - p0, kArgminStage);
+  };
+  auto load = [&](int q) {
+    int ch0, nch, p0, len;
+    stage_of(q, ch0, nch, p0, len);
+    float* dx = sx[q & 1];
+    float* dy = sy[q & 1];
+    if (vec) {
+      const int quads = len / 4;
+      for (int e = tid; e < nch * quads; e += T) {
+        const int t = e / quads;
+        const int j = 4 * (e - t * quads);
+        const size_t src = (size_t)(ch0 + t) * kk + p0 + j;
+        cp_async16(dx + t * g.kkp + j, fx + src);
+        cp_async16(dy + t * g.kkp + j, fy + src);
+      }
+    } else {
+      for (int e = tid; e < nch * len; e += T) {
+        const int t = e / len;
+        const int j = e - t * len;
+        const size_t src = (size_t)(ch0 + t) * kk + p0 + j;
+        cp_async4(dx + t * g.kkp + j, fx + src);
+        cp_async4(dy + t * g.kkp + j, fy + src);
+      }
+    }
+  };
+
+  if (nst > 0) load(0);
+  cp_async_commit();
+  for (int q = 0; q < nst; ++q) {
+    if (q + 1 < nst) load(q + 1);
+    cp_async_commit();
+    cp_async_wait_one();  // stage q has landed (for this thread)
+    __syncthreads();      // ... and for every thread
+    int ch0, nch, p0, len;
+    stage_of(q, ch0, nch, p0, len);
+    for (int t = 0; t < nch; ++t) {
+      const float* rx = sx[q & 1] + t * g.kkp;
+      const float* ry = sy[q & 1] + t * g.kkp;
+      // whole 32-point sub-groups four points a load, then the tail
+      const int full = len / kArgminSub * kArgminSub;
+      for (int s0 = 0; s0 < full; s0 += kArgminSub) {
+#pragma unroll
+        for (int u = 0; u < kArgminSub; u += 4) {
+          const float4 X = *reinterpret_cast<const float4*>(rx + s0 + u);
+          const float4 Y = *reinterpret_cast<const float4*>(ry + s0 + u);
+          const int j = p0 + s0 + u;
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            argmin_step(X.x, Y.x, px[r], py[r], j, best[r], arg[r]);
+            argmin_step(X.y, Y.y, px[r], py[r], j + 1, best[r], arg[r]);
+            argmin_step(X.z, Y.z, px[r], py[r], j + 2, best[r], arg[r]);
+            argmin_step(X.w, Y.w, px[r], py[r], j + 3, best[r], arg[r]);
           }
         }
       }
+      for (int j = full; j < len; ++j) {
+        const float x = rx[j], y = ry[j];
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          argmin_step(x, y, px[r], py[r], p0 + j, best[r], arg[r]);
+      }
+      if (p0 + len == kk) {  // the chunk's last piece: its result
+        const int ch = ch0 + t;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int i = i0 + r * T;
+          if (i < n) {
+            out_d2[(size_t)ch * n + i] = best[r];
+            out_idx[(size_t)ch * n + i] = ch * kk + arg[r];
+          }
+          best[r] = INFINITY;
+          arg[r] = 0;
+        }
+      }
     }
-    if (in) {
-      out_d2[(size_t)ch * n + i] = best;
-      out_idx[(size_t)ch * n + i] = (int)(row + arg);
-    }
+    __syncthreads();  // buffer q & 1 is consumed before stage q + 2 fills it
   }
 }
 
@@ -296,25 +585,26 @@ int sfm_seg_topk(const float* px, const float* py, const uint8_t* alive,
   if (n <= 0) return (int)cudaSuccess;
   if (k < 1 || k > kTopK) return (int)cudaErrorInvalidValue;
   const int blocks = (n + kPeds - 1) / kPeds;
-  topk_kernel<kSegments><<<blocks, kPeds, 0, (cudaStream_t)stream>>>(
-      px, py, alive, ax, ay, ux, uy, il2, ccx, ccy, rad, f, 0, nd, nd2, k, n,
-      d2, wx, wy);
+  seg_topk_kernel<<<blocks, kPeds, 0, (cudaStream_t)stream>>>(
+      px, py, alive, ax, ay, ux, uy, il2, ccx, ccy, rad, f, nd, nd2, k, n, d2,
+      wx, wy);
   return (int)cudaGetLastError();
 }
 
-// x, y (c, kk) chunk point planes, PAD_COORD in invalid slots; cx, cy, rad
-// (c,) chunk circles (rad < 0: an empty chunk).
+// x, y (c, kk) chunk point planes, PAD_COORD in invalid slots; lens (c,)
+// the slots up to each chunk's last valid one; cx, cy, rad (c,) chunk
+// circles (rad < 0: an empty chunk).
 int sfm_chunk_topk(const float* px, const float* py, const uint8_t* alive,
                    const float* x, const float* y, int c, int kk,
-                   const float* cx, const float* cy, const float* rad,
-                   float nd, float nd2, int k, int n, float* d2, float* wx,
-                   float* wy, void* stream) {
+                   const int* lens, const float* cx, const float* cy,
+                   const float* rad, float nd, float nd2, int k, int n,
+                   float* d2, float* wx, float* wy, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   if (k < 1 || k > kTopK) return (int)cudaErrorInvalidValue;
-  const int blocks = (n + kPeds - 1) / kPeds;
-  topk_kernel<kChunks><<<blocks, kPeds, 0, (cudaStream_t)stream>>>(
-      px, py, alive, x, y, nullptr, nullptr, nullptr, cx, cy, rad, c, kk, nd,
-      nd2, k, n, d2, wx, wy);
+  const int blocks = (n + kTopkPeds - 1) / kTopkPeds;
+  chunk_topk_kernel<<<blocks, kTopkThreads, 0, (cudaStream_t)stream>>>(
+      px, py, alive, x, y, c, kk, lens, cx, cy, rad, nd, nd2, k, n, d2, wx,
+      wy);
   return (int)cudaGetLastError();
 }
 
@@ -335,11 +625,22 @@ int sfm_chunk_closest(const float* px, const float* py, const uint8_t* alive,
 int sfm_chunk_argmin(const float* px, const float* py, const float* fx,
                      const float* fy, int c, int kk, int n, float* d2,
                      int* idx, void* stream) {
-  if (n <= 0 || c <= 0) return (int)cudaSuccess;
-  const dim3 grid((n + kPeds - 1) / kPeds,
-                  (c + kArgminChunks - 1) / kArgminChunks);
-  chunk_argmin_kernel<<<grid, kPeds, 0, (cudaStream_t)stream>>>(
-      px, py, fx, fy, c, kk, n, d2, idx);
+  if (n <= 0 || c <= 0 || kk <= 0) return (int)cudaSuccess;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const ArgminStages g(c, kk);
+  const int ped_blocks =
+      (n + kArgminThreads * kArgminRows - 1) / (kArgminThreads * kArgminRows);
+  const int want = (kArgminBlocksPerSM * sms + ped_blocks - 1) / ped_blocks;
+  const int splits = max(1, min(g.groups, want));
+  const int vec = kk % 4 == 0 && ((uintptr_t)fx % 16) == 0 &&
+                  ((uintptr_t)fy % 16) == 0;
+  chunk_argmin_kernel<<<dim3(ped_blocks, splits), kArgminThreads, 0,
+                        (cudaStream_t)stream>>>(px, py, fx, fy, c, kk, n, vec,
+                                                d2, idx);
   return (int)cudaGetLastError();
 }
 

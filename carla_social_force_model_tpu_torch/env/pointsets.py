@@ -185,13 +185,16 @@ class ChunkFeatures:
     chunk (its first-occurrence closest point), the chunks' points as
     ``(C, K)`` x/y planes on the device with invalid slots at ``PAD_COORD``,
     and each chunk's filter circle (the centre and half diagonal of its
-    valid points' box; ``radius = -1`` for a chunk with no valid point)."""
+    valid points' box; ``radius = -1`` for a chunk with no valid point).
+    ``lengths[c]``: the slots of chunk ``c`` up to its last valid one (0
+    for an empty chunk), where the chunk top-k kernel's scan stops."""
 
     x: torch.Tensor              # (C, K) f32, PAD_COORD in invalid slots
     y: torch.Tensor
     center_x: torch.Tensor       # (C,)
     center_y: torch.Tensor
     radius: torch.Tensor         # (C,) -1 for empty chunks
+    lengths: torch.Tensor        # (C,) int32 slots to scan
 
     @property
     def num_chunks(self) -> int:
@@ -290,7 +293,8 @@ def chunk_features(pset: ChunkedPointSet,
     """The ORCA chunk feed of a host-side :class:`ChunkedPointSet` on
     ``device``: invalid slots moved to ``PAD_COORD`` and each chunk's
     filter circle, in float32 as the JAX package's Pallas chunk feed
-    computes them (ops/geometry.py:381-396 of that package)."""
+    computes them (ops/geometry.py:381-396 of that package), and each
+    chunk's length up to its last valid slot."""
     device = resolve_device(device)
     pts = np.asarray(pset.points, np.float32)
     valid = np.asarray(pset.valid)
@@ -309,8 +313,12 @@ def chunk_features(pset: ChunkedPointSet,
         rad = np.where(real, np.sqrt(np.square(half * (hi_x - lo_x))
                                      + np.square(half * (hi_y - lo_y))),
                        np.float32(-1.0))
+    k = valid.shape[1]
+    lengths = np.where(real, k - np.argmax(valid[:, ::-1], axis=1),
+                       0).astype(np.int32)
     return ChunkFeatures(*_on(device, fx, fy, cx.astype(np.float32),
-                              cy.astype(np.float32), rad.astype(np.float32)))
+                              cy.astype(np.float32), rad.astype(np.float32),
+                              lengths))
 
 
 def segment_features(gset: SegmentGeomSet | None) -> SegmentFeatures | None:

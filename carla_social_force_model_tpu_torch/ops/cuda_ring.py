@@ -35,24 +35,34 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
-#: the comm slots and the counters of the last shape launched, by device:
-#: (n_dev, slot, comm, sync); reused while the shape stays the same
+#: the comm slots, the counters and the row sets' accumulator of the last
+#: shape launched, by device: (n_dev, n_local, comm, sync, acc); reused
+#: while the shape stays the same
 _BUFFERS: dict = {}
 
+#: floats of the accumulator per agent: 8 warps' (x, y) sums, rows rounded
+#: up to 128 (the largest row set, csrc/ring.cu)
+_ACC_PER_ROW, _ACC_ROUND = 16, 128
 
-def _buffers(dev, n_dev: int, slot: int):
-    """The ``(n_dev, 2, slot)`` comm buffer and the ``4 * n_dev + 1``
-    counters of a launch (kept across launches of one shape: every launch
-    zeroes the counters on the stream first)."""
+
+def _buffers(dev, n_dev: int, n_local: int, slot: int):
+    """The ``(n_dev, 2, slot)`` comm buffer, the ``4 * n_dev + 1``
+    counters and the accumulator of a launch (kept across launches of one
+    shape: every launch zeroes the counters on the stream first).  Raises
+    (out of memory) only where the buffers do not fit on the card."""
     key = str(dev)
     got = _BUFFERS.get(key)
-    if got is None or got[:2] != (n_dev, slot):
-        got = (n_dev, slot,
+    if got is None or got[:2] != (n_dev, n_local):
+        _BUFFERS.pop(key, None)
+        rows = -(-n_local // _ACC_ROUND) * _ACC_ROUND
+        got = (n_dev, n_local,
                torch.empty((n_dev, 2, slot), dtype=torch.float32,
                            device=dev),
-               torch.zeros(4 * n_dev + 1, dtype=torch.int32, device=dev))
+               torch.zeros(4 * n_dev + 1, dtype=torch.int32, device=dev),
+               torch.empty(n_dev * rows * _ACC_PER_ROW, dtype=torch.float32,
+                           device=dev))
         _BUFFERS[key] = got
-    return got[2], got[3]
+    return got[2:]
 
 
 def _row_planes(law, x, y, vx, vy, radius, alive, desired):
@@ -73,8 +83,10 @@ def ring_force(x, y, vx, vy, radius, alive, prm, n_dev: int,
     (``cuda_forces.law_vector``); Helbing needs ``desired=(ex, ey)`` and
     reads no radius.  ``cutoff`` [m]: the per-pair cutoff and the skip of
     tile boxes beyond it (the planes of each device should then be sorted
-    along a space-filling curve).  Raises when the kernel cannot be built,
-    the cooperative grid does not fit, or a spin overran."""
+    along a space-filling curve).  Any shard that fits in memory runs: the
+    kernel's blocks loop over row sets where one block per row set would
+    not be resident.  Raises when the kernel cannot be built, its buffers do
+    not fit on the card, or a spin overran."""
     from ..utils.cuda_build import load_kernels
     if law not in LAW_IDS:
         raise ValueError(f"unknown pair law {law!r}; one of {sorted(LAW_IDS)}")
@@ -114,14 +126,15 @@ def ring_force(x, y, vx, vy, radius, alive, prm, n_dev: int,
     else:
         boxes = planes.new_zeros((n_dev, 4 * n_ct))
     cols = torch.cat([planes, boxes], dim=1).contiguous()
-    comm, sync = _buffers(dev, n_dev, cols.shape[1])
+    comm, sync, acc = _buffers(dev, n_dev, n, cols.shape[1])
     sync.zero_()  # the counters start from zero on every launch
     lib = load_kernels()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.sfm_ring_force(
             LAW_IDS[law], n_dev, n, *(t.data_ptr() for t in rows),
-            cols.data_ptr(), comm.data_ptr(), sync.data_ptr(), prm.data_ptr(),
+            cols.data_ptr(), comm.data_ptr(), sync.data_ptr(),
+            acc.data_ptr(), prm.data_ptr(),
             int(use_radius), int(cutoff is not None),
             cutoff_sq(cutoff) if cutoff is not None else 0.0,
             fx.data_ptr(), fy.data_ptr(), stream)

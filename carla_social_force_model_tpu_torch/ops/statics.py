@@ -148,10 +148,21 @@ def _chunk_args(pos_x, pos_y, chunks, neigh_dist, alive):
             chunks.radius.data_ptr(), *_nd(neigh_dist))
 
 
+def _lengths(chunks, dev):
+    """The pointer of the chunks' real lengths."""
+    lens, c = chunks.lengths, chunks.num_chunks
+    if (lens.device != dev or lens.dtype != torch.int32 or lens.shape != (c,)
+            or not lens.is_contiguous()):
+        raise ValueError(f"chunk lengths must be a contiguous int32 ({c},) "
+                         f"tensor on {dev}")
+    return lens.data_ptr()
+
+
 def chunk_topk(pos_x, pos_y, chunks, k: int, neigh_dist, alive=None):
     """:func:`seg_topk` over the chunks of ``chunks``
     (``env/pointsets.ChunkFeatures``): one candidate per chunk, its
-    first-occurrence closest point."""
+    first-occurrence closest point, each chunk scanned up to its last
+    valid slot (``chunks.lengths``)."""
     _check_k(k)
     args = _chunk_args(pos_x, pos_y, chunks, neigh_dist, alive)
     n, dev = pos_x.shape[0], pos_x.device
@@ -159,6 +170,7 @@ def chunk_topk(pos_x, pos_y, chunks, k: int, neigh_dist, alive=None):
                  for _ in range(3))
     if n == 0:
         return outs
+    args = (*args[:7], _lengths(chunks, dev), *args[7:])
     return _launch("chunk_topk", (*args, k, n), outs, dev)
 
 

@@ -58,8 +58,8 @@ ARGTYPES = {
     "sfm_pair_sym_dense": _RECT + [_PTR] * 5,
     "sfm_pair_sym_dense_cutoff": _RECT + [_PTR, _PTR, _FLOAT] + [_PTR] * 5,
     # law, n_dev, n_local, rx, ry, ru, rv, rrad, ralive, cols, comm, sync,
-    # prm, use_radius, cutoff, c2, fx, fy, stream
-    "sfm_ring_force": ([_INT] * 3 + [_PTR] * 10 + [_INT, _INT, _FLOAT]
+    # acc, prm, use_radius, cutoff, c2, fx, fy, stream
+    "sfm_ring_force": ([_INT] * 3 + [_PTR] * 11 + [_INT, _INT, _FLOAT]
                        + [_PTR] * 3),
     # px, py, prad, alive, ptx, pty, k, lens, cx, cy, r2, s_count, a, b,
     # use_radius, n, fx, fy, stream
@@ -94,11 +94,11 @@ ARGTYPES = {
     # d2, wx, wy, stream
     "sfm_seg_topk": ([_PTR] * 11 + [_INT, _FLOAT, _FLOAT, _INT, _INT]
                      + [_PTR] * 4),
-    # px, py, alive, x, y, c, kk, cx, cy, rad, nd, nd2, k, n, d2, wx, wy,
-    # stream
-    "sfm_chunk_topk": ([_PTR] * 5 + [_INT, _INT] + [_PTR] * 3
+    # px, py, alive, x, y, c, kk, lens, cx, cy, rad, nd, nd2, k, n, d2, wx,
+    # wy, stream
+    "sfm_chunk_topk": ([_PTR] * 5 + [_INT, _INT] + [_PTR] * 4
                        + [_FLOAT, _FLOAT, _INT, _INT] + [_PTR] * 4),
-    # sfm_chunk_topk's arguments without k
+    # sfm_chunk_topk's arguments without lens and k
     "sfm_chunk_closest": ([_PTR] * 5 + [_INT, _INT] + [_PTR] * 3
                           + [_FLOAT, _FLOAT, _INT] + [_PTR] * 4),
     # px, py, fx, fy, c, kk, n, d2, idx, stream

@@ -44,12 +44,14 @@ against the single-device kernel path, then 100 timed steps; the urban
 path, groups and config #3 + ORCA sharded, and a 1-rank NCCL
 process-group run.  It counts the kernel launches of each path, and checks
 every step of 50-step rollouts through the kernels against the same step
-through the plain versions from the same state.  Phase 2 also counts the
-SASS instructions of the symmetric and dense pair walks', the ring's and
-the environment kernel's inner loops (``tools/sass_census.py``, with
-cuobjdump and nvdisasm), and the kernel times of phases 3, 6, 9, 12, 18
-and 24 print the issue-rate floor they give beside the bound (phase 15:
-the power law's symmetric forms and Helbing's dense form).
+through the plain versions from the same state (and names the agent of
+the worst step).  Phase 2 also counts the SASS instructions of the
+symmetric and dense pair walks', the ring's, the environment kernel's,
+the chunk scan's and the chunk top-k's inner loops
+(``tools/sass_census.py``, with cuobjdump and nvdisasm), and the kernel
+times of phases 3, 6, 9, 12, 18, 21 and 24 print the issue-rate floor
+they give beside the bound (phase 15: the power law's symmetric and
+dense forms and Helbing's dense form).
 
 Run from the repository root, with no arguments:
 
@@ -63,6 +65,7 @@ success the last line is
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -191,7 +194,7 @@ TOWN_N = 10_000
 TOWN_STEPS = 200
 #: operations per (point slot, pedestrian) pair of the chunk scan
 #: (csrc/statics.cu chunk_argmin_kernel: two differences, two products, a
-#: sum, a compare and two selects)
+#: sum, the minimum and, for the first index, a compare and a select)
 ARGMIN_OPS = 8
 #: the goldens' scenarios, horizons (s) and force files (tests/golden)
 #: agent sharding (phases 24-26): virtual shards on the one card (a
@@ -962,8 +965,9 @@ def family_kernel_checks(dev, card):
                     form if grid is None else grid.form)
         floor = ("" if law != "powerlaw" or walk is None else "; " +
                  floor_note(f"pair_force_sym<{walk}, PowerLaw>", pairs))
-        if law == "helbing" and form == "dense":
-            floor = "; " + floor_note("pair_force_dense<kAllTiles, Helbing>",
+        dense = {"helbing": "Helbing", "powerlaw": "PowerLaw"}.get(law)
+        if dense is not None and form == "dense":
+            floor = "; " + floor_note(f"pair_force_dense<kAllTiles, {dense}>",
                                       pairs)
         say(f"phase 15 time {name} at N={planes[0].shape[0]}"
             + ("" if cutoff is None else f", {cutoff:g} m cutoff")
@@ -1140,13 +1144,14 @@ def family_paths(dev, zero, drive, profile_steps, step_ms, launches):
 
 
 def feed_work(kind, planes, src, k, neigh_dist):
-    """``(bound_ms, bound_by, pairs, kept)`` of one wall-feed launch on
-    these planes: each input read once and each output written once; for
+    """``(bound_ms, bound_by, pairs, kept, points)`` of one wall-feed launch
+    on these planes: each input read once and each output written once; for
     every (feature, alive pedestrian) pair within the feature's circle
     inflated by the neighbour distance (what a spatial index would still
     have to look at), the projection on a segment or the scan of a chunk's
     real points, and for every candidate within the neighbour distance its
-    insertion into the running list (``topk`` kinds)."""
+    insertion into the running list (``topk`` kinds).  ``points``: the
+    chunk points those pairs scan (the census unit of the chunk top-k)."""
     import torch
     from carla_social_force_model_tpu_torch.env.pointsets import PAD_COORD
     from carla_social_force_model_tpu_torch.ops.geometry import (
@@ -1164,7 +1169,7 @@ def feed_work(kind, planes, src, k, neigh_dist):
         per = SCAN_OPS * real.float()
         feat_bytes = 8 * src.x.numel() + 3 * 4 * cx.shape[0]
     nd2 = squared_reach(neigh_dist)
-    pairs = kept = 0
+    pairs = kept = points = 0
     ops = 0.0
     for lo in range(0, n, 2048):
         px, py = x[lo:lo + 2048], y[lo:lo + 2048]
@@ -1175,6 +1180,8 @@ def feed_work(kind, planes, src, k, neigh_dist):
               & alive[None, lo:lo + 2048])
         pairs += int(ok.sum())
         ops += float((ok.float() * per[:, None]).sum())
+        if not seg:
+            points += int((ok.float() * real[:, None].float()).sum())
         if kind != "chunk_closest":
             closest = feature_closest_planes if seg else chunk_closest_plain
             d2 = closest(px, py, src, neigh_dist)[0]
@@ -1182,7 +1189,7 @@ def feed_work(kind, planes, src, k, neigh_dist):
     ops += kept * TOPK_OPS
     out = 3 * 4 * n * (k if kind != "chunk_closest" else cx.shape[0])
     n_bytes = 9 * n + feat_bytes + out
-    return (*bound(n_bytes, ops, 0), pairs, kept)
+    return (*bound(n_bytes, ops, 0), pairs, kept, points)
 
 
 def orca_kernel_checks(dev, card, urban):
@@ -1350,18 +1357,19 @@ def orca_kernel_checks(dev, card, urban):
         results[name] = dict(ms=ms_k, plain_ms=plain, bound=bnd[:2])
     for kind, src in feeds.items():
         k = 3
-        kern = "chunk_closest_kernel" if kind == "chunk_closest" \
-            else "topk_kernel"
-        ms_k = device_ms(lambda: feed_run(kind, planes, src, k), kern)
+        ms_k = device_ms(lambda: feed_run(kind, planes, src, k),
+                         f"{kind}_kernel")
         plain = cuda_ms(lambda: feed_run(kind, planes, src, k, plain=True),
                         reps=3)
         bnd = feed_work(kind, planes, src, k, nd)
+        floor = ("; " + floor_note("chunk_topk", bnd[4])
+                 if kind == "chunk_topk" else "")
         say(f"phase 18 time {kind}"
             + ("" if kind == "chunk_closest" else f" (k={k})")
             + f", N={N}: kernel {ms_k:.4f} ms on "
             f"the device, plain {plain:.4f} ms, bound {bnd[0]:.6f} ms "
             f"({bnd[1]}; {bnd[2]} in-filter pairs, {bnd[3]} within "
-            f"{nd:g} m) ({card})")
+            f"{nd:g} m){floor} ({card})")
         results[kind] = dict(ms=ms_k, plain_ms=plain, bound=bnd[:2])
     return worst, results
 
@@ -1626,7 +1634,8 @@ def scenario_kernel_checks(dev, card, town):
     say(f"phase 21 time chunk_argmin at the Town02 crowd's shape ({c} chunks "
         f"of {kk} points, N={n}): kernel {ms:.4f} ms on the device, plain "
         f"{plain_ms:.4f} ms; bound {bnd[0]:.6f} ms ({bnd[1]}; {c * kk * n} "
-        f"pairs x {ARGMIN_OPS} operations, {n_bytes} bytes) ({card})")
+        f"pairs x {ARGMIN_OPS} operations, {n_bytes} bytes); "
+        f"{floor_note('chunk_argmin', c * kk * n)} ({card})")
     return {"chunk_argmin": worst}, dict(ms=ms, plain_ms=plain_ms, bound=bnd)
 
 
@@ -3025,26 +3034,21 @@ def plain_cfg(cfg):
                                plain_env_force=True)
 
 
-def check_rollout(label, scene, params, cfg, state, rec_plain, free_limit):
-    """The kernels' PARITY_STEPS-step rollout against the plain versions'.
-
-    At every step the plain versions step again from the kernels' own state
-    (with a reactive fleet, the kernels' own fleet state too) and must land
-    within POS_STEP_TOL_M of the kernels' step, with equal modes and alive
-    masks (and an equal fleet state) and finite positions: the one-step
-    error, which no earlier difference can amplify.  The free-running distance to the
-    plain rollout ``rec_plain`` is printed, and, where ``free_limit``, held
-    to POS_TOL_M with equal modes and alive masks."""
+def one_step_walk(scene, params, cfg, state, steps):
+    """The kernels' rollout of ``steps`` steps of a prepared scene, and from
+    each of its states the plain versions' step (with a reactive fleet, from
+    the kernels' own fleet state too).  Yields ``(k, s, nxt, ref, rec,
+    fleet_equal)``: the state ``s`` before step k, the kernels' and the
+    plain versions' next states, the kernels' record, and whether both
+    fleet states agree."""
     import torch
     from carla_social_force_model_tpu_torch.models import stepper
-    scene = stepper.prepare_scene(scene, analytic=cfg.env_analytic,
-                                  orca=params.enable_orca,
-                                  chunked=cfg.env_chunked)
     ref_cfg = plain_cfg(cfg)
     fleet = scene.autopilot
     ap = fleet.initial_state() if fleet is not None else None
-    s, one, free, free_modes = state, [], [], 0
-    for k in range(PARITY_STEPS):
+    s = state
+    for k in range(steps):
+        fleet_equal = True
         if fleet is None:
             nxt, rec = stepper.simulation_step(s, scene, params, cfg, k)
             ref, _ = stepper.simulation_step(s, scene, params, ref_cfg, k)
@@ -3052,14 +3056,112 @@ def check_rollout(label, scene, params, cfg, state, rec_plain, free_limit):
             nxt, ap_k, rec = stepper.fleet_tick(s, ap, scene, params, cfg, k)
             ref, ap_r, _ = stepper.fleet_tick(s, ap, scene, params, ref_cfg,
                                               k)
-            if not all(torch.equal(getattr(ap_k, f), getattr(ap_r, f))
-                       for f in ap_k.__dataclass_fields__):
-                fail(f"{label}: step {k} from the same state gives another "
-                     f"fleet state through the kernels than through the "
-                     f"plain versions")
+            fleet_equal = all(torch.equal(getattr(ap_k, f), getattr(ap_r, f))
+                              for f in ap_k.__dataclass_fields__)
             ap = ap_k
-        one.append(max((nxt.pos_x - ref.pos_x).abs().max().item(),
-                       (nxt.pos_y - ref.pos_y).abs().max().item()))
+        yield k, s, nxt, ref, rec, fleet_equal
+        s = nxt
+
+
+def step_gap(nxt, ref):
+    """Per-agent L-inf distance of two states' positions."""
+    import torch
+    return torch.maximum((nxt.pos_x - ref.pos_x).abs(),
+                         (nxt.pos_y - ref.pos_y).abs())
+
+
+def worst_agent_note(scene, params, cfg, k, s, nxt, ref):
+    """Who set a step's one-step error: the agent whose position differs
+    most between the kernels' step ``nxt`` and the plain versions' ``ref``
+    from the state ``s`` of step k; its position and nearest neighbour, its
+    net pair force through the kernels and the plain versions on ``s``,
+    sum_j |f_ij| of its Moussaid pair forces (plain, pair by pair) with the
+    float32 ulp of that sum, and whether the speed cap bound its velocity
+    in either step.  Uncapped, a force difference df moves the position by
+    dt^2 |df|; capped at v_max, by about dt v_max |df| / |F| (the
+    direction turns)."""
+    import torch
+    from carla_social_force_model_tpu_torch.models import stepper
+    from carla_social_force_model_tpu_torch.models.spawn import apply_spawn
+    from carla_social_force_model_tpu_torch.ops import forces
+    gap = step_gap(nxt, ref)
+    i = int(gap.argmax())
+    st = apply_spawn(s, scene.spawn, k)
+    dist = torch.hypot(st.pos_x - st.pos_x[i], st.pos_y - st.pos_y[i])
+    dist[i] = float("inf")
+    dist[~st.alive] = float("inf")
+    j = int(dist.argmin())
+    note = (f"step {k}: agent {i} at ({st.pos_x[i].item():.6f}, "
+            f"{st.pos_y[i].item():.6f}), gap {gap[i].item():.3e} m, nearest "
+            f"alive agent {j} at {dist[j].item():.5f} m")
+    # the callers count the launches of the rollout: these do not count
+    saved = [dict(m.LAUNCHES) for m in kernel_modules()]
+    kt = stepper.force_terms(st, scene, params, cfg)
+    for m, launches in zip(kernel_modules(), saved):
+        m.LAUNCHES.update(launches)
+    pt = stepper.force_terms(st, scene, params, plain_cfg(cfg))
+    for name in ("pedestrian_force", "powerlaw_force",
+                 "ped_repulsive_force"):
+        if name not in kt:
+            continue
+        fk = (kt[name][0][i].item(), kt[name][1][i].item())
+        fp = (pt[name][0][i].item(), pt[name][1][i].item())
+        df = ((fk[0] - fp[0]) ** 2 + (fk[1] - fp[1]) ** 2) ** 0.5
+        note += (f"; {name} kernels ({fk[0]:.7g}, {fk[1]:.7g}), plain "
+                 f"({fp[0]:.7g}, {fp[1]:.7g}), |df| {df:.4g}, |F| "
+                 f"{(fp[0] ** 2 + fp[1] ** 2) ** 0.5:.6g}")
+    if params.enable_pedestrian:
+        ok = st.alive & st.alive[i]
+        ok[i] = False
+        if cfg.interaction_cutoff is not None:
+            ok = ok & (dist <= float(cfg.interaction_cutoff))
+        rsub = (st.radius[i] + st.radius) if params.use_ped_radius else 0.0
+        fx, fy = forces._moussaid_pair_force(
+            st.pos_x - st.pos_x[i], st.pos_y - st.pos_y[i], rsub,
+            st.vel_x[i] - st.vel_x, st.vel_y[i] - st.vel_y,
+            params.pedestrian, ok)
+        mag = torch.hypot(fx, fy)
+        total = float(mag.double().sum())
+        ulp = 2.0 ** (math.floor(math.log2(max(total, 1e-30))) - 23)
+        note += (f"; sum_j |f_ij| {total:.6g} over {int((mag > 0).sum())} "
+                 f"pairs (largest {mag.max().item():.6g}), ulp of the sum "
+                 f"{ulp:.3g}, dt^2 ulp {cfg.dt ** 2 * ulp:.3g} m")
+    vmax = (torch.where(st.alive, st.fsm_target, st.applied_target)[i].item()
+            * params.max_speed_factor)
+    for tag, q in (("kernels", nxt), ("plain", ref)):
+        speed = torch.hypot(q.vel_x[i], q.vel_y[i]).item()
+        capped = speed >= vmax * (1.0 - 1e-5)
+        note += (f"; {tag} speed {speed:.6f} of v_max {vmax:.6f} "
+                 f"({'capped' if capped else 'not capped'})")
+    return note
+
+
+def check_rollout(label, scene, params, cfg, state, rec_plain, free_limit):
+    """The kernels' PARITY_STEPS-step rollout against the plain versions'.
+
+    At every step the plain versions step again from the kernels' own state
+    (with a reactive fleet, the kernels' own fleet state too) and must land
+    within POS_STEP_TOL_M of the kernels' step, with equal modes and alive
+    masks (and an equal fleet state) and finite positions: the one-step
+    error, which no earlier difference can amplify.  The agent of the
+    worst step is named (``worst_agent_note``).  The free-running distance
+    to the plain rollout ``rec_plain`` is printed, and, where
+    ``free_limit``, held to POS_TOL_M with equal modes and alive masks."""
+    import torch
+    from carla_social_force_model_tpu_torch.models import stepper
+    scene = stepper.prepare_scene(scene, analytic=cfg.env_analytic,
+                                  orca=params.enable_orca,
+                                  chunked=cfg.env_chunked)
+    one, free, free_modes, worst = [], [], 0, None
+    for k, s, nxt, ref, rec, fleet_equal in one_step_walk(
+            scene, params, cfg, state, PARITY_STEPS):
+        if not fleet_equal:
+            fail(f"{label}: step {k} from the same state gives another "
+                 f"fleet state through the kernels than through the "
+                 f"plain versions")
+        one.append(step_gap(nxt, ref).max().item())
+        if worst is None or one[-1] > one[worst[0]]:
+            worst = (k, s, nxt, ref)
         if not (torch.equal(nxt.alive, ref.alive)
                 and torch.equal(nxt.mode, ref.mode)):
             fail(f"{label}: step {k} from the same state gives other modes "
@@ -3073,10 +3175,11 @@ def check_rollout(label, scene, params, cfg, state, rec_plain, free_limit):
             (rec.pos_y - rec_plain.pos[k, :, 1]).abs().max().item()))
         free_modes += int((rec.mode != rec_plain.mode[k]).sum()
                           + (rec.alive != rec_plain.alive[k]).sum())
-        s = nxt
     say(f"{label} one-step position L-inf kernels vs plain from the same "
         f"state, steps 1..{PARITY_STEPS} (limit {POS_STEP_TOL_M:g} m): "
         + " ".join(f"{v:.2e}" for v in one))
+    say(f"{label} worst one-step agent, "
+        + worst_agent_note(scene, params, cfg, *worst))
     say(f"{label} free-running position L-inf kernels vs plain, steps "
         f"1..{PARITY_STEPS} ("
         + (f"limit {POS_TOL_M:g} m" if free_limit else "printed only") + "): "

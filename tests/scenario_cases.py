@@ -61,6 +61,38 @@ def to_device(x, y, alive, device):
             torch.from_numpy(alive).to(device))
 
 
+def stacked_chunk_planes(c, k, seed=0):
+    """Staged (c, k) chunk planes (numpy float32) that stack exact ties:
+    every chunk repeats the four points (+-1, 0), (0, +-1) around one of
+    four centres in blocks whose order puts equal distances in every
+    sub-group and at both ends of each 32-point sub-group, a tail of
+    ``PAD_COORD`` after a random real length, every fifth chunk a copy of
+    the one before (ties across chunks), and every seventh chunk all
+    ``PAD_COORD``.  Returns ``(fx, fy, centres)``: the pedestrians that
+    meet the most ties stand on the centres."""
+    from carla_social_force_model_tpu_torch.env.pointsets import PAD_COORD
+    rng = np.random.default_rng(seed)
+    centres = np.array([[0.0, 0.0], [3.0, -2.0], [-4.0, 5.0], [7.5, 7.5]],
+                       np.float32)
+    ring = np.array([[1.0, 0.0], [-1.0, 0.0], [0.0, 1.0], [0.0, -1.0]],
+                    np.float32)
+    fx = np.full((c, k), PAD_COORD, np.float32)
+    fy = np.full((c, k), PAD_COORD, np.float32)
+    for ch in range(c):
+        if ch % 7 == 6:
+            continue
+        if ch % 5 == 4:
+            fx[ch], fy[ch] = fx[ch - 1], fy[ch - 1]
+            continue
+        length = int(rng.integers(1, k + 1))
+        cen = centres[rng.integers(0, 4, length)]
+        pts = cen + ring[rng.integers(0, 4, length)] * rng.choice(
+            [1.0, 2.0], (length, 1)).astype(np.float32)
+        pts[31::32] = pts[0::32][:len(pts[31::32])]   # ends of sub-groups
+        fx[ch, :length], fy[ch, :length] = pts[:, 0], pts[:, 1]
+    return fx, fy, centres
+
+
 def chunk_scan_pair(px, py, pset_dev):
     """The chunk scan through its entry (the kernel on a card) and its
     plain version on the same inputs: ``((dmin, idx), (dmin, idx))``."""
@@ -88,5 +120,5 @@ def closest_mismatches(got, want):
 
 
 __all__ = ["DEAD_COORD", "seeded_chunk_set", "seeded_crowd_planes",
-           "to_device", "chunk_scan_pair", "closest_pair", "scan_mismatches",
+           "stacked_chunk_planes", "to_device", "chunk_scan_pair", "closest_pair", "scan_mismatches",
            "closest_mismatches", "chunked_on"]

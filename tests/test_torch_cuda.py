@@ -36,7 +36,8 @@ from shard_cases import (law_params, limit, plain_pairs, rect_case,
                          ring_case, shard_planes, split, sym_dense_case)
 from scenario_cases import (chunk_scan_pair, chunked_on, closest_mismatches,
                             closest_pair, scan_mismatches, seeded_chunk_set,
-                            seeded_crowd_planes, to_device)
+                            seeded_crowd_planes, stacked_chunk_planes,
+                            to_device)
 
 pytestmark = pytest.mark.cuda
 
@@ -115,6 +116,93 @@ def test_kernel_matches_plain_version_on_stacked_starts(cuda_device, kernel):
         want = torch.stack(forces.pedestrian_force(*planes, p))
         got = torch.stack(getattr(cuda_forces, kernel)(
             *planes, moussaid_vector(p, cuda_device)))
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def theta_zero_pairs(device, p, attempts=200, spread=32, seed=7):
+    """Two-agent crowds whose pair has atan2(cross, dot) equal to minus the
+    float32 product B * -eps: the plain version's theta is then exactly 0
+    (no tangential term), where a sum that kept the product's rounding
+    error (an FMA) would give theta a sign and the pair a tangential term
+    of A exp(-d / B).  Agent 0 stands at the origin with velocity (dv, 0),
+    agent 1 at rest near the root of theta(psi) = 0 on a circle of radius
+    r (float64 bisection); its position is varied by up to ``spread`` ulps
+    in x and y, and the plain version's float32 arithmetic on the card
+    keeps the positions where theta is 0 and the fused sum is not.  Returns
+    a list of planes (x, y, vx, vy, radius, alive)."""
+    rng = np.random.default_rng(seed)
+    lam, gamma = np.float64(p.lambda_), np.float64(p.gamma)
+    eps = np.float64(np.float32(p.epsilon))
+    r = rng.uniform(0.4, 1.2, attempts)
+    dv = rng.uniform(0.5, 2.0, attempts).astype(np.float32)
+
+    def g(psi):  # theta of the pair with the partner at angle psi
+        tx, ty = lam * dv + np.cos(psi), np.sin(psi)
+        t_len = np.hypot(tx, ty)
+        ang = np.arctan2(tx * np.sin(psi) - ty * np.cos(psi),
+                         tx * np.cos(psi) + ty * np.sin(psi))
+        return ang - gamma * t_len * eps
+
+    lo, hi = np.full(attempts, -0.5), np.full(attempts, 0.5)
+    assert bool((np.sign(g(lo)) != np.sign(g(hi))).all())
+    for _ in range(80):
+        mid = 0.5 * (lo + hi)
+        left = np.sign(g(mid)) == np.sign(g(lo))
+        lo, hi = np.where(left, mid, lo), np.where(left, hi, mid)
+    x0 = (r * np.cos(lo)).astype(np.float32)
+    y0 = (r * np.sin(lo)).astype(np.float32)
+    k = np.arange(-spread, spread + 1, dtype=np.float32)
+    xs = x0[:, None, None] + k[None, :, None] * np.spacing(x0)[:, None, None]
+    ys = y0[:, None, None] + k[None, None, :] * np.spacing(y0)[:, None, None]
+    xs, ys = np.broadcast_arrays(xs, ys)
+    dx = torch.from_numpy(np.ascontiguousarray(xs.reshape(attempts, -1))).to(
+        device)
+    dy = torch.from_numpy(np.ascontiguousarray(ys.reshape(attempts, -1))).to(
+        device)
+    dvx = torch.from_numpy(dv).to(device)[:, None].expand_as(dx)
+    # the plain version's arithmetic (ops/forces.py _moussaid_pair_force)
+    d2 = dx * dx + dy * dy
+    rr = torch.rsqrt(d2)
+    ex, ey = dx * rr, dy * rr
+    tx = p.lambda_ * dvx + ex
+    ty = p.lambda_ * torch.zeros_like(dvx) + ey
+    t2 = tx * tx + ty * ty
+    rt = torch.rsqrt(t2)
+    thx, thy = tx * rt, ty * rt
+    b = p.gamma * (t2 * rt)
+    ang = torch.atan2(thx * ey - thy * ex, ex * thx + ey * thy)
+    theta = ang + b * (-p.epsilon)
+    fused = ang.double() + b.double() * (-eps)
+    hit = (theta == 0) & (fused != 0)
+    out = []
+    for a in range(attempts):
+        idx = torch.nonzero(hit[a])
+        if idx.numel() == 0:
+            continue
+        j = int(idx[0, 0])
+        xj, yj = dx[a, j].item(), dy[a, j].item()
+        out.append([torch.tensor(v, dtype=dt, device=device) for v, dt in (
+            ([0.0, xj], torch.float32), ([0.0, yj], torch.float32),
+            ([float(dv[a]), 0.0], torch.float32), ([0.0, 0.0], torch.float32),
+            ([0.3, 0.3], torch.float32), ([True, True], torch.bool))])
+    return out
+
+
+@pytest.mark.parametrize("kernel", ["pair_force_sym", "pair_force_dense"])
+def test_kernel_keeps_a_zero_theta(cuda_device, kernel):
+    """Pairs whose theta is exactly 0 in the plain version (atan2 equal to
+    minus the rounded product B * -eps): the kernels add the two rounded
+    on their own, so the tangential term stays 0 and the force matches
+    (|err| <= 1e-4 + 1e-4*|f|).  With the product fused into the sum the
+    kernels gave these pairs a tangential term of A exp(-d / B)."""
+    p = MoussaidParams()
+    cases = theta_zero_pairs(cuda_device, p)
+    assert len(cases) >= 8
+    prm = moussaid_vector(p, cuda_device)
+    for planes in cases:
+        want = torch.stack(forces.pedestrian_force(*planes, p))
+        got = torch.stack(getattr(cuda_forces, kernel)(*planes, prm))
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
@@ -817,6 +905,94 @@ def test_chunk_argmin_checks_and_empty(cuda_device):
     assert statics.LAUNCHES["chunk_argmin"] == before
 
 
+@pytest.mark.parametrize("c, k, n", [
+    (19, 128, 1), (19, 128, 513), (150, 128, 10_008), (9, 200, 1_007),
+    (13, 64, 2_049), (7, 130, 777), (3, 1_100, 600), (2, 1_030, 129)])
+def test_chunk_argmin_on_stacked_ties_is_bitwise(cuda_device, c, k, n):
+    """The chunk scan where equal distances stack: four points around each
+    of four centres repeated through every chunk, equal points at both
+    ends of each 32-point sub-group, whole chunks repeated, all-PAD chunks,
+    pedestrians standing on the centres; crowds that fill no whole block,
+    chunk counts that fill no whole group of staged chunks, rows of 64-200
+    slots (whole groups), 130 (copied a float at a time) and over 1,024
+    (a chunk staged in pieces).  dmin and idx equal the plain version's
+    bitwise."""
+    from carla_social_force_model_tpu_torch.ops import geometry, statics
+    fx, fy, centres = stacked_chunk_planes(c, k, seed=c + k)
+    rng = np.random.default_rng(n)
+    xy = rng.uniform(-6.0, 9.0, (n, 2)).astype(np.float32)
+    on = min(n, 64)
+    xy[:on] = centres[np.arange(on) % 4]
+    px, py = (torch.from_numpy(xy[:, i].copy()).to(cuda_device)
+              for i in (0, 1))
+    fxt, fyt = (torch.from_numpy(a).to(cuda_device) for a in (fx, fy))
+    before = statics.LAUNCHES["chunk_argmin"]
+    got = statics.chunk_argmin(px, py, fxt, fyt)
+    want = geometry.chunk_argmin_plain(px, py, fxt, fyt)
+    torch.cuda.synchronize()
+    assert statics.LAUNCHES["chunk_argmin"] == before + 1
+    assert scan_mismatches(got, want) == 0
+    # the case holds ties: some minimum is met again after its first slot
+    d2 = ((fxt[:, :, None] - px[None, None, :on]) ** 2
+          + (fyt[:, :, None] - py[None, None, :on]) ** 2)
+    assert int((d2 == want[0][:, None, :on]).sum()) > c * on
+
+
+def tie_chunk_features(seed, device):
+    """ORCA chunk features whose points repeat at neighbouring slots (two
+    lanes of the chunk top-k) and eight slots apart (one lane), with four
+    whole segments repeated (ties across chunks), and a seeded crowd of
+    3,000 with some pedestrians standing on points, Hilbert-sorted with
+    10% dead: ``(features, planes)``."""
+    from carla_social_force_model_tpu_torch.env.pointsets import (
+        build_chunked_pointset, chunk_features)
+    rng = np.random.default_rng(seed)
+    lists = []
+    for _ in range(12):
+        pts = rng.uniform(-15.0, 15.0, (int(rng.integers(20, 300)), 2))
+        pts[1::9] = pts[0::9][:len(pts[1::9])]
+        pts[8::17] = pts[0::17][:len(pts[8::17])]
+        lists.append(pts.astype(np.float32))
+    lists += lists[:4]
+    s = len(lists)
+    pset = build_chunked_pointset(lists, np.zeros((s, 2), np.float32),
+                                  np.ones(s, np.float32))
+    n = 3000
+    xy = rng.uniform(-20.0, 20.0, (n, 2)).astype(np.float32)
+    xy[:50] = lists[0][:50]
+    alive = rng.uniform(size=n) >= 0.1
+    planes = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+              for a in (xy[:, 0], xy[:, 1], alive)]
+    perm, _ = morton_order(planes[0], planes[1], planes[2], "hilbert")
+    x, y, alive = (a[perm].contiguous() for a in planes)
+    return chunk_features(pset, device), [x, y, None, None, None, alive]
+
+
+@pytest.mark.parametrize("k", [1, 3, 8])
+def test_chunk_topk_keeps_ties_across_chunks_and_lanes(cuda_device, k):
+    """The chunk top-k on ties across chunks (repeated segments) and
+    across the lanes of one chunk's scan (equal points one slot and eight
+    slots apart): d2, the points and the selection equal the plain
+    version's bitwise, with the alive rows' boxes and with every row's,
+    and scanning each chunk to its real length or every slot."""
+    from carla_social_force_model_tpu_torch.ops import statics
+    src, planes = tie_chunk_features(40 + k, cuda_device)
+    assert int(src.lengths.max()) == src.chunk_size
+    assert int(src.lengths.min()) < src.chunk_size
+    want = feed_run("chunk_topk", planes, src, k, plain=True)
+    every = dataclasses.replace(src, lengths=torch.full_like(
+        src.lengths, src.chunk_size))
+    for lens in (src, every):
+        for use_alive in (True, False):
+            before = statics.LAUNCHES["chunk_topk"]
+            got = feed_run("chunk_topk", planes, lens, k, use_alive=use_alive)
+            torch.cuda.synchronize()
+            assert statics.LAUNCHES["chunk_topk"] == before + 1
+            rows = planes[5] if use_alive else torch.ones_like(planes[5])
+            assert feed_mismatch("chunk_topk", got, want, rows) == 0
+    assert bool(torch.isfinite(want[0]).any())
+
+
 def test_scenario_steps_through_kernels_match_plain_steps(cuda_device):
     """A shipped scenario with borders, parked cars and the chunked
     environment path (obstacle_evasion): 30 steps through the kernels, each
@@ -1418,29 +1594,31 @@ def test_ring_kernel_on_ragged_shards(cuda_device, n_shards, n_local,
 @pytest.mark.parametrize("cutoff", [None, 8.0])
 @pytest.mark.parametrize("law", ["moussaid", "powerlaw", "helbing"])
 def test_ring_kernel_takes_large_shards(cuda_device, law, cutoff):
-    """The ring at the most agents it must take: D = 4 virtual devices of
-    floor(3 * SMs / 4) * 128 agents each (N = 50,688 on 132 SMs), one
-    block of 128 rows (4 per thread) per 128 agents at 3 resident blocks
-    an SM.  Against the plain ring and the gathered dense kernel, and
-    relaunched bitwise equal; one block more raises (CUDA error 720)
-    rather than launch a grid that cannot be resident at once."""
+    """The ring at twice the agents that one block per 128-row set could
+    hold resident (3 blocks an SM): D = 4 virtual devices of
+    2 * floor(3 * SMs / 4) * 128 agents each (N = 101,376 on 132 SMs), and
+    D = 1 over the same N, where each block walks several row sets.
+    Against the plain ring and the gathered dense kernel, and relaunched
+    bitwise equal."""
     from carla_social_force_model_tpu_torch.ops import cuda_ring
-    n_shards = 4
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
-    n_local = 3 * sms // n_shards * 128
-    planes = shard_planes(n_local * n_shards, seed=31, device=cuda_device,
-                          n_shards=n_shards, sort=cutoff is not None)
-    got, want, lim, dense = ring_case(law, planes, n_shards, cutoff)
-    again, *_ = ring_case(law, planes, n_shards, cutoff)
-    torch.cuda.synchronize()
-    assert torch.isfinite(got).all()
-    assert bool(((got - want).abs() <= lim).all())
-    assert bool(((got - dense).abs() <= 2 * lim).all())
-    assert bool((got[:, ~planes[5]] == 0).all())
-    assert torch.equal(got, again)
-    big = shard_planes((n_local + 128) * n_shards, seed=32,
-                       device=cuda_device, n_shards=n_shards)
-    before = cuda_ring.LAUNCHES["ring_force"]
-    with pytest.raises(RuntimeError, match="CUDA error 720"):
-        ring_case(law, big, n_shards, cutoff)
-    assert cuda_ring.LAUNCHES["ring_force"] == before
+    n = 2 * (3 * sms // 4 * 128) * 4
+    for n_shards in (4, 1):
+        planes = shard_planes(n, seed=31, device=cuda_device,
+                              n_shards=n_shards, sort=cutoff is not None)
+        before = cuda_ring.LAUNCHES["ring_force"]
+        got, want, lim, dense = ring_case(law, planes, n_shards, cutoff)
+        x, y, vx, vy, rad, alive, ex, ey = planes
+        hel = law == "helbing"
+        again = torch.stack(cuda_ring.ring_force(
+            x, y, vx, vy, None if hel else rad, alive,
+            cuda_forces.law_vector(law, law_params(law), cuda_device),
+            n_shards, law=law, desired=(ex, ey) if hel else None,
+            cutoff=cutoff))
+        torch.cuda.synchronize()
+        assert cuda_ring.LAUNCHES["ring_force"] == before + 2
+        assert torch.isfinite(got).all()
+        assert bool(((got - want).abs() <= lim).all()), n_shards
+        assert bool(((got - dense).abs() <= 2 * lim).all()), n_shards
+        assert bool((got[:, ~alive] == 0).all())
+        assert torch.equal(got, again)

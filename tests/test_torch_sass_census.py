@@ -47,25 +47,49 @@ def test_layout_constants_are_read_from_the_sources():
     ("pair_force_dense<kAllTiles, Moussaid>", "kDenseRows"),
     ("pair_force_dense<kTable, Moussaid>", "kDenseRows"),
     ("pair_force_dense<kAllTiles, Helbing>", "kDenseRows"),
+    ("pair_force_dense<kAllTiles, PowerLaw>", "kDenseRows"),
     ("ring_force<false, Moussaid>", "kRingRows")])
 def test_dense_walk_and_ring_entries_name_their_rows_per_thread(label,
                                                                  const):
     """The dense walks' and the ring's census entries name the constant of
     their rows per thread, and csrc/ sets it to 1, 2 or 4 (a lane's rows of
     a 128-row table tile).  The ring is a template of its rows per thread
-    (a launch takes R = kRingRows, 2 kRingRows or 4 kRingRows, the least
-    that fits): its entry counts the R = kRingRows instantiation, the one
-    the main path's 10,000 agents take."""
+    and of whether its blocks walk several row sets; a launch takes R =
+    kRingRows with one row set a block where that grid is resident (the
+    main path's 10,000 agents), else with several: its entry counts the
+    former."""
     entry = {k[0]: k for k in sass_census.KERNELS}[label]
     rows = sass_census.layout_constants(ROOT)[const]
     assert entry[5] == const
     assert rows in (1, 2, 4)
     if const == "kRingRows":
-        assert entry[1].endswith(f", {rows}>")
+        assert entry[1].endswith(f", {rows}, false>")
         src = (ROOT / "carla_social_force_model_tpu_torch" / "csrc"
                / "ring.cu").read_text()
-        for r in ("kRingRows", "2 * kRingRows", "4 * kRingRows"):
-            assert f"ring_try<kCutoff, Law, {r}>" in src
+        assert "ring_force_kernel<kCutoff, Law, kRingRows, kMulti>" in src
+        for multi in ("false", "true"):
+            assert f"ring_try<kCutoff, Law, {multi}>" in src
+
+
+@pytest.mark.parametrize("label, prefix, const, unit", [
+    ("chunk_argmin", "chunk_argmin_kernel", "kArgminRows", "pair"),
+    ("chunk_topk", "chunk_topk_kernel", "kTopkLanes", "point")])
+def test_chunk_scan_entries_name_their_layout(label, prefix, const, unit):
+    """The chunk scan's and the chunk top-k's entries count their own
+    kernels of statics.cu (whose objects the census disassembles) per
+    (point, pedestrian) pair or scanned point, by the two products of its
+    squared distance, with R pedestrians per thread or L lanes per
+    pedestrian read from the source."""
+    entry = {k[0]: k for k in sass_census.KERNELS}[label]
+    assert entry[1] == prefix and entry[4] == unit and entry[5] == const
+    assert entry[2] == ("FMUL", "pair_forces.cuh", None) and entry[3] == 2
+    assert b"_statics_cu_" in sass_census.SOURCES
+    value = sass_census.layout_constants(ROOT)[const]
+    if const == "kTopkLanes":
+        assert const in sass_census.LANE_CONSTANTS and 32 % value == 0
+    else:
+        assert const not in sass_census.LANE_CONSTANTS
+        assert value in (1, 2, 4, 8)
 
 
 def test_special_lines_cover_every_law():
@@ -103,6 +127,47 @@ def test_loop_census_counts_one_trip_per_marker_pair():
     assert got["groups_per_unit"] == {"law": 0, "special": 3, "memory": 1,
                                       "control": 2}
     assert got["mufu_per_unit"] == 2
+
+
+#: a scan loop: four FMNMX of one distance whose two products sit on
+#: sq_norm_rn's line, one shared load, and a forward branch out of the loop
+ARGMIN_LISTING = """
+\t.section\t.text._Z6argminv,"ax",@progbits
+.L_x_3:
+\t//## File "statics.cu", line 40
+        /*0000*/                   LDS.128 R2, [R3] ;
+\t//## File "pair_forces.cuh", line 51
+        /*0010*/                   FMUL R4, R2, R2 ;
+        /*0020*/                   FMUL R5, R3, R3 ;
+        /*0030*/                   FADD R6, R4, R5 ;
+\t//## File "statics.cu", line 44
+        /*0040*/                   FMNMX R7, R7, R6, PT ;
+        /*0050*/                   FMNMX R8, R8, R6, PT ;
+        /*0060*/                   FMNMX R9, R9, R6, PT ;
+        /*0070*/                   FMNMX R10, R10, R6, PT ;
+        /*0080*/                   FSETP.GEU.AND P1, PT, R7, R11, PT ;
+        /*0090*/               @!P1 BRA `(.L_x_4) ;
+        /*00a0*/                   ISETP.GE.AND P0, PT, R12, R13, PT ;
+        /*00b0*/               @!P0 BRA `(.L_x_3) ;
+.L_x_4:
+        /*00c0*/                   EXIT ;
+"""
+
+
+@pytest.mark.parametrize("marker, per_unit, units, memory", [
+    (("FMNMX", None, None), 1, 4, 0.25),
+    (("FMUL", "pair_forces.cuh", None), 2, 1, 1.0)])
+def test_loop_census_counts_chunk_scan_pairs(marker, per_unit, units,
+                                             memory):
+    """A marker of one instruction a unit (FMNMX) and one of two (the
+    FMULs of sq_norm_rn, on their source file only) count the same loop,
+    whose forward branch is not a loop of its own."""
+    insts = sass_census.parse(ARGMIN_LISTING)["_Z6argminv"]
+    got = sass_census.loop_census(insts, marker, per_unit, {})
+    assert got["loop_instructions"] == 12
+    assert got["units_per_trip"] == units
+    assert got["per_unit"] == 12 / units
+    assert got["groups_per_unit"]["memory"] == memory
 
 
 def test_floor_ms():

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Device times of the redesigned pair, ring and environment kernels at
-the main paths' shapes, for one checkout of the port, on one card.
+"""Device times of the redesigned pair, ring, environment and chunk-scan
+kernels at the main paths' shapes, for one checkout of the port, on one
+card.
 
 The shapes, and the builders of their inputs, are ``chip_smoke.py``'s (of
 this checkout): phase 3 (config #1's seeded crowd, N = 10,000:
@@ -20,18 +21,25 @@ phase 6 (config #3 at 10,000: ``env_exp`` on the borders,
 ``env_moussaid_compact`` on the parked cars), phase 12
 (``env_exp_compact`` on the urban borders) and phase 18
 (``env_exp_analytic`` on config #3's analytic borders,
-``env_exp_analytic_compact`` on the urban ones with a table of width 4).
+``env_exp_analytic_compact`` on the urban ones with a table of width 4),
+and with ``--cases statics`` phase 21 (``chunk_argmin`` at the Town02
+crowd's shape: its 150 border chunks of 128 points against its 10,008
+pedestrians after 10 steps) and phase 18 (``chunk_topk`` over config
+#3's 169 parked-car chunks at N = 10,000, k = 3, the alive rows' boxes).
 Each time is the profiler's device time of the named kernel over 20
 launches (5 at 1M), ``chip_smoke.device_ms``; before them, the errors of
 the Moussaid pair kernels against their plain versions as phases 3, 9
 and 24 check them (the fast tail moves them).
 
     python3 tools/kernel_redesign_bench.py [--root DIR] [--label NAME] \\
-        [--out FILE] [--cases sym,env,dense,capacity]
+        [--out FILE] [--cases sym,env,dense,statics,capacity]
 
-``--cases capacity`` finds, by bisection on the launch's refusal, the most
-agents per device that one ``ring_force`` launch takes at D = 1, 4 and 8,
-for each law with and without the cutoff (one JSON line each).
+``--cases capacity`` asks, for each law with and without the cutoff and at
+D = 1, 4 and 8, whether one ``ring_force`` launch takes twice the agents
+per device that one resident block per 128 rows could hold (3 blocks an
+SM: 2 x floor(3 x SMs / D) x 128; one JSON line each), and times the ring
+at D = 4 over N = 10,000 and over N = 2 x 50,688 agents (on 132 SMs) at
+D = 4 and D = 1 (``"ms": null`` where the launch is refused).
 
 ``--root`` is the checkout whose package is imported and whose kernels are
 built (into its own ``build/``).  One JSON line per time goes to standard
@@ -40,7 +48,8 @@ directory that ``.gitignore`` lists and run the tool on each in one call on
 the card, in turns (parent, change, change, parent); to compare a layout
 constant (``kSymRows``, ``kSymRowsCut``, ``kDenseRows``, ``kDenseCols``
 in ``csrc/pair_forces.cu``, ``kRingRows`` in ``csrc/ring.cu``,
-``kEnvLanes`` in ``csrc/env_forces.cu``), edit it in such a copy.
+``kEnvLanes`` in ``csrc/env_forces.cu``, ``kArgminRows`` and
+``kTopkLanes`` in ``csrc/statics.cu``), edit it in such a copy.
 """
 from __future__ import annotations
 
@@ -162,11 +171,59 @@ def dense_cases(dev):
     return out
 
 
+def statics_cases(dev):
+    """(name, call, kernel name filter, reps) of the chunk scan at the
+    Town02 crowd's shape (phase 21) and the chunk top-k over config #3's
+    parked cars (phase 18)."""
+    from orca_cases import NEIGHBOR_DIST, feed_run, feed_scene
+    from carla_social_force_model_tpu_torch.models import stepper
+    from carla_social_force_model_tpu_torch.ops import geometry, statics
+    cs = smoke()
+    sim, _ = cs.town_crowd(dev)
+    b = sim.bundle
+    scene = stepper.prepare_scene(b.scene, chunked=True)
+    later, _ = stepper.make_rollout_fn(scene, b.params, b.cfg, 10,
+                                       record=False)(b.initial_state)
+    fx, fy = (a.contiguous() for a in geometry.staged_chunk_planes(
+        scene.borders_chunked))
+    px, py = later.pos_x, later.pos_y
+    scene3, _, planes = feed_scene(N, dev)
+    cars = scene3.obstacles_feat.rest
+    return [(f"chunk_argmin Town02 {fx.shape[0]} x {fx.shape[1]} N="
+             f"{px.shape[0]}", lambda: statics.chunk_argmin(px, py, fx, fy),
+             "chunk_argmin_kernel", 20),
+            (f"chunk_topk config #3 cars {cars.num_chunks} N={N} k=3",
+             lambda: feed_run("chunk_topk", planes, cars, 3,
+                              neigh_dist=NEIGHBOR_DIST),
+             "topk_kernel", 20)]
+
+
+def capacity_cases(dev):
+    """(name, call, kernel name filter, reps): the ring at D = 4 over N =
+    10,000 (one row set a block), and over twice the agents one resident
+    block per 128 rows could hold at D = 4 (N = 101,376 on 132 SMs), at
+    D = 4 and D = 1."""
+    import torch
+    import shard_cases as sc
+    from carla_social_force_model_tpu_torch.models.params import (
+        MoussaidParams, moussaid_vector)
+    from carla_social_force_model_tpu_torch.ops import cuda_ring
+    prm = moussaid_vector(MoussaidParams(), dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    big = 2 * (3 * sms // 4 * 128) * 4
+    pl = sc.shard_planes(big, 33, dev, n_shards=4)
+    small = sc.shard_planes(N, 27, dev, n_shards=4)
+    return [(f"ring_force D=4 N={N}", lambda: cuda_ring.ring_force(
+        *small[:6], prm, 4), "ring_force_kernel", 20)] + [
+        (f"ring_force D={d} N={big}", lambda d=d: cuda_ring.ring_force(
+            *pl[:6], prm, d), "ring_force_kernel", 3) for d in (4, 1)]
+
+
 def ring_capacity(dev):
-    """The most agents per device that one launch of ``ring_force`` takes
-    (its grid must be resident at once), by law, cutoff and device count
-    D: {case: n_local}, found by bisection on the launch's refusal (CUDA
-    error 720)."""
+    """Whether one launch of ``ring_force`` takes twice the agents per
+    device that one resident block per 128 rows could hold (3 blocks an
+    SM), by law, cutoff and device count D: {case: (n_local, taken)}; a
+    refusal is CUDA error 720."""
     import torch
     from carla_social_force_model_tpu_torch.ops import cuda_forces, cuda_ring
     import shard_cases as sc
@@ -192,16 +249,14 @@ def ring_capacity(dev):
         torch.cuda.synchronize()
         return True
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for law in ("moussaid", "powerlaw", "helbing"):
         prm = cuda_forces.law_vector(law, sc.law_params(law), dev)
         for cutoff in (None, CUTOFF_M):
             for n_dev in (1, 4, 8):
-                lo, hi = 0, 1 << 18  # takes lo agents, refuses hi
-                while hi - lo > 1:
-                    mid = (lo + hi) // 2
-                    lo, hi = ((mid, hi) if takes(law, prm, n_dev, mid, cutoff)
-                              else (lo, mid))
-                out[f"ring_force {law} cutoff={cutoff} D={n_dev}"] = lo
+                n_local = 2 * (3 * sms // n_dev * 128)
+                out[f"ring_force {law} cutoff={cutoff} D={n_dev}"] = (
+                    n_local, takes(law, prm, n_dev, n_local, cutoff))
     return out
 
 
@@ -358,7 +413,7 @@ def main() -> int:
     ap.add_argument("--out", type=Path, default=None)
     ap.add_argument("--cases", default="sym,env,dense",
                     help="comma-separated groups: sym, env, dense, "
-                    "capacity")
+                    "statics, capacity")
     args = ap.parse_args()
     groups = set(args.cases.split(","))
     root = args.root.resolve()
@@ -384,13 +439,15 @@ def main() -> int:
                                  "max_abs_err": err, "max_rel_err": rel}))
         print(lines[-1], flush=True)
     if "capacity" in groups:
-        for case, n_local in ring_capacity(dev).items():
+        for case, (n_local, taken) in ring_capacity(dev).items():
             lines.append(json.dumps({"root": args.label, "case": case,
-                                     "max_n_local": n_local, "card": card}))
+                                     "n_local": n_local, "taken": taken,
+                                     "card": card}))
             print(lines[-1], flush=True)
-    cases = {"sym": sym_cases, "env": env_cases, "dense": dense_cases}
-    run([c for g in ("sym", "env", "dense") if g in groups
-         for c in cases[g](dev)], args.label, card, lines)
+    cases = {"sym": sym_cases, "env": env_cases, "dense": dense_cases,
+             "statics": statics_cases, "capacity": capacity_cases}
+    run([c for g in ("sym", "env", "dense", "statics", "capacity")
+         if g in groups for c in cases[g](dev)], args.label, card, lines)
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         with args.out.open("a") as f:

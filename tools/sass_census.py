@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""SASS census of the inner loops of the port's pair, ring and environment
-kernels, and the issue-rate floor it gives.
+"""SASS census of the inner loops of the port's pair, ring, environment and
+chunk-scan kernels, and the issue-rate floor it gives.
 
 Builds the kernel library (``utils/cuda_build.py``, compiled with
 ``-lineinfo``), extracts its cubin with ``cuobjdump -xelf``, disassembles
@@ -8,7 +8,8 @@ it with ``nvdisasm -g`` (each instruction with its source line) and, for
 each kernel of ``KERNELS``, finds the innermost loop (a backward branch)
 that holds the kernel's per-unit marker: the two ``expf`` of a Moussaid
 pair (``MUFU.EX2``), the one ``expf`` of a power-law or Helbing pair, the two
-products of the squared distance of a scanned point (``sq_norm_rn``).  The
+products of the squared distance of a scanned point or of a (point,
+pedestrian) pair of the chunk scan (``sq_norm_rn``).  The
 loop's instructions over the units one trip covers give the instructions
 per pair (or per scanned point), split into four groups:
 
@@ -90,8 +91,12 @@ KERNELS = (
     ("pair_force_dense<kAllTiles, Helbing>",
      "pair_force_dense_kernel<0, Helbing", ("MUFU.EX2", None, None), 1,
      "pair", "kDenseRows"),
+    ("pair_force_dense<kAllTiles, PowerLaw>",
+     "pair_force_dense_kernel<0, PowerLaw", ("MUFU.EX2", None, None), 1,
+     "pair", "kDenseRows"),
     ("ring_force<false, Moussaid>",
-     "ring_force_kernel<false, Moussaid, 1>", ("MUFU.EX2", None, None), 2,
+     "ring_force_kernel<false, Moussaid, 1, false>", ("MUFU.EX2", None, None),
+     2,
      "pair", "kRingRows"),
     ("env_force<exp, kAllSections, kSampled>",
      "env_force_kernel<false, 0, 0", ("FMUL", "pair_forces.cuh", None), 2,
@@ -111,7 +116,15 @@ KERNELS = (
     ("env_force<exp, kTable, kAnalytic>",
      "env_force_kernel<false, 1, 1", ("FMUL", "pair_forces.cuh", None), 2,
      "segment", "kEnvLanes"),
+    ("chunk_argmin", "chunk_argmin_kernel", ("FMUL", "pair_forces.cuh", None),
+     2, "pair", "kArgminRows"),
+    ("chunk_topk", "chunk_topk_kernel", ("FMUL", "pair_forces.cuh", None), 2,
+     "point", "kTopkLanes"),
 )
+
+#: the layout constants that count lanes per pedestrian (the rest count
+#: rows, or pedestrians, per thread)
+LANE_CONSTANTS = ("kEnvLanes", "kTopkLanes")
 
 #: the special-function call sites: (file suffix, function whose body
 #: holds them).  Their lines are looked up in the source, so that they
@@ -127,7 +140,8 @@ SPECIAL_CALLS = re.compile(
     r"(?<![A-Za-z_])-?\s*d\s*/|/\s*\(|SFM_SQRT_RN")
 
 #: the mangled-name tags of the sources whose kernels KERNELS lists
-SOURCES = (b"_pair_forces_cu_", b"_env_forces_cu_", b"_ring_cu_")
+SOURCES = (b"_pair_forces_cu_", b"_env_forces_cu_", b"_ring_cu_",
+           b"_statics_cu_")
 
 MEMORY_OPS = ("LDS", "STS", "LDG", "STG", "LD.", "ST.", "LDC", "ATOM",
               "RED", "SHFL", "VOTE", "WARPSYNC", "BAR", "MEMBAR",
@@ -374,7 +388,7 @@ def census(library: Path, out_dir: Path | None = None,
         got = loop_census(funcs[hits[0]], marker, per_unit, special)
         if got is not None:
             got["unit"] = unit
-            got["layout"] = (f"{'L' if const == 'kEnvLanes' else 'R'} = "
+            got["layout"] = (f"{'L' if const in LANE_CONSTANTS else 'R'} = "
                              f"{layout.get(const, 'not set')}")
             got["kernel"] = normalize(names[hits[0]]).split("(")[0]
             if out_dir is not None:

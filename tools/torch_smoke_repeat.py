@@ -11,9 +11,14 @@ and the number of runs in which a recorded rollout's modes or alive masks
 differed from the plain version's.  The rollouts are compared free-running
 (``rollouts``), which ``chip_smoke.py`` holds to ``POS_TOL_M`` for config
 #1 only; ``divergence`` shows, for config #3, the agent and the force terms
-of any run that drifts apart.
+of any run that drifts apart.  ``town`` repeats phase 23's one-step check
+of the Town02 crowd (every step of a ``PARITY_STEPS``-step run through the
+kernels against the plain versions' step from the same state, limit
+``POS_STEP_TOL_M``), counts the runs and steps past the limit and names
+the agent of every run's worst step that comes within a tenth of it.
 
     python3 tools/torch_smoke_repeat.py --reps 20 [--only rollouts,divergence]
+    python3 tools/torch_smoke_repeat.py --reps 100 --only town
 """
 from __future__ import annotations
 
@@ -198,11 +203,42 @@ def divergence(dev, reps):
     stepper.force_terms = force_terms
 
 
+def town(dev, reps):
+    """Phase 23's one-step check of the Town02 crowd, ``reps`` times."""
+    from carla_social_force_model_tpu_torch.models import stepper
+    sim, _ = cs.town_crowd(dev)
+    b = sim.bundle
+    scene = stepper.prepare_scene(b.scene, chunked=b.cfg.env_chunked)
+    tol = cs.POS_STEP_TOL_M
+    runs_over, steps_over, worst_all = 0, 0, 0.0
+    for r in range(reps):
+        worst = None
+        over = 0
+        for k, s, nxt, ref, _, _ in cs.one_step_walk(
+                scene, b.params, b.cfg, b.initial_state, cs.PARITY_STEPS):
+            e = cs.step_gap(nxt, ref).max().item()
+            over += e > tol
+            if worst is None or e > worst[0]:
+                worst = (e, k, s, nxt, ref)
+        runs_over += over > 0
+        steps_over += over
+        worst_all = max(worst_all, worst[0])
+        line = (f"town run {r}: worst one-step {worst[0]:.3e} m at step "
+                f"{worst[1]}, {over} steps past {tol:g} m")
+        if worst[0] > tol / 10:
+            line += "; " + cs.worst_agent_note(scene, b.params, b.cfg,
+                                               *worst[1:])
+        cs.say(line)
+    cs.say(f"town: {runs_over} of {reps} runs past the one-step limit "
+           f"{tol:g} m ({steps_over} steps of {reps * cs.PARITY_STEPS}); "
+           f"worst {worst_all:.3e} m")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--only", default="kernels,rollouts,divergence",
-                    help="comma-separated parts to run")
+                    help="comma-separated parts to run (and town)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -215,6 +251,8 @@ def main():
         rollout_checks(dev, args.reps)
     if "divergence" in parts:
         divergence(dev, args.reps)
+    if "town" in parts:
+        town(dev, args.reps)
 
 
 if __name__ == "__main__":
