@@ -24,23 +24,11 @@
 // closest point: ops/forces.py PAD_DIST2
 constexpr float kPadDist2 = 1e13f;
 
-// One step of the first-occurrence argmin over a segment's points, scanned
-// in ascending order: strict < keeps the earliest of equal distances (the
-// reference's np.argmin).
-SFM_HD void closest_update(float ptx, float pty, float px, float py,
-                           float& best, float& bx, float& by) {
-  const float d2 = sq_norm_rn(ptx - px, pty - py);
-  if (d2 < best) {
-    best = d2;
-    bx = ptx;
-    by = pty;
-  }
-}
-
-// closest_update for one lane of a split scan: the lane takes every L-th
-// slot in ascending order and keeps, with strict <, its earliest least
-// distance and that slot j (bj), so that the lanes' results merge into the
-// sequential scan's by the least (distance, slot) (env_forces.cu).
+// One step of the first-occurrence argmin over a segment's points for one
+// lane of a split scan: the lane takes every L-th slot in ascending order
+// and keeps, with strict <, its earliest least distance and that slot j
+// (bj), so that the lanes' results merge into the sequential scan's (the
+// reference's np.argmin) by the least (distance, slot) (env_forces.cu).
 SFM_HD void closest_update_at(float ptx, float pty, float px, float py,
                               int j, float& best, int& bj, float& bx,
                               float& by) {

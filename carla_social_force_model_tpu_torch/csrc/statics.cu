@@ -35,32 +35,42 @@
 // microseconds either way, and what decides the time is latency and the
 // barriers of the staging.
 //
-// The segment top-k and chunk_closest.  One block is 128 consecutive
-// pedestrians of the caller's order (ORCA's windowed path passes its
-// Hilbert-sorted planes, so a block's box is tight), one thread per
-// pedestrian.  The block reduces its alive pedestrians' box (block_box.cuh)
-// and walks the features in ascending index, a tile of 128 at a time: each
-// thread loads one feature of the tile into shared memory and tests its
-// filter circle, inflated by neighbor_dist, against the box; a tile with no
-// hit is skipped by the whole block, and inside a tile only the hit features
-// are computed.  The skip is exact, because the circle holds every point of
-// its feature and the kernel keeps only candidates with d2 <= nd2 (nd2 a
-// runtime argument: neighbor_dist is a sweepable parameter).  A chunk's
-// points are staged the same way, 128 at a time.  The running list lives in
-// registers: 8 slots, an insertion before the first strictly larger entry
-// (topk_insert), so with features in ascending index it holds the
-// k_smallest_features selection in its order (first occurrence on ties); an
-// invalid candidate never enters (it would carry kPadDist2, which no slot is
-// above).  The distances are rounded per operation as the plain versions
-// compute them, so kernel and plain version pick the same features and
-// points bitwise.
+// The three wall-feed kernels share one layout, the environment kernels'
+// (env_forces.cu): a block is 32 consecutive pedestrians of the caller's
+// order (ORCA's windowed path passes its Hilbert-sorted planes, so a
+// block's box is tight) x L lanes each (313 blocks at N = 10,000, where
+// one thread per pedestrian gave 79 blocks of 128 and left 53 of the 132
+// SMs idle; L = 4 for the segment top-k and chunk_closest, 8 for the chunk
+// top-k, PERF.md).  The block reduces its alive pedestrians' box
+// (block_box.cuh) and walks the features in ascending index, a tile of
+// 32 L at a time: each thread tests one feature's filter circle, inflated
+// by neighbor_dist, against the box, and the hits are compacted in
+// ascending order with ballots (hit_rank).  The skip is exact, because
+// the circle holds every point of its feature and the kernels keep only
+// candidates with d2 <= nd2 (nd2 a runtime argument: neighbor_dist is a
+// sweepable parameter).  A running list lives in registers: 8 slots, an
+// insertion before the first strictly larger entry (topk_insert), so with
+// features in ascending index it holds the k_smallest_features selection
+// in its order (first occurrence on ties); an invalid candidate never
+// enters (it would carry kPadDist2, which no slot is above).  The
+// distances are rounded per operation as the plain versions compute them,
+// so kernel and plain version pick the same features and points bitwise.
 //
-// The chunk top-k (chunk_topk_kernel) takes the environment kernels' layout
-// (env_forces.cu): a block is 32 pedestrians x L = kTopkLanes lanes (313
-// blocks of eight warps at N = 10,000, where one thread per pedestrian gave
-// 79 blocks of four and left 53 of the 132 SMs idle).  The block tests the
-// circles of a tile of 256 chunks against the box of its 32 pedestrians,
-// one chunk a thread, and compacts the hits in ascending order (ballots);
+// The segment top-k (seg_topk_kernel): the five planes of a tile's hit
+// features are staged in shared memory at their compacted places, and
+// lane l of each pedestrian projects the hit features h = l, l + L, ... in
+// ascending order (one projection a feature pair), inserting each within
+// nd2 into its own list with the feature's index (topk_insert_at).  So a
+// lane's list is ascending in (d2, index), and the k nearest of the
+// pedestrian are the k least (d2, index) over its L lists: k rounds of a
+// shuffle minimum over the lanes' heads, the winning lane dropping its
+// head.  A tie of equal d2 in different lanes goes to the lower feature
+// index, k_smallest_features's order.  The k x 32 results are staged in
+// shared memory and stored as rows of 32 pedestrians.  The lists hold 4
+// slots for k <= 4 (ORCA's k = 3: fewer registers, more blocks an SM).
+//
+// The chunk top-k (chunk_topk_kernel) tests the circles of a tile of 256
+// chunks against the box, one chunk a thread;
 // it stages the real points of up to kTopkStage / K hit chunks at once as
 // float2 behind one pair of barriers (each chunk's real length, the slots
 // up to its last valid one, comes with the feed: ChunkFeatures.lengths),
@@ -68,6 +78,20 @@
 // of each staged chunk with a strict <, keeping the slot of its best.  A
 // shuffle merge takes the least (distance, slot), the lower slot on a tie:
 // the sequential scan's first occurrence.  Lane 0 inserts the candidate.
+//
+// chunk_closest (chunk_closest_kernel) writes three (C, N) planes, 20 MB
+// at config #3's 169 car chunks and N = 10,000: it is bound by those bytes.
+// Its grid is (pedestrian blocks, chunk splits), split y taking the chunks
+// y, y + Y, ... (a block's hit chunks lie near each other in index, so the
+// strides spread them), with Y chosen so that about kClosestBlocksPerSM
+// blocks per SM run.  A skipped chunk's rows are stored as inf / 0 at
+// once, each warp a row of 32 pedestrians (128 bytes a plane), with no
+// scan and no barrier.  The real points of up to kClosestStage / K hit
+// chunks are staged at once as float2; the L lanes of every pedestrian of
+// the block scan every L-th point of each chunk with a strict <, keeping
+// the distance and the slot (argmin_step), a shuffle merge takes the least
+// (distance, slot), and lane 0 reads that slot's point and stages the
+// result, which the block stores as whole rows.
 //
 // chunk_argmin scans every (point, pedestrian) pair: five operations for
 // the distance and three for the first-occurrence minimum, 2e8 pairs at
@@ -104,16 +128,36 @@
 
 namespace {
 
-constexpr int kPeds = kBoxPeds;   // pedestrians per block, one per thread
-constexpr int kTile = kBoxPeds;   // features (or chunk points) per stage
+constexpr unsigned kAll = 0xffffffffu;
 
-// the chunk top-k: L lanes per pedestrian (a divisor of 32), 32
-// pedestrians a block, and the points of hit chunks staged per batch
+// the segment top-k: L lanes per pedestrian (a divisor of 32), 32
+// pedestrians a block, one feature a thread in a tile, and the slots of
+// the lists for k up to 4
+constexpr int kSegLanes = 4;
+constexpr int kSegSlotsSmall = 4;
+constexpr int kSegPeds = 32;
+constexpr int kSegThreads = kSegPeds * kSegLanes;
+static_assert(32 % kSegLanes == 0 && kSegLanes < 32,
+              "a pedestrian's lanes lie in one warp, with others");
+
+// the chunk top-k: L lanes per pedestrian, 32 pedestrians a block, and the
+// points of hit chunks staged per batch
 constexpr int kTopkLanes = 8;
 constexpr int kTopkPeds = 32;
 constexpr int kTopkThreads = kTopkPeds * kTopkLanes;
 constexpr int kTopkStage = 1024;
 static_assert(32 % kTopkLanes == 0, "a pedestrian's lanes lie in one warp");
+
+// chunk_closest: L lanes per pedestrian, 32 pedestrians a block, points
+// staged per batch, the most hit chunks of a batch, and the blocks per SM
+// the grid aims at
+constexpr int kClosestLanes = 4;
+constexpr int kClosestPeds = 32;
+constexpr int kClosestThreads = kClosestPeds * kClosestLanes;
+constexpr int kClosestStage = 1024;
+constexpr int kClosestBatch = 16;
+constexpr int kClosestBlocksPerSM = 4;
+static_assert(32 % kClosestLanes == 0, "a pedestrian's lanes lie in one warp");
 
 // chunk_argmin: R pedestrians per thread (PERF.md: 2 and 4 measured),
 // threads per block, points per stage (two stages), points per unrolled
@@ -125,60 +169,127 @@ constexpr int kArgminSub = 32;
 constexpr int kArgminBlocksPerSM = 4;
 static_assert(kArgminStage % kArgminSub == 0, "whole sub-groups per stage");
 
-// Load chunk c's points [p0, p0 + kTile) into shared memory (PAD past the
-// row) and scan them for the first-occurrence closest point.  Every thread
-// of the block must call it; `scan` says whether this thread scans.
-__device__ __forceinline__ void chunk_piece(
-    const float* __restrict__ x, const float* __restrict__ y, size_t row,
-    int kk, int p0, float* sx, float* sy, bool scan, float px, float py,
-    float& best, float& bx, float& by) {
-  __syncthreads();  // the previous piece is consumed
-  const int j = p0 + threadIdx.x;
-  sx[threadIdx.x] = j < kk ? x[row + j] : kPadCoord;
-  sy[threadIdx.x] = j < kk ? y[row + j] : kPadCoord;
+// This thread's place among the hits of a tile of kThreads items (one a
+// thread, hit or not), in ascending thread order, and the tile's number of
+// hits; wball[w] keeps warp w's ballot.  Every thread of the block must
+// call it.  It begins with a barrier (the previous tile's lists and stages
+// are consumed); the caller writes its hit at the place, and a barrier
+// must pass before another thread reads it.
+template <int kThreads>
+__device__ __forceinline__ int hit_rank(bool hit, unsigned* wball,
+                                        int& nhit) {
+  const int tid = threadIdx.x;
+  const unsigned ballot = __ballot_sync(kAll, hit);
   __syncthreads();
-  if (scan) {
-    const int cnt = min(kTile, kk - p0);
-#pragma unroll 4
-    for (int t = 0; t < cnt; ++t) closest_update(sx[t], sy[t], px, py, best, bx, by);
+  if (tid % 32 == 0) wball[tid / 32] = ballot;
+  __syncthreads();
+  int before = 0;
+  nhit = 0;
+#pragma unroll
+  for (int w = 0; w < kThreads / 32; ++w) {
+    const int c = __popc(wball[w]);
+    before += w < tid / 32 ? c : 0;
+    nhit += c;
+  }
+  return before + __popc(ballot & ((1u << (tid % 32)) - 1u));
+}
+
+// One step of the first-occurrence argmin at slot j: the squared distance
+// rounded per operation as the plain version computes it, kept with a
+// strict < (the first of equal distances).  The running minimum is an
+// fminf (the same value: no distance is NaN or -0), so the chain from one
+// point to the next is one instruction and the index select hangs off it.
+__device__ __forceinline__ void argmin_step(float x, float y, float px,
+                                            float py, int j, float& best,
+                                            int& arg) {
+  const float d2 = sq_norm_rn(x - px, y - py);
+  arg = d2 < best ? j : arg;
+  best = fminf(best, d2);
+}
+
+// The least (distance, slot) over the L lanes of each pedestrian, in
+// every lane (the point is read from the winning slot).
+template <int L>
+__device__ __forceinline__ void lanes_min_slot(float& best, int& bj) {
+#pragma unroll
+  for (int o = L / 2; o > 0; o >>= 1) {
+    const float o_best = __shfl_xor_sync(kAll, best, o);
+    const int o_bj = __shfl_xor_sync(kAll, bj, o);
+    if (o_best < best || (o_best == best && o_bj < bj)) {
+      best = o_best;
+      bj = o_bj;
+    }
+  }
+}
+
+// The least (distance, slot) over the L lanes of each pedestrian, with its
+// point, in every lane: the lower slot on a tie, so the lanes' strided
+// scans give the sequential scan's first occurrence.
+template <int L>
+__device__ __forceinline__ void lanes_min(float& best, int& bj, float& bx,
+                                          float& by) {
+#pragma unroll
+  for (int o = L / 2; o > 0; o >>= 1) {
+    const float o_best = __shfl_xor_sync(kAll, best, o);
+    const int o_bj = __shfl_xor_sync(kAll, bj, o);
+    const float o_bx = __shfl_xor_sync(kAll, bx, o);
+    const float o_by = __shfl_xor_sync(kAll, by, o);
+    if (o_best < best || (o_best == best && o_bj < bj)) {
+      best = o_best;
+      bj = o_bj;
+      bx = o_bx;
+      by = o_by;
+    }
   }
 }
 
 // f segment features, planes a0..a4 = ax, ay, ux, uy, il2 and the filter
 // circles (ccx, ccy, rad).  Outputs (k, n) d2 (inf in an empty slot), wx,
-// wy (0 in an empty slot).
-__global__ void __launch_bounds__(kPeds)
+// wy (0 in an empty slot).  S slots a list (k <= S): 4 for ORCA's k = 3
+// (fewer registers, more blocks an SM), else kTopK.
+template <int S>
+__global__ void __launch_bounds__(kSegThreads)
 seg_topk_kernel(const float* __restrict__ px_, const float* __restrict__ py_,
-            const uint8_t* __restrict__ alive_,
-            const float* __restrict__ a0, const float* __restrict__ a1,
-            const float* __restrict__ a2, const float* __restrict__ a3,
-            const float* __restrict__ a4, const float* __restrict__ ccx,
-            const float* __restrict__ ccy, const float* __restrict__ rad,
-            int f, float nd, float nd2, int k, int n,
-            float* __restrict__ out_d2, float* __restrict__ out_x,
-            float* __restrict__ out_y) {
-  __shared__ float sa[5][kTile];
-  __shared__ int shit[kTile];
+                const uint8_t* __restrict__ alive_,
+                const float* __restrict__ a0, const float* __restrict__ a1,
+                const float* __restrict__ a2, const float* __restrict__ a3,
+                const float* __restrict__ a4, const float* __restrict__ ccx,
+                const float* __restrict__ ccy, const float* __restrict__ rad,
+                int f, float nd, float nd2, int k, int n,
+                float* __restrict__ out_d2, float* __restrict__ out_x,
+                float* __restrict__ out_y) {
+  constexpr int L = kSegLanes;
+  constexpr int T = kSegThreads;
+  __shared__ float sa[5][T];
+  __shared__ int sidx[T];
+  __shared__ unsigned wball[T / 32];
+  __shared__ float res[3][S][kSegPeds];
 
-  const int i = blockIdx.x * kPeds + threadIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid % L;  // this pedestrian's lane
+  const int ped = tid / L;
+  const int i = blockIdx.x * kSegPeds + ped;
   const bool in = i < n;
   const bool live = in && (alive_ == nullptr || alive_[i] != 0);
   const float px = in ? px_[i] : 0.0f;
   const float py = in ? py_[i] : 0.0f;
-  const Box box = block_box(px, py, live);
+  const Box box = block_box<T>(px, py, live);
 
-  float d[kTopK], x[kTopK], y[kTopK];
+  float d[S], x[S], y[S];
+  int id[S];
 #pragma unroll
-  for (int s = 0; s < kTopK; ++s) {
+  for (int s = 0; s < S; ++s) {
     d[s] = kPadDist2;
     x[s] = 0.0f;
     y[s] = 0.0f;
+    id[s] = INT_MAX;
   }
 
-  for (int f0 = 0; f0 < f; f0 += kTile) {
-    // each thread loads and tests one feature of the tile
-    const int fi = f0 + threadIdx.x;
-    int hit = 0;
+  for (int f0 = 0; f0 < f; f0 += T) {
+    // each thread tests one feature of the tile; the hits are staged at
+    // their places in ascending order
+    const int fi = f0 + tid;
+    bool hit = false;
     float v[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
     if (fi < f) {
       hit = touches(ccx[fi], ccy[fi], feature_reach2(rad[fi], nd), box);
@@ -188,27 +299,73 @@ seg_topk_kernel(const float* __restrict__ px_, const float* __restrict__ py_,
       v[3] = a3[fi];
       v[4] = a4[fi];
     }
-    __syncthreads();  // the previous tile is consumed
-    shit[threadIdx.x] = hit;
+    int nhit;
+    const int at = hit_rank<T>(hit, wball, nhit);
+    if (hit) {
 #pragma unroll
-    for (int p = 0; p < 5; ++p) sa[p][threadIdx.x] = v[p];
-    if (!__syncthreads_or(hit)) continue;
-    const int cnt = min(kTile, f - f0);
-    for (int t = 0; t < cnt; ++t) {
-      if (!shit[t]) continue;  // block-uniform
-      float cx, cy;
-      const float cd = closest_on_segment(sa[0][t], sa[1][t], sa[2][t],
-                                          sa[3][t], sa[4][t], px, py, cx, cy);
-      if (in && cd <= nd2) topk_insert(cd, cx, cy, d, x, y);
+      for (int p = 0; p < 5; ++p) sa[p][at] = v[p];
+      sidx[at] = fi;
+    }
+    __syncthreads();
+    if (in) {
+      for (int h = lane; h < nhit; h += L) {
+        float cx, cy;
+        const float cd = closest_on_segment(sa[0][h], sa[1][h], sa[2][h],
+                                            sa[3][h], sa[4][h], px, py, cx,
+                                            cy);
+        if (cd <= nd2) topk_insert_at<S>(cd, cx, cy, sidx[h], d, x, y, id);
+      }
     }
   }
-  if (!in) return;
+
+  // k rounds: the least head (d2, index) over the pedestrian's lanes; the
+  // winner drops its head (several lanes win only with empty heads)
+  const unsigned lanes = ((1u << L) - 1u) << (tid % 32 / L * L);
+  for (int s = 0; s < k; ++s) {
+    float md = d[0];
+    int mi = id[0];
 #pragma unroll
-  for (int s = 0; s < kTopK; ++s) {
-    if (s < k) {
-      out_d2[(size_t)s * n + i] = d[s] < kPadDist2 ? d[s] : INFINITY;
-      out_x[(size_t)s * n + i] = x[s];
-      out_y[(size_t)s * n + i] = y[s];
+    for (int o = L / 2; o > 0; o >>= 1) {
+      const float od = __shfl_xor_sync(kAll, md, o);
+      const int oi = __shfl_xor_sync(kAll, mi, o);
+      if (od < md || (od == md && oi < mi)) {
+        md = od;
+        mi = oi;
+      }
+    }
+    const bool win = d[0] == md && id[0] == mi;
+    const int from = __ffs(__ballot_sync(kAll, win) & lanes) - 1;
+    const float wx = __shfl_sync(kAll, x[0], from);
+    const float wy = __shfl_sync(kAll, y[0], from);
+    if (lane == 0) {
+      res[0][s][ped] = md < kPadDist2 ? md : INFINITY;
+      res[1][s][ped] = wx;
+      res[2][s][ped] = wy;
+    }
+    if (win) {
+#pragma unroll
+      for (int t = 0; t + 1 < S; ++t) {
+        d[t] = d[t + 1];
+        x[t] = x[t + 1];
+        y[t] = y[t + 1];
+        id[t] = id[t + 1];
+      }
+      d[S - 1] = kPadDist2;
+      x[S - 1] = 0.0f;
+      y[S - 1] = 0.0f;
+      id[S - 1] = INT_MAX;
+    }
+  }
+  __syncthreads();
+  // slot s of the block's 32 pedestrians: a row of 128 bytes a plane
+  for (int e = tid; e < k * kSegPeds; e += T) {
+    const int s = e / kSegPeds;
+    const int q = e - s * kSegPeds;
+    const int r = blockIdx.x * kSegPeds + q;
+    if (r < n) {
+      out_d2[(size_t)s * n + r] = res[0][s][q];
+      out_x[(size_t)s * n + r] = res[1][s][q];
+      out_y[(size_t)s * n + r] = res[2][s][q];
     }
   }
 }
@@ -229,8 +386,7 @@ chunk_topk_kernel(const float* __restrict__ px_, const float* __restrict__ py_,
                   float* __restrict__ out_x, float* __restrict__ out_y) {
   __shared__ __align__(16) float2 sxy[kTopkStage];
   __shared__ int hits[kTopkThreads];
-  __shared__ int wcount[kTopkThreads / 32];
-  constexpr unsigned kAll = 0xffffffffu;
+  __shared__ unsigned wball[kTopkThreads / 32];
 
   const int tid = threadIdx.x;
   const int lane = tid % kTopkLanes;  // this pedestrian's lane
@@ -253,19 +409,7 @@ chunk_topk_kernel(const float* __restrict__ px_, const float* __restrict__ py_,
   auto len_of = [&](int c) { return min(lens[c], kk); };
   // the lanes' merge of one chunk's scan and lane 0's insertion
   auto finish = [&](float best, int bj, float bx, float by, bool scan) {
-#pragma unroll
-    for (int o = kTopkLanes / 2; o > 0; o >>= 1) {
-      const float o_best = __shfl_xor_sync(kAll, best, o);
-      const int o_bj = __shfl_xor_sync(kAll, bj, o);
-      const float o_bx = __shfl_xor_sync(kAll, bx, o);
-      const float o_by = __shfl_xor_sync(kAll, by, o);
-      if (o_best < best || (o_best == best && o_bj < bj)) {
-        best = o_best;
-        bj = o_bj;
-        bx = o_bx;
-        by = o_by;
-      }
-    }
+    lanes_min<kTopkLanes>(best, bj, bx, by);
     if (lane == 0 && scan && best <= nd2) topk_insert(best, bx, by, d, x, y);
   };
   // chunks per batch (kk <= kTopkStage), or pieces of one chunk
@@ -277,17 +421,9 @@ chunk_topk_kernel(const float* __restrict__ px_, const float* __restrict__ py_,
     const int fi = f0 + tid;
     const bool hit = fi < f && touches(ccx[fi], ccy[fi],
                                        feature_reach2(rad[fi], nd), box);
-    const unsigned ballot = __ballot_sync(kAll, hit);
-    __syncthreads();  // the previous tile's list and batch are consumed
-    if (tid % 32 == 0) wcount[tid / 32] = __popc(ballot);
-    __syncthreads();
-    int before = 0, nhit = 0;
-#pragma unroll
-    for (int w = 0; w < kTopkThreads / 32; ++w) {
-      before += w < tid / 32 ? wcount[w] : 0;
-      nhit += wcount[w];
-    }
-    if (hit) hits[before + __popc(ballot & ((1u << (tid % 32)) - 1u))] = fi;
+    int nhit;
+    const int at = hit_rank<kTopkThreads>(hit, wball, nhit);
+    if (hit) hits[at] = fi;
     __syncthreads();
 
     for (int h0 = 0; h0 < nhit; h0 += per_batch) {
@@ -361,37 +497,142 @@ chunk_topk_kernel(const float* __restrict__ px_, const float* __restrict__ py_,
 
 // Every chunk's first-occurrence closest point: (f, n) planes d2 (inf
 // beyond nd2, and for a chunk skipped by the block), wx, wy (0 for a
-// skipped chunk).
-__global__ void __launch_bounds__(kPeds)
+// skipped chunk); the chunks as chunk_topk_kernel's.  Grid (pedestrian
+// blocks, chunk splits): split y takes the chunks y, y + Y, ...
+__global__ void __launch_bounds__(kClosestThreads)
 chunk_closest_kernel(const float* __restrict__ px_,
                      const float* __restrict__ py_,
                      const uint8_t* __restrict__ alive_,
                      const float* __restrict__ cxs,
                      const float* __restrict__ cys, int f, int kk,
+                     const int* __restrict__ lens,
                      const float* __restrict__ ccx,
                      const float* __restrict__ ccy,
                      const float* __restrict__ rad, float nd, float nd2,
                      int n, float* __restrict__ out_d2,
                      float* __restrict__ out_x, float* __restrict__ out_y) {
-  __shared__ float sx[kTile], sy[kTile];
-  const int i = blockIdx.x * kPeds + threadIdx.x;
+  constexpr int L = kClosestLanes;
+  constexpr int T = kClosestThreads;
+  constexpr int P = kClosestPeds;
+  __shared__ __align__(16) float2 sxy[kClosestStage];
+  __shared__ int hits[T], hlen[T];
+  __shared__ unsigned wball[T / 32];
+  __shared__ float res[3][kClosestBatch][P];
+
+  const int tid = threadIdx.x;
+  const int lane = tid % L;  // this pedestrian's lane
+  const int ped = tid / L;
+  const int r0 = blockIdx.x * P;  // the block's first row
+  const int i = r0 + ped;
   const bool in = i < n;
   const bool live = in && (alive_ == nullptr || alive_[i] != 0);
   const float px = in ? px_[i] : 0.0f;
   const float py = in ? py_[i] : 0.0f;
-  const Box box = block_box(px, py, live);
+  const Box box = block_box<T>(px, py, live);
 
-  for (int c = 0; c < f; ++c) {
-    float best = INFINITY, bx = 0.0f, by = 0.0f;
-    if (touches(ccx[c], ccy[c], feature_reach2(rad[c], nd), box)) {
-      const size_t row = (size_t)c * kk;
-      for (int p0 = 0; p0 < kk; p0 += kTile)
-        chunk_piece(cxs, cys, row, kk, p0, sx, sy, in, px, py, best, bx, by);
+  const int ys = gridDim.y;
+  const int y0 = blockIdx.y;
+  const int m = y0 < f ? (f - y0 + ys - 1) / ys : 0;  // this split's chunks
+  const int row = r0 + tid % 32;  // a lane's row in a warp's store of 32
+  // hit chunks per batch (kk <= kClosestStage), or pieces of one chunk
+  const int per_batch =
+      kk <= kClosestStage ? min(kClosestBatch, kClosestStage / max(kk, 1)) : 1;
+
+  for (int j0 = 0; j0 < m; j0 += T) {
+    // each thread tests one chunk of the tile against the block's box; the
+    // hits are listed in ascending order
+    const int j = j0 + tid;
+    const int c = y0 + ys * j;
+    bool hit = false;
+    int len = 0;
+    if (j < m) {
+      hit = touches(ccx[c], ccy[c], feature_reach2(rad[c], nd), box);
+      len = min(lens[c], kk);
     }
-    if (in) {
-      out_d2[(size_t)c * n + i] = best <= nd2 ? best : INFINITY;
-      out_x[(size_t)c * n + i] = bx;
-      out_y[(size_t)c * n + i] = by;
+    int nhit;
+    const int at = hit_rank<T>(hit, wball, nhit);
+    if (hit) {
+      hits[at] = c;
+      hlen[at] = len;
+    }
+    // the skipped chunks' rows, warp w the tile's chunks w, w + T / 32, ...
+    const int cnt = min(T, m - j0);
+    for (int t = tid / 32; t < cnt; t += T / 32) {
+      if (!((wball[t / 32] >> (t % 32)) & 1u) && row < n) {
+        const size_t g = (size_t)(y0 + ys * (j0 + t)) * n + row;
+        out_d2[g] = INFINITY;
+        out_x[g] = 0.0f;
+        out_y[g] = 0.0f;
+      }
+    }
+
+    for (int h0 = 0; h0 < nhit; h0 += per_batch) {
+      const int nb = min(per_batch, nhit - h0);
+      __syncthreads();  // the list is written; the previous batch is stored
+      if (kk <= kClosestStage) {
+        for (int e = tid; e < nb * kk; e += T) {
+          const int b = e / kk;
+          const int s = e - b * kk;
+          if (s < hlen[h0 + b]) {
+            const size_t g = (size_t)hits[h0 + b] * kk + s;
+            sxy[e] = make_float2(cxs[g], cys[g]);
+          }
+        }
+        __syncthreads();
+        for (int b = 0; b < nb; ++b) {
+          const int hl = hlen[h0 + b];
+          const float2* pts = sxy + b * kk;
+          float best = INFINITY;
+          int bj = INT_MAX;
+#pragma unroll 4
+          for (int s = lane; s < hl; s += L) {
+            const float2 pt = pts[s];
+            argmin_step(pt.x, pt.y, px, py, s, best, bj);
+          }
+          lanes_min_slot<L>(best, bj);
+          if (lane == 0) {
+            const float2 w = bj < hl ? pts[bj] : make_float2(0.0f, 0.0f);
+            res[0][b][ped] = best <= nd2 ? best : INFINITY;
+            res[1][b][ped] = w.x;
+            res[2][b][ped] = w.y;
+          }
+        }
+      } else {  // one chunk of more than kClosestStage slots, piece by piece
+        const int hl = hlen[h0];
+        const size_t base = (size_t)hits[h0] * kk;
+        float best = INFINITY;
+        int bj = INT_MAX;
+        for (int p0 = 0; p0 < hl; p0 += kClosestStage) {
+          const int pc = min(kClosestStage, hl - p0);
+          __syncthreads();  // the previous piece is consumed
+          for (int s = tid; s < pc; s += T)
+            sxy[s] = make_float2(cxs[base + p0 + s], cys[base + p0 + s]);
+          __syncthreads();
+          for (int s = lane; s < pc; s += L) {
+            const float2 pt = sxy[s];
+            argmin_step(pt.x, pt.y, px, py, p0 + s, best, bj);
+          }
+        }
+        lanes_min_slot<L>(best, bj);
+        if (lane == 0) {
+          const bool any = bj < hl;
+          res[0][0][ped] = best <= nd2 ? best : INFINITY;
+          res[1][0][ped] = any ? cxs[base + bj] : 0.0f;
+          res[2][0][ped] = any ? cys[base + bj] : 0.0f;
+        }
+      }
+      __syncthreads();
+      // the batch's rows of 32 pedestrians
+      for (int e = tid; e < nb * P; e += T) {
+        const int b = e / P;
+        const int q = e - b * P;
+        if (r0 + q < n) {
+          const size_t g = (size_t)hits[h0 + b] * n + r0 + q;
+          out_d2[g] = res[0][b][q];
+          out_x[g] = res[1][b][q];
+          out_y[g] = res[2][b][q];
+        }
+      }
     }
   }
 }
@@ -418,19 +659,6 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-// One step of the first-occurrence argmin at slot j: the squared distance
-// rounded per operation as the plain version computes it, kept with a
-// strict < (the first of equal distances).  The running minimum is an
-// fminf (the same value: no distance is NaN or -0), so the chain from one
-// point to the next is one instruction and the index select hangs off it.
-__device__ __forceinline__ void argmin_step(float x, float y, float px,
-                                            float py, int j, float& best,
-                                            int& arg) {
-  const float d2 = sq_norm_rn(x - px, y - py);
-  arg = d2 < best ? j : arg;
-  best = fminf(best, d2);
 }
 
 // The geometry of chunk_argmin's stages: the (c, kk) rows padded to kkp
@@ -568,6 +796,16 @@ chunk_argmin_kernel(const float* __restrict__ px_,
   }
 }
 
+// The current device's number of SMs (the split grids aim at blocks per
+// SM).
+cudaError_t sm_count(int& sms) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return e;
+}
+
 }  // namespace
 
 extern "C" {
@@ -584,8 +822,10 @@ int sfm_seg_topk(const float* px, const float* py, const uint8_t* alive,
                  void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   if (k < 1 || k > kTopK) return (int)cudaErrorInvalidValue;
-  const int blocks = (n + kPeds - 1) / kPeds;
-  seg_topk_kernel<<<blocks, kPeds, 0, (cudaStream_t)stream>>>(
+  const int blocks = (n + kSegPeds - 1) / kSegPeds;
+  auto kernel = k <= kSegSlotsSmall ? seg_topk_kernel<kSegSlotsSmall>
+                                    : seg_topk_kernel<kTopK>;
+  kernel<<<blocks, kSegThreads, 0, (cudaStream_t)stream>>>(
       px, py, alive, ax, ay, ux, uy, il2, ccx, ccy, rad, f, nd, nd2, k, n, d2,
       wx, wy);
   return (int)cudaGetLastError();
@@ -610,13 +850,20 @@ int sfm_chunk_topk(const float* px, const float* py, const uint8_t* alive,
 
 int sfm_chunk_closest(const float* px, const float* py, const uint8_t* alive,
                       const float* x, const float* y, int c, int kk,
-                      const float* cx, const float* cy, const float* rad,
-                      float nd, float nd2, int n, float* d2, float* wx,
-                      float* wy, void* stream) {
+                      const int* lens, const float* cx, const float* cy,
+                      const float* rad, float nd, float nd2, int n, float* d2,
+                      float* wx, float* wy, void* stream) {
   if (n <= 0 || c <= 0) return (int)cudaSuccess;
-  const int blocks = (n + kPeds - 1) / kPeds;
-  chunk_closest_kernel<<<blocks, kPeds, 0, (cudaStream_t)stream>>>(
-      px, py, alive, x, y, c, kk, cx, cy, rad, nd, nd2, n, d2, wx, wy);
+  int sms = 0;
+  const cudaError_t e = sm_count(sms);
+  if (e != cudaSuccess) return (int)e;
+  const int ped_blocks = (n + kClosestPeds - 1) / kClosestPeds;
+  const int want = (kClosestBlocksPerSM * sms + ped_blocks - 1) / ped_blocks;
+  const int splits = max(1, min(c, want));
+  chunk_closest_kernel<<<dim3(ped_blocks, splits), kClosestThreads, 0,
+                         (cudaStream_t)stream>>>(px, py, alive, x, y, c, kk,
+                                                 lens, cx, cy, rad, nd, nd2,
+                                                 n, d2, wx, wy);
   return (int)cudaGetLastError();
 }
 
@@ -626,10 +873,8 @@ int sfm_chunk_argmin(const float* px, const float* py, const float* fx,
                      const float* fy, int c, int kk, int n, float* d2,
                      int* idx, void* stream) {
   if (n <= 0 || c <= 0 || kk <= 0) return (int)cudaSuccess;
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int sms = 0;
+  const cudaError_t e = sm_count(sms);
   if (e != cudaSuccess) return (int)e;
   const ArgminStages g(c, kk);
   const int ped_blocks =

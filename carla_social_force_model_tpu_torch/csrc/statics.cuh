@@ -4,9 +4,10 @@
 // feature_closest_planes, closest_point_per_chunk and k_smallest_features).
 //
 // The candidates' squared distances are those of env_forces.cuh
-// (closest_on_segment for a segment feature, closest_update over a chunk's
-// points), rounded per operation as the plain versions compute them, so
-// that both pick the same closest point and the same k nearest features.
+// (closest_on_segment for a segment feature, closest_update_at or
+// argmin_step over a chunk's points), rounded per operation as the plain
+// versions compute them, so that both pick the same closest point and the
+// same k nearest features.
 #pragma once
 
 #include <math.h>
@@ -54,5 +55,33 @@ SFM_HD void topk_insert(float cd, float cx, float cy, float* d, float* x,
     d[s] = nd;
     x[s] = nx;
     y[s] = ny;
+  }
+}
+
+// topk_insert into a list of S slots with each candidate's feature index
+// ci kept beside it (id; INT_MAX in an empty slot).  One lane of a split
+// scan visits its features in ascending index, so its list is ascending in
+// (distance, index), and the lanes' lists merge into the sequential list by
+// the least (distance, index) (statics.cu seg_topk_kernel).
+template <int S>
+SFM_HD void topk_insert_at(float cd, float cx, float cy, int ci, float* d,
+                           float* x, float* y, int* id) {
+  bool placed = false;
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const bool swap = placed || cd < d[s];
+    placed = swap;
+    const float nd = swap ? cd : d[s];
+    const float nx = swap ? cx : x[s];
+    const float ny = swap ? cy : y[s];
+    const int ni = swap ? ci : id[s];
+    cd = swap ? d[s] : cd;
+    cx = swap ? x[s] : cx;
+    cy = swap ? y[s] : cy;
+    ci = swap ? id[s] : ci;
+    d[s] = nd;
+    x[s] = nx;
+    y[s] = ny;
+    id[s] = ni;
   }
 }

@@ -126,7 +126,7 @@ def closest_point_per_chunk(pos_x, pos_y, chunks, neigh_dist: float,
 
     On CUDA tensors this launches the ``chunk_closest`` kernel
     (``ops/statics.chunk_closest``), which skips every chunk whose circle,
-    inflated by ``neigh_dist``, misses the box of a block of 128
+    inflated by ``neigh_dist``, misses the box of a block of 32
     pedestrians (the alive ones, where ``alive`` is given; a dead row's
     result is then undefined): a skipped chunk leaves ``wx = wy = 0``
     beside ``d2 = inf``.  On CPU tensors it runs the plain version, which

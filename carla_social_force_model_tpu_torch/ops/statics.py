@@ -24,9 +24,9 @@ counts the launch:
   version is ``geometry.chunk_argmin_plain``, its entry
   ``geometry.closest_point_per_segment``.
 
-Each block of the three wall-feed kernels holds 128 consecutive
+Each block of the three wall-feed kernels holds 32 consecutive
 pedestrians (the caller's order: ORCA's are Hilbert-sorted, so the boxes
-are tight) and skips every feature whose
+are tight), 4 or 8 threads each, and skips every feature whose
 filter circle, inflated by the neighbour distance, misses the box of its
 alive pedestrians; the in-kernel ``d2 <= neigh_dist^2`` test keeps the skip
 exact.  Features are visited in ascending index, and each enters its
@@ -177,13 +177,15 @@ def chunk_topk(pos_x, pos_y, chunks, k: int, neigh_dist, alive=None):
 def chunk_closest(pos_x, pos_y, chunks, neigh_dist, alive=None):
     """Every chunk's closest point on the card: ``(d2, wx, wy)`` of shape
     (C, N), ``d2 = inf`` beyond ``neigh_dist`` (a chunk skipped for a block
-    leaves ``wx = wy = 0``); see ``geometry.closest_point_per_chunk``."""
+    leaves ``wx = wy = 0``), each chunk scanned up to its last valid slot
+    (``chunks.lengths``); see ``geometry.closest_point_per_chunk``."""
     args = _chunk_args(pos_x, pos_y, chunks, neigh_dist, alive)
     n, dev = pos_x.shape[0], pos_x.device
     outs = tuple(torch.empty((chunks.num_chunks, n), dtype=torch.float32,
                              device=dev) for _ in range(3))
     if n == 0 or chunks.num_chunks == 0:
         return outs
+    args = (*args[:7], _lengths(chunks, dev), *args[7:])
     return _launch("chunk_closest", (*args, n), outs, dev)
 
 

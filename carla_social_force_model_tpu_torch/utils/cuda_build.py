@@ -98,8 +98,8 @@ ARGTYPES = {
     # wy, stream
     "sfm_chunk_topk": ([_PTR] * 5 + [_INT, _INT] + [_PTR] * 4
                        + [_FLOAT, _FLOAT, _INT, _INT] + [_PTR] * 4),
-    # sfm_chunk_topk's arguments without lens and k
-    "sfm_chunk_closest": ([_PTR] * 5 + [_INT, _INT] + [_PTR] * 3
+    # sfm_chunk_topk's arguments without k
+    "sfm_chunk_closest": ([_PTR] * 5 + [_INT, _INT] + [_PTR] * 4
                           + [_FLOAT, _FLOAT, _INT] + [_PTR] * 4),
     # px, py, fx, fy, c, kk, n, d2, idx, stream
     "sfm_chunk_argmin": [_PTR] * 4 + [_INT, _INT, _INT] + [_PTR] * 3,

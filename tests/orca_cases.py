@@ -12,7 +12,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from carla_social_force_model_tpu_torch.api.synthetic import benchmark_bundle
+from carla_social_force_model_tpu_torch.api.synthetic import (benchmark_bundle,
+                                                              urban_bundle)
 from carla_social_force_model_tpu_torch.models import modes, stepper
 from carla_social_force_model_tpu_torch.models.spawn import apply_spawn
 from carla_social_force_model_tpu_torch.ops import (cuda_env, forces,
@@ -28,16 +29,22 @@ ENV_ATOL = ENV_RTOL = 1e-5
 NEIGHBOR_DIST = 15.0
 
 
-def feed_scene(n, device, seed=5, extent=None):
+def feed_scene(n, device, seed=5, extent=None, mode="obstacles"):
     """BASELINE config #3 at ``n`` (``benchmark_bundle``, the street-grid
-    borders and the parked-car grid) prepared for ORCA and the analytic
-    tier, and the spawned crowd with 10% dead and 10% on the road, as
-    Hilbert-sorted planes x, y, vx, vy, radius, alive (the order ORCA's
-    windowed path and the environment kernels give the kernels).  Returns
-    ``(scene, params, planes)``."""
-    scene, params, _, state = benchmark_bundle(
-        n, extent=extent, with_borders=True, with_obstacles=True,
-        num_steps_hint=20, device=device)
+    borders and the parked-car grid; ``mode`` as bench.py's BENCH_MODE:
+    ``borders`` config #2, ``urban`` ``urban_bundle``'s curbs) prepared for
+    ORCA and the analytic tier, and the spawned crowd with 10% dead and 10%
+    on the road, as Hilbert-sorted planes x, y, vx, vy, radius, alive (the
+    order ORCA's windowed path and the environment kernels give the
+    kernels).  Returns ``(scene, params, planes)``."""
+    if mode == "urban":
+        scene, params, _, state = urban_bundle(n, num_steps_hint=20,
+                                               device=device)
+    else:
+        scene, params, _, state = benchmark_bundle(
+            n, extent=extent, with_borders=True,
+            with_obstacles=mode == "obstacles", num_steps_hint=20,
+            device=device)
     scene = stepper.prepare_scene(scene, analytic=True, orca=True)
     state = apply_spawn(state, scene.spawn, 0)
     rng = np.random.default_rng(seed)
@@ -70,23 +77,28 @@ def analytic_run(planes, geom, a, b, use_radius=False, grid=None,
     return torch.stack(out)
 
 
-def feed_run(kind, planes, src, k=3, use_alive=True, plain=False,
-             neigh_dist=NEIGHBOR_DIST):
+def feed_call(kind, planes, src, k=3, use_alive=True, plain=False,
+              neigh_dist=NEIGHBOR_DIST):
     """One wall-feed kernel (``seg_topk``, ``chunk_topk``,
-    ``chunk_closest``) or its plain version on ``planes``: a (3, k, N) or
-    (3, C, N) tensor of d2, wx, wy.  ``use_alive``: the kernel's boxes
-    hold only the alive rows (ORCA's call); else every row."""
+    ``chunk_closest``) or its plain version on ``planes``: its (d2, wx, wy)
+    planes, (k, N) or (C, N) each.  ``use_alive``: the kernel's boxes hold
+    only the alive rows (ORCA's call); else every row."""
     x, y, alive = planes[0], planes[1], planes[5]
     if kind == "chunk_closest":
-        out = (geometry.chunk_closest_plain(x, y, src, neigh_dist) if plain
-               else statics.chunk_closest(x, y, src, neigh_dist,
-                                          alive if use_alive else None))
-    elif plain:
-        out = statics.topk_plain(x, y, src, k, neigh_dist)
-    else:
-        fn = statics.seg_topk if kind == "seg_topk" else statics.chunk_topk
-        out = fn(x, y, src, k, neigh_dist, alive if use_alive else None)
-    return torch.stack(out)
+        return (geometry.chunk_closest_plain(x, y, src, neigh_dist) if plain
+                else statics.chunk_closest(x, y, src, neigh_dist,
+                                           alive if use_alive else None))
+    if plain:
+        return statics.topk_plain(x, y, src, k, neigh_dist)
+    fn = statics.seg_topk if kind == "seg_topk" else statics.chunk_topk
+    return fn(x, y, src, k, neigh_dist, alive if use_alive else None)
+
+
+def feed_run(kind, planes, src, k=3, use_alive=True, plain=False,
+             neigh_dist=NEIGHBOR_DIST):
+    """:func:`feed_call` as one (3, k, N) or (3, C, N) tensor."""
+    return torch.stack(feed_call(kind, planes, src, k, use_alive, plain,
+                                 neigh_dist))
 
 
 def feed_mismatch(kind, got, want, rows):
@@ -103,3 +115,92 @@ def feed_mismatch(kind, got, want, rows):
         if kind != "chunk_closest":
             bad |= ~fin & (g[p] != 0)
     return int(bad.sum())
+
+
+# -- tie cases of the segment top-k and chunk_closest ------------------------
+
+#: the 12 lattice points 5 m from the origin: equal squared distances (25)
+#: at different points
+RING5 = np.array([[3, 4], [4, 3], [0, 5], [5, 0], [-3, 4], [-4, 3], [-5, 0],
+                  [0, -5], [3, -4], [4, -3], [-3, -4], [-4, -3]], np.float32)
+#: the centres the tie cases' pedestrians stand on
+TIE_CENTRES = np.array([[0, 0], [20, 0], [0, 20], [20, 20]], np.float32)
+
+
+def grid_coords(rng, lo, hi, size):
+    """Coordinates on a 1/8 m grid: every difference, product and sum the
+    distances take stays exact in float32 (so fused and unfused roundings
+    agree, and equal distances are equal bitwise)."""
+    return (np.round(rng.uniform(lo, hi, size) * 8) / 8).astype(np.float32)
+
+
+def tie_segment_planes(f, lanes=4, seed=0):
+    """The (f,) numpy planes ax, ay, ux, uy, il2, ccx, ccy, rad of segment
+    features that tie: around each of ``TIE_CENTRES`` the 12 points of
+    ``RING5`` as point features (12 equal distances for a pedestrian on
+    the centre, more than k = 8), in a shuffled order at feature indices
+    1, L, L + 1, 1, ... apart (``lanes`` L), as far as ``f`` reaches; the
+    other features axis-parallel or diagonal segments of 1-8 m on the 1/8 m
+    grid (exact projections), near and beyond the neighbour distance."""
+    rng = np.random.default_rng(seed)
+    ax, ay = grid_coords(rng, -20.0, 40.0, f), grid_coords(rng, -20.0, 40.0, f)
+    step = rng.choice(np.float32([1.0, 2.0, 4.0, 8.0]), f)
+    kind = rng.integers(0, 3, f)        # along x, along y, diagonal
+    sign = rng.choice(np.float32([-1.0, 1.0]), (2, f))
+    ux = np.where(kind != 1, step * sign[0], 0.0).astype(np.float32)
+    uy = np.where(kind != 0, step * sign[1], 0.0).astype(np.float32)
+    ties = np.concatenate([c + rng.permutation(RING5) for c in TIE_CENTRES])
+    at = 3 + np.cumsum([(1, lanes, lanes + 1)[j % 3]
+                        for j in range(len(ties))]) - 1
+    keep = at < f
+    ax[at[keep]], ay[at[keep]] = ties[keep, 0], ties[keep, 1]
+    ux[at[keep]] = uy[at[keep]] = 0.0
+    l2 = ux * ux + uy * uy
+    il2 = np.where(l2 > 0, np.float32(1.0) / np.where(l2 > 0, l2, 1.0),
+                   0.0).astype(np.float32)
+    half = np.float32(0.5)
+    return dict(ax=ax, ay=ay, ux=ux, uy=uy, il2=il2, ccx=ax + half * ux,
+                ccy=ay + half * uy, rad=(half * np.sqrt(l2)).astype(
+                    np.float32))
+
+
+def tie_chunk_set(c, kk, seed=0):
+    """A host-side ChunkedPointSet (numpy) of ``c`` chunks of ``kk`` slots
+    whose closest points tie: each chunk holds points 5 m or 10 m from one
+    of ``TIE_CENTRES`` (``RING5`` once or twice), so a pedestrian on the
+    centre meets equal distances at different points in neighbouring slots
+    and slots a lane stride apart; a random real length (ragged lengths:
+    the slots after it invalid), about one slot in ten before it invalid,
+    and every sixth chunk with every slot invalid (an empty chunk)."""
+    from carla_social_force_model_tpu_torch.env.pointsets import (
+        PAD_COORD, ChunkedPointSet)
+    rng = np.random.default_rng(seed)
+    points = np.full((c, kk, 2), PAD_COORD, np.float32)
+    valid = np.zeros((c, kk), bool)
+    for ch in range(c):
+        length = int(rng.integers(1, kk + 1))
+        cen = TIE_CENTRES[rng.integers(0, len(TIE_CENTRES))]
+        points[ch, :length] = cen + RING5[rng.integers(0, 12, length)] * \
+            rng.choice(np.float32([1.0, 2.0]), (length, 1))
+        if ch % 6 == 5:
+            continue
+        valid[ch, :length] = rng.uniform(size=length) >= 0.1
+        valid[ch, length - 1] = True
+    return ChunkedPointSet(points, valid, np.arange(c, dtype=np.int32),
+                           np.zeros((c, 2), np.float32),
+                           np.ones(c, np.float32), c)
+
+
+def tie_crowd(n, seed=0):
+    """``(x, y, alive)`` numpy planes of a crowd for the tie cases: 64
+    pedestrians on ``TIE_CENTRES``, 64 on integer points, the rest on the
+    1/8 m grid; 10% of the others dead."""
+    rng = np.random.default_rng(seed)
+    x, y = grid_coords(rng, -10.0, 30.0, n), grid_coords(rng, -10.0, 30.0, n)
+    on = min(n, 64)
+    x[:on], y[:on] = TIE_CENTRES[np.arange(on) % 4].T
+    lat = slice(on, min(n, 128))
+    x[lat], y[lat] = np.round(x[lat]), np.round(y[lat])
+    alive = rng.uniform(size=n) >= 0.1
+    alive[:min(n, 128)] = True
+    return x, y, alive

@@ -23,7 +23,9 @@ about 1e-6 rad, so the component across the force of a pedestrian that hugs
 a wall carries an error of about 1e-6 |f| that a componentwise bound on the
 near-zero component would flag (tests/test_env_pallas.py compares vectors
 for the same reason).  Against the float64 oracle, the JAX package's own
-vector bound, 3e-4 |f| + 3e-5.
+vector bound, 3e-4 |f| + 3e-5.  The tie cases of the plain versions that
+the wall-feed kernels are held to bitwise are bitwise too: their
+coordinates lie on a 1/8 m grid, where every operation is exact.
 """
 import dataclasses
 
@@ -352,6 +354,67 @@ def test_topk_ties_across_feature_tiles_follow_the_jnp_path():
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     assert got[1][:, 0].tolist() == [0.0, 1.0]
+
+
+@pytest.mark.parametrize("k", [1, 3, 8])
+def test_topk_plain_keeps_ties_a_lane_stride_apart_like_jax(k):
+    """``topk_plain``, the plain version the segment top-k kernel is held
+    to bitwise on the card, on segment features whose equal distances lie
+    at feature indices 1, 4 and 5 apart (the kernel's four lanes take
+    every fourth hit feature), more equal candidates than k, against the JAX
+    package's jnp path: d2, the points and so the selection equal
+    bitwise.  The coordinates lie on a 1/8 m grid, where every operation
+    is exact: the jnp path on the CPU fuses a product into the sum after
+    it (one rounding where the port rounds twice)."""
+    from orca_cases import tie_crowd, tie_segment_planes
+    f, nd = 301, 15.0
+    planes = tie_segment_planes(f)
+    x, y, _ = tie_crowd(500, seed=k)
+    feat = pps.SegmentFeatures(**{a: t(v) for a, v in planes.items()})
+    got = statics.topk_plain(t(x), t(y), feat, k, nd)
+    want = jstatics.nearest_features_topk(
+        jnp.asarray(x), jnp.asarray(y), jps.SegmentFeatures(
+            **{a: jnp.asarray(v) for a, v in planes.items()},
+            num_features=f), k, nd, use_pallas=False)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    # the k-th slot cuts through equal candidates: the order among equals
+    # decides the selection
+    d2 = got[0].numpy()
+    full = geometry.feature_closest_planes(t(x), t(y), feat, nd)[0].numpy()
+    kth = d2[k - 1]
+    cut = np.isfinite(kth) & ((full == kth).sum(axis=0)
+                              > (d2 == kth).sum(axis=0))
+    assert int(cut.sum()) > 0
+
+
+@pytest.mark.parametrize("kk", [64, 200])
+def test_chunk_closest_plain_equals_jax_on_ragged_chunks(kk):
+    """``chunk_closest_plain``, the plain version the chunk_closest kernel
+    is held to bitwise on the card, on chunks of 64 and 200 slots with
+    ragged valid slots, empty chunks and equal distances at different
+    points inside a chunk, against the JAX package's jnp path: d2 and the
+    points equal bitwise (coordinates on the 1/8 m grid, as above)."""
+    from orca_cases import tie_chunk_set, tie_crowd
+    nd = 15.0
+    pset = tie_chunk_set(23, kk, seed=kk)
+    x, y, _ = tie_crowd(300, seed=kk)
+    got = geometry.chunk_closest_plain(t(x), t(y),
+                                       pps.chunk_features(pset, CPU), nd)
+    jset = jps.ChunkedPointSet(
+        **{a: jnp.asarray(getattr(pset, a)) for a in (
+            "points", "valid", "chunk_segment", "centers", "filter_radius")},
+        num_segments=pset.num_segments)
+    want = jgeo.closest_point_per_chunk(jnp.asarray(x), jnp.asarray(y), jset,
+                                        nd, use_pallas=False)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    # some pedestrian meets its chunk minimum, within reach, at two slots
+    real = np.where(pset.valid[..., None], pset.points, np.inf)
+    d2 = ((real[:, :, None, :] - np.stack([x, y], 1)[None, None]) ** 2).sum(-1)
+    low = d2.min(axis=1, keepdims=True)
+    assert bool((((d2 == low).sum(axis=1) > 1) & (low[:, 0] <= nd * nd)).any())
+    assert not pset.valid.all(axis=1).all() and not pset.valid.any(axis=1).all()
 
 
 def test_nearest_features_topk_refuses_k_above_8():

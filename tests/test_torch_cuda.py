@@ -993,6 +993,109 @@ def test_chunk_topk_keeps_ties_across_chunks_and_lanes(cuda_device, k):
     assert bool(torch.isfinite(want[0]).any())
 
 
+def tie_planes(x, y, alive, device):
+    """The tie cases' crowd (numpy planes) on the card, Hilbert-sorted as
+    ORCA passes it: ``[x, y, None, None, None, alive]``."""
+    planes = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+              for a in (x, y, alive)]
+    perm, _ = morton_order(planes[0], planes[1], planes[2], "hilbert")
+    x, y, alive = (a[perm].contiguous() for a in planes)
+    return [x, y, None, None, None, alive]
+
+
+def feed_rows_check(kind, planes, src, k, want):
+    """Launch ``kind`` with the alive rows' boxes and with every row's,
+    twice each: one launch a call, the plain version's bits on the rows
+    the boxes hold, and the same bits again."""
+    from carla_social_force_model_tpu_torch.ops import statics
+    for use_alive in (True, False):
+        before = statics.LAUNCHES[kind]
+        got = feed_run(kind, planes, src, k, use_alive=use_alive)
+        again = feed_run(kind, planes, src, k, use_alive=use_alive)
+        torch.cuda.synchronize()
+        assert statics.LAUNCHES[kind] == before + 2
+        rows = planes[5] if use_alive else torch.ones_like(planes[5])
+        assert feed_mismatch(kind, got, want, rows) == 0, use_alive
+        assert torch.equal(got, again), use_alive
+
+
+@pytest.mark.parametrize("k", [1, 3, 8])
+@pytest.mark.parametrize("f", [0, 13, 157, 301, 700])
+def test_seg_topk_keeps_ties_across_lanes_and_tiles(cuda_device, f, k):
+    """The segment top-k on features whose equal distances lie 1, L and
+    L + 1 indices apart (L = 4 lanes), more equal candidates than k, F not
+    a multiple of L nor of the 128-feature tile (0, 13, 157, 301, 700: no
+    tile, two, three, six) and N = 1,007 (no whole number of 32-pedestrian
+    blocks): d2, the points and the selection equal the plain version's
+    bitwise with the alive rows' boxes and with every row's, and a
+    relaunch gives the same bits."""
+    from carla_social_force_model_tpu_torch.env.pointsets import (
+        SegmentFeatures)
+    from orca_cases import tie_crowd, tie_segment_planes
+    feat = SegmentFeatures(**{a: torch.from_numpy(v).to(cuda_device)
+                              for a, v in tie_segment_planes(f, seed=f)
+                              .items()})
+    planes = tie_planes(*tie_crowd(1007, seed=f + k), cuda_device)
+    want = feed_run("seg_topk", planes, feat, k, plain=True)
+    feed_rows_check("seg_topk", planes, feat, k, want)
+    assert bool(torch.isfinite(want[0]).any()) == (f > 0)
+
+
+@pytest.mark.parametrize("c, kk, n", [
+    (13, 64, 1007), (37, 128, 1007), (170, 128, 4099), (9, 200, 1007),
+    (7, 1100, 1007)])
+def test_chunk_closest_keeps_ties_across_lanes_bitwise(cuda_device, c, kk,
+                                                       n):
+    """chunk_closest on chunks whose closest points tie at different points
+    in neighbouring slots and slots a lane stride apart, with ragged
+    lengths, invalid slots and an empty chunk (radius < 0); chunk counts
+    that the grid's splits do not divide, chunks of 64, 128, 200 and 1,100
+    slots (more than a stage of 1,024 points: staged in pieces), crowds of
+    1,007 and 4,099 (no whole number of blocks): d2 bitwise everywhere and
+    the points where d2 is finite, with the alive rows' boxes and every
+    row's, each chunk scanned to its real length or over every slot; a
+    relaunch gives the same bits."""
+    from carla_social_force_model_tpu_torch.env.pointsets import (
+        chunk_features)
+    from orca_cases import tie_chunk_set, tie_crowd
+    src = chunk_features(tie_chunk_set(c, kk, seed=c + kk), cuda_device)
+    assert bool((src.radius < 0).any())
+    assert bool(((src.lengths > 0) & (src.lengths < kk)).any())
+    planes = tie_planes(*tie_crowd(n, seed=n), cuda_device)
+    want = feed_run("chunk_closest", planes, src, plain=True)
+    every = dataclasses.replace(src, lengths=torch.full_like(src.lengths, kk))
+    for lens in (src, every):
+        feed_rows_check("chunk_closest", planes, lens, 0, want)
+    assert bool(torch.isfinite(want[0]).any())
+
+
+@pytest.mark.parametrize("kind", ["seg_topk", "chunk_closest"])
+def test_feed_kernels_with_every_row_dead(cuda_device, kind):
+    """Every pedestrian dead (N = 1,007): with the alive rows' boxes every
+    block's box is empty, nothing is hit and every entry is empty (d2 inf,
+    the point 0); with every row's, the plain version's bits."""
+    from carla_social_force_model_tpu_torch.env.pointsets import (
+        SegmentFeatures, chunk_features)
+    from orca_cases import tie_chunk_set, tie_crowd, tie_segment_planes
+    x, y, alive = tie_crowd(1007, seed=2)
+    planes = tie_planes(x, y, np.zeros_like(alive), cuda_device)
+    if kind == "seg_topk":
+        src = SegmentFeatures(**{a: torch.from_numpy(v).to(cuda_device)
+                                 for a, v in tie_segment_planes(301).items()})
+    else:
+        src = chunk_features(tie_chunk_set(37, 128), cuda_device)
+    for k in ((1, 8) if kind == "seg_topk" else (0,)):
+        want = feed_run(kind, planes, src, k, plain=True)
+        got = feed_run(kind, planes, src, k, use_alive=False)
+        empty = feed_run(kind, planes, src, k, use_alive=True)
+        torch.cuda.synchronize()
+        assert feed_mismatch(kind, got, want,
+                             torch.ones_like(planes[5])) == 0
+        assert bool(torch.isinf(empty[0]).all())
+        assert not bool(empty[1:].any())
+        assert bool(torch.isfinite(want[0]).any())
+
+
 def test_scenario_steps_through_kernels_match_plain_steps(cuda_device):
     """A shipped scenario with borders, parked cars and the chunked
     environment path (obstacle_evasion): 30 steps through the kernels, each

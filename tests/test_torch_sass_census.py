@@ -73,19 +73,22 @@ def test_dense_walk_and_ring_entries_name_their_rows_per_thread(label,
 
 @pytest.mark.parametrize("label, prefix, const, unit", [
     ("chunk_argmin", "chunk_argmin_kernel", "kArgminRows", "pair"),
-    ("chunk_topk", "chunk_topk_kernel", "kTopkLanes", "point")])
+    ("chunk_topk", "chunk_topk_kernel", "kTopkLanes", "point"),
+    ("seg_topk", "seg_topk_kernel<4>", "kSegLanes", "feature pair"),
+    ("chunk_closest", "chunk_closest_kernel", "kClosestLanes", "point")])
 def test_chunk_scan_entries_name_their_layout(label, prefix, const, unit):
-    """The chunk scan's and the chunk top-k's entries count their own
-    kernels of statics.cu (whose objects the census disassembles) per
-    (point, pedestrian) pair or scanned point, by the two products of its
-    squared distance, with R pedestrians per thread or L lanes per
-    pedestrian read from the source."""
+    """The entries of the chunk scan, the chunk top-k, the segment top-k
+    and chunk_closest count their own kernels of statics.cu (whose objects
+    the census disassembles) per (point, pedestrian) pair, scanned point or
+    (segment feature, pedestrian) pair, by the two products of its squared
+    distance, with R pedestrians per thread or L lanes per pedestrian read
+    from the source."""
     entry = {k[0]: k for k in sass_census.KERNELS}[label]
     assert entry[1] == prefix and entry[4] == unit and entry[5] == const
     assert entry[2] == ("FMUL", "pair_forces.cuh", None) and entry[3] == 2
     assert b"_statics_cu_" in sass_census.SOURCES
     value = sass_census.layout_constants(ROOT)[const]
-    if const == "kTopkLanes":
+    if const != "kArgminRows":
         assert const in sass_census.LANE_CONSTANTS and 32 % value == 0
     else:
         assert const not in sass_census.LANE_CONSTANTS

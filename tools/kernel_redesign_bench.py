@@ -24,15 +24,19 @@ phase 6 (config #3 at 10,000: ``env_exp`` on the borders,
 ``env_exp_analytic_compact`` on the urban ones with a table of width 4),
 and with ``--cases statics`` phase 21 (``chunk_argmin`` at the Town02
 crowd's shape: its 150 border chunks of 128 points against its 10,008
-pedestrians after 10 steps) and phase 18 (``chunk_topk`` over config
-#3's 169 parked-car chunks at N = 10,000, k = 3, the alive rows' boxes).
-Each time is the profiler's device time of the named kernel over 20
-launches (5 at 1M), ``chip_smoke.device_ms``; before them, the errors of
-the Moussaid pair kernels against their plain versions as phases 3, 9
-and 24 check them (the fast tail moves them).
+pedestrians after 10 steps) and phase 18 (``chunk_topk`` and
+``chunk_closest`` over config #3's 169 parked-car chunks at N = 10,000,
+``seg_topk`` over the border features of config #3 and of the urban path
+at N = 10,000 and of config #2 at N = 50,000; k = 3, the alive rows'
+boxes).  Each time is the device time of the named kernel over 20
+launches (5 at 1M), ``chip_smoke.device_ms``: the profiler, or a CUDA
+graph of the calls where the profiler misses or doubles launches (each
+line's ``timed_by``); before them, the errors of the Moussaid pair
+kernels against their plain versions as phases 3, 9 and 24 check them
+(the fast tail moves them).
 
     python3 tools/kernel_redesign_bench.py [--root DIR] [--label NAME] \\
-        [--out FILE] [--cases sym,env,dense,statics,capacity]
+        [--out FILE] [--cases sym,env,dense,statics,feed,capacity]
 
 ``--cases capacity`` asks, for each law with and without the cutoff and at
 D = 1, 4 and 8, whether one ``ring_force`` launch takes twice the agents
@@ -42,14 +46,17 @@ at D = 4 over N = 10,000 and over N = 2 x 50,688 agents (on 132 SMs) at
 D = 4 and D = 1 (``"ms": null`` where the launch is refused).
 
 ``--root`` is the checkout whose package is imported and whose kernels are
-built (into its own ``build/``).  One JSON line per time goes to standard
+built (into its own ``build/``); the cases' builders (``chip_smoke.py``
+and ``tests/``) are this tool's own, so every root runs the same
+inputs.  One JSON line per time goes to standard
 output (and to ``--out``).  To compare two commits, unpack each into a
 directory that ``.gitignore`` lists and run the tool on each in one call on
 the card, in turns (parent, change, change, parent); to compare a layout
 constant (``kSymRows``, ``kSymRowsCut``, ``kDenseRows``, ``kDenseCols``
 in ``csrc/pair_forces.cu``, ``kRingRows`` in ``csrc/ring.cu``,
-``kEnvLanes`` in ``csrc/env_forces.cu``, ``kArgminRows`` and
-``kTopkLanes`` in ``csrc/statics.cu``), edit it in such a copy.
+``kEnvLanes`` in ``csrc/env_forces.cu``, ``kArgminRows``,
+``kTopkLanes``, ``kSegLanes``, ``kClosestLanes`` and
+``kClosestBlocksPerSM`` in ``csrc/statics.cu``), edit it in such a copy.
 """
 from __future__ import annotations
 
@@ -69,7 +76,7 @@ CUT_BLOCK_N = 50_000
 
 
 def smoke():
-    """This checkout's ``chip_smoke`` module (its case builders and
+    """This tool's checkout's ``chip_smoke`` module (its case builders and
     ``device_ms``), whichever checkout ``--root`` names."""
     if "chip_smoke" not in sys.modules:
         spec = importlib.util.spec_from_file_location(
@@ -173,9 +180,7 @@ def dense_cases(dev):
 
 def statics_cases(dev):
     """(name, call, kernel name filter, reps) of the chunk scan at the
-    Town02 crowd's shape (phase 21) and the chunk top-k over config #3's
-    parked cars (phase 18)."""
-    from orca_cases import NEIGHBOR_DIST, feed_run, feed_scene
+    Town02 crowd's shape (phase 21), then :func:`feed_cases`."""
     from carla_social_force_model_tpu_torch.models import stepper
     from carla_social_force_model_tpu_torch.ops import geometry, statics
     cs = smoke()
@@ -187,15 +192,49 @@ def statics_cases(dev):
     fx, fy = (a.contiguous() for a in geometry.staged_chunk_planes(
         scene.borders_chunked))
     px, py = later.pos_x, later.pos_y
-    scene3, _, planes = feed_scene(N, dev)
-    cars = scene3.obstacles_feat.rest
     return [(f"chunk_argmin Town02 {fx.shape[0]} x {fx.shape[1]} N="
              f"{px.shape[0]}", lambda: statics.chunk_argmin(px, py, fx, fy),
-             "chunk_argmin_kernel", 20),
-            (f"chunk_topk config #3 cars {cars.num_chunks} N={N} k=3",
-             lambda: feed_run("chunk_topk", planes, cars, 3,
-                              neigh_dist=NEIGHBOR_DIST),
-             "topk_kernel", 20)]
+             "chunk_argmin_kernel", 20)] + feed_cases(dev)
+
+
+def feed_cases(dev):
+    """(name, call, kernel name filter, reps, work) of the wall-feed
+    kernels (phase 18): the chunk top-k and chunk_closest over config #3's
+    parked cars (chunk_closest also with a neighbour distance of 0, where
+    few chunks are hit and its time is mostly its stores), and the segment
+    top-k over the border features of config #3, the urban path (both N =
+    10,000) and config #2 (N = 50,000); k = 3, the alive rows' boxes.
+    ``work()`` gives the case's bound (``chip_smoke.feed_work``) and its
+    census label and units (scanned points, or feature pairs of the
+    segment top-k)."""
+    from orca_cases import NEIGHBOR_DIST, feed_call, feed_scene
+    feed_work = smoke().feed_work
+
+    def case(name, kind, planes, src, k, nd=NEIGHBOR_DIST):
+        def work():
+            bnd = feed_work(kind, planes, src, k, nd)
+            return bnd[:2], kind, bnd[2] if kind == "seg_topk" else bnd[4]
+        return (name, lambda: feed_call(kind, planes, src, k, neigh_dist=nd),
+                f"{kind}_kernel", 20, work)
+
+    scene3, _, planes = feed_scene(N, dev)
+    cars = scene3.obstacles_feat.rest
+    out = [case(f"chunk_topk config #3 cars {cars.num_chunks} N={N} k=3",
+                "chunk_topk", planes, cars, 3),
+           case(f"chunk_closest config #3 cars {cars.num_chunks} N={N}",
+                "chunk_closest", planes, cars, 0),
+           case(f"chunk_closest config #3 cars {cars.num_chunks} N={N} "
+                f"neighbour distance 0 (few hits: its stores)",
+                "chunk_closest", planes, cars, 0, 0.0)]
+    for label, mode, n in (("config #3", "obstacles", N),
+                           ("urban", "urban", N),
+                           ("config #2", "borders", 50_000)):
+        sc, _, pl = (scene3, None, planes) if mode == "obstacles" else \
+            feed_scene(n, dev, mode=mode)
+        seg = sc.borders_feat.seg
+        out.append(case(f"seg_topk {label} borders F={seg.num_features} "
+                        f"N={n} k=3", "seg_topk", pl, seg, 3))
+    return out
 
 
 def capacity_cases(dev):
@@ -391,17 +430,30 @@ def env_cases(dev):
     return [(name, fn, "env_force_kernel", reps) for name, fn, reps in out]
 
 
-def run(cases, label, card, sink):
+def run(cases, label, card, sink, census):
+    """Time each case and print its JSON line; a case with a ``work``
+    callable adds its bound and the issue floor of its units through the
+    SASS census of this checkout's kernels (``census``: label -> census,
+    null where the checkout lacks the kernel)."""
+    from sass_census import floor_ms
     device_ms = smoke().device_ms
-    for name, fn, kernel, reps in cases:
+    for name, fn, kernel, reps, *work in cases:
         try:
             ms = device_ms(fn, kernel, reps=reps)
         except RuntimeError as e:  # a ring grid this checkout cannot hold
             if "CUDA error 720" not in str(e):
                 raise
             ms = None
-        line = json.dumps({"root": label, "case": name, "ms": ms,
-                           "card": card})
+        row = {"root": label, "case": name, "ms": ms,
+               "timed_by": smoke().TIMED_BY[0] if ms else None}
+        if work:
+            (bound_ms, bound_by), unit_of, units = work[0]()
+            c = census.get(unit_of)
+            row.update(bound_ms=bound_ms, bound_by=bound_by, units=units,
+                       floor_ms=floor_ms(c["per_unit"], units) if c
+                       else None,
+                       per_unit=c["per_unit"] if c else None)
+        line = json.dumps(dict(row, card=card))
         print(line, flush=True)
         sink.append(line)
 
@@ -413,11 +465,12 @@ def main() -> int:
     ap.add_argument("--out", type=Path, default=None)
     ap.add_argument("--cases", default="sym,env,dense",
                     help="comma-separated groups: sym, env, dense, "
-                    "statics, capacity")
+                    "statics, feed (statics without chunk_argmin), "
+                    "capacity")
     args = ap.parse_args()
     groups = set(args.cases.split(","))
     root = args.root.resolve()
-    sys.path[:0] = [str(root), str(root / "tests")]
+    sys.path[:0] = [str(root), str(HERE / "tests"), str(root / "tests")]
     import torch
     if not torch.cuda.is_available():
         print("no CUDA card", file=sys.stderr)
@@ -445,9 +498,15 @@ def main() -> int:
                                      "card": card}))
             print(lines[-1], flush=True)
     cases = {"sym": sym_cases, "env": env_cases, "dense": dense_cases,
-             "statics": statics_cases, "capacity": capacity_cases}
-    run([c for g in ("sym", "env", "dense", "statics", "capacity")
-         if g in groups for c in cases[g](dev)], args.label, card, lines)
+             "statics": statics_cases, "feed": feed_cases,
+             "capacity": capacity_cases}
+    census = {}
+    if groups & {"statics", "feed"}:
+        from sass_census import census as sass
+        census = sass(cuda_build.LIBRARY, root=root)
+    run([c for g in ("sym", "env", "dense", "statics", "feed", "capacity")
+         if g in groups for c in cases[g](dev)], args.label, card, lines,
+        census)
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         with args.out.open("a") as f:

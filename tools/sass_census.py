@@ -8,8 +8,9 @@ it with ``nvdisasm -g`` (each instruction with its source line) and, for
 each kernel of ``KERNELS``, finds the innermost loop (a backward branch)
 that holds the kernel's per-unit marker: the two ``expf`` of a Moussaid
 pair (``MUFU.EX2``), the one ``expf`` of a power-law or Helbing pair, the two
-products of the squared distance of a scanned point or of a (point,
-pedestrian) pair of the chunk scan (``sq_norm_rn``).  The
+products of the squared distance of a scanned point, of a (point,
+pedestrian) pair of the chunk scan or of a (segment feature, pedestrian)
+pair of the segment top-k (``sq_norm_rn``).  The
 loop's instructions over the units one trip covers give the instructions
 per pair (or per scanned point), split into four groups:
 
@@ -120,11 +121,15 @@ KERNELS = (
      2, "pair", "kArgminRows"),
     ("chunk_topk", "chunk_topk_kernel", ("FMUL", "pair_forces.cuh", None), 2,
      "point", "kTopkLanes"),
+    ("seg_topk", "seg_topk_kernel<4>", ("FMUL", "pair_forces.cuh", None), 2,
+     "feature pair", "kSegLanes"),
+    ("chunk_closest", "chunk_closest_kernel",
+     ("FMUL", "pair_forces.cuh", None), 2, "point", "kClosestLanes"),
 )
 
 #: the layout constants that count lanes per pedestrian (the rest count
 #: rows, or pedestrians, per thread)
-LANE_CONSTANTS = ("kEnvLanes", "kTopkLanes")
+LANE_CONSTANTS = ("kEnvLanes", "kTopkLanes", "kSegLanes", "kClosestLanes")
 
 #: the special-function call sites: (file suffix, function whose body
 #: holds them).  Their lines are looked up in the source, so that they
