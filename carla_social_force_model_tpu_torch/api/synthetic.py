@@ -65,6 +65,30 @@ def synthetic_crowd(n: int, extent: float = 100.0, speed: float = 1.3,
         routes=routes)
 
 
+def batched_crowds(batch: int, n: int, extent: float = 35.0,
+                   speed: float = 1.3, seed: int = 0, radius: float = 0.3,
+                   device: torch.device | str = DEFAULT_DEVICE
+                   ) -> SpawnSchedule:
+    """A batch of independent synthetic crowds for ensemble rollouts: row b
+    is ``synthetic_crowd(n, seed=seed + b)``, every plane stacked along a
+    leading batch axis (``(B, N)``; routes ``(B, N, W)``)."""
+    device = resolve_device(device)
+    rows = [synthetic_crowd(n, extent=extent, speed=speed, seed=seed + b,
+                            radius=radius, device="cpu")
+            for b in range(batch)]
+
+    def stack(*planes):
+        return torch.stack(planes).to(device)
+
+    routes = RouteBuffer(*(stack(*(getattr(r.routes, f) for r in rows))
+                           for f in ("wp_x", "wp_y", "crossing", "count")))
+    return SpawnSchedule(**{
+        f: routes if f == "routes" else stack(*(getattr(r, f) for r in rows))
+        for f in ("step", "pos_x", "pos_y", "vel_x", "vel_y", "speed",
+                  "crossing_speed", "margin", "radius", "initial_mode",
+                  "fwp_x", "fwp_y", "routes")})
+
+
 def _wall_sections(lines, centers, lengths, a, b,
                    section_length: float = 30.0, resolution: float = 0.1):
     """Append one sampled wall split into <=section_length sections (the

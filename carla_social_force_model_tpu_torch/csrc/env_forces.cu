@@ -92,6 +92,22 @@
 // bitwise.  It saves only the skipped sections' box tests; the scans of
 // touched sections are the same work in both forms.
 //
+// Batches (ensembles and parameter sweeps).  Under the JAX package's vmap
+// _exp_kernel and _moussaid_kernel gain a leading batch axis on the
+// pedestrian planes and the swept parameters (sweeps.py:81-84), while the
+// geometry stays shared.  Here the dense sampled walks take B crowds in one
+// launch (env_force_batched_kernel; sfm_env_exp_batched,
+// sfm_env_moussaid_batched): the grid's y index is the crowd, whose sorted
+// planes and outputs lie at blockIdx.y * n, its parameters (exp: a, b;
+// Moussaid: the six) at blockIdx.y * prm_stride and its squared filter
+// radii at blockIdx.y * r2_stride (0: shared; a swept perception threshold
+// gives each crowd its own); every crowd reads the one set of point rows.
+// The batched kernel hands its crowd's pointers to the walk body the
+// unbatched kernel runs (env_walk), so row b equals the unbatched launch
+// on row b bitwise, and the unbatched kernels compile without a batch
+// offset (offsets read from blockIdx.y inside the body cost 30% on
+// env_exp_analytic).
+//
 // Where the TPU design does not carry over.  The TPU grid walked
 // (ped tile, point tile) pairs in order and accumulated into one resident
 // output block; here the section loop runs inside the block, so nothing is
@@ -149,22 +165,21 @@ enum Geom { kSampled, kAnalytic };
 // vectors and 1/|u|^2; unused (null) for kSampled.
 // lens: the real points (segments) of each row, all before its padding;
 // null: every slot of every row.
+// The walk body: env_force_kernel runs it on its arguments, the batched
+// kernel on its crowd's pointers.
 template <bool kMoussaid, Walk kWalk, Geom kGeom>
-__global__ void __launch_bounds__(kEnvThreads)
-env_force_kernel(const float* __restrict__ px_, const float* __restrict__ py_,
-                 const float* __restrict__ pvx_, const float* __restrict__ pvy_,
-                 const float* __restrict__ prad_,
-                 const uint8_t* __restrict__ alive_,
-                 const float* __restrict__ ptx, const float* __restrict__ pty,
-                 const float* __restrict__ pux, const float* __restrict__ puy,
-                 const float* __restrict__ pil2,
-                 int k, const int* __restrict__ lens,
-                 const float* __restrict__ cx, const float* __restrict__ cy,
-                 const float* __restrict__ r2, const float* __restrict__ ov,
-                 int s_count, const float* __restrict__ prm, float a, float b,
-                 int use_radius, int n, const int* __restrict__ surv,
-                 const int* __restrict__ counts, int max_surv, int gs,
-                 float* __restrict__ fx, float* __restrict__ fy) {
+__device__ __forceinline__ void env_walk(
+    const float* __restrict__ px_, const float* __restrict__ py_,
+    const float* __restrict__ pvx_, const float* __restrict__ pvy_,
+    const float* __restrict__ prad_, const uint8_t* __restrict__ alive_,
+    const float* __restrict__ ptx, const float* __restrict__ pty,
+    const float* __restrict__ pux, const float* __restrict__ puy,
+    const float* __restrict__ pil2, int k, const int* __restrict__ lens,
+    const float* __restrict__ cx, const float* __restrict__ cy,
+    const float* __restrict__ r2, const float* __restrict__ ov, int s_count,
+    const float* __restrict__ prm, float a, float b, int use_radius, int n,
+    const int* __restrict__ surv, const int* __restrict__ counts,
+    int max_surv, int gs, float* __restrict__ fx, float* __restrict__ fy) {
   __shared__ __align__(16) float stage[2 * kEnvStage];
   constexpr unsigned kAll = 0xffffffffu;
 
@@ -337,6 +352,56 @@ env_force_kernel(const float* __restrict__ px_, const float* __restrict__ py_,
 }
 
 template <bool kMoussaid, Walk kWalk, Geom kGeom>
+__global__ void __launch_bounds__(kEnvThreads)
+env_force_kernel(const float* __restrict__ px_, const float* __restrict__ py_,
+                 const float* __restrict__ pvx_, const float* __restrict__ pvy_,
+                 const float* __restrict__ prad_,
+                 const uint8_t* __restrict__ alive_,
+                 const float* __restrict__ ptx, const float* __restrict__ pty,
+                 const float* __restrict__ pux, const float* __restrict__ puy,
+                 const float* __restrict__ pil2,
+                 int k, const int* __restrict__ lens,
+                 const float* __restrict__ cx, const float* __restrict__ cy,
+                 const float* __restrict__ r2, const float* __restrict__ ov,
+                 int s_count, const float* __restrict__ prm, float a, float b,
+                 int use_radius, int n, const int* __restrict__ surv,
+                 const int* __restrict__ counts, int max_surv, int gs,
+                 float* __restrict__ fx, float* __restrict__ fy) {
+  env_walk<kMoussaid, kWalk, kGeom>(px_, py_, pvx_, pvy_, prad_, alive_, ptx,
+                                    pty, pux, puy, pil2, k, lens, cx, cy, r2,
+                                    ov, s_count, prm, a, b, use_radius, n,
+                                    surv, counts, max_surv, gs, fx, fy);
+}
+
+// The dense sampled walk over a batch of crowds of n pedestrians: crowd
+// blockIdx.y's sorted planes and outputs at blockIdx.y * n, its parameters
+// (exp: a, b; Moussaid: the six) at blockIdx.y * prm_stride and its
+// squared filter radii at blockIdx.y * r2_stride (0: shared); every crowd
+// reads the one set of point rows.  The walk is the unbatched one.
+template <bool kMoussaid>
+__global__ void __launch_bounds__(kEnvThreads)
+env_force_batched_kernel(
+    const float* __restrict__ px_, const float* __restrict__ py_,
+    const float* __restrict__ pvx_, const float* __restrict__ pvy_,
+    const float* __restrict__ prad_, const uint8_t* __restrict__ alive_,
+    const float* __restrict__ ptx, const float* __restrict__ pty, int k,
+    const int* __restrict__ lens, const float* __restrict__ cx,
+    const float* __restrict__ cy, const float* __restrict__ r2,
+    int r2_stride, const float* __restrict__ ov, int s_count,
+    const float* __restrict__ prm, int prm_stride, int use_radius, int n,
+    float* __restrict__ fx, float* __restrict__ fy) {
+  const int bo = (int)blockIdx.y * n;
+  const float* row_prm = prm + (long long)blockIdx.y * prm_stride;
+  env_walk<kMoussaid, kAllSections, kSampled>(
+      px_ + bo, py_ + bo, kMoussaid ? pvx_ + bo : nullptr,
+      kMoussaid ? pvy_ + bo : nullptr, prad_ + bo, alive_ + bo, ptx, pty,
+      nullptr, nullptr, nullptr, k, lens, cx, cy,
+      r2 + (long long)blockIdx.y * r2_stride, ov, s_count, row_prm,
+      kMoussaid ? 0.0f : row_prm[0], kMoussaid ? 1.0f : row_prm[1],
+      use_radius, n, nullptr, nullptr, 0, 1, fx + bo, fy + bo);
+}
+
+template <bool kMoussaid, Walk kWalk, Geom kGeom>
 int env_launch(const float* px, const float* py, const float* pvx,
                const float* pvy, const float* prad, const uint8_t* alive,
                const float* ptx, const float* pty, const float* pux,
@@ -353,6 +418,25 @@ int env_launch(const float* px, const float* py, const float* pvx,
           px, py, pvx, pvy, prad, alive, ptx, pty, pux, puy, pil2, k, lens,
           cx, cy, r2, ov, s_count, prm, a, b, use_radius, n, surv, counts,
           max_surv, gs, fx, fy);
+  return (int)cudaGetLastError();
+}
+
+template <bool kMoussaid>
+int env_batched_launch(const float* px, const float* py, const float* pvx,
+                       const float* pvy, const float* prad,
+                       const uint8_t* alive, const float* ptx,
+                       const float* pty, int k, const int* lens,
+                       const float* cx, const float* cy, const float* r2,
+                       int r2_stride, const float* ov, int s_count,
+                       const float* prm, int prm_stride, int use_radius,
+                       int n, int batch, float* fx, float* fy, void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  if (batch < 1 || batch > 65535) return (int)cudaErrorInvalidValue;
+  const int blocks = (n + kEnvPeds - 1) / kEnvPeds;
+  env_force_batched_kernel<kMoussaid>
+      <<<dim3(blocks, batch), kEnvThreads, 0, (cudaStream_t)stream>>>(
+          px, py, pvx, pvy, prad, alive, ptx, pty, k, lens, cx, cy, r2,
+          r2_stride, ov, s_count, prm, prm_stride, use_radius, n, fx, fy);
   return (int)cudaGetLastError();
 }
 
@@ -451,6 +535,39 @@ int sfm_env_exp_analytic_compact(const float* px, const float* py,
       px, py, nullptr, nullptr, prad, alive, ax, ay, ux, uy, il2, m, lens,
       cx, cy, r2, nullptr, s_count, nullptr, a, b, use_radius, n, surv,
       counts, max_surv, gs, fx, fy, stream);
+}
+
+// The batched dense walks: batch crowds of n pedestrians, planes and
+// outputs (batch, n) row-major, one set of point rows; r2 (s_count,) shared
+// (r2_stride 0) or (batch, s_count) (r2_stride s_count); prm (batch, 2) of
+// (a, b) for exp and (batch, 6) for Moussaid, rows prm_stride apart (0:
+// shared).
+int sfm_env_exp_batched(const float* px, const float* py, const float* prad,
+                        const uint8_t* alive, const float* ptx,
+                        const float* pty, int k, const int* lens,
+                        const float* cx, const float* cy, const float* r2,
+                        int r2_stride, int s_count, const float* prm,
+                        int prm_stride, int use_radius, int n, int batch,
+                        float* fx, float* fy, void* stream) {
+  return env_batched_launch<false>(px, py, nullptr, nullptr, prad, alive, ptx,
+                                   pty, k, lens, cx, cy, r2, r2_stride,
+                                   nullptr, s_count, prm, prm_stride,
+                                   use_radius, n, batch, fx, fy, stream);
+}
+
+int sfm_env_moussaid_batched(const float* px, const float* py,
+                             const float* pvx, const float* pvy,
+                             const float* prad, const uint8_t* alive,
+                             const float* ptx, const float* pty, int k,
+                             const int* lens, const float* cx,
+                             const float* cy, const float* r2, int r2_stride,
+                             const float* ov, int s_count, const float* prm,
+                             int prm_stride, int use_radius, int n,
+                             int batch, float* fx, float* fy, void* stream) {
+  return env_batched_launch<true>(px, py, pvx, pvy, prad, alive, ptx, pty, k,
+                                  lens, cx, cy, r2, r2_stride, ov, s_count,
+                                  prm, prm_stride, use_radius, n, batch, fx,
+                                  fy, stream);
 }
 
 }  // extern "C"

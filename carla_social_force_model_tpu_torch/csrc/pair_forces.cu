@@ -50,6 +50,21 @@
 //       different shards' agents); with a cutoff, the box skip of both
 //       sides' 128-agent tiles.
 //
+// Batches (ensembles and parameter sweeps).  Under the JAX package's vmap
+// _pair_kernel_sym and _pair_kernel gain a leading batch axis on every
+// plane and a batched parameter vector (pallas_forces.py:167-168).  Here
+// the kAllTiles and kTriangle walks take B independent crowds in one launch
+// (pair_force_dense_batched_kernel, pair_force_sym_batched_kernel; entries
+// sfm_pair_dense_batched, sfm_pair_sym_batched): the grid's y index is the
+// crowd, whose planes and outputs lie at blockIdx.y * n and whose
+// parameters at blockIdx.y * prm_stride (0: every crowd shares one vector).
+// A batched kernel hands its crowd's pointers to the walk body the
+// unbatched kernel runs (dense_walk, sym_walk), so row b of the dense walk
+// sums in the unbatched launch's order and equals it bitwise, and the
+// unbatched kernels compile without a batch offset (one read from
+// blockIdx.y inside the shared bodies cost 8% on the dense walk at 10k).
+// The dense walk's cluster split sees the whole grid (B row sets).
+//
 // What bounds them on this card.  Each Moussaid pair costs about 85 f32
 // operations and 6 special-function operations (2 rsqrt, atan2, 2 exp, a
 // division); a power-law pair about 40 and 7 (a root, an exp, 5
@@ -203,8 +218,9 @@ __host__ __device__ __forceinline__ int dense_parts(int nct) {
 // kMaxSplit parts evenly), at most one per part.  A function of the
 // launch's shapes only.
 template <int kWalk>
-int dense_splits(int n_rows, int n_cols) {
-  const long long row_tiles = (n_rows + kSymTile - 1) / kSymTile;
+int dense_splits(int n_rows, int n_cols, int batch) {
+  const long long row_tiles =
+      (long long)((n_rows + kSymTile - 1) / kSymTile) * batch;
   const int parts = dense_parts(n_cols / kColTile + (n_cols % kColTile != 0));
   int s = 1;
   while (s < parts && (long long)s * row_tiles < dense_fill(kWalk)) s *= 2;
@@ -213,7 +229,8 @@ int dense_splits(int n_rows, int n_cols) {
 
 // The dense walks.  Block b holds row block b / S and parts [s * P / S,
 // (s + 1) * P / S) of its columns, s = b % S, walked in ascending tile
-// order.  Each row's sum is one fixed order of additions, whatever the
+// order (the batched kernel passes its crowd's planes, parameters and
+// outputs).  Each row's sum is one fixed order of additions, whatever the
 // walk, R, kDenseCols or S: over the parts, of the sum over a tile's eight
 // 32-column chunk slots, of the slot's sum over the part's tiles, of the
 // chunk's 32 columns (each level a left fold from +0).  A tile or chunk a
@@ -223,14 +240,12 @@ int dense_splits(int n_rows, int n_cols) {
 // block form one cluster and fold their parts' sums in order through
 // distributed shared memory.
 template <int kWalk, class Law>
-__global__ void __launch_bounds__(kDenseThreads, 2048 / kDenseThreads)
-pair_force_dense_kernel(Planes rows, Planes cols,
-                        const float* __restrict__ prm, int use_radius,
-                        const float* __restrict__ col_bb,
-                        const int* __restrict__ surv,
-                        const int* __restrict__ counts, int max_surv, float c2,
-                        int n_split, float* __restrict__ fx,
-                        float* __restrict__ fy) {
+__device__ __forceinline__ void dense_walk(
+    const Planes& rows, const Planes& cols, const float* __restrict__ prm,
+    int use_radius, const float* __restrict__ col_bb,
+    const int* __restrict__ surv, const int* __restrict__ counts,
+    int max_surv, float c2, int n_split, float* __restrict__ fx,
+    float* __restrict__ fy) {
   constexpr int kR = kDenseRows;
   constexpr bool kCut = kWalk != kAllTiles;
   constexpr int kWarps = kDenseCols;
@@ -261,10 +276,11 @@ pair_force_dense_kernel(Planes rows, Planes cols,
   for (int r = 0; r < kR; ++r) {
     const int i = i_blk + lane + 32 * r;
     const bool in = i < rows.n;
-    rw.template load<kCut>(r, in ? rows.x[i] : 0.0f, in ? rows.y[i] : 0.0f,
-                           in ? rows.u[i] : 0.0f, in ? rows.v[i] : 0.0f,
-                           (in && Law::kRadius) ? rows.rad[i] : 0.0f,
-                           in && rows.alive[i] != 0, rows.off + i);
+    rw.template load<kCut>(
+        r, in ? rows.x[i] : 0.0f, in ? rows.y[i] : 0.0f,
+        in ? rows.u[i] : 0.0f, in ? rows.v[i] : 0.0f,
+        (in && Law::kRadius) ? rows.rad[i] : 0.0f,
+        in && rows.alive[i] != 0, rows.off + i);
   }
   for (int e = tid; e < kTileChunks * kRows; e += kDenseThreads) {
     slot_x[e / kRows][e % kRows] = 0.0f;
@@ -311,7 +327,8 @@ pair_force_dense_kernel(Planes rows, Planes cols,
       const int j = j0 + c;
       const bool in = j < n;
       stage_column<kCut>(tile, c, in ? cols.x[j] : 0.0f,
-                         in ? cols.y[j] : 0.0f, in ? cols.u[j] : 0.0f,
+                         in ? cols.y[j] : 0.0f,
+                         in ? cols.u[j] : 0.0f,
                          in ? cols.v[j] : 0.0f,
                          (in && Law::kRadius) ? cols.rad[j] : 0.0f,
                          in && cols.alive[j] != 0);
@@ -409,6 +426,48 @@ pair_force_dense_kernel(Planes rows, Planes cols,
     fy[i] = sy;
   }
   cluster.sync();  // no block leaves while another reads its sums
+}
+
+template <int kWalk, class Law>
+__global__ void __launch_bounds__(kDenseThreads, 2048 / kDenseThreads)
+pair_force_dense_kernel(Planes rows, Planes cols,
+                        const float* __restrict__ prm, int use_radius,
+                        const float* __restrict__ col_bb,
+                        const int* __restrict__ surv,
+                        const int* __restrict__ counts, int max_surv, float c2,
+                        int n_split, float* __restrict__ fx,
+                        float* __restrict__ fy) {
+  dense_walk<kWalk, Law>(rows, cols, prm, use_radius, col_bb, surv, counts,
+                         max_surv, c2, n_split, fx, fy);
+}
+
+// A crowd's planes in a batch: every pointer advanced by off agents (rad
+// may be null).
+__device__ __forceinline__ Planes batch_row(Planes p, int off) {
+  p.x += off;
+  p.y += off;
+  p.u += off;
+  p.v += off;
+  if (p.rad != nullptr) p.rad += off;
+  p.alive += off;
+  return p;
+}
+
+// The kAllTiles walk over a batch of square crowds of rows.n agents: crowd
+// blockIdx.y's planes and outputs at blockIdx.y * rows.n, its parameters
+// at blockIdx.y * prm_stride.  The walk itself is the unbatched one.
+template <class Law>
+__global__ void __launch_bounds__(kDenseThreads, 2048 / kDenseThreads)
+pair_force_dense_batched_kernel(Planes rows, Planes cols,
+                                const float* __restrict__ prm, int prm_stride,
+                                int use_radius, int n_split,
+                                float* __restrict__ fx,
+                                float* __restrict__ fy) {
+  const int bo = (int)blockIdx.y * rows.n;
+  dense_walk<kAllTiles, Law>(batch_row(rows, bo), batch_row(cols, bo),
+                             prm + (int)blockIdx.y * prm_stride, use_radius,
+                             nullptr, nullptr, nullptr, 1, 0.0f, n_split,
+                             fx + bo, fy + bo);
 }
 
 // Row-major position of tile pair (ti, tj), tj >= ti, in the upper triangle
@@ -622,13 +681,14 @@ __device__ __forceinline__ void sym_tile_pair(
   }
 }
 
+// Block b: tile pair b (or table slot b) of the planes pl (the batched
+// kernel passes its crowd's planes, parameters and outputs).
 template <int kWalk, class Law>
-__global__ void __launch_bounds__(kSymTile)
-pair_force_sym_kernel(Planes pl, const float* __restrict__ prm,
-                      int use_radius, int n_tiles, const float* __restrict__ bb,
-                      const int* __restrict__ surv,
-                      const int* __restrict__ counts, int max_surv, float c2,
-                      float* __restrict__ fx, float* __restrict__ fy) {
+__device__ __forceinline__ void sym_walk(
+    const Planes& pl, const float* __restrict__ prm, int use_radius,
+    int n_tiles, const float* __restrict__ bb, const int* __restrict__ surv,
+    const int* __restrict__ counts, int max_surv, float c2,
+    float* __restrict__ fx, float* __restrict__ fy) {
   __shared__ SymShared sm;
   const typename Law::Prm p = Law::load(prm);
   const long long b = blockIdx.x;
@@ -673,6 +733,33 @@ pair_force_sym_kernel(Planes pl, const float* __restrict__ prm,
       sm, ti, tj, pl, pl, p, use_radius, c2, fx, fy, fx, fy);
 }
 
+template <int kWalk, class Law>
+__global__ void __launch_bounds__(kSymTile)
+pair_force_sym_kernel(Planes pl, const float* __restrict__ prm,
+                      int use_radius, int n_tiles, const float* __restrict__ bb,
+                      const int* __restrict__ surv,
+                      const int* __restrict__ counts, int max_surv, float c2,
+                      float* __restrict__ fx, float* __restrict__ fy) {
+  sym_walk<kWalk, Law>(pl, prm, use_radius, n_tiles, bb, surv, counts,
+                       max_surv, c2, fx, fy);
+}
+
+// The kTriangle walk over a batch of crowds of pl.n agents: crowd
+// blockIdx.y's planes and outputs at blockIdx.y * pl.n, its parameters at
+// blockIdx.y * prm_stride.
+template <class Law>
+__global__ void __launch_bounds__(kSymTile)
+pair_force_sym_batched_kernel(Planes pl, const float* __restrict__ prm,
+                              int prm_stride, int use_radius, int n_tiles,
+                              float* __restrict__ fx,
+                              float* __restrict__ fy) {
+  const int bo = (int)blockIdx.y * pl.n;
+  sym_walk<kTriangle, Law>(batch_row(pl, bo),
+                           prm + (int)blockIdx.y * prm_stride, use_radius,
+                           n_tiles, nullptr, nullptr, nullptr, 1, 0.0f,
+                           fx + bo, fy + bo);
+}
+
 // The full-block walk: block b is tile pair (b / n_col_tiles, b %
 // n_col_tiles) of the rectangular (rows x columns) grid of 128-agent tiles.
 // kBox: the pair runs only when the rows' tile box (row_bb) and the
@@ -700,20 +787,26 @@ pair_force_sym_dense_kernel(Planes rows, Planes cols,
 
 // Launch of a dense walk with law Law: one block per row block and split,
 // the splits of a row block one cluster (of one block when n_split = 1).
+// With prm_stride >= 0 the launch is the batched kAllTiles walk over
+// batch square crowds of rows.n agents (pair_force_dense_batched_kernel).
 template <int kWalk, class Law>
 int dense_launch(const Planes& rows, const Planes& cols, const float* prm,
                  int use_radius, const float* col_bb, const int* surv,
                  const int* counts, int max_surv, float c2, float* fx,
-                 float* fy, void* stream) {
+                 float* fy, void* stream, int batch = 1,
+                 int prm_stride = -1) {
+  const bool batched = prm_stride >= 0;
   if (rows.n <= 0) return (int)cudaSuccess;
-  if (cols.n < 0) return (int)cudaErrorInvalidValue;
+  if (cols.n < 0 || batch < 1 || batch > 65535 ||
+      (batched && (kWalk != kAllTiles || cols.n != rows.n)))
+    return (int)cudaErrorInvalidValue;
   if (kWalk == kTable && max_surv < 1) return (int)cudaErrorInvalidValue;
-  const int n_split = dense_splits<kWalk>(rows.n, cols.n);
+  const int n_split = dense_splits<kWalk>(rows.n, cols.n, batch);
   const long long blocks =
       (long long)((rows.n + kDenseBlockRows - 1) / kDenseBlockRows) * n_split;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.gridDim = dim3((unsigned)blocks, (unsigned)batch);
   cfg.blockDim = dim3(kDenseThreads);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = (cudaStream_t)stream;
@@ -724,29 +817,46 @@ int dense_launch(const Planes& rows, const Planes& cols, const float* prm,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, pair_force_dense_kernel<kWalk, Law>, rows, cols, prm, use_radius,
-      col_bb, surv, counts, max_surv, c2, n_split, fx, fy);
+  const cudaError_t e =
+      batched ? cudaLaunchKernelEx(&cfg, pair_force_dense_batched_kernel<Law>,
+                                   rows, cols, prm, prm_stride, use_radius,
+                                   n_split, fx, fy)
+              : cudaLaunchKernelEx(&cfg, pair_force_dense_kernel<kWalk, Law>,
+                                   rows, cols, prm, use_radius, col_bb, surv,
+                                   counts, max_surv, c2, n_split, fx, fy);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
 // Launch of a symmetric walk with law Law: one block per tile pair of the
 // upper triangle (kTriangle, kTriangleBox) or per table slot (kSymTable).
+// With prm_stride >= 0 the launch is the batched kTriangle walk over batch
+// crowds of pl.n agents (pair_force_sym_batched_kernel).
 template <int kWalk, class Law>
 int sym_launch(const Planes& pl, const float* prm, int use_radius,
                const float* bb, const int* surv, const int* counts,
-               int max_surv, float c2, float* fx, float* fy, void* stream) {
+               int max_surv, float c2, float* fx, float* fy, void* stream,
+               int batch = 1, int prm_stride = -1) {
+  const bool batched = prm_stride >= 0;
   const int n = pl.n;
   if (n <= 0) return (int)cudaSuccess;
+  if (batch < 1 || batch > 65535 || (batched && kWalk != kTriangle))
+    return (int)cudaErrorInvalidValue;
   if (kWalk == kSymTable && max_surv < 1) return (int)cudaErrorInvalidValue;
   const long long nt = (n + kSymTile - 1) / kSymTile;
   const long long blocks =
       kWalk == kSymTable ? nt * max_surv : nt * (nt + 1) / 2;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  pair_force_sym_kernel<kWalk, Law><<<(unsigned)blocks, kSymTile, 0,
-                                      (cudaStream_t)stream>>>(
-      pl, prm, use_radius, (int)nt, bb, surv, counts, max_surv, c2, fx, fy);
+  const dim3 grid((unsigned)blocks, (unsigned)batch);
+  if (batched)
+    pair_force_sym_batched_kernel<Law>
+        <<<grid, kSymTile, 0, (cudaStream_t)stream>>>(
+            pl, prm, prm_stride, use_radius, (int)nt, fx, fy);
+  else
+    pair_force_sym_kernel<kWalk, Law>
+        <<<grid, kSymTile, 0, (cudaStream_t)stream>>>(
+            pl, prm, use_radius, (int)nt, bb, surv, counts, max_surv, c2, fx,
+            fy);
   return (int)cudaGetLastError();
 }
 
@@ -926,6 +1036,43 @@ int sfm_pair_sym_dense_cutoff(int law, const float* rx, const float* ry,
     return sym_dense_launch<true, decltype(l)>(rows, cols, prm, use_radius,
                                                row_bb, col_bb, c2, fx, fy,
                                                fxc, fyc, stream);
+  });
+}
+
+// The batched walks: batch independent crowds of n agents, every plane
+// (batch, n) row-major, prm (batch, P) with rows prm_stride apart (0: one
+// vector for every crowd); one launch.  sym_batched accumulates into fx,
+// fy (zeros on entry) like sfm_pair_sym; dense_batched takes the square
+// call's row and column planes (Helbing's rows carry the desired
+// directions) and overwrites every row.
+int sfm_pair_sym_batched(int law, const float* x, const float* y,
+                         const float* vx, const float* vy, const float* rad,
+                         const uint8_t* alive, const float* prm,
+                         int prm_stride, int use_radius, int n, int batch,
+                         float* fx, float* fy, void* stream) {
+  const Planes pl = planes(x, y, vx, vy, rad, alive, n, 0);
+  return with_antisymmetric_law(law, [&](auto l) {
+    return sym_launch<kTriangle, decltype(l)>(pl, prm, use_radius, nullptr,
+                                              nullptr, nullptr, 1, 0.0f, fx,
+                                              fy, stream, batch, prm_stride);
+  });
+}
+
+int sfm_pair_dense_batched(int law, const float* rx, const float* ry,
+                           const float* ru, const float* rv,
+                           const float* rrad, const uint8_t* ralive,
+                           const float* cx, const float* cy,
+                           const float* cvx, const float* cvy,
+                           const float* crad, const uint8_t* calive,
+                           const float* prm, int prm_stride, int use_radius,
+                           int n, int batch, float* fx, float* fy,
+                           void* stream) {
+  const Planes rows = planes(rx, ry, ru, rv, rrad, ralive, n, 0);
+  const Planes cols = planes(cx, cy, cvx, cvy, crad, calive, n, 0);
+  return with_any_law(law, [&](auto l) {
+    return dense_launch<kAllTiles, decltype(l)>(
+        rows, cols, prm, use_radius, nullptr, nullptr, nullptr, 1, 0.0f, fx,
+        fy, stream, batch, prm_stride);
   });
 }
 

@@ -22,7 +22,8 @@ from ..ops.geometry import segment_intersection_xy
 def gap_ready(pos_x, pos_y, goal_x, goal_y, crossing_speed, margin,
               veh_center, veh_vel, veh_extent, veh_active,
               strict_parity: bool = False):
-    """Per-pedestrian readiness to cross, ``(N,)`` bool.
+    """Per-pedestrian readiness to cross, ``(N,)`` bool (``(B, N)`` for
+    a batch of crowds against one set of vehicles).
 
     ``pos``/``goal``: the crossing segment's endpoints (current location ->
     waypoint) as ``(N,)`` planes; ``crossing_speed``, ``margin``: ``(N,)``;
@@ -46,16 +47,16 @@ def gap_ready(pos_x, pos_y, goal_x, goal_y, crossing_speed, margin,
     back_y = veh_center[:, 1] - off_y
 
     # the vehicle's goal depends on the pedestrian's crossing time: (N, V)
-    horizon = (t_ped + margin)[:, None]
+    horizon = (t_ped + margin)[..., None]
     veh_goal_x = front_x[None, :] + veh_vel[None, :, 0] * horizon
     veh_goal_y = front_y[None, :] + veh_vel[None, :, 1] * horizon
 
-    px, py = pos_x[:, None], pos_y[:, None]
+    px, py = pos_x[..., None], pos_y[..., None]
     hit, ipx, ipy = segment_intersection_xy(
-        px, py, goal_x[:, None], goal_y[:, None],
+        px, py, goal_x[..., None], goal_y[..., None],
         back_x[None, :], back_y[None, :], veh_goal_x, veh_goal_y)
 
-    tti_ped = vecmath.norm_xy(ipx - px, ipy - py) / speed_safe[:, None]
+    tti_ped = vecmath.norm_xy(ipx - px, ipy - py) / speed_safe[..., None]
     vs_safe = torch.where(veh_speed == 0.0, 1.0, veh_speed)[None, :]
     tti_front = vecmath.norm_xy(ipx - front_x[None, :],
                                 ipy - front_y[None, :]) / vs_safe
@@ -63,6 +64,6 @@ def gap_ready(pos_x, pos_y, goal_x, goal_y, crossing_speed, margin,
                                ipy - back_y[None, :]) / vs_safe
 
     blocked = (hit & veh_active[None, :] & (veh_speed[None, :] != 0.0)
-               & (tti_front - margin[:, None] < tti_ped)
-               & (tti_ped < tti_back + margin[:, None]))
-    return (margin < 0.0) | ~blocked.any(dim=1)
+               & (tti_front - margin[..., None] < tti_ped)
+               & (tti_ped < tti_back + margin[..., None]))
+    return (margin < 0.0) | ~blocked.any(dim=-1)

@@ -6,6 +6,16 @@ kernel reads on the device travel as a small tensor
 (:func:`moussaid_vector`, :func:`powerlaw_vector`, :func:`helbing_vector`),
 so nothing else has to be a tensor.
 
+A parameter sweep (``parallel/sweeps.batch_params``) makes every numeric
+leaf a float32 ``(B,)`` tensor, as the JAX package's batched pytree does;
+the shape knobs of ``OrcaParams`` (``static`` in their field metadata)
+stay numbers.  Such params never reach the cached vectors above (a frozen
+dataclass with tensor leaves hashes by identity and cannot compare):
+:func:`law_rows` builds the ``(B, P)`` parameter matrix of the batched
+kernels uncached, :func:`section_rows` splits a section into its rows for
+the plain versions and :func:`as_column` views the leaves as ``(B, 1)``
+against the step's ``(B, N)`` planes.
+
 The TOML surface, the config-key quirks and ``strict_parity`` are those of
 the JAX package (see its module docstring): the keys as written in the
 config are honoured, falling back to the reference's read-keys and then to
@@ -13,6 +23,7 @@ the reference defaults.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from dataclasses import dataclass, field
 
@@ -82,10 +93,11 @@ class OrcaParams:
     tau: float = 2.0
     neighbor_dist: float = 15.0
     tau_static: float = 2.0
-    max_neighbors: int = 10
-    window: int = 64
-    max_vehicles: int = 4
-    max_statics: int = 3
+    # shape knobs: never batched (the JAX package's static fields)
+    max_neighbors: int = field(default=10, metadata={"static": True})
+    window: int = field(default=64, metadata={"static": True})
+    max_vehicles: int = field(default=4, metadata={"static": True})
+    max_statics: int = field(default=3, metadata={"static": True})
 
 
 @dataclass(frozen=True)
@@ -281,3 +293,127 @@ def helbing_vector(p: PedRepulsiveParams, device: torch.device | str
     return torch.tensor([p.v0, p.sigma, helbing_cos_phi(p), p.fov_factor,
                          p.step_width, p.b_min],
                         dtype=torch.float32, device=device)
+
+
+#: the numeric parameter sections of SfmParams, in the JAX package's order
+SECTIONS = ("acceleration", "pedestrian", "border", "static_obstacle",
+            "dynamic_obstacle", "ped_repulsive", "space_repulsive",
+            "powerlaw", "group", "orca")
+
+
+def param_batch(params: SfmParams) -> int | None:
+    """B of swept params (``(B,)`` tensor leaves), None when every leaf is
+    a number.  The step asks several times a tick, so the answer for the
+    last params object is kept (by identity: the dataclasses are frozen)."""
+    last, answer = _LAST_BATCH[0]   # one read: threads may share this
+    if last is params:
+        return answer
+    answer = None
+    for leaf in (params.max_speed_factor,
+                 *(getattr(getattr(params, s), f.name) for s in SECTIONS
+                   for f in dataclasses.fields(getattr(params, s)))):
+        if isinstance(leaf, torch.Tensor):
+            answer = leaf.shape[0]
+            break
+    _LAST_BATCH[0] = (params, answer)
+    return answer
+
+
+#: param_batch's last params object and its answer
+_LAST_BATCH: list = [(None, None)]
+
+
+def map_leaves(params: SfmParams, fn) -> SfmParams:
+    """``params`` with ``fn`` applied to every tensor leaf."""
+    def sec(section):
+        upd = {f.name: fn(getattr(section, f.name))
+               for f in dataclasses.fields(section)
+               if isinstance(getattr(section, f.name), torch.Tensor)}
+        return dataclasses.replace(section, **upd) if upd else section
+    upd = {s: sec(getattr(params, s)) for s in SECTIONS}
+    if isinstance(params.max_speed_factor, torch.Tensor):
+        upd["max_speed_factor"] = fn(params.max_speed_factor)
+    return dataclasses.replace(params, **upd)
+
+
+def as_column(x):
+    """A ``(B,)`` tensor leaf as ``(B, 1)``, so that it broadcasts against
+    ``(B, N)`` planes as the JAX package's vmapped scalar does; a section
+    with such leaves, each viewed so; a number unchanged."""
+    if isinstance(x, torch.Tensor):
+        return x[:, None]
+    if dataclasses.is_dataclass(x):
+        upd = {f.name: getattr(x, f.name)[:, None]
+               for f in dataclasses.fields(x)
+               if isinstance(getattr(x, f.name), torch.Tensor)}
+        return dataclasses.replace(x, **upd) if upd else x
+    return x
+
+
+def section_rows(section, batch: int) -> list:
+    """The ``batch`` rows of a parameter section as sections of Python
+    numbers (each tensor leaf read once, as float32 values): the per-row
+    parameters of the plain versions.  An unbatched section is every
+    row's."""
+    cols = {f.name: getattr(section, f.name).tolist()
+            for f in dataclasses.fields(section)
+            if isinstance(getattr(section, f.name), torch.Tensor)}
+    if not cols:
+        return [section] * batch
+    return [dataclasses.replace(section, **{k: v[b] for k, v in cols.items()})
+            for b in range(batch)]
+
+
+def _leaf_rows(values, batch: int, device) -> torch.Tensor:
+    """``(batch, P)`` float32 matrix of a parameter vector whose entries
+    are numbers or ``(batch,)`` tensors (the numbers shared by every
+    row)."""
+    for v in values:
+        if isinstance(v, torch.Tensor) and v.shape != (batch,):
+            raise ValueError(f"a swept parameter leaf of shape "
+                             f"{tuple(v.shape)} in a batch of {batch}")
+    cols = [v.to(device=device, dtype=torch.float32)
+            if isinstance(v, torch.Tensor)
+            else torch.full((batch,), float(v), dtype=torch.float32,
+                            device=device)
+            for v in values]
+    return torch.stack(cols, dim=-1)
+
+
+def law_rows(law: str, p, batch: int, device) -> torch.Tensor:
+    """``(batch, P)`` float32 parameter matrix of the batched kernels of
+    ``law`` (``"moussaid"``, ``"powerlaw"``, ``"helbing"``; the vectors'
+    order): row b holds row b's parameters.  Unbatched params expand their
+    cached vector with stride 0 (no copy); swept params are stacked here,
+    uncached."""
+    fns = {"moussaid": moussaid_vector, "powerlaw": powerlaw_vector,
+           "helbing": helbing_vector}
+    if not any(isinstance(getattr(p, f.name), torch.Tensor)
+               for f in dataclasses.fields(p)):
+        vec = fns[law](p, device)
+        return vec.expand(batch, vec.shape[0])
+    if law == "moussaid":
+        values = (p.lambda_, p.A, p.gamma, p.n, p.n_prime, p.epsilon)
+    elif law == "powerlaw":
+        values = (p.k, p.tau0, p.tau_max, p.tau_min)
+    else:
+        phi = p.fov_phi
+        cos_phi = (torch.cos(torch.deg2rad(phi.to(torch.float32)))
+                   if isinstance(phi, torch.Tensor) else helbing_cos_phi(p))
+        values = (p.v0, p.sigma, cos_phi, p.fov_factor, p.step_width,
+                  p.b_min)
+    return _leaf_rows(values, batch, device)
+
+
+@functools.lru_cache(maxsize=32)
+def _pair_vector(a: float, b: float, device) -> torch.Tensor:
+    return torch.tensor([a, b], dtype=torch.float32, device=device)
+
+
+def exp_rows(a, b, batch: int, device) -> torch.Tensor:
+    """``(batch, 2)`` float32 ``(a, b)`` of the batched exp kernel: numbers
+    expand one cached vector with stride 0, ``(batch,)`` tensors are
+    stacked."""
+    if not (isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor)):
+        return _pair_vector(float(a), float(b), device).expand(batch, 2)
+    return _leaf_rows((a, b), batch, device)

@@ -18,14 +18,14 @@ from ..utils.device import DEFAULT_DEVICE, resolve_device
 
 @dataclass(frozen=True)
 class RouteBuffer:
-    wp_x: torch.Tensor       # (N, W) f32
+    wp_x: torch.Tensor       # (N, W) f32 (an ensemble's: (B, N, W))
     wp_y: torch.Tensor       # (N, W) f32
     crossing: torch.Tensor   # (N, W) bool: road crossed when heading to wp
     count: torch.Tensor      # (N,) int32 number of valid waypoints
 
     @property
     def max_waypoints(self) -> int:
-        return self.wp_x.shape[1]
+        return self.wp_x.shape[-1]
 
     @property
     def waypoints(self) -> torch.Tensor:

@@ -77,7 +77,9 @@ class SpawnerSpec:
 
 @dataclass(frozen=True)
 class SpawnSchedule:
-    """Per-slot spawn data; ``step == -1`` means the slot is never used."""
+    """Per-slot spawn data; ``step == -1`` means the slot is never used.
+    An ensemble's schedules carry a leading batch axis on every plane
+    (``(B, N)``, routes ``(B, N, W)``)."""
 
     step: torch.Tensor            # (N,) int32 realized spawn step
     pos_x: torch.Tensor           # (N,)
@@ -101,7 +103,7 @@ class SpawnSchedule:
 
     @property
     def capacity(self) -> int:
-        return self.step.shape[0]
+        return self.step.shape[-1]
 
 
 def realized_spawn_steps(spawn_time: float, spawn_interval: float,
@@ -277,6 +279,8 @@ def build_spawn_schedule(
 
 def apply_spawn(state: PedState, schedule: SpawnSchedule, t_idx: int) -> PedState:
     """Activate slots whose spawn step is ``t_idx`` (masked write-at-slot).
+    Broadcasts: a ``(B, N)`` state takes a ``(N,)`` schedule (a sweep) or
+    a ``(B, N)`` one (an ensemble).
 
     Initial FSM state replicates PedModeManager.__init__ (reference :18-28):
     the target speed starts at the walking speed even when the initial mode

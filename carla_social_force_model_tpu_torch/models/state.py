@@ -2,6 +2,8 @@
 
 The population lives in ``(capacity,)`` tensors with ``alive`` / ``spawned``
 masks: spawn is a masked write at the slot, despawn clears the mask.
+An ensemble or a sweep (``parallel/sweeps.py``) holds B independent
+crowds as ``(B, capacity)`` planes, the layout of the JAX package's vmap.
 Coordinates are separate x/y planes, as in the JAX package, so the port's
 public functions take and return the same planes; ``pos`` / ``vel`` /
 ``waypoint`` assemble ``(N, 2)`` views for host-side consumers.
@@ -19,7 +21,8 @@ from . import modes
 
 @dataclass(frozen=True)
 class PedState:
-    """Per-slot pedestrian state tensors (all shaped ``(capacity,)``)."""
+    """Per-slot pedestrian state tensors (all shaped ``(capacity,)``, or
+    ``(B, capacity)`` for a batch of crowds)."""
 
     pos_x: torch.Tensor          # (N,) location [m]
     pos_y: torch.Tensor
@@ -41,7 +44,12 @@ class PedState:
 
     @property
     def capacity(self) -> int:
-        return self.pos_x.shape[0]
+        return self.pos_x.shape[-1]
+
+    @property
+    def batch(self) -> int | None:
+        """B of a batch of crowds, None for one crowd."""
+        return self.pos_x.shape[0] if self.pos_x.dim() == 2 else None
 
     @property
     def device(self) -> torch.device:
@@ -66,22 +74,26 @@ class PedState:
 
     @staticmethod
     def empty(capacity: int, device: torch.device | str = DEFAULT_DEVICE,
-              dtype: torch.dtype = torch.float32) -> "PedState":
+              dtype: torch.dtype = torch.float32,
+              batch: int | None = None) -> "PedState":
+        """No pedestrian alive: ``(capacity,)`` planes, or ``(batch,
+        capacity)`` with ``batch``."""
         device = resolve_device(device)
+        shape = (capacity,) if batch is None else (batch, capacity)
 
         def z():
-            return torch.zeros((capacity,), dtype=dtype, device=device)
+            return torch.zeros(shape, dtype=dtype, device=device)
         return PedState(
             pos_x=z(), pos_y=z(), vel_x=z(), vel_y=z(), radius=z(),
             base_speed=z(), crossing_speed=z(), safety_margin=z(),
             fsm_target=z(), applied_target=z(),
-            mode=torch.full((capacity,), modes.WALKING_SIDEWALK,
+            mode=torch.full(shape, modes.WALKING_SIDEWALK,
                             dtype=torch.int32, device=device),
-            next_mode_time=torch.full((capacity,), -1.0, dtype=dtype,
+            next_mode_time=torch.full(shape, -1.0, dtype=dtype,
                                       device=device),
             wp_x=z(), wp_y=z(),
-            waypoint_idx=torch.zeros((capacity,), dtype=torch.int32,
+            waypoint_idx=torch.zeros(shape, dtype=torch.int32,
                                      device=device),
-            alive=torch.zeros((capacity,), dtype=torch.bool, device=device),
-            spawned=torch.zeros((capacity,), dtype=torch.bool, device=device),
+            alive=torch.zeros(shape, dtype=torch.bool, device=device),
+            spawned=torch.zeros(shape, dtype=torch.bool, device=device),
         )

@@ -43,6 +43,19 @@ the pair forces bring in their columns by ``StepConfig.axis_comm``, the
 group force, ORCA and the fleet's hazard check all-gather what they read,
 and the rest is slot-local (``parallel/sharding.make_sharded_rollout``).
 
+Batches of crowds (``parallel/sweeps.py``): every function from
+``force_terms`` to ``rollout`` also steps B independent crowds at once,
+the layout of the JAX package's vmap: ``(B, N)`` state planes, a spawn
+schedule that is ``(B, N)`` (an ensemble) or shared ``(N,)`` (a sweep),
+parameters whose leaves are ``(B,)`` tensors (a sweep, viewed as ``(B,
+1)`` against the planes) or numbers shared by every row, and one scene
+geometry for all rows; ``sim_time`` stays one scalar.  The pair and
+environment forces launch the batched kernels once per step for every
+row (``cuda_forces.pedestrian_force_batched``, ``cuda_env.
+fused_environment_terms``); the records are ``(B, T, N)``.
+:func:`check_supported` refuses what is not batched yet (ROADMAP item
+19b) with ``NotImplementedError``.
+
 The device chooses the kernel path: the CUDA kernels on a card, the plain
 PyTorch versions on the CPU (ops/cuda_forces.py, ops/cuda_env.py,
 ops/statics.py).  A
@@ -71,7 +84,7 @@ from .autopilot import (AutopilotFleet, AutopilotRecord, AutopilotState,
                         autopilot_snapshot, autopilot_step)
 from .gap import gap_ready
 from .groups import GroupSet, group_force
-from .params import SfmParams
+from .params import SfmParams, as_column, param_batch
 from .spawn import LAW_IDS, SpawnSchedule, apply_spawn
 from .state import PedState
 from .vehicles import VehicleSnapshot, VehicleStates, vehicle_snapshot_at
@@ -228,7 +241,8 @@ class StepConfig:
 
 
 class StepRecord(NamedTuple):
-    """Per-step snapshot; ``pos``/``vel`` are (T, N, 2)."""
+    """Per-step snapshot; ``pos``/``vel`` are (T, N, 2) (a batch's: (B, T,
+    N, 2), the other planes (B, T, N))."""
 
     pos: torch.Tensor
     vel: torch.Tensor
@@ -253,10 +267,67 @@ class RecordXY(NamedTuple):
             mode=self.mode, alive=self.alive)
 
 
-def check_supported(scene: Scene, params: SfmParams, cfg: StepConfig) -> None:
+#: what a refusal under a batch names: the slice that will port it
+BATCH_ITEM = "ROADMAP item 19b"
+
+
+def batch_of(state: PedState | None, scene: Scene,
+             params: SfmParams) -> int | None:
+    """B of a batched step (a ``(B, N)`` state, a ``(B, N)`` spawn schedule
+    or ``(B,)`` parameter leaves), None for one crowd.  Raises
+    ``ValueError`` when they disagree, or when a batched schedule or sweep
+    meets a state of one crowd."""
+    sizes = {}
+    if state is not None and state.batch is not None:
+        sizes["state"] = state.batch
+    if scene.spawn.step.dim() == 2:
+        sizes["spawn schedule"] = scene.spawn.step.shape[0]
+    if param_batch(params) is not None:
+        sizes["params"] = param_batch(params)
+    if len(set(sizes.values())) > 1:
+        raise ValueError(f"inconsistent batch sizes: {sizes}")
+    if sizes and state is not None and state.batch is None:
+        raise ValueError(f"a batched {' and '.join(sizes)} needs (B, N) "
+                         f"state planes (PedState.empty(n, batch=B))")
+    return next(iter(sizes.values()), None)
+
+
+def _check_batched(scene: Scene, params: SfmParams, cfg: StepConfig,
+                   axis) -> None:
+    """Refuse, under a batch, every configuration the batched step does not
+    run: ``NotImplementedError`` naming ROADMAP item 19b (nothing runs
+    another path instead)."""
+    refused = (
+        (axis is not None, "an agent axis (sharding a batch of crowds)"),
+        (cfg.interaction_cutoff is not None,
+         "interaction_cutoff (the batched cutoff pair kernels)"),
+        (cfg.env_compact, "env_compact (the batched compacted environment "
+                          "kernels)"),
+        (cfg.env_analytic, "env_analytic (the batched analytic border "
+                           "kernels)"),
+        (cfg.env_chunked, "env_chunked (the batched chunk scan)"),
+        (params.enable_orca, "ORCA"),
+        (params.enable_group and scene.groups is not None, "social groups"),
+        (scene.autopilot is not None, "the reactive autopilot fleet"),
+        (scene.spawn.pair_scale is not None or scene.spawn.law_id is not None,
+         "per-agent pair_scale/law_id columns"),
+    )
+    for hit, what in refused:
+        if hit:
+            raise NotImplementedError(
+                f"{what} under a batch of crowds is not ported yet "
+                f"({BATCH_ITEM})")
+
+
+def check_supported(scene: Scene, params: SfmParams, cfg: StepConfig,
+                    state: PedState | None = None, axis=None) -> None:
     """Raise ``ValueError`` or ``TypeError`` for per-agent columns and
     groups of the wrong form, and for ``env_chunked`` together with a knob
-    of the fused environment path."""
+    of the fused environment path; under a batch (:func:`batch_of` of
+    ``state``, the schedule and the params), ``NotImplementedError`` for
+    what the batched step does not run yet (ROADMAP item 19b)."""
+    if batch_of(state, scene, params) is not None:
+        _check_batched(scene, params, cfg, axis)
     if cfg.env_chunked and (cfg.env_analytic or cfg.env_compact):
         raise ValueError("env_chunked (the jnp environment path) does not "
                          "combine with env_analytic or env_compact, which "
@@ -266,6 +337,8 @@ def check_supported(scene: Scene, params: SfmParams, cfg: StepConfig) -> None:
         raise TypeError(f"scene.groups must be a GroupSet (models/groups."
                         f"build_groups), got {type(scene.groups).__name__}")
     n = scene.spawn.capacity
+    if scene.spawn.step.dim() == 2:
+        return  # no per-agent column under a batch (refused above)
     for name, kinds in (("pair_scale", (torch.float32,)),
                         ("law_id", (torch.int32, torch.int64))):
         col = getattr(scene.spawn, name)
@@ -305,8 +378,10 @@ def force_terms(state: PedState, scene: Scene, params: SfmParams,
     slots of an agent axis (:mod:`..parallel`); the pair forces bring in
     their columns by ``cfg.axis_comm`` and the group force all-gathers its
     members, every other term is slot-local (and ``order`` the shard's
-    own)."""
-    check_supported(scene, params, cfg)
+    own).  A batch of crowds (``(B, N)`` planes) launches the batched
+    kernels, one launch per term for every row."""
+    check_supported(scene, params, cfg, state, axis)
+    batch = state.batch
     if cfg.env_chunked:
         _segments(scene.borders, scene.borders_chunked, "borders", "chunked")
         _segments(scene.static_obstacles, scene.static_obstacles_chunked,
@@ -350,6 +425,11 @@ def force_terms(state: PedState, scene: Scene, params: SfmParams,
     def pair_term(law, p, radius, use_radius=False, desired=None):
         args = (state.pos_x, state.pos_y, state.vel_x, state.vel_y, radius,
                 state.alive, p)
+        if batch is not None:
+            return cuda_forces.pedestrian_force_batched(
+                *args, use_ped_radius=use_radius,
+                symmetric=cfg.symmetric_pairs, row_block=cfg.row_block,
+                law=law, desired=desired, plain=cfg.plain_pair_force)
         if axis is not None and cfg.plain_pair_force:
             return cuda_forces.plain_sharded_force(
                 law, *args, axis, cfg.axis_comm, use_radius, cfg.row_block,
@@ -375,7 +455,8 @@ def force_terms(state: PedState, scene: Scene, params: SfmParams,
         terms["acceleration_force"] = forces.acceleration_force_xy(
             state.pos_x, state.pos_y, state.vel_x, state.vel_y,
             state.wp_x, state.wp_y, state.applied_target,
-            params.acceleration)
+            params.acceleration if batch is None
+            else as_column(params.acceleration))
     if params.enable_pedestrian:
         terms["pedestrian_force"] = pair_term(
             "moussaid", params.pedestrian, state.radius,
@@ -448,7 +529,7 @@ def tick_core(state: PedState, scene: Scene, params: SfmParams,
     sees the all-gathered crowd).  Returns ``(state', (vx, vy), finished,
     record)``: the commanded velocity and the pedestrians that arrived at
     their final waypoint this tick."""
-    check_supported(scene, params, cfg)
+    check_supported(scene, params, cfg, state, axis)
     alive = state.alive
 
     # 2. applied target speed = FSM target at tick start
@@ -492,7 +573,8 @@ def tick_core(state: PedState, scene: Scene, params: SfmParams,
         # shard's own slots)
         order = morton_order(state.pos_x, state.pos_y, alive, "hilbert")
     fx, fy = compute_forces(state, scene, params, cfg, veh_snap, order, axis)
-    vmax = state.max_speed(params.max_speed_factor)
+    vmax = state.max_speed(params.max_speed_factor if state.batch is None
+                           else as_column(params.max_speed_factor))
     vx, vy = vecmath.cap_velocity_xy(state.vel_x + cfg.dt * fx,
                                      state.vel_y + cfg.dt * fy, vmax)
     vx = torch.where(alive, vx, 0.0)
@@ -531,7 +613,7 @@ def tick_core(state: PedState, scene: Scene, params: SfmParams,
     new_idx = torch.where(advance, state.waypoint_idx + 1, state.waypoint_idx)
     # one-hot masked reduction over the (small) W axis, as in the JAX step
     onehot = (torch.arange(routes.max_waypoints, dtype=new_idx.dtype,
-                           device=new_idx.device) == new_idx[:, None])
+                           device=new_idx.device) == new_idx[..., None])
     next_crossing = (onehot & routes.crossing).any(dim=-1)
     next_wp_x = torch.where(onehot, routes.wp_x, 0.0).sum(dim=-1)
     next_wp_y = torch.where(onehot, routes.wp_y, 0.0).sum(dim=-1)
@@ -566,7 +648,7 @@ def simulation_step(state: PedState, scene: Scene, params: SfmParams,
     rollout passes its fleet's snapshot here).  ``axis``: the state and
     ``scene.spawn`` hold this shard's slots of an agent axis (see
     :func:`force_terms`)."""
-    check_supported(scene, params, cfg)
+    check_supported(scene, params, cfg, state, axis)
     sim_time = sim_time_of(t_idx, cfg.dt)
 
     # 1. spawn
@@ -600,6 +682,7 @@ def fleet_tick(state: PedState, ap: AutopilotState, scene: Scene,
     ``axis``: the state holds this shard's slots; the fleet's hazard check
     reads the all-gathered walkers, and every shard steps the same fleet
     (stepper.py:724-731)."""
+    check_supported(scene, params, cfg, state, axis)
     state = apply_spawn(state, scene.spawn, t_idx)
     walkers = (state.pos_x, state.pos_y, state.vel_x, state.vel_y,
                state.alive)
@@ -621,12 +704,12 @@ def rollout(state: PedState, scene: Scene, params: SfmParams, cfg: StepConfig,
     """Run ``num_steps`` ticks from ``start_step``.
 
     Returns ``(final_state, StepRecord)`` with ``(T, N)`` planes
-    (``(T, N, 2)`` for pos/vel) when ``record``, else
-    ``(final_state, None)``.  ``record_stride=k`` keeps every k-th tick's
-    snapshot (the first of each stride); ``num_steps`` must then be a
-    multiple of ``k``.  The records are preallocated and filled in place.
-    The scene is prepared first (:func:`prepare_scene`; a no-op when it
-    already is).
+    (``(T, N, 2)`` for pos/vel; a batch's ``(B, T, N)`` and ``(B, T, N,
+    2)``) when ``record``, else ``(final_state, None)``.
+    ``record_stride=k`` keeps every k-th tick's snapshot (the first of
+    each stride); ``num_steps`` must then be a multiple of ``k``.  The
+    records are preallocated and filled in place.  The scene is prepared
+    first (:func:`prepare_scene`; a no-op when it already is).
 
     With a reactive fleet (``scene.autopilot``) each tick runs
     :func:`fleet_tick`, and the record is a ``(StepRecord,
@@ -638,7 +721,7 @@ def rollout(state: PedState, scene: Scene, params: SfmParams, cfg: StepConfig,
     (:func:`..parallel.sharding.make_sharded_rollout` calls this for every
     shard).
     """
-    check_supported(scene, params, cfg)
+    check_supported(scene, params, cfg, state, axis)
     scene = prepare_scene(scene, analytic=cfg.env_analytic,
                           orca=params.enable_orca, chunked=cfg.env_chunked)
     fleet = scene.autopilot
@@ -659,14 +742,20 @@ def rollout(state: PedState, scene: Scene, params: SfmParams, cfg: StepConfig,
         if num_steps % record_stride != 0:
             raise ValueError("num_steps must be a multiple of record_stride")
         t_rec = num_steps // record_stride
-        n, dev = state.capacity, state.device
+        n, dev, batch = state.capacity, state.device, state.batch
 
         def buf(shape, dtype=torch.float32, device=dev):
             return torch.empty((t_rec, *shape), dtype=dtype, device=device)
 
-        recs = RecordXY(*(buf((n,)) for _ in range(4)),
-                        mode=buf((n,), torch.int32),
-                        alive=buf((n,), torch.bool))
+        def plane_buf(dtype=torch.float32):
+            # a batch's records are (B, T, N), the JAX vmap's layout
+            if batch is None:
+                return buf((n,), dtype)
+            return torch.empty((batch, t_rec, n), dtype=dtype, device=dev)
+
+        recs = RecordXY(*(plane_buf() for _ in range(4)),
+                        mode=plane_buf(torch.int32),
+                        alive=plane_buf(torch.bool))
         if fleet is not None:
             v, fdev = fleet.num_vehicles, fleet.device
             ap_recs = AutopilotRecord(
@@ -683,7 +772,8 @@ def rollout(state: PedState, scene: Scene, params: SfmParams, cfg: StepConfig,
                                         axis)
         if record and k % record_stride == 0:
             for b, val in zip(recs, rec):
-                b[k // record_stride].copy_(val)
+                (b[k // record_stride] if batch is None
+                 else b[:, k // record_stride]).copy_(val)
             if fleet is not None:
                 for b, val in zip(ap_recs, (ap.pos, ap.heading, ap.speed,
                                             ap.active)):

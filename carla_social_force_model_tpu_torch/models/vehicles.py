@@ -207,18 +207,23 @@ def _world_outline(snap: VehicleSnapshot, valid_only: bool):
 
 def snapshot_segment_pointset(snap: VehicleSnapshot, perception_threshold):
     """Segment-major dynamic-obstacle point set from a snapshot (on the
-    device): one row per vehicle, for the environment kernels.
+    device): one row per vehicle, for the environment kernels.  A swept
+    ``perception_threshold`` (a ``(B,)`` tensor) gives each of the B
+    crowds its own filter radii, ``(B, V)``.
 
     Returns ``(SegmentPointSet, obstacle_vel (V, 2), active (V,))``."""
     wx, wy = _world_outline(snap, valid_only=True)
     wx = torch.where(snap.template_valid, wx, PAD_COORD)
     wy = torch.where(snap.template_valid, wy, PAD_COORD)
     v = wx.shape[0]
+    if isinstance(perception_threshold, torch.Tensor):
+        radius = perception_threshold.to(wx)[:, None].expand(-1, v)
+    else:
+        radius = torch.full((v,), float(perception_threshold),
+                            dtype=wx.dtype, device=wx.device)
     pset = SegmentPointSet(
         x=wx, y=wy, center_x=snap.center[:, 0].contiguous(),
-        center_y=snap.center[:, 1].contiguous(),
-        filter_radius=torch.full((v,), float(perception_threshold),
-                                 dtype=wx.dtype, device=wx.device))
+        center_y=snap.center[:, 1].contiguous(), filter_radius=radius)
     return pset, snap.vel, snap.active
 
 

@@ -23,6 +23,14 @@ counts the launch:
   line segments (``env/pointsets.SegmentGeomSet``).  The JAX package's
   ``_exp_kernel`` and ``_exp_kernel_compact`` with ``analytic=True``.
 
+* :func:`env_exp_batched`, :func:`env_moussaid_batched` -- :func:`env_exp`
+  and :func:`env_moussaid` on B independent crowds (``(B, n)`` planes)
+  against one set of segments, one launch for every row, each row with its
+  own parameters (a ``(B, P)`` matrix on the device, stride 0 when shared)
+  and, for a swept perception threshold, its own filter radii: the JAX
+  package's ``_exp_kernel`` and ``_moussaid_kernel`` under ``vmap``.  Row
+  b equals the unbatched launch on row b bitwise.
+
 On CPU tensors each wrapper runs its plain PyTorch version
 (``ops/forces.py``; the table changes no value, so the compacted forms have
 the same one); on CUDA tensors it launches the kernel or raises.  No path
@@ -33,9 +41,10 @@ the Hilbert curve (the kernels skip, per block of consecutive pedestrians,
 every segment whose filter circle misses the block), launches one kernel
 per job on the sorted planes (the compacted form where the JAX package's
 static gate would, with ``compact``), scatters each result back to slot
-order and applies the crossing-mode rule of the border-family terms.
-:func:`plain_environment_terms` computes the same jobs with the plain
-versions.
+order and applies the crossing-mode rule of the border-family terms; on
+``(B, N)`` planes it sorts each row on its own and launches the batched
+kernels.  :func:`plain_environment_terms` computes the same jobs with the
+plain versions.
 """
 from __future__ import annotations
 
@@ -45,13 +54,15 @@ from . import forces
 from .env_grid import EnvGrid, env_gate, env_grid
 from .spatial import morton_order
 from ..env.pointsets import SegmentGeomSet
-from ..models.params import MoussaidParams, moussaid_vector
+from ..models.params import (MoussaidParams, exp_rows, law_rows,
+                             moussaid_vector)
 
 #: launches per kernel since the last :func:`reset_launch_counts`; each
 #: wrapper adds one where it launches its kernel and nowhere else
 LAUNCHES = {"env_exp": 0, "env_moussaid": 0, "env_exp_compact": 0,
             "env_moussaid_compact": 0, "env_exp_analytic": 0,
-            "env_exp_analytic_compact": 0}
+            "env_exp_analytic_compact": 0, "env_exp_batched": 0,
+            "env_moussaid_batched": 0}
 
 
 def reset_launch_counts() -> None:
@@ -59,17 +70,19 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
-def _check_planes(planes, alive, dev):
-    n = planes[0].shape[0]
+def _check_planes(planes, alive, dev, batch=None):
+    """``(n,)`` planes, or ``(batch, n)`` ones for the batched forms."""
+    n = planes[0].shape[-1]
+    shape = (n,) if batch is None else (batch, n)
     for t in planes:
-        if (t.device != dev or t.dtype != torch.float32 or t.shape != (n,)
+        if (t.device != dev or t.dtype != torch.float32 or t.shape != shape
                 or not t.is_contiguous()):
             raise ValueError("pedestrian planes must be contiguous float32 "
-                             f"({n},) tensors on {dev}; got {t.dtype} "
+                             f"{shape} tensors on {dev}; got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
     if (alive.device != dev or alive.dtype != torch.bool
-            or alive.shape != (n,) or not alive.is_contiguous()):
-        raise ValueError(f"alive must be a contiguous bool ({n},) tensor on "
+            or alive.shape != shape or not alive.is_contiguous()):
+        raise ValueError(f"alive must be a contiguous bool {shape} tensor on "
                          f"{dev}")
 
 
@@ -124,17 +137,19 @@ def filter_r2(seg, active=None) -> torch.Tensor:
 
 def _launch(name, args, pos_x, grid=None):
     """Launch ``sfm_<name>`` with ``args`` (everything before ``n``), then
-    ``n``, the table (``grid``, compacted forms), the outputs and the
-    stream."""
+    ``n``, the table (``grid``, compacted forms) or, for ``(B, n)`` planes
+    (the batched forms), ``B``, the outputs and the stream."""
     from ..utils.cuda_build import load_kernels
     fx = torch.empty_like(pos_x)
     fy = torch.empty_like(pos_x)
-    n = pos_x.shape[0]
+    n = pos_x.shape[-1]
     if n == 0:
         return fx, fy
     table = () if grid is None else (grid.surv.data_ptr(),
                                      grid.counts.data_ptr(), grid.max_surv,
                                      grid.group)
+    if pos_x.dim() == 2:
+        table = (pos_x.shape[0],)
     lib = load_kernels()
     with torch.cuda.device(pos_x.device):
         stream = torch.cuda.current_stream(pos_x.device).cuda_stream
@@ -303,6 +318,79 @@ def env_moussaid_compact(pos_x, pos_y, vel_x, vel_y, radius, alive, seg,
     return _launch("env_moussaid_compact", args, pos_x, grid)
 
 
+def _batched_args(pos_x, pos_y, vel_x, vel_y, radius, alive, seg, r2,
+                  moussaid, obstacle_vel=None):
+    """The batched entries' plane, segment and filter arguments, checked:
+    ``(B, n)`` planes (vel_x, vel_y only for the Moussaid form), the
+    segments of :func:`_check_segments`, ``r2`` ``(S,)`` or ``(B, S)``."""
+    dev = pos_x.device
+    if pos_x.dim() != 2:
+        raise ValueError(f"the batched kernels take (B, n) planes, got "
+                         f"{tuple(pos_x.shape)}")
+    batch, n = pos_x.shape
+    if batch * n >= 2 ** 31:
+        raise ValueError(f"{batch} x {n} pedestrians exceed the kernels' "
+                         f"32-bit indices")
+    _check_planes((pos_x, pos_y, *((vel_x, vel_y) if moussaid else ()),
+                   radius), alive, dev, batch)
+    s, k = seg.x.shape
+    extra = () if not moussaid else (("velocity", obstacle_vel, (s, 2)),)
+    _check_segments(seg, extra, dev)
+    if (r2.shape not in ((s,), (batch, s)) or r2.stride(-1) != 1
+            or r2.dim() == 2 and r2.stride(0) not in (0, s)):
+        raise ValueError(f"segment filter radii must be ({s},) or "
+                         f"({batch}, {s}) with contiguous rows; got "
+                         f"{tuple(r2.shape)}")
+    r2_stride = 0 if r2.dim() == 1 else r2.stride(0)
+    ptrs = (pos_x.data_ptr(), pos_y.data_ptr(),
+            *((vel_x.data_ptr(), vel_y.data_ptr()) if moussaid else ()),
+            radius.data_ptr(), alive.data_ptr(), seg.x.data_ptr(),
+            seg.y.data_ptr(), k, _lengths_ptr(seg, dev),
+            seg.center_x.data_ptr(), seg.center_y.data_ptr(), r2.data_ptr(),
+            r2_stride)
+    return ptrs, batch
+
+
+def env_exp_batched(pos_x, pos_y, radius, alive, seg, a, b,
+                    use_radius: bool = False, active=None):
+    """:func:`env_exp` on B crowds, ``(B, n)`` planes against one segment
+    set, one launch for every row: ``(fx, fy)``, ``(B, n)``.  ``a``, ``b``:
+    numbers shared by every row, or ``(B,)`` tensors (a sweep of the
+    border or space-repulsive parameters).  A ``(B, S)`` filter radius
+    gives each row its own filter."""
+    if _device_of(pos_x) == "cpu":
+        return forces.env_exp_force_batched(pos_x, pos_y, radius, alive, seg,
+                                            a, b, use_radius=use_radius,
+                                            active=active)
+    r2 = filter_r2(seg, active)
+    ptrs, batch = _batched_args(pos_x, pos_y, None, None, radius, alive, seg,
+                                r2, False)
+    prm = exp_rows(a, b, batch, pos_x.device)
+    return _launch("env_exp_batched", (*ptrs, seg.x.shape[0], prm.data_ptr(),
+                                       prm.stride(0), int(use_radius)),
+                   pos_x)
+
+
+def env_moussaid_batched(pos_x, pos_y, vel_x, vel_y, radius, alive, seg,
+                         obstacle_vel, p: MoussaidParams,
+                         use_radius: bool = False, active=None):
+    """:func:`env_moussaid` on B crowds, ``(B, n)`` planes against one
+    segment set, one launch for every row: ``(fx, fy)``, ``(B, n)``.
+    ``p``: shared by every row, or with ``(B,)`` tensor leaves (a sweep of
+    the obstacle parameters)."""
+    if _device_of(pos_x) == "cpu":
+        return forces.env_moussaid_force_batched(
+            pos_x, pos_y, vel_x, vel_y, radius, alive, seg, obstacle_vel, p,
+            use_radius=use_radius, active=active)
+    r2 = filter_r2(seg, active)
+    ptrs, batch = _batched_args(pos_x, pos_y, vel_x, vel_y, radius, alive,
+                                seg, r2, True, obstacle_vel)
+    prm = law_rows("moussaid", p, batch, pos_x.device)
+    return _launch("env_moussaid_batched",
+                   (*ptrs, obstacle_vel.data_ptr(), seg.x.shape[0],
+                    prm.data_ptr(), prm.stride(0), int(use_radius)), pos_x)
+
+
 def environment_jobs(scene, params, veh_snap, analytic: bool = False):
     """The environment terms this step computes, in the JAX package's
     order: ``(name, kind, segments, args, use_radius, active)`` with
@@ -375,6 +463,12 @@ def fused_environment_terms(state, scene, params, veh_snap,
     jobs = environment_jobs(scene, params, veh_snap, analytic)
     if not jobs:
         return {}
+    if state.batch is not None:
+        if compact or analytic or order is not None:
+            raise NotImplementedError(
+                "the compacted and analytic environment kernels, and a "
+                "shared sort, are not batched yet (ROADMAP item 19b)")
+        return _batched_terms(state, jobs)
     perm, inv = order if order is not None else morton_order(
         state.pos_x, state.pos_y, state.alive, order="hilbert")
     px, py, vx, vy, rad, alive = (
@@ -405,16 +499,50 @@ def fused_environment_terms(state, scene, params, veh_snap,
     return terms
 
 
+def _batched_terms(state, jobs):
+    """The environment terms of B crowds (``(B, N)`` planes) through the
+    batched kernels: each row sorted along its own Hilbert curve, one
+    launch per job for every row, each result scattered back to its row's
+    slot order.  The sampled dense jobs only (the compacted and analytic
+    forms are not batched, ROADMAP item 19b)."""
+    perm, inv = morton_order(state.pos_x, state.pos_y, state.alive,
+                             order="hilbert")
+    px, py, vx, vy, rad, alive = (
+        a.gather(-1, perm) for a in (state.pos_x, state.pos_y, state.vel_x,
+                                     state.vel_y, state.radius, state.alive))
+    crossing = forces.crossing_mask(state.mode)
+    terms = {}
+    for name, kind, seg, args, use_radius, active in jobs:
+        if kind == "exp":
+            fx, fy = env_exp_batched(px, py, rad, alive, seg, *args,
+                                     use_radius=use_radius, active=active)
+        else:
+            fx, fy = env_moussaid_batched(px, py, vx, vy, rad, alive, seg,
+                                          *args, use_radius=use_radius,
+                                          active=active)
+        _collect(terms, name, kind, fx.gather(-1, inv), fy.gather(-1, inv),
+                 crossing)
+    return terms
+
+
 def plain_environment_terms(state, scene, params, veh_snap,
                             analytic: bool = False):
     """The terms of :func:`fused_environment_terms` through the plain
     versions on the unsorted planes (no sort, no kernel, no table): the
-    reference the kernel path is compared with."""
+    reference the kernel path is compared with.  ``(B, N)`` planes go row
+    by row, each with its row's parameters."""
     crossing = forces.crossing_mask(state.mode)
     terms = {}
     for name, kind, seg, args, use_radius, active in environment_jobs(
             scene, params, veh_snap, analytic):
-        if kind == "exp":
+        if state.batch is not None:
+            fn = (forces.env_exp_force_batched if kind == "exp"
+                  else forces.env_moussaid_force_batched)
+            vel = () if kind == "exp" else (state.vel_x, state.vel_y)
+            fx, fy = fn(state.pos_x, state.pos_y, *vel, state.radius,
+                        state.alive, seg, *args, use_radius=use_radius,
+                        active=active)
+        elif kind == "exp":
             fx, fy = forces.env_exp_force(
                 state.pos_x, state.pos_y, state.radius, state.alive, seg,
                 *args, use_radius=use_radius, active=active)

@@ -28,6 +28,14 @@ desired directions, and has only the dense forms: it is not antisymmetric).
   JAX package's ``_pair_kernel_sym_dense``, the half-ring's off-diagonal
   step), with ``sym_dense_cutoff`` its cutoff form.
 
+* :func:`pair_force_sym_batched`, :func:`pair_force_dense_batched` -- the
+  symmetric and dense walks on a batch of B independent crowds, ``(B, n)``
+  planes and a ``(B, P)`` parameter matrix (row b's parameters; stride 0
+  when every row shares them), one launch for every row: the JAX package's
+  ``_pair_kernel_sym`` and ``_pair_kernel`` under ``vmap`` (ensembles and
+  parameter sweeps, ``parallel/sweeps.py``).  Row b of the dense form
+  equals the unbatched launch on row b bitwise.
+
 One C entry per form, ``sfm_pair_<form>``, takes the law's id
 (:data:`LAW_IDS`).  A kernel's name, and its key in :data:`LAUNCHES`, is
 the law's prefix and the form: ``pair_force_sym`` ...
@@ -40,7 +48,10 @@ and ``helbing_compact``.
 choose by the tensors' device: CPU tensors go to the plain PyTorch version
 (:func:`..ops.forces.pedestrian_force`, ``powerlaw_force`` or
 ``ped_repulsive_force``), CUDA tensors go to a kernel or raise.  No path
-falls back from the kernel to the plain version.  With ``axis`` (the
+falls back from the kernel to the plain version.
+:func:`pedestrian_force_batched` does the same for ``(B, N)`` planes: the
+batched kernels on a card, :func:`plain_batched_force` (row by row) on the
+CPU; it never loops the unbatched kernels over rows.  With ``axis`` (the
 tensors are one shard's slots of an agent axis, ``parallel/``) they run
 the sharded schedules: :func:`plain_sharded_force` on the CPU,
 :func:`kernel_sharded_force` on a card (the in-kernel ring is
@@ -54,18 +65,21 @@ from . import forces
 from .pair_grid import (COL_TILE, SYM_TILE, CutoffGrid, block_grid,
                         box_planes, cutoff_grid, rect_grid)
 from .spatial import morton_order
-from ..models.params import (helbing_vector, moussaid_vector,
-                             powerlaw_vector)
+from ..models.params import (helbing_vector, law_rows, moussaid_vector,
+                             powerlaw_vector, section_rows)
 
 #: kernel-name prefix, parameter-vector length and the forms of each law
 LAWS = {
     "moussaid": ("pair_force", 6, ("sym", "dense", "sym_cutoff",
                                    "sym_compact", "dense_cutoff", "compact",
-                                   "sym_dense", "sym_dense_cutoff")),
+                                   "sym_dense", "sym_dense_cutoff",
+                                   "sym_batched", "dense_batched")),
     "powerlaw": ("powerlaw", 4, ("sym", "dense", "sym_cutoff",
                                  "sym_compact", "dense_cutoff", "compact",
-                                 "sym_dense", "sym_dense_cutoff")),
-    "helbing": ("helbing", 6, ("dense", "dense_cutoff", "compact")),
+                                 "sym_dense", "sym_dense_cutoff",
+                                 "sym_batched", "dense_batched")),
+    "helbing": ("helbing", 6, ("dense", "dense_cutoff", "compact",
+                               "dense_batched")),
 }
 
 #: the law ids of the C entries (csrc/pair_laws.cuh LawId)
@@ -94,33 +108,43 @@ def law_vector(law: str, p, device) -> torch.Tensor:
             "helbing": helbing_vector}[law](p, device)
 
 
-def _check_side(planes, prm=None, prm_len=0):
+def _check_side(planes, prm=None, prm_len=0, batch=None):
     """One side's planes (x, y, u, v, radius or None, alive) against what
-    the C entries assume; returns the count."""
+    the C entries assume; returns the count.  ``batch``: the planes are
+    ``(batch, n)`` and ``prm`` a ``(batch, prm_len)`` matrix whose rows
+    lie ``prm_len`` apart, or all at one address (stride 0: shared)."""
     x = planes[0]
     if x.device.type != "cuda":
         raise ValueError(f"CUDA pair-force kernels take CUDA tensors, got "
                          f"{x.device}")
-    n = x.shape[0]
+    n = x.shape[-1]
+    shape = (n,) if batch is None else (batch, n)
     for t in planes[:5]:
         if t is None:
             continue
         if (t.device != x.device or t.dtype != torch.float32
-                or t.shape != (n,) or not t.is_contiguous()):
+                or t.shape != shape or not t.is_contiguous()):
             raise ValueError("pair-force planes must be contiguous float32 "
-                             f"({n},) tensors on {x.device}; got "
+                             f"{shape} tensors on {x.device}; got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
     alive = planes[5]
     if (alive.device != x.device or alive.dtype != torch.bool
-            or alive.shape != (n,) or not alive.is_contiguous()):
-        raise ValueError(f"alive must be a contiguous bool ({n},) tensor on "
+            or alive.shape != shape or not alive.is_contiguous()):
+        raise ValueError(f"alive must be a contiguous bool {shape} tensor on "
                          f"{x.device}")
-    if prm is not None and (prm.device != x.device
-                            or prm.dtype != torch.float32
-                            or prm.shape != (prm_len,)
-                            or not prm.is_contiguous()):
-        raise ValueError(f"prm must be a contiguous float32 ({prm_len},) "
-                         f"tensor on {x.device}")
+    if prm is None:
+        return n
+    if batch is None:
+        ok = prm.shape == (prm_len,) and prm.is_contiguous()
+    else:
+        ok = (prm.shape == (batch, prm_len) and prm.stride(-1) == 1
+              and prm.stride(0) in (0, prm_len))
+    if prm.device != x.device or prm.dtype != torch.float32 or not ok:
+        raise ValueError(f"prm must be a float32 "
+                         f"{(prm_len,) if batch is None else (batch, prm_len)}"
+                         f" tensor on {x.device} with contiguous rows"
+                         + ("" if batch is None else " (or one row at "
+                            "stride 0)"))
     return n
 
 
@@ -162,7 +186,9 @@ def _launch(law: str, form: str, pos_x, pos_y, vel_x, vel_y, radius, alive,
     rectangular form (``RECT_FORMS``), with the global slots ``row_offset``
     and ``col_offset`` of both sides' first agents; None: the rows'
     own (the square call).  Returns ``(fx, fy)``, and for the full-block
-    forms also the columns' ``(fxc, fyc)``."""
+    forms also the columns' ``(fxc, fyc)``.  The batched forms
+    (``"sym_batched"``, ``"dense_batched"``) take ``(B, n)`` planes and a
+    ``(B, P)`` ``prm`` and launch once for every row."""
     from ..utils.cuda_build import load_kernels
     if law not in LAWS:
         raise ValueError(f"unknown pair law {law!r}; one of {sorted(LAWS)}")
@@ -178,6 +204,12 @@ def _launch(law: str, form: str, pos_x, pos_y, vel_x, vel_y, radius, alive,
                          f"{law} law reads radii as it is defined)")
     if cols is not None and form not in RECT_FORMS:
         raise ValueError(f"the {form} form takes one set of planes")
+    batch = None
+    if form.endswith("batched"):
+        if pos_x.dim() != 2:
+            raise ValueError(f"the batched kernels take (B, n) planes, got "
+                             f"{tuple(pos_x.shape)}")
+        batch = pos_x.shape[0]
     name = f"{prefix}_{form}"
     if law == "helbing":
         radius = None
@@ -187,8 +219,8 @@ def _launch(law: str, form: str, pos_x, pos_y, vel_x, vel_y, radius, alive,
         cols = (pos_x, pos_y, vel_x, vel_y, radius, alive)
     elif law == "helbing":
         cols = (*cols[:4], None, cols[5])
-    n = _check_side(rows, prm, prm_len)
-    n_cols = _check_side(cols)
+    n = _check_side(rows, prm, prm_len, batch)
+    n_cols = _check_side(cols, batch=batch)
     if cols[0].device != pos_x.device:
         raise ValueError("row and column planes must share a device")
     grid_args = []
@@ -213,7 +245,15 @@ def _launch(law: str, form: str, pos_x, pos_y, vel_x, vel_y, radius, alive,
         outs += [torch.zeros_like(cols[0]), torch.zeros_like(cols[0])]
     if n == 0 or (form.startswith("sym_dense") and n_cols == 0):
         return tuple(outs)
-    if form in RECT_FORMS:
+    if batch is not None:
+        if batch * n >= 2 ** 31:
+            raise ValueError(f"{batch} x {n} agents exceed the kernels' "
+                             f"32-bit indices")
+        sides = (*rows, *cols) if form == "dense_batched" else (*rows[:2],
+                                                                *cols[2:])
+        planes = [*map(_ptr, sides), prm.data_ptr(), prm.stride(0),
+                  int(use_radius), n, batch]
+    elif form in RECT_FORMS:
         planes = [*map(_ptr, rows), n, row_offset, *map(_ptr, cols), n_cols,
                   col_offset, prm.data_ptr(), int(use_radius)]
     else:
@@ -302,6 +342,76 @@ def pair_force_sym_dense(pos_x, pos_y, vel_x, vel_y, radius, alive, prm,
                          f"kernel")
     return _launch(law, form, pos_x, pos_y, vel_x, vel_y, radius, alive,
                    prm, use_radius, grid, None, cols, row_offset, col_offset)
+
+
+def pair_force_sym_batched(pos_x, pos_y, vel_x, vel_y, radius, alive, prm,
+                           use_radius: bool = False, law: str = "moussaid"):
+    """:func:`pair_force_sym` on B independent crowds at once: ``(B, n)``
+    planes, ``prm`` ``(B, P)`` (row b's parameters; a stride-0 expand of
+    one vector when the rows share them), one launch.  ``(fx, fy)``,
+    ``(B, n)``.  Atomics: the last bits vary from run to run."""
+    return _launch(law, "sym_batched", pos_x, pos_y, vel_x, vel_y, radius,
+                   alive, prm, use_radius)
+
+
+def pair_force_dense_batched(pos_x, pos_y, vel_x, vel_y, radius, alive, prm,
+                             use_radius: bool = False, law: str = "moussaid",
+                             desired=None):
+    """:func:`pair_force_dense` on B independent crowds at once (see
+    :func:`pair_force_sym_batched`); Helbing's ``desired`` planes are
+    ``(B, n)`` too.  Deterministic: row b equals the unbatched launch on
+    row b bitwise."""
+    return _launch(law, "dense_batched", pos_x, pos_y, vel_x, vel_y, radius,
+                   alive, prm, use_radius, desired=desired)
+
+
+def plain_batched_force(law, pos_x, pos_y, vel_x, vel_y, radius, alive, p,
+                        use_ped_radius: bool = False, row_block: int = 1024,
+                        desired=None):
+    """The plain version of the batched pair kernels: row b of the ``(B,
+    N)`` planes through :func:`plain_law_force` with row b's parameters
+    (``p``: a section with ``(B,)`` tensor leaves, or one shared by every
+    row).  ``(fx, fy)``, ``(B, N)``."""
+    batch = pos_x.shape[0]
+    fx, fy = [], []
+    for b, pb in enumerate(section_rows(p, batch)):
+        gx, gy = plain_law_force(
+            law, pos_x[b], pos_y[b], vel_x[b], vel_y[b],
+            None if radius is None else radius[b], alive[b], pb,
+            use_ped_radius, row_block, None,
+            None if desired is None else (desired[0][b], desired[1][b]))
+        fx.append(gx)
+        fy.append(gy)
+    return torch.stack(fx), torch.stack(fy)
+
+
+def pedestrian_force_batched(pos_x, pos_y, vel_x, vel_y, radius, alive, p,
+                             use_ped_radius: bool = False,
+                             symmetric: bool = True, row_block: int = 1024,
+                             law: str = "moussaid", desired=None,
+                             plain: bool = False):
+    """Pair force of ``law`` on B independent crowds, ``(B, N)`` planes:
+    ``(fx, fy)``.  ``p``: the law's params, with ``(B,)`` tensor leaves
+    (a sweep) or numbers shared by every row (an ensemble).
+
+    On CPU tensors, or with ``plain``, the plain version row by row
+    (:func:`plain_batched_force`); on CUDA tensors one launch of
+    :func:`pair_force_sym_batched` (``symmetric``; ignored for Helbing) or
+    :func:`pair_force_dense_batched` for all rows, or it raises.  The
+    cutoff and sharded forms are not batched (ROADMAP item 19b)."""
+    dev = pos_x.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no pair-force path for device {dev}")
+    if plain or dev.type == "cpu":
+        return plain_batched_force(law, pos_x, pos_y, vel_x, vel_y, radius,
+                                   alive, p, use_ped_radius, row_block,
+                                   desired)
+    prm = law_rows(law, p, pos_x.shape[0], dev)
+    if symmetric and law != "helbing":
+        return pair_force_sym_batched(pos_x, pos_y, vel_x, vel_y, radius,
+                                      alive, prm, use_ped_radius, law)
+    return pair_force_dense_batched(pos_x, pos_y, vel_x, vel_y, radius,
+                                    alive, prm, use_ped_radius, law, desired)
 
 
 def plain_law_force(law, pos_x, pos_y, vel_x, vel_y, radius, alive, p,

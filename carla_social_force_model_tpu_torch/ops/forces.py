@@ -26,6 +26,11 @@ parity target of the CPU tests against the JAX package.
   :func:`border_force`,
   :func:`space_repulsive_force` and :func:`obstacle_force` are the JAX
   package's environment forces (forces.py:338-362, :471-511) on top of them.
+* :func:`env_exp_force_batched` and :func:`env_moussaid_force_batched` --
+  the plain versions of the batched environment kernels: each row of
+  ``(B, N)`` planes through the functions above with that row's
+  parameters (the pair forces' counterpart is
+  ``cuda_forces.plain_batched_force``).
 * Their ``_chunked`` forms (and :func:`chunked_environment_terms`, the
   terms of ``StepConfig.env_chunked``) take each segment's closest point
   from a :class:`..env.pointsets.ChunkedPointSet` through
@@ -36,6 +41,8 @@ parity target of the CPU tests against the JAX package.
 Every function takes and returns planar ``(N,)`` x/y tensors.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -48,7 +55,8 @@ from ..env.pointsets import SegmentGeomSet
 from ..models import modes
 from ..models.params import (AccelerationParams, BorderParams, MoussaidParams,
                              PedRepulsiveParams, PowerLawParams,
-                             SpaceRepulsiveParams, helbing_cos_phi)
+                             SpaceRepulsiveParams, helbing_cos_phi,
+                             section_rows)
 
 def acceleration_force_xy(pos_x, pos_y, vel_x, vel_y, wp_x, wp_y,
                           applied_target, p: AccelerationParams):
@@ -441,6 +449,52 @@ def env_moussaid_force(pos_x, pos_y, vel_x, vel_y, radius, alive, seg,
             px, py, vel_x[lo:hi], vel_y[lo:hi], bx, by, ok,
             radius[lo:hi] if use_radius else None, obstacle_vel, p)
     return fx_out, fy_out
+
+
+def number_rows(x, batch: int) -> list:
+    """Row b's value of a parameter: a ``(B,)`` tensor's entries (read once,
+    as float32 values), or a number shared by every row."""
+    return x.tolist() if isinstance(x, torch.Tensor) else [x] * batch
+
+
+def _segment_row(seg, b: int):
+    """Row b's view of a point set whose filter radii are per row (``(B,
+    S)``: a swept perception threshold); a shared set unchanged."""
+    if seg.filter_radius.dim() == 2:
+        return dataclasses.replace(seg, filter_radius=seg.filter_radius[b])
+    return seg
+
+
+def env_exp_force_batched(pos_x, pos_y, radius, alive, seg, a, b,
+                          use_radius: bool = False, active=None):
+    """:func:`env_exp_force` on ``(B, N)`` planes against one point set:
+    row r with ``a[r]``, ``b[r]`` (``(B,)`` tensors, or numbers shared by
+    every row).  The plain version of the batched ``env_exp`` kernel."""
+    batch = pos_x.shape[0]
+    rows = [env_exp_force(pos_x[r], pos_y[r], radius[r], alive[r],
+                          _segment_row(seg, r), ar, br,
+                          use_radius=use_radius, active=active)
+            for r, (ar, br) in enumerate(zip(number_rows(a, batch),
+                                             number_rows(b, batch)))]
+    return (torch.stack([f[0] for f in rows]),
+            torch.stack([f[1] for f in rows]))
+
+
+def env_moussaid_force_batched(pos_x, pos_y, vel_x, vel_y, radius, alive,
+                               seg, obstacle_vel, p: MoussaidParams,
+                               use_radius: bool = False, active=None):
+    """:func:`env_moussaid_force` on ``(B, N)`` planes against one point
+    set: row r with row r of ``p`` (a section with ``(B,)`` leaves, or one
+    shared by every row).  The plain version of the batched
+    ``env_moussaid`` kernel."""
+    batch = pos_x.shape[0]
+    rows = [env_moussaid_force(pos_x[r], pos_y[r], vel_x[r], vel_y[r],
+                               radius[r], alive[r], _segment_row(seg, r),
+                               obstacle_vel, pr, use_radius=use_radius,
+                               active=active)
+            for r, pr in enumerate(section_rows(p, batch))]
+    return (torch.stack([f[0] for f in rows]),
+            torch.stack([f[1] for f in rows]))
 
 
 def env_exp_force_chunked(pos_x, pos_y, radius, alive, pset, a: float,

@@ -34,9 +34,11 @@ def _part1by1(x):
 
 def _quantize(c, alive, levels: int):
     """Coordinates to integer levels over the alive agents' span (float32
-    arithmetic as in the JAX package, then truncation), int64."""
-    lo = torch.where(alive, c, torch.inf).min()
-    hi = torch.where(alive, c, -torch.inf).max()
+    arithmetic as in the JAX package, then truncation), int64.  The span
+    is each row's own for ``(B, N)`` planes, as under the JAX package's
+    vmap."""
+    lo = torch.where(alive, c, torch.inf).amin(dim=-1, keepdim=True)
+    hi = torch.where(alive, c, -torch.inf).amax(dim=-1, keepdim=True)
     span = torch.clamp(hi - lo, min=1e-6)
     top = float(levels - 1)
     return torch.clamp((c - lo) / span * top, 0.0, top).to(torch.int64)
@@ -81,11 +83,13 @@ def _morton_key(pos_x, pos_y, alive, order: str = "morton"):
 
 def morton_order(pos_x, pos_y, alive, order: str = "morton"):
     """Permutation sorting alive pedestrians along a space-filling curve
-    (dead slots last, stable).  Returns ``(perm, inv_perm)`` int64."""
-    perm = torch.sort(_morton_key(pos_x, pos_y, alive, order),
+    (dead slots last, stable).  Returns ``(perm, inv_perm)`` int64.
+    ``(B, N)`` planes sort each row on its own (along the last axis)."""
+    perm = torch.sort(_morton_key(pos_x, pos_y, alive, order), dim=-1,
                       stable=True).indices
     inv = torch.empty_like(perm)
-    inv[perm] = torch.arange(perm.shape[0], device=perm.device)
+    ids = torch.arange(perm.shape[-1], device=perm.device)
+    inv.scatter_(-1, perm, ids.expand_as(perm))
     return perm, inv
 
 

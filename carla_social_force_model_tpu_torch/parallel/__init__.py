@@ -1,4 +1,5 @@
-"""Agent sharding: pedestrian slots split over shards (port of parallel/)."""
+"""Agent sharding: pedestrian slots split over shards, and ensembles and
+parameter sweeps on one device (``sweeps``) (port of parallel/)."""
 
 from .mesh import (AGENT_AXIS, BATCH_AXIS, AgentAxis, LocalMesh,  # noqa: F401
                    ProcessGroupAxis, make_mesh, round_up)

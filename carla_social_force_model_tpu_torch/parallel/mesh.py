@@ -28,7 +28,8 @@ Two implementations:
   across cards).
 
 Only the agent axis exists yet: ``make_mesh`` refuses batch shards
-(ensembles, ROADMAP Queue 1 item 19).
+(ensembles over a 2-D mesh, ROADMAP item 19b); a batch of crowds runs on
+one device (``parallel/sweeps.py``).
 """
 from __future__ import annotations
 
@@ -249,9 +250,10 @@ class ProcessGroupAxis:
 def make_mesh(n_agent_shards: int, n_batch_shards: int = 1,
               device: torch.device | str = DEFAULT_DEVICE) -> LocalMesh:
     """A :class:`LocalMesh` of ``n_agent_shards`` virtual shards on
-    ``device``.  Batch shards (ensembles) are not ported yet."""
+    ``device``.  Batch shards (ensembles over a 2-D mesh) are not ported
+    yet: one device runs a whole batch (``parallel/sweeps.py``)."""
     if n_batch_shards != 1:
         raise NotImplementedError(
             "batch shards (ensembles over a 2-D mesh) are not ported yet "
-            "(ROADMAP Queue 1 item 19)")
+            "(ROADMAP item 19b)")
     return LocalMesh(n_agent_shards, device)

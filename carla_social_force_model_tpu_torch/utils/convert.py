@@ -52,16 +52,27 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
-def params_from_fields(d: dict) -> P.SfmParams:
-    """The port's SfmParams from a flattened JAX ``SfmParams``."""
+def _leaf(v, device):
+    """A parameter leaf: a Python number, or a batched (swept) leaf's
+    ``(B,)`` array as a float32 tensor on ``device``."""
+    if np.ndim(v) >= 1:
+        return torch.from_numpy(np.asarray(v, np.float32).copy()).to(device)
+    return _scalar(v)
+
+
+def params_from_fields(d: dict, device: torch.device | str = "cpu"
+                       ) -> P.SfmParams:
+    """The port's SfmParams from a flattened JAX ``SfmParams``; the ``(B,)``
+    leaves of a batched one (``parallel/sweeps.batch_params``) become
+    float32 tensors on ``device``."""
     kw = {}
     for f in dataclasses.fields(P.SfmParams):
         v = d[f.name]
         if f.name in _PARAM_GROUPS:
             kw[f.name] = _PARAM_GROUPS[f.name](
-                **{k: _scalar(x) for k, x in v.items()})
+                **{k: _leaf(x, device) for k, x in v.items()})
         else:
-            kw[f.name] = _scalar(v)
+            kw[f.name] = _leaf(v, device)
     return P.SfmParams(**kw)
 
 
@@ -128,7 +139,8 @@ def route_buffer_from_fields(d: dict, device: torch.device | str) -> RouteBuffer
 def spawn_schedule_from_fields(d: dict,
                                device: torch.device | str) -> SpawnSchedule:
     """The port's SpawnSchedule (with its RouteBuffer) from a flattened JAX
-    ``SpawnSchedule``."""
+    ``SpawnSchedule``, a batch of them (leading batch axis, as
+    ``api/synthetic.batched_crowds`` builds) too."""
     kw = {}
     for f in dataclasses.fields(SpawnSchedule):
         v = d[f.name]

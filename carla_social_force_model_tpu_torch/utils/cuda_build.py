@@ -57,6 +57,12 @@ ARGTYPES = {
     # ..., [row_bb, col_bb, c2,] fx, fy, fxc, fyc, stream
     "sfm_pair_sym_dense": _RECT + [_PTR] * 5,
     "sfm_pair_sym_dense_cutoff": _RECT + [_PTR, _PTR, _FLOAT] + [_PTR] * 5,
+    # law, x, y, vx, vy, rad, alive, prm, prm_stride, use_radius, n, batch,
+    # fx, fy, stream
+    "sfm_pair_sym_batched": [_INT] + [_PTR] * 7 + [_INT] * 4 + [_PTR] * 3,
+    # law, the row planes, the column planes, prm, prm_stride, use_radius,
+    # n, batch, fx, fy, stream
+    "sfm_pair_dense_batched": [_INT] + [_PTR] * 13 + [_INT] * 4 + [_PTR] * 3,
     # law, n_dev, n_local, rx, ry, ru, rv, rrad, ralive, cols, comm, sync,
     # acc, prm, use_radius, cutoff, c2, fx, fy, stream
     "sfm_ring_force": ([_INT] * 3 + [_PTR] * 11 + [_INT, _INT, _FLOAT]
@@ -79,6 +85,16 @@ ARGTYPES = {
     "sfm_env_moussaid_compact": ([_PTR] * 8 + [_INT] + [_PTR] * 5
                                  + [_INT, _PTR] + [_INT, _INT] + [_PTR] * 2
                                  + [_INT, _INT] + [_PTR] * 3),
+    # px, py, prad, alive, ptx, pty, k, lens, cx, cy, r2, r2_stride,
+    # s_count, prm, prm_stride, use_radius, n, batch, fx, fy, stream
+    "sfm_env_exp_batched": ([_PTR] * 6 + [_INT] + [_PTR] * 4 + [_INT, _INT]
+                            + [_PTR] + [_INT] * 4 + [_PTR] * 3),
+    # px, py, pvx, pvy, prad, alive, ptx, pty, k, lens, cx, cy, r2,
+    # r2_stride, ov, s_count, prm, prm_stride, use_radius, n, batch, fx, fy,
+    # stream
+    "sfm_env_moussaid_batched": ([_PTR] * 8 + [_INT] + [_PTR] * 4
+                                 + [_INT, _PTR, _INT, _PTR] + [_INT] * 4
+                                 + [_PTR] * 3),
     # px, py, prad, alive, ax, ay, ux, uy, il2, m, lens, cx, cy, r2,
     # s_count, a, b, use_radius, n, fx, fy, stream
     "sfm_env_exp_analytic": ([_PTR] * 9 + [_INT] + [_PTR] * 4

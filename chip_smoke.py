@@ -2314,6 +2314,380 @@ def shard_paths(dev, zero, card, step_ms, launches, urban):
         dist.destroy_process_group()
 
 
+#: ensembles and sweeps (phases 27-29): BASELINE config #5 (bench.py's
+#: BENCH_MODE=ensemble: benchmark_bundle(1000) with batched_crowds(256,
+#: 1000), 100 steps after a 20-step warm-up), the model-family forms of
+#: the batched pair kernels on the same batch (cut to 20 steps: they exist
+#: to launch those forms), a 64-point sweep of pedestrian_A, config #3
+#: under a batch of 16 and a sweep of border_a over 8 rows on config #2's
+#: scene (50 steps each); the step-by-step checks run 50 steps at the
+#: geometry phase's batch of 16
+BATCH = 256
+BATCH_N = 1_000
+BATCH_STEPS = 100
+BATCH_FAMILY_STEPS = 20
+SWEEP_POINTS = 64
+SWEEP_ROWS = (0, 21, 42, 63)
+GEOM_BATCH = 16
+GEOM_STEPS = 50
+BORDER_SWEEP = 8
+
+
+def batch_phases(dev, zero, card, launches, worst, profile_steps):
+    """Phases 27-29: the batched kernels against their plain batched
+    versions and, row by row, against the unbatched kernels; the ensemble
+    and sweep paths through ``parallel/sweeps.py`` with their launches,
+    rates and device-busy shares; every step of a 50-step batched rollout
+    against the plain versions' step.  Returns ``{kernel: (source line,
+    ms, plain_ms, bound)}`` for the kernels line."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import batch_cases as bc
+    from family_cases import TOLERANCE as TOLERANCE_OF
+    from carla_social_force_model_tpu_torch.api.synthetic import (
+        batched_crowds, benchmark_bundle)
+    from carla_social_force_model_tpu_torch.models import stepper, vehicles
+    from carla_social_force_model_tpu_torch.models.params import (
+        section_rows)
+    from carla_social_force_model_tpu_torch.models.state import PedState
+    from carla_social_force_model_tpu_torch.ops import cuda_forces
+    from carla_social_force_model_tpu_torch.parallel import sweeps
+    table = {}
+
+    def run_batch(label, make_run, arg, steps, expect, rows):
+        """One batched main path: a warm-up run of WARMUP_STEPS, then best
+        of 2 timed runs of ``steps``, each with every count set to 0 just
+        before and read just after (they must equal ``expect``); finite
+        positions.  Prints the rate, the step time and the launches per
+        step."""
+        make_run(min(steps, WARMUP_STEPS))(arg)
+        run = make_run(steps)
+        torch.cuda.synchronize()
+        best = float("inf")
+        for _ in range(2):
+            reset_counts()
+            t0 = time.perf_counter()
+            final, _ = run(arg)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+            counts = read_counts()
+            if counts != expect:
+                fail(f"{label} launched {counts}, expected {expect}")
+        if not (torch.isfinite(final.pos_x).all()
+                and torch.isfinite(final.pos_y).all()):
+            fail(f"non-finite positions after the {label} rollout")
+        n = final.capacity
+        per_step = {k: v / steps for k, v in counts.items() if v}
+        say(f"{label}: B={rows} x N={n}, {steps} steps, best of 2 "
+            f"{best:.3f} s = {rows * n * steps / best:.1f} agent-steps/s, "
+            f"{1e3 * best / steps:.4f} ms/step, launches per step "
+            f"{per_step} (one per batched kernel and term, for all "
+            f"{rows} rows); {int(final.alive.sum())} of {rows * n} alive, "
+            f"all finite ({card})")
+        return counts, 1e3 * best / steps, final
+
+    def check_steps(label, scene, params, cfg, state):
+        """Every step of a PARITY_STEPS-step batched rollout through the
+        kernels against the plain versions' step from the same state, per
+        row: within POS_STEP_TOL_M, modes and alive equal, finite."""
+        gaps = []
+        for k, gap, equal, finite in bc.one_step_gaps(scene, params, cfg,
+                                                      state, PARITY_STEPS):
+            if not (equal and finite):
+                fail(f"{label}: step {k} from the same state gives other "
+                     f"modes or alive masks, or non-finite positions, "
+                     f"through the kernels than through the plain versions")
+            gaps.append(gap.max().item())
+            if gaps[-1] > POS_STEP_TOL_M:
+                row = int(gap.argmax())
+                fail(f"{label}: step {k}, row {row}: one-step position "
+                     f"L-inf {gaps[-1]:.3e} m exceeds {POS_STEP_TOL_M} m")
+        say(f"{label} one-step position L-inf kernels vs plain from the same "
+            f"state, worst row of each step 1..{PARITY_STEPS} (limit "
+            f"{POS_STEP_TOL_M:g} m): " + " ".join(f"{v:.2e}" for v in gaps))
+
+    def pair_checks(label, planes, p, forms):
+        """The batched pair kernels of ``forms`` on ``planes`` with params
+        ``p`` (a law's, shared or swept): against the plain batched version
+        and row by row against the unbatched kernel (bitwise for the dense
+        walk, twice the tolerance for the symmetric one)."""
+        refs = {}
+        for law, form in forms:
+            q = p if p is not None else bc.law_params(law)
+            if law not in refs:
+                refs[law] = bc.batch_reference(law, planes, q)
+            got = bc.batch_run(law, form, planes, q)
+            torch.cuda.synchronize()
+            m = bc.pair_mismatch(law, form, planes, q, got, refs[law])
+            name = bc.PAIR_FORMS[law, form]
+            tol = ("1e-4 + 1e-4*|f|" if law == "moussaid"
+                   else TOLERANCE_OF[law])
+            say(f"{label} {name}: max abs err {m['err']:.3e} vs the plain "
+                f"batched version ({m['over']} over {tol}); rows vs the "
+                f"unbatched kernel: "
+                + ("bitwise equal" if m["rows_equal"] else
+                   f"max diff {m['row_err']:.3e} ({m['row_over']} over "
+                   f"twice the tolerance)"))
+            if not torch.isfinite(got).all():
+                fail(f"{name} returned non-finite forces")
+            if bool((got[:, ~planes[5]] != 0).any()):
+                fail(f"{name}: dead rows are not exactly zero")
+            if m["over"]:
+                fail(f"{name} disagrees with its plain batched version")
+            if form == "dense" and not m["rows_equal"]:
+                fail(f"{name}: a row differs from the unbatched kernel on "
+                     f"that row")
+            if m["row_over"]:
+                fail(f"{name}: a row is farther from the unbatched kernel "
+                     f"than twice the tolerance")
+            worst[name] = max(worst.get(name, 0.0), m["err"])
+
+    lap("phase 27")
+    # -- phase 27: BASELINE config #5, the batched pair kernels ---------------
+    planes = bc.batch_planes(BATCH, BATCH_N, seed=27, device=dev,
+                             extent=35.0)
+    pair_checks(f"phase 27 B={BATCH} x N={BATCH_N}", planes, None,
+                sorted(bc.PAIR_FORMS))
+    n_sym = BATCH_N * (BATCH_N - 1) // 2
+    pair_bytes = BATCH * (BATCH_N * (5 * 4 + 1) + 6 * 4 + BATCH_N * 8)
+    src = "carla_social_force_model_tpu/ops/pallas_forces.py:"
+    lines = {"moussaid": {"sym": "239", "dense": "162"},
+             "powerlaw": {"sym": "462", "dense": "462"},
+             "helbing": {"dense": "528"}}
+    kern = {"sym": "pair_force_sym_batched_kernel",
+            "dense": "pair_force_dense_batched_kernel"}
+    plain_of, counts_of = {}, {}
+    for law, form in sorted(bc.PAIR_FORMS):
+        name = bc.PAIR_FORMS[law, form]
+        p = bc.law_params(law)
+        ms = device_ms(lambda: bc.batch_run(law, form, planes, p),
+                       kern[form])
+        if law not in plain_of:
+            # one plain timing and one count of the pairs per law: the
+            # symmetric form's work is half the dense form's
+            plain_of[law] = cuda_ms(lambda: cuda_forces.plain_batched_force(
+                law, *planes[:6], p,
+                desired=tuple(planes[6:]) if law == "helbing" else None),
+                reps=2)
+            if law != "moussaid":
+                counts_of[law] = np.sum(
+                    [family_work(law, [t[b] for t in planes], None,
+                                 False)[2] for b in range(BATCH)], axis=0)
+        plain = plain_of[law]
+        sym = form == "sym"
+        if law == "moussaid":
+            pairs = n_sym if sym else 2 * n_sym
+            bnd = bound(pair_bytes, BATCH * pairs * (PAIR_OPS + 2 * sym),
+                        BATCH * pairs * PAIR_MUFU)
+        else:
+            pairs, course, active = (int(c) // (2 if sym else 1)
+                                     for c in counts_of[law])
+            if law == "powerlaw":
+                ops = (pairs * (PL_GATE_OPS + 2 * sym)
+                       + course * PL_TAU_OPS + active * PL_FORCE_OPS)
+                mufu = course * PL_TAU_MUFU + active * PL_FORCE_MUFU
+            else:
+                ops, mufu = pairs * HB_OPS, pairs * HB_MUFU
+            per_row = BATCH_N * (4 * (5 if law == "powerlaw" else 6) + 1
+                                 + 8)
+            bnd = bound(BATCH * per_row + 4 * 6 * BATCH, ops, mufu)
+        table[name] = (src + lines[law][form], ms, plain, bnd)
+        say(f"phase 27 time {name} at B={BATCH} x N={BATCH_N}: kernel "
+            f"{ms:.4f} ms ({TIMED_BY[0]}; bound {bnd[0]:.4f} ms, "
+            f"{bnd[1]}), plain batched version {plain:.3f} ms ({card})")
+
+    scene, params, cfg, _ = benchmark_bundle(BATCH_N, device=dev)
+    ens = dataclasses.replace(scene, spawn=batched_crowds(BATCH, BATCH_N,
+                                                          device=dev))
+    state = PedState.empty(BATCH_N, device=dev, batch=BATCH)
+    paths = [("pair_force_sym_batched", True, params, BATCH_STEPS),
+             ("pair_force_dense_batched", False, params, BATCH_STEPS),
+             ("powerlaw_sym_batched", True, dataclasses.replace(
+                 params, enable_pedestrian=False, enable_powerlaw=True),
+              BATCH_FAMILY_STEPS),
+             ("powerlaw_dense_batched", False, dataclasses.replace(
+                 params, enable_pedestrian=False, enable_powerlaw=True),
+              BATCH_FAMILY_STEPS),
+             ("helbing_dense_batched", True, dataclasses.replace(
+                 params, enable_pedestrian=False, enable_ped_repulsive=True),
+              BATCH_FAMILY_STEPS)]
+    for name, sym, prm_set, steps in paths:
+        c = dataclasses.replace(cfg, symmetric_pairs=sym)
+        label = f"phase 27 config #5 (ensemble) via {name}"
+        counts, ms_step, _ = run_batch(
+            label, lambda k, c=c, q=prm_set: sweeps.make_ensemble_rollout(
+                ens, q, c, k), ens, steps, dict(zero, **{name: steps}),
+            BATCH)
+        launches[name] = counts[name]
+        if steps == BATCH_STEPS:
+            profile_steps(ens, prm_set, c, state, ms_step, label)
+    small = dataclasses.replace(scene, spawn=batched_crowds(
+        GEOM_BATCH, BATCH_N, device=dev))
+    for sym in (True, False):
+        check_steps(f"phase 27 config #5 at B={GEOM_BATCH}, "
+                    f"symmetric_pairs={sym}", small, params,
+                    dataclasses.replace(cfg, symmetric_pairs=sym),
+                    PedState.empty(BATCH_N, device=dev, batch=GEOM_BATCH))
+
+    lap("phase 28")
+    # -- phase 28: a 64-point sweep of pedestrian_A --------------------------
+    amps = torch.linspace(0.5, 12.0, SWEEP_POINTS, device=dev)
+    swept = sweeps.batch_params(params, pedestrian_A=amps)
+    for name, sym in (("pair_force_sym_batched", True),
+                      ("pair_force_dense_batched", False)):
+        c = dataclasses.replace(cfg, symmetric_pairs=sym)
+        label = f"phase 28 sweep of pedestrian_A via {name}"
+        counts, ms_step, final = run_batch(
+            label, lambda k, c=c: sweeps.make_sweep_rollout(scene, c, k),
+            swept, BATCH_STEPS, dict(zero, **{name: BATCH_STEPS}),
+            SWEEP_POINTS)
+        if sym:
+            profile_steps(scene, swept, c,
+                          PedState.empty(BATCH_N, device=dev,
+                                         batch=SWEEP_POINTS), ms_step, label)
+        apart = [max((final.pos_x[b] - final.pos_x[0]).abs().max().item(),
+                     (final.pos_y[b] - final.pos_y[0]).abs().max().item())
+                 for b in SWEEP_ROWS[1:]]
+        say(f"{label}: final L-inf distance of rows {SWEEP_ROWS[1:]} from "
+            f"row 0 (A = {amps[0].item():g}): "
+            + " ".join(f"{v:.3e}" for v in apart) + " m (must exceed 1e-3)")
+        if min(apart) <= 1e-3:
+            fail(f"{label}: rows with different A do not end apart")
+        # the sampled rows against the unbatched kernel path with that
+        # row's parameters: bitwise through the dense walk, the distance
+        # printed through the symmetric one (its atomics)
+        rows = section_rows(swept.pedestrian, SWEEP_POINTS)
+        for b in SWEEP_ROWS:
+            one, _ = stepper.make_rollout_fn(
+                scene, dataclasses.replace(params, pedestrian=rows[b]), c,
+                BATCH_STEPS, record=False)(PedState.empty(BATCH_N,
+                                                          device=dev))
+            d = max((final.pos_x[b] - one.pos_x).abs().max().item(),
+                    (final.pos_y[b] - one.pos_y).abs().max().item())
+            same = (torch.equal(final.pos_x[b], one.pos_x)
+                    and torch.equal(final.pos_y[b], one.pos_y)
+                    and torch.equal(final.alive[b], one.alive))
+            say(f"{label} row {b} (A = {rows[b].A:g}) vs the unbatched "
+                f"kernel path, {BATCH_STEPS} steps: "
+                + ("bitwise equal" if same else f"L-inf {d:.3e} m"))
+            if not sym and not same:
+                fail(f"{label}: row {b} differs from the unbatched dense "
+                     f"kernel path with its parameters")
+    # the swept kernels on the sweep's own state (row b with A_b)
+    state1, _ = stepper.rollout(PedState.empty(BATCH_N, device=dev,
+                                               batch=SWEEP_POINTS),
+                                scene, swept, cfg, 1, record=False)
+    pair_checks("phase 28 swept pedestrian_A", [
+        t.contiguous() for t in (state1.pos_x, state1.pos_y, state1.vel_x,
+                                 state1.vel_y, state1.radius, state1.alive,
+                                 state1.vel_x, state1.vel_y)],
+        swept.pedestrian, (("moussaid", "sym"), ("moussaid", "dense")))
+    check_steps("phase 28 sweep of pedestrian_A", scene, swept, cfg,
+                PedState.empty(BATCH_N, device=dev, batch=SWEEP_POINTS))
+
+    lap("phase 29")
+    # -- phase 29: geometry under a batch (config #3 x 16; border_a swept) ---
+    scene3, params3, cfg3, _ = benchmark_bundle(
+        BATCH_N, with_borders=True, with_obstacles=True,
+        num_steps_hint=BATCH_STEPS, device=dev)
+    extent = max(25.0, float(np.sqrt(BATCH_N)))
+    ens3 = stepper.prepare_scene(dataclasses.replace(
+        scene3, spawn=batched_crowds(GEOM_BATCH, BATCH_N, extent=extent,
+                                     device=dev)))
+    state3 = PedState.empty(BATCH_N, device=dev, batch=GEOM_BATCH)
+    label = "phase 29 config #3 ensemble"
+    expect = dict(zero, pair_force_sym_batched=GEOM_STEPS,
+                  env_exp_batched=GEOM_STEPS,
+                  env_moussaid_batched=2 * GEOM_STEPS)
+    counts, ms_step, _ = run_batch(
+        label, lambda k: sweeps.make_ensemble_rollout(ens3, params3, cfg3,
+                                                      k),
+        ens3, GEOM_STEPS, expect, GEOM_BATCH)
+    for name in ("env_exp_batched", "env_moussaid_batched"):
+        launches[name] = counts[name]
+    profile_steps(ens3, params3, cfg3, state3, ms_step, label)
+    check_steps(label, ens3, params3, cfg3, state3)
+
+    def env_checks(label, scene_p, prm_set, cfg_p, state, times):
+        """The batched environment kernels on the jobs of ``scene_p``
+        (after one step; 10% dead): against the plain batched versions and,
+        row by row, the unbatched kernels bitwise; with ``times``, their
+        times, plain versions' and bounds."""
+        st, _ = stepper.rollout(state, scene_p, prm_set, cfg_p, 1,
+                                record=False)
+        rng = np.random.default_rng(29)
+        dead = torch.from_numpy(rng.uniform(size=tuple(st.pos_x.shape))
+                                < 0.1).to(dev)
+        st = dataclasses.replace(st, alive=st.alive & ~dead)
+        planes = bc.sorted_rows(st)
+        snap = (vehicles.vehicle_snapshot_at(scene_p.vehicles, 1)
+                if scene_p.vehicles is not None else None)
+        jobs = bc.env_jobs(scene_p, snap, prm_set) if snap is not None else {
+            "borders": ("env_exp", scene_p.borders_seg,
+                        (prm_set.border.a, prm_set.border.b), None)}
+        for job, (kernel, seg, args, active) in jobs.items():
+            got = bc.env_batch_run(kernel, planes, seg, args, active)
+            torch.cuda.synchronize()
+            err, over, equal = bc.env_mismatch(kernel, planes, seg, args,
+                                               active, got)
+            name = kernel + "_batched"
+            say(f"{label} {name} ({job}): max abs err {err:.3e} vs the plain "
+                f"batched version ({over} over {bc.ENV_ATOL:g} + "
+                f"{bc.ENV_RTOL:g}*|f|); rows vs the unbatched kernel: "
+                + ("bitwise equal" if equal else "DIFFERENT"))
+            if not torch.isfinite(got).all() or bool(
+                    (got[:, ~planes[5]] != 0).any()):
+                fail(f"{name} ({job}): non-finite forces or dead rows not 0")
+            if over:
+                fail(f"{name} ({job}) disagrees with its plain version")
+            if not equal:
+                fail(f"{name} ({job}): a row differs from the unbatched "
+                     f"kernel on that row")
+            worst[name] = max(worst.get(name, 0.0), err)
+            if not times or job == "vehicles":
+                continue
+            ms = device_ms(lambda: bc.env_batch_run(kernel, planes, seg,
+                                                    args, active),
+                           "env_force_batched_kernel")
+            plain = cuda_ms(lambda: bc.env_batch_run(
+                kernel, planes, seg, args, active, batched=False), reps=3)
+            n_bytes = ops = mufu = 0
+            moussaid = kernel == "env_moussaid"
+            for b in range(planes[0].shape[0]):
+                nb, o, m, _ = env_work(seg, planes[0][b], planes[1][b],
+                                       planes[5][b], active, moussaid)
+                n_bytes, ops, mufu = n_bytes + nb, ops + o, mufu + m
+            # the shared point rows are read once for every row
+            seg_bytes = seg.x.numel() * 8 + seg.num_segments * 4 * (
+                5 if moussaid else 3)
+            n_bytes -= (planes[0].shape[0] - 1) * seg_bytes
+            bnd = bound(n_bytes, ops, mufu)
+            table[name] = ("carla_social_force_model_tpu/ops/pallas_env.py:"
+                           + ("268" if moussaid else "235"), ms, plain, bnd)
+            say(f"{label} time {name} ({job}), B={planes[0].shape[0]} x "
+                f"N={BATCH_N}: kernel {ms:.4f} ms ({TIMED_BY[0]}; bound "
+                f"{bnd[0]:.5f} ms, {bnd[1]}), plain batched version "
+                f"{plain:.3f} ms ({card})")
+
+    env_checks("phase 29 config #3", ens3, params3, cfg3, state3, times=True)
+
+    scene2, params2, cfg2, _ = benchmark_bundle(BATCH_N, with_borders=True,
+                                                device=dev)
+    swept2 = sweeps.batch_params(params2, border_a=torch.linspace(
+        0.5, 12.0, BORDER_SWEEP, device=dev))
+    label = f"phase 29 config #2 sweep of border_a over {BORDER_SWEEP} rows"
+    run_batch(label, lambda k: sweeps.make_sweep_rollout(scene2, cfg2, k),
+              swept2, GEOM_STEPS, dict(zero, pair_force_sym_batched=GEOM_STEPS,
+                                       env_exp_batched=GEOM_STEPS),
+              BORDER_SWEEP)
+    scene2p = stepper.prepare_scene(scene2)
+    state2 = PedState.empty(BATCH_N, device=dev, batch=BORDER_SWEEP)
+    env_checks(label, scene2p, swept2, cfg2, state2, times=False)
+    check_steps(label, scene2p, swept2, cfg2, state2)
+    return table
+
+
 def main() -> None:
     try:
         import torch
@@ -2847,6 +3221,9 @@ def main() -> None:
     # -- phases 25 and 26: the sharded main paths, then the rest of the step
     shard_paths(dev, zero, card, step_ms, launches, urban)
 
+    # -- phases 27-29: ensembles and sweeps (BASELINE config #5) -----------
+    batched = batch_phases(dev, zero, card, launches, worst, profile_steps)
+
     lap("the kernels line")
     csrc = "carla_social_force_model_tpu_torch/csrc/"
     table = [
@@ -2903,6 +3280,9 @@ def main() -> None:
               ("pair_force_sym_dense_cutoff", "pair_forces.cu",
                "pallas_forces.py:296"),
               ("ring_force", "ring.cu", "pallas_ring.py:65"))),
+        *((name, csrc + ("env_forces.cu" if name.startswith("env")
+                         else "pair_forces.cu"), replaces, ms, p_ms, bnd)
+          for name, (replaces, ms, p_ms, bnd) in batched.items()),
     ]
     for name, *_ in table:
         if launches[name] == 0:

@@ -25,10 +25,12 @@ from carla_social_force_model_tpu_torch.models import stepper
 from carla_social_force_model_tpu_torch.models.params import (
     MoussaidParams, PedRepulsiveParams, PowerLawParams, moussaid_vector)
 from carla_social_force_model_tpu_torch.models import vehicles
+from carla_social_force_model_tpu_torch.models.state import PedState
 from carla_social_force_model_tpu_torch.ops import (cuda_env, cuda_forces,
                                                     env_grid, forces,
                                                     pair_grid)
 from carla_social_force_model_tpu_torch.ops.spatial import morton_order
+import batch_cases as bc
 from family_cases import family_planes, family_reference, family_run
 from orca_cases import (ENV_ATOL, ENV_RTOL, analytic_run, feed_mismatch,
                         feed_run, feed_scene)
@@ -1725,3 +1727,179 @@ def test_ring_kernel_takes_large_shards(cuda_device, law, cutoff):
         assert bool(((got - dense).abs() <= 2 * lim).all()), n_shards
         assert bool((got[:, ~alive] == 0).all())
         assert torch.equal(got, again)
+
+
+# -- ensembles and sweeps: the batched kernels ------------------------------
+
+@pytest.mark.parametrize("sweep", [False, True])
+@pytest.mark.parametrize("b,n", [(1, 130), (3, 1000), (37, 257)])
+@pytest.mark.parametrize("law,form", sorted(bc.PAIR_FORMS))
+def test_batched_pair_kernel_matches_plain_and_unbatched(cuda_device, law,
+                                                         form, b, n, sweep):
+    """Each batched pair kernel, one launch for every row, against its
+    plain batched version (the tolerance of its unbatched kernel) and
+    against the unbatched kernel on each row with that row's parameters:
+    bitwise for the dense walk (the same summation order), within the
+    tolerance for the symmetric walk (atomics)."""
+    planes = bc.batch_planes(b, n, seed=n + b, device=cuda_device,
+                             extent=20.0)
+    p = bc.law_params(law)
+    if sweep:
+        p = bc.swept(p, b, cuda_device)
+    cuda_forces.reset_launch_counts()
+    got = bc.batch_run(law, form, planes, p)
+    torch.cuda.synchronize()
+    assert cuda_forces.LAUNCHES[bc.PAIR_FORMS[law, form]] == 1
+    assert torch.isfinite(got).all()
+    assert bool((got[:, ~planes[5]] == 0).all())
+    m = bc.pair_mismatch(law, form, planes, p, got)
+    assert m["over"] == 0, m
+    if form == "dense":
+        assert m["rows_equal"], m
+    else:
+        assert m["row_over"] == 0, m
+
+
+def test_batched_pair_kernels_share_one_parameter_vector(cuda_device):
+    """Shared params reach the kernels as a stride-0 (B, P) view of the
+    cached vector; a contiguous copy of the same rows gives the same
+    forces bitwise (dense)."""
+    planes = bc.batch_planes(5, 300, seed=2, device=cuda_device)
+    p = MoussaidParams()
+    prm = cuda_forces.law_rows("moussaid", p, 5, cuda_device)
+    assert prm.stride(0) == 0
+    x, y, vx, vy, rad, alive = planes[:6]
+    a = cuda_forces.pair_force_dense_batched(x, y, vx, vy, rad, alive, prm)
+    c = cuda_forces.pair_force_dense_batched(x, y, vx, vy, rad, alive,
+                                             prm.contiguous())
+    assert torch.equal(a[0], c[0]) and torch.equal(a[1], c[1])
+
+
+def test_batched_kernels_reject_bad_inputs(cuda_device):
+    planes = bc.batch_planes(3, 50, seed=4, device=cuda_device)
+    x, y, vx, vy, rad, alive = planes[:6]
+    prm = cuda_forces.law_rows("moussaid", MoussaidParams(), 3, cuda_device)
+    with pytest.raises(ValueError, match="prm"):
+        cuda_forces.pair_force_sym_batched(x, y, vx, vy, rad, alive,
+                                           prm[:2])
+    with pytest.raises(ValueError, match="planes"):
+        cuda_forces.pair_force_dense_batched(x, y[:, :49].contiguous(), vx,
+                                             vy, rad, alive, prm)
+    with pytest.raises(ValueError, match=r"\(B, n\)"):
+        cuda_forces.pair_force_sym_batched(x[0], y[0], vx[0], vy[0], rad[0],
+                                           alive[0], prm)
+    with pytest.raises(ValueError, match="no sym_batched"):
+        cuda_forces.pair_force_sym_batched(x, y, vx, vy, None, alive, prm,
+                                           law="helbing")
+    scene = stepper.prepare_scene(benchmark_bundle(
+        50, with_borders=True, device=cuda_device)[0])
+    seg = scene.borders_seg
+    with pytest.raises(ValueError, match="in a batch of 3"):
+        cuda_env.env_moussaid_batched(
+            x, y, vx, vy, rad, alive, seg,
+            torch.zeros((seg.num_segments, 2), device=cuda_device),
+            dataclasses.replace(MoussaidParams(),
+                                A=torch.ones(2, device=cuda_device)))
+
+
+def batched_env_case(b, n, device, sweep):
+    """Config #3's environment around ``b`` crowds of ``n`` (one step in,
+    10% dead), each row in its own Hilbert order; with ``sweep`` the border
+    ``a``, the parked cars' ``A`` and the vehicles' perception threshold
+    (per-row filter radii) differ by row."""
+    from carla_social_force_model_tpu_torch.api.synthetic import (
+        batched_crowds)
+    from carla_social_force_model_tpu_torch.parallel.sweeps import (
+        batch_params)
+    from carla_social_force_model_tpu_torch.models.params import map_leaves
+    scene, params, cfg, _ = benchmark_bundle(
+        n, with_borders=True, with_obstacles=True, num_steps_hint=20,
+        device=device)
+    scene = stepper.prepare_scene(dataclasses.replace(
+        scene, spawn=batched_crowds(b, n, extent=float(np.sqrt(n)),
+                                    device=device)))
+    if sweep:
+        params = batch_params(
+            params, border_a=torch.linspace(0.5, 12.0, b),
+            static_obstacle_A=torch.linspace(1.0, 9.0, b),
+            dynamic_obstacle_perception_threshold=torch.linspace(5.0, 60.0,
+                                                                 b))
+        params = map_leaves(params, lambda t: t.to(device).contiguous())
+    state, _ = stepper.rollout(PedState.empty(n, device=device, batch=b),
+                               scene, params, cfg, 1, record=False)
+    rng = np.random.default_rng(b)
+    dead = torch.from_numpy(rng.uniform(size=(b, n)) < 0.1).to(device)
+    state = dataclasses.replace(state, alive=state.alive & ~dead)
+    snap = vehicles.vehicle_snapshot_at(scene.vehicles, 3)
+    return bc.sorted_rows(state), bc.env_jobs(scene, snap, params)
+
+
+@pytest.mark.parametrize("sweep", [False, True])
+@pytest.mark.parametrize("b,n", [(1, 130), (4, 1000)])
+def test_batched_env_kernels_match_plain_and_unbatched(cuda_device, b, n,
+                                                       sweep):
+    """The batched environment kernels on config #3's jobs (borders,
+    parked cars, vehicles), one launch for every row: against their plain
+    batched versions (1e-5 + 1e-5*|f|) and equal to the unbatched kernel on
+    each row with that row's parameters and filter radii, bitwise."""
+    planes, jobs = batched_env_case(b, n, cuda_device, sweep)
+    for label, (kernel, seg, args, active) in jobs.items():
+        cuda_env.reset_launch_counts()
+        got = bc.env_batch_run(kernel, planes, seg, args, active)
+        torch.cuda.synchronize()
+        assert cuda_env.LAUNCHES[kernel + "_batched"] == 1
+        assert torch.isfinite(got).all()
+        assert bool((got[:, ~planes[5]] == 0).all())
+        err, over, equal = bc.env_mismatch(kernel, planes, seg, args, active,
+                                           got)
+        assert over == 0, (label, err)
+        assert equal, label
+
+
+@pytest.mark.parametrize("case", ["config1 sym", "config1 dense",
+                                  "config3", "sweep config3",
+                                  "powerlaw", "helbing"])
+def test_batched_steps_through_kernels_match_plain_steps(cuda_device, case):
+    """Every step of a 20-step batched rollout through the kernels within
+    1e-4 m (L-inf, each row) of the plain versions' step from the same
+    state, with equal modes and alive masks; one launch of each batched
+    kernel per step."""
+    from carla_social_force_model_tpu_torch.api.synthetic import (
+        batched_crowds)
+    from carla_social_force_model_tpu_torch.parallel.sweeps import (
+        batch_params)
+    b, n, steps = 4, 400, 20
+    geometry = case.endswith("config3")
+    scene, params, cfg, _ = benchmark_bundle(
+        n, with_borders=geometry, with_obstacles=geometry,
+        num_steps_hint=steps, device=cuda_device)
+    scene = dataclasses.replace(scene, spawn=batched_crowds(
+        b, n, extent=float(np.sqrt(n)), device=cuda_device))
+    cfg = dataclasses.replace(cfg, symmetric_pairs=case != "config1 dense")
+    if case == "powerlaw":
+        params = dataclasses.replace(params, enable_pedestrian=False,
+                                     enable_powerlaw=True)
+    if case == "helbing":
+        params = dataclasses.replace(params, enable_pedestrian=False,
+                                     enable_ped_repulsive=True)
+    if case.startswith("sweep"):
+        params = batch_params(params, pedestrian_A=torch.linspace(
+            1.0, 9.0, b, device=cuda_device), border_b=torch.linspace(
+            0.1, 0.3, b, device=cuda_device))
+    cuda_forces.reset_launch_counts()
+    cuda_env.reset_launch_counts()
+    for k, gap, equal, finite in bc.one_step_gaps(
+            scene, params, cfg, PedState.empty(n, device=cuda_device,
+                                               batch=b), steps):
+        assert equal and finite, k
+        assert gap.max().item() <= 1e-4, (k, gap)
+    launched = {k: v for m in (cuda_forces, cuda_env)
+                for k, v in m.LAUNCHES.items() if v}
+    pair = {"config1 dense": "pair_force_dense_batched",
+            "powerlaw": "powerlaw_sym_batched",
+            "helbing": "helbing_dense_batched"}.get(case,
+                                                    "pair_force_sym_batched")
+    want = {pair: steps}
+    if geometry:
+        want.update(env_exp_batched=steps, env_moussaid_batched=2 * steps)
+    assert launched == want

@@ -544,7 +544,9 @@ def test_fused_environment_terms_equal_the_plain_versions():
     assert cuda_env.LAUNCHES == dict.fromkeys(cuda_env.LAUNCHES, 0)
     assert sorted(cuda_env.LAUNCHES) == ["env_exp", "env_exp_analytic",
                                          "env_exp_analytic_compact",
+                                         "env_exp_batched",
                                          "env_exp_compact", "env_moussaid",
+                                         "env_moussaid_batched",
                                          "env_moussaid_compact"]
     plain = stepper.force_terms(
         state, scene, params, stepper.StepConfig(plain_env_force=True), snap)
