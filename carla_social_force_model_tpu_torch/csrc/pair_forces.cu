@@ -51,19 +51,23 @@
 //       sides' 128-agent tiles.
 //
 // Batches (ensembles and parameter sweeps).  Under the JAX package's vmap
-// _pair_kernel_sym and _pair_kernel gain a leading batch axis on every
-// plane and a batched parameter vector (pallas_forces.py:167-168).  Here
-// the kAllTiles and kTriangle walks take B independent crowds in one launch
-// (pair_force_dense_batched_kernel, pair_force_sym_batched_kernel; entries
-// sfm_pair_dense_batched, sfm_pair_sym_batched): the grid's y index is the
-// crowd, whose planes and outputs lie at blockIdx.y * n and whose
-// parameters at blockIdx.y * prm_stride (0: every crowd shares one vector).
-// A batched kernel hands its crowd's pointers to the walk body the
-// unbatched kernel runs (dense_walk, sym_walk), so row b of the dense walk
-// sums in the unbatched launch's order and equals it bitwise, and the
-// unbatched kernels compile without a batch offset (one read from
-// blockIdx.y inside the shared bodies cost 8% on the dense walk at 10k).
-// The dense walk's cluster split sees the whole grid (B row sets).
+// _pair_kernel_sym, _pair_kernel and _pair_kernel_compact gain a leading
+// batch axis on every plane, box, table and parameter vector
+// (pallas_forces.py:167-168).  Here every square walk takes B independent
+// crowds in one launch (pair_force_dense_batched_kernel<kWalk>,
+// pair_force_sym_batched_kernel<kWalk>; entries sfm_pair_<form>_batched):
+// the grid's y index is the crowd, whose planes and outputs lie at
+// blockIdx.y * n, whose parameters at blockIdx.y * prm_stride (0: every
+// crowd shares one vector), and, in the cutoff walks, whose tile boxes at
+// blockIdx.y * 4 * n_tiles, survivor table at blockIdx.y * nt * max_surv
+// and counts at blockIdx.y * nt (nt: 128-row table rows).  A crowd's
+// table overflows on its own.  A batched kernel hands its crowd's pointers
+// to the walk body the unbatched kernel runs (dense_walk, sym_walk), so
+// row b of a dense walk sums in the unbatched launch's order and equals it
+// bitwise, and the unbatched kernels compile without a batch offset (one
+// read from blockIdx.y inside the shared bodies cost 8% on the dense walk
+// at 10k).  The dense walks' cluster split sees the whole grid (B row
+// sets).
 //
 // What bounds them on this card.  Each Moussaid pair costs about 85 f32
 // operations and 6 special-function operations (2 rsqrt, atan2, 2 exp, a
@@ -453,21 +457,36 @@ __device__ __forceinline__ Planes batch_row(Planes p, int off) {
   return p;
 }
 
-// The kAllTiles walk over a batch of square crowds of rows.n agents: crowd
+// A dense walk over a batch of square crowds of rows.n agents: crowd
 // blockIdx.y's planes and outputs at blockIdx.y * rows.n, its parameters
-// at blockIdx.y * prm_stride.  The walk itself is the unbatched one.
-template <class Law>
+// at blockIdx.y * prm_stride, its column-tile boxes, table and counts at
+// its own offsets (kBoxSkip, kTable).  The walk itself is the unbatched
+// one.
+template <int kWalk, class Law>
 __global__ void __launch_bounds__(kDenseThreads, 2048 / kDenseThreads)
 pair_force_dense_batched_kernel(Planes rows, Planes cols,
                                 const float* __restrict__ prm, int prm_stride,
-                                int use_radius, int n_split,
-                                float* __restrict__ fx,
+                                int use_radius,
+                                const float* __restrict__ col_bb,
+                                const int* __restrict__ surv,
+                                const int* __restrict__ counts, int max_surv,
+                                float c2, int n_split, float* __restrict__ fx,
                                 float* __restrict__ fy) {
-  const int bo = (int)blockIdx.y * rows.n;
-  dense_walk<kAllTiles, Law>(batch_row(rows, bo), batch_row(cols, bo),
-                             prm + (int)blockIdx.y * prm_stride, use_radius,
-                             nullptr, nullptr, nullptr, 1, 0.0f, n_split,
-                             fx + bo, fy + bo);
+  const long long crowd = blockIdx.y;
+  const int bo = (int)crowd * rows.n;
+  if constexpr (kWalk != kAllTiles) {
+    const long long nct = cols.n / kColTile + (cols.n % kColTile != 0);
+    col_bb += crowd * 4 * nct;
+  }
+  if constexpr (kWalk == kTable) {
+    const long long nt = (rows.n + kSymTile - 1) / kSymTile;
+    surv += crowd * nt * max_surv;
+    counts += crowd * nt;
+  }
+  dense_walk<kWalk, Law>(batch_row(rows, bo), batch_row(cols, bo),
+                         prm + (int)crowd * prm_stride, use_radius, col_bb,
+                         surv, counts, max_surv, c2, n_split, fx + bo,
+                         fy + bo);
 }
 
 // Row-major position of tile pair (ti, tj), tj >= ti, in the upper triangle
@@ -744,20 +763,29 @@ pair_force_sym_kernel(Planes pl, const float* __restrict__ prm,
                        max_surv, c2, fx, fy);
 }
 
-// The kTriangle walk over a batch of crowds of pl.n agents: crowd
+// A symmetric walk over a batch of crowds of pl.n agents: crowd
 // blockIdx.y's planes and outputs at blockIdx.y * pl.n, its parameters at
-// blockIdx.y * prm_stride.
-template <class Law>
+// blockIdx.y * prm_stride, its tile boxes, table and counts at its own
+// offsets (kTriangleBox, kSymTable).
+template <int kWalk, class Law>
 __global__ void __launch_bounds__(kSymTile)
 pair_force_sym_batched_kernel(Planes pl, const float* __restrict__ prm,
                               int prm_stride, int use_radius, int n_tiles,
-                              float* __restrict__ fx,
+                              const float* __restrict__ bb,
+                              const int* __restrict__ surv,
+                              const int* __restrict__ counts, int max_surv,
+                              float c2, float* __restrict__ fx,
                               float* __restrict__ fy) {
-  const int bo = (int)blockIdx.y * pl.n;
-  sym_walk<kTriangle, Law>(batch_row(pl, bo),
-                           prm + (int)blockIdx.y * prm_stride, use_radius,
-                           n_tiles, nullptr, nullptr, nullptr, 1, 0.0f,
-                           fx + bo, fy + bo);
+  const long long crowd = blockIdx.y;
+  const int bo = (int)crowd * pl.n;
+  if constexpr (kWalk != kTriangle) bb += crowd * 4 * n_tiles;
+  if constexpr (kWalk == kSymTable) {
+    surv += crowd * n_tiles * max_surv;
+    counts += crowd * n_tiles;
+  }
+  sym_walk<kWalk, Law>(batch_row(pl, bo), prm + (int)crowd * prm_stride,
+                       use_radius, n_tiles, bb, surv, counts, max_surv, c2,
+                       fx + bo, fy + bo);
 }
 
 // The full-block walk: block b is tile pair (b / n_col_tiles, b %
@@ -787,8 +815,8 @@ pair_force_sym_dense_kernel(Planes rows, Planes cols,
 
 // Launch of a dense walk with law Law: one block per row block and split,
 // the splits of a row block one cluster (of one block when n_split = 1).
-// With prm_stride >= 0 the launch is the batched kAllTiles walk over
-// batch square crowds of rows.n agents (pair_force_dense_batched_kernel).
+// With prm_stride >= 0 the launch is the batched walk over batch square
+// crowds of rows.n agents (pair_force_dense_batched_kernel).
 template <int kWalk, class Law>
 int dense_launch(const Planes& rows, const Planes& cols, const float* prm,
                  int use_radius, const float* col_bb, const int* surv,
@@ -798,7 +826,7 @@ int dense_launch(const Planes& rows, const Planes& cols, const float* prm,
   const bool batched = prm_stride >= 0;
   if (rows.n <= 0) return (int)cudaSuccess;
   if (cols.n < 0 || batch < 1 || batch > 65535 ||
-      (batched && (kWalk != kAllTiles || cols.n != rows.n)))
+      (batched && cols.n != rows.n))
     return (int)cudaErrorInvalidValue;
   if (kWalk == kTable && max_surv < 1) return (int)cudaErrorInvalidValue;
   const int n_split = dense_splits<kWalk>(rows.n, cols.n, batch);
@@ -818,8 +846,10 @@ int dense_launch(const Planes& rows, const Planes& cols, const float* prm,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t e =
-      batched ? cudaLaunchKernelEx(&cfg, pair_force_dense_batched_kernel<Law>,
+      batched ? cudaLaunchKernelEx(&cfg,
+                                   pair_force_dense_batched_kernel<kWalk, Law>,
                                    rows, cols, prm, prm_stride, use_radius,
+                                   col_bb, surv, counts, max_surv, c2,
                                    n_split, fx, fy)
               : cudaLaunchKernelEx(&cfg, pair_force_dense_kernel<kWalk, Law>,
                                    rows, cols, prm, use_radius, col_bb, surv,
@@ -830,8 +860,8 @@ int dense_launch(const Planes& rows, const Planes& cols, const float* prm,
 
 // Launch of a symmetric walk with law Law: one block per tile pair of the
 // upper triangle (kTriangle, kTriangleBox) or per table slot (kSymTable).
-// With prm_stride >= 0 the launch is the batched kTriangle walk over batch
-// crowds of pl.n agents (pair_force_sym_batched_kernel).
+// With prm_stride >= 0 the launch is the batched walk over batch crowds of
+// pl.n agents (pair_force_sym_batched_kernel).
 template <int kWalk, class Law>
 int sym_launch(const Planes& pl, const float* prm, int use_radius,
                const float* bb, const int* surv, const int* counts,
@@ -840,8 +870,7 @@ int sym_launch(const Planes& pl, const float* prm, int use_radius,
   const bool batched = prm_stride >= 0;
   const int n = pl.n;
   if (n <= 0) return (int)cudaSuccess;
-  if (batch < 1 || batch > 65535 || (batched && kWalk != kTriangle))
-    return (int)cudaErrorInvalidValue;
+  if (batch < 1 || batch > 65535) return (int)cudaErrorInvalidValue;
   if (kWalk == kSymTable && max_surv < 1) return (int)cudaErrorInvalidValue;
   const long long nt = (n + kSymTile - 1) / kSymTile;
   const long long blocks =
@@ -849,9 +878,10 @@ int sym_launch(const Planes& pl, const float* prm, int use_radius,
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   const dim3 grid((unsigned)blocks, (unsigned)batch);
   if (batched)
-    pair_force_sym_batched_kernel<Law>
+    pair_force_sym_batched_kernel<kWalk, Law>
         <<<grid, kSymTile, 0, (cudaStream_t)stream>>>(
-            pl, prm, prm_stride, use_radius, (int)nt, fx, fy);
+            pl, prm, prm_stride, use_radius, (int)nt, bb, surv, counts,
+            max_surv, c2, fx, fy);
   else
     pair_force_sym_kernel<kWalk, Law>
         <<<grid, kSymTile, 0, (cudaStream_t)stream>>>(
@@ -1041,10 +1071,12 @@ int sfm_pair_sym_dense_cutoff(int law, const float* rx, const float* ry,
 
 // The batched walks: batch independent crowds of n agents, every plane
 // (batch, n) row-major, prm (batch, P) with rows prm_stride apart (0: one
-// vector for every crowd); one launch.  sym_batched accumulates into fx,
-// fy (zeros on entry) like sfm_pair_sym; dense_batched takes the square
-// call's row and column planes (Helbing's rows carry the desired
-// directions) and overwrites every row.
+// vector for every crowd); one launch.  The symmetric forms accumulate into
+// fx, fy (zeros on entry) like sfm_pair_sym; the dense forms take the
+// square call's row and column planes (Helbing's rows carry the desired
+// directions) and overwrite every row.  The cutoff forms take each crowd's
+// grid stacked: bb / col_bb (batch, 4, n_tiles), surv (batch, nt,
+// max_surv) and counts (batch, nt), nt = ceil(n / 128).
 int sfm_pair_sym_batched(int law, const float* x, const float* y,
                          const float* vx, const float* vy, const float* rad,
                          const uint8_t* alive, const float* prm,
@@ -1072,6 +1104,76 @@ int sfm_pair_dense_batched(int law, const float* rx, const float* ry,
   return with_any_law(law, [&](auto l) {
     return dense_launch<kAllTiles, decltype(l)>(
         rows, cols, prm, use_radius, nullptr, nullptr, nullptr, 1, 0.0f, fx,
+        fy, stream, batch, prm_stride);
+  });
+}
+
+int sfm_pair_sym_cutoff_batched(int law, const float* x, const float* y,
+                                const float* vx, const float* vy,
+                                const float* rad, const uint8_t* alive,
+                                const float* prm, int prm_stride,
+                                int use_radius, int n, int batch,
+                                const float* bb, float c2, float* fx,
+                                float* fy, void* stream) {
+  const Planes pl = planes(x, y, vx, vy, rad, alive, n, 0);
+  return with_antisymmetric_law(law, [&](auto l) {
+    return sym_launch<kTriangleBox, decltype(l)>(pl, prm, use_radius, bb,
+                                                 nullptr, nullptr, 1, c2, fx,
+                                                 fy, stream, batch,
+                                                 prm_stride);
+  });
+}
+
+int sfm_pair_sym_compact_batched(int law, const float* x, const float* y,
+                                 const float* vx, const float* vy,
+                                 const float* rad, const uint8_t* alive,
+                                 const float* prm, int prm_stride,
+                                 int use_radius, int n, int batch,
+                                 const float* bb, const int* surv,
+                                 const int* counts, int max_surv, float c2,
+                                 float* fx, float* fy, void* stream) {
+  const Planes pl = planes(x, y, vx, vy, rad, alive, n, 0);
+  return with_antisymmetric_law(law, [&](auto l) {
+    return sym_launch<kSymTable, decltype(l)>(pl, prm, use_radius, bb, surv,
+                                              counts, max_surv, c2, fx, fy,
+                                              stream, batch, prm_stride);
+  });
+}
+
+int sfm_pair_dense_cutoff_batched(int law, const float* rx, const float* ry,
+                                  const float* ru, const float* rv,
+                                  const float* rrad, const uint8_t* ralive,
+                                  const float* cx, const float* cy,
+                                  const float* cvx, const float* cvy,
+                                  const float* crad, const uint8_t* calive,
+                                  const float* prm, int prm_stride,
+                                  int use_radius, int n, int batch,
+                                  const float* col_bb, float c2, float* fx,
+                                  float* fy, void* stream) {
+  const Planes rows = planes(rx, ry, ru, rv, rrad, ralive, n, 0);
+  const Planes cols = planes(cx, cy, cvx, cvy, crad, calive, n, 0);
+  return with_any_law(law, [&](auto l) {
+    return dense_launch<kBoxSkip, decltype(l)>(
+        rows, cols, prm, use_radius, col_bb, nullptr, nullptr, 1, c2, fx, fy,
+        stream, batch, prm_stride);
+  });
+}
+
+int sfm_pair_compact_batched(int law, const float* rx, const float* ry,
+                             const float* ru, const float* rv,
+                             const float* rrad, const uint8_t* ralive,
+                             const float* cx, const float* cy,
+                             const float* cvx, const float* cvy,
+                             const float* crad, const uint8_t* calive,
+                             const float* prm, int prm_stride, int use_radius,
+                             int n, int batch, const float* col_bb,
+                             const int* surv, const int* counts, int max_surv,
+                             float c2, float* fx, float* fy, void* stream) {
+  const Planes rows = planes(rx, ry, ru, rv, rrad, ralive, n, 0);
+  const Planes cols = planes(cx, cy, cvx, cvy, crad, calive, n, 0);
+  return with_any_law(law, [&](auto l) {
+    return dense_launch<kTable, decltype(l)>(
+        rows, cols, prm, use_radius, col_bb, surv, counts, max_surv, c2, fx,
         fy, stream, batch, prm_stride);
   });
 }

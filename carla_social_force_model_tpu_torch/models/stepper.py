@@ -52,9 +52,12 @@ parameters whose leaves are ``(B,)`` tensors (a sweep, viewed as ``(B,
 geometry for all rows; ``sim_time`` stays one scalar.  The pair and
 environment forces launch the batched kernels once per step for every
 row (``cuda_forces.pedestrian_force_batched``, ``cuda_env.
-fused_environment_terms``); the records are ``(B, T, N)``.
-:func:`check_supported` refuses what is not batched yet (ROADMAP item
-19b) with ``NotImplementedError``.
+fused_environment_terms``); with ``StepConfig.interaction_cutoff`` each
+row is sorted along its own Hilbert curve (one ``(B, N)`` permutation
+shared by the pair and environment terms) and the batched cutoff kernels
+read each crowd's boxes and survivor table.  The records are ``(B, T,
+N)``.  :func:`check_supported` refuses what is not batched yet (ROADMAP
+items 19b.2-19b.4) with ``NotImplementedError``.
 
 The device chooses the kernel path: the CUDA kernels on a card, the plain
 PyTorch versions on the CPU (ops/cuda_forces.py, ops/cuda_env.py,
@@ -296,11 +299,11 @@ def _check_batched(scene: Scene, params: SfmParams, cfg: StepConfig,
                    axis) -> None:
     """Refuse, under a batch, every configuration the batched step does not
     run: ``NotImplementedError`` naming ROADMAP item 19b (nothing runs
-    another path instead)."""
+    another path instead).  The interaction cutoff runs (item 19b.1), but
+    not over an agent axis."""
     refused = (
-        (axis is not None, "an agent axis (sharding a batch of crowds)"),
-        (cfg.interaction_cutoff is not None,
-         "interaction_cutoff (the batched cutoff pair kernels)"),
+        (axis is not None, "an agent axis (sharding a batch of crowds, "
+                           "with or without interaction_cutoff)"),
         (cfg.env_compact, "env_compact (the batched compacted environment "
                           "kernels)"),
         (cfg.env_analytic, "env_analytic (the batched analytic border "
@@ -325,7 +328,10 @@ def check_supported(scene: Scene, params: SfmParams, cfg: StepConfig,
     groups of the wrong form, and for ``env_chunked`` together with a knob
     of the fused environment path; under a batch (:func:`batch_of` of
     ``state``, the schedule and the params), ``NotImplementedError`` for
-    what the batched step does not run yet (ROADMAP item 19b)."""
+    what the batched step does not run yet (ROADMAP item 19b: the
+    compacted, analytic and chunked environment paths, ORCA, groups, the
+    fleet, per-agent columns, an agent axis and a mesh; the interaction
+    cutoff runs)."""
     if batch_of(state, scene, params) is not None:
         _check_batched(scene, params, cfg, axis)
     if cfg.env_chunked and (cfg.env_analytic or cfg.env_compact):
@@ -429,7 +435,10 @@ def force_terms(state: PedState, scene: Scene, params: SfmParams,
             return cuda_forces.pedestrian_force_batched(
                 *args, use_ped_radius=use_radius,
                 symmetric=cfg.symmetric_pairs, row_block=cfg.row_block,
-                law=law, desired=desired, plain=cfg.plain_pair_force)
+                law=law, desired=desired, plain=cfg.plain_pair_force,
+                cutoff=cutoff, compact=cfg.compact_pairs,
+                max_surv=cfg.pair_max_surv, spatial_order=cfg.spatial_order,
+                order=order)
         if axis is not None and cfg.plain_pair_force:
             return cuda_forces.plain_sharded_force(
                 law, *args, axis, cfg.axis_comm, use_radius, cfg.row_block,

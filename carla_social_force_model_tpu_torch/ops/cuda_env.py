@@ -464,11 +464,11 @@ def fused_environment_terms(state, scene, params, veh_snap,
     if not jobs:
         return {}
     if state.batch is not None:
-        if compact or analytic or order is not None:
+        if compact or analytic:
             raise NotImplementedError(
-                "the compacted and analytic environment kernels, and a "
-                "shared sort, are not batched yet (ROADMAP item 19b)")
-        return _batched_terms(state, jobs)
+                "the compacted and analytic environment kernels are not "
+                "batched yet (ROADMAP item 19b)")
+        return _batched_terms(state, jobs, order)
     perm, inv = order if order is not None else morton_order(
         state.pos_x, state.pos_y, state.alive, order="hilbert")
     px, py, vx, vy, rad, alive = (
@@ -499,14 +499,16 @@ def fused_environment_terms(state, scene, params, veh_snap,
     return terms
 
 
-def _batched_terms(state, jobs):
+def _batched_terms(state, jobs, order=None):
     """The environment terms of B crowds (``(B, N)`` planes) through the
-    batched kernels: each row sorted along its own Hilbert curve, one
-    launch per job for every row, each result scattered back to its row's
-    slot order.  The sampled dense jobs only (the compacted and analytic
-    forms are not batched, ROADMAP item 19b)."""
-    perm, inv = morton_order(state.pos_x, state.pos_y, state.alive,
-                             order="hilbert")
+    batched kernels: each row sorted along its own Hilbert curve (``order``:
+    that ``(B, N)`` permutation when the caller has it, as the batched
+    cutoff pair force does), one launch per job for every row, each result
+    scattered back to its row's slot order.  The sampled dense jobs only
+    (the compacted and analytic forms are not batched, ROADMAP item
+    19b)."""
+    perm, inv = order if order is not None else morton_order(
+        state.pos_x, state.pos_y, state.alive, order="hilbert")
     px, py, vx, vy, rad, alive = (
         a.gather(-1, perm) for a in (state.pos_x, state.pos_y, state.vel_x,
                                      state.vel_y, state.radius, state.alive))

@@ -35,6 +35,13 @@ desired directions, and has only the dense forms: it is not antisymmetric).
   ``_pair_kernel_sym`` and ``_pair_kernel`` under ``vmap`` (ensembles and
   parameter sweeps, ``parallel/sweeps.py``).  Row b of the dense form
   equals the unbatched launch on row b bitwise.
+* :func:`pair_force_cutoff_batched` -- the four cutoff forms on a batch,
+  each row sorted on its own, with the batched grid of
+  ``ops/pair_grid.cutoff_grid`` (``sym_cutoff_batched``,
+  ``sym_compact_batched``, ``dense_cutoff_batched``, ``compact_batched``):
+  ``_pair_kernel_sym`` with its cutoff, ``_pair_kernel`` with its box skip
+  and ``_pair_kernel_compact`` under ``vmap``.  Row b of the dense forms
+  equals the unbatched cutoff launch on row b bitwise.
 
 One C entry per form, ``sfm_pair_<form>``, takes the law's id
 (:data:`LAW_IDS`).  A kernel's name, and its key in :data:`LAUNCHES`, is
@@ -49,11 +56,12 @@ choose by the tensors' device: CPU tensors go to the plain PyTorch version
 (:func:`..ops.forces.pedestrian_force`, ``powerlaw_force`` or
 ``ped_repulsive_force``), CUDA tensors go to a kernel or raise.  No path
 falls back from the kernel to the plain version.
-:func:`pedestrian_force_batched` does the same for ``(B, N)`` planes: the
-batched kernels on a card, :func:`plain_batched_force` (row by row) on the
-CPU; it never loops the unbatched kernels over rows.  With ``axis`` (the
-tensors are one shard's slots of an agent axis, ``parallel/``) they run
-the sharded schedules: :func:`plain_sharded_force` on the CPU,
+:func:`pedestrian_force_batched` does the same for ``(B, N)`` planes, with
+or without a cutoff: the batched kernels on a card,
+:func:`plain_batched_force` (row by row) on the CPU; it never loops the
+unbatched kernels over rows.  With ``axis`` (the tensors are one shard's
+slots of an agent axis, ``parallel/``) they run the sharded schedules:
+:func:`plain_sharded_force` on the CPU,
 :func:`kernel_sharded_force` on a card (the in-kernel ring is
 ``ops/cuda_ring.py``).
 """
@@ -68,18 +76,20 @@ from .spatial import morton_order
 from ..models.params import (helbing_vector, law_rows, moussaid_vector,
                              powerlaw_vector, section_rows)
 
+#: the forms on one set of planes, each with a batched form
+_SQUARE_FORMS = ("sym", "dense", "sym_cutoff", "sym_compact",
+                 "dense_cutoff", "compact")
 #: kernel-name prefix, parameter-vector length and the forms of each law
 LAWS = {
-    "moussaid": ("pair_force", 6, ("sym", "dense", "sym_cutoff",
-                                   "sym_compact", "dense_cutoff", "compact",
-                                   "sym_dense", "sym_dense_cutoff",
-                                   "sym_batched", "dense_batched")),
-    "powerlaw": ("powerlaw", 4, ("sym", "dense", "sym_cutoff",
-                                 "sym_compact", "dense_cutoff", "compact",
-                                 "sym_dense", "sym_dense_cutoff",
-                                 "sym_batched", "dense_batched")),
+    "moussaid": ("pair_force", 6, (*_SQUARE_FORMS, "sym_dense",
+                                   "sym_dense_cutoff",
+                                   *(f + "_batched" for f in _SQUARE_FORMS))),
+    "powerlaw": ("powerlaw", 4, (*_SQUARE_FORMS, "sym_dense",
+                                 "sym_dense_cutoff",
+                                 *(f + "_batched" for f in _SQUARE_FORMS))),
     "helbing": ("helbing", 6, ("dense", "dense_cutoff", "compact",
-                               "dense_batched")),
+                               "dense_batched", "dense_cutoff_batched",
+                               "compact_batched")),
 }
 
 #: the law ids of the C entries (csrc/pair_laws.cuh LawId)
@@ -148,11 +158,15 @@ def _check_side(planes, prm=None, prm_len=0, batch=None):
     return n
 
 
-def _check_grid(grid: CutoffGrid, n_rows: int, n_cols: int, dev):
+def _check_grid(grid: CutoffGrid, n_rows: int, n_cols: int, dev,
+                batch: int | None = None):
     """The boxes and table a cutoff kernel reads, against the shapes its C
-    entry assumes for ``n_rows`` rows and ``n_cols`` columns."""
+    entry assumes for ``n_rows`` rows and ``n_cols`` columns (each crowd's,
+    with a leading ``batch`` axis on every tensor)."""
     tile = SYM_TILE if grid.form.startswith("sym") else COL_TILE
-    want = [("boxes", grid.boxes, torch.float32, (4, -(-n_cols // tile)))]
+    lead = () if batch is None else (batch,)
+    want = [("boxes", grid.boxes, torch.float32,
+             (*lead, 4, -(-n_cols // tile)))]
     if grid.form == "sym_dense_cutoff":
         want.append(("row_boxes", grid.row_boxes, torch.float32,
                      (4, -(-n_rows // SYM_TILE))))
@@ -160,8 +174,9 @@ def _check_grid(grid: CutoffGrid, n_rows: int, n_cols: int, dev):
         rows = -(-n_rows // SYM_TILE)
         if grid.max_surv < 1:
             raise ValueError("a survivor table needs max_surv >= 1")
-        want += [("surv", grid.surv, torch.int32, (rows, grid.max_surv)),
-                 ("counts", grid.counts, torch.int32, (rows,))]
+        want += [("surv", grid.surv, torch.int32,
+                  (*lead, rows, grid.max_surv)),
+                 ("counts", grid.counts, torch.int32, (*lead, rows))]
     for name, t, dtype, shape in want:
         if (t is None or t.device != dev or t.dtype != dtype
                 or t.shape != shape or not t.is_contiguous()):
@@ -187,8 +202,9 @@ def _launch(law: str, form: str, pos_x, pos_y, vel_x, vel_y, radius, alive,
     and ``col_offset`` of both sides' first agents; None: the rows'
     own (the square call).  Returns ``(fx, fy)``, and for the full-block
     forms also the columns' ``(fxc, fyc)``.  The batched forms
-    (``"sym_batched"``, ``"dense_batched"``) take ``(B, n)`` planes and a
-    ``(B, P)`` ``prm`` and launch once for every row."""
+    (``"<form>_batched"`` of the square forms) take ``(B, n)`` planes, a
+    ``(B, P)`` ``prm`` and, for the cutoff forms, the batched grid of
+    ``<form>``, and launch once for every row."""
     from ..utils.cuda_build import load_kernels
     if law not in LAWS:
         raise ValueError(f"unknown pair law {law!r}; one of {sorted(LAWS)}")
@@ -205,7 +221,8 @@ def _launch(law: str, form: str, pos_x, pos_y, vel_x, vel_y, radius, alive,
     if cols is not None and form not in RECT_FORMS:
         raise ValueError(f"the {form} form takes one set of planes")
     batch = None
-    if form.endswith("batched"):
+    base = form.removesuffix("_batched")
+    if base != form:
         if pos_x.dim() != 2:
             raise ValueError(f"the batched kernels take (B, n) planes, got "
                              f"{tuple(pos_x.shape)}")
@@ -225,10 +242,10 @@ def _launch(law: str, form: str, pos_x, pos_y, vel_x, vel_y, radius, alive,
         raise ValueError("row and column planes must share a device")
     grid_args = []
     if grid is not None:
-        if grid.form != form:
+        if grid.form != base:
             raise ValueError(f"a {grid.form} grid drives the {grid.form} "
                              f"kernel, not {form}")
-        _check_grid(grid, n, n_cols, pos_x.device)
+        _check_grid(grid, n, n_cols, pos_x.device, batch)
         if grid.row_boxes is not None:
             grid_args.append(grid.row_boxes.data_ptr())
         grid_args.append(grid.boxes.data_ptr())
@@ -236,7 +253,7 @@ def _launch(law: str, form: str, pos_x, pos_y, vel_x, vel_y, radius, alive,
             grid_args += [grid.surv.data_ptr(), grid.counts.data_ptr(),
                           grid.max_surv]
         grid_args.append(grid.c2)
-    elif form.endswith(("cutoff", "compact")):
+    elif base.endswith(("cutoff", "compact")):
         raise ValueError(f"the {form} form needs a grid")
     fx = torch.zeros_like(pos_x)
     fy = torch.zeros_like(pos_y)
@@ -249,8 +266,8 @@ def _launch(law: str, form: str, pos_x, pos_y, vel_x, vel_y, radius, alive,
         if batch * n >= 2 ** 31:
             raise ValueError(f"{batch} x {n} agents exceed the kernels' "
                              f"32-bit indices")
-        sides = (*rows, *cols) if form == "dense_batched" else (*rows[:2],
-                                                                *cols[2:])
+        sides = ((*rows[:2], *cols[2:]) if base.startswith("sym")
+                 else (*rows, *cols))
         planes = [*map(_ptr, sides), prm.data_ptr(), prm.stride(0),
                   int(use_radius), n, batch]
     elif form in RECT_FORMS:
@@ -365,20 +382,34 @@ def pair_force_dense_batched(pos_x, pos_y, vel_x, vel_y, radius, alive, prm,
                    alive, prm, use_radius, desired=desired)
 
 
+def pair_force_cutoff_batched(pos_x, pos_y, vel_x, vel_y, radius, alive, prm,
+                              grid: CutoffGrid, use_radius: bool = False,
+                              law: str = "moussaid", desired=None):
+    """:func:`pair_force_cutoff` on B independent crowds at once: ``(B, n)``
+    planes, each row sorted along its own curve, ``prm`` ``(B, P)`` (see
+    :func:`pair_force_sym_batched`) and the batched grid of
+    :func:`..ops.pair_grid.cutoff_grid` of the same planes; one launch of
+    the batched kernel of ``grid.form``.  ``(fx, fy)``, ``(B, n)``.  The
+    dense forms are deterministic, row b equal to the unbatched launch on
+    row b bitwise; the symmetric forms use atomics."""
+    return _launch(law, grid.form + "_batched", pos_x, pos_y, vel_x, vel_y,
+                   radius, alive, prm, use_radius, grid, desired)
+
+
 def plain_batched_force(law, pos_x, pos_y, vel_x, vel_y, radius, alive, p,
                         use_ped_radius: bool = False, row_block: int = 1024,
-                        desired=None):
+                        desired=None, cutoff: float | None = None):
     """The plain version of the batched pair kernels: row b of the ``(B,
     N)`` planes through :func:`plain_law_force` with row b's parameters
     (``p``: a section with ``(B,)`` tensor leaves, or one shared by every
-    row).  ``(fx, fy)``, ``(B, N)``."""
+    row) and ``cutoff``.  ``(fx, fy)``, ``(B, N)``."""
     batch = pos_x.shape[0]
     fx, fy = [], []
     for b, pb in enumerate(section_rows(p, batch)):
         gx, gy = plain_law_force(
             law, pos_x[b], pos_y[b], vel_x[b], vel_y[b],
             None if radius is None else radius[b], alive[b], pb,
-            use_ped_radius, row_block, None,
+            use_ped_radius, row_block, cutoff,
             None if desired is None else (desired[0][b], desired[1][b]))
         fx.append(gx)
         fy.append(gy)
@@ -389,23 +420,57 @@ def pedestrian_force_batched(pos_x, pos_y, vel_x, vel_y, radius, alive, p,
                              use_ped_radius: bool = False,
                              symmetric: bool = True, row_block: int = 1024,
                              law: str = "moussaid", desired=None,
-                             plain: bool = False):
+                             plain: bool = False,
+                             cutoff: float | None = None,
+                             compact: bool = True, max_surv: int = 0,
+                             spatial_order: str = "hilbert", order=None):
     """Pair force of ``law`` on B independent crowds, ``(B, N)`` planes:
     ``(fx, fy)``.  ``p``: the law's params, with ``(B,)`` tensor leaves
     (a sweep) or numbers shared by every row (an ensemble).
 
-    On CPU tensors, or with ``plain``, the plain version row by row
-    (:func:`plain_batched_force`); on CUDA tensors one launch of
-    :func:`pair_force_sym_batched` (``symmetric``; ignored for Helbing) or
-    :func:`pair_force_dense_batched` for all rows, or it raises.  The
-    cutoff and sharded forms are not batched (ROADMAP item 19b)."""
+    Without ``cutoff``: on CPU tensors, or with ``plain``, the plain
+    version row by row (:func:`plain_batched_force`); on CUDA tensors one
+    launch of :func:`pair_force_sym_batched` (``symmetric``; ignored for
+    Helbing) or :func:`pair_force_dense_batched` for all rows, or it
+    raises.
+
+    With ``cutoff`` (the batched counterpart of
+    :func:`pedestrian_force_sorted`): with ``plain``, the plain version
+    with the cutoff on the unsorted rows; otherwise each row is sorted
+    along its own curve (``spatial_order``, or ``order``: a ``(perm,
+    inv)`` of :func:`..ops.spatial.morton_order` of the same ``(B, N)``
+    positions and liveness), then on the CPU the plain version row by row
+    and on a card one launch of :func:`pair_force_cutoff_batched` with the
+    batched grid of :func:`..ops.pair_grid.cutoff_grid` (``symmetric``,
+    ``compact``, ``max_surv``), and the result is scattered back to slot
+    order."""
     dev = pos_x.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"no pair-force path for device {dev}")
-    if plain or dev.type == "cpu":
+    if plain or (dev.type == "cpu" and cutoff is None):
         return plain_batched_force(law, pos_x, pos_y, vel_x, vel_y, radius,
                                    alive, p, use_ped_radius, row_block,
-                                   desired)
+                                   desired, cutoff)
+    if cutoff is not None:
+        perm, inv = order if order is not None else morton_order(
+            pos_x, pos_y, alive, spatial_order)
+        planes = [a.gather(-1, perm) for a in (pos_x, pos_y, vel_x, vel_y)]
+        srad = None if law == "helbing" else radius.gather(-1, perm)
+        salive = alive.gather(-1, perm)
+        sdesired = (None if desired is None
+                    else tuple(a.gather(-1, perm) for a in desired))
+        if dev.type == "cpu":
+            fx, fy = plain_batched_force(law, *planes, srad, salive, p,
+                                         use_ped_radius, row_block, sdesired,
+                                         cutoff)
+        else:
+            grid = cutoff_grid(planes[0], planes[1], salive, cutoff,
+                               symmetric=symmetric and law != "helbing",
+                               compact=compact, max_surv=max_surv)
+            fx, fy = pair_force_cutoff_batched(
+                *planes, srad, salive, law_rows(law, p, pos_x.shape[0], dev),
+                grid, use_radius=use_ped_radius, law=law, desired=sdesired)
+        return fx.gather(-1, inv), fy.gather(-1, inv)
     prm = law_rows(law, p, pos_x.shape[0], dev)
     if symmetric and law != "helbing":
         return pair_force_sym_batched(pos_x, pos_y, vel_x, vel_y, radius,

@@ -63,15 +63,17 @@ def box_planes(x, y, alive, tile: int):
     consecutive slots, [min_x, max_x, min_y, max_y] as rows (the JAX
     package's transposed box layout); the last tile is padded with dead
     slots, and a tile without an alive agent gets the inverted infinite box
-    that no test hits."""
-    n = x.shape[0]
+    that no test hits.  ``(B, n)`` planes give ``(B, 4, n_tiles)``, each
+    crowd's own boxes."""
+    *lead, n = x.shape
     pad = _round_up(n, tile) - n
 
     def padded(a, fill):
-        return torch.cat([a, a.new_full((pad,), fill)]) if pad else a
+        return (torch.cat([a, a.new_full((*lead, pad), fill)], dim=-1)
+                if pad else a)
 
     return tile_bboxes(padded(x, 0.0), padded(y, 0.0), padded(alive, False),
-                       tile).T.contiguous()
+                       tile).transpose(-1, -2).contiguous()
 
 
 def _bbox_hits(row_bb, col_bb, cutoff: float):
@@ -80,13 +82,20 @@ def _bbox_hits(row_bb, col_bb, cutoff: float):
     box test: boxes as (4, n_tiles), every operation rounded on its own,
     empty tiles never hit.  The gap never exceeds the distance of any pair
     the two boxes hold (max, subtraction and rounding are monotonic), so a
-    miss holds no pair within the cutoff."""
-    gx = col_bb[0][None, :] - row_bb[1][:, None]
-    torch.maximum(gx, row_bb[0][:, None] - col_bb[1][None, :], out=gx)
+    miss holds no pair within the cutoff.  Boxes ``(B, 4, n_tiles)`` give
+    ``(B, R, C)``, each crowd's tiles against its own."""
+    def row(k):
+        return row_bb[..., k, :, None]
+
+    def col(k):
+        return col_bb[..., k, None, :]
+
+    gx = col(0) - row(1)
+    torch.maximum(gx, row(0) - col(1), out=gx)
     gx.clamp_(min=0.0)
     gx.mul_(gx)
-    gy = col_bb[2][None, :] - row_bb[3][:, None]
-    torch.maximum(gy, row_bb[2][:, None] - col_bb[3][None, :], out=gy)
+    gy = col(2) - row(3)
+    torch.maximum(gy, row(2) - col(3), out=gy)
     gy.clamp_(min=0.0)
     gy.mul_(gy)
     return gx.add_(gy) <= cutoff_sq(cutoff)
@@ -106,7 +115,8 @@ def triangle_mask(n_row_tiles: int, n_col_tiles: int, tr: int, tc: int,
 def compact_gate(n: int, symmetric: bool, compact: bool,
                  max_surv: int) -> tuple[bool, int]:
     """``(engage, max_surv)``: whether the survivor table drives the launch
-    for ``n`` agents, and its width.  Static, from shapes only.  An
+    for ``n`` agents (a crowd's, under a batch), and its width.  Static,
+    from shapes only.  An
     explicit ``max_surv`` engages whenever the table is narrower than a
     row of column tiles; ``0`` picks ``AUTO_MAX_SURV`` above the
     ``GATE_COL_TILES`` gate."""
@@ -129,7 +139,11 @@ class CutoffGrid(NamedTuple):
     block of two shards' agents, the box test on both sides' 128-agent
     tiles).  ``boxes``: (4, n) column-tile boxes (128 for the symmetric
     forms, 256 for the others).  ``surv``/``counts``:
-    the table and each row's hit count (None without a table)."""
+    the table and each row's hit count (None without a table).  The grid
+    of a batch of crowds (:func:`cutoff_grid` of ``(B, n)`` planes) has the
+    same form and ``max_surv`` for every crowd and a leading batch axis on
+    ``boxes`` ``(B, 4, n_tiles)``, ``surv`` ``(B, nt, max_surv)`` and
+    ``counts`` ``(B, nt)``."""
 
     form: str
     boxes: torch.Tensor
@@ -145,8 +159,11 @@ class CutoffGrid(NamedTuple):
 def cutoff_grid(x, y, alive, cutoff: float, symmetric: bool = True,
                 compact: bool = True, max_surv: int = 0) -> CutoffGrid:
     """The boxes and, above the gate, the survivor table of one cutoff
-    launch over sorted planes ``x``, ``y``, ``alive``."""
-    n = x.shape[0]
+    launch over sorted planes ``x``, ``y``, ``alive``.  ``(B, n)`` planes
+    (each row sorted on its own) give the grid of one batched launch: the
+    form and the gate from ``n``, the crowd's size, and row b of every
+    tensor equal to the grid of row b alone."""
+    n = x.shape[-1]
     engage, ms = compact_gate(n, symmetric, compact, max_surv)
     row_bb = box_planes(x, y, alive, SYM_TILE)
     col_bb = row_bb if symmetric else box_planes(x, y, alive, COL_TILE)
@@ -156,7 +173,7 @@ def cutoff_grid(x, y, alive, cutoff: float, symmetric: bool = True,
                           col_bb, None, None, 0, c2)
     hits = _bbox_hits(row_bb, col_bb, cutoff)
     if symmetric:
-        nt = row_bb.shape[1]
+        nt = row_bb.shape[-1]
         hits &= triangle_mask(nt, nt, SYM_TILE, SYM_TILE, hits.device)
     surv, counts = surv_counts(hits, ms)
     return CutoffGrid("sym_compact" if symmetric else "compact", col_bb,

@@ -107,19 +107,23 @@ def surv_counts(hits, max_surv: int):
     front: ``(surv, counts)`` with ``surv`` (R, max_surv) int32 padded with
     -1 and ``counts`` (R,) int32, the number of hits of each row (a row
     with ``counts > max_surv`` has overflowed: its table lists only its
-    first ``max_surv`` hits).
+    first ``max_surv`` hits).  ``hits`` may carry a leading batch axis,
+    ``(B, R, C)``: then ``(B, R, max_surv)`` and ``(B, R)``, row b the
+    table of ``hits[b]``.
 
     No sort and no host synchronisation: a row-wise running count of the
     hits gives each hit its slot, and a batched binary search finds the
     column where the count first reaches ``s + 1`` -- the ``s``-th hit."""
-    r, c = hits.shape
-    cum = torch.cumsum(hits, dim=1, dtype=torch.int32)
-    counts = (cum[:, -1].contiguous() if c
-              else torch.zeros(r, dtype=torch.int32, device=hits.device))
+    *lead, r, c = hits.shape
+    cum = torch.cumsum(hits, dim=-1, dtype=torch.int32)
+    counts = (cum[..., -1].contiguous() if c
+              else torch.zeros((*lead, r), dtype=torch.int32,
+                               device=hits.device))
     want = torch.arange(1, max_surv + 1, dtype=torch.int32,
-                        device=hits.device).expand(r, max_surv).contiguous()
+                        device=hits.device).expand(*lead, r,
+                                                   max_surv).contiguous()
     col = torch.searchsorted(cum, want, out_int32=True) if c else want * 0
-    return torch.where(want <= counts[:, None], col, -1), counts
+    return torch.where(want <= counts[..., None], col, -1), counts
 
 
 def surv_table(hits, max_surv: int):
@@ -137,13 +141,15 @@ def surv_table(hits, max_surv: int):
 def tile_bboxes(x, y, alive, tile: int):
     """Per-tile bounding boxes of alive agents.
 
-    ``x``/``y``/``alive``: (n_pad,) with n_pad a multiple of ``tile``.
-    Returns (n_tiles, 4) f32 [min_x, max_x, min_y, max_y]; empty tiles get
+    ``x``/``y``/``alive``: (n_pad,) with n_pad a multiple of ``tile``, or
+    ``(B, n_pad)`` (each row's own tiles).  Returns (n_tiles, 4) f32
+    [min_x, max_x, min_y, max_y] (``(B, n_tiles, 4)``); empty tiles get
     (+inf, -inf, +inf, -inf) so any distance test skips them."""
-    n_tiles = x.shape[0] // tile
-    xm = torch.where(alive, x, torch.inf).reshape(n_tiles, tile)
-    xM = torch.where(alive, x, -torch.inf).reshape(n_tiles, tile)
-    ym = torch.where(alive, y, torch.inf).reshape(n_tiles, tile)
-    yM = torch.where(alive, y, -torch.inf).reshape(n_tiles, tile)
-    return torch.stack([xm.amin(dim=1), xM.amax(dim=1),
-                        ym.amin(dim=1), yM.amax(dim=1)], dim=1)
+    *lead, n_pad = x.shape
+    shape = (*lead, n_pad // tile, tile)
+    xm = torch.where(alive, x, torch.inf).reshape(shape)
+    xM = torch.where(alive, x, -torch.inf).reshape(shape)
+    ym = torch.where(alive, y, torch.inf).reshape(shape)
+    yM = torch.where(alive, y, -torch.inf).reshape(shape)
+    return torch.stack([xm.amin(dim=-1), xM.amax(dim=-1),
+                        ym.amin(dim=-1), yM.amax(dim=-1)], dim=-1)

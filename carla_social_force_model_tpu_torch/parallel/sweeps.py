@@ -8,12 +8,18 @@ the batch is written out: the state is ``(B, N)`` planes, an ensemble's
 schedule ``(B, N)``, a sweep's parameter leaves ``(B,)`` tensors, and the
 stepper launches each batched kernel once per step for every row
 (``models/stepper.py``).  The records are ``(B, T, N)``, the vmap's
-layout.
+layout.  ``StepConfig.interaction_cutoff`` runs here as in one crowd:
+each row sorted along its own curve, the batched cutoff pair kernels
+(below the gate the box-skip walks, above it or with ``pair_max_surv``
+each crowd's survivor table), with ``symmetric_pairs`` or without, for
+every pair law; nothing here is specific to it.
 
 Sharding the batch over a mesh (the JAX package's ``mesh`` argument and
 ``make_sharded_ensemble_rollout``) is not ported yet: it raises and names
 ROADMAP item 19b, as does every configuration the batched step refuses
-(``stepper.check_supported``).
+(``stepper.check_supported``: the compacted, analytic and chunked
+environment paths, ORCA, groups, the fleet, per-agent columns, an agent
+axis).
 """
 from __future__ import annotations
 

@@ -63,6 +63,17 @@ ARGTYPES = {
     # law, the row planes, the column planes, prm, prm_stride, use_radius,
     # n, batch, fx, fy, stream
     "sfm_pair_dense_batched": [_INT] + [_PTR] * 13 + [_INT] * 4 + [_PTR] * 3,
+    # the batched cutoff forms: the batched entries' arguments up to batch,
+    # then bb (col_bb), [surv, counts, max_surv,] c2, fx, fy, stream
+    "sfm_pair_sym_cutoff_batched": ([_INT] + [_PTR] * 7 + [_INT] * 4
+                                    + [_PTR, _FLOAT] + [_PTR] * 3),
+    "sfm_pair_sym_compact_batched": ([_INT] + [_PTR] * 7 + [_INT] * 4
+                                     + [_PTR] * 3 + [_INT, _FLOAT]
+                                     + [_PTR] * 3),
+    "sfm_pair_dense_cutoff_batched": ([_INT] + [_PTR] * 13 + [_INT] * 4
+                                      + [_PTR, _FLOAT] + [_PTR] * 3),
+    "sfm_pair_compact_batched": ([_INT] + [_PTR] * 13 + [_INT] * 4
+                                 + [_PTR] * 3 + [_INT, _FLOAT] + [_PTR] * 3),
     # law, n_dev, n_local, rx, ry, ru, rv, rrad, ralive, cols, comm, sync,
     # acc, prm, use_radius, cutoff, c2, fx, fy, stream
     "sfm_ring_force": ([_INT] * 3 + [_PTR] * 11 + [_INT, _INT, _FLOAT]

@@ -42,12 +42,17 @@ each column schedule (``gather``, ``ring``, the half-ring,
 ``ring_kernel``) and with the 30 m cutoff at N = 50,000, each step checked
 against the single-device kernel path, then 100 timed steps; the urban
 path, groups and config #3 + ORCA sharded, and a 1-rank NCCL
-process-group run.  It counts the kernel launches of each path, and checks
-every step of 50-step rollouts through the kernels against the same step
-through the plain versions from the same state (and names the agent of
-the worst step).  Phase 2 also counts the SASS instructions of the
-symmetric and dense pair walks', the ring's, the environment kernel's,
-the chunk scan's and the chunk top-k's inner loops
+process-group run; then ensembles and parameter sweeps (phases 27-30):
+BASELINE config #5 (256 crowds of 1,000) through the batched pair and
+environment kernels, a 64-point ``pedestrian_A`` sweep, config #3 under a
+batch of 16 and a ``border_a`` sweep, and with the 30 m cutoff (phase 30)
+config #5, 8 crowds of 50,000 on the survivor tables and the cutoff sweep
+through the batched cutoff kernels.  It counts the kernel launches of each
+path, and checks every step of 50-step rollouts through the kernels
+against the same step through the plain versions from the same state (and
+names the agent of the worst step).  Phase 2 also counts the SASS
+instructions of the symmetric and dense pair walks', the ring's, the
+environment kernel's, the chunk scan's and the chunk top-k's inner loops
 (``tools/sass_census.py``, with cuobjdump and nvdisasm), and the kernel
 times of phases 3, 6, 9, 12, 18, 21 and 24 print the issue-rate floor
 they give beside the bound (phase 15: the power law's symmetric and
@@ -275,11 +280,13 @@ def to_planes(pos, vel, radius, alive, device):
                       alive)]
 
 
-def cuda_ms(fn, reps=20):
+def cuda_ms(fn, reps=20, warm=True):
     """Mean device milliseconds of ``fn()`` over ``reps`` calls (CUDA
-    events, after one warm-up call)."""
+    events, after one warm-up call unless ``warm`` is False: a plain
+    version that takes seconds a call)."""
     import torch
-    fn()
+    if warm:
+        fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -2333,6 +2340,107 @@ GEOM_STEPS = 50
 BORDER_SWEEP = 8
 
 
+def run_batch(label, make_run, arg, steps, expect, rows, card):
+    """One batched main path: a warm-up run of WARMUP_STEPS, then best of 2
+    timed runs of ``steps``, each with every count set to 0 just before
+    and read just after (they must equal ``expect``); finite positions.
+    Prints the rate, the step time and the launches per step; returns the
+    counts and the step time [ms]."""
+    import torch
+    make_run(min(steps, WARMUP_STEPS))(arg)
+    run = make_run(steps)
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(2):
+        reset_counts()
+        t0 = time.perf_counter()
+        final, _ = run(arg)
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+        counts = read_counts()
+        if counts != expect:
+            fail(f"{label} launched {counts}, expected {expect}")
+    if not (torch.isfinite(final.pos_x).all()
+            and torch.isfinite(final.pos_y).all()):
+        fail(f"non-finite positions after the {label} rollout")
+    n = final.capacity
+    per_step = {k: v / steps for k, v in counts.items() if v}
+    say(f"{label}: B={rows} x N={n}, {steps} steps, best of 2 "
+        f"{best:.3f} s = {rows * n * steps / best:.1f} agent-steps/s, "
+        f"{1e3 * best / steps:.4f} ms/step, launches per step "
+        f"{per_step} (one per batched kernel and term, for all "
+        f"{rows} rows); {int(final.alive.sum())} of {rows * n} alive, "
+        f"all finite ({card})")
+    return counts, 1e3 * best / steps, final
+
+
+def check_batch_steps(label, scene, params, cfg, state):
+    """Every step of a PARITY_STEPS-step batched rollout through the
+    kernels against the plain versions' step from the same state, per row:
+    within POS_STEP_TOL_M, modes and alive equal, finite."""
+    import batch_cases as bc
+    gaps = []
+    for k, gap, equal, finite in bc.one_step_gaps(scene, params, cfg,
+                                                  state, PARITY_STEPS):
+        if not (equal and finite):
+            fail(f"{label}: step {k} from the same state gives other "
+                 f"modes or alive masks, or non-finite positions, "
+                 f"through the kernels than through the plain versions")
+        gaps.append(gap.max().item())
+        if gaps[-1] > POS_STEP_TOL_M:
+            row = int(gap.argmax())
+            fail(f"{label}: step {k}, row {row}: one-step position "
+                 f"L-inf {gaps[-1]:.3e} m exceeds {POS_STEP_TOL_M} m")
+    say(f"{label} one-step position L-inf kernels vs plain from the same "
+        f"state, worst row of each step 1..{PARITY_STEPS} (limit "
+        f"{POS_STEP_TOL_M:g} m): " + " ".join(f"{v:.2e}" for v in gaps))
+
+
+def batch_pair_bound(law, sym, batch, n, pairs_u, counts_of, grid=None):
+    """The bound of one batched pair launch on ``batch`` crowds of ``n``:
+    each plane read once, the cutoff grid (if any) read once, the forces
+    written once; the Moussaid law's ``pairs_u`` unordered pairs (each
+    twice in a dense walk), the families' gates counted on the data
+    (``counts_of``: ordered pairs, on a collision course and contributing,
+    from ``family_work``; halved for a symmetric walk)."""
+    grid_bytes = 0 if grid is None else 4 * grid.boxes.numel() + (
+        4 * (grid.surv.numel() + grid.counts.numel())
+        if grid.surv is not None else 0)
+    if law == "moussaid":
+        pairs = pairs_u if sym else 2 * pairs_u
+        return bound(batch * (n * (5 * 4 + 1) + 6 * 4 + n * 8) + grid_bytes,
+                     pairs * (PAIR_OPS + 2 * sym), pairs * PAIR_MUFU)
+    pairs, course, active = (int(c) // (2 if sym else 1) for c in counts_of)
+    if law == "powerlaw":
+        ops = (pairs * (PL_GATE_OPS + 2 * sym) + course * PL_TAU_OPS
+               + active * PL_FORCE_OPS)
+        mufu = course * PL_TAU_MUFU + active * PL_FORCE_MUFU
+    else:
+        ops, mufu = pairs * HB_OPS, pairs * HB_MUFU
+    per_row = n * (4 * (5 if law == "powerlaw" else 6) + 1 + 8)
+    return bound(batch * per_row + 4 * 6 * batch + grid_bytes, ops, mufu)
+
+
+def pairs_within_rows(planes, c2):
+    """Unordered pairs of alive agents within squared distance ``c2``,
+    summed over the rows of ``(B, n)`` planes (brute force, as phase 9
+    counts them)."""
+    import torch
+    x, y, alive = planes[0], planes[1], planes[5]
+    n = x.shape[1]
+    idx = torch.arange(n, device=x.device)
+    total = 0
+    for b in range(x.shape[0]):
+        for lo in range(0, n, 4096):
+            dx = x[b, None, :] - x[b, lo:lo + 4096, None]
+            dy = y[b, None, :] - y[b, lo:lo + 4096, None]
+            total += int((((dx * dx + dy * dy) <= c2)
+                          & (idx[None, :] > idx[lo:lo + 4096, None])
+                          & alive[b, None, :]
+                          & alive[b, lo:lo + 4096, None]).sum())
+    return total
+
+
 def batch_phases(dev, zero, card, launches, worst, profile_steps):
     """Phases 27-29: the batched kernels against their plain batched
     versions and, row by row, against the unbatched kernels; the ensemble
@@ -2354,58 +2462,6 @@ def batch_phases(dev, zero, card, launches, worst, profile_steps):
     from carla_social_force_model_tpu_torch.ops import cuda_forces
     from carla_social_force_model_tpu_torch.parallel import sweeps
     table = {}
-
-    def run_batch(label, make_run, arg, steps, expect, rows):
-        """One batched main path: a warm-up run of WARMUP_STEPS, then best
-        of 2 timed runs of ``steps``, each with every count set to 0 just
-        before and read just after (they must equal ``expect``); finite
-        positions.  Prints the rate, the step time and the launches per
-        step."""
-        make_run(min(steps, WARMUP_STEPS))(arg)
-        run = make_run(steps)
-        torch.cuda.synchronize()
-        best = float("inf")
-        for _ in range(2):
-            reset_counts()
-            t0 = time.perf_counter()
-            final, _ = run(arg)
-            torch.cuda.synchronize()
-            best = min(best, time.perf_counter() - t0)
-            counts = read_counts()
-            if counts != expect:
-                fail(f"{label} launched {counts}, expected {expect}")
-        if not (torch.isfinite(final.pos_x).all()
-                and torch.isfinite(final.pos_y).all()):
-            fail(f"non-finite positions after the {label} rollout")
-        n = final.capacity
-        per_step = {k: v / steps for k, v in counts.items() if v}
-        say(f"{label}: B={rows} x N={n}, {steps} steps, best of 2 "
-            f"{best:.3f} s = {rows * n * steps / best:.1f} agent-steps/s, "
-            f"{1e3 * best / steps:.4f} ms/step, launches per step "
-            f"{per_step} (one per batched kernel and term, for all "
-            f"{rows} rows); {int(final.alive.sum())} of {rows * n} alive, "
-            f"all finite ({card})")
-        return counts, 1e3 * best / steps, final
-
-    def check_steps(label, scene, params, cfg, state):
-        """Every step of a PARITY_STEPS-step batched rollout through the
-        kernels against the plain versions' step from the same state, per
-        row: within POS_STEP_TOL_M, modes and alive equal, finite."""
-        gaps = []
-        for k, gap, equal, finite in bc.one_step_gaps(scene, params, cfg,
-                                                      state, PARITY_STEPS):
-            if not (equal and finite):
-                fail(f"{label}: step {k} from the same state gives other "
-                     f"modes or alive masks, or non-finite positions, "
-                     f"through the kernels than through the plain versions")
-            gaps.append(gap.max().item())
-            if gaps[-1] > POS_STEP_TOL_M:
-                row = int(gap.argmax())
-                fail(f"{label}: step {k}, row {row}: one-step position "
-                     f"L-inf {gaps[-1]:.3e} m exceeds {POS_STEP_TOL_M} m")
-        say(f"{label} one-step position L-inf kernels vs plain from the same "
-            f"state, worst row of each step 1..{PARITY_STEPS} (limit "
-            f"{POS_STEP_TOL_M:g} m): " + " ".join(f"{v:.2e}" for v in gaps))
 
     def pair_checks(label, planes, p, forms):
         """The batched pair kernels of ``forms`` on ``planes`` with params
@@ -2450,7 +2506,6 @@ def batch_phases(dev, zero, card, launches, worst, profile_steps):
     pair_checks(f"phase 27 B={BATCH} x N={BATCH_N}", planes, None,
                 sorted(bc.PAIR_FORMS))
     n_sym = BATCH_N * (BATCH_N - 1) // 2
-    pair_bytes = BATCH * (BATCH_N * (5 * 4 + 1) + 6 * 4 + BATCH_N * 8)
     src = "carla_social_force_model_tpu/ops/pallas_forces.py:"
     lines = {"moussaid": {"sym": "239", "dense": "162"},
              "powerlaw": {"sym": "462", "dense": "462"},
@@ -2475,23 +2530,8 @@ def batch_phases(dev, zero, card, launches, worst, profile_steps):
                     [family_work(law, [t[b] for t in planes], None,
                                  False)[2] for b in range(BATCH)], axis=0)
         plain = plain_of[law]
-        sym = form == "sym"
-        if law == "moussaid":
-            pairs = n_sym if sym else 2 * n_sym
-            bnd = bound(pair_bytes, BATCH * pairs * (PAIR_OPS + 2 * sym),
-                        BATCH * pairs * PAIR_MUFU)
-        else:
-            pairs, course, active = (int(c) // (2 if sym else 1)
-                                     for c in counts_of[law])
-            if law == "powerlaw":
-                ops = (pairs * (PL_GATE_OPS + 2 * sym)
-                       + course * PL_TAU_OPS + active * PL_FORCE_OPS)
-                mufu = course * PL_TAU_MUFU + active * PL_FORCE_MUFU
-            else:
-                ops, mufu = pairs * HB_OPS, pairs * HB_MUFU
-            per_row = BATCH_N * (4 * (5 if law == "powerlaw" else 6) + 1
-                                 + 8)
-            bnd = bound(BATCH * per_row + 4 * 6 * BATCH, ops, mufu)
+        bnd = batch_pair_bound(law, form == "sym", BATCH, BATCH_N,
+                               BATCH * n_sym, counts_of.get(law))
         table[name] = (src + lines[law][form], ms, plain, bnd)
         say(f"phase 27 time {name} at B={BATCH} x N={BATCH_N}: kernel "
             f"{ms:.4f} ms ({TIMED_BY[0]}; bound {bnd[0]:.4f} ms, "
@@ -2518,17 +2558,18 @@ def batch_phases(dev, zero, card, launches, worst, profile_steps):
         counts, ms_step, _ = run_batch(
             label, lambda k, c=c, q=prm_set: sweeps.make_ensemble_rollout(
                 ens, q, c, k), ens, steps, dict(zero, **{name: steps}),
-            BATCH)
+            BATCH, card)
         launches[name] = counts[name]
         if steps == BATCH_STEPS:
             profile_steps(ens, prm_set, c, state, ms_step, label)
     small = dataclasses.replace(scene, spawn=batched_crowds(
         GEOM_BATCH, BATCH_N, device=dev))
     for sym in (True, False):
-        check_steps(f"phase 27 config #5 at B={GEOM_BATCH}, "
-                    f"symmetric_pairs={sym}", small, params,
-                    dataclasses.replace(cfg, symmetric_pairs=sym),
-                    PedState.empty(BATCH_N, device=dev, batch=GEOM_BATCH))
+        check_batch_steps(f"phase 27 config #5 at B={GEOM_BATCH}, "
+                          f"symmetric_pairs={sym}", small, params,
+                          dataclasses.replace(cfg, symmetric_pairs=sym),
+                          PedState.empty(BATCH_N, device=dev,
+                                         batch=GEOM_BATCH))
 
     lap("phase 28")
     # -- phase 28: a 64-point sweep of pedestrian_A --------------------------
@@ -2541,7 +2582,7 @@ def batch_phases(dev, zero, card, launches, worst, profile_steps):
         counts, ms_step, final = run_batch(
             label, lambda k, c=c: sweeps.make_sweep_rollout(scene, c, k),
             swept, BATCH_STEPS, dict(zero, **{name: BATCH_STEPS}),
-            SWEEP_POINTS)
+            SWEEP_POINTS, card)
         if sym:
             profile_steps(scene, swept, c,
                           PedState.empty(BATCH_N, device=dev,
@@ -2583,8 +2624,9 @@ def batch_phases(dev, zero, card, launches, worst, profile_steps):
                                  state1.vel_y, state1.radius, state1.alive,
                                  state1.vel_x, state1.vel_y)],
         swept.pedestrian, (("moussaid", "sym"), ("moussaid", "dense")))
-    check_steps("phase 28 sweep of pedestrian_A", scene, swept, cfg,
-                PedState.empty(BATCH_N, device=dev, batch=SWEEP_POINTS))
+    check_batch_steps("phase 28 sweep of pedestrian_A", scene, swept, cfg,
+                      PedState.empty(BATCH_N, device=dev,
+                                     batch=SWEEP_POINTS))
 
     lap("phase 29")
     # -- phase 29: geometry under a batch (config #3 x 16; border_a swept) ---
@@ -2603,11 +2645,11 @@ def batch_phases(dev, zero, card, launches, worst, profile_steps):
     counts, ms_step, _ = run_batch(
         label, lambda k: sweeps.make_ensemble_rollout(ens3, params3, cfg3,
                                                       k),
-        ens3, GEOM_STEPS, expect, GEOM_BATCH)
+        ens3, GEOM_STEPS, expect, GEOM_BATCH, card)
     for name in ("env_exp_batched", "env_moussaid_batched"):
         launches[name] = counts[name]
     profile_steps(ens3, params3, cfg3, state3, ms_step, label)
-    check_steps(label, ens3, params3, cfg3, state3)
+    check_batch_steps(label, ens3, params3, cfg3, state3)
 
     def env_checks(label, scene_p, prm_set, cfg_p, state, times):
         """The batched environment kernels on the jobs of ``scene_p``
@@ -2680,11 +2722,248 @@ def batch_phases(dev, zero, card, launches, worst, profile_steps):
     run_batch(label, lambda k: sweeps.make_sweep_rollout(scene2, cfg2, k),
               swept2, GEOM_STEPS, dict(zero, pair_force_sym_batched=GEOM_STEPS,
                                        env_exp_batched=GEOM_STEPS),
-              BORDER_SWEEP)
+              BORDER_SWEEP, card)
     scene2p = stepper.prepare_scene(scene2)
     state2 = PedState.empty(BATCH_N, device=dev, batch=BORDER_SWEEP)
     env_checks(label, scene2p, swept2, cfg2, state2, times=False)
-    check_steps(label, scene2p, swept2, cfg2, state2)
+    check_batch_steps(label, scene2p, swept2, cfg2, state2)
+    return table
+
+
+#: ensembles and sweeps with the 30 m cutoff (phase 30): config #5 with
+#: the cutoff (256 x 1,000, 100 steps; the box-skip walks, below the gate),
+#: 8 crowds of 50,000 at benchmark_bundle's 0.25 pedestrians/m^2 (50 steps;
+#: the survivor tables engage), a 64-point pedestrian_A sweep at 1,000 (50
+#: steps) and the family forms on the same batches (20 steps: they exist to
+#: launch those forms); the kernel checks also force a table of
+#: CUT_BATCH_MAX_SURV slots at 1,000 (most rows overflow) and of
+#: CUT_OVERFLOW_MAX_SURV at 50,000 (some do); the step-by-step checks run
+#: 50 steps at 16 x 1,000 and at 4 x 4,000 with an 8-slot table
+CUT_BATCH_STEPS = 100
+CUT_TABLE_BATCH = 8
+CUT_TABLE_N = 50_000
+CUT_TABLE_STEPS = 50
+CUT_SWEEP_STEPS = 50
+CUT_FAMILY_STEPS = 20
+CUT_BATCH_MAX_SURV = 2
+CUT_OVERFLOW_MAX_SURV = 8
+CUT_PARITY_TABLE = (4, 4_000, 8)
+
+
+def cutoff_batch_phases(dev, zero, card, launches, worst, profile_steps):
+    """Phase 30: the batched cutoff pair kernels (item 19b.1) against their
+    plain batched versions and, row by row, the unbatched cutoff kernels
+    (bitwise for the dense walks); the ensembles and sweeps with the 30 m
+    cutoff through ``parallel/sweeps.py`` with their launches, rates and
+    device-busy shares; every step of two 50-step batched cutoff rollouts
+    against the plain versions' step.  Returns ``{kernel: (source line,
+    ms, plain_ms, bound)}`` for the kernels line."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import batch_cases as bc
+    from family_cases import TOLERANCE as TOLERANCE_OF
+    from carla_social_force_model_tpu_torch.api.synthetic import (
+        batched_crowds, benchmark_bundle)
+    from carla_social_force_model_tpu_torch.models.state import PedState
+    from carla_social_force_model_tpu_torch.ops import cuda_forces
+    from carla_social_force_model_tpu_torch.ops.pair_grid import cutoff_sq
+    from carla_social_force_model_tpu_torch.parallel import sweeps
+    table = {}
+    c2 = cutoff_sq(CUTOFF_M)
+    src = "carla_social_force_model_tpu/ops/pallas_forces.py:"
+    lines = {"sym_cutoff": "239", "sym_compact": "239",
+             "dense_cutoff": "162", "compact": "205"}
+    kern = {True: "pair_force_sym_batched_kernel",
+            False: "pair_force_dense_batched_kernel"}
+
+    def kernel_checks(label, planes, max_surv, timed):
+        """Every batched cutoff form, per law, on sorted ``planes``: the
+        table forms with a table ``max_surv`` wide (0: the automatic gate);
+        with ``timed``, the forms of ``timed`` get their device time, the
+        plain batched version's and the bound.  Returns the plain
+        references by law."""
+        refs, counts_of, plain_of = {}, {}, {}
+        pairs_u = pairs_within_rows(planes, c2) if timed else None
+        b, n = planes[0].shape
+        for (law, form), name in sorted(bc.CUTOFF_FORMS.items()):
+            grid = bc.cutoff_grid_of(form, planes, CUTOFF_M,
+                                     max_surv if form.endswith("compact")
+                                     else 0)
+            p = bc.law_params(law)
+            if law not in refs:
+                refs[law] = bc.batch_reference(law, planes, p, CUTOFF_M)
+            got = bc.batch_run(law, form, planes, p, grid)
+            torch.cuda.synchronize()
+            m = bc.pair_mismatch(law, form, planes, p, got, refs[law], grid,
+                                 CUTOFF_M)
+            tol = ("1e-4 + 1e-4*|f|" if law == "moussaid"
+                   else TOLERANCE_OF[law])
+            over = ("" if grid.counts is None else
+                    f", {int((grid.counts > grid.max_surv).sum())} of "
+                    f"{grid.counts.numel()} table rows overflow "
+                    f"{grid.max_surv} slots")
+            say(f"{label} {name}: max abs err {m['err']:.3e} vs the plain "
+                f"batched version ({m['over']} over {tol}){over}; rows vs "
+                f"the unbatched cutoff kernel: "
+                + ("bitwise equal" if m["rows_equal"] else
+                   f"max diff {m['row_err']:.3e} ({m['row_over']} over "
+                   f"twice the tolerance)"))
+            if not torch.isfinite(got).all():
+                fail(f"{name} returned non-finite forces")
+            if bool((got[:, ~planes[5]] != 0).any()):
+                fail(f"{name}: dead rows are not exactly zero")
+            if m["over"]:
+                fail(f"{name} disagrees with its plain batched version")
+            if not form.startswith("sym") and not m["rows_equal"]:
+                fail(f"{name}: a row differs from the unbatched cutoff "
+                     f"kernel on that row")
+            if m["row_over"]:
+                fail(f"{name}: a row is farther from the unbatched kernel "
+                     f"than twice the tolerance")
+            worst[name] = max(worst.get(name, 0.0), m["err"])
+            if form not in timed:
+                continue
+            if law != "moussaid" and law not in counts_of:
+                counts_of[law] = np.sum(
+                    [family_work(law, [t[r] for t in planes], CUTOFF_M,
+                                 False)[2] for r in range(b)], axis=0)
+            ms = device_ms(lambda: bc.batch_run(law, form, planes, p, grid),
+                           kern[form.startswith("sym")])
+            if law not in plain_of:  # one plain time per law
+                plain_of[law] = cuda_ms(
+                    lambda: cuda_forces.plain_batched_force(
+                        law, *planes[:6], p, desired=tuple(planes[6:])
+                        if law == "helbing" else None, cutoff=CUTOFF_M),
+                    reps=1, warm=n < CUT_TABLE_N)
+            plain = plain_of[law]
+            bnd = batch_pair_bound(law, form.startswith("sym"), b, n, pairs_u,
+                                   counts_of.get(law), grid)
+            table[name] = (src + ("462" if law == "powerlaw" else "528"
+                                  if law == "helbing" else lines[form]),
+                           ms, plain, bnd)
+            say(f"{label} time {name} at B={b} x N={n}, {CUTOFF_M:g} m "
+                f"cutoff: kernel {ms:.4f} ms ({TIMED_BY[0]}; bound "
+                f"{bnd[0]:.6f} ms, {bnd[1]}; {pairs_u} unordered pairs "
+                f"within the cutoff), plain batched version {plain:.3f} ms "
+                f"({card})")
+        return refs
+
+    lap("phase 30")
+    # -- phase 30: ensembles and sweeps with the 30 m cutoff -----------------
+    small = bc.sort_rows(bc.batch_planes(BATCH, BATCH_N, seed=30, device=dev,
+                                         extent=35.0))
+    kernel_checks(f"phase 30 B={BATCH} x N={BATCH_N}", small,
+                  CUT_BATCH_MAX_SURV, ("sym_cutoff", "dense_cutoff"))
+    big_extent = max(25.0, float(np.sqrt(CUT_TABLE_N)))
+    big = bc.sort_rows(bc.batch_planes(CUT_TABLE_BATCH, CUT_TABLE_N, seed=31,
+                                       device=dev, extent=big_extent))
+    refs = kernel_checks(f"phase 30 B={CUT_TABLE_BATCH} x N={CUT_TABLE_N}",
+                         big, 0, ("sym_compact", "compact"))
+    for form in ("sym_compact", "compact"):
+        grid = bc.cutoff_grid_of(form, big, CUTOFF_M, CUT_OVERFLOW_MAX_SURV)
+        over = int((grid.counts > grid.max_surv).sum())
+        m = bc.pair_mismatch("moussaid", form, big,
+                             bc.law_params("moussaid"), ref=refs["moussaid"],
+                             grid=grid)
+        say(f"phase 30 B={CUT_TABLE_BATCH} x N={CUT_TABLE_N} "
+            f"{bc.CUTOFF_FORMS['moussaid', form]} with "
+            f"{CUT_OVERFLOW_MAX_SURV} slots ({over} of "
+            f"{grid.counts.numel()} table rows overflow): max abs err "
+            f"{m['err']:.3e} ({m['over']} over the tolerance); rows vs the "
+            f"unbatched kernel "
+            + ("bitwise equal" if m["rows_equal"]
+               else f"max diff {m['row_err']:.3e}"))
+        if not over or m["over"] or m["row_over"] or (
+                form == "compact" and not m["rows_equal"]):
+            fail(f"phase 30: the overflowing {form} table at "
+                 f"{CUT_TABLE_N} disagrees (or no row overflowed)")
+
+    scene, params, cfg, _ = benchmark_bundle(BATCH_N, device=dev)
+    cut = dataclasses.replace(cfg, interaction_cutoff=CUTOFF_M)
+    ens = dataclasses.replace(scene, spawn=batched_crowds(BATCH, BATCH_N,
+                                                          device=dev))
+    state = PedState.empty(BATCH_N, device=dev, batch=BATCH)
+    scene_b, params_b, cfg_b, _ = benchmark_bundle(CUT_TABLE_N, device=dev)
+    ens_b = dataclasses.replace(scene_b, spawn=batched_crowds(
+        CUT_TABLE_BATCH, CUT_TABLE_N, extent=big_extent, device=dev))
+    cut_b = dataclasses.replace(cfg_b, interaction_cutoff=CUTOFF_M)
+    state_b = PedState.empty(CUT_TABLE_N, device=dev, batch=CUT_TABLE_BATCH)
+    powerlaw = dict(enable_pedestrian=False, enable_powerlaw=True)
+    helbing = dict(enable_pedestrian=False, enable_ped_repulsive=True)
+    paths = [  # (label, kernel, scene, params, cfg, steps, rows, profiled)
+        ("config #5 + cutoff", "pair_force_sym_cutoff_batched", ens, params,
+         cut, CUT_BATCH_STEPS, BATCH, True),
+        ("config #5 + cutoff", "pair_force_dense_cutoff_batched", ens,
+         params, dataclasses.replace(cut, symmetric_pairs=False),
+         CUT_BATCH_STEPS, BATCH, True),
+        (f"{CUT_TABLE_BATCH} x {CUT_TABLE_N} + cutoff",
+         "pair_force_sym_compact_batched", ens_b, params_b, cut_b,
+         CUT_TABLE_STEPS, CUT_TABLE_BATCH, True),
+        (f"{CUT_TABLE_BATCH} x {CUT_TABLE_N} + cutoff",
+         "pair_force_compact_batched", ens_b, params_b,
+         dataclasses.replace(cut_b, symmetric_pairs=False), CUT_TABLE_STEPS,
+         CUT_TABLE_BATCH, True),
+        ("config #5 + cutoff", "powerlaw_sym_cutoff_batched", ens,
+         dataclasses.replace(params, **powerlaw), cut, CUT_FAMILY_STEPS,
+         BATCH, False),
+        ("config #5 + cutoff", "powerlaw_dense_cutoff_batched", ens,
+         dataclasses.replace(params, **powerlaw),
+         dataclasses.replace(cut, symmetric_pairs=False), CUT_FAMILY_STEPS,
+         BATCH, False),
+        ("config #5 + cutoff", "helbing_dense_cutoff_batched", ens,
+         dataclasses.replace(params, **helbing), cut, CUT_FAMILY_STEPS,
+         BATCH, False),
+        (f"{CUT_TABLE_BATCH} x {CUT_TABLE_N} + cutoff",
+         "powerlaw_sym_compact_batched", ens_b,
+         dataclasses.replace(params_b, **powerlaw), cut_b, CUT_FAMILY_STEPS,
+         CUT_TABLE_BATCH, False),
+        (f"{CUT_TABLE_BATCH} x {CUT_TABLE_N} + cutoff",
+         "powerlaw_compact_batched", ens_b,
+         dataclasses.replace(params_b, **powerlaw),
+         dataclasses.replace(cut_b, symmetric_pairs=False), CUT_FAMILY_STEPS,
+         CUT_TABLE_BATCH, False),
+        (f"{CUT_TABLE_BATCH} x {CUT_TABLE_N} + cutoff",
+         "helbing_compact_batched", ens_b,
+         dataclasses.replace(params_b, **helbing), cut_b, CUT_FAMILY_STEPS,
+         CUT_TABLE_BATCH, False),
+    ]
+    for what, name, scn, prm_set, c, steps, rows, profiled in paths:
+        label = f"phase 30 {what} (ensemble) via {name}"
+        counts, ms_step, _ = run_batch(
+            label, lambda k, c=c, q=prm_set, s=scn:
+            sweeps.make_ensemble_rollout(s, q, c, k), scn, steps,
+            dict(zero, **{name: steps}), rows, card)
+        launches[name] = counts[name]
+        if profiled:
+            profile_steps(scn, prm_set, c, state if rows == BATCH
+                          else state_b, ms_step, label)
+
+    amps = torch.linspace(0.5, 12.0, SWEEP_POINTS, device=dev)
+    swept = sweeps.batch_params(params, pedestrian_A=amps)
+    label = "phase 30 sweep of pedestrian_A + cutoff"
+    _, ms_step, _ = run_batch(
+        label, lambda k: sweeps.make_sweep_rollout(scene, cut, k), swept,
+        CUT_SWEEP_STEPS,
+        dict(zero, pair_force_sym_cutoff_batched=CUT_SWEEP_STEPS),
+        SWEEP_POINTS, card)
+    profile_steps(scene, swept, cut, PedState.empty(
+        BATCH_N, device=dev, batch=SWEEP_POINTS), ms_step, label)
+
+    check_batch_steps(f"phase 30 config #5 + cutoff at B={GEOM_BATCH}",
+                      dataclasses.replace(scene, spawn=batched_crowds(
+                          GEOM_BATCH, BATCH_N, device=dev)), params, cut,
+                      PedState.empty(BATCH_N, device=dev,
+                                     batch=GEOM_BATCH))
+    b_t, n_t, ms_t = CUT_PARITY_TABLE
+    scene_t, _, cfg_t, _ = benchmark_bundle(n_t, device=dev)
+    check_batch_steps(
+        f"phase 30 B={b_t} x N={n_t} + cutoff, pair_max_surv={ms_t}",
+        dataclasses.replace(scene_t, spawn=batched_crowds(
+            b_t, n_t, extent=max(25.0, float(np.sqrt(n_t))), device=dev)),
+        params, dataclasses.replace(cfg_t, interaction_cutoff=CUTOFF_M,
+                                    pair_max_surv=ms_t),
+        PedState.empty(n_t, device=dev, batch=b_t))
     return table
 
 
@@ -3223,6 +3502,9 @@ def main() -> None:
 
     # -- phases 27-29: ensembles and sweeps (BASELINE config #5) -----------
     batched = batch_phases(dev, zero, card, launches, worst, profile_steps)
+    # -- phase 30: ensembles and sweeps with the interaction cutoff ---------
+    batched.update(cutoff_batch_phases(dev, zero, card, launches, worst,
+                                       profile_steps))
 
     lap("the kernels line")
     csrc = "carla_social_force_model_tpu_torch/csrc/"

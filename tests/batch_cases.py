@@ -1,8 +1,9 @@
 """Shared cases of the batched kernels (ensembles and parameter sweeps) for
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``: batches of seeded
-crowds, swept parameters, one launch of a batched kernel, the same rows
-through the unbatched kernel, the plain batched version and the
-tolerance each kernel is held to.
+crowds, swept parameters, one launch of a batched kernel (with a cutoff,
+on rows sorted along their own curves, through the batched launch plan),
+the same rows through the unbatched kernel, the plain batched version and
+the tolerance each kernel is held to.
 
 This module imports neither JAX nor the JAX package, so ``chip_smoke.py``
 imports it on a machine without them.
@@ -15,7 +16,7 @@ from carla_social_force_model_tpu_torch.models.params import (
     MoussaidParams, PedRepulsiveParams, PowerLawParams, exp_rows, law_rows,
     section_rows)
 from carla_social_force_model_tpu_torch.ops import (cuda_env, cuda_forces,
-                                                    forces)
+                                                    forces, pair_grid)
 from carla_social_force_model_tpu_torch.ops.spatial import morton_order
 from family_cases import ATOL as FAMILY_ATOL, RTOL as FAMILY_RTOL
 from family_cases import family_planes
@@ -26,6 +27,13 @@ PAIR_FORMS = {("moussaid", "sym"): "pair_force_sym_batched",
               ("powerlaw", "sym"): "powerlaw_sym_batched",
               ("powerlaw", "dense"): "powerlaw_dense_batched",
               ("helbing", "dense"): "helbing_dense_batched"}
+#: the batched cutoff pair kernels: (law, form) -> LAUNCHES key, where
+#: form is the walk of the batched grid that drives it
+CUTOFF_FORMS = {
+    (law, form): f"{cuda_forces.LAWS[law][0]}_{form}_batched"
+    for law in ("moussaid", "powerlaw", "helbing")
+    for form in ("sym_cutoff", "sym_compact", "dense_cutoff", "compact")
+    if law != "helbing" or not form.startswith("sym")}
 #: Moussaid kernels vs plain version: |err| <= ATOL + RTOL * |f| (f32
 #: summation order; the symmetric kernel's atomics vary it from run to
 #: run), as the unbatched kernels are held; the families keep theirs
@@ -64,6 +72,36 @@ def batch_planes(batch, n, seed, device, extent=None):
     return [torch.stack(col).contiguous() for col in zip(*rows)]
 
 
+def sort_rows(planes):
+    """``(B, n)`` planes with each row in its own Hilbert order, as the
+    batched cutoff path gives them to its kernels."""
+    perm, _ = morton_order(planes[0], planes[1], planes[5], "hilbert")
+    return [t.gather(-1, perm).contiguous() for t in planes]
+
+
+def cutoff_grid_of(form, planes, cutoff, max_surv=0):
+    """The batched grid of sorted ``planes`` that drives ``form``: the box
+    forms without a table, the table forms with a table ``max_surv`` wide
+    (0: the automatic gate, which must engage)."""
+    grid = pair_grid.cutoff_grid(planes[0], planes[1], planes[5], cutoff,
+                                 symmetric=form.startswith("sym"),
+                                 compact=form.endswith("compact"),
+                                 max_surv=max_surv)
+    if grid.form != form:
+        raise ValueError(f"the grid drives {grid.form}, not {form}: give "
+                         f"the table forms a max_surv below a row's tiles")
+    return grid
+
+
+def row_grid(grid, b):
+    """Crowd b's grid of a batched one (equal to the grid of row b
+    alone)."""
+    def row(t):
+        return None if t is None else t[b].contiguous()
+    return grid._replace(boxes=row(grid.boxes), surv=row(grid.surv),
+                         counts=row(grid.counts))
+
+
 def _kernel_args(law, planes):
     x, y, vx, vy, rad, alive, ex, ey = planes
     kw = dict(law=law)
@@ -72,34 +110,42 @@ def _kernel_args(law, planes):
     return (x, y, vx, vy, rad, alive), kw
 
 
-def batch_run(law, form, planes, p):
+def batch_run(law, form, planes, p, grid=None):
     """One launch of the batched kernel of ``law`` in ``form`` on ``(B,
     n)`` planes with params ``p`` (shared, or with a swept leaf): ``(2, B,
-    n)``."""
+    n)``.  The cutoff forms take the batched ``grid`` of the same sorted
+    planes (:func:`cutoff_grid_of`)."""
     args, kw = _kernel_args(law, planes)
     prm = law_rows(law, p, planes[0].shape[0], planes[0].device)
+    if grid is not None:
+        return torch.stack(cuda_forces.pair_force_cutoff_batched(
+            *args, prm, grid, **kw))
     fn = (cuda_forces.pair_force_sym_batched if form == "sym"
           else cuda_forces.pair_force_dense_batched)
     return torch.stack(fn(*args, prm, **kw))
 
 
-def row_run(law, form, planes, p, b):
-    """Row b through the unbatched kernel with row b's parameters: ``(2,
-    n)``."""
+def row_run(law, form, planes, p, b, grid=None):
+    """Row b through the unbatched kernel with row b's parameters (and,
+    with a batched ``grid``, row b's grid): ``(2, n)``."""
     args, kw = _kernel_args(law, [t[b] for t in planes])
     if "desired" in kw:
         kw["desired"] = tuple(t.contiguous() for t in kw["desired"])
     args = tuple(None if t is None else t.contiguous() for t in args)
     prm = law_rows(law, p, planes[0].shape[0], planes[0].device)[b]
+    if grid is not None:
+        return torch.stack(cuda_forces.pair_force_cutoff(
+            *args, prm.contiguous(), row_grid(grid, b), **kw))
     fn = (cuda_forces.pair_force_sym if form == "sym"
           else cuda_forces.pair_force_dense)
     return torch.stack(fn(*args, prm.contiguous(), **kw))
 
 
-def _family_reference(law, planes, p):
+def _family_reference(law, planes, p, cutoff=None):
     """``family_cases.family_reference`` with the law's params ``p`` (a
-    sweep's row): the plain version and its limit, 1e-4 + 1e-4 * sum_j
-    |f_ij| for the power law, 1e-4 + 1e-4 * |f| for Helbing."""
+    sweep's row) and ``cutoff``: the plain version and its limit, 1e-4 +
+    1e-4 * sum_j |f_ij| for the power law, 1e-4 + 1e-4 * |f| for
+    Helbing."""
     x, y, vx, vy, rad, alive, ex, ey = planes
 
     def plain(magnitudes):
@@ -115,34 +161,36 @@ def _family_reference(law, planes, p):
                     p.step_width * vy[None, :], ex[r, None], ey[r, None], p,
                     ok)
             return tuple(c.abs() for c in f) if magnitudes else f
-        return torch.stack(forces._pair_sum(x, y, alive, pair, 1024, None,
-                                            None))
+        return torch.stack(forces._pair_sum(x, y, alive, pair, 1024,
+                                            cutoff, None))
 
     want = plain(False)
     scale = plain(True) if law == "powerlaw" else want.abs()
     return want, FAMILY_ATOL + FAMILY_RTOL * scale
 
 
-def batch_reference(law, planes, p):
+def batch_reference(law, planes, p, cutoff=None):
     """``(want, limit)``, ``(2, B, n)`` each: the plain version row by row
-    with row b's parameters, and the elementwise limit of a kernel's error
-    (``ATOL`` for the Moussaid law, ``family_cases`` for the families)."""
+    with row b's parameters and ``cutoff``, and the elementwise limit of a
+    kernel's error (``ATOL`` for the Moussaid law, ``family_cases`` for the
+    families)."""
     batch = planes[0].shape[0]
     wants, limits = [], []
     for b, pb in enumerate(section_rows(p, batch)):
         row = [t[b] for t in planes]
         if law == "moussaid":
             want = torch.stack(cuda_forces.plain_law_force(
-                law, *row[:6], pb, False, 1024, None, None))
+                law, *row[:6], pb, False, 1024, cutoff, None))
             limit = ATOL + RTOL * want.abs()
         else:
-            want, limit = _family_reference(law, row, pb)
+            want, limit = _family_reference(law, row, pb, cutoff)
         wants.append(want)
         limits.append(limit)
     return torch.stack(wants, dim=1), torch.stack(limits, dim=1)
 
 
-def pair_mismatch(law, form, planes, p, got=None, ref=None):
+def pair_mismatch(law, form, planes, p, got=None, ref=None, grid=None,
+                  cutoff=None):
     """How a batched pair launch ``got`` (launched here when None) agrees:
     ``err`` its largest error against the plain batched version (``ref``,
     ``batch_reference``'s ``(want, limit)``, computed when None) and
@@ -150,11 +198,12 @@ def pair_mismatch(law, form, planes, p, got=None, ref=None):
     row equals the unbatched launch on that row bitwise, ``row_err`` the
     largest difference from it and ``row_over`` the elements farther from
     it than twice their limit (each launch within its limit of the plain
-    version)."""
-    got = batch_run(law, form, planes, p) if got is None else got
-    want, limit = batch_reference(law, planes, p) if ref is None else ref
+    version).  A cutoff form takes its batched ``grid`` and ``cutoff``."""
+    got = batch_run(law, form, planes, p, grid) if got is None else got
+    want, limit = (batch_reference(law, planes, p, cutoff) if ref is None
+                   else ref)
     err = (got - want).abs()
-    rows = torch.stack([row_run(law, form, planes, p, b)
+    rows = torch.stack([row_run(law, form, planes, p, b, grid)
                         for b in range(planes[0].shape[0])], dim=1)
     row_gap = (got - rows).abs()
     return dict(err=err.max().item(), over=int((err > limit).sum()),

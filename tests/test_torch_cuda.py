@@ -1903,3 +1903,196 @@ def test_batched_steps_through_kernels_match_plain_steps(cuda_device, case):
     if geometry:
         want.update(env_exp_batched=steps, env_moussaid_batched=2 * steps)
     assert launched == want
+
+
+# -- ensembles and sweeps with a cutoff: the batched cutoff kernels ---------
+
+def cutoff_batch(b, n, seed, device, extent=None):
+    """``b`` seeded crowds of ``n`` (``batch_cases.batch_planes``), each row
+    in its own Hilbert order."""
+    return bc.sort_rows(bc.batch_planes(b, n, seed=seed, device=device,
+                                        extent=extent))
+
+
+def assert_cutoff_batch_close(law, form, planes, p, grid, cutoff):
+    """One launch of the batched cutoff kernel: finite, dead rows exactly
+    0, within its unbatched kernel's tolerance of the plain batched
+    version, and row by row bitwise equal to the unbatched cutoff kernel
+    (dense walks) or within twice the tolerance of it (symmetric walks,
+    atomics).  Returns the forces."""
+    cuda_forces.reset_launch_counts()
+    got = bc.batch_run(law, form, planes, p, grid)
+    torch.cuda.synchronize()
+    assert cuda_forces.LAUNCHES[bc.CUTOFF_FORMS[law, form]] == 1
+    assert torch.isfinite(got).all()
+    assert bool((got[:, ~planes[5]] == 0).all())
+    m = bc.pair_mismatch(law, form, planes, p, got, grid=grid, cutoff=cutoff)
+    assert m["over"] == 0, m
+    if form.startswith("sym"):
+        assert m["row_over"] == 0, m
+    else:
+        assert m["rows_equal"], m
+    return got
+
+
+@pytest.mark.parametrize("sweep", [False, True])
+@pytest.mark.parametrize("b,n,max_surv", [(1, 300, 1), (3, 1000, 2),
+                                          (6, 2500, 6)])
+@pytest.mark.parametrize("law,form", sorted(bc.CUTOFF_FORMS))
+def test_batched_cutoff_kernel_matches_plain_and_unbatched(
+        cuda_device, law, form, b, n, max_surv, sweep):
+    """Each batched cutoff kernel (the box-skip walks, and the table walks
+    with a table ``max_surv`` wide that some rows overflow), one launch for
+    every row, on rows sorted along their own curves with a 10 m cutoff:
+    against the plain batched version and the unbatched cutoff kernel on
+    each row with that row's grid and parameters."""
+    planes = cutoff_batch(b, n, seed=n + b, device=cuda_device)
+    p = bc.law_params(law)
+    if sweep:
+        p = bc.swept(p, b, cuda_device)
+    grid = bc.cutoff_grid_of(form, planes, 10.0, max_surv)
+    assert_cutoff_batch_close(law, form, planes, p, grid, 10.0)
+
+
+@pytest.mark.parametrize("law,form", [k for k in sorted(bc.CUTOFF_FORMS)
+                                      if k[1].endswith("compact")])
+def test_batched_tables_with_overflowing_rows(cuda_device, law, form):
+    """B = 3 crowds of 20,000 at 0.25 agents/m^2 (one of them at a tenth
+    of that density) with the 30 m cutoff and an 8-slot table: some table
+    rows overflow (they walk every column tile with the box test), others
+    fit, decided per crowd on the device; against the plain version and
+    the unbatched kernel."""
+    n = 20_000
+    rows = [family_planes(n, 60 + k, cuda_device, extent=e)
+            for k, e in enumerate((70.7, 70.7, 223.6))]
+    planes = bc.sort_rows([torch.stack(c) for c in zip(*rows)])
+    grid = bc.cutoff_grid_of(form, planes, 30.0, 8)
+    over = grid.counts > 8
+    assert bool(over.any()) and bool((~over).any())
+    assert_cutoff_batch_close(law, form, planes, bc.law_params(law), grid,
+                              30.0)
+
+
+@pytest.mark.parametrize("law,form", sorted(bc.CUTOFF_FORMS))
+def test_batched_cutoff_kernels_relaunch_on_the_same_buffers(cuda_device,
+                                                             law, form):
+    """Two launches on the same planes and grid: the grid is read, never
+    written; the dense walks give the same forces bitwise, the symmetric
+    walks within the tolerance (atomics)."""
+    planes = cutoff_batch(4, 1500, seed=5, device=cuda_device)
+    grid = bc.cutoff_grid_of(form, planes, 10.0,
+                             2 if form.endswith("compact") else 0)
+    saved = [None if t is None else t.clone()
+             for t in (grid.boxes, grid.surv, grid.counts)]
+    p = bc.law_params(law)
+    first = bc.batch_run(law, form, planes, p, grid)
+    again = bc.batch_run(law, form, planes, p, grid)
+    torch.cuda.synchronize()
+    for t, s in zip((grid.boxes, grid.surv, grid.counts), saved):
+        assert (t is None) == (s is None) and (t is None or torch.equal(t, s))
+    if form.startswith("sym"):
+        _, limit = bc.batch_reference(law, planes, p, 10.0)
+        assert bool(((first - again).abs() <= 2 * limit).all())
+    else:
+        assert torch.equal(first, again)
+
+
+@pytest.mark.parametrize("law,form", sorted(bc.CUTOFF_FORMS))
+def test_batched_cutoff_kernels_on_stacked_starts(cuda_device, law, form):
+    """Four crowds of the branch-cut test (64 nodes of 24 agents one Euler
+    step from their node) in one batch, each sorted along its own curve,
+    through every batched cutoff walk: cross, dot and sign(theta) as the
+    plain version computes them."""
+    rows = [stacked_crowd(seed, cuda_device) for seed in range(4)]
+    planes = [torch.stack(c) for c in zip(*rows)]
+    speed = torch.hypot(planes[2], planes[3])
+    planes += [planes[2] / speed, planes[3] / speed]  # Helbing's e
+    planes = bc.sort_rows(planes)
+    grid = bc.cutoff_grid_of(form, planes, 10.0,
+                             1 if form.endswith("compact") else 0)
+    assert_cutoff_batch_close(law, form, planes, bc.law_params(law), grid,
+                              10.0)
+
+
+def test_batched_cutoff_kernels_reject_bad_grids(cuda_device):
+    """A grid of another form, an unbatched grid and a grid of another
+    batch size are refused before any launch."""
+    planes = cutoff_batch(3, 600, seed=8, device=cuda_device)
+    x, y, vx, vy, rad, alive = planes[:6]
+    prm = cuda_forces.law_rows("moussaid", MoussaidParams(), 3, cuda_device)
+    grid = bc.cutoff_grid_of("sym_compact", planes, 10.0, 2)
+    cuda_forces.reset_launch_counts()
+    with pytest.raises(ValueError, match="boxes"):
+        cuda_forces.pair_force_cutoff_batched(x, y, vx, vy, rad, alive, prm,
+                                              bc.row_grid(grid, 0))
+    with pytest.raises(ValueError, match="surv"):
+        cuda_forces.pair_force_cutoff_batched(
+            x[:2].contiguous(), y[:2].contiguous(), vx[:2].contiguous(),
+            vy[:2].contiguous(), rad[:2].contiguous(),
+            alive[:2].contiguous(), prm[:2],
+            grid._replace(boxes=grid.boxes[:2].contiguous()))
+    with pytest.raises(ValueError, match="no sym_compact_batched"):
+        cuda_forces.pair_force_cutoff_batched(
+            x, y, vx, vy, None, alive, prm, grid, law="helbing",
+            desired=(vx, vy))
+    with pytest.raises(ValueError, match="drives"):
+        cuda_forces._launch("moussaid", "compact_batched", x, y, vx, vy, rad,
+                            alive, prm, False, grid)
+    assert not any(cuda_forces.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("case", ["config1 sym", "config1 dense",
+                                  "sym table", "dense table", "config3",
+                                  "sweep config3", "powerlaw", "helbing"])
+def test_batched_cutoff_steps_through_kernels_match_plain_steps(cuda_device,
+                                                                case):
+    """Every step of a 20-step batched rollout with a 10 m cutoff through
+    the kernels within 1e-4 m (L-inf, each row) of the plain versions'
+    step from the same state, with equal modes and alive masks; one launch
+    of the batched cutoff kernel per step (the table forms with
+    ``pair_max_surv = 2``)."""
+    from carla_social_force_model_tpu_torch.api.synthetic import (
+        batched_crowds)
+    from carla_social_force_model_tpu_torch.parallel.sweeps import (
+        batch_params)
+    b, n, steps = 4, 1000, 20
+    geometry = case.endswith("config3")
+    scene, params, cfg, _ = benchmark_bundle(
+        n, with_borders=geometry, with_obstacles=geometry,
+        num_steps_hint=steps, device=cuda_device)
+    scene = dataclasses.replace(scene, spawn=batched_crowds(
+        b, n, extent=float(np.sqrt(n)), device=cuda_device))
+    table = case.endswith("table")
+    cfg = dataclasses.replace(
+        cfg, interaction_cutoff=10.0,
+        symmetric_pairs=case not in ("config1 dense", "dense table"),
+        pair_max_surv=2 if table else 0)
+    if case == "powerlaw":
+        params = dataclasses.replace(params, enable_pedestrian=False,
+                                     enable_powerlaw=True)
+    if case == "helbing":
+        params = dataclasses.replace(params, enable_pedestrian=False,
+                                     enable_ped_repulsive=True)
+    if case.startswith("sweep"):
+        params = batch_params(params, pedestrian_A=torch.linspace(
+            1.0, 9.0, b, device=cuda_device), border_b=torch.linspace(
+            0.1, 0.3, b, device=cuda_device))
+    cuda_forces.reset_launch_counts()
+    cuda_env.reset_launch_counts()
+    for k, gap, equal, finite in bc.one_step_gaps(
+            scene, params, cfg, PedState.empty(n, device=cuda_device,
+                                               batch=b), steps):
+        assert equal and finite, k
+        assert gap.max().item() <= 1e-4, (k, gap)
+    launched = {k: v for m in (cuda_forces, cuda_env)
+                for k, v in m.LAUNCHES.items() if v}
+    law = {"powerlaw": "powerlaw", "helbing": "helbing"}.get(case,
+                                                            "moussaid")
+    form = (("sym_" if cfg.symmetric_pairs and law != "helbing" else "")
+            + ("compact" if table else "cutoff"))
+    if form == "cutoff":
+        form = "dense_cutoff"
+    want = {bc.CUTOFF_FORMS[law, form]: steps}
+    if geometry:
+        want.update(env_exp_batched=steps, env_moussaid_batched=2 * steps)
+    assert launched == want

@@ -486,8 +486,6 @@ def refusal_cases():
     groups = build_groups([0, 0, 1, 1, -1, -1, -1, -1], device="cpu")
     col = torch.ones((2, 8))
     return {
-        "interaction_cutoff": (batched, params, dataclasses.replace(
-            cfg, interaction_cutoff=30.0)),
         "env_compact": (batched, params, dataclasses.replace(
             cfg, env_compact=True)),
         "env_analytic": (batched, params, dataclasses.replace(
@@ -508,7 +506,7 @@ def refusal_cases():
     }
 
 
-@pytest.mark.parametrize("case", ["interaction_cutoff", "env_compact",
+@pytest.mark.parametrize("case", ["env_compact",
                                   "env_analytic", "env_chunked", "ORCA",
                                   "groups", "autopilot fleet", "pair_scale",
                                   "law_id"])
@@ -528,7 +526,8 @@ def test_batched_step_refuses_what_is_not_ported(case):
 @pytest.mark.parametrize("case", ["agent axis", "ensemble mesh",
                                   "sweep mesh", "sweep orca",
                                   "sharded ensemble", "batch shards",
-                                  "sweep cutoff", "fused env table"])
+                                  "agent axis with cutoff",
+                                  "fused env table"])
 def test_batch_sharding_and_sweep_options_refused(case):
     scene, params, cfg, _ = synthetic.benchmark_bundle(8, extent=10.0,
                                                        device="cpu")
@@ -550,9 +549,10 @@ def test_batch_sharding_and_sweep_options_refused(case):
             None, batched, params, cfg, 2),
         "batch shards": lambda: make_mesh(1, n_batch_shards=2,
                                           device="cpu"),
-        "sweep cutoff": lambda: sweeps.make_sweep_rollout(
-            scene, dataclasses.replace(cfg, interaction_cutoff=30.0),
-            2)(swept),
+        "agent axis with cutoff": lambda: stepper.simulation_step(
+            state, scene, swept,
+            dataclasses.replace(cfg, interaction_cutoff=30.0), 0,
+            axis=make_mesh(1, device="cpu")),
         "fused env table": lambda: cuda_env.fused_environment_terms(
             state, stepper.prepare_scene(synthetic.benchmark_bundle(
                 8, extent=10.0, with_borders=True, device="cpu")[0]),
