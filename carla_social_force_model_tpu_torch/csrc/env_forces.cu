@@ -93,20 +93,26 @@
 // touched sections are the same work in both forms.
 //
 // Batches (ensembles and parameter sweeps).  Under the JAX package's vmap
-// _exp_kernel and _moussaid_kernel gain a leading batch axis on the
-// pedestrian planes and the swept parameters (sweeps.py:81-84), while the
-// geometry stays shared.  Here the dense sampled walks take B crowds in one
-// launch (env_force_batched_kernel; sfm_env_exp_batched,
-// sfm_env_moussaid_batched): the grid's y index is the crowd, whose sorted
-// planes and outputs lie at blockIdx.y * n, its parameters (exp: a, b;
-// Moussaid: the six) at blockIdx.y * prm_stride and its squared filter
-// radii at blockIdx.y * r2_stride (0: shared; a swept perception threshold
-// gives each crowd its own); every crowd reads the one set of point rows.
-// The batched kernel hands its crowd's pointers to the walk body the
-// unbatched kernel runs (env_walk), so row b equals the unbatched launch
-// on row b bitwise, and the unbatched kernels compile without a batch
-// offset (offsets read from blockIdx.y inside the body cost 30% on
-// env_exp_analytic).
+// every environment kernel gains a leading batch axis on the pedestrian
+// planes, the swept parameters and the survivor table (sweeps.py:81-84;
+// pallas_env.py:662 builds each row's table over its own sorted crowd),
+// while the geometry stays shared.  Here every walk and geometry takes B
+// crowds in one launch (env_force_batched_kernel<kMoussaid, kWalk, kGeom>;
+// sfm_env_exp_batched, sfm_env_moussaid_batched, their _compact_batched
+// forms and sfm_env_exp_analytic_batched, _analytic_compact_batched): the
+// grid's y index is the crowd, whose sorted planes and outputs lie at
+// blockIdx.y * n, its parameters (exp: a, b; Moussaid: the six) at
+// blockIdx.y * prm_stride, its squared filter radii at blockIdx.y *
+// r2_stride (0: shared; a swept perception threshold gives each crowd its
+// own) and its table rows at blockIdx.y * ceil(n / 128); every crowd reads
+// the one set of point rows or segment planes.  A crowd whose table row
+// overflows walks every section for that row's blocks, as the unbatched
+// kernel does (the TPU fell back to its whole dense grid by lax.cond; the
+// values are the same).  The batched kernel hands its crowd's pointers to
+// the walk body the unbatched kernel runs (env_walk), so row b equals the
+// unbatched launch on row b bitwise, and the unbatched kernels compile
+// without a batch offset (offsets read from blockIdx.y inside the body
+// cost 30% on env_exp_analytic).
 //
 // Where the TPU design does not carry over.  The TPU grid walked
 // (ped tile, point tile) pairs in order and accumulated into one resident
@@ -373,32 +379,43 @@ env_force_kernel(const float* __restrict__ px_, const float* __restrict__ py_,
                                     surv, counts, max_surv, gs, fx, fy);
 }
 
-// The dense sampled walk over a batch of crowds of n pedestrians: crowd
-// blockIdx.y's sorted planes and outputs at blockIdx.y * n, its parameters
-// (exp: a, b; Moussaid: the six) at blockIdx.y * prm_stride and its
-// squared filter radii at blockIdx.y * r2_stride (0: shared); every crowd
-// reads the one set of point rows.  The walk is the unbatched one.
-template <bool kMoussaid>
+// Every walk over a batch of crowds of n pedestrians: crowd blockIdx.y's
+// sorted planes and outputs at blockIdx.y * n, its parameters (exp: a, b;
+// Moussaid: the six) at blockIdx.y * prm_stride, its squared filter radii
+// at blockIdx.y * r2_stride (0: shared) and, for kTable, its survivor-table
+// rows at blockIdx.y * ceil(n / kEnvTableRow) (surv rows max_surv wide);
+// every crowd reads the one set of point rows or segment planes.  The walk
+// is the unbatched one: env_walk reads its table row at blockIdx.x /
+// kEnvTableBlocks of the crowd's table, which is where the unbatched
+// kernel reads a crowd's.
+template <bool kMoussaid, Walk kWalk, Geom kGeom>
 __global__ void __launch_bounds__(kEnvThreads)
 env_force_batched_kernel(
     const float* __restrict__ px_, const float* __restrict__ py_,
     const float* __restrict__ pvx_, const float* __restrict__ pvy_,
     const float* __restrict__ prad_, const uint8_t* __restrict__ alive_,
-    const float* __restrict__ ptx, const float* __restrict__ pty, int k,
-    const int* __restrict__ lens, const float* __restrict__ cx,
-    const float* __restrict__ cy, const float* __restrict__ r2,
-    int r2_stride, const float* __restrict__ ov, int s_count,
+    const float* __restrict__ ptx, const float* __restrict__ pty,
+    const float* __restrict__ pux, const float* __restrict__ puy,
+    const float* __restrict__ pil2, int k, const int* __restrict__ lens,
+    const float* __restrict__ cx, const float* __restrict__ cy,
+    const float* __restrict__ r2, int r2_stride,
+    const float* __restrict__ ov, int s_count,
     const float* __restrict__ prm, int prm_stride, int use_radius, int n,
-    float* __restrict__ fx, float* __restrict__ fy) {
+    const int* __restrict__ surv, const int* __restrict__ counts,
+    int max_surv, int gs, float* __restrict__ fx, float* __restrict__ fy) {
   const int bo = (int)blockIdx.y * n;
   const float* row_prm = prm + (long long)blockIdx.y * prm_stride;
-  env_walk<kMoussaid, kAllSections, kSampled>(
+  const long long trow0 =
+      (long long)blockIdx.y * ((n + kEnvTableRow - 1) / kEnvTableRow);
+  env_walk<kMoussaid, kWalk, kGeom>(
       px_ + bo, py_ + bo, kMoussaid ? pvx_ + bo : nullptr,
       kMoussaid ? pvy_ + bo : nullptr, prad_ + bo, alive_ + bo, ptx, pty,
-      nullptr, nullptr, nullptr, k, lens, cx, cy,
+      pux, puy, pil2, k, lens, cx, cy,
       r2 + (long long)blockIdx.y * r2_stride, ov, s_count, row_prm,
       kMoussaid ? 0.0f : row_prm[0], kMoussaid ? 1.0f : row_prm[1],
-      use_radius, n, nullptr, nullptr, 0, 1, fx + bo, fy + bo);
+      use_radius, n, kWalk == kTable ? surv + trow0 * max_surv : nullptr,
+      kWalk == kTable ? counts + trow0 : nullptr, max_surv, gs, fx + bo,
+      fy + bo);
 }
 
 template <bool kMoussaid, Walk kWalk, Geom kGeom>
@@ -421,22 +438,26 @@ int env_launch(const float* px, const float* py, const float* pvx,
   return (int)cudaGetLastError();
 }
 
-template <bool kMoussaid>
+template <bool kMoussaid, Walk kWalk, Geom kGeom>
 int env_batched_launch(const float* px, const float* py, const float* pvx,
                        const float* pvy, const float* prad,
                        const uint8_t* alive, const float* ptx,
-                       const float* pty, int k, const int* lens,
+                       const float* pty, const float* pux, const float* puy,
+                       const float* pil2, int k, const int* lens,
                        const float* cx, const float* cy, const float* r2,
                        int r2_stride, const float* ov, int s_count,
                        const float* prm, int prm_stride, int use_radius,
-                       int n, int batch, float* fx, float* fy, void* stream) {
+                       int n, int batch, const int* surv, const int* counts,
+                       int max_surv, int gs, float* fx, float* fy,
+                       void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   if (batch < 1 || batch > 65535) return (int)cudaErrorInvalidValue;
   const int blocks = (n + kEnvPeds - 1) / kEnvPeds;
-  env_force_batched_kernel<kMoussaid>
+  env_force_batched_kernel<kMoussaid, kWalk, kGeom>
       <<<dim3(blocks, batch), kEnvThreads, 0, (cudaStream_t)stream>>>(
-          px, py, pvx, pvy, prad, alive, ptx, pty, k, lens, cx, cy, r2,
-          r2_stride, ov, s_count, prm, prm_stride, use_radius, n, fx, fy);
+          px, py, pvx, pvy, prad, alive, ptx, pty, pux, puy, pil2, k, lens,
+          cx, cy, r2, r2_stride, ov, s_count, prm, prm_stride, use_radius, n,
+          surv, counts, max_surv, gs, fx, fy);
   return (int)cudaGetLastError();
 }
 
@@ -537,11 +558,13 @@ int sfm_env_exp_analytic_compact(const float* px, const float* py,
       counts, max_surv, gs, fx, fy, stream);
 }
 
-// The batched dense walks: batch crowds of n pedestrians, planes and
-// outputs (batch, n) row-major, one set of point rows; r2 (s_count,) shared
-// (r2_stride 0) or (batch, s_count) (r2_stride s_count); prm (batch, 2) of
-// (a, b) for exp and (batch, 6) for Moussaid, rows prm_stride apart (0:
-// shared).
+// The batched walks: batch crowds of n pedestrians, planes and outputs
+// (batch, n) row-major, one set of point rows (or segment planes); r2
+// (s_count,) shared (r2_stride 0) or (batch, s_count) (r2_stride s_count);
+// prm (batch, 2) of (a, b) for exp and (batch, 6) for Moussaid, rows
+// prm_stride apart (0: shared).  The _compact_batched entries also take the
+// crowds' survivor tables surv (batch, ceil(n/128), max_surv) int32 and
+// counts (batch, ceil(n/128)), and gs sections per group.
 int sfm_env_exp_batched(const float* px, const float* py, const float* prad,
                         const uint8_t* alive, const float* ptx,
                         const float* pty, int k, const int* lens,
@@ -549,10 +572,11 @@ int sfm_env_exp_batched(const float* px, const float* py, const float* prad,
                         int r2_stride, int s_count, const float* prm,
                         int prm_stride, int use_radius, int n, int batch,
                         float* fx, float* fy, void* stream) {
-  return env_batched_launch<false>(px, py, nullptr, nullptr, prad, alive, ptx,
-                                   pty, k, lens, cx, cy, r2, r2_stride,
-                                   nullptr, s_count, prm, prm_stride,
-                                   use_radius, n, batch, fx, fy, stream);
+  return env_batched_launch<false, kAllSections, kSampled>(
+      px, py, nullptr, nullptr, prad, alive, ptx, pty, nullptr, nullptr,
+      nullptr, k, lens, cx, cy, r2, r2_stride, nullptr, s_count, prm,
+      prm_stride, use_radius, n, batch, nullptr, nullptr, 0, 1, fx, fy,
+      stream);
 }
 
 int sfm_env_moussaid_batched(const float* px, const float* py,
@@ -564,10 +588,68 @@ int sfm_env_moussaid_batched(const float* px, const float* py,
                              const float* ov, int s_count, const float* prm,
                              int prm_stride, int use_radius, int n,
                              int batch, float* fx, float* fy, void* stream) {
-  return env_batched_launch<true>(px, py, pvx, pvy, prad, alive, ptx, pty, k,
-                                  lens, cx, cy, r2, r2_stride, ov, s_count,
-                                  prm, prm_stride, use_radius, n, batch, fx,
-                                  fy, stream);
+  return env_batched_launch<true, kAllSections, kSampled>(
+      px, py, pvx, pvy, prad, alive, ptx, pty, nullptr, nullptr, nullptr, k,
+      lens, cx, cy, r2, r2_stride, ov, s_count, prm, prm_stride, use_radius,
+      n, batch, nullptr, nullptr, 0, 1, fx, fy, stream);
+}
+
+int sfm_env_exp_compact_batched(const float* px, const float* py,
+                                const float* prad, const uint8_t* alive,
+                                const float* ptx, const float* pty, int k,
+                                const int* lens, const float* cx,
+                                const float* cy, const float* r2,
+                                int r2_stride, int s_count, const float* prm,
+                                int prm_stride, int use_radius, int n,
+                                int batch, const int* surv, const int* counts,
+                                int max_surv, int gs, float* fx, float* fy,
+                                void* stream) {
+  return env_batched_launch<false, kTable, kSampled>(
+      px, py, nullptr, nullptr, prad, alive, ptx, pty, nullptr, nullptr,
+      nullptr, k, lens, cx, cy, r2, r2_stride, nullptr, s_count, prm,
+      prm_stride, use_radius, n, batch, surv, counts, max_surv, gs, fx, fy,
+      stream);
+}
+
+int sfm_env_moussaid_compact_batched(
+    const float* px, const float* py, const float* pvx, const float* pvy,
+    const float* prad, const uint8_t* alive, const float* ptx,
+    const float* pty, int k, const int* lens, const float* cx,
+    const float* cy, const float* r2, int r2_stride, const float* ov,
+    int s_count, const float* prm, int prm_stride, int use_radius, int n,
+    int batch, const int* surv, const int* counts, int max_surv, int gs,
+    float* fx, float* fy, void* stream) {
+  return env_batched_launch<true, kTable, kSampled>(
+      px, py, pvx, pvy, prad, alive, ptx, pty, nullptr, nullptr, nullptr, k,
+      lens, cx, cy, r2, r2_stride, ov, s_count, prm, prm_stride, use_radius,
+      n, batch, surv, counts, max_surv, gs, fx, fy, stream);
+}
+
+int sfm_env_exp_analytic_batched(
+    const float* px, const float* py, const float* prad,
+    const uint8_t* alive, const float* ax, const float* ay, const float* ux,
+    const float* uy, const float* il2, int m, const int* lens,
+    const float* cx, const float* cy, const float* r2, int r2_stride,
+    int s_count, const float* prm, int prm_stride, int use_radius, int n,
+    int batch, float* fx, float* fy, void* stream) {
+  return env_batched_launch<false, kAllSections, kAnalytic>(
+      px, py, nullptr, nullptr, prad, alive, ax, ay, ux, uy, il2, m, lens,
+      cx, cy, r2, r2_stride, nullptr, s_count, prm, prm_stride, use_radius,
+      n, batch, nullptr, nullptr, 0, 1, fx, fy, stream);
+}
+
+int sfm_env_exp_analytic_compact_batched(
+    const float* px, const float* py, const float* prad,
+    const uint8_t* alive, const float* ax, const float* ay, const float* ux,
+    const float* uy, const float* il2, int m, const int* lens,
+    const float* cx, const float* cy, const float* r2, int r2_stride,
+    int s_count, const float* prm, int prm_stride, int use_radius, int n,
+    int batch, const int* surv, const int* counts, int max_surv, int gs,
+    float* fx, float* fy, void* stream) {
+  return env_batched_launch<false, kTable, kAnalytic>(
+      px, py, nullptr, nullptr, prad, alive, ax, ay, ux, uy, il2, m, lens,
+      cx, cy, r2, r2_stride, nullptr, s_count, prm, prm_stride, use_radius,
+      n, batch, surv, counts, max_surv, gs, fx, fy, stream);
 }
 
 }  // extern "C"

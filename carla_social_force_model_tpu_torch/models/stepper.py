@@ -55,9 +55,13 @@ row (``cuda_forces.pedestrian_force_batched``, ``cuda_env.
 fused_environment_terms``); with ``StepConfig.interaction_cutoff`` each
 row is sorted along its own Hilbert curve (one ``(B, N)`` permutation
 shared by the pair and environment terms) and the batched cutoff kernels
-read each crowd's boxes and survivor table.  The records are ``(B, T,
-N)``.  :func:`check_supported` refuses what is not batched yet (ROADMAP
-items 19b.2-19b.4) with ``NotImplementedError``.
+read each crowd's boxes and survivor table.  ``env_compact`` and
+``env_analytic`` launch the batched compacted and analytic environment
+kernels (each crowd's own survivor table), and ``env_chunked`` one chunk
+scan over every row's pedestrians (``ops/forces.
+chunked_environment_terms``).  The records are ``(B, T, N)``.
+:func:`check_supported` refuses what is not batched yet (ROADMAP items
+19b.3-19b.4) with ``NotImplementedError``.
 
 The device chooses the kernel path: the CUDA kernels on a card, the plain
 PyTorch versions on the CPU (ops/cuda_forces.py, ops/cuda_env.py,
@@ -299,16 +303,12 @@ def _check_batched(scene: Scene, params: SfmParams, cfg: StepConfig,
                    axis) -> None:
     """Refuse, under a batch, every configuration the batched step does not
     run: ``NotImplementedError`` naming ROADMAP item 19b (nothing runs
-    another path instead).  The interaction cutoff runs (item 19b.1), but
-    not over an agent axis."""
+    another path instead).  The interaction cutoff (item 19b.1) and the
+    compacted, analytic and chunked environment paths (item 19b.2) run,
+    but not over an agent axis."""
     refused = (
         (axis is not None, "an agent axis (sharding a batch of crowds, "
                            "with or without interaction_cutoff)"),
-        (cfg.env_compact, "env_compact (the batched compacted environment "
-                          "kernels)"),
-        (cfg.env_analytic, "env_analytic (the batched analytic border "
-                           "kernels)"),
-        (cfg.env_chunked, "env_chunked (the batched chunk scan)"),
         (params.enable_orca, "ORCA"),
         (params.enable_group and scene.groups is not None, "social groups"),
         (scene.autopilot is not None, "the reactive autopilot fleet"),
@@ -328,10 +328,10 @@ def check_supported(scene: Scene, params: SfmParams, cfg: StepConfig,
     groups of the wrong form, and for ``env_chunked`` together with a knob
     of the fused environment path; under a batch (:func:`batch_of` of
     ``state``, the schedule and the params), ``NotImplementedError`` for
-    what the batched step does not run yet (ROADMAP item 19b: the
-    compacted, analytic and chunked environment paths, ORCA, groups, the
-    fleet, per-agent columns, an agent axis and a mesh; the interaction
-    cutoff runs)."""
+    what the batched step does not run yet (ROADMAP item 19b: ORCA,
+    groups, the fleet, per-agent columns, an agent axis and a mesh; the
+    interaction cutoff and the compacted, analytic and chunked environment
+    paths run)."""
     if batch_of(state, scene, params) is not None:
         _check_batched(scene, params, cfg, axis)
     if cfg.env_chunked and (cfg.env_analytic or cfg.env_compact):

@@ -229,8 +229,10 @@ def snapshot_segment_pointset(snap: VehicleSnapshot, perception_threshold):
 
 def snapshot_pointset(snap: VehicleSnapshot, perception_threshold):
     """Chunked dynamic-obstacle point set from a snapshot (tensors on the
-    device; the JAX package's jnp path reads this form).  Returns
-    ``(ChunkedPointSet, obstacle_vel (V, 2), active (V,))``."""
+    device; the JAX package's jnp path reads this form).  A swept
+    ``perception_threshold`` (a ``(B,)`` tensor) gives each of the B crowds
+    its own filter radii, ``(B, V)``.  Returns ``(ChunkedPointSet,
+    obstacle_vel (V, 2), active (V,))``."""
     wx, wy = _world_outline(snap, valid_only=False)
     world = torch.stack([wx, wy], dim=-1)                       # (V, P, 2)
     v, p, _ = world.shape
@@ -241,10 +243,13 @@ def snapshot_pointset(snap: VehicleSnapshot, perception_threshold):
     chunk_segment = torch.arange(
         v, dtype=torch.int32, device=world.device).repeat_interleave(
             n_chunks_per_v)
+    if isinstance(perception_threshold, torch.Tensor):
+        radius = perception_threshold.to(world)[:, None].expand(-1, v)
+    else:
+        radius = torch.full((v,), float(perception_threshold),
+                            dtype=world.dtype, device=world.device)
     pset = ChunkedPointSet(
         points=world.reshape(v * n_chunks_per_v, k, 2), valid=valid,
         chunk_segment=chunk_segment, centers=snap.center,
-        filter_radius=torch.full((v,), float(perception_threshold),
-                                 dtype=world.dtype, device=world.device),
-        num_segments=v)
+        filter_radius=radius, num_segments=v)
     return pset, snap.vel, snap.active

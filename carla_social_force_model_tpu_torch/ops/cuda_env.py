@@ -2,7 +2,7 @@
 ops/pallas_env.py: sampled points and the analytic border geometry, dense
 and compacted forms).
 
-Six kernels from ``csrc/env_forces.cu``, each behind a wrapper that checks
+Twelve kernels from ``csrc/env_forces.cu``, each behind a wrapper that checks
 its inputs, allocates its outputs, launches on PyTorch's current stream and
 counts the launch:
 
@@ -28,8 +28,14 @@ counts the launch:
   against one set of segments, one launch for every row, each row with its
   own parameters (a ``(B, P)`` matrix on the device, stride 0 when shared)
   and, for a swept perception threshold, its own filter radii: the JAX
-  package's ``_exp_kernel`` and ``_moussaid_kernel`` under ``vmap``.  Row
-  b equals the unbatched launch on row b bitwise.
+  package's ``_exp_kernel`` and ``_moussaid_kernel`` under ``vmap``.
+  :func:`env_exp_compact_batched`, :func:`env_moussaid_compact_batched`,
+  :func:`env_exp_analytic_batched` and
+  :func:`env_exp_analytic_compact_batched` are the batched forms of the
+  compacted and analytic kernels, each crowd walking its own rows of a
+  batched survivor table (``ops/env_grid.env_grid`` of ``(B, n)``
+  planes).  Row b of every batched form equals the unbatched launch on
+  row b (with its table) bitwise.
 
 On CPU tensors each wrapper runs its plain PyTorch version
 (``ops/forces.py``; the table changes no value, so the compacted forms have
@@ -40,11 +46,12 @@ falls back from the kernel to the plain version.
 the Hilbert curve (the kernels skip, per block of consecutive pedestrians,
 every segment whose filter circle misses the block), launches one kernel
 per job on the sorted planes (the compacted form where the JAX package's
-static gate would, with ``compact``), scatters each result back to slot
-order and applies the crossing-mode rule of the border-family terms; on
-``(B, N)`` planes it sorts each row on its own and launches the batched
-kernels.  :func:`plain_environment_terms` computes the same jobs with the
-plain versions.
+static gate would, with ``compact``; the analytic form on the line-segment
+geometry, with ``analytic``), scatters each result back to slot order and
+applies the crossing-mode rule of the border-family terms; on ``(B, N)``
+planes it sorts each row on its own and launches the batched form of the
+same kernel, once for every row.  :func:`plain_environment_terms`
+computes the same jobs with the plain versions.
 """
 from __future__ import annotations
 
@@ -62,7 +69,9 @@ from ..models.params import (MoussaidParams, exp_rows, law_rows,
 LAUNCHES = {"env_exp": 0, "env_moussaid": 0, "env_exp_compact": 0,
             "env_moussaid_compact": 0, "env_exp_analytic": 0,
             "env_exp_analytic_compact": 0, "env_exp_batched": 0,
-            "env_moussaid_batched": 0}
+            "env_moussaid_batched": 0, "env_exp_compact_batched": 0,
+            "env_moussaid_compact_batched": 0, "env_exp_analytic_batched": 0,
+            "env_exp_analytic_compact_batched": 0}
 
 
 def reset_launch_counts() -> None:
@@ -113,10 +122,14 @@ def _lengths_ptr(seg, dev) -> int:
     return lengths.data_ptr()
 
 
-def _check_grid(grid: EnvGrid, n: int, dev):
+def _check_grid(grid: EnvGrid, n: int, dev, batch=None):
+    """The table of ``n`` sorted pedestrians, or of ``batch`` crowds of
+    ``n``: ``(batch, blocks, max_surv)`` and ``(batch, blocks)``."""
     blocks = -(-n // 128)
-    for name, t, shape in (("surv", grid.surv, (blocks, grid.max_surv)),
-                           ("counts", grid.counts, (blocks,))):
+    lead = () if batch is None else (batch,)
+    for name, t, shape in (("surv", grid.surv,
+                            (*lead, blocks, grid.max_surv)),
+                           ("counts", grid.counts, (*lead, blocks))):
         if (t.device != dev or t.dtype != torch.int32 or t.shape != shape
                 or not t.is_contiguous()):
             raise ValueError(f"survivor table {name} must be a contiguous "
@@ -137,8 +150,8 @@ def filter_r2(seg, active=None) -> torch.Tensor:
 
 def _launch(name, args, pos_x, grid=None):
     """Launch ``sfm_<name>`` with ``args`` (everything before ``n``), then
-    ``n``, the table (``grid``, compacted forms) or, for ``(B, n)`` planes
-    (the batched forms), ``B``, the outputs and the stream."""
+    ``n``, for ``(B, n)`` planes (the batched forms) ``B``, the table
+    (``grid``, compacted forms), the outputs and the stream."""
     from ..utils.cuda_build import load_kernels
     fx = torch.empty_like(pos_x)
     fy = torch.empty_like(pos_x)
@@ -149,7 +162,7 @@ def _launch(name, args, pos_x, grid=None):
                                      grid.counts.data_ptr(), grid.max_surv,
                                      grid.group)
     if pos_x.dim() == 2:
-        table = (pos_x.shape[0],)
+        table = (pos_x.shape[0], *table)
     lib = load_kernels()
     with torch.cuda.device(pos_x.device):
         stream = torch.cuda.current_stream(pos_x.device).cuda_stream
@@ -232,12 +245,8 @@ def env_exp_compact(pos_x, pos_y, radius, alive, seg, a: float, b: float,
     return _launch("env_exp_compact", args, pos_x, grid)
 
 
-def _analytic_args(pos_x, pos_y, radius, alive, geom, a, b, use_radius,
-                   active):
-    """The analytic exp entries' arguments before ``n`` (see
-    :func:`_exp_args`)."""
-    dev = pos_x.device
-    _check_planes((pos_x, pos_y, radius), alive, dev)
+def _check_geom(geom, dev):
+    """The analytic segment planes (S, M) and the section centers (S,)."""
     s, m = geom.ax.shape
     for name, t, shape in (("ax", geom.ax, (s, m)), ("ay", geom.ay, (s, m)),
                            ("ux", geom.ux, (s, m)), ("uy", geom.uy, (s, m)),
@@ -249,12 +258,22 @@ def _analytic_args(pos_x, pos_y, radius, alive, geom, a, b, use_radius,
             raise ValueError(f"segment geometry {name} must be a contiguous "
                              f"float32 {shape} tensor on {dev}; got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    return (geom.ax.data_ptr(), geom.ay.data_ptr(), geom.ux.data_ptr(),
+            geom.uy.data_ptr(), geom.inv_len2.data_ptr(), m)
+
+
+def _analytic_args(pos_x, pos_y, radius, alive, geom, a, b, use_radius,
+                   active):
+    """The analytic exp entries' arguments before ``n`` (see
+    :func:`_exp_args`)."""
+    dev = pos_x.device
+    _check_planes((pos_x, pos_y, radius), alive, dev)
+    planes = _check_geom(geom, dev)
     r2 = filter_r2(geom, active)
     return (pos_x.data_ptr(), pos_y.data_ptr(), radius.data_ptr(),
-            alive.data_ptr(), geom.ax.data_ptr(), geom.ay.data_ptr(),
-            geom.ux.data_ptr(), geom.uy.data_ptr(), geom.inv_len2.data_ptr(),
-            m, _lengths_ptr(geom, dev), geom.center_x.data_ptr(),
-            geom.center_y.data_ptr(), r2.data_ptr(), s, float(a), float(b),
+            alive.data_ptr(), *planes, _lengths_ptr(geom, dev),
+            geom.center_x.data_ptr(), geom.center_y.data_ptr(),
+            r2.data_ptr(), geom.num_segments, float(a), float(b),
             int(use_radius)), r2
 
 
@@ -322,7 +341,9 @@ def _batched_args(pos_x, pos_y, vel_x, vel_y, radius, alive, seg, r2,
                   moussaid, obstacle_vel=None):
     """The batched entries' plane, segment and filter arguments, checked:
     ``(B, n)`` planes (vel_x, vel_y only for the Moussaid form), the
-    segments of :func:`_check_segments`, ``r2`` ``(S,)`` or ``(B, S)``."""
+    segments of :func:`_check_segments` or, for a
+    :class:`..env.pointsets.SegmentGeomSet`, the planes of
+    :func:`_check_geom`, ``r2`` ``(S,)`` or ``(B, S)``."""
     dev = pos_x.device
     if pos_x.dim() != 2:
         raise ValueError(f"the batched kernels take (B, n) planes, got "
@@ -333,9 +354,13 @@ def _batched_args(pos_x, pos_y, vel_x, vel_y, radius, alive, seg, r2,
                          f"32-bit indices")
     _check_planes((pos_x, pos_y, *((vel_x, vel_y) if moussaid else ()),
                    radius), alive, dev, batch)
-    s, k = seg.x.shape
-    extra = () if not moussaid else (("velocity", obstacle_vel, (s, 2)),)
-    _check_segments(seg, extra, dev)
+    s = seg.num_segments
+    if isinstance(seg, SegmentGeomSet):
+        rows = _check_geom(seg, dev)
+    else:
+        extra = () if not moussaid else (("velocity", obstacle_vel, (s, 2)),)
+        _check_segments(seg, extra, dev)
+        rows = (seg.x.data_ptr(), seg.y.data_ptr(), seg.x.shape[1])
     if (r2.shape not in ((s,), (batch, s)) or r2.stride(-1) != 1
             or r2.dim() == 2 and r2.stride(0) not in (0, s)):
         raise ValueError(f"segment filter radii must be ({s},) or "
@@ -344,11 +369,52 @@ def _batched_args(pos_x, pos_y, vel_x, vel_y, radius, alive, seg, r2,
     r2_stride = 0 if r2.dim() == 1 else r2.stride(0)
     ptrs = (pos_x.data_ptr(), pos_y.data_ptr(),
             *((vel_x.data_ptr(), vel_y.data_ptr()) if moussaid else ()),
-            radius.data_ptr(), alive.data_ptr(), seg.x.data_ptr(),
-            seg.y.data_ptr(), k, _lengths_ptr(seg, dev),
-            seg.center_x.data_ptr(), seg.center_y.data_ptr(), r2.data_ptr(),
-            r2_stride)
+            radius.data_ptr(), alive.data_ptr(), *rows,
+            _lengths_ptr(seg, dev), seg.center_x.data_ptr(),
+            seg.center_y.data_ptr(), r2.data_ptr(), r2_stride)
     return ptrs, batch
+
+
+def _launch_batched(name, pos_x, pos_y, vel_x, vel_y, radius, alive, seg,
+                    active, prm, use_radius, obstacle_vel=None, grid=None):
+    """Check and launch the batched entry ``sfm_<name>``: the exp forms
+    (``obstacle_vel`` None) or the Moussaid forms, with the crowds' table
+    ``grid`` for the compacted ones; ``prm`` the ``(B, P)`` parameter
+    rows."""
+    moussaid = obstacle_vel is not None
+    r2 = filter_r2(seg, active)
+    ptrs, batch = _batched_args(pos_x, pos_y, vel_x, vel_y, radius, alive,
+                                seg, r2, moussaid, obstacle_vel)
+    if grid is not None:
+        _check_grid(grid, pos_x.shape[1], pos_x.device, batch)
+    ov = (obstacle_vel.data_ptr(),) if moussaid else ()
+    return _launch(name, (*ptrs, *ov, seg.num_segments, prm.data_ptr(),
+                          prm.stride(0), int(use_radius)), pos_x, grid)
+
+
+def _exp_batched(name, pos_x, pos_y, radius, alive, seg, a, b, use_radius,
+                 active, grid=None):
+    """The batched exp forms: the plain batched version on CPU tensors,
+    else the entry ``sfm_<name>``."""
+    if _device_of(pos_x) == "cpu":
+        return forces.env_exp_force_batched(pos_x, pos_y, radius, alive, seg,
+                                            a, b, use_radius=use_radius,
+                                            active=active)
+    prm = exp_rows(a, b, pos_x.shape[0], pos_x.device)
+    return _launch_batched(name, pos_x, pos_y, None, None, radius, alive,
+                           seg, active, prm, use_radius, grid=grid)
+
+
+def _moussaid_batched(name, pos_x, pos_y, vel_x, vel_y, radius, alive, seg,
+                      obstacle_vel, p, use_radius, active, grid=None):
+    """The batched Moussaid forms (see :func:`_exp_batched`)."""
+    if _device_of(pos_x) == "cpu":
+        return forces.env_moussaid_force_batched(
+            pos_x, pos_y, vel_x, vel_y, radius, alive, seg, obstacle_vel, p,
+            use_radius=use_radius, active=active)
+    prm = law_rows("moussaid", p, pos_x.shape[0], pos_x.device)
+    return _launch_batched(name, pos_x, pos_y, vel_x, vel_y, radius, alive,
+                           seg, active, prm, use_radius, obstacle_vel, grid)
 
 
 def env_exp_batched(pos_x, pos_y, radius, alive, seg, a, b,
@@ -358,17 +424,38 @@ def env_exp_batched(pos_x, pos_y, radius, alive, seg, a, b,
     numbers shared by every row, or ``(B,)`` tensors (a sweep of the
     border or space-repulsive parameters).  A ``(B, S)`` filter radius
     gives each row its own filter."""
-    if _device_of(pos_x) == "cpu":
-        return forces.env_exp_force_batched(pos_x, pos_y, radius, alive, seg,
-                                            a, b, use_radius=use_radius,
-                                            active=active)
-    r2 = filter_r2(seg, active)
-    ptrs, batch = _batched_args(pos_x, pos_y, None, None, radius, alive, seg,
-                                r2, False)
-    prm = exp_rows(a, b, batch, pos_x.device)
-    return _launch("env_exp_batched", (*ptrs, seg.x.shape[0], prm.data_ptr(),
-                                       prm.stride(0), int(use_radius)),
-                   pos_x)
+    return _exp_batched("env_exp_batched", pos_x, pos_y, radius, alive, seg,
+                        a, b, use_radius, active)
+
+
+def env_exp_compact_batched(pos_x, pos_y, radius, alive, seg, a, b,
+                            grid: EnvGrid, use_radius: bool = False,
+                            active=None):
+    """:func:`env_exp_batched` over the groups of sections that each
+    crowd's rows of ``grid`` (:func:`.env_grid.env_grid` of the same ``(B,
+    n)`` sorted planes, segments and radii) list for its blocks; a row that
+    overflowed walks every section.  Row b equals :func:`env_exp_compact`
+    on row b with its table, bitwise."""
+    return _exp_batched("env_exp_compact_batched", pos_x, pos_y, radius,
+                        alive, seg, a, b, use_radius, active, grid)
+
+
+def env_exp_analytic_batched(pos_x, pos_y, radius, alive, geom, a, b,
+                             use_radius: bool = False, active=None):
+    """:func:`env_exp_analytic` on B crowds (see :func:`env_exp_batched`):
+    each section's closest point ON its line segments (``geom``, a
+    :class:`..env.pointsets.SegmentGeomSet`)."""
+    return _exp_batched("env_exp_analytic_batched", pos_x, pos_y, radius,
+                        alive, geom, a, b, use_radius, active)
+
+
+def env_exp_analytic_compact_batched(pos_x, pos_y, radius, alive, geom, a,
+                                     b, grid: EnvGrid,
+                                     use_radius: bool = False, active=None):
+    """:func:`env_exp_analytic_batched` over each crowd's survivor table
+    (see :func:`env_exp_compact_batched`)."""
+    return _exp_batched("env_exp_analytic_compact_batched", pos_x, pos_y,
+                        radius, alive, geom, a, b, use_radius, active, grid)
 
 
 def env_moussaid_batched(pos_x, pos_y, vel_x, vel_y, radius, alive, seg,
@@ -378,17 +465,20 @@ def env_moussaid_batched(pos_x, pos_y, vel_x, vel_y, radius, alive, seg,
     segment set, one launch for every row: ``(fx, fy)``, ``(B, n)``.
     ``p``: shared by every row, or with ``(B,)`` tensor leaves (a sweep of
     the obstacle parameters)."""
-    if _device_of(pos_x) == "cpu":
-        return forces.env_moussaid_force_batched(
-            pos_x, pos_y, vel_x, vel_y, radius, alive, seg, obstacle_vel, p,
-            use_radius=use_radius, active=active)
-    r2 = filter_r2(seg, active)
-    ptrs, batch = _batched_args(pos_x, pos_y, vel_x, vel_y, radius, alive,
-                                seg, r2, True, obstacle_vel)
-    prm = law_rows("moussaid", p, batch, pos_x.device)
-    return _launch("env_moussaid_batched",
-                   (*ptrs, obstacle_vel.data_ptr(), seg.x.shape[0],
-                    prm.data_ptr(), prm.stride(0), int(use_radius)), pos_x)
+    return _moussaid_batched("env_moussaid_batched", pos_x, pos_y, vel_x,
+                             vel_y, radius, alive, seg, obstacle_vel, p,
+                             use_radius, active)
+
+
+def env_moussaid_compact_batched(pos_x, pos_y, vel_x, vel_y, radius, alive,
+                                 seg, obstacle_vel, p: MoussaidParams,
+                                 grid: EnvGrid, use_radius: bool = False,
+                                 active=None):
+    """:func:`env_moussaid_batched` over each crowd's survivor table (see
+    :func:`env_exp_compact_batched`)."""
+    return _moussaid_batched("env_moussaid_compact_batched", pos_x, pos_y,
+                             vel_x, vel_y, radius, alive, seg, obstacle_vel,
+                             p, use_radius, active, grid)
 
 
 def environment_jobs(scene, params, veh_snap, analytic: bool = False):
@@ -435,6 +525,24 @@ def environment_jobs(scene, params, veh_snap, analytic: bool = False):
     return jobs
 
 
+#: The wrapper of each job form, by (kind, analytic, compacted, batched):
+#: its name, looked up when the job runs (so that a test may patch it).
+_FORMS = {
+    ("exp", False, False, False): "env_exp",
+    ("exp", False, True, False): "env_exp_compact",
+    ("exp", True, False, False): "env_exp_analytic",
+    ("exp", True, True, False): "env_exp_analytic_compact",
+    ("moussaid", False, False, False): "env_moussaid",
+    ("moussaid", False, True, False): "env_moussaid_compact",
+    ("exp", False, False, True): "env_exp_batched",
+    ("exp", False, True, True): "env_exp_compact_batched",
+    ("exp", True, False, True): "env_exp_analytic_batched",
+    ("exp", True, True, True): "env_exp_analytic_compact_batched",
+    ("moussaid", False, False, True): "env_moussaid_batched",
+    ("moussaid", False, True, True): "env_moussaid_compact_batched",
+}
+
+
 def fused_environment_terms(state, scene, params, veh_snap,
                             compact: bool = False, max_surv: int = 0,
                             analytic: bool = False, order=None):
@@ -459,54 +567,16 @@ def fused_environment_terms(state, scene, params, veh_snap,
     through :func:`env_exp_analytic` (or its compacted form, gated with
     ``K`` = segments per section), and their sampled remainder through
     the sampled kernel, summed into the term.
+
+    ``(B, N)`` planes (a batch of crowds) sort each row on its own, build
+    each job's table (the gate is one for every crowd) over each row's
+    blocks and launch the batched form of the same kernel once for every
+    row.
     """
     jobs = environment_jobs(scene, params, veh_snap, analytic)
     if not jobs:
         return {}
-    if state.batch is not None:
-        if compact or analytic:
-            raise NotImplementedError(
-                "the compacted and analytic environment kernels are not "
-                "batched yet (ROADMAP item 19b)")
-        return _batched_terms(state, jobs, order)
-    perm, inv = order if order is not None else morton_order(
-        state.pos_x, state.pos_y, state.alive, order="hilbert")
-    px, py, vx, vy, rad, alive = (
-        a[perm] for a in (state.pos_x, state.pos_y, state.vel_x,
-                          state.vel_y, state.radius, state.alive))
-    crossing = forces.crossing_mask(state.mode)
-    terms = {}
-    for name, kind, seg, args, use_radius, active in jobs:
-        engage, group, ms = env_gate(seg.num_segments,
-                                     forces.section_slots(seg), compact,
-                                     max_surv)
-        grid = (env_grid(px, py, alive, seg, filter_r2(seg, active), group,
-                         ms) if engage else None)
-        table = () if grid is None else (grid,)
-        if kind == "exp":
-            if isinstance(seg, SegmentGeomSet):
-                fn = env_exp_analytic if grid is None \
-                    else env_exp_analytic_compact
-            else:
-                fn = env_exp if grid is None else env_exp_compact
-            fx, fy = fn(px, py, rad, alive, seg, *args, *table,
-                        use_radius=use_radius, active=active)
-        else:
-            fn = env_moussaid if grid is None else env_moussaid_compact
-            fx, fy = fn(px, py, vx, vy, rad, alive, seg, *args, *table,
-                        use_radius=use_radius, active=active)
-        _collect(terms, name, kind, fx[inv], fy[inv], crossing)
-    return terms
-
-
-def _batched_terms(state, jobs, order=None):
-    """The environment terms of B crowds (``(B, N)`` planes) through the
-    batched kernels: each row sorted along its own Hilbert curve (``order``:
-    that ``(B, N)`` permutation when the caller has it, as the batched
-    cutoff pair force does), one launch per job for every row, each result
-    scattered back to its row's slot order.  The sampled dense jobs only
-    (the compacted and analytic forms are not batched, ROADMAP item
-    19b)."""
+    batched = state.batch is not None
     perm, inv = order if order is not None else morton_order(
         state.pos_x, state.pos_y, state.alive, order="hilbert")
     px, py, vx, vy, rad, alive = (
@@ -515,13 +585,17 @@ def _batched_terms(state, jobs, order=None):
     crossing = forces.crossing_mask(state.mode)
     terms = {}
     for name, kind, seg, args, use_radius, active in jobs:
-        if kind == "exp":
-            fx, fy = env_exp_batched(px, py, rad, alive, seg, *args,
-                                     use_radius=use_radius, active=active)
-        else:
-            fx, fy = env_moussaid_batched(px, py, vx, vy, rad, alive, seg,
-                                          *args, use_radius=use_radius,
-                                          active=active)
+        engage, group, ms = env_gate(seg.num_segments,
+                                     forces.section_slots(seg), compact,
+                                     max_surv)
+        grid = (env_grid(px, py, alive, seg, filter_r2(seg, active), group,
+                         ms) if engage else None)
+        fn = globals()[_FORMS[kind, isinstance(seg, SegmentGeomSet),
+                              grid is not None, batched]]
+        table = () if grid is None else (grid,)
+        vel = () if kind == "exp" else (vx, vy)
+        fx, fy = fn(px, py, *vel, rad, alive, seg, *args, *table,
+                    use_radius=use_radius, active=active)
         _collect(terms, name, kind, fx.gather(-1, inv), fy.gather(-1, inv),
                  crossing)
     return terms

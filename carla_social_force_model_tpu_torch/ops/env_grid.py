@@ -25,6 +25,11 @@ the planes' device; nothing synchronises with the host.
 * A block with more hits than the table is wide walks every section (the
   kernel reads ``counts``), where the TPU fell back to the whole dense grid
   with a ``lax.cond``.
+* Under a batch of crowds (``(B, n)`` planes, each row sorted on its own)
+  every function gains a leading batch axis: each crowd's boxes, hits and
+  table over its own blocks, against the shared sections (with each
+  crowd's own radii for a swept perception threshold), as the JAX
+  package's ``_tile_hits`` under ``vmap``.  The gate stays one for all.
 """
 from __future__ import annotations
 
@@ -47,7 +52,10 @@ class EnvGrid(NamedTuple):
     """What a compacted environment launch reads besides the planes:
     ``surv`` (blocks, max_surv) int32 ascending group indices padded with
     -1, ``counts`` (blocks,) int32 hits per block, and the group size in
-    sections."""
+    sections.  The grid of a batch of crowds (:func:`env_grid` of ``(B,
+    n)`` planes) has one ``max_surv`` and ``group`` for every crowd and a
+    leading batch axis: ``surv`` (B, blocks, max_surv), ``counts`` (B,
+    blocks)."""
 
     surv: torch.Tensor
     counts: torch.Tensor
@@ -61,7 +69,8 @@ def env_gate(num_segments: int, slots: int, compact: bool,
     survivor table drives its launch, the sections per group and the
     table's width.  ``slots``: points per section row, or segments (M) for
     the analytic geometry, as the JAX package gates either.  Static, from
-    shapes only (pallas_env.py:584-589)."""
+    shapes only (pallas_env.py:584-589), so it is the same for every crowd
+    of a batch."""
     group = _round_up(max(1, JAX_POINT_TILE // max(slots, 1)), 8)
     n_groups = -(-num_segments // group)
     ms = max_surv if max_surv > 0 else min(n_groups,
@@ -72,34 +81,43 @@ def env_gate(num_segments: int, slots: int, compact: bool,
 def block_boxes(x, y, alive):
     """(4, blocks) boxes of each block's alive pedestrians, [min_x, max_x,
     min_y, max_y] as rows; a block without one gets the inverted infinite
-    box, which touches nothing (the kernel's ``block_box``)."""
+    box, which touches nothing (the kernel's ``block_box``).  ``(B, n)``
+    planes give ``(B, 4, blocks)``, each crowd's own blocks."""
     return box_planes(x, y, alive, ENV_BLOCK)
 
 
 def group_hits(boxes, center_x, center_y, r2, group: int):
     """(blocks, groups) bool: does some section of the group have a filter
     circle ``(center, r2)`` that touches the block's box?  Sections past
-    the last fill the last group with ``r2 = -1`` (never a hit)."""
+    the last fill the last group with ``r2 = -1`` (never a hit).  Boxes
+    ``(B, 4, blocks)`` give ``(B, blocks, groups)``, each crowd's blocks
+    against the shared circles, with ``r2`` ``(S,)`` or each crowd's own
+    ``(B, S)``."""
     s = center_x.shape[0]
     s_pad = _round_up(max(s, 1), group)
 
     def padded(a, fill):
-        return torch.cat([a, a.new_full((s_pad - s,), fill)]) \
-            if s_pad > s else a
+        pad = a.new_full((*a.shape[:-1], s_pad - s), fill)
+        return torch.cat([a, pad], dim=-1) if s_pad > s else a
 
     cx, cy, rr = padded(center_x, 0.0), padded(center_y, 0.0), padded(r2, -1.0)
-    gx = torch.maximum(cx[None, :] - boxes[1][:, None],
-                       boxes[0][:, None] - cx[None, :]).clamp_(min=0.0)
-    gy = torch.maximum(cy[None, :] - boxes[3][:, None],
-                       boxes[2][:, None] - cy[None, :]).clamp_(min=0.0)
-    hit = (gx * gx + gy * gy) <= rr[None, :]
-    return hit.reshape(boxes.shape[1], s_pad // group, group).any(dim=2)
+
+    def box(k):
+        return boxes[..., k, :, None]
+
+    gx = torch.maximum(cx - box(1), box(0) - cx).clamp_(min=0.0)
+    gy = torch.maximum(cy - box(3), box(2) - cy).clamp_(min=0.0)
+    hit = (gx * gx + gy * gy) <= rr[..., None, :]
+    return hit.reshape(*hit.shape[:-1], s_pad // group, group).any(dim=-1)
 
 
 def env_grid(x, y, alive, seg, r2, group: int, max_surv: int) -> EnvGrid:
     """The survivor table of one compacted launch over sorted planes ``x``,
     ``y``, ``alive`` and the segment set ``seg`` with the squared filter
-    radii ``r2`` the kernel reads (``ops/cuda_env.filter_r2``)."""
+    radii ``r2`` the kernel reads (``ops/cuda_env.filter_r2``).  ``(B, n)``
+    planes (each row sorted on its own) give the table of one batched
+    launch, row b equal to the table of row b alone (``r2`` ``(S,)`` or
+    ``(B, S)``)."""
     hits = group_hits(block_boxes(x, y, alive), seg.center_x, seg.center_y,
                       r2, group)
     surv, counts = surv_counts(hits, max_surv)

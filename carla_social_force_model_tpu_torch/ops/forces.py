@@ -49,14 +49,15 @@ import torch
 
 from . import vecmath
 from .geometry import (PAD_DIST2, closest_on_segments,
-                       closest_point_per_segment, segment_filter_mask)
+                       closest_point_per_segment, section_column,
+                       segment_filter_mask)
 from .pair_grid import cutoff_sq
 from ..env.pointsets import SegmentGeomSet
 from ..models import modes
 from ..models.params import (AccelerationParams, BorderParams, MoussaidParams,
                              PedRepulsiveParams, PowerLawParams,
-                             SpaceRepulsiveParams, helbing_cos_phi,
-                             section_rows)
+                             SpaceRepulsiveParams, as_column,
+                             helbing_cos_phi, section_rows)
 
 def acceleration_force_xy(pos_x, pos_y, vel_x, vel_y, wp_x, wp_y,
                           applied_target, p: AccelerationParams):
@@ -367,10 +368,12 @@ def _closest_points(pos_x, pos_y, seg):
 def _segment_ok(pos_x, pos_y, alive, seg, has_point, active):
     """(S, B) mask of the (segment, ped) pairs that contribute: a real
     closest point (``has_point``), inside the segment's filter circle, an
-    alive pedestrian and (when given) an active segment."""
-    ok = has_point & segment_filter_mask(pos_x, pos_y, seg) & alive[None, :]
+    alive pedestrian and (when given) an active segment.  ``(B, N)``
+    planes give ``(S, B, N)``; the sums below then take ``(B, 1)``
+    parameter columns."""
+    ok = has_point & segment_filter_mask(pos_x, pos_y, seg) & alive[None]
     if active is not None:
-        ok = ok & active[:, None]
+        ok = ok & section_column(active, pos_x)
     return ok
 
 
@@ -397,8 +400,8 @@ def _moussaid_sum(pos_x, pos_y, vel_x, vel_y, bx, by, ok, radius,
     with the relative velocity ``v_ped - obstacle_vel[s]``, summed over the
     segments where ``ok``: ``(fx, fy)``.  ``radius`` (or None) is
     subtracted from the distance."""
-    dvx = vel_x[None, :] - obstacle_vel[:, 0, None]
-    dvy = vel_y[None, :] - obstacle_vel[:, 1, None]
+    dvx = vel_x[None] - section_column(obstacle_vel[:, 0], vel_x)
+    dvy = vel_y[None] - section_column(obstacle_vel[:, 1], vel_y)
     radius_sub = 0.0 if radius is None else radius[None, :]
     fx, fy = _moussaid_pair_force(bx - pos_x[None, :], by - pos_y[None, :],
                                   radius_sub, dvx, dvy, p, ok)
@@ -471,13 +474,12 @@ def env_exp_force_batched(pos_x, pos_y, radius, alive, seg, a, b,
     row r with ``a[r]``, ``b[r]`` (``(B,)`` tensors, or numbers shared by
     every row).  The plain version of the batched ``env_exp`` kernel."""
     batch = pos_x.shape[0]
-    rows = [env_exp_force(pos_x[r], pos_y[r], radius[r], alive[r],
-                          _segment_row(seg, r), ar, br,
-                          use_radius=use_radius, active=active)
-            for r, (ar, br) in enumerate(zip(number_rows(a, batch),
-                                             number_rows(b, batch)))]
-    return (torch.stack([f[0] for f in rows]),
-            torch.stack([f[1] for f in rows]))
+    return _stacked(
+        env_exp_force(pos_x[r], pos_y[r], radius[r], alive[r],
+                      _segment_row(seg, r), ar, br, use_radius=use_radius,
+                      active=active)
+        for r, (ar, br) in enumerate(zip(number_rows(a, batch),
+                                         number_rows(b, batch))))
 
 
 def env_moussaid_force_batched(pos_x, pos_y, vel_x, vel_y, radius, alive,
@@ -487,29 +489,83 @@ def env_moussaid_force_batched(pos_x, pos_y, vel_x, vel_y, radius, alive,
     set: row r with row r of ``p`` (a section with ``(B,)`` leaves, or one
     shared by every row).  The plain version of the batched
     ``env_moussaid`` kernel."""
-    batch = pos_x.shape[0]
-    rows = [env_moussaid_force(pos_x[r], pos_y[r], vel_x[r], vel_y[r],
-                               radius[r], alive[r], _segment_row(seg, r),
-                               obstacle_vel, pr, use_radius=use_radius,
-                               active=active)
-            for r, pr in enumerate(section_rows(p, batch))]
-    return (torch.stack([f[0] for f in rows]),
-            torch.stack([f[1] for f in rows]))
+    return _stacked(
+        env_moussaid_force(pos_x[r], pos_y[r], vel_x[r], vel_y[r], radius[r],
+                           alive[r], _segment_row(seg, r), obstacle_vel, pr,
+                           use_radius=use_radius, active=active)
+        for r, pr in enumerate(section_rows(p, pos_x.shape[0])))
 
 
-def env_exp_force_chunked(pos_x, pos_y, radius, alive, pset, a: float,
-                          b: float, use_radius: bool = False, active=None,
+def _stacked(rows):
+    """``(fx, fy)`` of ``(B, N)`` planes from each row's ``(fx, fy)``."""
+    fx, fy = zip(*rows)
+    return torch.stack(fx), torch.stack(fy)
+
+
+def _rows_apart(pos_x) -> bool:
+    """Whether a batch's chunked terms go row by row, each with its row's
+    numbers on contiguous rows: on the CPU, so that row b equals the
+    unbatched path bitwise (its vector loops round ``atan2`` and the sum
+    over the sections by where an element falls).  On a card the batch's
+    terms are one pass over ``(S, B, N)`` with ``(B, 1)`` parameter
+    columns, a few launches for every row where the loop takes a few for
+    each (PERF.md §6); a row then differs from the unbatched path in
+    last bits (a card divides by a number as a product by its reciprocal,
+    and a sum's order follows its shape)."""
+    return pos_x.device.type == "cpu"
+
+
+def _closest_row(closest, r):
+    """Row r's ``(S, N)`` closest-point planes of a batch's ``(S, B, N)``
+    ones, contiguous: the layout of one crowd's, so that the row runs the
+    operations of the unbatched path on the same layout."""
+    return tuple(t[:, r].contiguous() for t in closest)
+
+
+def _exp_chunked_terms(pos_x, pos_y, radius, alive, pset, closest, a, b,
+                       use_radius, active):
+    ok = _segment_ok(pos_x, pos_y, alive, pset, closest[3], active)
+    return _exp_sum(pos_x, pos_y, closest[1], closest[2], ok,
+                    radius if use_radius else None, a, b)
+
+
+def _moussaid_chunked_terms(pos_x, pos_y, vel_x, vel_y, radius, alive, pset,
+                            closest, obstacle_vel, p, use_radius, active):
+    ok = _segment_ok(pos_x, pos_y, alive, pset, closest[3], active)
+    return _moussaid_sum(pos_x, pos_y, vel_x, vel_y, closest[1], closest[2],
+                         ok, radius if use_radius else None, obstacle_vel, p)
+
+
+def env_exp_force_chunked(pos_x, pos_y, radius, alive, pset, a, b,
+                          use_radius: bool = False, active=None,
                           plain: bool = False):
     """:func:`env_exp_force` on a :class:`..env.pointsets.ChunkedPointSet`
     of tensors: the closest points from
     :func:`.geometry.closest_point_per_segment` (the ``chunk_argmin``
     kernel on a card; its plain version on the CPU or with ``plain``),
-    the same force math.  The JAX package's jnp environment path."""
-    _, bx, by, has = closest_point_per_segment(pos_x, pos_y, pset,
-                                               plain=plain)
-    ok = _segment_ok(pos_x, pos_y, alive, pset, has, active)
-    return _exp_sum(pos_x, pos_y, bx, by, ok,
-                    radius if use_radius else None, a, b)
+    the same force math.  The JAX package's jnp environment path.
+
+    ``(B, N)`` planes (a batch of crowds): one chunk scan for every row,
+    then row r's terms with ``a[r]``, ``b[r]`` (``(B,)`` tensors, or
+    numbers shared by every row) and its own filter radii (``(B, S)``):
+    one pass for every row, or on the CPU (:func:`_rows_apart`) the
+    operations of the unbatched path on each row."""
+    closest = closest_point_per_segment(pos_x, pos_y, pset, plain=plain)
+    if pos_x.dim() == 1:
+        return _exp_chunked_terms(pos_x, pos_y, radius, alive, pset, closest,
+                                  a, b, use_radius, active)
+    if not _rows_apart(pos_x):
+        return _exp_chunked_terms(pos_x, pos_y, radius, alive, pset, closest,
+                                  as_column(a), as_column(b), use_radius,
+                                  active)
+    batch = pos_x.shape[0]
+    return _stacked(
+        _exp_chunked_terms(pos_x[r], pos_y[r],
+                           None if radius is None else radius[r], alive[r],
+                           _segment_row(pset, r), _closest_row(closest, r),
+                           ar, br, use_radius, active)
+        for r, (ar, br) in enumerate(zip(number_rows(a, batch),
+                                         number_rows(b, batch))))
 
 
 def env_moussaid_force_chunked(pos_x, pos_y, vel_x, vel_y, radius, alive,
@@ -518,12 +574,21 @@ def env_moussaid_force_chunked(pos_x, pos_y, vel_x, vel_y, radius, alive,
                                plain: bool = False):
     """:func:`env_moussaid_force` on a
     :class:`..env.pointsets.ChunkedPointSet` of tensors (see
-    :func:`env_exp_force_chunked`)."""
-    _, bx, by, has = closest_point_per_segment(pos_x, pos_y, pset,
-                                               plain=plain)
-    ok = _segment_ok(pos_x, pos_y, alive, pset, has, active)
-    return _moussaid_sum(pos_x, pos_y, vel_x, vel_y, bx, by, ok,
-                         radius if use_radius else None, obstacle_vel, p)
+    :func:`env_exp_force_chunked`; row r of ``(B, N)`` planes with row r
+    of ``p``, a section with ``(B,)`` leaves or one shared by every
+    row)."""
+    closest = closest_point_per_segment(pos_x, pos_y, pset, plain=plain)
+    if pos_x.dim() == 1 or not _rows_apart(pos_x):
+        return _moussaid_chunked_terms(
+            pos_x, pos_y, vel_x, vel_y, radius, alive, pset, closest,
+            obstacle_vel, p if pos_x.dim() == 1 else as_column(p),
+            use_radius, active)
+    return _stacked(
+        _moussaid_chunked_terms(pos_x[r], pos_y[r], vel_x[r], vel_y[r],
+                                radius[r], alive[r], _segment_row(pset, r),
+                                _closest_row(closest, r), obstacle_vel, pr,
+                                use_radius, active)
+        for r, pr in enumerate(section_rows(p, pos_x.shape[0])))
 
 
 def crossing_mask(mode):

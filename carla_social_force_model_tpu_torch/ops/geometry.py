@@ -22,7 +22,9 @@ same name): every 128-point chunk's first-occurrence minimum and flat
 argmin, as (C, N) planes, then the segmented minimum over each segment's
 chunks and the first chunk that reaches it.  On a card the chunk scan is
 the ``chunk_argmin`` kernel of ``csrc/statics.cu`` (the JAX package's
-``_cp_kernel``), on the CPU its plain version :func:`chunk_argmin_plain`.
+``_cp_kernel``), on the CPU its plain version :func:`chunk_argmin_plain`;
+``(B, N)`` planes of a batch of crowds take one scan of the flattened
+pedestrians.
 The scenarios' default engine reaches it through the chunked environment
 forces (``ops/forces.py``, ``StepConfig.env_chunked``); the fused
 environment kernels read the segment-major layout
@@ -198,11 +200,18 @@ def chunk_argmin(pos_x, pos_y, fx, fy, plain: bool = False):
     (:func:`chunk_argmin_plain`'s ``(dmin, idx)``).  On CUDA tensors the
     ``chunk_argmin`` kernel (``ops/statics.chunk_argmin``), bitwise equal to
     the plain version; on CPU tensors, or with ``plain``, the plain
-    version."""
+    version.  ``(B, N)`` planes (a batch of crowds) give ``(C, B, N)``: one
+    launch over the flattened planes (``ops/statics.chunk_argmin_batched``),
+    or the plain version on them."""
     if pos_x.device.type == "cuda" and not plain:
-        from .statics import chunk_argmin as kernel
-        return kernel(pos_x, pos_y, fx, fy)
-    return chunk_argmin_plain(pos_x, pos_y, fx, fy)
+        from . import statics
+        fn = statics.chunk_argmin if pos_x.dim() == 1 else (
+            statics.chunk_argmin_batched)
+        return fn(pos_x, pos_y, fx, fy)
+    dmin, idx = chunk_argmin_plain(pos_x.reshape(-1), pos_y.reshape(-1),
+                                   fx, fy)
+    return (dmin.view(fx.shape[0], *pos_x.shape),
+            idx.view(fx.shape[0], *pos_x.shape))
 
 
 def closest_point_per_segment(pos_x, pos_y, pset: ChunkedPointSet,
@@ -221,12 +230,20 @@ def closest_point_per_segment(pos_x, pos_y, pset: ChunkedPointSet,
     reach (``dmin^2 >= PAD_DIST2``: a segment with no valid point, or a
     pedestrian parked at the dead sentinel), and ``dist`` is 0 there.  The
     point is the set's own coordinate, as the JAX package gathers it.
-    ``plain`` runs the plain chunk scan on a card too."""
+    ``plain`` runs the plain chunk scan on a card too.
+
+    ``(B, N)`` planes (a batch of crowds against the one set) give ``(S,
+    B, N)``: one scan of the flattened pedestrians, then the segmented
+    minimum along the flattened axis.  Every step is exact (differences,
+    products, sums, minima, gathers, a square root), so row b equals the
+    function on row b bitwise."""
     c, k = pset.valid.shape
-    s, n = pset.num_segments, pos_x.shape[0]
+    s, shape = pset.num_segments, pos_x.shape
     fx, fy = staged_chunk_planes(pset)
     dmin, idx = chunk_argmin(pos_x, pos_y, fx.contiguous(), fy.contiguous(),
                              plain=plain)
+    dmin, idx = dmin.reshape(c, -1), idx.reshape(c, -1)
+    n = dmin.shape[1]
     seg = pset.chunk_segment.to(torch.int64)[:, None].expand(c, n)
     dseg2 = pos_x.new_full((s, n), torch.inf).scatter_reduce(
         0, seg, dmin, "amin")
@@ -242,12 +259,13 @@ def closest_point_per_segment(pos_x, pos_y, pset: ChunkedPointSet,
     bx = pset.points[..., 0].reshape(-1)[flat]
     by = pset.points[..., 1].reshape(-1)[flat]
     dist = torch.sqrt(torch.where(has_point, dseg2, 0.0))
-    return dist, bx, by, has_point
+    return tuple(t.view(s, *shape) for t in (dist, bx, by, has_point))
 
 
 def segment_filter_mask(pos_x, pos_y, pset):
     """Per-(segment, ped) relevance filter ``|pos - center| < radius``,
-    ``(S, N)`` bool.
+    ``(S, N)`` bool; ``(S, B, N)`` for ``(B, N)`` planes, whose rows may
+    have their own radii (``(B, S)``).
 
     Matches the reference's border section filter (forces.py:149-151) and
     the obstacle perception filter (forces.py:222-224), both strict ``<``,
@@ -261,11 +279,20 @@ def segment_filter_mask(pos_x, pos_y, pset):
         cx, cy = pset.centers[:, 0], pset.centers[:, 1]
     else:
         cx, cy = pset.center_x, pset.center_y
-    dx = cx[:, None] - pos_x[None, :]
-    dy = cy[:, None] - pos_y[None, :]
+    dx = section_column(cx, pos_x) - pos_x[None]
+    dy = section_column(cy, pos_y) - pos_y[None]
     d2 = dx * dx + dy * dy
     r = torch.clamp(pset.filter_radius, min=0.0)
-    return d2 < (r * r)[:, None]
+    return d2 < section_column(r * r, pos_x)
+
+
+def section_column(t, pos):
+    """A per-section plane, ``(S,)`` or per row ``(B, S)``, laid against
+    ``(N,)`` or ``(B, N)`` pedestrian planes: ``(S, 1)``, ``(S, 1, 1)`` or
+    ``(S, B, 1)``."""
+    if t.dim() == 2:
+        return t.t()[:, :, None]
+    return t.view(-1, *(1,) * pos.dim())
 
 
 def segment_intersection_xy(p0x, p0y, p1x, p1y, q0x, q0y, q1x, q1y,

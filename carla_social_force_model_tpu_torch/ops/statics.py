@@ -22,7 +22,9 @@ counts the launch:
   distance and the flat index of the first point that reaches it, (C, N),
   over every pair (no skip).  The JAX package's ``_cp_kernel``; its plain
   version is ``geometry.chunk_argmin_plain``, its entry
-  ``geometry.closest_point_per_segment``.
+  ``geometry.closest_point_per_segment``.  :func:`chunk_argmin_batched` is
+  the same kernel over B crowds' flattened ``(B, N)`` planes (counted
+  apart).
 
 Each block of the three wall-feed kernels holds 32 consecutive
 pedestrians (the caller's order: ORCA's are Hilbert-sorted, so the boxes
@@ -57,7 +59,7 @@ MAX_K = 8
 #: launches per kernel since the last :func:`reset_launch_counts`; each
 #: wrapper adds one where it launches its kernel and nowhere else
 LAUNCHES = {"seg_topk": 0, "chunk_topk": 0, "chunk_closest": 0,
-            "chunk_argmin": 0}
+            "chunk_argmin": 0, "chunk_argmin_batched": 0}
 
 
 def reset_launch_counts() -> None:
@@ -90,7 +92,9 @@ def _peds(pos_x, pos_y, alive):
             0 if alive is None else alive.data_ptr())
 
 
-def _launch(name, args, outs, dev):
+def _launch(name, args, outs, dev, key=None):
+    """Launch ``sfm_<name>`` and count it under ``key`` (default
+    ``name``)."""
     from ..utils.cuda_build import load_kernels
     lib = load_kernels()
     with torch.cuda.device(dev):
@@ -100,7 +104,7 @@ def _launch(name, args, outs, dev):
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err} "
                            f"({lib.sfm_cuda_error_string(err).decode()})")
-    LAUNCHES[name] += 1
+    LAUNCHES[key or name] += 1
     return outs
 
 
@@ -205,6 +209,39 @@ def chunk_argmin(pos_x, pos_y, fx, fy):
         return outs
     return _launch("chunk_argmin", (*peds, fx.data_ptr(), fy.data_ptr(), c,
                                     kk, n), outs, dev)
+
+
+def chunk_argmin_batched(pos_x, pos_y, fx, fy):
+    """:func:`chunk_argmin` of B crowds, ``(B, n)`` planes against one set
+    of chunks: ``(dmin, idx)`` of shape (C, B, n), one launch of the same
+    kernel over the B * n pedestrians of the flattened planes (the scan
+    reads nothing of a crowd but its pedestrians, so under the JAX
+    package's ``vmap`` of ``_cp_kernel`` only the pedestrians are batched).
+    Row b equals :func:`chunk_argmin` on row b bitwise: each (chunk,
+    pedestrian)'s scan is the same sequence of operations wherever the
+    pedestrian lies in the grid."""
+    if pos_x.dim() != 2:
+        raise ValueError(f"chunk_argmin_batched takes (B, n) planes, got "
+                         f"{tuple(pos_x.shape)}")
+    batch, n = pos_x.shape
+    c, kk = fx.shape
+    # the kernel's pedestrian index and flat point index are 32-bit; its
+    # output offsets ch * (B * n) + i are 64-bit
+    if batch * n >= 2 ** 31 or c * kk >= 2 ** 31:
+        raise ValueError(f"{batch} x {n} pedestrians or {c} x {kk} chunk "
+                         f"slots exceed the kernel's 32-bit indices")
+    _check((("pos_x", pos_x, (batch, n)), ("pos_y", pos_y, (batch, n))),
+           pos_x.device)
+    peds = _peds(pos_x.view(-1), pos_y.view(-1), None)[:2]
+    dev = pos_x.device
+    _check((("fx", fx, (c, kk)), ("fy", fy, (c, kk))), dev)
+    outs = (torch.empty((c, batch, n), dtype=torch.float32, device=dev),
+            torch.empty((c, batch, n), dtype=torch.int32, device=dev))
+    if batch * n == 0 or c == 0:
+        return outs
+    return _launch("chunk_argmin", (*peds, fx.data_ptr(), fy.data_ptr(), c,
+                                    kk, batch * n), outs, dev,
+                   key="chunk_argmin_batched")
 
 
 def topk_plain(pos_x, pos_y, src, k: int, neigh_dist):

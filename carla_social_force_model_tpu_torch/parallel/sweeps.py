@@ -12,14 +12,19 @@ layout.  ``StepConfig.interaction_cutoff`` runs here as in one crowd:
 each row sorted along its own curve, the batched cutoff pair kernels
 (below the gate the box-skip walks, above it or with ``pair_max_surv``
 each crowd's survivor table), with ``symmetric_pairs`` or without, for
-every pair law; nothing here is specific to it.
+every pair law.  So do the environment paths: ``env_compact`` (each
+crowd's own survivor table over the shared sections, the batched
+compacted kernels), ``env_analytic`` (the shared line-segment geometry,
+dense or compacted, plus its sampled remainder) and ``env_chunked``, the
+scenarios' engine (one chunk scan over every row's pedestrians).  The
+geometry is prepared once here and shared by every row; nothing here is
+specific to a path.
 
 Sharding the batch over a mesh (the JAX package's ``mesh`` argument and
 ``make_sharded_ensemble_rollout``) is not ported yet: it raises and names
 ROADMAP item 19b, as does every configuration the batched step refuses
-(``stepper.check_supported``: the compacted, analytic and chunked
-environment paths, ORCA, groups, the fleet, per-agent columns, an agent
-axis).
+(``stepper.check_supported``: ORCA, groups, the fleet, per-agent columns,
+an agent axis).
 """
 from __future__ import annotations
 

@@ -106,6 +106,27 @@ ARGTYPES = {
     "sfm_env_moussaid_batched": ([_PTR] * 8 + [_INT] + [_PTR] * 4
                                  + [_INT, _PTR, _INT, _PTR] + [_INT] * 4
                                  + [_PTR] * 3),
+    # sfm_env_exp_batched's and sfm_env_moussaid_batched's arguments up to
+    # batch, then surv, counts, max_surv, gs, fx, fy, stream
+    "sfm_env_exp_compact_batched": ([_PTR] * 6 + [_INT] + [_PTR] * 4
+                                    + [_INT, _INT] + [_PTR] + [_INT] * 4
+                                    + [_PTR] * 2 + [_INT, _INT]
+                                    + [_PTR] * 3),
+    "sfm_env_moussaid_compact_batched": ([_PTR] * 8 + [_INT] + [_PTR] * 4
+                                         + [_INT, _PTR, _INT, _PTR]
+                                         + [_INT] * 4 + [_PTR] * 2
+                                         + [_INT, _INT] + [_PTR] * 3),
+    # px, py, prad, alive, ax, ay, ux, uy, il2, m, lens, cx, cy, r2,
+    # r2_stride, s_count, prm, prm_stride, use_radius, n, batch, fx, fy,
+    # stream; the compacted form with surv, counts, max_surv, gs before fx
+    "sfm_env_exp_analytic_batched": ([_PTR] * 9 + [_INT] + [_PTR] * 4
+                                     + [_INT, _INT, _PTR] + [_INT] * 4
+                                     + [_PTR] * 3),
+    "sfm_env_exp_analytic_compact_batched": ([_PTR] * 9 + [_INT]
+                                             + [_PTR] * 4
+                                             + [_INT, _INT, _PTR]
+                                             + [_INT] * 4 + [_PTR] * 2
+                                             + [_INT, _INT] + [_PTR] * 3),
     # px, py, prad, alive, ax, ay, ux, uy, il2, m, lens, cx, cy, r2,
     # s_count, a, b, use_radius, n, fx, fy, stream
     "sfm_env_exp_analytic": ([_PTR] * 9 + [_INT] + [_PTR] * 4

@@ -18,7 +18,7 @@ timed runs of 100), and config #3 with ``env_compact``
 (``env_moussaid_compact`` on the parked cars); then the model families
 (phases 15-17): the power-law and Helbing forms of the pair kernels against
 their plain versions and float64 oracles, and config #1 under
-``bench.py``'s family switches at N = 10,000 x 100 steps (the power law,
+``bench.py``'s family switches at N = 10,000 x 25 steps (the power law,
 the Helbing ellipse, a mixed Moussaid / power-law / Helbing crowd, social
 groups of four over half the crowd, the power law with the 30 m cutoff),
 with shorter paths that launch the other forms; then the ORCA slice (phases
@@ -26,7 +26,7 @@ with shorter paths that launch the other forms; then the ORCA slice (phases
 its compacted form) and the wall-feed kernels (``seg_topk``,
 ``chunk_topk``, ``chunk_closest``) against their plain versions, and
 ``bench.py``'s ORCA switches: config #3 with ORCA and the analytic border
-tier at N = 10,000 x 200 steps, and at 200 steps config #1 with ORCA, the
+tier at N = 10,000 x 200 steps, and at 50 steps config #1 with ORCA, the
 urban path with ORCA, a mixed Moussaid / power-law / ORCA crowd and config
 #2 with ORCA at N = 50,000; then the scenario slice (phases 21-23): the
 chunk scan of the chunked environment forces (``chunk_argmin``) against its
@@ -40,17 +40,23 @@ in-kernel ring ``ring_force`` against their plain versions, config #1 at
 N = 10,000 over 4 virtual shards on the one card (a ``LocalMesh``) under
 each column schedule (``gather``, ``ring``, the half-ring,
 ``ring_kernel``) and with the 30 m cutoff at N = 50,000, each step checked
-against the single-device kernel path, then 100 timed steps; the urban
+against the single-device kernel path, then 50 timed steps; the urban
 path, groups and config #3 + ORCA sharded, and a 1-rank NCCL
 process-group run; then ensembles and parameter sweeps (phases 27-30):
 BASELINE config #5 (256 crowds of 1,000) through the batched pair and
 environment kernels, a 64-point ``pedestrian_A`` sweep, config #3 under a
 batch of 16 and a ``border_a`` sweep, and with the 30 m cutoff (phase 30)
 config #5, 8 crowds of 50,000 on the survivor tables and the cutoff sweep
-through the batched cutoff kernels.  It counts the kernel launches of each
-path, and checks every step of 50-step rollouts through the kernels
-against the same step through the plain versions from the same state (and
-names the agent of the worst step).  Phase 2 also counts the SASS
+through the batched cutoff kernels; then (phase 31) the batched compacted,
+analytic and chunked environment kernels against their plain batched
+versions and the unbatched kernels row by row, config #5 spread over
+config #3's N = 10,000 geometry with ``env_compact`` and ``env_analytic``
+(dense and compacted), and a ``border_a`` sweep over 8 rows of the Town02
+crowd on the scenarios' ``env_chunked``.  It counts the kernel launches of
+each path, and checks every step of short rollouts (50 steps; the family
+and batched paths 25, phase 31 20) through the kernels against the same
+step through the plain versions from the same state (and names the agent
+of the worst step).  Phase 2 also counts the SASS
 instructions of the symmetric and dense pair walks', the ring's, the
 environment kernel's, the chunk scan's and the chunk top-k's inner loops
 (``tools/sass_census.py``, with cuobjdump and nvdisasm), and the kernel
@@ -138,10 +144,12 @@ ENV_ATOL = ENV_RTOL = 1e-5
 FAMILY_SWITCHES = ("powerlaw", "helbing", "mix-moussaid-powerlaw-helbing",
                    "groups-0.5:4")
 #: steps of every family path (phase 16): the headline ones (cut from STEPS,
-#: then from 200 and 100, to keep the run within half its time limit as
-#: later slices add paths) and those that exist to launch the other forms of
-#: the family kernels (dense, dense cutoff, the tables at 50k)
-FAMILY_FORM_STEPS = 50
+#: then from 200, 100 and 50, to keep the run within its time aim as later
+#: slices add paths) and those that exist to launch the other forms of the
+#: family kernels (dense, dense cutoff, the tables at 50k); and of the
+#: family paths' step-by-step checks (phase 17; cut from PARITY_STEPS)
+FAMILY_FORM_STEPS = 25
+FAMILY_PARITY_STEPS = 25
 
 #: the card's peak rates (NVIDIA H100 SXM data sheet; the f32 rate outside
 #: the tensor cores) and its special-function units (CUDA C++ Programming
@@ -1248,12 +1256,13 @@ def family_paths(dev, zero, drive, profile_steps, step_ms, launches):
             f" + {CUTOFF_M:g} m cutoff (max_surv {FORCED_MAX_SURV})"
             if kw else "")
         _, rec_plain = stepper.make_rollout_fn(scene, params, plain_cfg(cfg),
-                                               PARITY_STEPS)(state)
+                                               FAMILY_PARITY_STEPS)(state)
         torch.cuda.synchronize()
         reset_counts()
         check_rollout(label, scene, params, cfg, state, rec_plain,
-                      free_limit=False)
-        expect_counts(label, zero, **dict.fromkeys(names, PARITY_STEPS))
+                      free_limit=False, steps=FAMILY_PARITY_STEPS)
+        expect_counts(label, zero,
+                      **dict.fromkeys(names, FAMILY_PARITY_STEPS))
 
 
 def feed_work(kind, planes, src, k, neigh_dist):
@@ -2323,20 +2332,24 @@ def shard_paths(dev, zero, card, step_ms, launches, urban):
 
 #: ensembles and sweeps (phases 27-29): BASELINE config #5 (bench.py's
 #: BENCH_MODE=ensemble: benchmark_bundle(1000) with batched_crowds(256,
-#: 1000), 100 steps after a 20-step warm-up), the model-family forms of
+#: 1000), 50 steps after a 20-step warm-up), the model-family forms of
 #: the batched pair kernels on the same batch (cut to 20 steps: they exist
-#: to launch those forms), a 64-point sweep of pedestrian_A, config #3
-#: under a batch of 16 and a sweep of border_a over 8 rows on config #2's
-#: scene (50 steps each); the step-by-step checks run 50 steps at the
-#: geometry phase's batch of 16
+#: to launch those forms), a 64-point sweep of pedestrian_A (50 steps),
+#: config #3 under a batch of 16 and a sweep of border_a over 8 rows on
+#: config #2's scene (25 steps each); the step-by-step checks run
+#: BATCH_PARITY_STEPS at the geometry phase's batch of 16
 BATCH = 256
 BATCH_N = 1_000
-BATCH_STEPS = 100
+BATCH_STEPS = 50
 BATCH_FAMILY_STEPS = 20
 SWEEP_POINTS = 64
 SWEEP_ROWS = (0, 21, 42, 63)
 GEOM_BATCH = 16
-GEOM_STEPS = 50
+GEOM_STEPS = 25
+#: steps of the batched paths' step-by-step checks (phases 27-30; cut from
+#: PARITY_STEPS when phase 31 came in, as BATCH_STEPS from 100 and
+#: GEOM_STEPS from 50)
+BATCH_PARITY_STEPS = 25
 BORDER_SWEEP = 8
 
 
@@ -2374,14 +2387,15 @@ def run_batch(label, make_run, arg, steps, expect, rows, card):
     return counts, 1e3 * best / steps, final
 
 
-def check_batch_steps(label, scene, params, cfg, state):
-    """Every step of a PARITY_STEPS-step batched rollout through the
-    kernels against the plain versions' step from the same state, per row:
-    within POS_STEP_TOL_M, modes and alive equal, finite."""
+def check_batch_steps(label, scene, params, cfg, state,
+                      steps=BATCH_PARITY_STEPS):
+    """Every step of a ``steps``-step batched rollout through the kernels
+    against the plain versions' step from the same state, per row: within
+    POS_STEP_TOL_M, modes and alive equal, finite."""
     import batch_cases as bc
     gaps = []
     for k, gap, equal, finite in bc.one_step_gaps(scene, params, cfg,
-                                                  state, PARITY_STEPS):
+                                                  state, steps):
         if not (equal and finite):
             fail(f"{label}: step {k} from the same state gives other "
                  f"modes or alive masks, or non-finite positions, "
@@ -2392,7 +2406,7 @@ def check_batch_steps(label, scene, params, cfg, state):
             fail(f"{label}: step {k}, row {row}: one-step position "
                  f"L-inf {gaps[-1]:.3e} m exceeds {POS_STEP_TOL_M} m")
     say(f"{label} one-step position L-inf kernels vs plain from the same "
-        f"state, worst row of each step 1..{PARITY_STEPS} (limit "
+        f"state, worst row of each step 1..{steps} (limit "
         f"{POS_STEP_TOL_M:g} m): " + " ".join(f"{v:.2e}" for v in gaps))
 
 
@@ -2731,19 +2745,19 @@ def batch_phases(dev, zero, card, launches, worst, profile_steps):
 
 
 #: ensembles and sweeps with the 30 m cutoff (phase 30): config #5 with
-#: the cutoff (256 x 1,000, 100 steps; the box-skip walks, below the gate),
-#: 8 crowds of 50,000 at benchmark_bundle's 0.25 pedestrians/m^2 (50 steps;
-#: the survivor tables engage), a 64-point pedestrian_A sweep at 1,000 (50
+#: the cutoff (256 x 1,000, 50 steps; the box-skip walks, below the gate),
+#: 8 crowds of 50,000 at benchmark_bundle's 0.25 pedestrians/m^2 (25 steps;
+#: the survivor tables engage), a 64-point pedestrian_A sweep at 1,000 (25
 #: steps) and the family forms on the same batches (20 steps: they exist to
 #: launch those forms); the kernel checks also force a table of
 #: CUT_BATCH_MAX_SURV slots at 1,000 (most rows overflow) and of
 #: CUT_OVERFLOW_MAX_SURV at 50,000 (some do); the step-by-step checks run
-#: 50 steps at 16 x 1,000 and at 4 x 4,000 with an 8-slot table
-CUT_BATCH_STEPS = 100
+#: BATCH_PARITY_STEPS at 16 x 1,000 and at 4 x 4,000 with an 8-slot table
+CUT_BATCH_STEPS = 50
 CUT_TABLE_BATCH = 8
 CUT_TABLE_N = 50_000
-CUT_TABLE_STEPS = 50
-CUT_SWEEP_STEPS = 50
+CUT_TABLE_STEPS = 25
+CUT_SWEEP_STEPS = 25
 CUT_FAMILY_STEPS = 20
 CUT_BATCH_MAX_SURV = 2
 CUT_OVERFLOW_MAX_SURV = 8
@@ -2964,6 +2978,361 @@ def cutoff_batch_phases(dev, zero, card, launches, worst, profile_steps):
         params, dataclasses.replace(cfg_t, interaction_cutoff=CUTOFF_M,
                                     pair_max_surv=ms_t),
         PedState.empty(n_t, device=dev, batch=b_t))
+    return table
+
+
+#: ensembles and sweeps on the compacted, analytic and chunked environment
+#: paths (phase 31, item 19b.2): the kernel checks at GEOM_BATCH crowds of
+#: BATCH_N spread over config #3's geometry at N = ENV_GEOM_N (154 border
+#: sections of 384 slots, 169 parked cars of 128, the analytic split 154 x
+#: 8: the automatic gate compacts both sampled sets, ENV_ANALYTIC_MAX_SURV
+#: slots the analytic one; crowds in a 70 m square: about half the border
+#: table's rows overflow its 8 automatic slots, every parked-car row fits
+#: them and most overflow ENV_OVERFLOW_MAX_SURV), and again at config #5's
+#: 256 x 1,000, shared and swept; config #5's 256 x 1,000 on that geometry
+#: with env_compact, env_analytic, both and env_chunked (ENV_BATCH_STEPS
+#: each); a sweep of
+#: border_a over TOWN_SWEEP rows of the Town02 crowd on the scenarios'
+#: engine (env_chunked, ENV_BATCH_STEPS); the step-by-step checks
+#: ENV_PARITY_STEPS steps at GEOM_BATCH x BATCH_N and TOWN_PARITY_ROWS rows
+#: of the Town02 crowd
+ENV_GEOM_N = 10_000
+ENV_CROWD_EXTENT = 35.0
+ENV_ANALYTIC_MAX_SURV = 2
+ENV_OVERFLOW_MAX_SURV = 4
+ENV_BATCH_STEPS = 20
+ENV_PARITY_STEPS = 10
+#: the chunked terms of a step on that geometry (the borders, the parked
+#: cars, the vehicles)
+ENV_CHUNKED_TERMS = 3
+TOWN_SWEEP = 8
+TOWN_PARITY_ROWS = 4
+#: steps of the Town02 rollout between the rows of the chunk-scan check
+TOWN_ROW_STRIDE = 10
+
+
+def env_batch_bound(planes, seg, active, moussaid, grid=None):
+    """The bound of one batched environment launch on sorted ``(B, n)``
+    planes: each crowd's planes read once and its forces written once, the
+    shared rows (sampled points, or the five analytic planes) and section
+    data read once, per-row radii and the table read once; for every
+    crowd's (section, alive pedestrian) pair inside the section's filter
+    circle (the crowd's own radii), the scan of the section's real slots
+    (SCAN_OPS a point, SEG_OPS an analytic segment) and one force term.
+    Returns ``(bound_ms, bound_by, pairs)``."""
+    import dataclasses
+    from carla_social_force_model_tpu_torch.env.pointsets import PAD_COORD
+    from carla_social_force_model_tpu_torch.ops.geometry import (
+        segment_filter_mask)
+    analytic = hasattr(seg, "ax")
+    rows = seg.ax if analytic else seg.x
+    real = (rows != PAD_COORD).sum(dim=1)
+    slot_ops = SEG_OPS if analytic else SCAN_OPS
+    term_ops, term_mufu = ((PAIR_OPS, PAIR_MUFU) if moussaid
+                           else (EXP_TERM_OPS, EXP_TERM_MUFU))
+    b, n = planes[0].shape
+    ops = pairs = 0
+    for r in range(b):
+        seg_r = seg if seg.filter_radius.dim() == 1 else dataclasses.replace(
+            seg, filter_radius=seg.filter_radius[r])
+        ok = (segment_filter_mask(planes[0][r], planes[1][r], seg_r)
+              & planes[5][r][None, :] & (real > 0)[:, None])
+        if active is not None:
+            ok = ok & active[:, None]
+        per = ok.sum(dim=1)
+        ops += int((per * (slot_ops * real + term_ops)).sum())
+        pairs += int(per.sum())
+    s = seg.num_segments
+    n_bytes = (b * n * (4 * (5 if moussaid else 3) + 1 + 8)
+               + 4 * rows.numel() * (5 if analytic else 2)
+               + 4 * s * (5 if moussaid else 3)
+               + 4 * seg.filter_radius.numel())
+    if grid is not None:
+        n_bytes += 4 * (grid.surv.numel() + grid.counts.numel())
+    return (*bound(n_bytes, ops, pairs * term_mufu), pairs)
+
+
+def env_batch_phases(dev, zero, card, launches, worst, profile_steps, town):
+    """Phase 31: the batched compacted and analytic environment kernels
+    (#7b, #7c, #8b under a batch) against their plain batched versions and,
+    row by row, the unbatched kernels with each row's table (bitwise), with
+    tables that fit and that overflow, swept (a, b) and per-row filter
+    radii, at 16 and at 256 crowds; the batched chunk scan (#11) against
+    the unbatched launch on each row of the Town02 crowd (bitwise); the
+    ensembles on config #3's N = 10,000 geometry with env_compact,
+    env_analytic and env_chunked and the Town02 sweep on env_chunked
+    through ``parallel/sweeps.py`` with their launches, step times and
+    device-busy shares; every step of short
+    batched rollouts against the plain versions' step.  Returns ``{kernel:
+    (source line, ms, plain_ms, bound)}`` for the kernels line."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import batch_cases as bc
+    from carla_social_force_model_tpu_torch.api.synthetic import (
+        batched_crowds, benchmark_bundle)
+    from carla_social_force_model_tpu_torch.models import stepper
+    from carla_social_force_model_tpu_torch.models.state import PedState
+    from carla_social_force_model_tpu_torch.ops import geometry, statics
+    from carla_social_force_model_tpu_torch.parallel import sweeps
+    table = {}
+    src = "carla_social_force_model_tpu/ops/pallas_env.py:"
+    line_of = {"env_exp_compact_batched": "297",
+               "env_moussaid_compact_batched": "327",
+               "env_exp_analytic_batched": "235",
+               "env_exp_analytic_compact_batched": "297"}
+
+    lap("phase 31")
+    # -- phase 31: the kernels on B crowds over config #3's N = 10k geometry
+    scene, params, cfg, _ = benchmark_bundle(
+        ENV_GEOM_N, with_borders=True, with_obstacles=True,
+        num_steps_hint=4 * ENV_BATCH_STEPS, device=dev)
+    scene = stepper.prepare_scene(scene, analytic=True)
+
+    def batch_state(rows, seed):
+        """``rows`` crowds of BATCH_N over the geometry after one step,
+        10% dead, each row in its own Hilbert order."""
+        ens = dataclasses.replace(scene, spawn=batched_crowds(
+            rows, BATCH_N, extent=ENV_CROWD_EXTENT, seed=seed, device=dev))
+        st, _ = stepper.rollout(PedState.empty(BATCH_N, device=dev,
+                                               batch=rows),
+                                ens, params, cfg, 1, record=False)
+        rng = np.random.default_rng(seed)
+        dead = torch.from_numpy(rng.uniform(size=(rows, BATCH_N))
+                                < 0.1).to(dev)
+        return bc.sorted_rows(dataclasses.replace(st,
+                                                  alive=st.alive & ~dead))
+
+    def jobs_of(sweep, rows=GEOM_BATCH):
+        """{label: (kernel, segments, args)}: the borders (sampled and
+        analytic) and the parked cars; with ``sweep`` a per-row (a, b), the
+        cars' A swept and each of the ``rows`` crowds' own (B, S) filter
+        radii."""
+        a, b_ = params.border.a, params.border.b
+        cars, car_p = scene.static_obstacles_seg, params.static_obstacle
+        if sweep:
+            a = torch.linspace(0.5, 12.0, rows, device=dev)
+            b_ = torch.linspace(0.1, 0.4, rows, device=dev)
+            scale = torch.linspace(0.3, 2.0, rows, device=dev)[:, None]
+            cars = dataclasses.replace(
+                cars, filter_radius=cars.filter_radius[None, :] * scale)
+            car_p = dataclasses.replace(car_p, A=torch.linspace(
+                1.0, 9.0, rows, device=dev))
+        return {"borders": ("env_exp", scene.borders_seg, (a, b_)),
+                "cars": ("env_moussaid", cars, (scene.static_obstacle_vel,
+                                                car_p)),
+                "analytic borders": ("env_exp_analytic", scene.borders_geom,
+                                     (a, b_))}
+
+    checks = (  # (job, table width: None dense, 0 the automatic gate,
+        #          must some crowd's rows fit and others overflow)
+        ("borders", 0, True), ("borders", 1, False), ("cars", 0, False),
+        ("cars", ENV_OVERFLOW_MAX_SURV, True),
+        ("analytic borders", None, False),
+        ("analytic borders", ENV_ANALYTIC_MAX_SURV, False),
+        ("analytic borders", 1, False))
+    def check(job, sweep, planes, seg, args, kernel, grid, want=None):
+        """One batched launch on ``planes`` against its plain batched
+        version (``want`` when the caller has it) and, row by row, the
+        unbatched kernel with each row's table; fails on any difference.
+        Returns the launch's name."""
+        name = bc.env_batched_name(kernel, grid)
+        got = bc.env_batch_run(kernel, planes, seg, args, None, grid=grid)
+        torch.cuda.synchronize()
+        err, over, equal = bc.env_mismatch(kernel, planes, seg, args, None,
+                                           got, grid, want=want)
+        rows = planes[0].shape[0]
+        fits = ("" if grid is None else
+                f", table {grid.max_surv} slots: crowds whose rows all fit "
+                f"{int((grid.counts <= grid.max_surv).all(dim=-1).sum())} of "
+                f"{rows}, rows that overflow "
+                f"{int((grid.counts > grid.max_surv).sum())} of "
+                f"{grid.counts.numel()}")
+        say(f"phase 31 {name} ({job}{', swept' if sweep else ''}), "
+            f"B={rows} x N={BATCH_N}{fits}: max abs err {err:.3e} vs the "
+            f"plain batched version ({over} over {bc.ENV_ATOL:g} + "
+            f"{bc.ENV_RTOL:g}*|f|); rows vs the unbatched kernel with each "
+            f"row's table: " + ("bitwise equal" if equal else "DIFFERENT"))
+        if not torch.isfinite(got).all() or bool(
+                (got[:, ~planes[5]] != 0).any()):
+            fail(f"{name} ({job}): non-finite forces or dead rows not 0")
+        if over:
+            fail(f"{name} ({job}) disagrees with its plain version")
+        if not equal:
+            fail(f"{name} ({job}): a row differs from the unbatched kernel "
+                 f"on that row")
+        worst[name] = max(worst.get(name, 0.0), err)
+        return name
+
+    planes = batch_state(GEOM_BATCH, 31)
+    for sweep in (False, True):
+        jobs = jobs_of(sweep)
+        for job, width, mixed in checks:
+            kernel, seg, args = jobs[job]
+            grid = (None if width is None
+                    else bc.env_grid_of(planes, seg, None, width))
+            name = check(job, sweep, planes, seg, args, kernel, grid)
+            if mixed:
+                hits, ms = grid.counts, grid.max_surv
+                if not (bool((hits > ms).any())
+                        and bool(((hits > 0) & (hits <= ms)).any())):
+                    fail(f"phase 31 {name} ({job}): the {ms}-slot table "
+                         f"does not mix rows that fit and rows that "
+                         f"overflow")
+    # bad inputs are refused before a launch
+    kernel, seg, args = jobs_of(False)["borders"]
+    grid = bc.env_grid_of(planes, seg, None, 0)
+    px, py, _, _, rad, alive = planes
+    bad = (("a table of another batch", dict(grid=grid._replace(
+        surv=grid.surv[1:].contiguous(), counts=grid.counts[1:].contiguous()
+    ))), ("a table of other rows", dict(grid=grid._replace(
+        counts=grid.counts[:, :1].contiguous()))),
+           ("radii of another batch", dict(seg=dataclasses.replace(
+               seg, filter_radius=seg.filter_radius[None, :].expand(
+                   GEOM_BATCH - 1, -1)))))
+    for what, kw in bad:
+        try:
+            bc.env_batch_run(kernel, planes, kw.get("seg", seg), args, None,
+                             grid=kw.get("grid", grid))
+        except ValueError as exc:
+            say(f"phase 31 env_exp_compact_batched refuses {what}: {exc}")
+            continue
+        fail(f"phase 31 env_exp_compact_batched took {what}")
+
+    # the times at config #5's shape, 256 crowds of 1,000 over the geometry,
+    # and the checks there, shared (the timed launch against the timed plain
+    # version) and swept
+    lap("phase 31 at 256 crowds")
+    big = batch_state(BATCH, 32)
+    jobs, swept_jobs = jobs_of(False), jobs_of(True, BATCH)
+    for name, job, width in (
+            ("env_exp_compact_batched", "borders", 0),
+            ("env_moussaid_compact_batched", "cars", 0),
+            ("env_exp_analytic_batched", "analytic borders", None),
+            ("env_exp_analytic_compact_batched", "analytic borders",
+             ENV_ANALYTIC_MAX_SURV)):
+        kernel, seg, args = jobs[job]
+        grid = None if width is None else bc.env_grid_of(big, seg, None,
+                                                         width)
+        ms = device_ms(lambda: bc.env_batch_run(kernel, big, seg, args, None,
+                                                grid=grid),
+                       "env_force_batched_kernel")
+        want = []
+        plain = cuda_ms(lambda: want.append(bc.env_batch_run(
+            kernel, big, seg, args, None, batched=False)), reps=1, warm=False)
+        bnd = env_batch_bound(big, seg, None, kernel == "env_moussaid", grid)
+        table[name] = (src + line_of[name], ms, plain, bnd[:2])
+        say(f"phase 31 time {name} ({job}), B={BATCH} x N={BATCH_N}: kernel "
+            f"{ms:.4f} ms ({TIMED_BY[0]}; bound {bnd[0]:.6f} ms, {bnd[1]}; "
+            f"{bnd[2]} in-filter pairs), plain batched version "
+            f"{plain:.3f} ms ({card})")
+        check(job, False, big, seg, args, kernel, grid, want=want[0])
+        kernel, seg, args = swept_jobs[job]
+        check(job, True, big, seg, args, kernel,
+              None if width is None else bc.env_grid_of(big, seg, None,
+                                                        width))
+
+    # -- the chunk scan on rows of the Town02 crowd at different steps -------
+    lap("phase 31 chunk scan")
+    sim, _ = town
+    tb = sim.bundle
+    tscene = stepper.prepare_scene(tb.scene, chunked=True)
+    _, rec = stepper.make_rollout_fn(
+        tscene, tb.params, tb.cfg, TOWN_ROW_STRIDE * (TOWN_SWEEP - 1) + 1,
+        record=True)(tb.initial_state)
+    pos = rec.pos[::TOWN_ROW_STRIDE]                      # (TOWN_SWEEP, N, 2)
+    px, py = pos[..., 0].contiguous(), pos[..., 1].contiguous()
+    fx, fy = (a.contiguous() for a in geometry.staged_chunk_planes(
+        tscene.borders_chunked))
+    (dmin, idx), singles = bc.scan_rows(px, py, fx, fy)
+    want = geometry.chunk_argmin_plain(px.reshape(-1), py.reshape(-1), fx, fy)
+    torch.cuda.synchronize()
+    rows_equal = all(torch.equal(dmin[:, r], d1) and torch.equal(idx[:, r], i1)
+                     for r, (d1, i1) in enumerate(singles))
+    plain_equal = (torch.equal(dmin.reshape(want[0].shape), want[0])
+                   and torch.equal(idx.reshape(want[1].shape), want[1]))
+    c, kk = fx.shape
+    b, n = px.shape
+    say(f"phase 31 chunk_argmin_batched, the Town02 crowd at steps "
+        f"{list(range(0, TOWN_ROW_STRIDE * b, TOWN_ROW_STRIDE))} as {b} rows "
+        f"of N={n} ({c} chunks of {kk}), one launch: rows vs the unbatched "
+        f"launch " + ("bitwise equal" if rows_equal else "DIFFERENT")
+        + ", vs the plain version " + ("bitwise equal" if plain_equal
+                                       else "DIFFERENT"))
+    if not (rows_equal and plain_equal):
+        fail("phase 31 chunk_argmin_batched differs from the unbatched "
+             "launch or the plain version")
+    worst["chunk_argmin_batched"] = (dmin.reshape(want[0].shape)
+                                     - want[0]).abs().max().item()
+    ms = device_ms(lambda: statics.chunk_argmin_batched(px, py, fx, fy),
+                   "chunk_argmin_kernel")
+    plain = cuda_ms(lambda: geometry.chunk_argmin_plain(
+        px.reshape(-1), py.reshape(-1), fx, fy), reps=1, warm=False)
+    n_bytes = 4 * (2 * c * kk + 2 * b * n) + 8 * c * b * n
+    bnd = bound(n_bytes, ARGMIN_OPS * c * kk * b * n, 0)
+    table["chunk_argmin_batched"] = (
+        "carla_social_force_model_tpu/ops/geometry.py:117", ms, plain, bnd)
+    say(f"phase 31 time chunk_argmin_batched at {b} x {n} ({c} chunks of "
+        f"{kk}): kernel {ms:.4f} ms ({TIMED_BY[0]}; bound {bnd[0]:.6f} ms, "
+        f"{bnd[1]}), plain {plain:.3f} ms; "
+        f"{floor_note('chunk_argmin', c * kk * b * n)} ({card})")
+
+    # -- the main paths --------------------------------------------------------
+    lap("phase 31 main paths")
+    ens = dataclasses.replace(scene, spawn=batched_crowds(
+        BATCH, BATCH_N, extent=ENV_CROWD_EXTENT, device=dev))
+    state = PedState.empty(BATCH_N, device=dev, batch=BATCH)
+    s = ENV_BATCH_STEPS
+    paths = (  # (label, cfg, launches per step)
+        ("env_compact", dict(env_compact=True),
+         dict(env_exp_compact_batched=1, env_moussaid_compact_batched=1,
+              env_moussaid_batched=1)),
+        ("env_analytic", dict(env_analytic=True),
+         dict(env_exp_analytic_batched=1, env_moussaid_batched=2)),
+        (f"env_analytic + env_compact, env_max_surv="
+         f"{ENV_ANALYTIC_MAX_SURV}", dict(env_analytic=True, env_compact=True,
+                                          env_max_surv=ENV_ANALYTIC_MAX_SURV),
+         dict(env_exp_analytic_compact_batched=1,
+              env_moussaid_compact_batched=1, env_moussaid_batched=1)),
+        ("env_chunked", dict(env_chunked=True),
+         dict(chunk_argmin_batched=ENV_CHUNKED_TERMS)))
+    small = dataclasses.replace(scene, spawn=batched_crowds(
+        GEOM_BATCH, BATCH_N, extent=ENV_CROWD_EXTENT, device=dev))
+    for what, knobs, per_step in paths:
+        c = dataclasses.replace(cfg, **knobs)
+        label = (f"phase 31 config #5 on config #3's N={ENV_GEOM_N} "
+                 f"geometry + {what}")
+        expect = dict(zero, pair_force_sym_batched=s,
+                      **{k: v * s for k, v in per_step.items()})
+        counts, ms_step, _ = run_batch(
+            label, lambda k, c=c: sweeps.make_ensemble_rollout(
+                ens, params, c, k), ens, s, expect, BATCH, card)
+        for k in per_step:
+            launches[k] = counts[k]
+        profile_steps(ens, params, c, state, ms_step, label)
+        check_batch_steps(f"phase 31 config #3 N={ENV_GEOM_N} geometry + "
+                          f"{what} at B={GEOM_BATCH}", small, params, c,
+                          PedState.empty(BATCH_N, device=dev,
+                                         batch=GEOM_BATCH), ENV_PARITY_STEPS)
+
+    lap("phase 31 Town02 sweep")
+    swept = sweeps.batch_params(tb.params, border_a=torch.linspace(
+        0.5, 12.0, TOWN_SWEEP, device=dev))
+    label = (f"phase 31 Town02 crowd sweep of border_a over {TOWN_SWEEP} "
+             f"rows (env_chunked)")
+    counts, ms_step, final = run_batch(
+        label, lambda k: sweeps.make_sweep_rollout(tb.scene, tb.cfg, k),
+        swept, s, dict(zero, pair_force_sym_batched=s,
+                       chunk_argmin_batched=s), TOWN_SWEEP, card)
+    launches["chunk_argmin_batched"] = counts["chunk_argmin_batched"]
+    profile_steps(tb.scene, swept, tb.cfg, PedState.empty(
+        tb.capacity, device=dev, batch=TOWN_SWEEP), ms_step, label)
+    check_batch_steps(
+        f"phase 31 Town02 crowd sweep of border_a, {TOWN_PARITY_ROWS} rows",
+        tb.scene, sweeps.batch_params(tb.params, border_a=torch.linspace(
+            0.5, 12.0, TOWN_PARITY_ROWS, device=dev)), tb.cfg,
+        PedState.empty(tb.capacity, device=dev, batch=TOWN_PARITY_ROWS),
+        ENV_PARITY_STEPS)
     return table
 
 
@@ -3505,6 +3874,9 @@ def main() -> None:
     # -- phase 30: ensembles and sweeps with the interaction cutoff ---------
     batched.update(cutoff_batch_phases(dev, zero, card, launches, worst,
                                        profile_steps))
+    # -- phase 31: ensembles on the compacted, analytic and chunked paths --
+    batched.update(env_batch_phases(dev, zero, card, launches, worst,
+                                    profile_steps, town))
 
     lap("the kernels line")
     csrc = "carla_social_force_model_tpu_torch/csrc/"
@@ -3563,6 +3935,7 @@ def main() -> None:
                "pallas_forces.py:296"),
               ("ring_force", "ring.cu", "pallas_ring.py:65"))),
         *((name, csrc + ("env_forces.cu" if name.startswith("env")
+                         else "statics.cu" if name.startswith("chunk")
                          else "pair_forces.cu"), replaces, ms, p_ms, bnd)
           for name, (replaces, ms, p_ms, bnd) in batched.items()),
     ]
@@ -3910,8 +4283,9 @@ def worst_agent_note(scene, params, cfg, k, s, nxt, ref):
     return note
 
 
-def check_rollout(label, scene, params, cfg, state, rec_plain, free_limit):
-    """The kernels' PARITY_STEPS-step rollout against the plain versions'.
+def check_rollout(label, scene, params, cfg, state, rec_plain, free_limit,
+                  steps=PARITY_STEPS):
+    """The kernels' ``steps``-step rollout against the plain versions'.
 
     At every step the plain versions step again from the kernels' own state
     (with a reactive fleet, the kernels' own fleet state too) and must land
@@ -3928,7 +4302,7 @@ def check_rollout(label, scene, params, cfg, state, rec_plain, free_limit):
                                   chunked=cfg.env_chunked)
     one, free, free_modes, worst = [], [], 0, None
     for k, s, nxt, ref, rec, fleet_equal in one_step_walk(
-            scene, params, cfg, state, PARITY_STEPS):
+            scene, params, cfg, state, steps):
         if not fleet_equal:
             fail(f"{label}: step {k} from the same state gives another "
                  f"fleet state through the kernels than through the "
@@ -3950,12 +4324,12 @@ def check_rollout(label, scene, params, cfg, state, rec_plain, free_limit):
         free_modes += int((rec.mode != rec_plain.mode[k]).sum()
                           + (rec.alive != rec_plain.alive[k]).sum())
     say(f"{label} one-step position L-inf kernels vs plain from the same "
-        f"state, steps 1..{PARITY_STEPS} (limit {POS_STEP_TOL_M:g} m): "
+        f"state, steps 1..{steps} (limit {POS_STEP_TOL_M:g} m): "
         + " ".join(f"{v:.2e}" for v in one))
     say(f"{label} worst one-step agent, "
         + worst_agent_note(scene, params, cfg, *worst))
     say(f"{label} free-running position L-inf kernels vs plain, steps "
-        f"1..{PARITY_STEPS} ("
+        f"1..{steps} ("
         + (f"limit {POS_TOL_M:g} m" if free_limit else "printed only") + "): "
         + " ".join(f"{v:.2e}" for v in free)
         + f"; {free_modes} (step, agent) cells with other modes or alive")

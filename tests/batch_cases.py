@@ -238,52 +238,111 @@ def env_jobs(scene, snap, params):
                                            params.dynamic_obstacle), dact)}
 
 
-def env_batch_run(kernel, planes, seg, args, active, batched=True):
-    """One launch of the batched environment kernel (or, with ``batched``
-    False, its plain batched version) on sorted ``(B, n)`` planes:
-    ``(2, B, n)``."""
+#: the unbatched environment wrappers by (kernel, survivor table)
+_ENV_ROW = {("env_exp", False): "env_exp", ("env_exp", True): "env_exp_compact",
+            ("env_exp_analytic", False): "env_exp_analytic",
+            ("env_exp_analytic", True): "env_exp_analytic_compact",
+            ("env_moussaid", False): "env_moussaid",
+            ("env_moussaid", True): "env_moussaid_compact"}
+
+
+def env_batched_name(kernel, grid=None):
+    """The LAUNCHES key (and wrapper) of the batched form of ``kernel``
+    (``env_exp``, ``env_exp_analytic``, ``env_moussaid``), compacted with a
+    ``grid``."""
+    return _ENV_ROW[kernel, grid is not None] + "_batched"
+
+
+def env_grid_of(planes, seg, active, max_surv=0):
+    """The batched survivor table of sorted ``(B, n)`` planes for the job
+    of ``seg`` (its own ``(B, S)`` radii if it has them) under the JAX
+    package's gate with ``max_surv`` (0: auto), which must engage."""
+    from carla_social_force_model_tpu_torch.ops import env_grid as eg
+    engage, group, ms = eg.env_gate(seg.num_segments,
+                                    forces.section_slots(seg), True,
+                                    max_surv)
+    if not engage:
+        raise ValueError(f"the gate does not engage for {seg.num_segments} "
+                         f"sections of {forces.section_slots(seg)} slots "
+                         f"with max_surv={max_surv}")
+    return eg.env_grid(planes[0], planes[1], planes[5], seg,
+                       cuda_env.filter_r2(seg, active), group, ms)
+
+
+def env_row_grid(grid, b):
+    """Crowd b's table of a batched one (equal to the table of row b
+    alone)."""
+    return grid._replace(surv=grid.surv[b].contiguous(),
+                         counts=grid.counts[b].contiguous())
+
+
+def env_batch_run(kernel, planes, seg, args, active, batched=True,
+                  grid=None):
+    """One launch of the batched environment kernel (compacted over
+    ``grid``, the batched table of the same planes) or, with ``batched``
+    False, its plain batched version on sorted ``(B, n)`` planes:
+    ``(2, B, n)``.  ``kernel``: ``env_exp``, ``env_exp_analytic`` (``seg``
+    a SegmentGeomSet) or ``env_moussaid``."""
     px, py, vx, vy, rad, alive = planes
-    if kernel == "env_exp":
-        fn = (cuda_env.env_exp_batched if batched
+    table = () if grid is None else (grid,)
+    moussaid = kernel == "env_moussaid"
+    if batched:
+        fn = getattr(cuda_env, env_batched_name(kernel, grid))
+    else:
+        table = ()
+        fn = (cuda_env.forces.env_moussaid_force_batched if moussaid
               else cuda_env.forces.env_exp_force_batched)
-        return torch.stack(fn(px, py, rad, alive, seg, *args, active=active))
-    fn = (cuda_env.env_moussaid_batched if batched
-          else cuda_env.forces.env_moussaid_force_batched)
-    return torch.stack(fn(px, py, vx, vy, rad, alive, seg, *args,
+    vel = (vx, vy) if moussaid else ()
+    return torch.stack(fn(px, py, *vel, rad, alive, seg, *args, *table,
                           active=active))
 
 
-def env_row_run(kernel, planes, seg, args, active, b):
-    """Row b through the unbatched environment kernel with row b's
-    parameters and filter radii: ``(2, n)``."""
+def env_row_run(kernel, planes, seg, args, active, b, grid=None):
+    """Row b through the unbatched environment kernel (compacted over row
+    b's rows of ``grid``) with row b's parameters and filter radii:
+    ``(2, n)``."""
     px, py, vx, vy, rad, alive = (t[b].contiguous() for t in planes)
     batch = planes[0].shape[0]
     if seg.filter_radius.dim() == 2:
         seg = dataclasses.replace(seg, filter_radius=seg.filter_radius[b])
-    if kernel == "env_exp":
+    fn = getattr(cuda_env, _ENV_ROW[kernel, grid is not None])
+    table = () if grid is None else (env_row_grid(grid, b),)
+    if kernel != "env_moussaid":
         a, bb = exp_rows(*args, batch, px.device)[b].tolist()
-        return torch.stack(cuda_env.env_exp(px, py, rad, alive, seg, a, bb,
-                                            active=active))
+        return torch.stack(fn(px, py, rad, alive, seg, a, bb, *table,
+                              active=active))
     ovel, p = args
-    return torch.stack(cuda_env.env_moussaid(
-        px, py, vx, vy, rad, alive, seg, ovel, section_rows(p, batch)[b],
-        active=active))
+    return torch.stack(fn(px, py, vx, vy, rad, alive, seg, ovel,
+                          section_rows(p, batch)[b], *table, active=active))
 
 
-def env_mismatch(kernel, planes, seg, args, active, got=None):
-    """``(err, over, rows_equal)`` of a batched environment launch against
-    its plain batched version (ENV_ATOL + ENV_RTOL * |f|) and the
-    unbatched kernel row by row (bitwise)."""
-    got = (env_batch_run(kernel, planes, seg, args, active) if got is None
-           else got)
-    want = env_batch_run(kernel, planes, seg, args, active, batched=False)
+def env_mismatch(kernel, planes, seg, args, active, got=None, grid=None,
+                 want=None):
+    """``(err, over, rows_equal)`` of a batched environment launch
+    (compacted over ``grid``) against its plain batched version (ENV_ATOL
+    + ENV_RTOL * |f|; ``want`` when the caller has computed it) and the
+    unbatched kernel row by row, with row b's table (bitwise)."""
+    got = (env_batch_run(kernel, planes, seg, args, active, grid=grid)
+           if got is None else got)
+    want = (env_batch_run(kernel, planes, seg, args, active, batched=False)
+            if want is None else want)
     err = (got - want).abs()
     over = int((err > ENV_ATOL + ENV_RTOL * want.abs()).sum())
-    equal = all(torch.equal(got[:, b],
-                            env_row_run(kernel, planes, seg, args, active, b))
+    equal = all(torch.equal(got[:, b], env_row_run(kernel, planes, seg, args,
+                                                   active, b, grid))
                 for b in range(planes[0].shape[0]))
     return err.max().item(), over, equal
 
+
+def scan_rows(px, py, fx, fy):
+    """The batched chunk scan of ``(B, n)`` planes (one launch) and each
+    row through the unbatched scan: ``((dmin, idx) (C, B, n), [(dmin,
+    idx) (C, n) of each row])``."""
+    from carla_social_force_model_tpu_torch.ops import geometry
+    got = geometry.chunk_argmin(px, py, fx, fy)
+    rows = [geometry.chunk_argmin(px[b].contiguous(), py[b].contiguous(), fx,
+                                  fy) for b in range(px.shape[0])]
+    return got, rows
 
 
 def one_step_gaps(scene, params, cfg, state, steps):
@@ -295,7 +354,8 @@ def one_step_gaps(scene, params, cfg, state, steps):
     from carla_social_force_model_tpu_torch.models import stepper
     plain = dataclasses.replace(cfg, plain_pair_force=True,
                                 plain_env_force=True)
-    scene = stepper.prepare_scene(scene)
+    scene = stepper.prepare_scene(scene, analytic=cfg.env_analytic,
+                                  chunked=cfg.env_chunked)
     s = state
     for k in range(steps):
         nxt, _ = stepper.simulation_step(s, scene, params, cfg, k)

@@ -820,7 +820,8 @@ def test_feed_launch_counts_and_checks(cuda_device):
     statics.nearest_features_topk(x, y, rest, 3, 15.0, alive)
     geometry.closest_point_per_chunk(x, y, rest, 15.0, alive)
     assert statics.LAUNCHES == {"seg_topk": 1, "chunk_topk": 1,
-                                "chunk_closest": 1, "chunk_argmin": 0}
+                                "chunk_closest": 1, "chunk_argmin": 0,
+                                "chunk_argmin_batched": 0}
     with pytest.raises(ValueError, match="k must be"):
         statics.seg_topk(x, y, seg, 9, 15.0)
     with pytest.raises(ValueError, match="contiguous float32"):
@@ -1854,6 +1855,241 @@ def test_batched_env_kernels_match_plain_and_unbatched(cuda_device, b, n,
                                            got)
         assert over == 0, (label, err)
         assert equal, label
+
+
+#: the batched compacted and analytic forms: (kernel of the job, table
+#: width: None dense, 0 the automatic gate)
+ENV_FORMS = {"borders compact": ("env_exp", 0),
+             "borders one slot": ("env_exp", 1),
+             "cars compact": ("env_moussaid", 0),
+             "cars one slot": ("env_moussaid", 1),
+             "analytic": ("env_exp_analytic", None),
+             "analytic compact": ("env_exp_analytic", 2)}
+
+
+def batched_geometry_case(b, n, device, sweep):
+    """``b`` crowds of ``n`` spread over config #3's geometry at N =
+    10,000 (154 border sections, 169 parked cars, the analytic split: the
+    automatic gate compacts both sampled sets, a two-slot table the
+    analytic one), one step in, 10% dead, each row in its own Hilbert
+    order.  With ``sweep`` the border ``a`` differs by row and the parked
+    cars take per-row ``(B, S)`` filter radii.  Returns ``(planes, {label:
+    (kernel, segments, args, active)})``."""
+    from carla_social_force_model_tpu_torch.api.synthetic import (
+        batched_crowds)
+    scene, params, cfg, _ = benchmark_bundle(
+        10_000, with_borders=True, with_obstacles=True, num_steps_hint=4,
+        device=device)
+    scene = stepper.prepare_scene(dataclasses.replace(
+        scene, spawn=batched_crowds(b, n, extent=100.0, device=device)),
+        analytic=True)
+    state, _ = stepper.rollout(PedState.empty(n, device=device, batch=b),
+                               scene, params, cfg, 1, record=False)
+    rng = np.random.default_rng(b + n)
+    dead = torch.from_numpy(rng.uniform(size=(b, n)) < 0.1).to(device)
+    state = dataclasses.replace(state, alive=state.alive & ~dead)
+    a = params.border.a
+    cars = scene.static_obstacles_seg
+    if sweep:
+        a = torch.linspace(0.5, 12.0, b, device=device)
+        scale = torch.linspace(0.3, 2.0, b, device=device)[:, None]
+        cars = dataclasses.replace(
+            cars, filter_radius=cars.filter_radius[None, :] * scale)
+    border_args = (a, params.border.b)
+    return bc.sorted_rows(state), {
+        "borders": ("env_exp", scene.borders_seg, border_args, None),
+        "cars": ("env_moussaid", cars, (scene.static_obstacle_vel,
+                                        params.static_obstacle), None),
+        "analytic": ("env_exp_analytic", scene.borders_geom, border_args,
+                     None)}
+
+
+@pytest.mark.parametrize("sweep", [False, True])
+@pytest.mark.parametrize("form", sorted(ENV_FORMS))
+def test_batched_compact_and_analytic_env_kernels(cuda_device, form, sweep):
+    """The batched compacted and analytic environment kernels, one launch
+    for every row: against their plain batched versions (1e-5 + 1e-5*|f|)
+    and equal to the unbatched kernel on each row with that row's
+    parameters, filter radii and table, bitwise, with tables that fit and
+    with one slot (rows overflow)."""
+    planes, jobs = batched_geometry_case(6, 1000, cuda_device, sweep)
+    kernel, width = ENV_FORMS[form]
+    _, seg, args, active = jobs[form.split()[0]]
+    grid = None if width is None else bc.env_grid_of(planes, seg, active,
+                                                     width)
+    cuda_env.reset_launch_counts()
+    got = bc.env_batch_run(kernel, planes, seg, args, active, grid=grid)
+    torch.cuda.synchronize()
+    assert cuda_env.LAUNCHES == dict(dict.fromkeys(cuda_env.LAUNCHES, 0),
+                                     **{bc.env_batched_name(kernel, grid): 1})
+    assert torch.isfinite(got).all() and bool(got.abs().sum() > 0)
+    assert bool((got[:, ~planes[5]] == 0).all())
+    err, over, equal = bc.env_mismatch(kernel, planes, seg, args, active,
+                                       got, grid)
+    assert over == 0, err
+    assert equal
+    if width == 1:
+        fits = (grid.counts <= 1).all(dim=-1)
+        assert not bool(fits.all()), "no crowd overflows its table"
+
+
+@pytest.mark.parametrize("b", [1, 4])
+def test_batched_chunk_scan_rows_equal_unbatched_launches(cuda_device, b):
+    """One launch of the chunk scan over B crowds' flattened planes: each
+    row bitwise equal to the unbatched launch on that row and to the plain
+    version (the stacked ties of scenario_cases)."""
+    from carla_social_force_model_tpu_torch.ops import geometry, statics
+    fx, fy, centres = stacked_chunk_planes(150, 128, seed=b)
+    fx, fy = (torch.from_numpy(a).to(cuda_device) for a in (fx, fy))
+    rows = [seeded_crowd_planes(2500, seed=20 + r) for r in range(b)]
+    px, py = (torch.from_numpy(np.stack([r[k] for r in rows])).to(
+        cuda_device) for k in (0, 1))
+    px[:, :4] = torch.from_numpy(centres[:, 0]).to(cuda_device)
+    py[:, :4] = torch.from_numpy(centres[:, 1]).to(cuda_device)
+    statics.reset_launch_counts()
+    (dmin, idx), singles = bc.scan_rows(px, py, fx, fy)
+    torch.cuda.synchronize()
+    assert statics.LAUNCHES["chunk_argmin_batched"] == 1
+    assert statics.LAUNCHES["chunk_argmin"] == b
+    assert dmin.shape == idx.shape == (150, b, 2500)
+    for r, (d1, i1) in enumerate(singles):
+        assert torch.equal(dmin[:, r], d1) and torch.equal(idx[:, r], i1), r
+    want = geometry.chunk_argmin_plain(px.reshape(-1), py.reshape(-1), fx, fy)
+    assert torch.equal(dmin.reshape(150, -1), want[0])
+    assert torch.equal(idx.reshape(150, -1), want[1])
+
+
+def test_batched_env_kernels_reject_bad_tables_and_radii(cuda_device):
+    from carla_social_force_model_tpu_torch.ops import statics
+    planes, jobs = batched_geometry_case(3, 300, cuda_device, False)
+    px, py, vx, vy, rad, alive = planes
+    _, seg, args, _ = jobs["borders"]
+    grid = bc.env_grid_of(planes, seg, None, 1)
+    with pytest.raises(ValueError, match="survivor table surv"):
+        cuda_env.env_exp_compact_batched(
+            px, py, rad, alive, seg, *args,
+            grid._replace(surv=grid.surv[:2].contiguous()))
+    with pytest.raises(ValueError, match="survivor table counts"):
+        cuda_env.env_exp_compact_batched(
+            px, py, rad, alive, seg, *args,
+            grid._replace(counts=grid.counts[:, :1].contiguous()))
+    with pytest.raises(ValueError, match="survivor table surv"):
+        cuda_env.env_exp_compact_batched(
+            px[:, :200].contiguous(), py[:, :200].contiguous(),
+            rad[:, :200].contiguous(), alive[:, :200].contiguous(), seg,
+            *args, grid)
+    wrong = dataclasses.replace(seg, filter_radius=seg.filter_radius[
+        None, :].expand(2, -1))
+    with pytest.raises(ValueError, match="filter radii"):
+        cuda_env.env_exp_batched(px, py, rad, alive, wrong, *args)
+    _, geom, gargs, _ = jobs["analytic"]
+    with pytest.raises(ValueError, match="segment geometry ux"):
+        cuda_env.env_exp_analytic_batched(
+            px, py, rad, alive, dataclasses.replace(
+                geom, ux=geom.ux.double()), *gargs)
+    fx = torch.zeros((4, 128), device=cuda_device)
+    with pytest.raises(ValueError, match=r"\(B, n\) planes"):
+        statics.chunk_argmin_batched(px[0], py[0], fx, fx)
+
+
+@pytest.mark.parametrize("case", ["compact", "analytic", "analytic compact",
+                                  "chunked", "sweep chunked"])
+def test_batched_environment_paths_step_like_the_plain_versions(cuda_device,
+                                                                case):
+    """Every step of a 20-step batched rollout on the compacted, analytic
+    and chunked environment paths within 1e-4 m (L-inf, each row) of the
+    plain versions' step from the same state, with equal modes and alive
+    masks; one launch of each batched kernel per step and no unbatched
+    environment kernel."""
+    from carla_social_force_model_tpu_torch.ops import statics
+    from carla_social_force_model_tpu_torch.api.synthetic import (
+        batched_crowds)
+    from carla_social_force_model_tpu_torch.parallel.sweeps import (
+        batch_params)
+    b, n, steps = 4, 400, 20
+    scene, params, cfg, _ = benchmark_bundle(
+        10_000, with_borders=True, with_obstacles=True, num_steps_hint=steps,
+        device=cuda_device)
+    scene = dataclasses.replace(scene, spawn=batched_crowds(
+        b, n, extent=100.0, device=cuda_device))
+    knobs = {"compact": dict(env_compact=True),
+             "analytic": dict(env_analytic=True),
+             "analytic compact": dict(env_analytic=True, env_compact=True,
+                                      env_max_surv=2),
+             "chunked": dict(env_chunked=True),
+             "sweep chunked": dict(env_chunked=True)}[case]
+    cfg = dataclasses.replace(cfg, **knobs)
+    if case.startswith("sweep"):
+        params = batch_params(params, border_a=torch.linspace(
+            0.5, 12.0, b, device=cuda_device),
+            dynamic_obstacle_perception_threshold=torch.linspace(
+                5.0, 60.0, b, device=cuda_device))
+    for m in (cuda_forces, cuda_env, statics):
+        m.reset_launch_counts()
+    for k, gap, equal, finite in bc.one_step_gaps(
+            scene, params, cfg, PedState.empty(n, device=cuda_device,
+                                               batch=b), steps):
+        assert equal and finite, k
+        assert gap.max().item() <= 1e-4, (k, gap)
+    launched = {k: v for m in (cuda_forces, cuda_env, statics)
+                for k, v in m.LAUNCHES.items() if v}
+    want = {"pair_force_sym_batched": steps}
+    want.update({
+        "compact": dict(env_exp_compact_batched=steps,
+                        env_moussaid_compact_batched=steps,
+                        env_moussaid_batched=steps),
+        "analytic": dict(env_exp_analytic_batched=steps,
+                         env_moussaid_batched=2 * steps),
+        # the two-slot table compacts the parked cars too (22 groups)
+        "analytic compact": dict(env_exp_analytic_compact_batched=steps,
+                                 env_moussaid_compact_batched=steps,
+                                 env_moussaid_batched=steps),
+        "chunked": dict(chunk_argmin_batched=3 * steps),
+        "sweep chunked": dict(chunk_argmin_batched=3 * steps)}[case])
+    assert launched == want
+
+
+@pytest.mark.parametrize("case", ["borders swept", "vehicles swept"])
+def test_batched_chunked_terms_match_the_cpu_row_loop(cuda_device, case):
+    """On a card a batch's chunked terms are one pass over (S, B, N) with
+    (B, 1) parameter columns and (B, S) radii; each row within ENV_ATOL +
+    ENV_RTOL * |f| of the CPU's row loop (which equals the unbatched path
+    bitwise)."""
+    rng = np.random.default_rng(15)
+    b, n = 4, 3000
+    planes = [rng.uniform(-45.0, 45.0, (b, n)), rng.uniform(-45.0, 45.0,
+                                                            (b, n)),
+              rng.uniform(-1.0, 1.0, (b, n)), rng.uniform(-1.0, 1.0, (b, n)),
+              rng.uniform(0.2, 0.4, (b, n))]
+    alive = rng.uniform(size=(b, n)) < 0.9
+
+    def terms(dev):
+        scene, params, _, _ = benchmark_bundle(
+            10_000, with_borders=True, with_obstacles=True,
+            num_steps_hint=8, device=dev)
+        scene = stepper.prepare_scene(scene, chunked=True)
+        x, y, vx, vy, rad = (torch.tensor(a, dtype=torch.float32,
+                                          device=dev) for a in planes)
+        al = torch.tensor(alive, device=dev)
+        if case == "borders swept":
+            return torch.stack(forces.env_exp_force_chunked(
+                x, y, rad, al, scene.borders_chunked,
+                torch.linspace(0.5, 12.0, b, device=dev),
+                torch.linspace(0.1, 0.4, b, device=dev), use_radius=True))
+        thr = torch.linspace(5.0, 60.0, b, device=dev)
+        vset, vvel, vact = vehicles.snapshot_pointset(
+            vehicles.vehicle_snapshot_at(scene.vehicles, 3), thr)
+        p = dataclasses.replace(params.dynamic_obstacle,
+                                perception_threshold=thr,
+                                A=torch.linspace(1.0, 9.0, b, device=dev))
+        return torch.stack(forces.env_moussaid_force_chunked(
+            x, y, vx, vy, rad, al, vset, vvel, p, use_radius=True,
+            active=vact))
+
+    want = terms("cpu")
+    got = terms(cuda_device).cpu()
+    assert bool((want != 0).any())
+    assert bool(((got - want).abs() <= ENV_ATOL + ENV_RTOL * want.abs()).all())
 
 
 @pytest.mark.parametrize("case", ["config1 sym", "config1 dense",

@@ -486,12 +486,6 @@ def refusal_cases():
     groups = build_groups([0, 0, 1, 1, -1, -1, -1, -1], device="cpu")
     col = torch.ones((2, 8))
     return {
-        "env_compact": (batched, params, dataclasses.replace(
-            cfg, env_compact=True)),
-        "env_analytic": (batched, params, dataclasses.replace(
-            cfg, env_analytic=True)),
-        "env_chunked": (batched, params, dataclasses.replace(
-            cfg, env_chunked=True)),
         "ORCA": (batched, dataclasses.replace(params, enable_orca=True,
                                               enable_pedestrian=False), cfg),
         "groups": (dataclasses.replace(batched, groups=groups),
@@ -506,10 +500,8 @@ def refusal_cases():
     }
 
 
-@pytest.mark.parametrize("case", ["env_compact",
-                                  "env_analytic", "env_chunked", "ORCA",
-                                  "groups", "autopilot fleet", "pair_scale",
-                                  "law_id"])
+@pytest.mark.parametrize("case", ["ORCA", "groups", "autopilot fleet",
+                                  "pair_scale", "law_id"])
 def test_batched_step_refuses_what_is_not_ported(case):
     """Under a batch every configuration that is not batched yet raises
     NotImplementedError naming ROADMAP item 19b, from make_ensemble_rollout
@@ -526,8 +518,7 @@ def test_batched_step_refuses_what_is_not_ported(case):
 @pytest.mark.parametrize("case", ["agent axis", "ensemble mesh",
                                   "sweep mesh", "sweep orca",
                                   "sharded ensemble", "batch shards",
-                                  "agent axis with cutoff",
-                                  "fused env table"])
+                                  "agent axis with cutoff"])
 def test_batch_sharding_and_sweep_options_refused(case):
     scene, params, cfg, _ = synthetic.benchmark_bundle(8, extent=10.0,
                                                        device="cpu")
@@ -553,11 +544,6 @@ def test_batch_sharding_and_sweep_options_refused(case):
             state, scene, swept,
             dataclasses.replace(cfg, interaction_cutoff=30.0), 0,
             axis=make_mesh(1, device="cpu")),
-        "fused env table": lambda: cuda_env.fused_environment_terms(
-            state, stepper.prepare_scene(synthetic.benchmark_bundle(
-                8, extent=10.0, with_borders=True, device="cpu")[0]),
-            dataclasses.replace(params, enable_border=True), None,
-            compact=True),
     }
     with pytest.raises(NotImplementedError, match="item 19b"):
         calls[case]()

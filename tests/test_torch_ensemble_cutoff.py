@@ -401,8 +401,8 @@ def test_batched_cutoff_step_sorts_once(monkeypatch):
 
 def test_batched_environment_terms_take_a_shared_order():
     """fused_environment_terms of a batch with the caller's (B, N) order
-    equals the terms it sorts for itself, bitwise; the compacted and
-    analytic forms still raise under a batch."""
+    equals the terms it sorts for itself, bitwise, and so do its compacted
+    and analytic forms."""
     scene, params, _ = port_of(*jax_crowd_ensemble(2, 10, "config3"))
     scene = stepper.prepare_scene(scene)
     state = PedState.empty(10, device="cpu", batch=2)
@@ -417,7 +417,13 @@ def test_batched_environment_terms_take_a_shared_order():
     for name in got:
         assert torch.equal(got[name][0], want[name][0]), name
         assert torch.equal(got[name][1], want[name][1]), name
-    for kw in (dict(compact=True), dict(analytic=True)):
-        with pytest.raises(NotImplementedError, match="item 19b"):
-            cuda_env.fused_environment_terms(state, scene, params, snap,
-                                             order=order, **kw)
+    scene = stepper.prepare_scene(scene, analytic=True)
+    for kw in (dict(compact=True, max_surv=1), dict(analytic=True)):
+        got = cuda_env.fused_environment_terms(state, scene, params, snap,
+                                               order=order, **kw)
+        want = cuda_env.fused_environment_terms(state, scene, params, snap,
+                                                **kw)
+        assert sorted(got) == sorted(want), kw
+        for name in got:
+            assert torch.equal(got[name][0], want[name][0]), (kw, name)
+            assert torch.equal(got[name][1], want[name][1]), (kw, name)

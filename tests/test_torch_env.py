@@ -542,12 +542,12 @@ def test_fused_environment_terms_equal_the_plain_versions():
     cuda_env.reset_launch_counts()
     fused = cuda_env.fused_environment_terms(state, scene, params, snap)
     assert cuda_env.LAUNCHES == dict.fromkeys(cuda_env.LAUNCHES, 0)
-    assert sorted(cuda_env.LAUNCHES) == ["env_exp", "env_exp_analytic",
-                                         "env_exp_analytic_compact",
-                                         "env_exp_batched",
-                                         "env_exp_compact", "env_moussaid",
-                                         "env_moussaid_batched",
-                                         "env_moussaid_compact"]
+    assert sorted(cuda_env.LAUNCHES) == [
+        "env_exp", "env_exp_analytic", "env_exp_analytic_batched",
+        "env_exp_analytic_compact", "env_exp_analytic_compact_batched",
+        "env_exp_batched", "env_exp_compact", "env_exp_compact_batched",
+        "env_moussaid", "env_moussaid_batched", "env_moussaid_compact",
+        "env_moussaid_compact_batched"]
     plain = stepper.force_terms(
         state, scene, params, stepper.StepConfig(plain_env_force=True), snap)
     assert sorted(fused) == ["border_force", "dynamic_obstacle_force",
