@@ -35,8 +35,9 @@
 // microseconds either way, and what decides the time is latency and the
 // barriers of the staging.
 //
-// The three wall-feed kernels share one layout, the environment kernels'
-// (env_forces.cu): a block is 32 consecutive pedestrians of the caller's
+// The three wall-feed kernels (and their batched forms, below) share one
+// layout, the environment kernels' (env_forces.cu): a block is 32
+// consecutive pedestrians of the caller's
 // order (ORCA's windowed path passes its Hilbert-sorted planes, so a
 // block's box is tight) x L lanes each (313 blocks at N = 10,000, where
 // one thread per pedestrian gave 79 blocks of 128 and left 53 of the 132
@@ -109,6 +110,22 @@
 // when it beats the running best) measured 2.6x slower at that shape: the
 // pedestrians of a warp improve in different sub-groups, so nearly every
 // sub-group was scanned twice (PERF.md).
+//
+// Batches (ensembles and parameter sweeps).  Under the JAX package's vmap
+// the wall-feed kernels gain a leading batch axis on the pedestrian planes
+// and, in a sweep of orca_neighbor_dist, on the neighbour distance, while
+// the features stay shared (parallel/sweeps.py).  seg_topk_batched_kernel,
+// chunk_topk_batched_kernel (crowd blockIdx.y) and
+// chunk_closest_batched_kernel (crowd blockIdx.z; y is its chunk split)
+// hand their crowd's planes, alive mask, outputs and neighbour distance to
+// the body the unbatched kernel runs (seg_topk_walk, chunk_topk_walk,
+// chunk_closest_walk), so row b equals the unbatched launch on row b
+// bitwise and the unbatched kernels compile with no batch offset (an offset
+// read inside a shared body slowed the dense pair walk 8%, PERF.md).  The
+// pedestrians are not flattened into one unbatched launch, as the chunk
+// scan's are: a block must not straddle two crowds (its box, and so which
+// chunks chunk_closest stores as skipped, would change), and each crowd of
+// a sweep has its own filter and gate.
 //
 // Where the TPU design does not carry over.  The TPU kept the running list
 // in the revisited (8, ped tile) output block over a sequential feature grid
@@ -243,21 +260,22 @@ __device__ __forceinline__ void lanes_min(float& best, int& bj, float& bx,
   }
 }
 
-// f segment features, planes a0..a4 = ax, ay, ux, uy, il2 and the filter
-// circles (ccx, ccy, rad).  Outputs (k, n) d2 (inf in an empty slot), wx,
-// wy (0 in an empty slot).  S slots a list (k <= S): 4 for ORCA's k = 3
-// (fewer registers, more blocks an SM), else kTopK.
+// The segment top-k's body: seg_topk_kernel runs it on its arguments,
+// seg_topk_batched_kernel on its crowd's.  f segment features, planes a0..a4
+// = ax, ay, ux, uy, il2 and the filter circles (ccx, ccy, rad).  Outputs
+// (k, n) d2 (inf in an empty slot), wx, wy (0 in an empty slot).  S slots a
+// list (k <= S): 4 for ORCA's k = 3 (fewer registers, more blocks an SM),
+// else kTopK.
 template <int S>
-__global__ void __launch_bounds__(kSegThreads)
-seg_topk_kernel(const float* __restrict__ px_, const float* __restrict__ py_,
-                const uint8_t* __restrict__ alive_,
-                const float* __restrict__ a0, const float* __restrict__ a1,
-                const float* __restrict__ a2, const float* __restrict__ a3,
-                const float* __restrict__ a4, const float* __restrict__ ccx,
-                const float* __restrict__ ccy, const float* __restrict__ rad,
-                int f, float nd, float nd2, int k, int n,
-                float* __restrict__ out_d2, float* __restrict__ out_x,
-                float* __restrict__ out_y) {
+__device__ __forceinline__ void seg_topk_walk(
+    const float* __restrict__ px_, const float* __restrict__ py_,
+    const uint8_t* __restrict__ alive_, const float* __restrict__ a0,
+    const float* __restrict__ a1, const float* __restrict__ a2,
+    const float* __restrict__ a3, const float* __restrict__ a4,
+    const float* __restrict__ ccx, const float* __restrict__ ccy,
+    const float* __restrict__ rad, int f, float nd, float nd2, int k, int n,
+    float* __restrict__ out_d2, float* __restrict__ out_x,
+    float* __restrict__ out_y) {
   constexpr int L = kSegLanes;
   constexpr int T = kSegThreads;
   __shared__ float sa[5][T];
@@ -370,20 +388,60 @@ seg_topk_kernel(const float* __restrict__ px_, const float* __restrict__ py_,
   }
 }
 
-// The chunk top-k: f chunks of kk slots in the (f, kk) planes cxs, cys
-// (PAD_COORD in invalid slots), lens (f,) the slots up to each chunk's last
-// valid one, circles (ccx, ccy, rad) with rad < 0 for an empty chunk.
-// Outputs as seg_topk_kernel's.
-__global__ void __launch_bounds__(kTopkThreads)
-chunk_topk_kernel(const float* __restrict__ px_, const float* __restrict__ py_,
-                  const uint8_t* __restrict__ alive_,
-                  const float* __restrict__ cxs, const float* __restrict__ cys,
-                  int f, int kk, const int* __restrict__ lens,
-                  const float* __restrict__ ccx,
-                  const float* __restrict__ ccy,
-                  const float* __restrict__ rad, float nd, float nd2, int k,
-                  int n, float* __restrict__ out_d2,
-                  float* __restrict__ out_x, float* __restrict__ out_y) {
+template <int S>
+__global__ void __launch_bounds__(kSegThreads)
+seg_topk_kernel(const float* __restrict__ px_, const float* __restrict__ py_,
+                const uint8_t* __restrict__ alive_,
+                const float* __restrict__ a0, const float* __restrict__ a1,
+                const float* __restrict__ a2, const float* __restrict__ a3,
+                const float* __restrict__ a4, const float* __restrict__ ccx,
+                const float* __restrict__ ccy, const float* __restrict__ rad,
+                int f, float nd, float nd2, int k, int n,
+                float* __restrict__ out_d2, float* __restrict__ out_x,
+                float* __restrict__ out_y) {
+  seg_topk_walk<S>(px_, py_, alive_, a0, a1, a2, a3, a4, ccx, ccy, rad, f,
+                   nd, nd2, k, n, out_d2, out_x, out_y);
+}
+
+// The segment top-k of a batch of crowds of n pedestrians: crowd
+// blockIdx.y's planes and alive mask at blockIdx.y * n, its (k, n) outputs
+// at blockIdx.y * k * n, its neighbour distance and square at blockIdx.y of
+// nd_rows and nd2_rows (null: nd and nd2 for every crowd); every crowd reads
+// the one set of features.
+template <int S>
+__global__ void __launch_bounds__(kSegThreads)
+seg_topk_batched_kernel(
+    const float* __restrict__ px_, const float* __restrict__ py_,
+    const uint8_t* __restrict__ alive_, const float* __restrict__ a0,
+    const float* __restrict__ a1, const float* __restrict__ a2,
+    const float* __restrict__ a3, const float* __restrict__ a4,
+    const float* __restrict__ ccx, const float* __restrict__ ccy,
+    const float* __restrict__ rad, int f, float nd, float nd2,
+    const float* __restrict__ nd_rows, const float* __restrict__ nd2_rows,
+    int k, int n, float* __restrict__ out_d2, float* __restrict__ out_x,
+    float* __restrict__ out_y) {
+  const int b = blockIdx.y;
+  const size_t bo = (size_t)b * n;
+  const size_t oo = bo * k;
+  seg_topk_walk<S>(px_ + bo, py_ + bo, alive_ ? alive_ + bo : nullptr, a0,
+                   a1, a2, a3, a4, ccx, ccy, rad, f,
+                   nd_rows ? nd_rows[b] : nd, nd2_rows ? nd2_rows[b] : nd2, k,
+                   n, out_d2 + oo, out_x + oo, out_y + oo);
+}
+
+// The chunk top-k's body (chunk_topk_kernel, chunk_topk_batched_kernel): f
+// chunks of kk slots in the (f, kk) planes cxs, cys (PAD_COORD in invalid
+// slots), lens (f,) the slots up to each chunk's last valid one, circles
+// (ccx, ccy, rad) with rad < 0 for an empty chunk.  Outputs as
+// seg_topk_walk's.
+__device__ __forceinline__ void chunk_topk_walk(
+    const float* __restrict__ px_, const float* __restrict__ py_,
+    const uint8_t* __restrict__ alive_, const float* __restrict__ cxs,
+    const float* __restrict__ cys, int f, int kk,
+    const int* __restrict__ lens, const float* __restrict__ ccx,
+    const float* __restrict__ ccy, const float* __restrict__ rad, float nd,
+    float nd2, int k, int n, float* __restrict__ out_d2,
+    float* __restrict__ out_x, float* __restrict__ out_y) {
   __shared__ __align__(16) float2 sxy[kTopkStage];
   __shared__ int hits[kTopkThreads];
   __shared__ unsigned wball[kTopkThreads / 32];
@@ -495,29 +553,63 @@ chunk_topk_kernel(const float* __restrict__ px_, const float* __restrict__ py_,
   }
 }
 
-// Every chunk's first-occurrence closest point: (f, n) planes d2 (inf
+__global__ void __launch_bounds__(kTopkThreads)
+chunk_topk_kernel(const float* __restrict__ px_, const float* __restrict__ py_,
+                  const uint8_t* __restrict__ alive_,
+                  const float* __restrict__ cxs, const float* __restrict__ cys,
+                  int f, int kk, const int* __restrict__ lens,
+                  const float* __restrict__ ccx,
+                  const float* __restrict__ ccy,
+                  const float* __restrict__ rad, float nd, float nd2, int k,
+                  int n, float* __restrict__ out_d2,
+                  float* __restrict__ out_x, float* __restrict__ out_y) {
+  chunk_topk_walk(px_, py_, alive_, cxs, cys, f, kk, lens, ccx, ccy, rad, nd,
+                  nd2, k, n, out_d2, out_x, out_y);
+}
+
+// The chunk top-k of a batch of crowds, laid out as
+// seg_topk_batched_kernel's.
+__global__ void __launch_bounds__(kTopkThreads)
+chunk_topk_batched_kernel(
+    const float* __restrict__ px_, const float* __restrict__ py_,
+    const uint8_t* __restrict__ alive_, const float* __restrict__ cxs,
+    const float* __restrict__ cys, int f, int kk,
+    const int* __restrict__ lens, const float* __restrict__ ccx,
+    const float* __restrict__ ccy, const float* __restrict__ rad, float nd,
+    float nd2, const float* __restrict__ nd_rows,
+    const float* __restrict__ nd2_rows, int k, int n,
+    float* __restrict__ out_d2, float* __restrict__ out_x,
+    float* __restrict__ out_y) {
+  const int b = blockIdx.y;
+  const size_t bo = (size_t)b * n;
+  const size_t oo = bo * k;
+  chunk_topk_walk(px_ + bo, py_ + bo, alive_ ? alive_ + bo : nullptr, cxs,
+                  cys, f, kk, lens, ccx, ccy, rad,
+                  nd_rows ? nd_rows[b] : nd, nd2_rows ? nd2_rows[b] : nd2, k,
+                  n, out_d2 + oo, out_x + oo, out_y + oo);
+}
+
+// chunk_closest's body (chunk_closest_kernel, chunk_closest_batched_kernel):
+// every chunk's first-occurrence closest point, as (f, n) planes d2 (inf
 // beyond nd2, and for a chunk skipped by the block), wx, wy (0 for a
-// skipped chunk); the chunks as chunk_topk_kernel's.  Grid (pedestrian
-// blocks, chunk splits): split y takes the chunks y, y + Y, ...
-__global__ void __launch_bounds__(kClosestThreads)
-chunk_closest_kernel(const float* __restrict__ px_,
-                     const float* __restrict__ py_,
-                     const uint8_t* __restrict__ alive_,
-                     const float* __restrict__ cxs,
-                     const float* __restrict__ cys, int f, int kk,
-                     const int* __restrict__ lens,
-                     const float* __restrict__ ccx,
-                     const float* __restrict__ ccy,
-                     const float* __restrict__ rad, float nd, float nd2,
-                     int n, float* __restrict__ out_d2,
-                     float* __restrict__ out_x, float* __restrict__ out_y) {
+// skipped chunk); the chunks as chunk_topk_walk's.  Grid (pedestrian
+// blocks, chunk splits): split y takes the chunks y, y + Y, ...  Its
+// shared arrays are the calling kernel's own: as the body's statics they
+// moved block_box's scratch in the unbatched kernel's layout and changed
+// its SASS.
+__device__ __forceinline__ void chunk_closest_walk(
+    const float* __restrict__ px_, const float* __restrict__ py_,
+    const uint8_t* __restrict__ alive_, const float* __restrict__ cxs,
+    const float* __restrict__ cys, int f, int kk,
+    const int* __restrict__ lens, const float* __restrict__ ccx,
+    const float* __restrict__ ccy, const float* __restrict__ rad, float nd,
+    float nd2, int n, float* __restrict__ out_d2,
+    float* __restrict__ out_x, float* __restrict__ out_y, float2* sxy,
+    int* hits, int* hlen, unsigned* wball,
+    float (*res)[kClosestBatch][kClosestPeds]) {
   constexpr int L = kClosestLanes;
   constexpr int T = kClosestThreads;
   constexpr int P = kClosestPeds;
-  __shared__ __align__(16) float2 sxy[kClosestStage];
-  __shared__ int hits[T], hlen[T];
-  __shared__ unsigned wball[T / 32];
-  __shared__ float res[3][kClosestBatch][P];
 
   const int tid = threadIdx.x;
   const int lane = tid % L;  // this pedestrian's lane
@@ -635,6 +727,55 @@ chunk_closest_kernel(const float* __restrict__ px_,
       }
     }
   }
+}
+
+__global__ void __launch_bounds__(kClosestThreads)
+chunk_closest_kernel(const float* __restrict__ px_,
+                     const float* __restrict__ py_,
+                     const uint8_t* __restrict__ alive_,
+                     const float* __restrict__ cxs,
+                     const float* __restrict__ cys, int f, int kk,
+                     const int* __restrict__ lens,
+                     const float* __restrict__ ccx,
+                     const float* __restrict__ ccy,
+                     const float* __restrict__ rad, float nd, float nd2,
+                     int n, float* __restrict__ out_d2,
+                     float* __restrict__ out_x, float* __restrict__ out_y) {
+  __shared__ __align__(16) float2 sxy[kClosestStage];
+  __shared__ int hits[kClosestThreads], hlen[kClosestThreads];
+  __shared__ unsigned wball[kClosestThreads / 32];
+  __shared__ float res[3][kClosestBatch][kClosestPeds];
+  chunk_closest_walk(px_, py_, alive_, cxs, cys, f, kk, lens, ccx, ccy, rad,
+                     nd, nd2, n, out_d2, out_x, out_y, sxy, hits, hlen, wball,
+                     res);
+}
+
+// chunk_closest of a batch of crowds of n pedestrians on the grid's third
+// axis: crowd blockIdx.z's planes and alive mask at blockIdx.z * n, its
+// (f, n) planes of the (B, f, n) outputs at blockIdx.z * f * n, its
+// neighbour distance and square as seg_topk_batched_kernel reads them.
+__global__ void __launch_bounds__(kClosestThreads)
+chunk_closest_batched_kernel(
+    const float* __restrict__ px_, const float* __restrict__ py_,
+    const uint8_t* __restrict__ alive_, const float* __restrict__ cxs,
+    const float* __restrict__ cys, int f, int kk,
+    const int* __restrict__ lens, const float* __restrict__ ccx,
+    const float* __restrict__ ccy, const float* __restrict__ rad, float nd,
+    float nd2, const float* __restrict__ nd_rows,
+    const float* __restrict__ nd2_rows, int n, float* __restrict__ out_d2,
+    float* __restrict__ out_x, float* __restrict__ out_y) {
+  __shared__ __align__(16) float2 sxy[kClosestStage];
+  __shared__ int hits[kClosestThreads], hlen[kClosestThreads];
+  __shared__ unsigned wball[kClosestThreads / 32];
+  __shared__ float res[3][kClosestBatch][kClosestPeds];
+  const int b = blockIdx.z;
+  const size_t bo = (size_t)b * n;
+  const size_t oo = bo * f;
+  chunk_closest_walk(px_ + bo, py_ + bo, alive_ ? alive_ + bo : nullptr, cxs,
+                     cys, f, kk, lens, ccx, ccy, rad,
+                     nd_rows ? nd_rows[b] : nd, nd2_rows ? nd2_rows[b] : nd2,
+                     n, out_d2 + oo, out_x + oo, out_y + oo, sxy, hits, hlen,
+                     wball, res);
 }
 
 // cp.async of 4 or 16 bytes from global into shared memory, and its group
@@ -864,6 +1005,75 @@ int sfm_chunk_closest(const float* px, const float* py, const uint8_t* alive,
                          (cudaStream_t)stream>>>(px, py, alive, x, y, c, kk,
                                                  lens, cx, cy, rad, nd, nd2,
                                                  n, d2, wx, wy);
+  return (int)cudaGetLastError();
+}
+
+// The batched entries: batch crowds of n pedestrians, planes and alive
+// (batch, n) row-major, one set of features or chunks; nd_rows and nd2_rows
+// (batch,) each crowd's neighbour distance and its float32 square, or null
+// (nd and nd2 for every crowd: an ensemble).  Outputs (batch, k, n) for the
+// top-k entries, (batch, c, n) for sfm_chunk_closest_batched.
+int sfm_seg_topk_batched(const float* px, const float* py,
+                         const uint8_t* alive, const float* ax,
+                         const float* ay, const float* ux, const float* uy,
+                         const float* il2, const float* ccx, const float* ccy,
+                         const float* rad, int f, float nd, float nd2,
+                         const float* nd_rows, const float* nd2_rows, int k,
+                         int n, int batch, float* d2, float* wx, float* wy,
+                         void* stream) {
+  if (n <= 0 || batch == 0) return (int)cudaSuccess;
+  if (k < 1 || k > kTopK || batch < 0 || batch > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((n + kSegPeds - 1) / kSegPeds, batch);
+  auto kernel = k <= kSegSlotsSmall ? seg_topk_batched_kernel<kSegSlotsSmall>
+                                    : seg_topk_batched_kernel<kTopK>;
+  kernel<<<grid, kSegThreads, 0, (cudaStream_t)stream>>>(
+      px, py, alive, ax, ay, ux, uy, il2, ccx, ccy, rad, f, nd, nd2, nd_rows,
+      nd2_rows, k, n, d2, wx, wy);
+  return (int)cudaGetLastError();
+}
+
+int sfm_chunk_topk_batched(const float* px, const float* py,
+                           const uint8_t* alive, const float* x,
+                           const float* y, int c, int kk, const int* lens,
+                           const float* cx, const float* cy, const float* rad,
+                           float nd, float nd2, const float* nd_rows,
+                           const float* nd2_rows, int k, int n, int batch,
+                           float* d2, float* wx, float* wy, void* stream) {
+  if (n <= 0 || batch == 0) return (int)cudaSuccess;
+  if (k < 1 || k > kTopK || batch < 0 || batch > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((n + kTopkPeds - 1) / kTopkPeds, batch);
+  chunk_topk_batched_kernel<<<grid, kTopkThreads, 0, (cudaStream_t)stream>>>(
+      px, py, alive, x, y, c, kk, lens, cx, cy, rad, nd, nd2, nd_rows,
+      nd2_rows, k, n, d2, wx, wy);
+  return (int)cudaGetLastError();
+}
+
+int sfm_chunk_closest_batched(const float* px, const float* py,
+                              const uint8_t* alive, const float* x,
+                              const float* y, int c, int kk, const int* lens,
+                              const float* cx, const float* cy,
+                              const float* rad, float nd, float nd2,
+                              const float* nd_rows, const float* nd2_rows,
+                              int n, int batch, float* d2, float* wx,
+                              float* wy, void* stream) {
+  if (n <= 0 || c <= 0 || batch == 0) return (int)cudaSuccess;
+  if (batch < 0 || batch > 65535) return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  const cudaError_t e = sm_count(sms);
+  if (e != cudaSuccess) return (int)e;
+  // the splits aim at kClosestBlocksPerSM blocks per SM over all crowds
+  const long long blocks = (long long)((n + kClosestPeds - 1) / kClosestPeds)
+                           * batch;
+  const int want =
+      (int)((kClosestBlocksPerSM * (long long)sms + blocks - 1) / blocks);
+  const int splits = max(1, min(c, want));
+  chunk_closest_batched_kernel<<<
+      dim3((n + kClosestPeds - 1) / kClosestPeds, splits, batch),
+      kClosestThreads, 0, (cudaStream_t)stream>>>(
+      px, py, alive, x, y, c, kk, lens, cx, cy, rad, nd, nd2, nd_rows,
+      nd2_rows, n, d2, wx, wy);
   return (int)cudaGetLastError();
 }
 

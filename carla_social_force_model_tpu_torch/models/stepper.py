@@ -59,9 +59,14 @@ read each crowd's boxes and survivor table.  ``env_compact`` and
 ``env_analytic`` launch the batched compacted and analytic environment
 kernels (each crowd's own survivor table), and ``env_chunked`` one chunk
 scan over every row's pedestrians (``ops/forces.
-chunked_environment_terms``).  The records are ``(B, T, N)``.
-:func:`check_supported` refuses what is not batched yet (ROADMAP items
-19b.3-19b.4) with ``NotImplementedError``.
+chunked_environment_terms``).  ORCA solves every row of every crowd (its
+wall feed one batched launch per source and part, a sweep's
+``orca_tau``/``orca_neighbor_dist``/``orca_tau_static`` per row), and the
+per-agent ``pair_scale``/``law_id`` columns are ``(B, N)`` in an ensemble
+and ``(N,)``, shared by every row, in a sweep.  The records are ``(B, T,
+N)``.  :func:`check_supported` refuses what is not batched yet (ROADMAP
+items 19b.3a and 19b.4: groups, the fleet, an agent axis) with
+``NotImplementedError``.
 
 The device chooses the kernel path: the CUDA kernels on a card, the plain
 PyTorch versions on the CPU (ops/cuda_forces.py, ops/cuda_env.py,
@@ -303,17 +308,15 @@ def _check_batched(scene: Scene, params: SfmParams, cfg: StepConfig,
                    axis) -> None:
     """Refuse, under a batch, every configuration the batched step does not
     run: ``NotImplementedError`` naming ROADMAP item 19b (nothing runs
-    another path instead).  The interaction cutoff (item 19b.1) and the
-    compacted, analytic and chunked environment paths (item 19b.2) run,
-    but not over an agent axis."""
+    another path instead).  The interaction cutoff (item 19b.1), the
+    compacted, analytic and chunked environment paths (item 19b.2), ORCA
+    and the per-agent columns (item 19b.3b) run, but not over an agent
+    axis."""
     refused = (
         (axis is not None, "an agent axis (sharding a batch of crowds, "
                            "with or without interaction_cutoff)"),
-        (params.enable_orca, "ORCA"),
         (params.enable_group and scene.groups is not None, "social groups"),
         (scene.autopilot is not None, "the reactive autopilot fleet"),
-        (scene.spawn.pair_scale is not None or scene.spawn.law_id is not None,
-         "per-agent pair_scale/law_id columns"),
     )
     for hit, what in refused:
         if hit:
@@ -328,10 +331,13 @@ def check_supported(scene: Scene, params: SfmParams, cfg: StepConfig,
     groups of the wrong form, and for ``env_chunked`` together with a knob
     of the fused environment path; under a batch (:func:`batch_of` of
     ``state``, the schedule and the params), ``NotImplementedError`` for
-    what the batched step does not run yet (ROADMAP item 19b: ORCA,
-    groups, the fleet, per-agent columns, an agent axis and a mesh; the
-    interaction cutoff and the compacted, analytic and chunked environment
-    paths run)."""
+    what the batched step does not run yet (ROADMAP item 19b: groups, the
+    fleet, an agent axis and a mesh; the interaction cutoff, the
+    compacted, analytic and chunked environment paths, ORCA and the
+    per-agent columns run).  A per-agent column has the spawn schedule's
+    shape: ``(N,)``, an ensemble's ``(B, N)``, and in a sweep (one
+    schedule) ``(N,)`` shared by every row, as the JAX package's vmap
+    axes have it."""
     if batch_of(state, scene, params) is not None:
         _check_batched(scene, params, cfg, axis)
     if cfg.env_chunked and (cfg.env_analytic or cfg.env_compact):
@@ -342,17 +348,16 @@ def check_supported(scene: Scene, params: SfmParams, cfg: StepConfig,
             and not isinstance(scene.groups, GroupSet)):
         raise TypeError(f"scene.groups must be a GroupSet (models/groups."
                         f"build_groups), got {type(scene.groups).__name__}")
-    n = scene.spawn.capacity
-    if scene.spawn.step.dim() == 2:
-        return  # no per-agent column under a batch (refused above)
+    shape = tuple(scene.spawn.step.shape)
     for name, kinds in (("pair_scale", (torch.float32,)),
                         ("law_id", (torch.int32, torch.int64))):
         col = getattr(scene.spawn, name)
         if col is not None and (not isinstance(col, torch.Tensor)
-                                or col.shape != (n,) or col.dtype not in kinds):
+                                or tuple(col.shape) != shape
+                                or col.dtype not in kinds):
             raise ValueError(
-                f"spawn.{name} (per-agent pair_scale/law_id) must be a ({n},) "
-                f"tensor of {' or '.join(map(str, kinds))}")
+                f"spawn.{name} (per-agent pair_scale/law_id) must be a "
+                f"{shape} tensor of {' or '.join(map(str, kinds))}")
 
 
 #: the pair families by SpawnSchedule.law_id (models/spawn.LAW_IDS)

@@ -69,36 +69,57 @@ def squared_reach(neigh_dist: float) -> float:
     return float(nd * nd)
 
 
-def feature_closest_planes(pos_x, pos_y, feat, neigh_dist: float,
+def reach_rows(neigh_dist):
+    """The squared neighbour distance the plain wall feeds compare against:
+    :func:`squared_reach` of a number, or of a sweep's ``(B,)`` tensor each
+    row's float32 square as a ``(B, 1)`` column (against ``(..., B, N)``
+    planes), the value the kernels read from their ``nd2`` rows and the
+    JAX package's vmapped ``jnp.float32(neigh_dist) ** 2`` gives."""
+    if isinstance(neigh_dist, torch.Tensor):
+        nd = neigh_dist.to(torch.float32)
+        return (nd * nd)[:, None]
+    return squared_reach(neigh_dist)
+
+
+def feature_closest_planes(pos_x, pos_y, feat, neigh_dist,
                            max_group_elems: int = 4_000_000):
     """Per (segment feature, pedestrian) squared distance and the exact
     closest point ON the segment (``env/pointsets.SegmentFeatures``):
     ``(d2, wx, wy)`` of shape (F, N), ``d2 = inf`` where the feature is
     farther than ``neigh_dist``.  Features are taken in blocks bounding the
     temporaries to about ``max_group_elems`` elements.  The plain version
-    of the ``seg_topk`` kernel's scan (JAX package geometry.py:454-501)."""
-    f, n = feat.ax.shape[0], pos_x.shape[0]
-    nd2 = squared_reach(neigh_dist)
+    of the ``seg_topk`` kernel's scan (JAX package geometry.py:454-501).
+    A batch's ``(B, N)`` planes give (F, B, N), ``neigh_dist`` a number or
+    a sweep's ``(B,)`` tensor (:func:`reach_rows`); every operation is
+    per element, so row b equals the function on row b bitwise."""
+    f, shape = feat.ax.shape[0], pos_x.shape
+    px, py = pos_x.reshape(-1), pos_y.reshape(-1)
+    n = px.shape[0]
+    nd2 = reach_rows(neigh_dist)
     g = max(1, min(f, max_group_elems // max(1, n)))
-    parts = [closest_on_segments(pos_x[None, :], pos_y[None, :],
+    parts = [closest_on_segments(px[None, :], py[None, :],
                                  *(a[lo:lo + g, None] for a in (
                                      feat.ax, feat.ay, feat.ux, feat.uy,
                                      feat.il2)))
              for lo in range(0, f, g)]
     if not parts:
-        return (pos_x.new_empty((0, n)),) * 3
-    d2, wx, wy = (torch.cat(p, dim=0) for p in zip(*parts))
+        return (pos_x.new_empty((0, *shape)),) * 3
+    d2, wx, wy = (torch.cat(p, dim=0).view(f, *shape) for p in zip(*parts))
     return torch.where(d2 <= nd2, d2, torch.inf), wx, wy
 
 
-def chunk_closest_plain(pos_x, pos_y, chunks, neigh_dist: float,
+def chunk_closest_plain(pos_x, pos_y, chunks, neigh_dist,
                         max_group_elems: int = 4_000_000):
     """The plain version of the ``chunk_closest`` kernel: each chunk's
     first-occurrence closest point (the reference's ``np.argmin``), in
     groups of chunks bounding the (G, K, N) temporaries; ``d2 = inf``
-    beyond ``neigh_dist``, the point written everywhere."""
-    nd2 = squared_reach(neigh_dist)
+    beyond ``neigh_dist``, the point written everywhere.  A batch's ``(B,
+    N)`` planes give (C, B, N), ``neigh_dist`` a number or a sweep's
+    ``(B,)`` tensor (the layout of ``chunk_closest_batched``)."""
+    nd2 = reach_rows(neigh_dist)
     c, kk = chunks.x.shape
+    shape = pos_x.shape
+    pos_x, pos_y = pos_x.reshape(-1), pos_y.reshape(-1)
     n = pos_x.shape[0]
     g = max(1, min(c, max_group_elems // max(1, kk * n)))
     parts = []
@@ -114,13 +135,12 @@ def chunk_closest_plain(pos_x, pos_y, chunks, neigh_dist: float,
                       torch.gather(gy[:, :, None].expand(-1, -1, n), 1,
                                    idx)[:, 0]))
     if not parts:
-        return (pos_x.new_empty((0, n)),) * 3
-    d2, wx, wy = (torch.cat(p, dim=0) for p in zip(*parts))
+        return (pos_x.new_empty((0, *shape)),) * 3
+    d2, wx, wy = (torch.cat(p, dim=0).view(c, *shape) for p in zip(*parts))
     return torch.where(d2 <= nd2, d2, torch.inf), wx, wy
 
 
-def closest_point_per_chunk(pos_x, pos_y, chunks, neigh_dist: float,
-                            alive=None):
+def closest_point_per_chunk(pos_x, pos_y, chunks, neigh_dist, alive=None):
     """Per (chunk, pedestrian) squared distance and closest-point planes
     (``env/pointsets.ChunkFeatures``; the JAX package's geometry.py:
     285-361): ``(d2, wx, wy)`` of shape (C, N), ``d2 = inf`` where the
@@ -132,10 +152,17 @@ def closest_point_per_chunk(pos_x, pos_y, chunks, neigh_dist: float,
     pedestrians (the alive ones, where ``alive`` is given; a dead row's
     result is then undefined): a skipped chunk leaves ``wx = wy = 0``
     beside ``d2 = inf``.  On CPU tensors it runs the plain version, which
-    writes the closest point everywhere."""
+    writes the closest point everywhere.
+
+    A batch of crowds' ``(B, N)`` planes (``alive`` too) give (C, B, N),
+    the layout of :func:`chunk_argmin` (the JAX entry under vmap):
+    ``neigh_dist`` a number, or a sweep's ``(B,)`` tensor; on a card the
+    ``chunk_closest_batched`` kernel, one launch for every row."""
     if pos_x.device.type == "cuda":
-        from .statics import chunk_closest
-        return chunk_closest(pos_x, pos_y, chunks, neigh_dist, alive)
+        from . import statics
+        fn = (statics.chunk_closest if pos_x.dim() == 1
+              else statics.chunk_closest_batched)
+        return fn(pos_x, pos_y, chunks, neigh_dist, alive)
     return chunk_closest_plain(pos_x, pos_y, chunks, neigh_dist)
 
 
@@ -146,15 +173,16 @@ def k_smallest_features(d2, planes, k: int):
     min-extractions; a stable sort is the same selection).  ``inf`` marks
     an invalid entry; ``planes`` are (F, N) payloads.  Returns
     ``(sel_planes, valid)`` of shape (k, N); an invalid slot's payloads
-    are 0."""
-    f, n = d2.shape
+    are 0.  A leading batch axis, ``(B, F, N)``, gives ``(B, k, N)``."""
+    *lead, f, n = d2.shape
     if f < k:
-        pad = d2.new_full((k - f, n), torch.inf)
-        d2 = torch.cat([d2, pad])
-        planes = tuple(torch.cat([p, torch.zeros_like(pad)]) for p in planes)
-    idx = torch.sort(d2, dim=0, stable=True).indices[:k]
-    valid = torch.isfinite(torch.gather(d2, 0, idx))
-    return (tuple(torch.where(valid, torch.gather(p, 0, idx), 0.0)
+        pad = d2.new_full((*lead, k - f, n), torch.inf)
+        d2 = torch.cat([d2, pad], dim=-2)
+        planes = tuple(torch.cat([p, torch.zeros_like(pad)], dim=-2)
+                       for p in planes)
+    idx = torch.sort(d2, dim=-2, stable=True).indices[..., :k, :]
+    valid = torch.isfinite(torch.gather(d2, -2, idx))
+    return (tuple(torch.where(valid, torch.gather(p, -2, idx), 0.0)
                   for p in planes), valid)
 
 

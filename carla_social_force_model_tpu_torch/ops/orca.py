@@ -30,8 +30,17 @@ candidate of the linear program on the same inputs:
 * every square root and reciprocal root sees a safe value under its mask
   (:func:`_safe_unit`), so no NaN reaches a masked row or a gradient.
 
+A batch of crowds (``parallel/sweeps.py``, the JAX package's vmap) runs
+on ``(B, N)`` planes: each row's band, neighbours, vehicles and wall feed
+along its last axis (the feed one batched launch for every row on a card),
+the programs over the flattened ``B * N`` rows (one ``nonzero`` for all of
+them), and a sweep's ``tau``, ``neighbor_dist`` and ``tau_static`` as
+``(B,)`` leaves viewed as columns.  Every operation is per element or per
+row, so row b equals one crowd's solve on row b bitwise.
+
 Multi-device gathering (the JAX package's ``axis_name``) belongs to the
-multi-device slice of the port.
+multi-device slice of the port; it does not run under a batch (ROADMAP
+item 19b).
 """
 from __future__ import annotations
 
@@ -66,7 +75,7 @@ def _safe_unit(x, y, fallback_x: float = 1.0):
             torch.where(bad, 0.0, torch.sqrt(safe)))
 
 
-def orca_halfplane(px, py, rvx, rvy, r, tau: float, dt: float):
+def orca_halfplane(px, py, rvx, rvy, r, tau, dt: float):
     """The ORCA half-plane of (agent, neighbour) pairs, broadcasting.
 
     ``p`` = neighbour position minus agent position, ``rv`` = agent
@@ -75,8 +84,10 @@ def orca_halfplane(px, py, rvx, rvy, r, tau: float, dt: float):
     boundary of the velocity obstacle truncated at ``tau`` (pairs already
     in collision resolve over one step ``dt``), ``n`` its outward unit
     normal there.  The agent's constraint is ``(v - (v_agent + zeta*u)) .
-    n >= 0`` with ``zeta`` its share of the correction.  (JAX package
-    orca.py:87-164.)"""
+    n >= 0`` with ``zeta`` its share of the correction.  ``tau`` is a
+    number, or a sweep's float32 column that broadcasts against the planes
+    (``1 / tau`` is then a float32 division, the value a number's double
+    division rounds to).  (JAX package orca.py:87-164.)"""
     d2 = px * px + py * py
     r2 = r * r
     colliding = d2 <= r2
@@ -340,85 +351,86 @@ def solve_orca_lp(pref_x, pref_y, ptx, pty, nx, ny, valid, vmax):
 
 
 def _k_nearest(d2, planes, k: int):
-    """The ``k`` nearest candidates of each row of (R, W) squared distances
-    (``inf`` = not a candidate), ties to the lower candidate position: the
-    JAX package's ``k`` first-occurrence min-extractions, as one stable
-    sort.  Returns ``(sel_planes, valid)`` of shape (R, k); an empty slot's
-    payloads are 0."""
-    r, w = d2.shape
+    """The ``k`` nearest candidates of each row of (..., W) squared
+    distances (``inf`` = not a candidate), ties to the lower candidate
+    position: the JAX package's ``k`` first-occurrence min-extractions, as
+    one stable sort along the last axis.  Returns ``(sel_planes, valid)``
+    of shape (..., k); an empty slot's payloads are 0."""
+    *lead, w = d2.shape
     if w < k:
-        pad = d2.new_full((r, k - w), torch.inf)
-        d2 = torch.cat([d2, pad], dim=1)
-        planes = tuple(torch.cat([p, torch.zeros_like(pad)], dim=1)
+        pad = d2.new_full((*lead, k - w), torch.inf)
+        d2 = torch.cat([d2, pad], dim=-1)
+        planes = tuple(torch.cat([p, torch.zeros_like(pad)], dim=-1)
                        for p in planes)
-    idx = torch.sort(d2, dim=1, stable=True).indices[:, :k]
-    valid = torch.isfinite(torch.gather(d2, 1, idx))
-    return (tuple(torch.where(valid, torch.gather(p, 1, idx), 0.0)
+    idx = torch.sort(d2, dim=-1, stable=True).indices[..., :k]
+    valid = torch.isfinite(torch.gather(d2, -1, idx))
+    return (tuple(torch.where(valid, torch.gather(p, -1, idx), 0.0)
                   for p in planes), valid)
 
 
 def _window_neighbors(sx, sy, svx, svy, sr, salive, window: int, k: int,
-                      neigh_dist: float):
+                      neigh_dist):
     """The ``k`` nearest alive neighbours within ``neigh_dist`` out of the
     circular band of offsets ``-window//2 .. window//2`` (0 excluded, in
-    that order) of the sorted planes: one gather of ``(i + o) mod N``, the
-    JAX package's ``jnp.roll`` shifts.  Returns (N, k) planes ``(nx, ny,
-    nvx, nvy, nr)`` and their validity."""
-    n = sx.shape[0]
+    that order) of the sorted planes: one gather of ``(i + o) mod N``
+    along the last axis, the JAX package's ``jnp.roll`` shifts.  Returns
+    (..., N, k) planes ``(nx, ny, nvx, nvy, nr)`` and their validity."""
+    n = sx.shape[-1]
     half = window // 2
     offs = [o for o in range(-half, half + 1) if o != 0]
     idx = (torch.arange(n, device=sx.device)[:, None]
            + torch.tensor(offs, device=sx.device)[None, :]) % n   # (N, W)
-    cx, cy, cvx, cvy, cr, ca = (a[idx] for a in (sx, sy, svx, svy, sr,
-                                                 salive))
-    dx = cx - sx[:, None]
-    dy = cy - sy[:, None]
+    cx, cy, cvx, cvy, cr, ca = (a[..., idx] for a in (sx, sy, svx, svy, sr,
+                                                      salive))
+    dx = cx - sx[..., None]
+    dy = cy - sy[..., None]
     d2 = dx * dx + dy * dy
-    ok = ca & (d2 <= neigh_dist * neigh_dist) & salive[:, None]
+    ok = ca & (d2 <= neigh_dist * neigh_dist) & salive[..., None]
     d2 = torch.where(ok, d2, torch.inf)
     (nx, ny, nvx, nvy, nr), valid = _k_nearest(d2, (cx, cy, cvx, cvy, cr), k)
     return nx, ny, nvx, nvy, nr, valid
 
 
-def _full_neighbors(px, py, vx, vy, radius, alive, k: int, neigh_dist: float):
-    """The exact ``k`` nearest over all N x N pairs (small N)."""
-    n = px.shape[0]
-    dx = px[None, :] - px[:, None]
-    dy = py[None, :] - py[:, None]
+def _full_neighbors(px, py, vx, vy, radius, alive, k: int, neigh_dist):
+    """The exact ``k`` nearest over all N x N pairs (small N; a batch's
+    rows each over their own (N, N))."""
+    n = px.shape[-1]
+    dx = px[..., None, :] - px[..., :, None]
+    dy = py[..., None, :] - py[..., :, None]
     d2 = dx * dx + dy * dy
     eye = torch.eye(n, dtype=torch.bool, device=px.device)
-    ok = (alive[None, :] & alive[:, None] & ~eye
+    ok = (alive[..., None, :] & alive[..., :, None] & ~eye
           & (d2 <= neigh_dist * neigh_dist))
     d2 = torch.where(ok, d2, torch.inf)
     (nx, ny, nvx, nvy, nr), valid = _k_nearest(
-        d2, tuple(a[None, :].expand(n, n)
+        d2, tuple(a[..., None, :].expand(d2.shape)
                   for a in (px, py, vx, vy, radius)), k)
     return nx, ny, nvx, nvy, nr, valid
 
 
 def _vehicle_constraints(ex, ey, evx, evy, er, veh_snap, k: int,
-                         neigh_dist: float, tau: float, dt: float):
+                         neigh_dist, tau, dt: float):
     """Half-planes against the ``k`` nearest active vehicles as bounding
     discs (the circle around the extent box); the walker takes the whole
-    correction.  Ego planes (N,); returns (N, k) constraint planes and
-    their validity."""
+    correction.  Ego planes (..., N), the vehicles shared; returns (..., N,
+    k) constraint planes and their validity."""
     cvx, cvy = veh_snap.center[:, 0], veh_snap.center[:, 1]
     vvx, vvy = veh_snap.vel[:, 0], veh_snap.vel[:, 1]
     vr = torch.sqrt(veh_snap.extent[:, 0] ** 2 + veh_snap.extent[:, 1] ** 2)
     act = veh_snap.active.to(torch.bool)
-    dx = cvx[None, :] - ex[:, None]            # (N, V)
-    dy = cvy[None, :] - ey[:, None]
+    dx = cvx - ex[..., None]                  # (..., N, V)
+    dy = cvy - ey[..., None]
     d2 = dx * dx + dy * dy
-    ok = act[None, :] & (d2 <= neigh_dist * neigh_dist)
+    ok = act & (d2 <= neigh_dist * neigh_dist)
     d2 = torch.where(ok, d2, torch.inf)
     shp = d2.shape
     (sx, sy, svx, svy, sr), valid = _k_nearest(
-        d2, tuple(a[None, :].expand(shp) for a in (cvx, cvy, vvx, vvy, vr)),
+        d2, tuple(a.expand(shp) for a in (cvx, cvy, vvx, vvy, vr)),
         min(k, cvx.shape[0]))
     ux, uy, nx, ny = orca_halfplane(
-        sx - ex[:, None], sy - ey[:, None], evx[:, None] - svx,
-        evy[:, None] - svy, er[:, None] + sr, tau, dt)
-    return evx[:, None] + ux, evy[:, None] + uy, nx, ny, valid
+        sx - ex[..., None], sy - ey[..., None], evx[..., None] - svx,
+        evy[..., None] - svy, er[..., None] + sr, tau, dt)
+    return evx[..., None] + ux, evy[..., None] + uy, nx, ny, valid
 
 
 def _as_source(src, device):
@@ -432,14 +444,15 @@ def _as_source(src, device):
     return src
 
 
-def _static_topk(ex, ey, src, k: int, neigh_dist: float, alive,
+def _static_topk(ex, ey, src, k: int, neigh_dist, alive,
                  plain: bool = False):
     """(k, N) nearest-wall-feature planes ``(d2, wx, wy)`` (``d2 = inf`` in
     empty slots) of one wall source: each part of the split
     (:class:`..env.pointsets.StaticFeatures`) gives its own top-k, and a
     (2k, N) merge picks the overall ``k`` (exact: a feature lives in one
-    part).  ``plain``: the plain version on any device.  (JAX package
-    orca.py:461-495.)"""
+    part).  ``plain``: the plain version on any device.  A batch's ``(B,
+    N)`` planes give (B, k, N), ``neigh_dist`` a number or a sweep's
+    ``(B,)`` tensor.  (JAX package orca.py:461-495.)"""
     from .geometry import k_smallest_features
     from .statics import nearest_features_topk, topk_plain
     parts = [topk_plain(ex, ey, part, k, neigh_dist) if plain
@@ -447,19 +460,19 @@ def _static_topk(ex, ey, src, k: int, neigh_dist: float, alive,
                                         alive=alive)
              for part in (src.seg, src.rest) if part is not None]
     if not parts:
-        n = ex.shape[0]
-        z = ex.new_zeros((k, n))
-        return ex.new_full((k, n), torch.inf), z, z
+        shape = (*ex.shape[:-1], k, ex.shape[-1])
+        z = ex.new_zeros(shape)
+        return ex.new_full(shape, torch.inf), z, z
     if len(parts) == 1:
         return parts[0]
-    d2, wx, wy = (torch.cat(p, dim=0) for p in zip(*parts))
+    d2, wx, wy = (torch.cat(p, dim=-2) for p in zip(*parts))
     dfin = torch.where(torch.isfinite(d2), d2, 0.0)
     (swx, swy, sd2), valid = k_smallest_features(d2, (wx, wy, dfin), k)
     return torch.where(valid, sd2, torch.inf), swx, swy
 
 
 def _static_constraints(ex, ey, er, exempt, alive, src, k: int,
-                        tau_static: float, dt: float, neigh_dist: float,
+                        tau_static, dt: float, neigh_dist,
                         plain: bool = False):
     """Hard half-planes against the ``k`` nearest wall features: for a
     straight wall at body gap ``g = d - r`` the velocities that stay clear
@@ -467,16 +480,21 @@ def _static_constraints(ex, ey, er, exempt, alive, src, k: int,
     normal away from the wall); a penetrating row (``g < 0``) gets the
     one-step push-out ``v . n >= -g / dt``.  ``exempt`` rows (road-crossing
     modes, which step over the curb) get no constraint.  Returns (N, k)
-    constraint planes and their validity.  (JAX package orca.py:498-543.)"""
+    constraint planes and their validity; a batch's (B, N, k), with
+    ``tau_static`` a number or a sweep's ``(B, 1, 1)`` column.  (JAX
+    package orca.py:498-543.)"""
     sd2, swx, swy = _static_topk(ex, ey, src, k, neigh_dist, alive, plain)
-    valid = torch.isfinite(sd2) & ~exempt[None, :]             # (k, N)
+    valid = torch.isfinite(sd2) & ~exempt[..., None, :]        # (..., k, N)
     sd = torch.where(valid, torch.sqrt(torch.where(valid, sd2, 1.0)), 0.0)
-    nx, ny, _ = _safe_unit(ex[None, :] - swx, ey[None, :] - swy)
-    gap = sd - er[None, :]
-    horizon = torch.where(gap >= 0.0, gap.new_tensor(tau_static),
+    nx, ny, _ = _safe_unit(ex[..., None, :] - swx, ey[..., None, :] - swy)
+    gap = sd - er[..., None, :]
+    horizon = torch.where(gap >= 0.0,
+                          tau_static if isinstance(tau_static, torch.Tensor)
+                          else gap.new_tensor(tau_static),
                           gap.new_tensor(dt))
     rhs = -gap / horizon             # the constraint: v . n >= rhs
-    return tuple(a.T for a in (rhs * nx, rhs * ny, nx, ny, valid))
+    return tuple(a.transpose(-1, -2)
+                 for a in (rhs * nx, rhs * ny, nx, ny, valid))
 
 
 def orca_velocities(pos, vel, radius, alive, pref, vmax, params, dt: float,
@@ -503,6 +521,11 @@ def orca_velocities(pos, vel, radius, alive, pref, vmax, params, dt: float,
     one device) and keeps its own rows (orca.py:591-597, :659-660);
     ``order`` must then be None.
 
+    A batch of B crowds: every plane ``(B, N)`` (``order`` each row's
+    permutation), ``params`` shared or a sweep's with ``(B,)`` leaves of
+    ``tau``, ``neighbor_dist`` and ``tau_static``; the vehicles and walls
+    shared.  Not with ``axis``.
+
     Returns ``(vx, vy)``, valid where ``alive`` (dead rows undefined)."""
     px, py = pos
     vx, vy = vel
@@ -511,6 +534,14 @@ def orca_velocities(pos, vel, radius, alive, pref, vmax, params, dt: float,
                    and params.max_statics > 0)
     exm = (static_exempt if static_exempt is not None
            else torch.zeros_like(alive))
+    if axis is not None and px.dim() > 1:
+        raise NotImplementedError("a sharded ORCA under a batch of crowds is "
+                                  "not ported yet (ROADMAP item 19b)")
+    # a sweep's leaves as columns against the (B, N, k) and (B, k, N)
+    # planes; the wall feed takes the (B,) neighbour distance itself
+    tau, nd, tau_static = (
+        v[:, None, None] if isinstance(v, torch.Tensor) else v
+        for v in (params.tau, params.neighbor_dist, params.tau_static))
     if axis is not None:
         if order is not None:
             raise ValueError("a sharded ORCA sorts the gathered crowd: pass "
@@ -519,13 +550,13 @@ def orca_velocities(pos, vel, radius, alive, pref, vmax, params, dt: float,
         px, py, vx, vy, radius, alive, prx, pry, vmax, exm = (
             axis.all_gather(a) for a in (px, py, vx, vy, radius, alive, prx,
                                          pry, vmax, exm))
-    n = px.shape[0]
+    n = px.shape[-1]
     k = params.max_neighbors
     window = params.window if params.window else n
 
     if window >= n:
         nx, ny, nvx, nvy, nr, valid = _full_neighbors(
-            px, py, vx, vy, radius, alive, k, params.neighbor_dist)
+            px, py, vx, vy, radius, alive, k, nd)
         ex, ey, evx, evy, er = px, py, vx, vy, radius
         eprx, epry, evmax, eexm, ealive = prx, pry, vmax, exm, alive
         inv = None
@@ -533,33 +564,39 @@ def orca_velocities(pos, vel, radius, alive, pref, vmax, params, dt: float,
         perm, inv = order if order is not None else morton_order(
             px, py, alive, spatial_order)
         (ex, ey, evx, evy, er, eprx, epry, evmax, ealive, eexm) = (
-            a[perm] for a in (px, py, vx, vy, radius, prx, pry, vmax, alive,
-                              exm))
+            torch.gather(a, -1, perm) for a in (px, py, vx, vy, radius, prx,
+                                                pry, vmax, alive, exm))
         nx, ny, nvx, nvy, nr, valid = _window_neighbors(
-            ex, ey, evx, evy, er, ealive, window, k, params.neighbor_dist)
+            ex, ey, evx, evy, er, ealive, window, k, nd)
 
     # agent-agent half-planes (reciprocal: each takes u/2)
     ux, uy, hx, hy = orca_halfplane(
-        nx - ex[:, None], ny - ey[:, None], evx[:, None] - nvx,
-        evy[:, None] - nvy, er[:, None] + nr, params.tau, dt)
-    cons = [(evx[:, None] + 0.5 * ux, evy[:, None] + 0.5 * uy, hx, hy,
+        nx - ex[..., None], ny - ey[..., None], evx[..., None] - nvx,
+        evy[..., None] - nvy, er[..., None] + nr, tau, dt)
+    cons = [(evx[..., None] + 0.5 * ux, evy[..., None] + 0.5 * uy, hx, hy,
              valid)]
     if veh_snap is not None and params.max_vehicles > 0:
         cons.append(_vehicle_constraints(
-            ex, ey, evx, evy, er, veh_snap, params.max_vehicles,
-            params.neighbor_dist, params.tau, dt))
+            ex, ey, evx, evy, er, veh_snap, params.max_vehicles, nd, tau,
+            dt))
     if use_statics:
         for src in (borders, obstacles):
             if src is not None:
                 cons.append(_static_constraints(
                     ex, ey, er, eexm, ealive, _as_source(src, px.device),
-                    params.max_statics, params.tau_static, dt,
+                    params.max_statics, tau_static, dt,
                     params.neighbor_dist, plain_feed))
     ptx, pty, hx, hy, valid = (torch.cat(c, dim=-1) for c in zip(*cons))
 
-    ovx, ovy = solve_orca_lp(eprx, epry, ptx, pty, hx, hy, valid, evmax)
+    # the programs over every row of every crowd, (B * N, C)
+    c = ptx.shape[-1]
+    ovx, ovy = solve_orca_lp(
+        eprx.reshape(-1), epry.reshape(-1), ptx.reshape(-1, c),
+        pty.reshape(-1, c), hx.reshape(-1, c), hy.reshape(-1, c),
+        valid.reshape(-1, c), evmax.reshape(-1))
+    ovx, ovy = ovx.view(px.shape), ovy.view(px.shape)
     if inv is not None:
-        ovx, ovy = ovx[inv], ovy[inv]
+        ovx, ovy = torch.gather(ovx, -1, inv), torch.gather(ovy, -1, inv)
     if axis is not None:
         rows = slice(axis.index * local_n, (axis.index + 1) * local_n)
         ovx, ovy = ovx[rows], ovy[rows]

@@ -4,9 +4,9 @@ of ops/pallas_statics.py, and of the JAX package's ``_cpc_kernel`` behind
 environment forces (the JAX package's ``_cp_kernel`` behind
 ``geometry.closest_point_per_segment``).
 
-Four kernels from ``csrc/statics.cu``, each behind a wrapper that checks
-its inputs, allocates its outputs, launches on PyTorch's current stream and
-counts the launch:
+Four kernels from ``csrc/statics.cu`` and three batched forms, each behind
+a wrapper that checks its inputs, allocates its outputs, launches on
+PyTorch's current stream and counts the launch:
 
 * :func:`seg_topk` -- a running top-k (k <= 8) of ``(d2, wx, wy)`` over the
   segment features (``env/pointsets.SegmentFeatures``) within the
@@ -18,6 +18,11 @@ counts the launch:
 * :func:`chunk_closest` -- the (C, N) planes of every chunk's closest
   point, the scan of :func:`chunk_topk` without the merge.  The JAX
   package's ``_cpc_kernel``.
+* :func:`seg_topk_batched`, :func:`chunk_topk_batched` and
+  :func:`chunk_closest_batched` -- the three over B crowds' ``(B, n)``
+  planes in one launch each (an ensemble, or a sweep whose neighbour
+  distance is a ``(B,)`` tensor), row b equal to the unbatched kernel on
+  row b bitwise.  The JAX package runs its kernels under ``vmap`` there.
 * :func:`chunk_argmin` -- every (chunk, pedestrian)'s minimum squared
   distance and the flat index of the first point that reaches it, (C, N),
   over every pair (no skip).  The JAX package's ``_cp_kernel``; its plain
@@ -59,7 +64,9 @@ MAX_K = 8
 #: launches per kernel since the last :func:`reset_launch_counts`; each
 #: wrapper adds one where it launches its kernel and nowhere else
 LAUNCHES = {"seg_topk": 0, "chunk_topk": 0, "chunk_closest": 0,
-            "chunk_argmin": 0, "chunk_argmin_batched": 0}
+            "chunk_argmin": 0, "chunk_argmin_batched": 0,
+            "seg_topk_batched": 0, "chunk_topk_batched": 0,
+            "chunk_closest_batched": 0}
 
 
 def reset_launch_counts() -> None:
@@ -76,17 +83,22 @@ def _check(named, dev):
                              f"{tuple(t.shape)} on {t.device}")
 
 
-def _peds(pos_x, pos_y, alive):
-    """Checked pedestrian arguments: the planes' pointers and the alive
-    mask's (0 = every pedestrian in the boxes)."""
-    dev, n = pos_x.device, pos_x.shape[0]
+def _peds(pos_x, pos_y, alive, dims=1):
+    """Checked pedestrian arguments, ``(n,)`` planes or with ``dims`` 2 a
+    batch's ``(B, n)`` (B crowds on one grid axis): the planes' pointers
+    and the alive mask's (0 = every pedestrian in the boxes)."""
+    dev, shape = pos_x.device, tuple(pos_x.shape)
+    if pos_x.dim() != dims or (dims == 2 and shape[0] > 65_535):
+        raise ValueError(f"the {'batched ' if dims == 2 else ''}statics "
+                         f"kernels take {'(B, n)' if dims == 2 else '(n,)'} "
+                         f"planes (B <= 65,535), got {shape}")
     if dev.type != "cuda":
         raise ValueError(f"the statics kernels need CUDA tensors, got {dev}")
-    _check((("pos_x", pos_x, (n,)), ("pos_y", pos_y, (n,))), dev)
+    _check((("pos_x", pos_x, shape), ("pos_y", pos_y, shape)), dev)
     if alive is not None and (alive.device != dev or alive.dtype != torch.bool
-                              or alive.shape != (n,)
+                              or tuple(alive.shape) != shape
                               or not alive.is_contiguous()):
-        raise ValueError(f"alive must be a contiguous bool ({n},) tensor on "
+        raise ValueError(f"alive must be a contiguous bool {shape} tensor on "
                          f"{dev}")
     return (pos_x.data_ptr(), pos_y.data_ptr(),
             0 if alive is None else alive.data_ptr())
@@ -112,12 +124,37 @@ def _nd(neigh_dist):
     return float(neigh_dist), squared_reach(neigh_dist)
 
 
+def _nd_rows(neigh_dist, batch, dev):
+    """The neighbour-distance arguments of a batched launch, ``(nd, nd2,
+    nd_rows, nd2_rows)``, and the tensors they point into: a number is
+    every crowd's (null rows); a sweep's ``(batch,)`` tensor gives each
+    crowd its float32 value and that value's float32 square (the JAX
+    package's ``jnp.float32(neigh_dist) ** 2`` under vmap)."""
+    if not isinstance(neigh_dist, torch.Tensor):
+        return (*_nd(neigh_dist), None, None), ()
+    nd = neigh_dist.to(device=dev, dtype=torch.float32).contiguous()
+    if nd.shape != (batch,):
+        raise ValueError(f"a swept neighbour distance must be a ({batch},) "
+                         f"tensor, got {tuple(nd.shape)}")
+    nd2 = nd * nd
+    return (0.0, 0.0, nd.data_ptr(), nd2.data_ptr()), (nd, nd2)
+
+
 def _check_k(k: int):
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
     if k > MAX_K:
         raise ValueError(f"k must be <= {MAX_K}, got {k} (the running list "
                          f"of the top-k kernels holds {MAX_K} slots)")
+
+
+def _features(feat: SegmentFeatures, dev):
+    """The checked segment-feature arguments of the segment top-k: the
+    eight planes' pointers and F."""
+    f = feat.num_features
+    names = ("ax", "ay", "ux", "uy", "il2", "ccx", "ccy", "rad")
+    _check(((name, getattr(feat, name), (f,)) for name in names), dev)
+    return (*(getattr(feat, name).data_ptr() for name in names), f)
 
 
 def seg_topk(pos_x, pos_y, feat: SegmentFeatures, k: int, neigh_dist,
@@ -127,39 +164,31 @@ def seg_topk(pos_x, pos_y, feat: SegmentFeatures, k: int, neigh_dist,
     ascending, ``d2 = inf`` (and ``wx = wy = 0``) in empty slots."""
     _check_k(k)
     peds = _peds(pos_x, pos_y, alive)
-    f, dev, n = feat.num_features, pos_x.device, pos_x.shape[0]
-    _check(((name, getattr(feat, name), (f,)) for name in
-            ("ax", "ay", "ux", "uy", "il2", "ccx", "ccy", "rad")), dev)
+    dev, n = pos_x.device, pos_x.shape[0]
+    args = (*peds, *_features(feat, dev), *_nd(neigh_dist), k, n)
     outs = tuple(torch.empty((k, n), dtype=torch.float32, device=dev)
                  for _ in range(3))
     if n == 0:
         return outs
-    return _launch("seg_topk", (*peds, *(getattr(feat, a).data_ptr() for a in
-                                         ("ax", "ay", "ux", "uy", "il2",
-                                          "ccx", "ccy", "rad")),
-                                f, *_nd(neigh_dist), k, n), outs, dev)
+    return _launch("seg_topk", args, outs, dev)
 
 
-def _chunk_args(pos_x, pos_y, chunks, neigh_dist, alive):
-    peds = _peds(pos_x, pos_y, alive)
+def _chunks(chunks, dev):
+    """The checked chunk arguments of the chunk kernels: the point planes'
+    pointers, C, K, the real lengths' pointer and the circles'."""
     c, kk = chunks.x.shape
     _check((("chunk x", chunks.x, (c, kk)), ("chunk y", chunks.y, (c, kk)),
             ("center_x", chunks.center_x, (c,)),
             ("center_y", chunks.center_y, (c,)),
-            ("radius", chunks.radius, (c,))), pos_x.device)
-    return (*peds, chunks.x.data_ptr(), chunks.y.data_ptr(), c, kk,
-            chunks.center_x.data_ptr(), chunks.center_y.data_ptr(),
-            chunks.radius.data_ptr(), *_nd(neigh_dist))
-
-
-def _lengths(chunks, dev):
-    """The pointer of the chunks' real lengths."""
-    lens, c = chunks.lengths, chunks.num_chunks
+            ("radius", chunks.radius, (c,))), dev)
+    lens = chunks.lengths
     if (lens.device != dev or lens.dtype != torch.int32 or lens.shape != (c,)
             or not lens.is_contiguous()):
         raise ValueError(f"chunk lengths must be a contiguous int32 ({c},) "
                          f"tensor on {dev}")
-    return lens.data_ptr()
+    return (chunks.x.data_ptr(), chunks.y.data_ptr(), c, kk, lens.data_ptr(),
+            chunks.center_x.data_ptr(), chunks.center_y.data_ptr(),
+            chunks.radius.data_ptr())
 
 
 def chunk_topk(pos_x, pos_y, chunks, k: int, neigh_dist, alive=None):
@@ -168,14 +197,14 @@ def chunk_topk(pos_x, pos_y, chunks, k: int, neigh_dist, alive=None):
     first-occurrence closest point, each chunk scanned up to its last
     valid slot (``chunks.lengths``)."""
     _check_k(k)
-    args = _chunk_args(pos_x, pos_y, chunks, neigh_dist, alive)
+    peds = _peds(pos_x, pos_y, alive)
     n, dev = pos_x.shape[0], pos_x.device
+    args = (*peds, *_chunks(chunks, dev), *_nd(neigh_dist), k, n)
     outs = tuple(torch.empty((k, n), dtype=torch.float32, device=dev)
                  for _ in range(3))
     if n == 0:
         return outs
-    args = (*args[:7], _lengths(chunks, dev), *args[7:])
-    return _launch("chunk_topk", (*args, k, n), outs, dev)
+    return _launch("chunk_topk", args, outs, dev)
 
 
 def chunk_closest(pos_x, pos_y, chunks, neigh_dist, alive=None):
@@ -183,14 +212,68 @@ def chunk_closest(pos_x, pos_y, chunks, neigh_dist, alive=None):
     (C, N), ``d2 = inf`` beyond ``neigh_dist`` (a chunk skipped for a block
     leaves ``wx = wy = 0``), each chunk scanned up to its last valid slot
     (``chunks.lengths``); see ``geometry.closest_point_per_chunk``."""
-    args = _chunk_args(pos_x, pos_y, chunks, neigh_dist, alive)
+    peds = _peds(pos_x, pos_y, alive)
     n, dev = pos_x.shape[0], pos_x.device
+    args = (*peds, *_chunks(chunks, dev), *_nd(neigh_dist), n)
     outs = tuple(torch.empty((chunks.num_chunks, n), dtype=torch.float32,
                              device=dev) for _ in range(3))
     if n == 0 or chunks.num_chunks == 0:
         return outs
-    args = (*args[:7], _lengths(chunks, dev), *args[7:])
-    return _launch("chunk_closest", (*args, n), outs, dev)
+    return _launch("chunk_closest", args, outs, dev)
+
+
+def seg_topk_batched(pos_x, pos_y, feat: SegmentFeatures, k: int,
+                     neigh_dist, alive=None):
+    """:func:`seg_topk` of B crowds, ``(B, n)`` planes against one set of
+    features, in one launch: ``(d2, wx, wy)`` of shape (B, k, n), row b
+    equal to :func:`seg_topk` on row b bitwise.  ``neigh_dist`` a number
+    (an ensemble) or a ``(B,)`` tensor (a sweep: each crowd's own filter
+    and gate)."""
+    _check_k(k)
+    peds = _peds(pos_x, pos_y, alive, dims=2)
+    (batch, n), dev = pos_x.shape, pos_x.device
+    nds, _keep = _nd_rows(neigh_dist, batch, dev)
+    args = (*peds, *_features(feat, dev), *nds, k, n, batch)
+    outs = tuple(torch.empty((batch, k, n), dtype=torch.float32, device=dev)
+                 for _ in range(3))
+    if batch * n == 0:
+        return outs
+    return _launch("seg_topk_batched", args, outs, dev)
+
+
+def chunk_topk_batched(pos_x, pos_y, chunks, k: int, neigh_dist,
+                       alive=None):
+    """:func:`chunk_topk` of B crowds in one launch, laid out as
+    :func:`seg_topk_batched`'s (B, k, n) outputs."""
+    _check_k(k)
+    peds = _peds(pos_x, pos_y, alive, dims=2)
+    (batch, n), dev = pos_x.shape, pos_x.device
+    nds, _keep = _nd_rows(neigh_dist, batch, dev)
+    args = (*peds, *_chunks(chunks, dev), *nds, k, n, batch)
+    outs = tuple(torch.empty((batch, k, n), dtype=torch.float32, device=dev)
+                 for _ in range(3))
+    if batch * n == 0:
+        return outs
+    return _launch("chunk_topk_batched", args, outs, dev)
+
+
+def chunk_closest_batched(pos_x, pos_y, chunks, neigh_dist, alive=None):
+    """:func:`chunk_closest` of B crowds in one launch: ``(d2, wx, wy)`` of
+    shape (C, B, n), the layout of :func:`chunk_argmin_batched`, as views
+    of (B, C, n) planes (each crowd's (C, n) planes contiguous, where the
+    kernel writes them); row b equals :func:`chunk_closest` on row b
+    bitwise (a block never holds two crowds, so each crowd's boxes skip
+    what they skip alone)."""
+    peds = _peds(pos_x, pos_y, alive, dims=2)
+    (batch, n), dev = pos_x.shape, pos_x.device
+    nds, _keep = _nd_rows(neigh_dist, batch, dev)
+    args = (*peds, *_chunks(chunks, dev), *nds, n, batch)
+    outs = tuple(torch.empty((batch, chunks.num_chunks, n),
+                             dtype=torch.float32, device=dev)
+                 for _ in range(3))
+    if batch * n > 0 and chunks.num_chunks > 0:
+        _launch("chunk_closest_batched", args, outs, dev)
+    return tuple(o.transpose(0, 1) for o in outs)
 
 
 def chunk_argmin(pos_x, pos_y, fx, fy):
@@ -248,11 +331,16 @@ def topk_plain(pos_x, pos_y, src, k: int, neigh_dist):
     """The plain version of :func:`seg_topk` and :func:`chunk_topk` on any
     device: the (F, N) planes of ``ops/geometry.py`` reduced by
     ``k_smallest_features`` (the JAX package's pallas_statics.py:329-345);
-    every row computed."""
+    every row computed.  A batch's ``(B, N)`` planes give (B, k, N), the
+    plain version of the batched kernels (``neigh_dist`` a number or a
+    sweep's ``(B,)`` tensor); row b equals the function on row b
+    bitwise."""
     if isinstance(src, SegmentFeatures):
         d2, wx, wy = feature_closest_planes(pos_x, pos_y, src, neigh_dist)
     else:
         d2, wx, wy = chunk_closest_plain(pos_x, pos_y, src, neigh_dist)
+    # the features' axis next to the pedestrians' ((F, B, N) -> (B, F, N))
+    d2, wx, wy = (a.movedim(0, -2) for a in (d2, wx, wy))
     dfin = torch.where(torch.isfinite(d2), d2, 0.0)
     (swx, swy, sd2), valid = k_smallest_features(d2, (wx, wy, dfin), k)
     return torch.where(valid, sd2, torch.inf), swx, swy
@@ -267,9 +355,16 @@ def nearest_features_topk(pos_x, pos_y, src, k: int, neigh_dist,
     :class:`..env.pointsets.ChunkFeatures`; ``alive`` tightens the kernels'
     skip (a dead row is then undefined).  On CUDA tensors the
     ``seg_topk`` or ``chunk_topk`` kernel, on CPU tensors
-    :func:`topk_plain`.  The JAX package's pallas_statics.py:302-345."""
+    :func:`topk_plain`.  The JAX package's pallas_statics.py:302-345.
+    A batch of crowds' ``(B, N)`` planes give (B, k, N): on a card one
+    launch of ``seg_topk_batched`` or ``chunk_topk_batched`` for every
+    row, ``neigh_dist`` a number or a sweep's ``(B,)`` tensor."""
     _check_k(k)
     if pos_x.device.type == "cuda":
-        fn = seg_topk if isinstance(src, SegmentFeatures) else chunk_topk
+        seg = isinstance(src, SegmentFeatures)
+        if pos_x.dim() == 1:
+            fn = seg_topk if seg else chunk_topk
+        else:
+            fn = seg_topk_batched if seg else chunk_topk_batched
         return fn(pos_x, pos_y, src, k, neigh_dist, alive)
     return topk_plain(pos_x, pos_y, src, k, neigh_dist)

@@ -16,15 +16,18 @@ every pair law.  So do the environment paths: ``env_compact`` (each
 crowd's own survivor table over the shared sections, the batched
 compacted kernels), ``env_analytic`` (the shared line-segment geometry,
 dense or compacted, plus its sampled remainder) and ``env_chunked``, the
-scenarios' engine (one chunk scan over every row's pedestrians).  The
-geometry is prepared once here and shared by every row; nothing here is
-specific to a path.
+scenarios' engine (one chunk scan over every row's pedestrians).  So does
+ORCA (its wall feeds prepared here, each part one batched launch a step;
+a sweep of ``orca_tau``, ``orca_neighbor_dist`` and ``orca_tau_static``
+per row), with the per-agent ``pair_scale``/``law_id`` columns of mixed
+crowds: ``(B, N)`` in an ensemble's schedules, ``(N,)`` shared by a
+sweep's rows.  The geometry is prepared once here and shared by every
+row; nothing here is specific to a path.
 
 Sharding the batch over a mesh (the JAX package's ``mesh`` argument and
 ``make_sharded_ensemble_rollout``) is not ported yet: it raises and names
 ROADMAP item 19b, as does every configuration the batched step refuses
-(``stepper.check_supported``: ORCA, groups, the fleet, per-agent columns,
-an agent axis).
+(``stepper.check_supported``: groups, the fleet, an agent axis).
 """
 from __future__ import annotations
 
@@ -137,14 +140,12 @@ def make_sweep_rollout(scene: Scene, cfg: StepConfig, num_steps: int,
     """Rollouts of one scene under a batch of parameters
     (:func:`batch_params`): ``run(params_batch)`` returns ``(final_state,
     record | None)`` with ``(B, N)`` state planes and ``(B, T, N)``
-    records, row b stepped with row b's parameters.  ``orca`` (the swept
-    params' ``enable_orca``, which prepares the ORCA wall feeds in the JAX
-    package) and ``mesh`` are not ported under a batch yet and raise."""
+    records, row b stepped with row b's parameters.  ``orca``: the swept
+    params' ``enable_orca``, so that the ORCA wall feeds are prepared here
+    (the JAX package's argument).  ``mesh`` is not ported under a batch
+    yet and raises."""
     _no_mesh(mesh)
-    if orca:
-        raise NotImplementedError(f"ORCA under a batch of crowds is not "
-                                  f"ported yet ({BATCH_ITEM})")
-    scene = prepare_scene(scene, analytic=cfg.env_analytic,
+    scene = prepare_scene(scene, analytic=cfg.env_analytic, orca=orca,
                           chunked=cfg.env_chunked)
     device = scene.spawn.step.device
 

@@ -149,6 +149,16 @@ ARGTYPES = {
     # sfm_chunk_topk's arguments without k
     "sfm_chunk_closest": ([_PTR] * 5 + [_INT, _INT] + [_PTR] * 4
                           + [_FLOAT, _FLOAT, _INT] + [_PTR] * 4),
+    # the batched entries: sfm_seg_topk's arguments with nd_rows, nd2_rows
+    # after nd2 and batch after n
+    "sfm_seg_topk_batched": ([_PTR] * 11 + [_INT, _FLOAT, _FLOAT, _PTR, _PTR]
+                             + [_INT] * 3 + [_PTR] * 4),
+    "sfm_chunk_topk_batched": ([_PTR] * 5 + [_INT, _INT] + [_PTR] * 4
+                               + [_FLOAT, _FLOAT, _PTR, _PTR] + [_INT] * 3
+                               + [_PTR] * 4),
+    "sfm_chunk_closest_batched": ([_PTR] * 5 + [_INT, _INT] + [_PTR] * 4
+                                  + [_FLOAT, _FLOAT, _PTR, _PTR, _INT, _INT]
+                                  + [_PTR] * 4),
     # px, py, fx, fy, c, kk, n, d2, idx, stream
     "sfm_chunk_argmin": [_PTR] * 4 + [_INT, _INT, _INT] + [_PTR] * 3,
 }

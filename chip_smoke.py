@@ -52,9 +52,17 @@ analytic and chunked environment kernels against their plain batched
 versions and the unbatched kernels row by row, config #5 spread over
 config #3's N = 10,000 geometry with ``env_compact`` and ``env_analytic``
 (dense and compacted), and a ``border_a`` sweep over 8 rows of the Town02
-crowd on the scenarios' ``env_chunked``.  It counts the kernel launches of
-each path, and checks every step of short rollouts (50 steps; the family
-and batched paths 25, phase 31 20) through the kernels against the same
+crowd on the scenarios' ``env_chunked``; then (phase 32) ORCA under a
+batch: the batched wall-feed kernels (``seg_topk_batched``,
+``chunk_topk_batched``, ``chunk_closest_batched``) at 256 crowds of 1,000
+against their plain batched versions and the unbatched kernels row by
+row, shared and swept, config #5 + ORCA + ``env_analytic`` over config
+#3's geometry, a sweep of ``orca_tau`` x ``orca_neighbor_dist`` over 8
+rows of config #3 at 10,000, and ``corridor_counterflow`` and
+``obstacle_evasion`` with ``sfm_orca.toml`` swept over 8 rows.  It counts
+the kernel launches of each path, and checks every step of short rollouts
+(50 steps; the family and batched paths 25, phases 31 and 32 10) through
+the kernels against the same
 step through the plain versions from the same state (and names the agent
 of the worst step).  Phase 2 also counts the SASS
 instructions of the symmetric and dense pair walks', the ring's, the
@@ -3336,6 +3344,222 @@ def env_batch_phases(dev, zero, card, launches, worst, profile_steps, town):
     return table
 
 
+#: phase 32: timed steps of the ORCA batch paths (after a warm-up), their
+#: checked steps, the rows of the ORCA sweeps and the scenarios' steps
+ORCA_BATCH_STEPS = 20
+ORCA_PARITY_STEPS = 10
+ORCA_SWEEP_ROWS = 8
+ORCA_SCENARIO_STEPS = 50
+#: the shipped scenarios of phase 32 with sfm_orca.toml: the corridor's
+#: walls are segment features (seg_topk), obstacle_evasion's obstacles
+#: stay sampled (chunk_topk); {name: launches a step besides the feed's}
+ORCA_SCENARIOS = {"corridor_counterflow": dict(seg_topk_batched=1,
+                                               chunk_argmin_batched=1),
+                  "obstacle_evasion": dict(chunk_topk_batched=1,
+                                           chunk_argmin_batched=1)}
+
+
+def orca_batch_phases(dev, zero, card, launches, worst, profile_steps):
+    """Phase 32: ORCA under a batch of crowds (item 19b.3b).  (a) The
+    batched wall-feed kernels (#9, #10, #12 under a batch) at config #5's
+    256 crowds of 1,000 over config #3's N = 10,000 geometry (its border
+    segment features, its parked cars' chunks, k = 3), with a shared and
+    a swept neighbour distance: every row equal to the unbatched launch on
+    that row bitwise, the plain batched version's bits, device times and
+    bounds.  (b) Config #5 + ORCA + env_analytic through
+    ``make_ensemble_rollout`` (launches, step time, device-busy share),
+    every step of a short rollout against the plain versions' step.  (c)
+    A sweep of orca_tau x orca_neighbor_dist over 8 rows of config #3 at N
+    = 10,000, the same.  (d) corridor_counterflow and obstacle_evasion with
+    sfm_orca.toml swept over 8 rows on the scenarios' env_chunked.  (e)
+    ``geometry.closest_point_per_chunk`` on ``(B, N)`` planes at every
+    checked step of (b).  Returns ``{kernel: (source line, ms, plain_ms,
+    bound)}`` for the kernels line."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import batch_cases as bc
+    from orca_cases import (feed_call, feed_mismatch, feed_rows_equal,
+                            feed_run)
+    from carla_social_force_model_tpu_torch.api import scenario
+    from carla_social_force_model_tpu_torch.api.synthetic import (
+        batched_crowds, benchmark_bundle)
+    from carla_social_force_model_tpu_torch.models import stepper
+    from carla_social_force_model_tpu_torch.models.state import PedState
+    from carla_social_force_model_tpu_torch.ops import geometry, statics
+    from carla_social_force_model_tpu_torch.parallel import sweeps
+    table = {}
+    replaces = {"seg_topk_batched": "ops/pallas_statics.py:111",
+                "chunk_topk_batched": "ops/pallas_statics.py:137",
+                "chunk_closest_batched": "ops/geometry.py:214"}
+
+    lap("phase 32")
+    # -- (a) the kernels at config #5's shape over config #3's geometry -----
+    scene, params, cfg, _ = benchmark_bundle(
+        ENV_GEOM_N, with_borders=True, with_obstacles=True,
+        num_steps_hint=4 * ORCA_BATCH_STEPS, device=dev)
+    params = dataclasses.replace(params, enable_pedestrian=False,
+                                 enable_orca=True)
+    cfg = dataclasses.replace(cfg, env_analytic=True)
+    scene = stepper.prepare_scene(scene, analytic=True, orca=True)
+    seg, cars = scene.borders_feat.seg, scene.obstacles_feat.rest
+    if (scene.borders_feat.rest is not None
+            or scene.obstacles_feat.seg is not None):
+        fail("phase 32: config #3's feeds are not borders as segments and "
+             "cars as chunks")
+    ens = dataclasses.replace(scene, spawn=batched_crowds(
+        BATCH, BATCH_N, extent=ENV_CROWD_EXTENT, seed=32, device=dev))
+    st, _ = stepper.rollout(PedState.empty(BATCH_N, device=dev, batch=BATCH),
+                            ens, params, cfg, 1, record=False)
+    rng = np.random.default_rng(32)
+    dead = torch.from_numpy(rng.uniform(size=(BATCH, BATCH_N))
+                            < 0.1).to(dev)
+    planes = bc.sorted_rows(dataclasses.replace(st, alive=st.alive & ~dead))
+    nd = params.orca.neighbor_dist
+    swept_nd = torch.linspace(5.0, 15.0, BATCH, device=dev)
+    say(f"phase 32 feeds on config #3's N={ENV_GEOM_N} geometry: borders "
+        f"{seg.num_features} segment features, parked cars "
+        f"{cars.num_chunks} chunks of {cars.chunk_size}; B={BATCH} x "
+        f"N={BATCH_N}, {int(planes[5].sum())} alive; swept neighbour "
+        f"distances {BATCH} values {swept_nd[0].item():g}-"
+        f"{swept_nd[-1].item():g} m")
+    flat = [p.reshape(-1) for p in planes]
+    for kind, src in (("seg_topk", seg), ("chunk_topk", cars),
+                      ("chunk_closest", cars)):
+        name = f"{kind}_batched"
+        k = 0 if kind == "chunk_closest" else 3
+        worst[name] = 0.0
+        for what, dist in (("shared", nd), ("swept", swept_nd)):
+            got = feed_run(kind, planes, src, k, neigh_dist=dist)
+            want = feed_run(kind, planes, src, k, plain=True,
+                            neigh_dist=dist)
+            torch.cuda.synchronize()
+            bad = feed_mismatch(kind, got, want, planes[5])
+            fin = torch.isfinite(want[0][..., planes[5]])
+            err = (got[0][..., planes[5]] - want[0][..., planes[5]])[fin]
+            e = err.abs().max().item() if err.numel() else 0.0
+            rows_equal = feed_rows_equal(kind, planes, src, k, dist,
+                                               got)
+            say(f"phase 32 {name}" + (f" k={k}" if k else "")
+                + f" ({what} neighbour distance), B={BATCH} x N={BATCH_N}: "
+                f"{bad} elements differ from the plain batched version on "
+                f"the alive rows (d2, points, selection; tolerance 0, "
+                f"bitwise), {int(fin.sum())} finite entries, max abs d2 err "
+                f"{e:.3e}; rows vs the unbatched launch on each row: "
+                + ("bitwise equal" if rows_equal else "DIFFERENT"))
+            if bad or not rows_equal:
+                fail(f"phase 32 {name} ({what}) differs from its plain "
+                     f"version or from the unbatched kernel on a row")
+            worst[name] = max(worst[name], e)
+            del got, want
+        ms = device_ms(lambda: feed_call(kind, planes, src, k,
+                                         neigh_dist=nd), f"{name}_kernel")
+        timed_by = TIMED_BY[0]
+        plain = cuda_ms(lambda: feed_call(kind, planes, src, k, plain=True,
+                                          neigh_dist=nd), reps=1, warm=False)
+        bnd = feed_work(kind, flat, src, k, nd)
+        table[name] = ("carla_social_force_model_tpu/" + replaces[name], ms,
+                       plain, bnd[:2])
+        say(f"phase 32 time {name}" + (f" (k={k})" if k else "")
+            + f", B={BATCH} x N={BATCH_N}: kernel {ms:.4f} ms on the device "
+            f"({timed_by}), plain batched version {plain:.3f} ms, bound "
+            f"{bnd[0]:.6f} ms ({bnd[1]}; {bnd[2]} in-filter pairs, "
+            f"{bnd[3]} within {nd:g} m) ({card})")
+    del planes, flat
+
+    # -- (b) the main path: config #5 + ORCA + env_analytic ------------------
+    lap("phase 32 main path")
+    s = ORCA_BATCH_STEPS
+    per_step = dict(env_exp_analytic_batched=1, env_moussaid_batched=2,
+                    seg_topk_batched=1, chunk_topk_batched=1)
+    label = (f"phase 32 config #5 + ORCA + env_analytic on config #3's "
+             f"N={ENV_GEOM_N} geometry")
+    counts, ms_step, _ = run_batch(
+        label, lambda k: sweeps.make_ensemble_rollout(ens, params, cfg, k),
+        ens, s, dict(zero, **{k: v * s for k, v in per_step.items()}),
+        BATCH, card)
+    for name in ("seg_topk_batched", "chunk_topk_batched"):
+        launches[name] = counts[name]
+    profile_steps(ens, params, cfg, PedState.empty(BATCH_N, device=dev,
+                                                   batch=BATCH),
+                  ms_step, label)
+    lap("phase 32 main path checks")
+    small = dataclasses.replace(scene, spawn=batched_crowds(
+        GEOM_BATCH, BATCH_N, extent=ENV_CROWD_EXTENT, seed=33, device=dev))
+    small_state = PedState.empty(BATCH_N, device=dev, batch=GEOM_BATCH)
+    check_batch_steps(f"phase 32 config #3 N={ENV_GEOM_N} geometry + ORCA + "
+                      f"env_analytic at B={GEOM_BATCH}", small, params, cfg,
+                      small_state, ORCA_PARITY_STEPS)
+
+    # -- (e) #12 through its entry at every checked step -------------------
+    st, calls = small_state, 0
+    for k in range(ORCA_PARITY_STEPS):
+        st, _ = stepper.simulation_step(st, small, params, cfg, k)
+        pl = bc.sorted_rows(st)
+        for dist in (nd, torch.linspace(5.0, 15.0, GEOM_BATCH, device=dev)):
+            before = statics.LAUNCHES["chunk_closest_batched"]
+            got = torch.stack(geometry.closest_point_per_chunk(
+                pl[0], pl[1], cars, dist, pl[5]))
+            calls += statics.LAUNCHES["chunk_closest_batched"] - before
+            want = torch.stack(geometry.chunk_closest_plain(pl[0], pl[1],
+                                                            cars, dist))
+            if feed_mismatch("chunk_closest", got, want, pl[5]):
+                fail(f"phase 32 closest_point_per_chunk step {k}: differs "
+                     f"from the plain version on the alive rows")
+    launches["chunk_closest_batched"] = calls
+    say(f"phase 32 closest_point_per_chunk on (B={GEOM_BATCH}, "
+        f"N={BATCH_N}) planes (the chunk_closest_batched kernel) on the "
+        f"parked cars at each of {ORCA_PARITY_STEPS} steps, shared and "
+        f"swept neighbour distance: {calls} launches, equal to the plain "
+        f"version bitwise on the alive rows")
+
+    # -- (c) a sweep of orca_tau x orca_neighbor_dist over config #3 ---------
+    lap("phase 32 sweep")
+    taus = torch.tensor([1.0, 1.5, 2.0, 3.0], device=dev)
+    nds = torch.tensor([7.3, 15.0], device=dev)
+    swept = sweeps.batch_params(params, orca_tau=taus.repeat(2),
+                                orca_neighbor_dist=nds.repeat_interleave(4))
+    label = (f"phase 32 config #3 + ORCA + env_analytic, N={ENV_GEOM_N}, "
+             f"sweep of orca_tau x orca_neighbor_dist over "
+             f"{ORCA_SWEEP_ROWS} rows")
+    counts, ms_step, _ = run_batch(
+        label, lambda k: sweeps.make_sweep_rollout(scene, cfg, k, orca=True),
+        swept, s, dict(zero, **{k: v * s for k, v in per_step.items()}),
+        ORCA_SWEEP_ROWS, card)
+    profile_steps(scene, swept, cfg, PedState.empty(
+        ENV_GEOM_N, device=dev, batch=ORCA_SWEEP_ROWS), ms_step, label)
+    lap("phase 32 sweep checks")
+    check_batch_steps(label, scene, swept, cfg, PedState.empty(
+        ENV_GEOM_N, device=dev, batch=ORCA_SWEEP_ROWS), ORCA_PARITY_STEPS)
+
+    # -- (d) the shipped scenarios with sfm_orca.toml, swept -----------------
+    lap("phase 32 scenarios")
+    for name, per in ORCA_SCENARIOS.items():
+        path = os.path.join(ROOT, "configs", "scenarios", f"{name}.toml")
+        bundle = scenario.build_scenario(
+            path, os.path.join(ROOT, "configs", "sfm_orca.toml"),
+            ORCA_SCENARIO_STEPS, device=dev)
+        sw = sweeps.batch_params(
+            bundle.params,
+            orca_tau=torch.linspace(1.0, 3.0, ORCA_SWEEP_ROWS, device=dev),
+            orca_neighbor_dist=torch.linspace(3.0, 15.0, ORCA_SWEEP_ROWS,
+                                              device=dev))
+        label = (f"phase 32 {name} + sfm_orca.toml (env_chunked), sweep of "
+                 f"orca_tau and orca_neighbor_dist over {ORCA_SWEEP_ROWS} "
+                 f"rows")
+        run_batch(label, lambda k, b=bundle: sweeps.make_sweep_rollout(
+                      b.scene, b.cfg, k, orca=True), sw,
+                  ORCA_SCENARIO_STEPS,
+                  dict(zero, **{k: v * ORCA_SCENARIO_STEPS
+                                for k, v in per.items()}),
+                  ORCA_SWEEP_ROWS, card)
+        check_batch_steps(label, bundle.scene, sw, bundle.cfg,
+                          PedState.empty(bundle.capacity, device=dev,
+                                         batch=ORCA_SWEEP_ROWS),
+                          ORCA_PARITY_STEPS)
+    return table
+
+
 def main() -> None:
     try:
         import torch
@@ -3529,35 +3753,43 @@ def main() -> None:
         return counts, 1e3 * best / steps
 
     def profile_steps(scene, params, cfg, state, step_ms, label):
-        """Device time per step under the profiler over 20 steps."""
+        """Device time per step under the profiler over 20 steps: the
+        profile's device activities (kernels, copies, sets), each once by
+        (correlation id, start), summed from its raw events by name (the
+        ``key_averages()`` table of 20 steps of some 5,000 kernels took
+        over a minute to build)."""
+        from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         run20 = stepper.make_rollout_fn(scene, params, cfg, 20, record=False)
         run20(state)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             run20(state)
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
-        events = [e for e in prof.key_averages()
-                  if getattr(e, "device_type", None) is not None
-                  and "CUDA" in str(e.device_type)
-                  and getattr(e, "self_device_time_total", 0) > 0]
-        device_ms = sum(e.self_device_time_total for e in events) / 1e3
+        seen, by_name = set(), {}
+        for e in prof.profiler.kineto_results.events():
+            key = (e.correlation_id(), e.start_ns())
+            if e.device_type() != DeviceType.CUDA or key in seen:
+                continue
+            seen.add(key)
+            ns, count = by_name.get(e.name(), (0, 0))
+            by_name[e.name()] = (ns + e.end_ns() - e.start_ns(), count + 1)
+        device_ms = sum(ns for ns, _ in by_name.values()) / 1e6
         if device_ms <= 0:
             say(f"{label} profile: no device time reported (not measured)")
             return
-        top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
         busy = device_ms / 20
         say(f"{label} profile, 20 steps: wall {wall_ms:.3f} ms under the "
             f"profiler, device busy {device_ms:.3f} ms, "
-            f"{sum(e.count for e in events) / 20:.0f} device kernels per "
+            f"{len(seen) / 20:.0f} device kernels per "
             f"step; busy {busy:.4f} ms per step = "
             f"{100 * busy / step_ms:.1f}% of the unprofiled "
             f"{step_ms:.4f} ms step ({card}); top: "
-            + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms"
-                        f" x{e.count}" for e in top))
+            + "; ".join(f"{name[:60]} {ns / 1e6:.3f} ms x{count}"
+                        for name, (ns, count) in top))
 
     lap("phase 4")
     # -- phase 4: main path, config #1 (the pair kernels) -------------------
@@ -3877,6 +4109,9 @@ def main() -> None:
     # -- phase 31: ensembles on the compacted, analytic and chunked paths --
     batched.update(env_batch_phases(dev, zero, card, launches, worst,
                                     profile_steps, town))
+    # -- phase 32: ORCA and the per-agent columns under a batch ------------
+    batched.update(orca_batch_phases(dev, zero, card, launches, worst,
+                                     profile_steps))
 
     lap("the kernels line")
     csrc = "carla_social_force_model_tpu_torch/csrc/"
@@ -3935,7 +4170,8 @@ def main() -> None:
                "pallas_forces.py:296"),
               ("ring_force", "ring.cu", "pallas_ring.py:65"))),
         *((name, csrc + ("env_forces.cu" if name.startswith("env")
-                         else "statics.cu" if name.startswith("chunk")
+                         else "statics.cu"
+                         if name.startswith(("chunk", "seg"))
                          else "pair_forces.cu"), replaces, ms, p_ms, bnd)
           for name, (replaces, ms, p_ms, bnd) in batched.items()),
     ]

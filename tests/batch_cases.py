@@ -355,6 +355,7 @@ def one_step_gaps(scene, params, cfg, state, steps):
     plain = dataclasses.replace(cfg, plain_pair_force=True,
                                 plain_env_force=True)
     scene = stepper.prepare_scene(scene, analytic=cfg.env_analytic,
+                                  orca=params.enable_orca,
                                   chunked=cfg.env_chunked)
     s = state
     for k in range(steps):

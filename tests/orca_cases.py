@@ -82,23 +82,34 @@ def feed_call(kind, planes, src, k=3, use_alive=True, plain=False,
     """One wall-feed kernel (``seg_topk``, ``chunk_topk``,
     ``chunk_closest``) or its plain version on ``planes``: its (d2, wx, wy)
     planes, (k, N) or (C, N) each.  ``use_alive``: the kernel's boxes hold
-    only the alive rows (ORCA's call); else every row."""
+    only the alive rows (ORCA's call); else every row.  A batch's ``(B,
+    n)`` planes launch the kernel's batched form (``neigh_dist`` a number
+    or a sweep's ``(B,)`` tensor): (B, k, n) or (C, B, n) each."""
     x, y, alive = planes[0], planes[1], planes[5]
+    live = alive if use_alive else None
+    batched = x.dim() == 2
     if kind == "chunk_closest":
-        return (geometry.chunk_closest_plain(x, y, src, neigh_dist) if plain
-                else statics.chunk_closest(x, y, src, neigh_dist,
-                                           alive if use_alive else None))
+        if plain:
+            return geometry.chunk_closest_plain(x, y, src, neigh_dist)
+        fn = (statics.chunk_closest_batched if batched
+              else statics.chunk_closest)
+        return fn(x, y, src, neigh_dist, live)
     if plain:
         return statics.topk_plain(x, y, src, k, neigh_dist)
-    fn = statics.seg_topk if kind == "seg_topk" else statics.chunk_topk
-    return fn(x, y, src, k, neigh_dist, alive if use_alive else None)
+    fn = getattr(statics, kind + ("_batched" if batched else ""))
+    return fn(x, y, src, k, neigh_dist, live)
 
 
 def feed_run(kind, planes, src, k=3, use_alive=True, plain=False,
              neigh_dist=NEIGHBOR_DIST):
-    """:func:`feed_call` as one (3, k, N) or (3, C, N) tensor."""
-    return torch.stack(feed_call(kind, planes, src, k, use_alive, plain,
-                                 neigh_dist))
+    """:func:`feed_call` as one (3, k, N) or (3, C, N) tensor; a batch's
+    as (3, k, B, n) or (3, C, B, n), so that a ``(B, n)`` row mask indexes
+    its last two axes (:func:`feed_mismatch`)."""
+    out = torch.stack(feed_call(kind, planes, src, k, use_alive, plain,
+                                neigh_dist))
+    if planes[0].dim() == 2 and kind != "chunk_closest":
+        return out.movedim(1, 2)
+    return out
 
 
 def feed_mismatch(kind, got, want, rows):
@@ -115,6 +126,44 @@ def feed_mismatch(kind, got, want, rows):
         if kind != "chunk_closest":
             bad |= ~fin & (g[p] != 0)
     return int(bad.sum())
+
+
+# -- the batched wall feeds ---------------------------------------------------
+
+def batch_feed_planes(planes, batch, seed, dead_rows=()):
+    """``batch`` crowds from one crowd's planes (:func:`feed_scene`'s): row
+    b shifted by a seeded offset of up to 6 m, with its own 10% dead (every
+    agent dead in ``dead_rows``), each row in its own Hilbert order, as
+    ORCA's batched path gives them to the kernels.  Returns ``(batch, n)``
+    planes x, y, vx, vy, radius, alive."""
+    rng = np.random.default_rng(seed)
+    dev, n = planes[0].device, planes[0].shape[0]
+    off = torch.from_numpy(rng.uniform(-6.0, 6.0, (batch, 2, 1)).astype(
+        np.float32)).to(dev)
+    dead = torch.from_numpy(rng.uniform(size=(batch, n)) < 0.1).to(dev)
+    for r in dead_rows:
+        dead[r] = True
+    rows = [planes[0] + off[:, 0], planes[1] + off[:, 1],
+            *(p.expand(batch, n) for p in planes[2:5]),
+            planes[5] & ~dead]
+    perm, _ = morton_order(rows[0], rows[1], rows[5], "hilbert")
+    return [p.gather(-1, perm).contiguous() for p in rows]
+
+
+def feed_rows_equal(kind, planes, src, k, neigh_dist, got, use_alive=True):
+    """Whether every row of a batched launch's :func:`feed_run` output
+    ``got`` equals the unbatched kernel's launch on that row (with that
+    row's neighbour distance), bitwise, dead rows included."""
+    b = planes[0].shape[0]
+    nds = (neigh_dist.tolist() if isinstance(neigh_dist, torch.Tensor)
+           else [neigh_dist] * b)
+    for r in range(b):
+        one = feed_run(kind, [None if p is None else p[r].contiguous()
+                              for p in planes], src, k, use_alive,
+                       neigh_dist=nds[r])
+        if not torch.equal(got[..., r, :], one):
+            return False
+    return True
 
 
 # -- tie cases of the segment top-k and chunk_closest ------------------------

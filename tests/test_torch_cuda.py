@@ -821,7 +821,10 @@ def test_feed_launch_counts_and_checks(cuda_device):
     geometry.closest_point_per_chunk(x, y, rest, 15.0, alive)
     assert statics.LAUNCHES == {"seg_topk": 1, "chunk_topk": 1,
                                 "chunk_closest": 1, "chunk_argmin": 0,
-                                "chunk_argmin_batched": 0}
+                                "chunk_argmin_batched": 0,
+                                "seg_topk_batched": 0,
+                                "chunk_topk_batched": 0,
+                                "chunk_closest_batched": 0}
     with pytest.raises(ValueError, match="k must be"):
         statics.seg_topk(x, y, seg, 9, 15.0)
     with pytest.raises(ValueError, match="contiguous float32"):
@@ -1097,6 +1100,151 @@ def test_feed_kernels_with_every_row_dead(cuda_device, kind):
         assert bool(torch.isinf(empty[0]).all())
         assert not bool(empty[1:].any())
         assert bool(torch.isfinite(want[0]).any())
+
+
+# -- the batched wall feeds (#9, #10 and #12 under a batch) -------------------
+
+def batch_nd(nd, batch, device):
+    """A shared neighbour distance, or a sweep's distinct float32 values
+    (none a float32 square's root)."""
+    if nd == "shared":
+        return 15.0
+    return torch.linspace(3.3, 15.7, batch, device=device)
+
+
+@pytest.mark.parametrize("use_alive", [True, False])
+@pytest.mark.parametrize("nd", ["shared", "swept"])
+@pytest.mark.parametrize("k", [1, 3, 8])
+@pytest.mark.parametrize("kind", ["seg_topk", "chunk_topk",
+                                  "chunk_closest"])
+def test_batched_feed_kernels_equal_each_row_and_plain(cuda_device, kind, k,
+                                                       nd, use_alive):
+    """Each batched wall-feed kernel on 5 crowds of 1,000 over config #3's
+    sets (the border segment features, the parked cars' chunks), one row
+    all dead, with a shared or swept neighbour distance: every row equal
+    to the unbatched kernel's launch on that row bitwise (dead rows too),
+    and d2, the points and the selection equal to the plain batched
+    version bitwise on every row its boxes hold."""
+    from orca_cases import batch_feed_planes, feed_rows_equal
+    from carla_social_force_model_tpu_torch.ops import statics
+    if kind == "chunk_closest" and k != 1:
+        pytest.skip("chunk_closest keeps every chunk (no k)")
+    scene, _, one = feed_scene(1000, cuda_device)
+    src = (scene.borders_feat.seg if kind == "seg_topk"
+           else scene.obstacles_feat.rest)
+    planes = batch_feed_planes(one, 5, seed=k, dead_rows=(3,))
+    dist = batch_nd(nd, 5, cuda_device)
+    key = f"{kind}_batched"
+    before = statics.LAUNCHES[key]
+    got = feed_run(kind, planes, src, k, use_alive, neigh_dist=dist)
+    torch.cuda.synchronize()
+    assert statics.LAUNCHES[key] == before + 1
+    want = feed_run(kind, planes, src, k, plain=True, neigh_dist=dist)
+    rows = planes[5] if use_alive else torch.ones_like(planes[5])
+    assert feed_mismatch(kind, got, want, rows) == 0
+    assert feed_rows_equal(kind, planes, src, k, dist, got, use_alive)
+    assert bool(torch.isfinite(want[0][..., planes[5]]).any())
+    if use_alive:
+        assert bool(torch.isinf(got[0][..., 3, :]).all())
+
+
+@pytest.mark.parametrize("k", [1, 8])
+@pytest.mark.parametrize("kind", ["seg_topk", "chunk_topk",
+                                  "chunk_closest"])
+def test_batched_feed_kernels_keep_ties_bitwise(cuda_device, kind, k):
+    """The tie cases (equal distances 1, L and L + 1 features apart and at
+    different points of a chunk, ragged chunks, an empty chunk) on 3 tie
+    crowds of 1,007 with a swept neighbour distance: every row the
+    unbatched launch's bits, and the plain batched version's."""
+    from carla_social_force_model_tpu_torch.env.pointsets import (
+        SegmentFeatures, chunk_features)
+    from orca_cases import (feed_rows_equal, tie_chunk_set, tie_crowd,
+                            tie_segment_planes)
+    if kind == "chunk_closest" and k != 1:
+        pytest.skip("chunk_closest keeps every chunk (no k)")
+    if kind == "seg_topk":
+        src = SegmentFeatures(**{a: torch.from_numpy(v).to(cuda_device)
+                                 for a, v in tie_segment_planes(301).items()})
+    else:
+        src = chunk_features(tie_chunk_set(37, 128, seed=k), cuda_device)
+    rows = [tie_planes(*tie_crowd(1007, seed=r + k), cuda_device)
+            for r in range(3)]
+    planes = [torch.stack([row[i] for row in rows]).contiguous()
+              if rows[0][i] is not None else None for i in range(6)]
+    dist = torch.tensor([5.0, 9.3, 15.0], device=cuda_device)
+    got = feed_run(kind, planes, src, k, neigh_dist=dist)
+    want = feed_run(kind, planes, src, k, plain=True, neigh_dist=dist)
+    torch.cuda.synchronize()
+    assert feed_mismatch(kind, got, want, planes[5]) == 0
+    assert feed_rows_equal(kind, planes, src, k, dist, got)
+    assert bool(torch.isfinite(want[0]).any())
+
+
+def test_batched_feed_checks(cuda_device):
+    """The batched wrappers refuse planes of one crowd, a neighbour
+    distance of another batch, k above 8 and an alive mask of another
+    shape, before a launch; an empty batch launches nothing."""
+    from orca_cases import batch_feed_planes
+    from carla_social_force_model_tpu_torch.ops import geometry, statics
+    scene, _, one = feed_scene(300, cuda_device)
+    seg, rest = scene.borders_feat.seg, scene.obstacles_feat.rest
+    x, y, _, _, _, alive = batch_feed_planes(one, 2, seed=1)
+    statics.reset_launch_counts()
+    with pytest.raises(ValueError, match=r"\(B, n\) planes"):
+        statics.seg_topk_batched(x[0], y[0], seg, 3, 15.0)
+    with pytest.raises(ValueError, match=r"\(2,\) tensor"):
+        statics.chunk_topk_batched(x, y, rest, 3, torch.ones(3,
+                                                             device=x.device))
+    with pytest.raises(ValueError, match="k must be"):
+        statics.chunk_topk_batched(x, y, rest, 9, 15.0)
+    with pytest.raises(ValueError, match="alive must be"):
+        statics.chunk_closest_batched(x, y, rest, 15.0, alive[:, :10])
+    empty = statics.seg_topk_batched(x[:0], y[:0], seg, 3, 15.0)
+    assert empty[0].shape == (0, 3, 300)
+    assert not any(statics.LAUNCHES.values())
+    got = geometry.closest_point_per_chunk(x, y, rest, 15.0, alive)
+    assert got[0].shape == (rest.num_chunks, 2, 300)
+    assert statics.LAUNCHES["chunk_closest_batched"] == 1
+
+
+def test_batched_orca_steps_through_kernels_match_plain_steps(cuda_device):
+    """Config #5's shape cut to 6 crowds of 1,000 over config #3's N =
+    10,000 geometry with ORCA and the analytic tier, ten batched steps
+    through the kernels, each against the plain versions' step from the
+    same state (1e-4 m per row, modes and alive equal), and a sweep of
+    orca_tau and orca_neighbor_dist over 4 rows of one crowd; the batched
+    feeds launched once a step each for every row."""
+    from carla_social_force_model_tpu_torch.api.synthetic import (
+        batched_crowds)
+    from carla_social_force_model_tpu_torch.ops import statics
+    from carla_social_force_model_tpu_torch.parallel import sweeps
+    scene, params, cfg, _ = benchmark_bundle(
+        10_000, with_borders=True, with_obstacles=True, num_steps_hint=40,
+        device=cuda_device)
+    params = dataclasses.replace(params, enable_pedestrian=False,
+                                 enable_orca=True)
+    cfg = dataclasses.replace(cfg, env_analytic=True)
+    ens = dataclasses.replace(scene, spawn=batched_crowds(
+        6, 1000, extent=35.0, device=cuda_device))
+    swept = sweeps.batch_params(
+        params,
+        orca_tau=torch.tensor([1.0, 1.5, 2.0, 3.0], device=cuda_device),
+        orca_neighbor_dist=torch.tensor([5.0, 7.3, 10.0, 15.0],
+                                        device=cuda_device))
+    for sc, p, b in ((ens, params, 6), (scene, swept, 4)):
+        for m in (cuda_forces, cuda_env, statics):
+            m.reset_launch_counts()
+        for k, gap, equal, finite in bc.one_step_gaps(
+                sc, p, cfg, PedState.empty(sc.spawn.capacity,
+                                           device=cuda_device, batch=b), 10):
+            assert equal and finite, k
+            assert gap.max().item() <= 1e-4, (k, gap.max().item())
+        launched = {k: v for m in (cuda_forces, cuda_env, statics)
+                    for k, v in m.LAUNCHES.items() if v}
+        assert launched == {"env_exp_analytic_batched": 10,
+                            "env_moussaid_batched": 20,
+                            "seg_topk_batched": 10,
+                            "chunk_topk_batched": 10}, launched
 
 
 def test_scenario_steps_through_kernels_match_plain_steps(cuda_device):

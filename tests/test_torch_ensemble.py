@@ -500,8 +500,7 @@ def refusal_cases():
     }
 
 
-@pytest.mark.parametrize("case", ["ORCA", "groups", "autopilot fleet",
-                                  "pair_scale", "law_id"])
+@pytest.mark.parametrize("case", ["groups", "autopilot fleet"])
 def test_batched_step_refuses_what_is_not_ported(case):
     """Under a batch every configuration that is not batched yet raises
     NotImplementedError naming ROADMAP item 19b, from make_ensemble_rollout
@@ -515,10 +514,32 @@ def test_batched_step_refuses_what_is_not_ported(case):
                                 cfg, 0)
 
 
+@pytest.mark.parametrize("case", ["ORCA", "pair_scale", "law_id",
+                                  "sweep orca"])
+def test_batched_step_runs_orca_and_the_columns(case):
+    """What item 19b.3b ported runs under a batch where it was refused:
+    ORCA and ``(B, N)`` pair_scale/law_id columns through
+    make_ensemble_rollout, and make_sweep_rollout(orca=True), which
+    prepares the ORCA wall feeds (tests/test_torch_ensemble_orca.py holds
+    them against the JAX package)."""
+    if case == "sweep orca":
+        scene, params, cfg, _ = synthetic.benchmark_bundle(
+            8, extent=10.0, with_borders=True, device="cpu")
+        swept = sweeps.batch_params(dataclasses.replace(
+            params, enable_orca=True), orca_tau=[1.0, 2.0])
+        final, rec = sweeps.make_sweep_rollout(scene, cfg, 4, record=True,
+                                               orca=True)(swept)
+    else:
+        scene, params, cfg = refusal_cases()[case]
+        final, rec = sweeps.make_ensemble_rollout(scene, params, cfg, 4,
+                                                  record=True)(scene)
+    assert rec.pos.shape == (2, 4, 8, 2) and torch.isfinite(rec.pos).all()
+    assert bool(final.alive.any())
+
+
 @pytest.mark.parametrize("case", ["agent axis", "ensemble mesh",
-                                  "sweep mesh", "sweep orca",
-                                  "sharded ensemble", "batch shards",
-                                  "agent axis with cutoff"])
+                                  "sweep mesh", "sharded ensemble",
+                                  "batch shards", "agent axis with cutoff"])
 def test_batch_sharding_and_sweep_options_refused(case):
     scene, params, cfg, _ = synthetic.benchmark_bundle(8, extent=10.0,
                                                        device="cpu")
@@ -534,8 +555,6 @@ def test_batch_sharding_and_sweep_options_refused(case):
             batched, params, cfg, 2, mesh=make_mesh(1, device="cpu")),
         "sweep mesh": lambda: sweeps.make_sweep_rollout(
             scene, cfg, 2, mesh=make_mesh(1, device="cpu")),
-        "sweep orca": lambda: sweeps.make_sweep_rollout(scene, cfg, 2,
-                                                        orca=True),
         "sharded ensemble": lambda: sweeps.make_sharded_ensemble_rollout(
             None, batched, params, cfg, 2),
         "batch shards": lambda: make_mesh(1, n_batch_shards=2,

@@ -670,9 +670,10 @@ def test_plain_environment_terms_take_the_analytic_sets_under_a_batch():
                                   "env_chunked"])
 def test_batched_step_runs_the_environment_paths(knob, monkeypatch):
     """Under a batch, check_supported passes the compacted, analytic and
-    chunked environment paths (ORCA, groups, the fleet and per-agent
-    columns still raise, tests/test_torch_ensemble.py), and
-    make_ensemble_rollout prepares the shared geometry once."""
+    chunked environment paths (groups and the fleet still raise,
+    tests/test_torch_ensemble.py; ORCA and the per-agent columns run,
+    tests/test_torch_ensemble_orca.py), and make_ensemble_rollout prepares
+    the shared geometry once."""
     scene, params, cfg, _ = synthetic.benchmark_bundle(
         8, extent=10.0, with_borders=True, device=CPU)
     batched = dataclasses.replace(scene, spawn=synthetic.batched_crowds(

@@ -177,3 +177,35 @@ def test_floor_ms():
     """One unit of one instruction per lane of every scheduler for one
     clock is the issue rate."""
     assert sass_census.floor_ms(1.0, sass_census.ISSUE_RATE) == 1e3
+
+
+def test_compare_ignores_label_numbers_and_source_lines(tmp_path):
+    """Two dumps of the same kernels (``--out``) whose label numbers,
+    source lines, anonymous-namespace hashes and helper numbers moved
+    compare identical; a changed instruction and a kernel only one dump
+    holds are reported."""
+    listing = LISTING.replace(
+        "MOV R1, c[0x0][0x28] ;",
+        "MOV R1, 32@lo(_ZN47_GLOBAL__N__f83b1a7e_14_pair_forces_cu_"
+        "5b0bf1653smE) ;\n        /*0008*/          BSSY B0, `(.L_x_0) ;"
+        "\n        /*000c*/          CALL.REL.NOINC `($__internal_1_$__"
+        "cuda_sm20_div_u16) ;")
+    other = listing.replace(".L_x_0", ".L_x_7").replace(
+        "internal_1_", "internal_2_").replace(
+        "line 30", "line 95").replace("f83b1a7e", "0c9d2e11").replace(
+        "5b0bf165", "77aa0f13")
+    changed = ARGMIN_LISTING.replace("FMNMX R10", "FMNMX R11")
+    for name, text in (("a", listing + ARGMIN_LISTING),
+                       ("b", other + changed)):
+        d = tmp_path / name
+        d.mkdir()
+        (d / "all_0.sass").write_text(text)
+        (d / "names.txt").write_text("_Z6kernelv\tvoid kernel()\n"
+                                     "_Z6argminv\tvoid argmin()\n")
+    (tmp_path / "b" / "all_1.sass").write_text(
+        LISTING.replace("_Z6kernelv", "_Z5extrav"))
+    got = sass_census.compare(tmp_path / "a", tmp_path / "b")
+    assert got["common"] == 2 and got["identical"] == 1
+    assert got["different"] == ["argmin()"]
+    assert got["first_difference"]["argmin()"][0] == 7
+    assert got["only_b"] == ["_Z5extrav"] and got["only_a"] == []

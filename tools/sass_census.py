@@ -35,6 +35,13 @@ cu++filt under /usr/local/cuda/bin):
 It prints one JSON object per kernel; with ``--out`` it also writes each
 loop's disassembly there.  ``chip_smoke.py`` phase 2 imports
 :func:`census` for the same numbers.
+
+    python3 tools/sass_census.py --compare DIR_A DIR_B
+
+compares two such dumps (say a parent checkout's and a change's, each
+written with ``--out``) kernel by kernel and prints one JSON object: the
+kernels both hold, how many of them have the same instructions (branch
+targets as addresses, source lines ignored) and which do not.
 """
 from __future__ import annotations
 
@@ -237,6 +244,8 @@ LINE = re.compile(r'//## File "([^"]*)", line (\d+)')
 FUNC = re.compile(r"^\s*\.section\s+\.text\.([^,\s]+)")
 TARGET = re.compile(r"\b(?:BRA|BRX)\b[^;]*?(?:0x|`\(\.L_x_)([0-9a-fA-F]+)")
 LABEL = re.compile(r"^\s*\.L_x_(\d+):")
+ANON = re.compile(r"\d*_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]+")
+INTERNAL = re.compile(r"\$__internal_\d+_\$")
 
 
 def parse(text: str) -> dict[str, list[dict]]:
@@ -276,6 +285,17 @@ def parse(text: str) -> dict[str, list[dict]]:
                                    file=where[0], line=where[1]))
     for name, insts in funcs.items():
         for ins in insts:
+            # the text another build of the same code gives: labels (numbered
+            # over the whole file) as addresses, anonymous namespaces
+            # (named after the source's path) and the compiler's numbered
+            # helper functions each as one name
+            ins["norm"] = INTERNAL.sub("$__internal_$", ANON.sub(
+                "_GLOBAL__N_", re.sub(
+                r"`\(\.L_x_(\d+)\)",
+                lambda m, lab=labels[name]: (f"0x{lab[m.group(1)]:x}"
+                                             if m.group(1) in lab
+                                             else m.group(0)),
+                ins["text"])))
             if not ins["op"].startswith(("BRA", "BRX")):
                 continue
             m = re.search(r"`\(\.L_x_(\d+)\)", ins["text"])
@@ -405,6 +425,35 @@ def census(library: Path, out_dir: Path | None = None,
     return result
 
 
+def dump_kernels(out_dir: Path) -> dict[str, list[str]]:
+    """{normalized kernel name: its instructions} of a dump written by
+    :func:`census` with ``out_dir``, as :func:`parse` normalizes them
+    (labels as addresses, anonymous namespaces as one name)."""
+    names = dict(ln.split("\t", 1) for ln in
+                 (out_dir / "names.txt").read_text().splitlines() if ln)
+    funcs: dict[str, list[dict]] = {}
+    for path in sorted(out_dir.glob("all_*.sass")):
+        funcs.update(parse(path.read_text()))
+    return {normalize(names.get(m, m)): [ins["norm"] for ins in insts]
+            for m, insts in funcs.items()}
+
+
+def compare(dir_a: Path, dir_b: Path) -> dict:
+    """Kernel-by-kernel comparison of two census dumps."""
+    a, b = dump_kernels(dir_a), dump_kernels(dir_b)
+    common = sorted(set(a) & set(b))
+    differ = [k for k in common if a[k] != b[k]]
+    first = {}
+    for k in differ:
+        i = next((i for i, (x, y) in enumerate(zip(a[k], b[k])) if x != y),
+                 min(len(a[k]), len(b[k])))
+        first[k] = [i, *(v[i] if i < len(v) else None for v in (a[k], b[k]))]
+    return {"common": len(common), "identical": len(common) - len(differ),
+            "different": differ, "first_difference": first,
+            "only_a": sorted(set(a) - set(b)),
+            "only_b": sorted(set(b) - set(a))}
+
+
 def floor_ms(per_unit: float, units: float) -> float:
     """Issue-rate floor in ms of ``units`` units at ``per_unit`` thread
     instructions each."""
@@ -417,7 +466,13 @@ def main() -> int:
                     help="directory for each loop's disassembly")
     ap.add_argument("--root", type=Path, default=ROOT,
                     help="the checkout whose kernels to build and count")
+    ap.add_argument("--compare", type=Path, nargs=2, default=None,
+                    metavar=("DIR_A", "DIR_B"),
+                    help="compare two dumps written with --out instead")
     args = ap.parse_args()
+    if args.compare is not None:
+        print(json.dumps(compare(*args.compare)), flush=True)
+        return 0
     sys.path.insert(0, str(args.root.resolve()))
     from carla_social_force_model_tpu_torch.utils import cuda_build
     lib = cuda_build.build_kernels()
