@@ -67,7 +67,17 @@
 // bitwise, and the unbatched kernels compile without a batch offset (one
 // read from blockIdx.y inside the shared bodies cost 8% on the dense walk
 // at 10k).  The dense walks' cluster split sees the whole grid (B row
-// sets).
+// sets).  A batch of crowds whose slots are sharded over an agent axis (the
+// JAX package's make_sharded_ensemble_rollout: the kernels of _slab_call
+// under vmap) takes the same dense kernel in rectangular form (entries
+// sfm_pair_<dense|dense_cutoff|compact>_rect_batched: _pair_kernel and
+// _pair_kernel_compact with a batch axis; the square entries are its case
+// cols.n = rows.n) and pair_force_sym_dense_batched_kernel<kBox>
+// (sfm_pair_sym_dense[_cutoff]_batched: _pair_kernel_sym_dense with a batch
+// axis), crowd b's rows at blockIdx.y * n_rows and its columns at
+// blockIdx.y * n_cols, the global slots of both sides the same in every
+// crowd.  They too hand their crowd's pointers to the unbatched bodies
+// (dense_walk, sym_tile_pair).
 //
 // What bounds them on this card.  Each Moussaid pair costs about 85 f32
 // operations and 6 special-function operations (2 rsqrt, atan2, 2 exp, a
@@ -457,11 +467,15 @@ __device__ __forceinline__ Planes batch_row(Planes p, int off) {
   return p;
 }
 
-// A dense walk over a batch of square crowds of rows.n agents: crowd
-// blockIdx.y's planes and outputs at blockIdx.y * rows.n, its parameters
-// at blockIdx.y * prm_stride, its column-tile boxes, table and counts at
-// its own offsets (kBoxSkip, kTable).  The walk itself is the unbatched
-// one.
+// A dense walk over a batch of crowds: crowd blockIdx.y's rows.n rows at
+// blockIdx.y * rows.n against its cols.n columns at blockIdx.y * cols.n,
+// the global slots rows.off and cols.off the same in every crowd (a square
+// crowd: cols.n = rows.n, both offsets 0; a batch of crowds whose slots are
+// sharded over an agent axis: a shard's rows against gathered or rotated
+// columns); its parameters at blockIdx.y * prm_stride, its column-tile
+// boxes, table and counts at its own offsets (kBoxSkip, kTable).  The walk
+// itself is the unbatched one, so row b equals the unbatched launch on row
+// b bitwise.
 template <int kWalk, class Law>
 __global__ void __launch_bounds__(kDenseThreads, 2048 / kDenseThreads)
 pair_force_dense_batched_kernel(Planes rows, Planes cols,
@@ -473,7 +487,8 @@ pair_force_dense_batched_kernel(Planes rows, Planes cols,
                                 float c2, int n_split, float* __restrict__ fx,
                                 float* __restrict__ fy) {
   const long long crowd = blockIdx.y;
-  const int bo = (int)crowd * rows.n;
+  const int ro = (int)crowd * rows.n;
+  const int co = (int)crowd * cols.n;
   if constexpr (kWalk != kAllTiles) {
     const long long nct = cols.n / kColTile + (cols.n % kColTile != 0);
     col_bb += crowd * 4 * nct;
@@ -483,10 +498,10 @@ pair_force_dense_batched_kernel(Planes rows, Planes cols,
     surv += crowd * nt * max_surv;
     counts += crowd * nt;
   }
-  dense_walk<kWalk, Law>(batch_row(rows, bo), batch_row(cols, bo),
+  dense_walk<kWalk, Law>(batch_row(rows, ro), batch_row(cols, co),
                          prm + (int)crowd * prm_stride, use_radius, col_bb,
-                         surv, counts, max_surv, c2, n_split, fx + bo,
-                         fy + bo);
+                         surv, counts, max_surv, c2, n_split, fx + ro,
+                         fy + ro);
 }
 
 // Row-major position of tile pair (ti, tj), tj >= ti, in the upper triangle
@@ -813,10 +828,48 @@ pair_force_sym_dense_kernel(Planes rows, Planes cols,
       sm, ti, tj, rows, cols, p, use_radius, c2, fx, fy, fxc, fyc);
 }
 
+// The full-block walk over a batch of crowds: crowd blockIdx.y's rows at
+// blockIdx.y * rows.n and columns at blockIdx.y * cols.n (their global
+// slots rows.off and cols.off the same in every crowd), its parameters at
+// blockIdx.y * prm_stride, its rows' and columns' tile boxes (kBox) at its
+// own offsets, +f into its rows of fx, fy and -f into its columns of fxc,
+// fyc.  The tile pair is the unbatched kernel's (sym_tile_pair).
+template <bool kBox, class Law>
+__global__ void __launch_bounds__(kSymTile)
+pair_force_sym_dense_batched_kernel(Planes rows, Planes cols,
+                                    const float* __restrict__ prm,
+                                    int prm_stride, int use_radius,
+                                    int n_row_tiles, int n_col_tiles,
+                                    const float* __restrict__ row_bb,
+                                    const float* __restrict__ col_bb,
+                                    float c2, float* __restrict__ fx,
+                                    float* __restrict__ fy,
+                                    float* __restrict__ fxc,
+                                    float* __restrict__ fyc) {
+  __shared__ SymShared sm;
+  const long long crowd = blockIdx.y;
+  const int ro = (int)crowd * rows.n;
+  const int co = (int)crowd * cols.n;
+  const typename Law::Prm p = Law::load(prm + (int)crowd * prm_stride);
+  const long long ti = blockIdx.x / n_col_tiles;
+  const long long tj = blockIdx.x % n_col_tiles;
+  const long long nr = n_row_tiles;
+  if constexpr (kBox) {
+    row_bb += crowd * 4 * nr;
+    col_bb += crowd * 4 * n_col_tiles;
+    if (!box_hits(col_bb, n_col_tiles, tj, row_bb[ti], row_bb[nr + ti],
+                  row_bb[2 * nr + ti], row_bb[3 * nr + ti], c2))
+      return;  // before any staging
+  }
+  sym_tile_pair<kBox ? kSymRowsCut : kSymRows, false, kBox, Law>(
+      sm, ti, tj, batch_row(rows, ro), batch_row(cols, co), p, use_radius,
+      c2, fx + ro, fy + ro, fxc + co, fyc + co);
+}
+
 // Launch of a dense walk with law Law: one block per row block and split,
 // the splits of a row block one cluster (of one block when n_split = 1).
-// With prm_stride >= 0 the launch is the batched walk over batch square
-// crowds of rows.n agents (pair_force_dense_batched_kernel).
+// With prm_stride >= 0 the launch is the batched walk over batch blocks of
+// rows.n rows and cols.n columns (pair_force_dense_batched_kernel).
 template <int kWalk, class Law>
 int dense_launch(const Planes& rows, const Planes& cols, const float* prm,
                  int use_radius, const float* col_bb, const int* surv,
@@ -825,8 +878,7 @@ int dense_launch(const Planes& rows, const Planes& cols, const float* prm,
                  int prm_stride = -1) {
   const bool batched = prm_stride >= 0;
   if (rows.n <= 0) return (int)cudaSuccess;
-  if (cols.n < 0 || batch < 1 || batch > 65535 ||
-      (batched && cols.n != rows.n))
+  if (cols.n < 0 || batch < 1 || batch > 65535)
     return (int)cudaErrorInvalidValue;
   if (kWalk == kTable && max_surv < 1) return (int)cudaErrorInvalidValue;
   const int n_split = dense_splits<kWalk>(rows.n, cols.n, batch);
@@ -891,19 +943,29 @@ int sym_launch(const Planes& pl, const float* prm, int use_radius,
 }
 
 // Launch of the full-block walk with law Law: one block per tile pair.
+// With prm_stride >= 0 the launch is the batched walk over batch crowds
+// (pair_force_sym_dense_batched_kernel).
 template <bool kBox, class Law>
 int sym_dense_launch(const Planes& rows, const Planes& cols, const float* prm,
                      int use_radius, const float* row_bb, const float* col_bb,
                      float c2, float* fx, float* fy, float* fxc, float* fyc,
-                     void* stream) {
+                     void* stream, int batch = 1, int prm_stride = -1) {
   if (rows.n <= 0 || cols.n <= 0) return (int)cudaSuccess;
+  if (batch < 1 || batch > 65535) return (int)cudaErrorInvalidValue;
   const long long nr = (rows.n + kSymTile - 1) / kSymTile;
   const long long nc = (cols.n + kSymTile - 1) / kSymTile;
   if (nr * nc > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  pair_force_sym_dense_kernel<kBox, Law><<<(unsigned)(nr * nc), kSymTile, 0,
-                                           (cudaStream_t)stream>>>(
-      rows, cols, prm, use_radius, (int)nr, (int)nc, row_bb, col_bb, c2, fx,
-      fy, fxc, fyc);
+  if (prm_stride >= 0)
+    pair_force_sym_dense_batched_kernel<kBox, Law>
+        <<<dim3((unsigned)(nr * nc), (unsigned)batch), kSymTile, 0,
+           (cudaStream_t)stream>>>(rows, cols, prm, prm_stride, use_radius,
+                                   (int)nr, (int)nc, row_bb, col_bb, c2, fx,
+                                   fy, fxc, fyc);
+  else
+    pair_force_sym_dense_kernel<kBox, Law><<<(unsigned)(nr * nc), kSymTile,
+                                             0, (cudaStream_t)stream>>>(
+        rows, cols, prm, use_radius, (int)nr, (int)nc, row_bb, col_bb, c2,
+        fx, fy, fxc, fyc);
   return (int)cudaGetLastError();
 }
 
@@ -1175,6 +1237,106 @@ int sfm_pair_compact_batched(int law, const float* rx, const float* ry,
     return dense_launch<kTable, decltype(l)>(
         rows, cols, prm, use_radius, col_bb, surv, counts, max_surv, c2, fx,
         fy, stream, batch, prm_stride);
+  });
+}
+
+// The batched rectangular walks (a batch of crowds whose slots are sharded
+// over an agent axis): batch crowds, each with n_rows rows from global slot
+// row_off against n_cols columns from global slot col_off, the row planes
+// (batch, n_rows) and the column planes (batch, n_cols) row-major, prm
+// (batch, P) with rows prm_stride apart (0: one vector for every crowd).
+// The dense forms overwrite every row of fx, fy (batch, n_rows); the
+// full-block forms accumulate +f into fx, fy and -f into fxc, fyc (batch,
+// n_cols), all zero on entry.  The cutoff forms take each crowd's grid
+// stacked: col_bb (batch, 4, n_col_tiles), row_bb (batch, 4, n_row_tiles),
+// surv (batch, nt, max_surv) and counts (batch, nt), nt = ceil(n_rows /
+// 128).
+int sfm_pair_dense_rect_batched(int law, const float* rx, const float* ry,
+                                const float* ru, const float* rv,
+                                const float* rrad, const uint8_t* ralive,
+                                int n_rows, int row_off, const float* cx,
+                                const float* cy, const float* cvx,
+                                const float* cvy, const float* crad,
+                                const uint8_t* calive, int n_cols,
+                                int col_off, const float* prm, int prm_stride,
+                                int use_radius, int batch, float* fx,
+                                float* fy, void* stream) {
+  const Planes rows = planes(rx, ry, ru, rv, rrad, ralive, n_rows, row_off);
+  const Planes cols = planes(cx, cy, cvx, cvy, crad, calive, n_cols, col_off);
+  return with_any_law(law, [&](auto l) {
+    return dense_launch<kAllTiles, decltype(l)>(
+        rows, cols, prm, use_radius, nullptr, nullptr, nullptr, 1, 0.0f, fx,
+        fy, stream, batch, prm_stride);
+  });
+}
+
+int sfm_pair_dense_cutoff_rect_batched(
+    int law, const float* rx, const float* ry, const float* ru,
+    const float* rv, const float* rrad, const uint8_t* ralive, int n_rows,
+    int row_off, const float* cx, const float* cy, const float* cvx,
+    const float* cvy, const float* crad, const uint8_t* calive, int n_cols,
+    int col_off, const float* prm, int prm_stride, int use_radius, int batch,
+    const float* col_bb, float c2, float* fx, float* fy, void* stream) {
+  const Planes rows = planes(rx, ry, ru, rv, rrad, ralive, n_rows, row_off);
+  const Planes cols = planes(cx, cy, cvx, cvy, crad, calive, n_cols, col_off);
+  return with_any_law(law, [&](auto l) {
+    return dense_launch<kBoxSkip, decltype(l)>(
+        rows, cols, prm, use_radius, col_bb, nullptr, nullptr, 1, c2, fx, fy,
+        stream, batch, prm_stride);
+  });
+}
+
+int sfm_pair_compact_rect_batched(
+    int law, const float* rx, const float* ry, const float* ru,
+    const float* rv, const float* rrad, const uint8_t* ralive, int n_rows,
+    int row_off, const float* cx, const float* cy, const float* cvx,
+    const float* cvy, const float* crad, const uint8_t* calive, int n_cols,
+    int col_off, const float* prm, int prm_stride, int use_radius, int batch,
+    const float* col_bb, const int* surv, const int* counts, int max_surv,
+    float c2, float* fx, float* fy, void* stream) {
+  const Planes rows = planes(rx, ry, ru, rv, rrad, ralive, n_rows, row_off);
+  const Planes cols = planes(cx, cy, cvx, cvy, crad, calive, n_cols, col_off);
+  return with_any_law(law, [&](auto l) {
+    return dense_launch<kTable, decltype(l)>(
+        rows, cols, prm, use_radius, col_bb, surv, counts, max_surv, c2, fx,
+        fy, stream, batch, prm_stride);
+  });
+}
+
+int sfm_pair_sym_dense_batched(int law, const float* rx, const float* ry,
+                               const float* rvx, const float* rvy,
+                               const float* rrad, const uint8_t* ralive,
+                               int n_rows, int row_off, const float* cx,
+                               const float* cy, const float* cvx,
+                               const float* cvy, const float* crad,
+                               const uint8_t* calive, int n_cols, int col_off,
+                               const float* prm, int prm_stride,
+                               int use_radius, int batch, float* fx,
+                               float* fy, float* fxc, float* fyc,
+                               void* stream) {
+  const Planes rows = planes(rx, ry, rvx, rvy, rrad, ralive, n_rows, row_off);
+  const Planes cols = planes(cx, cy, cvx, cvy, crad, calive, n_cols, col_off);
+  return with_antisymmetric_law(law, [&](auto l) {
+    return sym_dense_launch<false, decltype(l)>(
+        rows, cols, prm, use_radius, nullptr, nullptr, 0.0f, fx, fy, fxc, fyc,
+        stream, batch, prm_stride);
+  });
+}
+
+int sfm_pair_sym_dense_cutoff_batched(
+    int law, const float* rx, const float* ry, const float* rvx,
+    const float* rvy, const float* rrad, const uint8_t* ralive, int n_rows,
+    int row_off, const float* cx, const float* cy, const float* cvx,
+    const float* cvy, const float* crad, const uint8_t* calive, int n_cols,
+    int col_off, const float* prm, int prm_stride, int use_radius, int batch,
+    const float* row_bb, const float* col_bb, float c2, float* fx, float* fy,
+    float* fxc, float* fyc, void* stream) {
+  const Planes rows = planes(rx, ry, rvx, rvy, rrad, ralive, n_rows, row_off);
+  const Planes cols = planes(cx, cy, cvx, cvy, crad, calive, n_cols, col_off);
+  return with_antisymmetric_law(law, [&](auto l) {
+    return sym_dense_launch<true, decltype(l)>(
+        rows, cols, prm, use_radius, row_bb, col_bb, c2, fx, fy, fxc, fyc,
+        stream, batch, prm_stride);
   });
 }
 

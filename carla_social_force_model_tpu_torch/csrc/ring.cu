@@ -66,10 +66,30 @@
 // rotating block is read and written through L2 (__ldcg / __stcg): L1 is
 // not coherent across SMs.  Copies across cards (peer pointers) are later
 // work.
+//
+// A batch of crowds (ring_force_batched_kernel, entry sfm_ring_force_batched:
+// the JAX package's _ring_kernel under vmap, a batch sharded over a 2-D
+// (batch, agents) mesh) runs B rings of D devices in the same launch, every
+// crowd with its own column blocks, slots and counters.  The items of a
+// device are its (crowd, row set) pairs, item b * nsets + s on block (b *
+// nsets + s) mod G: crowd b's row sets sit on min(nsets, G) blocks of each
+// device, the same blocks on every device, which alone forward crowd b's
+// blocks and count in crowd b's counters.  Every block walks its crowds in
+// ascending order, and a crowd's D ring steps in order before the next
+// crowd's.  So a block waits only on a step of the same crowd that comes
+// earlier, on blocks of other devices that walk that crowd too; the
+// earliest (crowd, step) that any block has not finished can always go on,
+// as every block is resident: no block waits for a crowd its neighbour
+// reaches later.  With one row set per crowd a block keeps the set's sums
+// in registers for the crowd's D steps; with more (kMulti) in acc.  A
+// crowd's rows are summed in the unbatched kernel's order, so crowd b's
+// forces equal the unbatched launch on crowd b bitwise.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "pair_laws.cuh"
 
@@ -156,18 +176,23 @@ __device__ bool wait_at_least(const int* p, int want, int* err,
   return ok;
 }
 
+// One crowd's ring on device blockIdx.y: block blockIdx.x walks the row
+// sets rank, rank + P, ... of the device (P = G, rank = blockIdx.x in the
+// unbatched kernel), and the crowd's P blocks of each device forward its
+// column blocks and count in its counters.  a's pointers are the crowd's.
 // kMulti: the blocks walk several row sets each (keeping their sums in
-// acc); else one row set a block, its sums in registers.
+// acc); else one row set a block, its sums in registers.  False: a wait
+// failed (the error word is set).
 template <bool kCutoff, class Law, int kR, bool kMulti>
-__global__ void __launch_bounds__(kThreads, kRingMinBlocks)
-ring_force_kernel(RingArgs a) {
+__device__ __forceinline__ bool ring_walk(const RingArgs& a,
+                                          const typename Law::Prm& p,
+                                          unsigned rank, int P) {
   constexpr int kBlockRows = 32 * kR;
   __shared__ ColTile tile;
   __shared__ float part_x[kTileChunks][kBlockRows];
   __shared__ float part_y[kTileChunks][kBlockRows];
   __shared__ int s_ok;
 
-  const typename Law::Prm p = Law::load(a.prm);
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int warp = tid / 32;  // and the chunk of each tile it walks
@@ -177,9 +202,9 @@ ring_force_kernel(RingArgs a) {
   const int n = a.n_local;
   const int right = (d + 1) % D;
   const int base = d * n;  // this device's first row
-  // this block's row sets: blockIdx.x + q * G for q < sets
+  // this block's row sets: rank + q * G for q < sets
   const int nsets = (n + kBlockRows - 1) / kBlockRows;
-  const int sets = kMulti ? (nsets - (int)blockIdx.x + G - 1) / G : 1;
+  const int sets = kMulti ? (nsets - (int)rank + G - 1) / G : 1;
   constexpr bool keep = !kMulti;  // the sums stay in registers
 
   // a row set's rows, R per lane, in registers (every warp holds them all),
@@ -213,7 +238,7 @@ ring_force_kernel(RingArgs a) {
     return a.acc + (((long long)d * nsets + set) * kTileChunks + warp) * 2 *
                        kBlockRows;
   };
-  if (keep) load_rows(blockIdx.x);
+  if (keep) load_rows(rank);
 
   const int nct = a.n_col_tiles;
   for (int k = 0; k < D; ++k) {
@@ -221,19 +246,20 @@ ring_force_kernel(RingArgs a) {
     const float* blk =
         k == 0 ? a.cols + (long long)d * a.slot
                : a.comm + ((long long)d * 2 + (k & 1)) * a.slot;
-    if (k > 0 && !wait_at_least(&a.fill[d * 2 + (k & 1)], G * ((k + 1) / 2),
+    if (k > 0 && !wait_at_least(&a.fill[d * 2 + (k & 1)], P * ((k + 1) / 2),
                                 a.err, &s_ok))
-      return;
+      return false;
     if (k < D - 1) {
       // forward this block (and its boxes) into the right neighbour's other
-      // slot, once the neighbour is done with that slot's previous block
+      // slot, once the neighbour is done with that slot's previous block:
+      // this block's share is every P-th piece from its rank
       const int dst_slot = (k + 1) & 1;
       if (k >= 2 && !wait_at_least(&a.done[right * 2 + dst_slot],
-                                   G * (k / 2), a.err, &s_ok))
-        return;
+                                   P * (k / 2), a.err, &s_ok))
+        return false;
       float* dst = a.comm + ((long long)right * 2 + dst_slot) * a.slot;
-      for (long long e = (long long)blockIdx.x * kThreads + tid; e < a.slot;
-           e += (long long)G * kThreads)
+      for (long long e = (long long)rank * kThreads + tid; e < a.slot;
+           e += (long long)P * kThreads)
         __stcg(dst + e, __ldcg(blk + e));
       __threadfence();
       __syncthreads();
@@ -245,8 +271,8 @@ ring_force_kernel(RingArgs a) {
     for (int q = 0; q < sets; ++q) {
       float* acc = nullptr;
       if (!keep) {  // this row set's sums so far
-        load_rows(blockIdx.x + q * G);
-        acc = acc_of(blockIdx.x + q * G);
+        load_rows(rank + q * G);
+        acc = acc_of(rank + q * G);
         if (k > 0) {
 #pragma unroll
           for (int r = 0; r < kR; ++r) {
@@ -301,7 +327,7 @@ ring_force_kernel(RingArgs a) {
 
   // each row's sum over the warps, in order
   for (int q = 0; q < sets; ++q) {
-    const int set = blockIdx.x + q * G;
+    const int set = rank + q * G;
     if (!keep) {
       const float* acc = acc_of(set);
 #pragma unroll
@@ -330,34 +356,96 @@ ring_force_kernel(RingArgs a) {
       a.fy[base + i] = sy;
     }
   }
+  return true;
 }
 
-// Launch the ring with R = kRingRows rows per thread on one block per row
-// set where the card keeps them all resident, else on as many blocks per
-// device as it keeps resident, each walking several row sets.
-template <bool kCutoff, class Law, bool kMulti>
-cudaError_t ring_try(RingArgs a, int sms, void* stream, bool* fits) {
-  auto kernel = ring_force_kernel<kCutoff, Law, kRingRows, kMulti>;
+template <bool kCutoff, class Law, int kR, bool kMulti>
+__global__ void __launch_bounds__(kThreads, kRingMinBlocks)
+ring_force_kernel(RingArgs a) {
+  const typename Law::Prm p = Law::load(a.prm);
+  ring_walk<kCutoff, Law, kR, kMulti>(a, p, blockIdx.x, gridDim.x);
+}
+
+struct RingBatchArgs {
+  RingArgs ring;  // crowd 0's: (n_batch, ...) planes, blocks and counters
+  int n_batch;
+  int prm_stride;  // prm: (n_batch, P), rows prm_stride apart
+};
+
+// The ring over a batch of crowds (see the head of the file): block
+// (blockIdx.x, d) walks crowd b's ring (ring_walk on the crowd's pointers)
+// with rank (blockIdx.x - b * nsets) mod G, for every crowd b, in order,
+// whose rank is below P = min(nsets, G).  kMulti: a block may hold several
+// row sets of a crowd (nsets > G); else one, its sums in registers.
+template <bool kCutoff, class Law, int kR, bool kMulti>
+__global__ void __launch_bounds__(kThreads, kRingMinBlocks)
+ring_force_batched_kernel(RingBatchArgs ab) {
+  constexpr int kBlockRows = 32 * kR;
+  const RingArgs& a = ab.ring;
+  const int G = gridDim.x;
+  const int D = a.n_dev;
+  const int n = a.n_local;
+  const int nsets = (n + kBlockRows - 1) / kBlockRows;
+  const int P = nsets < G ? nsets : G;  // the blocks of a device a crowd has
+  for (int b = 0; b < ab.n_batch; ++b) {
+    const int rank = (int)((((long long)blockIdx.x - (long long)b * nsets) %
+                                G + G) % G);
+    if (rank >= P) continue;  // block-uniform
+    const long long rows = (long long)b * D * n;  // crowd b's first row
+    RingArgs c = a;
+    c.rx += rows;
+    c.ry += rows;
+    c.ru += rows;
+    c.rv += rows;
+    if (c.rrad != nullptr) c.rrad += rows;
+    c.ralive += rows;
+    c.fx += rows;
+    c.fy += rows;
+    c.cols += (long long)b * D * a.slot;
+    c.comm += (long long)b * D * 2 * a.slot;
+    c.fill += (long long)b * D * 2;
+    c.done += (long long)b * D * 2;
+    c.acc += (long long)b * D * nsets * kTileChunks * 2 * kBlockRows;
+    c.prm += (long long)b * ab.prm_stride;
+    const typename Law::Prm p = Law::load(c.prm);
+    if (!ring_walk<kCutoff, Law, kR, kMulti>(c, p, (unsigned)rank, P)) return;
+  }
+}
+
+// Launch the ring (ring_force_kernel, or ring_force_batched_kernel for a
+// batch of `crowds`) with R = kRingRows rows per thread on one block per
+// row set of a crowd where the card keeps them all resident (a block then
+// holds one row set of each of its crowds), else on as many blocks per
+// device as it keeps resident, each walking several row sets (kMulti).
+template <bool kCutoff, class Law, bool kMulti, class Args>
+cudaError_t ring_try(Args a, const RingArgs& r, int crowds, int sms,
+                     void* stream, bool* fits) {
+  const void* kernel;
+  if constexpr (std::is_same<Args, RingArgs>::value)
+    kernel = (const void*)ring_force_kernel<kCutoff, Law, kRingRows, kMulti>;
+  else
+    kernel = (const void*)
+        ring_force_batched_kernel<kCutoff, Law, kRingRows, kMulti>;
   int per_sm = 0;
   cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &per_sm, kernel, kThreads, 0);
   if (e != cudaSuccess) return e;
-  const long long per_dev = (long long)per_sm * sms / a.n_dev;
-  const long long nsets = (a.n_local + 32 * kRingRows - 1) / (32 * kRingRows);
+  const long long per_dev = (long long)per_sm * sms / r.n_dev;
+  const long long nsets = (r.n_local + 32 * kRingRows - 1) / (32 * kRingRows);
+  const long long items = nsets * crowds;
   *fits = kMulti ? per_dev >= 1 : nsets <= per_dev;
   if (!*fits) return cudaSuccess;
-  const long long g = nsets < per_dev ? nsets : per_dev;
+  const long long g = items < per_dev ? items : per_dev;
   void* args[] = {&a};
-  e = cudaLaunchCooperativeKernel((const void*)kernel,
-                                  dim3((unsigned)g, (unsigned)a.n_dev),
+  e = cudaLaunchCooperativeKernel(kernel, dim3((unsigned)g, (unsigned)r.n_dev),
                                   dim3(kThreads), args, 0,
                                   (cudaStream_t)stream);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
-template <bool kCutoff, class Law>
-int ring_launch(RingArgs a, void* stream) {
+template <bool kCutoff, class Law, class Args>
+int ring_launch(Args a, const RingArgs& r, int crowds, void* stream) {
   int dev = 0, sms = 0, coop = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
@@ -367,12 +455,45 @@ int ring_launch(RingArgs a, void* stream) {
   if (e != cudaSuccess) return (int)e;
   if (!coop) return (int)cudaErrorNotSupported;
   bool fits = false;
-  e = ring_try<kCutoff, Law, false>(a, sms, stream, &fits);
+  e = ring_try<kCutoff, Law, false>(a, r, crowds, sms, stream, &fits);
   if (!fits && e == cudaSuccess)
-    e = ring_try<kCutoff, Law, true>(a, sms, stream, &fits);
+    e = ring_try<kCutoff, Law, true>(a, r, crowds, sms, stream, &fits);
   if (!fits && e == cudaSuccess)
     return (int)cudaErrorCooperativeLaunchTooLarge;
   return (int)e;
+}
+
+// The arguments of `crowds` rings of n_dev devices of n_local agents each
+// (sync: their 2 * crowds * n_dev fill counters, as many done counters,
+// then the error word).
+RingArgs ring_args(int crowds, int n_dev, int n_local, const float* rx,
+                   const float* ry, const float* ru, const float* rv,
+                   const float* rrad, const uint8_t* ralive, const float* cols,
+                   float* comm, int* sync, float* acc, const float* prm,
+                   int use_radius, float c2, float* fx, float* fy) {
+  RingArgs a;
+  a.n_dev = n_dev;
+  a.n_local = n_local;
+  a.n_col_tiles = (n_local + kColTile - 1) / kColTile;
+  a.slot = kPlanes * n_local + 4 * a.n_col_tiles;
+  a.rx = rx;
+  a.ry = ry;
+  a.ru = ru;
+  a.rv = rv;
+  a.rrad = rrad;
+  a.ralive = ralive;
+  a.cols = cols;
+  a.comm = comm;
+  a.fill = sync;
+  a.done = sync + 2 * crowds * n_dev;
+  a.err = sync + 4 * crowds * n_dev;
+  a.acc = acc;
+  a.prm = prm;
+  a.use_radius = use_radius;
+  a.c2 = c2;
+  a.fx = fx;
+  a.fy = fy;
+  return a;
 }
 
 }  // namespace
@@ -403,32 +524,45 @@ int sfm_ring_force(int law, int n_dev, int n_local, const float* rx,
                    void* stream) {
   if (n_dev < 1 || n_local < 0) return (int)cudaErrorInvalidValue;
   if (n_local == 0) return (int)cudaSuccess;
-  RingArgs a;
-  a.n_dev = n_dev;
-  a.n_local = n_local;
-  a.n_col_tiles = (n_local + kColTile - 1) / kColTile;
-  a.slot = kPlanes * n_local + 4 * a.n_col_tiles;
-  a.rx = rx;
-  a.ry = ry;
-  a.ru = ru;
-  a.rv = rv;
-  a.rrad = rrad;
-  a.ralive = ralive;
-  a.cols = cols;
-  a.comm = comm;
-  a.fill = sync;
-  a.done = sync + 2 * n_dev;
-  a.err = sync + 4 * n_dev;
-  a.acc = acc;
-  a.prm = prm;
-  a.use_radius = use_radius;
-  a.c2 = c2;
-  a.fx = fx;
-  a.fy = fy;
+  const RingArgs a =
+      ring_args(1, n_dev, n_local, rx, ry, ru, rv, rrad, ralive, cols, comm,
+                sync, acc, prm, use_radius, c2, fx, fy);
   return with_any_law(law, [&](auto l) {
     using L = decltype(l);
-    return cutoff ? ring_launch<true, L>(a, stream)
-                  : ring_launch<false, L>(a, stream);
+    return cutoff ? ring_launch<true, L>(a, a, 1, stream)
+                  : ring_launch<false, L>(a, a, 1, stream);
+  });
+}
+
+// One launch of the ring over n_batch crowds of n_dev virtual devices of
+// n_local agents each (a batch of crowds sharded over a 2-D mesh), as
+// sfm_ring_force for every crowd: rx .. ralive, fx, fy (n_batch, n_dev *
+// n_local), crowd b's device d rows at [(b * n_dev + d) * n_local, ...);
+// cols (n_batch, n_dev, slot) each crowd's devices' own blocks; prm
+// (n_batch, P) with rows prm_stride apart (0: one vector for every crowd);
+// comm (n_batch, n_dev, 2, slot) floats of scratch; sync 4 * n_batch *
+// n_dev + 1 ints, zero on entry (the fill and done counters of every
+// crowd, then the error word); acc at least n_batch * n_dev *
+// ceil(n_local / 128) * 128 * 16 floats of scratch.
+int sfm_ring_force_batched(int law, int n_batch, int n_dev, int n_local,
+                           const float* rx, const float* ry, const float* ru,
+                           const float* rv, const float* rrad,
+                           const uint8_t* ralive, const float* cols,
+                           float* comm, int* sync, float* acc,
+                           const float* prm, int prm_stride, int use_radius,
+                           int cutoff, float c2, float* fx, float* fy,
+                           void* stream) {
+  if (n_batch < 1 || n_dev < 1 || n_local < 0 || prm_stride < 0)
+    return (int)cudaErrorInvalidValue;
+  if (n_local == 0) return (int)cudaSuccess;
+  const RingBatchArgs a = {
+      ring_args(n_batch, n_dev, n_local, rx, ry, ru, rv, rrad, ralive, cols,
+                comm, sync, acc, prm, use_radius, c2, fx, fy),
+      n_batch, prm_stride};
+  return with_any_law(law, [&](auto l) {
+    using L = decltype(l);
+    return cutoff ? ring_launch<true, L>(a, a.ring, n_batch, stream)
+                  : ring_launch<false, L>(a, a.ring, n_batch, stream);
   });
 }
 

@@ -64,9 +64,14 @@ wall feed one batched launch per source and part, a sweep's
 ``orca_tau``/``orca_neighbor_dist``/``orca_tau_static`` per row), and the
 per-agent ``pair_scale``/``law_id`` columns are ``(B, N)`` in an ensemble
 and ``(N,)``, shared by every row, in a sweep.  The records are ``(B, T,
-N)``.  :func:`check_supported` refuses what is not batched yet (ROADMAP
-items 19b.3a and 19b.4: groups, the fleet, an agent axis) with
-``NotImplementedError``.
+N)``.  A batch also runs over an agent axis (a shard of a 2-D ``(batch,
+agents)`` mesh, ``parallel/sweeps.make_sharded_ensemble_rollout``): the
+state holds the shard's ``(B, n)`` slots of its crowds, the pair forces
+bring in their columns by ``StepConfig.axis_comm`` through the batched
+sharded kernels, and every other term is slot-local.
+:func:`check_supported` refuses what is not batched yet with
+``NotImplementedError``: groups and the fleet (ROADMAP item 19b.3a), ORCA
+over an agent axis (item 19b.5).
 
 The device chooses the kernel path: the CUDA kernels on a card, the plain
 PyTorch versions on the CPU (ops/cuda_forces.py, ops/cuda_env.py,
@@ -279,10 +284,6 @@ class RecordXY(NamedTuple):
             mode=self.mode, alive=self.alive)
 
 
-#: what a refusal under a batch names: the slice that will port it
-BATCH_ITEM = "ROADMAP item 19b"
-
-
 def batch_of(state: PedState | None, scene: Scene,
              params: SfmParams) -> int | None:
     """B of a batched step (a ``(B, N)`` state, a ``(B, N)`` spawn schedule
@@ -307,22 +308,24 @@ def batch_of(state: PedState | None, scene: Scene,
 def _check_batched(scene: Scene, params: SfmParams, cfg: StepConfig,
                    axis) -> None:
     """Refuse, under a batch, every configuration the batched step does not
-    run: ``NotImplementedError`` naming ROADMAP item 19b (nothing runs
+    run: ``NotImplementedError`` naming its ROADMAP item (nothing runs
     another path instead).  The interaction cutoff (item 19b.1), the
     compacted, analytic and chunked environment paths (item 19b.2), ORCA
-    and the per-agent columns (item 19b.3b) run, but not over an agent
-    axis."""
+    and the per-agent columns (item 19b.3b) run, and an agent axis (item
+    19b.4), but ORCA not over an agent axis."""
     refused = (
-        (axis is not None, "an agent axis (sharding a batch of crowds, "
-                           "with or without interaction_cutoff)"),
-        (params.enable_group and scene.groups is not None, "social groups"),
-        (scene.autopilot is not None, "the reactive autopilot fleet"),
+        (params.enable_group and scene.groups is not None, "social groups",
+         "19b.3a"),
+        (scene.autopilot is not None, "the reactive autopilot fleet",
+         "19b.3a"),
+        (params.enable_orca and axis is not None,
+         "ORCA over an agent axis", "19b.5"),
     )
-    for hit, what in refused:
+    for hit, what, item in refused:
         if hit:
             raise NotImplementedError(
                 f"{what} under a batch of crowds is not ported yet "
-                f"({BATCH_ITEM})")
+                f"(ROADMAP item {item})")
 
 
 def check_supported(scene: Scene, params: SfmParams, cfg: StepConfig,
@@ -331,10 +334,11 @@ def check_supported(scene: Scene, params: SfmParams, cfg: StepConfig,
     groups of the wrong form, and for ``env_chunked`` together with a knob
     of the fused environment path; under a batch (:func:`batch_of` of
     ``state``, the schedule and the params), ``NotImplementedError`` for
-    what the batched step does not run yet (ROADMAP item 19b: groups, the
-    fleet, an agent axis and a mesh; the interaction cutoff, the
+    what the batched step does not run yet (ROADMAP item 19b.3a: groups and
+    the fleet; the interaction cutoff, the
     compacted, analytic and chunked environment paths, ORCA and the
-    per-agent columns run).  A per-agent column has the spawn schedule's
+    per-agent columns run, also over an agent axis; ORCA not over an agent
+    axis, item 19b.5).  A per-agent column has the spawn schedule's
     shape: ``(N,)``, an ensemble's ``(B, N)``, and in a sweep (one
     schedule) ``(N,)`` shared by every row, as the JAX package's vmap
     axes have it."""
@@ -390,7 +394,8 @@ def force_terms(state: PedState, scene: Scene, params: SfmParams,
     their columns by ``cfg.axis_comm`` and the group force all-gathers its
     members, every other term is slot-local (and ``order`` the shard's
     own).  A batch of crowds (``(B, N)`` planes) launches the batched
-    kernels, one launch per term for every row."""
+    kernels, one launch per term for every row (with ``axis``, each
+    shard's launches for all of its crowds)."""
     check_supported(scene, params, cfg, state, axis)
     batch = state.batch
     if cfg.env_chunked:
@@ -436,7 +441,7 @@ def force_terms(state: PedState, scene: Scene, params: SfmParams,
     def pair_term(law, p, radius, use_radius=False, desired=None):
         args = (state.pos_x, state.pos_y, state.vel_x, state.vel_y, radius,
                 state.alive, p)
-        if batch is not None:
+        if batch is not None and axis is None:
             return cuda_forces.pedestrian_force_batched(
                 *args, use_ped_radius=use_radius,
                 symmetric=cfg.symmetric_pairs, row_block=cfg.row_block,

@@ -42,6 +42,15 @@ desired directions, and has only the dense forms: it is not antisymmetric).
   ``_pair_kernel_sym`` with its cutoff, ``_pair_kernel`` with its box skip
   and ``_pair_kernel_compact`` under ``vmap``.  Row b of the dense forms
   equals the unbatched cutoff launch on row b bitwise.
+* :func:`pair_force_rect_batched`, :func:`pair_force_sym_dense_batched` --
+  the rectangular and full-block forms on a batch of crowds whose slots
+  are sharded over an agent axis (``parallel/sweeps.
+  make_sharded_ensemble_rollout``): ``(B, n_rows)`` rows against ``(B,
+  n_cols)`` columns, the offsets the same for every crowd
+  (``dense_rect_batched``, ``dense_cutoff_rect_batched``,
+  ``compact_rect_batched``, ``sym_dense_batched``,
+  ``sym_dense_cutoff_batched``).  Row b of the dense forms equals the
+  unbatched rectangular launch on row b bitwise.
 
 One C entry per form, ``sfm_pair_<form>``, takes the law's id
 (:data:`LAW_IDS`).  A kernel's name, and its key in :data:`LAUNCHES`, is
@@ -60,10 +69,12 @@ falls back from the kernel to the plain version.
 or without a cutoff: the batched kernels on a card,
 :func:`plain_batched_force` (row by row) on the CPU; it never loops the
 unbatched kernels over rows.  With ``axis`` (the tensors are one shard's
-slots of an agent axis, ``parallel/``) they run the sharded schedules:
-:func:`plain_sharded_force` on the CPU,
-:func:`kernel_sharded_force` on a card (the in-kernel ring is
-``ops/cuda_ring.py``).
+slots of an agent axis, ``parallel/``; one crowd's ``(n,)`` planes or a
+batch's ``(B, n)``) :func:`pedestrian_force_kernel` and
+:func:`pedestrian_force_sorted` run the sharded schedules:
+:func:`plain_sharded_force` on the CPU, :func:`kernel_sharded_force` on a
+card (the in-kernel ring is ``ops/cuda_ring.py``), with the batched forms
+under a batch.
 """
 from __future__ import annotations
 
@@ -79,17 +90,22 @@ from ..models.params import (helbing_vector, law_rows, moussaid_vector,
 #: the forms on one set of planes, each with a batched form
 _SQUARE_FORMS = ("sym", "dense", "sym_cutoff", "sym_compact",
                  "dense_cutoff", "compact")
+#: the batched forms on row and column planes
+_RECT_BATCHED = ("dense_rect_batched", "dense_cutoff_rect_batched",
+                 "compact_rect_batched")
+_SYM_DENSE = ("sym_dense", "sym_dense_cutoff", "sym_dense_batched",
+              "sym_dense_cutoff_batched")
 #: kernel-name prefix, parameter-vector length and the forms of each law
 LAWS = {
-    "moussaid": ("pair_force", 6, (*_SQUARE_FORMS, "sym_dense",
-                                   "sym_dense_cutoff",
-                                   *(f + "_batched" for f in _SQUARE_FORMS))),
-    "powerlaw": ("powerlaw", 4, (*_SQUARE_FORMS, "sym_dense",
-                                 "sym_dense_cutoff",
-                                 *(f + "_batched" for f in _SQUARE_FORMS))),
+    "moussaid": ("pair_force", 6, (*_SQUARE_FORMS, *_SYM_DENSE,
+                                   *(f + "_batched" for f in _SQUARE_FORMS),
+                                   *_RECT_BATCHED)),
+    "powerlaw": ("powerlaw", 4, (*_SQUARE_FORMS, *_SYM_DENSE,
+                                 *(f + "_batched" for f in _SQUARE_FORMS),
+                                 *_RECT_BATCHED)),
     "helbing": ("helbing", 6, ("dense", "dense_cutoff", "compact",
                                "dense_batched", "dense_cutoff_batched",
-                               "compact_batched")),
+                               "compact_batched", *_RECT_BATCHED)),
 }
 
 #: the law ids of the C entries (csrc/pair_laws.cuh LawId)
@@ -97,8 +113,8 @@ LAW_IDS = {"moussaid": 0, "powerlaw": 1, "helbing": 2}
 
 #: the forms whose entry takes row and column planes (the others take one
 #: set of planes)
-RECT_FORMS = ("dense", "dense_cutoff", "compact", "sym_dense",
-              "sym_dense_cutoff")
+RECT_FORMS = ("dense", "dense_cutoff", "compact", *_SYM_DENSE,
+              *_RECT_BATCHED)
 
 #: launches per kernel since the last :func:`reset_launch_counts`; each
 #: wrapper adds one where it launches its kernel and nowhere else
@@ -169,7 +185,7 @@ def _check_grid(grid: CutoffGrid, n_rows: int, n_cols: int, dev,
              (*lead, 4, -(-n_cols // tile)))]
     if grid.form == "sym_dense_cutoff":
         want.append(("row_boxes", grid.row_boxes, torch.float32,
-                     (4, -(-n_rows // SYM_TILE))))
+                     (*lead, 4, -(-n_rows // SYM_TILE))))
     if grid.form.endswith("compact"):
         rows = -(-n_rows // SYM_TILE)
         if grid.max_surv < 1:
@@ -202,9 +218,9 @@ def _launch(law: str, form: str, pos_x, pos_y, vel_x, vel_y, radius, alive,
     and ``col_offset`` of both sides' first agents; None: the rows'
     own (the square call).  Returns ``(fx, fy)``, and for the full-block
     forms also the columns' ``(fxc, fyc)``.  The batched forms
-    (``"<form>_batched"`` of the square forms) take ``(B, n)`` planes, a
-    ``(B, P)`` ``prm`` and, for the cutoff forms, the batched grid of
-    ``<form>``, and launch once for every row."""
+    (``"<form>_batched"``, ``"<form>_rect_batched"``) take ``(B, n)``
+    planes (and columns), a ``(B, P)`` ``prm`` and, for the cutoff forms,
+    the batched grid of ``<form>``, and launch once for every row."""
     from ..utils.cuda_build import load_kernels
     if law not in LAWS:
         raise ValueError(f"unknown pair law {law!r}; one of {sorted(LAWS)}")
@@ -221,7 +237,7 @@ def _launch(law: str, form: str, pos_x, pos_y, vel_x, vel_y, radius, alive,
     if cols is not None and form not in RECT_FORMS:
         raise ValueError(f"the {form} form takes one set of planes")
     batch = None
-    base = form.removesuffix("_batched")
+    base = form.removesuffix("_batched").removesuffix("_rect")
     if base != form:
         if pos_x.dim() != 2:
             raise ValueError(f"the batched kernels take (B, n) planes, got "
@@ -262,10 +278,14 @@ def _launch(law: str, form: str, pos_x, pos_y, vel_x, vel_y, radius, alive,
         outs += [torch.zeros_like(cols[0]), torch.zeros_like(cols[0])]
     if n == 0 or (form.startswith("sym_dense") and n_cols == 0):
         return tuple(outs)
-    if batch is not None:
-        if batch * n >= 2 ** 31:
-            raise ValueError(f"{batch} x {n} agents exceed the kernels' "
-                             f"32-bit indices")
+    if batch is not None and batch * max(n, n_cols) >= 2 ** 31:
+        raise ValueError(f"{batch} x {max(n, n_cols)} agents exceed the "
+                         f"kernels' 32-bit indices")
+    if batch is not None and form in RECT_FORMS:
+        planes = [*map(_ptr, rows), n, row_offset, *map(_ptr, cols), n_cols,
+                  col_offset, prm.data_ptr(), prm.stride(0),
+                  int(use_radius), batch]
+    elif batch is not None:
         sides = ((*rows[:2], *cols[2:]) if base.startswith("sym")
                  else (*rows, *cols))
         planes = [*map(_ptr, sides), prm.data_ptr(), prm.stride(0),
@@ -396,24 +416,68 @@ def pair_force_cutoff_batched(pos_x, pos_y, vel_x, vel_y, radius, alive, prm,
                    radius, alive, prm, use_radius, grid, desired)
 
 
+def pair_force_rect_batched(pos_x, pos_y, vel_x, vel_y, radius, alive, prm,
+                            cols, row_offset: int = 0, col_offset: int = 0,
+                            grid: CutoffGrid | None = None,
+                            use_radius: bool = False, law: str = "moussaid",
+                            desired=None):
+    """:func:`pair_force_rect` on B independent crowds at once: ``(B,
+    n_rows)`` row planes against ``(B, n_cols)`` column planes ``cols``,
+    ``prm`` ``(B, P)`` (see :func:`pair_force_sym_batched`), the offsets
+    the same for every crowd, ``grid`` the batched grid of
+    :func:`..ops.pair_grid.rect_grid`; one launch.  ``(fx, fy)``, ``(B,
+    n_rows)``.  Deterministic: row b equals the unbatched launch on row b
+    bitwise."""
+    form = ("dense" if grid is None else grid.form) + "_rect_batched"
+    return _launch(law, form, pos_x, pos_y, vel_x, vel_y, radius, alive,
+                   prm, use_radius, grid, desired, cols, row_offset,
+                   col_offset)
+
+
+def pair_force_sym_dense_batched(pos_x, pos_y, vel_x, vel_y, radius, alive,
+                                 prm, cols, row_offset: int = 0,
+                                 col_offset: int = 0,
+                                 grid: CutoffGrid | None = None,
+                                 use_radius: bool = False,
+                                 law: str = "moussaid"):
+    """:func:`pair_force_sym_dense` on B independent crowds at once: ``(B,
+    n_rows)`` rows against ``(B, n_cols)`` columns, ``prm`` ``(B, P)``,
+    ``grid`` the batched :func:`..ops.pair_grid.block_grid`; one launch.
+    ``(fx, fy, fxc, fyc)``.  Atomics: the last bits vary from run to
+    run."""
+    form = "sym_dense" if grid is None else grid.form
+    if form not in ("sym_dense", "sym_dense_cutoff"):
+        raise ValueError(f"a {grid.form} grid does not drive the full-block "
+                         f"kernel")
+    return _launch(law, form + "_batched", pos_x, pos_y, vel_x, vel_y,
+                   radius, alive, prm, use_radius, grid, None, cols,
+                   row_offset, col_offset)
+
+
 def plain_batched_force(law, pos_x, pos_y, vel_x, vel_y, radius, alive, p,
                         use_ped_radius: bool = False, row_block: int = 1024,
-                        desired=None, cutoff: float | None = None):
+                        desired=None, cutoff: float | None = None, cols=None,
+                        row_offset=0, col_offset=0, mirror: bool = False):
     """The plain version of the batched pair kernels: row b of the ``(B,
     N)`` planes through :func:`plain_law_force` with row b's parameters
     (``p``: a section with ``(B,)`` tensor leaves, or one shared by every
-    row) and ``cutoff``.  ``(fx, fy)``, ``(B, N)``."""
+    row) and ``cutoff``.  ``(fx, fy)``, ``(B, N)``.  ``cols``: ``(B,
+    n_cols)`` column planes (``None`` entries stay None) with the offsets
+    of every crowd (the plain version of :func:`pair_force_rect_batched`);
+    with ``mirror`` also the columns' ``(fxc, fyc)`` (of
+    :func:`pair_force_sym_dense_batched`)."""
     batch = pos_x.shape[0]
-    fx, fy = [], []
+    out = []
     for b, pb in enumerate(section_rows(p, batch)):
-        gx, gy = plain_law_force(
+        out.append(plain_law_force(
             law, pos_x[b], pos_y[b], vel_x[b], vel_y[b],
             None if radius is None else radius[b], alive[b], pb,
             use_ped_radius, row_block, cutoff,
-            None if desired is None else (desired[0][b], desired[1][b]))
-        fx.append(gx)
-        fy.append(gy)
-    return torch.stack(fx), torch.stack(fy)
+            None if desired is None else (desired[0][b], desired[1][b]),
+            None if cols is None else tuple(None if c is None else c[b]
+                                            for c in cols),
+            row_offset, col_offset, mirror))
+    return tuple(torch.stack(parts) for parts in zip(*out))
 
 
 def pedestrian_force_batched(pos_x, pos_y, vel_x, vel_y, radius, alive, p,
@@ -525,25 +589,28 @@ def plain_sharded_force(law, pos_x, pos_y, vel_x, vel_y, radius, alive, p,
     ``"ring_kernel"`` run the plain ring, the column block and its global
     slot rotating shard i -> i + 1 once per step for D steps
     (``_ring_force``, forces.py:183-203).  Self pairs are masked by global
-    slot.  ``(fx, fy)``."""
+    slot.  ``(fx, fy)``.  A batch of crowds (``(B, n)`` planes, ``p``
+    shared or with ``(B,)`` leaves) goes row by row through
+    :func:`plain_batched_force` (the JAX package's vmap of the same
+    schedule)."""
     if comm not in AXIS_COMMS:
         raise ValueError(f"axis_comm {comm!r}: one of {AXIS_COMMS}")
-    n = pos_x.shape[0]
+    n = pos_x.shape[-1]
     me, d = axis.index, axis.size
     rad = None if law == "helbing" else radius
     cols0 = (pos_x, pos_y, vel_x, vel_y, rad, alive)
-    args = (law, pos_x, pos_y, vel_x, vel_y, rad, alive, p, use_ped_radius,
-            row_block, cutoff, desired)
+    plain = plain_law_force if pos_x.dim() == 1 else plain_batched_force
+    args = (law, pos_x, pos_y, vel_x, vel_y, rad, alive, p)
+    kw = dict(use_ped_radius=use_ped_radius, row_block=row_block,
+              cutoff=cutoff, desired=desired, row_offset=me * n)
     if comm == "gather":
-        return plain_law_force(*args, cols=_gather(axis, cols0),
-                               row_offset=me * n)
+        return plain(*args, cols=_gather(axis, cols0), **kw)
     perm = [(i, (i + 1) % d) for i in range(d)]
     tile = (*cols0, torch.full((1,), me * n, device=pos_x.device))
     fx = torch.zeros_like(pos_x)
     fy = torch.zeros_like(pos_y)
     for step in range(d):
-        gx, gy = plain_law_force(*args, cols=tile[:6], row_offset=me * n,
-                                 col_offset=tile[6])
+        gx, gy = plain(*args, cols=tile[:6], col_offset=tile[6], **kw)
         fx, fy = fx + gx, fy + gy
         if step < d - 1:
             tile = _rotate(axis, tile, perm)
@@ -572,12 +639,21 @@ def kernel_sharded_force(law, pos_x, pos_y, vel_x, vel_y, radius, alive, p,
       for every shard.
 
     Rows and columns are the shard's planes as given (sorted, under a
-    cutoff); self pairs are masked by global slot."""
+    cutoff); self pairs are masked by global slot.  A batch of crowds
+    (``(B, n)`` planes, every crowd sharded alike) launches the batched
+    forms, each once for all of the shard's crowds
+    (:func:`pair_force_rect_batched`, :func:`pair_force_sym_batched` or
+    :func:`pair_force_cutoff_batched` on the diagonal,
+    :func:`pair_force_sym_dense_batched`, ``cuda_ring.ring_force_batched``),
+    with the batched grids."""
     if comm not in AXIS_COMMS:
         raise ValueError(f"axis_comm {comm!r}: one of {AXIS_COMMS}")
     dev = pos_x.device
-    prm = law_vector(law, p, dev)
-    n = pos_x.shape[0]
+    batched = pos_x.dim() == 2
+    prm = (law_rows(law, p, pos_x.shape[0], dev) if batched
+           else law_vector(law, p, dev))
+    rect = pair_force_rect_batched if batched else pair_force_rect
+    n = pos_x.shape[-1]
     me, d = axis.index, axis.size
     rad = None if law == "helbing" else radius
     rows = (pos_x, pos_y, vel_x, vel_y, rad, alive)
@@ -587,9 +663,8 @@ def kernel_sharded_force(law, pos_x, pos_y, vel_x, vel_y, radius, alive, p,
         grid = None if cutoff is None else rect_grid(
             pos_x, pos_y, alive, box_planes(cols[0], cols[1], cols[5],
                                             COL_TILE),
-            cols[0].shape[0], cutoff, compact=compact, max_surv=max_surv)
-        return pair_force_rect(*rows, prm, cols, row_offset=me * n,
-                               grid=grid, **kw)
+            cols[0].shape[-1], cutoff, compact=compact, max_surv=max_surv)
+        return rect(*rows, prm, cols, row_offset=me * n, grid=grid, **kw)
     if comm == "ring_kernel":
         from .cuda_ring import ring_force_sharded
         return ring_force_sharded(axis, *rows, prm, n, cutoff=cutoff, **kw)
@@ -607,9 +682,8 @@ def kernel_sharded_force(law, pos_x, pos_y, vel_x, vel_y, radius, alive, p,
         nxt = _rotate(axis, blk, perm) if step < d - 1 else None
         grid = None if cutoff is None else rect_grid(
             pos_x, pos_y, alive, blk[6], n, cutoff, compact=False)
-        gx, gy = pair_force_rect(*rows, prm, blk[:6], row_offset=me * n,
-                                 col_offset=((me + step) % d) * n,
-                                 grid=grid, **kw)
+        gx, gy = rect(*rows, prm, blk[:6], row_offset=me * n,
+                      col_offset=((me + step) % d) * n, grid=grid, **kw)
         fx, fy = fx + gx, fy + gy
         blk = nxt
     return fx, fy
@@ -623,20 +697,23 @@ def _half_ring(axis, law, rows, prm, perm, use_radius, cutoff):
     travels with the block; with even D the opposite pair {d, d + D/2} at
     the last step is computed by the lower id only.  Block b's accumulator
     ends at shard b - D // 2 - 1, and one hop of +(D // 2 + 1) sends it
-    home."""
+    home.  ``(B, n)`` rows: the batched forms, for all of the shard's
+    crowds at once."""
     x, y, vx, vy, rad, alive = rows
-    n = x.shape[0]
+    n = x.shape[-1]
     me, d = axis.index, axis.size
     s_comp = d // 2
     tie = d % 2 == 0
+    batched = x.dim() == 2
     if cutoff is None:
-        fx, fy = pair_force_sym(*rows, prm, use_radius=use_radius, law=law)
+        sym = pair_force_sym_batched if batched else pair_force_sym
+        fx, fy = sym(*rows, prm, use_radius=use_radius, law=law)
         boxes = None
     else:
         grid = cutoff_grid(x, y, alive, cutoff, symmetric=True,
                            compact=False)
-        fx, fy = pair_force_cutoff(*rows, prm, grid, use_radius=use_radius,
-                                   law=law)
+        sym = pair_force_cutoff_batched if batched else pair_force_cutoff
+        fx, fy = sym(*rows, prm, grid, use_radius=use_radius, law=law)
         boxes = grid.boxes
     blk = _rotate(axis, (*rows, boxes), perm)
     ax = torch.zeros_like(x)
@@ -648,7 +725,9 @@ def _half_ring(axis, law, rows, prm, perm, use_radius, cutoff):
         else:
             grid = (None if cutoff is None
                     else block_grid(boxes, blk[6], cutoff))
-            fxp, fyp, axp, ayp = pair_force_sym_dense(
+            fxp, fyp, axp, ayp = (
+                pair_force_sym_dense_batched if batched
+                else pair_force_sym_dense)(
                 *rows, prm, blk[:6], row_offset=me * n,
                 col_offset=((me + step) % d) * n, grid=grid,
                 use_radius=use_radius, law=law)
@@ -719,18 +798,20 @@ def pedestrian_force_sorted(pos_x, pos_y, vel_x, vel_y, radius, alive, p,
     ``symmetric`` says), or it raises.  ``axis``: the tensors are this
     shard's rows of an agent axis; each shard sorts its own slots and the
     columns come in by ``comm``, their tile boxes with them
-    (pallas_forces.py:1102-1154).  For the Moussaid law a cutoff >=
-    110*gamma*(2*lambda*v_max + 1) gives the no-cutoff result exactly."""
+    (pallas_forces.py:1102-1154); with ``axis`` the planes may be a batch
+    of crowds' ``(B, n)``, each row sorted on its own.  For the Moussaid
+    law a cutoff >= 110*gamma*(2*lambda*v_max + 1) gives the no-cutoff
+    result exactly."""
     dev = pos_x.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"no pair-force path for device {dev}")
     perm, inv = order if order is not None else morton_order(
         pos_x, pos_y, alive, spatial_order)
-    planes = [a[perm] for a in (pos_x, pos_y, vel_x, vel_y)]
-    srad = None if law == "helbing" else radius[perm]
-    salive = alive[perm]
+    planes = [a.gather(-1, perm) for a in (pos_x, pos_y, vel_x, vel_y)]
+    srad = None if law == "helbing" else radius.gather(-1, perm)
+    salive = alive.gather(-1, perm)
     sdesired = (None if desired is None
-                else tuple(a[perm] for a in desired))
+                else tuple(a.gather(-1, perm) for a in desired))
     plain = dev.type == "cpu"
     if axis is not None and plain:
         fx, fy = plain_sharded_force(law, *planes, srad, salive, p, axis,
@@ -751,4 +832,4 @@ def pedestrian_force_sorted(pos_x, pos_y, vel_x, vel_y, radius, alive, p,
                                    law_vector(law, p, dev), grid,
                                    use_radius=use_ped_radius, law=law,
                                    desired=sdesired)
-    return fx[inv], fy[inv]
+    return fx.gather(-1, inv), fy.gather(-1, inv)

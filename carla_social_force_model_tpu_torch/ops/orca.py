@@ -40,7 +40,7 @@ row, so row b equals one crowd's solve on row b bitwise.
 
 Multi-device gathering (the JAX package's ``axis_name``) belongs to the
 multi-device slice of the port; it does not run under a batch (ROADMAP
-item 19b).
+item 19b.5).
 """
 from __future__ import annotations
 
@@ -536,7 +536,7 @@ def orca_velocities(pos, vel, radius, alive, pref, vmax, params, dt: float,
            else torch.zeros_like(alive))
     if axis is not None and px.dim() > 1:
         raise NotImplementedError("a sharded ORCA under a batch of crowds is "
-                                  "not ported yet (ROADMAP item 19b)")
+                                  "not ported yet (ROADMAP item 19b.5)")
     # a sweep's leaves as columns against the (B, N, k) and (B, k, N)
     # planes; the wall feed takes the (B,) neighbour distance itself
     tau, nd, tau_static = (

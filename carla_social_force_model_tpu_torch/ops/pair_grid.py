@@ -187,7 +187,9 @@ def rect_grid(row_x, row_y, row_alive, col_bb, n_cols: int, cutoff: float,
     (:func:`box_planes`): the box test alone, or above the gate (on the
     column count) the survivor table of the rows' 128-row tiles against the
     column tiles.  The square grid of :func:`cutoff_grid` with
-    ``symmetric=False`` is this grid with the rows as the columns."""
+    ``symmetric=False`` is this grid with the rows as the columns.  A batch
+    of crowds (``(B, n)`` row planes, ``(B, 4, n_tiles)`` column boxes)
+    gives the batched grid, row b equal to the grid of row b alone."""
     engage, ms = compact_gate(n_cols, False, compact, max_surv)
     c2 = cutoff_sq(cutoff)
     if not engage:
@@ -200,6 +202,7 @@ def rect_grid(row_x, row_y, row_alive, col_bb, n_cols: int, cutoff: float,
 
 def block_grid(row_bb, col_bb, cutoff: float) -> CutoffGrid:
     """The grid of a full-block (``"sym_dense_cutoff"``) launch: the rows'
-    and the columns' 128-agent tile boxes (:func:`box_planes`)."""
+    and the columns' 128-agent tile boxes (:func:`box_planes`; a batch of
+    crowds' ``(B, 4, n_tiles)``)."""
     return CutoffGrid("sym_dense_cutoff", col_bb, None, None, 0,
                       cutoff_sq(cutoff), row_bb)

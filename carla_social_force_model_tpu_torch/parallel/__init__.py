@@ -1,5 +1,6 @@
-"""Agent sharding: pedestrian slots split over shards, and ensembles and
-parameter sweeps on one device (``sweeps``) (port of parallel/)."""
+"""Agent sharding: pedestrian slots split over shards, ensembles and
+parameter sweeps (``sweeps``), and both over a 2-D (batch, agents) mesh
+(port of parallel/)."""
 
 from .mesh import (AGENT_AXIS, BATCH_AXIS, AgentAxis, LocalMesh,  # noqa: F401
                    ProcessGroupAxis, make_mesh, round_up)

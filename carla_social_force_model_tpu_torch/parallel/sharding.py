@@ -2,7 +2,9 @@
 (port of parallel/sharding.py).
 
 Every per-slot tensor (the state, the spawn schedule and its route buffer)
-is split along its first dimension into equal shards; the scene's geometry,
+is split along its slot axis into equal shards (the first dimension, or
+the second of a batch of crowds: ``(B, N)`` planes, routes ``(B, N,
+W)``); the scene's geometry,
 its vehicles, its fleet and its group table are the same on every shard.
 The pair forces communicate their column state over the axis (all-gather,
 or a ring: ``StepConfig.axis_comm``); the group force, ORCA and the
@@ -37,23 +39,33 @@ def _map_slots(obj, fn):
     return dataclasses.replace(obj, **upd)
 
 
+def _slot_dim(obj) -> int:
+    """The slot axis of ``obj``'s tensors: 0 for one crowd, 1 for a batch
+    of crowds (``(B, N)`` planes, ``(B, N, W)`` routes)."""
+    return obj.pos_x.dim() - 1
+
+
 def pad_spawn_schedule(schedule: SpawnSchedule,
                        new_capacity: int) -> SpawnSchedule:
-    """Grow the slot dimension with zeros; padding slots never spawn
-    (``step = -1``)."""
+    """Grow the slot axis with zeros (an ensemble's ``(B, N)`` schedules
+    along their second dimension); padding slots never spawn (``step =
+    -1``)."""
     pad = new_capacity - schedule.capacity
     if pad < 0:
         raise ValueError(f"cannot shrink a schedule of {schedule.capacity} "
                          f"slots to {new_capacity}")
     if pad == 0:
         return schedule
+    dim = _slot_dim(schedule)
 
     def grow(t):
-        return torch.cat([t, t.new_zeros((pad, *t.shape[1:]))])
+        shape = list(t.shape)
+        shape[dim] = pad
+        return torch.cat([t, t.new_zeros(shape)], dim=dim)
 
     padded = _map_slots(schedule, grow)
     step = padded.step.clone()
-    step[schedule.capacity:] = -1
+    step[..., schedule.capacity:] = -1
     return dataclasses.replace(padded, step=step)
 
 
@@ -68,13 +80,31 @@ def prepare_sharded_scene(scene: Scene, n_shards: int):
 
 def shard_of(obj, index: int, n_shards: int):
     """Shard ``index`` of the per-slot tensors of ``obj`` (a PedState or a
-    SpawnSchedule)."""
+    SpawnSchedule, of one crowd or of a batch of crowds)."""
     n = obj.capacity
     if n % n_shards:
         raise ValueError(f"{n} slots do not split into {n_shards} shards: "
                          f"pad the scene with prepare_sharded_scene")
     m = n // n_shards
-    return _map_slots(obj, lambda t: t[index * m:(index + 1) * m])
+    dim = _slot_dim(obj)
+    return _map_slots(obj,
+                      lambda t: t.narrow(dim, index * m, m).contiguous())
+
+
+def join_shards(states, records=None):
+    """The inverse of :func:`shard_of` on results: the shards' final
+    states (PedState, one crowd or a batch) concatenated along the slot
+    axis, and their StepRecords (``(T, n)``, a batch's ``(B, T, n)``; pos
+    and vel with a last axis of 2) along theirs; ``records`` None gives
+    None."""
+    dim = _slot_dim(states[0])
+    final = PedState(**{f.name: torch.cat([getattr(s, f.name)
+                                           for s in states], dim=dim)
+                        for f in dataclasses.fields(PedState)})
+    if records is None:
+        return final, None
+    return final, StepRecord(*(torch.cat(parts, dim=dim + 1)
+                               for parts in zip(*records)))
 
 
 def make_sharded_rollout(axis, scene: Scene, params: SfmParams,
@@ -96,6 +126,9 @@ def make_sharded_rollout(axis, scene: Scene, params: SfmParams,
     final state and of the record.  A reactive fleet's record is the same on
     every shard.  ``start_step`` offsets the tick index, as in
     :func:`..models.stepper.rollout`."""
+    if getattr(axis, "n_batch_shards", 1) != 1:
+        raise ValueError("a mesh with batch shards runs a batch of crowds: "
+                         "parallel/sweeps.make_sharded_ensemble_rollout")
     scene = prepare_scene(scene, analytic=cfg.env_analytic,
                           orca=params.enable_orca, chunked=cfg.env_chunked)
     n_shards = axis.size
@@ -116,17 +149,13 @@ def make_sharded_rollout(axis, scene: Scene, params: SfmParams,
     def run(state: PedState):
         outs = axis.run(body, [shard_of(state, d, n_shards)
                                for d in range(n_shards)], scenes)
-        final = PedState(**{f.name: torch.cat([getattr(o[0], f.name)
-                                          for o in outs])
-                            for f in dataclasses.fields(PedState)})
+        states = [o[0] for o in outs]
         if not record:
-            return final, None
+            return join_shards(states)
         recs = [o[1] for o in outs]
         if scene.autopilot is None:
-            return final, StepRecord(*(torch.cat(parts, 1)
-                                       for parts in zip(*recs)))
-        ped = StepRecord(*(torch.cat(parts, 1)
-                           for parts in zip(*(r[0] for r in recs))))
+            return join_shards(states, recs)
+        final, ped = join_shards(states, [r[0] for r in recs])
         return final, (ped, recs[0][1])
 
     return run

@@ -24,10 +24,19 @@ crowds: ``(B, N)`` in an ensemble's schedules, ``(N,)`` shared by a
 sweep's rows.  The geometry is prepared once here and shared by every
 row; nothing here is specific to a path.
 
-Sharding the batch over a mesh (the JAX package's ``mesh`` argument and
-``make_sharded_ensemble_rollout``) is not ported yet: it raises and names
-ROADMAP item 19b, as does every configuration the batched step refuses
-(``stepper.check_supported``: groups, the fleet, an agent axis).
+A mesh (``parallel/mesh.make_mesh(n_agent_shards, n_batch_shards)``, a
+:class:`.mesh.LocalMesh` of virtual shards on one device) shards the
+batch: the ``mesh`` argument of :func:`make_ensemble_rollout` and
+:func:`make_sweep_rollout` splits the rows over its batch axis, each batch
+row stepping its rows as one batched step (the agent axis is not used:
+the JAX package replicates the rows over it), and
+:func:`make_sharded_ensemble_rollout` also splits every crowd's slots over
+the agent axis (the JAX package's composed 2-D parallelism): each shard
+steps its crowds' slots as one batched step, and the pair forces bring in
+their columns over the shard's batch row by ``StepConfig.axis_comm``
+through the batched sharded kernels.  The configurations the batched step
+refuses raise and name their ROADMAP item (``stepper.check_supported``:
+groups and the fleet, item 19b.3a; ORCA over an agent axis, item 19b.5).
 """
 from __future__ import annotations
 
@@ -38,15 +47,59 @@ import torch
 from ..models.params import SECTIONS, SfmParams, map_leaves, param_batch
 from ..models.spawn import SpawnSchedule
 from ..models.state import PedState
-from ..models.stepper import (BATCH_ITEM, Scene, StepConfig, check_supported,
+from ..models.stepper import (Scene, StepConfig, StepRecord, check_supported,
                               prepare_scene, rollout)
+from .sharding import join_shards, prepare_sharded_scene, shard_of
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            f"sharding a batch of rollouts over a mesh is not ported yet "
-            f"({BATCH_ITEM})")
+def _batch_rows(mesh, batch: int) -> int:
+    """Rows per batch shard of ``mesh``; ``ValueError`` when ``batch`` does
+    not divide over its batch axis."""
+    if batch % mesh.n_batch_shards:
+        raise ValueError(f"ensemble batch {batch} must divide over the "
+                         f"mesh's {mesh.n_batch_shards}-way batch axis")
+    return batch // mesh.n_batch_shards
+
+
+def rows_of(obj, lo: int, hi: int):
+    """Rows ``[lo, hi)`` of a batched SpawnSchedule, PedState or swept
+    SfmParams (every tensor leaf's leading axis)."""
+    if isinstance(obj, SfmParams):
+        return map_leaves(obj, lambda t: t[lo:hi])
+    upd = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if isinstance(v, torch.Tensor):
+            upd[f.name] = v[lo:hi]
+        elif dataclasses.is_dataclass(v):
+            upd[f.name] = rows_of(v, lo, hi)
+    return dataclasses.replace(obj, **upd)
+
+
+def _join_rows(outs):
+    """The batch rows' ``(final, record | None)`` joined along the batch
+    axis (states ``(B, N)``, records ``(B, T, N)``)."""
+    final = PedState(**{f.name: torch.cat([getattr(o[0], f.name)
+                                           for o in outs])
+                        for f in dataclasses.fields(PedState)})
+    if outs[0][1] is None:
+        return final, None
+    return final, StepRecord(*(torch.cat(parts)
+                               for parts in zip(*(o[1] for o in outs))))
+
+
+def _over_batch_axis(mesh, batch: int, step_rows):
+    """``step_rows(lo, hi)`` for each batch shard of ``mesh`` (rows ``[lo,
+    hi)``), on the first agent shard of its batch row (the others hold
+    the same rows: the JAX package replicates them over the agent axis),
+    with the results joined along the batch axis."""
+    per = _batch_rows(mesh, batch)
+
+    def body(ax, r):
+        return step_rows(r * per, (r + 1) * per) if ax.index == 0 else None
+
+    return _join_rows([o for o in mesh.run(body, [
+        k // mesh.size for k in range(mesh.n_shards)]) if o is not None])
 
 
 def batch_params(params: SfmParams, **leaf_batches) -> SfmParams:
@@ -107,21 +160,31 @@ def make_ensemble_rollout(scene_batch: Scene, params: SfmParams,
     returned ``run(scenes)`` takes a Scene (only its ``spawn`` batch is
     read: the geometry prepared here is what runs) or a bare
     SpawnSchedule batch, and returns ``(final_state, record | None)`` with
-    ``(B, N)`` state planes and ``(B, T, N)`` records."""
-    _no_mesh(mesh)
+    ``(B, N)`` state planes and ``(B, T, N)`` records.  ``mesh`` (a
+    :class:`.mesh.LocalMesh`): the rows split over its batch axis
+    (``ValueError`` when B does not divide over it), each batch shard
+    stepping its rows as one batched step."""
     check_supported(scene_batch, params, cfg)
     scene_prepared = prepare_scene(scene_batch, analytic=cfg.env_analytic,
                                    orca=params.enable_orca,
                                    chunked=cfg.env_chunked)
     b, capacity = scene_prepared.spawn.step.shape
+    if mesh is not None:
+        _batch_rows(mesh, b)
 
-    def run(scenes):
-        spawn = scenes if isinstance(scenes, SpawnSchedule) else scenes.spawn
+    def rows(spawn):
         state = PedState.empty(capacity, device=spawn.step.device,
                                batch=spawn.step.shape[0])
         return rollout(state, dataclasses.replace(scene_prepared,
                                                   spawn=spawn),
                        params, cfg, num_steps, record=record)
+
+    def run(scenes):
+        spawn = scenes if isinstance(scenes, SpawnSchedule) else scenes.spawn
+        if mesh is None:
+            return rows(spawn)
+        return _over_batch_axis(mesh, spawn.step.shape[0],
+                                lambda lo, hi: rows(rows_of(spawn, lo, hi)))
 
     return run
 
@@ -129,10 +192,49 @@ def make_ensemble_rollout(scene_batch: Scene, params: SfmParams,
 def make_sharded_ensemble_rollout(mesh, scene_batch: Scene,
                                   params: SfmParams, cfg: StepConfig,
                                   num_steps: int, record: bool = False):
-    """The JAX package's 2-D ``(batch, agents)`` mesh: not ported yet."""
-    raise NotImplementedError(
-        f"ensembles over a 2-D (batch, agents) mesh are not ported yet "
-        f"({BATCH_ITEM})")
+    """Ensembles over a 2-D ``(batch, agents)`` mesh (``make_mesh(
+    n_agent_shards, n_batch_shards)``), the JAX package's composed
+    parallelism: the B crowds of ``scene_batch.spawn`` (``(B, N)``) split
+    over the batch axis (``ValueError`` when B does not divide over it),
+    every crowd's slots padded to a multiple of the agent axis (padding
+    slots never spawn) and split over it.  Shard ``(r, d)`` steps its
+    crowds' slots as one batched step, with ``axis`` its batch row's agent
+    axis: the pair forces bring in their columns by ``cfg.axis_comm``
+    (each sharded kernel launched once per shard and step for all of its
+    crowds; ``ring_kernel`` once for every shard and crowd), the rest is
+    slot-local.  ``run()`` returns ``(final_state, record | None)`` with
+    ``(B, N_padded)`` state planes and ``(B, T, N_padded)`` records."""
+    if scene_batch.spawn.step.dim() != 2:
+        raise ValueError("make_sharded_ensemble_rollout takes a batch of "
+                         "spawn schedules, (B, N) (batched_crowds)")
+    check_supported(scene_batch, params, cfg, axis=mesh)
+    scene_prepared = prepare_scene(scene_batch, analytic=cfg.env_analytic,
+                                   orca=params.enable_orca,
+                                   chunked=cfg.env_chunked)
+    b = scene_prepared.spawn.step.shape[0]
+    per = _batch_rows(mesh, b)
+    n_agents = mesh.size
+    scene_prepared, cap = prepare_sharded_scene(scene_prepared, n_agents)
+    device = scene_prepared.spawn.step.device
+    scenes = [dataclasses.replace(scene_prepared, spawn=shard_of(
+        rows_of(scene_prepared.spawn, r * per, (r + 1) * per), d,
+        n_agents))
+        for r in range(mesh.n_batch_shards) for d in range(n_agents)]
+
+    def body(ax, scn):
+        state = PedState.empty(cap // n_agents, device=device, batch=per)
+        return rollout(state, scn, params, cfg, num_steps, record=record,
+                       axis=ax)
+
+    def run():
+        outs = mesh.run(body, scenes)
+        rows = [outs[k:k + n_agents] for k in range(0, len(outs), n_agents)]
+        return _join_rows([join_shards([o[0] for o in row],
+                                       [o[1] for o in row] if record
+                                       else None)
+                           for row in rows])
+
+    return run
 
 
 def make_sweep_rollout(scene: Scene, cfg: StepConfig, num_steps: int,
@@ -142,23 +244,28 @@ def make_sweep_rollout(scene: Scene, cfg: StepConfig, num_steps: int,
     record | None)`` with ``(B, N)`` state planes and ``(B, T, N)``
     records, row b stepped with row b's parameters.  ``orca``: the swept
     params' ``enable_orca``, so that the ORCA wall feeds are prepared here
-    (the JAX package's argument).  ``mesh`` is not ported under a batch
-    yet and raises."""
-    _no_mesh(mesh)
+    (the JAX package's argument).  ``mesh``: the rows split over its batch
+    axis as in :func:`make_ensemble_rollout`."""
     scene = prepare_scene(scene, analytic=cfg.env_analytic, orca=orca,
                           chunked=cfg.env_chunked)
     device = scene.spawn.step.device
+
+    def rows(params_batch: SfmParams):
+        params_batch = map_leaves(params_batch,
+                                  lambda t: t.to(device).contiguous())
+        state = PedState.empty(scene.spawn.capacity, device=device,
+                               batch=param_batch(params_batch))
+        return rollout(state, scene, params_batch, cfg, num_steps,
+                       record=record)
 
     def run(params_batch: SfmParams):
         batch = param_batch(params_batch)
         if batch is None:
             raise ValueError("make_sweep_rollout takes params with batched "
                              "leaves (batch_params)")
-        params_batch = map_leaves(params_batch,
-                                  lambda t: t.to(device).contiguous())
-        state = PedState.empty(scene.spawn.capacity, device=device,
-                               batch=batch)
-        return rollout(state, scene, params_batch, cfg, num_steps,
-                       record=record)
+        if mesh is None:
+            return rows(params_batch)
+        return _over_batch_axis(
+            mesh, batch, lambda lo, hi: rows(rows_of(params_batch, lo, hi)))
 
     return run

@@ -42,6 +42,9 @@ _FLOAT = ctypes.c_float
 _RECT = ([_INT] + [_PTR] * 6 + [_INT, _INT] + [_PTR] * 6 + [_INT, _INT]
          + [_PTR, _INT])
 _SQUARE = [_INT] + [_PTR] * 7 + [_INT, _INT]
+#: the batched rectangular entries': _RECT with prm_stride after prm, then
+#: use_radius and batch
+_RECT_BATCHED = _RECT[:-1] + [_INT, _INT, _INT]
 #: C signature of each entry, by name (see the extern "C" blocks in csrc/)
 ARGTYPES = {
     # ..., fx, fy, stream
@@ -74,10 +77,26 @@ ARGTYPES = {
                                       + [_PTR, _FLOAT] + [_PTR] * 3),
     "sfm_pair_compact_batched": ([_INT] + [_PTR] * 13 + [_INT] * 4
                                  + [_PTR] * 3 + [_INT, _FLOAT] + [_PTR] * 3),
+    # the batched rectangular forms: ..., batch, [col_bb, [surv, counts,
+    # max_surv,] c2,] fx, fy, stream
+    "sfm_pair_dense_rect_batched": _RECT_BATCHED + [_PTR] * 3,
+    "sfm_pair_dense_cutoff_rect_batched": (_RECT_BATCHED + [_PTR, _FLOAT]
+                                           + [_PTR] * 3),
+    "sfm_pair_compact_rect_batched": (_RECT_BATCHED + [_PTR] * 3
+                                      + [_INT, _FLOAT] + [_PTR] * 3),
+    # ..., batch, [row_bb, col_bb, c2,] fx, fy, fxc, fyc, stream
+    "sfm_pair_sym_dense_batched": _RECT_BATCHED + [_PTR] * 5,
+    "sfm_pair_sym_dense_cutoff_batched": (_RECT_BATCHED
+                                          + [_PTR, _PTR, _FLOAT]
+                                          + [_PTR] * 5),
     # law, n_dev, n_local, rx, ry, ru, rv, rrad, ralive, cols, comm, sync,
     # acc, prm, use_radius, cutoff, c2, fx, fy, stream
     "sfm_ring_force": ([_INT] * 3 + [_PTR] * 11 + [_INT, _INT, _FLOAT]
                        + [_PTR] * 3),
+    # law, n_batch, n_dev, n_local, rx .. ralive, cols, comm, sync, acc,
+    # prm, prm_stride, use_radius, cutoff, c2, fx, fy, stream
+    "sfm_ring_force_batched": ([_INT] * 4 + [_PTR] * 11
+                               + [_INT, _INT, _INT, _FLOAT] + [_PTR] * 3),
     # px, py, prad, alive, ptx, pty, k, lens, cx, cy, r2, s_count, a, b,
     # use_radius, n, fx, fy, stream
     "sfm_env_exp": ([_PTR] * 6 + [_INT] + [_PTR] * 4

@@ -59,7 +59,15 @@ against their plain batched versions and the unbatched kernels row by
 row, shared and swept, config #5 + ORCA + ``env_analytic`` over config
 #3's geometry, a sweep of ``orca_tau`` x ``orca_neighbor_dist`` over 8
 rows of config #3 at 10,000, and ``corridor_counterflow`` and
-``obstacle_evasion`` with ``sfm_orca.toml`` swept over 8 rows.  It counts
+``obstacle_evasion`` with ``sfm_orca.toml`` swept over 8 rows; then
+(phase 33) ensembles over a 2-D (batch, agents) mesh of 2 x 4 virtual
+shards on the one card: the batched rectangular dense walks, the batched
+full-block kernel and the batched in-kernel ring against their plain
+batched versions and the unbatched kernels row by row, config #5 through
+``make_sharded_ensemble_rollout`` under each column schedule (and the half
+ring with the 30 m cutoff), 8 crowds of 50,000 with the cutoff under
+``gather`` on the batched survivor table, and the ``mesh`` argument of
+``make_ensemble_rollout`` row by row.  It counts
 the kernel launches of each path, and checks every step of short rollouts
 (50 steps; the family and batched paths 25, phases 31 and 32 10) through
 the kernels against the same
@@ -3560,6 +3568,477 @@ def orca_batch_phases(dev, zero, card, launches, worst, profile_steps):
     return table
 
 
+#: ensembles over a 2-D (batch, agents) mesh (phase 33, item 19b.4):
+#: config #5 (batched_crowds(256, 1000) on benchmark_bundle(1000)) on a
+#: 2 x 4 mesh of virtual shards on the one card (128 crowds x 250 slots a
+#: shard) under each column schedule, MESH_STEPS timed steps after a
+#: warm-up of as many; config #5 + 30 m cutoff under the half-ring; 8
+#: crowds of 50,000 (256 cut to 8 for time, as phase 30) + 30 m cutoff
+#: under gather with a MESH_TABLE_MAX_SURV-slot table (the batched #3),
+#: MESH_TABLE_STEPS timed steps, its step check at 4 x 4,000 with an 8-slot
+#: table (the plain references at 8 x 50,000 take seconds a step); every
+#: path's checked run MESH_PARITY_STEPS steps at GEOM_BATCH crowds (the
+#: plain reference steps 256 crowds in about a second, as phase 27's
+#: checks); the ring kernel checked at the timed 256 crowds for the
+#: Moussaid law without a cutoff, the other cases on MESH_RING_LAW_BATCH
+#: of them (its plain version, 4,096 plain blocks at 256, took 5.2 s a
+#: call)
+MESH_AGENTS = 4
+MESH_BATCH_SHARDS = 2
+MESH_STEPS = 5
+MESH_PARITY_STEPS = 10
+MESH_RING_LAW_BATCH = 32
+MESH_TABLE_BATCH = 8
+MESH_TABLE_N = 50_000
+MESH_TABLE_STEPS = 5
+MESH_TABLE_MAX_SURV = 32
+MESH_TABLE_PARITY = (4, 4_000, 8)
+
+
+def rect_pairs_within(rows, cols, c2, row_off, col_off):
+    """Ordered pairs (row, column) of alive agents within squared distance
+    ``c2`` (every pair with ``c2`` None), summed over the crowds of ``(B,
+    R)`` row and ``(B, C)`` column planes; self pairs by global slot."""
+    import torch
+    x, y, alive = rows[0], rows[1], rows[5]
+    cx, cy, calive = cols[0], cols[1], cols[5]
+    ri = torch.arange(x.shape[1], device=x.device) + row_off
+    ci = torch.arange(cx.shape[1], device=x.device) + col_off
+    total = 0
+    for b in range(x.shape[0]):
+        for lo in range(0, x.shape[1], 2048):
+            hi = lo + 2048
+            ok = (alive[b, lo:hi, None] & calive[b, None, :]
+                  & (ri[lo:hi, None] != ci[None, :]))
+            if c2 is not None:
+                dx = cx[b, None, :] - x[b, lo:hi, None]
+                dy = cy[b, None, :] - y[b, lo:hi, None]
+                ok &= dx * dx + dy * dy <= c2
+            total += int(ok.sum())
+    return total
+
+
+def device_activities(prof):
+    """``{name: (ns, count)}`` of a profile's device activities (kernels,
+    copies, sets), each once by (correlation id, start), summed from its
+    raw events by name (the ``key_averages()`` table of 20 steps of some
+    5,000 kernels took over a minute to build)."""
+    from torch.autograd import DeviceType
+    seen, by_name = set(), {}
+    for e in prof.profiler.kineto_results.events():
+        key = (e.correlation_id(), e.start_ns())
+        if e.device_type() != DeviceType.CUDA or key in seen:
+            continue
+        seen.add(key)
+        ns, count = by_name.get(e.name(), (0, 0))
+        by_name[e.name()] = (ns + e.end_ns() - e.start_ns(), count + 1)
+    return by_name
+
+
+def device_busy(label, run, steps, step_ms, card):
+    """The device-busy share of ``run()`` (``steps`` steps of a path whose
+    unprofiled step took ``step_ms``): its device activities summed."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    by_name = device_activities(prof)
+    busy = sum(ns for ns, _ in by_name.values()) / 1e6 / steps
+    n_act = sum(count for _, count in by_name.values())
+    say(f"{label} profile, {steps} steps: device busy {busy:.3f} ms per "
+        f"step = {100 * busy / step_ms:.1f}% of the unprofiled "
+        f"{step_ms:.3f} ms step, {n_act / steps:.0f} device activities "
+        f"per step ({card})")
+
+
+def mesh_batch_phases(dev, zero, card, launches, worst):
+    """Phase 33: ensembles over a 2-D (batch, agents) mesh of virtual
+    shards (item 19b.4).  (a) The batched sharded kernels at the paths'
+    shapes: the rectangular dense walks (#2 all-tiles and box-skip, #3
+    table) of one shard's 128 crowds x 250 rows against the gathered
+    1,000 columns and against the next shard's block, the full-block
+    kernel (#4) plain and with the cutoff, and the in-kernel ring (#6) over
+    256 crowds x 4 shards (the cutoff and the other laws on 32), each
+    against its plain batched version and row by row against the
+    unbatched launch (bitwise, #4 within the limit), with device times,
+    plain times and bounds; the table form at one shard's 4 crowds x
+    12,500 rows of 8 x 50,000.  (b) Config #5 through
+    ``make_sharded_ensemble_rollout`` under each schedule (and with the
+    30 m cutoff; 8 x 50,000 under gather on the table): launches, step
+    time and agent-steps/s, and every step of a 10-step run (16 crowds;
+    the table path 4 x 4,000) against the plain versions' step from the
+    same state.  (c) The ``mesh`` argument of
+    ``make_ensemble_rollout`` over 2 batch shards equal row by row to the
+    unsharded ensemble.  Returns ``{kernel: (source line, ms, plain_ms,
+    bound)}`` for the kernels line."""
+    import dataclasses
+    import torch
+    import shard_cases as sc
+    from carla_social_force_model_tpu_torch.api.synthetic import (
+        batched_crowds, benchmark_bundle)
+    from carla_social_force_model_tpu_torch.models import stepper
+    from carla_social_force_model_tpu_torch.models.params import law_rows
+    from carla_social_force_model_tpu_torch.models.state import PedState
+    from carla_social_force_model_tpu_torch.ops import (cuda_forces,
+                                                        cuda_ring, pair_grid)
+    from carla_social_force_model_tpu_torch.parallel import (make_mesh,
+                                                             sweeps)
+    from carla_social_force_model_tpu_torch.parallel.sharding import (
+        join_shards, prepare_sharded_scene, shard_of)
+    table = {}
+    src = "carla_social_force_model_tpu/ops/"
+    d, r = MESH_AGENTS, MESH_BATCH_SHARDS
+    per = BATCH // r
+    k = BATCH_N // d
+    c2 = pair_grid.cutoff_sq(CUTOFF_M)
+    plane_bytes = 5 * 4 + 1
+
+    def held(label, got, want, lim, name, one, bitwise):
+        """``got`` within ``lim`` of the plain version ``want`` and equal to
+        the unbatched launches ``one`` (bitwise, or within ``lim``)."""
+        err = (got - want).abs()
+        apart = (got - one).abs().max().item()
+        say(f"phase 33 {label}: max abs err {err.max().item():.3e} vs the "
+            f"plain batched version, worst err/limit "
+            f"{(err / lim).max().item():.3f} (limit {sc.ATOL:g} + "
+            f"{sc.RTOL:g}*S); rows vs the unbatched kernel: "
+            + ("bitwise equal" if torch.equal(got, one)
+               else f"max diff {apart:.3e}"))
+        if not torch.isfinite(got).all():
+            fail(f"{name}: non-finite forces")
+        if bool((err > lim).any()):
+            fail(f"{name} ({label}) disagrees with its plain version")
+        if bitwise and not torch.equal(got, one):
+            fail(f"{name} ({label}): a row differs from the unbatched kernel "
+                 f"on that row")
+        if not bitwise and bool(((got - one).abs() > lim).any()):
+            fail(f"{name} ({label}): a row is farther from the unbatched "
+                 f"kernel than the limit")
+        worst[name] = max(worst.get(name, 0.0), err.max().item())
+
+    lap("phase 33")
+    # -- (a) the kernels at the paths' shapes -------------------------------
+    planes = sc.batch_shard_planes(per, BATCH_N, seed=33, device=dev,
+                                   extent=35.0, n_shards=d)
+    sorted_planes = sc.batch_shard_planes(per, BATCH_N, seed=33, device=dev,
+                                          extent=35.0, n_shards=d, sort=True)
+    for law in sc.LAWS:
+        for gathered in (True, False):
+            for cutoff, ms in ((None, 0), (CUTOFF_M, 0), (CUTOFF_M, 2)):
+                pl = planes if cutoff is None else sorted_planes
+                got, want, lim, one = sc.rect_batch_case(
+                    law, pl, d, 1, cutoff, gathered, max_surv=ms)
+                torch.cuda.synchronize()
+                form = ("dense" if cutoff is None else "compact" if ms
+                        else "dense_cutoff")
+                name = f"{cuda_forces.LAWS[law][0]}_{form}_rect_batched"
+                held(f"{name}, {per} crowds x {k} rows x "
+                     f"{BATCH_N if gathered else k} columns", got, want, lim,
+                     name, one, True)
+    for law in ("moussaid", "powerlaw"):
+        for cutoff in (None, CUTOFF_M):
+            pl = planes if cutoff is None else sorted_planes
+            rows = [a[:, :k].contiguous() for a in pl]
+            blk = [a[:, k:2 * k].contiguous() for a in pl]
+            got_r, got_c, want_r, want_c, lim_r, lim_c, one_r, one_c = (
+                sc.sym_dense_batch_case(law, rows, blk, cutoff))
+            torch.cuda.synchronize()
+            name = (f"{cuda_forces.LAWS[law][0]}_sym_dense"
+                    f"{'' if cutoff is None else '_cutoff'}_batched")
+            for side, got, want, lim, one in (
+                    ("rows", got_r, want_r, lim_r, one_r),
+                    ("columns", got_c, want_c, lim_c, one_c)):
+                held(f"{name} {side}, {per} crowds x {k} x {k}", got, want,
+                     lim, name, one, False)
+    ring_planes = sc.batch_shard_planes(BATCH, BATCH_N, seed=34, device=dev,
+                                        extent=35.0, n_shards=d)
+    ring_sorted = sc.batch_shard_planes(BATCH, BATCH_N, seed=34, device=dev,
+                                        extent=35.0, n_shards=d, sort=True)
+    for law in sc.LAWS:
+        for cutoff in (None, CUTOFF_M):
+            nb = (BATCH if law == "moussaid" and cutoff is None
+                  else MESH_RING_LAW_BATCH)
+            pl = [a[:nb] for a in (ring_planes if cutoff is None
+                                   else ring_sorted)]
+            nb = pl[0].shape[0]
+            got, want, lim, one = sc.ring_batch_case(law, pl, d, cutoff)
+            args, kw = sc.law_args(law, pl)
+            again = torch.stack(cuda_ring.ring_force_batched(
+                *args, law_rows(law, sc.law_params(law), nb, dev), d,
+                cutoff=cutoff, **kw))
+            torch.cuda.synchronize()
+            label = (f"ring_force_batched {law}, {nb} crowds x {d} x {k}"
+                     + ("" if cutoff is None else f", {CUTOFF_M:g} m"))
+            held(label, got, want, lim, "ring_force_batched", one, True)
+            if not torch.equal(got, again):
+                fail(f"{label}: a second launch gives another result")
+    # the table form at one shard's share of 8 x 50,000
+    tk = MESH_TABLE_N // d
+    tpl = sc.batch_shard_planes(MESH_TABLE_BATCH // r, MESH_TABLE_N, seed=35,
+                                device=dev, n_shards=d, sort=True)
+    got, want, lim, one = sc.rect_batch_case(
+        "moussaid", tpl, d, 1, CUTOFF_M, True,
+        max_surv=MESH_TABLE_MAX_SURV)
+    torch.cuda.synchronize()
+    held(f"pair_force_compact_rect_batched, {MESH_TABLE_BATCH // r} crowds "
+         f"x {tk} rows x {MESH_TABLE_N} columns, {MESH_TABLE_MAX_SURV} "
+         f"slots", got, want, lim, "pair_force_compact_rect_batched", one,
+         True)
+
+    # times at the paths' shapes (Moussaid), each beside its bound: every
+    # input read once, every output written once, the pairs the data needs
+    p = sc.law_params("moussaid")
+    prm = law_rows("moussaid", p, per, dev)
+    rows = [a[:, k:2 * k].contiguous() for a in planes]
+    blk = [a[:, 2 * k:3 * k].contiguous() for a in planes]
+    srows = [a[:, :k].contiguous() for a in sorted_planes]
+    sblk = [a[:, k:2 * k].contiguous() for a in sorted_planes]
+    six = lambda q: tuple(q[:6])  # noqa: E731
+    block_grid = pair_grid.block_grid(
+        pair_grid.box_planes(srows[0], srows[1], srows[5], pair_grid.SYM_TILE),
+        pair_grid.box_planes(sblk[0], sblk[1], sblk[5], pair_grid.SYM_TILE),
+        CUTOFF_M)
+    trows = [a[:, tk:2 * tk].contiguous() for a in tpl]
+    tgrid = pair_grid.rect_grid(
+        trows[0], trows[1], trows[5],
+        pair_grid.box_planes(tpl[0], tpl[1], tpl[5], pair_grid.COL_TILE),
+        MESH_TABLE_N, CUTOFF_M, max_surv=MESH_TABLE_MAX_SURV)
+    tprm = law_rows("moussaid", p, MESH_TABLE_BATCH // r, dev)
+    ring_prm = law_rows("moussaid", p, BATCH, dev)
+    slot = 6 * k + 4 * -(-k // pair_grid.COL_TILE)
+    out = 2 * 4
+    timing = {
+        "pair_force_dense_rect_batched": (
+            lambda: cuda_forces.pair_force_rect_batched(
+                *six(rows), prm, six(planes), row_offset=k),
+            "pair_force_dense_batched_kernel",
+            lambda: cuda_forces.plain_batched_force(
+                "moussaid", *six(rows), p, cols=six(planes), row_offset=k),
+            bound(per * ((k + BATCH_N) * plane_bytes + out * k) + 4 * 6,
+                  rect_pairs_within(rows, planes, None, k, 0) * PAIR_OPS,
+                  rect_pairs_within(rows, planes, None, k, 0) * PAIR_MUFU),
+            f"{per} crowds x {k} rows x {BATCH_N} gathered columns"),
+        "pair_force_dense_rect_batched (ring block)": (
+            lambda: cuda_forces.pair_force_rect_batched(
+                *six(rows), prm, six(blk), row_offset=k, col_offset=2 * k),
+            "pair_force_dense_batched_kernel",
+            lambda: cuda_forces.plain_batched_force(
+                "moussaid", *six(rows), p, cols=six(blk), row_offset=k,
+                col_offset=2 * k),
+            bound(per * (2 * k * plane_bytes + out * k) + 4 * 6,
+                  rect_pairs_within(rows, blk, None, k, 2 * k) * PAIR_OPS,
+                  rect_pairs_within(rows, blk, None, k, 2 * k) * PAIR_MUFU),
+            f"{per} crowds x {k} rows x a {k}-column block"),
+        "pair_force_sym_dense_batched": (
+            lambda: cuda_forces.pair_force_sym_dense_batched(
+                *six(rows), prm, six(blk), row_offset=k, col_offset=2 * k),
+            "pair_force_sym_dense_batched_kernel",
+            lambda: cuda_forces.plain_batched_force(
+                "moussaid", *six(rows), p, cols=six(blk), row_offset=k,
+                col_offset=2 * k, mirror=True),
+            bound(per * (2 * k * plane_bytes + 2 * out * k) + 4 * 6,
+                  rect_pairs_within(rows, blk, None, k, 2 * k)
+                  * (PAIR_OPS + 2),
+                  rect_pairs_within(rows, blk, None, k, 2 * k) * PAIR_MUFU),
+            f"{per} crowds x {k} x {k} blocks"),
+        "pair_force_sym_dense_cutoff_batched": (
+            lambda: cuda_forces.pair_force_sym_dense_batched(
+                *six(srows), prm, six(sblk), col_offset=k, grid=block_grid),
+            "pair_force_sym_dense_batched_kernel",
+            lambda: cuda_forces.plain_batched_force(
+                "moussaid", *six(srows), p, cutoff=CUTOFF_M, cols=six(sblk),
+                col_offset=k, mirror=True),
+            bound(per * (2 * k * plane_bytes + 2 * out * k)
+                  + 4 * (block_grid.boxes.numel()
+                         + block_grid.row_boxes.numel()) + 4 * 6,
+                  rect_pairs_within(srows, sblk, c2, 0, k) * (PAIR_OPS + 2),
+                  rect_pairs_within(srows, sblk, c2, 0, k) * PAIR_MUFU),
+            f"{per} crowds x {k} x {k} sorted blocks, {CUTOFF_M:g} m"),
+        "pair_force_compact_rect_batched": (
+            lambda: cuda_forces.pair_force_rect_batched(
+                *six(trows), tprm, six(tpl), row_offset=tk, grid=tgrid),
+            "pair_force_dense_batched_kernel",
+            lambda: cuda_forces.plain_batched_force(
+                "moussaid", *six(trows), p, cutoff=CUTOFF_M, cols=six(tpl),
+                row_offset=tk),
+            bound((MESH_TABLE_BATCH // r) * ((tk + MESH_TABLE_N)
+                                             * plane_bytes + out * tk)
+                  + 4 * (tgrid.boxes.numel() + tgrid.surv.numel()
+                         + tgrid.counts.numel()) + 4 * 6,
+                  rect_pairs_within(trows, tpl, c2, tk, 0) * PAIR_OPS,
+                  rect_pairs_within(trows, tpl, c2, tk, 0) * PAIR_MUFU),
+            f"{MESH_TABLE_BATCH // r} crowds x {tk} rows x {MESH_TABLE_N} "
+            f"columns, {MESH_TABLE_MAX_SURV} slots"),
+        "ring_force_batched": (
+            lambda: cuda_ring.ring_force_batched(*six(ring_planes), ring_prm,
+                                                 d),
+            "ring_force_batched_kernel",
+            lambda: cuda_ring.ring_force_batched_plain(*six(ring_planes), p,
+                                                       d),
+            bound(BATCH * (BATCH_N * (plane_bytes + out) + d * slot * 4
+                           + 2 * d * (d - 1) * slot * 4) + 4 * 6,
+                  rect_pairs_within(ring_planes, ring_planes, None, 0, 0)
+                  * PAIR_OPS,
+                  rect_pairs_within(ring_planes, ring_planes, None, 0, 0)
+                  * PAIR_MUFU),
+            f"{BATCH} crowds x {d} shards x {k}")}
+    for name, (fn, kernel, plain, bnd, shape) in timing.items():
+        t_ms = device_ms(fn, kernel)
+        how = TIMED_BY[0]
+        p_ms = cuda_ms(plain, reps=1, warm=False)
+        key = name.split(" ")[0]
+        if key not in table:
+            table[key] = (src + {"ring_force_batched": "pallas_ring.py:65",
+                                 "pair_force_compact_rect_batched":
+                                     "pallas_forces.py:205"}.get(
+                key, "pallas_forces.py:"
+                + ("296" if "sym_dense" in key else "162")),
+                t_ms, p_ms, bnd)
+        say(f"phase 33 time {name} ({shape}): kernel {t_ms:.4f} ms ({how}), "
+            f"plain batched version {p_ms:.3f} ms, bound {bnd[0]:.6f} ms "
+            f"({bnd[1]}) ({card})")
+
+    # -- (b) the paths ------------------------------------------------------
+    lap("phase 33 paths")
+    mesh = make_mesh(d, n_batch_shards=r, device=dev)
+    label_mesh = f"{r} x {d} virtual shards on one card"
+
+    def check_mesh_steps(label, scene, params, cfg, steps):
+        """``steps`` steps of the 2-D mesh through the kernels, each against
+        the unsharded plain versions' step from the same state: every row
+        within POS_STEP_TOL_M, modes and alive equal, finite."""
+        scene, cap = prepare_sharded_scene(stepper.prepare_scene(scene), d)
+        b = scene.spawn.step.shape[0]
+        rp = b // r
+        shards = [dataclasses.replace(scene, spawn=shard_of(
+            sweeps.rows_of(scene.spawn, q * rp, (q + 1) * rp), j, d))
+            for q in range(r) for j in range(d)]
+        ref_cfg = plain_cfg(cfg)
+        s = PedState.empty(cap, device=dev, batch=b)
+        gaps = []
+        for t in range(steps):
+            outs = mesh.run(
+                lambda ax, st, sc_: stepper.simulation_step(
+                    st, sc_, params, cfg, t, axis=ax)[0],
+                [shard_of(sweeps.rows_of(s, q * rp, (q + 1) * rp), j, d)
+                 for q in range(r) for j in range(d)], shards)
+            got = [join_shards(outs[q * d:(q + 1) * d])[0] for q in range(r)]
+            got = PedState(**{f.name: torch.cat([getattr(g, f.name)
+                                                 for g in got])
+                              for f in dataclasses.fields(PedState)})
+            ref, _ = stepper.simulation_step(s, scene, params, ref_cfg, t)
+            gap = torch.maximum((got.pos_x - ref.pos_x).abs(),
+                                (got.pos_y - ref.pos_y).abs()).amax(dim=1)
+            gaps.append(gap.max().item())
+            if not (torch.equal(got.alive, ref.alive)
+                    and torch.equal(got.mode, ref.mode)):
+                fail(f"{label}: step {t} gives other modes or alive masks "
+                     f"than the plain versions' step")
+            if not (torch.isfinite(got.pos_x).all()
+                    and torch.isfinite(got.pos_y).all()):
+                fail(f"{label}: non-finite positions after step {t}")
+            if gaps[-1] > POS_STEP_TOL_M:
+                fail(f"{label}: step {t}, row {int(gap.argmax())}: one-step "
+                     f"position L-inf {gaps[-1]:.3e} m exceeds "
+                     f"{POS_STEP_TOL_M} m")
+            s = got
+        say(f"{label} ({label_mesh}, B={b} x N={cap}): one-step position "
+            f"L-inf kernels vs the plain versions from the same state, "
+            f"worst row of each step 1..{steps} (limit {POS_STEP_TOL_M:g} "
+            f"m): " + " ".join(f"{v:.2e}" for v in gaps))
+
+    scene, params, cfg, _ = benchmark_bundle(BATCH_N, device=dev)
+    ens = dataclasses.replace(scene, spawn=batched_crowds(BATCH, BATCH_N,
+                                                          device=dev))
+    small = dataclasses.replace(scene, spawn=batched_crowds(
+        GEOM_BATCH, BATCH_N, device=dev))
+    n_pairs = d * (d - 1) // 2
+    paths = (
+        ("gather", True, None, dict(pair_force_dense_rect_batched=r * d)),
+        ("ring", True, None, dict(pair_force_sym_batched=r * d,
+                                  pair_force_sym_dense_batched=r * n_pairs)),
+        ("ring", False, None, dict(pair_force_dense_rect_batched=r * d * d)),
+        ("ring_kernel", True, None, dict(ring_force_batched=1)),
+        ("ring", True, CUTOFF_M, dict(
+            pair_force_sym_cutoff_batched=r * d,
+            pair_force_sym_dense_cutoff_batched=r * n_pairs)))
+    for comm, symmetric, cutoff, per_step in paths:
+        name = ("half-ring" if comm == "ring" and symmetric else
+                "ring, symmetric_pairs=False" if comm == "ring" else comm)
+        kcfg = dataclasses.replace(cfg, axis_comm=comm,
+                                   symmetric_pairs=symmetric,
+                                   interaction_cutoff=cutoff)
+        label = (f"phase 33 config #5 on the 2-D mesh, {name}"
+                 + ("" if cutoff is None else f" + {CUTOFF_M:g} m cutoff"))
+        check_mesh_steps(label, small, params, kcfg, MESH_PARITY_STEPS)
+        counts, step_ms, _ = run_batch(
+            label, lambda n_steps, c=kcfg: (
+                lambda _, run=sweeps.make_sharded_ensemble_rollout(
+                    mesh, ens, params, c, n_steps): run()),
+            None, MESH_STEPS,
+            dict(zero, **{kk: v * MESH_STEPS for kk, v in per_step.items()}),
+            BATCH, card)
+        if cutoff is None and comm in ("gather", "ring_kernel"):
+            device_busy(label, sweeps.make_sharded_ensemble_rollout(
+                mesh, ens, params, kcfg, MESH_STEPS), MESH_STEPS, step_ms,
+                card)
+        for kk in per_step:
+            launches[kk] = max(launches.get(kk, 0), counts[kk])
+    # 8 x 50,000 + the cutoff under gather, on the survivor table
+    scene, params, cfg, _ = benchmark_bundle(MESH_TABLE_N, device=dev)
+    tcfg = dataclasses.replace(cfg, axis_comm="gather",
+                               interaction_cutoff=CUTOFF_M,
+                               pair_max_surv=MESH_TABLE_MAX_SURV)
+    tab = dataclasses.replace(scene, spawn=batched_crowds(
+        MESH_TABLE_BATCH, MESH_TABLE_N, extent=float(
+            max(25.0, MESH_TABLE_N ** 0.5)), device=dev))
+    label = (f"phase 33 {MESH_TABLE_BATCH} x {MESH_TABLE_N} + {CUTOFF_M:g} m "
+             f"cutoff on the 2-D mesh, gather, {MESH_TABLE_MAX_SURV}-slot "
+             f"table")
+    counts, _, _ = run_batch(
+        label, lambda n_steps: (
+            lambda _, run=sweeps.make_sharded_ensemble_rollout(
+                mesh, tab, params, tcfg, n_steps): run()),
+        None, MESH_TABLE_STEPS,
+        dict(zero, pair_force_compact_rect_batched=r * d * MESH_TABLE_STEPS),
+        MESH_TABLE_BATCH, card)
+    launches["pair_force_compact_rect_batched"] = counts[
+        "pair_force_compact_rect_batched"]
+    pb, pn, pms = MESH_TABLE_PARITY
+    scene, params, cfg, _ = benchmark_bundle(pn, device=dev)
+    check_mesh_steps(
+        f"phase 33 {pb} x {pn} + {CUTOFF_M:g} m cutoff, gather, {pms}-slot "
+        f"table (the table path's check, cut from {MESH_TABLE_BATCH} x "
+        f"{MESH_TABLE_N})",
+        dataclasses.replace(scene, spawn=batched_crowds(pb, pn, device=dev)),
+        params, dataclasses.replace(cfg, axis_comm="gather",
+                                    interaction_cutoff=CUTOFF_M,
+                                    pair_max_surv=pms), MESH_PARITY_STEPS)
+
+    # -- (c) the mesh argument of make_ensemble_rollout ---------------------
+    lap("phase 33 mesh argument")
+    scene, params, cfg, _ = benchmark_bundle(BATCH_N, device=dev)
+    dcfg = dataclasses.replace(cfg, symmetric_pairs=False)
+    one, rec_one = sweeps.make_ensemble_rollout(ens, params, dcfg,
+                                                MESH_PARITY_STEPS,
+                                                record=True)(ens)
+    got, rec_got = sweeps.make_ensemble_rollout(
+        ens, params, dcfg, MESH_PARITY_STEPS, record=True,
+        mesh=make_mesh(1, n_batch_shards=2, device=dev))(ens)
+    torch.cuda.synchronize()
+    same = [bool(torch.equal(rec_got.pos[b], rec_one.pos[b])
+                 and torch.equal(rec_got.alive[b], rec_one.alive[b]))
+            for b in range(BATCH)]
+    say(f"phase 33 make_ensemble_rollout(mesh=make_mesh(1, n_batch_shards=2))"
+        f", config #5 x {MESH_PARITY_STEPS} steps (dense walk): "
+        f"{sum(same)} of {BATCH} rows bitwise equal to the unsharded "
+        f"ensemble ({card})")
+    if not all(same):
+        fail("the ensemble's mesh argument changes a row")
+    return table
+
+
 def main() -> None:
     try:
         import torch
@@ -3754,11 +4233,7 @@ def main() -> None:
 
     def profile_steps(scene, params, cfg, state, step_ms, label):
         """Device time per step under the profiler over 20 steps: the
-        profile's device activities (kernels, copies, sets), each once by
-        (correlation id, start), summed from its raw events by name (the
-        ``key_averages()`` table of 20 steps of some 5,000 kernels took
-        over a minute to build)."""
-        from torch.autograd import DeviceType
+        profile's device activities (``device_activities``), summed."""
         from torch.profiler import ProfilerActivity, profile
         run20 = stepper.make_rollout_fn(scene, params, cfg, 20, record=False)
         run20(state)
@@ -3768,14 +4243,8 @@ def main() -> None:
             run20(state)
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
-        seen, by_name = set(), {}
-        for e in prof.profiler.kineto_results.events():
-            key = (e.correlation_id(), e.start_ns())
-            if e.device_type() != DeviceType.CUDA or key in seen:
-                continue
-            seen.add(key)
-            ns, count = by_name.get(e.name(), (0, 0))
-            by_name[e.name()] = (ns + e.end_ns() - e.start_ns(), count + 1)
+        by_name = device_activities(prof)
+        n_act = sum(count for _, count in by_name.values())
         device_ms = sum(ns for ns, _ in by_name.values()) / 1e6
         if device_ms <= 0:
             say(f"{label} profile: no device time reported (not measured)")
@@ -3784,7 +4253,7 @@ def main() -> None:
         busy = device_ms / 20
         say(f"{label} profile, 20 steps: wall {wall_ms:.3f} ms under the "
             f"profiler, device busy {device_ms:.3f} ms, "
-            f"{len(seen) / 20:.0f} device kernels per "
+            f"{n_act / 20:.0f} device kernels per "
             f"step; busy {busy:.4f} ms per step = "
             f"{100 * busy / step_ms:.1f}% of the unprofiled "
             f"{step_ms:.4f} ms step ({card}); top: "
@@ -4112,6 +4581,8 @@ def main() -> None:
     # -- phase 32: ORCA and the per-agent columns under a batch ------------
     batched.update(orca_batch_phases(dev, zero, card, launches, worst,
                                      profile_steps))
+    # -- phase 33: ensembles over a 2-D (batch, agents) mesh ---------------
+    batched.update(mesh_batch_phases(dev, zero, card, launches, worst))
 
     lap("the kernels line")
     csrc = "carla_social_force_model_tpu_torch/csrc/"
@@ -4172,6 +4643,7 @@ def main() -> None:
         *((name, csrc + ("env_forces.cu" if name.startswith("env")
                          else "statics.cu"
                          if name.startswith(("chunk", "seg"))
+                         else "ring.cu" if name.startswith("ring")
                          else "pair_forces.cu"), replaces, ms, p_ms, bnd)
           for name, (replaces, ms, p_ms, bnd) in batched.items()),
     ]

@@ -1,7 +1,9 @@
 """Shared cases of the agent-sharding kernels (the rectangular forms of the
 dense pair kernels, the full-block kernel ``pair_force_sym_dense`` and the
-in-kernel ring ``ring_force``) for ``tests/test_torch_cuda.py``,
-``tests/test_torch_parallel_schedules.py`` and ``chip_smoke.py``: seeded
+in-kernel ring ``ring_force``, and their batched forms for a batch of
+crowds sharded over a 2-D mesh) for ``tests/test_torch_cuda.py``,
+``tests/test_torch_parallel_schedules.py``,
+``tests/test_torch_ensemble_sharded.py`` and ``chip_smoke.py``: seeded
 crowds split into shards, one launch of a form, its plain version and the
 one tolerance they are held to.
 
@@ -12,7 +14,7 @@ import numpy as np
 import torch
 
 from carla_social_force_model_tpu_torch.models.params import (
-    MoussaidParams, PedRepulsiveParams, PowerLawParams)
+    MoussaidParams, PedRepulsiveParams, PowerLawParams, law_rows)
 from carla_social_force_model_tpu_torch.ops import cuda_forces, forces
 from carla_social_force_model_tpu_torch.ops.pair_grid import (
     COL_TILE, SYM_TILE, block_grid, box_planes, rect_grid)
@@ -194,3 +196,163 @@ def ring_case(law, planes, n_shards, cutoff=None):
     dense = torch.cat([rect_case(law, planes, n_shards, d, cutoff)[0]
                        for d in range(n_shards)], dim=1)
     return got, want, limit(law, want, scale), dense
+
+
+# -- the batched forms (a batch of crowds sharded over a 2-D mesh) ------------
+
+def batch_shard_planes(batch, n, seed, device, extent=None, n_shards=1,
+                       sort=False):
+    """``batch`` crowds of :func:`shard_planes` (crowd b from seed ``seed +
+    b``) as ``(batch, n)`` planes x, y, vx, vy, radius, alive, ex, ey."""
+    rows = [shard_planes(n, seed + b, device, extent, n_shards, sort)
+            for b in range(batch)]
+    return [torch.stack(col).contiguous() for col in zip(*rows)]
+
+
+def _crowd(planes, b):
+    """Crowd b of ``(B, n)`` planes (None entries stay None)."""
+    return [None if a is None else a[b] for a in planes]
+
+
+def _row_grid(grid, b):
+    """Crowd b's grid of a batched grid (boxes, row boxes, table)."""
+    def row(t):
+        return None if t is None else t[b].contiguous()
+    return grid._replace(boxes=row(grid.boxes), surv=row(grid.surv),
+                         counts=row(grid.counts),
+                         row_boxes=row(grid.row_boxes))
+
+
+def law_args(law, planes):
+    """The kernels' arguments of ``law`` from planes x .. ey: the six
+    planes (no radius for Helbing) and the keywords."""
+    x, y, vx, vy, rad, alive, ex, ey = planes
+    hel = law == "helbing"
+    return ((x, y, vx, vy, None if hel else rad, alive),
+            dict(law=law, desired=(ex, ey) if hel else None))
+
+
+def rect_batch_case(law, planes, n_shards, shard, cutoff=None, gathered=True,
+                    compact=True, max_surv=0, kernel=True):
+    """:func:`rect_case` on a batch of crowds (``(B, n)`` planes, every crowd
+    sharded alike): shard ``shard``'s rows of each crowd against all of its
+    columns (``gathered``) or its next shard's block.  ``(got, want, lim,
+    one)``, each ``(2, B, R)``: the batched kernel
+    (``pair_force_rect_batched``, with the batched ``rect_grid`` under a
+    cutoff), its plain version (``plain_batched_force`` with ``cols``), the
+    bound of ``limit`` from each crowd's pair magnitudes, and each crowd
+    through the unbatched kernel (``pair_force_rect`` on its own grid).
+    ``kernel=False`` (the CPU) leaves ``got`` and ``one`` None."""
+    batch, n = planes[0].shape
+    k = n // n_shards
+    src = shard if gathered else (shard + 1) % n_shards
+    c0, c1 = (0, n) if gathered else (src * k, (src + 1) * k)
+    rows = [a[:, shard * k:(shard + 1) * k].contiguous() for a in planes]
+    cols = [a[:, c0:c1].contiguous() for a in planes]
+    args, kw = law_args(law, rows)
+    cols6 = tuple(cols[:6])
+    p = law_params(law)
+    off = dict(row_offset=shard * k, col_offset=c0)
+    want = torch.stack(cuda_forces.plain_batched_force(
+        law, *args, p, cutoff=cutoff, desired=kw["desired"], cols=cols6,
+        **off))
+    lim = torch.stack([limit(law, want[:, b], plain_pairs(
+        law, _crowd(rows, b), _crowd(cols, b), shard * k, c0, cutoff,
+        magnitudes=True)) for b in range(batch)], dim=1)
+    if not kernel:
+        return None, want, lim, None
+    x, y, alive = rows[0], rows[1], rows[5]
+    grid = None if cutoff is None else rect_grid(
+        x, y, alive, box_planes(cols[0], cols[1], cols[5], COL_TILE),
+        c1 - c0, cutoff, compact=compact, max_surv=max_surv)
+    prm = law_rows(law, p, batch, x.device)
+    got = torch.stack(cuda_forces.pair_force_rect_batched(
+        *args, prm, cols6, grid=grid, **off, **kw))
+    one = []
+    for b in range(batch):
+        rk = dict(kw, desired=(None if kw["desired"] is None
+                               else _crowd(kw["desired"], b)))
+        one.append(torch.stack(cuda_forces.pair_force_rect(
+            *_crowd(args, b), prm[b].contiguous(), tuple(_crowd(cols6, b)),
+            grid=None if grid is None else _row_grid(grid, b), **off,
+            **rk)))
+    return got, want, lim, torch.stack(one, dim=1)
+
+
+def sym_dense_batch_case(law, rows, cols, cutoff=None, row_offset=0,
+                         col_offset=None, kernel=True):
+    """:func:`sym_dense_case` on a batch of crowds: ``rows`` and ``cols``
+    two shards' ``(B, R)`` and ``(B, C)`` planes.  ``(got_r, got_c, want_r,
+    want_c, lim_r, lim_c, one_r, one_c)``, ``(2, B, R)`` or ``(2, B, C)``:
+    the batched full-block kernel (with the batched ``block_grid`` under a
+    cutoff), its plain version (``plain_batched_force`` with ``mirror``),
+    the bounds, and each crowd through the unbatched kernel.
+    ``kernel=False`` leaves the kernels' entries None."""
+    batch = rows[0].shape[0]
+    if col_offset is None:
+        col_offset = row_offset + rows[0].shape[1]
+    args, _ = law_args(law, rows)
+    cols6 = tuple(cols[:6])
+    p = law_params(law)
+    off = dict(row_offset=row_offset, col_offset=col_offset)
+    fx, fy, fxc, fyc = cuda_forces.plain_batched_force(
+        law, *args, p, cutoff=cutoff, cols=cols6, mirror=True, **off)
+    want_r, want_c = torch.stack((fx, fy)), torch.stack((fxc, fyc))
+    lims_r, lims_c = [], []
+    for b in range(batch):
+        mag_r, mag_c = plain_pairs(law, _crowd(rows, b), _crowd(cols, b),
+                                   row_offset, col_offset, cutoff,
+                                   magnitudes=True, mirror=True)
+        lims_r.append(limit(law, want_r[:, b], mag_r))
+        lims_c.append(limit(law, want_c[:, b], -mag_c))
+    lim_r, lim_c = torch.stack(lims_r, dim=1), torch.stack(lims_c, dim=1)
+    if not kernel:
+        return None, None, want_r, want_c, lim_r, lim_c, None, None
+    x, y, alive = rows[0], rows[1], rows[5]
+    grid = None if cutoff is None else block_grid(
+        box_planes(x, y, alive, SYM_TILE),
+        box_planes(cols[0], cols[1], cols[5], SYM_TILE), cutoff)
+    prm = law_rows(law, p, batch, x.device)
+    gx, gy, gxc, gyc = cuda_forces.pair_force_sym_dense_batched(
+        *args, prm, cols6, grid=grid, law=law, **off)
+    ones = [cuda_forces.pair_force_sym_dense(
+        *_crowd(args, b), prm[b].contiguous(), tuple(_crowd(cols6, b)),
+        grid=None if grid is None else _row_grid(grid, b), law=law, **off)
+        for b in range(batch)]
+    one_r = torch.stack([torch.stack(o[:2]) for o in ones], dim=1)
+    one_c = torch.stack([torch.stack(o[2:]) for o in ones], dim=1)
+    return (torch.stack((gx, gy)), torch.stack((gxc, gyc)), want_r, want_c,
+            lim_r, lim_c, one_r, one_c)
+
+
+def ring_batch_case(law, planes, n_shards, cutoff=None, kernel=True):
+    """:func:`ring_case` on a batch of crowds (``(B, N)`` planes, every
+    crowd over the same ``n_shards`` virtual devices): ``(got, want, lim,
+    one)``, each ``(2, B, N)``: one launch of ``ring_force_batched``, its
+    plain version (``ring_force_batched_plain``), the bound from each
+    crowd's pair magnitudes, and each crowd through the unbatched
+    ``ring_force``.  ``kernel=False`` leaves ``got`` and ``one`` None."""
+    from carla_social_force_model_tpu_torch.ops import cuda_ring
+    batch, n = planes[0].shape
+    k = n // n_shards
+    args, kw = law_args(law, planes)
+    p = law_params(law)
+    want = torch.stack(cuda_ring.ring_force_batched_plain(
+        *args, p, n_shards, cutoff=cutoff, **kw))
+    lim = torch.stack([limit(law, want[:, b], torch.cat([
+        plain_pairs(law, split(_crowd(planes, b), d * k, (d + 1) * k),
+                    _crowd(planes, b), d * k, 0, cutoff, magnitudes=True)
+        for d in range(n_shards)], dim=1)) for b in range(batch)], dim=1)
+    if not kernel:
+        return None, want, lim, None
+    prm = law_rows(law, p, batch, planes[0].device)
+    got = torch.stack(cuda_ring.ring_force_batched(
+        *args, prm, n_shards, cutoff=cutoff, **kw))
+    one = []
+    for b in range(batch):
+        rk = dict(kw, desired=(None if kw["desired"] is None
+                               else _crowd(kw["desired"], b)))
+        one.append(torch.stack(cuda_ring.ring_force(
+            *_crowd(args, b), prm[b].contiguous(), n_shards, cutoff=cutoff,
+            **rk)))
+    return got, want, lim, torch.stack(one, dim=1)

@@ -4,7 +4,8 @@ Helbing forms, the compacted forms of the environment kernels and the
 analytic form of the border kernel), the ORCA wall-feed kernels, the
 chunk scan of the chunked environment forces, and the agent-sharding
 kernels (the rectangular forms of the dense kernels, the full-block kernel
-and the in-kernel ring) against their plain PyTorch versions, and the
+and the in-kernel ring, and their batched forms for a batch of crowds
+sharded over a 2-D mesh) against their plain PyTorch versions, and the
 rollouts through them (the urban slice's, the model families', the ORCA
 slice's, a scenario's and the sharded schedules' too).
 
@@ -34,8 +35,10 @@ import batch_cases as bc
 from family_cases import family_planes, family_reference, family_run
 from orca_cases import (ENV_ATOL, ENV_RTOL, analytic_run, feed_mismatch,
                         feed_run, feed_scene)
-from shard_cases import (law_params, limit, plain_pairs, rect_case,
-                         ring_case, shard_planes, split, sym_dense_case)
+from shard_cases import (batch_shard_planes, law_params, limit, plain_pairs,
+                         rect_batch_case, rect_case, ring_batch_case,
+                         ring_case, shard_planes, split,
+                         sym_dense_batch_case, sym_dense_case)
 from scenario_cases import (chunk_scan_pair, chunked_on, closest_mismatches,
                             closest_pair, scan_mismatches, seeded_chunk_set,
                             seeded_crowd_planes, stacked_chunk_planes,
@@ -2480,3 +2483,170 @@ def test_batched_cutoff_steps_through_kernels_match_plain_steps(cuda_device,
     if geometry:
         want.update(env_exp_batched=steps, env_moussaid_batched=2 * steps)
     assert launched == want
+
+
+# -- ensembles over a 2-D (batch, agents) mesh: the batched sharded kernels --
+
+@pytest.mark.parametrize("law", ["moussaid", "powerlaw", "helbing"])
+@pytest.mark.parametrize("gathered", [True, False])
+@pytest.mark.parametrize("cutoff,max_surv", [(None, 0), (8.0, 0), (8.0, 2)])
+@pytest.mark.parametrize("b,n", [(3, 520), (16, 4000)])
+def test_rect_batched_matches_plain_and_unbatched(cuda_device, law, gathered,
+                                                  cutoff, max_surv, b, n):
+    """The batched rectangular walks (#2 all-tiles and box-skip, #3 table)
+    on B crowds of 4 shards, shards 0 and 3 against the gathered columns or
+    the next shard's block: one launch, within the limit of the plain
+    batched version, and each crowd bitwise equal to the unbatched
+    rectangular launch on that crowd."""
+    planes = batch_shard_planes(b, n, seed=n + b, device=cuda_device,
+                                n_shards=4, sort=cutoff is not None)
+    for shard in (0, 3):
+        before = dict(cuda_forces.LAUNCHES)
+        got, want, lim, one = rect_batch_case(law, planes, 4, shard, cutoff,
+                                              gathered, max_surv=max_surv)
+        torch.cuda.synchronize()
+        prefix = cuda_forces.LAWS[law][0]
+        n_cols = n if gathered else n // 4
+        form = ("dense" if cutoff is None else "compact"
+                if pair_grid.compact_gate(n_cols, False, True, max_surv)[0]
+                else "dense_cutoff")
+        name = f"{prefix}_{form}_rect_batched"
+        assert cuda_forces.LAUNCHES[name] == before[name] + 1
+        assert torch.isfinite(got).all()
+        assert bool(((got - want).abs() <= lim).all()), (law, shard)
+        assert torch.equal(got, one), (law, shard)
+        rows_alive = planes[5][:, shard * (n // 4):(shard + 1) * (n // 4)]
+        assert bool((got[:, ~rows_alive] == 0).all())
+
+
+@pytest.mark.parametrize("law", ["moussaid", "powerlaw"])
+@pytest.mark.parametrize("cutoff", [None, 8.0])
+@pytest.mark.parametrize("b,n_rows,n_cols", [(3, 130, 257),
+                                             (16, 1000, 1000)])
+def test_sym_dense_batched_matches_plain_and_unbatched(cuda_device, law,
+                                                       cutoff, b, n_rows,
+                                                       n_cols):
+    """The batched full-block kernel (#4) on B crowds' blocks of two
+    shards: +f on the rows and -f on the columns, within the limit of the
+    plain batched version, and each crowd within the same limit of the
+    unbatched full-block launch (atomics: the last bits vary)."""
+    planes = batch_shard_planes(b, n_rows + n_cols, seed=b, device=cuda_device,
+                                extent=30.0, n_shards=2,
+                                sort=cutoff is not None)
+    rows = [a[:, :n_rows].contiguous() for a in planes]
+    cols = [a[:, n_rows:].contiguous() for a in planes]
+    name = (cuda_forces.LAWS[law][0] + "_sym_dense"
+            + ("" if cutoff is None else "_cutoff") + "_batched")
+    before = cuda_forces.LAUNCHES[name]
+    got_r, got_c, want_r, want_c, lim_r, lim_c, one_r, one_c = (
+        sym_dense_batch_case(law, rows, cols, cutoff))
+    torch.cuda.synchronize()
+    assert cuda_forces.LAUNCHES[name] == before + 1
+    for got, want, lim, one in ((got_r, want_r, lim_r, one_r),
+                                (got_c, want_c, lim_c, one_c)):
+        assert torch.isfinite(got).all()
+        assert bool(((got - want).abs() <= lim).all())
+        assert bool(((got - one).abs() <= lim).all())
+    assert bool((got_r[:, ~rows[5]] == 0).all())
+    assert bool((got_c[:, ~cols[5]] == 0).all())
+
+
+@pytest.mark.parametrize("law", ["moussaid", "powerlaw", "helbing"])
+@pytest.mark.parametrize("cutoff", [None, 8.0])
+@pytest.mark.parametrize("b,n_shards,n_local", [(3, 2, 130), (2, 3, 257),
+                                                (64, 4, 1000),
+                                                (3, 4, 5000)])
+def test_ring_batched_matches_plain_and_unbatched(cuda_device, law, cutoff,
+                                                  b, n_shards, n_local):
+    """The batched in-kernel ring (#6) on B crowds over the same D virtual
+    devices, one launch: within the limit of the plain batched ring, each
+    crowd bitwise equal to the unbatched ring on that crowd, and relaunched
+    on the same buffers bitwise equal.  64 crowds of 4 x 1,000 give 2,048
+    (crowd, row set) items a device, far more than the blocks the card
+    keeps resident; 4 x 5,000 give a crowd more row sets (157) than the
+    blocks of a device, so each block walks several."""
+    from carla_social_force_model_tpu_torch.ops import cuda_ring
+    planes = batch_shard_planes(b, n_local * n_shards, seed=n_local,
+                                device=cuda_device, n_shards=n_shards,
+                                sort=cutoff is not None)
+    before = cuda_ring.LAUNCHES["ring_force_batched"]
+    got, want, lim, one = ring_batch_case(law, planes, n_shards, cutoff)
+    again, *_ = ring_batch_case(law, planes, n_shards, cutoff)
+    torch.cuda.synchronize()
+    assert cuda_ring.LAUNCHES["ring_force_batched"] == before + 2
+    assert torch.isfinite(got).all()
+    assert bool(((got - want).abs() <= lim).all())
+    assert torch.equal(got, one)
+    assert torch.equal(got, again)
+    assert bool((got[:, ~planes[5]] == 0).all())
+
+
+@pytest.mark.parametrize("comm,symmetric", [
+    ("gather", True), ("ring", False), ("ring", True), ("ring_kernel", True)])
+@pytest.mark.parametrize("cutoff", [None, 10.0])
+def test_sharded_ensemble_steps_match_the_batched_step(cuda_device, comm,
+                                                       symmetric, cutoff):
+    """Config #5's shape on a 2 x 4 mesh of virtual shards (8 crowds of
+    1,000): ten steps, every step against the unsharded batched kernel
+    path's step from the same state (1e-4 m, modes and alive equal), and
+    each schedule's batched kernels launched once per shard and step (the
+    ring kernel once a step for every shard)."""
+    from carla_social_force_model_tpu_torch.api.synthetic import (
+        batched_crowds)
+    from carla_social_force_model_tpu_torch.ops import cuda_ring
+    from carla_social_force_model_tpu_torch.parallel import make_mesh, sweeps
+    from carla_social_force_model_tpu_torch.parallel.sharding import (
+        join_shards, shard_of)
+    b, n, r, d = 8, 1000, 2, 4
+    scene, params, cfg, _ = benchmark_bundle(n, device=cuda_device)
+    scene = stepper.prepare_scene(dataclasses.replace(
+        scene, spawn=batched_crowds(b, n, device=cuda_device)))
+    cfg = dataclasses.replace(cfg, axis_comm=comm, symmetric_pairs=symmetric,
+                              interaction_cutoff=cutoff)
+    mesh = make_mesh(d, n_batch_shards=r, device=cuda_device)
+    per = b // r
+
+    def rows_of(obj, q):
+        return sweeps.rows_of(obj, q * per, (q + 1) * per)
+
+    scenes = [dataclasses.replace(scene, spawn=shard_of(
+        rows_of(scene.spawn, q), k, d)) for q in range(r) for k in range(d)]
+    state = PedState.empty(n, device=cuda_device, batch=b)
+    cut = "" if cutoff is None else "_cutoff"
+    for t in range(10):
+        want, _ = stepper.simulation_step(state, scene, params, cfg, t)
+        cuda_forces.reset_launch_counts()
+        cuda_ring.reset_launch_counts()
+        outs = mesh.run(
+            lambda ax, st, sc: stepper.simulation_step(st, sc, params, cfg,
+                                                       t, axis=ax)[0],
+            [shard_of(rows_of(state, q), k, d) for q in range(r)
+             for k in range(d)], scenes)
+        rows = [join_shards(outs[q * d:(q + 1) * d])[0] for q in range(r)]
+        got = PedState(**{f.name: torch.cat([getattr(o, f.name)
+                                             for o in rows])
+                          for f in dataclasses.fields(PedState)})
+        torch.cuda.synchronize()
+        assert torch.equal(got.alive, want.alive)
+        assert torch.equal(got.mode, want.mode)
+        err = max((got.pos_x - want.pos_x).abs().max().item(),
+                  (got.pos_y - want.pos_y).abs().max().item())
+        assert err <= 1e-4, (t, err)
+        launched = {k: v for k, v in {**cuda_forces.LAUNCHES,
+                                      **cuda_ring.LAUNCHES}.items() if v}
+        if comm == "ring_kernel":
+            assert launched == {"ring_force_batched": 1}
+        elif comm == "ring" and symmetric:
+            assert launched == {
+                "pair_force_sym" + cut + "_batched": r * d,
+                "pair_force_sym_dense" + cut + "_batched":
+                    r * d * (d - 1) // 2}
+        else:
+            form = "dense" + cut
+            if cutoff is not None and comm == "gather":
+                # the gathered columns pass the gate: the survivor table
+                form = ("compact" if pair_grid.compact_gate(
+                    n, False, True, 0)[0] else form)
+            assert launched == {f"pair_force_{form}_rect_batched":
+                                r * d * (d if comm == "ring" else 1)}
+        state = got

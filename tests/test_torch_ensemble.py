@@ -33,7 +33,7 @@ from carla_social_force_model_tpu_torch.models.params import (
 from carla_social_force_model_tpu_torch.models.state import PedState
 from carla_social_force_model_tpu_torch.ops import cuda_env, cuda_forces
 from carla_social_force_model_tpu_torch.ops.spatial import morton_order
-from carla_social_force_model_tpu_torch.parallel import make_mesh, sweeps
+from carla_social_force_model_tpu_torch.parallel import sweeps
 from carla_social_force_model_tpu_torch.utils import convert
 
 #: positions, port vs JAX package, at every recorded step [m]: f32
@@ -535,34 +535,3 @@ def test_batched_step_runs_orca_and_the_columns(case):
                                                   record=True)(scene)
     assert rec.pos.shape == (2, 4, 8, 2) and torch.isfinite(rec.pos).all()
     assert bool(final.alive.any())
-
-
-@pytest.mark.parametrize("case", ["agent axis", "ensemble mesh",
-                                  "sweep mesh", "sharded ensemble",
-                                  "batch shards", "agent axis with cutoff"])
-def test_batch_sharding_and_sweep_options_refused(case):
-    scene, params, cfg, _ = synthetic.benchmark_bundle(8, extent=10.0,
-                                                       device="cpu")
-    batched = dataclasses.replace(scene, spawn=synthetic.batched_crowds(
-        2, 8, extent=10.0, device="cpu"))
-    swept = sweeps.batch_params(params, pedestrian_A=[1.0, 2.0])
-    state = PedState.empty(8, device="cpu", batch=2)
-    calls = {
-        "agent axis": lambda: stepper.simulation_step(
-            state, batched, params, cfg, 0, axis=make_mesh(
-                1, device="cpu")),
-        "ensemble mesh": lambda: sweeps.make_ensemble_rollout(
-            batched, params, cfg, 2, mesh=make_mesh(1, device="cpu")),
-        "sweep mesh": lambda: sweeps.make_sweep_rollout(
-            scene, cfg, 2, mesh=make_mesh(1, device="cpu")),
-        "sharded ensemble": lambda: sweeps.make_sharded_ensemble_rollout(
-            None, batched, params, cfg, 2),
-        "batch shards": lambda: make_mesh(1, n_batch_shards=2,
-                                          device="cpu"),
-        "agent axis with cutoff": lambda: stepper.simulation_step(
-            state, scene, swept,
-            dataclasses.replace(cfg, interaction_cutoff=30.0), 0,
-            axis=make_mesh(1, device="cpu")),
-    }
-    with pytest.raises(NotImplementedError, match="item 19b"):
-        calls[case]()

@@ -36,7 +36,7 @@ kernels against their plain versions as phases 3, 9 and 24 check them
 (the fast tail moves them).
 
     python3 tools/kernel_redesign_bench.py [--root DIR] [--label NAME] \\
-        [--out FILE] [--cases sym,env,dense,statics,feed,capacity]
+        [--out FILE] [--cases sym,env,dense,statics,feed,capacity,batched]
 
 ``--cases capacity`` asks, for each law with and without the cutoff and at
 D = 1, 4 and 8, whether one ``ring_force`` launch takes twice the agents
@@ -44,6 +44,10 @@ per device that one resident block per 128 rows could hold (3 blocks an
 SM: 2 x floor(3 x SMs / D) x 128; one JSON line each), and times the ring
 at D = 4 over N = 10,000 and over N = 2 x 50,688 agents (on 132 SMs) at
 D = 4 and D = 1 (``"ms": null`` where the launch is refused).
+
+``--cases batched`` times the square batched dense walks at phase 27's
+and phase 30's shapes (config #5 under each law, its 30 m cutoff, the table at
+8 x 50,000).
 
 ``--root`` is the checkout whose package is imported and whose kernels are
 built (into its own ``build/``); the cases' builders (``chip_smoke.py``
@@ -176,6 +180,34 @@ def dense_cases(dev):
     out.append((f"ring_force D=4 N={big}", lambda: cuda_ring.ring_force(
         *bpl[:6], prm, 4), "ring_force_kernel", 5))
     return out
+
+
+def batched_cases(dev):
+    """(name, call, kernel name filter, reps) of the square batched dense
+    walks (``pair_force_dense_batched_kernel``) at the smoke's shapes:
+    phase 27's config #5 (256 crowds x 1,000) under each law, phase 30's
+    box-skip form at config #5 + 30 m and its table form at 8 x 50,000."""
+    import batch_cases as bc
+    cs = smoke()
+    planes = bc.batch_planes(cs.BATCH, cs.BATCH_N, seed=27, device=dev,
+                             extent=35.0)
+    small = bc.sort_rows(bc.batch_planes(cs.BATCH, cs.BATCH_N, seed=30,
+                                         device=dev, extent=35.0))
+    big = bc.sort_rows(bc.batch_planes(
+        cs.CUT_TABLE_BATCH, cs.CUT_TABLE_N, seed=31, device=dev,
+        extent=max(25.0, cs.CUT_TABLE_N ** 0.5)))
+    out = [(f"dense_batched {law} {cs.BATCH} x {cs.BATCH_N}",
+            lambda law=law: bc.batch_run(law, "dense", planes,
+                                         bc.law_params(law)))
+           for law in ("moussaid", "powerlaw", "helbing")]
+    for form, pl in (("dense_cutoff", small), ("compact", big)):
+        grid = bc.cutoff_grid_of(form, pl, cs.CUTOFF_M)
+        b, n = pl[0].shape
+        out.append((f"{form}_batched {b} x {n}", lambda pl=pl, g=grid, f=form:
+                    bc.batch_run("moussaid", f, pl,
+                                 bc.law_params("moussaid"), g)))
+    return [(name, fn, "pair_force_dense_batched_kernel", 20)
+            for name, fn in out]
 
 
 def statics_cases(dev):
@@ -466,7 +498,7 @@ def main() -> int:
     ap.add_argument("--cases", default="sym,env,dense",
                     help="comma-separated groups: sym, env, dense, "
                     "statics, feed (statics without chunk_argmin), "
-                    "capacity")
+                    "capacity, batched")
     args = ap.parse_args()
     groups = set(args.cases.split(","))
     root = args.root.resolve()
@@ -499,12 +531,13 @@ def main() -> int:
             print(lines[-1], flush=True)
     cases = {"sym": sym_cases, "env": env_cases, "dense": dense_cases,
              "statics": statics_cases, "feed": feed_cases,
-             "capacity": capacity_cases}
+             "capacity": capacity_cases, "batched": batched_cases}
     census = {}
     if groups & {"statics", "feed"}:
         from sass_census import census as sass
         census = sass(cuda_build.LIBRARY, root=root)
-    run([c for g in ("sym", "env", "dense", "statics", "feed", "capacity")
+    run([c for g in ("sym", "env", "dense", "statics", "feed", "capacity",
+                     "batched")
          if g in groups for c in cases[g](dev)], args.label, card, lines,
         census)
     if args.out is not None:
