@@ -114,6 +114,22 @@
 // without a batch offset (offsets read from blockIdx.y inside the body
 // cost 30% on env_exp_analytic).
 //
+// Per-crowd geometry (a batch of fleets).  Under the JAX package's vmap
+// each row of an ensemble or sweep carries its own AutopilotState, so each
+// row's vehicles, and the point set fused_environment_terms builds from
+// them (pallas_env.py:545-550), are batched: _moussaid_kernel (:268) and
+// _moussaid_kernel_compact (:327) then run with per-row points, circles and
+// obstacle velocities.  env_force_percrowd_kernel<kWalk> is a second
+// __global__ over the same walk body: it hands env_walk crowd blockIdx.y's
+// point rows (at blockIdx.y * s_count * k), centers, lengths and obstacle
+// velocities (at blockIdx.y * s_count) besides everything the batched
+// kernel hands it (sfm_env_moussaid_percrowd and
+// sfm_env_moussaid_compact_percrowd; the compacted form's table was built
+// from each crowd's own circles).  Row b equals the unbatched launch on
+// crowd b's own set bitwise.  Crowd strides in env_force_batched_kernel
+// itself, 0 for the shared sets, cost its shared forms 9-41% (PERF.md
+// row 8a-p), so the shared forms keep their kernel.
+//
 // Where the TPU design does not carry over.  The TPU grid walked
 // (ped tile, point tile) pairs in order and accumulated into one resident
 // output block; here the section loop runs inside the block, so nothing is
@@ -418,6 +434,40 @@ env_force_batched_kernel(
       fy + bo);
 }
 
+// The Moussaid walk of a batch of crowds that each read their own sampled
+// segment set: env_force_batched_kernel's arguments for crowd blockIdx.y,
+// and its point rows at blockIdx.y * s_count * k, its centers and lengths
+// at blockIdx.y * s_count and its obstacle velocities at blockIdx.y *
+// s_count * 2.
+template <Walk kWalk>
+__global__ void __launch_bounds__(kEnvThreads)
+env_force_percrowd_kernel(
+    const float* __restrict__ px_, const float* __restrict__ py_,
+    const float* __restrict__ pvx_, const float* __restrict__ pvy_,
+    const float* __restrict__ prad_, const uint8_t* __restrict__ alive_,
+    const float* __restrict__ ptx, const float* __restrict__ pty, int k,
+    const int* __restrict__ lens, const float* __restrict__ cx,
+    const float* __restrict__ cy, const float* __restrict__ r2,
+    int r2_stride, const float* __restrict__ ov, int s_count,
+    const float* __restrict__ prm, int prm_stride, int use_radius, int n,
+    const int* __restrict__ surv, const int* __restrict__ counts,
+    int max_surv, int gs, float* __restrict__ fx, float* __restrict__ fy) {
+  const int bo = (int)blockIdx.y * n;
+  const long long so = (long long)blockIdx.y * s_count;
+  const long long po = so * k;
+  const long long trow0 =
+      (long long)blockIdx.y * ((n + kEnvTableRow - 1) / kEnvTableRow);
+  env_walk<true, kWalk, kSampled>(
+      px_ + bo, py_ + bo, pvx_ + bo, pvy_ + bo, prad_ + bo, alive_ + bo,
+      ptx + po, pty + po, nullptr, nullptr, nullptr, k,
+      lens != nullptr ? lens + so : nullptr, cx + so, cy + so,
+      r2 + (long long)blockIdx.y * r2_stride, ov + 2 * so, s_count,
+      prm + (long long)blockIdx.y * prm_stride, 0.0f, 1.0f, use_radius, n,
+      kWalk == kTable ? surv + trow0 * max_surv : nullptr,
+      kWalk == kTable ? counts + trow0 : nullptr, max_surv, gs, fx + bo,
+      fy + bo);
+}
+
 template <bool kMoussaid, Walk kWalk, Geom kGeom>
 int env_launch(const float* px, const float* py, const float* pvx,
                const float* pvy, const float* prad, const uint8_t* alive,
@@ -458,6 +508,28 @@ int env_batched_launch(const float* px, const float* py, const float* pvx,
           px, py, pvx, pvy, prad, alive, ptx, pty, pux, puy, pil2, k, lens,
           cx, cy, r2, r2_stride, ov, s_count, prm, prm_stride, use_radius, n,
           surv, counts, max_surv, gs, fx, fy);
+  return (int)cudaGetLastError();
+}
+
+template <Walk kWalk>
+int env_percrowd_launch(const float* px, const float* py, const float* pvx,
+                        const float* pvy, const float* prad,
+                        const uint8_t* alive, const float* ptx,
+                        const float* pty, int k, const int* lens,
+                        const float* cx, const float* cy, const float* r2,
+                        int r2_stride, const float* ov, int s_count,
+                        const float* prm, int prm_stride, int use_radius,
+                        int n, int batch, const int* surv, const int* counts,
+                        int max_surv, int gs, float* fx, float* fy,
+                        void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  if (batch < 1 || batch > 65535) return (int)cudaErrorInvalidValue;
+  const int blocks = (n + kEnvPeds - 1) / kEnvPeds;
+  env_force_percrowd_kernel<kWalk>
+      <<<dim3(blocks, batch), kEnvThreads, 0, (cudaStream_t)stream>>>(
+          px, py, pvx, pvy, prad, alive, ptx, pty, k, lens, cx, cy, r2,
+          r2_stride, ov, s_count, prm, prm_stride, use_radius, n, surv,
+          counts, max_surv, gs, fx, fy);
   return (int)cudaGetLastError();
 }
 
@@ -650,6 +722,41 @@ int sfm_env_exp_analytic_compact_batched(
       px, py, nullptr, nullptr, prad, alive, ax, ay, ux, uy, il2, m, lens,
       cx, cy, r2, r2_stride, nullptr, s_count, prm, prm_stride, use_radius,
       n, batch, surv, counts, max_surv, gs, fx, fy, stream);
+}
+
+// The Moussaid walks over a batch of crowds that each read their own
+// segment set (a batch of fleets' vehicles): ptx/pty (batch, s_count, k),
+// cx/cy (batch, s_count), ov (batch, s_count, 2), lens (batch, s_count) or
+// null, r2 as in sfm_env_moussaid_batched; the _compact_ entry's table was
+// built from each crowd's own circles.
+int sfm_env_moussaid_percrowd(const float* px, const float* py,
+                              const float* pvx, const float* pvy,
+                              const float* prad, const uint8_t* alive,
+                              const float* ptx, const float* pty, int k,
+                              const int* lens, const float* cx,
+                              const float* cy, const float* r2,
+                              int r2_stride, const float* ov, int s_count,
+                              const float* prm, int prm_stride,
+                              int use_radius, int n, int batch, float* fx,
+                              float* fy, void* stream) {
+  return env_percrowd_launch<kAllSections>(
+      px, py, pvx, pvy, prad, alive, ptx, pty, k, lens, cx, cy, r2,
+      r2_stride, ov, s_count, prm, prm_stride, use_radius, n, batch, nullptr,
+      nullptr, 0, 1, fx, fy, stream);
+}
+
+int sfm_env_moussaid_compact_percrowd(
+    const float* px, const float* py, const float* pvx, const float* pvy,
+    const float* prad, const uint8_t* alive, const float* ptx,
+    const float* pty, int k, const int* lens, const float* cx,
+    const float* cy, const float* r2, int r2_stride, const float* ov,
+    int s_count, const float* prm, int prm_stride, int use_radius, int n,
+    int batch, const int* surv, const int* counts, int max_surv, int gs,
+    float* fx, float* fy, void* stream) {
+  return env_percrowd_launch<kTable>(
+      px, py, pvx, pvy, prad, alive, ptx, pty, k, lens, cx, cy, r2,
+      r2_stride, ov, s_count, prm, prm_stride, use_radius, n, batch, surv,
+      counts, max_surv, gs, fx, fy, stream);
 }
 
 }  // extern "C"

@@ -25,6 +25,10 @@
 //       planes; no filter and no skip.  The segmented minimum over each
 //       segment's chunks stays in PyTorch (ops/geometry.py
 //       closest_point_per_segment), as it stayed in jnp.
+//   chunk_argmin_percrowd_kernel ("chunk_argmin_percrowd")  <- _cp_kernel
+//       under vmap with batched chunks: a batch of crowds that each scan
+//       their own chunks (a batch of fleets' vehicle outlines), crowd b
+//       equal to chunk_argmin on its own planes.
 //
 // What bounds them on this card.  Per (feature, pedestrian) pair that
 // survives the block skip: a projection (about 15 flops) or a scan of the
@@ -821,17 +825,18 @@ struct ArgminStages {
 // Grid: (pedestrian blocks of kArgminThreads * kArgminRows, chunk splits);
 // split y takes groups [y * groups / Y, (y + 1) * groups / Y).  vec: the
 // planes' rows can be copied 16 bytes at a time (kk % 4 == 0, aligned).
-__global__ void __launch_bounds__(kArgminThreads)
-chunk_argmin_kernel(const float* __restrict__ px_,
-                    const float* __restrict__ py_,
-                    const float* __restrict__ fx,
-                    const float* __restrict__ fy, int c, int kk, int n,
-                    int vec, float* __restrict__ out_d2,
-                    int* __restrict__ out_idx) {
+// The walk body: chunk_argmin_kernel runs it on its arguments, the
+// per-crowd kernel on its crowd's pointers; the two stages sx, sy are the
+// kernel's own shared arrays (as function statics they would move, and
+// the unbatched kernel's SASS with them).
+__device__ __forceinline__ void chunk_argmin_walk(
+    const float* __restrict__ px_, const float* __restrict__ py_,
+    const float* __restrict__ fx, const float* __restrict__ fy, int c,
+    int kk, int n, int vec, float* __restrict__ out_d2,
+    int* __restrict__ out_idx, float (*sx)[kArgminStage],
+    float (*sy)[kArgminStage]) {
   constexpr int R = kArgminRows;
   constexpr int T = kArgminThreads;
-  __shared__ __align__(16) float sx[2][kArgminStage];
-  __shared__ __align__(16) float sy[2][kArgminStage];
 
   const ArgminStages g(c, kk);
   const int tid = threadIdx.x;
@@ -935,6 +940,42 @@ chunk_argmin_kernel(const float* __restrict__ px_,
     }
     __syncthreads();  // buffer q & 1 is consumed before stage q + 2 fills it
   }
+}
+
+__global__ void __launch_bounds__(kArgminThreads)
+chunk_argmin_kernel(const float* __restrict__ px_,
+                    const float* __restrict__ py_,
+                    const float* __restrict__ fx,
+                    const float* __restrict__ fy, int c, int kk, int n,
+                    int vec, float* __restrict__ out_d2,
+                    int* __restrict__ out_idx) {
+  __shared__ __align__(16) float sx[2][kArgminStage];
+  __shared__ __align__(16) float sy[2][kArgminStage];
+  chunk_argmin_walk(px_, py_, fx, fy, c, kk, n, vec, out_d2, out_idx, sx,
+                    sy);
+}
+
+// chunk_argmin of a batch of crowds that each scan their own chunks (a
+// batch of fleets' vehicle outlines; the JAX package's _cp_kernel under
+// vmap with batched chunks), crowd blockIdx.z (y is the chunk split, as in
+// the unbatched grid): its n pedestrians at blockIdx.z * n, its (c, kk)
+// staged planes at blockIdx.z * c * kk and its (c, n) outputs at
+// blockIdx.z * c * n.  A block holds one crowd's pedestrians only, so
+// crowd b's results are the unbatched launch's on its own planes.
+__global__ void __launch_bounds__(kArgminThreads)
+chunk_argmin_percrowd_kernel(const float* __restrict__ px_,
+                             const float* __restrict__ py_,
+                             const float* __restrict__ fx,
+                             const float* __restrict__ fy, int c, int kk,
+                             int n, int vec, float* __restrict__ out_d2,
+                             int* __restrict__ out_idx) {
+  __shared__ __align__(16) float sx[2][kArgminStage];
+  __shared__ __align__(16) float sy[2][kArgminStage];
+  const size_t b = blockIdx.z;
+  const size_t po = b * (size_t)c * kk;
+  const size_t oo = b * (size_t)c * n;
+  chunk_argmin_walk(px_ + b * n, py_ + b * n, fx + po, fy + po, c, kk, n,
+                    vec, out_d2 + oo, out_idx + oo, sx, sy);
 }
 
 // The current device's number of SMs (the split grids aim at blocks per
@@ -1096,6 +1137,34 @@ int sfm_chunk_argmin(const float* px, const float* py, const float* fx,
   chunk_argmin_kernel<<<dim3(ped_blocks, splits), kArgminThreads, 0,
                         (cudaStream_t)stream>>>(px, py, fx, fy, c, kk, n, vec,
                                                 d2, idx);
+  return (int)cudaGetLastError();
+}
+
+// The per-crowd scan: px, py (batch, n); fx, fy (batch, c, kk) each crowd's
+// staged chunk planes; d2, idx (batch, c, n), crowd b's flat indices into
+// its own (c, kk) planes.  The splits aim at kArgminBlocksPerSM blocks per
+// SM over all crowds.
+int sfm_chunk_argmin_percrowd(const float* px, const float* py,
+                              const float* fx, const float* fy, int c,
+                              int kk, int n, int batch, float* d2, int* idx,
+                              void* stream) {
+  if (n <= 0 || c <= 0 || kk <= 0 || batch == 0) return (int)cudaSuccess;
+  if (batch < 0 || batch > 65535) return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  const cudaError_t e = sm_count(sms);
+  if (e != cudaSuccess) return (int)e;
+  const ArgminStages g(c, kk);
+  const long long ped_blocks =
+      (n + kArgminThreads * kArgminRows - 1) / (kArgminThreads * kArgminRows);
+  const long long blocks = ped_blocks * batch;
+  const int want =
+      (int)((kArgminBlocksPerSM * (long long)sms + blocks - 1) / blocks);
+  const int splits = max(1, min(g.groups, want));
+  const int vec = kk % 4 == 0 && ((uintptr_t)fx % 16) == 0 &&
+                  ((uintptr_t)fy % 16) == 0;
+  chunk_argmin_percrowd_kernel<<<dim3((unsigned)ped_blocks, splits, batch),
+                                 kArgminThreads, 0, (cudaStream_t)stream>>>(
+      px, py, fx, fy, c, kk, n, vec, d2, idx);
   return (int)cudaGetLastError();
 }
 

@@ -59,7 +59,11 @@ class ChunkedPointSet:
     (forces.py:149-151), for obstacles the center and the perception
     threshold (forces.py:222-224).  Built on the host by
     :func:`build_chunked_pointset` (numpy arrays); the per-step vehicle set
-    of :func:`..models.vehicles.snapshot_pointset` holds tensors instead.
+    of :func:`..models.vehicles.snapshot_pointset` holds tensors instead,
+    and a batch of fleets' set holds each crowd's own vehicles: points
+    ``(B, C, K, 2)``, valid ``(B, C, K)``, centers ``(B, S, 2)`` and radii
+    ``(S,)`` or ``(B, S)``, with ``chunk_segment`` shared
+    (:func:`per_crowd`).
     """
 
     points: np.ndarray         # (C, K, 2) f32, padded with PAD_COORD
@@ -71,11 +75,11 @@ class ChunkedPointSet:
 
     @property
     def num_chunks(self) -> int:
-        return self.points.shape[0]
+        return self.points.shape[-3]
 
     @property
     def chunk_size(self) -> int:
-        return self.points.shape[1]
+        return self.points.shape[-2]
 
 
 @dataclass(frozen=True)
@@ -88,6 +92,9 @@ class SegmentPointSet:
     is the number of real points of row ``s``, all before its padding:
     the environment kernels scan no further (a padding slot is never the
     closest point).  None (the per-step vehicle rows) means every slot.
+    A batch of fleets' vehicle rows are each crowd's own: x, y ``(B, S,
+    K)``, centers ``(B, S)`` and radii ``(S,)`` or ``(B, S)``
+    (:func:`per_crowd`).
     """
 
     x: torch.Tensor              # (S, K) f32, PAD_COORD in padding slots
@@ -99,11 +106,11 @@ class SegmentPointSet:
 
     @property
     def num_segments(self) -> int:
-        return self.x.shape[0]
+        return self.x.shape[-2]
 
     @property
     def points_per_segment(self) -> int:
-        return self.x.shape[1]
+        return self.x.shape[-1]
 
     @property
     def points(self) -> torch.Tensor:
@@ -114,6 +121,16 @@ class SegmentPointSet:
     def centers(self) -> torch.Tensor:
         """(S, 2) assembly view."""
         return torch.stack([self.center_x, self.center_y], dim=-1)
+
+
+def per_crowd(pset) -> bool:
+    """Whether a point set (:class:`SegmentPointSet` or a
+    :class:`ChunkedPointSet` of tensors) holds each crowd of a batch's own
+    geometry (a batch of fleets' vehicles) rather than one set that every
+    crowd reads."""
+    if isinstance(pset, SegmentPointSet):
+        return pset.x.dim() == 3
+    return isinstance(pset, ChunkedPointSet) and pset.points.ndim == 4
 
 
 @dataclass(frozen=True)

@@ -24,6 +24,14 @@ square root of a sum of squares, the same ``max(.., 1e-6)`` guards): an ulp
 there can flip a brake.  The JAX version is plain jnp and reaches no TPU
 kernel, so plain PyTorch is its port.
 
+Under a batch of crowds (an ensemble or a sweep, ``parallel/sweeps.py``)
+every crowd steps its own fleet from its own walkers, as the JAX package's
+vmap carries one ``AutopilotState`` per row: the state's planes are ``(B,
+V)``, the hazard and passing-lane masks ``(B, V, N)``, car following ``(B,
+V, V)`` and the lights ``(B, V, L)``, while the fleet (routes, spawn
+steps, seeded draws, lights) is shared.  Row b equals the step of row b
+alone bitwise.
+
 Spawn-time seeding replicates the reference's vehicle spawner call order
 (vehicle_spawner.py:100-118): ``random.seed(vehicle_seed)``; blueprint
 ``random.choice`` (entropy only); cumulative ``speed_reduction_factor``
@@ -40,7 +48,7 @@ import numpy as np
 import torch
 
 from ..env.pointsets import PAD_COORD
-from ..ops.vecmath import split_xy
+from ..ops.vecmath import atan2_rows, split_xy
 from ..utils.device import DEFAULT_DEVICE, resolve_device
 from .spawn import realized_spawn_steps
 from .vehicles import VehicleSnapshot, VehicleStates, ellipse_template
@@ -100,15 +108,21 @@ class TrafficLightSpec:
 
 @dataclass(frozen=True)
 class AutopilotState:
-    """Per-vehicle dynamic state, carried through the rollout."""
+    """Per-vehicle dynamic state, carried through the rollout; a batch of
+    fleets' planes lead with B."""
 
-    pos: torch.Tensor         # (V, 2)
-    heading: torch.Tensor     # (V,) radians
+    pos: torch.Tensor         # (V, 2), a batch's (B, V, 2)
+    heading: torch.Tensor     # (V,) radians, a batch's (B, V)
     speed: torch.Tensor       # (V,)
     wp_idx: torch.Tensor      # (V,) int32 current route target
     active: torch.Tensor      # (V,) bool
     lane_off: torch.Tensor    # (V,) lateral offset off the route [m]
     overtaking: torch.Tensor  # (V,) bool: committed to the passing lane
+
+    @property
+    def batch(self) -> int | None:
+        """B of a batch of fleets, None for one."""
+        return self.heading.shape[0] if self.heading.dim() == 2 else None
 
 
 @dataclass(frozen=True)
@@ -154,20 +168,26 @@ class AutopilotFleet:
     def device(self) -> torch.device:
         return self.route.device
 
-    def initial_state(self) -> AutopilotState:
+    def initial_state(self, batch: int | None = None) -> AutopilotState:
+        """The state before the first tick; ``batch``: B copies of it, one
+        fleet for each crowd of a batch."""
         v, dev, dt = self.num_vehicles, self.device, self.route.dtype
+        lead = () if batch is None else (batch,)
+
+        def plane(dtype, fill=0):
+            return torch.full((*lead, v), fill, dtype=dtype, device=dev)
+
         return AutopilotState(
-            pos=self.route[:, 0, :].clone(),
-            heading=torch.zeros((v,), dtype=dt, device=dev),
-            speed=torch.zeros((v,), dtype=dt, device=dev),
-            wp_idx=torch.ones((v,), dtype=torch.int32, device=dev),
-            active=torch.zeros((v,), dtype=torch.bool, device=dev),
-            lane_off=torch.zeros((v,), dtype=dt, device=dev),
-            overtaking=torch.zeros((v,), dtype=torch.bool, device=dev))
+            pos=self.route[:, 0, :].expand(*lead, v, 2).clone(),
+            heading=plane(dt), speed=plane(dt),
+            wp_idx=plane(torch.int32, 1), active=plane(torch.bool, False),
+            lane_off=plane(dt), overtaking=plane(torch.bool, False))
 
 
 class AutopilotRecord(NamedTuple):
-    """Per-step fleet snapshot (the vehicle.csv source of reactive runs)."""
+    """Per-step fleet snapshot (the vehicle.csv source of reactive runs);
+    a rollout's record stacks it ``(T, V, ...)``, a batch's ``(B, T, V,
+    ...)`` (the JAX package's vmapped layout)."""
 
     pos: torch.Tensor      # (V, 2)
     heading: torch.Tensor  # (V,)
@@ -322,13 +342,17 @@ def autopilot_step(fleet: AutopilotFleet, st: AutopilotState, ped_pos,
     tensors (all slots; ``ped_alive`` masks them).  Runs before the pedestrian core each tick,
     as in the reference (vehicles move inside ``world.tick()`` and are then
     read back as dynamic obstacles, run_simulation.py:70-95).  ``t_idx`` is
-    the step; the lights' clock is ``float32(t_idx) * float32(dt)``."""
+    the step; the lights' clock is ``float32(t_idx) * float32(dt)``.
+
+    A batch of fleets (``st`` with ``(B, V)`` planes) steps each crowd's
+    fleet from that crowd's walkers, ``(B, N)`` planes."""
     from .stepper import sim_time_of
     ppx, ppy = split_xy(ped_pos)
     pvx, pvy = split_xy(ped_vel)
     dt32 = float(np.float32(dt))
+    batched = st.batch is not None
     active = st.active | (fleet.spawn_step == int(t_idx))
-    px, py = st.pos[:, 0], st.pos[:, 1]
+    px, py = st.pos[..., 0], st.pos[..., 1]
     cos_h, sin_h = torch.cos(st.heading), torch.sin(st.heading)
 
     # current target waypoint (clamped gather), side-stepped by the lane
@@ -337,39 +361,46 @@ def autopilot_step(fleet: AutopilotFleet, st: AutopilotState, ped_pos,
     wp_i = torch.minimum(st.wp_idx, fleet.route_count - 1).long()
     wp = fleet.route[v_idx, wp_i]
     prev = fleet.route[v_idx, torch.clamp(wp_i - 1, min=0)]
-    sx, sy = wp[:, 0] - prev[:, 0], wp[:, 1] - prev[:, 1]
+    sx, sy = wp[..., 0] - prev[..., 0], wp[..., 1] - prev[..., 1]
     seg_n = _norm(sx, sy)
     has_seg = seg_n > 1e-6
     seg_d = torch.clamp(seg_n, min=1e-6)
     segx = torch.where(has_seg, sx / seg_d, cos_h)
     segy = torch.where(has_seg, sy / seg_d, sin_h)
-    tx = wp[:, 0] + st.lane_off * -segy
-    ty = wp[:, 1] + st.lane_off * segx
+    tx = wp[..., 0] + st.lane_off * -segy
+    ty = wp[..., 1] + st.lane_off * segx
     to_x, to_y = tx - px, ty - py
     dist = _norm(to_x, to_y)
     has_dir = dist > 1e-6
     dist_d = torch.clamp(dist, min=1e-6)
     dirx = torch.where(has_dir, to_x / dist_d, cos_h)
     diry = torch.where(has_dir, to_y / dist_d, sin_h)
-    heading = torch.where(has_dir, torch.atan2(diry, dirx), st.heading)
+    heading = torch.where(has_dir, atan2_rows(diry, dirx, batched),
+                          st.heading)
 
     # walker hazard: an alive walker inside (or predicted to enter) the
-    # braking corridor
-    rel_x = ppx[None, :] - px[:, None]                        # (V, N)
-    rel_y = ppy[None, :] - py[:, None]
-    fwd = rel_x * dirx[:, None] + rel_y * diry[:, None]
-    lat = -rel_x * diry[:, None] + rel_y * dirx[:, None]
-    lat_vel = -pvx[None, :] * diry[:, None] + pvy[None, :] * dirx[:, None]
+    # braking corridor; (V, N) planes, a batch's (B, V, N)
+    def col(a):
+        return a[..., :, None]
+
+    def row(a):
+        return a[..., None, :]
+
+    rel_x = row(ppx) - col(px)
+    rel_y = row(ppy) - col(py)
+    fwd = rel_x * col(dirx) + rel_y * col(diry)
+    lat = -rel_x * col(diry) + rel_y * col(dirx)
+    lat_vel = -row(pvx) * col(diry) + row(pvy) * col(dirx)
     t_arrive = torch.clamp(
-        fwd / torch.clamp(st.speed, min=0.5)[:, None], 0.0, 3.0)
+        fwd / col(torch.clamp(st.speed, min=0.5)), 0.0, 3.0)
     lat_pred = lat + lat_vel * t_arrive
     stop_dist = (st.speed * st.speed) / (2.0 * fleet.decel) + fleet.brake_margin
     half_len = fleet.extent[:, 0]
     band = (fleet.extent[:, 1] + fleet.lateral_margin)[:, None]
     near = ((fwd > -half_len[:, None])
-            & (fwd < (stop_dist + half_len)[:, None])
+            & (fwd < col(stop_dist + half_len))
             & ((lat.abs() < band) | (lat_pred.abs() < band)))
-    hazard = (near & ped_alive[None, :]).any(dim=1) & ~fleet.ignore_walkers
+    hazard = (near & row(ped_alive)).any(dim=-1) & ~fleet.ignore_walkers
 
     if fleet.light_x is not None and fleet.light_x.shape[0] > 0:
         # a red stop point ahead in the lane within braking range; the
@@ -379,51 +410,51 @@ def autopilot_step(fleet: AutopilotFleet, st: AutopilotState, ped_pos,
         phase = torch.remainder(sim_t - fleet.light_offset[None, :],
                                 fleet.light_cycle[None, :])
         is_red = phase < fleet.light_red[None, :]              # (1, L)
-        lrel_x = fleet.light_x[None, :] - px[:, None]          # (V, L)
-        lrel_y = fleet.light_y[None, :] - py[:, None]
-        lfwd = lrel_x * dirx[:, None] + lrel_y * diry[:, None]
-        llat = -lrel_x * diry[:, None] + lrel_y * dirx[:, None]
-        at_light = ((lfwd > 0.0) & (lfwd < (stop_dist + half_len)[:, None])
+        lrel_x = fleet.light_x[None, :] - col(px)              # (V, L)
+        lrel_y = fleet.light_y[None, :] - col(py)
+        lfwd = lrel_x * col(dirx) + lrel_y * col(diry)
+        llat = -lrel_x * col(diry) + lrel_y * col(dirx)
+        at_light = ((lfwd > 0.0) & (lfwd < col(stop_dist + half_len))
                     & (llat.abs() < band))
-        hazard = hazard | ((at_light & is_red).any(dim=1)
+        hazard = hazard | ((at_light & is_red).any(dim=-1)
                            & ~fleet.ignore_lights)
 
     # vehicle-vehicle car following and overtaking, (V, V) in each
     # vehicle's frame
-    vrel_x = px[None, :] - px[:, None]
-    vrel_y = py[None, :] - py[:, None]
-    vfwd = vrel_x * dirx[:, None] + vrel_y * diry[:, None]
-    vlat = -vrel_x * diry[:, None] + vrel_y * dirx[:, None]
-    other = (active[None, :] & active[:, None]
+    vrel_x = row(px) - col(px)
+    vrel_y = row(py) - col(py)
+    vfwd = vrel_x * col(dirx) + vrel_y * col(diry)
+    vlat = -vrel_x * col(diry) + vrel_y * col(dirx)
+    other = (row(active) & col(active)
              & ~torch.eye(fleet.num_vehicles, dtype=torch.bool,
                           device=st.pos.device))
     gap_len = half_len[:, None] + half_len[None, :]
     veh_band = fleet.extent[:, 1][:, None] + fleet.extent[None, :, 1] + 0.3
-    follow_window = stop_dist[:, None] + gap_len
+    follow_window = col(stop_dist) + gap_len
     leader = (other & (vfwd > 0.0) & (vfwd < follow_window)
               & (vlat.abs() < veh_band))
-    hazard = hazard | leader.any(dim=1)
+    hazard = hazard | leader.any(dim=-1)
 
-    blocked = (leader & (st.speed[None, :] < (
-        fleet.target_speed - fleet.ot_speed_gain)[:, None])).any(dim=1)
-    j_fwd_speed = st.speed[None, :] * (cos_h[None, :] * dirx[:, None]
-                                       + sin_h[None, :] * diry[:, None])
+    blocked = (leader & (row(st.speed) < (
+        fleet.target_speed - fleet.ot_speed_gain)[:, None])).any(dim=-1)
+    j_fwd_speed = row(st.speed) * (row(cos_h) * col(dirx)
+                                   + row(sin_h) * col(diry))
     fore_window = (fleet.ot_clear_ahead[:, None]
                    + torch.clamp(-j_fwd_speed, min=0.0) * _PASS_HORIZON)
     pass_busy = (other & (vfwd > -fleet.ot_clear_behind[:, None])
                  & (vfwd < fore_window)
                  & ((vlat - fleet.lane_width[:, None]).abs() < veh_band)
-                 ).any(dim=1)
-    ped_pass = (ped_alive[None, :] & (fwd > -fleet.ot_clear_behind[:, None])
+                 ).any(dim=-1)
+    ped_pass = (row(ped_alive) & (fwd > -fleet.ot_clear_behind[:, None])
                 & (fwd < fleet.ot_clear_ahead[:, None])
                 & ((lat - fleet.lane_width[:, None]).abs() < band)
-                ).any(dim=1)
+                ).any(dim=-1)
     pass_busy = pass_busy | (ped_pass & ~fleet.ignore_walkers)
     merge_ahead = follow_window + fleet.brake_margin[:, None]
     orig_busy = (other & (vfwd > -fleet.ot_clear_behind[:, None])
                  & (vfwd < merge_ahead)
-                 & ((vlat + st.lane_off[:, None]).abs() < veh_band)
-                 ).any(dim=1)
+                 & ((vlat + col(st.lane_off)).abs() < veh_band)
+                 ).any(dim=-1)
     ok_here = fleet.overtake_ok[v_idx, wp_i]
     start = (blocked & ~pass_busy & fleet.overtake & ok_here & active
              & ~st.overtaking)
@@ -466,8 +497,8 @@ def autopilot_step(fleet: AutopilotFleet, st: AutopilotState, ped_pos,
 def autopilot_snapshot(fleet: AutopilotFleet,
                        st: AutopilotState) -> VehicleSnapshot:
     """The fleet state as the VehicleSnapshot that gap acceptance and the
-    dynamic-obstacle force read."""
-    vel = st.speed[:, None] * torch.stack(
+    dynamic-obstacle force read (a batch of fleets': ``(B, V)`` planes)."""
+    vel = st.speed[..., None] * torch.stack(
         [torch.cos(st.heading), torch.sin(st.heading)], dim=-1)
     return VehicleSnapshot(
         center=st.pos, vel=vel, heading=st.heading, extent=fleet.extent,

@@ -13,17 +13,20 @@ members' state in one packed gather, computes the terms in the small
 ``(G, M)`` member space and adds them back to the slots in one
 ``index_add_``, so the cost follows the grouped members, not the crowd.
 Plain tensor math: the JAX package has no kernel here, and the port adds
-none.  Single device (the JAX package's sharded form belongs to the
-multi-device slice).
+none.  Under a batch of crowds (``(B, N)`` planes) the one member table is
+shared, as ``scene.groups`` is under the JAX package's vmap: the members
+gather into ``(B, G, M)`` planes, row b equal to the force of row b alone.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from ..utils.device import DEFAULT_DEVICE, resolve_device
+from ..ops.vecmath import atan2_rows
 from .params import GroupParams
 
 
@@ -85,28 +88,36 @@ def group_force(pos_x, pos_y, vel_x, vel_y, ex, ey, alive, groups: GroupSet,
     ``axis``: the planes are this shard's slots of an agent axis; the
     member table holds global slots, so the planes are all-gathered and
     each shard keeps the forces of its own slots (the JAX package's
-    groups.py:85-99)."""
-    n = pos_x.shape[0]
+    groups.py:85-99).  A batch of crowds' ``(B, N)`` planes (the table
+    shared) give ``(B, N)`` forces, ``p`` shared or a sweep's section of
+    ``(B,)`` leaves (each row's against its ``(G, M)`` planes)."""
+    n = pos_x.shape[-1]
+    batched = pos_x.dim() == 2
+    if batched:
+        p = dataclasses.replace(p, **{
+            f.name: getattr(p, f.name)[:, None, None]
+            for f in dataclasses.fields(p)
+            if isinstance(getattr(p, f.name), torch.Tensor)})
     planes = (pos_x, pos_y, vel_x, vel_y, ex, ey, alive)
     offset = 0
     if axis is not None:
         planes = tuple(axis.all_gather(a) for a in planes)
         offset = axis.index * n
-    n_global = planes[0].shape[0]
+    n_global = planes[0].shape[-1]
     ms = groups.member_slot                               # (G, M)
     valid = ms >= 0
     idx = ms.clamp(min=0)
     # one packed gather of the members' seven planes
     packed = torch.stack([*planes[:6], planes[6].to(pos_x.dtype)],
-                         dim=-1)                          # (N, 7)
-    m = packed[idx]                                       # (G, M, 7)
+                         dim=-1)                          # (..., N, 7)
+    m = packed[..., idx, :]                               # (..., G, M, 7)
     mpx, mpy, mvx, mvy, mex, mey = m.unbind(-1)[:6]
     mal = (m[..., 6] > 0.0) & valid                       # member liveness
 
     w = mal.to(mpx.dtype)
-    cnt = w.sum(dim=1, keepdim=True)                      # (G, 1)
-    sx = (mpx * w).sum(dim=1, keepdim=True)
-    sy = (mpy * w).sum(dim=1, keepdim=True)
+    cnt = w.sum(dim=-1, keepdim=True)                     # (..., G, 1)
+    sx = (mpx * w).sum(dim=-1, keepdim=True)
+    sy = (mpy * w).sum(dim=-1, keepdim=True)
     # the centroid of the OTHER alive members, per member
     others = torch.clamp(cnt - 1.0, min=1.0)
     ocx = (sx - mpx * w) / others
@@ -128,7 +139,7 @@ def group_force(pos_x, pos_y, vel_x, vel_y, ex, ey, alive, groups: GroupSet,
     cross = torch.where(use, mex * dy - mey * dx, 0.0)
     dot = torch.where(use, mex * dx + mey * dy, 1.0)
     dot = torch.where((cross == 0.0) & (dot == 0.0), 1.0, dot)
-    alpha = torch.atan2(cross, dot).abs()
+    alpha = atan2_rows(cross, dot, batched).abs()
     aw = torch.where(use, p.beta_vis * alpha, 0.0)
     fx = -aw * mvx
     fy = -aw * mvy
@@ -141,22 +152,34 @@ def group_force(pos_x, pos_y, vel_x, vel_y, ex, ey, alive, groups: GroupSet,
 
     # within-group repulsion away from each member closer than
     # rep_distance
-    rdx = mpx[:, :, None] - mpx[:, None, :]               # (G, M, M): k -> i
-    rdy = mpy[:, :, None] - mpy[:, None, :]
+    rdx = mpx[..., :, None] - mpx[..., None, :]           # (G, M, M): k -> i
+    rdy = mpy[..., :, None] - mpy[..., None, :]
     rd2 = rdx * rdx + rdy * rdy
     rinv = torch.where(rd2 == 0.0, 0.0,
                        1.0 / torch.sqrt(torch.where(rd2 == 0.0, 1.0, rd2)))
-    pair = (mal[:, :, None] & mal[:, None, :] & (rd2 > 0.0)
-            & (rd2 < p.rep_distance * p.rep_distance))
-    rw = torch.where(pair, p.beta_rep * rinv, 0.0)
-    fx = fx + (rw * rdx).sum(dim=2)
-    fy = fy + (rw * rdy).sum(dim=2)
+    # a sweep's (B, 1, 1) columns against these (B, G, M, M) planes
+    rep_d, beta_rep = (v[..., None] if isinstance(v, torch.Tensor) else v
+                       for v in (p.rep_distance, p.beta_rep))
+    pair = (mal[..., :, None] & mal[..., None, :] & (rd2 > 0.0)
+            & (rd2 < rep_d * rep_d))
+    rw = torch.where(pair, beta_rep * rinv, 0.0)
+    fx = fx + (rw * rdx).sum(dim=-1)
+    fy = fy + (rw * rdy).sum(dim=-1)
 
     # one packed scatter back to this shard's slots; padded and dead
     # members, and other shards' members, go to a spare row that is dropped
-    tgt = torch.where(mal, idx, n_global).reshape(-1) - offset
+    # (a batch's crowd b into its own n + 1 rows)
+    tgt = torch.where(mal, idx, n_global).flatten(-2) - offset
     tgt = torch.where((tgt >= 0) & (tgt < n), tgt, n)
-    out = torch.zeros((n + 1, 2), dtype=pos_x.dtype, device=pos_x.device)
-    out.index_add_(0, tgt, torch.stack([fx.reshape(-1), fy.reshape(-1)],
-                                       dim=-1))
-    return out[:n, 0], out[:n, 1]
+    rows = 1
+    if batched:
+        rows = pos_x.shape[0]
+        tgt = tgt + (n + 1) * torch.arange(rows, device=tgt.device)[:, None]
+    out = torch.zeros((rows * (n + 1), 2), dtype=pos_x.dtype,
+                      device=pos_x.device)
+    out.index_add_(0, tgt.reshape(-1), torch.stack(
+        [fx.reshape(-1), fy.reshape(-1)], dim=-1))
+    out = out.view(rows, n + 1, 2)[:, :n]
+    if not batched:
+        return out[0, :, 0], out[0, :, 1]
+    return out[..., 0], out[..., 1]

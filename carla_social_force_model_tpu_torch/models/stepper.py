@@ -49,7 +49,14 @@ the layout of the JAX package's vmap: ``(B, N)`` state planes, a spawn
 schedule that is ``(B, N)`` (an ensemble) or shared ``(N,)`` (a sweep),
 parameters whose leaves are ``(B,)`` tensors (a sweep, viewed as ``(B,
 1)`` against the planes) or numbers shared by every row, and one scene
-geometry for all rows; ``sim_time`` stays one scalar.  The pair and
+geometry for all rows; ``sim_time`` stays one scalar.  A reactive fleet
+is stepped for every row from that row's walkers (a ``(B, V)``
+``AutopilotState``, as the JAX package's vmap carries one per row), so
+each row's vehicles, their gap check, ORCA discs and obstacle outlines are
+its own: the dynamic-obstacle term launches the per-crowd forms of the
+environment kernels (``env_moussaid_percrowd``, its compacted form, and on
+``env_chunked`` the per-crowd chunk scan).  Social groups share the one
+member table.  The pair and
 environment forces launch the batched kernels once per step for every
 row (``cuda_forces.pedestrian_force_batched``, ``cuda_env.
 fused_environment_terms``); with ``StepConfig.interaction_cutoff`` each
@@ -68,10 +75,9 @@ N)``.  A batch also runs over an agent axis (a shard of a 2-D ``(batch,
 agents)`` mesh, ``parallel/sweeps.make_sharded_ensemble_rollout``): the
 state holds the shard's ``(B, n)`` slots of its crowds, the pair forces
 bring in their columns by ``StepConfig.axis_comm`` through the batched
-sharded kernels, and every other term is slot-local.
-:func:`check_supported` refuses what is not batched yet with
-``NotImplementedError``: groups and the fleet (ROADMAP item 19b.3a), ORCA
-over an agent axis (item 19b.5).
+sharded kernels, the group force, ORCA and the fleet's hazard check
+all-gather each crowd's planes along the last axis, and every other term
+is slot-local.
 
 The device chooses the kernel path: the CUDA kernels on a card, the plain
 PyTorch versions on the CPU (ops/cuda_forces.py, ops/cuda_env.py,
@@ -305,45 +311,16 @@ def batch_of(state: PedState | None, scene: Scene,
     return next(iter(sizes.values()), None)
 
 
-def _check_batched(scene: Scene, params: SfmParams, cfg: StepConfig,
-                   axis) -> None:
-    """Refuse, under a batch, every configuration the batched step does not
-    run: ``NotImplementedError`` naming its ROADMAP item (nothing runs
-    another path instead).  The interaction cutoff (item 19b.1), the
-    compacted, analytic and chunked environment paths (item 19b.2), ORCA
-    and the per-agent columns (item 19b.3b) run, and an agent axis (item
-    19b.4), but ORCA not over an agent axis."""
-    refused = (
-        (params.enable_group and scene.groups is not None, "social groups",
-         "19b.3a"),
-        (scene.autopilot is not None, "the reactive autopilot fleet",
-         "19b.3a"),
-        (params.enable_orca and axis is not None,
-         "ORCA over an agent axis", "19b.5"),
-    )
-    for hit, what, item in refused:
-        if hit:
-            raise NotImplementedError(
-                f"{what} under a batch of crowds is not ported yet "
-                f"(ROADMAP item {item})")
-
-
 def check_supported(scene: Scene, params: SfmParams, cfg: StepConfig,
                     state: PedState | None = None, axis=None) -> None:
     """Raise ``ValueError`` or ``TypeError`` for per-agent columns and
-    groups of the wrong form, and for ``env_chunked`` together with a knob
-    of the fused environment path; under a batch (:func:`batch_of` of
-    ``state``, the schedule and the params), ``NotImplementedError`` for
-    what the batched step does not run yet (ROADMAP item 19b.3a: groups and
-    the fleet; the interaction cutoff, the
-    compacted, analytic and chunked environment paths, ORCA and the
-    per-agent columns run, also over an agent axis; ORCA not over an agent
-    axis, item 19b.5).  A per-agent column has the spawn schedule's
-    shape: ``(N,)``, an ensemble's ``(B, N)``, and in a sweep (one
-    schedule) ``(N,)`` shared by every row, as the JAX package's vmap
-    axes have it."""
-    if batch_of(state, scene, params) is not None:
-        _check_batched(scene, params, cfg, axis)
+    groups of the wrong form, for ``env_chunked`` together with a knob of
+    the fused environment path, and (:func:`batch_of`) for batch sizes that
+    disagree.  A per-agent column has the spawn schedule's shape: ``(N,)``,
+    an ensemble's ``(B, N)``, and in a sweep (one schedule) ``(N,)`` shared
+    by every row, as the JAX package's vmap axes have it.  ``axis``: the
+    state holds a shard's slots (unused by the checks)."""
+    batch_of(state, scene, params)
     if cfg.env_chunked and (cfg.env_analytic or cfg.env_compact):
         raise ValueError("env_chunked (the jnp environment path) does not "
                          "combine with env_analytic or env_compact, which "
@@ -700,7 +677,8 @@ def fleet_tick(state: PedState, ap: AutopilotState, scene: Scene,
     then a no-op).  Returns ``(new_state, new_fleet_state, RecordXY)``.
     ``axis``: the state holds this shard's slots; the fleet's hazard check
     reads the all-gathered walkers, and every shard steps the same fleet
-    (stepper.py:724-731)."""
+    (stepper.py:724-731).  A batch of crowds steps one fleet for each
+    (``ap`` with ``(B, V)`` planes) from that crowd's walkers."""
     check_supported(scene, params, cfg, state, axis)
     state = apply_spawn(state, scene.spawn, t_idx)
     walkers = (state.pos_x, state.pos_y, state.vel_x, state.vel_y,
@@ -732,10 +710,12 @@ def rollout(state: PedState, scene: Scene, params: SfmParams, cfg: StepConfig,
 
     With a reactive fleet (``scene.autopilot``) each tick runs
     :func:`fleet_tick`, and the record is a ``(StepRecord,
-    AutopilotRecord)`` pair.  The fleet starts from ``autopilot_state``
-    (default: the fleet's initial state, allowed only at ``start_step``
-    0); ``return_autopilot_state`` makes the first element the
-    ``(PedState, AutopilotState)`` pair.  ``axis``: the state and
+    AutopilotRecord)`` pair (the fleet's ``(T, V)`` planes; a batch's
+    ``(B, T, V)``, one fleet for each crowd).  The fleet starts from
+    ``autopilot_state`` (default: the fleet's initial state, one for each
+    crowd of a batch, allowed only at ``start_step`` 0);
+    ``return_autopilot_state`` makes the first element the ``(PedState,
+    AutopilotState)`` pair.  ``axis``: the state and
     ``scene.spawn`` are this shard's slots of an agent axis
     (:func:`..parallel.sharding.make_sharded_rollout` calls this for every
     shard).
@@ -753,7 +733,10 @@ def rollout(state: PedState, scene: Scene, params: SfmParams, cfg: StepConfig,
     ap = None
     if fleet is not None:
         ap = (autopilot_state if autopilot_state is not None
-              else fleet.initial_state())
+              else fleet.initial_state(state.batch))
+        if ap.batch != state.batch:
+            raise ValueError(f"the fleet state's batch {ap.batch} is not the "
+                             f"pedestrians' {state.batch}")
     recs = ap_recs = None
     if record:
         if record_stride < 1:
@@ -777,10 +760,17 @@ def rollout(state: PedState, scene: Scene, params: SfmParams, cfg: StepConfig,
                         alive=plane_buf(torch.bool))
         if fleet is not None:
             v, fdev = fleet.num_vehicles, fleet.device
+
+            def fleet_buf(shape, dtype=torch.float32):
+                # a batch's fleet records are (B, T, V, ...)
+                if batch is None:
+                    return buf(shape, dtype, fdev)
+                return torch.empty((batch, t_rec, *shape), dtype=dtype,
+                                   device=fdev)
+
             ap_recs = AutopilotRecord(
-                pos=buf((v, 2), device=fdev), heading=buf((v,), device=fdev),
-                speed=buf((v,), device=fdev),
-                active=buf((v,), torch.bool, fdev))
+                pos=fleet_buf((v, 2)), heading=fleet_buf((v,)),
+                speed=fleet_buf((v,)), active=fleet_buf((v,), torch.bool))
     for k in range(num_steps):
         t_idx = start_step + k
         if fleet is None:
@@ -796,7 +786,8 @@ def rollout(state: PedState, scene: Scene, params: SfmParams, cfg: StepConfig,
             if fleet is not None:
                 for b, val in zip(ap_recs, (ap.pos, ap.heading, ap.speed,
                                             ap.active)):
-                    b[k // record_stride].copy_(val)
+                    (b[k // record_stride] if batch is None
+                     else b[:, k // record_stride]).copy_(val)
     final = (state, ap) if fleet is not None and return_autopilot_state \
         else state
     if not record:

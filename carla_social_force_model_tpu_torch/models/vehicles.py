@@ -162,16 +162,24 @@ def build_vehicle_states(specs: Sequence[VehicleSpec], dt: float,
 @dataclass(frozen=True)
 class VehicleSnapshot:
     """Per-tick vehicle state.  Gap acceptance and the dynamic-obstacle
-    force consume this."""
+    force consume this.  A batch of fleets (each crowd of an ensemble or
+    sweep steps its own, ``models/autopilot.py``) holds ``(B, V)`` planes
+    of center, vel, heading and active; the extents and templates stay
+    shared, as the JAX package's vmap leaves them."""
 
-    center: torch.Tensor         # (V, 2)
-    vel: torch.Tensor            # (V, 2)
-    heading: torch.Tensor        # (V,)
+    center: torch.Tensor         # (V, 2), a batch's (B, V, 2)
+    vel: torch.Tensor            # (V, 2), a batch's (B, V, 2)
+    heading: torch.Tensor        # (V,), a batch's (B, V)
     extent: torch.Tensor         # (V, 2)
-    active: torch.Tensor         # (V,)
+    active: torch.Tensor         # (V,), a batch's (B, V)
     template: torch.Tensor       # (V, P, 2)
     template_valid: torch.Tensor  # (V, P)
     points_per_chunk: int = 128
+
+    @property
+    def batch(self) -> int | None:
+        """B of a batch of fleets, None for one."""
+        return self.heading.shape[0] if self.heading.dim() == 2 else None
 
 
 def vehicle_snapshot_at(vehicles: VehicleStates, t_idx: int) -> VehicleSnapshot:
@@ -191,39 +199,47 @@ def vehicle_snapshot_at(vehicles: VehicleStates, t_idx: int) -> VehicleSnapshot:
 
 
 def _world_outline(snap: VehicleSnapshot, valid_only: bool):
-    """World-frame outline planes ``(wx, wy)`` of shape (V, P):
-    R(heading) @ template + center, the headless equivalent of regenerating
-    the CARLA ellipse border each tick (obstacles.py:297-329)."""
-    c = torch.cos(snap.heading)[:, None]
-    s = torch.sin(snap.heading)[:, None]
+    """World-frame outline planes ``(wx, wy)`` of shape (V, P) (a batch of
+    fleets': (B, V, P)): R(heading) @ template + center, the headless
+    equivalent of regenerating the CARLA ellipse border each tick
+    (obstacles.py:297-329)."""
+    c = torch.cos(snap.heading)[..., None]
+    s = torch.sin(snap.heading)[..., None]
     tx, ty = snap.template[..., 0], snap.template[..., 1]
     if valid_only:
         tx = torch.where(snap.template_valid, tx, 0.0)
         ty = torch.where(snap.template_valid, ty, 0.0)
-    wx = c * tx - s * ty + snap.center[:, None, 0]
-    wy = s * tx + c * ty + snap.center[:, None, 1]
+    wx = c * tx - s * ty + snap.center[..., None, 0]
+    wy = s * tx + c * ty + snap.center[..., None, 1]
     return wx, wy
+
+
+def _radii(snap: VehicleSnapshot, perception_threshold, like):
+    """The vehicles' filter radii: ``(V,)`` of one threshold, ``(B, V)`` of
+    a sweep's ``(B,)`` thresholds."""
+    v = snap.extent.shape[0]
+    if isinstance(perception_threshold, torch.Tensor):
+        return perception_threshold.to(like)[:, None].expand(-1, v)
+    return torch.full((v,), float(perception_threshold), dtype=like.dtype,
+                      device=like.device)
 
 
 def snapshot_segment_pointset(snap: VehicleSnapshot, perception_threshold):
     """Segment-major dynamic-obstacle point set from a snapshot (on the
     device): one row per vehicle, for the environment kernels.  A swept
     ``perception_threshold`` (a ``(B,)`` tensor) gives each of the B
-    crowds its own filter radii, ``(B, V)``.
+    crowds its own filter radii, ``(B, V)``.  A batch of fleets gives each
+    crowd its own rows: ``(B, V, P)`` points, ``(B, V)`` centers.
 
-    Returns ``(SegmentPointSet, obstacle_vel (V, 2), active (V,))``."""
+    Returns ``(SegmentPointSet, obstacle_vel (V, 2), active (V,))`` (a
+    batch of fleets': ``(B, V, 2)`` and ``(B, V)``)."""
     wx, wy = _world_outline(snap, valid_only=True)
     wx = torch.where(snap.template_valid, wx, PAD_COORD)
     wy = torch.where(snap.template_valid, wy, PAD_COORD)
-    v = wx.shape[0]
-    if isinstance(perception_threshold, torch.Tensor):
-        radius = perception_threshold.to(wx)[:, None].expand(-1, v)
-    else:
-        radius = torch.full((v,), float(perception_threshold),
-                            dtype=wx.dtype, device=wx.device)
     pset = SegmentPointSet(
-        x=wx, y=wy, center_x=snap.center[:, 0].contiguous(),
-        center_y=snap.center[:, 1].contiguous(), filter_radius=radius)
+        x=wx, y=wy, center_x=snap.center[..., 0].contiguous(),
+        center_y=snap.center[..., 1].contiguous(),
+        filter_radius=_radii(snap, perception_threshold, wx))
     return pset, snap.vel, snap.active
 
 
@@ -231,25 +247,23 @@ def snapshot_pointset(snap: VehicleSnapshot, perception_threshold):
     """Chunked dynamic-obstacle point set from a snapshot (tensors on the
     device; the JAX package's jnp path reads this form).  A swept
     ``perception_threshold`` (a ``(B,)`` tensor) gives each of the B crowds
-    its own filter radii, ``(B, V)``.  Returns ``(ChunkedPointSet,
-    obstacle_vel (V, 2), active (V,))``."""
+    its own filter radii, ``(B, V)``; a batch of fleets each crowd its own
+    chunks, ``(B, C, K, 2)`` (``chunk_segment`` shared).  Returns
+    ``(ChunkedPointSet, obstacle_vel (V, 2), active (V,))`` (a batch of
+    fleets': ``(B, V, 2)`` and ``(B, V)``)."""
     wx, wy = _world_outline(snap, valid_only=False)
-    world = torch.stack([wx, wy], dim=-1)                       # (V, P, 2)
-    v, p, _ = world.shape
+    world = torch.stack([wx, wy], dim=-1)                 # (..., V, P, 2)
+    *lead, v, p, _ = world.shape
     k = snap.points_per_chunk
     n_chunks_per_v = p // k
-    valid = (snap.template_valid & snap.active[:, None]).reshape(
-        v * n_chunks_per_v, k)
+    valid = (snap.template_valid & snap.active[..., None]).reshape(
+        *lead, v * n_chunks_per_v, k)
     chunk_segment = torch.arange(
         v, dtype=torch.int32, device=world.device).repeat_interleave(
             n_chunks_per_v)
-    if isinstance(perception_threshold, torch.Tensor):
-        radius = perception_threshold.to(world)[:, None].expand(-1, v)
-    else:
-        radius = torch.full((v,), float(perception_threshold),
-                            dtype=world.dtype, device=world.device)
     pset = ChunkedPointSet(
-        points=world.reshape(v * n_chunks_per_v, k, 2), valid=valid,
+        points=world.reshape(*lead, v * n_chunks_per_v, k, 2), valid=valid,
         chunk_segment=chunk_segment, centers=snap.center,
-        filter_radius=radius, num_segments=v)
+        filter_radius=_radii(snap, perception_threshold, world),
+        num_segments=v)
     return pset, snap.vel, snap.active

@@ -2,7 +2,7 @@
 ops/pallas_env.py: sampled points and the analytic border geometry, dense
 and compacted forms).
 
-Twelve kernels from ``csrc/env_forces.cu``, each behind a wrapper that checks
+Fourteen kernels from ``csrc/env_forces.cu``, each behind a wrapper that checks
 its inputs, allocates its outputs, launches on PyTorch's current stream and
 counts the launch:
 
@@ -36,6 +36,15 @@ counts the launch:
   batched survivor table (``ops/env_grid.env_grid`` of ``(B, n)``
   planes).  Row b of every batched form equals the unbatched launch on
   row b (with its table) bitwise.
+* :func:`env_moussaid_percrowd`, :func:`env_moussaid_compact_percrowd` --
+  the batched Moussaid forms where every crowd reads its own segment set
+  (a batch of fleets' vehicles: ``(B, S, K)`` rows, ``(B, S)`` centers,
+  ``(B, S, 2)`` velocities; the compacted form over a table built from
+  each crowd's own circles): the JAX package's ``_moussaid_kernel`` and
+  ``_moussaid_kernel_compact`` under ``vmap`` with per-row geometry.  A
+  second kernel over the batched forms' walk body, which also offsets the
+  geometry by the crowd; row b equals the unbatched launch on crowd b's
+  own set bitwise.
 
 On CPU tensors each wrapper runs its plain PyTorch version
 (``ops/forces.py``; the table changes no value, so the compacted forms have
@@ -60,7 +69,7 @@ import torch
 from . import forces
 from .env_grid import EnvGrid, env_gate, env_grid
 from .spatial import morton_order
-from ..env.pointsets import SegmentGeomSet
+from ..env.pointsets import SegmentGeomSet, per_crowd
 from ..models.params import (MoussaidParams, exp_rows, law_rows,
                              moussaid_vector)
 
@@ -71,7 +80,8 @@ LAUNCHES = {"env_exp": 0, "env_moussaid": 0, "env_exp_compact": 0,
             "env_exp_analytic_compact": 0, "env_exp_batched": 0,
             "env_moussaid_batched": 0, "env_exp_compact_batched": 0,
             "env_moussaid_compact_batched": 0, "env_exp_analytic_batched": 0,
-            "env_exp_analytic_compact_batched": 0}
+            "env_exp_analytic_compact_batched": 0,
+            "env_moussaid_percrowd": 0, "env_moussaid_compact_percrowd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -95,11 +105,16 @@ def _check_planes(planes, alive, dev, batch=None):
                          f"{dev}")
 
 
-def _check_segments(seg, extra, dev):
-    s, k = seg.x.shape
-    for name, t, shape in (("x", seg.x, (s, k)), ("y", seg.y, (s, k)),
-                           ("center_x", seg.center_x, (s,)),
-                           ("center_y", seg.center_y, (s,)), *extra):
+def _check_segments(seg, extra, dev, batch=None):
+    """The point rows ``(S, K)`` and centers ``(S,)`` of a segment set, or
+    of a set of each of ``batch`` crowds' own, ``(B, S, K)`` and ``(B,
+    S)``."""
+    lead = () if batch is None else (batch,)
+    s, k = seg.num_segments, seg.points_per_segment
+    for name, t, shape in (("x", seg.x, (*lead, s, k)),
+                           ("y", seg.y, (*lead, s, k)),
+                           ("center_x", seg.center_x, (*lead, s)),
+                           ("center_y", seg.center_y, (*lead, s)), *extra):
         if (t.device != dev or t.dtype != torch.float32 or t.shape != shape
                 or not t.is_contiguous()):
             raise ValueError(f"segment {name} must be a contiguous float32 "
@@ -108,16 +123,17 @@ def _check_segments(seg, extra, dev):
 
 
 def _lengths_ptr(seg, dev) -> int:
-    """Address of the set's per-row real lengths (int32 (S,)), or 0 (a
-    null pointer: the kernel scans every slot) when it has none."""
+    """Address of the set's per-row real lengths (int32 (S,), or a set of
+    each crowd's own's (B, S)), or 0 (a null pointer: the kernel scans
+    every slot) when it has none."""
     lengths = seg.lengths
     if lengths is None:
         return 0
-    s = seg.center_x.shape[0]
+    shape = tuple(seg.center_x.shape)
     if (lengths.device != dev or lengths.dtype != torch.int32
-            or lengths.shape != (s,) or not lengths.is_contiguous()):
-        raise ValueError(f"segment lengths must be a contiguous int32 ({s},) "
-                         f"tensor on {dev}; got {lengths.dtype} "
+            or tuple(lengths.shape) != shape or not lengths.is_contiguous()):
+        raise ValueError(f"segment lengths must be a contiguous int32 "
+                         f"{shape} tensor on {dev}; got {lengths.dtype} "
                          f"{tuple(lengths.shape)} on {lengths.device}")
     return lengths.data_ptr()
 
@@ -341,8 +357,8 @@ def _batched_args(pos_x, pos_y, vel_x, vel_y, radius, alive, seg, r2,
                   moussaid, obstacle_vel=None):
     """The batched entries' plane, segment and filter arguments, checked:
     ``(B, n)`` planes (vel_x, vel_y only for the Moussaid form), the
-    segments of :func:`_check_segments` or, for a
-    :class:`..env.pointsets.SegmentGeomSet`, the planes of
+    segments of :func:`_check_segments` (shared, or each crowd's own) or,
+    for a :class:`..env.pointsets.SegmentGeomSet`, the planes of
     :func:`_check_geom`, ``r2`` ``(S,)`` or ``(B, S)``."""
     dev = pos_x.device
     if pos_x.dim() != 2:
@@ -358,9 +374,12 @@ def _batched_args(pos_x, pos_y, vel_x, vel_y, radius, alive, seg, r2,
     if isinstance(seg, SegmentGeomSet):
         rows = _check_geom(seg, dev)
     else:
-        extra = () if not moussaid else (("velocity", obstacle_vel, (s, 2)),)
-        _check_segments(seg, extra, dev)
-        rows = (seg.x.data_ptr(), seg.y.data_ptr(), seg.x.shape[1])
+        own = per_crowd(seg)
+        lead = (batch,) if own else ()
+        extra = () if not moussaid else (("velocity", obstacle_vel,
+                                          (*lead, s, 2)),)
+        _check_segments(seg, extra, dev, batch if own else None)
+        rows = (seg.x.data_ptr(), seg.y.data_ptr(), seg.points_per_segment)
     if (r2.shape not in ((s,), (batch, s)) or r2.stride(-1) != 1
             or r2.dim() == 2 and r2.stride(0) not in (0, s)):
         raise ValueError(f"segment filter radii must be ({s},) or "
@@ -380,7 +399,14 @@ def _launch_batched(name, pos_x, pos_y, vel_x, vel_y, radius, alive, seg,
     """Check and launch the batched entry ``sfm_<name>``: the exp forms
     (``obstacle_vel`` None) or the Moussaid forms, with the crowds' table
     ``grid`` for the compacted ones; ``prm`` the ``(B, P)`` parameter
-    rows."""
+    rows.  A ``_percrowd`` entry takes a set of each crowd's own (and
+    only such a set), the others one set for all."""
+    if per_crowd(seg) != name.endswith("_percrowd"):
+        raise ValueError(f"{name} takes "
+                         + ("a segment set of each crowd's own, (B, S, K)"
+                            if name.endswith("_percrowd")
+                            else "one segment set for every crowd, (S, K)")
+                         + f"; got rows {tuple(seg.x.shape)}")
     moussaid = obstacle_vel is not None
     r2 = filter_r2(seg, active)
     ptrs, batch = _batched_args(pos_x, pos_y, vel_x, vel_y, radius, alive,
@@ -481,6 +507,34 @@ def env_moussaid_compact_batched(pos_x, pos_y, vel_x, vel_y, radius, alive,
                              p, use_radius, active, grid)
 
 
+def env_moussaid_percrowd(pos_x, pos_y, vel_x, vel_y, radius, alive, seg,
+                          obstacle_vel, p: MoussaidParams,
+                          use_radius: bool = False, active=None):
+    """:func:`env_moussaid_batched` where every crowd reads its own segment
+    set (``seg`` with ``(B, S, K)`` rows and ``(B, S)`` centers,
+    ``obstacle_vel`` ``(B, S, 2)``, ``active`` ``(B, S)``: a batch of
+    fleets' vehicles, ``models/vehicles.snapshot_segment_pointset``), one
+    launch for every row.  Row b equals :func:`env_moussaid` on crowd b's
+    own set bitwise."""
+    return _moussaid_batched("env_moussaid_percrowd", pos_x, pos_y, vel_x,
+                             vel_y, radius, alive, seg, obstacle_vel, p,
+                             use_radius, active)
+
+
+def env_moussaid_compact_percrowd(pos_x, pos_y, vel_x, vel_y, radius, alive,
+                                  seg, obstacle_vel, p: MoussaidParams,
+                                  grid: EnvGrid, use_radius: bool = False,
+                                  active=None):
+    """:func:`env_moussaid_percrowd` over each crowd's survivor table, built
+    from that crowd's own circles (:func:`.env_grid.env_grid` of the same
+    ``(B, n)`` sorted planes and set).  Row b equals
+    :func:`env_moussaid_compact` on crowd b's set with its table,
+    bitwise."""
+    return _moussaid_batched("env_moussaid_compact_percrowd", pos_x, pos_y,
+                             vel_x, vel_y, radius, alive, seg, obstacle_vel,
+                             p, use_radius, active, grid)
+
+
 def environment_jobs(scene, params, veh_snap, analytic: bool = False):
     """The environment terms this step computes, in the JAX package's
     order: ``(name, kind, segments, args, use_radius, active)`` with
@@ -541,6 +595,10 @@ _FORMS = {
     ("moussaid", False, False, True): "env_moussaid_batched",
     ("moussaid", False, True, True): "env_moussaid_compact_batched",
 }
+#: the Moussaid forms of a batch whose crowds each read their own set (a
+#: batch of fleets), by their compaction
+_PERCROWD_FORMS = {False: "env_moussaid_percrowd",
+                   True: "env_moussaid_compact_percrowd"}
 
 
 def fused_environment_terms(state, scene, params, veh_snap,
@@ -571,7 +629,8 @@ def fused_environment_terms(state, scene, params, veh_snap,
     ``(B, N)`` planes (a batch of crowds) sort each row on its own, build
     each job's table (the gate is one for every crowd) over each row's
     blocks and launch the batched form of the same kernel once for every
-    row.
+    row; a batch of fleets' vehicles (each crowd's own set) launch the
+    ``_percrowd`` forms, each crowd's table built from its own circles.
     """
     jobs = environment_jobs(scene, params, veh_snap, analytic)
     if not jobs:
@@ -590,8 +649,10 @@ def fused_environment_terms(state, scene, params, veh_snap,
                                      max_surv)
         grid = (env_grid(px, py, alive, seg, filter_r2(seg, active), group,
                          ms) if engage else None)
-        fn = globals()[_FORMS[kind, isinstance(seg, SegmentGeomSet),
-                              grid is not None, batched]]
+        form = (_PERCROWD_FORMS[grid is not None] if per_crowd(seg)
+                else _FORMS[kind, isinstance(seg, SegmentGeomSet),
+                            grid is not None, batched])
+        fn = globals()[form]
         table = () if grid is None else (grid,)
         vel = () if kind == "exp" else (vx, vy)
         fx, fy = fn(px, py, *vel, rad, alive, seg, *args, *table,

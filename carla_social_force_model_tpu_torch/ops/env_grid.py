@@ -28,8 +28,10 @@ the planes' device; nothing synchronises with the host.
 * Under a batch of crowds (``(B, n)`` planes, each row sorted on its own)
   every function gains a leading batch axis: each crowd's boxes, hits and
   table over its own blocks, against the shared sections (with each
-  crowd's own radii for a swept perception threshold), as the JAX
-  package's ``_tile_hits`` under ``vmap``.  The gate stays one for all.
+  crowd's own radii for a swept perception threshold), or against each
+  crowd's own sections (a batch of fleets' vehicles, ``(B, S)``
+  centers), as the JAX package's ``_tile_hits`` under ``vmap``.  The gate
+  stays one for all.
 """
 from __future__ import annotations
 
@@ -92,22 +94,24 @@ def group_hits(boxes, center_x, center_y, r2, group: int):
     the last fill the last group with ``r2 = -1`` (never a hit).  Boxes
     ``(B, 4, blocks)`` give ``(B, blocks, groups)``, each crowd's blocks
     against the shared circles, with ``r2`` ``(S,)`` or each crowd's own
-    ``(B, S)``."""
-    s = center_x.shape[0]
+    ``(B, S)``, or against each crowd's own circles (``(B, S)`` centers: a
+    batch of fleets' vehicles)."""
+    s = center_x.shape[-1]
     s_pad = _round_up(max(s, 1), group)
 
     def padded(a, fill):
         pad = a.new_full((*a.shape[:-1], s_pad - s), fill)
         return torch.cat([a, pad], dim=-1) if s_pad > s else a
 
-    cx, cy, rr = padded(center_x, 0.0), padded(center_y, 0.0), padded(r2, -1.0)
+    cx, cy, rr = (padded(a, fill)[..., None, :] for a, fill in (
+        (center_x, 0.0), (center_y, 0.0), (r2, -1.0)))
 
     def box(k):
         return boxes[..., k, :, None]
 
     gx = torch.maximum(cx - box(1), box(0) - cx).clamp_(min=0.0)
     gy = torch.maximum(cy - box(3), box(2) - cy).clamp_(min=0.0)
-    hit = (gx * gx + gy * gy) <= rr[..., None, :]
+    hit = (gx * gx + gy * gy) <= rr
     return hit.reshape(*hit.shape[:-1], s_pad // group, group).any(dim=-1)
 
 
@@ -117,7 +121,8 @@ def env_grid(x, y, alive, seg, r2, group: int, max_surv: int) -> EnvGrid:
     radii ``r2`` the kernel reads (``ops/cuda_env.filter_r2``).  ``(B, n)``
     planes (each row sorted on its own) give the table of one batched
     launch, row b equal to the table of row b alone (``r2`` ``(S,)`` or
-    ``(B, S)``)."""
+    ``(B, S)``; ``seg`` shared, or each crowd's own with ``(B, S)``
+    centers)."""
     hits = group_hits(block_boxes(x, y, alive), seg.center_x, seg.center_y,
                       r2, group)
     surv, counts = surv_counts(hits, max_surv)

@@ -52,7 +52,7 @@ from .geometry import (PAD_DIST2, closest_on_segments,
                        closest_point_per_segment, section_column,
                        segment_filter_mask)
 from .pair_grid import cutoff_sq
-from ..env.pointsets import SegmentGeomSet
+from ..env.pointsets import SegmentGeomSet, SegmentPointSet, per_crowd
 from ..models import modes
 from ..models.params import (AccelerationParams, BorderParams, MoussaidParams,
                              PedRepulsiveParams, PowerLawParams,
@@ -400,8 +400,8 @@ def _moussaid_sum(pos_x, pos_y, vel_x, vel_y, bx, by, ok, radius,
     with the relative velocity ``v_ped - obstacle_vel[s]``, summed over the
     segments where ``ok``: ``(fx, fy)``.  ``radius`` (or None) is
     subtracted from the distance."""
-    dvx = vel_x[None] - section_column(obstacle_vel[:, 0], vel_x)
-    dvy = vel_y[None] - section_column(obstacle_vel[:, 1], vel_y)
+    dvx = vel_x[None] - section_column(obstacle_vel[..., 0], vel_x)
+    dvy = vel_y[None] - section_column(obstacle_vel[..., 1], vel_y)
     radius_sub = 0.0 if radius is None else radius[None, :]
     fx, fy = _moussaid_pair_force(bx - pos_x[None, :], by - pos_y[None, :],
                                   radius_sub, dvx, dvy, p, ok)
@@ -462,10 +462,26 @@ def number_rows(x, batch: int) -> list:
 
 def _segment_row(seg, b: int):
     """Row b's view of a point set whose filter radii are per row (``(B,
-    S)``: a swept perception threshold); a shared set unchanged."""
+    S)``: a swept perception threshold) or that holds each crowd's own
+    geometry (``env/pointsets.per_crowd``: a batch of fleets' vehicles);
+    a shared set unchanged."""
+    upd = {}
     if seg.filter_radius.dim() == 2:
-        return dataclasses.replace(seg, filter_radius=seg.filter_radius[b])
-    return seg
+        upd["filter_radius"] = seg.filter_radius[b]
+    if per_crowd(seg):
+        names = (("x", "y", "center_x", "center_y", "lengths")
+                 if isinstance(seg, SegmentPointSet)
+                 else ("points", "valid", "centers"))
+        upd.update({f: getattr(seg, f)[b] for f in names
+                    if getattr(seg, f) is not None})
+    return dataclasses.replace(seg, **upd) if upd else seg
+
+
+def _crowd_row(t, b: int, shared_dims: int):
+    """Row b of a per-crowd plane (obstacle velocities, the active mask)
+    with one dimension more than ``shared_dims``; a shared one (or None)
+    unchanged."""
+    return t[b] if t is not None and t.dim() > shared_dims else t
 
 
 def env_exp_force_batched(pos_x, pos_y, radius, alive, seg, a, b,
@@ -486,13 +502,17 @@ def env_moussaid_force_batched(pos_x, pos_y, vel_x, vel_y, radius, alive,
                                seg, obstacle_vel, p: MoussaidParams,
                                use_radius: bool = False, active=None):
     """:func:`env_moussaid_force` on ``(B, N)`` planes against one point
-    set: row r with row r of ``p`` (a section with ``(B,)`` leaves, or one
-    shared by every row).  The plain version of the batched
-    ``env_moussaid`` kernel."""
+    set, or each crowd against its own (a batch of fleets' vehicles, with
+    ``(B, S, 2)`` velocities and a ``(B, S)`` active mask): row r with row
+    r of ``p`` (a section with ``(B,)`` leaves, or one shared by every
+    row).  The plain version of the batched ``env_moussaid`` kernel and of
+    its per-crowd form."""
     return _stacked(
         env_moussaid_force(pos_x[r], pos_y[r], vel_x[r], vel_y[r], radius[r],
-                           alive[r], _segment_row(seg, r), obstacle_vel, pr,
-                           use_radius=use_radius, active=active)
+                           alive[r], _segment_row(seg, r),
+                           _crowd_row(obstacle_vel, r, 2), pr,
+                           use_radius=use_radius,
+                           active=_crowd_row(active, r, 1))
         for r, pr in enumerate(section_rows(p, pos_x.shape[0])))
 
 
@@ -575,8 +595,9 @@ def env_moussaid_force_chunked(pos_x, pos_y, vel_x, vel_y, radius, alive,
     """:func:`env_moussaid_force` on a
     :class:`..env.pointsets.ChunkedPointSet` of tensors (see
     :func:`env_exp_force_chunked`; row r of ``(B, N)`` planes with row r
-    of ``p``, a section with ``(B,)`` leaves or one shared by every
-    row)."""
+    of ``p``, a section with ``(B,)`` leaves or one shared by every row,
+    against the one set or, for a batch of fleets' vehicles, its own
+    chunks with ``(B, S, 2)`` velocities and a ``(B, S)`` active mask)."""
     closest = closest_point_per_segment(pos_x, pos_y, pset, plain=plain)
     if pos_x.dim() == 1 or not _rows_apart(pos_x):
         return _moussaid_chunked_terms(
@@ -586,8 +607,9 @@ def env_moussaid_force_chunked(pos_x, pos_y, vel_x, vel_y, radius, alive,
     return _stacked(
         _moussaid_chunked_terms(pos_x[r], pos_y[r], vel_x[r], vel_y[r],
                                 radius[r], alive[r], _segment_row(pset, r),
-                                _closest_row(closest, r), obstacle_vel, pr,
-                                use_radius, active)
+                                _closest_row(closest, r),
+                                _crowd_row(obstacle_vel, r, 2), pr,
+                                use_radius, _crowd_row(active, r, 1))
         for r, pr in enumerate(section_rows(p, pos_x.shape[0])))
 
 

@@ -24,7 +24,9 @@ chunks and the first chunk that reaches it.  On a card the chunk scan is
 the ``chunk_argmin`` kernel of ``csrc/statics.cu`` (the JAX package's
 ``_cp_kernel``), on the CPU its plain version :func:`chunk_argmin_plain`;
 ``(B, N)`` planes of a batch of crowds take one scan of the flattened
-pedestrians.
+pedestrians, or, where each crowd has its own chunks (a batch of fleets'
+vehicles), one scan with each crowd against its own
+(``chunk_argmin_percrowd`` on a card).
 The scenarios' default engine reaches it through the chunked environment
 forces (``ops/forces.py``, ``StepConfig.env_chunked``); the fused
 environment kernels read the segment-major layout
@@ -230,12 +232,20 @@ def chunk_argmin(pos_x, pos_y, fx, fy, plain: bool = False):
     the plain version; on CPU tensors, or with ``plain``, the plain
     version.  ``(B, N)`` planes (a batch of crowds) give ``(C, B, N)``: one
     launch over the flattened planes (``ops/statics.chunk_argmin_batched``),
-    or the plain version on them."""
+    or the plain version on them.  ``(B, C, K)`` planes ``fx, fy`` (each
+    crowd's own chunks) give the same layout, crowd b's indices into its own
+    planes: one launch of ``ops/statics.chunk_argmin_percrowd``, or the
+    plain version row by row."""
     if pos_x.device.type == "cuda" and not plain:
         from . import statics
         fn = statics.chunk_argmin if pos_x.dim() == 1 else (
-            statics.chunk_argmin_batched)
+            statics.chunk_argmin_batched if fx.dim() == 2
+            else statics.chunk_argmin_percrowd)
         return fn(pos_x, pos_y, fx, fy)
+    if fx.dim() == 3:
+        rows = [chunk_argmin_plain(pos_x[b], pos_y[b], fx[b], fy[b])
+                for b in range(pos_x.shape[0])]
+        return tuple(torch.stack(r, dim=1) for r in zip(*rows))
     dmin, idx = chunk_argmin_plain(pos_x.reshape(-1), pos_y.reshape(-1),
                                    fx, fy)
     return (dmin.view(fx.shape[0], *pos_x.shape),
@@ -262,10 +272,13 @@ def closest_point_per_segment(pos_x, pos_y, pset: ChunkedPointSet,
 
     ``(B, N)`` planes (a batch of crowds against the one set) give ``(S,
     B, N)``: one scan of the flattened pedestrians, then the segmented
-    minimum along the flattened axis.  Every step is exact (differences,
-    products, sums, minima, gathers, a square root), so row b equals the
-    function on row b bitwise."""
-    c, k = pset.valid.shape
+    minimum along the flattened axis; a set of each crowd's own chunks
+    (``env/pointsets.per_crowd``, a batch of fleets' vehicles) one scan of
+    each crowd against its own, each point gathered from its crowd's set.
+    Every step is exact (differences, products, sums, minima, gathers, a
+    square root), so row b equals the function on row b (and its own set)
+    bitwise."""
+    c, k = pset.valid.shape[-2:]
     s, shape = pset.num_segments, pos_x.shape
     fx, fy = staged_chunk_planes(pset)
     dmin, idx = chunk_argmin(pos_x, pos_y, fx.contiguous(), fy.contiguous(),
@@ -284,6 +297,10 @@ def closest_point_per_segment(pos_x, pos_y, pset: ChunkedPointSet,
     has_point = (dseg2 < PAD_DIST2) & (first < _BIG_INDEX)
     flat = torch.gather(idx, 0, first.clamp(0, max(c - 1, 0))).to(
         torch.int64)
+    if pset.points.dim() == 4:
+        # crowd b's indices into its own planes, at b * C * K of the set's
+        crowd = torch.arange(shape[0], device=pos_x.device) * (c * k)
+        flat = flat + crowd.repeat_interleave(shape[1])
     bx = pset.points[..., 0].reshape(-1)[flat]
     by = pset.points[..., 1].reshape(-1)[flat]
     dist = torch.sqrt(torch.where(has_point, dseg2, 0.0))
@@ -293,7 +310,8 @@ def closest_point_per_segment(pos_x, pos_y, pset: ChunkedPointSet,
 def segment_filter_mask(pos_x, pos_y, pset):
     """Per-(segment, ped) relevance filter ``|pos - center| < radius``,
     ``(S, N)`` bool; ``(S, B, N)`` for ``(B, N)`` planes, whose rows may
-    have their own radii (``(B, S)``).
+    have their own radii (``(B, S)``) and centers (``(B, S)``: a batch of
+    fleets' vehicles).
 
     Matches the reference's border section filter (forces.py:149-151) and
     the obstacle perception filter (forces.py:222-224), both strict ``<``,
@@ -304,7 +322,7 @@ def segment_filter_mask(pos_x, pos_y, pset):
     JAX package's geometry.py:531-543).
     """
     if isinstance(pset, ChunkedPointSet):
-        cx, cy = pset.centers[:, 0], pset.centers[:, 1]
+        cx, cy = pset.centers[..., 0], pset.centers[..., 1]
     else:
         cx, cy = pset.center_x, pset.center_y
     dx = section_column(cx, pos_x) - pos_x[None]

@@ -31,16 +31,18 @@ candidate of the linear program on the same inputs:
   (:func:`_safe_unit`), so no NaN reaches a masked row or a gradient.
 
 A batch of crowds (``parallel/sweeps.py``, the JAX package's vmap) runs
-on ``(B, N)`` planes: each row's band, neighbours, vehicles and wall feed
-along its last axis (the feed one batched launch for every row on a card),
-the programs over the flattened ``B * N`` rows (one ``nonzero`` for all of
-them), and a sweep's ``tau``, ``neighbor_dist`` and ``tau_static`` as
-``(B,)`` leaves viewed as columns.  Every operation is per element or per
-row, so row b equals one crowd's solve on row b bitwise.
+on ``(B, N)`` planes: each row's band, neighbours, vehicles (shared, or
+each crowd's own fleet) and wall feed along its last axis (the feed one
+batched launch for every row on a card), the programs over the flattened
+``B * N`` rows (one ``nonzero`` for all of them), and a sweep's ``tau``,
+``neighbor_dist`` and ``tau_static`` as ``(B,)`` leaves viewed as
+columns.  Every operation is per element or per row, so row b equals one
+crowd's solve on row b bitwise.
 
-Multi-device gathering (the JAX package's ``axis_name``) belongs to the
-multi-device slice of the port; it does not run under a batch (ROADMAP
-item 19b.5).
+Over an agent axis (the JAX package's ``axis_name``) every shard gathers
+the crowd, solves it whole and keeps its own rows; under a batch each
+crowd is gathered along the last axis and each shard keeps its own
+columns.
 """
 from __future__ import annotations
 
@@ -412,12 +414,17 @@ def _vehicle_constraints(ex, ey, evx, evy, er, veh_snap, k: int,
                          neigh_dist, tau, dt: float):
     """Half-planes against the ``k`` nearest active vehicles as bounding
     discs (the circle around the extent box); the walker takes the whole
-    correction.  Ego planes (..., N), the vehicles shared; returns (..., N,
-    k) constraint planes and their validity."""
-    cvx, cvy = veh_snap.center[:, 0], veh_snap.center[:, 1]
-    vvx, vvy = veh_snap.vel[:, 0], veh_snap.vel[:, 1]
+    correction.  Ego planes (..., N), the vehicles shared or, for a batch
+    of fleets, each crowd's own ``(B, V)``; returns (..., N, k) constraint
+    planes and their validity."""
+    def veh(a):
+        """A vehicle plane against the (..., N, V) planes."""
+        return a[..., None, :]
+
+    cvx, cvy = veh(veh_snap.center[..., 0]), veh(veh_snap.center[..., 1])
+    vvx, vvy = veh(veh_snap.vel[..., 0]), veh(veh_snap.vel[..., 1])
     vr = torch.sqrt(veh_snap.extent[:, 0] ** 2 + veh_snap.extent[:, 1] ** 2)
-    act = veh_snap.active.to(torch.bool)
+    act = veh(veh_snap.active.to(torch.bool))
     dx = cvx - ex[..., None]                  # (..., N, V)
     dy = cvy - ey[..., None]
     d2 = dx * dx + dy * dy
@@ -426,7 +433,7 @@ def _vehicle_constraints(ex, ey, evx, evy, er, veh_snap, k: int,
     shp = d2.shape
     (sx, sy, svx, svy, sr), valid = _k_nearest(
         d2, tuple(a.expand(shp) for a in (cvx, cvy, vvx, vvy, vr)),
-        min(k, cvx.shape[0]))
+        min(k, vr.shape[0]))
     ux, uy, nx, ny = orca_halfplane(
         sx - ex[..., None], sy - ey[..., None], evx[..., None] - svx,
         evy[..., None] - svy, er[..., None] + sr, tau, dt)
@@ -523,8 +530,11 @@ def orca_velocities(pos, vel, radius, alive, pref, vmax, params, dt: float,
 
     A batch of B crowds: every plane ``(B, N)`` (``order`` each row's
     permutation), ``params`` shared or a sweep's with ``(B,)`` leaves of
-    ``tau``, ``neighbor_dist`` and ``tau_static``; the vehicles and walls
-    shared.  Not with ``axis``.
+    ``tau``, ``neighbor_dist`` and ``tau_static``; the walls shared, the
+    vehicles shared or each crowd's own fleet (``(B, V)`` snapshot planes).
+    With ``axis``, each shard's ``(B, n)`` slots: every crowd gathered along
+    the last axis and solved whole, each shard keeping its own columns (the
+    JAX package's sharded ORCA under vmap).
 
     Returns ``(vx, vy)``, valid where ``alive`` (dead rows undefined)."""
     px, py = pos
@@ -534,9 +544,6 @@ def orca_velocities(pos, vel, radius, alive, pref, vmax, params, dt: float,
                    and params.max_statics > 0)
     exm = (static_exempt if static_exempt is not None
            else torch.zeros_like(alive))
-    if axis is not None and px.dim() > 1:
-        raise NotImplementedError("a sharded ORCA under a batch of crowds is "
-                                  "not ported yet (ROADMAP item 19b.5)")
     # a sweep's leaves as columns against the (B, N, k) and (B, k, N)
     # planes; the wall feed takes the (B,) neighbour distance itself
     tau, nd, tau_static = (
@@ -546,7 +553,7 @@ def orca_velocities(pos, vel, radius, alive, pref, vmax, params, dt: float,
         if order is not None:
             raise ValueError("a sharded ORCA sorts the gathered crowd: pass "
                              "no order")
-        local_n = px.shape[0]
+        local_n = px.shape[-1]
         px, py, vx, vy, radius, alive, prx, pry, vmax, exm = (
             axis.all_gather(a) for a in (px, py, vx, vy, radius, alive, prx,
                                          pry, vmax, exm))
@@ -599,5 +606,5 @@ def orca_velocities(pos, vel, radius, alive, pref, vmax, params, dt: float,
         ovx, ovy = torch.gather(ovx, -1, inv), torch.gather(ovy, -1, inv)
     if axis is not None:
         rows = slice(axis.index * local_n, (axis.index + 1) * local_n)
-        ovx, ovy = ovx[rows], ovy[rows]
+        ovx, ovy = ovx[..., rows], ovy[..., rows]
     return ovx, ovy

@@ -29,7 +29,9 @@ PyTorch's current stream and counts the launch:
   version is ``geometry.chunk_argmin_plain``, its entry
   ``geometry.closest_point_per_segment``.  :func:`chunk_argmin_batched` is
   the same kernel over B crowds' flattened ``(B, N)`` planes (counted
-  apart).
+  apart), and :func:`chunk_argmin_percrowd` its form for B crowds that
+  each scan their own chunks (a batch of fleets' vehicles), crowd on the
+  grid's third axis.
 
 Each block of the three wall-feed kernels holds 32 consecutive
 pedestrians (the caller's order: ORCA's are Hilbert-sorted, so the boxes
@@ -66,7 +68,7 @@ MAX_K = 8
 LAUNCHES = {"seg_topk": 0, "chunk_topk": 0, "chunk_closest": 0,
             "chunk_argmin": 0, "chunk_argmin_batched": 0,
             "seg_topk_batched": 0, "chunk_topk_batched": 0,
-            "chunk_closest_batched": 0}
+            "chunk_closest_batched": 0, "chunk_argmin_percrowd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -325,6 +327,34 @@ def chunk_argmin_batched(pos_x, pos_y, fx, fy):
     return _launch("chunk_argmin", (*peds, fx.data_ptr(), fy.data_ptr(), c,
                                     kk, batch * n), outs, dev,
                    key="chunk_argmin_batched")
+
+
+def chunk_argmin_percrowd(pos_x, pos_y, fx, fy):
+    """:func:`chunk_argmin` of B crowds that each scan their own chunks:
+    ``(B, n)`` planes against ``(B, C, K)`` staged planes (a batch of
+    fleets' vehicle outlines), one launch: ``(dmin, idx)`` of shape (C, B,
+    n), the layout of :func:`chunk_argmin_batched`, as views of (B, C, n)
+    planes; crowd b's flat indices point into its own (C, K) planes.  Row
+    b equals :func:`chunk_argmin` on crowd b's planes bitwise (a block
+    holds one crowd's pedestrians)."""
+    if pos_x.dim() != 2 or fx.dim() != 3:
+        raise ValueError(f"chunk_argmin_percrowd takes (B, n) planes and "
+                         f"(B, C, K) chunk planes, got {tuple(pos_x.shape)} "
+                         f"and {tuple(fx.shape)}")
+    peds = _peds(pos_x, pos_y, None, dims=2)[:2]
+    (batch, n), dev = pos_x.shape, pos_x.device
+    _, c, kk = fx.shape
+    if c * kk >= 2 ** 31 or n >= 2 ** 31:
+        raise ValueError(f"{c} x {kk} chunk slots or {n} pedestrians exceed "
+                         f"the kernel's 32-bit indices")
+    _check((("fx", fx, (batch, c, kk)), ("fy", fy, (batch, c, kk))), dev)
+    outs = (torch.empty((batch, c, n), dtype=torch.float32, device=dev),
+            torch.empty((batch, c, n), dtype=torch.int32, device=dev))
+    if batch * n > 0 and c > 0:
+        _launch("chunk_argmin_percrowd", (*peds, fx.data_ptr(),
+                                          fy.data_ptr(), c, kk, n, batch),
+                outs, dev)
+    return tuple(o.transpose(0, 1) for o in outs)
 
 
 def topk_plain(pos_x, pos_y, src, k: int, neigh_dist):

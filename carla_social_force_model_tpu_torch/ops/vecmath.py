@@ -45,3 +45,15 @@ def cap_velocity_xy(vx, vy, max_speed):
     safe = torch.sqrt(torch.where(s2 == 0.0, 1.0, s2))
     factor = torch.clamp(max_speed / safe, max=1.0)
     return vx * factor, vy * factor
+
+
+def atan2_rows(y, x, batched: bool):
+    """``torch.atan2(y, x)``; with ``batched``, the rows of a batch (the
+    leading axis) taken apart on the CPU, so that row b equals the function
+    on row b alone bitwise: the CPU's vector loop rounds an element by where
+    it falls in the tensor (a card computes every element alike)."""
+    if not batched or y.device.type != "cpu":
+        return torch.atan2(y, x)
+    y, x = torch.broadcast_tensors(y, x)
+    return torch.stack([torch.atan2(y[b].contiguous(), x[b].contiguous())
+                        for b in range(y.shape[0])])

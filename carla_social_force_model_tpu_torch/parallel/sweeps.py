@@ -21,7 +21,11 @@ ORCA (its wall feeds prepared here, each part one batched launch a step;
 a sweep of ``orca_tau``, ``orca_neighbor_dist`` and ``orca_tau_static``
 per row), with the per-agent ``pair_scale``/``law_id`` columns of mixed
 crowds: ``(B, N)`` in an ensemble's schedules, ``(N,)`` shared by a
-sweep's rows.  The geometry is prepared once here and shared by every
+sweep's rows.  So do social groups (one member table for every row) and
+a reactive fleet: every row steps its own fleet from its own walkers, as
+the JAX package's vmap carries one fleet state per row, and the record is
+then the pair ``(StepRecord, AutopilotRecord)`` with the fleet's ``(B, T,
+V)`` planes.  The geometry is prepared once here and shared by every
 row; nothing here is specific to a path.
 
 A mesh (``parallel/mesh.make_mesh(n_agent_shards, n_batch_shards)``, a
@@ -34,9 +38,9 @@ the JAX package replicates the rows over it), and
 the agent axis (the JAX package's composed 2-D parallelism): each shard
 steps its crowds' slots as one batched step, and the pair forces bring in
 their columns over the shard's batch row by ``StepConfig.axis_comm``
-through the batched sharded kernels.  The configurations the batched step
-refuses raise and name their ROADMAP item (``stepper.check_supported``:
-groups and the fleet, item 19b.3a; ORCA over an agent axis, item 19b.5).
+through the batched sharded kernels; ORCA, the group force and the
+fleet's hazard check gather each crowd's slots over the row.  Every
+configuration the three factories of the JAX package take runs.
 """
 from __future__ import annotations
 
@@ -78,14 +82,21 @@ def rows_of(obj, lo: int, hi: int):
 
 def _join_rows(outs):
     """The batch rows' ``(final, record | None)`` joined along the batch
-    axis (states ``(B, N)``, records ``(B, T, N)``)."""
+    axis (states ``(B, N)``, records ``(B, T, N)``; with a fleet the
+    ``(StepRecord, AutopilotRecord)`` pair, the fleet's ``(B, T, V)``)."""
     final = PedState(**{f.name: torch.cat([getattr(o[0], f.name)
                                            for o in outs])
                         for f in dataclasses.fields(PedState)})
-    if outs[0][1] is None:
+    recs = [o[1] for o in outs]
+    if recs[0] is None:
         return final, None
-    return final, StepRecord(*(torch.cat(parts)
-                               for parts in zip(*(o[1] for o in outs))))
+
+    def cat(parts):
+        return type(parts[0])(*(torch.cat(p) for p in zip(*parts)))
+
+    if isinstance(recs[0], StepRecord):
+        return final, cat(recs)
+    return final, (cat([r[0] for r in recs]), cat([r[1] for r in recs]))
 
 
 def _over_batch_axis(mesh, batch: int, step_rows):
@@ -156,11 +167,13 @@ def make_ensemble_rollout(scene_batch: Scene, params: SfmParams,
     independent crowds of 1k+ pedestrians in one batched step.
 
     ``scene_batch.spawn`` planes carry a leading batch axis (``(B, N)``,
-    :func:`..api.synthetic.batched_crowds`); the geometry is shared.  The
+    :func:`..api.synthetic.batched_crowds`); the geometry, the fleet and
+    the group table are shared (each row steps its own fleet state).  The
     returned ``run(scenes)`` takes a Scene (only its ``spawn`` batch is
     read: the geometry prepared here is what runs) or a bare
     SpawnSchedule batch, and returns ``(final_state, record | None)`` with
-    ``(B, N)`` state planes and ``(B, T, N)`` records.  ``mesh`` (a
+    ``(B, N)`` state planes and ``(B, T, N)`` records (with a fleet the
+    ``(StepRecord, AutopilotRecord)`` pair).  ``mesh`` (a
     :class:`.mesh.LocalMesh`): the rows split over its batch axis
     (``ValueError`` when B does not divide over it), each batch shard
     stepping its rows as one batched step."""
@@ -202,8 +215,12 @@ def make_sharded_ensemble_rollout(mesh, scene_batch: Scene,
     axis: the pair forces bring in their columns by ``cfg.axis_comm``
     (each sharded kernel launched once per shard and step for all of its
     crowds; ``ring_kernel`` once for every shard and crowd), the rest is
-    slot-local.  ``run()`` returns ``(final_state, record | None)`` with
-    ``(B, N_padded)`` state planes and ``(B, T, N_padded)`` records."""
+    slot-local; ORCA, the group force and a fleet's hazard check gather
+    each crowd's slots over the row, and every shard of a row steps the
+    same fleets.  ``run()`` returns ``(final_state, record | None)`` with
+    ``(B, N_padded)`` state planes and ``(B, T, N_padded)`` records (with a
+    fleet the ``(StepRecord, AutopilotRecord)`` pair, the fleets' ``(B, T,
+    V)`` from each row's first shard)."""
     if scene_batch.spawn.step.dim() != 2:
         raise ValueError("make_sharded_ensemble_rollout takes a batch of "
                          "spawn schedules, (B, N) (batched_crowds)")
@@ -226,13 +243,21 @@ def make_sharded_ensemble_rollout(mesh, scene_batch: Scene,
         return rollout(state, scn, params, cfg, num_steps, record=record,
                        axis=ax)
 
+    def row_out(row):
+        """A batch row's shards joined along the slot axis, the fleet's
+        record (the same on every shard) from its first."""
+        if not record:
+            return join_shards([o[0] for o in row])
+        if scene_prepared.autopilot is None:
+            return join_shards([o[0] for o in row], [o[1] for o in row])
+        final, ped = join_shards([o[0] for o in row],
+                                 [o[1][0] for o in row])
+        return final, (ped, row[0][1][1])
+
     def run():
         outs = mesh.run(body, scenes)
-        rows = [outs[k:k + n_agents] for k in range(0, len(outs), n_agents)]
-        return _join_rows([join_shards([o[0] for o in row],
-                                       [o[1] for o in row] if record
-                                       else None)
-                           for row in rows])
+        return _join_rows([row_out(outs[k:k + n_agents])
+                           for k in range(0, len(outs), n_agents)])
 
     return run
 
@@ -242,10 +267,11 @@ def make_sweep_rollout(scene: Scene, cfg: StepConfig, num_steps: int,
     """Rollouts of one scene under a batch of parameters
     (:func:`batch_params`): ``run(params_batch)`` returns ``(final_state,
     record | None)`` with ``(B, N)`` state planes and ``(B, T, N)``
-    records, row b stepped with row b's parameters.  ``orca``: the swept
-    params' ``enable_orca``, so that the ORCA wall feeds are prepared here
-    (the JAX package's argument).  ``mesh``: the rows split over its batch
-    axis as in :func:`make_ensemble_rollout`."""
+    records (with a fleet the ``(StepRecord, AutopilotRecord)`` pair, one
+    fleet for each row), row b stepped with row b's parameters.
+    ``orca``: the swept params' ``enable_orca``, so that the ORCA wall
+    feeds are prepared here (the JAX package's argument).  ``mesh``: the
+    rows split over its batch axis as in :func:`make_ensemble_rollout`."""
     scene = prepare_scene(scene, analytic=cfg.env_analytic, orca=orca,
                           chunked=cfg.env_chunked)
     device = scene.spawn.step.device

@@ -23,7 +23,8 @@ import torch
 from ..api.scenario import ScenarioBundle
 from ..env.pointsets import ChunkedPointSet
 from ..models import params as P
-from ..models.autopilot import AutopilotFleet, AutopilotState
+from ..models.autopilot import (AutopilotFleet, AutopilotRecord,
+                                AutopilotState)
 from ..models.groups import GroupSet
 from ..models.routes import RouteBuffer
 from ..models.spawn import SpawnSchedule
@@ -188,9 +189,23 @@ def autopilot_fleet_from_fields(d: dict | None, device: torch.device | str
 
 def autopilot_state_from_fields(d: dict, device: torch.device | str
                                 ) -> AutopilotState:
-    """The port's AutopilotState from a flattened JAX ``AutopilotState``."""
+    """The port's AutopilotState from a flattened JAX ``AutopilotState``:
+    one fleet's ``(V,)`` planes, or a vmapped batch's ``(B, V)`` (one fleet
+    for each crowd)."""
     return AutopilotState(**{f.name: _tensor(d[f.name], device)
                              for f in dataclasses.fields(AutopilotState)})
+
+
+def autopilot_record_from_fields(d, device: torch.device | str
+                                 ) -> AutopilotRecord:
+    """The port's AutopilotRecord from a JAX ``AutopilotRecord`` (a
+    NamedTuple, flattened as a dict of its fields or as the tuple of its
+    arrays): a rollout's ``(T, V)`` planes or a vmapped batch's ``(B, T,
+    V)``."""
+    if not isinstance(d, dict):
+        d = dict(zip(AutopilotRecord._fields, d))
+    return AutopilotRecord(**{f: _tensor(d[f], device)
+                              for f in AutopilotRecord._fields})
 
 
 def group_set_from_fields(d: dict | None, device: torch.device | str

@@ -135,6 +135,15 @@ ARGTYPES = {
                                          + [_INT, _PTR, _INT, _PTR]
                                          + [_INT] * 4 + [_PTR] * 2
                                          + [_INT, _INT] + [_PTR] * 3),
+    # the per-crowd forms take the batched forms' arguments (each crowd's
+    # own ptx, pty, lens, cx, cy, ov)
+    "sfm_env_moussaid_percrowd": ([_PTR] * 8 + [_INT] + [_PTR] * 4
+                                  + [_INT, _PTR, _INT, _PTR] + [_INT] * 4
+                                  + [_PTR] * 3),
+    "sfm_env_moussaid_compact_percrowd": ([_PTR] * 8 + [_INT] + [_PTR] * 4
+                                          + [_INT, _PTR, _INT, _PTR]
+                                          + [_INT] * 4 + [_PTR] * 2
+                                          + [_INT, _INT] + [_PTR] * 3),
     # px, py, prad, alive, ax, ay, ux, uy, il2, m, lens, cx, cy, r2,
     # r2_stride, s_count, prm, prm_stride, use_radius, n, batch, fx, fy,
     # stream; the compacted form with surv, counts, max_surv, gs before fx
@@ -180,6 +189,9 @@ ARGTYPES = {
                                   + [_PTR] * 4),
     # px, py, fx, fy, c, kk, n, d2, idx, stream
     "sfm_chunk_argmin": [_PTR] * 4 + [_INT, _INT, _INT] + [_PTR] * 3,
+    # px, py (batch, n), fx, fy (batch, c, kk), c, kk, n, batch, d2, idx
+    # (batch, c, n), stream
+    "sfm_chunk_argmin_percrowd": [_PTR] * 4 + [_INT] * 4 + [_PTR] * 3,
 }
 
 

@@ -67,7 +67,17 @@ batched versions and the unbatched kernels row by row, config #5 through
 ``make_sharded_ensemble_rollout`` under each column schedule (and the half
 ring with the 30 m cutoff), 8 crowds of 50,000 with the cutoff under
 ``gather`` on the batched survivor table, and the ``mesh`` argument of
-``make_ensemble_rollout`` row by row.  It counts
+``make_ensemble_rollout`` row by row; then (phase 34) the reactive fleet,
+social groups and ORCA over an agent axis under a batch: the per-crowd
+forms of the Moussaid environment kernel (``env_moussaid_percrowd``, its
+compacted form) and of the chunk scan (``chunk_argmin_percrowd``), each
+crowd against its own vehicles, against their plain batched versions and
+the unbatched kernels row by row, config #4 swept over 8 rows of
+``pedestrian_A`` (the rows' fleets must end apart), config #5 on config
+#4's street grid with the fleet in every row, config #5 with groups, the
+five shipped scenarios that were refused (four for their fleet,
+``grouped_crossing`` for its groups) swept over 8 rows, and the fleet,
+groups and ORCA on the 2-D mesh.  It counts
 the kernel launches of each path, and checks every step of short rollouts
 (50 steps; the family and batched paths 25, phases 31 and 32 10) through
 the kernels against the same
@@ -233,7 +243,7 @@ ARGMIN_OPS = 8
 #: force evaluates all N^2 pairs) and those of the 1-rank NCCL run
 SHARDS = 4
 RING_DEVICES = (2, 3, 4, 8)
-SHARD_STEPS = 100
+SHARD_STEPS = 50
 SHARD_SIDE_STEPS = 20
 SHARD_BIG_PLAIN_STEPS = 3
 #: steps of the 10k paths also checked against the sharded plain path (the
@@ -2407,15 +2417,21 @@ def check_batch_steps(label, scene, params, cfg, state,
                       steps=BATCH_PARITY_STEPS):
     """Every step of a ``steps``-step batched rollout through the kernels
     against the plain versions' step from the same state, per row: within
-    POS_STEP_TOL_M, modes and alive equal, finite."""
+    POS_STEP_TOL_M, modes and alive equal, finite; with a fleet, each tick
+    (``stepper.fleet_tick``) from the same fleet states too, which must
+    come out equal."""
     import batch_cases as bc
     gaps = []
-    for k, gap, equal, finite in bc.one_step_gaps(scene, params, cfg,
-                                                  state, steps):
+    walk = (bc.one_step_gaps(scene, params, cfg, state, steps)
+            if scene.autopilot is None else bc.fleet_step_gaps(
+                scene, params, cfg, state,
+                scene.autopilot.initial_state(state.batch), steps))
+    for k, gap, equal, finite in walk:
         if not (equal and finite):
             fail(f"{label}: step {k} from the same state gives other "
-                 f"modes or alive masks, or non-finite positions, "
-                 f"through the kernels than through the plain versions")
+                 f"modes, alive masks or fleet states, or non-finite "
+                 f"positions, through the kernels than through the plain "
+                 f"versions")
         gaps.append(gap.max().item())
         if gaps[-1] > POS_STEP_TOL_M:
             row = int(gap.argmax())
@@ -3577,7 +3593,8 @@ def orca_batch_phases(dev, zero, card, launches, worst, profile_steps):
 #: under gather with a MESH_TABLE_MAX_SURV-slot table (the batched #3),
 #: MESH_TABLE_STEPS timed steps, its step check at 4 x 4,000 with an 8-slot
 #: table (the plain references at 8 x 50,000 take seconds a step); every
-#: path's checked run MESH_PARITY_STEPS steps at GEOM_BATCH crowds (the
+#: path's checked run MESH_PARITY_STEPS steps (10 until phase 34 came in)
+#: at GEOM_BATCH crowds (the
 #: plain reference steps 256 crowds in about a second, as phase 27's
 #: checks); the ring kernel checked at the timed 256 crowds for the
 #: Moussaid law without a cutoff, the other cases on MESH_RING_LAW_BATCH
@@ -3586,7 +3603,7 @@ def orca_batch_phases(dev, zero, card, launches, worst, profile_steps):
 MESH_AGENTS = 4
 MESH_BATCH_SHARDS = 2
 MESH_STEPS = 5
-MESH_PARITY_STEPS = 10
+MESH_PARITY_STEPS = 5
 MESH_RING_LAW_BATCH = 32
 MESH_TABLE_BATCH = 8
 MESH_TABLE_N = 50_000
@@ -4036,6 +4053,505 @@ def mesh_batch_phases(dev, zero, card, launches, worst):
         f"ensemble ({card})")
     if not all(same):
         fail("the ensemble's mesh argument changes a row")
+    return table
+
+
+#: phase 34 (items 19b.3a and 19b.5): the reactive fleet, social groups and
+#: ORCA over an agent axis under a batch.  Config #4 (urban_bundle(10,000)
+#: built for 1,000 steps: 320 border sections, 16 vehicles) swept over
+#: FLEET_SWEEP rows of pedestrian_A, FLEET_SWEEP_STEPS timed steps (the
+#: rows' fleets compared at the end of a recorded run of
+#: FLEET_RECORD_STEPS); config #5's 256 crowds of 1,000 placed on that
+#: street grid with the fleet in every row, and config #5 with groups of
+#: four over half of every crowd, FLEET_BATCH_STEPS timed steps; every
+#: path's checked run FLEET_PARITY_STEPS steps; the five shipped scenarios
+#: that were refused swept over FLEET_SWEEP rows (FLEET_SCENARIO_STEPS
+#: timed steps, as phase 32's); the 2-D mesh's paths FLEET_MESH_STEPS timed
+#: steps and as many checked on GEOM_BATCH crowds.  The config #4 sweep's
+#: step check runs on FLEET_PARITY_ROWS of its points (the plain pair
+#: force at 10,000 takes about 0.3 s a row and step)
+FLEET_N = 10_000
+FLEET_SWEEP = 8
+FLEET_SWEEP_STEPS = 50
+FLEET_BATCH_STEPS = 25
+FLEET_PARITY_STEPS = 10
+FLEET_SCENARIO_STEPS = 50
+FLEET_MESH_STEPS = 5
+FLEET_PARITY_ROWS = 4
+#: the recorded run of the config #4 sweep whose end shows the rows' fleets:
+#: each road's first vehicle starts from rest at x = 5 m and meets the
+#: first crosswalk (x = 100 m), where the walkers cross, after about 280
+#: steps, the second (200 m) after about 520
+FLEET_RECORD_STEPS = 600
+#: the table width that engages the compacted per-crowd form on the
+#: fleet's 16 vehicle rows (two groups of eight)
+FLEET_MAX_SURV = 1
+#: the crowds of config #5 on the street grid: the synthetic crowd's square
+#: of half-size FLEET_EXTENT moved by FLEET_SHIFT, over the grid's roads
+#: from x = 0, where each road's first vehicle starts
+FLEET_EXTENT = 210.0
+FLEET_SHIFT = (210.0, 210.0)
+FLEET_SCENARIOS = (("destination_vehicle", "sfm.toml"),
+                   ("jaywalking_reactive", "sfm.toml"),
+                   ("overtaking", "sfm.toml"),
+                   ("vehicle_evasion", "sfm.toml"),
+                   ("grouped_crossing", "sfm_groups.toml"))
+
+
+def percrowd_bound(planes, job, grid=None):
+    """The bound of one per-crowd Moussaid launch on sorted ``(B, n)``
+    planes: each crowd's planes read once and its forces written once,
+    each crowd's own point rows, centers, radii and velocities read once,
+    the table read once; for every crowd's (vehicle row, alive pedestrian)
+    pair inside the row's filter circle, the scan of the row's real points
+    (SCAN_OPS each) and one Moussaid term.  Returns ``(bound_ms, bound_by,
+    pairs)``."""
+    from carla_social_force_model_tpu_torch.env.pointsets import PAD_COORD
+    from carla_social_force_model_tpu_torch.ops.cuda_env import filter_r2
+    seg, _, active = job
+    px, py, alive = planes[0], planes[1], planes[5]
+    real = (seg.x != PAD_COORD).sum(dim=-1)                  # (B, S)
+    r2 = filter_r2(seg, active)
+    r2 = r2.expand(real.shape) if r2.dim() == 1 else r2
+    ops = pairs = 0
+    for r in range(px.shape[0]):
+        dx = seg.center_x[r][:, None] - px[r][None, :]
+        dy = seg.center_y[r][:, None] - py[r][None, :]
+        ok = ((dx * dx + dy * dy) < r2[r][:, None]) & alive[r][None, :]
+        per = ok.sum(dim=1)
+        ops += int((per * (SCAN_OPS * real[r] + PAIR_OPS)).sum())
+        pairs += int(per.sum())
+    b, n = px.shape
+    n_bytes = (b * n * (4 * 5 + 1 + 8) + 4 * 2 * seg.x.numel()
+               + 4 * 5 * seg.center_x.numel() + 4 * 6)
+    if grid is not None:
+        n_bytes += 4 * (grid.surv.numel() + grid.counts.numel())
+    return (*bound(n_bytes, ops, pairs * PAIR_MUFU), pairs)
+
+
+def on_street_grid(spawn, dx, dy):
+    """A spawn schedule (and its waypoints) moved by ``(dx, dy)``."""
+    import dataclasses
+    routes = dataclasses.replace(spawn.routes, wp_x=spawn.routes.wp_x + dx,
+                                 wp_y=spawn.routes.wp_y + dy)
+    return dataclasses.replace(
+        spawn, pos_x=spawn.pos_x + dx, pos_y=spawn.pos_y + dy,
+        fwp_x=spawn.fwp_x + dx, fwp_y=spawn.fwp_y + dy, routes=routes)
+
+
+def chunked_launches(scene, params, cfg):
+    """The launches a step of a batch on the scenarios' ``env_chunked``
+    makes: one batched pair launch per enabled pair family (no cutoff), one
+    chunk scan per environment term, over the one set
+    (``chunk_argmin_batched``) or, for a fleet's vehicles, over each
+    crowd's own (``chunk_argmin_percrowd``)."""
+    import batch_cases as bc
+    out = {}
+
+    def add(name):
+        out[name] = out.get(name, 0) + 1
+
+    for law, on in (("moussaid", params.enable_pedestrian),
+                    ("powerlaw", params.enable_powerlaw),
+                    ("helbing", params.enable_ped_repulsive)):
+        if on:
+            add(bc.PAIR_FORMS[law, "sym" if cfg.symmetric_pairs
+                              and law != "helbing" else "dense"])
+    if params.enable_border and scene.borders is not None:
+        add("chunk_argmin_batched")
+    if params.enable_space_repulsive and scene.borders is not None:
+        add("chunk_argmin_batched")
+    if params.enable_static_obstacle and scene.static_obstacles is not None:
+        add("chunk_argmin_batched")
+    if params.enable_dynamic_obstacle and scene.autopilot is not None:
+        add("chunk_argmin_percrowd")
+    elif params.enable_dynamic_obstacle and scene.vehicles is not None:
+        add("chunk_argmin_batched")
+    return out
+
+
+def fleets_differ(label, out):
+    """Print how many rows' fleets end (and ever are) other than row 0's
+    in a recorded batched rollout ``out`` = ``(final, (StepRecord,
+    AutopilotRecord))`` with ``(B, T, V)`` fleet records, and how many
+    (row, vehicle) pairs braked; returns the rows that end otherwise."""
+    import torch
+    _, (_, veh) = out
+    torch.cuda.synchronize()
+    b, t = veh.speed.shape[:2]
+    planes = (veh.pos, veh.speed, veh.heading, veh.active)
+    end = sum(not all(torch.equal(a[r, -1], a[0, -1]) for a in planes)
+              for r in range(1, b))
+    ever = sum(not all(torch.equal(a[r], a[0]) for a in planes)
+               for r in range(1, b))
+    braked = int(((veh.speed[:, 1:] < veh.speed[:, :-1])
+                  & veh.active[:, 1:]).any(dim=1).sum())
+    say(f"{label}: fleet record {tuple(veh.pos.shape)} (B, T, V, 2); after "
+        f"{t} steps {end} of {b - 1} rows' fleets differ from row 0's "
+        f"({ever} at some step); {braked} (row, vehicle) pairs braked")
+    return end
+
+
+def fleet_batch_phases(dev, zero, card, launches, worst, profile_steps,
+                       urban):
+    """Phase 34: the reactive fleet, social groups and ORCA over an agent
+    axis under a batch (items 19b.3a and 19b.5).  (a) The per-crowd forms
+    (#8a, #8b and #11 with each crowd's own vehicles) on config #4's fleet
+    of 16 vehicles with every row's vehicles in their own places, at 8 x
+    10,000 and 256 x 1,000, shared and swept perception thresholds:
+    against their plain batched versions and, row by row, the unbatched
+    kernel on that row's own set, bitwise; device times and bounds at
+    256 x 1,000.  (b) Config #4 uncut swept over 8 rows of pedestrian_A
+    through ``make_sweep_rollout``: launches, step time, device-busy share,
+    every step of a 10-step run against the plain versions' tick, and the
+    rows whose fleets differ at the end (there must be some).  (c) Config
+    #5's 256 crowds on that street grid with the fleet in every row
+    (the compacted per-crowd form), (d) config #5 with groups, (e) the five
+    shipped scenarios that were refused, swept over 8 rows on their engine,
+    (f) the fleet, groups and ORCA on phase 33's 2 x 4 mesh.  ``urban``:
+    phase 13's config #4 bundle.  Returns ``{kernel: (source line, ms,
+    plain_ms, bound)}`` for the kernels line."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import batch_cases as bc
+    from carla_social_force_model_tpu_torch.api import scenario
+    from carla_social_force_model_tpu_torch.api.synthetic import (
+        batched_crowds, benchmark_bundle)
+    from carla_social_force_model_tpu_torch.models import stepper
+    from carla_social_force_model_tpu_torch.models.state import PedState
+    from carla_social_force_model_tpu_torch.ops import geometry
+    from carla_social_force_model_tpu_torch.parallel import (make_mesh,
+                                                             sweeps)
+    from carla_social_force_model_tpu_torch.parallel.sharding import (
+        join_shards, prepare_sharded_scene, shard_of)
+    table = {}
+    src = "carla_social_force_model_tpu/ops/"
+
+    lap("phase 34")
+    # -- (a) the per-crowd kernel forms --------------------------------------
+    uscene, uparams, ucfg, _ = urban
+    fleet = uscene.autopilot
+    p = uparams.dynamic_obstacle
+    say(f"phase 34 config #4 fleet: {fleet.num_vehicles} vehicles, rows of "
+        f"{fleet.template.shape[1]} points ({fleet.points_per_chunk}-point "
+        f"chunks), perception threshold {p.perception_threshold:g} m")
+    timed = {}
+    for b, n, seed in ((FLEET_SWEEP, FLEET_N, 341), (BATCH, BATCH_N, 342)):
+        state = bc.fleet_batch(fleet, b, seed)
+        snap, rows = bc.fleet_rows(fleet, state)
+        planes = bc.fleet_crowd(state, n, seed)
+        for what, pt in (("shared", p.perception_threshold),
+                         ("swept", torch.linspace(2.0, 9.0, b, device=dev))):
+            job, row_jobs = bc.percrowd_jobs(snap, rows, pt)
+            want = bc.percrowd_run(planes, job, p, batched=False)
+            for width in (None, FLEET_MAX_SURV):
+                grid = (None if width is None
+                        else bc.percrowd_grid(planes, job[0], job[2], width))
+                name = ("env_moussaid_percrowd" if grid is None
+                        else "env_moussaid_compact_percrowd")
+                got = bc.percrowd_run(planes, job, p, grid)
+                torch.cuda.synchronize()
+                err, over, equal = bc.percrowd_mismatch(
+                    planes, job, row_jobs, p, got, grid, want=want)
+                fits = ("" if grid is None else
+                        f", {width}-slot tables: rows that overflow "
+                        f"{int((grid.counts > width).sum())} of "
+                        f"{grid.counts.numel()}")
+                say(f"phase 34 {name} ({what} threshold), B={b} x N={n}"
+                    f"{fits}: max abs err {err:.3e} vs the plain batched "
+                    f"version ({over} over {bc.ENV_ATOL:g} + "
+                    f"{bc.ENV_RTOL:g}*|f|); rows vs the unbatched kernel on "
+                    f"each row's own vehicles: "
+                    + ("bitwise equal" if equal else "DIFFERENT"))
+                if not torch.isfinite(got).all() or bool(
+                        (got[:, ~planes[5]] != 0).any()):
+                    fail(f"{name}: non-finite forces or dead rows not 0")
+                if over or not equal:
+                    fail(f"phase 34 {name} ({what}) differs from its plain "
+                         f"version or from the unbatched kernel on a row")
+                if torch.equal(got[:, 0], got[:, 1]):
+                    fail(f"phase 34 {name}: two crowds got the same forces "
+                         f"(their vehicles are not their own)")
+                worst[name] = max(worst.get(name, 0.0), err)
+                if b == BATCH and what == "shared":
+                    timed[name] = (planes, job, grid, want)
+        (dmin, idx), singles, (fx, fy) = bc.percrowd_scan(planes, snap, rows)
+        plain = geometry.chunk_argmin(planes[0], planes[1], fx, fy,
+                                      plain=True)
+        torch.cuda.synchronize()
+        rows_equal = all(torch.equal(dmin[:, r], d1)
+                         and torch.equal(idx[:, r], i1)
+                         for r, (d1, i1) in enumerate(singles))
+        plain_equal = (torch.equal(dmin, plain[0])
+                       and torch.equal(idx, plain[1]))
+        c, kk = fx.shape[1:]
+        say(f"phase 34 chunk_argmin_percrowd, B={b} x N={n} against each "
+            f"row's own {c} chunks of {kk}, one launch: rows vs the "
+            f"unbatched launch on each row's chunks "
+            + ("bitwise equal" if rows_equal else "DIFFERENT")
+            + ", vs the plain version "
+            + ("bitwise equal" if plain_equal else "DIFFERENT"))
+        if not (rows_equal and plain_equal):
+            fail("phase 34 chunk_argmin_percrowd differs from the unbatched "
+                 "launch or the plain version")
+        worst["chunk_argmin_percrowd"] = 0.0
+        if b == BATCH:
+            timed["chunk_argmin_percrowd"] = (planes, fx, fy)
+    for name in ("env_moussaid_percrowd", "env_moussaid_compact_percrowd"):
+        planes, job, grid, want = timed[name]
+        ms = device_ms(lambda: bc.percrowd_run(planes, job, p, grid),
+                       "env_force_batched_kernel")
+        how = TIMED_BY[0]
+        plain = cuda_ms(lambda: bc.percrowd_run(planes, job, p,
+                                                batched=False),
+                        reps=1, warm=False)
+        bnd = percrowd_bound(planes, job, grid)
+        table[name] = (src + ("pallas_env.py:268" if grid is None
+                              else "pallas_env.py:327"), ms, plain, bnd[:2])
+        say(f"phase 34 time {name}, B={BATCH} x N={BATCH_N} x "
+            f"{fleet.num_vehicles} vehicles: kernel {ms:.4f} ms ({how}; "
+            f"bound {bnd[0]:.6f} ms, {bnd[1]}; {bnd[2]} in-filter pairs), "
+            f"plain batched version {plain:.3f} ms ({card})")
+    planes, fx, fy = timed["chunk_argmin_percrowd"]
+    ms = device_ms(lambda: geometry.chunk_argmin(planes[0], planes[1], fx,
+                                                 fy), "chunk_argmin")
+    how = TIMED_BY[0]
+    plain = cuda_ms(lambda: geometry.chunk_argmin(planes[0], planes[1], fx,
+                                                  fy, plain=True),
+                    reps=1, warm=False)
+    b, c, kk = fx.shape
+    n = planes[0].shape[1]
+    bnd = bound(4 * (2 * b * c * kk + 2 * b * n) + 8 * c * b * n,
+                ARGMIN_OPS * c * kk * b * n, 0)
+    table["chunk_argmin_percrowd"] = (src + "geometry.py:117", ms, plain, bnd)
+    say(f"phase 34 time chunk_argmin_percrowd, B={b} x N={n} x {c} chunks "
+        f"of {kk}: kernel {ms:.4f} ms ({how}; bound {bnd[0]:.6f} ms, "
+        f"{bnd[1]}), plain version {plain:.3f} ms ({card})")
+    del timed, planes
+
+    # -- (b) config #4 swept over 8 rows of pedestrian_A -----------------------
+    lap("phase 34 urban sweep")
+    s = FLEET_SWEEP_STEPS
+    cap = uscene.spawn.capacity
+    swept = sweeps.batch_params(uparams, pedestrian_A=torch.linspace(
+        1.0, 8.0, FLEET_SWEEP, device=dev))
+    label = (f"phase 34 config #4 (N={cap}, {fleet.num_vehicles} "
+             f"vehicles, env_compact) swept over {FLEET_SWEEP} rows of "
+             f"pedestrian_A")
+    per_step = dict(pair_force_sym_batched=1, env_exp_compact_batched=1,
+                    env_moussaid_percrowd=1)
+    counts, ms_step, _ = run_batch(
+        label, lambda k: sweeps.make_sweep_rollout(uscene, ucfg, k), swept,
+        s, dict(zero, **{k: v * s for k, v in per_step.items()}),
+        FLEET_SWEEP, card)
+    launches["env_moussaid_percrowd"] = counts["env_moussaid_percrowd"]
+    profile_steps(uscene, swept, ucfg, PedState.empty(
+        cap, device=dev, batch=FLEET_SWEEP), ms_step, label)
+    check_batch_steps(
+        f"{label}, {FLEET_PARITY_ROWS} rows", uscene,
+        sweeps.batch_params(uparams, pedestrian_A=torch.linspace(
+            1.0, 8.0, FLEET_PARITY_ROWS, device=dev)), ucfg,
+        PedState.empty(cap, device=dev, batch=FLEET_PARITY_ROWS),
+        FLEET_PARITY_STEPS)
+    if fleets_differ(label, sweeps.make_sweep_rollout(
+            uscene, ucfg, FLEET_RECORD_STEPS, record=True)(swept)) == 0:
+        fail(f"{label}: every row's fleet ended the same: per-crowd "
+             f"geometry went untested")
+
+    # -- (c) config #5 on the street grid with the fleet in every row --------
+    lap("phase 34 fleet ensemble")
+    s = FLEET_BATCH_STEPS
+    grid_spawn = on_street_grid(batched_crowds(
+        BATCH, BATCH_N, extent=FLEET_EXTENT, seed=34, device=dev),
+        *FLEET_SHIFT)
+    ens = dataclasses.replace(uscene, spawn=grid_spawn)
+    ccfg = dataclasses.replace(ucfg, env_max_surv=FLEET_MAX_SURV)
+    label = (f"phase 34 config #5 ({BATCH} x {BATCH_N}) on config #4's "
+             f"street grid, the fleet in every row, env_max_surv="
+             f"{FLEET_MAX_SURV}")
+    per_step = dict(pair_force_sym_batched=1, env_exp_compact_batched=1,
+                    env_moussaid_compact_percrowd=1)
+    counts, ms_step, _ = run_batch(
+        label, lambda k: sweeps.make_ensemble_rollout(ens, uparams, ccfg, k),
+        ens, s, dict(zero, **{k: v * s for k, v in per_step.items()}),
+        BATCH, card)
+    launches["env_moussaid_compact_percrowd"] = counts[
+        "env_moussaid_compact_percrowd"]
+    profile_steps(ens, uparams, ccfg, PedState.empty(
+        BATCH_N, device=dev, batch=BATCH), ms_step, label)
+    fleets_differ(label, sweeps.make_ensemble_rollout(
+        ens, uparams, ccfg, s, record=True)(ens))
+    small = dataclasses.replace(uscene, spawn=on_street_grid(batched_crowds(
+        GEOM_BATCH, BATCH_N, extent=FLEET_EXTENT, seed=35, device=dev),
+        *FLEET_SHIFT))
+    check_batch_steps(f"phase 34 the fleet ensemble at B={GEOM_BATCH}",
+                      small, uparams, ccfg, PedState.empty(
+                          BATCH_N, device=dev, batch=GEOM_BATCH),
+                      FLEET_PARITY_STEPS)
+
+    # -- (d) config #5 with groups of four over half of every crowd ----------
+    lap("phase 34 groups")
+    gscene, gparams, gcfg, _ = benchmark_bundle(BATCH_N, device=dev)
+    gens = dataclasses.replace(gscene, spawn=batched_crowds(BATCH, BATCH_N,
+                                                            device=dev))
+    gens, gparams = family_scene(gens, gparams, "groups-0.5:4")
+    label = (f"phase 34 config #5 ({BATCH} x {BATCH_N}) with groups of four "
+             f"over half of every crowd (one table)")
+    _, ms_step, _ = run_batch(
+        label, lambda k: sweeps.make_ensemble_rollout(gens, gparams, gcfg,
+                                                      k),
+        gens, s, dict(zero, pair_force_sym_batched=s), BATCH, card)
+    profile_steps(gens, gparams, gcfg, PedState.empty(
+        BATCH_N, device=dev, batch=BATCH), ms_step, label)
+    gsmall, _ = family_scene(dataclasses.replace(
+        gscene, spawn=batched_crowds(GEOM_BATCH, BATCH_N, seed=36,
+                                     device=dev)), gparams, "groups-0.5:4")
+    check_batch_steps(f"phase 34 groups at B={GEOM_BATCH}", gsmall, gparams,
+                      gcfg, PedState.empty(BATCH_N, device=dev,
+                                           batch=GEOM_BATCH),
+                      FLEET_PARITY_STEPS)
+
+    # -- (e) the five shipped scenarios that were refused, swept -------------
+    lap("phase 34 scenarios")
+    for name, sfm in FLEET_SCENARIOS:
+        path = os.path.join(ROOT, "configs", "scenarios", f"{name}.toml")
+        bundle = scenario.build_scenario(
+            path, os.path.join(ROOT, "configs", sfm), FLEET_SCENARIO_STEPS,
+            device=dev)
+        knobs = dict(pedestrian_A=torch.linspace(
+            1.0, 8.0, FLEET_SWEEP, device=dev))
+        if bundle.scene.autopilot is not None:
+            knobs["dynamic_obstacle_A"] = torch.linspace(
+                1.0, 8.0, FLEET_SWEEP, device=dev)
+        if bundle.scene.groups is not None:
+            knobs["group_beta_att"] = torch.linspace(
+                0.5, 3.0, FLEET_SWEEP, device=dev)
+        sw = sweeps.batch_params(bundle.params, **knobs)
+        per = chunked_launches(bundle.scene, bundle.params, bundle.cfg)
+        label = (f"phase 34 {name} + {sfm} (env_chunked), sweep of "
+                 f"{' and '.join(knobs)} over {FLEET_SWEEP} rows")
+        counts, _, _ = run_batch(
+            label, lambda k, b=bundle: sweeps.make_sweep_rollout(
+                b.scene, b.cfg, k), sw, FLEET_SCENARIO_STEPS,
+            dict(zero, **{k: v * FLEET_SCENARIO_STEPS
+                          for k, v in per.items()}), FLEET_SWEEP, card)
+        if "chunk_argmin_percrowd" in per:
+            launches["chunk_argmin_percrowd"] = max(
+                launches.get("chunk_argmin_percrowd", 0),
+                counts["chunk_argmin_percrowd"])
+        check_batch_steps(label, bundle.scene, sw, bundle.cfg,
+                          PedState.empty(bundle.capacity, device=dev,
+                                         batch=FLEET_SWEEP),
+                          FLEET_PARITY_STEPS)
+
+    # -- (f) the fleet, groups and ORCA on the 2-D mesh ----------------------
+    lap("phase 34 mesh")
+    d, r = MESH_AGENTS, MESH_BATCH_SHARDS
+    mesh = make_mesh(d, n_batch_shards=r, device=dev)
+
+    def check_mesh_steps(label, scene, params, cfg, steps):
+        """``steps`` ticks of the 2-D mesh through the kernels (with the
+        fleet: ``fleet_tick``, each shard stepping its row's fleets), each
+        against the unsharded plain versions' tick from the same state:
+        every row within POS_STEP_TOL_M, modes, alive and the fleets equal,
+        finite."""
+        scene, cap = prepare_sharded_scene(stepper.prepare_scene(
+            scene, orca=params.enable_orca), d)
+        b = scene.spawn.step.shape[0]
+        rp = b // r
+        shards = [dataclasses.replace(scene, spawn=shard_of(
+            sweeps.rows_of(scene.spawn, q * rp, (q + 1) * rp), j, d))
+            for q in range(r) for j in range(d)]
+        ref_cfg = plain_cfg(cfg)
+        st = PedState.empty(cap, device=dev, batch=b)
+        fl = (None if scene.autopilot is None
+              else scene.autopilot.initial_state(b))
+        gaps = []
+
+        def tick(ax, s_, f_, sc_, t):
+            if f_ is None:
+                return stepper.simulation_step(s_, sc_, params, cfg, t,
+                                               axis=ax)[0], None
+            return stepper.fleet_tick(s_, f_, sc_, params, cfg, t,
+                                      axis=ax)[:2]
+
+        for t in range(steps):
+            outs = mesh.run(
+                lambda ax, s_, f_, sc_: tick(ax, s_, f_, sc_, t),
+                [shard_of(sweeps.rows_of(st, q * rp, (q + 1) * rp), j, d)
+                 for q in range(r) for j in range(d)],
+                [None if fl is None
+                 else sweeps.rows_of(fl, q * rp, (q + 1) * rp)
+                 for q in range(r) for j in range(d)], shards)
+            got = [join_shards([o[0] for o in outs[q * d:(q + 1) * d]])[0]
+                   for q in range(r)]
+            got = PedState(**{f.name: torch.cat([getattr(g, f.name)
+                                                 for g in got])
+                              for f in dataclasses.fields(PedState)})
+            if fl is None:
+                ref, _ = stepper.simulation_step(st, scene, params, ref_cfg,
+                                                 t)
+                same_fleet = True
+            else:
+                ref, rfl, _ = stepper.fleet_tick(st, fl, scene, params,
+                                                 ref_cfg, t)
+                gfl = [outs[q * d][1] for q in range(r)]
+                same_fleet = all(
+                    torch.equal(torch.cat([getattr(g, f.name)
+                                           for g in gfl]),
+                                getattr(rfl, f.name))
+                    for f in dataclasses.fields(rfl))
+                fl = rfl
+            gap = torch.maximum((got.pos_x - ref.pos_x).abs(),
+                                (got.pos_y - ref.pos_y).abs()).amax(dim=1)
+            gaps.append(gap.max().item())
+            if not (torch.equal(got.alive, ref.alive)
+                    and torch.equal(got.mode, ref.mode) and same_fleet):
+                fail(f"{label}: step {t} gives other modes, alive masks or "
+                     f"fleet states than the plain versions' step")
+            if not (torch.isfinite(got.pos_x).all()
+                    and torch.isfinite(got.pos_y).all()):
+                fail(f"{label}: non-finite positions after step {t}")
+            if gaps[-1] > POS_STEP_TOL_M:
+                fail(f"{label}: step {t}, row {int(gap.argmax())}: one-step "
+                     f"position L-inf {gaps[-1]:.3e} m exceeds "
+                     f"{POS_STEP_TOL_M} m")
+            st = got
+        say(f"{label} ({r} x {d} virtual shards, B={b} x N={cap}): "
+            f"one-step position L-inf kernels vs the plain versions from "
+            f"the same state, worst row of each step 1..{steps} (limit "
+            f"{POS_STEP_TOL_M:g} m): " + " ".join(f"{v:.2e}" for v in gaps))
+
+    oscene, oparams, ocfg, _ = benchmark_bundle(BATCH_N, device=dev)
+    oparams = dataclasses.replace(oparams, enable_pedestrian=False,
+                                  enable_orca=True)
+    oens = dataclasses.replace(oscene, spawn=batched_crowds(BATCH, BATCH_N,
+                                                            device=dev))
+    osmall = dataclasses.replace(oscene, spawn=batched_crowds(
+        GEOM_BATCH, BATCH_N, device=dev))
+    mesh_paths = (  # (what, timed scene, checked scene, params, cfg, step)
+        ("the fleet", ens, small, uparams,
+         dataclasses.replace(ucfg, axis_comm="gather"),
+         dict(pair_force_dense_rect_batched=r * d,
+              env_exp_compact_batched=r * d,
+              env_moussaid_percrowd=r * d)),
+        ("groups", gens, gsmall, gparams,
+         dataclasses.replace(gcfg, axis_comm="gather"),
+         dict(pair_force_dense_rect_batched=r * d)),
+        ("ORCA (item 19b.5)", oens, osmall, oparams,
+         dataclasses.replace(ocfg, axis_comm="gather"), {}))
+    for what, big, chk, prm, mcfg, per_step in mesh_paths:
+        label = (f"phase 34 config #5 with {what} on the 2-D mesh, "
+                 f"gather")
+        check_mesh_steps(label, chk, prm, mcfg, FLEET_MESH_STEPS)
+        run_batch(
+            label, lambda n_steps, sc_=big, p_=prm, c_=mcfg: (
+                lambda _, run=sweeps.make_sharded_ensemble_rollout(
+                    mesh, sc_, p_, c_, n_steps): run()),
+            None, FLEET_MESH_STEPS,
+            dict(zero, **{k: v * FLEET_MESH_STEPS
+                          for k, v in per_step.items()}), BATCH, card)
     return table
 
 
@@ -4583,6 +5099,9 @@ def main() -> None:
                                      profile_steps))
     # -- phase 33: ensembles over a 2-D (batch, agents) mesh ---------------
     batched.update(mesh_batch_phases(dev, zero, card, launches, worst))
+    # -- phase 34: the fleet, groups and ORCA over an agent axis, batched ---
+    batched.update(fleet_batch_phases(dev, zero, card, launches, worst,
+                                      profile_steps, urban))
 
     lap("the kernels line")
     csrc = "carla_social_force_model_tpu_torch/csrc/"

@@ -369,3 +369,175 @@ def one_step_gaps(scene, params, cfg, state, steps):
                       and torch.isfinite(nxt.pos_y).all())
         yield k, gap, equal, finite
         s = nxt
+
+
+# -- a batch of fleets: the per-crowd environment forms ------------------------
+
+def fleet_batch(fleet, batch, seed, spread=4.0):
+    """``batch`` fleet states of ``fleet`` (an AutopilotFleet) with every
+    row's vehicles in their own places: each vehicle moved up to
+    ``spread`` m off its route start, its own heading and speed, about one
+    in five inactive.  Returns the batched AutopilotState."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    st = fleet.initial_state(batch)
+    v, dev = fleet.num_vehicles, fleet.device
+
+    def draw(lo, hi, shape):
+        return torch.from_numpy(rng.uniform(lo, hi, shape).astype(
+            np.float32)).to(dev)
+
+    return dataclasses.replace(
+        st, pos=st.pos + draw(-spread, spread, (batch, v, 2)),
+        heading=draw(-3.0, 3.0, (batch, v)), speed=draw(0.0, 8.0, (batch, v)),
+        active=draw(0.0, 1.0, (batch, v)) < 0.8)
+
+
+def fleet_rows(fleet, state):
+    """Each row of a batched fleet state as its own fleet's snapshot:
+    ``(batched snapshot, [row snapshots])``."""
+    from carla_social_force_model_tpu_torch.models import autopilot
+    snap = autopilot.autopilot_snapshot(fleet, state)
+    rows = [autopilot.autopilot_snapshot(fleet, autopilot.AutopilotState(
+        **{f.name: getattr(state, f.name)[r].contiguous()
+           for f in dataclasses.fields(state)}))
+        for r in range(state.batch)]
+    return snap, rows
+
+
+def fleet_crowd(state, n, seed, spread=8.0):
+    """``(B, n)`` crowds around each row's own vehicles (within ``spread``
+    m of a seeded vehicle of the row), 10% dead, each row in its own
+    Hilbert order: x, y, vx, vy, radius, alive."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    b, v = state.speed.shape
+    dev = state.pos.device
+    pick = torch.from_numpy(rng.integers(0, v, (b, n))).to(dev)
+    near = state.pos[torch.arange(b, device=dev)[:, None], pick]
+
+    def draw(lo, hi):
+        return torch.from_numpy(rng.uniform(lo, hi, (b, n)).astype(
+            np.float32)).to(dev)
+
+    x = near[..., 0] + draw(-spread, spread)
+    y = near[..., 1] + draw(-spread, spread)
+    planes = [x, y, draw(-1.5, 1.5), draw(-1.5, 1.5),
+              torch.full((b, n), 0.3, device=dev), draw(0.0, 1.0) < 0.9]
+    return sort_rows(planes)
+
+
+def percrowd_jobs(snap, rows, threshold):
+    """The dynamic-obstacle job of a batch of fleets and of each row's own:
+    ``(seg, obstacle_vel, active)`` of the batch (each crowd's own rows)
+    and ``[(seg, obstacle_vel, active)]`` of every row; ``threshold`` a
+    number or a sweep's ``(B,)`` tensor of perception thresholds."""
+    from carla_social_force_model_tpu_torch.models import vehicles
+    job = vehicles.snapshot_segment_pointset(snap, threshold)
+    one = [vehicles.snapshot_segment_pointset(
+        r, threshold if not isinstance(threshold, torch.Tensor)
+        else float(threshold[b])) for b, r in enumerate(rows)]
+    return tuple(t.contiguous() if isinstance(t, torch.Tensor) else t
+                 for t in job), one
+
+
+def percrowd_grid(planes, seg, active, max_surv):
+    """The batched survivor table of the per-crowd job (each crowd's table
+    from its own circles) under the JAX package's gate with ``max_surv``,
+    which must engage."""
+    return env_grid_of(planes, seg, active, max_surv)
+
+
+def percrowd_run(planes, job, p, grid=None, batched=True):
+    """One launch of ``env_moussaid_percrowd`` (``env_moussaid_compact_
+    percrowd`` over ``grid``) or, with ``batched`` False, its plain batched
+    version: ``(2, B, n)``."""
+    px, py, vx, vy, rad, alive = planes
+    seg, ov, act = job
+    if not batched:
+        return torch.stack(forces.env_moussaid_force_batched(
+            px, py, vx, vy, rad, alive, seg, ov, p, active=act))
+    if grid is None:
+        return torch.stack(cuda_env.env_moussaid_percrowd(
+            px, py, vx, vy, rad, alive, seg, ov, p, active=act))
+    return torch.stack(cuda_env.env_moussaid_compact_percrowd(
+        px, py, vx, vy, rad, alive, seg, ov, p, grid, active=act))
+
+
+def percrowd_row_run(planes, one_job, p, b, grid=None):
+    """Row b through the unbatched Moussaid kernel on its own set
+    (compacted over row b's table): ``(2, n)``."""
+    px, py, vx, vy, rad, alive = (t[b].contiguous() for t in planes)
+    seg, ov, act = one_job
+    if grid is None:
+        return torch.stack(cuda_env.env_moussaid(
+            px, py, vx, vy, rad, alive, seg, ov.contiguous(), p,
+            active=act))
+    return torch.stack(cuda_env.env_moussaid_compact(
+        px, py, vx, vy, rad, alive, seg, ov.contiguous(), p,
+        env_row_grid(grid, b), active=act))
+
+
+def percrowd_mismatch(planes, job, rows_jobs, p, got, grid=None, want=None):
+    """``(err, over, rows_equal)`` of a per-crowd launch against its plain
+    batched version (ENV_ATOL + ENV_RTOL * |f|; ``want`` when the caller
+    has it) and, row by row, the unbatched kernel on that row's own set
+    with its table (bitwise)."""
+    want = percrowd_run(planes, job, p, batched=False) if want is None \
+        else want
+    err = (got - want).abs()
+    over = int((err > ENV_ATOL + ENV_RTOL * want.abs()).sum())
+    equal = all(torch.equal(got[:, b], percrowd_row_run(planes, one, p, b,
+                                                        grid))
+                for b, one in enumerate(rows_jobs))
+    return err.max().item(), over, equal
+
+
+def percrowd_scan(planes, snap, rows, threshold=4.0):
+    """The per-crowd chunk scan of each row's vehicle chunks (one launch)
+    and each row through the unbatched scan of its own chunks: ``((dmin,
+    idx) (C, B, n), [(dmin, idx) (C, n) of each row], (fx, fy) (B, C,
+    K))``."""
+    from carla_social_force_model_tpu_torch.models import vehicles
+    from carla_social_force_model_tpu_torch.ops import geometry
+    px, py = planes[0], planes[1]
+    cset, _, _ = vehicles.snapshot_pointset(snap, threshold)
+    fx, fy = (a.contiguous() for a in geometry.staged_chunk_planes(cset))
+    got = geometry.chunk_argmin(px, py, fx, fy)
+    one = []
+    for b, r in enumerate(rows):
+        rset, _, _ = vehicles.snapshot_pointset(r, threshold)
+        rfx, rfy = (a.contiguous()
+                    for a in geometry.staged_chunk_planes(rset))
+        one.append(geometry.chunk_argmin(px[b].contiguous(),
+                                         py[b].contiguous(), rfx, rfy))
+    return got, one, (fx, fy)
+
+
+def fleet_step_gaps(scene, params, cfg, state, fleet_state, steps):
+    """The kernels' batched rollout with the fleet (``stepper.fleet_tick``)
+    of ``steps`` steps and, from each of its states, the plain versions'
+    tick: yields ``(k, gap, equal, finite)`` as :func:`one_step_gaps`,
+    ``equal`` covering the fleet states too (the fleet reads the same
+    walkers on both sides, so its step is the same)."""
+    from carla_social_force_model_tpu_torch.models import stepper
+    plain = dataclasses.replace(cfg, plain_pair_force=True,
+                                plain_env_force=True)
+    scene = stepper.prepare_scene(scene, analytic=cfg.env_analytic,
+                                  orca=params.enable_orca,
+                                  chunked=cfg.env_chunked)
+    s, fl = state, fleet_state
+    for k in range(steps):
+        nxt, nfl, _ = stepper.fleet_tick(s, fl, scene, params, cfg, k)
+        ref, rfl, _ = stepper.fleet_tick(s, fl, scene, params, plain, k)
+        gap = torch.maximum((nxt.pos_x - ref.pos_x).abs(),
+                            (nxt.pos_y - ref.pos_y).abs()).amax(dim=-1)
+        equal = (torch.equal(nxt.mode, ref.mode)
+                 and torch.equal(nxt.alive, ref.alive)
+                 and all(torch.equal(getattr(nfl, f.name),
+                                     getattr(rfl, f.name))
+                         for f in dataclasses.fields(nfl)))
+        finite = bool(torch.isfinite(nxt.pos_x).all()
+                      and torch.isfinite(nxt.pos_y).all())
+        yield k, gap, equal, finite
+        s, fl = nxt, nfl

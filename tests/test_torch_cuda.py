@@ -5,7 +5,9 @@ analytic form of the border kernel), the ORCA wall-feed kernels, the
 chunk scan of the chunked environment forces, and the agent-sharding
 kernels (the rectangular forms of the dense kernels, the full-block kernel
 and the in-kernel ring, and their batched forms for a batch of crowds
-sharded over a 2-D mesh) against their plain PyTorch versions, and the
+sharded over a 2-D mesh; the per-crowd forms of the Moussaid environment
+kernel and of the chunk scan for a batch of fleets) against their plain
+PyTorch versions, and the
 rollouts through them (the urban slice's, the model families', the ORCA
 slice's, a scenario's and the sharded schedules' too).
 
@@ -827,7 +829,8 @@ def test_feed_launch_counts_and_checks(cuda_device):
                                 "chunk_argmin_batched": 0,
                                 "seg_topk_batched": 0,
                                 "chunk_topk_batched": 0,
-                                "chunk_closest_batched": 0}
+                                "chunk_closest_batched": 0,
+                                "chunk_argmin_percrowd": 0}
     with pytest.raises(ValueError, match="k must be"):
         statics.seg_topk(x, y, seg, 9, 15.0)
     with pytest.raises(ValueError, match="contiguous float32"):
@@ -2650,3 +2653,146 @@ def test_sharded_ensemble_steps_match_the_batched_step(cuda_device, comm,
             assert launched == {f"pair_force_{form}_rect_batched":
                                 r * d * (d if comm == "ring" else 1)}
         state = got
+
+
+# -- a batch of fleets: the per-crowd environment kernels -------------------
+
+#: the small street grid of tests/test_torch_ensemble_fleet.py: three roads,
+#: nine vehicles (two groups of eight 128-point rows)
+FLEET_URBAN = dict(num_steps_hint=240, n_routes=4, n_roads=3, width=120.0,
+                   cross_spacing=60.0, vehicles_per_road=3)
+
+
+def fleet_case(b, n, seed, device):
+    """``b`` fleets of the small street grid with every row's vehicles in
+    their own places and ``(b, n)`` crowds around them: ``(snapshot, row
+    snapshots, sorted planes, the urban bundle)``."""
+    from carla_social_force_model_tpu_torch.api.synthetic import urban_bundle
+    bundle = urban_bundle(64, device=device, **FLEET_URBAN)
+    state = bc.fleet_batch(bundle[0].autopilot, b, seed)
+    snap, rows = bc.fleet_rows(bundle[0].autopilot, state)
+    return snap, rows, bc.fleet_crowd(state, n, seed), bundle
+
+
+@pytest.mark.parametrize("threshold", ["shared", "swept"])
+@pytest.mark.parametrize("max_surv", [None, 1])
+@pytest.mark.parametrize("b,n", [(1, 130), (4, 1000), (64, 300)])
+def test_percrowd_env_kernels_equal_each_row_and_plain(cuda_device, b, n,
+                                                       max_surv, threshold):
+    """``env_moussaid_percrowd`` (and its compacted form over each crowd's
+    own table, ``max_surv`` 1: rows that fit and rows that overflow), one
+    launch for every row: against the plain batched version (1e-5 +
+    1e-5*|f|) and bitwise equal to the unbatched kernel on each row's own
+    vehicles (with its table), a shared or a swept perception
+    threshold."""
+    snap, rows, planes, _ = fleet_case(b, n, 7 + b, cuda_device)
+    pt = (4.0 if threshold == "shared" else torch.linspace(
+        2.0, 9.0, b, device=cuda_device))
+    job, row_jobs = bc.percrowd_jobs(snap, rows, pt)
+    grid = (None if max_surv is None
+            else bc.percrowd_grid(planes, job[0], job[2], max_surv))
+    p = MoussaidParams()
+    cuda_env.reset_launch_counts()
+    got = bc.percrowd_run(planes, job, p, grid)
+    torch.cuda.synchronize()
+    name = ("env_moussaid_percrowd" if grid is None
+            else "env_moussaid_compact_percrowd")
+    assert cuda_env.LAUNCHES == dict(dict.fromkeys(cuda_env.LAUNCHES, 0),
+                                     **{name: 1})
+    assert torch.isfinite(got).all() and bool(got.abs().sum() > 0)
+    assert bool((got[:, ~planes[5]] == 0).all())
+    err, over, equal = bc.percrowd_mismatch(planes, job, row_jobs, p, got,
+                                            grid)
+    assert over == 0, err
+    assert equal
+    if b > 1:
+        assert not torch.equal(got[:, 0], got[:, 1])
+
+
+@pytest.mark.parametrize("b", [1, 4, 32])
+def test_percrowd_chunk_scan_rows_equal_unbatched_launches(cuda_device, b):
+    """One launch of the per-crowd chunk scan (each row against its own
+    vehicles' 64-point chunks): each row bitwise equal to the unbatched
+    launch on its own chunks and to the plain version."""
+    from carla_social_force_model_tpu_torch.ops import geometry, statics
+    snap, rows, planes, _ = fleet_case(b, 500, 40 + b, cuda_device)
+    statics.reset_launch_counts()
+    (dmin, idx), singles, (fx, fy) = bc.percrowd_scan(planes, snap, rows)
+    torch.cuda.synchronize()
+    assert statics.LAUNCHES["chunk_argmin_percrowd"] == 1
+    assert statics.LAUNCHES["chunk_argmin"] == b
+    assert dmin.shape == idx.shape == (fx.shape[1], b, 500)
+    for r, (d1, i1) in enumerate(singles):
+        assert torch.equal(dmin[:, r], d1) and torch.equal(idx[:, r], i1), r
+    want = geometry.chunk_argmin(planes[0], planes[1], fx, fy, plain=True)
+    assert torch.equal(dmin, want[0]) and torch.equal(idx, want[1])
+
+
+def test_percrowd_forms_reject_other_sets(cuda_device):
+    """A per-crowd form refuses one shared set, the shared forms a set of
+    each crowd's own, and a set or velocities of another batch."""
+    from carla_social_force_model_tpu_torch.ops import statics
+    snap, rows, planes, _ = fleet_case(3, 200, 3, cuda_device)
+    px, py, vx, vy, rad, alive = planes
+    (seg, ov, act), row_jobs = bc.percrowd_jobs(snap, rows, 4.0)
+    one_seg, one_ov, one_act = row_jobs[0]
+    p = MoussaidParams()
+    with pytest.raises(ValueError, match="of each crowd's own"):
+        cuda_env.env_moussaid_percrowd(px, py, vx, vy, rad, alive, one_seg,
+                                       one_ov, p, active=one_act)
+    with pytest.raises(ValueError, match="one segment set"):
+        cuda_env.env_moussaid_batched(px, py, vx, vy, rad, alive, seg, ov, p,
+                                      active=act)
+    with pytest.raises(ValueError, match="velocity"):
+        cuda_env.env_moussaid_percrowd(px, py, vx, vy, rad, alive, seg,
+                                       ov[1:].contiguous(), p,
+                                       active=act[1:])
+    fx = torch.zeros((2, 4, 64), device=cuda_device)
+    with pytest.raises(ValueError, match="fx"):
+        statics.chunk_argmin_percrowd(px, py, fx, fx)
+
+
+@pytest.mark.parametrize("case", ["dense", "env_compact env_max_surv=1",
+                                  "env_chunked", "sweep env_max_surv=1"])
+def test_fleet_batch_steps_through_kernels_match_plain_steps(cuda_device,
+                                                             case):
+    """Every step of a 20-step fleet ensemble (or sweep) through the
+    kernels within 1e-4 m (L-inf, each row) of the plain versions' tick
+    from the same state, modes, alive and the fleet states equal; the
+    vehicles' term one launch of its per-crowd form per step."""
+    from carla_social_force_model_tpu_torch.api.synthetic import (
+        batched_crowds, urban_bundle)
+    from carla_social_force_model_tpu_torch.ops import statics
+    from carla_social_force_model_tpu_torch.parallel.sweeps import (
+        batch_params)
+    b, n, steps = 4, 400, 20
+    scene, params, cfg, _ = urban_bundle(n, device=cuda_device,
+                                         **FLEET_URBAN)
+    cfg = dataclasses.replace(cfg, env_compact=False)
+    if "env_max_surv" in case:
+        cfg = dataclasses.replace(cfg, env_compact=True, env_max_surv=1)
+    if case == "env_chunked":
+        cfg = dataclasses.replace(cfg, env_chunked=True)
+    if case.startswith("sweep"):
+        params = batch_params(
+            params, dynamic_obstacle_perception_threshold=torch.linspace(
+                2.0, 9.0, b, device=cuda_device))
+    else:
+        scene = dataclasses.replace(scene, spawn=batched_crowds(
+            b, n, extent=60.0, device=cuda_device))
+        scene = dataclasses.replace(scene, spawn=dataclasses.replace(
+            scene.spawn, pos_x=scene.spawn.pos_x + 30.0))
+    for m in (cuda_forces, cuda_env, statics):
+        m.reset_launch_counts()
+    fleet = scene.autopilot.initial_state(b)
+    for k, gap, equal, finite in bc.fleet_step_gaps(
+            scene, params, cfg, PedState.empty(n, device=cuda_device,
+                                               batch=b), fleet, steps):
+        assert equal and finite, k
+        assert gap.max().item() <= 1e-4, (k, gap)
+    launched = {k: v for m in (cuda_env, statics)
+                for k, v in m.LAUNCHES.items() if v}
+    vehicles_form = {"dense": "env_moussaid_percrowd",
+                     "env_chunked": "chunk_argmin_percrowd"}.get(
+                         case, "env_moussaid_compact_percrowd")
+    assert launched.get(vehicles_form) == steps, launched

@@ -502,16 +502,32 @@ def refusal_cases():
 
 @pytest.mark.parametrize("case", ["groups", "autopilot fleet"])
 def test_batched_step_refuses_what_is_not_ported(case):
-    """Under a batch every configuration that is not batched yet raises
-    NotImplementedError naming ROADMAP item 19b, from make_ensemble_rollout
-    and from one step alike: nothing runs another path instead."""
+    """What item 19b.3a held back runs under a batch where it was refused
+    (the test keeps the refusal's name): social groups (one member table
+    for every crowd) and the reactive fleet (one fleet state for each
+    crowd) through make_ensemble_rollout, whose record's second step is
+    one step of the batch from the empty state (``fleet_tick`` with the
+    fleet).  tests/test_torch_ensemble_fleet.py and
+    tests/test_torch_ensemble_groups.py hold them against the JAX
+    package."""
     scene, params, cfg = refusal_cases()[case]
-    with pytest.raises(NotImplementedError, match="item 19b"):
-        sweeps.make_ensemble_rollout(scene, params, cfg, 2)
+    final, rec = sweeps.make_ensemble_rollout(scene, params, cfg, 2,
+                                              record=True)(scene)
     state = PedState.empty(8, device="cpu", batch=2)
-    with pytest.raises(NotImplementedError, match="item 19b"):
-        stepper.simulation_step(state, stepper.prepare_scene(scene), params,
-                                cfg, 0)
+    prepared = stepper.prepare_scene(scene)
+    if case == "autopilot fleet":
+        rec, veh = rec
+        v = scene.autopilot.num_vehicles
+        assert veh.pos.shape == (2, 2, v, 2) and veh.active.shape == (2, 2, v)
+        nxt, fleet, _ = stepper.fleet_tick(
+            state, scene.autopilot.initial_state(2), prepared, params, cfg,
+            0)
+        assert torch.equal(fleet.pos, veh.pos[:, 0])
+    else:
+        nxt, _ = stepper.simulation_step(state, prepared, params, cfg, 0)
+    assert rec.pos.shape == (2, 2, 8, 2) and torch.isfinite(rec.pos).all()
+    assert torch.equal(nxt.pos, rec.pos[:, 1])
+    assert bool(final.alive.any())
 
 
 @pytest.mark.parametrize("case", ["ORCA", "pair_scale", "law_id",

@@ -365,10 +365,38 @@ def test_batched_orca_velocities_equal_jax_vmap_and_each_row(window, params,
 
 
 def test_batched_orca_refuses_an_agent_axis():
-    z = torch.zeros(2, 4)
-    with pytest.raises(NotImplementedError, match="item 19b"):
-        orca.orca_velocities((z, z), (z, z), z, z > 0, (z, z), z + 1.0,
-                             OrcaParams(), DT, axis=object())
+    """Item 19b.5, where the refusal was (the test keeps its name):
+    ``orca_velocities`` on each shard's ``(B, n)`` slots of a 4-shard
+    LocalMesh (every crowd gathered along the last axis and solved whole,
+    each shard keeping its own columns), joined along the slots, equals
+    the call on the whole ``(B, N)`` planes bitwise: the windowed band,
+    the walls' analytic feed, parked cars as chunks, two vehicles."""
+    from carla_social_force_model_tpu_torch.parallel import make_mesh
+    b, n, d = 3, 120, 4
+    cols = [t(c) for c in velocity_rows(b, n)]
+    _, (pb, po) = walls()
+    pb, po = (pps.build_static_features(pb, CPU),
+              pps.build_static_features(po, CPU))
+    _, psnap = vehicle_snaps()
+    pp = OrcaParams(neighbor_dist=6.0, max_neighbors=6, window=32)
+
+    def call(c, axis=None):
+        px, py, vx, vy, rad, alive, prx, pry, vmax, exm = c
+        return orca.orca_velocities(
+            (px, py), (vx, vy), rad, alive, (prx, pry), vmax, pp, DT,
+            veh_snap=psnap, borders=pb, obstacles=po, static_exempt=exm,
+            axis=axis)
+
+    want = call(cols)
+    m = n // d
+    outs = make_mesh(d, device=CPU).run(
+        lambda ax, part: call(part, ax),
+        [[c[:, k * m:(k + 1) * m].contiguous() for c in cols]
+         for k in range(d)])
+    for got, w in zip(zip(*outs), want):
+        assert got[0].shape == (b, m)
+        assert torch.equal(torch.cat(got, dim=-1), w)
+    assert (want[0] != cols[6]).any()
 
 
 # -- the step, step by step against the JAX package's vmapped step ------------
@@ -730,21 +758,47 @@ def test_batched_columns_take_the_schedule_shape(case):
 
 @pytest.mark.parametrize("case", ["groups", "agent axis", "autopilot fleet"])
 def test_orca_batches_still_refuse_what_19b_holds(case):
-    """With ORCA on, groups, an agent axis and the fleet still raise
-    NotImplementedError naming ROADMAP item 19b under a batch."""
+    """With ORCA on, groups, an agent axis and the fleet run under a batch
+    where they were refused (the test keeps the refusal's name): groups
+    and the fleet through make_ensemble_rollout; over an agent axis (item
+    19b.5) one step of an ensemble's slots split over a 2-shard LocalMesh,
+    joined, is the step of the whole crowds within 1e-5 m (the sharded
+    pair force sums its columns in another order), modes and alive
+    equal."""
     from test_torch_ensemble import refusal_cases
     from carla_social_force_model_tpu_torch.parallel import make_mesh
+    from carla_social_force_model_tpu_torch.parallel.sharding import (
+        join_shards, shard_of)
     if case == "agent axis":
         scene, params, cfg, state = column_scene("ensemble")
-        with pytest.raises(NotImplementedError, match="item 19b"):
-            stepper.simulation_step(state, stepper.prepare_scene(
-                scene, orca=True), params, cfg, 0,
-                axis=make_mesh(1, device=CPU))
+        scene = stepper.prepare_scene(scene, orca=True)
+        whole, _ = stepper.simulation_step(state, scene, params, cfg, 0)
+        whole, _ = stepper.simulation_step(whole, scene, params, cfg, 1)
+        scenes = [dataclasses.replace(scene, spawn=shard_of(scene.spawn, k,
+                                                            2))
+                  for k in range(2)]
+
+        def two_steps(ax, st, sc):
+            st, _ = stepper.simulation_step(st, sc, params, cfg, 0, axis=ax)
+            return stepper.simulation_step(st, sc, params, cfg, 1,
+                                           axis=ax)[0]
+
+        got, _ = join_shards(make_mesh(2, device=CPU).run(
+            two_steps, [shard_of(state, k, 2) for k in range(2)], scenes))
+        assert torch.equal(got.alive, whole.alive)
+        assert torch.equal(got.mode, whole.mode)
+        assert (got.pos - whole.pos).abs().max() <= 1e-5
+        assert bool(got.alive.any())
         return
     scene, params, cfg = refusal_cases()[case]
     params = dataclasses.replace(params, enable_orca=True)
-    with pytest.raises(NotImplementedError, match="item 19b"):
-        sweeps.make_ensemble_rollout(scene, params, cfg, 2)
+    final, rec = sweeps.make_ensemble_rollout(scene, params, cfg, 2,
+                                              record=True)(scene)
+    if case == "autopilot fleet":
+        rec, veh = rec
+        assert veh.pos.shape[:2] == (2, 2)
+    assert rec.pos.shape == (2, 2, 8, 2) and torch.isfinite(rec.pos).all()
+    assert bool(final.alive.any())
 
 
 def test_conversion_carries_swept_orca_leaves():

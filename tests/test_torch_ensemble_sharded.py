@@ -212,40 +212,56 @@ def test_a_batch_that_does_not_divide_raises(call):
         calls[call]()
 
 
-# -- what the batched step still refuses ---------------------------------------
+# -- groups, the fleet and ORCA on the mesh, where the batch refused them -----
+
+def jax_mesh_case(case):
+    """The JAX scene, params and config of a refused case of the 2-D mesh:
+    groups of four over half of every crowd (one table), the small street
+    grid with its fleet (tests/test_torch_ensemble_fleet.py's), or config
+    #1 under ORCA with the windowed band."""
+    from carla_social_force_model_tpu.models.groups import (
+        build_groups as jbuild_groups)
+    if case == "autopilot fleet":
+        from test_torch_ensemble_fleet import jax_urban
+        return jax_urban(b=B, n=N)
+    scene, params, cfg = jax_ensemble(B, N)
+    if case == "groups":
+        gid = np.where(np.arange(N) < N // 2, np.arange(N) // 4, -1)
+        return (dataclasses.replace(scene, groups=jbuild_groups(
+            gid, max_members=4)), dataclasses.replace(
+                params, enable_group=True), cfg)
+    return scene, dataclasses.replace(
+        params, enable_pedestrian=False, enable_orca=True, orca=dataclasses.
+        replace(params.orca, window=16)), cfg
+
 
 @pytest.mark.parametrize("case,item", [("groups", "19b.3a"),
                                        ("autopilot fleet", "19b.3a"),
                                        ("ORCA over an agent axis", "19b.5")])
 def test_sharded_ensemble_refuses_what_is_not_ported(case, item):
-    """Groups and the fleet under a batch (item 19b.3a) and ORCA under a
-    batch over an agent axis (item 19b.5) raise NotImplementedError naming
-    their item, from make_sharded_ensemble_rollout and from one sharded
-    step: nothing runs another path instead."""
-    scene, params, cfg, _ = synthetic.benchmark_bundle(8, extent=10.0,
-                                                       device="cpu")
-    batched = dataclasses.replace(scene, spawn=synthetic.batched_crowds(
-        2, 8, extent=10.0, device="cpu"))
-    if case == "groups":
-        batched = dataclasses.replace(batched, groups=build_groups(
-            np.arange(8) // 4, max_members=4, device="cpu"))
-        params = dataclasses.replace(params, enable_group=True)
-    elif case == "autopilot fleet":
-        ubatched, _, _, _ = synthetic.urban_bundle(
-            8, num_steps_hint=4, n_routes=4, n_roads=2, width=120.0,
-            cross_spacing=60.0, vehicles_per_road=1, device="cpu")
-        batched = dataclasses.replace(batched, autopilot=ubatched.autopilot)
-    else:
-        params = dataclasses.replace(params, enable_pedestrian=False,
-                                     enable_orca=True)
-    mesh = make_mesh(2, n_batch_shards=2, device="cpu")
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        sweeps.make_sharded_ensemble_rollout(mesh, batched, params, cfg, 2)
-    state = PedState.empty(4, device="cpu", batch=2)
-    one = LocalMesh(1, device="cpu").shard(0)
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        stepper.simulation_step(state, stepper.prepare_scene(batched),
-                                params, cfg, 0, axis=one)
+    """What items 19b.3a and 19b.5 held back runs on the 2 x 4 mesh where
+    the batch refused it (the test keeps the refusal's name): groups (the
+    member table's global slots, each crowd gathered over its row), the
+    fleet (every shard of a row steps the row's fleets from the gathered
+    walkers) and ORCA over the agent axis, against the JAX package's
+    ``make_sharded_ensemble_rollout`` on its jnp path: positions within
+    POS_TOL_M, modes and alive equal, the fleets' ``(B, T, V)`` record
+    within POS_TOL_M and its flags equal."""
+    scene, params, cfg = jax_mesh_case(case)
+    want = jax_sharded(scene, params, cfg, steps=6)
+    pscene, pparams, pcfg = port_of(scene, params, cfg)
+    got = port_sharded(pscene, pparams, pcfg, steps=6)
+    if case == "autopilot fleet":
+        (jf, (jrec, jveh)), (pf, (prec, pveh)) = want, got
+        want, got = (jf, jrec), (pf, prec)
+        assert tuple(pveh.pos.shape) == np.asarray(jveh.pos).shape
+        np.testing.assert_array_equal(pveh.active.numpy(),
+                                      np.asarray(jveh.active))
+        np.testing.assert_allclose(pveh.pos.numpy(), np.asarray(jveh.pos),
+                                   rtol=0, atol=POS_TOL_M)
+        assert not torch.equal(pveh.pos[0], pveh.pos[1])
+    assert_close(want, got, f"{case} ({item})")
+    assert bool(got[0].alive.any())
 
 
 # -- the batched launch plans and the plain versions of the kernels -----------

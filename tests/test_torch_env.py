@@ -547,7 +547,8 @@ def test_fused_environment_terms_equal_the_plain_versions():
         "env_exp_analytic_compact", "env_exp_analytic_compact_batched",
         "env_exp_batched", "env_exp_compact", "env_exp_compact_batched",
         "env_moussaid", "env_moussaid_batched", "env_moussaid_compact",
-        "env_moussaid_compact_batched"]
+        "env_moussaid_compact_batched", "env_moussaid_compact_percrowd",
+        "env_moussaid_percrowd"]
     plain = stepper.force_terms(
         state, scene, params, stepper.StepConfig(plain_env_force=True), snap)
     assert sorted(fused) == ["border_force", "dynamic_obstacle_force",

@@ -47,7 +47,9 @@ D = 4 and D = 1 (``"ms": null`` where the launch is refused).
 
 ``--cases batched`` times the square batched dense walks at phase 27's
 and phase 30's shapes (config #5 under each law, its 30 m cutoff, the table at
-8 x 50,000).
+8 x 50,000) and the batched environment walks on one shared set at phase
+31's (256 crowds of 1,000 over config #3's geometry: the borders sampled
+and analytic and the parked cars, dense and on the survivor tables).
 
 ``--root`` is the checkout whose package is imported and whose kernels are
 built (into its own ``build/``); the cases' builders (``chip_smoke.py``
@@ -206,8 +208,59 @@ def batched_cases(dev):
         out.append((f"{form}_batched {b} x {n}", lambda pl=pl, g=grid, f=form:
                     bc.batch_run("moussaid", f, pl,
                                  bc.law_params("moussaid"), g)))
-    return [(name, fn, "pair_force_dense_batched_kernel", 20)
-            for name, fn in out]
+    return ([(name, fn, "pair_force_dense_batched_kernel", 20)
+             for name, fn in out] + batched_env_cases(dev))
+
+
+def batched_env_cases(dev):
+    """(name, call, kernel name filter, reps) of the batched environment
+    walks on one shared set (``env_force_batched_kernel``) at phase 31's
+    shape: 256 crowds of 1,000 over config #3's N = 10,000 geometry (its
+    borders sampled and analytic, its parked cars), dense and on the
+    survivor tables."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import batch_cases as bc
+    from carla_social_force_model_tpu_torch.api.synthetic import (
+        batched_crowds, benchmark_bundle)
+    from carla_social_force_model_tpu_torch.models import stepper
+    from carla_social_force_model_tpu_torch.models.state import PedState
+    cs = smoke()
+    scene, params, cfg, _ = benchmark_bundle(
+        cs.ENV_GEOM_N, with_borders=True, with_obstacles=True,
+        num_steps_hint=8, device=dev)
+    scene = stepper.prepare_scene(scene, analytic=True)
+    ens = dataclasses.replace(scene, spawn=batched_crowds(
+        cs.BATCH, cs.BATCH_N, extent=cs.ENV_CROWD_EXTENT, seed=32,
+        device=dev))
+    st, _ = stepper.rollout(PedState.empty(cs.BATCH_N, device=dev,
+                                           batch=cs.BATCH),
+                            ens, params, cfg, 1, record=False)
+    dead = torch.from_numpy(np.random.default_rng(32).uniform(
+        size=(cs.BATCH, cs.BATCH_N)) < 0.1).to(dev)
+    planes = bc.sorted_rows(dataclasses.replace(st, alive=st.alive & ~dead))
+    border = (params.border.a, params.border.b)
+    jobs = (("env_exp", "borders", scene.borders_seg, border, None),
+            ("env_exp", "borders", scene.borders_seg, border, 0),
+            ("env_moussaid", "cars", scene.static_obstacles_seg,
+             (scene.static_obstacle_vel, params.static_obstacle), None),
+            ("env_moussaid", "cars", scene.static_obstacles_seg,
+             (scene.static_obstacle_vel, params.static_obstacle), 0),
+            ("env_exp_analytic", "analytic borders", scene.borders_geom,
+             border, None),
+            ("env_exp_analytic", "analytic borders", scene.borders_geom,
+             border, cs.ENV_ANALYTIC_MAX_SURV))
+    out = []
+    for kernel, what, seg, args, width in jobs:
+        grid = (None if width is None
+                else bc.env_grid_of(planes, seg, None, width))
+        out.append((f"{bc.env_batched_name(kernel, grid)} ({what}) "
+                    f"{cs.BATCH} x {cs.BATCH_N}",
+                    lambda k=kernel, s=seg, a=args, g=grid: bc.env_batch_run(
+                        k, planes, s, a, None, grid=g),
+                    "env_force_batched_kernel", 20))
+    return out
 
 
 def statics_cases(dev):
