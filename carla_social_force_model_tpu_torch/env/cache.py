@@ -15,6 +15,11 @@ import os
 import numpy as np
 
 DEFAULT_CACHE_DIR = os.path.join("cache", "map_geometry")
+#: prefix of the names the port's extractions store under (``torch_sidewalk_
+#: <town>``, ``torch_navgraph_<town>``).  The JAX package stores the same
+#: maps as ``sidewalk_<town>``/``navgraph_<town>`` and evicts ``<name>_*``:
+#: neither package's glob matches the other's names
+PORT_PREFIX = "torch_"
 
 
 def content_key(content: str | bytes, *parts) -> str:

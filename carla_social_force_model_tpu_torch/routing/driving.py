@@ -8,9 +8,8 @@ GlobalRoutePlanner walks ``map.get_topology()``).  Headless there is no
 CARLA road network, so this module provides the headless equivalent: a
 *directed* graph over driving-lane waypoint chains, serializable to ``.npz``
 for headless replay (the ``[map] driving_graph_npz`` scenario key), routed
-with A*.  Building the graph from a live CARLA map's topology walk
-(the JAX package's ``build_carla_driving_graph``) comes with the CARLA
-bridge.
+with A*, and built from a live CARLA map's topology walk by
+:func:`build_carla_driving_graph`.
 
 The planned polyline feeds :class:`models.autopilot.AutopilotSpec` --
 destination-only reactive vehicles then run headless exactly like
@@ -305,6 +304,61 @@ class DrivingGraphBuilder:
                        if spawn_xyz is not None else None),
             spawn_yaw=(np.asarray(spawn_yaw, np.float64)
                        if spawn_yaw is not None else None))
+
+
+def build_carla_driving_graph(carla_map, waypoint_distance: float = 4.0,
+                              stitch_radius: float = 25.0) -> DrivingGraph:
+    """Directed driving graph from a CARLA(-like) map's topology walk.
+
+    Mirrors the chain walk the pedestrian graph does for sidewalks
+    (routing/carla_graph.py:100-124 / reference path_planner.py:210-240)
+    but keeps the driving-lane waypoints themselves: for each topology
+    segment entered on a Driving lane, the waypoint chain at
+    ``waypoint_distance`` spacing becomes a directed polyline.  A stitch
+    pass then joins segment exits to nearby segment entries (junction
+    connectivity; real topology already provides junction segments, fake
+    maps may not).  Map spawn points ride along when the map exposes
+    ``get_spawn_points()``.
+    """
+    import sys
+    carla = sys.modules.get("carla")
+    # carla.LaneType.Driving is an enum in the real client, a string in the
+    # test fakes; resolve whichever module is registered
+    driving = carla.LaneType.Driving if carla is not None else "Driving"
+
+    builder = DrivingGraphBuilder()
+    for segment in carla_map.get_topology():
+        wp_start, wp_end = segment[0], segment[1]
+        if wp_start.lane_type != driving:
+            continue
+        chain = [wp_start] + wp_start.next_until_lane_end(waypoint_distance)
+        pts = [_wp_xyz(w) for w in chain]
+        # close the tail gap to the segment's exit waypoint -- but only when
+        # it lies ahead within a chain step (some maps return an
+        # entry-adjacent waypoint as the pair's second element, which would
+        # otherwise add a backward edge)
+        end_xyz = _wp_xyz(wp_end)
+        gap = float(np.linalg.norm(pts[-1] - end_xyz))
+        if 1e-6 < gap <= waypoint_distance * 1.5:
+            pts.append(end_xyz)
+        builder.add_chain(pts)
+    n = builder.stitch(stitch_radius)
+    if n:
+        log.info("driving graph: stitched %d junction connections", n)
+
+    spawn_xyz = spawn_yaw = None
+    if hasattr(carla_map, "get_spawn_points"):
+        tfs = carla_map.get_spawn_points()
+        if tfs:
+            spawn_xyz = np.array([[t.location.x, t.location.y, t.location.z]
+                                  for t in tfs], np.float64)
+            spawn_yaw = np.radians([t.rotation.yaw for t in tfs])
+    return builder.build(spawn_xyz=spawn_xyz, spawn_yaw=spawn_yaw)
+
+
+def _wp_xyz(waypoint) -> np.ndarray:
+    loc = waypoint.transform.location
+    return np.array([loc.x, loc.y, loc.z], np.float64)
 
 
 def _as_xyz(p) -> np.ndarray:

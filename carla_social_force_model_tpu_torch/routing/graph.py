@@ -8,9 +8,9 @@ instead of copied graphs (path_planner.py:564-588).  Jaywalking-type edges
 are weighted by ``jaywalking_weight_factor`` at build time
 (path_planner.py:473-475).
 
-Graphs come from a cached ``.npz`` or programmatic construction (headless
-scenarios); the CARLA bridge's map extraction belongs to a later slice of
-the port.
+Graphs come from three sources: the CARLA bridge's map extraction
+(``routing/carla_graph.py``), a cached ``.npz``, or programmatic
+construction (headless scenarios).
 """
 from __future__ import annotations
 

@@ -77,7 +77,15 @@ the unbatched kernels row by row, config #4 swept over 8 rows of
 #4's street grid with the fleet in every row, config #5 with groups, the
 five shipped scenarios that were refused (four for their fleet,
 ``grouped_crossing`` for its groups) swept over 8 rows, and the fleet,
-groups and ORCA on the 2-D mesh.  It counts
+groups and ORCA on the 2-D mesh; then (phase 35) the CARLA bridge: the
+tick-synchronised ``bridge.runner.BridgeRunner`` on ``FakeWorld`` against
+the headless ``Simulation`` of the same scenario and tick by tick against
+the plain versions, the gap-acceptance scene with a scripted vehicle,
+``bridge.carla_bridge.run_with_carla`` on the fake Town2 server of
+``tests/fake_carla.py``, the Town02 crowd's geometry with 1,008 walkers
+(ms per tick split into the world's host time, the runner's host time
+and the core's device time), and the CLI's checkpoints, ``--resume`` and
+``--profile``.  It counts
 the kernel launches of each path, and checks every step of short rollouts
 (50 steps; the family and batched paths 25, phases 31 and 32 10) through
 the kernels against the same
@@ -4555,6 +4563,536 @@ def fleet_batch_phases(dev, zero, card, launches, worst, profile_steps,
     return table
 
 
+#: phase 35 (the CARLA bridge): tests/test_bridge.py's corridor (its
+#: SCENARIO and SFM) and ticks, the one-step checks, the gap-acceptance
+#: scene's ticks, the full stack's ticks on the fake Town2 server, the
+#: Town02 crowd's walkers, warm-up, timed, profiled and checked ticks, the
+#: CLI's checkpoint run and its profile
+BRIDGE_SFM = {
+    "max_speed_multiplier": 1.3,
+    "forces": {"acceleration_force": True, "pedestrian_force": True,
+               "border_force": True},
+    "acceleration_force": {"tau": 0.5},
+    "pedestrian_force": {"lambda": 2.0, "A": 4.5, "gamma": 0.35, "n": 2.0,
+                         "n_prime": 3.0, "epsilon": 0.005},
+    "border_force": {"a": 6.0, "b": 0.3},
+}
+BRIDGE_SCENARIO = {
+    "scenario_name": "bridge-corridor",
+    "step_length": 0.05,
+    "walker": {
+        "despawn_on_arrival": True, "waypoint_threshold": 1,
+        "default_radius": 0.3, "initial_velocity": "zero",
+        "ped_spawner": [
+            {"spawn_location": [-6.0, 0.4, 1.0],
+             "destination": [6.0, 0.4, 0.0], "speed": 1.3, "quantity": 2,
+             "spawn_time": 0.0, "spawn_interval": 1.2},
+            {"spawn_location": [6.0, -0.4, 1.0],
+             "destination": [-6.0, -0.4, 0.0], "speed": 1.2,
+             "quantity": 2, "spawn_time": 0.4, "spawn_interval": 1.2}],
+    },
+    "obstacles": {
+        "resolution": 0.1,
+        "borders": [{"start_point": [-8.0, 1.5], "end_point": [8.0, 1.5]},
+                    {"start_point": [-8.0, -1.5],
+                     "end_point": [8.0, -1.5]}],
+    },
+}
+BRIDGE_STEPS = 280
+BRIDGE_PARITY_TICKS = 50
+BRIDGE_GAP_STEPS = 260
+BRIDGE_TOWN_STEPS = 900
+BRIDGE_N = 1_000
+BRIDGE_WARMUP_TICKS = 20
+BRIDGE_TIMED_TICKS = 200
+BRIDGE_PROFILE_TICKS = 20
+BRIDGE_CHECK_TICKS = 15
+CKPT_SCENARIO = "destination_vehicle"
+CKPT_STEPS = 200
+CKPT_EVERY = 50
+PROFILE_STEPS = 50
+
+
+def bridge_counts(label, counts, ticks, per_tick):
+    """Fail unless each kernel of ``per_tick`` was launched at least that
+    many times a tick over ``ticks`` ticks (the bridge's main path)."""
+    for name, k in per_tick.items():
+        if counts[name] < k * ticks:
+            fail(f"{label}: {name} launched {counts[name]} times in {ticks} "
+                 f"ticks, expected at least {k * ticks}")
+    say(f"{label}: launches in {ticks} ticks "
+        f"{({k: v for k, v in counts.items() if v})}")
+
+
+def bridge_records_agree(label, got, want, tol=POS_STEP_TOL_M):
+    """Alive masks and alive modes equal, every alive position within
+    ``tol`` at every tick; returns the largest difference."""
+    import numpy as np
+    alive = np.asarray(got.alive)
+    w_alive = np.asarray(want.alive.cpu() if hasattr(want.alive, "cpu")
+                         else want.alive)
+    w_mode = np.asarray(want.mode.cpu() if hasattr(want.mode, "cpu")
+                        else want.mode)
+    w_pos = np.asarray(want.pos.cpu() if hasattr(want.pos, "cpu")
+                       else want.pos)
+    if alive.shape != w_alive.shape or not (alive == w_alive).all():
+        fail(f"{label}: other alive masks")
+    if not (np.asarray(got.mode)[alive] == w_mode[alive]).all():
+        fail(f"{label}: other modes")
+    err = float(np.where(alive[..., None],
+                         np.abs(np.asarray(got.pos) - w_pos), 0.0).max())
+    if not np.isfinite(np.asarray(got.pos)[alive]).all() or err > tol:
+        fail(f"{label}: positions {err:.3e} m apart (limit {tol:g} m)")
+    return err
+
+
+class TimedFakeWorld:
+    """A FakeWorld whose every method call adds its host time to
+    ``host_s`` (the world's share of a tick; each call also pays the
+    wrapper's two clock reads)."""
+
+    def __init__(self, world):
+        self.host_s = 0.0
+        self.dt = world.dt
+        for name in dir(world):
+            fn = getattr(world, name)
+            if not name.startswith("_") and callable(fn):
+                setattr(self, name, self._timed(fn))
+
+    def _timed(self, fn):
+        clock = time.perf_counter
+
+        def timed(*a, **kw):
+            t0 = clock()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.host_s += clock() - t0
+        return timed
+
+
+def check_bridge_core(runner, label, gaps):
+    """Hold each tick of ``runner`` against the plain versions: wrap its
+    core so that the plain versions' ``tick_core`` also runs from the same
+    state and vehicle snapshot.  Fails on other modes, arrivals or recorded
+    modes, and on a plain call that launched a kernel (its launches would
+    count as the main path's); appends each tick's position gap (dt times
+    the largest velocity difference) to ``gaps``.  Returns the unwrapped
+    core."""
+    import torch
+    from carla_social_force_model_tpu_torch.models import stepper
+    core, ref_cfg = runner._core, plain_cfg(runner.cfg)
+
+    def checked(state, snap, sim_time):
+        out = core(state, snap, sim_time)
+        before = read_counts()
+        ref = stepper.tick_core(state, runner._scene, runner.params, ref_cfg,
+                                sim_time, snap)
+        if read_counts() != before:
+            fail(f"{label} tick {len(gaps)}: the plain versions launched a "
+                 f"kernel")
+        (s1, (vx, vy), fin, rec), (s2, (rx, ry), rfin, rrec) = out, ref
+        if not (torch.equal(s1.mode, s2.mode) and torch.equal(fin, rfin)
+                and torch.equal(rec.mode, rrec.mode)):
+            fail(f"{label} tick {len(gaps)}: other modes or arrivals through "
+                 f"the kernels than through the plain versions")
+        gaps.append(runner.cfg.dt * max((vx - rx).abs().max().item(),
+                                        (vy - ry).abs().max().item()))
+        return out
+    runner._core = checked
+    return core
+
+
+def hold_bridge_gaps(label, gaps, first=1):
+    """Print the one-tick gaps of :func:`check_bridge_core` (ticks
+    ``first``...) and fail beyond POS_STEP_TOL_M."""
+    say(f"{label}: one-tick position gap kernels vs plain from the same "
+        f"state and vehicles, ticks {first}..{first + len(gaps) - 1} (limit "
+        f"{POS_STEP_TOL_M:g} m): max {max(gaps):.3e}; "
+        + " ".join(f"{g:.2e}" for g in gaps[:50]))
+    if max(gaps) > POS_STEP_TOL_M:
+        fail(f"{label}: one-tick gap {max(gaps):.3e} m")
+
+
+def bridge_phases(dev, card):
+    """Phase 35: the CARLA bridge (items 22 and 20).  (a) BridgeRunner on
+    FakeWorld on the card against the headless Simulation of the same
+    scenario (tests/test_bridge.py's corridor, BRIDGE_STEPS ticks), and
+    BRIDGE_PARITY_TICKS ticks each against the plain versions' tick_core
+    from the same state; (b) the scripted-vehicle gap-acceptance scene;
+    (c) the whole CARLA-attached loop (``run_with_carla``) on the fake Town2
+    server (tests/fake_carla.py), BRIDGE_TOWN_STEPS ticks; (d) the Town02
+    crowd's geometry with BRIDGE_N random walkers on FakeWorld: ms per tick
+    split into the world's host time and the runner's host time, the
+    core's stream span (CUDA events around ``tick_core``), the card's busy
+    time (the profiler), launches per tick, and BRIDGE_CHECK_TICKS ticks
+    against the plain versions; (b) is checked so at every tick; (e) the CLI
+    on a shipped reactive-fleet scenario: CKPT_STEPS steps straight
+    against a run stopped after CKPT_STEPS / 2 and resumed from its
+    checkpoint (bitwise with the dense pair kernel, within 1e-4 m with the
+    symmetric one, whose sums accumulate with atomics), and a --profile
+    trace holding the pair and chunk-scan launches."""
+    import glob
+    import shutil
+    import types
+    import numpy as np
+    import torch
+    from carla_social_force_model_tpu_torch.api import cli
+    from carla_social_force_model_tpu_torch.api.scenario import (
+        random_ped_spawners)
+    from carla_social_force_model_tpu_torch.api.simulation import Simulation
+    from carla_social_force_model_tpu_torch.bridge.carla_bridge import (
+        run_with_carla)
+    from carla_social_force_model_tpu_torch.bridge.runner import BridgeRunner
+    from carla_social_force_model_tpu_torch.bridge.world import FakeWorld
+    from carla_social_force_model_tpu_torch.env import cache
+    from carla_social_force_model_tpu_torch.models import modes
+    from carla_social_force_model_tpu_torch.models.vehicles import (
+        VehicleSpec, build_vehicle_states)
+    from carla_social_force_model_tpu_torch.routing.graph import NavGraph
+    from carla_social_force_model_tpu_torch.routing.planner import (
+        PedPathPlanner)
+    from carla_social_force_model_tpu_torch.utils import csvout
+    from carla_social_force_model_tpu_torch.utils.config import load_config
+    work = os.path.join(ROOT, "output", "chip_smoke_bridge")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    path_kernels = dict(pair_force_sym=1, chunk_argmin=1)
+
+    lap("phase 35")
+    # -- (a) the corridor: the bridge on the card against the headless run --
+    label = "phase 35 (a) corridor bridge"
+    runner = BridgeRunner(FakeWorld(dt=0.05, walker_radius=0.3),
+                          BRIDGE_SCENARIO, BRIDGE_SFM, device=dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    runner.run(BRIDGE_STEPS)
+    wall = time.perf_counter() - t0
+    bridge_counts(label, read_counts(), BRIDGE_STEPS, path_kernels)
+    sim = Simulation.from_config(BRIDGE_SCENARIO, BRIDGE_SFM,
+                                 num_steps=BRIDGE_STEPS, device=dev)
+    _, want = sim.run()
+    got = runner.records()
+    err = bridge_records_agree(f"{label} vs the headless Simulation", got,
+                               want)
+    if got.alive[-1].any() or not got.alive.any():
+        fail(f"{label}: the walkers did not all arrive")
+    say(f"{label}: {BRIDGE_STEPS} ticks in {wall:.3f} s "
+        f"({1e3 * wall / BRIDGE_STEPS:.3f} ms/tick); against the headless "
+        f"Simulation on the card: alive and modes equal, positions "
+        f"{err:.3e} m apart at most (limit {POS_STEP_TOL_M:g} m) ({card})")
+    runner = BridgeRunner(FakeWorld(dt=0.05, walker_radius=0.3),
+                          BRIDGE_SCENARIO, BRIDGE_SFM, device=dev)
+    gaps = []
+    check_bridge_core(runner, "phase 35 (a)", gaps)
+    runner.run(BRIDGE_PARITY_TICKS)
+    hold_bridge_gaps("phase 35 (a)", gaps)
+
+    # -- (b) the scripted vehicle: gap acceptance at the curb ---------------
+    label = "phase 35 (b) gap acceptance"
+    speed, length = 8.0, 140
+    ys = -30.0 + speed * 0.05 * np.arange(length)
+    spec = VehicleSpec(trajectory=np.column_stack([np.full(length, 12.0), ys]),
+                       headings=np.full(length, np.pi / 2),
+                       speeds=np.full(length, speed))
+    scenario = {"step_length": 0.05, "walker": {
+        "despawn_on_arrival": True, "waypoint_threshold": 1,
+        "ped_spawner": [{
+            "spawn_location": [4.0, 0.0, 1.0],
+            "waypoints": [[9.0, 0.0], [15.0, 0.0]],
+            "crossing_road_bools": [False, True, False],
+            "destination": [20.0, 0.0, 0.0], "speed": 1.5, "quantity": 1,
+            "crossing_speed_factor": 1.5, "crossing_safety_margin": 1.5}]}}
+    sfm = dict(BRIDGE_SFM, forces=dict(BRIDGE_SFM["forces"],
+                                       dynamic_obstacle_force=True,
+                                       border_force=False),
+               dynamic_obstacle_force={
+                   "lambda": 2.0, "A": 50.0, "gamma": 0.4, "n": 1.0,
+                   "n_prime": 3.0, "epsilon": 0.005,
+                   "perception_threshold": 50.0})
+    world = FakeWorld(dt=0.05, vehicle_timeline=build_vehicle_states(
+        [spec], 0.05, BRIDGE_GAP_STEPS, device="cpu"))
+    runner = BridgeRunner(world, scenario, sfm, device=dev)
+    gaps = []
+    check_bridge_core(runner, label, gaps)
+    reset_counts()
+    runner.run(BRIDGE_GAP_STEPS)
+    bridge_counts(label, read_counts(), BRIDGE_GAP_STEPS, path_kernels)
+    hold_bridge_gaps(label + " (vehicle outlines from the device bank)",
+                     gaps)
+    recs = runner.records()
+    mode, alive = recs.mode[:, 0], recs.alive[:, 0]
+    waited = int((mode[alive] == modes.CHECKING_TRAFFIC).sum())
+    crossed = int((mode[alive] == modes.CROSSING_ROAD).sum())
+    if waited <= 3 or not crossed or alive[-1]:
+        fail(f"{label}: waited {waited} ticks, crossed {crossed}, alive at "
+             f"the end {bool(alive[-1])}")
+    say(f"{label}: the walker waited {waited} ticks at the curb "
+        f"(CHECKING_TRAFFIC), crossed for {crossed} ticks and despawned on "
+        f"arrival at tick {int(np.nonzero(alive)[0][-1]) + 1}")
+
+    # -- (c) the whole CARLA-attached loop on the fake Town2 server ---------
+    label = "phase 35 (c) run_with_carla on the fake Town2 server"
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import fake_carla
+    home = os.getcwd()
+    os.chdir(work)
+    try:
+        fake_carla.install_server(fake_carla.Town2Map())
+        args = types.SimpleNamespace(
+            scenario_config={
+                "scenario_name": "town2-bridge", "step_length": 0.05,
+                "map": {},
+                "walker": {
+                    "pedestrian_seed": 7, "despawn_on_arrival": True,
+                    "waypoint_threshold": 1.5, "waypoint_distance": 10,
+                    "ped_spawner": [{
+                        "spawn_location": [30.0, -7.5, 0.3],
+                        "destination": [66.0, -7.5, 0.0],
+                        "generate_route": "NO_JAYWALKING", "speed": 1.4,
+                        "quantity": 2, "spawn_interval": 1.0}]},
+                "vehicle": {"vehicle_seed": 9, "vehicle_spawner": [{
+                    "spawn_point": 0, "auto_pilot": True,
+                    "use_traffic_manager": True, "quantity": 1}]},
+                "obstacles": {"resolution": 0.5}},
+            carla_host="localhost", carla_port=2000, csv=True,
+            output=os.path.join(work, "town2"), strict_parity=False)
+        reset_counts()
+        t0 = time.perf_counter()
+        rc = run_with_carla(args, {
+            "forces": {"acceleration_force": True, "pedestrian_force": True,
+                       "border_force": True},
+            "border_force": {"a": 3.0, "b": 0.3}},
+            max_steps=BRIDGE_TOWN_STEPS, pace=False, device=dev)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        cached = sorted(os.listdir(cache.DEFAULT_CACHE_DIR))
+    finally:
+        os.chdir(home)
+    bridge_counts(label, counts, BRIDGE_TOWN_STEPS, path_kernels)
+    (run_dir,) = glob.glob(os.path.join(work, "town2", "*"))
+    rec, _ = csvout.read_pedestrian_csv(os.path.join(run_dir,
+                                                     "pedestrian.csv"))
+    xs = rec.pos[..., 0][rec.alive]
+    with open(os.path.join(run_dir, "vehicle.csv")) as f:
+        vel = [float(r.split(",")[6]) for r in f.read().splitlines()[1:]]
+    with open(os.path.join(run_dir, "borders.csv")) as f:
+        n_border = len(f.readlines()) - 1
+    if not (rc == 0 and xs.min() < 40.0 and xs.max() > 56.0
+            and (rec.mode[rec.alive] == modes.CROSSING_ROAD).any()
+            and n_border > 500 and vel and max(vel) > 0.1):
+        fail(f"{label}: exit {rc}, walkers x {xs.min():.2f}..{xs.max():.2f} "
+             f"(must cross road 3: < 40 and > 56), CROSSING_ROAD seen "
+             f"{bool((rec.mode[rec.alive] == 2).any())}, {n_border} border "
+             f"points, vehicle speeds up to {max(vel or [0.0]):.2f} m/s")
+    say(f"{label}: exit 0 in {wall:.3f} s ({BRIDGE_TOWN_STEPS} ticks); the "
+        f"walkers crossed road 3 through the crosswalk (x "
+        f"{xs.min():.2f}..{xs.max():.2f}, CROSSING_ROAD seen), the "
+        f"TrafficManager vehicle moved (up to {max(vel):.2f} m/s, "
+        f"{len(vel)} vehicle rows), {n_border} border points in "
+        f"borders.csv; map cache entries {cached}")
+
+    # -- (d) at scale: the Town02 crowd through the bridge ------------------
+    label = (f"phase 35 (d) Town02 crowd through the bridge, {BRIDGE_N} "
+             f"random walkers and routed_town's 8")
+    data = os.path.join(ROOT, "configs", "data")
+    scn = load_config(os.path.join(ROOT, "configs", "scenarios",
+                                   "routed_town.toml"))
+    scn["map"] = {}
+    t0 = time.perf_counter()
+    with np.load(os.path.join(data, "town2_sidewalks_full.npz"),
+                 allow_pickle=True) as npz:
+        hit = dict(npz)
+    lines = cache.arrays_to_ragged(hit)
+    planner = PedPathPlanner(NavGraph.load_npz(os.path.join(
+        data, "town2_navgraph.npz")))
+    specs = random_ped_spawners(planner, BRIDGE_N,
+                                int(scn["walker"]["pedestrian_seed"]))
+
+    def town_runner(world, **kw):
+        return BridgeRunner(
+            world, scn, os.path.join(ROOT, "configs", "sfm.toml"),
+            route_provider=planner.route_provider(), extra_borders=lines,
+            extra_border_sections=list(zip(hit["centers"],
+                                           hit["section_lengths"])),
+            extra_ped_specs=specs, device=dev, **kw)
+
+    def timed_ticks(runner, zero_timers=lambda: None):
+        runner.run(BRIDGE_WARMUP_TICKS)
+        torch.cuda.synchronize()
+        zero_timers()
+        reset_counts()
+        t0 = time.perf_counter()
+        runner.run(BRIDGE_TIMED_TICKS)
+        return 1e3 * (time.perf_counter() - t0) / BRIDGE_TIMED_TICKS, \
+            read_counts()
+
+    # the tick as a user's run has it, then again with the world's calls
+    # and the core timed
+    runner = town_runner(FakeWorld(dt=0.05))
+    setup_s = time.perf_counter() - t0
+    tick_ms, counts = timed_ticks(runner)
+    bridge_counts(label, counts, BRIDGE_TIMED_TICKS, path_kernels)
+    ticks = BRIDGE_WARMUP_TICKS + BRIDGE_TIMED_TICKS
+    recs = runner.records()
+    spawned = int(recs.alive.any(axis=0).sum())
+    finished = spawned - int(recs.alive[-1].sum())
+    if not np.isfinite(recs.pos[recs.alive]).all():
+        fail(f"{label}: non-finite positions")
+    if finished < 1:
+        fail(f"{label}: no walker despawned on arrival in {ticks} ticks")
+    world = TimedFakeWorld(FakeWorld(dt=0.05))
+    runner = town_runner(world)
+    # the core's stream span: CUDA events around tick_core, read after the
+    # tick's own synchronisation (the span holds the card's idle gaps while
+    # the host launches the core's kernels: not a device time)
+    core, spans = runner._core, []
+
+    def spanned(state, snap, sim_time):
+        if dev.type != "cuda":
+            return core(state, snap, sim_time)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = core(state, snap, sim_time)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    def zero_timers():
+        world.host_s = 0.0
+        spans.clear()
+    runner._core = spanned
+    split_ms, _ = timed_ticks(runner, zero_timers)
+    runner._core = core
+    span_ms = [a.elapsed_time(b) for a, b in spans]
+    if dev.type == "cuda" and len(span_ms) != BRIDGE_TIMED_TICKS:
+        fail(f"{label}: {len(span_ms)} stream spans of the core in "
+             f"{BRIDGE_TIMED_TICKS} ticks")
+    world_ms = 1e3 * world.host_s / BRIDGE_TIMED_TICKS
+    span = float(np.mean(span_ms or [float("nan")]))
+    per_tick = {k: v / BRIDGE_TIMED_TICKS for k, v in counts.items() if v}
+    busy = "not measured (no card)"
+    if dev.type == "cuda":
+        # the card's busy time per tick: the kernels' own durations over
+        # BRIDGE_PROFILE_TICKS ticks (the CUDA events above also hold the
+        # card's idle gaps while the host launches the core's kernels)
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            runner.run(BRIDGE_PROFILE_TICKS)
+            torch.cuda.synchronize()
+        by_name = device_activities(prof)
+        busy_ms = sum(ns for ns, _ in by_name.values()) / 1e6
+        n_act = sum(c for _, c in by_name.values()) / BRIDGE_PROFILE_TICKS
+        busy = (f"{busy_ms / BRIDGE_PROFILE_TICKS:.4f} ms per tick ({n_act:.0f}"
+                f" device activities per tick) under the profiler over "
+                f"{BRIDGE_PROFILE_TICKS} ticks" if busy_ms > 0
+                else "not measured (the profiler reported no device time)")
+    gaps = []
+    check_bridge_core(runner, label, gaps)
+    runner.run(BRIDGE_CHECK_TICKS)
+    runner._core = core
+    hold_bridge_gaps(label, gaps, first=ticks + 1 + (
+        BRIDGE_PROFILE_TICKS if dev.type == "cuda" else 0))
+    say(f"{label}: set-up {setup_s:.2f} s ({len(specs)} random routes, "
+        f"{runner._scene.borders.num_segments} border sections); "
+        f"{BRIDGE_TIMED_TICKS} ticks after {BRIDGE_WARMUP_TICKS} of "
+        f"warm-up: {tick_ms:.4f} ms per tick; with the world's calls timed "
+        f"{split_ms:.4f} ms = world host {world_ms:.4f} ms + runner host "
+        f"{split_ms - world_ms:.4f} ms (mirrors, packing, copies, the "
+        f"per-walker loops and the wait for the card); the core's stream "
+        f"span (CUDA events around tick_core, the card's idle gaps between "
+        f"its launches included) {span:.4f} ms per tick (min "
+        f"{min(span_ms or [span]):.4f}, max {max(span_ms or [span]):.4f}); "
+        f"device time: the card busy {busy}; "
+        f"launches per tick {per_tick}; {spawned} walkers spawned, "
+        f"{finished} despawned on arrival by tick {ticks}, every position "
+        f"finite ({card})")
+
+    # -- (e) the CLI: checkpoints and resume, the profiler ------------------
+    label = f"phase 35 (e) CLI checkpoints ({CKPT_SCENARIO})"
+    base = ["--scenario-config", os.path.join(ROOT, "configs", "scenarios",
+                                              f"{CKPT_SCENARIO}.toml"),
+            "--sfm-config", os.path.join(ROOT, "configs", "sfm.toml"),
+            "--csv"]
+
+    def cli_run(tag, steps, *extra, offset=0):
+        """One CLI run on the card; its pedestrian.csv rows {(ped_id, step):
+        (x, y, mode, the row's x/y/v_x/v_y text)} (``offset``: the step of
+        its frame 0) and the launch counts of the run."""
+        out = os.path.join(work, tag)
+        reset_counts()
+        if cli.main(base + ["--steps", str(steps), "--output", out,
+                            *extra]) != 0:
+            fail(f"{label}: the CLI run {tag} failed")
+        c = read_counts()
+        (d,) = glob.glob(os.path.join(out, "*"))
+        rows = {}
+        with open(os.path.join(d, "pedestrian.csv")) as f:
+            for line in f.read().splitlines()[1:]:
+                pid, frame, _, x, y, vx, vy, mode = line.split(",")
+                rows[(int(pid), int(frame) + offset)] = (
+                    float(x), float(y), int(mode), ",".join((x, y, vx, vy)))
+        return rows, c
+
+    half = CKPT_STEPS // 2
+    for form, extra in (("symmetric", ()), ("dense", ("--no-symmetric",))):
+        ck = os.path.join(work, f"ck_{form}")
+        straight, c = cli_run(f"straight_{form}", CKPT_STEPS, *extra)
+        kern = "pair_force_sym" if form == "symmetric" else "pair_force_dense"
+        bridge_counts(f"{label}, {form}, straight", c, CKPT_STEPS,
+                      {kern: 1, "chunk_argmin": 1})
+        both, _ = cli_run(f"first_{form}", half, *extra, "--checkpoint-dir",
+                          ck, "--checkpoint-every", str(CKPT_EVERY))
+        rest, c = cli_run(f"resumed_{form}", CKPT_STEPS, *extra,
+                          "--checkpoint-dir", ck, "--checkpoint-every",
+                          str(CKPT_EVERY), "--resume", offset=half)
+        bridge_counts(f"{label}, {form}, resumed", c, CKPT_STEPS - half,
+                      {kern: 1, "chunk_argmin": 1})
+        both.update(rest)
+        snaps = sorted(os.listdir(ck))
+        want = [f"ckpt_{s:08d}.npz" for s in range(CKPT_EVERY, CKPT_STEPS + 1,
+                                                   CKPT_EVERY)]
+        if snaps != want:
+            fail(f"{label}: checkpoints {snaps}, expected {want}")
+        if sorted(both) != sorted(straight):
+            fail(f"{label}, {form}: other (walker, step) rows alive")
+        if any(both[k][2] != straight[k][2] for k in straight):
+            fail(f"{label}, {form}: other modes")
+        err = max(max(abs(both[k][0] - straight[k][0]),
+                      abs(both[k][1] - straight[k][1])) for k in straight)
+        bitwise = all(both[k][3] == straight[k][3] for k in straight)
+        if err > POS_STEP_TOL_M or (form == "dense" and not bitwise):
+            fail(f"{label}, {form}: {half} + --resume {CKPT_STEPS - half} "
+                 f"steps differ from {CKPT_STEPS} straight ({err:.3e} m, "
+                 f"bitwise {bitwise}; the dense pair kernel's sums use no "
+                 f"atomics)")
+        say(f"{label}, the {form} pair kernel: {half} steps + --resume "
+            f"{CKPT_STEPS - half} (checkpoints every {CKPT_EVERY}) against "
+            f"{CKPT_STEPS} straight: {len(straight)} (walker, step) rows, "
+            f"alive and modes equal, positions {err:.3e} m apart at most, "
+            + ("bitwise equal" if bitwise else "not bitwise equal")
+            + (" (no kernel of this path accumulates with atomics)"
+               if form == "dense" else " (pair_force_sym accumulates its "
+               "row and column sums with atomicAdd; chunk_argmin does not)"))
+    prof = os.path.join(work, "profile")
+    t0 = time.perf_counter()
+    cli_run("profiled", PROFILE_STEPS, "--profile", prof)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(prof, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    found = {k: sum(k in name for name in kernels)
+             for k in ("pair_force_sym_kernel", "chunk_argmin_kernel")}
+    if min(found.values()) < PROFILE_STEPS:
+        fail(f"phase 35 (e) --profile: the trace holds {found} launches in "
+             f"{PROFILE_STEPS} steps")
+    say(f"phase 35 (e) --profile ({PROFILE_STEPS} steps, {wall:.2f} s with "
+        f"the trace's export): {len(kernels)} kernel events in "
+        f"trace.json, of them {found}")
+    shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> None:
     try:
         import torch
@@ -5102,6 +5640,8 @@ def main() -> None:
     # -- phase 34: the fleet, groups and ORCA over an agent axis, batched ---
     batched.update(fleet_batch_phases(dev, zero, card, launches, worst,
                                       profile_steps, urban))
+    # -- phase 35: the CARLA bridge, checkpoints and the profiler -----------
+    bridge_phases(dev, card)
 
     lap("the kernels line")
     csrc = "carla_social_force_model_tpu_torch/csrc/"

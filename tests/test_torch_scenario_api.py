@@ -4,9 +4,10 @@ against the JAX package's, on the CPU.
 ``Simulation.run_streamed`` must write the bytes of ``run()`` +
 ``write_csv()``; the native and the Python pedestrian writers agree byte
 for byte; the port's CLI writes the reference schema and its parsed values
-match the JAX package's CLI on the same scenario; every flag whose module
-is not ported (or that is a TPU launch knob) stops the run with its
-reason.
+match the JAX package's CLI on the same scenario; the TPU launch knobs,
+the orbax backend and the flags the CARLA bridge has no use for stop the
+run with their reason, and the bridge's, the checkpoints' and the
+profiler's flags run on the CPU.
 """
 import glob
 import os
@@ -139,16 +140,21 @@ def test_cli_matches_jax_cli(tmp_path, scen):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--carla"], "item 22"), (["--carla-host", "10.0.0.1"], "item 22"),
-    (["--carla-port", "2000"], "item 22"),
-    (["--checkpoint-dir", "ck"], "item 20"), (["--resume"], "item 20"),
-    (["--checkpoint-backend", "npz"], "item 20"),
-    (["--profile", "prof"], "item 20"),
     (["--vmem-mb", "64"], "TPU launch knob"),
     (["--exact-div"], "TPU launch knob"),
     (["--platform", "tpu"], "one of cpu"),
+    (["--checkpoint-dir", "ck", "--checkpoint-backend", "orbax"],
+     "orbax checkpoint backend is the JAX package's"),
+    (["--carla", "--pallas"], "--pallas with --carla: an engine flag"),
+    (["--carla", "--cutoff", "3"], "--cutoff with --carla: an engine flag"),
+    (["--carla", "--checkpoint-dir", "ck"], "with --carla"),
+    (["--resume"], "--resume needs --checkpoint-dir"),
+    (["--stream", "--checkpoint-dir", "ck"], "cannot be combined"),
 ])
 def test_cli_refuses_flags_not_ported(capsys, flag, item):
+    """The TPU launch knobs, the orbax backend, and the engine, stream,
+    checkpoint and profile flags together with ``--carla`` stop the run
+    with their reason; nothing else runs in their place."""
     args = ["--scenario-config", os.path.join(SCEN, "road_crossing.toml"),
             "--steps", "5", "--platform", "cpu"]
     if flag[0] == "--platform":
@@ -157,6 +163,71 @@ def test_cli_refuses_flags_not_ported(capsys, flag, item):
         cli.main(args + flag)
     assert exc.value.code == 2
     assert item in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag", [
+    ["--carla"], ["--carla", "--carla-host", "10.0.0.1"],
+    ["--carla", "--carla-port", "2345"],
+    ["--checkpoint-dir", "ck"], ["--checkpoint-dir", "ck", "--resume"],
+    ["--checkpoint-dir", "ck", "--checkpoint-backend", "npz"],
+    ["--profile", "prof"], ["--profile", "prof", "--checkpoint-dir", "ck"],
+    ["--profile", "prof", "--stream"],
+])
+def test_cli_runs_bridge_checkpoint_and_profile_flags(tmp_path, monkeypatch,
+                                                      flag):
+    """Each flag of the bridge, the checkpoints and the profiler runs on the
+    CPU: ``--carla`` against the fake CARLA server (the host and port reach
+    its client; a scripted vehicle and the walkers go through the bridge),
+    the checkpoint flags write and resume npz snapshots whose run equals
+    the straight one, ``--profile`` writes its trace, also of a segmented
+    or a streamed run."""
+    import json
+    import fake_carla
+    monkeypatch.chdir(tmp_path)
+    args = ["--scenario-config", os.path.join(SCEN, "road_crossing.toml"),
+            "--platform", "cpu", "--csv", "--output", str(tmp_path / "out")]
+    if flag[0] == "--carla":
+        fake_carla.install_server()
+        seen = []
+        init = fake_carla.Client.__init__
+
+        def spy(self, host="localhost", port=2000):
+            seen.append((host, port))
+            init(self, host, port)
+        monkeypatch.setattr(fake_carla.Client, "__init__", spy)
+        assert cli.main(args + ["--steps", "30"] + flag) == 0
+        assert seen == [("10.0.0.1" if "--carla-host" in flag
+                         else "127.0.0.1",
+                         2345 if "--carla-port" in flag else 2000)]
+        rec, _, run_dir = parse(str(tmp_path / "out"))
+        assert rec.pos.shape[0] == 30 and rec.alive.any()
+        assert os.path.getsize(os.path.join(run_dir, "vehicle.csv")) > 100
+        return
+    steps = ["--steps", "60"]
+    if "--resume" in flag:
+        # a run of the same horizon that stopped after its step-30
+        # checkpoint, then the resumed rest
+        assert cli.main(args[:-1] + [str(tmp_path / "first")] + steps
+                        + ["--checkpoint-dir", "ck",
+                           "--checkpoint-every", "30"]) == 0
+        assert sorted(os.listdir("ck")) == ["ckpt_00000030.npz",
+                                            "ckpt_00000060.npz"]
+        os.remove(os.path.join("ck", "ckpt_00000060.npz"))
+    assert cli.main(args + steps + ["--checkpoint-every", "25"] + flag) == 0
+    got, _, _ = parse(str(tmp_path / "out"))
+    assert cli.main(args[:-1] + [str(tmp_path / "straight")] + steps) == 0
+    want, _, _ = parse(str(tmp_path / "straight"))
+    if "--resume" in flag:
+        want = type(want)(*(r[30:] for r in want))
+    assert got.pos.shape == want.pos.shape
+    np.testing.assert_array_equal(got.alive.numpy(), want.alive.numpy())
+    np.testing.assert_array_equal(got.mode.numpy(), want.mode.numpy())
+    np.testing.assert_array_equal(got.pos.numpy(), want.pos.numpy())
+    if "--checkpoint-dir" in flag:
+        assert "ckpt_00000060.npz" in os.listdir("ck")
+    if "--profile" in flag:
+        with open(os.path.join("prof", "trace.json")) as f:
+            assert json.load(f)["traceEvents"]
 
 
 def test_cli_accepts_comm(tmp_path, monkeypatch):
