@@ -16,6 +16,13 @@ kernels uncached, :func:`section_rows` splits a section into its rows for
 the plain versions and :func:`as_column` views the leaves as ``(B, 1)``
 against the step's ``(B, N)`` planes.
 
+Calibration (``api/calibrate.py``) puts 0-d float32 tensors that carry a
+gradient into the leaves it fits.  :func:`param_batch` takes such a leaf
+for one value, not a sweep's; the plain versions compute with it, and the
+builders of the kernels' parameters (:func:`moussaid_vector` and its kin,
+:func:`law_rows`, :func:`exp_rows`, :func:`section_rows`) refuse it with
+``ValueError``, since the kernels define no gradient.
+
 The TOML surface, the config-key quirks and ``strict_parity`` are those of
 the JAX package (see its module docstring): the keys as written in the
 config are honoured, falling back to the reference's read-keys and then to
@@ -253,6 +260,23 @@ class SfmParams:
         )
 
 
+def refuse_grad(where: str, *leaves) -> None:
+    """Raise ``ValueError`` when a parameter section or leaf among
+    ``leaves`` carries a gradient: ``where`` would turn it into a detached
+    number for a kernel, and the kernels define no gradient."""
+    for leaf in leaves:
+        named = ([(f"{type(leaf).__name__}.{f.name}", getattr(leaf, f.name))
+                  for f in dataclasses.fields(leaf)]
+                 if dataclasses.is_dataclass(leaf) else [("a leaf", leaf)])
+        for name, v in named:
+            if isinstance(v, torch.Tensor) and v.requires_grad:
+                raise ValueError(
+                    f"{where}: the parameter {name} requires grad, and the "
+                    f"CUDA kernels define no gradient; run the plain "
+                    f"versions (StepConfig(plain_pair_force=True, "
+                    f"plain_env_force=True), as api/calibrate.py does)")
+
+
 @functools.lru_cache(maxsize=32)
 def moussaid_vector(p: MoussaidParams, device: torch.device | str) -> torch.Tensor:
     """``(lambda_, A, gamma, n, n_prime, epsilon)`` as a float32 ``(6,)``
@@ -260,7 +284,9 @@ def moussaid_vector(p: MoussaidParams, device: torch.device | str) -> torch.Tens
     package's ops/pallas_forces.py.  The pair-force kernels read their
     parameters through this tensor's device pointer, so a step never copies
     them from the host.  Cached per (params, device): callers must not
-    write to the returned tensor."""
+    write to the returned tensor.  A leaf that requires grad raises
+    (:func:`refuse_grad`)."""
+    refuse_grad("moussaid_vector", p)
     return torch.tensor([p.lambda_, p.A, p.gamma, p.n, p.n_prime, p.epsilon],
                         dtype=torch.float32, device=device)
 
@@ -270,7 +296,9 @@ def powerlaw_vector(p: PowerLawParams, device: torch.device | str
                     ) -> torch.Tensor:
     """``(k, tau0, tau_max, tau_min)`` as a float32 ``(4,)`` tensor on
     ``device``: the power-law kernels' parameters (the JAX package's
-    ``_params_vec(p, "powerlaw")``).  Cached as :func:`moussaid_vector`."""
+    ``_params_vec(p, "powerlaw")``).  Cached and guarded as
+    :func:`moussaid_vector`."""
+    refuse_grad("powerlaw_vector", p)
     return torch.tensor([p.k, p.tau0, p.tau_max, p.tau_min],
                         dtype=torch.float32, device=device)
 
@@ -289,7 +317,9 @@ def helbing_vector(p: PedRepulsiveParams, device: torch.device | str
     """``(v0, sigma, cos_phi, fov_factor, step_width, b_min)`` as a float32
     ``(6,)`` tensor on ``device``: the Helbing kernels' parameters (the JAX
     package's ``_params_vec(p, "helbing")``; ``cos_phi`` from
-    :func:`helbing_cos_phi`).  Cached as :func:`moussaid_vector`."""
+    :func:`helbing_cos_phi`).  Cached and guarded as
+    :func:`moussaid_vector`."""
+    refuse_grad("helbing_vector", p)
     return torch.tensor([p.v0, p.sigma, helbing_cos_phi(p), p.fov_factor,
                          p.step_width, p.b_min],
                         dtype=torch.float32, device=device)
@@ -303,8 +333,9 @@ SECTIONS = ("acceleration", "pedestrian", "border", "static_obstacle",
 
 def param_batch(params: SfmParams) -> int | None:
     """B of swept params (``(B,)`` tensor leaves), None when every leaf is
-    a number.  The step asks several times a tick, so the answer for the
-    last params object is kept (by identity: the dataclasses are frozen)."""
+    a number or a 0-d tensor (one value, as calibration fits it).  The
+    step asks several times a tick, so the answer for the last params
+    object is kept (by identity: the dataclasses are frozen)."""
     last, answer = _LAST_BATCH[0]   # one read: threads may share this
     if last is params:
         return answer
@@ -312,7 +343,7 @@ def param_batch(params: SfmParams) -> int | None:
     for leaf in (params.max_speed_factor,
                  *(getattr(getattr(params, s), f.name) for s in SECTIONS
                    for f in dataclasses.fields(getattr(params, s)))):
-        if isinstance(leaf, torch.Tensor):
+        if isinstance(leaf, torch.Tensor) and leaf.dim() == 1:
             answer = leaf.shape[0]
             break
     _LAST_BATCH[0] = (params, answer)
@@ -354,7 +385,8 @@ def section_rows(section, batch: int) -> list:
     """The ``batch`` rows of a parameter section as sections of Python
     numbers (each tensor leaf read once, as float32 values): the per-row
     parameters of the plain versions.  An unbatched section is every
-    row's."""
+    row's.  A leaf that requires grad raises (:func:`refuse_grad`)."""
+    refuse_grad("section_rows", section)
     cols = {f.name: getattr(section, f.name).tolist()
             for f in dataclasses.fields(section)
             if isinstance(getattr(section, f.name), torch.Tensor)}
@@ -385,7 +417,8 @@ def law_rows(law: str, p, batch: int, device) -> torch.Tensor:
     ``law`` (``"moussaid"``, ``"powerlaw"``, ``"helbing"``; the vectors'
     order): row b holds row b's parameters.  Unbatched params expand their
     cached vector with stride 0 (no copy); swept params are stacked here,
-    uncached."""
+    uncached.  A leaf that requires grad raises (:func:`refuse_grad`)."""
+    refuse_grad("law_rows", p)
     fns = {"moussaid": moussaid_vector, "powerlaw": powerlaw_vector,
            "helbing": helbing_vector}
     if not any(isinstance(getattr(p, f.name), torch.Tensor)
@@ -413,7 +446,8 @@ def _pair_vector(a: float, b: float, device) -> torch.Tensor:
 def exp_rows(a, b, batch: int, device) -> torch.Tensor:
     """``(batch, 2)`` float32 ``(a, b)`` of the batched exp kernel: numbers
     expand one cached vector with stride 0, ``(batch,)`` tensors are
-    stacked."""
+    stacked.  A leaf that requires grad raises (:func:`refuse_grad`)."""
+    refuse_grad("exp_rows", a, b)
     if not (isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor)):
         return _pair_vector(float(a), float(b), device).expand(batch, 2)
     return _leaf_rows((a, b), batch, device)

@@ -93,6 +93,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..env.pointsets import (ChunkedPointSet, SegmentGeomSet,
                              SegmentPointSet, StaticFeatures, analytic_split,
@@ -218,6 +219,12 @@ class StepConfig:
     #: a card (no sort, no kernel): the reference the kernel path is
     #: compared with, never the default
     plain_env_force: bool = False
+    #: under ``plain_env_force``, keep ``env_chunked``'s chunk scan on its
+    #: kernel (``chunk_argmin`` on a card): the scan yields each segment's
+    #: closest point's index and ``has_point``, which carry no gradient, so
+    #: calibration (``api/calibrate.py``) runs it as the JAX package's
+    #: calibration runs ``_cp_kernel`` on a TPU, the forces plain
+    kernel_chunk_scan: bool = False
     #: the compacted environment kernels: each term whose job passes the
     #: JAX package's static gate walks a per-step survivor table of its
     #: groups of sections (ops/env_grid.py); exact either way.  The urban
@@ -397,8 +404,9 @@ def force_terms(state: PedState, scene: Scene, params: SfmParams,
         # them all (it changes no result)
         order = morton_order(state.pos_x, state.pos_y, state.alive, "hilbert")
     if cfg.env_chunked:
+        plain_scan = cfg.plain_env_force and not cfg.kernel_chunk_scan
         env = forces.chunked_environment_terms(state, scene, params, veh_snap,
-                                               plain=cfg.plain_env_force)
+                                               plain=plain_scan)
     elif cfg.plain_env_force:
         env = plain_environment_terms(state, scene, params, veh_snap,
                                       analytic=cfg.env_analytic)
@@ -697,7 +705,8 @@ def rollout(state: PedState, scene: Scene, params: SfmParams, cfg: StepConfig,
             num_steps: int, record: bool = True, start_step: int = 0,
             record_stride: int = 1,
             autopilot_state: AutopilotState | None = None,
-            return_autopilot_state: bool = False, axis=None):
+            return_autopilot_state: bool = False, axis=None,
+            remat: bool = False, grad_horizon: int | None = None):
     """Run ``num_steps`` ticks from ``start_step``.
 
     Returns ``(final_state, StepRecord)`` with ``(T, N)`` planes
@@ -719,8 +728,22 @@ def rollout(state: PedState, scene: Scene, params: SfmParams, cfg: StepConfig,
     ``scene.spawn`` are this shard's slots of an agent axis
     (:func:`..parallel.sharding.make_sharded_rollout` calls this for every
     shard).
+
+    Reverse-mode AD through the rollout (``api/calibrate.py``; the JAX
+    signature's two knobs, with its semantics): ``remat=True`` runs each
+    tick under ``torch.utils.checkpoint.checkpoint`` (non-reentrant), so
+    the backward pass keeps only the per-tick carries (the state, and the
+    fleet's state with a fleet) and recomputes each tick's pairwise
+    intermediates.  ``grad_horizon=K`` detaches every tensor of the carry
+    whenever the step index is a multiple of K: the forward pass is
+    bitwise unchanged, and each gradient reaches back at most K ticks
+    (truncated BPTT, for stiff laws whose full-rollout gradients overflow
+    float32).  ``K <= 0`` raises ``ValueError``.  Forward-only rollouts
+    leave both off.
     """
     check_supported(scene, params, cfg, state, axis)
+    if grad_horizon is not None and grad_horizon <= 0:
+        raise ValueError(f"grad_horizon must be positive, got {grad_horizon}")
     scene = prepare_scene(scene, analytic=cfg.env_analytic,
                           orca=params.enable_orca, chunked=cfg.env_chunked)
     fleet = scene.autopilot
@@ -771,14 +794,26 @@ def rollout(state: PedState, scene: Scene, params: SfmParams, cfg: StepConfig,
             ap_recs = AutopilotRecord(
                 pos=fleet_buf((v, 2)), heading=fleet_buf((v,)),
                 speed=fleet_buf((v,)), active=fleet_buf((v,), torch.bool))
-    for k in range(num_steps):
-        t_idx = start_step + k
+
+    def tick(state, ap, t_idx):
         if fleet is None:
             state, rec = simulation_step(state, scene, params, cfg, t_idx,
                                          axis=axis)
+            return state, None, rec
+        return fleet_tick(state, ap, scene, params, cfg, t_idx, axis)
+
+    for k in range(num_steps):
+        t_idx = start_step + k
+        if grad_horizon is not None and t_idx % grad_horizon == 0:
+            state = detach_carry(state)
+            ap = None if ap is None else detach_carry(ap)
+        if remat:
+            # the tick draws no random numbers: no RNG state to replay
+            state, ap, rec = checkpoint(tick, state, ap, t_idx,
+                                        use_reentrant=False,
+                                        preserve_rng_state=False)
         else:
-            state, ap, rec = fleet_tick(state, ap, scene, params, cfg, t_idx,
-                                        axis)
+            state, ap, rec = tick(state, ap, t_idx)
         if record and k % record_stride == 0:
             for b, val in zip(recs, rec):
                 (b[k // record_stride] if batch is None
@@ -794,6 +829,15 @@ def rollout(state: PedState, scene: Scene, params: SfmParams, cfg: StepConfig,
         return final, None
     return final, (recs.assemble() if fleet is None
                    else (recs.assemble(), ap_recs))
+
+
+def detach_carry(carry):
+    """A carry dataclass (``PedState``, ``AutopilotState``) with every
+    tensor detached from the autograd graph (the same values)."""
+    return dataclasses.replace(carry, **{
+        f.name: getattr(carry, f.name).detach()
+        for f in dataclasses.fields(carry)
+        if isinstance(getattr(carry, f.name), torch.Tensor)})
 
 
 def make_rollout_fn(scene: Scene, params: SfmParams, cfg: StepConfig,

@@ -57,7 +57,7 @@ from ..models import modes
 from ..models.params import (AccelerationParams, BorderParams, MoussaidParams,
                              PedRepulsiveParams, PowerLawParams,
                              SpaceRepulsiveParams, as_column,
-                             helbing_cos_phi, section_rows)
+                             helbing_cos_phi, refuse_grad, section_rows)
 
 def acceleration_force_xy(pos_x, pos_y, vel_x, vel_y, wp_x, wp_y,
                           applied_target, p: AccelerationParams):
@@ -205,6 +205,15 @@ def pedestrian_force(pos_x, pos_y, vel_x, vel_y, radius, alive,
                      (cx, cy, calive), row_offset, col_offset, mirror)
 
 
+def _f32_ratio(a, b):
+    """``a / b`` rounded to float32, as the kernels read such a
+    coefficient: a number, or a tensor that carries the gradient where
+    ``a`` or ``b`` is one (calibration's leaves)."""
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        return a / b
+    return float(np.float32(a) / np.float32(b))
+
+
 def _powerlaw_pair_force(dx, dy, rad_sum, dvx, dvy, p: PowerLawParams,
                          pair_ok):
     """Karamouzas et al. (2014) time-to-collision pair force (the JAX
@@ -231,8 +240,8 @@ def _powerlaw_pair_force(dx, dy, rad_sum, dvx, dvy, p: PowerLawParams,
     s = torch.sqrt(disc_safe)
     tau = (-b - s) / a_safe
     ok = ok & (tau > 0.0) & (tau < p.tau_max)
-    tau = torch.clamp(tau, p.tau_min, p.tau_max)
-    inv_tau0 = float(np.float32(1.0) / np.float32(p.tau0))
+    tau = vecmath.minimum(vecmath.maximum(tau, p.tau_min), p.tau_max)
+    inv_tau0 = _f32_ratio(1.0, p.tau0)
     mag = (p.k * torch.exp(-tau / p.tau0)
            * (2.0 / tau + inv_tau0) / (tau * tau))
     scale = mag / (a_safe * s)
@@ -285,14 +294,14 @@ def _helbing_pair_force(dx, dy, yx, yy, ex, ey, p: PedRepulsiveParams,
     nm = torch.sqrt(mx * mx + my * my)
     s = nd + nm
     y2 = yx * yx + yy * yy
-    b2 = torch.clamp(s * s - y2, min=0.0) * 0.25
+    b2 = vecmath.maximum(s * s - y2, 0.0) * 0.25
     b = torch.sqrt(b2)
     ok = pair_ok & (b > 0.0) & (nd > 0.0) & (nm > 0.0)
     nd_s = torch.where(nd == 0.0, 1.0, nd)
     nm_s = torch.where(nm == 0.0, 1.0, nm)
-    b_s = torch.clamp(torch.where(ok, b, 1.0), min=p.b_min)
+    b_s = vecmath.maximum(torch.where(ok, b, 1.0), p.b_min)
     g = s / (4.0 * b_s)
-    coef = float(np.float32(p.v0) / np.float32(p.sigma))
+    coef = _f32_ratio(p.v0, p.sigma)
     e = coef * torch.exp(-b_s / p.sigma)
     fx = e * (g * (dx / nd_s + mx / nm_s))
     fy = e * (g * (dy / nd_s + my / nm_s))
@@ -456,7 +465,9 @@ def env_moussaid_force(pos_x, pos_y, vel_x, vel_y, radius, alive, seg,
 
 def number_rows(x, batch: int) -> list:
     """Row b's value of a parameter: a ``(B,)`` tensor's entries (read once,
-    as float32 values), or a number shared by every row."""
+    as float32 values), or a number shared by every row.  A leaf that
+    requires grad raises (``models/params.refuse_grad``)."""
+    refuse_grad("number_rows", x)
     return x.tolist() if isinstance(x, torch.Tensor) else [x] * batch
 
 

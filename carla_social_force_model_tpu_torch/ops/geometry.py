@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ..env.pointsets import PAD_COORD, ChunkedPointSet
+from . import vecmath
 
 #: squared distances at or above this are padding (PAD_COORD = 1e8 puts a
 #: padded slot ~1e16 away), not a closest point
@@ -56,7 +57,8 @@ def closest_on_segments(pos_x, pos_y, ax, ay, ux, uy, il2):
     (``u = il2 = 0``) to itself."""
     dxa = pos_x - ax
     dya = pos_y - ay
-    t = torch.clamp((dxa * ux + dya * uy) * il2, 0.0, 1.0)
+    t = vecmath.minimum(vecmath.maximum((dxa * ux + dya * uy) * il2, 0.0),
+                        1.0)
     cx = ax + t * ux
     cy = ay + t * uy
     ddx = pos_x - cx
@@ -76,8 +78,12 @@ def reach_rows(neigh_dist):
     :func:`squared_reach` of a number, or of a sweep's ``(B,)`` tensor each
     row's float32 square as a ``(B, 1)`` column (against ``(..., B, N)``
     planes), the value the kernels read from their ``nd2`` rows and the
-    JAX package's vmapped ``jnp.float32(neigh_dist) ** 2`` gives."""
+    JAX package's vmapped ``jnp.float32(neigh_dist) ** 2`` gives.  A 0-d
+    tensor is one value: a mask's bound, through which no gradient
+    passes (as in the JAX package)."""
     if isinstance(neigh_dist, torch.Tensor):
+        if neigh_dist.dim() == 0:
+            return squared_reach(float(neigh_dist))
         nd = neigh_dist.to(torch.float32)
         return (nd * nd)[:, None]
     return squared_reach(neigh_dist)

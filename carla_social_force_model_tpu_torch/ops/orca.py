@@ -51,6 +51,7 @@ from itertools import combinations
 
 import torch
 
+from . import vecmath
 from .spatial import morton_order
 
 #: feasibility slack [m/s]: half-plane clearances down to -_TOL count as
@@ -110,7 +111,7 @@ def orca_halfplane(px, py, rvx, rvy, r, tau, dt: float):
     # under the root and in the division
     safe_d2 = torch.where(colliding, 1.0, d2)
     leg = torch.sqrt(torch.where(colliding, 1.0,
-                                 torch.clamp(d2 - r2, min=0.0)))
+                                 vecmath.maximum(d2 - r2, 0.0)))
     left_side = (px * wy - py * wx) > 0.0
     ldx = torch.where(left_side, px * leg - py * r, px * leg + py * r) \
         / safe_d2
@@ -208,8 +209,8 @@ def _lp2_rows(pref_x, pref_y, ptx, pty, nx, ny, valid, vmax):
 
     # 1. the preferred velocity, clipped into the speed disc
     p2 = pref_x * pref_x + pref_y * pref_y
-    scale = torch.clamp(vmax * torch.rsqrt(torch.where(p2 == 0, 1.0, p2)),
-                        max=1.0)
+    scale = vecmath.minimum(
+        vmax * torch.rsqrt(torch.where(p2 == 0, 1.0, p2)), 1.0)
     add((pref_x * scale)[:, None], (pref_y * scale)[:, None],
         torch.ones_like(valid[:, :1]))
 
@@ -225,7 +226,7 @@ def _lp2_rows(pref_x, pref_y, ptx, pty, nx, ny, valid, vmax):
     pd = ptx * dx + pty * dy
     disc = pd * pd - (ptx * ptx + pty * pty) + vmax2
     ok_c = valid & (disc >= 0.0)
-    root = torch.sqrt(torch.where(ok_c, torch.clamp(disc, min=0.0), 1.0))
+    root = torch.sqrt(torch.where(ok_c, vecmath.maximum(disc, 0.0), 1.0))
     for sgn in (-1.0, 1.0):
         t = -pd + sgn * root
         add(ptx + t * dx, pty + t * dy, ok_c)
@@ -282,8 +283,8 @@ def _lp3_rows(ptx, pty, nx, ny, valid, vmax):
     def add(cx, cy, ok):
         # clamp into the disc (tie vertices can fall outside)
         c2 = cx * cx + cy * cy
-        sc = torch.clamp(vmax_c * torch.rsqrt(torch.where(c2 == 0, 1.0, c2)),
-                         max=1.0)
+        sc = vecmath.minimum(
+            vmax_c * torch.rsqrt(torch.where(c2 == 0, 1.0, c2)), 1.0)
         cands_x.append(torch.where(ok, cx * sc, 0.0))
         cands_y.append(torch.where(ok, cy * sc, 0.0))
         cands_ok.append(ok)
@@ -306,7 +307,7 @@ def _lp3_rows(ptx, pty, nx, ny, valid, vmax):
         ddx, ddy = -ty, tx
         h2 = (vmax * vmax)[:, None] - (px0 * px0 + py0 * py0)
         ok_c = ok_t & (h2 >= 0.0)
-        h = (torch.sqrt(torch.where(ok_c, torch.clamp(h2, min=0.0), 1.0))
+        h = (torch.sqrt(torch.where(ok_c, vecmath.maximum(h2, 0.0), 1.0))
              * torch.rsqrt(safe_t2))
         for sgn in (-1.0, 1.0):
             add(px0 + sgn * h * ddx, py0 + sgn * h * ddy, ok_c)
@@ -545,9 +546,11 @@ def orca_velocities(pos, vel, radius, alive, pref, vmax, params, dt: float,
     exm = (static_exempt if static_exempt is not None
            else torch.zeros_like(alive))
     # a sweep's leaves as columns against the (B, N, k) and (B, k, N)
-    # planes; the wall feed takes the (B,) neighbour distance itself
+    # planes; the wall feed takes the (B,) neighbour distance itself (a
+    # 0-d leaf is one value, as calibration fits it)
     tau, nd, tau_static = (
-        v[:, None, None] if isinstance(v, torch.Tensor) else v
+        v[:, None, None] if isinstance(v, torch.Tensor) and v.dim() == 1
+        else v
         for v in (params.tau, params.neighbor_dist, params.tau_static))
     if axis is not None:
         if order is not None:

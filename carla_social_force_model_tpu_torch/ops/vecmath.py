@@ -6,6 +6,8 @@ to the squared norm before the square root, exactly as in the JAX package
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -37,13 +39,34 @@ def normalize_xy(x, y):
     return x / inv, y / inv, torch.sqrt(n2)
 
 
+@functools.lru_cache(maxsize=256)
+def _scalar(v: float, dtype: torch.dtype) -> torch.Tensor:
+    """A number as a 0-d CPU tensor, made once per value and dtype."""
+    return torch.tensor(v, dtype=dtype)
+
+
+def minimum(x, v):
+    """``jnp.minimum(x, v)`` for a tensor ``x`` and a number or tensor
+    ``v``: equal to ``torch.clamp(x, max=v)``, but a tie passes half the
+    gradient to each side, as JAX's does (``torch.clamp`` passes all of it
+    to ``x``).  A number goes in as a CPU scalar (no copy to the card)."""
+    return torch.minimum(x, v if isinstance(v, torch.Tensor)
+                         else _scalar(float(v), x.dtype))
+
+
+def maximum(x, v):
+    """``jnp.maximum(x, v)``, as :func:`minimum`."""
+    return torch.maximum(x, v if isinstance(v, torch.Tensor)
+                         else _scalar(float(v), x.dtype))
+
+
 def cap_velocity_xy(vx, vy, max_speed):
     """Scale planar velocities down so their speed does not exceed
     ``max_speed`` (reference stateutils.py:18-23; zero speeds pass
     through unchanged)."""
     s2 = vx * vx + vy * vy
     safe = torch.sqrt(torch.where(s2 == 0.0, 1.0, s2))
-    factor = torch.clamp(max_speed / safe, max=1.0)
+    factor = minimum(max_speed / safe, 1.0)
     return vx * factor, vy * factor
 
 

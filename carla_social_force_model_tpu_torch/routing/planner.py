@@ -25,12 +25,15 @@ class PedPathPlanner:
     carrying per-edge OpenDRIVE coordinates -- origin/destination snapping
     uses the reference's road/section/lane edge index
     (path_planner.py:119-143); without it, euclidean nearest node over the
-    subgraph (documented fallback for map-free graphs).
+    subgraph (documented fallback for map-free graphs).  ``use_native``:
+    the router's native core (:class:`.astar.AStarRouter`; the same
+    routes either way).
     """
 
-    def __init__(self, graph: NavGraph, waypoint_locator=None):
+    def __init__(self, graph: NavGraph, use_native: bool = True,
+                 waypoint_locator=None):
         self.graph = graph
-        self.router = AStarRouter(graph)
+        self.router = AStarRouter(graph, use_native=use_native)
         self.waypoint_locator = waypoint_locator
         # (u, v) -> edge type for crossing flags (undirected)
         self._edge_types = {}

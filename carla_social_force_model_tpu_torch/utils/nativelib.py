@@ -32,10 +32,14 @@ def load(source_name: str) -> ctypes.CDLL | None:
                 os.makedirs(os.path.dirname(out), exist_ok=True)
                 if (not os.path.exists(out)
                         or os.path.getmtime(out) < os.path.getmtime(src)):
+                    # build beside and rename: a process that loads the
+                    # library meanwhile never sees a half-written file
+                    tmp = f"{out}.{os.getpid()}.tmp"
                     subprocess.run(
                         ["g++", "-O3", "-std=c++17", "-shared", "-fPIC",
-                         src, "-o", out],
+                         src, "-o", tmp],
                         check=True, capture_output=True, timeout=120)
+                    os.replace(tmp, out)
                 lib = ctypes.CDLL(out)
             except (subprocess.SubprocessError, OSError) as exc:
                 log.warning("native %s unavailable (%s); using Python fallback",

@@ -85,7 +85,13 @@ the plain versions, the gap-acceptance scene with a scripted vehicle,
 ``tests/fake_carla.py``, the Town02 crowd's geometry with 1,008 walkers
 (ms per tick split into the world's host time, the runner's host time
 and the core's device time), and the CLI's checkpoints, ``--resume`` and
-``--profile``.  It counts
+``--profile``; then (phase 36) calibration (``api.calibrate``): the
+card's loss and gradients against the CPU's, no launch while calibrating
+but the chunk scan's (#11, the border case's), the recovery of ``pedestrian.A`` and
+``pedestrian.gamma`` on CUDA graphs, one loss and gradient of config #1
+at N = 1,000 with remat on and off (peak memory and seconds), and the
+native A* core against the Python search on the Town02 crowd's routes
+(both set-up times).  It counts
 the kernel launches of each path, and checks every step of short rollouts
 (50 steps; the family and batched paths 25, phases 31 and 32 10) through
 the kernels against the same
@@ -1690,15 +1696,20 @@ def read_bytes(path):
         return f.read()
 
 
-def town_crowd(dev):
-    """The Town02 crowd (phases 21 and 23): configs/scenarios/
+def town_crowd(dev, use_native=None):
+    """The Town02 crowd (phases 21, 23 and 36): configs/scenarios/
     routed_town.toml with the full Town02 sidewalk capture (38 sections,
     15,966 points) and ``walker.random_pedestrians = TOWN_N`` (random
     nav-graph origins, A* routes), built through
     ``api.simulation.Simulation.from_config`` (``build_scenario``) for
-    TOWN_STEPS steps on the scenarios' default engine.  Returns ``(sim,
-    set-up seconds)``."""
+    TOWN_STEPS steps on the scenarios' default engine.  ``use_native``:
+    route with a ``PedPathPlanner(use_native=...)`` made here (its graph
+    loaded inside the timed set-up), else the one ``build_scenario`` makes.
+    Returns ``(sim, set-up seconds)``."""
     from carla_social_force_model_tpu_torch.api.simulation import Simulation
+    from carla_social_force_model_tpu_torch.routing.graph import NavGraph
+    from carla_social_force_model_tpu_torch.routing.planner import (
+        PedPathPlanner)
     from carla_social_force_model_tpu_torch.utils.config import load_config
     data = os.path.join(ROOT, "configs", "data")
     cfg = load_config(os.path.join(ROOT, "configs", "scenarios",
@@ -1708,9 +1719,14 @@ def town_crowd(dev):
         "sidewalk_borders_npz": os.path.join(data, "town2_sidewalks_full.npz")}
     cfg["walker"]["random_pedestrians"] = TOWN_N
     t0 = time.perf_counter()
+    kw = {}
+    if use_native is not None:
+        kw["planner"] = PedPathPlanner(
+            NavGraph.load_npz(cfg["map"]["nav_graph_npz"]),
+            use_native=use_native)
     sim = Simulation.from_config(cfg, os.path.join(ROOT, "configs",
                                                    "sfm.toml"),
-                                 num_steps=TOWN_STEPS, device=dev)
+                                 num_steps=TOWN_STEPS, device=dev, **kw)
     return sim, time.perf_counter() - t0
 
 
@@ -5093,6 +5109,213 @@ def bridge_phases(dev, card):
     shutil.rmtree(work, ignore_errors=True)
 
 
+#: phase 36 (calibration and the native A* core): (a) the card's loss and
+#: gradients against the CPU's plain path, each case (label, N, steps,
+#: bundle switches, theta in parameter space); (c) the A/gamma recovery's
+#: crowd, ticks, iterations and start; (d) config #1's crowd and ticks for
+#: remat on and off, and theta's offset from the truth (log space)
+CALIB_CASES = (
+    ("DEFAULT_FIT + acceleration.tau", 24, 40, {},
+     {"pedestrian.A": 3.0, "pedestrian.gamma": 0.45,
+      "pedestrian.lambda_": 2.5, "acceleration.tau": 0.6}),
+    ("border.a/border.b", 16, 40, {"with_borders": True},
+     {"border.a": 2.0, "border.b": 0.15}))
+CALIB_LOSS_RTOL = 1e-5
+CALIB_GRAD_RTOL = 1e-4
+RECOVER_N = 24
+RECOVER_STEPS = 80
+RECOVER_ITERS = 150
+RECOVER_START = {"pedestrian.A": 2.0, "pedestrian.gamma": 0.55}
+REMAT_N = 1_000
+REMAT_STEPS = 80
+REMAT_OFFSET = 0.2
+#: steps of the kernel-path rollout with the fitted params
+CALIB_KERNEL_STEPS = 10
+
+
+def calibration_phases(dev, card, zero):
+    """Phase 36: calibration (item 21) and the native A* core (item 16).
+    (a) ``make_loss_fn``'s loss and gradients on the card against the CPU's
+    plain path at the same theta, for each CALIB_CASES case; (b) during
+    (a)'s card evaluations and (c)'s fit no launch of a kernel whose output
+    a gradient passes through (calibration runs their plain versions, as
+    the JAX package's drops its fused kernels), the chunk scan #11 once a
+    tick of the border case (as the JAX package's ``_cp_kernel`` on a
+    TPU), then a rollout with the fitted params on the kernel path
+    launches #1; (c) ``pedestrian.A`` and ``pedestrian.gamma`` recovered
+    on the card from RECOVER_START (on CUDA graphs, which ``fit_params``
+    takes for this loss), seconds per iteration beside one eager loss and
+    gradient; (d) config #1 at REMAT_N x
+    REMAT_STEPS, one loss and gradient with ``remat`` on and off: equal,
+    and each one's peak device memory and seconds; (e) ``AStarRouter`` is
+    native on this machine, and the Town02 crowd's routes are equal with
+    the native core and the Python search, each one's set-up timed."""
+    import numpy as np
+    import torch
+    from carla_social_force_model_tpu_torch.api import calibrate as cal
+    from carla_social_force_model_tpu_torch.api.synthetic import (
+        benchmark_bundle)
+    from carla_social_force_model_tpu_torch.models.stepper import (
+        make_rollout_fn)
+    from carla_social_force_model_tpu_torch.routing.astar import AStarRouter
+    from carla_social_force_model_tpu_torch.routing.graph import NavGraph
+    cpu = torch.device("cpu")
+
+    def log_theta(values, device):
+        return {k: torch.log(torch.tensor(v, dtype=torch.float32,
+                                          device=device))
+                for k, v in values.items()}
+
+    def observed_of(n, steps, kw):
+        """The CPU plain rollout's record at the true parameters, the
+        observation both devices' losses read."""
+        scene, params, cfg, state = benchmark_bundle(n, extent=8.0,
+                                                     device=cpu, **kw)
+        _, rec = make_rollout_fn(scene, params, cfg, steps)(state)
+        return rec
+
+    lap("phase 36")
+    # -- (a) the card's loss and gradients against the CPU's ----------------
+    for label, n, steps, kw, values in CALIB_CASES:
+        observed = observed_of(n, steps, kw)
+        out = {}
+        for where in (cpu, dev):
+            scene, params, cfg, state = benchmark_bundle(
+                n, extent=8.0, device=where, **kw)
+            # remat off: it changes no value ((d) holds it to that)
+            loss_fn = cal.make_loss_fn(state, scene, params, cfg, observed,
+                                       steps, fit=tuple(values), remat=False)
+            reset_counts()
+            t0 = time.perf_counter()
+            loss, grads = cal.value_and_grad(loss_fn,
+                                             log_theta(values, where))
+            out[where.type] = (float(loss), {k: float(g)
+                                             for k, g in grads.items()},
+                               time.perf_counter() - t0)
+        # (b): the forward pass scans the borders on #11 once a tick; the
+        # backward pass launches nothing (remat off)
+        expect_counts(f"phase 36 (b) {label}, a loss and gradient on the "
+                      f"card", zero,
+                      **({"chunk_argmin": steps} if kw.get("with_borders")
+                         else {}))
+        (lc, gc, tc), (ld, gd, td) = out["cpu"], out["cuda"]
+        rel = {k: abs(gd[k] - gc[k]) / abs(gc[k]) for k in gc}
+        say(f"phase 36 (a) {label}, N={n} x {steps}: loss card {ld!r} cpu "
+            f"{lc!r} (rel {abs(ld - lc) / lc:.2e}); gradient rel "
+            + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+            + f"; loss and gradient {td:.3f} s card, {tc:.3f} s cpu ({card})")
+        if not (abs(ld - lc) <= CALIB_LOSS_RTOL * abs(lc)
+                and all(v <= CALIB_GRAD_RTOL for v in rel.values())):
+            fail(f"phase 36 (a) {label}: the card's loss {ld!r} or gradients "
+                 f"{gd} differ from the CPU's {lc!r}, {gc}")
+
+
+    # -- (c) A and gamma recovered on the card ------------------------------
+    # the observation: a rollout recorded on the card's kernel path
+    scene, params, cfg, state = benchmark_bundle(RECOVER_N, extent=8.0,
+                                                 device=dev)
+    _, observed = make_rollout_fn(scene, params, cfg, RECOVER_STEPS)(state)
+    start = cal.replace_params(params, RECOVER_START)
+    reset_counts()
+    # one eager loss and gradient, then the fit (on CUDA graphs)
+    if not cal.graph_capturable(state, start):
+        fail("phase 36 (c): fit_params would not capture the Moussaid "
+             "loss as CUDA graphs")
+    loss_fn = cal.make_loss_fn(state, scene, start, cfg, observed,
+                               RECOVER_STEPS, fit=tuple(RECOVER_START),
+                               remat=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cal.value_and_grad(loss_fn, log_theta(RECOVER_START, dev))
+    torch.cuda.synchronize()
+    eager = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    result = cal.fit_params(state, scene, start, cfg, observed,
+                            RECOVER_STEPS, fit=tuple(RECOVER_START),
+                            iters=RECOVER_ITERS, learning_rate=0.05,
+                            remat=False)
+    torch.cuda.synchronize()
+    per_iter = (time.perf_counter() - t0) / RECOVER_ITERS
+    counts = read_counts()
+    a, g = (result.fitted[k] for k in RECOVER_START)
+    say(f"phase 36 (c) recovery of A, gamma from {RECOVER_START} at N="
+        f"{RECOVER_N} x {RECOVER_STEPS}, {RECOVER_ITERS} iterations: A "
+        f"{a:.6f}, gamma {g:.6f}, loss {result.initial_loss:.6e} -> "
+        f"{result.final_loss:.6e}; {per_iter:.4f} s per iteration on CUDA "
+        f"graphs, capture included (an eager loss and gradient {eager:.4f} "
+        f"s; remat off; {card})")
+    if not (result.final_loss < 1e-2 * result.initial_loss
+            and abs(a - 4.5) / 4.5 < 0.15 and abs(g - 0.35) / 0.35 < 0.2):
+        fail(f"phase 36 (c): the fit did not recover A = 4.5, gamma = 0.35: "
+             f"{result.fitted}, loss {result.initial_loss} -> "
+             f"{result.final_loss}")
+
+    # -- (b) no kernel during the fit; the fitted params on the kernels ----
+    if any(counts.values()):
+        fail(f"phase 36 (b): fit_params launched kernels: {counts}")
+    say("phase 36 (b) (c)'s fit launched no kernel (no borders: the chunk "
+        "scan has nothing to scan)")
+    reset_counts()
+    _, rec = make_rollout_fn(scene, result.params, cfg,
+                             CALIB_KERNEL_STEPS)(state)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(rec.pos).all()):
+        fail("phase 36 (b): the fitted params' kernel rollout is not finite")
+    expect_counts(f"phase 36 (b) the fitted params on the kernel path, "
+                  f"{CALIB_KERNEL_STEPS} steps", zero,
+                  pair_force_sym=CALIB_KERNEL_STEPS)
+
+    # -- (d) remat at config #1's N = 1,000 ---------------------------------
+    scene, params, cfg, state = benchmark_bundle(REMAT_N, device=dev)
+    _, observed = make_rollout_fn(scene, params, cfg, REMAT_STEPS)(state)
+    theta = {k: torch.log(torch.tensor(cal.get_param(params, k),
+                                       dtype=torch.float32, device=dev))
+             + REMAT_OFFSET for k in cal.DEFAULT_FIT}
+    got = {}
+    for remat in (True, False):
+        loss_fn = cal.make_loss_fn(state, scene, params, cfg, observed,
+                                   REMAT_STEPS, remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        loss, grads = cal.value_and_grad(loss_fn, theta)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        got[remat] = (float(loss), {k: float(v) for k, v in grads.items()})
+        say(f"phase 36 (d) config #1 N={REMAT_N} x {REMAT_STEPS}, remat "
+            f"{'on' if remat else 'off'}: loss {float(loss)!r}, peak memory "
+            f"{peak / 2**20:.1f} MiB above the {base / 2**20:.1f} MiB held, "
+            f"{secs:.3f} s ({card})")
+    (lr, gr), (ln, gn) = got[True], got[False]
+    if not (abs(lr - ln) <= 1e-6 * abs(ln)
+            and all(abs(gr[k] - gn[k]) <= 1e-4 * abs(gn[k]) for k in gn)):
+        fail(f"phase 36 (d): remat changed the loss or the gradient: "
+             f"{got}")
+
+    # -- (e) the native A* core and the Town02 crowd's routes ---------------
+    graph = NavGraph.load_npz(os.path.join(ROOT, "configs", "data",
+                                           "town2_navgraph.npz"))
+    if not AStarRouter(graph).native:
+        fail("phase 36 (e): the native A* core did not build here (g++)")
+    built = {}
+    for native in (True, False):
+        sim, secs = town_crowd(dev, use_native=native)
+        built[native] = (sim.bundle.scene.spawn, secs)
+    (sn, tn), (sp, tp) = built[True], built[False]
+    same = all(torch.equal(getattr(sn.routes, f), getattr(sp.routes, f))
+               for f in ("wp_x", "wp_y", "crossing", "count")) and all(
+        torch.equal(getattr(sn, f), getattr(sp, f))
+        for f in ("pos_x", "pos_y", "fwp_x", "fwp_y"))
+    say(f"phase 36 (e) the Town02 crowd's {sn.capacity} routes: native A* "
+        f"set-up {tn:.3f} s, Python search {tp:.3f} s, routes "
+        f"{'equal' if same else 'DIFFER'} ({card})")
+    if not same:
+        fail("phase 36 (e): the native A* core's routes differ from the "
+             "Python search's")
+
+
 def main() -> None:
     try:
         import torch
@@ -5642,6 +5865,8 @@ def main() -> None:
                                       profile_steps, urban))
     # -- phase 35: the CARLA bridge, checkpoints and the profiler -----------
     bridge_phases(dev, card)
+    # -- phase 36: calibration and the native A* core -----------------------
+    calibration_phases(dev, card, zero)
 
     lap("the kernels line")
     csrc = "carla_social_force_model_tpu_torch/csrc/"

@@ -2796,3 +2796,92 @@ def test_fleet_batch_steps_through_kernels_match_plain_steps(cuda_device,
                      "env_chunked": "chunk_argmin_percrowd"}.get(
                          case, "env_moussaid_compact_percrowd")
     assert launched.get(vehicles_form) == steps, launched
+
+
+# -- calibration on the card (api/calibrate.py) -------------------------------
+
+def _calibration_case(device, n=24, steps=40):
+    from carla_social_force_model_tpu_torch.api import calibrate as cal
+    scene, params, cfg, state = benchmark_bundle(n, extent=8.0, device=device)
+    _, observed = stepper.make_rollout_fn(scene, params, cfg, steps)(state)
+    start = cal.replace_params(params, {"pedestrian.A": 2.0,
+                                        "pedestrian.gamma": 0.55})
+    return cal, (state, scene, start, cfg, observed, steps)
+
+
+def test_calibration_on_the_card_equals_the_cpu_and_launches_nothing(
+        cuda_device):
+    """``make_loss_fn``'s loss and gradients on the card within rtol 1e-5
+    and 1e-4 of the CPU's (both the plain versions, from the CPU's
+    observation), and no kernel launch on the card."""
+    cal, args = _calibration_case("cpu")
+    observed = args[4]
+    theta = {"pedestrian.A": 1.1, "pedestrian.gamma": -1.0}
+    out = []
+    for device in ("cpu", cuda_device):
+        _, (state, scene, start, cfg, _, steps) = _calibration_case(device)
+        loss_fn = cal.make_loss_fn(state, scene, start, cfg, observed, steps,
+                                   fit=tuple(theta), remat=False)
+        for m in (cuda_forces, cuda_env):
+            m.reset_launch_counts()
+        out.append(cal.value_and_grad(loss_fn, {
+            k: torch.tensor(v, device=device) for k, v in theta.items()}))
+        assert not any(cuda_forces.LAUNCHES.values())
+        assert not any(cuda_env.LAUNCHES.values())
+    (lc, gc), (ld, gd) = out
+    np.testing.assert_allclose(float(ld), float(lc), rtol=1e-5)
+    for k in theta:
+        np.testing.assert_allclose(float(gd[k]), float(gc[k]), rtol=1e-4)
+
+
+def test_calibration_border_loss_scans_on_the_chunk_argmin_kernel(
+        cuda_device):
+    """The border case's loss and gradients on the card within rtol 1e-5
+    and 1e-4 of the CPU's: the chunk scan launches ``chunk_argmin`` once a
+    tick, and no other kernel launches."""
+    from carla_social_force_model_tpu_torch.api import calibrate as cal
+    from carla_social_force_model_tpu_torch.ops import statics
+    steps, theta = 20, {"border.a": 0.7, "border.b": -1.9}
+    out = []
+    for device in ("cpu", cuda_device):
+        scene, params, cfg, state = benchmark_bundle(
+            16, extent=8.0, with_borders=True, device=device)
+        if device == "cpu":
+            _, observed = stepper.make_rollout_fn(scene, params, cfg,
+                                                  steps)(state)
+        loss_fn = cal.make_loss_fn(state, scene, params, cfg, observed,
+                                   steps, fit=tuple(theta), remat=False)
+        for m in (cuda_forces, cuda_env, statics):
+            m.reset_launch_counts()
+        out.append(cal.value_and_grad(loss_fn, {
+            k: torch.tensor(v, device=device) for k, v in theta.items()}))
+        assert not any(cuda_forces.LAUNCHES.values())
+        assert not any(cuda_env.LAUNCHES.values())
+        scans = steps if device != "cpu" else 0
+        assert statics.LAUNCHES == dict(
+            dict.fromkeys(statics.LAUNCHES, 0), chunk_argmin=scans)
+    (lc, gc), (ld, gd) = out
+    np.testing.assert_allclose(float(ld), float(lc), rtol=1e-5)
+    for k in theta:
+        np.testing.assert_allclose(float(gd[k]), float(gc[k]), rtol=1e-4)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_cuda_graph_fit_equals_the_eager_fit(cuda_device, monkeypatch,
+                                             remat):
+    """``fit_params`` on a card replays the captured loss and gradient
+    (with and without remat's recomputation): the same losses and fitted
+    values as the eager fit.  ORCA's loss is not captured."""
+    cal, args = _calibration_case(cuda_device)
+    kw = dict(fit=("pedestrian.A", "pedestrian.gamma"), iters=4,
+              remat=remat)
+    assert cal.graph_capturable(args[0], args[2])
+    assert not cal.graph_capturable(args[0], dataclasses.replace(
+        args[2], enable_orca=True))
+    graphed = cal.fit_params(*args, **kw)
+    monkeypatch.setattr(cal, "graph_capturable", lambda *a, **k: False)
+    eager = cal.fit_params(*args, **kw)
+    np.testing.assert_allclose(graphed.losses, eager.losses, rtol=1e-6)
+    for k in kw["fit"]:
+        np.testing.assert_allclose(graphed.fitted[k], eager.fitted[k],
+                                   rtol=1e-6)
