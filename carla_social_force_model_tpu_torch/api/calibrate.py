@@ -43,6 +43,7 @@ kernel path.
 from __future__ import annotations
 
 import dataclasses
+import gc
 from typing import Callable, Mapping, Sequence
 
 import numpy as np
@@ -376,10 +377,21 @@ def fit_params(state0: PedState, scene: Scene, params: SfmParams,
     evaluate = loss_fn
     if graph_capturable(state0, params):
         names = list(theta)
-        graphed = torch.cuda.make_graphed_callables(
-            lambda *leaves: loss_fn(dict(zip(names, leaves))),
-            tuple(v.detach().clone().requires_grad_(True)
-                  for v in theta.values()), allow_unused_input=True)
+        # A garbage-collection pass during the capture would run the
+        # finalizers of dead objects that hold CUDA events, graphs or
+        # memory, whose CUDA calls invalidate a capture: collect first and
+        # hold collection off until both graphs are captured.
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            graphed = torch.cuda.make_graphed_callables(
+                lambda *leaves: loss_fn(dict(zip(names, leaves))),
+                tuple(v.detach().clone().requires_grad_(True)
+                      for v in theta.values()), allow_unused_input=True)
+        finally:
+            if collecting:
+                gc.enable()
 
         def evaluate(th):
             return graphed(*(th[k] for k in names))

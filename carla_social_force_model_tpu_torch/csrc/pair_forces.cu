@@ -66,7 +66,10 @@
 // row b of a dense walk sums in the unbatched launch's order and equals it
 // bitwise, and the unbatched kernels compile without a batch offset (one
 // read from blockIdx.y inside the shared bodies cost 8% on the dense walk
-// at 10k).  The dense walks' cluster split sees the whole grid (B row
+// at 10k).  The batched table walk is the exception: its body is its own
+// (chunk_walk, which culls and stages single 32-column chunks and lets
+// each lane walk its own pairs), in dense_walk's order of additions, so it
+// too equals the unbatched launch bitwise.  The dense walks' cluster split sees the whole grid (B row
 // sets).  A batch of crowds whose slots are sharded over an agent axis (the
 // JAX package's make_sharded_ensemble_rollout: the kernels of _slab_call
 // under vmap) takes the same dense kernel in rectangular form (entries
@@ -162,6 +165,7 @@
 #include <stdint.h>
 
 #include <cooperative_groups.h>
+#include <type_traits>
 
 #include "block_box.cuh"
 #include "pair_laws.cuh"
@@ -196,6 +200,16 @@ constexpr int kMaxSplit = 8;
 constexpr bool kDenseFastTail = true;
 static_assert(kSymTile % kDenseBlockRows == 0,
               "a survivor-table row covers whole blocks");
+// The batched table walk (chunk_walk): each warp keeps a window of
+// kChunkWindow staged chunks (PERF.md: 2 and 3 measured).  Its launch
+// bounds ask for kChunkBlocks blocks an SM for the Moussaid law (40
+// registers a thread) and kChunkBlocksLean for the power law and Helbing
+// (48, no spills): 7 and 8 blocks give 32 registers, and the pair loop
+// then spills (PERF.md: 5-8 measured).
+constexpr int kChunkWindow = 3;
+constexpr int kChunkBlocks = 6;
+constexpr int kChunkBlocksLean = 5;
+constexpr int kChunkFields = 5;  // a staged column: x, y, u, v, radius
 
 // how a dense-layout block chooses its column tiles
 enum DenseWalk { kAllTiles, kBoxSkip, kTable };
@@ -239,6 +253,21 @@ int dense_splits(int n_rows, int n_cols, int batch) {
   int s = 1;
   while (s < parts && (long long)s * row_tiles < dense_fill(kWalk)) s *= 2;
   return s < parts ? s : parts;
+}
+
+// The blocks that share a row block's parts in the batched table walk:
+// dense_splits, and at least 2 where the columns are two or more shards'
+// worth of the rows gathered (D runs each sorted on its own curve, whose
+// halves of the parts both hold a row block's hits; in one sorted crowd a
+// row block's hits lie in one part or two, and the idle block of a pair
+// would hold its SM slot until the fold).  A function of the launch's
+// shapes only.
+int chunk_splits(int n_rows, int n_cols, int batch) {
+  const int parts =
+      dense_parts(n_cols / kColTile + (n_cols % kColTile != 0));
+  const int s = dense_splits<kTable>(n_rows, n_cols, batch);
+  const int least = parts >= 2 && n_cols >= 2 * (long long)n_rows ? 2 : 1;
+  return s > least ? s : least;
 }
 
 // The dense walks.  Block b holds row block b / S and parts [s * P / S,
@@ -455,6 +484,273 @@ pair_force_dense_kernel(Planes rows, Planes cols,
                          max_surv, c2, n_split, fx, fy);
 }
 
+// cp.async of 4 bytes from global into shared memory, and the wait for
+// every copy of the thread
+__device__ __forceinline__ void cp_async4(float* s, const float* g) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(s)),
+               "l"(g)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" :::
+                   "memory");
+}
+
+// The batched table walk (pair_force_dense_batched_kernel<kTable, Law>),
+// designed for the shapes it runs: B crowds, and a shard's rows against
+// the gathered columns, which are D runs each sorted on its own curve, so
+// that a 32-row block and a 256-column tile span about twice the width
+// they span in one sorted crowd and most of a hit tile's chunks hold no
+// pair (PERF.md).  The block's 32 rows and its parts are dense_walk's, but
+// nothing is staged or tested by tile: warp q owns chunk slot q of every
+// tile and walks it alone.  It tests the 32-column boxes of its
+// candidates' slot-q chunks (chunk_bb: the table row's listed tiles in the
+// block's parts, or every tile of them where the row overflowed), 32 at a
+// time, one per lane, and compacts the hits with a ballot.  It stages its
+// hit chunks into its own window of kChunkWindow shared-memory buffers
+// (cp.async; __syncwarp, never a block barrier), where each lane marks the
+// columns within the cutoff of its row (a mask a chunk, in registers).
+// Then each lane walks its own marked pairs, in column order, up to
+// kChunkWindow chunks ahead of the slowest lane: a warp's law evaluations
+// are about the most pairs of one lane, where dense_walk's are every
+// column that any lane reaches.  A lane adds each chunk's sum (a fold from
+// +0 over its pairs) to its slot sum of the chunk's part, in shared
+// memory; the block's only barrier is before the parts are folded.  So a
+// row's sum is dense_walk's order of additions (parts, chunk slots, tiles,
+// columns), every skipped chunk and column adding exactly +0: each crowd
+// equals the unbatched launch bitwise.
+template <class Law>
+__device__ __forceinline__ void chunk_walk(
+    const Planes& rows, const Planes& cols, const float* __restrict__ prm,
+    int use_radius, const float* __restrict__ chunk_bb,
+    const int* __restrict__ surv, const int* __restrict__ counts,
+    int max_surv, float c2, int n_split, float* __restrict__ fx,
+    float* __restrict__ fy) {
+  constexpr int kWarps = kDenseCols;
+  constexpr int kWin = kChunkWindow;
+  static_assert(kWarps == kTileChunks && kDenseRows == 1,
+                "warp q walks chunk slot q of 32 rows, one a lane");
+  // the staged columns, one plane of 32 words a field: a lane's pair reads
+  // its column's word of each (lanes at different columns of a chunk hit
+  // different banks), all five at fixed offsets from one address
+  __shared__ float win[kWarps][kWin][kChunkFields][kChunk];
+  __shared__ int win_t[kWarps][kWin];       // the chunk's tile
+  __shared__ int win_p[kWarps][kWin];       // its part, from p_lo
+  __shared__ unsigned win_a[kWarps][kWin];  // its alive columns
+  __shared__ float slot_x[kMaxSplit][kTileChunks][kChunk];
+  __shared__ float slot_y[kMaxSplit][kTileChunks][kChunk];
+
+  const typename Law::Prm p = Law::load(prm);
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;  // the chunk slot
+  const int lane = tid % 32;
+  const int rb = blockIdx.x / n_split;
+  const int split = (int)(blockIdx.x % n_split);
+  const int n = cols.n;
+  const int nct = n / kColTile + (n % kColTile != 0);
+  const int n_chunks = n / kChunk + (n % kChunk != 0);
+  const int n_parts = dense_parts(nct);
+  const int p_lo = split * n_parts / n_split;
+  const int p_hi = (split + 1) * n_parts / n_split;
+  const int t0 = p_lo * nct / n_parts;  // this block's tiles
+  const int t1 = p_hi * nct / n_parts;
+  const int i_blk = rb * kChunk;
+
+  const int i = i_blk + lane;
+  const bool in = i < rows.n;
+  const float x = in ? rows.x[i] : 0.0f;
+  const float y = in ? rows.y[i] : 0.0f;
+  const float u = in ? rows.u[i] : 0.0f;
+  const float v = in ? rows.v[i] : 0.0f;
+  const float r = (in && Law::kRadius) ? rows.rad[i] : 0.0f;
+  const bool ra = in && rows.alive[i] != 0;
+  const int g = rows.off + i;
+  const float bx0 = warp_min(ra ? x : INFINITY);
+  const float bx1 = warp_max(ra ? x : -INFINITY);
+  const float by0 = warp_min(ra ? y : INFINITY);
+  const float by1 = warp_max(ra ? y : -INFINITY);
+  for (int pp = 0; pp < p_hi - p_lo; ++pp) {  // this lane's own slot sums
+    slot_x[pp][warp][lane] = 0.0f;
+    slot_y[pp][warp][lane] = 0.0f;
+  }
+
+  // the next hit chunk of slot `warp`, in ascending tile order, or -1: the
+  // candidates 32 at a time, one per lane, compacted by a ballot
+  const int trow = i_blk / kSymTile;
+  const bool table = counts[trow] <= max_surv;
+  const int n_cand = table ? counts[trow] : t1 - t0;
+  int base = 0, cand = -1;
+  unsigned hits = 0;
+  auto next_hit = [&]() -> int {
+    while (hits == 0) {
+      if (base >= n_cand) return -1;
+      const int k = base + lane;
+      int t = -1;
+      bool h = false;
+      if (k < n_cand) {
+        t = table ? surv[(long long)trow * max_surv + k] : t0 + k;
+        h = t >= t0 && t < t1 && t * kColTile + warp * kChunk < n &&
+            box_hits(chunk_bb, n_chunks, (long long)t * kTileChunks + warp,
+                     bx0, bx1, by0, by1, c2);
+      }
+      cand = t;
+      hits = __ballot_sync(kAllLanes, h);
+      base += kChunk;
+    }
+    const int b = __ffs(hits) - 1;
+    hits &= hits - 1;
+    return __shfl_sync(kAllLanes, cand, b);
+  };
+
+  // the window: hit chunks [tail, staged) are staged, chunk s in buffer
+  // s % kWin with this lane's pairs in wm[s % kWin] and bit s % kWin of
+  // newp set where its part is not the previous chunk's; the lane is at
+  // chunk cur, in buffer cb (its columns at wb), whose pairs left are m,
+  // the chunk's sum so far (cx, cy) and its part pcur's slot sum so far
+  // (ax, ay)
+  unsigned wm[kWin] = {};
+  unsigned newp = 0;
+  int staged = 0, cur = 0, cb = 0, tail = 0, t_next = next_hit();
+  int last_part = -1, pcur = -1;
+  const float* wb = &win[warp][0][0][0];
+  unsigned m = 0;
+  float cx = 0.0f, cy = 0.0f, ax = 0.0f, ay = 0.0f;
+  // the lane enters the chunk in buffer cb: its pairs, and at a new part
+  // the slot sum of the part it leaves
+  auto enter = [&]() {
+    unsigned got = 0;
+#pragma unroll
+    for (int q = 0; q < kWin; ++q) got = q == cb ? wm[q] : got;
+    m = got;
+    if ((newp >> cb) & 1u) {
+      if (pcur >= 0) {
+        slot_x[pcur][warp][lane] = ax;
+        slot_y[pcur][warp][lane] = ay;
+      }
+      ax = 0.0f;
+      ay = 0.0f;
+      pcur = win_p[warp][cb];
+    }
+  };
+  while (tail < staged || t_next >= 0) {
+    // stage hits while the window has room; each lane marks its pairs
+    const int first = staged;
+    for (; t_next >= 0 && staged < tail + kWin; ++staged) {
+      const int b = staged % kWin;
+      const int j = t_next * kColTile + warp * kChunk + lane;
+      const bool col = j < n;
+      if (col) {
+        float* w = &win[warp][b][0][lane];
+        cp_async4(w, cols.x + j);
+        cp_async4(w + kChunk, cols.y + j);
+        cp_async4(w + 2 * kChunk, cols.u + j);
+        cp_async4(w + 3 * kChunk, cols.v + j);
+        if (Law::kRadius) cp_async4(w + 4 * kChunk, cols.rad + j);
+      }
+      const unsigned am = __ballot_sync(kAllLanes, col && cols.alive[j]);
+      const int part = ((t_next + 1) * n_parts - 1) / nct - p_lo;
+      newp = part != last_part ? newp | 1u << b : newp & ~(1u << b);
+      last_part = part;
+      if (lane == 0) {
+        win_t[warp][b] = t_next;
+        win_p[warp][b] = part;
+        win_a[warp][b] = am;
+      }
+      t_next = next_hit();
+    }
+    cp_async_wait_all();
+    __syncwarp();
+    for (int s = first; s < staged; ++s) {
+      const int b = s % kWin;
+      const int g0 = cols.off + win_t[warp][b] * kColTile + warp * kChunk;
+      unsigned mine = 0;
+      for (unsigned am = win_a[warp][b]; am != 0; am &= am - 1) {
+        const int c = __ffs(am) - 1;
+        const float* w = &win[warp][b][0][c];
+        if (ra && g0 + c != g && sq_norm_rn(w[0] - x, w[kChunk] - y) <= c2)
+          mine |= 1u << c;
+      }
+#pragma unroll
+      for (int q = 0; q < kWin; ++q) wm[q] = q == b ? mine : wm[q];
+    }
+    if (cur == first && cur < staged) enter();
+    // the law steps, one pair a lane, until the slowest lane has moved on
+    // (room for the next hit) or every lane is through the staged chunks
+    for (;;) {
+      // close the lane's chunks with no pair left: the chunk's sum into
+      // the slot sum of its part
+#pragma unroll 1
+      while (m == 0 && cur < staged) {
+        ax += cx;
+        ay += cy;
+        cx = 0.0f;
+        cy = 0.0f;
+        cb = cb + 1 == kWin ? 0 : cb + 1;
+        wb = &win[warp][cb][0][0];
+        if (++cur < staged) enter();
+      }
+      if (__all_sync(kAllLanes, cur > tail)) {  // the slowest lane moved
+        tail = __reduce_min_sync(kAllLanes, cur);
+        if (tail == staged || (t_next >= 0 && staged < tail + kWin)) break;
+      }
+      const bool ok = m != 0;
+      const int c = ok ? __ffs(m) - 1 : 0;
+      m &= m - 1;
+      const float* w = wb + c;
+      float fxk, fyk;
+      Law::template pair<kDenseFastTail>(
+          w[0] - x, w[kChunk] - y, u, v, w[2 * kChunk], w[3 * kChunk], r,
+          Law::kRadius ? w[4 * kChunk] : 0.0f, use_radius, ok, p, fxk, fyk);
+      cx += fxk;
+      cy += fyk;
+    }
+    __syncwarp();  // every lane is done with the buffers refilled next
+  }
+  if (pcur >= 0) {  // the last part's slot sum
+    slot_x[pcur][warp][lane] = ax;
+    slot_y[pcur][warp][lane] = ay;
+  }
+
+  // each row: its parts' sums (a fold over the chunk slots) in order, from
+  // every block of the cluster
+  __syncthreads();
+  for (int row = tid; row < kChunk; row += kDenseThreads) {
+    for (int pp = 0; pp < p_hi - p_lo; ++pp) {
+      float sx = slot_x[pp][0][row], sy = slot_y[pp][0][row];
+#pragma unroll
+      for (int q = 1; q < kTileChunks; ++q) {
+        sx += slot_x[pp][q][row];
+        sy += slot_y[pp][q][row];
+      }
+      slot_x[pp][0][row] = sx;  // the part's sum
+      slot_y[pp][0][row] = sy;
+    }
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int per = (kChunk + n_split - 1) / n_split;
+  for (int k = tid; k < per; k += kDenseThreads) {
+    const int row = split * per + k;
+    const int ir = i_blk + row;
+    if (row >= kChunk || ir >= rows.n) continue;
+    float sx = 0.0f, sy = 0.0f;
+    for (int b = 0; b < n_split; ++b) {
+      const float* px = cluster.map_shared_rank(&slot_x[0][0][0], b);
+      const float* py = cluster.map_shared_rank(&slot_y[0][0][0], b);
+      const int q_n = (b + 1) * n_parts / n_split - b * n_parts / n_split;
+      for (int q = 0; q < q_n; ++q) {
+        sx += px[q * kTileChunks * kChunk + row];
+        sy += py[q * kTileChunks * kChunk + row];
+      }
+    }
+    fx[ir] = sx;
+    fy[ir] = sy;
+  }
+  cluster.sync();  // no block leaves while another reads its sums
+}
+
 // A crowd's planes in a batch: every pointer advanced by off agents (rad
 // may be null).
 __device__ __forceinline__ Planes batch_row(Planes p, int off) {
@@ -473,11 +769,16 @@ __device__ __forceinline__ Planes batch_row(Planes p, int off) {
 // crowd: cols.n = rows.n, both offsets 0; a batch of crowds whose slots are
 // sharded over an agent axis: a shard's rows against gathered or rotated
 // columns); its parameters at blockIdx.y * prm_stride, its column-tile
-// boxes, table and counts at its own offsets (kBoxSkip, kTable).  The walk
-// itself is the unbatched one, so row b equals the unbatched launch on row
-// b bitwise.
+// boxes (kBoxSkip) or 32-column chunk boxes (kTable), table and counts at
+// its own offsets.  The all-tiles and box-skip walks are the unbatched
+// body (dense_walk); the table walk is chunk_walk, in dense_walk's order
+// of additions: row b equals the unbatched launch on row b bitwise.
 template <int kWalk, class Law>
-__global__ void __launch_bounds__(kDenseThreads, 2048 / kDenseThreads)
+__global__ void __launch_bounds__(
+    kDenseThreads,
+    kWalk != kTable ? 2048 / kDenseThreads
+    : std::is_same<Law, Moussaid>::value ? kChunkBlocks
+                                         : kChunkBlocksLean)
 pair_force_dense_batched_kernel(Planes rows, Planes cols,
                                 const float* __restrict__ prm, int prm_stride,
                                 int use_radius,
@@ -489,19 +790,24 @@ pair_force_dense_batched_kernel(Planes rows, Planes cols,
   const long long crowd = blockIdx.y;
   const int ro = (int)crowd * rows.n;
   const int co = (int)crowd * cols.n;
-  if constexpr (kWalk != kAllTiles) {
-    const long long nct = cols.n / kColTile + (cols.n % kColTile != 0);
-    col_bb += crowd * 4 * nct;
-  }
-  if constexpr (kWalk == kTable) {
+  if constexpr (kWalk == kTable) {  // col_bb: the 32-column chunk boxes
+    const long long nch = cols.n / kChunk + (cols.n % kChunk != 0);
     const long long nt = (rows.n + kSymTile - 1) / kSymTile;
-    surv += crowd * nt * max_surv;
-    counts += crowd * nt;
+    chunk_walk<Law>(batch_row(rows, ro), batch_row(cols, co),
+                    prm + (int)crowd * prm_stride, use_radius,
+                    col_bb + crowd * 4 * nch, surv + crowd * nt * max_surv,
+                    counts + crowd * nt, max_surv, c2, n_split, fx + ro,
+                    fy + ro);
+  } else {
+    if constexpr (kWalk != kAllTiles) {
+      const long long nct = cols.n / kColTile + (cols.n % kColTile != 0);
+      col_bb += crowd * 4 * nct;
+    }
+    dense_walk<kWalk, Law>(batch_row(rows, ro), batch_row(cols, co),
+                           prm + (int)crowd * prm_stride, use_radius, col_bb,
+                           surv, counts, max_surv, c2, n_split, fx + ro,
+                           fy + ro);
   }
-  dense_walk<kWalk, Law>(batch_row(rows, ro), batch_row(cols, co),
-                         prm + (int)crowd * prm_stride, use_radius, col_bb,
-                         surv, counts, max_surv, c2, n_split, fx + ro,
-                         fy + ro);
 }
 
 // Row-major position of tile pair (ti, tj), tj >= ti, in the upper triangle
@@ -881,7 +1187,9 @@ int dense_launch(const Planes& rows, const Planes& cols, const float* prm,
   if (cols.n < 0 || batch < 1 || batch > 65535)
     return (int)cudaErrorInvalidValue;
   if (kWalk == kTable && max_surv < 1) return (int)cudaErrorInvalidValue;
-  const int n_split = dense_splits<kWalk>(rows.n, cols.n, batch);
+  const int n_split = (batched && kWalk == kTable)
+                          ? chunk_splits(rows.n, cols.n, batch)
+                          : dense_splits<kWalk>(rows.n, cols.n, batch);
   const long long blocks =
       (long long)((rows.n + kDenseBlockRows - 1) / kDenseBlockRows) * n_split;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
@@ -1138,7 +1446,9 @@ int sfm_pair_sym_dense_cutoff(int law, const float* rx, const float* ry,
 // square call's row and column planes (Helbing's rows carry the desired
 // directions) and overwrite every row.  The cutoff forms take each crowd's
 // grid stacked: bb / col_bb (batch, 4, n_tiles), surv (batch, nt,
-// max_surv) and counts (batch, nt), nt = ceil(n / 128).
+// max_surv) and counts (batch, nt), nt = ceil(n / 128); the table form
+// (sfm_pair_compact_batched) reads 32-column chunk boxes (batch, 4,
+// ceil(n / 32)) as col_bb.
 int sfm_pair_sym_batched(int law, const float* x, const float* y,
                          const float* vx, const float* vy, const float* rad,
                          const uint8_t* alive, const float* prm,
@@ -1248,9 +1558,10 @@ int sfm_pair_compact_batched(int law, const float* rx, const float* ry,
 // The dense forms overwrite every row of fx, fy (batch, n_rows); the
 // full-block forms accumulate +f into fx, fy and -f into fxc, fyc (batch,
 // n_cols), all zero on entry.  The cutoff forms take each crowd's grid
-// stacked: col_bb (batch, 4, n_col_tiles), row_bb (batch, 4, n_row_tiles),
-// surv (batch, nt, max_surv) and counts (batch, nt), nt = ceil(n_rows /
-// 128).
+// stacked: col_bb (batch, 4, n_col_tiles; the table form
+// sfm_pair_compact_rect_batched: 32-column chunk boxes, (batch, 4,
+// ceil(n_cols / 32))), row_bb (batch, 4, n_row_tiles), surv (batch, nt,
+// max_surv) and counts (batch, nt), nt = ceil(n_rows / 128).
 int sfm_pair_dense_rect_batched(int law, const float* rx, const float* ry,
                                 const float* ru, const float* rv,
                                 const float* rrad, const uint8_t* ralive,

@@ -81,7 +81,7 @@ from __future__ import annotations
 import torch
 
 from . import forces
-from .pair_grid import (COL_TILE, SYM_TILE, CutoffGrid, block_grid,
+from .pair_grid import (CHUNK, COL_TILE, SYM_TILE, CutoffGrid, block_grid,
                         box_planes, cutoff_grid, rect_grid)
 from .spatial import morton_order
 from ..models.params import (helbing_vector, law_rows, moussaid_vector,
@@ -178,11 +178,15 @@ def _check_grid(grid: CutoffGrid, n_rows: int, n_cols: int, dev,
                 batch: int | None = None):
     """The boxes and table a cutoff kernel reads, against the shapes its C
     entry assumes for ``n_rows`` rows and ``n_cols`` columns (each crowd's,
-    with a leading ``batch`` axis on every tensor)."""
+    with a leading ``batch`` axis on every tensor; the batched table walk
+    also reads the columns' chunk boxes)."""
     tile = SYM_TILE if grid.form.startswith("sym") else COL_TILE
     lead = () if batch is None else (batch,)
     want = [("boxes", grid.boxes, torch.float32,
              (*lead, 4, -(-n_cols // tile)))]
+    if grid.form == "compact" and batch is not None:
+        want.append(("chunk_boxes", grid.chunk_boxes, torch.float32,
+                     (batch, 4, -(-n_cols // CHUNK))))
     if grid.form == "sym_dense_cutoff":
         want.append(("row_boxes", grid.row_boxes, torch.float32,
                      (*lead, 4, -(-n_rows // SYM_TILE))))
@@ -264,7 +268,9 @@ def _launch(law: str, form: str, pos_x, pos_y, vel_x, vel_y, radius, alive,
         _check_grid(grid, n, n_cols, pos_x.device, batch)
         if grid.row_boxes is not None:
             grid_args.append(grid.row_boxes.data_ptr())
-        grid_args.append(grid.boxes.data_ptr())
+        # the batched table walk tests the chunk boxes instead of the tiles'
+        grid_args.append((grid.chunk_boxes if base == "compact"
+                          and batch is not None else grid.boxes).data_ptr())
         if grid.surv is not None:
             grid_args += [grid.surv.data_ptr(), grid.counts.data_ptr(),
                           grid.max_surv]
@@ -663,7 +669,8 @@ def kernel_sharded_force(law, pos_x, pos_y, vel_x, vel_y, radius, alive, p,
         grid = None if cutoff is None else rect_grid(
             pos_x, pos_y, alive, box_planes(cols[0], cols[1], cols[5],
                                             COL_TILE),
-            cols[0].shape[-1], cutoff, compact=compact, max_surv=max_surv)
+            cols[0].shape[-1], cutoff, compact=compact, max_surv=max_surv,
+            cols=(cols[0], cols[1], cols[5]))
         return rect(*rows, prm, cols, row_offset=me * n, grid=grid, **kw)
     if comm == "ring_kernel":
         from .cuda_ring import ring_force_sharded

@@ -27,6 +27,9 @@ Tile geometry of this port (the TPU's 192 x 512 tiles, auto ``max_surv`` of
   (symmetric); the slots leave room for denser patches.  A row with more
   hits overflows alone: its blocks walk every column tile with the box
   test, decided on the device, so the result is exact either way.
+* ``CHUNK`` = 32 columns: a warp's culling unit inside a tile.  The
+  batched table walk (``compact_batched``, ``compact_rect_batched``) tests
+  and stages single chunks, so its grid also carries the chunks' boxes.
 * ``GATE_COL_TILES`` = 64: the table engages above 64 column tiles of 256
   (N > 16,384).  Below it the whole grid is small (at most 64 box tests
   per block, or 8,256 triangle blocks) and the table's extra launches cost
@@ -43,6 +46,7 @@ from .spatial import surv_counts, tile_bboxes
 
 SYM_TILE = 128
 COL_TILE = 256
+CHUNK = 32
 AUTO_MAX_SURV = 32
 GATE_COL_TILES = 64
 
@@ -143,7 +147,9 @@ class CutoffGrid(NamedTuple):
     of a batch of crowds (:func:`cutoff_grid` of ``(B, n)`` planes) has the
     same form and ``max_surv`` for every crowd and a leading batch axis on
     ``boxes`` ``(B, 4, n_tiles)``, ``surv`` ``(B, nt, max_surv)`` and
-    ``counts`` ``(B, nt)``."""
+    ``counts`` ``(B, nt)``; its ``"compact"`` form also holds
+    ``chunk_boxes``, the columns' 32-column boxes ``(B, 4, n_chunks)``,
+    which the batched table walk tests instead of the tile boxes."""
 
     form: str
     boxes: torch.Tensor
@@ -154,6 +160,9 @@ class CutoffGrid(NamedTuple):
     #: the rows' 128-agent tile boxes of a ``"sym_dense_cutoff"`` launch
     #: (the other forms take the rows' boxes from the same planes)
     row_boxes: torch.Tensor | None = None
+    #: the columns' ``CHUNK``-column boxes of a batched ``"compact"``
+    #: launch (None in the other grids)
+    chunk_boxes: torch.Tensor | None = None
 
 
 def cutoff_grid(x, y, alive, cutoff: float, symmetric: bool = True,
@@ -176,12 +185,17 @@ def cutoff_grid(x, y, alive, cutoff: float, symmetric: bool = True,
         nt = row_bb.shape[-1]
         hits &= triangle_mask(nt, nt, SYM_TILE, SYM_TILE, hits.device)
     surv, counts = surv_counts(hits, ms)
-    return CutoffGrid("sym_compact" if symmetric else "compact", col_bb,
-                      surv.contiguous(), counts, ms, c2)
+    if symmetric:
+        return CutoffGrid("sym_compact", col_bb, surv.contiguous(), counts,
+                          ms, c2)
+    chunks = box_planes(x, y, alive, CHUNK) if x.dim() == 2 else None
+    return CutoffGrid("compact", col_bb, surv.contiguous(), counts, ms, c2,
+                      chunk_boxes=chunks)
 
 
 def rect_grid(row_x, row_y, row_alive, col_bb, n_cols: int, cutoff: float,
-              compact: bool = True, max_surv: int = 0) -> CutoffGrid:
+              compact: bool = True, max_surv: int = 0,
+              cols=None) -> CutoffGrid:
     """The grid of a dense cutoff launch of sorted row planes against a
     block of ``n_cols`` sorted columns with 256-column tile boxes ``col_bb``
     (:func:`box_planes`): the box test alone, or above the gate (on the
@@ -189,7 +203,9 @@ def rect_grid(row_x, row_y, row_alive, col_bb, n_cols: int, cutoff: float,
     column tiles.  The square grid of :func:`cutoff_grid` with
     ``symmetric=False`` is this grid with the rows as the columns.  A batch
     of crowds (``(B, n)`` row planes, ``(B, 4, n_tiles)`` column boxes)
-    gives the batched grid, row b equal to the grid of row b alone."""
+    gives the batched grid, row b equal to the grid of row b alone; its
+    table form also needs the column planes ``cols`` = ``(x, y, alive)``,
+    whose chunk boxes the batched table walk tests."""
     engage, ms = compact_gate(n_cols, False, compact, max_surv)
     c2 = cutoff_sq(cutoff)
     if not engage:
@@ -197,7 +213,10 @@ def rect_grid(row_x, row_y, row_alive, col_bb, n_cols: int, cutoff: float,
     hits = _bbox_hits(box_planes(row_x, row_y, row_alive, SYM_TILE), col_bb,
                       cutoff)
     surv, counts = surv_counts(hits, ms)
-    return CutoffGrid("compact", col_bb, surv.contiguous(), counts, ms, c2)
+    chunks = (box_planes(*cols, CHUNK)
+              if cols is not None and row_x.dim() == 2 else None)
+    return CutoffGrid("compact", col_bb, surv.contiguous(), counts, ms, c2,
+                      chunk_boxes=chunks)
 
 
 def block_grid(row_bb, col_bb, cutoff: float) -> CutoffGrid:

@@ -2473,7 +2473,11 @@ def batch_pair_bound(law, sym, batch, n, pairs_u, counts_of, grid=None):
     twice in a dense walk), the families' gates counted on the data
     (``counts_of``: ordered pairs, on a collision course and contributing,
     from ``family_work``; halved for a symmetric walk)."""
-    grid_bytes = 0 if grid is None else 4 * grid.boxes.numel() + (
+    # the batched table walk reads the chunk boxes instead of the tiles'
+    boxes = None if grid is None else (
+        grid.boxes if getattr(grid, "chunk_boxes", None) is None
+        else grid.chunk_boxes)
+    grid_bytes = 0 if grid is None else 4 * boxes.numel() + (
         4 * (grid.surv.numel() + grid.counts.numel())
         if grid.surv is not None else 0)
     if law == "moussaid":
@@ -2912,11 +2916,20 @@ def cutoff_batch_phases(dev, zero, card, launches, worst, profile_steps):
             table[name] = (src + ("462" if law == "powerlaw" else "528"
                                   if law == "helbing" else lines[form]),
                            ms, plain, bnd)
+            floor = ""
+            if form == "compact":  # the batched table walk's inner loop
+                census = ("pair_force_dense_batched<kTable, "
+                          + {"moussaid": "Moussaid", "powerlaw": "PowerLaw",
+                             "helbing": "Helbing"}[law] + ">")
+                if CENSUS.get(census):
+                    floor = "; " + floor_note(
+                        census, 2 * pairs_u if law == "moussaid"
+                        else int(counts_of[law][0]))
             say(f"{label} time {name} at B={b} x N={n}, {CUTOFF_M:g} m "
                 f"cutoff: kernel {ms:.4f} ms ({TIMED_BY[0]}; bound "
                 f"{bnd[0]:.6f} ms, {bnd[1]}; {pairs_u} unordered pairs "
-                f"within the cutoff), plain batched version {plain:.3f} ms "
-                f"({card})")
+                f"within the cutoff{floor}), plain batched version "
+                f"{plain:.3f} ms ({card})")
         return refs
 
     lap("phase 30")
@@ -3844,7 +3857,8 @@ def mesh_batch_phases(dev, zero, card, launches, worst):
     tgrid = pair_grid.rect_grid(
         trows[0], trows[1], trows[5],
         pair_grid.box_planes(tpl[0], tpl[1], tpl[5], pair_grid.COL_TILE),
-        MESH_TABLE_N, CUTOFF_M, max_surv=MESH_TABLE_MAX_SURV)
+        MESH_TABLE_N, CUTOFF_M, max_surv=MESH_TABLE_MAX_SURV,
+        cols=(tpl[0], tpl[1], tpl[5]))
     tprm = law_rows("moussaid", p, MESH_TABLE_BATCH // r, dev)
     ring_prm = law_rows("moussaid", p, BATCH, dev)
     slot = 6 * k + 4 * -(-k // pair_grid.COL_TILE)
@@ -3905,7 +3919,7 @@ def mesh_batch_phases(dev, zero, card, launches, worst):
                 row_offset=tk),
             bound((MESH_TABLE_BATCH // r) * ((tk + MESH_TABLE_N)
                                              * plane_bytes + out * tk)
-                  + 4 * (tgrid.boxes.numel() + tgrid.surv.numel()
+                  + 4 * (tgrid.chunk_boxes.numel() + tgrid.surv.numel()
                          + tgrid.counts.numel()) + 4 * 6,
                   rect_pairs_within(trows, tpl, c2, tk, 0) * PAIR_OPS,
                   rect_pairs_within(trows, tpl, c2, tk, 0) * PAIR_MUFU),
@@ -3924,10 +3938,15 @@ def mesh_batch_phases(dev, zero, card, launches, worst):
                   rect_pairs_within(ring_planes, ring_planes, None, 0, 0)
                   * PAIR_MUFU),
             f"{BATCH} crowds x {d} shards x {k}")}
+    floors = {"pair_force_compact_rect_batched": (
+        "pair_force_dense_batched<kTable, Moussaid>",
+        lambda: rect_pairs_within(trows, tpl, c2, tk, 0))}
     for name, (fn, kernel, plain, bnd, shape) in timing.items():
         t_ms = device_ms(fn, kernel)
         how = TIMED_BY[0]
         p_ms = cuda_ms(plain, reps=1, warm=False)
+        if name in floors and CENSUS.get(floors[name][0]):
+            shape += "; " + floor_note(floors[name][0], floors[name][1]())
         key = name.split(" ")[0]
         if key not in table:
             table[key] = (src + {"ring_force_batched": "pallas_ring.py:65",
@@ -5934,6 +5953,8 @@ def main() -> None:
     for name, *_ in table:
         if launches[name] == 0:
             fail(f"{name} was not launched on its main path")
+    say(f"chip_smoke total {time.perf_counter() - START[0]:.1f} s (the "
+        f"1,200 s limit of a run includes the kernels' build)")
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": launches[name],

@@ -95,11 +95,11 @@ def cutoff_grid_of(form, planes, cutoff, max_surv=0):
 
 def row_grid(grid, b):
     """Crowd b's grid of a batched one (equal to the grid of row b
-    alone)."""
+    alone, which holds no chunk boxes)."""
     def row(t):
         return None if t is None else t[b].contiguous()
     return grid._replace(boxes=row(grid.boxes), surv=row(grid.surv),
-                         counts=row(grid.counts))
+                         counts=row(grid.counts), chunk_boxes=None)
 
 
 def _kernel_args(law, planes):

@@ -215,12 +215,13 @@ def _crowd(planes, b):
 
 
 def _row_grid(grid, b):
-    """Crowd b's grid of a batched grid (boxes, row boxes, table)."""
+    """Crowd b's grid of a batched grid (boxes, row boxes, table; the
+    unbatched walks read no chunk boxes)."""
     def row(t):
         return None if t is None else t[b].contiguous()
     return grid._replace(boxes=row(grid.boxes), surv=row(grid.surv),
                          counts=row(grid.counts),
-                         row_boxes=row(grid.row_boxes))
+                         row_boxes=row(grid.row_boxes), chunk_boxes=None)
 
 
 def law_args(law, planes):
@@ -264,7 +265,8 @@ def rect_batch_case(law, planes, n_shards, shard, cutoff=None, gathered=True,
     x, y, alive = rows[0], rows[1], rows[5]
     grid = None if cutoff is None else rect_grid(
         x, y, alive, box_planes(cols[0], cols[1], cols[5], COL_TILE),
-        c1 - c0, cutoff, compact=compact, max_surv=max_surv)
+        c1 - c0, cutoff, compact=compact, max_surv=max_surv,
+        cols=(cols[0], cols[1], cols[5]))
     prm = law_rows(law, p, batch, x.device)
     got = torch.stack(cuda_forces.pair_force_rect_batched(
         *args, prm, cols6, grid=grid, **off, **kw))

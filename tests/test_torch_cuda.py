@@ -2522,6 +2522,79 @@ def test_rect_batched_matches_plain_and_unbatched(cuda_device, law, gathered,
         assert bool((got[:, ~rows_alive] == 0).all())
 
 
+#: the batched table walk's cases: (crowds, agents a crowd, gathered or
+#: the next shard's block, table slots (0: a tile narrower than a row of
+#: tiles), cutoff, crowds with other alive counts)
+CHUNK_WALK_CASES = {
+    "gathered, 1 slot": (3, 4 * 1037, True, 1, 8.0, False),
+    "gathered, 2 slots": (3, 4 * 1037, True, 2, 8.0, False),
+    "gathered, rows fit": (3, 4 * 1037, True, 0, 8.0, False),
+    "ring block, 2 slots": (3, 4 * 1037, False, 2, 8.0, False),
+    "B=1, 2 slots": (1, 4 * 1037, True, 2, 8.0, False),
+    "uneven alive": (3, 4 * 1037, True, 2, 8.0, True),
+    "30 m, 32 slots": (2, 4 * 5003, True, 32, 30.0, False)}
+
+
+@pytest.mark.parametrize("law", ["moussaid", "powerlaw", "helbing"])
+@pytest.mark.parametrize("case", sorted(CHUNK_WALK_CASES))
+def test_chunk_walk_equals_the_box_skip_and_unbatched_walks(cuda_device,
+                                                            law, case):
+    """The batched table walk (``compact_rect_batched``: chunk culling and
+    per-lane pair walks) on quarter-density shards, each sorted on its own
+    curve, shard 1's rows against the gathered columns or shard 2's block:
+    one launch, bitwise equal to the box-skip walk over every tile
+    (``dense_cutoff_rect_batched``) and to the unbatched table launch on
+    each crowd, within the limit of the plain batched version, dead rows
+    exactly 0.  Tables that overflow (1, 2 slots) and that fit, a column
+    count that is not a multiple of 32 or 256, B = 1, and crowds with
+    other alive counts (one a third alive, one whose row shard is dead)."""
+    b, n, gathered, slots, cutoff, uneven = CHUNK_WALK_CASES[case]
+    planes = batch_shard_planes(b, n, seed=n + b + slots, device=cuda_device,
+                                n_shards=4, sort=True)
+    k = n // 4
+    if uneven:
+        planes[5][1] &= torch.arange(n, device=cuda_device) % 3 == 0
+        planes[5][2, k:2 * k] = False
+    n_cols = n if gathered else k
+    ms = slots or -(-n_cols // pair_grid.COL_TILE) - 1
+    prefix = cuda_forces.LAWS[law][0]
+    before = dict(cuda_forces.LAUNCHES)
+    got, want, lim, one = rect_batch_case(law, planes, 4, 1, cutoff,
+                                          gathered, max_surv=ms)
+    name = f"{prefix}_compact_rect_batched"
+    assert cuda_forces.LAUNCHES[name] == before[name] + 1
+    box, _, _, _ = rect_batch_case(law, planes, 4, 1, cutoff, gathered,
+                                   compact=False)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, box), case
+    assert torch.equal(got, one), case
+    assert bool(((got - want).abs() <= lim).all()), case
+    assert bool((got[:, ~planes[5][:, k:2 * k]] == 0).all())
+
+
+def test_chunk_walk_needs_the_chunk_boxes(cuda_device):
+    """A batched table grid without its chunk boxes (or with another
+    crowd count's) is refused before any launch."""
+    planes = batch_shard_planes(3, 4 * 1037, seed=3, device=cuda_device,
+                                n_shards=4, sort=True)
+    k = 1037
+    rows = [a[:, k:2 * k].contiguous() for a in planes]
+    grid = pair_grid.rect_grid(
+        rows[0], rows[1], rows[5],
+        pair_grid.box_planes(planes[0], planes[1], planes[5],
+                             pair_grid.COL_TILE), 4 * k, 8.0, max_surv=2,
+        cols=(planes[0], planes[1], planes[5]))
+    prm = cuda_forces.law_rows("moussaid", MoussaidParams(), 3, cuda_device)
+    cuda_forces.reset_launch_counts()
+    for bad in (None, grid.chunk_boxes[:2].contiguous()):
+        with pytest.raises(ValueError, match="chunk_boxes"):
+            cuda_forces.pair_force_rect_batched(
+                *rows[:6], prm, tuple(planes[:6]), row_offset=k,
+                grid=grid._replace(chunk_boxes=bad))
+    assert not any(cuda_forces.LAUNCHES.values())
+
+
 @pytest.mark.parametrize("law", ["moussaid", "powerlaw"])
 @pytest.mark.parametrize("cutoff", [None, 8.0])
 @pytest.mark.parametrize("b,n_rows,n_cols", [(3, 130, 257),

@@ -48,6 +48,10 @@ def test_layout_constants_are_read_from_the_sources():
     ("pair_force_dense<kTable, Moussaid>", "kDenseRows"),
     ("pair_force_dense<kAllTiles, Helbing>", "kDenseRows"),
     ("pair_force_dense<kAllTiles, PowerLaw>", "kDenseRows"),
+    ("pair_force_dense_batched<kBoxSkip, Moussaid>", "kDenseRows"),
+    ("pair_force_dense_batched<kTable, Moussaid>", "kDenseRows"),
+    ("pair_force_dense_batched<kTable, PowerLaw>", "kDenseRows"),
+    ("pair_force_dense_batched<kTable, Helbing>", "kDenseRows"),
     ("ring_force<false, Moussaid>", "kRingRows")])
 def test_dense_walk_and_ring_entries_name_their_rows_per_thread(label,
                                                                  const):

@@ -1,0 +1,67 @@
+"""The debug build of ``tools/kernel_redesign_bench.py --counters``: its
+counters are patched into a copy of the port's CUDA sources at anchor
+lines, so an edit of the walks that moves an anchor must show here, on
+the CPU, and not first on the card.
+"""
+import shutil
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT / "tools"))
+
+import kernel_redesign_bench as bench  # noqa: E402
+
+CSRC = Path("carla_social_force_model_tpu_torch") / "csrc"
+
+
+@pytest.fixture
+def copy(tmp_path):
+    shutil.copytree(ROOT / CSRC, tmp_path / CSRC)
+    return tmp_path
+
+
+def test_every_counter_lands_in_the_walks(copy):
+    """Each counter is added where the walk it counts does that work: the
+    dense walk's tile staging, chunk culling, overflow and blocks, the law
+    calls of its inner loop, and each of the batched table walk's; the C
+    entries that read and reset them come before the last entry."""
+    bench.instrument(copy)
+    src = (copy / CSRC / "pair_forces.cu").read_text()
+    laws = (copy / CSRC / "pair_laws.cuh").read_text()
+    assert "static __device__ unsigned long long sfm_walk_counters[8];" in laws
+    assert laws.count("sfm_walk_counters[2]") == 1
+    for k, times in ((0, 1), (1, 2), (2, 1), (3, 1), (4, 2), (5, 2), (6, 1)):
+        assert src.count(f"sfm_walk_counters[{k}]") == times, k
+    for entry in ("sfm_walk_counters_read", "sfm_walk_counters_reset",
+                  "sfm_walk_attributes"):
+        assert src.index(f"int {entry}(") < src.index(
+            "const char* sfm_cuda_error_string")
+    body = src[src.index("__device__ __forceinline__ void chunk_walk("):]
+    body = body[:body.index("\n}\n")]
+    for k in (1, 2, 3, 4, 5, 6):
+        assert f"sfm_walk_counters[{k}]" in body, k
+
+
+def test_instrument_is_idempotent_and_leaves_the_package_alone(copy):
+    """A second patch of the same copy changes nothing, and the checkout's
+    own sources carry no counter."""
+    bench.instrument(copy)
+    once = {p.name: p.read_text() for p in (copy / CSRC).iterdir()}
+    bench.instrument(copy)
+    assert once == {p.name: p.read_text() for p in (copy / CSRC).iterdir()}
+    for p in (ROOT / CSRC).iterdir():
+        assert "sfm_walk_counters" not in p.read_text()
+
+
+def test_a_moved_anchor_of_the_dense_walk_raises(copy):
+    """The dense walk's anchors are required: a source without one is not
+    silently left uncounted."""
+    path = copy / CSRC / "pair_forces.cu"
+    path.write_text(path.read_text().replace(
+        "    const int j0 = (int)(t * kColTile);\n",
+        "    const int j0 = t * kColTile;\n"))
+    with pytest.raises(RuntimeError, match="no anchor"):
+        bench.instrument(copy)

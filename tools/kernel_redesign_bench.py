@@ -36,7 +36,8 @@ kernels against their plain versions as phases 3, 9 and 24 check them
 (the fast tail moves them).
 
     python3 tools/kernel_redesign_bench.py [--root DIR] [--label NAME] \\
-        [--out FILE] [--cases sym,env,dense,statics,feed,capacity,batched]
+        [--out FILE] [--counters] \\
+        [--cases sym,env,dense,statics,feed,capacity,batched,mesh]
 
 ``--cases capacity`` asks, for each law with and without the cutoff and at
 D = 1, 4 and 8, whether one ``ring_force`` launch takes twice the agents
@@ -46,10 +47,38 @@ at D = 4 over N = 10,000 and over N = 2 x 50,688 agents (on 132 SMs) at
 D = 4 and D = 1 (``"ms": null`` where the launch is refused).
 
 ``--cases batched`` times the square batched dense walks at phase 27's
-and phase 30's shapes (config #5 under each law, its 30 m cutoff, the table at
-8 x 50,000) and the batched environment walks on one shared set at phase
-31's (256 crowds of 1,000 over config #3's geometry: the borders sampled
-and analytic and the parked cars, dense and on the survivor tables).
+and phase 30's shapes (config #5 under each law, its 30 m cutoff, the table
+at 8 x 50,000 under each law) and the batched environment walks on one
+shared set at phase 31's (256 crowds of 1,000 over config #3's geometry:
+the borders sampled and analytic and the parked cars, dense and on the
+survivor tables).
+
+``--cases mesh`` times the rectangular batched walks at phase 33's shapes:
+the table walk ``compact_rect_batched`` on one shard's 4 crowds x 12,500
+rows of 8 x 50,000 (2 x 4 mesh, quarter-density shards each sorted on its
+own curve) against the 50,000 gathered columns with 32 slots, and the
+box-skip walk ``dense_cutoff_rect_batched`` at the same shapes and on the
+12,500-column block of the next shard; beside them, on the same candidate
+pairs, the unbatched ``pair_force_compact_rect`` on crowd 0's shard and
+``pair_force_compact`` at 50,000 on crowd 0 sorted as one crowd, and the
+batched table walk on that crowd alone (B = 1: what the batched walk gives
+the unbatched problem).  Each line carries its bound (``chip_smoke.bound``
+of the pairs within 30 m) and the issue floor of those pairs through the
+kernel's inner loop (``tools/sass_census.py``).
+
+``--counters`` runs the mesh and table cases once each through a debug
+build and prints, per 32-row block, what the dense and table walks did:
+column tiles staged (``dense_walk``), chunks staged or tested, law
+evaluations (32 a warp step), pairs within the cutoff, blocks whose table
+row overflowed, and the blocks and table rows behind them.  The debug
+build is the checkout at ``--root`` with counters patched into its sources
+(:func:`instrument`: atomic adds at the walks' staging, culling and law
+calls, and C entries that read and reset them); never give it a copy you
+time, nor this checkout.  The recipe, on the card::
+
+    git archive HEAD | tar -x -C archive_check/change_counters
+    python3 tools/kernel_redesign_bench.py --counters \\
+        --root archive_check/change_counters --label change
 
 ``--root`` is the checkout whose package is imported and whose kernels are
 built (into its own ``build/``); the cases' builders (``chip_smoke.py``
@@ -188,7 +217,8 @@ def batched_cases(dev):
     """(name, call, kernel name filter, reps) of the square batched dense
     walks (``pair_force_dense_batched_kernel``) at the smoke's shapes:
     phase 27's config #5 (256 crowds x 1,000) under each law, phase 30's
-    box-skip form at config #5 + 30 m and its table form at 8 x 50,000."""
+    box-skip form at config #5 + 30 m and its table form at 8 x 50,000
+    under each law."""
     import batch_cases as bc
     cs = smoke()
     planes = bc.batch_planes(cs.BATCH, cs.BATCH_N, seed=27, device=dev,
@@ -205,11 +235,276 @@ def batched_cases(dev):
     for form, pl in (("dense_cutoff", small), ("compact", big)):
         grid = bc.cutoff_grid_of(form, pl, cs.CUTOFF_M)
         b, n = pl[0].shape
-        out.append((f"{form}_batched {b} x {n}", lambda pl=pl, g=grid, f=form:
-                    bc.batch_run("moussaid", f, pl,
-                                 bc.law_params("moussaid"), g)))
+        for law in (("moussaid", "powerlaw", "helbing") if form == "compact"
+                    else ("moussaid",)):
+            out.append((f"{form}_batched {b} x {n}"
+                        + ("" if law == "moussaid" else f" {law}"),
+                        lambda pl=pl, g=grid, f=form, law=law: bc.batch_run(
+                            law, f, pl, bc.law_params(law), g)))
     return ([(name, fn, "pair_force_dense_batched_kernel", 20)
              for name, fn in out] + batched_env_cases(dev))
+
+
+def rect_grid_of(rows, cols, cutoff, **kw):
+    """``pair_grid.rect_grid`` of the imported checkout for ``rows`` against
+    ``cols`` (planes x, y, .., alive): with the column planes where that
+    checkout's table walk reads their chunk boxes (older checkouts do
+    not take them)."""
+    import inspect
+    from carla_social_force_model_tpu_torch.ops import pair_grid as pg
+    if "cols" in inspect.signature(pg.rect_grid).parameters:
+        kw["cols"] = (cols[0], cols[1], cols[5])
+    return pg.rect_grid(rows[0], rows[1], rows[5],
+                        pg.box_planes(cols[0], cols[1], cols[5],
+                                      pg.COL_TILE),
+                        cols[0].shape[-1], cutoff, **kw)
+
+
+def mesh_cases(dev, with_work=True):
+    """(name, call, kernel name filter, reps[, work]) of the rectangular
+    batched walks at phase 33's shapes and, on the same candidate pairs,
+    the unbatched table walks (see the module's docstring); ``work()``
+    gives the bound, the census label and the pairs within the cutoff."""
+    import torch
+    import shard_cases as sc
+    from carla_social_force_model_tpu_torch.models.params import law_rows
+    from carla_social_force_model_tpu_torch.ops import cuda_forces, pair_grid
+    cs = smoke()
+    d, n, slots = cs.MESH_AGENTS, cs.MESH_TABLE_N, cs.MESH_TABLE_MAX_SURV
+    b = cs.MESH_TABLE_BATCH // cs.MESH_BATCH_SHARDS
+    k = n // d
+    c2 = pair_grid.cutoff_sq(cs.CUTOFF_M)
+    p = sc.law_params("moussaid")
+    tpl = sc.batch_shard_planes(b, n, seed=35, device=dev, n_shards=d,
+                                sort=True)
+    six = lambda q: tuple(q[:6])  # noqa: E731
+    rows = [a[:, k:2 * k].contiguous() for a in tpl]
+    blk = [a[:, 2 * k:3 * k].contiguous() for a in tpl]
+    prm = law_rows("moussaid", p, b, dev)
+    table = rect_grid_of(rows, tpl, cs.CUTOFF_M, max_surv=slots)
+    skip = rect_grid_of(rows, tpl, cs.CUTOFF_M, compact=False)
+    skip_blk = rect_grid_of(rows, blk, cs.CUTOFF_M, compact=False)
+    one_rows = [a[0].contiguous() for a in rows]
+    one_cols = [a[0].contiguous() for a in tpl]
+    one_grid = rect_grid_of(one_rows, one_cols, cs.CUTOFF_M, max_surv=slots)
+    whole = sc.shard_planes(n, 35, dev, n_shards=1, sort=True)  # crowd 0
+    wgrid = pair_grid.cutoff_grid(whole[0], whole[1], whole[5], cs.CUTOFF_M,
+                                  symmetric=False, max_surv=slots)
+    wb = [a[None].contiguous() for a in whole]
+    wbgrid = pair_grid.cutoff_grid(wb[0], wb[1], wb[5], cs.CUTOFF_M,
+                                   symmetric=False, max_surv=slots)
+    prm1 = cuda_forces.law_vector("moussaid", p, dev)
+    plane_bytes, out_bytes = 5 * 4 + 1, 2 * 4
+
+    def work(r, c, grid, row_off, col_off, label):
+        def fn():
+            pairs = cs.rect_pairs_within(
+                [t if t.dim() == 2 else t[None] for t in r],
+                [t if t.dim() == 2 else t[None] for t in c], c2, row_off,
+                col_off)
+            nb = r[0].shape[0] if r[0].dim() == 2 else 1
+            tabs = sum(t.numel() for t in (
+                grid.chunk_boxes if getattr(grid, "chunk_boxes", None)
+                is not None else grid.boxes, grid.surv, grid.counts)
+                if t is not None)
+            bnd = cs.bound(nb * ((r[0].shape[-1] + c[0].shape[-1])
+                                 * plane_bytes + out_bytes * r[0].shape[-1])
+                           + 4 * tabs + 4 * 6, pairs * cs.PAIR_OPS,
+                           pairs * cs.PAIR_MUFU)
+            return bnd, label, pairs
+        return fn
+
+    batched = "pair_force_dense_batched_kernel"
+    unbatched = "pair_force_dense_kernel"
+    cases = [
+        (f"compact_rect_batched {b} x {k} x {n}, {slots} slots", lambda:
+         cuda_forces.pair_force_rect_batched(*six(rows), prm, six(tpl),
+                                             row_offset=k, grid=table),
+         batched, 20, work(rows, tpl, table, k, 0,
+                           "pair_force_dense_batched<kTable, Moussaid>")),
+        (f"dense_cutoff_rect_batched {b} x {k} x {n}", lambda:
+         cuda_forces.pair_force_rect_batched(*six(rows), prm, six(tpl),
+                                             row_offset=k, grid=skip),
+         batched, 20, work(rows, tpl, skip, k, 0,
+                           "pair_force_dense_batched<kBoxSkip, Moussaid>")),
+        (f"dense_cutoff_rect_batched {b} x {k} x {k} ring block", lambda:
+         cuda_forces.pair_force_rect_batched(
+             *six(rows), prm, six(blk), row_offset=k, col_offset=2 * k,
+             grid=skip_blk),
+         batched, 20, work(rows, blk, skip_blk, k, 2 * k,
+                           "pair_force_dense_batched<kBoxSkip, Moussaid>")),
+        (f"compact_rect (unbatched) crowd 0's {k} x {n}, {slots} slots",
+         lambda: cuda_forces.pair_force_rect(
+             *six(one_rows), prm1, six(one_cols), row_offset=k,
+             grid=one_grid),
+         unbatched, 20, work(one_rows, one_cols, one_grid, k, 0,
+                             "pair_force_dense<kTable, Moussaid>")),
+        (f"compact (unbatched) {n}, crowd 0 sorted as one, {slots} slots",
+         lambda: cuda_forces.pair_force_cutoff(*six(whole), prm1, wgrid),
+         unbatched, 20, work(whole, whole, wgrid, 0, 0,
+                             "pair_force_dense<kTable, Moussaid>")),
+        (f"compact_batched B=1 x {n}, crowd 0 sorted as one, {slots} slots",
+         lambda: cuda_forces.pair_force_cutoff_batched(
+             *six(wb), prm1[None], wbgrid),
+         batched, 20, work(wb, wb, wbgrid, 0, 0,
+                           "pair_force_dense_batched<kTable, Moussaid>")),
+    ]
+    for got, want, label in (
+            (cases[0][1](), cuda_forces.pair_force_rect_batched(
+                *six(rows), prm, six(tpl), row_offset=k, grid=skip), "3r-b"),
+            (cases[5][1](), cuda_forces.pair_force_cutoff(*six(whole), prm1,
+                                                          wgrid), "B=1")):
+        torch.cuda.synchronize()
+        if not torch.equal(torch.stack(got).reshape(-1),
+                           torch.stack(want).reshape(-1)):
+            raise RuntimeError(f"mesh case {label}: the table walk differs "
+                               f"from the walk it must equal bitwise")
+    return cases if with_work else [c[:4] for c in cases]
+
+
+#: the counters of a debug build (:func:`instrument`), in order
+COUNTERS = ("tiles staged", "chunks staged", "law evaluations",
+            "pairs within the cutoff", "overflowing blocks", "blocks",
+            "chunks tested")
+
+
+def instrument(root: Path) -> None:
+    """Patch counters into the pair walks of the checkout at ``root`` (a
+    debug build for ``--counters``; idempotent).  Each insertion follows an
+    anchor line of ``csrc/``: the parent's walk (``dense_walk`` and the
+    inner loop ``rows_vs_chunk``) and, where the checkout has it, the
+    batched table walk ``chunk_walk``; a missing anchor of the first
+    raises."""
+    csrc = root / "carla_social_force_model_tpu_torch" / "csrc"
+    add = "atomicAdd(&sfm_walk_counters[{}], {})"
+    law = ("{{ const unsigned okm_ = __ballot_sync(kAllLanes, ok); "
+           "if ((threadIdx.x & 31) == 0) {{ " + add.format(2, "32ull") + "; "
+           + add.format(3, "(unsigned long long)__popc(okm_)") + "; }} }}")
+    edits = {
+        "pair_laws.cuh": [
+            ('#include "pair_forces.cuh"\n',
+             "static __device__ unsigned long long sfm_walk_counters[8];\n",
+             True),
+            ("        if (!__any_sync(kAllLanes, ok)) continue;\n",
+             "        " + law.format() + "\n", True)],
+        "pair_forces.cu": [
+            ("  RowSet<kR> rw;\n",
+             "  if (threadIdx.x == 0) " + add.format(5, "1ull") + ";\n", True),
+            ("    const int j0 = (int)(t * kColTile);\n",
+             "    if (tid == 0) " + add.format(0, "1ull") + ";\n", True),
+            ("              use_radius, c2)) {\n",
+             "        if (lane == 0) " + add.format(1, "1ull") + ";\n", True),
+            ("    if constexpr (kWalk == kTable) table = counts[trow] <= "
+             "max_surv;\n",
+             "    if constexpr (kWalk == kTable) { if (tid == 0 && !table) "
+             + add.format(4, "1ull") + "; }\n", True),
+            ("  const float by1 = warp_max(ra ? y : -INFINITY);\n",
+             "  if (tid == 0) " + add.format(5, "1ull") + ";\n", False),
+            ("  const bool table = counts[trow] <= max_surv;\n",
+             "  if (tid == 0 && !table) " + add.format(4, "1ull") + ";\n",
+             False),
+            ("        win_t[warp][b] = t_next;\n",
+             "        " + add.format(1, "1ull") + ";\n", False),
+            ("      hits = __ballot_sync(kAllLanes, h);\n",
+             "      { const unsigned tst_ = __ballot_sync(kAllLanes, t >= t0 "
+             "&& t < t1); if (lane == 0) " + add.format(
+                 6, "(unsigned long long)__popc(tst_)") + "; }\n", False),
+            ("      const bool ok = m != 0;\n",
+             "      " + law.format() + "\n", False),
+            ("const char* sfm_cuda_error_string(int err) {\n",
+             "int sfm_walk_counters_read(unsigned long long* out) {\n"
+             "  return (int)cudaMemcpyFromSymbol(out, sfm_walk_counters,\n"
+             "                                   8 * sizeof(unsigned long "
+             "long));\n}\n"
+             "int sfm_walk_counters_reset() {\n"
+             "  unsigned long long z[8] = {0};\n"
+             "  return (int)cudaMemcpyToSymbol(sfm_walk_counters, z, "
+             "sizeof(z));\n}\n"
+             "// which: 0 the batched table kernel, 1 the unbatched one; out:"
+             " resident blocks an SM, registers, static shared and local "
+             "bytes\n"
+             "int sfm_walk_attributes(int which, int* out) {\n"
+             "  const void* k = which == 0 ? (const void*)"
+             "pair_force_dense_batched_kernel<kTable, Moussaid>\n"
+             "                            : (const void*)"
+             "pair_force_dense_kernel<kTable, Moussaid>;\n"
+             "  cudaFuncAttributes a;\n"
+             "  cudaError_t e = cudaFuncGetAttributes(&a, k);\n"
+             "  if (e == cudaSuccess) e = "
+             "cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, k, "
+             "kDenseThreads, 0);\n"
+             "  out[1] = a.numRegs; out[2] = (int)a.sharedSizeBytes; "
+             "out[3] = (int)a.localSizeBytes;\n"
+             "  return (int)e;\n}\n\n", True)],
+    }
+    for name, items in edits.items():
+        path = csrc / name
+        text = path.read_text()
+        if "sfm_walk_counters" in text:
+            continue
+        for anchor, line, required in items:
+            if anchor not in text:
+                if required:
+                    raise RuntimeError(f"{name}: no anchor {anchor!r}")
+                continue
+            # the sfm_cuda_error_string entry goes before its anchor
+            before = anchor.startswith("const char* sfm_cuda_error_string")
+            text = text.replace(anchor, line + anchor if before
+                                else anchor + line)
+        path.write_text(text)
+
+
+def walk_counters(dev, label, card, sink):
+    """One launch of each mesh case and of the square table walk at 8 x
+    50,000 through the debug build: its counters per 32-row block (one JSON
+    line each), with the table rows that overflow and the kernels'
+    resident blocks, registers and shared and local bytes."""
+    import ctypes
+    import torch
+    import batch_cases as bc
+    from carla_social_force_model_tpu_torch.utils import cuda_build
+    lib = cuda_build.load_kernels()
+    lib.sfm_walk_counters_read.argtypes = [ctypes.c_void_p]
+    lib.sfm_walk_attributes.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    cs = smoke()
+    for which, kernel in ((0, "pair_force_dense_batched<kTable, Moussaid>"),
+                          (1, "pair_force_dense<kTable, Moussaid>")):
+        attrs = (ctypes.c_int * 4)()
+        err = lib.sfm_walk_attributes(which, attrs)
+        line = json.dumps({"root": label, "kernel": kernel, "error": err,
+                           "blocks_per_sm": attrs[0], "registers": attrs[1],
+                           "static_shared_bytes": attrs[2],
+                           "local_bytes": attrs[3], "card": card})
+        print(line, flush=True)
+        sink.append(line)
+    big = bc.sort_rows(bc.batch_planes(
+        cs.CUT_TABLE_BATCH, cs.CUT_TABLE_N, seed=31, device=dev,
+        extent=max(25.0, cs.CUT_TABLE_N ** 0.5)))
+    sq_grid = bc.cutoff_grid_of("compact", big, cs.CUTOFF_M)
+    cases = [c for c in mesh_cases(dev, with_work=False)
+             if "dense_cutoff" not in c[0]]
+    cases.append((f"compact_batched {cs.CUT_TABLE_BATCH} x {cs.CUT_TABLE_N}",
+                  lambda: bc.batch_run("moussaid", "compact", big,
+                                       bc.law_params("moussaid"), sq_grid),
+                  None, 1))
+    out = (ctypes.c_ulonglong * 8)()
+    for name, fn, _, _ in cases:
+        torch.cuda.synchronize()
+        if lib.sfm_walk_counters_reset() != 0:
+            raise RuntimeError("cannot reset the walk counters")
+        fn()
+        torch.cuda.synchronize()
+        if lib.sfm_walk_counters_read(out) != 0:
+            raise RuntimeError("cannot read the walk counters")
+        got = dict(zip(COUNTERS, list(out)))
+        # 32-row blocks (each split of a row block counts once in "blocks")
+        blocks = max(got["blocks"], 1)
+        row = {"root": label, "case": name, "counters": got,
+               "per_block": {k: v / blocks for k, v in got.items()
+                             if k != "blocks"}, "card": card}
+        line = json.dumps(row)
+        print(line, flush=True)
+        sink.append(line)
 
 
 def batched_env_cases(dev):
@@ -551,10 +846,20 @@ def main() -> int:
     ap.add_argument("--cases", default="sym,env,dense",
                     help="comma-separated groups: sym, env, dense, "
                     "statics, feed (statics without chunk_argmin), "
-                    "capacity, batched")
+                    "capacity, batched, mesh")
+    ap.add_argument("--counters", action="store_true",
+                    help="patch counters into the checkout at --root (a "
+                    "copy made for it) and print the walks' counters "
+                    "instead of times")
     args = ap.parse_args()
     groups = set(args.cases.split(","))
     root = args.root.resolve()
+    if args.counters:
+        if root == HERE:
+            print("--counters patches the sources at --root: give it a "
+                  "copy of the checkout, not this one", file=sys.stderr)
+            return 2
+        instrument(root)
     sys.path[:0] = [str(root), str(HERE / "tests"), str(root / "tests")]
     import torch
     if not torch.cuda.is_available():
@@ -567,6 +872,13 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     cuda_build.load_kernels()
     lines: list[str] = []
+    if args.counters:
+        walk_counters(dev, args.label, card, lines)
+        if args.out is not None:
+            args.out.parent.mkdir(parents=True, exist_ok=True)
+            with args.out.open("a") as f:
+                f.write("".join(line + "\n" for line in lines))
+        return 0
     errors = {}
     if "sym" in groups:
         errors.update(sym_errors(dev))
@@ -584,13 +896,14 @@ def main() -> int:
             print(lines[-1], flush=True)
     cases = {"sym": sym_cases, "env": env_cases, "dense": dense_cases,
              "statics": statics_cases, "feed": feed_cases,
-             "capacity": capacity_cases, "batched": batched_cases}
+             "capacity": capacity_cases, "batched": batched_cases,
+             "mesh": mesh_cases}
     census = {}
-    if groups & {"statics", "feed"}:
+    if groups & {"statics", "feed", "mesh"}:
         from sass_census import census as sass
         census = sass(cuda_build.LIBRARY, root=root)
     run([c for g in ("sym", "env", "dense", "statics", "feed", "capacity",
-                     "batched")
+                     "batched", "mesh")
          if g in groups for c in cases[g](dev)], args.label, card, lines,
         census)
     if args.out is not None:

@@ -102,6 +102,20 @@ KERNELS = (
     ("pair_force_dense<kAllTiles, PowerLaw>",
      "pair_force_dense_kernel<0, PowerLaw", ("MUFU.EX2", None, None), 1,
      "pair", "kDenseRows"),
+    # the batched walks of the ensembles and the 2-D mesh (rows 2c, 3b and
+    # 3r-b of PERF.md): the box-skip walk, and the table walk under each law
+    ("pair_force_dense_batched<kBoxSkip, Moussaid>",
+     "pair_force_dense_batched_kernel<1, Moussaid", ("MUFU.EX2", None, None),
+     2, "pair", "kDenseRows"),
+    ("pair_force_dense_batched<kTable, Moussaid>",
+     "pair_force_dense_batched_kernel<2, Moussaid", ("MUFU.EX2", None, None),
+     2, "pair", "kDenseRows"),
+    ("pair_force_dense_batched<kTable, PowerLaw>",
+     "pair_force_dense_batched_kernel<2, PowerLaw", ("MUFU.EX2", None, None),
+     1, "pair", "kDenseRows"),
+    ("pair_force_dense_batched<kTable, Helbing>",
+     "pair_force_dense_batched_kernel<2, Helbing", ("MUFU.EX2", None, None),
+     1, "pair", "kDenseRows"),
     ("ring_force<false, Moussaid>",
      "ring_force_kernel<false, Moussaid, 1, false>", ("MUFU.EX2", None, None),
      2,
