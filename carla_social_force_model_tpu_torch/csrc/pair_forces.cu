@@ -66,12 +66,14 @@
 // row b of a dense walk sums in the unbatched launch's order and equals it
 // bitwise, and the unbatched kernels compile without a batch offset (one
 // read from blockIdx.y inside the shared bodies cost 8% on the dense walk
-// at 10k).  The batched table walk is the exception: its body is its own
-// (chunk_walk, which culls and stages single 32-column chunks and lets
-// each lane walk its own pairs), in dense_walk's order of additions, so it
-// too equals the unbatched launch bitwise.  The dense walks' cluster split sees the whole grid (B row
-// sets).  A batch of crowds whose slots are sharded over an agent axis (the
-// JAX package's make_sharded_ensemble_rollout: the kernels of _slab_call
+// at 10k).  The batched table walk and, above kBoxSkipTileWalk column
+// tiles, the batched box-skip walk are the exception: their body is their
+// own (chunk_walk, which culls and stages single 32-column chunks and lets
+// each lane walk its own pairs), in dense_walk's order of additions, so
+// they too equal the unbatched launch bitwise.  The dense walks' cluster
+// split sees the whole grid (B row sets).  A batch of crowds whose slots
+// are sharded over an agent axis (the JAX package's
+// make_sharded_ensemble_rollout: the kernels of _slab_call
 // under vmap) takes the same dense kernel in rectangular form (entries
 // sfm_pair_<dense|dense_cutoff|compact>_rect_batched: _pair_kernel and
 // _pair_kernel_compact with a batch axis; the square entries are its case
@@ -200,9 +202,9 @@ constexpr int kMaxSplit = 8;
 constexpr bool kDenseFastTail = true;
 static_assert(kSymTile % kDenseBlockRows == 0,
               "a survivor-table row covers whole blocks");
-// The batched table walk (chunk_walk): each warp keeps a window of
-// kChunkWindow staged chunks (PERF.md: 2 and 3 measured).  Its launch
-// bounds ask for kChunkBlocks blocks an SM for the Moussaid law (40
+// The batched box-skip and table walks (chunk_walk): each warp keeps a
+// window of kChunkWindow staged chunks (PERF.md: 2 and 3 measured).  Its
+// launch bounds ask for kChunkBlocks blocks an SM for the Moussaid law (40
 // registers a thread) and kChunkBlocksLean for the power law and Helbing
 // (48, no spills): 7 and 8 blocks give 32 registers, and the pair loop
 // then spills (PERF.md: 5-8 measured).
@@ -210,9 +212,18 @@ constexpr int kChunkWindow = 3;
 constexpr int kChunkBlocks = 6;
 constexpr int kChunkBlocksLean = 5;
 constexpr int kChunkFields = 5;  // a staged column: x, y, u, v, radius
+// A batched box-skip launch whose columns span at most kBoxSkipTileWalk
+// 256-column tiles takes dense_walk (kBoxSkipTiles) instead: there a row
+// block's box reaches nearly every tile and most of their chunks, so
+// culling by chunk saves few law steps and chunk_walk's dearer step loses
+// (PERF.md: chunk_walk slower at 1 and 4 tiles, faster at 49 and 196).
+// A function of the launch's shapes only.
+constexpr int kBoxSkipTileWalk = 8;
 
-// how a dense-layout block chooses its column tiles
-enum DenseWalk { kAllTiles, kBoxSkip, kTable };
+// how a dense-layout block chooses its column tiles: kBoxSkipTiles is the
+// box-skip walk by tile (dense_walk<kBoxSkip>) where a batched launch's
+// columns are few (kBoxSkipTileWalk)
+enum DenseWalk { kAllTiles, kBoxSkip, kTable, kBoxSkipTiles };
 // how a symmetric block finds its tile pair(s)
 enum SymWalk { kTriangle, kTriangleBox, kSymTable };
 
@@ -255,7 +266,8 @@ int dense_splits(int n_rows, int n_cols, int batch) {
   return s < parts ? s : parts;
 }
 
-// The blocks that share a row block's parts in the batched table walk:
+// The blocks that share a row block's parts in the batched box-skip and
+// table walks (chunk_walk):
 // dense_splits, and at least 2 where the columns are two or more shards'
 // worth of the rows gathered (D runs each sorted on its own curve, whose
 // halves of the parts both hold a row block's hits; in one sorted crowd a
@@ -498,18 +510,19 @@ __device__ __forceinline__ void cp_async_wait_all() {
                    "memory");
 }
 
-// The batched table walk (pair_force_dense_batched_kernel<kTable, Law>),
-// designed for the shapes it runs: B crowds, and a shard's rows against
-// the gathered columns, which are D runs each sorted on its own curve, so
-// that a 32-row block and a 256-column tile span about twice the width
-// they span in one sorted crowd and most of a hit tile's chunks hold no
-// pair (PERF.md).  The block's 32 rows and its parts are dense_walk's, but
-// nothing is staged or tested by tile: warp q owns chunk slot q of every
-// tile and walks it alone.  It tests the 32-column boxes of its
-// candidates' slot-q chunks (chunk_bb: the table row's listed tiles in the
-// block's parts, or every tile of them where the row overflowed), 32 at a
-// time, one per lane, and compacts the hits with a ballot.  It stages its
-// hit chunks into its own window of kChunkWindow shared-memory buffers
+// The batched box-skip and table walks (pair_force_dense_batched_kernel<
+// kBoxSkip | kTable, Law>), designed for the shapes they run: B crowds, and
+// a shard's rows against the gathered columns or another shard's block,
+// each sorted on its own curve, so that a 32-row block and a 256-column
+// tile span about twice the width they span in one sorted crowd and most
+// of a hit tile's chunks hold no pair (PERF.md).  The block's 32 rows and
+// its parts are dense_walk's, but nothing is staged or tested by tile:
+// warp q owns chunk slot q of every tile and walks it alone.  It tests the
+// 32-column boxes of its candidates' slot-q chunks (chunk_bb: every tile
+// of the block's parts in the box-skip walk and where a table row
+// overflowed, else the table row's listed tiles in the block's parts), 32
+// at a time, one per lane, and compacts the hits with a ballot.  It stages
+// its hit chunks into its own window of kChunkWindow shared-memory buffers
 // (cp.async; __syncwarp, never a block barrier), where each lane marks the
 // columns within the cutoff of its row (a mask a chunk, in registers).
 // Then each lane walks its own marked pairs, in column order, up to
@@ -521,7 +534,7 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // row's sum is dense_walk's order of additions (parts, chunk slots, tiles,
 // columns), every skipped chunk and column adding exactly +0: each crowd
 // equals the unbatched launch bitwise.
-template <class Law>
+template <int kWalk, class Law>
 __device__ __forceinline__ void chunk_walk(
     const Planes& rows, const Planes& cols, const float* __restrict__ prm,
     int use_radius, const float* __restrict__ chunk_bb,
@@ -579,7 +592,8 @@ __device__ __forceinline__ void chunk_walk(
   // the next hit chunk of slot `warp`, in ascending tile order, or -1: the
   // candidates 32 at a time, one per lane, compacted by a ballot
   const int trow = i_blk / kSymTile;
-  const bool table = counts[trow] <= max_surv;
+  bool table = false;
+  if constexpr (kWalk == kTable) table = counts[trow] <= max_surv;
   const int n_cand = table ? counts[trow] : t1 - t0;
   int base = 0, cand = -1;
   unsigned hits = 0;
@@ -768,15 +782,17 @@ __device__ __forceinline__ Planes batch_row(Planes p, int off) {
 // the global slots rows.off and cols.off the same in every crowd (a square
 // crowd: cols.n = rows.n, both offsets 0; a batch of crowds whose slots are
 // sharded over an agent axis: a shard's rows against gathered or rotated
-// columns); its parameters at blockIdx.y * prm_stride, its column-tile
-// boxes (kBoxSkip) or 32-column chunk boxes (kTable), table and counts at
-// its own offsets.  The all-tiles and box-skip walks are the unbatched
-// body (dense_walk); the table walk is chunk_walk, in dense_walk's order
-// of additions: row b equals the unbatched launch on row b bitwise.
+// columns); its parameters at blockIdx.y * prm_stride, its 32-column
+// chunk boxes (kBoxSkip, kTable) or 256-column tile boxes (kBoxSkipTiles),
+// table and counts at its own offsets.  The all-tiles walk and the
+// box-skip walk by tile are the unbatched body (dense_walk); the box-skip
+// and table walks are chunk_walk (every tile of the block's parts, or the
+// table row's listed ones), in dense_walk's order of additions: row b
+// equals the unbatched launch on row b bitwise.
 template <int kWalk, class Law>
 __global__ void __launch_bounds__(
     kDenseThreads,
-    kWalk != kTable ? 2048 / kDenseThreads
+    kWalk == kAllTiles || kWalk == kBoxSkipTiles ? 2048 / kDenseThreads
     : std::is_same<Law, Moussaid>::value ? kChunkBlocks
                                          : kChunkBlocksLean)
 pair_force_dense_batched_kernel(Planes rows, Planes cols,
@@ -790,23 +806,26 @@ pair_force_dense_batched_kernel(Planes rows, Planes cols,
   const long long crowd = blockIdx.y;
   const int ro = (int)crowd * rows.n;
   const int co = (int)crowd * cols.n;
-  if constexpr (kWalk == kTable) {  // col_bb: the 32-column chunk boxes
-    const long long nch = cols.n / kChunk + (cols.n % kChunk != 0);
-    const long long nt = (rows.n + kSymTile - 1) / kSymTile;
-    chunk_walk<Law>(batch_row(rows, ro), batch_row(cols, co),
-                    prm + (int)crowd * prm_stride, use_radius,
-                    col_bb + crowd * 4 * nch, surv + crowd * nt * max_surv,
-                    counts + crowd * nt, max_surv, c2, n_split, fx + ro,
-                    fy + ro);
-  } else {
-    if constexpr (kWalk != kAllTiles) {
+  if constexpr (kWalk == kAllTiles || kWalk == kBoxSkipTiles) {
+    if constexpr (kWalk == kBoxSkipTiles) {
       const long long nct = cols.n / kColTile + (cols.n % kColTile != 0);
       col_bb += crowd * 4 * nct;
     }
-    dense_walk<kWalk, Law>(batch_row(rows, ro), batch_row(cols, co),
-                           prm + (int)crowd * prm_stride, use_radius, col_bb,
-                           surv, counts, max_surv, c2, n_split, fx + ro,
-                           fy + ro);
+    dense_walk<kWalk == kAllTiles ? kAllTiles : kBoxSkip, Law>(
+        batch_row(rows, ro), batch_row(cols, co),
+        prm + (int)crowd * prm_stride, use_radius, col_bb, surv, counts,
+        max_surv, c2, n_split, fx + ro, fy + ro);
+  } else {  // col_bb: the 32-column chunk boxes
+    const long long nch = cols.n / kChunk + (cols.n % kChunk != 0);
+    const long long nt = (rows.n + kSymTile - 1) / kSymTile;
+    if constexpr (kWalk == kTable) {
+      surv += crowd * nt * max_surv;
+      counts += crowd * nt;
+    }
+    chunk_walk<kWalk, Law>(batch_row(rows, ro), batch_row(cols, co),
+                           prm + (int)crowd * prm_stride, use_radius,
+                           col_bb + crowd * 4 * nch, surv, counts, max_surv,
+                           c2, n_split, fx + ro, fy + ro);
   }
 }
 
@@ -1187,7 +1206,7 @@ int dense_launch(const Planes& rows, const Planes& cols, const float* prm,
   if (cols.n < 0 || batch < 1 || batch > 65535)
     return (int)cudaErrorInvalidValue;
   if (kWalk == kTable && max_surv < 1) return (int)cudaErrorInvalidValue;
-  const int n_split = (batched && kWalk == kTable)
+  const int n_split = (batched && (kWalk == kBoxSkip || kWalk == kTable))
                           ? chunk_splits(rows.n, cols.n, batch)
                           : dense_splits<kWalk>(rows.n, cols.n, batch);
   const long long blocks =
@@ -1205,17 +1224,37 @@ int dense_launch(const Planes& rows, const Planes& cols, const float* prm,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t e =
-      batched ? cudaLaunchKernelEx(&cfg,
-                                   pair_force_dense_batched_kernel<kWalk, Law>,
-                                   rows, cols, prm, prm_stride, use_radius,
-                                   col_bb, surv, counts, max_surv, c2,
-                                   n_split, fx, fy)
-              : cudaLaunchKernelEx(&cfg, pair_force_dense_kernel<kWalk, Law>,
-                                   rows, cols, prm, use_radius, col_bb, surv,
-                                   counts, max_surv, c2, n_split, fx, fy);
+  cudaError_t e = cudaErrorInvalidValue;  // kBoxSkipTiles: batched only
+  if (batched)
+    e = cudaLaunchKernelEx(&cfg, pair_force_dense_batched_kernel<kWalk, Law>,
+                           rows, cols, prm, prm_stride, use_radius, col_bb,
+                           surv, counts, max_surv, c2, n_split, fx, fy);
+  else if constexpr (kWalk != kBoxSkipTiles)
+    e = cudaLaunchKernelEx(&cfg, pair_force_dense_kernel<kWalk, Law>, rows,
+                           cols, prm, use_radius, col_bb, surv, counts,
+                           max_surv, c2, n_split, fx, fy);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// Launch of the batched box-skip walk: by tile (dense_walk, the tile boxes
+// col_bb) where the columns span at most kBoxSkipTileWalk tiles, else by
+// chunk (chunk_walk, the chunk boxes chunk_bb).
+template <class Law>
+int box_skip_batched_launch(const Planes& rows, const Planes& cols,
+                            const float* prm, int use_radius,
+                            const float* col_bb, const float* chunk_bb,
+                            float c2, float* fx, float* fy, void* stream,
+                            int batch, int prm_stride) {
+  const int nct = cols.n / kColTile + (cols.n % kColTile != 0);
+  return nct <= kBoxSkipTileWalk
+             ? dense_launch<kBoxSkipTiles, Law>(
+                   rows, cols, prm, use_radius, col_bb, nullptr, nullptr, 1,
+                   c2, fx, fy, stream, batch, prm_stride)
+             : dense_launch<kBoxSkip, Law>(rows, cols, prm, use_radius,
+                                           chunk_bb, nullptr, nullptr, 1, c2,
+                                           fx, fy, stream, batch,
+                                           prm_stride);
 }
 
 // Launch of a symmetric walk with law Law: one block per tile pair of the
@@ -1448,7 +1487,9 @@ int sfm_pair_sym_dense_cutoff(int law, const float* rx, const float* ry,
 // grid stacked: bb / col_bb (batch, 4, n_tiles), surv (batch, nt,
 // max_surv) and counts (batch, nt), nt = ceil(n / 128); the table form
 // (sfm_pair_compact_batched) reads 32-column chunk boxes (batch, 4,
-// ceil(n / 32)) as col_bb.
+// ceil(n / 32)) as col_bb, and the box-skip form
+// (sfm_pair_dense_cutoff_batched) takes them as chunk_bb beside the tile
+// boxes (box_skip_batched_launch reads one of the two).
 int sfm_pair_sym_batched(int law, const float* x, const float* y,
                          const float* vx, const float* vy, const float* rad,
                          const uint8_t* alive, const float* prm,
@@ -1520,14 +1561,15 @@ int sfm_pair_dense_cutoff_batched(int law, const float* rx, const float* ry,
                                   const float* crad, const uint8_t* calive,
                                   const float* prm, int prm_stride,
                                   int use_radius, int n, int batch,
-                                  const float* col_bb, float c2, float* fx,
-                                  float* fy, void* stream) {
+                                  const float* col_bb, const float* chunk_bb,
+                                  float c2, float* fx, float* fy,
+                                  void* stream) {
   const Planes rows = planes(rx, ry, ru, rv, rrad, ralive, n, 0);
   const Planes cols = planes(cx, cy, cvx, cvy, crad, calive, n, 0);
   return with_any_law(law, [&](auto l) {
-    return dense_launch<kBoxSkip, decltype(l)>(
-        rows, cols, prm, use_radius, col_bb, nullptr, nullptr, 1, c2, fx, fy,
-        stream, batch, prm_stride);
+    return box_skip_batched_launch<decltype(l)>(
+        rows, cols, prm, use_radius, col_bb, chunk_bb, c2, fx, fy, stream,
+        batch, prm_stride);
   });
 }
 
@@ -1560,8 +1602,10 @@ int sfm_pair_compact_batched(int law, const float* rx, const float* ry,
 // n_cols), all zero on entry.  The cutoff forms take each crowd's grid
 // stacked: col_bb (batch, 4, n_col_tiles; the table form
 // sfm_pair_compact_rect_batched: 32-column chunk boxes, (batch, 4,
-// ceil(n_cols / 32))), row_bb (batch, 4, n_row_tiles), surv (batch, nt,
-// max_surv) and counts (batch, nt), nt = ceil(n_rows / 128).
+// ceil(n_cols / 32)); the box-skip form sfm_pair_dense_cutoff_rect_batched
+// takes those as chunk_bb beside the tile boxes), row_bb (batch, 4,
+// n_row_tiles), surv (batch, nt, max_surv) and counts (batch, nt), nt =
+// ceil(n_rows / 128).
 int sfm_pair_dense_rect_batched(int law, const float* rx, const float* ry,
                                 const float* ru, const float* rv,
                                 const float* rrad, const uint8_t* ralive,
@@ -1587,13 +1631,14 @@ int sfm_pair_dense_cutoff_rect_batched(
     int row_off, const float* cx, const float* cy, const float* cvx,
     const float* cvy, const float* crad, const uint8_t* calive, int n_cols,
     int col_off, const float* prm, int prm_stride, int use_radius, int batch,
-    const float* col_bb, float c2, float* fx, float* fy, void* stream) {
+    const float* col_bb, const float* chunk_bb, float c2, float* fx,
+    float* fy, void* stream) {
   const Planes rows = planes(rx, ry, ru, rv, rrad, ralive, n_rows, row_off);
   const Planes cols = planes(cx, cy, cvx, cvy, crad, calive, n_cols, col_off);
   return with_any_law(law, [&](auto l) {
-    return dense_launch<kBoxSkip, decltype(l)>(
-        rows, cols, prm, use_radius, col_bb, nullptr, nullptr, 1, c2, fx, fy,
-        stream, batch, prm_stride);
+    return box_skip_batched_launch<decltype(l)>(
+        rows, cols, prm, use_radius, col_bb, chunk_bb, c2, fx, fy, stream,
+        batch, prm_stride);
   });
 }
 

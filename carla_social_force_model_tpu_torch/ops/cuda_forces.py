@@ -178,13 +178,13 @@ def _check_grid(grid: CutoffGrid, n_rows: int, n_cols: int, dev,
                 batch: int | None = None):
     """The boxes and table a cutoff kernel reads, against the shapes its C
     entry assumes for ``n_rows`` rows and ``n_cols`` columns (each crowd's,
-    with a leading ``batch`` axis on every tensor; the batched table walk
-    also reads the columns' chunk boxes)."""
+    with a leading ``batch`` axis on every tensor; the batched box-skip
+    and table walks also read the columns' chunk boxes)."""
     tile = SYM_TILE if grid.form.startswith("sym") else COL_TILE
     lead = () if batch is None else (batch,)
     want = [("boxes", grid.boxes, torch.float32,
              (*lead, 4, -(-n_cols // tile)))]
-    if grid.form == "compact" and batch is not None:
+    if grid.form in ("dense_cutoff", "compact") and batch is not None:
         want.append(("chunk_boxes", grid.chunk_boxes, torch.float32,
                      (batch, 4, -(-n_cols // CHUNK))))
     if grid.form == "sym_dense_cutoff":
@@ -268,9 +268,15 @@ def _launch(law: str, form: str, pos_x, pos_y, vel_x, vel_y, radius, alive,
         _check_grid(grid, n, n_cols, pos_x.device, batch)
         if grid.row_boxes is not None:
             grid_args.append(grid.row_boxes.data_ptr())
-        # the batched table walk tests the chunk boxes instead of the tiles'
-        grid_args.append((grid.chunk_boxes if base == "compact"
-                          and batch is not None else grid.boxes).data_ptr())
+        # the batched table walk tests the chunk boxes instead of the
+        # tiles'; the batched box-skip launch takes both and reads the
+        # boxes of the walk its shapes choose
+        if base == "compact" and batch is not None:
+            grid_args.append(grid.chunk_boxes.data_ptr())
+        else:
+            grid_args.append(grid.boxes.data_ptr())
+            if base == "dense_cutoff" and batch is not None:
+                grid_args.append(grid.chunk_boxes.data_ptr())
         if grid.surv is not None:
             grid_args += [grid.surv.data_ptr(), grid.counts.data_ptr(),
                           grid.max_surv]
@@ -635,12 +641,13 @@ def kernel_sharded_force(law, pos_x, pos_y, vel_x, vel_y, radius, alive, p,
     * ``"gather"``: all-gather the column planes, one rectangular launch
       (with ``cutoff``: the box skip, and above the gate the survivor
       table of ``compact``/``max_surv``);
-    * ``"ring"``: the column block (with its tile boxes under a cutoff)
-      rotates shard d -> d - 1 (the Pallas ring's direction, :753), one
-      rectangular launch per step; with ``symmetric`` and an
-      antisymmetric law the half-ring: the local triangle on the diagonal,
-      then D // 2 full-block launches whose mirrored column sums ride an
-      accumulator with the block and hop home at the end (:774-829);
+    * ``"ring"``: the column block (with its tile boxes under a cutoff,
+      and a batch's chunk boxes) rotates shard d -> d - 1 (the Pallas
+      ring's direction, :753), one rectangular launch per step; with
+      ``symmetric`` and an antisymmetric law the half-ring: the local
+      triangle on the diagonal, then D // 2 full-block launches whose
+      mirrored column sums ride an accumulator with the block and hop
+      home at the end (:774-829);
     * ``"ring_kernel"``: the in-kernel ring (:mod:`.cuda_ring`), one launch
       for every shard.
 
@@ -680,7 +687,11 @@ def kernel_sharded_force(law, pos_x, pos_y, vel_x, vel_y, radius, alive, p,
         return _half_ring(axis, law, rows, prm, perm, use_ped_radius, cutoff)
     boxes = (None if cutoff is None
              else box_planes(pos_x, pos_y, alive, COL_TILE))
-    blk = (*rows, boxes)
+    # a batch's block also carries its chunk boxes (the batched box-skip
+    # walk's): built once from the shard's own block, they rotate with it
+    chunks = (box_planes(pos_x, pos_y, alive, CHUNK)
+              if cutoff is not None and batched else None)
+    blk = (*rows, boxes, chunks)
     fx = torch.zeros_like(pos_x)
     fy = torch.zeros_like(pos_y)
     for step in range(d):
@@ -688,7 +699,8 @@ def kernel_sharded_force(law, pos_x, pos_y, vel_x, vel_y, radius, alive, p,
         # does so that the transfer overlaps the compute
         nxt = _rotate(axis, blk, perm) if step < d - 1 else None
         grid = None if cutoff is None else rect_grid(
-            pos_x, pos_y, alive, blk[6], n, cutoff, compact=False)
+            pos_x, pos_y, alive, blk[6], n, cutoff, compact=False,
+            chunk_bb=blk[7])
         gx, gy = rect(*rows, prm, blk[:6], row_offset=me * n,
                       col_offset=((me + step) % d) * n, grid=grid, **kw)
         fx, fy = fx + gx, fy + gy

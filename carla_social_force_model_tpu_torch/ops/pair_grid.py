@@ -28,8 +28,10 @@ Tile geometry of this port (the TPU's 192 x 512 tiles, auto ``max_surv`` of
   hits overflows alone: its blocks walk every column tile with the box
   test, decided on the device, so the result is exact either way.
 * ``CHUNK`` = 32 columns: a warp's culling unit inside a tile.  The
-  batched table walk (``compact_batched``, ``compact_rect_batched``) tests
-  and stages single chunks, so its grid also carries the chunks' boxes.
+  batched box-skip and table walks (``dense_cutoff_batched``,
+  ``dense_cutoff_rect_batched``, ``compact_batched``,
+  ``compact_rect_batched``) test and stage single chunks, so their grids
+  also carry the chunks' boxes.
 * ``GATE_COL_TILES`` = 64: the table engages above 64 column tiles of 256
   (N > 16,384).  Below it the whole grid is small (at most 64 box tests
   per block, or 8,256 triangle blocks) and the table's extra launches cost
@@ -147,9 +149,10 @@ class CutoffGrid(NamedTuple):
     of a batch of crowds (:func:`cutoff_grid` of ``(B, n)`` planes) has the
     same form and ``max_surv`` for every crowd and a leading batch axis on
     ``boxes`` ``(B, 4, n_tiles)``, ``surv`` ``(B, nt, max_surv)`` and
-    ``counts`` ``(B, nt)``; its ``"compact"`` form also holds
-    ``chunk_boxes``, the columns' 32-column boxes ``(B, 4, n_chunks)``,
-    which the batched table walk tests instead of the tile boxes."""
+    ``counts`` ``(B, nt)``; its ``"dense_cutoff"`` and ``"compact"`` forms
+    also hold ``chunk_boxes``, the columns' 32-column boxes ``(B, 4,
+    n_chunks)``, which the batched box-skip and table walks test instead
+    of the tile boxes."""
 
     form: str
     boxes: torch.Tensor
@@ -160,8 +163,8 @@ class CutoffGrid(NamedTuple):
     #: the rows' 128-agent tile boxes of a ``"sym_dense_cutoff"`` launch
     #: (the other forms take the rows' boxes from the same planes)
     row_boxes: torch.Tensor | None = None
-    #: the columns' ``CHUNK``-column boxes of a batched ``"compact"``
-    #: launch (None in the other grids)
+    #: the columns' ``CHUNK``-column boxes of a batched ``"dense_cutoff"``
+    #: or ``"compact"`` launch (None in the other grids)
     chunk_boxes: torch.Tensor | None = None
 
 
@@ -176,10 +179,12 @@ def cutoff_grid(x, y, alive, cutoff: float, symmetric: bool = True,
     engage, ms = compact_gate(n, symmetric, compact, max_surv)
     row_bb = box_planes(x, y, alive, SYM_TILE)
     col_bb = row_bb if symmetric else box_planes(x, y, alive, COL_TILE)
+    chunks = (box_planes(x, y, alive, CHUNK)
+              if x.dim() == 2 and not symmetric else None)
     c2 = cutoff_sq(cutoff)
     if not engage:
         return CutoffGrid("sym_cutoff" if symmetric else "dense_cutoff",
-                          col_bb, None, None, 0, c2)
+                          col_bb, None, None, 0, c2, chunk_boxes=chunks)
     hits = _bbox_hits(row_bb, col_bb, cutoff)
     if symmetric:
         nt = row_bb.shape[-1]
@@ -188,14 +193,13 @@ def cutoff_grid(x, y, alive, cutoff: float, symmetric: bool = True,
     if symmetric:
         return CutoffGrid("sym_compact", col_bb, surv.contiguous(), counts,
                           ms, c2)
-    chunks = box_planes(x, y, alive, CHUNK) if x.dim() == 2 else None
     return CutoffGrid("compact", col_bb, surv.contiguous(), counts, ms, c2,
                       chunk_boxes=chunks)
 
 
 def rect_grid(row_x, row_y, row_alive, col_bb, n_cols: int, cutoff: float,
-              compact: bool = True, max_surv: int = 0,
-              cols=None) -> CutoffGrid:
+              compact: bool = True, max_surv: int = 0, cols=None,
+              chunk_bb=None) -> CutoffGrid:
     """The grid of a dense cutoff launch of sorted row planes against a
     block of ``n_cols`` sorted columns with 256-column tile boxes ``col_bb``
     (:func:`box_planes`): the box test alone, or above the gate (on the
@@ -203,20 +207,23 @@ def rect_grid(row_x, row_y, row_alive, col_bb, n_cols: int, cutoff: float,
     column tiles.  The square grid of :func:`cutoff_grid` with
     ``symmetric=False`` is this grid with the rows as the columns.  A batch
     of crowds (``(B, n)`` row planes, ``(B, 4, n_tiles)`` column boxes)
-    gives the batched grid, row b equal to the grid of row b alone; its
-    table form also needs the column planes ``cols`` = ``(x, y, alive)``,
-    whose chunk boxes the batched table walk tests."""
+    gives the batched grid, row b equal to the grid of row b alone; it also
+    needs the columns' chunk boxes, which the batched box-skip and table
+    walks test: ``chunk_bb`` (:func:`box_planes` of the columns with
+    ``CHUNK``, where the caller holds them: a ring block's ride with it),
+    or else those of the column planes ``cols`` = ``(x, y, alive)``."""
     engage, ms = compact_gate(n_cols, False, compact, max_surv)
     c2 = cutoff_sq(cutoff)
+    if chunk_bb is None and cols is not None and row_x.dim() == 2:
+        chunk_bb = box_planes(*cols, CHUNK)
     if not engage:
-        return CutoffGrid("dense_cutoff", col_bb, None, None, 0, c2)
+        return CutoffGrid("dense_cutoff", col_bb, None, None, 0, c2,
+                          chunk_boxes=chunk_bb)
     hits = _bbox_hits(box_planes(row_x, row_y, row_alive, SYM_TILE), col_bb,
                       cutoff)
     surv, counts = surv_counts(hits, ms)
-    chunks = (box_planes(*cols, CHUNK)
-              if cols is not None and row_x.dim() == 2 else None)
     return CutoffGrid("compact", col_bb, surv.contiguous(), counts, ms, c2,
-                      chunk_boxes=chunks)
+                      chunk_boxes=chunk_bb)
 
 
 def block_grid(row_bb, col_bb, cutoff: float) -> CutoffGrid:

@@ -74,13 +74,14 @@ ARGTYPES = {
                                      + [_PTR] * 3 + [_INT, _FLOAT]
                                      + [_PTR] * 3),
     "sfm_pair_dense_cutoff_batched": ([_INT] + [_PTR] * 13 + [_INT] * 4
-                                      + [_PTR, _FLOAT] + [_PTR] * 3),
+                                      + [_PTR, _PTR, _FLOAT] + [_PTR] * 3),
     "sfm_pair_compact_batched": ([_INT] + [_PTR] * 13 + [_INT] * 4
                                  + [_PTR] * 3 + [_INT, _FLOAT] + [_PTR] * 3),
-    # the batched rectangular forms: ..., batch, [col_bb, [surv, counts,
-    # max_surv,] c2,] fx, fy, stream
+    # the batched rectangular forms: ..., batch, [col_bb, [chunk_bb | surv,
+    # counts, max_surv,] c2,] fx, fy, stream
     "sfm_pair_dense_rect_batched": _RECT_BATCHED + [_PTR] * 3,
-    "sfm_pair_dense_cutoff_rect_batched": (_RECT_BATCHED + [_PTR, _FLOAT]
+    "sfm_pair_dense_cutoff_rect_batched": (_RECT_BATCHED
+                                           + [_PTR, _PTR, _FLOAT]
                                            + [_PTR] * 3),
     "sfm_pair_compact_rect_batched": (_RECT_BATCHED + [_PTR] * 3
                                       + [_INT, _FLOAT] + [_PTR] * 3),

@@ -93,10 +93,9 @@ at N = 1,000 with remat on and off (peak memory and seconds), and the
 native A* core against the Python search on the Town02 crowd's routes
 (both set-up times).  It counts
 the kernel launches of each path, and checks every step of short rollouts
-(50 steps; the family and batched paths 25, phases 31 and 32 10) through
-the kernels against the same
-step through the plain versions from the same state (and names the agent
-of the worst step).  Phase 2 also counts the SASS
+(PARITY_STEPS; the family and batched paths 25, phases 31 and 32 10) through
+the kernels against the same step through the plain versions from the same
+state (and names the agent of the worst step).  Phase 2 also counts the SASS
 instructions of the symmetric and dense pair walks', the ring's, the
 environment kernel's, the chunk scan's and the chunk top-k's inner loops
 (``tools/sass_census.py``, with cuobjdump and nvdisasm), and the kernel
@@ -130,21 +129,25 @@ STEPS = 1_000
 #: within half its time limit once the scenario phases came in (the urban
 #: record keeps STEPS: its walkers need the time to reach the crossings)
 MAIN_STEPS = 200
-PARITY_STEPS = 50
+#: steps of the one-step checks against the plain versions from the same
+#: state (and of config #1's free-running distance): cut from 50, with
+#: SHARD_STEPS, after a whole run took 1,124 s of its 1,200 s on an H100
+#: host slower than most (PERF.md)
+PARITY_STEPS = 25
 #: kernel vs plain version, elementwise |got - want| <= ATOL + RTOL*|want|:
 #: f32 summation order (the symmetric kernel's atomics change it from run
 #: to run) and last-ulp differences of rsqrt/atan2/exp
 ATOL = RTOL = 1e-4
 #: end to end, one step from the same state through the kernels and through
-#: the plain versions, at every step of a 50-step rollout: the kernels'
+#: the plain versions, at every step of a PARITY_STEPS rollout: the kernels'
 #: force error (ATOL/RTOL) moves an agent by at most dt^2 * 1e-4 * |f| (or,
 #: velocity-capped, dt * 2 m/s * 1e-4), plus a few ulps of a 100 m position
 POS_STEP_TOL_M = 1e-4
-#: end to end, 50 free-running steps through the kernels vs through the
-#: plain versions (config #1 only: no agent there amplifies a difference
-#: within 50 steps; in config #3 an agent pinned against a border doubles
-#: a one-ulp difference about every five steps, so that comparison is
-#: printed, not held to a limit)
+#: end to end, PARITY_STEPS free-running steps through the kernels vs
+#: through the plain versions (config #1 only: no agent there amplifies a
+#: difference within 50 steps; in config #3 an agent pinned against a
+#: border doubles a one-ulp difference about every five steps, so that
+#: comparison is printed, not held to a limit)
 POS_TOL_M = 1e-3
 #: the cutoff path: BASELINE config #1 with a 30 m interaction cutoff at
 #: the sizes users run it (extent sqrt(N): 0.25 pedestrians/m^2); the
@@ -257,7 +260,7 @@ ARGMIN_OPS = 8
 #: force evaluates all N^2 pairs) and those of the 1-rank NCCL run
 SHARDS = 4
 RING_DEVICES = (2, 3, 4, 8)
-SHARD_STEPS = 50
+SHARD_STEPS = 25
 SHARD_SIDE_STEPS = 20
 SHARD_BIG_PLAIN_STEPS = 3
 #: steps of the 10k paths also checked against the sharded plain path (the
@@ -2917,10 +2920,15 @@ def cutoff_batch_phases(dev, zero, card, launches, worst, profile_steps):
                                   if law == "helbing" else lines[form]),
                            ms, plain, bnd)
             floor = ""
-            if form == "compact":  # the batched table walk's inner loop
-                census = ("pair_force_dense_batched<kTable, "
-                          + {"moussaid": "Moussaid", "powerlaw": "PowerLaw",
-                             "helbing": "Helbing"}[law] + ">")
+            if not form.startswith("sym"):  # the batched box-skip and
+                # table walks' inner loop (the walk their shapes choose)
+                from sass_census import box_skip_walk
+                census = ("pair_force_dense_batched<"
+                          + ("kTable" if form == "compact"
+                             else box_skip_walk(n))
+                          + ", " + {"moussaid": "Moussaid",
+                                    "powerlaw": "PowerLaw",
+                                    "helbing": "Helbing"}[law] + ">")
                 if CENSUS.get(census):
                     floor = "; " + floor_note(
                         census, 2 * pairs_u if law == "moussaid"

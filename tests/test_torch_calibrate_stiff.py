@@ -32,6 +32,14 @@ passes then part, and the stiff law amplifies the gap:
 ORCA (16 x 120, window 8) is held over the whole horizon: its compiled
 projection differs from the per-operation one at tick 0 only (agent 11,
 2.4e-4 m/s).
+
+How XLA contracts depends on the host's CPU, so the compiled loss is no
+fixed reference: on a host with AVX-512 the power law's loss at window 2
+came out 1.01492e-3 apart (relative), past RTOL.  So
+:func:`assert_loss_and_grads_match` runs the JAX package's loss and
+gradients op by op (``jax.disable_jit``).  The horizons above were cut
+against the compiled loss and stay as they are; the observed record is
+still the compiled rollout's, the same input to both packages.
 """
 import dataclasses
 
@@ -120,8 +128,9 @@ def assert_loss_and_grads_match(jb, pb, jobs, steps, fit, theta,
         jl = jcal.make_loss_fn(jst, js, jp, jc, jobs, steps, fit=fit, **kw)
         pl = cal.make_loss_fn(pst, ps, pp, pc, to_torch(jobs), steps,
                               fit=fit, **kw)
-    jv, jg = jax.value_and_grad(jl)({k: jnp.asarray(v)
-                                     for k, v in theta.items()})
+    with jax.disable_jit():  # op by op: see the module docstring
+        jv, jg = jax.value_and_grad(jl)({k: jnp.asarray(v)
+                                         for k, v in theta.items()})
     pv, pg = cal.value_and_grad(pl, {k: torch.tensor(v)
                                      for k, v in theta.items()})
     np.testing.assert_allclose(float(pv), float(jv), rtol=RTOL,

@@ -2543,9 +2543,10 @@ def test_chunk_walk_equals_the_box_skip_and_unbatched_walks(cuda_device,
     per-lane pair walks) on quarter-density shards, each sorted on its own
     curve, shard 1's rows against the gathered columns or shard 2's block:
     one launch, bitwise equal to the box-skip walk over every tile
-    (``dense_cutoff_rect_batched``) and to the unbatched table launch on
-    each crowd, within the limit of the plain batched version, dead rows
-    exactly 0.  Tables that overflow (1, 2 slots) and that fit, a column
+    (``dense_cutoff_rect_batched``: by chunk too on the gathered columns,
+    by tile on the 1,037-column block) and to the unbatched table launch
+    on each crowd (``dense_walk``: the witness), within the limit of the
+    plain batched version, dead rows exactly 0.  Tables that overflow (1, 2 slots) and that fit, a column
     count that is not a multiple of 32 or 256, B = 1, and crowds with
     other alive counts (one a third alive, one whose row shard is dead)."""
     b, n, gathered, slots, cutoff, uneven = CHUNK_WALK_CASES[case]
@@ -2592,6 +2593,112 @@ def test_chunk_walk_needs_the_chunk_boxes(cuda_device):
             cuda_forces.pair_force_rect_batched(
                 *rows[:6], prm, tuple(planes[:6]), row_offset=k,
                 grid=grid._replace(chunk_boxes=bad))
+    assert not any(cuda_forces.LAUNCHES.values())
+
+
+#: the batched box-skip walk's cases: (crowds, agents a crowd, the columns
+#: of shard 1's rows -- the gathered columns, shard 2's block, or a square
+#: crowd's own --, cutoff, crowds with other alive counts).  Columns of at
+#: most 8 tiles of 256 (2,048) take the walk by tile (csrc/pair_forces.cu
+#: kBoxSkipTileWalk), more the walk by chunk: both are here, and the edge.
+BOX_SKIP_CASES = {
+    "gathered": (3, 4 * 1037, "gathered", 8.0, False),
+    "ring block": (3, 4 * 1037, "ring block", 8.0, False),
+    "ring block, 11 tiles": (3, 4 * 2600, "ring block", 8.0, False),
+    "B=1, gathered": (1, 4 * 1037, "gathered", 8.0, False),
+    "B=1, ring block": (1, 4 * 1037, "ring block", 8.0, False),
+    "uneven alive, gathered": (3, 4 * 1037, "gathered", 8.0, True),
+    "uneven alive, ring block": (3, 4 * 2600, "ring block", 8.0, True),
+    "30 m, gathered": (2, 4 * 5003, "gathered", 30.0, False),
+    "config #5 + 30 m": (16, 1000, "square", 30.0, False),
+    "square, uneven alive": (3, 1037, "square", 8.0, True),
+    "square, B=1": (1, 1037, "square", 8.0, False),
+    "square, 2,048 columns": (2, 2048, "square", 8.0, False),
+    "square, 2,049 columns": (2, 2049, "square", 8.0, True),
+    "square, 12 tiles": (3, 3000, "square", 10.0, False)}
+
+
+@pytest.mark.parametrize("law", ["moussaid", "powerlaw", "helbing"])
+@pytest.mark.parametrize("case", sorted(BOX_SKIP_CASES))
+def test_batched_box_skip_walk_equals_the_unbatched_walk(cuda_device, law,
+                                                         case):
+    """The batched box-skip walk (``dense_cutoff_rect_batched`` and the
+    square ``dense_cutoff_batched``: by chunk, with per-lane pair walks,
+    over every tile, or by tile where the columns are few) on
+    quarter-density shards, each sorted on its own curve, shard 1's rows
+    against the gathered columns or shard 2's block, and on square crowds
+    (config #5's: 1,000 agents, 30 m, 35 m extent): one launch, each crowd
+    bitwise equal to the unbatched box-skip launch (``pair_force_rect`` /
+    ``pair_force_cutoff``, ``dense_walk``), within the limit of the plain
+    batched version, dead rows exactly 0.  B = 1, column counts that are
+    not a multiple of 32 or 256, either side of the walks' edge, and crowds
+    with other alive counts (one a third alive, one whose row shard, or
+    most of whose crowd, is dead)."""
+    b, n, cols, cutoff, uneven = BOX_SKIP_CASES[case]
+    prefix = cuda_forces.LAWS[law][0]
+    before = dict(cuda_forces.LAUNCHES)
+    if cols == "square":
+        planes = bc.sort_rows(bc.batch_planes(b, n, seed=n + b,
+                                              device=cuda_device,
+                                              extent=35.0))
+        if uneven:
+            planes[5][1] &= torch.arange(n, device=cuda_device) % 3 == 0
+            planes[5][-1, 40:] = False
+        grid = bc.cutoff_grid_of("dense_cutoff", planes, cutoff)
+        p = bc.law_params(law)
+        got = bc.batch_run(law, "dense_cutoff", planes, p, grid)
+        name = f"{prefix}_dense_cutoff_batched"
+        assert cuda_forces.LAUNCHES[name] == before[name] + 1
+        m = bc.pair_mismatch(law, "dense_cutoff", planes, p, got, grid=grid,
+                             cutoff=cutoff)
+        assert torch.isfinite(got).all()
+        assert m["rows_equal"] and m["over"] == 0, (case, m)
+        assert bool((got[:, ~planes[5]] == 0).all())
+        return
+    planes = batch_shard_planes(b, n, seed=n + b, device=cuda_device,
+                                n_shards=4, sort=True)
+    k = n // 4
+    if uneven:
+        planes[5][1] &= torch.arange(n, device=cuda_device) % 3 == 0
+        planes[5][-1, k:2 * k] = False
+    got, want, lim, one = rect_batch_case(law, planes, 4, 1, cutoff,
+                                          cols == "gathered", compact=False)
+    name = f"{prefix}_dense_cutoff_rect_batched"
+    assert cuda_forces.LAUNCHES[name] == before[name] + 1
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, one), case
+    assert bool(((got - want).abs() <= lim).all()), case
+    assert bool((got[:, ~planes[5][:, k:2 * k]] == 0).all())
+
+
+@pytest.mark.parametrize("square", [False, True])
+def test_box_skip_walk_needs_the_chunk_boxes(cuda_device, square):
+    """A batched box-skip grid (rectangular or square) without its chunk
+    boxes, or with another crowd count's, is refused before any launch."""
+    planes = batch_shard_planes(3, 4 * 1037, seed=4, device=cuda_device,
+                                n_shards=4, sort=True)
+    k = 1037
+    prm = cuda_forces.law_rows("moussaid", MoussaidParams(), 3, cuda_device)
+    if square:
+        grid = pair_grid.cutoff_grid(planes[0], planes[1], planes[5], 8.0,
+                                     symmetric=False, compact=False)
+        launch = lambda g: cuda_forces.pair_force_cutoff_batched(  # noqa
+            *planes[:6], prm, g)
+    else:
+        rows = [a[:, k:2 * k].contiguous() for a in planes]
+        grid = pair_grid.rect_grid(
+            rows[0], rows[1], rows[5],
+            pair_grid.box_planes(planes[0], planes[1], planes[5],
+                                 pair_grid.COL_TILE), 4 * k, 8.0,
+            compact=False, cols=(planes[0], planes[1], planes[5]))
+        launch = lambda g: cuda_forces.pair_force_rect_batched(  # noqa
+            *rows[:6], prm, tuple(planes[:6]), row_offset=k, grid=g)
+    assert grid.form == "dense_cutoff"
+    cuda_forces.reset_launch_counts()
+    for bad in (None, grid.chunk_boxes[:2].contiguous()):
+        with pytest.raises(ValueError, match="chunk_boxes"):
+            launch(grid._replace(chunk_boxes=bad))
     assert not any(cuda_forces.LAUNCHES.values())
 
 

@@ -602,7 +602,14 @@ def step_by_step(jax_side, port_side, steps, monkeypatch, tol=POS_TOL_M):
     ps, pp, pc = port_side
     js = jstepper.prepare_scene(js, analytic=jc.env_analytic, orca=True)
     ps = stepper.prepare_scene(ps, analytic=pc.env_analytic, orca=True)
-    step = jax.jit(lambda s, k: jstepper.simulation_step(s, js, jp, jc, k)[0])
+
+    def step(s, k):
+        # op by op: compiled, XLA's CPU compiler contracts products into
+        # fused multiply-adds as the host's CPU allows, and the port rounds
+        # every operation on its own
+        with jax.disable_jit():
+            return jstepper.simulation_step(s, js, jp, jc, k)[0]
+
     fallback = FallbackRows(monkeypatch)
     worst = 0.0
     for k in range(steps):

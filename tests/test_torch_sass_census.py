@@ -49,6 +49,11 @@ def test_layout_constants_are_read_from_the_sources():
     ("pair_force_dense<kAllTiles, Helbing>", "kDenseRows"),
     ("pair_force_dense<kAllTiles, PowerLaw>", "kDenseRows"),
     ("pair_force_dense_batched<kBoxSkip, Moussaid>", "kDenseRows"),
+    ("pair_force_dense_batched<kBoxSkip, PowerLaw>", "kDenseRows"),
+    ("pair_force_dense_batched<kBoxSkip, Helbing>", "kDenseRows"),
+    ("pair_force_dense_batched<kBoxSkipTiles, Moussaid>", "kDenseRows"),
+    ("pair_force_dense_batched<kBoxSkipTiles, PowerLaw>", "kDenseRows"),
+    ("pair_force_dense_batched<kBoxSkipTiles, Helbing>", "kDenseRows"),
     ("pair_force_dense_batched<kTable, Moussaid>", "kDenseRows"),
     ("pair_force_dense_batched<kTable, PowerLaw>", "kDenseRows"),
     ("pair_force_dense_batched<kTable, Helbing>", "kDenseRows"),

@@ -26,14 +26,17 @@ def copy(tmp_path):
 def test_every_counter_lands_in_the_walks(copy):
     """Each counter is added where the walk it counts does that work: the
     dense walk's tile staging, chunk culling, overflow and blocks, the law
-    calls of its inner loop, and each of the batched table walk's; the C
-    entries that read and reset them come before the last entry."""
+    calls of its inner loop and its chunks with a pair, and each of the
+    batched box-skip and table walk's; the C entries that read and reset
+    them come before the last entry."""
     bench.instrument(copy)
     src = (copy / CSRC / "pair_forces.cu").read_text()
     laws = (copy / CSRC / "pair_laws.cuh").read_text()
     assert "static __device__ unsigned long long sfm_walk_counters[8];" in laws
     assert laws.count("sfm_walk_counters[2]") == 1
-    for k, times in ((0, 1), (1, 2), (2, 1), (3, 1), (4, 2), (5, 2), (6, 1)):
+    assert laws.count("sfm_walk_counters[7]") == 1
+    for k, times in ((0, 1), (1, 2), (2, 1), (3, 1), (4, 2), (5, 2), (6, 1),
+                     (7, 1)):
         assert src.count(f"sfm_walk_counters[{k}]") == times, k
     for entry in ("sfm_walk_counters_read", "sfm_walk_counters_reset",
                   "sfm_walk_attributes"):
@@ -41,7 +44,7 @@ def test_every_counter_lands_in_the_walks(copy):
             "const char* sfm_cuda_error_string")
     body = src[src.index("__device__ __forceinline__ void chunk_walk("):]
     body = body[:body.index("\n}\n")]
-    for k in (1, 2, 3, 4, 5, 6):
+    for k in (1, 2, 3, 4, 5, 6, 7):
         assert f"sfm_walk_counters[{k}]" in body, k
 
 

@@ -47,18 +47,21 @@ at D = 4 over N = 10,000 and over N = 2 x 50,688 agents (on 132 SMs) at
 D = 4 and D = 1 (``"ms": null`` where the launch is refused).
 
 ``--cases batched`` times the square batched dense walks at phase 27's
-and phase 30's shapes (config #5 under each law, its 30 m cutoff, the table
-at 8 x 50,000 under each law) and the batched environment walks on one
-shared set at phase 31's (256 crowds of 1,000 over config #3's geometry:
-the borders sampled and analytic and the parked cars, dense and on the
-survivor tables).
+and phase 30's shapes (config #5 under each law, its 30 m cutoff under
+each law, the table at 8 x 50,000 under each law and the box skip at 8 x
+50,000, the cutoff forms with bounds and issue floors) and the batched
+environment walks on one shared set at phase 31's (256 crowds of 1,000
+over config #3's geometry: the borders sampled and analytic and the
+parked cars, dense and on the survivor tables).
 
 ``--cases mesh`` times the rectangular batched walks at phase 33's shapes:
 the table walk ``compact_rect_batched`` on one shard's 4 crowds x 12,500
 rows of 8 x 50,000 (2 x 4 mesh, quarter-density shards each sorted on its
 own curve) against the 50,000 gathered columns with 32 slots, and the
-box-skip walk ``dense_cutoff_rect_batched`` at the same shapes and on the
-12,500-column block of the next shard; beside them, on the same candidate
+box-skip walk ``dense_cutoff_rect_batched`` under each law at the same
+shapes and on the 12,500-column block of the next shard, and at phase
+33's config #5 shapes (128 crowds x 250 rows x 1,000 gathered columns,
+and x the 250-column block); beside them, on the same candidate
 pairs, the unbatched ``pair_force_compact_rect`` on crowd 0's shard and
 ``pair_force_compact`` at 50,000 on crowd 0 sorted as one crowd, and the
 batched table walk on that crowd alone (B = 1: what the batched walk gives
@@ -66,11 +69,13 @@ the unbatched problem).  Each line carries its bound (``chip_smoke.bound``
 of the pairs within 30 m) and the issue floor of those pairs through the
 kernel's inner loop (``tools/sass_census.py``).
 
-``--counters`` runs the mesh and table cases once each through a debug
-build and prints, per 32-row block, what the dense and table walks did:
-column tiles staged (``dense_walk``), chunks staged or tested, law
-evaluations (32 a warp step), pairs within the cutoff, blocks whose table
-row overflowed, and the blocks and table rows behind them.  The debug
+``--counters`` runs the Moussaid mesh cases, the square table walk at 8 x
+50,000 and the square box skip at config #5 + 30 m once each through a
+debug build and prints, per 32-row block, what the walks did: column
+tiles staged (``dense_walk``), chunks staged (or walked) and tested,
+chunks with a pair, law evaluations (32 a warp step), pairs within the
+cutoff, blocks whose table row overflowed, and the blocks and table rows
+behind them.  The debug
 build is the checkout at ``--root`` with counters patched into its sources
 (:func:`instrument`: atomic adds at the walks' staging, culling and law
 calls, and C entries that read and reset them); never give it a copy you
@@ -101,6 +106,8 @@ import json
 import subprocess
 import sys
 from pathlib import Path
+
+from sass_census import box_skip_walk
 
 HERE = Path(__file__).resolve().parent.parent
 N = 10_000
@@ -213,14 +220,79 @@ def dense_cases(dev):
     return out
 
 
-def batched_cases(dev):
-    """(name, call, kernel name filter, reps) of the square batched dense
-    walks (``pair_force_dense_batched_kernel``) at the smoke's shapes:
-    phase 27's config #5 (256 crowds x 1,000) under each law, phase 30's
-    box-skip form at config #5 + 30 m and its table form at 8 x 50,000
-    under each law."""
-    import batch_cases as bc
+#: the law structs' names in the kernels' census labels
+LAW_TYPES = {"moussaid": "Moussaid", "powerlaw": "PowerLaw",
+             "helbing": "Helbing"}
+
+
+def law_work(law, rows, cols, c2, row_off, col_off, tables=0):
+    """``work()`` of one dense launch of ``law`` (``mesh_cases``): rows
+    ``(B, R)`` against columns ``(B, C)`` (planes x, y, vx, vy, radius,
+    alive; Helbing's rows read their desired directions in the velocity
+    slots and no radius), ``tables`` further words of grid read once.
+    ``(bound, units)``: the bound of ``chip_smoke.bound`` (every plane
+    read once, the forces written once, the law's operations on the
+    ordered pairs within ``c2`` that this data holds: the power law's
+    gates counted as ``chip_smoke.family_work`` counts them) and those
+    pairs, the issue floor's units."""
+    import torch
+    import shard_cases as sc
     cs = smoke()
+    tau_max = sc.law_params("powerlaw").tau_max
+    x, y, vx, vy, rad, alive = rows[:6]
+    cx, cy, cvx, cvy, crad, calive = cols[:6]
+    ri = torch.arange(x.shape[1], device=x.device) + row_off
+    ci = torch.arange(cx.shape[1], device=x.device) + col_off
+    pairs = course = active = 0
+    for b in range(x.shape[0]):
+        for lo in range(0, x.shape[1], 1024):
+            hi = lo + 1024
+            dx = cx[b, None, :] - x[b, lo:hi, None]
+            dy = cy[b, None, :] - y[b, lo:hi, None]
+            ok = (alive[b, lo:hi, None] & calive[b, None, :]
+                  & (ri[lo:hi, None] != ci[None, :])
+                  & (dx * dx + dy * dy <= c2))
+            pairs += int(ok.sum())
+            if law != "powerlaw":
+                continue
+            dvx = vx[b, lo:hi, None] - cvx[b, None, :]
+            dvy = vy[b, lo:hi, None] - cvy[b, None, :]
+            a = dvx * dvx + dvy * dvy
+            bb = -dx * dvx - dy * dvy
+            rs = rad[b, lo:hi, None] + crad[b, None, :]
+            c = dx * dx + dy * dy - rs * rs
+            disc = bb * bb - a * c
+            on = ok & (c > 0.0) & (disc > 0.0) & (a > 1e-8)
+            tau = ((-bb - torch.sqrt(torch.where(on, disc, 1.0)))
+                   / torch.where(on, a, 1.0))
+            course += int(on.sum())
+            active += int((on & (tau > 0.0) & (tau < tau_max)).sum())
+    if law == "moussaid":
+        ops, mufu = pairs * cs.PAIR_OPS, pairs * cs.PAIR_MUFU
+    elif law == "powerlaw":
+        ops = (pairs * cs.PL_GATE_OPS + course * cs.PL_TAU_OPS
+               + active * cs.PL_FORCE_OPS)
+        mufu = course * cs.PL_TAU_MUFU + active * cs.PL_FORCE_MUFU
+    else:
+        ops, mufu = pairs * cs.HB_OPS, pairs * cs.HB_MUFU
+    plane_bytes = 4 * (4 if law == "helbing" else 5) + 1
+    nb = x.shape[0]
+    n_bytes = (nb * ((x.shape[1] + cx.shape[1]) * plane_bytes
+                     + 8 * x.shape[1]) + 4 * (tables + 6 * nb))
+    return cs.bound(n_bytes, ops, mufu), pairs
+
+
+def batched_cases(dev):
+    """(name, call, kernel name filter, reps[, work]) of the square batched
+    dense walks (``pair_force_dense_batched_kernel``) at the smoke's
+    shapes: phase 27's config #5 (256 crowds x 1,000) under each law, and
+    phase 30's box-skip form at config #5 + 30 m and its table form at 8 x
+    50,000 under each law, and the box-skip form at 8 x 50,000, these with
+    their bounds and issue floors (``work``, as in :func:`mesh_cases`)."""
+    import batch_cases as bc
+    from carla_social_force_model_tpu_torch.ops import pair_grid
+    cs = smoke()
+    root = Path(pair_grid.__file__).resolve().parents[2]
     planes = bc.batch_planes(cs.BATCH, cs.BATCH_N, seed=27, device=dev,
                              extent=35.0)
     small = bc.sort_rows(bc.batch_planes(cs.BATCH, cs.BATCH_N, seed=30,
@@ -228,21 +300,35 @@ def batched_cases(dev):
     big = bc.sort_rows(bc.batch_planes(
         cs.CUT_TABLE_BATCH, cs.CUT_TABLE_N, seed=31, device=dev,
         extent=max(25.0, cs.CUT_TABLE_N ** 0.5)))
+    kernel = "pair_force_dense_batched_kernel"
     out = [(f"dense_batched {law} {cs.BATCH} x {cs.BATCH_N}",
             lambda law=law: bc.batch_run(law, "dense", planes,
-                                         bc.law_params(law)))
+                                         bc.law_params(law)), kernel, 20)
            for law in ("moussaid", "powerlaw", "helbing")]
-    for form, pl in (("dense_cutoff", small), ("compact", big)):
+    c2 = pair_grid.cutoff_sq(cs.CUTOFF_M)
+    for form, pl, laws in (
+            ("dense_cutoff", small, ("moussaid", "powerlaw", "helbing")),
+            ("compact", big, ("moussaid", "powerlaw", "helbing")),
+            ("dense_cutoff", big, ("moussaid",))):
         grid = bc.cutoff_grid_of(form, pl, cs.CUTOFF_M)
         b, n = pl[0].shape
-        for law in (("moussaid", "powerlaw", "helbing") if form == "compact"
-                    else ("moussaid",)):
+        walk = (box_skip_walk(n, root) if form == "dense_cutoff"
+                else "kTable")
+        tables = sum(t.numel() for t in (
+            grid.boxes if walk == "kBoxSkipTiles"
+            or getattr(grid, "chunk_boxes", None) is None
+            else grid.chunk_boxes, grid.surv, grid.counts) if t is not None)
+        for law in laws:
+            def work(pl=pl, law=law, walk=walk, tables=tables):
+                bnd, pairs = law_work(law, pl, pl, c2, 0, 0, tables)
+                return (bnd, f"pair_force_dense_batched<{walk}, "
+                        f"{LAW_TYPES[law]}>", pairs)
             out.append((f"{form}_batched {b} x {n}"
                         + ("" if law == "moussaid" else f" {law}"),
                         lambda pl=pl, g=grid, f=form, law=law: bc.batch_run(
-                            law, f, pl, bc.law_params(law), g)))
-    return ([(name, fn, "pair_force_dense_batched_kernel", 20)
-             for name, fn in out] + batched_env_cases(dev))
+                            law, f, pl, bc.law_params(law), g),
+                        kernel, 20, work))
+    return out + batched_env_cases(dev)
 
 
 def rect_grid_of(rows, cols, cutoff, **kw):
@@ -294,45 +380,58 @@ def mesh_cases(dev, with_work=True):
     wbgrid = pair_grid.cutoff_grid(wb[0], wb[1], wb[5], cs.CUTOFF_M,
                                    symmetric=False, max_surv=slots)
     prm1 = cuda_forces.law_vector("moussaid", p, dev)
-    plane_bytes, out_bytes = 5 * 4 + 1, 2 * 4
 
     def work(r, c, grid, row_off, col_off, label):
         def fn():
-            pairs = cs.rect_pairs_within(
-                [t if t.dim() == 2 else t[None] for t in r],
-                [t if t.dim() == 2 else t[None] for t in c], c2, row_off,
-                col_off)
-            nb = r[0].shape[0] if r[0].dim() == 2 else 1
+            r2, cc = ([t if t is None or t.dim() == 2 else t[None] for t in q]
+                      for q in (r, c))
             tabs = sum(t.numel() for t in (
                 grid.chunk_boxes if getattr(grid, "chunk_boxes", None)
                 is not None else grid.boxes, grid.surv, grid.counts)
                 if t is not None)
-            bnd = cs.bound(nb * ((r[0].shape[-1] + c[0].shape[-1])
-                                 * plane_bytes + out_bytes * r[0].shape[-1])
-                           + 4 * tabs + 4 * 6, pairs * cs.PAIR_OPS,
-                           pairs * cs.PAIR_MUFU)
+            bnd, pairs = law_work("moussaid", r2, cc, c2, row_off, col_off,
+                                  tabs)
             return bnd, label, pairs
         return fn
 
     batched = "pair_force_dense_batched_kernel"
     unbatched = "pair_force_dense_kernel"
+    root = Path(cuda_forces.__file__).resolve().parents[2]
+
+    def box_skip(law, rows, cols, row_off, col_off, grid, what):
+        """The box-skip walk of ``law`` on ``rows`` against ``cols``, with
+        the census label of the walk its shapes choose."""
+        nb, nr = rows[0].shape
+        args, kw = sc.law_args(law, rows)
+        lprm = law_rows(law, sc.law_params(law), nb, dev)
+        walk = box_skip_walk(cols[0].shape[-1], root)
+
+        def fn():
+            return cuda_forces.pair_force_rect_batched(
+                *args, lprm, six(cols), row_offset=row_off,
+                col_offset=col_off, grid=grid, **kw)
+
+        def law_fn():
+            tables = (grid.boxes if walk == "kBoxSkipTiles"
+                      or getattr(grid, "chunk_boxes", None) is None
+                      else grid.chunk_boxes)
+            bnd, pairs = law_work(law, rows, cols, c2, row_off, col_off,
+                                  tables.numel())
+            return (bnd, f"pair_force_dense_batched<{walk}, "
+                    f"{LAW_TYPES[law]}>", pairs)
+        return (f"dense_cutoff_rect_batched {nb} x {nr} x {what}"
+                + ("" if law == "moussaid" else f" {law}"), fn, batched, 20,
+                law_fn)
+
     cases = [
         (f"compact_rect_batched {b} x {k} x {n}, {slots} slots", lambda:
          cuda_forces.pair_force_rect_batched(*six(rows), prm, six(tpl),
                                              row_offset=k, grid=table),
          batched, 20, work(rows, tpl, table, k, 0,
                            "pair_force_dense_batched<kTable, Moussaid>")),
-        (f"dense_cutoff_rect_batched {b} x {k} x {n}", lambda:
-         cuda_forces.pair_force_rect_batched(*six(rows), prm, six(tpl),
-                                             row_offset=k, grid=skip),
-         batched, 20, work(rows, tpl, skip, k, 0,
-                           "pair_force_dense_batched<kBoxSkip, Moussaid>")),
-        (f"dense_cutoff_rect_batched {b} x {k} x {k} ring block", lambda:
-         cuda_forces.pair_force_rect_batched(
-             *six(rows), prm, six(blk), row_offset=k, col_offset=2 * k,
-             grid=skip_blk),
-         batched, 20, work(rows, blk, skip_blk, k, 2 * k,
-                           "pair_force_dense_batched<kBoxSkip, Moussaid>")),
+        box_skip("moussaid", rows, tpl, k, 0, skip, f"{n}"),
+        box_skip("moussaid", rows, blk, k, 2 * k, skip_blk,
+                 f"{k} ring block"),
         (f"compact_rect (unbatched) crowd 0's {k} x {n}, {slots} slots",
          lambda: cuda_forces.pair_force_rect(
              *six(one_rows), prm1, six(one_cols), row_offset=k,
@@ -359,13 +458,35 @@ def mesh_cases(dev, with_work=True):
                            torch.stack(want).reshape(-1)):
             raise RuntimeError(f"mesh case {label}: the table walk differs "
                                f"from the walk it must equal bitwise")
+    # the power law's and Helbing's box-skip walks, gathered and on the ring
+    # block (Helbing takes the box skip in every ring step)
+    cases += [box_skip(law, rows, cols, k, off, grid, what)
+              for law in ("powerlaw", "helbing")
+              for cols, off, grid, what in (
+                  (tpl, 0, skip, f"{n}"),
+                  (blk, 2 * k, skip_blk, f"{k} ring block"))]
+    # the box-skip walk at phase 33's config #5 shapes (2 x 4 mesh: one
+    # shard's 128 crowds x 250 rows against the 1,000 gathered columns and
+    # the next shard's 250-column block)
+    ck = cs.BATCH_N // d
+    cpl = sc.batch_shard_planes(cs.BATCH // cs.MESH_BATCH_SHARDS, cs.BATCH_N,
+                                seed=33, device=dev, extent=35.0,
+                                n_shards=d, sort=True)
+    crows = [a[:, ck:2 * ck].contiguous() for a in cpl]
+    cblk = [a[:, 2 * ck:3 * ck].contiguous() for a in cpl]
+    cases += [box_skip("moussaid", crows, cols, ck, off,
+                       rect_grid_of(crows, cols, cs.CUTOFF_M, compact=False),
+                       what)
+              for cols, off, what in (
+                  (cpl, 0, f"{cs.BATCH_N}"),
+                  (cblk, 2 * ck, f"{ck} ring block"))]
     return cases if with_work else [c[:4] for c in cases]
 
 
 #: the counters of a debug build (:func:`instrument`), in order
 COUNTERS = ("tiles staged", "chunks staged", "law evaluations",
             "pairs within the cutoff", "overflowing blocks", "blocks",
-            "chunks tested")
+            "chunks tested", "chunks with a pair")
 
 
 def instrument(root: Path) -> None:
@@ -373,8 +494,11 @@ def instrument(root: Path) -> None:
     debug build for ``--counters``; idempotent).  Each insertion follows an
     anchor line of ``csrc/``: the parent's walk (``dense_walk`` and the
     inner loop ``rows_vs_chunk``) and, where the checkout has it, the
-    batched table walk ``chunk_walk``; a missing anchor of the first
-    raises."""
+    batched box-skip and table walk ``chunk_walk``; a missing anchor of the
+    first raises.  "chunks staged" counts the chunks ``dense_walk`` walks
+    (those its box test passes) and the chunks ``chunk_walk`` stages;
+    "chunks with a pair" those of them where some lane holds a pair within
+    the cutoff."""
     csrc = root / "carla_social_force_model_tpu_torch" / "csrc"
     add = "atomicAdd(&sfm_walk_counters[{}], {})"
     law = ("{{ const unsigned okm_ = __ballot_sync(kAllLanes, ok); "
@@ -385,8 +509,14 @@ def instrument(root: Path) -> None:
             ('#include "pair_forces.cuh"\n',
              "static __device__ unsigned long long sfm_walk_counters[8];\n",
              True),
+            ("  if (!any) return false;\n", "  bool sfm_pair_ = false;\n",
+             True),
             ("        if (!__any_sync(kAllLanes, ok)) continue;\n",
-             "        " + law.format() + "\n", True)],
+             "        " + law.format() + " sfm_pair_ = true;\n", True),
+            ("#pragma unroll 2\n    for (int k = 0; k < cnt; ++k) step(k);"
+             "\n  }\n",
+             "  if (sfm_pair_ && (threadIdx.x & 31) == 0) "
+             + add.format(7, "1ull") + ";\n", True)],
         "pair_forces.cu": [
             ("  RowSet<kR> rw;\n",
              "  if (threadIdx.x == 0) " + add.format(5, "1ull") + ";\n", True),
@@ -403,6 +533,14 @@ def instrument(root: Path) -> None:
             ("  const bool table = counts[trow] <= max_surv;\n",
              "  if (tid == 0 && !table) " + add.format(4, "1ull") + ";\n",
              False),
+            ("\n  if constexpr (kWalk == kTable) table = counts[trow] <= "
+             "max_surv;\n",
+             "  if constexpr (kWalk == kTable) { if (tid == 0 && !table) "
+             + add.format(4, "1ull") + "; }\n", False),
+            ("      for (int q = 0; q < kWin; ++q) wm[q] = q == b ? mine : "
+             "wm[q];\n",
+             "      if (__any_sync(kAllLanes, mine != 0) && lane == 0) "
+             + add.format(7, "1ull") + ";\n", False),
             ("        win_t[warp][b] = t_next;\n",
              "        " + add.format(1, "1ull") + ";\n", False),
             ("      hits = __ballot_sync(kAllLanes, h);\n",
@@ -420,14 +558,16 @@ def instrument(root: Path) -> None:
              "  unsigned long long z[8] = {0};\n"
              "  return (int)cudaMemcpyToSymbol(sfm_walk_counters, z, "
              "sizeof(z));\n}\n"
-             "// which: 0 the batched table kernel, 1 the unbatched one; out:"
-             " resident blocks an SM, registers, static shared and local "
-             "bytes\n"
+             "// which: 0 the batched table kernel, 1 the unbatched one, 2 "
+             "the batched box-skip kernel; out: resident blocks an SM, "
+             "registers, static shared and local bytes\n"
              "int sfm_walk_attributes(int which, int* out) {\n"
              "  const void* k = which == 0 ? (const void*)"
              "pair_force_dense_batched_kernel<kTable, Moussaid>\n"
+             "                 : which == 1 ? (const void*)"
+             "pair_force_dense_kernel<kTable, Moussaid>\n"
              "                            : (const void*)"
-             "pair_force_dense_kernel<kTable, Moussaid>;\n"
+             "pair_force_dense_batched_kernel<kBoxSkip, Moussaid>;\n"
              "  cudaFuncAttributes a;\n"
              "  cudaError_t e = cudaFuncGetAttributes(&a, k);\n"
              "  if (e == cudaSuccess) e = "
@@ -455,10 +595,11 @@ def instrument(root: Path) -> None:
 
 
 def walk_counters(dev, label, card, sink):
-    """One launch of each mesh case and of the square table walk at 8 x
-    50,000 through the debug build: its counters per 32-row block (one JSON
-    line each), with the table rows that overflow and the kernels'
-    resident blocks, registers and shared and local bytes."""
+    """One launch of each Moussaid mesh case, of the square table walk at 8
+    x 50,000 and of the square box-skip walk at config #5 + 30 m (phase
+    30's 256 x 1,000) through the debug build: its counters per 32-row
+    block (one JSON line each), with the table rows that overflow and the
+    kernels' resident blocks, registers and shared and local bytes."""
     import ctypes
     import torch
     import batch_cases as bc
@@ -468,7 +609,9 @@ def walk_counters(dev, label, card, sink):
     lib.sfm_walk_attributes.argtypes = [ctypes.c_int, ctypes.c_void_p]
     cs = smoke()
     for which, kernel in ((0, "pair_force_dense_batched<kTable, Moussaid>"),
-                          (1, "pair_force_dense<kTable, Moussaid>")):
+                          (1, "pair_force_dense<kTable, Moussaid>"),
+                          (2, "pair_force_dense_batched<kBoxSkip, "
+                              "Moussaid>")):
         attrs = (ctypes.c_int * 4)()
         err = lib.sfm_walk_attributes(which, attrs)
         line = json.dumps({"root": label, "kernel": kernel, "error": err,
@@ -481,13 +624,20 @@ def walk_counters(dev, label, card, sink):
         cs.CUT_TABLE_BATCH, cs.CUT_TABLE_N, seed=31, device=dev,
         extent=max(25.0, cs.CUT_TABLE_N ** 0.5)))
     sq_grid = bc.cutoff_grid_of("compact", big, cs.CUTOFF_M)
+    small = bc.sort_rows(bc.batch_planes(cs.BATCH, cs.BATCH_N, seed=30,
+                                         device=dev, extent=35.0))
+    skip_grid = bc.cutoff_grid_of("dense_cutoff", small, cs.CUTOFF_M)
     cases = [c for c in mesh_cases(dev, with_work=False)
-             if "dense_cutoff" not in c[0]]
+             if "powerlaw" not in c[0] and "helbing" not in c[0]]
     cases.append((f"compact_batched {cs.CUT_TABLE_BATCH} x {cs.CUT_TABLE_N}",
                   lambda: bc.batch_run("moussaid", "compact", big,
                                        bc.law_params("moussaid"), sq_grid),
                   None, 1))
-    out = (ctypes.c_ulonglong * 8)()
+    cases.append((f"dense_cutoff_batched {cs.BATCH} x {cs.BATCH_N}",
+                  lambda: bc.batch_run("moussaid", "dense_cutoff", small,
+                                       bc.law_params("moussaid"), skip_grid),
+                  None, 1))
+    out = (ctypes.c_ulonglong * len(COUNTERS))()
     for name, fn, _, _ in cases:
         torch.cuda.synchronize()
         if lib.sfm_walk_counters_reset() != 0:
@@ -899,7 +1049,7 @@ def main() -> int:
              "capacity": capacity_cases, "batched": batched_cases,
              "mesh": mesh_cases}
     census = {}
-    if groups & {"statics", "feed", "mesh"}:
+    if groups & {"statics", "feed", "mesh", "batched"}:
         from sass_census import census as sass
         census = sass(cuda_build.LIBRARY, root=root)
     run([c for g in ("sym", "env", "dense", "statics", "feed", "capacity",

@@ -102,11 +102,28 @@ KERNELS = (
     ("pair_force_dense<kAllTiles, PowerLaw>",
      "pair_force_dense_kernel<0, PowerLaw", ("MUFU.EX2", None, None), 1,
      "pair", "kDenseRows"),
-    # the batched walks of the ensembles and the 2-D mesh (rows 2c, 3b and
-    # 3r-b of PERF.md): the box-skip walk, and the table walk under each law
+    # the batched walks of the ensembles and the 2-D mesh (rows 2c, 2r-b,
+    # 3b and 3r-b of PERF.md): the box-skip and table walks (chunk_walk)
+    # and the box-skip walk by tile (dense_walk, few columns:
+    # box_skip_walk) under each law
     ("pair_force_dense_batched<kBoxSkip, Moussaid>",
      "pair_force_dense_batched_kernel<1, Moussaid", ("MUFU.EX2", None, None),
      2, "pair", "kDenseRows"),
+    ("pair_force_dense_batched<kBoxSkip, PowerLaw>",
+     "pair_force_dense_batched_kernel<1, PowerLaw", ("MUFU.EX2", None, None),
+     1, "pair", "kDenseRows"),
+    ("pair_force_dense_batched<kBoxSkip, Helbing>",
+     "pair_force_dense_batched_kernel<1, Helbing", ("MUFU.EX2", None, None),
+     1, "pair", "kDenseRows"),
+    ("pair_force_dense_batched<kBoxSkipTiles, Moussaid>",
+     "pair_force_dense_batched_kernel<3, Moussaid", ("MUFU.EX2", None, None),
+     2, "pair", "kDenseRows"),
+    ("pair_force_dense_batched<kBoxSkipTiles, PowerLaw>",
+     "pair_force_dense_batched_kernel<3, PowerLaw", ("MUFU.EX2", None, None),
+     1, "pair", "kDenseRows"),
+    ("pair_force_dense_batched<kBoxSkipTiles, Helbing>",
+     "pair_force_dense_batched_kernel<3, Helbing", ("MUFU.EX2", None, None),
+     1, "pair", "kDenseRows"),
     ("pair_force_dense_batched<kTable, Moussaid>",
      "pair_force_dense_batched_kernel<2, Moussaid", ("MUFU.EX2", None, None),
      2, "pair", "kDenseRows"),
@@ -229,6 +246,20 @@ def layout_constants(root: Path = ROOT) -> dict[str, int]:
             if name in wanted:
                 out[name] = int(value)
     return out
+
+
+def box_skip_walk(n_cols: int, root: Path = ROOT) -> str:
+    """The walk of a batched box-skip launch over ``n_cols`` columns in the
+    checkout at ``root`` (``box_skip_batched_launch`` of
+    csrc/pair_forces.cu), as its census labels name it: ``kBoxSkipTiles``
+    (``dense_walk``) up to ``kBoxSkipTileWalk`` 256-column tiles,
+    ``kBoxSkip`` above, and where the checkout has no such constant (its
+    box-skip kernel is its one walk)."""
+    src = (root / "carla_social_force_model_tpu_torch" / "csrc"
+           / "pair_forces.cu").read_text()
+    m = re.search(r"constexpr int kBoxSkipTileWalk = (\d+);", src)
+    return ("kBoxSkipTiles" if m and -(-n_cols // 256) <= int(m.group(1))
+            else "kBoxSkip")
 
 
 def tool(name: str) -> str:
