@@ -70,8 +70,12 @@
 // tiles, the batched box-skip walk are the exception: their body is their
 // own (chunk_walk, which culls and stages single 32-column chunks and lets
 // each lane walk its own pairs), in dense_walk's order of additions, so
-// they too equal the unbatched launch bitwise.  The dense walks' cluster
-// split sees the whole grid (B row sets).  A batch of crowds whose slots
+// they too equal the unbatched launch bitwise.  The batched symmetric
+// cutoff walks have a body of their own too (sym_rows_walk: one block per
+// crowd and 128-row tile, walking its row's column tiles), which, like the
+// unbatched walk, equals the plain version up to f32 summation order.
+// The dense walks' cluster split sees the whole grid (B row sets).  A
+// batch of crowds whose slots
 // are sharded over an agent axis (the JAX package's
 // make_sharded_ensemble_rollout: the kernels of _slab_call
 // under vmap) takes the same dense kernel in rectangular form (entries
@@ -1103,12 +1107,293 @@ pair_force_sym_kernel(Planes pl, const float* __restrict__ prm,
                        max_surv, c2, fx, fy);
 }
 
-// A symmetric walk over a batch of crowds of pl.n agents: crowd
-// blockIdx.y's planes and outputs at blockIdx.y * pl.n, its parameters at
-// blockIdx.y * prm_stride, its tile boxes, table and counts at its own
-// offsets (kTriangleBox, kSymTable).
+// The batched symmetric cutoff walks (pair_force_sym_batched_kernel<
+// kTriangleBox | kSymTable, Law>: ensembles and sweeps with a cutoff),
+// designed for the shapes they run (config #5's 256 crowds of 1,000 and
+// 8 crowds of 50,000; PERF.md).  The unbatched walk gives each tile pair
+// its own block: it stages 128 columns, reduces eight boxes, passes two
+// barriers and ends with 512 atomics for about 45 warp law steps a warp,
+// the table launches max_surv blocks a table row, most of them empty,
+// and each warp walks its own 32 rows, so the block waits at its barriers
+// for the warp whose rows reach the most chunks.  Here a block holds one
+// 128-row tile of one crowd, staged once in shared memory, and walks the
+// column tiles of its row: the triangle's tiles from ti on with the
+// tile-box test, or the tiles its table row lists (every tile from ti on
+// with the box test where the row overflowed).  The candidates are tested
+// kSymTile at a time, one a thread, and compacted with ballots.  A row's
+// candidates are dealt out to kSymRowSplits blocks in turn (candidate k
+// to split k mod S), so that the long rows do not set the launch's end;
+// S is a function of the shapes only.  Each thread reads its column of the
+// next tile into registers while the block walks the current one, so a
+// tile's loads are never waited for.  Staging a tile writes it to shared
+// memory, and warp w lists the work of column chunk w: for each row chunk
+// whose box its box reaches, two items of 16 steps of the staggered
+// schedule of sym_tile_pair (lane L meets column (L + s) mod 32 at step s,
+// so the lanes' partials never collide), steps 0-15 and 16-31.  On the
+// diagonal tile only the row chunks r <= w: r < w both items, and r = w
+// one item of steps 1-16 (pair {L, L + s} appears at steps s and 32 - s;
+// at step 16 only lanes below 16): each unordered pair once.  The warps
+// take the tile's items in turn from a shared counter, so they reach the
+// tile's barrier together.  An item runs the law only at steps where some
+// lane's pair lies within the cutoff (a ballot), and adds its rows' sums
+// and its columns' reactions to the warp's own partials in shared memory.
+// Dead rows and columns are staged at x = +inf, so that the cutoff test
+// alone drops their pairs (their squared distance is +inf or NaN), and
+// the law's mask gives them exactly 0.
+// After each tile one barrier closes its columns: thread t adds column
+// t's four warp partials in order and makes one atomic per component
+// where the sum is not zero (fx starts at +0 and never becomes -0, so an
+// atomic of +-0 changes nothing); the rows' sums go out so once a block.
+constexpr int kSymBatchRows = 1;  // rows a lane holds in sym_rows_walk
+// launch bounds of sym_rows_walk: resident blocks of kSymTile threads an
+// SM (PERF.md: 8, 10, 12 and 16 measured; 8 leaves the loop unspilled),
+// and the most blocks a row's candidates are dealt out to (PERF.md: 1, 2,
+// 4 and 8 measured)
+constexpr int kSymRowBlocks = 8;
+constexpr int kSymRowSplits = 4;
+
+struct SymRowShared {
+  // the block's rows and the staged column tile (dead ones at x = +inf)
+  float rx[kSymTile], ry[kSymTile], ru[kSymTile], rv[kSymTile];
+  float rr[kSymTile];
+  float cx[kSymTile], cy[kSymTile], cu[kSymTile], cv[kSymTile];
+  float cr[kSymTile];
+  // +f partials of each row and -f partials of each column, one row per
+  // warp
+  float row_x[kSymWarps][kSymTile], row_y[kSymWarps][kSymTile];
+  float col_x[kSymWarps][kSymTile], col_y[kSymWarps][kSymTile];
+  float rbox[kSymWarps][4];  // each row chunk's box of alive rows
+  // each column chunk's items (row chunk | kind << 2: kind 0 steps 0-15,
+  // 1 steps 16-31, 2 steps 1-16 of a chunk against itself), their count
+  // and the next item a warp takes
+  unsigned char items[kSymWarps][2 * kSymWarps];
+  int n_items[kSymWarps];
+  int next;
+  int list[kSymTile];  // the hit candidates being walked
+  int wcount[kSymWarps];
+};
+
+// Block (crowd, ti, split) of a batched symmetric cutoff walk over the
+// planes pl of one crowd (the kernel passes its crowd's planes,
+// parameters, boxes, table and outputs): row tile ti against the column
+// tiles of its row dealt to this split.
 template <int kWalk, class Law>
-__global__ void __launch_bounds__(kSymTile)
+__device__ __forceinline__ void sym_rows_walk(
+    const Planes& pl, const float* __restrict__ prm, int use_radius,
+    int n_tiles, const float* __restrict__ bb, const int* __restrict__ surv,
+    const int* __restrict__ counts, int max_surv, float c2, int ti,
+    int split, int n_split, float* __restrict__ fx, float* __restrict__ fy) {
+  static_assert(Law::kAntisymmetric,
+                "the Newton's-third-law walk needs an antisymmetric law");
+  static_assert(kSymBatchRows == 1 && kSymWarps * kChunk == kSymTile,
+                "an item gives a lane one row of a 32-row chunk");
+  __shared__ SymRowShared sm;
+  const typename Law::Prm p = Law::load(prm);
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int n = pl.n;
+  const long long nt = n_tiles;
+
+  // the row's candidates: its table row's listed tiles, or, in the
+  // triangle-box walk and where the table row overflowed, tiles ti .. nt-1
+  // with the tile-box test; this split takes every n_split-th from split
+  bool table = false;
+  if constexpr (kWalk == kSymTable) table = counts[ti] <= max_surv;
+  const int n_row = table ? counts[ti] : (int)(nt - ti);
+  const int n_cand = n_row > split ? (n_row - split - 1) / n_split + 1 : 0;
+  const float bx0 = bb[ti], bx1 = bb[nt + ti];
+  const float by0 = bb[2 * nt + ti], by1 = bb[3 * nt + ti];
+
+  // row tid of tile ti, staged; each row chunk's box
+  {
+    const int i = ti * kSymTile + tid;
+    const bool in = i < n;
+    const float x = in ? pl.x[i] : 0.0f;
+    const float y = in ? pl.y[i] : 0.0f;
+    const bool a = in && pl.alive[i] != 0;
+    sm.rx[tid] = a ? x : INFINITY;
+    sm.ry[tid] = y;
+    sm.ru[tid] = in ? pl.u[i] : 0.0f;
+    sm.rv[tid] = in ? pl.v[i] : 0.0f;
+    sm.rr[tid] = in ? pl.rad[i] : 0.0f;
+    const float x0 = warp_min(a ? x : INFINITY);
+    const float x1 = warp_max(a ? x : -INFINITY);
+    const float y0 = warp_min(a ? y : INFINITY);
+    const float y1 = warp_max(a ? y : -INFINITY);
+    if (lane == 0) {
+      sm.rbox[warp][0] = x0;
+      sm.rbox[warp][1] = x1;
+      sm.rbox[warp][2] = y0;
+      sm.rbox[warp][3] = y1;
+    }
+  }
+#pragma unroll
+  for (int w = 0; w < kSymWarps; ++w) {
+    sm.row_x[w][tid] = 0.0f;
+    sm.row_y[w][tid] = 0.0f;
+    sm.col_x[w][tid] = 0.0f;
+    sm.col_y[w][tid] = 0.0f;
+  }
+
+  // column tid of the next tile, read ahead into registers, and its
+  // staging (warp w holds column chunk w): the columns and the chunk's
+  // items
+  float qx = 0.0f, qy = 0.0f, qu = 0.0f, qv = 0.0f, qr = 0.0f;
+  bool qa = false;
+  auto fetch = [&](int t) {
+    const int j = t * kSymTile + tid;
+    const bool jin = j < n;
+    qx = jin ? pl.x[j] : 0.0f;
+    qy = jin ? pl.y[j] : 0.0f;
+    qu = jin ? pl.u[j] : 0.0f;
+    qv = jin ? pl.v[j] : 0.0f;
+    qr = jin ? pl.rad[j] : 0.0f;
+    qa = jin && pl.alive[j] != 0;
+  };
+  auto stage = [&](bool diag) {
+    sm.cx[tid] = qa ? qx : INFINITY;
+    sm.cy[tid] = qy;
+    sm.cu[tid] = qu;
+    sm.cv[tid] = qv;
+    sm.cr[tid] = qr;
+    const float x0 = warp_min(qa ? qx : INFINITY);
+    const float x1 = warp_max(qa ? qx : -INFINITY);
+    const float y0 = warp_min(qa ? qy : INFINITY);
+    const float y1 = warp_max(qa ? qy : -INFINITY);
+    if (lane == 0) {
+      int k = 0;
+      for (int r = 0; r < (diag ? warp + 1 : kSymWarps); ++r) {
+        if (box_gap2(sm.rbox[r][0], sm.rbox[r][1], sm.rbox[r][2],
+                     sm.rbox[r][3], x0, x1, y0, y1) > c2)
+          continue;  // the chunk pair holds no pair within the cutoff
+        if (diag && r == warp) {
+          sm.items[warp][k++] = (unsigned char)(r | 2 << 2);
+        } else {
+          sm.items[warp][k++] = (unsigned char)r;
+          sm.items[warp][k++] = (unsigned char)(r | 1 << 2);
+        }
+      }
+      sm.n_items[warp] = k;
+    }
+    if (tid == 0) sm.next = 0;
+  };
+
+  // the tile's items, taken in turn by the warps; item (r, kind) of column
+  // chunk c: lane L holds row 32 r + L and meets column 32 c + (L + s) mod
+  // 32 at step s
+  auto walk = [&]() {
+#pragma unroll 1
+    for (;;) {
+      int k = 0;
+      if (lane == 0) k = atomicAdd(&sm.next, 1);
+      k = __shfl_sync(kAllLanes, k, 0);
+      int c = 0;
+      while (c < kSymWarps && k >= sm.n_items[c]) k -= sm.n_items[c++];
+      if (c == kSymWarps) break;  // warp-uniform
+      const int item = sm.items[c][k];
+      const int kind = item >> 2;
+      const int li = (item & 3) * kChunk + lane;  // the lane's row
+      const int s0 = kind == 1 ? kChunk / 2 : kind == 2 ? 1 : 0;
+      const int s1 = kind == 0 ? kChunk / 2 - 1 : kind == 2 ? kChunk / 2
+                                                            : kChunk - 1;
+      const float x = sm.rx[li], y = sm.ry[li];
+      const float u = sm.ru[li], v = sm.rv[li], r = sm.rr[li];
+      // a chunk against itself: lanes 16-31 stop before step 16
+      const int s_end = kind == 2 && lane >= kChunk / 2 ? kChunk / 2 : kChunk;
+      const int c0 = c * kChunk;
+      float ax = 0.0f, ay = 0.0f;
+#pragma unroll 1
+      for (int s = s0; s <= s1; ++s) {
+        const int cc = (lane + s) & (kChunk - 1);
+        const int jj = c0 + cc;
+        const float dx = sm.cx[jj] - x;
+        const float dy = sm.cy[jj] - y;
+        const bool ok = s < s_end && sq_norm_rn(dx, dy) <= c2;
+        if (!__any_sync(kAllLanes, ok)) continue;  // no lane's pair within
+        float fxk, fyk;
+        Law::template pair<true>(dx, dy, u, v, sm.cu[jj], sm.cv[jj], r,
+                                 sm.cr[jj], use_radius, ok, p, fxk, fyk);
+        ax += fxk;
+        ay += fyk;
+        sm.col_x[warp][jj] -= fxk;  // Newton's third law: f_ji = -f_ij
+        sm.col_y[warp][jj] -= fyk;
+        __syncwarp();
+      }
+      sm.row_x[warp][li] += ax;
+      sm.row_y[warp][li] += ay;
+      __syncwarp();
+    }
+  };
+
+  for (int base = 0; base < n_cand; base += kSymTile) {
+    const int k = base + tid;
+    int t = -1;
+    bool h = false;
+    if (k < n_cand) {
+      const int q = split + k * n_split;
+      if (table) {
+        t = surv[(long long)ti * max_surv + q];
+        h = true;
+      } else {
+        t = ti + q;
+        h = box_hits(bb, nt, t, bx0, bx1, by0, by1, c2);
+      }
+    }
+    const unsigned m = __ballot_sync(kAllLanes, h);
+    if (lane == 0) sm.wcount[warp] = __popc(m);
+    __syncthreads();
+    int off = 0, total = 0;
+    for (int w = 0; w < kSymWarps; ++w) {
+      off += w < warp ? sm.wcount[w] : 0;
+      total += sm.wcount[w];
+    }
+    if (h) sm.list[off + __popc(m & ((1u << lane) - 1u))] = t;
+    __syncthreads();
+    if (total > 0) fetch(sm.list[0]);
+    for (int q = 0; q < total; ++q) {
+      const int tj = sm.list[q];
+      stage(tj == ti);
+      if (q + 1 < total) fetch(sm.list[q + 1]);
+      __syncthreads();  // the tile and its items are staged
+      walk();
+      __syncthreads();  // its columns' partials are complete
+      float sx = 0.0f, sy = 0.0f;
+#pragma unroll
+      for (int w = 0; w < kSymWarps; ++w) {
+        sx += sm.col_x[w][tid];
+        sy += sm.col_y[w][tid];
+        sm.col_x[w][tid] = 0.0f;
+        sm.col_y[w][tid] = 0.0f;
+      }
+      const int j = tj * kSymTile + tid;  // dead beyond n: both sums 0
+      if (sx != 0.0f) atomicAdd(&fx[j], sx);
+      if (sy != 0.0f) atomicAdd(&fy[j], sy);
+    }
+  }
+  // (the last tile's barrier, or the candidates', orders the row partials)
+  float sx = 0.0f, sy = 0.0f;
+#pragma unroll
+  for (int w = 0; w < kSymWarps; ++w) {
+    sx += sm.row_x[w][tid];
+    sy += sm.row_y[w][tid];
+  }
+  const int i = ti * kSymTile + tid;  // dead beyond n: both sums 0
+  if (sx != 0.0f) atomicAdd(&fx[i], sx);
+  if (sy != 0.0f) atomicAdd(&fy[i], sy);
+}
+
+// A symmetric walk over a batch of crowds of pl.n agents: crowd b's planes
+// and outputs at b * pl.n, its parameters at b * prm_stride, its tile
+// boxes, table and counts at its own offsets (kTriangleBox, kSymTable).
+// The triangle walk is the unbatched body (sym_walk) on crowd blockIdx.y;
+// the cutoff walks are sym_rows_walk, block (crowd blockIdx.x, row tile
+// blockIdx.y / S, split blockIdx.y % S), S = gridDim.y / n_tiles.
+// (A minimum of 0 blocks asks for none: the triangle walk keeps the
+// unbatched kernel's register budget, and its SASS.)
+template <int kWalk, class Law>
+__global__ void __launch_bounds__(kSymTile,
+                                  kWalk == kTriangle ? 0 : kSymRowBlocks)
 pair_force_sym_batched_kernel(Planes pl, const float* __restrict__ prm,
                               int prm_stride, int use_radius, int n_tiles,
                               const float* __restrict__ bb,
@@ -1116,16 +1401,26 @@ pair_force_sym_batched_kernel(Planes pl, const float* __restrict__ prm,
                               const int* __restrict__ counts, int max_surv,
                               float c2, float* __restrict__ fx,
                               float* __restrict__ fy) {
-  const long long crowd = blockIdx.y;
-  const int bo = (int)crowd * pl.n;
-  if constexpr (kWalk != kTriangle) bb += crowd * 4 * n_tiles;
-  if constexpr (kWalk == kSymTable) {
-    surv += crowd * n_tiles * max_surv;
-    counts += crowd * n_tiles;
+  if constexpr (kWalk == kTriangle) {
+    const long long crowd = blockIdx.y;
+    const int bo = (int)crowd * pl.n;
+    sym_walk<kWalk, Law>(batch_row(pl, bo), prm + (int)crowd * prm_stride,
+                         use_radius, n_tiles, bb, surv, counts, max_surv, c2,
+                         fx + bo, fy + bo);
+  } else {
+    const long long crowd = blockIdx.x;
+    const int bo = (int)crowd * pl.n;
+    const int n_split = (int)(gridDim.y / n_tiles);
+    bb += crowd * 4 * n_tiles;
+    if constexpr (kWalk == kSymTable) {
+      surv += crowd * n_tiles * max_surv;
+      counts += crowd * n_tiles;
+    }
+    sym_rows_walk<kWalk, Law>(
+        batch_row(pl, bo), prm + (int)crowd * prm_stride, use_radius,
+        n_tiles, bb, surv, counts, max_surv, c2, (int)(blockIdx.y / n_split),
+        (int)(blockIdx.y % n_split), n_split, fx + bo, fy + bo);
   }
-  sym_walk<kWalk, Law>(batch_row(pl, bo), prm + (int)crowd * prm_stride,
-                       use_radius, n_tiles, bb, surv, counts, max_surv, c2,
-                       fx + bo, fy + bo);
 }
 
 // The full-block walk: block b is tile pair (b / n_col_tiles, b %
@@ -1260,7 +1555,10 @@ int box_skip_batched_launch(const Planes& rows, const Planes& cols,
 // Launch of a symmetric walk with law Law: one block per tile pair of the
 // upper triangle (kTriangle, kTriangleBox) or per table slot (kSymTable).
 // With prm_stride >= 0 the launch is the batched walk over batch crowds of
-// pl.n agents (pair_force_sym_batched_kernel).
+// pl.n agents (pair_force_sym_batched_kernel): the triangle walk's grid
+// for each crowd, or for the cutoff walks (sym_rows_walk) one block per
+// crowd, 128-row tile and split, the crowds fastest so that the rows with
+// the most candidates start first.
 template <int kWalk, class Law>
 int sym_launch(const Planes& pl, const float* prm, int use_radius,
                const float* bb, const int* surv, const int* counts,
@@ -1272,6 +1570,15 @@ int sym_launch(const Planes& pl, const float* prm, int use_radius,
   if (batch < 1 || batch > 65535) return (int)cudaErrorInvalidValue;
   if (kWalk == kSymTable && max_surv < 1) return (int)cudaErrorInvalidValue;
   const long long nt = (n + kSymTile - 1) / kSymTile;
+  if (batched && kWalk != kTriangle) {
+    const long long rows = nt * (nt < kSymRowSplits ? nt : kSymRowSplits);
+    if (rows > 65535) return (int)cudaErrorInvalidConfiguration;
+    pair_force_sym_batched_kernel<kWalk, Law>
+        <<<dim3((unsigned)batch, (unsigned)rows), kSymTile, 0,
+           (cudaStream_t)stream>>>(pl, prm, prm_stride, use_radius, (int)nt,
+                                   bb, surv, counts, max_surv, c2, fx, fy);
+    return (int)cudaGetLastError();
+  }
   const long long blocks =
       kWalk == kSymTable ? nt * max_surv : nt * (nt + 1) / 2;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;

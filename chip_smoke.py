@@ -2610,9 +2610,17 @@ def batch_phases(dev, zero, card, launches, worst, profile_steps):
         bnd = batch_pair_bound(law, form == "sym", BATCH, BATCH_N,
                                BATCH * n_sym, counts_of.get(law))
         table[name] = (src + lines[law][form], ms, plain, bnd)
+        floor = ""
+        if form == "sym":  # every pair of the triangle, each once
+            census = ("pair_force_sym_batched<kTriangle, "
+                      + ("Moussaid" if law == "moussaid" else "PowerLaw")
+                      + ">")
+            if CENSUS.get(census):
+                floor = "; " + floor_note(census, BATCH * n_sym)
         say(f"phase 27 time {name} at B={BATCH} x N={BATCH_N}: kernel "
             f"{ms:.4f} ms ({TIMED_BY[0]}; bound {bnd[0]:.4f} ms, "
-            f"{bnd[1]}), plain batched version {plain:.3f} ms ({card})")
+            f"{bnd[1]}{floor}), plain batched version {plain:.3f} ms "
+            f"({card})")
 
     scene, params, cfg, _ = benchmark_bundle(BATCH_N, device=dev)
     ens = dataclasses.replace(scene, spawn=batched_crowds(BATCH, BATCH_N,
@@ -2920,19 +2928,25 @@ def cutoff_batch_phases(dev, zero, card, launches, worst, profile_steps):
                                   if law == "helbing" else lines[form]),
                            ms, plain, bnd)
             floor = ""
-            if not form.startswith("sym"):  # the batched box-skip and
-                # table walks' inner loop (the walk their shapes choose)
+            law_type = {"moussaid": "Moussaid", "powerlaw": "PowerLaw",
+                        "helbing": "Helbing"}[law]
+            if form.startswith("sym"):  # the batched symmetric cutoff
+                # walks' inner loop: each unordered pair once
+                census = ("pair_force_sym_batched<"
+                          + ("kSymTable" if form == "sym_compact"
+                             else "kTriangleBox") + f", {law_type}>")
+                units = (pairs_u if law == "moussaid"
+                         else int(counts_of[law][0]) // 2)
+            else:  # the batched box-skip and table walks' inner loop (the
+                # walk their shapes choose)
                 from sass_census import box_skip_walk
                 census = ("pair_force_dense_batched<"
                           + ("kTable" if form == "compact"
-                             else box_skip_walk(n))
-                          + ", " + {"moussaid": "Moussaid",
-                                    "powerlaw": "PowerLaw",
-                                    "helbing": "Helbing"}[law] + ">")
-                if CENSUS.get(census):
-                    floor = "; " + floor_note(
-                        census, 2 * pairs_u if law == "moussaid"
-                        else int(counts_of[law][0]))
+                             else box_skip_walk(n)) + f", {law_type}>")
+                units = (2 * pairs_u if law == "moussaid"
+                         else int(counts_of[law][0]))
+            if CENSUS.get(census):
+                floor = "; " + floor_note(census, units)
             say(f"{label} time {name} at B={b} x N={n}, {CUTOFF_M:g} m "
                 f"cutoff: kernel {ms:.4f} ms ({TIMED_BY[0]}; bound "
                 f"{bnd[0]:.6f} ms, {bnd[1]}; {pairs_u} unordered pairs "
@@ -2951,14 +2965,15 @@ def cutoff_batch_phases(dev, zero, card, launches, worst, profile_steps):
                                        device=dev, extent=big_extent))
     refs = kernel_checks(f"phase 30 B={CUT_TABLE_BATCH} x N={CUT_TABLE_N}",
                          big, 0, ("sym_compact", "compact"))
-    for form in ("sym_compact", "compact"):
+    for law, form in (("moussaid", "sym_compact"), ("powerlaw",
+                                                   "sym_compact"),
+                      ("moussaid", "compact")):
         grid = bc.cutoff_grid_of(form, big, CUTOFF_M, CUT_OVERFLOW_MAX_SURV)
         over = int((grid.counts > grid.max_surv).sum())
-        m = bc.pair_mismatch("moussaid", form, big,
-                             bc.law_params("moussaid"), ref=refs["moussaid"],
-                             grid=grid)
+        m = bc.pair_mismatch(law, form, big, bc.law_params(law),
+                             ref=refs[law], grid=grid)
         say(f"phase 30 B={CUT_TABLE_BATCH} x N={CUT_TABLE_N} "
-            f"{bc.CUTOFF_FORMS['moussaid', form]} with "
+            f"{bc.CUTOFF_FORMS[law, form]} with "
             f"{CUT_OVERFLOW_MAX_SURV} slots ({over} of "
             f"{grid.counts.numel()} table rows overflow): max abs err "
             f"{m['err']:.3e} ({m['over']} over the tolerance); rows vs the "
@@ -2967,7 +2982,7 @@ def cutoff_batch_phases(dev, zero, card, launches, worst, profile_steps):
                else f"max diff {m['row_err']:.3e}"))
         if not over or m["over"] or m["row_over"] or (
                 form == "compact" and not m["rows_equal"]):
-            fail(f"phase 30: the overflowing {form} table at "
+            fail(f"phase 30: the overflowing {law} {form} table at "
                  f"{CUT_TABLE_N} disagrees (or no row overflowed)")
 
     scene, params, cfg, _ = benchmark_bundle(BATCH_N, device=dev)

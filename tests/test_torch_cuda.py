@@ -2404,6 +2404,79 @@ def test_batched_cutoff_kernels_on_stacked_starts(cuda_device, law, form):
                               10.0)
 
 
+#: the batched symmetric cutoff walk's cases (sym_rows_walk: one block per
+#: crowd, 128-row tile and split): (crowds, agents a crowd, cutoff, table
+#: slots, what to do to the planes)
+SYM_ROWS_CASES = {
+    "ragged sizes": (3, 1037, 10.0, 3, None),
+    "fewer agents than a warp": (3, 20, 10.0, 0, None),
+    "one tile and one agent": (2, 129, 10.0, 1, None),
+    "an all-dead crowd": (3, 700, 10.0, 2, "dead crowd"),
+    "empty table rows": (3, 700, 10.0, 2, "dead tail"),
+    "overflowing rows beside fitting ones": (3, 4000, 30.0, 4, "densities"),
+    "coincident live pairs": (2, 600, 10.0, 2, "coincident"),
+    "eight stacked crowds": (8, 1536, 10.0, 1, "stacked")}
+
+
+def sym_rows_planes(b, n, what, device):
+    """The sorted ``(b, n)`` planes of a SYM_ROWS_CASES case."""
+    if what == "stacked":
+        rows = [stacked_crowd(seed, device) for seed in range(b)]
+        planes = [torch.stack(c) for c in zip(*rows)]
+        speed = torch.hypot(planes[2], planes[3])
+        return bc.sort_rows(planes + [planes[2] / speed,
+                                      planes[3] / speed])
+    if what == "densities":  # two dense crowds, one sparse
+        rows = [family_planes(n, 70 + k, device, extent=e)
+                for k, e in enumerate((31.6, 31.6, 100.0))]
+        planes = [torch.stack(c) for c in zip(*rows)]
+    else:
+        planes = bc.batch_planes(b, n, seed=n + b, device=device,
+                                 extent=max(12.0, 0.6 * n ** 0.5))
+    if what == "dead crowd":
+        planes[5][1] = False
+    if what == "dead tail":
+        planes[5][2, 100:] = False
+    if what == "coincident":  # 50 agents on another's spot, all alive
+        for t in planes[:2]:
+            t[:, 300:350] = t[:, :50]
+        planes[5][:, :50] = True
+        planes[5][:, 300:350] = True
+    return bc.sort_rows(planes)
+
+
+@pytest.mark.parametrize("law", ["moussaid", "powerlaw"])
+@pytest.mark.parametrize("case, form", [
+    (case, form) for case in sorted(SYM_ROWS_CASES)
+    for form in ("sym_cutoff", "sym_compact")
+    # a table needs two tiles a row
+    if form == "sym_cutoff" or SYM_ROWS_CASES[case][1] > 128])
+def test_sym_rows_walk_matches_plain_and_unbatched(cuda_device, law, form,
+                                                   case):
+    """The batched symmetric cutoff walks (``sym_cutoff_batched``,
+    ``sym_compact_batched``: sym_rows_walk) under both laws: one launch,
+    finite, dead rows exactly 0, within the tolerance of the plain batched
+    version and within twice it of the unbatched launch on each crowd.
+    Crowd sizes that are not a multiple of 32 or 128 (and below 32, and
+    one agent past a tile), a crowd all dead, crowds whose later tiles
+    are dead (their table rows empty), dense crowds whose table rows
+    overflow beside a sparse one whose rows fit, coincident live pairs,
+    and the eight stacked crowds of the atan2 branch cut."""
+    b, n, cutoff, slots, what = SYM_ROWS_CASES[case]
+    planes = sym_rows_planes(b, n, what, cuda_device)
+    grid = bc.cutoff_grid_of(form, planes, cutoff,
+                             slots if form == "sym_compact" else 0)
+    if what == "densities" and form == "sym_compact":
+        over = grid.counts > slots
+        assert bool(over.any()) and bool((~over).any())
+    if what == "dead tail" and form == "sym_compact":
+        assert bool((grid.counts[2, 1:] == 0).all())
+    got = assert_cutoff_batch_close(law, form, planes, bc.law_params(law),
+                                    grid, cutoff)
+    if what == "dead crowd":
+        assert bool((got[:, 1] == 0).all())
+
+
 def test_batched_cutoff_kernels_reject_bad_grids(cuda_device):
     """A grid of another form, an unbatched grid and a grid of another
     batch size are refused before any launch."""

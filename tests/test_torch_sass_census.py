@@ -80,6 +80,35 @@ def test_dense_walk_and_ring_entries_name_their_rows_per_thread(label,
             assert f"ring_try<kCutoff, Law, {multi}>" in src
 
 
+@pytest.mark.parametrize("walk, law", [
+    (walk, law) for walk in ("kTriangle", "kTriangleBox", "kSymTable")
+    for law in ("Moussaid", "PowerLaw")])
+def test_batched_sym_entries_count_their_kernels(walk, law):
+    """Each batched symmetric walk (rows 1b and 1c of PERF.md) has its
+    census entry: the kernel's instantiation by the walk's enum value,
+    two exponentials a Moussaid pair and one a power-law pair, and the
+    rows per thread of the body it runs (the triangle walk: the unbatched
+    body's kSymRows; the cutoff walks: sym_rows_walk's one row a lane),
+    which csrc/pair_forces.cu dispatches so."""
+    entry = {k[0]: k for k in sass_census.KERNELS}[
+        f"pair_force_sym_batched<{walk}, {law}>"]
+    value = {"kTriangle": 0, "kTriangleBox": 1, "kSymTable": 2}[walk]
+    assert entry[1] == f"pair_force_sym_batched_kernel<{value}, {law}"
+    assert entry[2] == ("MUFU.EX2", None, None) and entry[4] == "pair"
+    assert entry[3] == (2 if law == "Moussaid" else 1)
+    rows = sass_census.layout_constants(ROOT)[entry[5]]
+    src = (ROOT / "carla_social_force_model_tpu_torch" / "csrc"
+           / "pair_forces.cu").read_text()
+    kernel = src[src.index("pair_force_sym_batched_kernel(Planes pl"):]
+    kernel = kernel[:kernel.index("\n}\n")]
+    if walk == "kTriangle":
+        assert entry[5] == "kSymRows" and rows in (1, 2, 4)
+        assert "sym_walk<kWalk, Law>" in kernel
+    else:
+        assert entry[5] == "kSymBatchRows" and rows == 1
+        assert "sym_rows_walk<kWalk, Law>" in kernel
+
+
 @pytest.mark.parametrize("label, prefix, const, unit", [
     ("chunk_argmin", "chunk_argmin_kernel", "kArgminRows", "pair"),
     ("chunk_topk", "chunk_topk_kernel", "kTopkLanes", "point"),

@@ -23,29 +23,53 @@ def copy(tmp_path):
     return tmp_path
 
 
+def body_of(src, signature):
+    """The source of the function whose definition starts with
+    ``signature``, to its closing brace."""
+    body = src[src.index(signature):]
+    return body[:body.index("\n}\n")]
+
+
 def test_every_counter_lands_in_the_walks(copy):
     """Each counter is added where the walk it counts does that work: the
     dense walk's tile staging, chunk culling, overflow and blocks, the law
     calls of its inner loop and its chunks with a pair, and each of the
-    batched box-skip and table walk's; the C entries that read and reset
-    them come before the last entry."""
+    batched box-skip and table walk's; the symmetric walks' tile pairs,
+    chunk pairs tested and walked, law calls, chunk pairs with a pair,
+    atomics, overflowing and empty blocks, in the unbatched walk
+    (sym_walk, sym_tile_pair) and in the batched cutoff walk
+    (sym_rows_walk); the C entries that read and reset them come before
+    the last entry."""
     bench.instrument(copy)
     src = (copy / CSRC / "pair_forces.cu").read_text()
     laws = (copy / CSRC / "pair_laws.cuh").read_text()
-    assert "static __device__ unsigned long long sfm_walk_counters[8];" in laws
+    n = len(bench.COUNTERS)
+    assert n == 10
+    assert (f"static __device__ unsigned long long sfm_walk_counters[{n}];"
+            in laws)
     assert laws.count("sfm_walk_counters[2]") == 1
     assert laws.count("sfm_walk_counters[7]") == 1
-    for k, times in ((0, 1), (1, 2), (2, 1), (3, 1), (4, 2), (5, 2), (6, 1),
-                     (7, 1)):
+    for k, times in ((0, 3), (1, 4), (2, 3), (3, 3), (4, 4), (5, 4), (6, 3),
+                     (7, 3), (8, 4), (9, 4)):
         assert src.count(f"sfm_walk_counters[{k}]") == times, k
     for entry in ("sfm_walk_counters_read", "sfm_walk_counters_reset",
                   "sfm_walk_attributes"):
         assert src.index(f"int {entry}(") < src.index(
             "const char* sfm_cuda_error_string")
-    body = src[src.index("__device__ __forceinline__ void chunk_walk("):]
-    body = body[:body.index("\n}\n")]
+    chunk = body_of(src, "__device__ __forceinline__ void chunk_walk(")
     for k in (1, 2, 3, 4, 5, 6, 7):
-        assert f"sfm_walk_counters[{k}]" in body, k
+        assert f"sfm_walk_counters[{k}]" in chunk, k
+    rows = body_of(src, "__device__ __forceinline__ void sym_rows_walk(")
+    for k in range(n):
+        assert f"sfm_walk_counters[{k}]" in rows, k
+    tile_pair = body_of(src, "__device__ __forceinline__ void sym_tile_pair(")
+    for k in (0, 1, 2, 3, 6, 7, 8):
+        assert f"sfm_walk_counters[{k}]" in tile_pair, k
+    walk = body_of(src, "__device__ __forceinline__ void sym_walk(")
+    for k in (4, 5, 9):
+        assert f"sfm_walk_counters[{k}]" in walk, k
+    for _, kernel, _ in bench.ATTRIBUTE_KERNELS:
+        assert f"(const void*){kernel};" in src
 
 
 def test_instrument_is_idempotent_and_leaves_the_package_alone(copy):
@@ -68,3 +92,21 @@ def test_a_moved_anchor_of_the_dense_walk_raises(copy):
         "    const int j0 = t * kColTile;\n"))
     with pytest.raises(RuntimeError, match="no anchor"):
         bench.instrument(copy)
+
+
+def test_a_moved_anchor_of_the_batched_symmetric_walk_raises(copy):
+    """Where the checkout has the batched symmetric cutoff walk
+    (sym_rows_walk), its anchors are required too; a checkout without it
+    (an older parent) is instrumented without them."""
+    path = copy / CSRC / "pair_forces.cu"
+    text = path.read_text()
+    path.write_text(text.replace("      stage(tj == ti);\n",
+                                 "      stage(ti == tj);\n"))
+    with pytest.raises(RuntimeError, match="no anchor"):
+        bench.instrument(copy)
+    start = text.index("template <int kWalk, class Law>\n"
+                       "__device__ __forceinline__ void sym_rows_walk(")
+    end = text.index("\n}\n", start) + 3
+    path.write_text(text[:start] + text[end:])
+    bench.instrument(copy)
+    assert "sfm_walk_counters[9]" in path.read_text()

@@ -37,7 +37,11 @@ kernels against their plain versions as phases 3, 9 and 24 check them
 
     python3 tools/kernel_redesign_bench.py [--root DIR] [--label NAME] \\
         [--out FILE] [--counters] \\
-        [--cases sym,env,dense,statics,feed,capacity,batched,mesh]
+        [--cases sym,env,dense,statics,feed,capacity,batched,mesh] \\
+        [--only NAME,...]
+
+``--only`` keeps the cases whose name holds one of the given substrings
+(a layout variant's cases, say ``--cases batched --only sym_``).
 
 ``--cases capacity`` asks, for each law with and without the cutoff and at
 D = 1, 4 and 8, whether one ``ring_force`` launch takes twice the agents
@@ -49,10 +53,13 @@ D = 4 and D = 1 (``"ms": null`` where the launch is refused).
 ``--cases batched`` times the square batched dense walks at phase 27's
 and phase 30's shapes (config #5 under each law, its 30 m cutoff under
 each law, the table at 8 x 50,000 under each law and the box skip at 8 x
-50,000, the cutoff forms with bounds and issue floors) and the batched
-environment walks on one shared set at phase 31's (256 crowds of 1,000
-over config #3's geometry: the borders sampled and analytic and the
-parked cars, dense and on the survivor tables).
+50,000, the cutoff forms with bounds and issue floors), the square
+batched symmetric walks under the Moussaid law and the power law with
+bounds and issue floors (the triangle walk at config #5, row 1b; the
+triangle-box walk at config #5 + 30 m and the table at 8 x 50,000, row
+1c) and the batched environment walks on one shared set at phase 31's
+(256 crowds of 1,000 over config #3's geometry: the borders sampled and
+analytic and the parked cars, dense and on the survivor tables).
 
 ``--cases mesh`` times the rectangular batched walks at phase 33's shapes:
 the table walk ``compact_rect_batched`` on one shard's 4 crowds x 12,500
@@ -75,7 +82,12 @@ debug build and prints, per 32-row block, what the walks did: column
 tiles staged (``dense_walk``), chunks staged (or walked) and tested,
 chunks with a pair, law evaluations (32 a warp step), pairs within the
 cutoff, blocks whose table row overflowed, and the blocks and table rows
-behind them.  The debug
+behind them; then the batched symmetric cutoff walks under both laws (the
+triangle-box walk at config #5 + 30 m, the table at 8 x 50,000 with 32
+slots and with 8), per tile pair staged and per 128-row table row: tile
+pairs staged, chunk pairs tested and walked, chunk pairs with a pair,
+law evaluations, pairs within the cutoff, atomics, blocks without a tile
+and blocks on an overflowing table row.  The debug
 build is the checkout at ``--root`` with counters patched into its sources
 (:func:`instrument`: atomic adds at the walks' staging, culling and law
 calls, and C entries that read and reset them); never give it a copy you
@@ -225,7 +237,12 @@ LAW_TYPES = {"moussaid": "Moussaid", "powerlaw": "PowerLaw",
              "helbing": "Helbing"}
 
 
-def law_work(law, rows, cols, c2, row_off, col_off, tables=0):
+#: law_work's pair counts by (law, planes, c2, offsets), so that the cases
+#: of one set of planes count its pairs once
+_PAIR_COUNTS: dict = {}
+
+
+def law_work(law, rows, cols, c2, row_off, col_off, tables=0, sym=False):
     """``work()`` of one dense launch of ``law`` (``mesh_cases``): rows
     ``(B, R)`` against columns ``(B, C)`` (planes x, y, vx, vy, radius,
     alive; Helbing's rows read their desired directions in the velocity
@@ -234,39 +251,48 @@ def law_work(law, rows, cols, c2, row_off, col_off, tables=0):
     read once, the forces written once, the law's operations on the
     ordered pairs within ``c2`` that this data holds: the power law's
     gates counted as ``chip_smoke.family_work`` counts them) and those
-    pairs, the issue floor's units."""
+    pairs, the issue floor's units.  With ``sym`` (a Newton's-third-law
+    launch on square planes, ``rows`` = ``cols``) the unordered pairs,
+    each evaluated once, and the planes read once."""
     import torch
     import shard_cases as sc
     cs = smoke()
-    tau_max = sc.law_params("powerlaw").tau_max
-    x, y, vx, vy, rad, alive = rows[:6]
-    cx, cy, cvx, cvy, crad, calive = cols[:6]
-    ri = torch.arange(x.shape[1], device=x.device) + row_off
-    ci = torch.arange(cx.shape[1], device=x.device) + col_off
-    pairs = course = active = 0
-    for b in range(x.shape[0]):
-        for lo in range(0, x.shape[1], 1024):
-            hi = lo + 1024
-            dx = cx[b, None, :] - x[b, lo:hi, None]
-            dy = cy[b, None, :] - y[b, lo:hi, None]
-            ok = (alive[b, lo:hi, None] & calive[b, None, :]
-                  & (ri[lo:hi, None] != ci[None, :])
-                  & (dx * dx + dy * dy <= c2))
-            pairs += int(ok.sum())
-            if law != "powerlaw":
-                continue
-            dvx = vx[b, lo:hi, None] - cvx[b, None, :]
-            dvy = vy[b, lo:hi, None] - cvy[b, None, :]
-            a = dvx * dvx + dvy * dvy
-            bb = -dx * dvx - dy * dvy
-            rs = rad[b, lo:hi, None] + crad[b, None, :]
-            c = dx * dx + dy * dy - rs * rs
-            disc = bb * bb - a * c
-            on = ok & (c > 0.0) & (disc > 0.0) & (a > 1e-8)
-            tau = ((-bb - torch.sqrt(torch.where(on, disc, 1.0)))
-                   / torch.where(on, a, 1.0))
-            course += int(on.sum())
-            active += int((on & (tau > 0.0) & (tau < tau_max)).sum())
+    key = (law, id(rows[0]), id(cols[0]), c2, row_off, col_off)
+    if key not in _PAIR_COUNTS:
+        tau_max = sc.law_params("powerlaw").tau_max
+        x, y, vx, vy, rad, alive = rows[:6]
+        cx, cy, cvx, cvy, crad, calive = cols[:6]
+        ri = torch.arange(x.shape[1], device=x.device) + row_off
+        ci = torch.arange(cx.shape[1], device=x.device) + col_off
+        pairs = course = active = 0
+        for b in range(x.shape[0]):
+            for lo in range(0, x.shape[1], 1024):
+                hi = lo + 1024
+                dx = cx[b, None, :] - x[b, lo:hi, None]
+                dy = cy[b, None, :] - y[b, lo:hi, None]
+                ok = (alive[b, lo:hi, None] & calive[b, None, :]
+                      & (ri[lo:hi, None] != ci[None, :])
+                      & (dx * dx + dy * dy <= c2))
+                pairs += int(ok.sum())
+                if law != "powerlaw":
+                    continue
+                dvx = vx[b, lo:hi, None] - cvx[b, None, :]
+                dvy = vy[b, lo:hi, None] - cvy[b, None, :]
+                a = dvx * dvx + dvy * dvy
+                bb = -dx * dvx - dy * dvy
+                rs = rad[b, lo:hi, None] + crad[b, None, :]
+                c = dx * dx + dy * dy - rs * rs
+                disc = bb * bb - a * c
+                on = ok & (c > 0.0) & (disc > 0.0) & (a > 1e-8)
+                tau = ((-bb - torch.sqrt(torch.where(on, disc, 1.0)))
+                       / torch.where(on, a, 1.0))
+                course += int(on.sum())
+                active += int((on & (tau > 0.0) & (tau < tau_max)).sum())
+        _PAIR_COUNTS[key] = pairs, course, active
+    # a Newton's-third-law launch evaluates each unordered pair once (the
+    # gates are symmetric: the ordered counts are even)
+    pairs, course, active = (k // 2 if sym else k
+                             for k in _PAIR_COUNTS[key])
     if law == "moussaid":
         ops, mufu = pairs * cs.PAIR_OPS, pairs * cs.PAIR_MUFU
     elif law == "powerlaw":
@@ -276,9 +302,9 @@ def law_work(law, rows, cols, c2, row_off, col_off, tables=0):
     else:
         ops, mufu = pairs * cs.HB_OPS, pairs * cs.HB_MUFU
     plane_bytes = 4 * (4 if law == "helbing" else 5) + 1
-    nb = x.shape[0]
-    n_bytes = (nb * ((x.shape[1] + cx.shape[1]) * plane_bytes
-                     + 8 * x.shape[1]) + 4 * (tables + 6 * nb))
+    nb, nr = rows[0].shape
+    n_bytes = (nb * ((nr if sym else nr + cols[0].shape[1]) * plane_bytes
+                     + 8 * nr) + 4 * (tables + 6 * nb))
     return cs.bound(n_bytes, ops, mufu), pairs
 
 
@@ -288,7 +314,12 @@ def batched_cases(dev):
     shapes: phase 27's config #5 (256 crowds x 1,000) under each law, and
     phase 30's box-skip form at config #5 + 30 m and its table form at 8 x
     50,000 under each law, and the box-skip form at 8 x 50,000, these with
-    their bounds and issue floors (``work``, as in :func:`mesh_cases`)."""
+    their bounds and issue floors (``work``, as in :func:`mesh_cases`);
+    then the square batched symmetric walks
+    (``pair_force_sym_batched_kernel``) under the Moussaid law and the
+    power law, with bounds and floors: the triangle walk at config #5
+    (1b) and the triangle-box and table walks at phase 30's shapes (1c);
+    then :func:`batched_env_cases`."""
     import batch_cases as bc
     from carla_social_force_model_tpu_torch.ops import pair_grid
     cs = smoke()
@@ -328,6 +359,31 @@ def batched_cases(dev):
                         lambda pl=pl, g=grid, f=form, law=law: bc.batch_run(
                             law, f, pl, bc.law_params(law), g),
                         kernel, 20, work))
+    # the symmetric walks: 1b (config #5, no cutoff) and 1c's triangle-box
+    # and table forms at phase 30's shapes, under each antisymmetric law
+    sym_kernel = "pair_force_sym_batched_kernel"
+    for form, pl, walk in (("sym", planes, "kTriangle"),
+                           ("sym_cutoff", small, "kTriangleBox"),
+                           ("sym_compact", big, "kSymTable")):
+        grid = None if form == "sym" else bc.cutoff_grid_of(form, pl,
+                                                            cs.CUTOFF_M)
+        b, n = pl[0].shape
+        tables = 0 if grid is None else sum(
+            t.numel() for t in (grid.boxes, grid.surv, grid.counts)
+            if t is not None)
+        for law in ("moussaid", "powerlaw"):
+            def work(pl=pl, law=law, walk=walk, tables=tables,
+                     cut=grid is not None):
+                bnd, pairs = law_work(law, pl, pl, c2 if cut
+                                      else float("inf"), 0, 0, tables,
+                                      sym=True)
+                return (bnd, f"pair_force_sym_batched<{walk}, "
+                        f"{LAW_TYPES[law]}>", pairs)
+            out.append((f"{form}_batched {b} x {n}"
+                        + ("" if law == "moussaid" else f" {law}"),
+                        lambda pl=pl, g=grid, f=form, law=law: bc.batch_run(
+                            law, f, pl, bc.law_params(law), g),
+                        sym_kernel, 20, work))
     return out + batched_env_cases(dev)
 
 
@@ -486,110 +542,215 @@ def mesh_cases(dev, with_work=True):
 #: the counters of a debug build (:func:`instrument`), in order
 COUNTERS = ("tiles staged", "chunks staged", "law evaluations",
             "pairs within the cutoff", "overflowing blocks", "blocks",
-            "chunks tested", "chunks with a pair")
+            "chunks tested", "chunks with a pair", "atomics",
+            "blocks without a tile")
+
+#: the C entry of a debug build that gives a kernel's attributes, and the
+#: kernels it knows by ``which`` (label, instantiation, threads a block)
+ATTRIBUTE_KERNELS = (
+    ("pair_force_dense_batched<kTable, Moussaid>",
+     "pair_force_dense_batched_kernel<kTable, Moussaid>", "kDenseThreads"),
+    ("pair_force_dense<kTable, Moussaid>",
+     "pair_force_dense_kernel<kTable, Moussaid>", "kDenseThreads"),
+    ("pair_force_dense_batched<kBoxSkip, Moussaid>",
+     "pair_force_dense_batched_kernel<kBoxSkip, Moussaid>", "kDenseThreads"),
+    ("pair_force_sym_batched<kTriangleBox, Moussaid>",
+     "pair_force_sym_batched_kernel<kTriangleBox, Moussaid>", "kSymTile"),
+    ("pair_force_sym_batched<kSymTable, Moussaid>",
+     "pair_force_sym_batched_kernel<kSymTable, Moussaid>", "kSymTile"),
+    ("pair_force_sym_batched<kTriangleBox, PowerLaw>",
+     "pair_force_sym_batched_kernel<kTriangleBox, PowerLaw>", "kSymTile"),
+    ("pair_force_sym_batched<kSymTable, PowerLaw>",
+     "pair_force_sym_batched_kernel<kSymTable, PowerLaw>", "kSymTile"))
+
+
+def _attributes_entry() -> str:
+    """The C source of ``sfm_walk_attributes(which, out)``: the resident
+    blocks an SM, registers, static shared and local bytes of kernel
+    ``which`` of :data:`ATTRIBUTE_KERNELS`."""
+    cases = "".join(
+        f"    case {k}: f = (const void*){inst}; threads = {threads}; "
+        "break;\n" for k, (_, inst, threads) in enumerate(ATTRIBUTE_KERNELS))
+    return ("int sfm_walk_attributes(int which, int* out) {\n"
+            "  const void* f = nullptr;\n  int threads = 0;\n"
+            "  switch (which) {\n" + cases +
+            "    default: return (int)cudaErrorInvalidValue;\n  }\n"
+            "  cudaFuncAttributes a;\n"
+            "  cudaError_t e = cudaFuncGetAttributes(&a, f);\n"
+            "  if (e == cudaSuccess) e = "
+            "cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, f, threads, "
+            "0);\n"
+            "  out[1] = a.numRegs; out[2] = (int)a.sharedSizeBytes; "
+            "out[3] = (int)a.localSizeBytes;\n"
+            "  return (int)e;\n}\n\n")
 
 
 def instrument(root: Path) -> None:
     """Patch counters into the pair walks of the checkout at ``root`` (a
-    debug build for ``--counters``; idempotent).  Each insertion follows an
-    anchor line of ``csrc/``: the parent's walk (``dense_walk`` and the
-    inner loop ``rows_vs_chunk``) and, where the checkout has it, the
-    batched box-skip and table walk ``chunk_walk``; a missing anchor of the
-    first raises.  "chunks staged" counts the chunks ``dense_walk`` walks
-    (those its box test passes) and the chunks ``chunk_walk`` stages;
-    "chunks with a pair" those of them where some lane holds a pair within
-    the cutoff."""
+    debug build for ``--counters``; idempotent).  Each insertion follows
+    (or, marked so, precedes) an anchor line of ``csrc/``: the parent's
+    walks (``dense_walk`` and the inner loop ``rows_vs_chunk``; the
+    symmetric walk ``sym_walk`` and its tile pair ``sym_tile_pair``) and,
+    where the checkout has them, the batched box-skip and table walk
+    ``chunk_walk`` and the batched symmetric cutoff walk
+    ``sym_rows_walk``.  A missing anchor of the dense walk raises, and so
+    does one of ``sym_rows_walk`` in a checkout that has it.  "tiles
+    staged" counts the column tiles ``dense_walk`` stages and the tile
+    pairs the symmetric walks stage; "chunks staged" the chunks
+    ``dense_walk`` walks (those its box test passes) and ``chunk_walk``
+    stages, and the (32-row, 32-column) chunk pairs the symmetric walks
+    walk ("chunks tested": those they test); "chunks with a pair" those
+    of them where some lane holds a pair within the cutoff (in
+    ``sym_rows_walk``: of its 16-step items, two a chunk pair off the
+    diagonal tile); "atomics" the
+    symmetric walks' global atomic adds of the forces; "blocks without a
+    tile" the symmetric walks' blocks that stage none."""
     csrc = root / "carla_social_force_model_tpu_torch" / "csrc"
-    add = "atomicAdd(&sfm_walk_counters[{}], {})"
-    law = ("{{ const unsigned okm_ = __ballot_sync(kAllLanes, ok); "
-           "if ((threadIdx.x & 31) == 0) {{ " + add.format(2, "32ull") + "; "
-           + add.format(3, "(unsigned long long)__popc(okm_)") + "; }} }}")
+
+    def add(k, v="1ull"):
+        return f"atomicAdd(&sfm_walk_counters[{k}], {v})"
+
+    law = ("{ const unsigned okm_ = __ballot_sync(kAllLanes, ok); "
+           "if ((threadIdx.x & 31) == 0) { " + add(2, "32ull") + "; "
+           + add(3, "(unsigned long long)__popc(okm_)") + "; } }")
+
+    def warp_atomics(a, b):
+        return ("{ const unsigned m1_ = __ballot_sync(kAllLanes, " + a
+                + " != 0.0f), m2_ = __ballot_sync(kAllLanes, " + b
+                + " != 0.0f); if ((threadIdx.x & 31) == 0) "
+                + add(8, "(unsigned long long)(__popc(m1_) + __popc(m2_))")
+                + "; }")
+
+    sym = "sym_rows_walk"  # its anchors are required where it exists
     edits = {
         "pair_laws.cuh": [
             ('#include "pair_forces.cuh"\n',
-             "static __device__ unsigned long long sfm_walk_counters[8];\n",
+             "static __device__ unsigned long long sfm_walk_counters[10];\n",
              True),
             ("  if (!any) return false;\n", "  bool sfm_pair_ = false;\n",
              True),
             ("        if (!__any_sync(kAllLanes, ok)) continue;\n",
-             "        " + law.format() + " sfm_pair_ = true;\n", True),
+             "        " + law + " sfm_pair_ = true;\n", True),
             ("#pragma unroll 2\n    for (int k = 0; k < cnt; ++k) step(k);"
              "\n  }\n",
              "  if (sfm_pair_ && (threadIdx.x & 31) == 0) "
-             + add.format(7, "1ull") + ";\n", True)],
+             + add(7) + ";\n", True)],
         "pair_forces.cu": [
             ("  RowSet<kR> rw;\n",
-             "  if (threadIdx.x == 0) " + add.format(5, "1ull") + ";\n", True),
+             "  if (threadIdx.x == 0) " + add(5) + ";\n", True),
             ("    const int j0 = (int)(t * kColTile);\n",
-             "    if (tid == 0) " + add.format(0, "1ull") + ";\n", True),
+             "    if (tid == 0) " + add(0) + ";\n", True),
             ("              use_radius, c2)) {\n",
-             "        if (lane == 0) " + add.format(1, "1ull") + ";\n", True),
+             "        if (lane == 0) " + add(1) + ";\n", True),
             ("    if constexpr (kWalk == kTable) table = counts[trow] <= "
              "max_surv;\n",
              "    if constexpr (kWalk == kTable) { if (tid == 0 && !table) "
-             + add.format(4, "1ull") + "; }\n", True),
+             + add(4) + "; }\n", True),
+            # chunk_walk (the batched box-skip and table walks)
             ("  const float by1 = warp_max(ra ? y : -INFINITY);\n",
-             "  if (tid == 0) " + add.format(5, "1ull") + ";\n", False),
+             "  if (tid == 0) " + add(5) + ";\n", False),
             ("  const bool table = counts[trow] <= max_surv;\n",
-             "  if (tid == 0 && !table) " + add.format(4, "1ull") + ";\n",
-             False),
+             "  if (tid == 0 && !table) " + add(4) + ";\n", False),
             ("\n  if constexpr (kWalk == kTable) table = counts[trow] <= "
              "max_surv;\n",
              "  if constexpr (kWalk == kTable) { if (tid == 0 && !table) "
-             + add.format(4, "1ull") + "; }\n", False),
+             + add(4) + "; }\n", False),
             ("      for (int q = 0; q < kWin; ++q) wm[q] = q == b ? mine : "
              "wm[q];\n",
              "      if (__any_sync(kAllLanes, mine != 0) && lane == 0) "
-             + add.format(7, "1ull") + ";\n", False),
+             + add(7) + ";\n", False),
             ("        win_t[warp][b] = t_next;\n",
-             "        " + add.format(1, "1ull") + ";\n", False),
+             "        " + add(1) + ";\n", False),
             ("      hits = __ballot_sync(kAllLanes, h);\n",
              "      { const unsigned tst_ = __ballot_sync(kAllLanes, t >= t0 "
-             "&& t < t1); if (lane == 0) " + add.format(
+             "&& t < t1); if (lane == 0) " + add(
                  6, "(unsigned long long)__popc(tst_)") + "; }\n", False),
-            ("      const bool ok = m != 0;\n",
-             "      " + law.format() + "\n", False),
+            ("      const bool ok = m != 0;\n", "      " + law + "\n", False),
+            # sym_walk and sym_tile_pair (the unbatched symmetric walks,
+            # the parent's batched ones)
+            ("  const long long b = blockIdx.x;\n  const long long nt = "
+             "n_tiles;\n", "  if (threadIdx.x == 0) " + add(5) + ";\n",
+             False),
+            ("    const long long s = b % max_surv;\n",
+             "    if (threadIdx.x == 0 && counts[r] > max_surv) " + add(4)
+             + ";\n", False),
+            ("      const int tj = surv[r * max_surv + s];\n",
+             "      if (threadIdx.x == 0 && tj < 0) " + add(9) + ";\n",
+             False),
+            ("    return;\n  }\n\n  // block -> tile pair (ti, tj) with tj "
+             ">= ti\n",
+             "    if (threadIdx.x == 0 && counts[r] > max_surv) { bool f_ = "
+             "false; for (long long t_ = r + s; t_ < nt; t_ += max_surv) "
+             "f_ = f_ || hits(r, t_); if (!f_) " + add(9) + "; }\n",
+             False, "before"),
+            ("  if (kWalk == kTriangleBox && !hits(ti, tj)) return;  // "
+             "before any staging\n",
+             "  if (threadIdx.x == 0 && kWalk == kTriangleBox && !hits(ti, "
+             "tj)) " + add(9) + ";\n", False, "before"),
+            ("  __syncthreads();  // the previous tile pair's sums are "
+             "read\n", "  if (threadIdx.x == 0) " + add(0) + ";\n", False),
+            ("    const int chunk = cg * L::kWarpChunks + q;\n",
+             "    if (lane == 0) " + add(6) + ";\n", False),
+            ("    if (!any) continue;  // (the rows' own triangle test is in "
+             "ok below)\n",
+             "    bool sfm_cp_ = false; if (lane == 0) " + add(1) + ";\n",
+             False),
+            ("          if (!__any_sync(kAll, ok)) continue;\n",
+             "          " + law + " sfm_cp_ = true;\n", False),
+            ("      sm.col_y[rg][jj] -= cfy;\n      __syncwarp();\n    }\n",
+             "    if (sfm_cp_ && lane == 0) " + add(7) + ";\n", False),
+            ("  if (it < rows.n && rows.alive[it] != 0) {\n",
+             "    " + add(8, "2ull") + ";\n", False),
+            ("  if (col_in && cat != 0) {\n",
+             "    " + add(8, "2ull") + ";\n", False),
+            # sym_rows_walk (the batched symmetric cutoff walks)
+            ("  const float by0 = bb[2 * nt + ti], by1 = bb[3 * nt + ti];\n",
+             "  if (threadIdx.x == 0) " + add(5) + ";\n"
+             "  if constexpr (kWalk == kSymTable) { if (threadIdx.x == 0 && "
+             "!table) " + add(4) + "; }\n  bool sfm_found_ = false;\n", sym),
+            ("    if (total > 0) fetch(sm.list[0]);\n",
+             "    sfm_found_ = sfm_found_ || total > 0;\n", sym),
+            ("      stage(tj == ti);\n",
+             "      if (tid == 0) " + add(0) + ";\n", sym),
+            ("      for (int r = 0; r < (diag ? warp + 1 : kSymWarps); ++r) "
+             "{\n", "        " + add(6) + ";\n", sym),
+            ("          continue;  // the chunk pair holds no pair within "
+             "the cutoff\n", "        " + add(1) + ";\n", sym),
+            ("      const int c0 = c * kChunk;\n      float ax = 0.0f, ay = "
+             "0.0f;\n", "      bool sfm_cp_ = false;\n", sym),
+            ("        if (!__any_sync(kAllLanes, ok)) continue;  // no lane's "
+             "pair within\n", "        " + law + " sfm_cp_ = true;\n", sym),
+            ("        sm.col_y[warp][jj] -= fyk;\n        __syncwarp();\n"
+             "      }\n", "      if (sfm_cp_ && lane == 0) " + add(7)
+             + ";\n", sym),
+            ("      if (sy != 0.0f) atomicAdd(&fy[j], sy);\n",
+             "      " + warp_atomics("sx", "sy") + "\n", sym),
+            ("  if (sy != 0.0f) atomicAdd(&fy[i], sy);\n",
+             "  " + warp_atomics("sx", "sy") + "\n  if (tid == 0 && "
+             "!sfm_found_) " + add(9) + ";\n", sym),
             ("const char* sfm_cuda_error_string(int err) {\n",
              "int sfm_walk_counters_read(unsigned long long* out) {\n"
              "  return (int)cudaMemcpyFromSymbol(out, sfm_walk_counters,\n"
-             "                                   8 * sizeof(unsigned long "
-             "long));\n}\n"
+             f"                                   {len(COUNTERS)} * "
+             "sizeof(unsigned long long));\n}\n"
              "int sfm_walk_counters_reset() {\n"
-             "  unsigned long long z[8] = {0};\n"
+             f"  unsigned long long z[{len(COUNTERS)}] = {{0}};\n"
              "  return (int)cudaMemcpyToSymbol(sfm_walk_counters, z, "
-             "sizeof(z));\n}\n"
-             "// which: 0 the batched table kernel, 1 the unbatched one, 2 "
-             "the batched box-skip kernel; out: resident blocks an SM, "
-             "registers, static shared and local bytes\n"
-             "int sfm_walk_attributes(int which, int* out) {\n"
-             "  const void* k = which == 0 ? (const void*)"
-             "pair_force_dense_batched_kernel<kTable, Moussaid>\n"
-             "                 : which == 1 ? (const void*)"
-             "pair_force_dense_kernel<kTable, Moussaid>\n"
-             "                            : (const void*)"
-             "pair_force_dense_batched_kernel<kBoxSkip, Moussaid>;\n"
-             "  cudaFuncAttributes a;\n"
-             "  cudaError_t e = cudaFuncGetAttributes(&a, k);\n"
-             "  if (e == cudaSuccess) e = "
-             "cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, k, "
-             "kDenseThreads, 0);\n"
-             "  out[1] = a.numRegs; out[2] = (int)a.sharedSizeBytes; "
-             "out[3] = (int)a.localSizeBytes;\n"
-             "  return (int)e;\n}\n\n", True)],
+             "sizeof(z));\n}\n" + _attributes_entry(), True, "before")],
     }
     for name, items in edits.items():
         path = csrc / name
         text = path.read_text()
         if "sfm_walk_counters" in text:
             continue
-        for anchor, line, required in items:
+        for anchor, line, required, *where in items:
+            if isinstance(required, str):  # required where the walk exists
+                required = f"void {required}(" in text
             if anchor not in text:
                 if required:
                     raise RuntimeError(f"{name}: no anchor {anchor!r}")
                 continue
-            # the sfm_cuda_error_string entry goes before its anchor
-            before = anchor.startswith("const char* sfm_cuda_error_string")
-            text = text.replace(anchor, line + anchor if before
+            text = text.replace(anchor, line + anchor if where
                                 else anchor + line)
         path.write_text(text)
 
@@ -598,8 +759,13 @@ def walk_counters(dev, label, card, sink):
     """One launch of each Moussaid mesh case, of the square table walk at 8
     x 50,000 and of the square box-skip walk at config #5 + 30 m (phase
     30's 256 x 1,000) through the debug build: its counters per 32-row
-    block (one JSON line each), with the table rows that overflow and the
-    kernels' resident blocks, registers and shared and local bytes."""
+    block (one JSON line each); then the batched symmetric cutoff walks
+    under each law at phase 30's shapes (the triangle-box walk at config
+    #5 + 30 m, the table at 8 x 50,000 with 32 slots and with 8, where
+    some rows overflow): their counters per tile pair staged and per
+    128-row table row, with the table rows that overflow; and first the
+    kernels' resident blocks, registers and shared and local bytes
+    (:data:`ATTRIBUTE_KERNELS`)."""
     import ctypes
     import torch
     import batch_cases as bc
@@ -608,10 +774,7 @@ def walk_counters(dev, label, card, sink):
     lib.sfm_walk_counters_read.argtypes = [ctypes.c_void_p]
     lib.sfm_walk_attributes.argtypes = [ctypes.c_int, ctypes.c_void_p]
     cs = smoke()
-    for which, kernel in ((0, "pair_force_dense_batched<kTable, Moussaid>"),
-                          (1, "pair_force_dense<kTable, Moussaid>"),
-                          (2, "pair_force_dense_batched<kBoxSkip, "
-                              "Moussaid>")):
+    for which, (kernel, _, _) in enumerate(ATTRIBUTE_KERNELS):
         attrs = (ctypes.c_int * 4)()
         err = lib.sfm_walk_attributes(which, attrs)
         line = json.dumps({"root": label, "kernel": kernel, "error": err,
@@ -637,8 +800,24 @@ def walk_counters(dev, label, card, sink):
                   lambda: bc.batch_run("moussaid", "dense_cutoff", small,
                                        bc.law_params("moussaid"), skip_grid),
                   None, 1))
+    sym = []  # (name, call, grid)
+    for form, planes, slots in (("sym_cutoff", small, 0),
+                                ("sym_compact", big, 0),
+                                ("sym_compact", big,
+                                 cs.CUT_OVERFLOW_MAX_SURV)):
+        grid = bc.cutoff_grid_of(form, planes, cs.CUTOFF_M, slots)
+        b, n = planes[0].shape
+        for law in ("moussaid", "powerlaw"):
+            sym.append((f"{form}_batched {b} x {n}"
+                        + (f", {grid.max_surv} slots" if grid.counts
+                           is not None else "")
+                        + ("" if law == "moussaid" else f" {law}"),
+                        lambda law=law, f=form, pl=planes, g=grid:
+                        bc.batch_run(law, f, pl, bc.law_params(law), g),
+                        grid))
     out = (ctypes.c_ulonglong * len(COUNTERS))()
-    for name, fn, _, _ in cases:
+
+    def count(fn):
         torch.cuda.synchronize()
         if lib.sfm_walk_counters_reset() != 0:
             raise RuntimeError("cannot reset the walk counters")
@@ -646,12 +825,29 @@ def walk_counters(dev, label, card, sink):
         torch.cuda.synchronize()
         if lib.sfm_walk_counters_read(out) != 0:
             raise RuntimeError("cannot read the walk counters")
-        got = dict(zip(COUNTERS, list(out)))
+        return dict(zip(COUNTERS, list(out)))
+
+    for name, fn, _, _ in cases:
+        got = count(fn)
         # 32-row blocks (each split of a row block counts once in "blocks")
         blocks = max(got["blocks"], 1)
         row = {"root": label, "case": name, "counters": got,
                "per_block": {k: v / blocks for k, v in got.items()
                              if k != "blocks"}, "card": card}
+        line = json.dumps(row)
+        print(line, flush=True)
+        sink.append(line)
+    for name, fn, grid in sym:
+        got = count(fn)
+        rows = grid.boxes.shape[0] * grid.boxes.shape[-1]
+        pairs = max(got["tiles staged"], 1)
+        row = {"root": label, "case": name, "counters": got,
+               "table_rows": rows, "overflowing_table_rows": (
+                   None if grid.counts is None
+                   else int((grid.counts > grid.max_surv).sum())),
+               "per_tile_pair": {k: v / pairs for k, v in got.items()},
+               "per_table_row": {k: v / rows for k, v in got.items()},
+               "card": card}
         line = json.dumps(row)
         print(line, flush=True)
         sink.append(line)
@@ -997,6 +1193,9 @@ def main() -> int:
                     help="comma-separated groups: sym, env, dense, "
                     "statics, feed (statics without chunk_argmin), "
                     "capacity, batched, mesh")
+    ap.add_argument("--only", default=None,
+                    help="comma-separated substrings: time only the cases "
+                    "whose name holds one of them")
     ap.add_argument("--counters", action="store_true",
                     help="patch counters into the checkout at --root (a "
                     "copy made for it) and print the walks' counters "
@@ -1052,10 +1251,12 @@ def main() -> int:
     if groups & {"statics", "feed", "mesh", "batched"}:
         from sass_census import census as sass
         census = sass(cuda_build.LIBRARY, root=root)
+    only = None if args.only is None else args.only.split(",")
     run([c for g in ("sym", "env", "dense", "statics", "feed", "capacity",
                      "batched", "mesh")
-         if g in groups for c in cases[g](dev)], args.label, card, lines,
-        census)
+         if g in groups for c in cases[g](dev)
+         if only is None or any(k in c[0] for k in only)], args.label, card,
+        lines, census)
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         with args.out.open("a") as f:

@@ -133,6 +133,27 @@ KERNELS = (
     ("pair_force_dense_batched<kTable, Helbing>",
      "pair_force_dense_batched_kernel<2, Helbing", ("MUFU.EX2", None, None),
      1, "pair", "kDenseRows"),
+    # the batched symmetric walks (rows 1b and 1c of PERF.md): the
+    # triangle walk (the unbatched body, sym_walk) and the triangle-box and
+    # table walks (sym_rows_walk) under each antisymmetric law
+    ("pair_force_sym_batched<kTriangle, Moussaid>",
+     "pair_force_sym_batched_kernel<0, Moussaid", ("MUFU.EX2", None, None),
+     2, "pair", "kSymRows"),
+    ("pair_force_sym_batched<kTriangleBox, Moussaid>",
+     "pair_force_sym_batched_kernel<1, Moussaid", ("MUFU.EX2", None, None),
+     2, "pair", "kSymBatchRows"),
+    ("pair_force_sym_batched<kSymTable, Moussaid>",
+     "pair_force_sym_batched_kernel<2, Moussaid", ("MUFU.EX2", None, None),
+     2, "pair", "kSymBatchRows"),
+    ("pair_force_sym_batched<kTriangle, PowerLaw>",
+     "pair_force_sym_batched_kernel<0, PowerLaw", ("MUFU.EX2", None, None),
+     1, "pair", "kSymRows"),
+    ("pair_force_sym_batched<kTriangleBox, PowerLaw>",
+     "pair_force_sym_batched_kernel<1, PowerLaw", ("MUFU.EX2", None, None),
+     1, "pair", "kSymBatchRows"),
+    ("pair_force_sym_batched<kSymTable, PowerLaw>",
+     "pair_force_sym_batched_kernel<2, PowerLaw", ("MUFU.EX2", None, None),
+     1, "pair", "kSymBatchRows"),
     ("ring_force<false, Moussaid>",
      "ring_force_kernel<false, Moussaid, 1, false>", ("MUFU.EX2", None, None),
      2,

@@ -20,6 +20,14 @@ Row sets against their columns, 50,000 agents at 0.25 a square metre
   extent=35.0)``, each sorted on its own curve), every 32-row block of
   each against its own 1,000 columns: the batched box-skip walk 2c.
 
+With ``--sym`` it replays instead the batched symmetric cutoff walks
+(``pair_force_sym_batched_kernel<kTriangleBox | kSymTable, Law>``, rows 1c
+of PERF.md) on phase 30's crowds: config #5 + 30 m (every 128-row tile of
+crowds 0-3 of ``batch_planes(256, 1000, seed=30, extent=35.0)``) and 8 x
+50,000 (``--blocks`` sampled 128-row tiles of crowds 0-1 of
+``batch_planes(8, 50000, seed=31)``), each crowd sorted on its own curve
+(:func:`sym_counts`).
+
 For ``--blocks`` sampled 32-row blocks (every warp of a block holds the
 same 32 rows, one a lane) it counts the 256-column tiles with a chunk
 whose box the block's alive rows reach (``tiles``) and the tiles whose own
@@ -37,7 +45,7 @@ time, where a step serves every lane with a pair in that chunk, and
 chunk slots.
 
     python3 tools/walk_model.py [--blocks 24] [--window 1,2,3,4,0] \
-        [--square 3]
+        [--square 3] [--sym]
 """
 from __future__ import annotations
 
@@ -155,17 +163,209 @@ def block_counts(rows, cols, blocks, windows, seed=0, row_off=0, col_off=0):
     return {k: round(v / done, 2) for k, v in tot.items()}
 
 
+SYM_TILE, SYM_WARPS = 128, 4
+
+
+def _boxes(x, y, a, size):
+    """(k, 4) float32 boxes [min_x, max_x, min_y, max_y] of the alive
+    agents of each ``size`` consecutive slots (padded planes), inverted
+    infinite where none is alive."""
+    inf = torch.tensor(float("inf"))
+    X, Y, A = (t.view(-1, size) for t in (x, y, a))
+    return torch.stack([torch.where(A, X, inf).amin(1),
+                        torch.where(A, X, -inf).amax(1),
+                        torch.where(A, Y, inf).amin(1),
+                        torch.where(A, Y, -inf).amax(1)], 1)
+
+
+def _reach(rb, cb, c2):
+    """``box_gap2(rb, cb) <= c2`` of ``csrc/pair_forces.cuh``, each
+    operation rounded in float32 (boxes ``(..., 4)``)."""
+    gx = torch.clamp(torch.maximum(cb[..., 0] - rb[..., 1],
+                                   rb[..., 0] - cb[..., 1]), min=0.0)
+    gy = torch.clamp(torch.maximum(cb[..., 2] - rb[..., 3],
+                                   rb[..., 2] - cb[..., 3]), min=0.0)
+    return gx * gx + gy * gy <= c2
+
+
+#: the staggered schedule: lane L meets column (L + s) mod 32 at step s
+_STAGGER = (torch.arange(32)[:, None] + torch.arange(32)[None, :]) % 32
+
+
+def change_steps(diag, r, c):
+    """Steps ``(s0, s1, half)`` of row chunk ``r`` against column chunk
+    ``c`` in ``sym_rows_walk`` (``csrc/pair_forces.cu``; two items of 16
+    steps each, 0-15 and 16-31), or None: every step off the diagonal; on
+    it every step of a chunk pair with ``r < c``, steps 1-16 of a chunk
+    against itself (at step 16 only lanes below 16), none with ``r > c``
+    (the pair ``(c, r)`` takes those pairs)."""
+    if not diag or r < c:
+        return 0, 31, False
+    return (1, 16, True) if r == c else None
+
+
+def sym_counts(planes, cutoff, windows, rows=None, max_surv=32,
+               splits=2):
+    """What the batched symmetric cutoff walks do on one crowd sorted on
+    its curve, ``planes`` = (x, y, alive): for row tiles ``rows`` (None:
+    every one), the column tiles from the row's own on that the tile-box
+    test keeps (the triangle-box walk's tile pairs, and the table's
+    listed ones), and in each kept tile pair, for each warp of 32 rows and
+    each 32-column chunk:
+
+    * the parent (``sym_walk`` -> ``sym_tile_pair``, one block a tile
+      pair): chunk pairs tested and kept (the triangle leaves the chunk a
+      pair above a row, and the chunk's box is within the cutoff of the
+      rows'), the staggered schedule's warp law steps (a step where some
+      lane's pair with column index above its row's lies within the
+      cutoff: the ballot) and its column steps without a law evaluation,
+      the pairs within the cutoff, and the warp steps if each lane walked
+      its own pairs with a window of K chunks (``windows``; 0 unbounded)
+      within the tile pair and across the row tile;
+    * the change (``sym_rows_walk``): chunk pairs kept (the box test, on
+      the diagonal tile the pairs of row chunk r and column chunk c >= r),
+      its law steps and steps without a law on the schedule of
+      :func:`change_steps`, and its pairs (each unordered pair once, as
+      the parent's).
+
+    Returns ``(per_tile_pair, per_row)``: means over the kept tile pairs,
+    and over the row tiles (``tiles``: kept tile pairs a row, with the
+    table of ``max_surv`` slots the rows that overflow it, and the blocks
+    each walk launches for the row: the parent's table ``max_surv``, the
+    triangle's ``nt - ti``, the change's ``splits``)."""
+    x, y, a = planes
+    n = x.shape[0]
+    nt = -(-n // SYM_TILE)
+    pad = nt * SYM_TILE - n
+    X = torch.cat([x, x.new_zeros(pad)])
+    Y = torch.cat([y, y.new_zeros(pad)])
+    A = torch.cat([a, a.new_zeros(pad, dtype=torch.bool)])
+    tbox = _boxes(X, Y, A, SYM_TILE)
+    cbox = _boxes(X, Y, A, 32)
+    wbox = cbox  # a warp's 32 rows are a chunk of the same planes
+    c2 = float(np.float32(cutoff * cutoff))
+    lanes = torch.arange(32)[:, None]
+    keys = ("chunk_pairs_tested", "chunk_pairs_kept", "law_steps",
+            "steps_without_law", "pairs", "change_chunk_pairs_kept",
+            "change_law_steps", "change_steps_without_law", "change_pairs",
+            *(f"window_{k}_tile" for k in windows),
+            *(f"window_{k}_row" for k in windows))
+    tot = dict.fromkeys(keys, 0)
+    rows_tot = {"tiles": 0, "overflowing_rows": 0, "parent_table_blocks": 0,
+                "parent_triangle_blocks": 0, "change_blocks": 0,
+                "change_blocks_without_tile": 0}
+    kept_pairs = 0
+    pick = range(nt) if rows is None else rows
+    for ti in pick:
+        kept = [tj for tj in range(ti, nt)
+                if bool(_reach(tbox[ti], tbox[tj], c2))]
+        rows_tot["tiles"] += len(kept)
+        rows_tot["overflowing_rows"] += len(kept) > max_surv
+        rows_tot["parent_table_blocks"] += max_surv
+        rows_tot["parent_triangle_blocks"] += nt - ti
+        s = min(splits, nt)
+        rows_tot["change_blocks"] += s
+        rows_tot["change_blocks_without_tile"] += sum(
+            1 for k in range(s) if k >= len(kept))
+        kept_pairs += len(kept)
+        rs = slice(ti * SYM_TILE, (ti + 1) * SYM_TILE)
+        gi = torch.arange(rs.start, rs.stop)
+        row_seq = [[] for _ in range(SYM_WARPS)]
+        for tj in kept:
+            cs = slice(tj * SYM_TILE, (tj + 1) * SYM_TILE)
+            gj = torch.arange(cs.start, cs.stop)
+            dx = X[cs][None, :] - X[rs][:, None]
+            dy = Y[cs][None, :] - Y[rs][:, None]
+            full = (A[rs][:, None] & A[cs][None, :] & (gi[:, None] != gj)
+                    & (dx * dx + dy * dy <= c2))
+            upper = full & (gj[None, :] > gi[:, None])
+            for w in range(SYM_WARPS):
+                tile_seq = []
+                for c in range(SYM_WARPS):
+                    rw, cc = slice(32 * w, 32 * w + 32), slice(32 * c,
+                                                               32 * c + 32)
+                    box = bool(_reach(wbox[ti * SYM_WARPS + w],
+                                      cbox[tj * SYM_WARPS + c], c2))
+                    tot["chunk_pairs_tested"] += 1
+                    tri = tj * SYM_TILE + 32 * c + 31 > ti * SYM_TILE + 32 * w
+                    if tri and box:
+                        tot["chunk_pairs_kept"] += 1
+                        ok = upper[rw, cc]
+                        law = int(ok[lanes, _STAGGER].any(0).sum())
+                        tot["law_steps"] += law
+                        tot["steps_without_law"] += 32 - law
+                        tot["pairs"] += int(ok.sum())
+                        tile_seq.append(ok.sum(1))
+                    steps = change_steps(tj == ti, w, c)
+                    if box and steps is not None:
+                        tot["change_chunk_pairs_kept"] += 1
+                        s0, s1, half = steps
+                        ok = full[rw, cc][lanes, _STAGGER][:, s0:s1 + 1]
+                        if half:
+                            ok = ok.clone()
+                            ok[16:, -1] = False
+                        law = int(ok.any(0).sum())
+                        tot["change_law_steps"] += law
+                        tot["change_steps_without_law"] += s1 - s0 + 1 - law
+                        tot["change_pairs"] += int(ok.sum())
+                if tile_seq:
+                    seq = torch.stack(tile_seq)
+                    for k in windows:
+                        tot[f"window_{k}_tile"] += window_steps(seq, k)
+                    row_seq[w] += tile_seq
+        for w in range(SYM_WARPS):
+            if row_seq[w]:
+                seq = torch.stack(row_seq[w])
+                for k in windows:
+                    tot[f"window_{k}_row"] += window_steps(seq, k)
+    per_pair = {k: round(v / max(kept_pairs, 1), 2) for k, v in tot.items()}
+    per_pair["lane_use"] = round(tot["pairs"] / max(
+        32 * tot["law_steps"], 1), 3)
+    per_pair["change_lane_use"] = round(tot["change_pairs"] / max(
+        32 * tot["change_law_steps"], 1), 3)
+    per_row = {k: round(v / max(len(pick), 1), 2)
+               for k, v in rows_tot.items()}
+    return per_pair, {**per_row, "rows": len(pick),
+                      "tile_pairs": kept_pairs, "totals": tot}
+
+
+def sym_main(args, windows):
+    """``--sym``: :func:`sym_counts` at phase 30's two shapes."""
+    import batch_cases as bc
+    small = bc.sort_rows(bc.batch_planes(4, 1000, seed=30, device="cpu",
+                                         extent=35.0))
+    big = bc.sort_rows(bc.batch_planes(2, 50_000, seed=31, device="cpu",
+                                       extent=max(25.0, 50_000 ** 0.5)))
+    for name, planes, sample in (("config #5 + 30 m", small, None),
+                                 ("8 x 50,000", big, args.blocks)):
+        nt = -(-planes[0].shape[1] // SYM_TILE)
+        for b in range(planes[0].shape[0]):
+            rows = (None if sample is None else sorted(
+                np.random.default_rng(b).choice(nt, sample,
+                                                replace=False).tolist()))
+            pair, row = sym_counts((planes[0][b], planes[1][b],
+                                    planes[5][b]), CUTOFF, windows, rows)
+            print(json.dumps({"rows": name, "crowd": b,
+                              "per_tile_pair": pair,
+                              "per_row": row}), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--blocks", type=int, default=24)
     ap.add_argument("--window", default="1,2,3,4,0")
     ap.add_argument("--square", type=int, default=0,
                     help="crowds of config #5 + 30 m to replay whole (2c)")
+    ap.add_argument("--sym", action="store_true",
+                    help="replay the batched symmetric cutoff walks (1c)")
     args = ap.parse_args()
     sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
-    import shard_cases as sc
     windows = [int(k) for k in args.window.split(",")]
     torch.set_num_threads(4)
+    if args.sym:
+        sym_main(args, windows)
+        return 0
+    import shard_cases as sc
     sharded = sc.shard_planes(N, SEED, "cpu", n_shards=SHARDS, sort=True)
     k = N // SHARDS
     whole = sc.shard_planes(N, SEED, "cpu", n_shards=1, sort=True)
