@@ -70,20 +70,25 @@
 // A batch of crowds (ring_force_batched_kernel, entry sfm_ring_force_batched:
 // the JAX package's _ring_kernel under vmap, a batch sharded over a 2-D
 // (batch, agents) mesh) runs B rings of D devices in the same launch, every
-// crowd with its own column blocks, slots and counters.  The items of a
-// device are its (crowd, row set) pairs, item b * nsets + s on block (b *
-// nsets + s) mod G: crowd b's row sets sit on min(nsets, G) blocks of each
+// crowd with its own column blocks, slots and counters, through a body of
+// its own (ring_batch_walk, below ring_force_kernel).  The items of a
+// device are its (crowd, group) pairs, a group being `sets` consecutive
+// 32-row sets (1-8, from the shapes), item b * groups + s on block (b *
+// groups + s) mod G: crowd b's groups sit on min(groups, G) blocks of each
 // device, the same blocks on every device, which alone forward crowd b's
 // blocks and count in crowd b's counters.  Every block walks its crowds in
-// ascending order, and a crowd's D ring steps in order before the next
-// crowd's.  So a block waits only on a step of the same crowd that comes
-// earlier, on blocks of other devices that walk that crowd too; the
-// earliest (crowd, step) that any block has not finished can always go on,
-// as every block is resident: no block waits for a crowd its neighbour
-// reaches later.  With one row set per crowd a block keeps the set's sums
-// in registers for the crowd's D steps; with more (kMulti) in acc.  A
-// crowd's rows are summed in the unbatched kernel's order, so crowd b's
-// forces equal the unbatched launch on crowd b bitwise.
+// ascending order, a crowd's D ring steps in order before the next crowd's
+// (kMulti: ring step by ring step, its crowds in order at each step).  So
+// a block waits only on a (crowd, step) that comes earlier in that order,
+// on blocks of other devices that walk that crowd too; the earliest
+// (crowd, step) that any block has not finished can always go on, as
+// every block is resident: no block waits for a crowd its neighbour
+// reaches later.  (With one group a crowd and more crowds than blocks, a
+// device's blocks take its crowds in ascending order from a counter as
+// they come free, which keeps that argument.)  A crowd's rows are summed
+// in the unbatched kernel's order (each 32-column chunk slot over the ring
+// steps, tiles and columns, then the slots in order), so crowd b's forces
+// equal the unbatched launch on crowd b bitwise.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -366,76 +371,429 @@ ring_force_kernel(RingArgs a) {
   ring_walk<kCutoff, Law, kR, kMulti>(a, p, blockIdx.x, gridDim.x);
 }
 
+// ---------------------------------------------------------------------------
+// The batched ring's own body (ring_batch_walk; ring_force_kernel keeps
+// ring_walk, whose SASS a shared body would change).  At the 2-D mesh's
+// shapes (256 crowds x 4 devices x 250 rows) ring_walk gave each block one
+// 32-row set per ring step, 32 law steps a warp between waits, fences and
+// polls that took a third of each step (PERF.md row 6-b).  Here an item is a
+// (crowd, device, group of `sets` row sets): warp w holds row set w % sets
+// of the group and walks the chunk slots w / sets, w / sets + 8 / sets, ...
+// of every tile, so a ring step gives each warp `sets` chunks (8 with one
+// item per (crowd, device): 250 law steps a wait at that shape).  A row's
+// sum of each chunk slot lives in the block's shared memory (or, kMulti, in
+// acc) and the slots are added in order at the end, as the unbatched
+// kernel adds its warps' parts, so every crowd's forces equal the unbatched
+// launch bitwise whatever `sets` is.  `sets` comes from the shapes
+// (ring_batch_sets): large enough that a block walks many law steps a
+// wait, small enough that the items fill the resident blocks evenly.
+//
+// A ring step: thread 0 polls fill (and, before overwriting the right
+// neighbour's slot, its done credit) with acquire loads, at first without
+// sleeping, then one barrier; the block forwards its tiles of the column
+// block (tile t by rank t % P) and stages its first tile, keeping the
+// columns it forwarded in registers; after the staging barrier thread 0
+// fences once and adds fill, and adds done once its last tile of the slot
+// is staged: a block that holds the whole slot in one tile hands the slot
+// back before it walks it.  Tiles go to two shared buffers in turn, so one
+// barrier a tile.
+constexpr int kRingBatchMinBlocks = 4;  // resident blocks an SM (PERF.md)
+constexpr int kRingBatchRows = 1;       // rows a lane holds: one row set a warp
+static_assert(kRingBatchRows == 1, "a warp's rows are one 32-row set");
+constexpr int kRingSpinFast = 64;       // polls before the spins sleep
+static_assert(kThreads == kColTile, "one staged column a thread");
+
 struct RingBatchArgs {
   RingArgs ring;  // crowd 0's: (n_batch, ...) planes, blocks and counters
   int n_batch;
   int prm_stride;  // prm: (n_batch, P), rows prm_stride apart
+  int sets;        // row sets of 32 an item holds: 1, 2, 4 or 8
+  int dynamic;     // blocks take crowds from their device's counter
 };
 
-// The ring over a batch of crowds (see the head of the file): block
-// (blockIdx.x, d) walks crowd b's ring (ring_walk on the crowd's pointers)
-// with rank (blockIdx.x - b * nsets) mod G, for every crowd b, in order,
-// whose rank is below P = min(nsets, G).  kMulti: a block may hold several
-// row sets of a crowd (nsets > G); else one, its sums in registers.
-template <bool kCutoff, class Law, int kR, bool kMulti>
-__global__ void __launch_bounds__(kThreads, kRingMinBlocks)
-ring_force_batched_kernel(RingBatchArgs ab) {
-  constexpr int kBlockRows = 32 * kR;
-  const RingArgs& a = ab.ring;
-  const int G = gridDim.x;
-  const int D = a.n_dev;
-  const int n = a.n_local;
-  const int nsets = (n + kBlockRows - 1) / kBlockRows;
-  const int P = nsets < G ? nsets : G;  // the blocks of a device a crowd has
-  for (int b = 0; b < ab.n_batch; ++b) {
-    const int rank = (int)((((long long)blockIdx.x - (long long)b * nsets) %
-                                G + G) % G);
-    if (rank >= P) continue;  // block-uniform
-    const long long rows = (long long)b * D * n;  // crowd b's first row
-    RingArgs c = a;
-    c.rx += rows;
-    c.ry += rows;
-    c.ru += rows;
-    c.rv += rows;
-    if (c.rrad != nullptr) c.rrad += rows;
-    c.ralive += rows;
-    c.fx += rows;
-    c.fy += rows;
-    c.cols += (long long)b * D * a.slot;
-    c.comm += (long long)b * D * 2 * a.slot;
-    c.fill += (long long)b * D * 2;
-    c.done += (long long)b * D * 2;
-    c.acc += (long long)b * D * nsets * kTileChunks * 2 * kBlockRows;
-    c.prm += (long long)b * ab.prm_stride;
-    const typename Law::Prm p = Law::load(c.prm);
-    if (!ring_walk<kCutoff, Law, kR, kMulti>(c, p, (unsigned)rank, P)) return;
+struct RingBatchShared {
+  ColTile tile[2];
+  // [chunk slot][x, y][row of the item]: the rows' sums (keep)
+  float acc[kTileChunks][2][kTileChunks * 32];
+  float box[2][kTileChunks][4];  // each warp's row set box, by group parity
+  int crowd;  // the crowd this block took from its device's counter
+};
+
+// Thread 0 spins until *p >= want, polling with acquire loads, sleeping
+// only after kRingSpinFast polls; on overrun it sets the error word.
+// Returns the polls that found *p short, or -1: overrun, or another block
+// set the error word.
+__device__ __forceinline__ long long ring_spin(const int* p, int want,
+                                               int* err) {
+  long long polls = 0;
+  while (ld_acquire(p) < want) {
+    if (ld_acquire(err) != 0) return -1;
+    if (++polls > kSpinLimit) {
+      atomicExch(err, 1);
+      return -1;
+    }
+    if (polls > kRingSpinFast) __nanosleep(64);
   }
+  return polls;
 }
 
-// Launch the ring (ring_force_kernel, or ring_force_batched_kernel for a
-// batch of `crowds`) with R = kRingRows rows per thread on one block per
-// row set of a crowd where the card keeps them all resident (a block then
-// holds one row set of each of its crowds), else on as many blocks per
-// device as it keeps resident, each walking several row sets (kMulti).
+// The rings of the crowds this block walks on device blockIdx.y: for crowd
+// b its rank (blockIdx.x - b * groups) mod G among the crowd's P =
+// min(groups, G) blocks of each device, and its groups rank, rank + G, ...
+// Without kMulti a block holds one group of each of its crowds and walks
+// them crowd by crowd, its sums in shared memory; the launch takes that
+// form only where every crowd's blocks hold it at the same place of their
+// lists (G a multiple of groups, or one item a block), or a crowd would
+// wait on blocks still busy with an earlier crowd while others idle.
+// With one group a crowd and more crowds than blocks (dynamic), a free
+// block takes the next crowd from its device's counter instead: the
+// blocks of an SM walk at their arrival order's pace (PERF.md row 6-b),
+// and the fast ones take more crowds.  Each device hands out its crowds
+// in ascending order, so the lowest unfinished crowd has a block on
+// every device, and its ring goes on.
+// kMulti walks ring step by ring step over all its (crowd, group) items,
+// their sums in acc: a step of a crowd waits only on the previous step of
+// the same crowd, which every block walks before it, so the blocks stay as
+// even as their item counts.  False: a wait failed.
+template <bool kCutoff, class Law, bool kMulti>
+__device__ __forceinline__ bool ring_batch_walk(const RingBatchArgs& ab,
+                                                RingBatchShared& sm) {
+  const RingArgs& a = ab.ring;
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int d = blockIdx.y;
+  const int D = a.n_dev;
+  const int G = gridDim.x;
+  const int n = a.n_local;
+  const int right = (d + 1) % D;
+  const int nct = a.n_col_tiles;
+  const int sets = ab.sets;
+  const int ir = warp % sets;      // this warp's row set of the item
+  const int cq = warp / sets;      // its first chunk slot of each tile
+  const int cstep = kTileChunks / sets;
+  const int rows = sets * 32;      // rows of an item
+  const int nsets = (n + 31) / 32;
+  const int groups = (nsets + sets - 1) / sets;
+  const int P = groups < G ? groups : G;
+  const long long rows_pad = (long long)(n + 255) / 256 * 256;
+  int par = 0;   // the tile buffer staged next
+  int bpar = 0;  // the box slot written next
+
+  auto rank_of = [&](int b) {
+    return (int)((((long long)blockIdx.x - (long long)b * groups) % G + G) %
+                 G);
+  };
+  // crowd b's sums of group grp: [chunk slot][x, y][row], stride rs
+  auto acc_of = [&](int b, int grp) {
+    return kMulti ? a.acc + ((long long)b * D + d) * rows_pad * 2 *
+                                kTileChunks +
+                        (long long)grp * rows * 2 * kTileChunks
+                  : &sm.acc[0][0][0];
+  };
+  const int rs = kMulti ? rows : kTileChunks * 32;
+
+  RowSet<kRingBatchRows> rw;
+  float ux0 = INFINITY, ux1 = -INFINITY, uy0 = INFINITY, uy1 = -INFINITY;
+  float wb[4] = {INFINITY, -INFINITY, INFINITY, -INFINITY};
+  // crowd b's group grp: this warp's row set, its box and the group's
+  // union box; zero: this warp's sums start from +0
+  auto load_group = [&](int b, int grp, bool zero) {
+    const long long base = ((long long)b * D + d) * n;
+    const int i = (grp * sets + ir) * 32 + lane;
+    const bool in = i < n;
+    rw.template load<kCutoff>(
+        0, in ? a.rx[base + i] : 0.0f, in ? a.ry[base + i] : 0.0f,
+        in ? a.ru[base + i] : 0.0f, in ? a.rv[base + i] : 0.0f,
+        (in && Law::kRadius) ? a.rrad[base + i] : 0.0f,
+        in && a.ralive[base + i] != 0, d * n + i);
+    if (kCutoff) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) wb[c] = rw.box[0][c];
+      if (lane == 0) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) sm.box[bpar][warp][c] = wb[c];
+      }
+    }
+    __syncthreads();  // the boxes; the previous crowd's sums are read
+    if (kCutoff) {
+      ux0 = INFINITY, ux1 = -INFINITY, uy0 = INFINITY, uy1 = -INFINITY;
+      for (int w = 0; w < kTileChunks; ++w) {
+        ux0 = fminf(ux0, sm.box[bpar][w][0]);
+        ux1 = fmaxf(ux1, sm.box[bpar][w][1]);
+        uy0 = fminf(uy0, sm.box[bpar][w][2]);
+        uy1 = fmaxf(uy1, sm.box[bpar][w][3]);
+      }
+    }
+    bpar ^= 1;
+    if (zero) {
+      float* s = acc_of(b, grp);
+      for (int j = 0; j < sets; ++j) {
+        const int g = cq + cstep * j;
+        s[(g * 2) * rs + ir * 32 + lane] = 0.0f;
+        s[(g * 2 + 1) * rs + ir * 32 + lane] = 0.0f;
+      }
+    }
+  };
+
+  // ring step k of crowd b: the block's groups rank, rank + G, ... (nq of
+  // them; without kMulti the one group is loaded already)
+  auto step = [&](int b, int k, int rank, int nq) {
+    const typename Law::Prm p =
+        Law::load(a.prm + (long long)b * ab.prm_stride);
+    const int src = ((d - k) % D + D) % D;  // the column block's home
+    float* comm = a.comm + (long long)b * D * 2 * a.slot;
+    int* fill = a.fill + (long long)b * D * 2;
+    int* done = a.done + (long long)b * D * 2;
+    const float* blk =
+        k == 0 ? a.cols + ((long long)b * D + d) * a.slot
+               : comm + ((long long)d * 2 + (k & 1)) * a.slot;
+    const bool fwd = k < D - 1;
+    const int dst_slot = (k + 1) & 1;
+    if (k > 0) {  // the slot is filled; the neighbour's is free
+      int ok = 1;
+      if (tid == 0) {
+        const long long pf =
+            ring_spin(&fill[d * 2 + (k & 1)], P * ((k + 1) / 2), a.err);
+        const long long pd =
+            pf < 0 || !(fwd && k >= 2)
+                ? 0
+                : ring_spin(&done[right * 2 + dst_slot], P * (k / 2), a.err);
+        ok = pf >= 0 && pd >= 0;
+      }
+      if (!__syncthreads_and(ok)) return false;
+    }
+    // forward this block's tiles t = rank, rank + P, ... of the column
+    // block (rank 0: and the tile boxes) into the right neighbour's slot;
+    // tile 0's columns stay in registers for the staging below
+    float h[kPlanes];
+    bool held = false;
+    if (fwd) {
+      float* dst = comm + ((long long)right * 2 + dst_slot) * a.slot;
+      for (int t = rank; t < nct; t += P) {
+        const int j = t * kColTile + tid;
+        if (j < n) {
+#pragma unroll
+          for (int pl = 0; pl < kPlanes; ++pl) {
+            const float v = __ldcg(blk + (long long)pl * n + j);
+            __stcg(dst + (long long)pl * n + j, v);
+            if (t == 0) h[pl] = v;
+          }
+        }
+      }
+      held = rank == 0;
+      if (rank == 0)
+        for (int e = tid; e < 4 * nct; e += kThreads)
+          __stcg(dst + kPlanes * n + e, __ldcg(blk + kPlanes * n + e));
+    }
+    bool fill_due = fwd;
+    bool done_due = k > 0;
+    // thread 0, after a barrier that follows the forward and the staging
+    // of `last` (the block's last tile of this slot): one fence, then the
+    // counters
+    auto release = [&](bool last) {
+      const bool f = fill_due, dn = done_due && last;
+      fill_due = false;
+      done_due = done_due && !last;
+      if (tid != 0 || !(f || dn)) return;
+      __threadfence();
+      if (f) atomicAdd(&fill[right * 2 + dst_slot], 1);
+      if (dn) atomicAdd(&done[d * 2 + (k & 1)], 1);
+    };
+    const float* bb = blk + kPlanes * n;  // (4, n_col_tiles) boxes
+    const int g_src = src * n;
+    for (int q = 0; q < nq; ++q) {
+      const int grp = rank + q * G;
+      if (kMulti) load_group(b, grp, k == 0);
+      float* accb = acc_of(b, grp);
+      for (int t = 0; t < nct; ++t) {
+        float tb[4];
+        if (kCutoff) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) tb[c] = __ldcg(bb + c * nct + t);
+          if (box_gap2(ux0, ux1, uy0, uy1, tb[0], tb[1], tb[2], tb[3]) >
+              a.c2)
+            continue;  // block-uniform: no row of the group reaches it
+        }
+        ColTile& tl = sm.tile[par];
+        par ^= 1;
+        const int j = t * kColTile + tid;
+        const bool in = j < n;
+        if (held && q == 0 && t == 0) {
+          stage_column<kCutoff>(tl, tid, in ? h[0] : 0.0f, in ? h[1] : 0.0f,
+                                in ? h[2] : 0.0f, in ? h[3] : 0.0f,
+                                in ? h[4] : 0.0f, in && h[5] != 0.0f);
+        } else {
+          stage_column<kCutoff>(
+              tl, tid, in ? __ldcg(blk + j) : 0.0f,
+              in ? __ldcg(blk + n + j) : 0.0f,
+              in ? __ldcg(blk + 2 * n + j) : 0.0f,
+              in ? __ldcg(blk + 3 * n + j) : 0.0f,
+              in ? __ldcg(blk + 4 * n + j) : 0.0f,
+              in && __ldcg(blk + 5 * n + j) != 0.0f);
+        }
+        __syncthreads();  // the tile is staged (the other buffer free)
+        release(q == nq - 1 && t == nct - 1);
+        if (kCutoff && box_gap2(wb[0], wb[1], wb[2], wb[3], tb[0], tb[1],
+                                tb[2], tb[3]) > a.c2)
+          continue;  // warp-uniform: no row of this warp reaches it
+        for (int jj = 0; jj < sets; ++jj) {  // this warp's chunk slots
+          const int g = cq + cstep * jj;
+          const int jc = t * kColTile + g * kChunk;
+          if (jc >= n) break;
+          float* px = accb + (g * 2) * rs + ir * 32 + lane;
+          float* py = px + rs;
+          rw.ax[0] = *px;
+          rw.ay[0] = *py;
+          const bool walked = rows_vs_chunk<kCutoff, kRingFastTail, Law,
+                                            kRingBatchRows>(
+              rw, tl, g, min(kChunk, n - jc), g_src + jc, p, a.use_radius,
+              a.c2);
+          if (walked) {  // else nothing was added
+            *px = rw.ax[0];
+            *py = rw.ay[0];
+          }
+        }
+      }
+    }
+    if (fill_due || done_due) {  // tiles skipped: nothing released yet
+      __syncthreads();
+      release(true);
+    }
+    return true;
+  };
+
+  // each row of crowd b's group grp: its sum over the chunk slots, in order
+  auto store = [&](int b, int grp) {
+    const long long base = ((long long)b * D + d) * n;
+    const float* s = acc_of(b, grp);
+    for (int row = tid; row < rows; row += kThreads) {
+      const int i = grp * rows + row;
+      if (i >= n) continue;
+      float sx = s[row], sy = s[rs + row];
+#pragma unroll
+      for (int g = 1; g < kTileChunks; ++g) {
+        sx += s[(g * 2) * rs + row];
+        sy += s[(g * 2 + 1) * rs + row];
+      }
+      a.fx[base + i] = sx;
+      a.fy[base + i] = sy;
+    }
+  };
+
+  if (!kMulti) {  // crowd by crowd, one group each
+    auto walk = [&](int b, int rank) {
+      load_group(b, rank, true);
+      for (int k = 0; k < D; ++k)
+        if (!step(b, k, rank, 1)) return false;
+      __syncthreads();  // every warp's sums are written
+      store(b, rank);
+      return true;
+    };
+    if (ab.dynamic) {  // the next crowd of this device's counter
+      for (;;) {
+        if (tid == 0) sm.crowd = atomicAdd(&a.err[1 + d], 1);
+        __syncthreads();
+        const int b = sm.crowd;  // written again only after walk's barriers
+        if (b >= ab.n_batch) return true;
+        if (!walk(b, 0)) return false;
+      }
+    }
+    for (int b = 0; b < ab.n_batch; ++b) {
+      const int rank = rank_of(b);
+      if (rank < P && !walk(b, rank)) return false;  // block-uniform
+    }
+    return true;
+  }
+  for (int k = 0; k < D; ++k)  // ring step by ring step over every item
+    for (int b = 0; b < ab.n_batch; ++b) {
+      const int rank = rank_of(b);
+      if (rank < P && !step(b, k, rank, (groups - rank + G - 1) / G))
+        return false;
+    }
+  __syncthreads();  // every warp's sums are written
+  for (int b = 0; b < ab.n_batch; ++b) {
+    const int rank = rank_of(b);
+    if (rank >= P) continue;
+    for (int grp = rank; grp < groups; grp += G) store(b, grp);
+  }
+  return true;
+}
+
+// The ring over a batch of crowds: its own body (ring_batch_walk), with
+// sets row sets an item from the launch (ring_batch_sets).  kMulti: a
+// crowd has more groups than a device has blocks, so blocks hold several
+// and keep their sums in acc.
+template <bool kCutoff, class Law, bool kMulti>
+__global__ void __launch_bounds__(kThreads, kRingBatchMinBlocks)
+ring_force_batched_kernel(RingBatchArgs ab) {
+  __shared__ RingBatchShared sm;
+  ring_batch_walk<kCutoff, Law, kMulti>(ab, sm);
+}
+
+// Row sets an item of the batched ring holds (1, 2, 4 or 8), by the shapes:
+// the least rounds x (sets x tiles + 1), where rounds = ceil(items / blocks
+// of a device) is the items the busiest block walks, sets x tiles the
+// chunks a warp walks a ring step and the 1 a step's waits and staging;
+// ties go to more sets (fewer waits).  A block is taken to go no faster
+// when its SM holds fewer blocks (at 2 blocks an SM the counters showed a
+// law step at 1.3x the cycles a warp gets at 4, latency-bound).
+// tools/walk_model.py --ring replays it.
+int ring_batch_sets(long long crowds, int n_dev, int n_local, int per_sm,
+                    int sms) {
+  const long long per_dev = (long long)per_sm * sms / n_dev;
+  if (per_dev < 1) return 1;  // refused by the launch
+  const long long nsets = (n_local + 31) / 32;
+  const long long nct = (n_local + kColTile - 1) / kColTile;
+  int best = 1;
+  long long best_cost = 0;
+  for (int s = 1; s <= kTileChunks; s *= 2) {
+    const long long items = crowds * ((nsets + s - 1) / s);
+    const long long g = items < per_dev ? items : per_dev;
+    const long long cost = (items + g - 1) / g * (s * nct + 1);
+    if (s == 1 || cost <= best_cost) {
+      best = s;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+// Launch the ring: ring_force_kernel with R = kRingRows rows per thread
+// on one block per row set where the card keeps them all resident, else on
+// as many blocks per device as it keeps resident, each walking several row
+// sets (kMulti); or, for a batch of `crowds`, ring_force_batched_kernel
+// with ring_batch_sets row sets an item, crowd by crowd where a block of a
+// device holds one item of a crowd at the same place of every block's list
+// as the crowd's other blocks (G a multiple of the items of a crowd),
+// else step by step over its items (kMulti), on at most the resident
+// blocks.
 template <bool kCutoff, class Law, bool kMulti, class Args>
 cudaError_t ring_try(Args a, const RingArgs& r, int crowds, int sms,
                      void* stream, bool* fits) {
+  constexpr bool kBatched = !std::is_same<Args, RingArgs>::value;
   const void* kernel;
-  if constexpr (std::is_same<Args, RingArgs>::value)
+  if constexpr (!kBatched)
     kernel = (const void*)ring_force_kernel<kCutoff, Law, kRingRows, kMulti>;
   else
-    kernel = (const void*)
-        ring_force_batched_kernel<kCutoff, Law, kRingRows, kMulti>;
+    kernel = (const void*)ring_force_batched_kernel<kCutoff, Law, kMulti>;
   int per_sm = 0;
   cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &per_sm, kernel, kThreads, 0);
   if (e != cudaSuccess) return e;
   const long long per_dev = (long long)per_sm * sms / r.n_dev;
-  const long long nsets = (r.n_local + 32 * kRingRows - 1) / (32 * kRingRows);
+  long long rows = 32 * kRingRows;  // of an item
+  if constexpr (kBatched) {
+    a.sets = ring_batch_sets(crowds, r.n_dev, r.n_local, per_sm, sms);
+    rows = 32LL * a.sets;
+  }
+  const long long nsets = (r.n_local + rows - 1) / rows;  // items a crowd
   const long long items = nsets * crowds;
-  *fits = kMulti ? per_dev >= 1 : nsets <= per_dev;
-  if (!*fits) return cudaSuccess;
   const long long g = items < per_dev ? items : per_dev;
+  if constexpr (kBatched) a.dynamic = !kMulti && nsets == 1 && items > g;
+  *fits = kMulti ? per_dev >= 1
+                 : nsets <= per_dev && (!kBatched || g % nsets == 0);
+  if (!*fits) return cudaSuccess;
   void* args[] = {&a};
   e = cudaLaunchCooperativeKernel(kernel, dim3((unsigned)g, (unsigned)r.n_dev),
                                   dim3(kThreads), args, 0,
@@ -541,9 +899,10 @@ int sfm_ring_force(int law, int n_dev, int n_local, const float* rx,
 // cols (n_batch, n_dev, slot) each crowd's devices' own blocks; prm
 // (n_batch, P) with rows prm_stride apart (0: one vector for every crowd);
 // comm (n_batch, n_dev, 2, slot) floats of scratch; sync 4 * n_batch *
-// n_dev + 1 ints, zero on entry (the fill and done counters of every
-// crowd, then the error word); acc at least n_batch * n_dev *
-// ceil(n_local / 128) * 128 * 16 floats of scratch.
+// n_dev + 1 + n_dev ints, zero on entry (the fill and done counters of
+// every crowd, the error word, then each device's next crowd); acc at
+// least n_batch * n_dev * ceil(n_local / 256) * 256 * 16 floats of
+// scratch.
 int sfm_ring_force_batched(int law, int n_batch, int n_dev, int n_local,
                            const float* rx, const float* ry, const float* ru,
                            const float* rv, const float* rrad,
@@ -558,7 +917,7 @@ int sfm_ring_force_batched(int law, int n_batch, int n_dev, int n_local,
   const RingBatchArgs a = {
       ring_args(n_batch, n_dev, n_local, rx, ry, ru, rv, rrad, ralive, cols,
                 comm, sync, acc, prm, use_radius, c2, fx, fy),
-      n_batch, prm_stride};
+      n_batch, prm_stride, 1, 0};
   return with_any_law(law, [&](auto l) {
     using L = decltype(l);
     return cutoff ? ring_launch<true, L>(a, a.ring, n_batch, stream)

@@ -49,17 +49,18 @@ def reset_launch_counts() -> None:
 #: sync, acc); reused while the shape stays the same
 _BUFFERS: dict = {}
 
-#: floats of the accumulator per agent: 8 warps' (x, y) sums, rows rounded
-#: up to 128 (the largest row set, csrc/ring.cu)
-_ACC_PER_ROW, _ACC_ROUND = 16, 128
+#: floats of the accumulator per agent: 8 chunk slots' (x, y) sums, rows
+#: rounded up to 256 (the largest item of the batched ring, csrc/ring.cu)
+_ACC_PER_ROW, _ACC_ROUND = 16, 256
 
 
 def _buffers(dev, n_dev: int, n_local: int, slot: int, batch=None):
     """The ``(n_dev, 2, slot)`` comm buffer, the ``4 * n_dev + 1``
     counters and the accumulator of a launch (each ``batch`` times over
-    for the batched kernel; kept across launches of one shape: every
-    launch zeroes the counters on the stream first).  Raises (out of
-    memory) only where the buffers do not fit on the card."""
+    for the batched kernel, whose error word each device's next-crowd
+    counter follows; kept across launches of one shape: every launch
+    zeroes the counters on the stream first).  Raises (out of memory)
+    only where the buffers do not fit on the card."""
     key = (str(dev), batch is not None)
     b = 1 if batch is None else batch
     got = _BUFFERS.get(key)
@@ -69,7 +70,9 @@ def _buffers(dev, n_dev: int, n_local: int, slot: int, batch=None):
         got = ((b, n_dev, n_local),
                torch.empty((b * n_dev, 2, slot), dtype=torch.float32,
                            device=dev),
-               torch.zeros(4 * b * n_dev + 1, dtype=torch.int32, device=dev),
+               torch.zeros(4 * b * n_dev + 1
+                           + (0 if batch is None else n_dev),
+                           dtype=torch.int32, device=dev),
                torch.empty(b * n_dev * rows * _ACC_PER_ROW,
                            dtype=torch.float32, device=dev))
         _BUFFERS[key] = got
@@ -102,14 +105,14 @@ def _check_planes(planes, alive, shape, dev):
                          f"on {dev}")
 
 
-def _raise_on(lib, err, sync, name):
+def _raise_on(lib, err, word, name):
     """Raise for a refused launch (``err``) or an overrun spin (the error
-    word, ``sync[-1]``); count the launch otherwise."""
+    ``word`` of the counters); count the launch otherwise."""
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err} "
                            f"({lib.sfm_cuda_error_string(err).decode()})")
     LAUNCHES[name] += 1
-    if int(sync[-1].item()) != 0:
+    if int(word.item()) != 0:
         raise RuntimeError(f"{name}: a device waited past its spin limit "
                            f"for its neighbour (the ring did not complete)")
 
@@ -166,7 +169,7 @@ def ring_force(x, y, vx, vy, radius, alive, prm, n_dev: int,
             int(use_radius), int(cutoff is not None),
             cutoff_sq(cutoff) if cutoff is not None else 0.0,
             fx.data_ptr(), fy.data_ptr(), stream)
-    _raise_on(lib, err, sync, "ring_force")
+    _raise_on(lib, err, sync[4 * n_dev], "ring_force")
     return fx, fy
 
 
@@ -260,7 +263,7 @@ def ring_force_batched(x, y, vx, vy, radius, alive, prm, n_dev: int,
             int(use_radius), int(cutoff is not None),
             cutoff_sq(cutoff) if cutoff is not None else 0.0,
             fx.data_ptr(), fy.data_ptr(), stream)
-    _raise_on(lib, err, sync, "ring_force_batched")
+    _raise_on(lib, err, sync[4 * batch * n_dev], "ring_force_batched")
     return fx, fy
 
 

@@ -3963,7 +3963,10 @@ def mesh_batch_phases(dev, zero, card, launches, worst):
             f"{BATCH} crowds x {d} shards x {k}")}
     floors = {"pair_force_compact_rect_batched": (
         "pair_force_dense_batched<kTable, Moussaid>",
-        lambda: rect_pairs_within(trows, tpl, c2, tk, 0))}
+        lambda: rect_pairs_within(trows, tpl, c2, tk, 0)),
+        # every pair the ring's walk evaluates
+        "ring_force_batched": ("ring_force_batched<false, Moussaid>",
+                               lambda: BATCH * BATCH_N * BATCH_N)}
     for name, (fn, kernel, plain, bnd, shape) in timing.items():
         t_ms = device_ms(fn, kernel)
         how = TIMED_BY[0]

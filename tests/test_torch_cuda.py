@@ -2837,6 +2837,115 @@ def test_ring_batched_matches_plain_and_unbatched(cuda_device, law, cutoff,
     assert bool((got[:, ~planes[5]] == 0).all())
 
 
+#: the batched ring's own body (ring_batch_walk) on shapes its launch rule
+#: treats apart: (crowds, devices, agents a device, cutoff, what to do to
+#: the planes, the laws: None all three; the large ones' plain references
+#: take seconds a law).  On 132 SMs at 4 blocks an SM: 256 x 4 x 250 one
+#: group of 8 row sets a (crowd, device), some blocks two crowds; 133
+#: crowds one more crowd than blocks; 20 x 4 x 2,000 groups of 2 row sets
+#: that do not divide the blocks of a device, so it walks step by step
+RING_BATCH_CASES = {
+    "phase 33, 256 x 4 x 250": (256, 4, 250, None, None, ("moussaid",)),
+    "phase 33 cutoff, 32 x 4 x 250": (32, 4, 250, 30.0, None, None),
+    "shards of 70 agents": (5, 4, 70, None, None, None),
+    "one crowd of 4 x 2,500": (1, 4, 2_500, None, None, None),
+    "one crowd of 4 x 250, cutoff": (1, 4, 250, 8.0, None, None),
+    "one device": (3, 1, 500, 8.0, None, None),
+    "eight devices": (3, 8, 130, 8.0, None, None),
+    "more crowds than blocks": (133, 4, 250, None, None, ("moussaid",)),
+    "step by step, 20 x 4 x 2,000": (20, 4, 2_000, 8.0, None,
+                                      ("moussaid",)),
+    "an all-dead crowd": (3, 4, 250, 8.0, "dead crowd", None),
+    "coincident live pairs": (2, 4, 250, None, "coincident", None),
+    "eight stacked crowds": (8, 4, 384, 10.0, "stacked", None)}
+
+
+def ring_batch_planes(b, n_dev, n_local, cutoff, what, device):
+    """The ``(b, n_dev * n_local)`` planes (x .. ey) of a RING_BATCH_CASES
+    case, each shard sorted on its own curve with a cutoff."""
+    if what == "stacked":
+        rows = [stacked_crowd(seed, device) for seed in range(b)]
+        planes = [torch.stack(c) for c in zip(*rows)]
+        speed = torch.hypot(planes[2], planes[3])
+        return planes + [planes[2] / speed, planes[3] / speed]
+    planes = batch_shard_planes(b, n_dev * n_local, seed=n_local + b,
+                                device=device, n_shards=n_dev,
+                                sort=cutoff is not None)
+    if what == "dead crowd":
+        planes[5][1] = False
+    if what == "coincident":  # 50 agents on others' spots, across shards
+        for t in planes[:2]:
+            t[:, 300:350] = t[:, :50]
+        planes[5][:, :50] = True
+        planes[5][:, 300:350] = True
+    return planes
+
+
+@pytest.mark.parametrize("case, law", [
+    (case, law) for case in sorted(RING_BATCH_CASES)
+    for law in RING_BATCH_CASES[case][5] or ("moussaid", "powerlaw",
+                                               "helbing")])
+def test_ring_batch_walk_matches_plain_and_unbatched(cuda_device, case, law):
+    """The batched ring's own body under each law: one launch, finite, dead
+    rows exactly 0, within the limit of the plain batched ring, each crowd
+    bitwise equal to the unbatched ring on that crowd and a relaunch on the
+    same buffers bitwise equal.  Phase 33's 256 crowds of 4 x 250 and its
+    cutoff shape, shards that are no multiple of 32, one crowd, one device
+    and eight, a crowd count that does not divide over the resident blocks,
+    the step-by-step form, an all-dead crowd beside live ones, coincident
+    live pairs across shards, and the eight stacked crowds of the atan2
+    branch cut."""
+    from carla_social_force_model_tpu_torch.models.params import law_rows
+    from carla_social_force_model_tpu_torch.ops import cuda_ring
+    from shard_cases import law_args
+    b, n_dev, n_local, cutoff, what, _ = RING_BATCH_CASES[case]
+    planes = ring_batch_planes(b, n_dev, n_local, cutoff, what, cuda_device)
+    before = cuda_ring.LAUNCHES["ring_force_batched"]
+    got, want, lim, one = ring_batch_case(law, planes, n_dev, cutoff)
+    args, kw = law_args(law, planes)
+    again = torch.stack(cuda_ring.ring_force_batched(
+        *args, law_rows(law, law_params(law), b, cuda_device), n_dev,
+        cutoff=cutoff, **kw))
+    torch.cuda.synchronize()
+    assert cuda_ring.LAUNCHES["ring_force_batched"] == before + 2
+    assert torch.isfinite(got).all()
+    assert bool(((got - want).abs() <= lim).all())
+    assert torch.equal(got, one)
+    assert torch.equal(got, again)
+    assert bool((got[:, ~planes[5]] == 0).all())
+    if what == "dead crowd":
+        assert bool((got[:, 1] == 0).all())
+
+
+def test_ring_batched_on_large_shards(cuda_device):
+    """The batched ring at 8 crowds x 4 x 12,500 with a 30 m cutoff (one
+    batch row of 8 x 50,000 on the 2 x 4 mesh: a crowd's 49 groups do not
+    divide the blocks of a device, so the blocks walk step by step with
+    their sums in acc, kMulti): every crowd bitwise equal to the unbatched
+    ring (itself in its kMulti form there), crowd 0 within the limit of
+    the plain ring, and a relaunch bitwise equal."""
+    from carla_social_force_model_tpu_torch.models.params import law_rows
+    from carla_social_force_model_tpu_torch.ops import cuda_ring
+    from shard_cases import law_args
+    planes = batch_shard_planes(8, 50_000, seed=35, device=cuda_device,
+                                n_shards=4, sort=True)
+    args, kw = law_args("moussaid", planes)
+    prm = law_rows("moussaid", law_params("moussaid"), 8, cuda_device)
+    got = torch.stack(cuda_ring.ring_force_batched(*args, prm, 4,
+                                                   cutoff=30.0, **kw))
+    again = torch.stack(cuda_ring.ring_force_batched(*args, prm, 4,
+                                                     cutoff=30.0, **kw))
+    for b in range(8):
+        one = torch.stack(cuda_ring.ring_force(
+            *(t[b] for t in args), prm[b].contiguous(), 4, cutoff=30.0))
+        assert torch.equal(got[:, b], one), b
+    assert torch.equal(got, again)
+    assert torch.isfinite(got).all()
+    _, want, lim, _ = ring_batch_case("moussaid", [t[:1] for t in planes], 4,
+                                      30.0, kernel=False)
+    assert bool(((got[:, :1] - want).abs() <= lim).all())
+
+
 @pytest.mark.parametrize("comm,symmetric", [
     ("gather", True), ("ring", False), ("ring", True), ("ring_kernel", True)])
 @pytest.mark.parametrize("cutoff", [None, 10.0])

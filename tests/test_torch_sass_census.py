@@ -247,3 +247,93 @@ def test_compare_ignores_label_numbers_and_source_lines(tmp_path):
     assert got["different"] == ["argmin()"]
     assert got["first_difference"]["argmin()"][0] == 7
     assert got["only_b"] == ["_Z5extrav"] and got["only_a"] == []
+
+
+@pytest.mark.parametrize("law", ["Moussaid", "PowerLaw", "Helbing"])
+@pytest.mark.parametrize("cut", ["false", "true"])
+@pytest.mark.parametrize("form", ["change", "parent"])
+def test_batched_ring_entries_count_their_kernels(law, cut, form):
+    """The batched ring (row 6-b of PERF.md) has a census entry under each
+    law, with and without the cutoff, for its own body (ring_batch_walk:
+    ring_force_batched_kernel<kCutoff, Law, kMulti>, one row a lane,
+    kRingBatchRows) and for the parent's (ring_walk:
+    ring_force_batched_kernel<kCutoff, Law, R, kMulti>, kRingRows): the
+    crowd-by-crowd form a launch takes on the main path, two exponentials a
+    Moussaid pair and one a power-law or Helbing pair.  The two prefixes
+    never match each other's kernels, so each checkout's census finds its
+    own form only."""
+    entries = {k[0]: k for k in sass_census.KERNELS}
+    label = f"ring_force_batched<{cut}, {law}>"
+    entry = entries[label if form == "change" else label + " (parent)"]
+    other = entries[label + " (parent)" if form == "change" else label]
+    assert entry[2] == ("MUFU.EX2", None, None) and entry[4] == "pair"
+    assert entry[3] == (2 if law == "Moussaid" else 1)
+    if form == "change":
+        assert entry[1] == f"ring_force_batched_kernel<{cut}, {law}, false"
+        assert entry[5] == "kRingBatchRows"
+    else:
+        assert entry[1] == f"ring_force_batched_kernel<{cut}, {law}, 1, false"
+        assert entry[5] == "kRingRows"
+    for name in (f"ring_force_batched_kernel<{cut}, {law}, false>",
+                 f"ring_force_batched_kernel<{cut}, {law}, 1, false>"):
+        assert name.startswith(entry[1]) != name.startswith(other[1])
+    assert sass_census.layout_constants(ROOT)[entry[5]] == 1
+    src = (ROOT / "carla_social_force_model_tpu_torch" / "csrc"
+           / "ring.cu").read_text()
+    kernel = src[src.index("ring_force_batched_kernel(RingBatchArgs ab)"):]
+    assert "ring_batch_walk<kCutoff, Law, kMulti>" in kernel[:200]
+    assert "RowSet<kRingBatchRows> rw;" in src
+
+
+@pytest.mark.parametrize("law", ["Moussaid", "PowerLaw", "Helbing"])
+def test_batched_all_tiles_entries(law):
+    """2b, the batched all-tiles walk (the ring's pairs without a ring, and
+    the walk that kernel_redesign_bench times beside the batched ring), has
+    its census entry under each law: the kAllTiles instantiation (0) of
+    pair_force_dense_batched_kernel, one row a lane."""
+    entry = {k[0]: k for k in sass_census.KERNELS}[
+        f"pair_force_dense_batched<kAllTiles, {law}>"]
+    assert entry[1] == f"pair_force_dense_batched_kernel<0, {law}"
+    assert entry[3] == (2 if law == "Moussaid" else 1)
+    assert entry[5] == "kDenseRows"
+
+
+def test_census_leaves_out_an_older_form_it_does_not_find(tmp_path,
+                                                          monkeypatch):
+    """``census`` on a library that holds the batched ring's own body only
+    (a stubbed cuobjdump, nvdisasm and demangler over LISTING): that
+    entry gets its loop, the parent's form (an OLDER_FORM entry) is left
+    out, and an entry of the current checkout whose kernel is missing
+    reads None, which chip_smoke.py's phase 2 refuses."""
+    import subprocess
+
+    lib = tmp_path / "libsfm_kernels.so"
+    lib.write_bytes(b"")
+    kernel = ("void (anonymous namespace)::ring_force_batched_kernel<(bool)0, "
+              "(anonymous namespace)::Moussaid, (bool)0>(RingBatchArgs)")
+
+    def run(cmd, cwd=None, **kw):  # cuobjdump -xelf: one cubin of ring.cu
+        (Path(cwd) / "ring.cubin").write_bytes(b"x_ring_cu_x")
+        return subprocess.CompletedProcess(cmd, 0, "", "")
+
+    class Disasm:
+        returncode = 0
+
+        def __init__(self, *a, **kw):
+            pass
+
+        def communicate(self):
+            return LISTING, ""
+
+    monkeypatch.setattr(sass_census, "tool", lambda name: name)
+    monkeypatch.setattr(sass_census.subprocess, "run", run)
+    monkeypatch.setattr(sass_census.subprocess, "Popen", Disasm)
+    monkeypatch.setattr(sass_census, "demangle",
+                        lambda names: {n: kernel for n in names})
+    got = sass_census.census(lib, root=ROOT)
+    mine = got["ring_force_batched<false, Moussaid>"]
+    assert mine is not None and mine["per_unit"] == 6
+    older = [k[0] for k in sass_census.KERNELS
+             if k[0].endswith(sass_census.OLDER_FORM)]
+    assert len(older) == 6 and not any(k in got for k in older)
+    assert got["pair_force_sym<kTriangle, Moussaid>"] is None

@@ -110,3 +110,71 @@ def test_a_moved_anchor_of_the_batched_symmetric_walk_raises(copy):
     path.write_text(text[:start] + text[end:])
     bench.instrument(copy)
     assert "sfm_walk_counters[9]" in path.read_text()
+
+
+def lambda_body(src, start):
+    """The source of the lambda whose definition starts with ``start``, to
+    its closing ``};``."""
+    body = src[src.index(start):]
+    return body[:body.index("\n  };\n")]
+
+
+def test_every_ring_counter_lands_in_both_ring_bodies(copy):
+    """The batched ring's counters (polls, cycles of each phase of a step,
+    chunk steps, tiles staged and visited) land in its own body's step
+    (ring_batch_walk) and, but for the done polls, in ring_walk (the
+    unbatched ring, and the parent's batched one, which counts its fill
+    and done polls together); its step trace stamps each step of the
+    body four times; ring.cu's entries read them and name the kernels of
+    its own body."""
+    bench.instrument(copy)
+    src = (copy / CSRC / "ring.cu").read_text()
+    n = len(bench.RING_COUNTERS)
+    assert n == 11
+    assert f"static __device__ unsigned long long sfm_ring_counters[{n}];" \
+        in src
+    step = lambda_body(src, "  auto step = [&](int b, int k, int rank, "
+                            "int nq) {\n")
+    old = body_of(src, "__device__ __forceinline__ bool ring_walk(")
+    waits = body_of(src, "__device__ bool wait_at_least(")
+    for k in range(n):
+        assert f"sfm_ring_counters[{k}]" in step, k
+        if k == 1:
+            assert f"sfm_ring_counters[{k}]" in waits
+        elif k != 2:
+            assert f"sfm_ring_counters[{k}]" in old, k
+    assert "sfm_ring_counters[2]" not in old
+    # the step trace: four stamps a step, the block's SM once
+    assert step.count("%%globaltimer") == 4
+    assert "%%smid" in src and "sfm_ring_smid[" in src
+    for entry in ("sfm_ring_counters_read", "sfm_ring_counters_reset",
+                  "sfm_ring_attributes"):
+        assert src.index(f"int {entry}(") > src.index('extern "C" {')
+    for _, kernel, _ in bench.RING_ATTRIBUTE_KERNELS:
+        assert f"(const void*){kernel};" in src
+    # the inner loop's law counters are this file's own copy
+    assert "sfm_walk_counters" in src
+
+
+def test_a_moved_anchor_of_the_batched_ring_raises(copy):
+    """Where the checkout has the batched ring's own body, its anchors are
+    required; a checkout without it (the parent, whose batched kernel runs
+    ring_walk) is instrumented without them and names its kernels by the
+    parent's template."""
+    path = copy / CSRC / "ring.cu"
+    text = path.read_text()
+    path.write_text(text.replace("        ok = pf >= 0 && pd >= 0;\n",
+                                 "        ok = pd >= 0 && pf >= 0;\n"))
+    with pytest.raises(RuntimeError, match="no anchor"):
+        bench.instrument(copy)
+    start = text.index("template <bool kCutoff, class Law, bool kMulti>\n"
+                       "__device__ __forceinline__ bool ring_batch_walk(")
+    end = text.index("\n}\n", start) + 3
+    path.write_text(text[:start] + text[end:])
+    for name in ("pair_laws.cuh", "pair_forces.cu"):
+        (copy / CSRC / name).write_text((ROOT / CSRC / name).read_text())
+    bench.instrument(copy)
+    src = path.read_text()
+    assert "sfm_ring_counters[2]" not in src
+    for _, _, kernel in bench.RING_ATTRIBUTE_KERNELS:
+        assert f"(const void*){kernel};" in src

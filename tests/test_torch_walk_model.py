@@ -99,3 +99,72 @@ def test_change_schedule_takes_each_pair_of_the_diagonal_once():
     assert torch.equal(seen, torch.triu(torch.ones(128, 128,
                                                    dtype=torch.int64), 1))
     assert wm.change_steps(False, 3, 0) == (0, 31, False)
+
+
+# -- the batched ring's schedule (tools/walk_model.py --ring) ---------------
+
+def brute_force_items(crowds, groups, G):
+    """{block: sorted (crowd, group) items} of one device, item i = b *
+    groups + s on block i mod G: the rule the kernel's rank arithmetic
+    implements (csrc/ring.cu)."""
+    out = {x: [] for x in range(G)}
+    for i in range(crowds * groups):
+        out[i % G].append(divmod(i, groups))
+    return out
+
+
+@pytest.mark.parametrize("new", [False, True], ids=["parent", "change"])
+@pytest.mark.parametrize("crowds, n_dev, n_local, per_sm, sms", [
+    (5, 4, 250, 4, 3), (7, 2, 130, 3, 5), (3, 3, 1200, 2, 4),
+    (1, 4, 2500, 4, 2), (9, 1, 70, 1, 3), (4, 8, 520, 3, 11)])
+def test_ring_items_equal_a_brute_force_enumeration(new, crowds, n_dev,
+                                                    n_local, per_sm, sms):
+    """On tiny schedules, the items per block that the replay walks (the
+    kernel's rank rule: crowds in ascending order, groups rank, rank + G,
+    ...) equal a brute-force enumeration of item i on block i mod G, for
+    the parent's rule (one 32-row set an item) and the redesign's (sets
+    row sets an item from ring_batch_sets); the replay's units and steps
+    add up to every item's work, and no schedule deadlocks."""
+    sets, groups, G, multi = wm.ring_layout(crowds, n_dev, n_local, new,
+                                            per_sm, sms)
+    assert sets in (1, 2, 4, 8) and (new or sets == 1)
+    assert groups == -(-(-(-n_local // 32)) // sets)
+    assert G == min(crowds * groups, per_sm * sms // n_dev)
+    got = {x: sorted((b, g) for b, grps in items for g in grps)
+           for x, items in wm.ring_assignment(crowds, groups, G).items()}
+    assert got == brute_force_items(crowds, groups, G)
+    for items in wm.ring_assignment(crowds, groups, G).values():
+        assert [b for b, _ in items] == sorted({b for b, _ in items})
+    rep = wm.ring_replay(crowds, n_dev, n_local, new, per_sm, 0.3, sms)
+    nct = -(-n_local // 256)
+    assert rep["units"]["mean"] == pytest.approx(
+        crowds * groups * sets * nct * n_dev / G, abs=1e-3)
+    assert rep["units"]["busiest"] >= rep["units"]["mean"]
+    assert rep["makespan"] >= rep["units"]["busiest"]
+    assert rep["items_per_block"]["max"] == max(map(len, got.values()))
+
+
+def test_ring_sets_follows_the_kernels_rule():
+    """ring_sets (the replay's copy of csrc/ring.cu ring_batch_sets) at
+    phase 33's shapes on 132 SMs: 8 row sets an item for 256 crowds of 4 x
+    250 and for 8 x 4 x 12,500, 2 for 32 crowds of 4 x 250 (128 items: a
+    block each), 1 for one crowd of 4 x 2,500; the parent's rule replayed
+    gives the 88 block-steps of its makespan, the redesign none above its
+    busiest block, and its blocks take crowds from their device's counter
+    only with one group a crowd and more crowds than blocks."""
+    assert wm.ring_sets(256, 4, 250, 4) == 8
+    assert wm.ring_sets(32, 4, 250, 4) == 2
+    assert wm.ring_sets(8, 4, 12_500, 4) == 8
+    assert wm.ring_sets(1, 4, 2_500, 4) == 1
+    assert wm.ring_sets(3, 4, 250, 0) == 1
+    parent = wm.ring_replay(256, 4, 250, False, 3)
+    assert parent["blocks"] == 99 and parent["makespan"] == 88.0
+    assert parent["block_steps"]["busiest"] == 84
+    change = wm.ring_replay(256, 4, 250, True, 4)
+    assert change["blocks"] == 132 and not change["multi"]
+    assert change["dynamic"] and not parent["dynamic"]
+    assert not wm.ring_replay(32, 4, 250, True, 4)["dynamic"]
+    assert change["makespan"] == change["units"]["busiest"] == 64
+    # a crowd's groups straddle blocks: the step-by-step form, no chains
+    big = wm.ring_replay(8, 4, 12_500, True, 4)
+    assert big["multi"] and big["makespan"] == big["units"]["busiest"]

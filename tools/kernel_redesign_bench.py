@@ -74,7 +74,14 @@ pairs, the unbatched ``pair_force_compact_rect`` on crowd 0's shard and
 batched table walk on that crowd alone (B = 1: what the batched walk gives
 the unbatched problem).  Each line carries its bound (``chip_smoke.bound``
 of the pairs within 30 m) and the issue floor of those pairs through the
-kernel's inner loop (``tools/sass_census.py``).
+kernel's inner loop (``tools/sass_census.py``).  Then the batched ring
+``ring_force_batched`` (row 6-b, :func:`ring_cases`): phase 33's 256
+crowds x 4 shards x 250 under the Moussaid law, 32 crowds x 4 x 250 under
+each law, the 30 m cutoff on the sorted shards at 32 and 256 crowds, and
+8 x 4 x 12,500 with the cutoff (the kMulti shape); beside them the
+batched all-tiles walk 2b on the same 256 crowds of 1,000, and the batched
+ring at B = 1 against the unbatched ``ring_force`` at D = 4, N = 10,000;
+each with its bound and issue floor.
 
 ``--counters`` runs the Moussaid mesh cases, the square table walk at 8 x
 50,000 and the square box skip at config #5 + 30 m once each through a
@@ -87,8 +94,16 @@ triangle-box walk at config #5 + 30 m, the table at 8 x 50,000 with 32
 slots and with 8), per tile pair staged and per 128-row table row: tile
 pairs staged, chunk pairs tested and walked, chunk pairs with a pair,
 law evaluations, pairs within the cutoff, atomics, blocks without a tile
-and blocks on an overflowing table row.  The debug
-build is the checkout at ``--root`` with counters patched into its sources
+and blocks on an overflowing table row; then the batched ring's Moussaid
+cases (:func:`ring_counters`), per block-step: polls on fill and on done,
+thread 0's cycles of the step and of its waits, forward, staging and
+walk, chunk steps, tiles staged and visited, law evaluations and pairs
+within the cutoff, with the ring kernels' registers and resident blocks;
+for its cases of 250 agents a device without a cutoff also a step trace
+of its own body (:func:`ring_trace`: each block's SM and each step's
+global-timer stamps, ``ring_trace_<label>.json`` beside ``--out``).
+``--only`` keeps the counted cases whose name holds a substring.  The
+debug build is the checkout at ``--root`` with counters patched into its sources
 (:func:`instrument`: atomic adds at the walks' staging, culling and law
 calls, and C entries that read and reset them); never give it a copy you
 time, nor this checkout.  The recipe, on the card::
@@ -115,6 +130,7 @@ from __future__ import annotations
 import argparse
 import importlib.util
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -539,6 +555,131 @@ def mesh_cases(dev, with_work=True):
     return cases if with_work else [c[:4] for c in cases]
 
 
+#: the batched ring's shapes (``ring_cases``): crowds, devices, agents a
+#: crowd, the laws timed, and whether the planes are sorted with a 30 m
+#: cutoff; phase 33 times the first, checks the others at 32 crowds
+RING_SHAPES = ((256, 4, 1_000, ("moussaid",), False),
+               (32, 4, 1_000, ("moussaid", "powerlaw", "helbing"), False),
+               (32, 4, 1_000, ("moussaid", "powerlaw", "helbing"), True),
+               (256, 4, 1_000, ("moussaid",), True),
+               (8, 4, 50_000, ("moussaid",), True))
+
+
+def ring_label(root: Path, law: str, cutoff: bool) -> str:
+    """The census label of the batched ring kernel of ``law`` in the
+    checkout at ``root``: its own body (``ring_batch_walk``), or the
+    parent's (``ring_walk``, labelled "(parent)")."""
+    src = (root / "carla_social_force_model_tpu_torch" / "csrc"
+           / "ring.cu").read_text()
+    label = (f"ring_force_batched<{'true' if cutoff else 'false'}, "
+             f"{LAW_TYPES[law]}>")
+    return label if "ring_batch_walk(" in src else label + " (parent)"
+
+
+def ring_planes(dev, batch, n_dev, n, sort):
+    """The batched ring's ``(batch, n)`` planes (x .. ey) of
+    :data:`RING_SHAPES`: phase 33's (seed 34, 35 m) at 1,000 agents,
+    quarter-density shards of 50,000 (seed 35) above."""
+    import shard_cases as sc
+    if n <= 1_000:
+        return sc.batch_shard_planes(batch, n, seed=34, device=dev,
+                                     extent=35.0, n_shards=n_dev, sort=sort)
+    return sc.batch_shard_planes(batch, n, seed=35, device=dev,
+                                 n_shards=n_dev, sort=sort)
+
+
+def ring_cases(dev, with_work=True):
+    """(name, call, kernel name filter, reps[, work]) of the batched ring
+    (``ring_force_batched``, row 6-b) at :data:`RING_SHAPES` under each
+    law timed there; beside them the batched all-tiles walk 2b on the same
+    256 crowds of 1,000 (the same pairs without a ring), and the batched
+    ring at B = 1 against the unbatched ``ring_force`` at D = 4 over N =
+    10,000 (the dense cases' crowd).  ``work()``: the bound (every plane
+    read once, the column blocks and their D (D - 1) copies, the forces
+    written once, the law's operations on the pairs the data holds) and the
+    issue floor's units: every pair the walk evaluates without a cutoff
+    (B N^2), the pairs within 30 m with it.  Before the times, each shape's
+    first crowds are held bitwise to the unbatched ring."""
+    import torch
+    import batch_cases as bc
+    import shard_cases as sc
+    from carla_social_force_model_tpu_torch.models.params import law_rows
+    from carla_social_force_model_tpu_torch.ops import (cuda_forces,
+                                                        cuda_ring, pair_grid)
+    cs = smoke()
+    root = Path(cuda_ring.__file__).resolve().parents[2]
+    c2 = pair_grid.cutoff_sq(CUTOFF_M)
+    kernel = "ring_force_batched_kernel"
+
+    def ring_work(law, pl, n_dev, cut, label):
+        def fn():
+            b, n = pl[0].shape
+            k = n // n_dev
+            slot = 6 * k + 4 * -(-k // pair_grid.COL_TILE)
+            bnd, pairs = law_work(law, pl, pl, c2 if cut else float("inf"),
+                                  0, 0, b * n_dev * (2 * n_dev - 1) * slot)
+            return bnd, label, pairs if cut else b * n * n
+        return fn
+
+    def batched(law, pl, n_dev, cut):
+        args, kw = sc.law_args(law, pl)
+        prm = law_rows(law, sc.law_params(law), pl[0].shape[0], dev)
+        return lambda: cuda_ring.ring_force_batched(
+            *args, prm, n_dev, cutoff=CUTOFF_M if cut else None, **kw)
+
+    out = []
+    for b, n_dev, n, laws, cut in RING_SHAPES:
+        pl = ring_planes(dev, b, n_dev, n, cut)
+        for law in laws:
+            fn = batched(law, pl, n_dev, cut)
+            # the first two crowds against the unbatched ring, bitwise
+            got = torch.stack(fn())[:, :2]
+            args, kw = sc.law_args(law, pl)
+            prm = law_rows(law, sc.law_params(law), b, dev)
+            for r in range(2):
+                rk = dict(kw, desired=None if kw["desired"] is None else
+                          tuple(t[r] for t in kw["desired"]))
+                want = torch.stack(cuda_ring.ring_force(
+                    *(None if t is None else t[r] for t in args),
+                    prm[r].contiguous(), n_dev,
+                    cutoff=CUTOFF_M if cut else None, **rk))
+                if not torch.equal(got[:, r], want):
+                    raise RuntimeError(f"ring_batched {law} {b} x {n_dev} x "
+                                       f"{n // n_dev}: crowd {r} differs "
+                                       f"from the unbatched ring")
+            out.append((f"ring_batched {law} {b} x {n_dev} x {n // n_dev}"
+                        + (f", {CUTOFF_M:g} m" if cut else ""), fn, kernel,
+                        20 if n <= 1_000 else 3,
+                        ring_work(law, pl, n_dev, cut,
+                                  ring_label(root, law, cut))))
+    # 2b on the 256 crowds' pairs, without a ring
+    pl = ring_planes(dev, cs.BATCH, cs.MESH_AGENTS, cs.BATCH_N, False)
+    out.append((f"dense_batched (2b) moussaid {cs.BATCH} x {cs.BATCH_N}, "
+                "the ring's pairs", lambda: bc.batch_run(
+                    "moussaid", "dense", pl, bc.law_params("moussaid")),
+                "pair_force_dense_batched_kernel", 20,
+                lambda: (law_work("moussaid", pl, pl, float("inf"), 0, 0)[0],
+                         "pair_force_dense_batched<kAllTiles, Moussaid>",
+                         cs.BATCH * cs.BATCH_N ** 2)))
+    # B = 1 against the unbatched ring on the same crowd
+    one = sc.shard_planes(N, 27, dev, n_shards=4)
+    prm = cuda_forces.law_vector("moussaid", sc.law_params("moussaid"), dev)
+    b1 = [a[None].contiguous() for a in one]
+    got = torch.stack(batched("moussaid", b1, 4, False)())[:, 0]
+    want = torch.stack(cuda_ring.ring_force(*one[:6], prm, 4))
+    if not torch.equal(got, want):
+        raise RuntimeError("ring_batched B=1 differs from ring_force")
+    out += [(f"ring_batched moussaid B=1 x 4 x {N // 4}",
+             batched("moussaid", b1, 4, False), kernel, 20,
+             ring_work("moussaid", b1, 4, False,
+                       ring_label(root, "moussaid", False))),
+            (f"ring_force (unbatched) D=4 N={N}", lambda: cuda_ring.ring_force(
+                *one[:6], prm, 4), "ring_force_kernel", 20,
+             lambda: (law_work("moussaid", b1, b1, float("inf"), 0, 0)[0],
+                      "ring_force<false, Moussaid>", N * N))]
+    return out if with_work else [c[:4] for c in out]
+
+
 #: the counters of a debug build (:func:`instrument`), in order
 COUNTERS = ("tiles staged", "chunks staged", "law evaluations",
             "pairs within the cutoff", "overflowing blocks", "blocks",
@@ -562,6 +703,94 @@ ATTRIBUTE_KERNELS = (
      "pair_force_sym_batched_kernel<kTriangleBox, PowerLaw>", "kSymTile"),
     ("pair_force_sym_batched<kSymTable, PowerLaw>",
      "pair_force_sym_batched_kernel<kSymTable, PowerLaw>", "kSymTile"))
+
+
+#: the batched ring's counters in a debug build (``sfm_ring_counters`` of
+#: ``csrc/ring.cu``), in order; thread 0 of a block takes the cycles of its
+#: own phases (the walk: its warp's chunks); "chunk steps" counts the
+#: column steps of every chunk a warp walks (the law steps without a
+#: cutoff), "tile visits" the tiles a block considers before its box test
+RING_COUNTERS = ("block-steps", "fill polls", "done polls", "step cycles",
+                 "wait cycles", "forward cycles", "staging cycles",
+                 "walking cycles", "chunk steps", "tiles staged",
+                 "tile visits")
+
+#: the ring kernels ``sfm_ring_attributes`` knows, by ``which``: (label,
+#: instantiation in a checkout with ``ring_batch_walk``, in one without)
+RING_ATTRIBUTE_KERNELS = tuple(
+    (f"ring_force_batched<{cut}, Moussaid{', kMulti' if multi else ''}>",
+     f"ring_force_batched_kernel<{cut}, Moussaid, {multi}>",
+     f"ring_force_batched_kernel<{cut}, Moussaid, kRingRows, {multi}>")
+    for multi in ("false", "true") for cut in ("false", "true")) + (
+    ("ring_force<false, Moussaid>",
+     "ring_force_kernel<false, Moussaid, kRingRows, false>",
+     "ring_force_kernel<false, Moussaid, kRingRows, false>"),)
+
+
+#: the debug build's step trace of the batched ring's own body: per block
+#: (blockIdx.y * gridDim.x + blockIdx.x, at most RING_TRACE_BLOCKS) and
+#: step (at most RING_TRACE_STEPS), the global timer at the step's start,
+#: after its wait, after its first staging barrier and at its end; and
+#: each block's SM
+RING_TRACE_BLOCKS, RING_TRACE_STEPS = 1024, 16
+
+
+def _ring_stamp(phase: int) -> str:
+    """Thread 0's global-timer stamp ``phase`` of the current step."""
+    return ("if (tid == 0 && sfm_tk_ < " + str(RING_TRACE_STEPS) + ") { "
+            "const unsigned sfm_blk_ = blockIdx.y * gridDim.x + blockIdx.x; "
+            "if (sfm_blk_ < " + str(RING_TRACE_BLOCKS) + ") { "
+            "unsigned long long sfm_t_; asm volatile(\"mov.u64 %0, "
+            "%%globaltimer;\" : \"=l\"(sfm_t_)); sfm_ring_trace[(sfm_blk_ "
+            "* " + str(RING_TRACE_STEPS) + " + sfm_tk_) * 4 + " + str(phase)
+            + "] = sfm_t_; } }")
+
+
+def _ring_entries(own_body: bool) -> str:
+    """The C source of the debug build's ring entries: read and reset
+    ``sfm_ring_counters`` (and this file's copy of the walk counters:
+    law evaluations and pairs within the cutoff of ``rows_vs_chunk``), and
+    ``sfm_ring_attributes(which, out)`` as ``sfm_walk_attributes``."""
+    n, m = len(RING_COUNTERS), len(COUNTERS)
+    cases = "".join(
+        f"    case {k}: f = (const void*){new if own_body else old}; "
+        "break;\n"
+        for k, (_, new, old) in enumerate(RING_ATTRIBUTE_KERNELS))
+    return (
+        "int sfm_ring_counters_read(unsigned long long* out) {\n"
+        f"  cudaError_t e = cudaMemcpyFromSymbol(out, sfm_ring_counters, {n} "
+        "* sizeof(unsigned long long));\n"
+        f"  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(out + {n}, "
+        f"sfm_walk_counters, {m} * sizeof(unsigned long long));\n"
+        "  return (int)e;\n}\n"
+        "int sfm_ring_counters_reset() {\n"
+        f"  unsigned long long z[{n + m}] = {{0}};\n"
+        f"  cudaError_t e = cudaMemcpyToSymbol(sfm_ring_counters, z, {n} * "
+        "sizeof(unsigned long long));\n"
+        f"  if (e == cudaSuccess) e = cudaMemcpyToSymbol(sfm_walk_counters, "
+        f"z, {m} * sizeof(unsigned long long));\n"
+        "  void* tr = nullptr;\n"
+        "  if (e == cudaSuccess) e = cudaGetSymbolAddress(&tr, "
+        "sfm_ring_trace);\n"
+        "  if (e == cudaSuccess) e = cudaMemset(tr, 0, "
+        "sizeof(sfm_ring_trace));\n"
+        "  return (int)e;\n}\n"
+        "int sfm_ring_trace_read(unsigned long long* out, int* smid) {\n"
+        "  cudaError_t e = cudaMemcpyFromSymbol(out, sfm_ring_trace, "
+        "sizeof(sfm_ring_trace));\n"
+        "  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(smid, "
+        "sfm_ring_smid, sizeof(sfm_ring_smid));\n"
+        "  return (int)e;\n}\n"
+        "int sfm_ring_attributes(int which, int* out) {\n"
+        "  const void* f = nullptr;\n  switch (which) {\n" + cases +
+        "    default: return (int)cudaErrorInvalidValue;\n  }\n"
+        "  cudaFuncAttributes a;\n"
+        "  cudaError_t e = cudaFuncGetAttributes(&a, f);\n"
+        "  if (e == cudaSuccess) e = "
+        "cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, f, kThreads, 0);"
+        "\n  out[1] = a.numRegs; out[2] = (int)a.sharedSizeBytes; "
+        "out[3] = (int)a.localSizeBytes;\n"
+        "  return (int)e;\n}\n\n")
 
 
 def _attributes_entry() -> str:
@@ -621,7 +850,14 @@ def instrument(root: Path) -> None:
                 + add(8, "(unsigned long long)(__popc(m1_) + __popc(m2_))")
                 + "; }")
 
+    def ring(k, v="1"):
+        return (f"atomicAdd(&sfm_ring_counters[{k}], "
+                f"(unsigned long long)({v}))")
+
     sym = "sym_rows_walk"  # its anchors are required where it exists
+    old_ring, new_ring = "ring_walk", "ring_batch_walk"
+    ring_src = (csrc / "ring.cu").read_text()
+    own_body = re.search(r"\b(?:void|bool) ring_batch_walk\(", ring_src)
     edits = {
         "pair_laws.cuh": [
             ('#include "pair_forces.cuh"\n',
@@ -737,6 +973,95 @@ def instrument(root: Path) -> None:
              f"  unsigned long long z[{len(COUNTERS)}] = {{0}};\n"
              "  return (int)cudaMemcpyToSymbol(sfm_walk_counters, z, "
              "sizeof(z));\n}\n" + _attributes_entry(), True, "before")],
+        "ring.cu": [
+            ('#include "pair_laws.cuh"\n',
+             "static __device__ unsigned long long sfm_ring_counters["
+             f"{len(RING_COUNTERS)}];\n"
+             "static __device__ unsigned long long sfm_ring_trace["
+             f"{RING_TRACE_BLOCKS * RING_TRACE_STEPS * 4}];\n"
+             f"static __device__ int sfm_ring_smid[{RING_TRACE_BLOCKS}];\n",
+             True),
+            ('extern "C" {\n', _ring_entries(bool(own_body)), True),
+            # both bodies: the tiles a block considers
+            ("      for (int t = 0; t < nct; ++t) {\n",
+             "        if (tid == 0) " + ring(10) + ";\n", True),
+            # ring_walk (the unbatched ring; the parent's batched ring):
+            # its polls count fill and done together
+            ("    const int src = ((d - k) % D + D) % D;  // the block's home "
+             "device\n", "    const long long sfm_s0_ = clock64();\n"
+             "    if (tid == 0) " + ring(0) + ";\n", old_ring),
+            ("      __nanosleep(64);\n", "      " + ring(1) + ";\n",
+             old_ring, "before"),
+            ("    if (k < D - 1) {\n      // forward this block (and its "
+             "boxes) into the right neighbour's other\n",
+             "    if (tid == 0) " + ring(4, "clock64() - sfm_s0_") + ";\n"
+             "    const long long sfm_f0_ = clock64();\n", old_ring,
+             "before"),
+            ("      if (tid == 0) add_release(&a.fill[right * 2 + dst_slot], "
+             "1);\n    }\n",
+             "    if (tid == 0) " + ring(5, "clock64() - sfm_f0_") + ";\n",
+             old_ring),
+            ("        __syncthreads();  // the previous column tile is "
+             "consumed\n", "        const long long sfm_g0_ = clock64();\n"
+             "        if (tid == 0) " + ring(9) + ";\n", old_ring,
+             "before"),
+            ("        const int jc = j0 + warp * kChunk;\n",
+             "        if (tid == 0) " + ring(6, "clock64() - sfm_g0_")
+             + ";\n        const long long sfm_c0_ = clock64();\n",
+             old_ring, "before"),
+            ("        const int jc = j0 + warp * kChunk;\n",
+             "        bool sfm_walked_ = false;\n", old_ring),
+            ("          rows_vs_chunk<kCutoff, kRingFastTail, Law, kR>(\n",
+             "          sfm_walked_ =\n", old_ring, "before"),
+            ("              a.use_radius, a.c2);\n",
+             "        if (tid == 0) " + ring(7, "clock64() - sfm_c0_")
+             + ";\n        if (sfm_walked_ && lane == 0) "
+             + ring(8, "min(kChunk, n - jc)") + ";\n", old_ring),
+            ("        add_release(&a.done[d * 2 + (k & 1)], 1);\n      }\n"
+             "    }\n", "    if (tid == 0) " + ring(3, "clock64() - sfm_s0_")
+             + ";\n", old_ring),
+            # ring_batch_walk (the batched ring's own body)
+            ("  // ring step k of crowd b: the block's groups rank, rank + G, "
+             "... (nq of\n", "  int sfm_tk_ = 0;  // the block's steps\n"
+             "  if (tid == 0 && blockIdx.y * gridDim.x + blockIdx.x < "
+             f"{RING_TRACE_BLOCKS}) {{ unsigned sfm_sm_; asm volatile(\"mov."
+             "u32 %0, %%smid;\" : \"=r\"(sfm_sm_)); sfm_ring_smid[blockIdx.y "
+             "* gridDim.x + blockIdx.x] = (int)sfm_sm_; }\n", new_ring,
+             "before"),
+            ("    const int src = ((d - k) % D + D) % D;  // the column "
+             "block's home\n", "    const long long sfm_s0_ = clock64();\n"
+             "    if (tid == 0) " + ring(0) + ";\n    " + _ring_stamp(0)
+             + "\n", new_ring),
+            ("        ok = pf >= 0 && pd >= 0;\n",
+             "        " + ring(1, "pf > 0 ? pf : 0") + ";\n        "
+             + ring(2, "pd > 0 ? pd : 0") + ";\n", new_ring),
+            ("      if (!__syncthreads_and(ok)) return false;\n    }\n",
+             "    if (tid == 0) " + ring(4, "clock64() - sfm_s0_") + ";\n    "
+             + _ring_stamp(1) + "\n", new_ring),
+            ("    float h[kPlanes];\n",
+             "    const long long sfm_f0_ = clock64();\n", new_ring),
+            ("    bool fill_due = fwd;\n",
+             "    if (tid == 0) " + ring(5, "clock64() - sfm_f0_") + ";\n",
+             new_ring, "before"),
+            ("        ColTile& tl = sm.tile[par];\n",
+             "        const long long sfm_g0_ = clock64();\n"
+             "        if (tid == 0) " + ring(9) + ";\n", new_ring, "before"),
+            ("        __syncthreads();  // the tile is staged (the other "
+             "buffer free)\n",
+             "        if (tid == 0) " + ring(6, "clock64() - sfm_g0_") + ";\n"
+             "        if (q == 0 && t == 0) { " + _ring_stamp(2) + " }\n",
+             new_ring),
+            ("          const bool walked = rows_vs_chunk<kCutoff, "
+             "kRingFastTail, Law,\n",
+             "          const long long sfm_c0_ = clock64();\n", new_ring,
+             "before"),
+            ("          if (walked) {  // else nothing was added\n",
+             "          if (tid == 0) " + ring(7, "clock64() - sfm_c0_")
+             + ";\n          if (walked && lane == 0) "
+             + ring(8, "min(kChunk, n - jc)") + ";\n", new_ring, "before"),
+            ("    return true;\n  };\n",
+             "    if (tid == 0) " + ring(3, "clock64() - sfm_s0_") + ";\n    "
+             + _ring_stamp(3) + "\n    ++sfm_tk_;\n", new_ring, "before")],
     }
     for name, items in edits.items():
         path = csrc / name
@@ -745,7 +1070,8 @@ def instrument(root: Path) -> None:
             continue
         for anchor, line, required, *where in items:
             if isinstance(required, str):  # required where the walk exists
-                required = f"void {required}(" in text
+                required = re.search(rf"\b(?:void|bool) {required}\(",
+                                     text) is not None
             if anchor not in text:
                 if required:
                     raise RuntimeError(f"{name}: no anchor {anchor!r}")
@@ -755,7 +1081,7 @@ def instrument(root: Path) -> None:
         path.write_text(text)
 
 
-def walk_counters(dev, label, card, sink):
+def walk_counters(dev, label, card, sink, only=None, trace_out=None):
     """One launch of each Moussaid mesh case, of the square table walk at 8
     x 50,000 and of the square box-skip walk at config #5 + 30 m (phase
     30's 256 x 1,000) through the debug build: its counters per 32-row
@@ -765,12 +1091,16 @@ def walk_counters(dev, label, card, sink):
     some rows overflow): their counters per tile pair staged and per
     128-row table row, with the table rows that overflow; and first the
     kernels' resident blocks, registers and shared and local bytes
-    (:data:`ATTRIBUTE_KERNELS`)."""
+    (:data:`ATTRIBUTE_KERNELS`); then :func:`ring_counters`.  ``only``:
+    substrings of the case names to run (the attributes print anyway)."""
     import ctypes
     import torch
     import batch_cases as bc
     from carla_social_force_model_tpu_torch.utils import cuda_build
     lib = cuda_build.load_kernels()
+
+    def kept(name):
+        return only is None or any(k in name for k in only)
     lib.sfm_walk_counters_read.argtypes = [ctypes.c_void_p]
     lib.sfm_walk_attributes.argtypes = [ctypes.c_int, ctypes.c_void_p]
     cs = smoke()
@@ -828,6 +1158,8 @@ def walk_counters(dev, label, card, sink):
         return dict(zip(COUNTERS, list(out)))
 
     for name, fn, _, _ in cases:
+        if not kept(name):
+            continue
         got = count(fn)
         # 32-row blocks (each split of a row block counts once in "blocks")
         blocks = max(got["blocks"], 1)
@@ -838,6 +1170,8 @@ def walk_counters(dev, label, card, sink):
         print(line, flush=True)
         sink.append(line)
     for name, fn, grid in sym:
+        if not kept(name):
+            continue
         got = count(fn)
         rows = grid.boxes.shape[0] * grid.boxes.shape[-1]
         pairs = max(got["tiles staged"], 1)
@@ -849,6 +1183,101 @@ def walk_counters(dev, label, card, sink):
                "per_table_row": {k: v / rows for k, v in got.items()},
                "card": card}
         line = json.dumps(row)
+        print(line, flush=True)
+        sink.append(line)
+    ring_counters(lib, label, card, sink, kept, trace_out)
+
+
+def ring_counters(lib, label, card, sink, kept=lambda name: True,
+                  trace_out=None):
+    """The batched ring's counters (``sfm_ring_counters`` of a debug build)
+    for one launch of each Moussaid case of :func:`ring_cases`, per
+    block-step, with the law evaluations and pairs within the cutoff of
+    its inner loop (``rows_vs_chunk``'s counters in ``ring.cu``; cutoff
+    forms only); first the ring kernels' resident blocks, registers and
+    shared and local bytes (:data:`RING_ATTRIBUTE_KERNELS`)."""
+    import ctypes
+    import torch
+    lib.sfm_ring_counters_read.argtypes = [ctypes.c_void_p]
+    lib.sfm_ring_attributes.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    for which, (kernel, _, _) in enumerate(RING_ATTRIBUTE_KERNELS):
+        attrs = (ctypes.c_int * 4)()
+        err = lib.sfm_ring_attributes(which, attrs)
+        line = json.dumps({"root": label, "kernel": kernel, "error": err,
+                           "blocks_per_sm": attrs[0], "registers": attrs[1],
+                           "static_shared_bytes": attrs[2],
+                           "local_bytes": attrs[3], "card": card})
+        print(line, flush=True)
+        sink.append(line)
+    names = RING_COUNTERS + ("law evaluations", "pairs within the cutoff")
+    out = (ctypes.c_ulonglong * (len(RING_COUNTERS) + len(COUNTERS)))()
+    dev = torch.device("cuda", 0)
+    for name, fn, _, _ in ring_cases(dev, with_work=False):
+        if ("powerlaw" in name or "helbing" in name or "2b" in name
+                or not kept(name)):
+            continue
+        torch.cuda.synchronize()
+        if lib.sfm_ring_counters_reset() != 0:
+            raise RuntimeError("cannot reset the ring counters")
+        fn()
+        torch.cuda.synchronize()
+        if lib.sfm_ring_counters_read(out) != 0:
+            raise RuntimeError("cannot read the ring counters")
+        vals = list(out)
+        got = dict(zip(RING_COUNTERS, vals))
+        got["law evaluations"] = vals[len(RING_COUNTERS) + 2]
+        got["pairs within the cutoff"] = vals[len(RING_COUNTERS) + 3]
+        steps = max(got["block-steps"], 1)
+        row = {"root": label, "case": name,
+               "counters": {k: got[k] for k in names},
+               "per_block_step": {k: got[k] / steps for k in names
+                                  if k != "block-steps"},
+               "card": card}
+        line = json.dumps(row)
+        print(line, flush=True)
+        sink.append(line)
+        if trace_out is not None and "x 250" in name and "m" not in name[-4:]:
+            ring_trace(lib, name, trace_out, sink)
+
+
+def ring_trace(lib, name, out, sink):
+    """The debug build's step trace of the batched ring's own body after a
+    launch (a build without it has no ``sfm_ring_trace_read``): per block
+    its SM and each step's stamps, written to ``out``; printed: by ring
+    step k, the mean microseconds of a step's wait, of its forward and
+    staging and of its walk, and the share of blocks whose wait exceeded
+    a tenth of the walk (one JSON line a case appended to ``out``)."""
+    import ctypes
+    if not hasattr(lib, "sfm_ring_trace_read"):
+        return
+    n = RING_TRACE_BLOCKS * RING_TRACE_STEPS * 4
+    stamps = (ctypes.c_ulonglong * n)()
+    smid = (ctypes.c_int * RING_TRACE_BLOCKS)()
+    lib.sfm_ring_trace_read.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    if lib.sfm_ring_trace_read(stamps, smid) != 0:
+        raise RuntimeError("cannot read the ring trace")
+    blocks = []
+    for blk in range(RING_TRACE_BLOCKS):
+        steps = [list(stamps[(blk * RING_TRACE_STEPS + k) * 4:
+                             (blk * RING_TRACE_STEPS + k) * 4 + 4])
+                 for k in range(RING_TRACE_STEPS)]
+        steps = [st for st in steps if st[0] and st[3]]
+        if steps:
+            blocks.append({"block": blk, "sm": smid[blk], "steps": steps})
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with out.open("a") as f:
+        f.write(json.dumps({"case": name, "blocks": blocks}) + "\n")
+    by_k = {}
+    for b in blocks:
+        for i, (t0, t1, t2, t3) in enumerate(b["steps"]):
+            by_k.setdefault(i, []).append((t1 - t0, t2 - t1, t3 - t2))
+    for i, v in sorted(by_k.items()):
+        line = json.dumps({"case": name, "trace step": i, "blocks": len(v),
+                           "wait_us": sum(a for a, _, _ in v) / len(v) / 1e3,
+                           "stage_us": sum(b for _, b, _ in v) / len(v) / 1e3,
+                           "walk_us": sum(c for _, _, c in v) / len(v) / 1e3,
+                           "waiting_share": sum(a > c / 10 for a, _, c in v)
+                           / len(v)})
         print(line, flush=True)
         sink.append(line)
 
@@ -1222,7 +1651,10 @@ def main() -> int:
     cuda_build.load_kernels()
     lines: list[str] = []
     if args.counters:
-        walk_counters(dev, args.label, card, lines)
+        walk_counters(dev, args.label, card, lines,
+                      None if args.only is None else args.only.split(","),
+                      None if args.out is None else args.out.with_name(
+                          f"ring_trace_{args.label}.json"))
         if args.out is not None:
             args.out.parent.mkdir(parents=True, exist_ok=True)
             with args.out.open("a") as f:
@@ -1246,7 +1678,7 @@ def main() -> int:
     cases = {"sym": sym_cases, "env": env_cases, "dense": dense_cases,
              "statics": statics_cases, "feed": feed_cases,
              "capacity": capacity_cases, "batched": batched_cases,
-             "mesh": mesh_cases}
+             "mesh": lambda dev: mesh_cases(dev) + ring_cases(dev)}
     census = {}
     if groups & {"statics", "feed", "mesh", "batched"}:
         from sass_census import census as sass

@@ -158,6 +158,29 @@ KERNELS = (
      "ring_force_kernel<false, Moussaid, 1, false>", ("MUFU.EX2", None, None),
      2,
      "pair", "kRingRows"),
+    # the batched ring (row 6-b of PERF.md) under each law, with and without
+    # the cutoff: its own body (ring_batch_walk, one crowd's group a block:
+    # the main path's form) and the parent's (ring_walk, R = 1, a checkout
+    # from before it); each checkout holds one of the two, and an older
+    # form's entry (OLDER_FORM) is left out where its kernel is absent
+    *((f"ring_force_batched<{cut}, {law}>",
+       f"ring_force_batched_kernel<{cut}, {law}, false",
+       ("MUFU.EX2", None, None), 2 if law == "Moussaid" else 1, "pair",
+       "kRingBatchRows")
+      for law in ("Moussaid", "PowerLaw", "Helbing")
+      for cut in ("false", "true")),
+    *((f"ring_force_batched<{cut}, {law}> (parent)",
+       f"ring_force_batched_kernel<{cut}, {law}, 1, false",
+       ("MUFU.EX2", None, None), 2 if law == "Moussaid" else 1, "pair",
+       "kRingRows")
+      for law in ("Moussaid", "PowerLaw", "Helbing")
+      for cut in ("false", "true")),
+    # the batched all-tiles walk (2b: the ring's pairs without a ring)
+    *((f"pair_force_dense_batched<kAllTiles, {law}>",
+       f"pair_force_dense_batched_kernel<0, {law}",
+       ("MUFU.EX2", None, None), 2 if law == "Moussaid" else 1, "pair",
+       "kDenseRows")
+      for law in ("Moussaid", "PowerLaw", "Helbing")),
     ("env_force<exp, kAllSections, kSampled>",
      "env_force_kernel<false, 0, 0", ("FMUL", "pair_forces.cuh", None), 2,
      "point", "kEnvLanes"),
@@ -185,6 +208,11 @@ KERNELS = (
     ("chunk_closest", "chunk_closest_kernel",
      ("FMUL", "pair_forces.cuh", None), 2, "point", "kClosestLanes"),
 )
+
+#: the label suffix of an entry that counts a form only checkouts from
+#: before a redesign hold: :func:`census` leaves it out where no kernel
+#: matches (an entry without it reads None then)
+OLDER_FORM = " (parent)"
 
 #: the layout constants that count lanes per pedestrian (the rest count
 #: rows, or pedestrians, per thread)
@@ -434,8 +462,9 @@ def census(library: Path, out_dir: Path | None = None,
            root: Path = ROOT) -> dict[str, dict]:
     """{label: loop census} of every kernel of KERNELS found in the
     built ``library`` of the checkout at ``root`` (``None`` where a kernel
-    or its loop is missing).  ``out_dir``: where each loop's disassembly,
-    the whole disassembly and the kernel names go."""
+    or its loop is missing; an :data:`OLDER_FORM` entry whose kernel is
+    missing is left out).  ``out_dir``: where each loop's disassembly, the
+    whole disassembly and the kernel names go."""
     work = Path(tempfile.mkdtemp(prefix="sass_", dir=library.parent))
     if out_dir is not None:
         out_dir.mkdir(parents=True, exist_ok=True)
@@ -474,7 +503,8 @@ def census(library: Path, out_dir: Path | None = None,
         hits = [m for m, d in names.items()
                 if normalize(d).startswith(prefix)]
         if not hits:
-            result[label] = None
+            if not label.endswith(OLDER_FORM):
+                result[label] = None
             continue
         got = loop_census(funcs[hits[0]], marker, per_unit, special)
         if got is not None:

@@ -28,6 +28,16 @@ crowds 0-3 of ``batch_planes(256, 1000, seed=30, extent=35.0)``) and 8 x
 ``batch_planes(8, 50000, seed=31)``), each crowd sorted on its own curve
 (:func:`sym_counts`).
 
+With ``--ring`` it replays instead the schedule of the batched in-kernel
+ring (``ring_force_batched_kernel`` of ``csrc/ring.cu``, row 6-b of
+PERF.md) at phase 33's shapes, for the parent's assignment (one 32-row set
+an item, 3 resident blocks an SM) and the redesign's (``sets`` row sets an
+item from ``ring_batch_sets``, ``kRingBatchMinBlocks`` blocks an SM):
+items and block-steps per block, and the makespan of the fill and done
+dependencies under steps whose cost is the chunks a warp walks
+(:func:`ring_replay`), with and without a wait latency.  No data: the
+cutoff's culling is not replayed.
+
 For ``--blocks`` sampled 32-row blocks (every warp of a block holds the
 same 32 rows, one a lane) it counts the 256-column tiles with a chunk
 whose box the block's alive rows reach (``tiles``) and the tiles whose own
@@ -45,7 +55,7 @@ time, where a step serves every lane with a pair in that chunk, and
 chunk slots.
 
     python3 tools/walk_model.py [--blocks 24] [--window 1,2,3,4,0] \
-        [--square 3] [--sym]
+        [--square 3] [--sym] [--ring]
 """
 from __future__ import annotations
 
@@ -350,6 +360,183 @@ def sym_main(args, windows):
                               "per_row": row}), flush=True)
 
 
+#: the card's SMs, and the parent's resident blocks an SM (kRingMinBlocks)
+SMS, RING_PARENT_PER_SM = 132, 3
+
+
+def ring_batch_min_blocks(root=ROOT):
+    """``kRingBatchMinBlocks`` of ``csrc/ring.cu`` at ``root``: the
+    redesign's resident blocks an SM (its launch bounds; at 256 threads
+    and 64 registers no more fit)."""
+    import re
+    src = (root / "carla_social_force_model_tpu_torch" / "csrc"
+           / "ring.cu").read_text()
+    return int(re.search(r"constexpr int kRingBatchMinBlocks = (\d+);",
+                         src).group(1))
+
+
+def ring_sets(crowds, n_dev, n_local, per_sm, sms=SMS):
+    """``ring_batch_sets`` of ``csrc/ring.cu``: the row sets an item of the
+    batched ring holds, the least rounds x (sets x tiles + 1), ties to more
+    sets."""
+    per_dev = per_sm * sms // n_dev
+    if per_dev < 1:
+        return 1
+    nsets = -(-n_local // 32)
+    nct = -(-n_local // 256)
+    best, best_cost = 1, 0
+    for s in (1, 2, 4, 8):
+        items = crowds * -(-nsets // s)
+        cost = -(-items // min(items, per_dev)) * (s * nct + 1)
+        if s == 1 or cost <= best_cost:
+            best, best_cost = s, cost
+    return best
+
+
+def ring_layout(crowds, n_dev, n_local, new, per_sm, sms=SMS):
+    """``(sets, groups, G, multi)`` of one launch (``ring_try``): row sets
+    an item, items (groups of sets) of a (crowd, device), blocks of a
+    device, and the kMulti form.  The parent's item is one 32-row set, and
+    its kMulti form (a block holds several groups of a crowd) walks crowd
+    by crowd as its other form; the redesign walks crowd by crowd only
+    where G is a multiple of the groups, else step by step (kMulti)."""
+    per_dev = per_sm * sms // n_dev
+    sets = ring_sets(crowds, n_dev, n_local, per_sm, sms) if new else 1
+    groups = -(-(-(-n_local // 32)) // sets)
+    g = min(crowds * groups, per_dev)
+    multi = groups > per_dev or (new and g % groups != 0)
+    return sets, groups, g, multi
+
+
+def ring_assignment(crowds, groups, G):
+    """{block: [(crowd, [groups])]} of one device by the kernel's rule:
+    block x walks crowd b with rank (x - b * groups) mod G when that rank
+    is below P = min(groups, G), and then its groups rank, rank + G, ...;
+    crowds in ascending order."""
+    P = min(groups, G)
+    out = {}
+    for x in range(G):
+        mine = []
+        for b in range(crowds):
+            rank = (x - b * groups) % G
+            if rank < P:
+                mine.append((b, list(range(rank, groups, G))))
+        out[x] = mine
+    return out
+
+
+def ring_replay(crowds, n_dev, n_local, new, per_sm, latency=0.0,
+                sms=SMS):
+    """The batched ring's schedule on one launch, replayed: every block of
+    every device walks its crowds' D ring steps in order (same blocks on
+    every device); a step costs the chunks a warp walks (the parent's one
+    chunk a tile, the redesign's ``sets`` chunks a tile, for each group the
+    block holds) and starts once the block is free, the left neighbour's
+    blocks of the crowd have forwarded into the slot (step k >= 1) and,
+    before the block forwards at step k >= 2, the right neighbour's blocks
+    have handed back the slot it fills; each hand-over lands ``latency``
+    units after it is made.  A block forwards at the start of a step; the
+    parent hands a slot back at the end of the step, the redesign once it
+    has staged the slot's last tile (the start of the step's last tile).
+    The redesign's kMulti form takes a block's (crowd, step) tasks step by
+    step, the others crowd by crowd.  No SM is modelled: blocks walk at
+    one pace (on the card they do not, which is what the redesign's
+    per-device crowd counters answer).  Returns the counts per device
+    (the same on every device)."""
+    sets, groups, G, multi = ring_layout(crowds, n_dev, n_local, new, per_sm,
+                                         sms)
+    nct = -(-n_local // 256)
+    assign = ring_assignment(crowds, groups, G)
+    holders = {}  # crowd -> its blocks of a device
+    for x, items in assign.items():
+        for b, _ in items:
+            holders.setdefault(b, []).append(x)
+    fwd, back, free, pos = {}, {}, {}, {}
+    step_major = new and multi
+    tasks = {(x, d): sorted(((b, len(g), k) for b, g in assign[x]
+                             for k in range(n_dev)),
+                            key=(lambda t: (t[2], t[0])) if step_major
+                            else (lambda t: (t[0], t[2])))
+             for x in range(G) for d in range(n_dev)}
+    for key in tasks:
+        free[key], pos[key] = 0.0, 0
+    left = sum(len(t) for t in tasks.values())
+    while left:
+        moved = False
+        for (x, d), todo in tasks.items():
+            while pos[(x, d)] < len(todo):
+                b, nq, k = todo[pos[(x, d)]]
+                deps = []
+                if k >= 1:
+                    deps += [fwd.get((y, (d - 1) % n_dev, b, k - 1))
+                             for y in holders[b]]
+                if 2 <= k < n_dev - 1:
+                    deps += [back.get((y, (d + 1) % n_dev, b, k - 1))
+                             for y in holders[b]]
+                if any(t is None for t in deps):
+                    break
+                start = max([free[(x, d)]] + [t + latency for t in deps])
+                per_group = (sets if new else 1) * nct
+                cost = nq * per_group
+                fwd[(x, d, b, k)] = start
+                back[(x, d, b, k)] = (start + cost - (sets if new else 1)
+                                      if new else start + cost)
+                free[(x, d)] = start + cost
+                pos[(x, d)] += 1
+                left -= 1
+                moved = True
+        if not moved:
+            raise RuntimeError("the replayed schedule deadlocks")
+    steps = [len(tasks[(x, 0)]) for x in range(G)]
+    units = [sum(nq * (sets if new else 1) * nct
+                 for _, nq, _ in tasks[(x, 0)]) for x in range(G)]
+    span = max(free.values())
+    # one group a crowd and more crowds than blocks: the kernel's blocks
+    # take crowds from their device's counter as they come free, which
+    # with steps of equal cost is the order replayed here
+    dynamic = new and not multi and groups == 1 and crowds > G
+    return {"sets": sets, "groups": groups, "blocks": G, "multi": multi,
+            "dynamic": dynamic,
+            "blocks_per_sm": per_sm,
+            "items_per_block": {
+                "max": max(sum(len(g) for _, g in assign[x])
+                           for x in range(G)),
+                "mean": round(crowds * groups / G, 3)},
+            "block_steps": {"busiest": max(steps),
+                            "mean": round(sum(steps) / G, 3)},
+            "units": {"busiest": max(units),
+                      "mean": round(sum(units) / G, 3)},
+            "makespan": round(span, 3),
+            # a block's unit takes the SM's share of each of the blocks an
+            # SM holds (the grid spread evenly)
+            "sm_time": round(span * min(per_sm, G * n_dev / sms), 3)}
+
+
+#: phase 33's ring shapes and the bench's: (label, crowds, devices, rows)
+RING_SHAPES = (("256 x 4 x 250 (Moussaid)", 256, 4, 250),
+               ("32 x 4 x 250 (power law, Helbing, 30 m)", 32, 4, 250),
+               ("8 x 4 x 12,500 (30 m)", 8, 4, 12_500),
+               ("B = 1 x 4 x 2,500", 1, 4, 2_500))
+
+
+def ring_main(latencies=(0.0, 0.3)):
+    """``--ring``: :func:`ring_replay` of the parent's and the redesign's
+    rules at :data:`RING_SHAPES`, with and without a wait latency (in
+    units of one chunk a warp)."""
+    new_per_sm = ring_batch_min_blocks()
+    for label, b, d, n in RING_SHAPES:
+        for rule, new, per_sm in (("parent", False, RING_PARENT_PER_SM),
+                                  ("change", True, new_per_sm)):
+            row = {"shape": label, "rule": rule}
+            for lat in latencies:
+                got = ring_replay(b, d, n, new, per_sm, lat)
+                row.update({k: v for k, v in got.items()
+                            if k not in ("makespan", "sm_time")})
+                row[f"makespan latency={lat:g}"] = got["makespan"]
+                row[f"sm_time latency={lat:g}"] = got["sm_time"]
+            print(json.dumps(row), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--blocks", type=int, default=24)
@@ -358,7 +545,12 @@ def main() -> int:
                     help="crowds of config #5 + 30 m to replay whole (2c)")
     ap.add_argument("--sym", action="store_true",
                     help="replay the batched symmetric cutoff walks (1c)")
+    ap.add_argument("--ring", action="store_true",
+                    help="replay the batched ring's schedule (6-b)")
     args = ap.parse_args()
+    if args.ring:
+        ring_main()
+        return 0
     sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
     windows = [int(k) for k in args.window.split(",")]
     torch.set_num_threads(4)
