@@ -70,7 +70,9 @@
 // tiles, the batched box-skip walk are the exception: their body is their
 // own (chunk_walk, which culls and stages single 32-column chunks and lets
 // each lane walk its own pairs), in dense_walk's order of additions, so
-// they too equal the unbatched launch bitwise.  The batched symmetric
+// they too equal the unbatched launch bitwise.  So is the batched all-tiles
+// walk's (dense_batch_walk: a block holds up to eight 32-row sets of one
+// crowd and stages its columns once for all of them).  The batched symmetric
 // cutoff walks have a body of their own too (sym_rows_walk: one block per
 // crowd and 128-row tile, walking its row's column tiles), which, like the
 // unbatched walk, equals the plain version up to f32 summation order.
@@ -769,6 +771,215 @@ __device__ __forceinline__ void chunk_walk(
   cluster.sync();  // no block leaves while another reads its sums
 }
 
+// The batched all-tiles walk's own body (dense_batch_walk, run by
+// pair_force_dense_batched_kernel<kAllTiles, Law>; pair_force_dense_kernel
+// and the batched box-skip walk by tile keep dense_walk and its SASS).  At
+// the batches' shapes (config #5: 256 crowds of 1,000; the 2-D mesh: 128
+// crowds of a shard's 250 rows against the 1,000 gathered columns or a
+// 250-column ring block) dense_walk gave each block one 32-row set, whose
+// warps walked 125 law steps (32 on the ring block) against a fixed cost:
+// zeroing the slot and part sums, a staging between two barriers a tile, a
+// flush behind a barrier a part and two cluster syncs (PERF.md rows 2b and
+// 2r-b).  Here a block holds `sets` 32-row sets of one crowd: warp w holds
+// row set w % sets and walks chunk slots w / sets, w / sets + 8 / sets, ...
+// of each tile, `sets` chunks a tile.  The block stages up to
+// kDenseBatchWindow column tiles at once for all its row sets (a crowd's
+// 1,000 columns, the mesh's gathered columns and its ring block: all of
+// them), with 4-byte cp.async copies of each plane's word into its slot of
+// the tile (no 16-byte copy fits: a crowd's planes start at b x n x 4
+// bytes, and the tile interleaves five planes and a byte plane), so the
+// pair loop runs without a barrier; it restages only where the block's
+// columns are wider.  A row's sum keeps dense_walk's order of additions:
+// over the parts (a left fold from +0), of the sum over a tile's eight
+// chunk slots, of the slot's sum over the part's tiles, of the chunk's
+// columns (each from +0).  A warp walks each part slot by slot, each slot
+// over the part's tiles: with sets = 8 it holds all eight slots of its rows
+// and folds them in registers; with fewer, the slot sums go to shared
+// memory (two buffers by the part's parity) and, after a barrier, thread r
+// folds block row r's in slot order.  So every crowd equals the unbatched
+// launch bitwise.  `sets` and the blocks a row block's parts are split
+// over (a cluster that folds its part sums through distributed shared
+// memory; no cluster without a split) come from the shapes
+// (dense_batch_layout).
+constexpr int kDenseBatchRows = 1;    // rows a lane holds: one row set a warp
+constexpr int kDenseBatchBlocks = 4;  // resident blocks an SM (PERF.md)
+constexpr int kDenseBatchWindow = 4;  // column tiles staged at once
+static_assert(kDenseBatchRows == 1, "a warp's rows are one 32-row set");
+
+// dense_batch_walk's dynamic shared memory, in floats: the part sums of a
+// split row block ([the block's parts][x, y][block row]), then the slot
+// sums where a warp holds fewer than the eight slots of its rows ([part
+// parity][slot][x, y][block row]); the staged column tiles (ColTile)
+// follow.  Functions of the launch's shapes, so every block of a cluster
+// lays them out alike.
+__host__ __device__ constexpr int dense_batch_part_floats(int n_parts,
+                                                        int splits,
+                                                        int sets) {
+  return splits > 1 ? (n_parts + splits - 1) / splits * 2 * 32 * sets : 0;
+}
+
+__host__ __device__ constexpr int dense_batch_slot_floats(int sets) {
+  return sets < kTileChunks ? 2 * kTileChunks * 2 * 32 * sets : 0;
+}
+
+static_assert(4 * (dense_batch_part_floats(kMaxSplit, 2, 4) +
+                   dense_batch_slot_floats(4)) +
+                      kDenseBatchWindow * sizeof(ColTile) <=
+                  48 * 1024,
+              "dense_batch_walk's largest layout needs no opt-in to more "
+              "than 48 KB of dynamic shared memory");
+
+template <class Law>
+__device__ __forceinline__ void dense_batch_walk(
+    const Planes& rows, const Planes& cols, const float* __restrict__ prm,
+    int use_radius, int sets, int n_split, float* __restrict__ fx,
+    float* __restrict__ fy) {
+  extern __shared__ float4 dense_batch_smem[];
+  const typename Law::Prm p = Law::load(prm);
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int ir = warp % sets;  // this warp's row set of the block
+  const int cq = warp / sets;  // its first chunk slot of each tile
+  const int cstep = kTileChunks / sets;
+  const int brows = 32 * sets;  // rows of a block
+  const int rb = blockIdx.x / n_split;
+  const int split = (int)(blockIdx.x % n_split);
+  const int n = cols.n;
+  const int nct = n / kColTile + (n % kColTile != 0);
+  const int n_parts = dense_parts(nct);
+  const int p_lo = split * n_parts / n_split;
+  const int p_hi = (split + 1) * n_parts / n_split;
+  const int t0 = p_lo * nct / n_parts;  // this block's tiles
+  const int t1 = p_hi * nct / n_parts;
+  const int win = min(kDenseBatchWindow, t1 - t0);  // tiles staged at once
+  float* part = reinterpret_cast<float*>(dense_batch_smem);
+  float* slot = part + dense_batch_part_floats(n_parts, n_split, sets);
+  ColTile* tiles =
+      reinterpret_cast<ColTile*>(slot + dense_batch_slot_floats(sets));
+  const int i_blk = rb * brows;
+  // thread tid folds block row tid (sets = 8: its own lane's row)
+  const bool owner = tid < brows;
+
+  RowSet<kDenseBatchRows> rw;
+  {
+    const int i = i_blk + ir * 32 + lane;
+    const bool in = i < rows.n;
+    rw.template load<false>(0, in ? rows.x[i] : 0.0f, in ? rows.y[i] : 0.0f,
+                            in ? rows.u[i] : 0.0f, in ? rows.v[i] : 0.0f,
+                            (in && Law::kRadius) ? rows.rad[i] : 0.0f,
+                            in && rows.alive[i] != 0, rows.off + i);
+  }
+
+  // stage tiles [s0, s1) = [t, min(t + win, t1)) once the staged ones are
+  // consumed: each column's x, y, u, v and radius by cp.async into its
+  // slots of the tile, its liveness (a byte) through a register; columns
+  // past n are never read
+  int s0 = 0, s1 = 0;
+  auto stage = [&](int t) {
+    if (s1 > s0) __syncthreads();  // the staged tiles are consumed
+    s0 = t;
+    s1 = min(t + win, t1);
+    const int m = min((s1 - s0) * kColTile, n - s0 * kColTile);
+    for (int c = tid; c < m; c += kDenseThreads) {
+      const int j = s0 * kColTile + c;
+      ColTile& tl = tiles[c / kColTile];
+      const int k = c % kColTile;
+      float* pv = reinterpret_cast<float*>(&tl.pv[k]);
+      cp_async4(pv, cols.x + j);
+      cp_async4(pv + 1, cols.y + j);
+      cp_async4(pv + 2, cols.u + j);
+      cp_async4(pv + 3, cols.v + j);
+      if (Law::kRadius)
+        cp_async4(&tl.ra[k].x, cols.rad + j);
+      else
+        tl.ra[k].x = 0.0f;
+      tl.ra[k].y = cols.alive[j] != 0 ? 1.0f : 0.0f;
+    }
+    cp_async_wait_all();
+    __syncthreads();  // the tiles are staged
+  };
+
+  float tx = 0.0f, ty = 0.0f;  // without a split: the row's sum
+  for (int pp = p_lo; pp < p_hi; ++pp) {
+    const int a = pp * nct / n_parts;  // the part's tiles [a, b)
+    const int b = (pp + 1) * nct / n_parts;
+    float px = 0.0f, py = 0.0f;  // the part's sum over its slots
+    for (int jj = 0; jj < sets; ++jj) {
+      const int q = cq + cstep * jj;  // the chunk slot
+      float sx = 0.0f, sy = 0.0f;     // its sum over the part's tiles
+      for (int t = a; t < b; ++t) {
+        if (t < s0 || t >= s1) stage(t);  // block-uniform
+        const int jc = t * kColTile + q * kChunk;
+        if (jc >= n) continue;
+        rw.ax[0] = rw.ay[0] = 0.0f;
+        rows_vs_chunk<false, kDenseFastTail, Law, kDenseBatchRows>(
+            rw, tiles[t - s0], q, min(kChunk, n - jc), cols.off + jc, p,
+            use_radius, 0.0f);
+        sx += rw.ax[0];
+        sy += rw.ay[0];
+      }
+      if (sets == kTileChunks) {  // the warp holds every slot, in order
+        px = jj == 0 ? sx : px + sx;
+        py = jj == 0 ? sy : py + sy;
+      } else {
+        float* s = slot + ((pp & 1) * kTileChunks + q) * 2 * brows;
+        s[ir * 32 + lane] = sx;
+        s[brows + ir * 32 + lane] = sy;
+      }
+    }
+    if (sets < kTileChunks) {  // block row tid: the part's slots in order
+      __syncthreads();  // every warp's slot sums of the part are written
+      if (owner) {
+        const float* s = slot + (pp & 1) * kTileChunks * 2 * brows;
+        px = s[tid];
+        py = s[brows + tid];
+#pragma unroll
+        for (int q = 1; q < kTileChunks; ++q) {
+          px += s[q * 2 * brows + tid];
+          py += s[q * 2 * brows + brows + tid];
+        }
+      }
+    }
+    if (n_split == 1) {
+      tx += px;
+      ty += py;
+    } else if (owner) {
+      part[(pp - p_lo) * 2 * brows + tid] = px;
+      part[(pp - p_lo) * 2 * brows + brows + tid] = py;
+    }
+  }
+  if (n_split == 1) {  // grid-uniform: no cluster
+    if (owner && i_blk + tid < rows.n) {
+      fx[i_blk + tid] = tx;
+      fy[i_blk + tid] = ty;
+    }
+    return;
+  }
+
+  // each row: its parts' sums in order, from every block of the cluster
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();  // every block's part sums are in its shared memory
+  const int per = (brows + n_split - 1) / n_split;
+  for (int k = tid; k < per; k += kDenseThreads) {
+    const int r = split * per + k;
+    const int i = i_blk + r;
+    if (r >= brows || i >= rows.n) continue;
+    float sx = 0.0f, sy = 0.0f;
+    for (int bk = 0; bk < n_split; ++bk) {
+      const float* pb = cluster.map_shared_rank(part, bk);
+      const int q_n = (bk + 1) * n_parts / n_split - bk * n_parts / n_split;
+      for (int q = 0; q < q_n; ++q) {
+        sx += pb[q * 2 * brows + r];
+        sy += pb[q * 2 * brows + brows + r];
+      }
+    }
+    fx[i] = sx;
+    fy[i] = sy;
+  }
+  cluster.sync();  // no block leaves while another reads its part sums
+}
+
 // A crowd's planes in a batch: every pointer advanced by off agents (rad
 // may be null).
 __device__ __forceinline__ Planes batch_row(Planes p, int off) {
@@ -788,15 +999,18 @@ __device__ __forceinline__ Planes batch_row(Planes p, int off) {
 // sharded over an agent axis: a shard's rows against gathered or rotated
 // columns); its parameters at blockIdx.y * prm_stride, its 32-column
 // chunk boxes (kBoxSkip, kTable) or 256-column tile boxes (kBoxSkipTiles),
-// table and counts at its own offsets.  The all-tiles walk and the
-// box-skip walk by tile are the unbatched body (dense_walk); the box-skip
-// and table walks are chunk_walk (every tile of the block's parts, or the
-// table row's listed ones), in dense_walk's order of additions: row b
-// equals the unbatched launch on row b bitwise.
+// table and counts at its own offsets.  `width` is the table's slots a row
+// (max_surv: kTable) or the all-tiles walk's row sets a block (sets:
+// kAllTiles, dense_batch_layout).  The all-tiles walk is its own body
+// (dense_batch_walk); the box-skip walk by tile is the unbatched body
+// (dense_walk); the box-skip and table walks are chunk_walk (every tile of
+// the block's parts, or the table row's listed ones); all in dense_walk's
+// order of additions: row b equals the unbatched launch on row b bitwise.
 template <int kWalk, class Law>
 __global__ void __launch_bounds__(
     kDenseThreads,
-    kWalk == kAllTiles || kWalk == kBoxSkipTiles ? 2048 / kDenseThreads
+    kWalk == kAllTiles ? kDenseBatchBlocks
+    : kWalk == kBoxSkipTiles ? 2048 / kDenseThreads
     : std::is_same<Law, Moussaid>::value ? kChunkBlocks
                                          : kChunkBlocksLean)
 pair_force_dense_batched_kernel(Planes rows, Planes cols,
@@ -804,31 +1018,33 @@ pair_force_dense_batched_kernel(Planes rows, Planes cols,
                                 int use_radius,
                                 const float* __restrict__ col_bb,
                                 const int* __restrict__ surv,
-                                const int* __restrict__ counts, int max_surv,
+                                const int* __restrict__ counts, int width,
                                 float c2, int n_split, float* __restrict__ fx,
                                 float* __restrict__ fy) {
   const long long crowd = blockIdx.y;
   const int ro = (int)crowd * rows.n;
   const int co = (int)crowd * cols.n;
-  if constexpr (kWalk == kAllTiles || kWalk == kBoxSkipTiles) {
-    if constexpr (kWalk == kBoxSkipTiles) {
-      const long long nct = cols.n / kColTile + (cols.n % kColTile != 0);
-      col_bb += crowd * 4 * nct;
-    }
-    dense_walk<kWalk == kAllTiles ? kAllTiles : kBoxSkip, Law>(
-        batch_row(rows, ro), batch_row(cols, co),
-        prm + (int)crowd * prm_stride, use_radius, col_bb, surv, counts,
-        max_surv, c2, n_split, fx + ro, fy + ro);
+  if constexpr (kWalk == kAllTiles) {
+    dense_batch_walk<Law>(batch_row(rows, ro), batch_row(cols, co),
+                          prm + (int)crowd * prm_stride, use_radius, width,
+                          n_split, fx + ro, fy + ro);
+  } else if constexpr (kWalk == kBoxSkipTiles) {
+    const long long nct = cols.n / kColTile + (cols.n % kColTile != 0);
+    col_bb += crowd * 4 * nct;
+    dense_walk<kBoxSkip, Law>(batch_row(rows, ro), batch_row(cols, co),
+                              prm + (int)crowd * prm_stride, use_radius,
+                              col_bb, surv, counts, width, c2, n_split,
+                              fx + ro, fy + ro);
   } else {  // col_bb: the 32-column chunk boxes
     const long long nch = cols.n / kChunk + (cols.n % kChunk != 0);
     const long long nt = (rows.n + kSymTile - 1) / kSymTile;
     if constexpr (kWalk == kTable) {
-      surv += crowd * nt * max_surv;
+      surv += crowd * nt * width;
       counts += crowd * nt;
     }
     chunk_walk<kWalk, Law>(batch_row(rows, ro), batch_row(cols, co),
                            prm + (int)crowd * prm_stride, use_radius,
-                           col_bb + crowd * 4 * nch, surv, counts, max_surv,
+                           col_bb + crowd * 4 * nch, surv, counts, width,
                            c2, n_split, fx + ro, fy + ro);
   }
 }
@@ -1486,10 +1702,101 @@ pair_force_sym_dense_batched_kernel(Planes rows, Planes cols,
       c2, fx + ro, fy + ro, fxc + co, fyc + co);
 }
 
+// The batched all-tiles walk's layout (dense_batch_walk) by the shapes:
+// `sets` (1, 2, 4 or 8 row sets a block) and `splits` (1, 2, 4 or 8
+// blocks a row block's parts are split over, at most the parts), the
+// least (chunks a warp walks + 1 + 1 for a cluster) x (blocks + per_sm x
+// sms): the blocks' work spread over the resident slots plus one block's
+// length, by which the last blocks to start end after the rest (blocks
+// come and go, so waves do not line up; a block holding more rows walks
+// longer: PERF.md run 3 timed sets 1-8 at config #5 and on the 2-D
+// mesh).  The 1 is a block's staging, folds and stores, the other a
+// cluster's fold.  Ties go to more sets (more law steps a barrier), then
+// to fewer splits.  tools/walk_model.py --dense replays it.
+struct DenseBatchLayout {
+  int sets;
+  int splits;
+};
+
+DenseBatchLayout dense_batch_layout(long long batch, int n_rows, int n_cols,
+                                    int per_sm, int sms) {
+  const long long cap =
+      (long long)(per_sm > 0 ? per_sm : 1) * (sms > 0 ? sms : 1);
+  const long long nsets = (n_rows + 31) / 32;
+  const int nct = n_cols / kColTile + (n_cols % kColTile != 0);
+  const int parts = dense_parts(nct);
+  const long long per_part = (nct + parts - 1) / parts;  // tiles at most
+  DenseBatchLayout best{1, 1};
+  long long best_cost = -1;
+  for (int s = kTileChunks; s >= 1; s /= 2)
+    for (int sp = 1; sp <= parts && sp <= kMaxSplit; sp *= 2) {
+      const long long blocks = batch * ((nsets + s - 1) / s) * sp;
+      const long long tiles = (long long)((parts + sp - 1) / sp) * per_part;
+      const long long cost = (s * tiles + 1 + (sp > 1)) * (blocks + cap);
+      if (best_cost < 0 || cost < best_cost) {
+        best = DenseBatchLayout{s, sp};
+        best_cost = cost;
+      }
+    }
+  return best;
+}
+
+// Launch of the batched all-tiles walk (pair_force_dense_batched_kernel<
+// kAllTiles, Law>): dense_batch_layout's blocks of 32 x sets rows, the
+// splits of a row block one cluster (none without a split), with the
+// dynamic shared memory of its widest block.
+template <class Law>
+int dense_batch_launch(const Planes& rows, const Planes& cols,
+                       const float* prm, int prm_stride, int use_radius,
+                       float* fx, float* fy, void* stream, int batch) {
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const DenseBatchLayout l =
+      dense_batch_layout(batch, rows.n, cols.n, kDenseBatchBlocks, sms);
+  const int nct = cols.n / kColTile + (cols.n % kColTile != 0);
+  const int n_parts = dense_parts(nct);
+  int win = 0;  // the most tiles a block stages at once
+  for (int sp = 0; sp < l.splits; ++sp) {
+    const int t0 = sp * n_parts / l.splits * nct / n_parts;
+    const int t1 = (sp + 1) * n_parts / l.splits * nct / n_parts;
+    const int w = t1 - t0 < kDenseBatchWindow ? t1 - t0 : kDenseBatchWindow;
+    win = w > win ? w : win;
+  }
+  const long long blocks =
+      (long long)((rows.n + 32 * l.sets - 1) / (32 * l.sets)) * l.splits;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks, (unsigned)batch);
+  cfg.blockDim = dim3(kDenseThreads);
+  cfg.dynamicSmemBytes =
+      4 * (dense_batch_part_floats(n_parts, l.splits, l.sets) +
+           dense_batch_slot_floats(l.sets)) +
+      win * sizeof(ColTile);
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)l.splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = l.splits > 1 ? 1 : 0;
+  const float* no_bb = nullptr;
+  const int* no_table = nullptr;
+  e = cudaLaunchKernelEx(&cfg, pair_force_dense_batched_kernel<kAllTiles, Law>,
+                         rows, cols, prm, prm_stride, use_radius, no_bb,
+                         no_table, no_table, l.sets, 0.0f, l.splits, fx, fy);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 // Launch of a dense walk with law Law: one block per row block and split,
 // the splits of a row block one cluster (of one block when n_split = 1).
 // With prm_stride >= 0 the launch is the batched walk over batch blocks of
-// rows.n rows and cols.n columns (pair_force_dense_batched_kernel).
+// rows.n rows and cols.n columns (pair_force_dense_batched_kernel; the
+// all-tiles walk: dense_batch_launch).
 template <int kWalk, class Law>
 int dense_launch(const Planes& rows, const Planes& cols, const float* prm,
                  int use_radius, const float* col_bb, const int* surv,
@@ -1501,6 +1808,10 @@ int dense_launch(const Planes& rows, const Planes& cols, const float* prm,
   if (cols.n < 0 || batch < 1 || batch > 65535)
     return (int)cudaErrorInvalidValue;
   if (kWalk == kTable && max_surv < 1) return (int)cudaErrorInvalidValue;
+  if constexpr (kWalk == kAllTiles)
+    if (batched)
+      return dense_batch_launch<Law>(rows, cols, prm, prm_stride, use_radius,
+                                     fx, fy, stream, batch);
   const int n_split = (batched && (kWalk == kBoxSkip || kWalk == kTable))
                           ? chunk_splits(rows.n, cols.n, batch)
                           : dense_splits<kWalk>(rows.n, cols.n, batch);
@@ -1520,14 +1831,17 @@ int dense_launch(const Planes& rows, const Planes& cols, const float* prm,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   cudaError_t e = cudaErrorInvalidValue;  // kBoxSkipTiles: batched only
-  if (batched)
-    e = cudaLaunchKernelEx(&cfg, pair_force_dense_batched_kernel<kWalk, Law>,
-                           rows, cols, prm, prm_stride, use_radius, col_bb,
-                           surv, counts, max_surv, c2, n_split, fx, fy);
-  else if constexpr (kWalk != kBoxSkipTiles)
+  if (batched) {
+    if constexpr (kWalk != kAllTiles)  // (dense_batch_launch above)
+      e = cudaLaunchKernelEx(
+          &cfg, pair_force_dense_batched_kernel<kWalk, Law>, rows, cols, prm,
+          prm_stride, use_radius, col_bb, surv, counts, max_surv, c2, n_split,
+          fx, fy);
+  } else if constexpr (kWalk != kBoxSkipTiles) {
     e = cudaLaunchKernelEx(&cfg, pair_force_dense_kernel<kWalk, Law>, rows,
                            cols, prm, use_radius, col_bb, surv, counts,
                            max_surv, c2, n_split, fx, fy);
+  }
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

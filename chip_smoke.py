@@ -2556,9 +2556,10 @@ def batch_phases(dev, zero, card, launches, worst, profile_steps):
             name = bc.PAIR_FORMS[law, form]
             tol = ("1e-4 + 1e-4*|f|" if law == "moussaid"
                    else TOLERANCE_OF[law])
-            say(f"{label} {name}: max abs err {m['err']:.3e} vs the plain "
-                f"batched version ({m['over']} over {tol}); rows vs the "
-                f"unbatched kernel: "
+            body = " (dense_batch_walk)" if form == "dense" else ""
+            say(f"{label} {name}{body}: max abs err {m['err']:.3e} vs the "
+                f"plain batched version ({m['over']} over {tol}); rows vs "
+                f"the unbatched kernel: "
                 + ("bitwise equal" if m["rows_equal"] else
                    f"max diff {m['row_err']:.3e} ({m['row_over']} over "
                    f"twice the tolerance)"))
@@ -2611,13 +2612,19 @@ def batch_phases(dev, zero, card, launches, worst, profile_steps):
                                BATCH * n_sym, counts_of.get(law))
         table[name] = (src + lines[law][form], ms, plain, bnd)
         floor = ""
+        law_type = {"moussaid": "Moussaid", "powerlaw": "PowerLaw",
+                    "helbing": "Helbing"}[law]
         if form == "sym":  # every pair of the triangle, each once
-            census = ("pair_force_sym_batched<kTriangle, "
-                      + ("Moussaid" if law == "moussaid" else "PowerLaw")
-                      + ">")
-            if CENSUS.get(census):
-                floor = "; " + floor_note(census, BATCH * n_sym)
-        say(f"phase 27 time {name} at B={BATCH} x N={BATCH_N}: kernel "
+            census = f"pair_force_sym_batched<kTriangle, {law_type}>"
+            units = BATCH * n_sym
+        else:  # dense_batch_walk: every (row, column) pair
+            census = f"pair_force_dense_batched<kAllTiles, {law_type}>"
+            units = BATCH * BATCH_N * BATCH_N
+        if CENSUS.get(census):
+            floor = "; " + floor_note(census, units)
+        say(f"phase 27 time {name}"
+            f"{' (dense_batch_walk)' if form == 'dense' else ''} at "
+            f"B={BATCH} x N={BATCH_N}: kernel "
             f"{ms:.4f} ms ({TIMED_BY[0]}; bound {bnd[0]:.4f} ms, "
             f"{bnd[1]}{floor}), plain batched version {plain:.3f} ms "
             f"({card})")
@@ -3810,7 +3817,8 @@ def mesh_batch_phases(dev, zero, card, launches, worst):
                 form = ("dense" if cutoff is None else "compact" if ms
                         else "dense_cutoff")
                 name = f"{cuda_forces.LAWS[law][0]}_{form}_rect_batched"
-                held(f"{name}, {per} crowds x {k} rows x "
+                body = " (dense_batch_walk)" if form == "dense" else ""
+                held(f"{name}{body}, {per} crowds x {k} rows x "
                      f"{BATCH_N if gathered else k} columns", got, want, lim,
                      name, one, True)
     for law in ("moussaid", "powerlaw"):
@@ -3896,7 +3904,8 @@ def mesh_batch_phases(dev, zero, card, launches, worst):
             bound(per * ((k + BATCH_N) * plane_bytes + out * k) + 4 * 6,
                   rect_pairs_within(rows, planes, None, k, 0) * PAIR_OPS,
                   rect_pairs_within(rows, planes, None, k, 0) * PAIR_MUFU),
-            f"{per} crowds x {k} rows x {BATCH_N} gathered columns"),
+            f"dense_batch_walk, {per} crowds x {k} rows x {BATCH_N} "
+            f"gathered columns"),
         "pair_force_dense_rect_batched (ring block)": (
             lambda: cuda_forces.pair_force_rect_batched(
                 *six(rows), prm, six(blk), row_offset=k, col_offset=2 * k),
@@ -3907,7 +3916,8 @@ def mesh_batch_phases(dev, zero, card, launches, worst):
             bound(per * (2 * k * plane_bytes + out * k) + 4 * 6,
                   rect_pairs_within(rows, blk, None, k, 2 * k) * PAIR_OPS,
                   rect_pairs_within(rows, blk, None, k, 2 * k) * PAIR_MUFU),
-            f"{per} crowds x {k} rows x a {k}-column block"),
+            f"dense_batch_walk, {per} crowds x {k} rows x a {k}-column "
+            f"block"),
         "pair_force_sym_dense_batched": (
             lambda: cuda_forces.pair_force_sym_dense_batched(
                 *six(rows), prm, six(blk), row_offset=k, col_offset=2 * k),
@@ -3964,6 +3974,13 @@ def mesh_batch_phases(dev, zero, card, launches, worst):
     floors = {"pair_force_compact_rect_batched": (
         "pair_force_dense_batched<kTable, Moussaid>",
         lambda: rect_pairs_within(trows, tpl, c2, tk, 0)),
+        # dense_batch_walk: every (row, column) pair
+        "pair_force_dense_rect_batched": (
+            "pair_force_dense_batched<kAllTiles, Moussaid>",
+            lambda: per * k * BATCH_N),
+        "pair_force_dense_rect_batched (ring block)": (
+            "pair_force_dense_batched<kAllTiles, Moussaid>",
+            lambda: per * k * k),
         # every pair the ring's walk evaluates
         "ring_force_batched": ("ring_force_batched<false, Moussaid>",
                                lambda: BATCH * BATCH_N * BATCH_N)}

@@ -2595,6 +2595,111 @@ def test_rect_batched_matches_plain_and_unbatched(cuda_device, law, gathered,
         assert bool((got[:, ~rows_alive] == 0).all())
 
 
+#: the batched all-tiles walk's cases (dense_batch_walk): (crowds, agents a
+#: crowd, the columns -- a square crowd's own, or shard 1's rows of four
+#: shards against the gathered columns or shard 2's block --, what to do
+#: to the planes, and the layout dense_batch_layout gives it on 132 SMs:
+#: row sets a block and blocks a row block's parts are split over)
+DENSE_BATCH_CASES = {
+    "mesh ring block, 128 x 250 x 250": (128, 1000, "ring block", None,
+                                         (1, 1)),
+    "mesh gathered, 128 x 250 x 1,000": (128, 1000, "gathered", None,
+                                         (1, 1)),
+    "config #5, 256 x 1,000": (256, 1000, "square", None, (2, 1)),
+    "fewer agents than a warp": (5, 20, "square", None, (1, 1)),
+    "16 tiles: parts of two over a cluster": (3, 4000, "square", None,
+                                              (1, 4)),
+    "B=1": (1, 1037, "square", None, (1, 4)),
+    "one live agent": (3, 300, "square", "one alive", (1, 1)),
+    "eight row sets a block": (3000, 256, "square", None, (8, 1)),
+    "two row sets over a cluster of eight": (2, 2600, "square", None,
+                                             (2, 8)),
+    "parts wider than the staging window": (2, 8500, "square", None,
+                                            (2, 8)),
+    "one row set, parts of ten tiles": (1, 20_000, "square", None, (1, 8)),
+    "eight stacked crowds": (8, 1536, "square", "stacked", (1, 1))}
+
+
+def dense_batch_planes(b, n, what, device):
+    """The square ``(b, n)`` planes (x .. ey) of a DENSE_BATCH_CASES
+    case."""
+    if what == "stacked":
+        rows = [stacked_crowd(seed, device) for seed in range(b)]
+        planes = [torch.stack(c) for c in zip(*rows)]
+        speed = torch.hypot(planes[2], planes[3])
+        return planes + [planes[2] / speed, planes[3] / speed]
+    planes = bc.batch_planes(b, n, seed=n + b, device=device,
+                             extent=max(20.0, 0.6 * n ** 0.5))
+    if what == "one alive":  # crowd 1 keeps a single live agent
+        planes[5][1] = False
+        planes[5][1, 7] = True
+    return planes
+
+
+@pytest.mark.parametrize("law", ["moussaid", "powerlaw", "helbing"])
+@pytest.mark.parametrize("case", sorted(DENSE_BATCH_CASES))
+def test_dense_batch_walk_matches_plain_and_unbatched(cuda_device, law,
+                                                      case):
+    """The batched all-tiles walk's own body (``dense_batched`` and
+    ``dense_rect_batched``: dense_batch_walk) under each law at its edges:
+    the 2-D mesh's ring block and gathered columns, config #5 (two row
+    sets a block: the slot sums of four parts folded through shared
+    memory), fewer agents than a warp, 16 column tiles (parts of two
+    tiles: each slot's sum runs over two tiles) over a cluster, B = 1, a
+    crowd with one live agent, eight row sets a block (the slots folded
+    in registers), two row sets over a cluster of eight, parts wider than
+    the staging window (the tiles restaged for each slot a warp holds),
+    parts of ten tiles, and the eight stacked crowds of the atan2 branch
+    cut: one launch, finite, dead rows exactly 0, within the tolerance of
+    the plain batched version, each crowd bitwise equal to the unbatched
+    launch on that crowd, and a relaunch bitwise equal.  On a card of 132
+    SMs each case takes the layout it is there for (tools/walk_model.py's
+    copy of the rule)."""
+    b, n, cols, what, layout = DENSE_BATCH_CASES[case]
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    if sms == 132:
+        import sys
+        from pathlib import Path
+        sys.path.insert(0, str(Path(__file__).resolve().parent.parent
+                               / "tools"))
+        import walk_model
+        rows = n if cols == "square" else n // 4
+        assert walk_model.dense_layout(
+            b, rows, n if cols != "ring block" else n // 4,
+            walk_model.dense_batch_blocks(), sms) == layout
+    prefix = cuda_forces.LAWS[law][0]
+    before = dict(cuda_forces.LAUNCHES)
+    if cols == "square":
+        planes = dense_batch_planes(b, n, what, cuda_device)
+        p = bc.law_params(law)
+        got = bc.batch_run(law, "dense", planes, p)
+        again = bc.batch_run(law, "dense", planes, p)
+        torch.cuda.synchronize()
+        name = bc.PAIR_FORMS[law, "dense"]
+        assert cuda_forces.LAUNCHES[name] == before[name] + 2
+        m = bc.pair_mismatch(law, "dense", planes, p, got)
+        assert torch.isfinite(got).all()
+        assert m["rows_equal"] and m["over"] == 0, (case, m)
+        assert torch.equal(got, again)
+        assert bool((got[:, ~planes[5]] == 0).all())
+        return
+    planes = batch_shard_planes(b, n, seed=n + b, device=cuda_device,
+                                extent=35.0, n_shards=4)
+    got, want, lim, one = rect_batch_case(law, planes, 4, 1, None,
+                                          cols == "gathered")
+    again, _, _, _ = rect_batch_case(law, planes, 4, 1, None,
+                                     cols == "gathered")
+    torch.cuda.synchronize()
+    name = f"{prefix}_dense_rect_batched"
+    assert cuda_forces.LAUNCHES[name] == before[name] + 2
+    assert torch.isfinite(got).all()
+    assert bool(((got - want).abs() <= lim).all()), case
+    assert torch.equal(got, one), case
+    assert torch.equal(got, again), case
+    k = n // 4
+    assert bool((got[:, ~planes[5][:, k:2 * k]] == 0).all())
+
+
 #: the batched table walk's cases: (crowds, agents a crowd, gathered or
 #: the next shard's block, table slots (0: a tile narrower than a row of
 #: tiles), cutoff, crowds with other alive counts)

@@ -168,6 +168,45 @@ def test_loop_census_counts_one_trip_per_marker_pair():
     assert got["groups_per_unit"] == {"law": 0, "special": 3, "memory": 1,
                                       "control": 2}
     assert got["mufu_per_unit"] == 2
+    assert got["local_per_unit"] == 0
+
+
+def test_loop_census_counts_spills_as_local_memory():
+    """A loop's local-memory loads and stores (spills) are counted apart
+    in ``local_per_unit``, and in the loop's instructions a unit."""
+    spilled = LISTING.replace(
+        "        /*0020*/                   FMUL R4, R2, R2 ;\n",
+        "        /*0018*/                   STL [R1], R2 ;\n"
+        "        /*0020*/                   FMUL R4, R2, R2 ;\n"
+        "        /*0028*/                   LDL R2, [R1] ;\n")
+    insts = sass_census.parse(spilled)["_Z6kernelv"]
+    got = sass_census.loop_census(insts, ("MUFU.EX2", None, None), 2,
+                                  {"pair_forces.cuh": {12}})
+    assert got["loop_instructions"] == 8
+    assert got["local_per_unit"] == 2
+    assert sum(got["groups_per_unit"].values()) == 8
+
+
+def test_ptxas_report_reads_registers_and_spills(monkeypatch):
+    """``--ptxas`` reads each counted kernel's registers, stack and spill
+    bytes from nvcc's ``-Xptxas -v`` log and leaves other functions out."""
+    log = ("ptxas info    : Compiling entry function '_Z1av' for 'sm_90a'\n"
+           "ptxas info    : Function properties for _Z1av\n"
+           "    8 bytes stack frame, 8 bytes spill stores, 12 bytes spill "
+           "loads\n"
+           "ptxas info    : Used 64 registers, used 1 barriers, 480 bytes "
+           "cmem[0]\n"
+           "ptxas info    : Compiling entry function '_Z1bv' for 'sm_90a'\n"
+           "ptxas info    : Used 30 registers\n")
+    names = {"_Z1av": "void (anonymous namespace)::"
+             "pair_force_dense_batched_kernel<(int)0, (anonymous namespace)"
+             "::Moussaid>(Planes)", "_Z1bv": "void other_kernel()"}
+    monkeypatch.setattr(sass_census, "demangle",
+                        lambda got: {n: names[n] for n in got})
+    assert sass_census.ptxas_report(log) == {
+        "pair_force_dense_batched_kernel<0, Moussaid>": {
+            "stack_bytes": 8, "spill_store_bytes": 8,
+            "spill_load_bytes": 12, "registers": 64}}
 
 
 #: a scan loop: four FMNMX of one distance whose two products sit on
@@ -287,15 +326,23 @@ def test_batched_ring_entries_count_their_kernels(law, cut, form):
 
 @pytest.mark.parametrize("law", ["Moussaid", "PowerLaw", "Helbing"])
 def test_batched_all_tiles_entries(law):
-    """2b, the batched all-tiles walk (the ring's pairs without a ring, and
-    the walk that kernel_redesign_bench times beside the batched ring), has
-    its census entry under each law: the kAllTiles instantiation (0) of
-    pair_force_dense_batched_kernel, one row a lane."""
+    """2b and 2r-b, the batched all-tiles walk (the ring's pairs without a
+    ring, and the walk that kernel_redesign_bench times beside the batched
+    ring), has its census entry under each law: the kAllTiles instantiation
+    (0) of pair_force_dense_batched_kernel, which runs its own body
+    (dense_batch_walk), one row a lane (kDenseBatchRows)."""
     entry = {k[0]: k for k in sass_census.KERNELS}[
         f"pair_force_dense_batched<kAllTiles, {law}>"]
     assert entry[1] == f"pair_force_dense_batched_kernel<0, {law}"
     assert entry[3] == (2 if law == "Moussaid" else 1)
-    assert entry[5] == "kDenseRows"
+    assert entry[5] == "kDenseBatchRows"
+    assert sass_census.layout_constants(ROOT)[entry[5]] == 1
+    src = (ROOT / "carla_social_force_model_tpu_torch" / "csrc"
+           / "pair_forces.cu").read_text()
+    kernel = src[src.index("pair_force_dense_batched_kernel(Planes rows"):]
+    kernel = kernel[:kernel.index("\n}\n")]
+    assert "dense_batch_walk<Law>(" in kernel
+    assert "RowSet<kDenseBatchRows> rw;" in src
 
 
 def test_census_leaves_out_an_older_form_it_does_not_find(tmp_path,

@@ -112,6 +112,56 @@ def test_a_moved_anchor_of_the_batched_symmetric_walk_raises(copy):
     assert "sfm_walk_counters[9]" in path.read_text()
 
 
+def test_every_dense_phase_counter_lands_in_both_dense_bodies(copy):
+    """The dense walks' phase counters (thread 0's cycles: zeroing,
+    staging, barriers, walking, folding; blocks, stagings and chunks
+    walked) land in the unbatched body (dense_walk, the parent's batched
+    all-tiles walk) and, but for zeroing, in the batched all-tiles walk's
+    own body (dense_batch_walk); each body adds its block cycles once per
+    way out, and pair_forces.cu's entries read and reset them."""
+    bench.instrument(copy)
+    src = (copy / CSRC / "pair_forces.cu").read_text()
+    n = len(bench.DENSE_COUNTERS)
+    assert n == 9
+    assert (f"static __device__ unsigned long long sfm_dense_counters[{n}];"
+            in src)
+    old = body_of(src, "__device__ __forceinline__ void dense_walk(")
+    new = body_of(src, "__device__ __forceinline__ void dense_batch_walk(")
+    for k in range(n):
+        assert f"sfm_dense_counters[{k}]" in old, k
+        if k != 2:
+            assert f"sfm_dense_counters[{k}]" in new, k
+    assert "sfm_dense_counters[2]" not in new
+    assert old.count("sfm_dense_counters[1]") == 1
+    assert new.count("sfm_dense_counters[1]") == 2  # with and without a split
+    chunk = body_of(src, "__device__ __forceinline__ void chunk_walk(")
+    assert "sfm_dense_counters" not in chunk
+    for entry in ("sfm_dense_counters_read", "sfm_dense_counters_reset"):
+        assert src.index(f"int {entry}(") < src.index(
+            "const char* sfm_cuda_error_string")
+
+
+def test_a_moved_anchor_of_the_batched_all_tiles_walk_raises(copy):
+    """Where the checkout has the batched all-tiles walk's own body
+    (dense_batch_walk), its anchors are required; a checkout without it
+    (the parent, whose batched all-tiles kernel runs dense_walk) is
+    instrumented without them."""
+    path = copy / CSRC / "pair_forces.cu"
+    text = path.read_text()
+    path.write_text(text.replace(
+        "  if (n_split == 1) {  // grid-uniform: no cluster\n",
+        "  if (n_split < 2) {  // grid-uniform: no cluster\n"))
+    with pytest.raises(RuntimeError, match="no anchor"):
+        bench.instrument(copy)
+    start = text.index("template <class Law>\n"
+                       "__device__ __forceinline__ void dense_batch_walk(")
+    end = text.index("\n}\n", start) + 3
+    path.write_text(text[:start] + text[end:])
+    bench.instrument(copy)
+    src = path.read_text()
+    assert src.count("sfm_dense_counters[1]") == 1
+
+
 def lambda_body(src, start):
     """The source of the lambda whose definition starts with ``start``, to
     its closing ``};``."""

@@ -168,3 +168,76 @@ def test_ring_sets_follows_the_kernels_rule():
     # a crowd's groups straddle blocks: the step-by-step form, no chains
     big = wm.ring_replay(8, 4, 12_500, True, 4)
     assert big["multi"] and big["makespan"] == big["units"]["busiest"]
+
+
+# -- the batched all-tiles walk's layout (tools/walk_model.py --dense) -------
+
+def test_dense_layout_follows_the_kernels_rule():
+    """dense_layout (the replay's copy of csrc/pair_forces.cu
+    dense_batch_layout) at phase 27's and phase 33's shapes on 132 SMs of
+    the kernel's kDenseBatchBlocks resident blocks: config #5 (256 crowds
+    of 1,000) two row sets a block and no split; the mesh's gathered
+    columns (128 crowds x 250 rows x 1,000) and its ring block (x 250) one
+    row set a block, no split (the layouts that timed fastest there);
+    B = 1 x 10,000 one row set over a cluster of eight, the parent's
+    layout; a batch of 3,000 crowds of 256 eight row sets a block.  The
+    rule walks sets from 8 down and splits from 1 up, keeping the first
+    least cost, as the kernel's does; the replay's blocks fill the card no
+    worse than the parent's and walk no fewer law steps between
+    barriers."""
+    per_sm = wm.dense_batch_blocks()
+    assert per_sm == 4
+    assert wm.dense_layout(256, 1_000, 1_000, per_sm) == (2, 1)
+    assert wm.dense_layout(128, 250, 1_000, per_sm) == (1, 1)
+    assert wm.dense_layout(128, 250, 250, per_sm) == (1, 1)
+    assert wm.dense_layout(1, 10_000, 10_000, per_sm) == (1, 8)
+    assert wm.dense_layout(3_000, 256, 256, per_sm) == (8, 1)
+    src = (ROOT / "carla_social_force_model_tpu_torch" / "csrc"
+           / "pair_forces.cu").read_text()
+    rule = src[src.index("DenseBatchLayout dense_batch_layout("):]
+    rule = rule[:rule.index("\n}\n")]
+    assert "for (int s = kTileChunks; s >= 1; s /= 2)" in rule
+    assert "for (int sp = 1; sp <= parts && sp <= kMaxSplit; sp *= 2)" in rule
+    assert "(s * tiles + 1 + (sp > 1)) * (blocks + cap)" in rule
+    assert "cost < best_cost" in rule
+    for b, r, c in ((256, 1_000, 1_000), (128, 250, 1_000),
+                    (128, 250, 250), (1, 10_000, 10_000)):
+        new = wm.dense_replay(b, r, c, True, per_sm)
+        old = wm.dense_replay(b, r, c, False, wm.DENSE_PARENT_PER_SM)
+        assert new["fill"] >= old["fill"] - 1e-9
+        assert (new["law_steps_between_barriers"]
+                >= old["law_steps_between_barriers"])
+
+
+@pytest.mark.parametrize("new", [False, True], ids=["parent", "change"])
+@pytest.mark.parametrize("batch, n_rows, n_cols, per_sm, sms", [
+    (3, 100, 100, 2, 3), (5, 250, 1_000, 4, 7), (1, 1_000, 2_600, 3, 5),
+    (7, 33, 9_000, 1, 4), (2, 20, 0, 4, 2), (40, 64, 300, 8, 11)])
+def test_dense_replay_covers_every_row_and_tile(new, batch, n_rows, n_cols,
+                                                per_sm, sms):
+    """On small launches the replayed layout covers every row (sets x 32
+    rows a block) and, over a row block's splits, every column tile once,
+    the parts of each split whole; the replay's makespan is no less than
+    its busiest block and than the blocks' total over the card's slots."""
+    got = wm.dense_replay(batch, n_rows, n_cols, new, per_sm, sms)
+    sets, splits = got["sets"], got["splits"]
+    assert sets in (1, 2, 4, 8) and (new or sets == 1)
+    nct = -(-n_cols // 256)
+    parts = wm.dense_parts(nct)
+    assert 1 <= splits <= max(parts, 1) and splits <= 8
+    row_blocks = -(-n_rows // (32 * sets))
+    assert row_blocks * 32 * sets >= n_rows > (row_blocks - 1) * 32 * sets
+    assert got["blocks"] == batch * row_blocks * splits
+    tiles = []
+    for sp in range(splits):
+        lo, hi = sp * parts // splits, (sp + 1) * parts // splits
+        assert hi > lo  # every split holds a part
+        tiles += range(lo * nct // parts, hi * nct // parts)
+    assert tiles == list(range(nct))
+    total = batch * row_blocks * sum(
+        sets * ((sp + 1) * parts // splits * nct // parts
+                - sp * parts // splits * nct // parts) + 1
+        for sp in range(splits))
+    assert got["makespan"] >= got["chunks_a_warp"] + 1
+    assert got["makespan"] >= total / (sms * per_sm) - 1e-9
+    assert 0.0 < got["fill"] <= 1.0

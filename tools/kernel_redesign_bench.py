@@ -37,7 +37,7 @@ kernels against their plain versions as phases 3, 9 and 24 check them
 
     python3 tools/kernel_redesign_bench.py [--root DIR] [--label NAME] \\
         [--out FILE] [--counters] \\
-        [--cases sym,env,dense,statics,feed,capacity,batched,mesh] \\
+        [--cases sym,env,dense,statics,feed,capacity,batched,mesh,all_tiles] \\
         [--only NAME,...]
 
 ``--only`` keeps the cases whose name holds one of the given substrings
@@ -51,7 +51,9 @@ at D = 4 over N = 10,000 and over N = 2 x 50,688 agents (on 132 SMs) at
 D = 4 and D = 1 (``"ms": null`` where the launch is refused).
 
 ``--cases batched`` times the square batched dense walks at phase 27's
-and phase 30's shapes (config #5 under each law, its 30 m cutoff under
+and phase 30's shapes (config #5 under each law with bounds and issue
+floors, and B = 1 x 10,000 beside the unbatched ``pair_force_dense`` on
+the same crowd; its 30 m cutoff under
 each law, the table at 8 x 50,000 under each law and the box skip at 8 x
 50,000, the cutoff forms with bounds and issue floors), the square
 batched symmetric walks under the Moussaid law and the power law with
@@ -61,6 +63,9 @@ triangle-box walk at config #5 + 30 m and the table at 8 x 50,000, row
 (256 crowds of 1,000 over config #3's geometry: the borders sampled and
 analytic and the parked cars, dense and on the survivor tables).
 
+``--cases all_tiles`` times only the batched all-tiles walk's cases of
+``batched`` and ``mesh`` (:func:`all_tiles_cases`; rows 2b and 2r-b).
+
 ``--cases mesh`` times the rectangular batched walks at phase 33's shapes:
 the table walk ``compact_rect_batched`` on one shard's 4 crowds x 12,500
 rows of 8 x 50,000 (2 x 4 mesh, quarter-density shards each sorted on its
@@ -68,7 +73,8 @@ own curve) against the 50,000 gathered columns with 32 slots, and the
 box-skip walk ``dense_cutoff_rect_batched`` under each law at the same
 shapes and on the 12,500-column block of the next shard, and at phase
 33's config #5 shapes (128 crowds x 250 rows x 1,000 gathered columns,
-and x the 250-column block); beside them, on the same candidate
+and x the 250-column block), and there the all-tiles walk
+``dense_rect_batched`` under each law; beside them, on the same candidate
 pairs, the unbatched ``pair_force_compact_rect`` on crowd 0's shard and
 ``pair_force_compact`` at 50,000 on crowd 0 sorted as one crowd, and the
 batched table walk on that crowd alone (B = 1: what the batched walk gives
@@ -102,6 +108,10 @@ within the cutoff, with the ring kernels' registers and resident blocks;
 for its cases of 250 agents a device without a cutoff also a step trace
 of its own body (:func:`ring_trace`: each block's SM and each step's
 global-timer stamps, ``ring_trace_<label>.json`` beside ``--out``).
+Before the ring, the all-tiles walk's Moussaid cases (:func:`dense_counters`:
+config #5, B = 1 x 10,000 and the unbatched walk beside it, the mesh's
+gathered columns and ring block), per block: thread 0's cycles in
+zeroing, staging, barriers, walking and folding (:data:`DENSE_COUNTERS`).
 ``--only`` keeps the counted cases whose name holds a substring.  The
 debug build is the checkout at ``--root`` with counters patched into its sources
 (:func:`instrument`: atomic adds at the walks' staging, culling and law
@@ -348,10 +358,7 @@ def batched_cases(dev):
         cs.CUT_TABLE_BATCH, cs.CUT_TABLE_N, seed=31, device=dev,
         extent=max(25.0, cs.CUT_TABLE_N ** 0.5)))
     kernel = "pair_force_dense_batched_kernel"
-    out = [(f"dense_batched {law} {cs.BATCH} x {cs.BATCH_N}",
-            lambda law=law: bc.batch_run(law, "dense", planes,
-                                         bc.law_params(law)), kernel, 20)
-           for law in ("moussaid", "powerlaw", "helbing")]
+    out = all_tiles_cases(dev, square=True)
     c2 = pair_grid.cutoff_sq(cs.CUTOFF_M)
     for form, pl, laws in (
             ("dense_cutoff", small, ("moussaid", "powerlaw", "helbing")),
@@ -401,6 +408,101 @@ def batched_cases(dev):
                             law, f, pl, bc.law_params(law), g),
                         sym_kernel, 20, work))
     return out + batched_env_cases(dev)
+
+
+def all_tiles_cases(dev, square=False, mesh=False,
+                    laws=("moussaid", "powerlaw", "helbing")):
+    """(name, call, kernel name filter, reps, work) of the batched all-tiles
+    walk (``pair_force_dense_batched_kernel<kAllTiles, Law>``, rows 2b and
+    2r-b) under each of ``laws``: with ``square`` phase 27's config #5
+    (256 crowds of 1,000, seed 27) and the batched ring's crowds of the
+    same shape (:func:`ring_planes`, seed 34: the ring's pairs without a
+    ring), and under the Moussaid law B = 1 x 10,000 (the dense cases'
+    crowd) beside the unbatched ``pair_force_dense`` on the same crowd
+    (held bitwise first); with
+    ``mesh`` phase 33's config #5 shapes (one shard's 128 crowds x 250
+    rows, seed 33, against the 1,000 gathered columns and against the next
+    shard's 250-column ring block).  ``work()``: the bound (every plane
+    read once, the forces written once, the law's operations on the pairs
+    the data holds) and the issue floor's units, every (row, column) pair
+    the walk evaluates."""
+    import numpy as np
+    import torch
+    import batch_cases as bc
+    import shard_cases as sc
+    from carla_social_force_model_tpu_torch.models.params import law_rows
+    from carla_social_force_model_tpu_torch.ops import cuda_forces
+    cs = smoke()
+    kernel = "pair_force_dense_batched_kernel"
+
+    def work(law, rows, cols, row_off, col_off, label):
+        def fn():
+            nb, nr = rows[0].shape
+            bnd, _ = law_work(law, rows, cols, float("inf"), row_off,
+                              col_off)
+            return bnd, label, nb * nr * cols[0].shape[-1]
+        return fn
+
+    def label(law):
+        return f"pair_force_dense_batched<kAllTiles, {LAW_TYPES[law]}>"
+
+    out = []
+    if square:
+        planes = bc.batch_planes(cs.BATCH, cs.BATCH_N, seed=27, device=dev,
+                                 extent=35.0)
+        ring = ring_planes(dev, cs.BATCH, cs.MESH_AGENTS, cs.BATCH_N, False)
+        out += [(f"dense_batched {law} {cs.BATCH} x {cs.BATCH_N}" + what,
+                 lambda law=law, pl=pl: bc.batch_run(law, "dense", pl,
+                                                     bc.law_params(law)),
+                 kernel, 20, work(law, pl, pl, 0, 0, label(law)))
+                for pl, what in ((planes, ""), (ring, ", the ring's pairs"))
+                for law in laws]
+        if "moussaid" in laws:
+            one = cs.to_planes(*cs.seeded_crowd(N, 7, float(np.sqrt(N))),
+                               dev)
+            prm = cuda_forces.law_vector("moussaid",
+                                         sc.law_params("moussaid"), dev)
+            b1 = [a[None].contiguous() for a in one]
+
+            def batched():
+                return cuda_forces.pair_force_dense_batched(*b1, prm[None])
+
+            got = torch.stack(batched())[:, 0]
+            want = torch.stack(cuda_forces.pair_force_dense(*one, prm))
+            if not torch.equal(got, want):
+                raise RuntimeError("dense_batched B=1 differs from "
+                                   "pair_force_dense")
+            out += [(f"dense_batched moussaid B=1 x {N}", batched, kernel, 20,
+                     work("moussaid", b1, b1, 0, 0, label("moussaid"))),
+                    (f"dense (unbatched) {N}",
+                     lambda: cuda_forces.pair_force_dense(*one, prm),
+                     "pair_force_dense_kernel", 20,
+                     lambda: (work("moussaid", b1, b1, 0, 0, "")()[0],
+                              "pair_force_dense<kAllTiles, Moussaid>",
+                              N * N))]
+    if mesh:
+        d = cs.MESH_AGENTS
+        k = cs.BATCH_N // d
+        pl = sc.batch_shard_planes(cs.BATCH // cs.MESH_BATCH_SHARDS,
+                                   cs.BATCH_N, seed=33, device=dev,
+                                   extent=35.0, n_shards=d)
+        rows = [a[:, k:2 * k].contiguous() for a in pl]
+        blk = [a[:, 2 * k:3 * k].contiguous() for a in pl]
+        nb = rows[0].shape[0]
+        for law in laws:
+            args, kw = sc.law_args(law, rows)
+            lprm = law_rows(law, sc.law_params(law), nb, dev)
+            for cols, off, what in ((pl, 0, f"{cs.BATCH_N}"),
+                                    (blk, 2 * k, f"{k} ring block")):
+                out.append((
+                    f"dense_rect_batched {nb} x {k} x {what}"
+                    + ("" if law == "moussaid" else f" {law}"),
+                    lambda args=args, kw=kw, lprm=lprm, cols=cols, off=off:
+                    cuda_forces.pair_force_rect_batched(
+                        *args, lprm, tuple(cols[:6]), row_offset=k,
+                        col_offset=off, **kw),
+                    kernel, 20, work(law, rows, cols, k, off, label(law))))
+    return out
 
 
 def rect_grid_of(rows, cols, cutoff, **kw):
@@ -552,6 +654,9 @@ def mesh_cases(dev, with_work=True):
               for cols, off, what in (
                   (cpl, 0, f"{cs.BATCH_N}"),
                   (cblk, 2 * ck, f"{ck} ring block"))]
+    # the all-tiles walk (2r-b without a cutoff) at the same shapes, under
+    # each law
+    cases += all_tiles_cases(dev, mesh=True)
     return cases if with_work else [c[:4] for c in cases]
 
 
@@ -686,6 +791,23 @@ COUNTERS = ("tiles staged", "chunks staged", "law evaluations",
             "chunks tested", "chunks with a pair", "atomics",
             "blocks without a tile")
 
+#: the dense walks' phase counters in a debug build (``sfm_dense_counters``
+#: of ``csrc/pair_forces.cu``), in order: thread 0 of a block takes the
+#: cycles of its own phases.  In ``dense_walk`` (the unbatched walks, the
+#: parent's batched all-tiles walk): zeroing its slot and part sums, staging
+#: its tiles (the loads and shared stores), the two barriers around each
+#: tile's staging, walking its warp's chunks, and folding (each part's
+#: flush behind its barrier, the cluster's two syncs and the fold between
+#: them, the stores).  In ``dense_batch_walk``: staging (the cp.async copies
+#: and their wait), the barriers around each staging, walking its warp's
+#: chunks, and folding (each part's barrier and slot fold where a warp
+#: holds fewer than eight slots, the cluster part, the stores).  "stagings"
+#: counts the tiles (``dense_walk``) or windows (``dense_batch_walk``) a
+#: block stages, "chunks walked" the chunks thread 0's warp walks.
+DENSE_COUNTERS = ("blocks", "block cycles", "zeroing cycles",
+                  "staging cycles", "barrier cycles", "walking cycles",
+                  "fold cycles", "stagings", "chunks walked")
+
 #: the C entry of a debug build that gives a kernel's attributes, and the
 #: kernels it knows by ``which`` (label, instantiation, threads a block)
 ATTRIBUTE_KERNELS = (
@@ -702,7 +824,10 @@ ATTRIBUTE_KERNELS = (
     ("pair_force_sym_batched<kTriangleBox, PowerLaw>",
      "pair_force_sym_batched_kernel<kTriangleBox, PowerLaw>", "kSymTile"),
     ("pair_force_sym_batched<kSymTable, PowerLaw>",
-     "pair_force_sym_batched_kernel<kSymTable, PowerLaw>", "kSymTile"))
+     "pair_force_sym_batched_kernel<kSymTable, PowerLaw>", "kSymTile"),
+    *((f"pair_force_dense_batched<kAllTiles, {law}>",
+       f"pair_force_dense_batched_kernel<kAllTiles, {law}>", "kDenseThreads")
+      for law in ("Moussaid", "PowerLaw", "Helbing")))
 
 
 #: the batched ring's counters in a debug build (``sfm_ring_counters`` of
@@ -854,7 +979,13 @@ def instrument(root: Path) -> None:
         return (f"atomicAdd(&sfm_ring_counters[{k}], "
                 f"(unsigned long long)({v}))")
 
+    def dense(k, v="1"):  # thread 0's phase counters of the dense walks
+        return (f"atomicAdd(&sfm_dense_counters[{k}], "
+                f"(unsigned long long)({v}))")
+
     sym = "sym_rows_walk"  # its anchors are required where it exists
+    batch = "dense_batch_walk"  # likewise
+    n_dense = len(DENSE_COUNTERS)
     old_ring, new_ring = "ring_walk", "ring_batch_walk"
     ring_src = (csrc / "ring.cu").read_text()
     own_body = re.search(r"\b(?:void|bool) ring_batch_walk\(", ring_src)
@@ -872,8 +1003,106 @@ def instrument(root: Path) -> None:
              "  if (sfm_pair_ && (threadIdx.x & 31) == 0) "
              + add(7) + ";\n", True)],
         "pair_forces.cu": [
+            ('#include "pair_laws.cuh"\n',
+             f"static __device__ unsigned long long sfm_dense_counters["
+             f"{n_dense}];\n", True),
             ("  RowSet<kR> rw;\n",
              "  if (threadIdx.x == 0) " + add(5) + ";\n", True),
+            # dense_walk's phases (thread 0's cycles)
+            ("  const int warp = tid / 32;  // the column group\n",
+             "  const long long sfm_b0_ = clock64();\n"
+             "  if (tid == 0) " + dense(0) + ";\n", True),
+            ("  for (int e = tid; e < kTileChunks * kRows; e += kDenseThreads)"
+             " {\n", "  const long long sfm_z0_ = clock64();\n", True,
+             "before"),
+            ("  // the sum of the current part's slots, into part_[x|y][part - "
+             "p_lo]; the\n",
+             "  if (tid == 0) " + dense(2, "clock64() - sfm_z0_") + ";\n",
+             True, "before"),
+            ("  auto flush = [&]() {\n    __syncthreads();\n",
+             "  auto flush = [&]() {\n    const long long sfm_f0_ = clock64();"
+             "\n    __syncthreads();\n", True, "replace"),
+            ("      part_x[cur - p_lo][row] = sx;\n      part_y[cur - p_lo]"
+             "[row] = sy;\n    }\n",
+             "    if (tid == 0) " + dense(6, "clock64() - sfm_f0_") + ";\n",
+             True),
+            ("    __syncthreads();  // the previous tile is consumed\n",
+             "    const long long sfm_r0_ = clock64();\n", True, "before"),
+            ("    __syncthreads();  // the previous tile is consumed\n",
+             "    const long long sfm_r1_ = clock64();\n    if (tid == 0) { "
+             + dense(4, "sfm_r1_ - sfm_r0_") + "; " + dense(7) + "; }\n",
+             True),
+            ("    __syncthreads();\n#pragma unroll 1\n    for (int q = 0; q < "
+             "kDenseChunks; ++q) {\n",
+             "    const long long sfm_r2_ = clock64();\n    if (tid == 0) "
+             + dense(3, "sfm_r2_ - sfm_r1_") + ";\n    __syncthreads();\n"
+             "    const long long sfm_r3_ = clock64();\n    if (tid == 0) "
+             + dense(4, "sfm_r3_ - sfm_r2_") + ";\n#pragma unroll 1\n"
+             "    for (int q = 0; q < kDenseChunks; ++q) {\n", True,
+             "replace"),
+            ("              use_radius, c2)) {\n",
+             "        if (tid == 0) " + dense(8) + ";\n", True),
+            ("  };\n\n  if constexpr (kWalk == kAllTiles) {\n    for (int t = "
+             "t0; t < t1; ++t) run_tile(t);\n",
+             "    if (tid == 0) " + dense(5, "clock64() - sfm_r3_") + ";\n",
+             True, "before"),
+            ("  cg::cluster_group cluster = cg::this_cluster();\n  cluster."
+             "sync();  // every block's part sums are in its shared memory\n"
+             "  const int per = (kRows + n_split - 1) / n_split;\n",
+             "  const long long sfm_e0_ = clock64();\n", True, "before"),
+            ("  cluster.sync();  // no block leaves while another reads its "
+             "sums\n}\n\ntemplate <int kWalk, class Law>\n__global__ void "
+             "__launch_bounds__(kDenseThreads, 2048 / kDenseThreads)\n",
+             "  cluster.sync();  // no block leaves while another reads its "
+             "sums\n  if (tid == 0) { " + dense(6, "clock64() - sfm_e0_")
+             + "; " + dense(1, "clock64() - sfm_b0_") + "; }\n}\n\n"
+             "template <int kWalk, class Law>\n__global__ void "
+             "__launch_bounds__(kDenseThreads, 2048 / kDenseThreads)\n", True,
+             "replace"),
+            # dense_batch_walk's phases (the batched all-tiles walk)
+            ("  const bool owner = tid < brows;\n",
+             "  const long long sfm_b0_ = clock64();\n"
+             "  if (tid == 0) " + dense(0) + ";\n", batch),
+            ("    if (s1 > s0) __syncthreads();  // the staged tiles are "
+             "consumed\n",
+             "    const long long sfm_g0_ = clock64();\n", batch, "before"),
+            ("    if (s1 > s0) __syncthreads();  // the staged tiles are "
+             "consumed\n",
+             "    const long long sfm_g1_ = clock64();\n    if (tid == 0) { "
+             + dense(4, "sfm_g1_ - sfm_g0_") + "; " + dense(7) + "; }\n",
+             batch),
+            ("    cp_async_wait_all();\n    __syncthreads();  // the tiles are "
+             "staged\n",
+             "    cp_async_wait_all();\n    const long long sfm_g2_ = "
+             "clock64();\n    if (tid == 0) " + dense(3, "sfm_g2_ - sfm_g1_")
+             + ";\n    __syncthreads();  // the tiles are staged\n"
+             "    if (tid == 0) " + dense(4, "clock64() - sfm_g2_") + ";\n",
+             batch, "replace"),
+            ("        rw.ax[0] = rw.ay[0] = 0.0f;\n        rows_vs_chunk<false, "
+             "kDenseFastTail, Law, kDenseBatchRows>(\n",
+             "        const long long sfm_w0_ = clock64();\n", batch,
+             "before"),
+            ("        sx += rw.ax[0];\n        sy += rw.ay[0];\n",
+             "        if (tid == 0) { " + dense(5, "clock64() - sfm_w0_") + "; "
+             + dense(8) + "; }\n", batch),
+            ("    if (sets < kTileChunks) {  // block row tid: the part's slots "
+             "in order\n",
+             "    const long long sfm_f0_ = clock64();\n", batch, "before"),
+            ("      part[(pp - p_lo) * 2 * brows + brows + tid] = py;\n    }\n",
+             "    if (tid == 0) " + dense(6, "clock64() - sfm_f0_") + ";\n",
+             batch),
+            ("  if (n_split == 1) {  // grid-uniform: no cluster\n",
+             "  const long long sfm_e0_ = clock64();\n", batch, "before"),
+            ("    return;\n  }\n\n  // each row: its parts' sums in order, "
+             "from every block of the cluster\n",
+             "    if (tid == 0) { " + dense(6, "clock64() - sfm_e0_") + "; "
+             + dense(1, "clock64() - sfm_b0_") + "; }\n    return;\n  }\n\n"
+             "  // each row: its parts' sums in order, from every block of the"
+             " cluster\n", batch, "replace"),
+            ("  cluster.sync();  // no block leaves while another reads its "
+             "part sums\n",
+             "  if (tid == 0) { " + dense(6, "clock64() - sfm_e0_") + "; "
+             + dense(1, "clock64() - sfm_b0_") + "; }\n", batch),
             ("    const int j0 = (int)(t * kColTile);\n",
              "    if (tid == 0) " + add(0) + ";\n", True),
             ("              use_radius, c2)) {\n",
@@ -972,7 +1201,16 @@ def instrument(root: Path) -> None:
              "int sfm_walk_counters_reset() {\n"
              f"  unsigned long long z[{len(COUNTERS)}] = {{0}};\n"
              "  return (int)cudaMemcpyToSymbol(sfm_walk_counters, z, "
-             "sizeof(z));\n}\n" + _attributes_entry(), True, "before")],
+             "sizeof(z));\n}\n" + _attributes_entry(), True, "before"),
+            ("const char* sfm_cuda_error_string(int err) {\n",
+             "int sfm_dense_counters_read(unsigned long long* out) {\n"
+             "  return (int)cudaMemcpyFromSymbol(out, sfm_dense_counters,\n"
+             f"                                   {n_dense} * "
+             "sizeof(unsigned long long));\n}\n"
+             "int sfm_dense_counters_reset() {\n"
+             f"  unsigned long long z[{n_dense}] = {{0}};\n"
+             "  return (int)cudaMemcpyToSymbol(sfm_dense_counters, z, "
+             "sizeof(z));\n}\n\n", True, "before")],
         "ring.cu": [
             ('#include "pair_laws.cuh"\n',
              "static __device__ unsigned long long sfm_ring_counters["
@@ -1076,7 +1314,8 @@ def instrument(root: Path) -> None:
                 if required:
                     raise RuntimeError(f"{name}: no anchor {anchor!r}")
                 continue
-            text = text.replace(anchor, line + anchor if where
+            text = text.replace(anchor, line if where == ["replace"]
+                                else line + anchor if where
                                 else anchor + line)
         path.write_text(text)
 
@@ -1121,7 +1360,8 @@ def walk_counters(dev, label, card, sink, only=None, trace_out=None):
                                          device=dev, extent=35.0))
     skip_grid = bc.cutoff_grid_of("dense_cutoff", small, cs.CUTOFF_M)
     cases = [c for c in mesh_cases(dev, with_work=False)
-             if "powerlaw" not in c[0] and "helbing" not in c[0]]
+             if "powerlaw" not in c[0] and "helbing" not in c[0]
+             and not c[0].startswith("dense_rect_batched")]
     cases.append((f"compact_batched {cs.CUT_TABLE_BATCH} x {cs.CUT_TABLE_N}",
                   lambda: bc.batch_run("moussaid", "compact", big,
                                        bc.law_params("moussaid"), sq_grid),
@@ -1185,7 +1425,46 @@ def walk_counters(dev, label, card, sink, only=None, trace_out=None):
         line = json.dumps(row)
         print(line, flush=True)
         sink.append(line)
+    dense_counters(lib, label, card, sink, kept)
     ring_counters(lib, label, card, sink, kept, trace_out)
+
+
+def dense_counters(lib, label, card, sink, kept=lambda name: True):
+    """The dense walks' phase counters (``sfm_dense_counters`` of a debug
+    build, :data:`DENSE_COUNTERS`) for one launch of each Moussaid case of
+    :func:`all_tiles_cases` (config #5, B = 1 x 10,000 and the unbatched
+    walk beside it, the 2-D mesh's gathered columns and ring block): thread
+    0's cycles a block in each phase, per block, with the share of the
+    block's cycles each phase takes."""
+    import ctypes
+    import torch
+    lib.sfm_dense_counters_read.argtypes = [ctypes.c_void_p]
+    out = (ctypes.c_ulonglong * len(DENSE_COUNTERS))()
+    dev = torch.device("cuda", 0)
+    for name, fn, _, _, _ in all_tiles_cases(dev, square=True, mesh=True,
+                                             laws=("moussaid",)):
+        if not kept(name):
+            continue
+        torch.cuda.synchronize()
+        if lib.sfm_dense_counters_reset() != 0:
+            raise RuntimeError("cannot reset the dense counters")
+        fn()
+        torch.cuda.synchronize()
+        if lib.sfm_dense_counters_read(out) != 0:
+            raise RuntimeError("cannot read the dense counters")
+        got = dict(zip(DENSE_COUNTERS, list(out)))
+        blocks = max(got["blocks"], 1)
+        cycles = max(got["block cycles"], 1)
+        row = {"root": label, "case": name, "counters": got,
+               "per_block": {k: v / blocks for k, v in got.items()
+                             if k != "blocks"},
+               "share_of_block": {k: v / cycles for k, v in got.items()
+                                  if k.endswith("cycles")
+                                  and k != "block cycles"},
+               "card": card}
+        line = json.dumps(row)
+        print(line, flush=True)
+        sink.append(line)
 
 
 def ring_counters(lib, label, card, sink, kept=lambda name: True,
@@ -1621,7 +1900,8 @@ def main() -> int:
     ap.add_argument("--cases", default="sym,env,dense",
                     help="comma-separated groups: sym, env, dense, "
                     "statics, feed (statics without chunk_argmin), "
-                    "capacity, batched, mesh")
+                    "capacity, batched, mesh, all_tiles (the batched "
+                    "all-tiles walk's cases of batched and mesh alone)")
     ap.add_argument("--only", default=None,
                     help="comma-separated substrings: time only the cases "
                     "whose name holds one of them")
@@ -1678,14 +1958,16 @@ def main() -> int:
     cases = {"sym": sym_cases, "env": env_cases, "dense": dense_cases,
              "statics": statics_cases, "feed": feed_cases,
              "capacity": capacity_cases, "batched": batched_cases,
-             "mesh": lambda dev: mesh_cases(dev) + ring_cases(dev)}
+             "mesh": lambda dev: mesh_cases(dev) + ring_cases(dev),
+             "all_tiles": lambda dev: all_tiles_cases(dev, square=True,
+                                                      mesh=True)}
     census = {}
-    if groups & {"statics", "feed", "mesh", "batched"}:
+    if groups & {"statics", "feed", "mesh", "batched", "all_tiles"}:
         from sass_census import census as sass
         census = sass(cuda_build.LIBRARY, root=root)
     only = None if args.only is None else args.only.split(",")
     run([c for g in ("sym", "env", "dense", "statics", "feed", "capacity",
-                     "batched", "mesh")
+                     "batched", "mesh", "all_tiles")
          if g in groups for c in cases[g](dev)
          if only is None or any(k in c[0] for k in only)], args.label, card,
         lines, census)

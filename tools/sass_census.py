@@ -30,10 +30,13 @@ The issue-rate floor is instructions x units / (132 SMs x 4 schedulers x
 Run on a machine with the CUDA toolkit (nvcc, cuobjdump, nvdisasm,
 cu++filt under /usr/local/cuda/bin):
 
-    python3 tools/sass_census.py [--out DIR]
+    python3 tools/sass_census.py [--out DIR] [--ptxas]
 
-It prints one JSON object per kernel; with ``--out`` it also writes each
-loop's disassembly there.  ``chip_smoke.py`` phase 2 imports
+It prints one JSON object per kernel (with ``local_per_unit``, the loop's
+local-memory loads and stores a unit: its spills); with ``--out`` it also
+writes each loop's disassembly there, and with ``--ptxas`` it prints
+ptxas's registers and spill bytes of each counted kernel from the build's
+log.  ``chip_smoke.py`` phase 2 imports
 :func:`census` for the same numbers.
 
     python3 tools/sass_census.py --compare DIR_A DIR_B
@@ -175,11 +178,13 @@ KERNELS = (
        "kRingRows")
       for law in ("Moussaid", "PowerLaw", "Helbing")
       for cut in ("false", "true")),
-    # the batched all-tiles walk (2b: the ring's pairs without a ring)
+    # the batched all-tiles walk (rows 2b and 2r-b: its own body,
+    # dense_batch_walk, one row a lane; a checkout from before it runs
+    # dense_walk there)
     *((f"pair_force_dense_batched<kAllTiles, {law}>",
        f"pair_force_dense_batched_kernel<0, {law}",
        ("MUFU.EX2", None, None), 2 if law == "Moussaid" else 1, "pair",
-       "kDenseRows")
+       "kDenseBatchRows")
       for law in ("Moussaid", "PowerLaw", "Helbing")),
     ("env_force<exp, kAllSections, kSampled>",
      "env_force_kernel<false, 0, 0", ("FMUL", "pair_forces.cuh", None), 2,
@@ -235,7 +240,10 @@ SPECIAL_CALLS = re.compile(
 SOURCES = (b"_pair_forces_cu_", b"_env_forces_cu_", b"_ring_cu_",
            b"_statics_cu_")
 
-MEMORY_OPS = ("LDS", "STS", "LDG", "STG", "LD.", "ST.", "LDC", "ATOM",
+#: local-memory loads and stores: the spills of a loop
+LOCAL_OPS = ("LDL", "STL")
+MEMORY_OPS = (*LOCAL_OPS, "LDS", "STS", "LDG", "STG", "LD.", "ST.", "LDC",
+              "ATOM",
               "RED", "SHFL", "VOTE", "WARPSYNC", "BAR", "MEMBAR",
               "SYNCS", "ULDC", "LDSM")
 CONTROL_OPS = ("ISETP", "FSETP", "DSETP", "PLOP3", "PSETP", "SEL", "FSEL",
@@ -454,6 +462,8 @@ def loop_census(insts: list[dict], marker, per_unit: int,
             "groups_per_unit": {k: v / units for k, v in groups.items()},
             "mufu_per_unit": sum(x["op"].startswith("MUFU")
                                  for x in body) / units,
+            "local_per_unit": sum(x["op"].startswith(LOCAL_OPS)
+                                  for x in body) / units,
             "body": [f"{x['addr']:05x} {x['text']}  // {x['file']}:"
                      f"{x['line']}" for x in body]}
 
@@ -550,6 +560,43 @@ def compare(dir_a: Path, dir_b: Path) -> dict:
             "only_b": sorted(set(b) - set(a))}
 
 
+PTXAS_ENTRY = re.compile(r"(?:Compiling entry function|Function properties "
+                         r"for) '?([A-Za-z_$][\w$]*)'?")
+PTXAS_SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                         r"(\d+) bytes spill loads")
+PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_report(log: str) -> dict[str, dict]:
+    """{normalized kernel name: registers, stack and spill bytes} of every
+    entry function of ``KERNELS``'s prefixes in nvcc's output with ``-Xptxas
+    -v`` (``build/nvcc.log`` of ``utils/cuda_build.py``)."""
+    funcs: dict[str, dict] = {}
+    cur = None
+    for ln in log.splitlines():
+        m = PTXAS_ENTRY.search(ln)
+        if m:
+            cur = m.group(1)
+            funcs.setdefault(cur, {})
+            continue
+        if cur is None:
+            continue
+        m = PTXAS_SPILL.search(ln)
+        if m:
+            funcs[cur].update(stack_bytes=int(m.group(1)),
+                              spill_store_bytes=int(m.group(2)),
+                              spill_load_bytes=int(m.group(3)))
+        m = PTXAS_REGS.search(ln)
+        if m:
+            funcs[cur]["registers"] = int(m.group(1))
+    if not funcs:
+        return {}
+    names = demangle(list(funcs))
+    prefixes = tuple(k[1] for k in KERNELS)
+    return {normalize(names[m]).split("(")[0]: v for m, v in funcs.items()
+            if normalize(names[m]).startswith(prefixes)}
+
+
 def floor_ms(per_unit: float, units: float) -> float:
     """Issue-rate floor in ms of ``units`` units at ``per_unit`` thread
     instructions each."""
@@ -565,6 +612,9 @@ def main() -> int:
     ap.add_argument("--compare", type=Path, nargs=2, default=None,
                     metavar=("DIR_A", "DIR_B"),
                     help="compare two dumps written with --out instead")
+    ap.add_argument("--ptxas", action="store_true",
+                    help="also print ptxas's registers and spill bytes of "
+                    "each counted kernel (from the build's nvcc.log)")
     args = ap.parse_args()
     if args.compare is not None:
         print(json.dumps(compare(*args.compare)), flush=True)
@@ -574,6 +624,10 @@ def main() -> int:
     lib = cuda_build.build_kernels()
     for label, got in census(lib, args.out, args.root.resolve()).items():
         print(json.dumps({"kernel": label, "census": got}), flush=True)
+    if args.ptxas:
+        for kernel, got in sorted(ptxas_report(
+                cuda_build.BUILD_LOG.read_text()).items()):
+            print(json.dumps({"kernel": kernel, "ptxas": got}), flush=True)
     return 0
 
 

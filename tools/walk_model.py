@@ -28,6 +28,17 @@ crowds 0-3 of ``batch_planes(256, 1000, seed=30, extent=35.0)``) and 8 x
 ``batch_planes(8, 50000, seed=31)``), each crowd sorted on its own curve
 (:func:`sym_counts`).
 
+With ``--dense`` it replays instead the layout of the batched all-tiles
+walk (``pair_force_dense_batched_kernel<kAllTiles, Law>``, rows 2b and
+2r-b of PERF.md) at phase 27's and phase 33's shapes, for the parent's
+layout (``dense_walk``: one 32-row set a block, the cluster split of
+``dense_splits``, 8 resident blocks an SM) and the redesign's
+(``dense_batch_walk``: ``sets`` row sets a block and ``splits`` blocks a
+row block from ``dense_batch_layout``, ``kDenseBatchBlocks`` an SM): the
+blocks, the chunks a warp walks in each, the law steps a warp walks
+between two block barriers, and the blocks' makespan over 132 SMs
+(:func:`dense_replay`).  No data: without a cutoff every pair is walked.
+
 With ``--ring`` it replays instead the schedule of the batched in-kernel
 ring (``ring_force_batched_kernel`` of ``csrc/ring.cu``, row 6-b of
 PERF.md) at phase 33's shapes, for the parent's assignment (one 32-row set
@@ -55,7 +66,7 @@ time, where a step serves every lane with a pair in that chunk, and
 chunk slots.
 
     python3 tools/walk_model.py [--blocks 24] [--window 1,2,3,4,0] \
-        [--square 3] [--sym] [--ring]
+        [--square 3] [--sym] [--ring] [--dense]
 """
 from __future__ import annotations
 
@@ -537,6 +548,142 @@ def ring_main(latencies=(0.0, 0.3)):
             print(json.dumps(row), flush=True)
 
 
+#: the parent's resident blocks an SM of the all-tiles walk (dense_walk's
+#: launch bounds: 2,048 threads of 256), the columns of a tile and the
+#: most parts of a row
+DENSE_PARENT_PER_SM, COL_TILE, MAX_SPLIT = 8, 256, 8
+
+
+def pair_constant(name, root=ROOT):
+    """The ``constexpr int`` ``name`` of ``csrc/pair_forces.cu`` at
+    ``root``."""
+    import re
+    src = (root / "carla_social_force_model_tpu_torch" / "csrc"
+           / "pair_forces.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+def dense_batch_blocks(root=ROOT):
+    """``kDenseBatchBlocks``: the redesign's resident blocks an SM (its
+    launch bounds), which its layout rule takes."""
+    return pair_constant("kDenseBatchBlocks", root)
+
+
+def dense_parts(nct):
+    """``dense_parts`` of ``csrc/pair_forces.cu``: the parts of a row's
+    ``nct`` column tiles, a function of the column count only."""
+    return max(nct, 1) if nct < MAX_SPLIT else MAX_SPLIT
+
+
+def dense_layout(batch, n_rows, n_cols, per_sm, sms=SMS):
+    """``dense_batch_layout`` of ``csrc/pair_forces.cu``: ``(sets,
+    splits)`` of the batched all-tiles walk, the least (chunks a warp
+    walks + 1 + 1 with a cluster) x (blocks + ``per_sm`` x ``sms``): the
+    blocks' work over the resident slots plus one block's length; ties to
+    more sets, then to fewer splits."""
+    cap = max(per_sm, 1) * max(sms, 1)
+    nsets = -(-n_rows // 32)
+    nct = -(-n_cols // COL_TILE)
+    parts = dense_parts(nct)
+    per_part = -(-nct // parts)
+    best, best_cost = (1, 1), None
+    for s in (8, 4, 2, 1):
+        sp = 1
+        while sp <= min(parts, MAX_SPLIT):
+            blocks = batch * -(-nsets // s) * sp
+            tiles = -(-parts // sp) * per_part
+            cost = (s * tiles + 1 + (sp > 1)) * (blocks + cap)
+            if best_cost is None or cost < best_cost:
+                best, best_cost = (s, sp), cost
+            sp *= 2
+    return best
+
+
+def dense_splits(n_rows, n_cols, batch):
+    """``dense_splits<kAllTiles>`` of ``csrc/pair_forces.cu``: the parent's
+    blocks a 32-row block's parts are split over (about 640 (128-row tile,
+    block) pairs)."""
+    row_tiles = -(-n_rows // 128) * batch
+    parts = dense_parts(-(-n_cols // COL_TILE))
+    s = 1
+    while s < parts and s * row_tiles < 640:
+        s *= 2
+    return min(s, parts)
+
+
+def dense_replay(batch, n_rows, n_cols, new, per_sm, sms=SMS):
+    """The batched all-tiles walk's blocks on one launch, replayed over
+    ``sms`` SMs of ``per_sm`` resident blocks each: blocks in launch order
+    (row blocks and splits fastest, then the crowds) each take the slot
+    that frees first; a block costs the chunks a warp walks (``sets``
+    chunks of each of its tiles; the parent's one) plus 1 for its staging,
+    folds and stores, whatever its SM holds.  Returns the layout, the
+    blocks, the chunks a warp walks in the busiest block, the law steps a
+    warp walks between two block barriers (the parent: one chunk a tile
+    between its two staging barriers; the redesign: all its chunks where
+    its columns fit one staging window and it holds the eight slots of its
+    rows, else a part's between the part's folds), the makespan, the SM
+    time's mean and the share of SM time the blocks fill."""
+    import heapq
+    nct = -(-n_cols // COL_TILE)
+    parts = dense_parts(nct)
+    if new:
+        sets, splits = dense_layout(batch, n_rows, n_cols, per_sm, sms)
+    else:
+        sets, splits = 1, dense_splits(n_rows, n_cols, batch)
+    row_blocks = -(-n_rows // (32 * sets))
+    costs = []
+    for sp in range(splits):
+        t0 = sp * parts // splits * nct // parts
+        t1 = (sp + 1) * parts // splits * nct // parts
+        costs.append(sets * (t1 - t0) + 1)
+    slots = [(0.0, x) for x in range(sms * per_sm)]
+    heapq.heapify(slots)
+    busy = [0.0] * sms
+    span = 0.0
+    for _ in range(batch * row_blocks):
+        for c in costs:
+            free, x = heapq.heappop(slots)
+            end = free + c
+            busy[x // per_sm] += c
+            span = max(span, end)
+            heapq.heappush(slots, (end, x))
+    per_part = -(-nct // parts)
+    window = pair_constant("kDenseBatchWindow")  # tiles staged at once
+    if not new:
+        between = 32
+    elif sets == 8 and -(-parts // splits) * per_part <= window:
+        between = 32 * (max(costs) - 1)
+    else:
+        between = 32 * sets * min(per_part, window)
+    return {"sets": sets, "splits": splits, "blocks": batch * row_blocks
+            * splits, "blocks_per_sm": per_sm,
+            "chunks_a_warp": max(costs) - 1,
+            "law_steps_between_barriers": between,
+            "makespan": span,
+            "sm_time_mean": round(sum(busy) / sms / per_sm, 3),
+            "fill": round(sum(busy) / (span * sms * per_sm), 4)}
+
+
+#: phase 27's and phase 33's all-tiles shapes and the bench's B = 1:
+#: (label, crowds, rows, columns)
+DENSE_SHAPES = (("config #5: 256 x 1,000", 256, 1_000, 1_000),
+                ("mesh gathered: 128 x 250 x 1,000", 128, 250, 1_000),
+                ("mesh ring block: 128 x 250 x 250", 128, 250, 250),
+                ("B = 1 x 10,000", 1, 10_000, 10_000))
+
+
+def dense_main():
+    """``--dense``: :func:`dense_replay` of the parent's and the redesign's
+    layouts at :data:`DENSE_SHAPES`."""
+    per_sm = dense_batch_blocks()
+    for label, b, r, c in DENSE_SHAPES:
+        for rule, new, k in (("parent", False, DENSE_PARENT_PER_SM),
+                             ("change", True, per_sm)):
+            print(json.dumps({"shape": label, "rule": rule,
+                              **dense_replay(b, r, c, new, k)}), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--blocks", type=int, default=24)
@@ -547,9 +694,15 @@ def main() -> int:
                     help="replay the batched symmetric cutoff walks (1c)")
     ap.add_argument("--ring", action="store_true",
                     help="replay the batched ring's schedule (6-b)")
+    ap.add_argument("--dense", action="store_true",
+                    help="replay the batched all-tiles walk's layout (2b, "
+                    "2r-b)")
     args = ap.parse_args()
     if args.ring:
         ring_main()
+        return 0
+    if args.dense:
+        dense_main()
         return 0
     sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
     windows = [int(k) for k in args.window.split(",")]
