@@ -1,9 +1,11 @@
 // The box of a block's alive pedestrians and the block-uniform test of a
 // filter circle against it, shared by the environment kernels
-// (env_forces.cu) and the wall-feed kernels (statics.cu).  Device code:
-// included by .cu files only.
+// (env_forces.cu) and the wall-feed kernels (statics.cu); and the SM count
+// that the launches sizing their grids by blocks per SM read (statics.cu,
+// pair_forces.cu).  Device code: included by .cu files only.
 #pragma once
 
+#include <cuda_runtime.h>
 #include <math.h>
 
 #include "pair_forces.cuh"
@@ -67,4 +69,13 @@ __device__ __forceinline__ bool touches(float cx, float cy, float r2,
   const float gx = fmaxf(fmaxf(cx - box.maxx, box.minx - cx), 0.0f);
   const float gy = fmaxf(fmaxf(cy - box.maxy, box.miny - cy), 0.0f);
   return sq_norm_rn(gx, gy) <= r2;
+}
+
+// The current device's number of SMs.
+static inline cudaError_t sm_count(int& sms) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return e;
 }

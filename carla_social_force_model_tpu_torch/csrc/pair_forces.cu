@@ -74,8 +74,11 @@
 // walk's (dense_batch_walk: a block holds up to eight 32-row sets of one
 // crowd and stages its columns once for all of them).  The batched symmetric
 // cutoff walks have a body of their own too (sym_rows_walk: one block per
-// crowd and 128-row tile, walking its row's column tiles), which, like the
-// unbatched walk, equals the plain version up to f32 summation order.
+// crowd and 128-row tile, walking its row's column tiles), and so have the
+// batched symmetric walks without a cutoff, the triangle and the full
+// block (sym_batch_walk: a block holds a 128-row tile in registers across
+// a run of column tiles); like the unbatched walk, these equal the plain
+// version up to f32 summation order.
 // The dense walks' cluster split sees the whole grid (B row sets).  A
 // batch of crowds whose slots
 // are sharded over an agent axis (the JAX package's
@@ -87,8 +90,9 @@
 // (sfm_pair_sym_dense[_cutoff]_batched: _pair_kernel_sym_dense with a batch
 // axis), crowd b's rows at blockIdx.y * n_rows and its columns at
 // blockIdx.y * n_cols, the global slots of both sides the same in every
-// crowd.  They too hand their crowd's pointers to the unbatched bodies
-// (dense_walk, sym_tile_pair).
+// crowd.  They too hand their crowd's pointers to a walk body: the
+// unbatched ones (dense_walk; sym_tile_pair for the full block's box
+// form) or their own (dense_batch_walk, chunk_walk, sym_batch_walk).
 //
 // What bounds them on this card.  Each Moussaid pair costs about 85 f32
 // operations and 6 special-function operations (2 rsqrt, atan2, 2 exp, a
@@ -172,6 +176,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <cooperative_groups.h>
 #include <type_traits>
 
@@ -184,7 +189,7 @@ namespace {
 
 constexpr int kSymTile = 128;  // rows == columns of one tile pair
 constexpr int kSymWarps = kSymTile / 32;  // threads per block: kSymTile
-// R: rows per thread of the symmetric walks: kSymRows for the walks
+// R: rows per thread of the symmetric tile pair (sym_tile_pair): kSymRows
 // without a cutoff, kSymRowsCut for the cutoff walks, where the per-row
 // culling branches between the rows' law evaluations and R = 1 measured
 // faster (PERF.md: R = 1, 2 and 4 measured)
@@ -1599,17 +1604,302 @@ __device__ __forceinline__ void sym_rows_walk(
   if (sy != 0.0f) atomicAdd(&fy[i], sy);
 }
 
+// The batched symmetric all-pairs walks (pair_force_sym_batched_kernel<
+// kTriangle, Law>, row 1b: each crowd's triangle; pair_force_sym_dense_
+// batched_kernel<false, Law>, row 4-b: a crowd's rows of one shard against
+// another shard's columns, +f to the rows and -f to the columns), designed
+// for the shapes they run (config #5's 256 crowds of 1,000; on the 2-D mesh
+// 128 crowds of a shard's 250 agents, alone and against a 250-column block;
+// PERF.md).  The unbatched body gave each 128 x 128 tile pair its own block
+// of four warps: it evaluated a diagonal tile's 128 x 128 pairs and masked
+// half of them, and at the mesh's shapes its 384-512 blocks left about 16
+// warps on an SM.  Here a block of kSymAllWarps warps holds one crowd's
+// 128-row tile in registers, R = kSymAllRows rows a lane (warp w holds row
+// group w / 4, rows 64 (w / 4) + lane + 32 r), and walks a run of column
+// tiles: for the triangle its candidates are tiles ti .. nt - 1, for the
+// full block every column tile, and candidate k goes to split k mod S of
+// the row (sym_all_splits: a rule of the shapes).  A tile is staged with
+// 4-byte cp.async copies into the other of two buffers while the block
+// walks the current one (a crowd's planes start at b x n x 4 bytes, so no
+// 16-byte copy fits without a head and a tail; the alive byte goes through
+// a register), so a tile costs one barrier.  Off the diagonal, warp w walks
+// column chunk w % 4 against its row group's 64 rows in 32 steps of the
+// staggered schedule (lane L meets column (L + s) mod 32 at step s); each
+// lane sums a column's reaction over its R rows and passes the running sum
+// to the lane below at every step (a shuffle), so that after 32 steps lane
+// L holds column L's reaction over the row group; the two row groups'
+// sums go to shared memory, and after the next barrier thread t adds
+// column t % 128's component t / 128 and makes one atomic where it is not
+// zero.  The diagonal tile is walked once, with sym_rows_walk's half
+// schedule: row chunk r against column chunk c, two items of 16 steps (0-15
+// and 16-31) where r != c and one of steps 1-16 where r = c (at step 16
+// only lanes below 16), 16 items, two to a warp from its row group's list
+// (sym_all_diag_item: the pairs of chunks 0-1 and 2-3 with chunk 3 held as
+// the row, the antisymmetric image of the pairs it meets), all of one
+// length, so the warps reach the next barrier together; there the
+// reactions go to the warp's own partial row of shared memory, not out as
+// atomics.  Dead and missing agents are masked (alive and present on both
+// sides, and in the full block a self-pair by global slot): without a
+// cutoff no distance test can drop them.  A row's sum (its register sums
+// and the eight warps' diagonal partials) goes out once a block, one atomic
+// per component where it is not zero.  The order of the float additions
+// is fixed within a block, not across blocks (atomics): the forces equal
+// the plain version up to f32 summation order, as before.  Like the
+// unbatched walk it is bound by the law's issue rate (PERF.md rows 1b and
+// 4-b): two rows a lane and eight warps a block hold 64 registers, so four
+// blocks (32 warps) share an SM, against the unbatched body's four rows
+// (72 registers, 28 warps); that costs about 6 more SASS instructions a
+// pair and hides more of the law's latency (PERF.md: three blocks an SM
+// measured slower).
+constexpr int kSymAllRows = 2;    // rows a lane holds
+constexpr int kSymAllWarps = 8;   // a block: 2 row groups x 4 column chunks
+constexpr int kSymAllThreads = 32 * kSymAllWarps;
+constexpr int kSymAllBlocks = 4;  // resident blocks an SM (launch bounds)
+// the rule's costs, in 16-step items of one law step a lane: a column tile
+// off the diagonal (R rows x 32 steps), the diagonal tile (two items a
+// warp), a block's fixed cost (its row loads, first staging, last barrier
+// and flush)
+constexpr int kSymAllTileItems = kSymAllRows * kChunk / 16;
+constexpr int kSymAllDiagItems = 2;
+constexpr int kSymAllBlockItems = 1;
+static_assert(kSymAllWarps / 4 * 32 * kSymAllRows == kSymTile &&
+                  kSymAllThreads == 2 * kSymTile,
+              "two row groups of 64 rows, four column chunks; a thread a "
+              "(column, component) of a tile");
+
+// Item k (0-7) of row group g's list of the diagonal tile: row chunk r,
+// column chunk c, and the steps (kind 0: 0-15, 1: 16-31, 2: 1-16, at step
+// 16 only lanes below 16), as r | c << 2 | kind << 4, byte k of the group's
+// word.  Group 0 holds chunks 0-1: (0, 0) and (1, 1) halves, (0, 1), (0, 2)
+// and (1, 2); group 1 chunks 2-3: (2, 2) and (3, 3) halves, (2, 3), (3, 0)
+// and (3, 1).  Warp w takes items w % 4 and w % 4 + 4 of its group's.
+__device__ __forceinline__ int sym_all_diag_item(int g, int k) {
+  const unsigned long long word =
+      g == 0 ? 0x1909180825140420ull : 0x170713032f1e0e2aull;
+  return (int)((word >> (8 * k)) & 0xff);
+}
+
+struct SymAllShared {
+  // the staged column tiles, two buffers: (x, y, u, v) and (radius, alive)
+  float4 pv[2][kSymTile];
+  float2 ra[2][kSymTile];
+  // the two row groups' reactions of each column, by the tile's parity
+  float col[2][2][2][kSymTile];  // [parity][group][x, y][column]
+  // each warp's partial sums of the tile's rows (the diagonal's reactions,
+  // then its rows' register sums)
+  float part[kSymAllWarps][2][kSymTile];  // [warp][x, y][row]
+};
+
+// Block (crowd, ti, split) of a batched symmetric all-pairs walk over the
+// planes of one crowd (the kernels pass its crowd's planes, parameters and
+// outputs): row tile ti against the column tiles of its run dealt to this
+// split.  kTri: rows and cols are the same planes and fxc, fyc are fx, fy.
+template <bool kTri, class Law>
+__device__ __forceinline__ void sym_batch_walk(
+    const Planes& rows, const Planes& cols, const float* __restrict__ prm,
+    int use_radius, int ti, int split, int n_split, float* __restrict__ fx,
+    float* __restrict__ fy, float* __restrict__ fxc, float* __restrict__ fyc) {
+  static_assert(Law::kAntisymmetric,
+                "the Newton's-third-law walk needs an antisymmetric law");
+  constexpr int kR = kSymAllRows;
+  __shared__ SymAllShared sm;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = warp / 4;  // the warp's row group
+  const int nct = cols.n / kSymTile + (cols.n % kSymTile != 0);
+  const int t_first = (kTri ? ti : 0) + split;  // candidate k: t_first + k S
+  if (t_first >= nct) return;  // block-uniform: a split without a tile
+  const int n_cand = (nct - 1 - t_first) / n_split + 1;
+  const typename Law::Prm p = Law::load(prm);
+
+  // this lane's rows i0 + 64 g + lane + 32 r
+  const int i0 = ti * kSymTile;
+  float xi[kR], yi[kR], ui[kR], vi[kR], ri[kR], ax[kR], ay[kR];
+  bool ai[kR];
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    const int i = i0 + 64 * g + lane + 32 * r;
+    const bool in = i < rows.n;
+    xi[r] = in ? rows.x[i] : 0.0f;
+    yi[r] = in ? rows.y[i] : 0.0f;
+    ui[r] = in ? rows.u[i] : 0.0f;
+    vi[r] = in ? rows.v[i] : 0.0f;
+    ri[r] = in ? rows.rad[i] : 0.0f;
+    ai[r] = in && rows.alive[i] != 0;
+    ax[r] = 0.0f;
+    ay[r] = 0.0f;
+  }
+  for (int e = lane; e < 2 * kSymTile; e += 32)
+    sm.part[warp][e / kSymTile][e % kSymTile] = 0.0f;
+  const int gi0 = rows.off + i0 + 64 * g + lane;  // row r: gi0 + 32 r
+
+  // stage tile t into buffer b: thread t < 128 copies column t's x, y, u,
+  // v, the others column t - 128's radius, and read its alive byte into a
+  // register (stored at the next barrier); zeros and dead past cols.n
+  const int sc = tid % kSymTile;  // the column a thread stages
+  bool qa = false;
+  auto stage = [&](int t, int b) {
+    const int j = t * kSymTile + sc;
+    const bool in = j < cols.n;
+    if (tid < kSymTile) {
+      float* pv = reinterpret_cast<float*>(&sm.pv[b][sc]);
+      if (in) {
+        cp_async4(pv, cols.x + j);
+        cp_async4(pv + 1, cols.y + j);
+        cp_async4(pv + 2, cols.u + j);
+        cp_async4(pv + 3, cols.v + j);
+      } else {
+        sm.pv[b][sc] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      }
+    } else if (in) {
+      cp_async4(&sm.ra[b][sc].x, cols.rad + j);
+    } else {
+      sm.ra[b][sc].x = 0.0f;
+    }
+    qa = in && tid >= kSymTile && cols.alive[j] != 0;
+  };
+  // the columns of the last tile off the diagonal: thread t adds column t
+  // % 128's component t / 128 over the two row groups, one atomic where
+  // it is not zero
+  auto flush = [&](int t, int par) {
+    const int j = t * kSymTile + sc;
+    const int k = tid / kSymTile;
+    const float s = sm.col[par][0][k][sc] + sm.col[par][1][k][sc];
+    if (j < cols.n && s != 0.0f) atomicAdd(k == 0 ? &fxc[j] : &fyc[j], s);
+  };
+
+  stage(t_first, 0);
+  int prev = -1;  // the last tile off the diagonal, not yet flushed
+  for (int q = 0; q < n_cand; ++q) {
+    const int tj = t_first + q * n_split;
+    const int b = q & 1;
+    cp_async_wait_all();
+    if (tid >= kSymTile) sm.ra[b][sc].y = qa ? 1.0f : 0.0f;
+    // tile q is staged, and every warp is done with tile q - 1 (so buffer
+    // b ^ 1 is free, and tile q - 1's column sums are complete)
+    __syncthreads();
+    if (prev >= 0) flush(prev, (q - 1) & 1);
+    prev = -1;
+    if (q + 1 < n_cand) stage(tj + n_split, b ^ 1);
+    const int j0 = tj * kSymTile;
+    const float4* pv = sm.pv[b];
+    const float2* ra = sm.ra[b];
+    if (kTri && tj == ti) {
+      // the diagonal tile: items w % 4 and w % 4 + 4 of the group's list
+#pragma unroll 1
+      for (int k = warp % 4; k < 8; k += 4) {
+        const int item = sym_all_diag_item(g, k);
+        const int r = item & 3, c = (item >> 2) & 3, kind = item >> 4;
+        const bool half = kind == 2;
+        const int s0 = half ? 1 : kind * (kChunk / 2);
+        if (j0 + kChunk * (r > c ? r : c) >= cols.n) continue;  // uniform
+        float x = 0.0f, y = 0.0f, u = 0.0f, v = 0.0f, rad = 0.0f;
+        bool a = false;
+#pragma unroll
+        for (int rr = 0; rr < kR; ++rr)
+          if (2 * g + rr == r) {
+            x = xi[rr];
+            y = yi[rr];
+            u = ui[rr];
+            v = vi[rr];
+            rad = ri[rr];
+            a = ai[rr];
+          }
+        float sx = 0.0f, sy = 0.0f, cx = 0.0f, cy = 0.0f;
+#pragma unroll 1
+        for (int s = s0; s < s0 + kChunk / 2; ++s) {
+          const int jj = kChunk * c + ((lane + s) & (kChunk - 1));
+          const float4 cp = pv[jj];
+          const float2 cr = ra[jj];
+          const bool ok = a && cr.y != 0.0f &&
+                          !(half && s == kChunk / 2 && lane >= kChunk / 2);
+          float fxk, fyk;
+          Law::template pair<true>(cp.x - x, cp.y - y, u, v, cp.z, cp.w, rad,
+                                   cr.x, use_radius, ok, p, fxk, fyk);
+          sx += fxk;
+          sy += fyk;
+          // Newton's third law: f_ji = -f_ij, passed on with the column
+          cx = __shfl_sync(kAllLanes, cx - fxk, (lane + 1) & (kChunk - 1));
+          cy = __shfl_sync(kAllLanes, cy - fyk, (lane + 1) & (kChunk - 1));
+        }
+#pragma unroll
+        for (int rr = 0; rr < kR; ++rr)
+          if (2 * g + rr == r) {
+            ax[rr] += sx;
+            ay[rr] += sy;
+          }
+        // lane L now holds the reaction of column (L + s0 + 16) mod 32
+        const int jc = kChunk * c + ((lane + s0 + kChunk / 2) & (kChunk - 1));
+        sm.part[warp][0][jc] += cx;
+        sm.part[warp][1][jc] += cy;
+        __syncwarp();
+      }
+    } else {
+      // column chunk w % 4 against the row group's 64 rows
+      const int c0 = kChunk * (warp % 4);
+      float cx = 0.0f, cy = 0.0f;
+      if (j0 + c0 < cols.n) {  // warp-uniform
+        const int g0 = cols.off + j0 + c0;
+#pragma unroll 1
+        for (int s = 0; s < kChunk; ++s) {
+          const int cc = (lane + s) & (kChunk - 1);
+          const float4 cp = pv[c0 + cc];
+          const float2 cr = ra[c0 + cc];
+          const bool ca = cr.y != 0.0f;
+          float cfx = 0.0f, cfy = 0.0f;
+#pragma unroll
+          for (int r = 0; r < kR; ++r) {
+            bool ok = ai[r] && ca;
+            if (!kTri) ok = ok && g0 + cc != gi0 + 32 * r;
+            float fxk, fyk;
+            Law::template pair<true>(cp.x - xi[r], cp.y - yi[r], ui[r],
+                                     vi[r], cp.z, cp.w, ri[r], cr.x,
+                                     use_radius, ok, p, fxk, fyk);
+            ax[r] += fxk;
+            ay[r] += fyk;
+            cfx += fxk;
+            cfy += fyk;
+          }
+          // Newton's third law: f_ji = -f_ij, passed on with the column
+          cx = __shfl_sync(kAllLanes, cx - cfx, (lane + 1) & (kChunk - 1));
+          cy = __shfl_sync(kAllLanes, cy - cfy, (lane + 1) & (kChunk - 1));
+        }
+      }
+      // lane L holds column c0 + L's reaction over the row group (0 where
+      // the chunk lies past the columns: the flush skips those)
+      sm.col[b][g][0][c0 + lane] = cx;
+      sm.col[b][g][1][c0 + lane] = cy;
+      prev = tj;
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    sm.part[warp][0][64 * g + lane + 32 * r] += ax[r];
+    sm.part[warp][1][64 * g + lane + 32 * r] += ay[r];
+  }
+  __syncthreads();  // every warp's partials of the block's rows
+  if (prev >= 0) flush(prev, (n_cand - 1) & 1);
+  // thread t: row t % 128's component t / 128 over the eight warps
+  const int k = tid / kSymTile;
+  float s = 0.0f;
+#pragma unroll
+  for (int w = 0; w < kSymAllWarps; ++w) s += sm.part[w][k][sc];
+  const int i = i0 + sc;  // a dead row's sums are 0
+  if (i < rows.n && s != 0.0f) atomicAdd(k == 0 ? &fx[i] : &fy[i], s);
+}
+
 // A symmetric walk over a batch of crowds of pl.n agents: crowd b's planes
 // and outputs at b * pl.n, its parameters at b * prm_stride, its tile
 // boxes, table and counts at its own offsets (kTriangleBox, kSymTable).
-// The triangle walk is the unbatched body (sym_walk) on crowd blockIdx.y;
-// the cutoff walks are sym_rows_walk, block (crowd blockIdx.x, row tile
-// blockIdx.y / S, split blockIdx.y % S), S = gridDim.y / n_tiles.
-// (A minimum of 0 blocks asks for none: the triangle walk keeps the
-// unbatched kernel's register budget, and its SASS.)
+// Block (crowd blockIdx.x, row tile blockIdx.y / S, split blockIdx.y % S),
+// S = gridDim.y / n_tiles: the triangle walk is sym_batch_walk (S from
+// sym_all_splits), the cutoff walks are sym_rows_walk (S = kSymRowSplits).
 template <int kWalk, class Law>
-__global__ void __launch_bounds__(kSymTile,
-                                  kWalk == kTriangle ? 0 : kSymRowBlocks)
+__global__ void __launch_bounds__(
+    kWalk == kTriangle ? kSymAllThreads : kSymTile,
+    kWalk == kTriangle ? kSymAllBlocks : kSymRowBlocks)
 pair_force_sym_batched_kernel(Planes pl, const float* __restrict__ prm,
                               int prm_stride, int use_radius, int n_tiles,
                               const float* __restrict__ bb,
@@ -1618,11 +1908,15 @@ pair_force_sym_batched_kernel(Planes pl, const float* __restrict__ prm,
                               float c2, float* __restrict__ fx,
                               float* __restrict__ fy) {
   if constexpr (kWalk == kTriangle) {
-    const long long crowd = blockIdx.y;
+    const long long crowd = blockIdx.x;
     const int bo = (int)crowd * pl.n;
-    sym_walk<kWalk, Law>(batch_row(pl, bo), prm + (int)crowd * prm_stride,
-                         use_radius, n_tiles, bb, surv, counts, max_surv, c2,
-                         fx + bo, fy + bo);
+    const int n_split = (int)(gridDim.y / n_tiles);
+    const Planes crowd_pl = batch_row(pl, bo);
+    sym_batch_walk<true, Law>(crowd_pl, crowd_pl,
+                              prm + (int)crowd * prm_stride, use_radius,
+                              (int)(blockIdx.y / n_split),
+                              (int)(blockIdx.y % n_split), n_split, fx + bo,
+                              fy + bo, fx + bo, fy + bo);
   } else {
     const long long crowd = blockIdx.x;
     const int bo = (int)crowd * pl.n;
@@ -1664,14 +1958,19 @@ pair_force_sym_dense_kernel(Planes rows, Planes cols,
       sm, ti, tj, rows, cols, p, use_radius, c2, fx, fy, fxc, fyc);
 }
 
-// The full-block walk over a batch of crowds: crowd blockIdx.y's rows at
-// blockIdx.y * rows.n and columns at blockIdx.y * cols.n (their global
-// slots rows.off and cols.off the same in every crowd), its parameters at
-// blockIdx.y * prm_stride, its rows' and columns' tile boxes (kBox) at its
-// own offsets, +f into its rows of fx, fy and -f into its columns of fxc,
-// fyc.  The tile pair is the unbatched kernel's (sym_tile_pair).
+// The full-block walk over a batch of crowds: crowd b's rows at b * rows.n
+// and columns at b * cols.n (their global slots rows.off and cols.off the
+// same in every crowd), its parameters at b * prm_stride, its rows' and
+// columns' tile boxes (kBox) at its own offsets, +f into its rows of fx, fy
+// and -f into its columns of fxc, fyc.  Without the box test, block (crowd
+// b = blockIdx.x, row tile blockIdx.y / S, split blockIdx.y % S), S =
+// gridDim.y / n_row_tiles, of sym_batch_walk; with it, the unbatched
+// kernel's tile pair (sym_tile_pair), tile pair blockIdx.x of crowd b =
+// blockIdx.y.  (A minimum of 0 blocks asks for none: the box form keeps the
+// unbatched kernel's register budget, and its SASS.)
 template <bool kBox, class Law>
-__global__ void __launch_bounds__(kSymTile)
+__global__ void __launch_bounds__(kBox ? kSymTile : kSymAllThreads,
+                                  kBox ? 0 : kSymAllBlocks)
 pair_force_sym_dense_batched_kernel(Planes rows, Planes cols,
                                     const float* __restrict__ prm,
                                     int prm_stride, int use_radius,
@@ -1682,24 +1981,34 @@ pair_force_sym_dense_batched_kernel(Planes rows, Planes cols,
                                     float* __restrict__ fy,
                                     float* __restrict__ fxc,
                                     float* __restrict__ fyc) {
-  __shared__ SymShared sm;
-  const long long crowd = blockIdx.y;
-  const int ro = (int)crowd * rows.n;
-  const int co = (int)crowd * cols.n;
-  const typename Law::Prm p = Law::load(prm + (int)crowd * prm_stride);
-  const long long ti = blockIdx.x / n_col_tiles;
-  const long long tj = blockIdx.x % n_col_tiles;
-  const long long nr = n_row_tiles;
   if constexpr (kBox) {
+    __shared__ SymShared sm;
+    const long long crowd = blockIdx.y;
+    const int ro = (int)crowd * rows.n;
+    const int co = (int)crowd * cols.n;
+    const typename Law::Prm p = Law::load(prm + (int)crowd * prm_stride);
+    const long long ti = blockIdx.x / n_col_tiles;
+    const long long tj = blockIdx.x % n_col_tiles;
+    const long long nr = n_row_tiles;
     row_bb += crowd * 4 * nr;
     col_bb += crowd * 4 * n_col_tiles;
     if (!box_hits(col_bb, n_col_tiles, tj, row_bb[ti], row_bb[nr + ti],
                   row_bb[2 * nr + ti], row_bb[3 * nr + ti], c2))
       return;  // before any staging
+    sym_tile_pair<kSymRowsCut, false, true, Law>(
+        sm, ti, tj, batch_row(rows, ro), batch_row(cols, co), p, use_radius,
+        c2, fx + ro, fy + ro, fxc + co, fyc + co);
+  } else {
+    const long long crowd = blockIdx.x;
+    const int ro = (int)crowd * rows.n;
+    const int co = (int)crowd * cols.n;
+    const int n_split = (int)(gridDim.y / n_row_tiles);
+    sym_batch_walk<false, Law>(
+        batch_row(rows, ro), batch_row(cols, co),
+        prm + (int)crowd * prm_stride, use_radius,
+        (int)(blockIdx.y / n_split), (int)(blockIdx.y % n_split), n_split,
+        fx + ro, fy + ro, fxc + co, fyc + co);
   }
-  sym_tile_pair<kBox ? kSymRowsCut : kSymRows, false, kBox, Law>(
-      sm, ti, tj, batch_row(rows, ro), batch_row(cols, co), p, use_radius,
-      c2, fx + ro, fy + ro, fxc + co, fyc + co);
 }
 
 // The batched all-tiles walk's layout (dense_batch_walk) by the shapes:
@@ -1749,10 +2058,8 @@ template <class Law>
 int dense_batch_launch(const Planes& rows, const Planes& cols,
                        const float* prm, int prm_stride, int use_radius,
                        float* fx, float* fy, void* stream, int batch) {
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int sms = 0;
+  cudaError_t e = sm_count(sms);
   if (e != cudaSuccess) return (int)e;
   const DenseBatchLayout l =
       dense_batch_layout(batch, rows.n, cols.n, kDenseBatchBlocks, sms);
@@ -1866,29 +2173,86 @@ int box_skip_batched_launch(const Planes& rows, const Planes& cols,
                                            prm_stride);
 }
 
+// The splits S of a row tile's column run in the batched symmetric
+// all-pairs walk (sym_batch_walk): a power of two, at most the longest
+// run's candidates (the triangle's n_tiles, the full block's column
+// tiles), from the shapes and the SM count only.  In items (16 law steps a
+// lane: kSymAllTileItems a column tile, kSymAllDiagItems the diagonal,
+// kSymAllBlockItems a block's fixed cost) it takes the least estimate of
+// the launch's length: where the blocks fit the resident slots (per_sm x
+// sms) at once, the longest block (row tile 0's first or second split);
+// else the blocks' work over the slots plus the length of the last block
+// to start (blocks start longest row first: the triangle's last row is its
+// diagonal alone), and no less than the longest block.  Ties go to fewer
+// splits (fewer blocks and atomics).  tools/walk_model.py --sym-all
+// replays it.
+int sym_all_splits(long long batch, int n_row_tiles, int n_col_tiles,
+                   bool tri, int per_sm, int sms) {
+  const long long cap =
+      (long long)(per_sm > 0 ? per_sm : 1) * (sms > 0 ? sms : 1);
+  const long long nr = n_row_tiles;
+  const long long most = tri ? nr : n_col_tiles;  // row 0's candidates
+  const long long tile = kSymAllTileItems, diag = kSymAllDiagItems;
+  const long long fixed = kSymAllBlockItems;
+  const long long items =  // of a crowd
+      tri ? nr * diag + nr * (nr - 1) / 2 * tile : nr * most * tile;
+  int best = 1;
+  long long best_cost = -1;
+  for (long long s = 1; s <= most && nr * s <= 65535; s *= 2) {
+    // the blocks of a crowd: every row's min(S, its candidates)
+    const long long per_crowd =
+        tri ? s * (s + 1) / 2 + (nr - s) * s : nr * s;
+    const long long blocks = batch * per_crowd;
+    const long long longest =
+        tri ? std::max(diag + (most - 1) / s * tile,
+                       s > 1 ? ((most - 2) / s + 1) * tile : 0)
+            : (most + s - 1) / s * tile;
+    const long long last = tri ? diag : most / s * tile;
+    const long long whole = (longest + fixed) * cap;
+    const long long cost =
+        blocks <= cap ? whole
+                      : std::max(batch * (items + per_crowd * fixed) +
+                                     (last + fixed) * cap,
+                                 whole);
+    if (best_cost < 0 || cost < best_cost) {
+      best = (int)s;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
 // Launch of a symmetric walk with law Law: one block per tile pair of the
 // upper triangle (kTriangle, kTriangleBox) or per table slot (kSymTable).
 // With prm_stride >= 0 the launch is the batched walk over batch crowds of
-// pl.n agents (pair_force_sym_batched_kernel): the triangle walk's grid
-// for each crowd, or for the cutoff walks (sym_rows_walk) one block per
-// crowd, 128-row tile and split, the crowds fastest so that the rows with
-// the most candidates start first.
+// pl.n agents (pair_force_sym_batched_kernel): one block per crowd,
+// 128-row tile and split (sym_batch_walk, S from sym_all_splits; the
+// cutoff walks' sym_rows_walk, S = kSymRowSplits), the crowds fastest so
+// that the rows with the most candidates start first.
 template <int kWalk, class Law>
 int sym_launch(const Planes& pl, const float* prm, int use_radius,
                const float* bb, const int* surv, const int* counts,
                int max_surv, float c2, float* fx, float* fy, void* stream,
                int batch = 1, int prm_stride = -1) {
-  const bool batched = prm_stride >= 0;
   const int n = pl.n;
   if (n <= 0) return (int)cudaSuccess;
   if (batch < 1 || batch > 65535) return (int)cudaErrorInvalidValue;
   if (kWalk == kSymTable && max_surv < 1) return (int)cudaErrorInvalidValue;
   const long long nt = (n + kSymTile - 1) / kSymTile;
-  if (batched && kWalk != kTriangle) {
-    const long long rows = nt * (nt < kSymRowSplits ? nt : kSymRowSplits);
-    if (rows > 65535) return (int)cudaErrorInvalidConfiguration;
+  if (prm_stride >= 0) {  // batched
+    long long s = nt < kSymRowSplits ? nt : kSymRowSplits;
+    int threads = kSymTile;
+    if constexpr (kWalk == kTriangle) {
+      int sms = 0;
+      const cudaError_t e = sm_count(sms);
+      if (e != cudaSuccess) return (int)e;
+      if (nt > 65535) return (int)cudaErrorInvalidConfiguration;
+      s = sym_all_splits(batch, (int)nt, (int)nt, true, kSymAllBlocks, sms);
+      threads = kSymAllThreads;
+    }
+    if (nt * s > 65535) return (int)cudaErrorInvalidConfiguration;
     pair_force_sym_batched_kernel<kWalk, Law>
-        <<<dim3((unsigned)batch, (unsigned)rows), kSymTile, 0,
+        <<<dim3((unsigned)batch, (unsigned)(nt * s)), threads, 0,
            (cudaStream_t)stream>>>(pl, prm, prm_stride, use_radius, (int)nt,
                                    bb, surv, counts, max_surv, c2, fx, fy);
     return (int)cudaGetLastError();
@@ -1896,23 +2260,18 @@ int sym_launch(const Planes& pl, const float* prm, int use_radius,
   const long long blocks =
       kWalk == kSymTable ? nt * max_surv : nt * (nt + 1) / 2;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  const dim3 grid((unsigned)blocks, (unsigned)batch);
-  if (batched)
-    pair_force_sym_batched_kernel<kWalk, Law>
-        <<<grid, kSymTile, 0, (cudaStream_t)stream>>>(
-            pl, prm, prm_stride, use_radius, (int)nt, bb, surv, counts,
-            max_surv, c2, fx, fy);
-  else
-    pair_force_sym_kernel<kWalk, Law>
-        <<<grid, kSymTile, 0, (cudaStream_t)stream>>>(
-            pl, prm, use_radius, (int)nt, bb, surv, counts, max_surv, c2, fx,
-            fy);
+  pair_force_sym_kernel<kWalk, Law>
+      <<<(unsigned)blocks, kSymTile, 0, (cudaStream_t)stream>>>(
+          pl, prm, use_radius, (int)nt, bb, surv, counts, max_surv, c2, fx,
+          fy);
   return (int)cudaGetLastError();
 }
 
 // Launch of the full-block walk with law Law: one block per tile pair.
 // With prm_stride >= 0 the launch is the batched walk over batch crowds
-// (pair_force_sym_dense_batched_kernel).
+// (pair_force_sym_dense_batched_kernel): without the box test one block per
+// crowd, 128-row tile and split (sym_batch_walk, S from sym_all_splits),
+// the crowds fastest.
 template <bool kBox, class Law>
 int sym_dense_launch(const Planes& rows, const Planes& cols, const float* prm,
                      int use_radius, const float* row_bb, const float* col_bb,
@@ -1923,17 +2282,28 @@ int sym_dense_launch(const Planes& rows, const Planes& cols, const float* prm,
   const long long nr = (rows.n + kSymTile - 1) / kSymTile;
   const long long nc = (cols.n + kSymTile - 1) / kSymTile;
   if (nr * nc > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  dim3 grid((unsigned)(nr * nc), (unsigned)batch);
+  int threads = kSymTile;
+  if (prm_stride >= 0 && !kBox) {  // sym_batch_walk
+    int sms = 0;
+    const cudaError_t e = sm_count(sms);
+    if (e != cudaSuccess) return (int)e;
+    if (nr > 65535 || nc > 65535) return (int)cudaErrorInvalidConfiguration;
+    const int s = sym_all_splits(batch, (int)nr, (int)nc, false,
+                                 kSymAllBlocks, sms);
+    grid = dim3((unsigned)batch, (unsigned)(nr * s));
+    threads = kSymAllThreads;
+  }
   if (prm_stride >= 0)
     pair_force_sym_dense_batched_kernel<kBox, Law>
-        <<<dim3((unsigned)(nr * nc), (unsigned)batch), kSymTile, 0,
-           (cudaStream_t)stream>>>(rows, cols, prm, prm_stride, use_radius,
-                                   (int)nr, (int)nc, row_bb, col_bb, c2, fx,
-                                   fy, fxc, fyc);
+        <<<grid, threads, 0, (cudaStream_t)stream>>>(
+            rows, cols, prm, prm_stride, use_radius, (int)nr, (int)nc,
+            row_bb, col_bb, c2, fx, fy, fxc, fyc);
   else
-    pair_force_sym_dense_kernel<kBox, Law><<<(unsigned)(nr * nc), kSymTile,
-                                             0, (cudaStream_t)stream>>>(
-        rows, cols, prm, use_radius, (int)nr, (int)nc, row_bb, col_bb, c2,
-        fx, fy, fxc, fyc);
+    pair_force_sym_dense_kernel<kBox, Law>
+        <<<(unsigned)(nr * nc), kSymTile, 0, (cudaStream_t)stream>>>(
+            rows, cols, prm, use_radius, (int)nr, (int)nc, row_bb, col_bb,
+            c2, fx, fy, fxc, fyc);
   return (int)cudaGetLastError();
 }
 

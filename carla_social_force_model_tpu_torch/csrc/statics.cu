@@ -978,16 +978,6 @@ chunk_argmin_percrowd_kernel(const float* __restrict__ px_,
                     vec, out_d2 + oo, out_idx + oo, sx, sy);
 }
 
-// The current device's number of SMs (the split grids aim at blocks per
-// SM).
-cudaError_t sm_count(int& sms) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return e;
-}
-
 }  // namespace
 
 extern "C" {

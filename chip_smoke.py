@@ -2393,6 +2393,9 @@ def shard_paths(dev, zero, card, step_ms, launches, urban):
 #: BATCH_PARITY_STEPS at the geometry phase's batch of 16
 BATCH = 256
 BATCH_N = 1_000
+#: the walk bodies of the batched pair kernels without a cutoff, by form,
+#: as the checks' lines name them
+BATCH_BODIES = {"sym": " (sym_batch_walk)", "dense": " (dense_batch_walk)"}
 BATCH_STEPS = 50
 BATCH_FAMILY_STEPS = 20
 SWEEP_POINTS = 64
@@ -2556,7 +2559,7 @@ def batch_phases(dev, zero, card, launches, worst, profile_steps):
             name = bc.PAIR_FORMS[law, form]
             tol = ("1e-4 + 1e-4*|f|" if law == "moussaid"
                    else TOLERANCE_OF[law])
-            body = " (dense_batch_walk)" if form == "dense" else ""
+            body = BATCH_BODIES.get(form, "")
             say(f"{label} {name}{body}: max abs err {m['err']:.3e} vs the "
                 f"plain batched version ({m['over']} over {tol}); rows vs "
                 f"the unbatched kernel: "
@@ -2584,6 +2587,9 @@ def batch_phases(dev, zero, card, launches, worst, profile_steps):
     pair_checks(f"phase 27 B={BATCH} x N={BATCH_N}", planes, None,
                 sorted(bc.PAIR_FORMS))
     n_sym = BATCH_N * (BATCH_N - 1) // 2
+    # the bound's Moussaid work: the unordered pairs of live agents (the
+    # walks also evaluate the dead slots' pairs, masked: the floors' units)
+    pairs_u = pairs_within_rows(planes, float("inf"))
     src = "carla_social_force_model_tpu/ops/pallas_forces.py:"
     lines = {"moussaid": {"sym": "239", "dense": "162"},
              "powerlaw": {"sym": "462", "dense": "462"},
@@ -2609,7 +2615,7 @@ def batch_phases(dev, zero, card, launches, worst, profile_steps):
                                  False)[2] for b in range(BATCH)], axis=0)
         plain = plain_of[law]
         bnd = batch_pair_bound(law, form == "sym", BATCH, BATCH_N,
-                               BATCH * n_sym, counts_of.get(law))
+                               pairs_u, counts_of.get(law))
         table[name] = (src + lines[law][form], ms, plain, bnd)
         floor = ""
         law_type = {"moussaid": "Moussaid", "powerlaw": "PowerLaw",
@@ -2622,12 +2628,11 @@ def batch_phases(dev, zero, card, launches, worst, profile_steps):
             units = BATCH * BATCH_N * BATCH_N
         if CENSUS.get(census):
             floor = "; " + floor_note(census, units)
-        say(f"phase 27 time {name}"
-            f"{' (dense_batch_walk)' if form == 'dense' else ''} at "
+        say(f"phase 27 time {name}{BATCH_BODIES.get(form, '')} at "
             f"B={BATCH} x N={BATCH_N}: kernel "
             f"{ms:.4f} ms ({TIMED_BY[0]}; bound {bnd[0]:.4f} ms, "
-            f"{bnd[1]}{floor}), plain batched version {plain:.3f} ms "
-            f"({card})")
+            f"{bnd[1]}, {pairs_u} live pairs{floor}), plain batched "
+            f"version {plain:.3f} ms ({card})")
 
     scene, params, cfg, _ = benchmark_bundle(BATCH_N, device=dev)
     ens = dataclasses.replace(scene, spawn=batched_crowds(BATCH, BATCH_N,
@@ -3742,10 +3747,12 @@ def mesh_batch_phases(dev, zero, card, launches, worst):
     shapes: the rectangular dense walks (#2 all-tiles and box-skip, #3
     table) of one shard's 128 crowds x 250 rows against the gathered
     1,000 columns and against the next shard's block, the full-block
-    kernel (#4) plain and with the cutoff, and the in-kernel ring (#6) over
-    256 crowds x 4 shards (the cutoff and the other laws on 32), each
-    against its plain batched version and row by row against the
-    unbatched launch (bitwise, #4 within the limit), with device times,
+    kernel (#4) plain and with the cutoff, the triangle (#1) on each
+    shard's own agents (the half-ring's square part), and the in-kernel
+    ring (#6) over 256 crowds x 4 shards (the cutoff and the other laws on
+    32), each against its plain batched version and row by row against
+    the unbatched launch (bitwise, #1 and #4 within the limit), with
+    device times,
     plain times and bounds; the table form at one shard's 4 crowds x
     12,500 rows of 8 x 50,000.  (b) Config #5 through
     ``make_sharded_ensemble_rollout`` under each schedule (and with the
@@ -3758,6 +3765,7 @@ def mesh_batch_phases(dev, zero, card, launches, worst):
     bound)}`` for the kernels line."""
     import dataclasses
     import torch
+    import batch_cases as bc
     import shard_cases as sc
     from carla_social_force_model_tpu_torch.api.synthetic import (
         batched_crowds, benchmark_bundle)
@@ -3822,6 +3830,19 @@ def mesh_batch_phases(dev, zero, card, launches, worst):
                      f"{BATCH_N if gathered else k} columns", got, want, lim,
                      name, one, True)
     for law in ("moussaid", "powerlaw"):
+        # the half-ring's square part: each shard's own agents (1b)
+        sq = [a[:, :k].contiguous() for a in planes]
+        q = bc.law_params(law)
+        got = bc.batch_run(law, "sym", sq, q)
+        want, lim = bc.batch_reference(law, sq, q)
+        one = torch.stack([bc.row_run(law, "sym", sq, q, b)
+                           for b in range(per)], dim=1)
+        torch.cuda.synchronize()
+        name = bc.PAIR_FORMS[law, "sym"]
+        held(f"{name}{BATCH_BODIES['sym']}, {per} crowds x {k} (the "
+             f"half-ring's square part)", got, want, lim, name, one, False)
+        if bool((got[:, ~sq[5]] != 0).any()):
+            fail(f"{name}: dead rows are not exactly zero")
         for cutoff in (None, CUTOFF_M):
             pl = planes if cutoff is None else sorted_planes
             rows = [a[:, :k].contiguous() for a in pl]
@@ -3831,11 +3852,14 @@ def mesh_batch_phases(dev, zero, card, launches, worst):
             torch.cuda.synchronize()
             name = (f"{cuda_forces.LAWS[law][0]}_sym_dense"
                     f"{'' if cutoff is None else '_cutoff'}_batched")
-            for side, got, want, lim, one in (
-                    ("rows", got_r, want_r, lim_r, one_r),
-                    ("columns", got_c, want_c, lim_c, one_c)):
-                held(f"{name} {side}, {per} crowds x {k} x {k}", got, want,
-                     lim, name, one, False)
+            body = BATCH_BODIES["sym"] if cutoff is None else ""
+            for side, got, want, lim, one, alive in (
+                    ("rows", got_r, want_r, lim_r, one_r, rows[5]),
+                    ("columns", got_c, want_c, lim_c, one_c, blk[5])):
+                held(f"{name}{body} {side}, {per} crowds x {k} x {k}", got,
+                     want, lim, name, one, False)
+                if bool((got[:, ~alive] != 0).any()):
+                    fail(f"{name}: dead {side} are not exactly zero")
     ring_planes = sc.batch_shard_planes(BATCH, BATCH_N, seed=34, device=dev,
                                         extent=35.0, n_shards=d)
     ring_sorted = sc.batch_shard_planes(BATCH, BATCH_N, seed=34, device=dev,
@@ -3929,7 +3953,7 @@ def mesh_batch_phases(dev, zero, card, launches, worst):
                   rect_pairs_within(rows, blk, None, k, 2 * k)
                   * (PAIR_OPS + 2),
                   rect_pairs_within(rows, blk, None, k, 2 * k) * PAIR_MUFU),
-            f"{per} crowds x {k} x {k} blocks"),
+            f"sym_batch_walk, {per} crowds x {k} x {k} blocks"),
         "pair_force_sym_dense_cutoff_batched": (
             lambda: cuda_forces.pair_force_sym_dense_batched(
                 *six(srows), prm, six(sblk), col_offset=k, grid=block_grid),
@@ -3983,7 +4007,15 @@ def mesh_batch_phases(dev, zero, card, launches, worst):
             lambda: per * k * k),
         # every pair the ring's walk evaluates
         "ring_force_batched": ("ring_force_batched<false, Moussaid>",
-                               lambda: BATCH * BATCH_N * BATCH_N)}
+                               lambda: BATCH * BATCH_N * BATCH_N),
+        # the full block's live pairs, each once; with the box test the
+        # pairs within the cutoff
+        "pair_force_sym_dense_batched": (
+            "pair_force_sym_dense_batched<false, Moussaid>",
+            lambda: rect_pairs_within(rows, blk, None, k, 2 * k)),
+        "pair_force_sym_dense_cutoff_batched": (
+            "pair_force_sym_dense_batched<true, Moussaid>",
+            lambda: rect_pairs_within(srows, sblk, c2, 0, k))}
     for name, (fn, kernel, plain, bnd, shape) in timing.items():
         t_ms = device_ms(fn, kernel)
         how = TIMED_BY[0]

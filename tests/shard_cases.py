@@ -14,7 +14,8 @@ import numpy as np
 import torch
 
 from carla_social_force_model_tpu_torch.models.params import (
-    MoussaidParams, PedRepulsiveParams, PowerLawParams, law_rows)
+    MoussaidParams, PedRepulsiveParams, PowerLawParams, law_rows,
+    section_rows)
 from carla_social_force_model_tpu_torch.ops import cuda_forces, forces
 from carla_social_force_model_tpu_torch.ops.pair_grid import (
     COL_TILE, SYM_TILE, block_grid, box_planes, rect_grid)
@@ -72,14 +73,15 @@ def split(planes, lo, hi):
 
 
 def plain_pairs(law, rows, cols, row_offset=0, col_offset=0, cutoff=None,
-                magnitudes=False, mirror=False):
-    """The plain pair force of ``law`` of the ``rows`` planes against the
-    ``cols`` planes (both as :func:`shard_planes` gives them), ``(2, R)``;
-    with ``mirror`` also minus the column sums, ``(2, C)``; with
-    ``magnitudes`` the sums of |f_ij| per component instead."""
+                magnitudes=False, mirror=False, p=None):
+    """The plain pair force of ``law`` (params ``p``, by default
+    :func:`law_params`) of the ``rows`` planes against the ``cols`` planes
+    (both as :func:`shard_planes` gives them), ``(2, R)``; with ``mirror``
+    also minus the column sums, ``(2, C)``; with ``magnitudes`` the sums of
+    |f_ij| per component instead."""
     x, y, vx, vy, rad, alive, ex, ey = rows
     cx, cy, cvx, cvy, crad, calive = cols[:6]
-    p = law_params(law)
+    p = law_params(law) if p is None else p
 
     def pair(r, dx, dy, ok):
         if law == "moussaid":
@@ -282,29 +284,31 @@ def rect_batch_case(law, planes, n_shards, shard, cutoff=None, gathered=True,
 
 
 def sym_dense_batch_case(law, rows, cols, cutoff=None, row_offset=0,
-                         col_offset=None, kernel=True):
+                         col_offset=None, kernel=True, p=None):
     """:func:`sym_dense_case` on a batch of crowds: ``rows`` and ``cols``
-    two shards' ``(B, R)`` and ``(B, C)`` planes.  ``(got_r, got_c, want_r,
-    want_c, lim_r, lim_c, one_r, one_c)``, ``(2, B, R)`` or ``(2, B, C)``:
-    the batched full-block kernel (with the batched ``block_grid`` under a
-    cutoff), its plain version (``plain_batched_force`` with ``mirror``),
-    the bounds, and each crowd through the unbatched kernel.
-    ``kernel=False`` leaves the kernels' entries None."""
+    two shards' ``(B, R)`` and ``(B, C)`` planes, params ``p`` (shared or
+    with ``(B,)`` leaves; by default :func:`law_params`).  ``(got_r,
+    got_c, want_r, want_c, lim_r, lim_c, one_r, one_c)``, ``(2, B, R)`` or
+    ``(2, B, C)``: the batched full-block kernel (with the batched
+    ``block_grid`` under a cutoff), its plain version
+    (``plain_batched_force`` with ``mirror``), the bounds, and each crowd
+    through the unbatched kernel.  ``kernel=False`` leaves the kernels'
+    entries None."""
     batch = rows[0].shape[0]
     if col_offset is None:
         col_offset = row_offset + rows[0].shape[1]
     args, _ = law_args(law, rows)
     cols6 = tuple(cols[:6])
-    p = law_params(law)
+    p = law_params(law) if p is None else p
     off = dict(row_offset=row_offset, col_offset=col_offset)
     fx, fy, fxc, fyc = cuda_forces.plain_batched_force(
         law, *args, p, cutoff=cutoff, cols=cols6, mirror=True, **off)
     want_r, want_c = torch.stack((fx, fy)), torch.stack((fxc, fyc))
     lims_r, lims_c = [], []
-    for b in range(batch):
+    for b, pb in enumerate(section_rows(p, batch)):
         mag_r, mag_c = plain_pairs(law, _crowd(rows, b), _crowd(cols, b),
                                    row_offset, col_offset, cutoff,
-                                   magnitudes=True, mirror=True)
+                                   magnitudes=True, mirror=True, p=pb)
         lims_r.append(limit(law, want_r[:, b], mag_r))
         lims_c.append(limit(law, want_c[:, b], -mag_c))
     lim_r, lim_c = torch.stack(lims_r, dim=1), torch.stack(lims_c, dim=1)

@@ -2912,6 +2912,109 @@ def test_sym_dense_batched_matches_plain_and_unbatched(cuda_device, law,
     assert bool((got_c[:, ~cols[5]] == 0).all())
 
 
+#: the batched symmetric all-pairs walk's cases (sym_batch_walk: a block
+#: holds a crowd's 128-row tile across a run of column tiles, the diagonal
+#: walked once with the half schedule): (crowds, agents a crowd, the full
+#: block's columns, what to do to the planes, swept parameters).  1b walks
+#: a crowd's triangle, 4-b its first `agents` against `columns` more.
+SYM_ALL_CASES = {
+    "fewer agents than a warp": (3, 20, 17, None, False),
+    "a tile and one agent": (2, 129, 129, None, False),
+    "32 tiles": (2, 4_000, 4_000, None, False),
+    "one crowd": (1, 1_000, 250, None, False),
+    "the 2-D mesh's shards": (128, 250, 250, None, False),
+    "an all-dead crowd and a single live agent": (3, 700, 300, "dead", False),
+    "dead agents in every lane position": (4, 1_000, 1_000, "lanes", False),
+    "swept parameters": (5, 700, 500, None, True),
+    "eight stacked crowds": (8, 768, 768, "stacked", False)}
+
+
+def sym_all_planes(b, n, what, device):
+    """The ``(b, n)`` planes (x .. ey) of a SYM_ALL_CASES case, unsorted
+    (a stacked crowd holds 1,536 agents whatever ``n``)."""
+    if what == "stacked":
+        rows = [stacked_crowd(seed, device) for seed in range(b)]
+        planes = [torch.stack(c) for c in zip(*rows)]
+        speed = torch.hypot(planes[2], planes[3])
+        return planes + [planes[2] / speed, planes[3] / speed]
+    planes = bc.batch_planes(b, n, seed=n + b, device=device,
+                             extent=max(12.0, 0.6 * n ** 0.5))
+    if what == "dead":  # crowd 1 all dead, crowd 2 one live agent
+        planes[5][1] = False
+        planes[5][2] = False
+        planes[5][2, n // 2] = True
+    if what == "lanes":  # every slot of each lane position dead in a crowd
+        for r in range(b):
+            planes[5][r, r::b * 8 + 1] = False
+    return planes
+
+
+@pytest.mark.parametrize("law", ["moussaid", "powerlaw"])
+@pytest.mark.parametrize("case", sorted(SYM_ALL_CASES))
+def test_sym_batch_walk_triangle_matches_plain_and_unbatched(cuda_device,
+                                                             law, case):
+    """1b on the batched symmetric all-pairs walk (``sym_batched``:
+    sym_batch_walk on each crowd's triangle) under both laws: one launch,
+    finite, dead rows exactly 0, within the tolerance of the plain batched
+    version and within twice it of the unbatched launch on each crowd.
+    Crowds below a warp and one agent past a tile, 32 tiles (the split
+    deals long runs), one crowd, the 2-D mesh's 128 crowds of 250, an
+    all-dead crowd beside one with a single live agent, dead agents in
+    every lane position, swept parameters and the eight stacked crowds of
+    the atan2 branch cut (whose pairs the half schedule evaluates in both
+    orientations)."""
+    b, n, _, what, sweep = SYM_ALL_CASES[case]
+    planes = sym_all_planes(b, n, what, cuda_device)
+    p = bc.law_params(law)
+    if sweep:
+        p = bc.swept(p, b, cuda_device)
+    name = bc.PAIR_FORMS[law, "sym"]
+    before = cuda_forces.LAUNCHES[name]
+    got = bc.batch_run(law, "sym", planes, p)
+    torch.cuda.synchronize()
+    assert cuda_forces.LAUNCHES[name] == before + 1
+    assert torch.isfinite(got).all()
+    assert bool((got[:, ~planes[5]] == 0).all())
+    if what == "dead":
+        assert bool((got[:, 1:3] == 0).all())
+    m = bc.pair_mismatch(law, "sym", planes, p, got)
+    assert m["over"] == 0, m
+    assert m["row_over"] == 0, m
+
+
+@pytest.mark.parametrize("law", ["moussaid", "powerlaw"])
+@pytest.mark.parametrize("case", sorted(SYM_ALL_CASES))
+def test_sym_batch_walk_full_block_matches_plain_and_unbatched(cuda_device,
+                                                               law, case):
+    """4-b on the batched symmetric all-pairs walk
+    (``sym_dense_batched``: sym_batch_walk on each crowd's rows of one
+    shard against another's columns, +f to the rows and -f to the
+    columns) under both laws, on SYM_ALL_CASES's rows against the next
+    columns of the same crowds: one launch, finite, dead rows and columns
+    exactly 0, within the tolerance of the plain batched version and
+    within twice it of the unbatched full-block launch on each crowd."""
+    b, n, n_cols, what, sweep = SYM_ALL_CASES[case]
+    planes = sym_all_planes(b, n + n_cols, what, cuda_device)
+    rows = [a[:, :n].contiguous() for a in planes]
+    cols = [a[:, n:].contiguous() for a in planes]
+    p = bc.law_params(law)
+    if sweep:
+        p = bc.swept(p, b, cuda_device)
+    name = cuda_forces.LAWS[law][0] + "_sym_dense_batched"
+    before = cuda_forces.LAUNCHES[name]
+    got_r, got_c, want_r, want_c, lim_r, lim_c, one_r, one_c = (
+        sym_dense_batch_case(law, rows, cols, row_offset=n, p=p))
+    torch.cuda.synchronize()
+    assert cuda_forces.LAUNCHES[name] == before + 1
+    for got, want, lim, one in ((got_r, want_r, lim_r, one_r),
+                                (got_c, want_c, lim_c, one_c)):
+        assert torch.isfinite(got).all()
+        assert bool(((got - want).abs() <= lim).all())
+        assert bool(((got - one).abs() <= 2 * lim).all())
+    assert bool((got_r[:, ~rows[5]] == 0).all())
+    assert bool((got_c[:, ~cols[5]] == 0).all())
+
+
 @pytest.mark.parametrize("law", ["moussaid", "powerlaw", "helbing"])
 @pytest.mark.parametrize("cutoff", [None, 8.0])
 @pytest.mark.parametrize("b,n_shards,n_local", [(3, 2, 130), (2, 3, 257),

@@ -87,9 +87,10 @@ def test_batched_sym_entries_count_their_kernels(walk, law):
     """Each batched symmetric walk (rows 1b and 1c of PERF.md) has its
     census entry: the kernel's instantiation by the walk's enum value,
     two exponentials a Moussaid pair and one a power-law pair, and the
-    rows per thread of the body it runs (the triangle walk: the unbatched
-    body's kSymRows; the cutoff walks: sym_rows_walk's one row a lane),
-    which csrc/pair_forces.cu dispatches so."""
+    rows per thread of the body it runs (the triangle walk: sym_batch_walk's
+    kSymAllRows, two, so that a warp holds a 64-row group of its tile; the
+    cutoff walks: sym_rows_walk's one row a lane), which
+    csrc/pair_forces.cu dispatches so."""
     entry = {k[0]: k for k in sass_census.KERNELS}[
         f"pair_force_sym_batched<{walk}, {law}>"]
     value = {"kTriangle": 0, "kTriangleBox": 1, "kSymTable": 2}[walk]
@@ -102,8 +103,8 @@ def test_batched_sym_entries_count_their_kernels(walk, law):
     kernel = src[src.index("pair_force_sym_batched_kernel(Planes pl"):]
     kernel = kernel[:kernel.index("\n}\n")]
     if walk == "kTriangle":
-        assert entry[5] == "kSymRows" and rows in (1, 2, 4)
-        assert "sym_walk<kWalk, Law>" in kernel
+        assert entry[5] == "kSymAllRows" and rows == 2
+        assert "sym_batch_walk<true, Law>" in kernel
     else:
         assert entry[5] == "kSymBatchRows" and rows == 1
         assert "sym_rows_walk<kWalk, Law>" in kernel
@@ -384,3 +385,30 @@ def test_census_leaves_out_an_older_form_it_does_not_find(tmp_path,
              if k[0].endswith(sass_census.OLDER_FORM)]
     assert len(older) == 6 and not any(k in got for k in older)
     assert got["pair_force_sym<kTriangle, Moussaid>"] is None
+
+
+@pytest.mark.parametrize("law", ["Moussaid", "PowerLaw"])
+@pytest.mark.parametrize("box", ["false", "true"])
+def test_batched_full_block_entries(law, box):
+    """4-b, the batched full-block walk of the half-ring, has its census
+    entry under each antisymmetric law and form: the kernel's
+    instantiation by its box flag, two exponentials a Moussaid pair and
+    one a power-law pair, and the rows a lane of the body it runs (without
+    the box test sym_batch_walk's kSymAllRows; with it the unbatched tile
+    pair's kSymRowsCut), which csrc/pair_forces.cu dispatches so."""
+    entry = {k[0]: k for k in sass_census.KERNELS}[
+        f"pair_force_sym_dense_batched<{box}, {law}>"]
+    assert entry[1] == f"pair_force_sym_dense_batched_kernel<{box}, {law}"
+    assert entry[2] == ("MUFU.EX2", None, None) and entry[4] == "pair"
+    assert entry[3] == (2 if law == "Moussaid" else 1)
+    src = (ROOT / "carla_social_force_model_tpu_torch" / "csrc"
+           / "pair_forces.cu").read_text()
+    kernel = src[src.index("pair_force_sym_dense_batched_kernel(Planes rows"):]
+    kernel = kernel[:kernel.index("\n}\n")]
+    rows = sass_census.layout_constants(ROOT)[entry[5]]
+    if box == "true":
+        assert entry[5] == "kSymRowsCut" and rows in (1, 2, 4)
+        assert "sym_tile_pair<kSymRowsCut, false, true, Law>" in kernel
+    else:
+        assert entry[5] == "kSymAllRows" and rows == 2
+        assert "sym_batch_walk<false, Law>" in kernel

@@ -228,3 +228,68 @@ def test_a_moved_anchor_of_the_batched_ring_raises(copy):
     assert "sfm_ring_counters[2]" not in src
     for _, _, kernel in bench.RING_ATTRIBUTE_KERNELS:
         assert f"(const void*){kernel};" in src
+
+
+def test_every_symmetric_warp_counter_lands_in_both_symmetric_bodies(copy):
+    """The batched symmetric walks' per-warp counters (each warp's cycles
+    in loads and staging, barriers, walking and the flush, its law steps
+    and atomics) land in the unbatched tile pair (sym_tile_pair: the
+    parent's 1b and 4-b, 4-b's box form) and in the redesign's own body
+    (sym_batch_walk: the diagonal's items and the tiles off it each count
+    their law steps, and the columns' and the rows' atomics are counted
+    where they go out); each body stamps every phase, records its warps
+    once, at its end, and its block's trace (SM, global timer at its start
+    and end); pair_forces.cu's entries read and reset them."""
+    bench.instrument(copy)
+    src = (copy / CSRC / "pair_forces.cu").read_text()
+    n = len(bench.SYM_WARP_COUNTERS)
+    assert n == 7
+    assert bench.SYM_WARP_SLOTS == 8  # sym_batch_walk's warps a block
+    assert ("static __device__ unsigned long long sfm_sym_warps["
+            f"{bench.SYM_WARP_BLOCKS * bench.SYM_WARP_SLOTS * n}];") in src
+    old = body_of(src, "__device__ __forceinline__ void sym_tile_pair(")
+    new = body_of(src, "__device__ __forceinline__ void sym_batch_walk(")
+    for body in (old, new):
+        for k in range(4):
+            assert f"sfm_ph_[{k}] += sfm_c1_ - sfm_c0_" in body, k
+        assert body.count("atomicAdd(&sfm_sym_warps[") == 1
+        assert body.count("%%globaltimer") == 2  # the block's trace
+        assert body.rstrip().endswith(
+            "sfm_sym_trace[sfm_b_ * 3u + 2u] = sfm_g1_; } }")
+    assert old.count("sfm_ph_[5] +=") == 1 and old.count("sfm_ph_[6] +=") == 1
+    assert new.count("sfm_ph_[5] +=") == 2 and new.count("sfm_ph_[6] +=") == 2
+    assert ("static __device__ unsigned long long sfm_sym_trace["
+            f"{bench.SYM_WARP_BLOCKS * 3}];") in src
+    for entry in ("sfm_sym_warps_read", "sfm_sym_trace_read",
+                  "sfm_sym_warps_reset"):
+        assert src.index(f"int {entry}(") < src.index(
+            "const char* sfm_cuda_error_string")
+    for label, kernel, threads in bench.ATTRIBUTE_KERNELS:
+        if "sym_dense_batched" in label or "kTriangle," in label:
+            block = "kSymTile" if "<true" in label else "kSymAllThreads"
+            assert threads == ("kSymTile" if "<true" in label else None)
+            assert (f"(const void*){kernel}; threads = {block}; break;"
+                    in src)
+
+
+def test_a_moved_anchor_of_the_symmetric_all_pairs_walk_raises(copy):
+    """Where the checkout has the batched symmetric all-pairs walk's own
+    body (sym_batch_walk), its anchors are required; a checkout without it
+    (the parent, whose 1b and 4-b run sym_tile_pair) is instrumented
+    without them, its tile pair counted alone."""
+    path = copy / CSRC / "pair_forces.cu"
+    text = path.read_text()
+    path.write_text(text.replace(
+        "    if (q + 1 < n_cand) stage(tj + n_split, b ^ 1);\n",
+        "    if (q < n_cand - 1) stage(tj + n_split, b ^ 1);\n"))
+    with pytest.raises(RuntimeError, match="no anchor"):
+        bench.instrument(copy)
+    start = text.index("template <bool kTri, class Law>\n"
+                       "__device__ __forceinline__ void sym_batch_walk(")
+    end = text.index("\n}\n", start) + 3
+    path.write_text(text[:start] + text[end:])
+    bench.instrument(copy)
+    src = path.read_text()
+    assert src.count("atomicAdd(&sfm_sym_warps[") == 1
+    assert ("(const void*)pair_force_sym_batched_kernel<kTriangle, "
+            "Moussaid>; threads = kSymTile; break;") in src  # the parent's

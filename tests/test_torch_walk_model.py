@@ -241,3 +241,114 @@ def test_dense_replay_covers_every_row_and_tile(new, batch, n_rows, n_cols,
     assert got["makespan"] >= got["chunks_a_warp"] + 1
     assert got["makespan"] >= total / (sms * per_sm) - 1e-9
     assert 0.0 < got["fill"] <= 1.0
+
+
+# -- the batched symmetric all-pairs walk (tools/walk_model.py --sym-all) ----
+
+def sym_all_pairs(n_rows, n_cols, tri, n_split):
+    """Every (row, column) pair of real slots that the blocks of one crowd
+    hand the law in sym_batch_walk (the replay's copy of its items), over
+    all row tiles and splits: two int64 arrays."""
+    rows, cols = [], []
+    for ti in range(-(-n_rows // 128)):
+        for split in range(n_split):
+            i, j = wm.sym_all_block_pairs(ti, split, n_split, n_rows,
+                                          n_cols, tri)
+            real = (i < n_rows) & (j < n_cols)
+            rows.append(i[real])
+            cols.append(j[real])
+    return np.concatenate(rows), np.concatenate(cols)
+
+
+@pytest.mark.parametrize("tri", [True, False],
+                         ids=["triangle", "full block"])
+@pytest.mark.parametrize("n", [1, 31, 129, 250, 1_000, 4_000])
+def test_sym_all_items_take_every_pair_once(n, tri):
+    """The items of the batched symmetric all-pairs walk (sym_batch_walk)
+    against a brute-force enumeration: in the triangle every unordered
+    pair of distinct slots of a crowd exactly once and no slot against
+    itself (the triangle walk masks no self-pair), in the full block every
+    (row, column) pair exactly once; under one split and under the splits
+    the rule gives one crowd of n and 256 of them.  Slots past n reach the
+    law only masked."""
+    nt = -(-n // 128)
+    splits = {1, wm.sym_all_splits(1, nt, nt, tri, 4),
+              wm.sym_all_splits(256, nt, nt, tri, 4)}
+    for s in sorted(splits):
+        i, j = sym_all_pairs(n, n, tri, s)
+        if tri:
+            assert not bool((i == j).any())
+            key = np.minimum(i, j) * n + np.maximum(i, j)
+            want = n * (n - 1) // 2
+        else:
+            key = i * n + j
+            want = n * n
+        key.sort()
+        assert key.size == want, (s, key.size, want)
+        assert not bool((np.diff(key) == 0).any()), s
+
+
+def test_sym_all_splits_follows_the_kernels_rule():
+    """sym_all_splits (the replay's copy of csrc/pair_forces.cu
+    sym_all_splits) at config #5's and the 2-D mesh's shapes on 132 SMs of
+    the kernel's kSymAllBlocks resident blocks: config #5 (256 crowds of
+    1,000, eight row tiles) one split, so that row tile 0 walks its whole
+    run of eight tiles; the mesh's square part (128 crowds of 250) and its
+    full blocks (128 x 250 x 250) two, so that no block walks more than
+    one column tile off the diagonal and the blocks fit the card at once;
+    B = 1 x 10,000 sixteen.  The copy's constants, its diagonal items and
+    the rule's lines are the kernel's, and the redesign hands the law no
+    more pairs than the parent."""
+    per_sm = wm.sym_all_blocks()
+    assert per_sm == 4
+    for name, value in (("kSymAllRows", wm.SYM_ALL_ROWS),
+                        ("kSymAllWarps", wm.SYM_ALL_WARPS),
+                        ("kSymAllDiagItems", wm.SYM_ALL_DIAG),
+                        ("kSymAllBlockItems", wm.SYM_ALL_FIXED)):
+        assert wm.pair_constant(name) == value
+    assert wm.SYM_ALL_TILE == wm.SYM_ALL_ROWS * 32 // 16
+    assert wm.sym_all_splits(256, 8, 8, True, per_sm) == 1
+    assert wm.sym_all_splits(128, 2, 2, True, per_sm) == 2
+    assert wm.sym_all_splits(128, 2, 2, False, per_sm) == 2
+    assert wm.sym_all_splits(1, 79, 79, True, per_sm) == 16
+    src = (ROOT / "carla_social_force_model_tpu_torch" / "csrc"
+           / "pair_forces.cu").read_text()
+    rule = src[src.index("int sym_all_splits("):]
+    rule = rule[:rule.index("\n}\n")]
+    assert "for (long long s = 1; s <= most && nr * s <= 65535; s *= 2)" in rule
+    assert "tri ? s * (s + 1) / 2 + (nr - s) * s : nr * s" in rule
+    assert "tri ? diag : most / s * tile" in rule
+    assert "best_cost < 0 || cost < best_cost" in rule
+    assert ("kSymAllTileItems = kSymAllRows * kChunk / 16" in src)
+    words = wm.sym_all_diag_words()
+    assert (f"g == 0 ? 0x{words[0]:016x}ull : 0x{words[1]:016x}ull" in src)
+    for label, b, r, c, tri in wm.SYM_ALL_SHAPES:
+        new = wm.sym_all_replay(b, r, c, tri, True, per_sm)
+        old = wm.sym_all_replay(b, r, c, tri, False, wm.SYM_PARENT_PER_SM)
+        assert new["evaluations"] <= old["evaluations"], label
+        assert 0.0 < new["fill"] <= 1.0
+
+
+@pytest.mark.parametrize("batch, n_rows, n_cols, tri, per_sm, sms", [
+    (3, 100, 100, True, 2, 3), (5, 250, 250, False, 4, 7),
+    (2, 1_000, 1_000, True, 4, 5), (7, 1_000, 129, False, 1, 4),
+    (40, 300, 300, True, 8, 11)])
+def test_sym_all_replay_counts_every_block(batch, n_rows, n_cols, tri,
+                                           per_sm, sms):
+    """On small launches the replay's blocks are the rule's grid less the
+    splits without a tile, its law evaluations the items' (16 steps of 32
+    lanes and 4 warps each) and no fewer than the pairs, and its makespan
+    no less than the longest block and the blocks' work over the slots."""
+    got = wm.sym_all_replay(batch, n_rows, n_cols, tri, True, per_sm, sms)
+    nr, nc = -(-n_rows // 128), -(-n_cols // 128)
+    s = got["splits"]
+    assert s == wm.sym_all_splits(batch, nr, nc, tri, per_sm, sms)
+    costs = wm.sym_all_costs(nr, nc, tri, s)
+    per_row = [min(s, (nc - ti) if tri else nc) for ti in range(nr)]
+    assert got["blocks"] == batch * len(costs) == batch * sum(per_row)
+    assert got["evaluations"] == batch * sum(costs) * 16 * 32 * 8
+    pairs = n_rows * (n_rows - 1) // 2 if tri else n_rows * n_cols
+    assert got["evaluations"] >= batch * pairs
+    assert got["makespan"] >= max(costs) + wm.SYM_ALL_FIXED
+    assert got["makespan"] >= batch * (sum(costs) + len(costs)) / (
+        sms * per_sm) - 1e-9

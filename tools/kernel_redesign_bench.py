@@ -36,9 +36,9 @@ kernels against their plain versions as phases 3, 9 and 24 check them
 (the fast tail moves them).
 
     python3 tools/kernel_redesign_bench.py [--root DIR] [--label NAME] \\
-        [--out FILE] [--counters] \\
-        [--cases sym,env,dense,statics,feed,capacity,batched,mesh,all_tiles] \\
-        [--only NAME,...]
+        [--out FILE] [--counters] [--clock-seconds S] \\
+        [--cases sym,env,dense,statics,feed,capacity,batched,mesh,all_tiles,\\
+                 sym_all] [--only NAME,...]
 
 ``--only`` keeps the cases whose name holds one of the given substrings
 (a layout variant's cases, say ``--cases batched --only sym_``).
@@ -65,6 +65,15 @@ analytic and the parked cars, dense and on the survivor tables).
 
 ``--cases all_tiles`` times only the batched all-tiles walk's cases of
 ``batched`` and ``mesh`` (:func:`all_tiles_cases`; rows 2b and 2r-b).
+
+``--cases sym_all`` times the batched symmetric walks without a cutoff
+(:func:`sym_all_cases`; rows 1b and 4-b) under both antisymmetric laws:
+1b at config #5 and, at phase 33's shapes, on a shard's 128 crowds x 250
+(the half-ring's square part), 4-b on the half-ring's 128 x 250 x 250
+blocks and its box form there (sorted, 30 m), and 1b at B = 1 x 10,000
+beside the unbatched ``pair_force_sym``; each with its bound, the issue
+floor of its live pairs and of the pairs the walk hands the law
+(``eval_floor_ms``).  ``mesh`` holds the mesh ones too.
 
 ``--cases mesh`` times the rectangular batched walks at phase 33's shapes:
 the table walk ``compact_rect_batched`` on one shard's 4 crowds x 12,500
@@ -111,7 +120,13 @@ global-timer stamps, ``ring_trace_<label>.json`` beside ``--out``).
 Before the ring, the all-tiles walk's Moussaid cases (:func:`dense_counters`:
 config #5, B = 1 x 10,000 and the unbatched walk beside it, the mesh's
 gathered columns and ring block), per block: thread 0's cycles in
-zeroing, staging, barriers, walking and folding (:data:`DENSE_COUNTERS`).
+zeroing, staging, barriers, walking and folding (:data:`DENSE_COUNTERS`);
+and before those the batched symmetric walks' Moussaid cases without a
+cutoff (:func:`sym_warp_counters`: 1b at config #5 and B = 1 x 10,000
+with the unbatched walk beside it, the mesh's 1b and 4-b and 4-b's box
+form), per block: every warp's own cycles in loads and staging,
+barriers, walking and the flush, its law steps and atomics, as the mean
+warp, the slowest and warp 0 (:data:`SYM_WARP_COUNTERS`).
 ``--only`` keeps the counted cases whose name holds a substring.  The
 debug build is the checkout at ``--root`` with counters patched into its sources
 (:func:`instrument`: atomic adds at the walks' staging, culling and law
@@ -268,7 +283,8 @@ LAW_TYPES = {"moussaid": "Moussaid", "powerlaw": "PowerLaw",
 _PAIR_COUNTS: dict = {}
 
 
-def law_work(law, rows, cols, c2, row_off, col_off, tables=0, sym=False):
+def law_work(law, rows, cols, c2, row_off, col_off, tables=0, sym=False,
+             mirror=False):
     """``work()`` of one dense launch of ``law`` (``mesh_cases``): rows
     ``(B, R)`` against columns ``(B, C)`` (planes x, y, vx, vy, radius,
     alive; Helbing's rows read their desired directions in the velocity
@@ -279,7 +295,9 @@ def law_work(law, rows, cols, c2, row_off, col_off, tables=0, sym=False):
     gates counted as ``chip_smoke.family_work`` counts them) and those
     pairs, the issue floor's units.  With ``sym`` (a Newton's-third-law
     launch on square planes, ``rows`` = ``cols``) the unordered pairs,
-    each evaluated once, and the planes read once."""
+    each evaluated once, and the planes read once; with ``mirror`` (the
+    full block: every (row, column) pair once) the columns' forces are
+    written too."""
     import torch
     import shard_cases as sc
     cs = smoke()
@@ -329,8 +347,10 @@ def law_work(law, rows, cols, c2, row_off, col_off, tables=0, sym=False):
         ops, mufu = pairs * cs.HB_OPS, pairs * cs.HB_MUFU
     plane_bytes = 4 * (4 if law == "helbing" else 5) + 1
     nb, nr = rows[0].shape
-    n_bytes = (nb * ((nr if sym else nr + cols[0].shape[1]) * plane_bytes
-                     + 8 * nr) + 4 * (tables + 6 * nb))
+    nc = cols[0].shape[1]
+    n_bytes = (nb * ((nr if sym else nr + nc) * plane_bytes
+                     + 8 * (nr + (nc if mirror else 0)))
+               + 4 * (tables + 6 * nb))
     return cs.bound(n_bytes, ops, mufu), pairs
 
 
@@ -344,14 +364,13 @@ def batched_cases(dev):
     then the square batched symmetric walks
     (``pair_force_sym_batched_kernel``) under the Moussaid law and the
     power law, with bounds and floors: the triangle walk at config #5
-    (1b) and the triangle-box and table walks at phase 30's shapes (1c);
-    then :func:`batched_env_cases`."""
+    and B = 1 x 10,000 (1b, :func:`sym_all_cases`) and the triangle-box
+    and table walks at phase 30's shapes (1c); then
+    :func:`batched_env_cases`."""
     import batch_cases as bc
     from carla_social_force_model_tpu_torch.ops import pair_grid
     cs = smoke()
     root = Path(pair_grid.__file__).resolve().parents[2]
-    planes = bc.batch_planes(cs.BATCH, cs.BATCH_N, seed=27, device=dev,
-                             extent=35.0)
     small = bc.sort_rows(bc.batch_planes(cs.BATCH, cs.BATCH_N, seed=30,
                                          device=dev, extent=35.0))
     big = bc.sort_rows(bc.batch_planes(
@@ -382,23 +401,19 @@ def batched_cases(dev):
                         lambda pl=pl, g=grid, f=form, law=law: bc.batch_run(
                             law, f, pl, bc.law_params(law), g),
                         kernel, 20, work))
-    # the symmetric walks: 1b (config #5, no cutoff) and 1c's triangle-box
-    # and table forms at phase 30's shapes, under each antisymmetric law
-    sym_kernel = "pair_force_sym_batched_kernel"
-    for form, pl, walk in (("sym", planes, "kTriangle"),
-                           ("sym_cutoff", small, "kTriangleBox"),
+    # the symmetric walks: 1b (config #5, no cutoff: sym_all_cases) and
+    # 1c's triangle-box and table forms at phase 30's shapes, under each
+    # antisymmetric law
+    out += sym_all_cases(dev, square=True)
+    for form, pl, walk in (("sym_cutoff", small, "kTriangleBox"),
                            ("sym_compact", big, "kSymTable")):
-        grid = None if form == "sym" else bc.cutoff_grid_of(form, pl,
-                                                            cs.CUTOFF_M)
+        grid = bc.cutoff_grid_of(form, pl, cs.CUTOFF_M)
         b, n = pl[0].shape
-        tables = 0 if grid is None else sum(
-            t.numel() for t in (grid.boxes, grid.surv, grid.counts)
-            if t is not None)
+        tables = sum(t.numel() for t in (grid.boxes, grid.surv, grid.counts)
+                     if t is not None)
         for law in ("moussaid", "powerlaw"):
-            def work(pl=pl, law=law, walk=walk, tables=tables,
-                     cut=grid is not None):
-                bnd, pairs = law_work(law, pl, pl, c2 if cut
-                                      else float("inf"), 0, 0, tables,
+            def work(pl=pl, law=law, walk=walk, tables=tables):
+                bnd, pairs = law_work(law, pl, pl, c2, 0, 0, tables,
                                       sym=True)
                 return (bnd, f"pair_force_sym_batched<{walk}, "
                         f"{LAW_TYPES[law]}>", pairs)
@@ -406,7 +421,7 @@ def batched_cases(dev):
                         + ("" if law == "moussaid" else f" {law}"),
                         lambda pl=pl, g=grid, f=form, law=law: bc.batch_run(
                             law, f, pl, bc.law_params(law), g),
-                        sym_kernel, 20, work))
+                        "pair_force_sym_batched_kernel", 20, work))
     return out + batched_env_cases(dev)
 
 
@@ -502,6 +517,143 @@ def all_tiles_cases(dev, square=False, mesh=False,
                         *args, lprm, tuple(cols[:6]), row_offset=k,
                         col_offset=off, **kw),
                     kernel, 20, work(law, rows, cols, k, off, label(law))))
+    return out
+
+
+def sym_all_walk(root: Path) -> bool:
+    """Whether the checkout at ``root`` runs the batched symmetric walks
+    without a cutoff on their own body (``sym_batch_walk``)."""
+    return "void sym_batch_walk(" in (
+        root / "carla_social_force_model_tpu_torch" / "csrc"
+        / "pair_forces.cu").read_text()
+
+
+def sym_all_evaluations(root, batch, n_rows, n_cols, tri):
+    """The (row, column) pairs one launch of 1b (``tri``) or 4-b hands the
+    law, masked ones included, in the checkout at ``root``: the parent's
+    128 x 128 a tile pair of the triangle (its diagonal tiles whole) or of
+    the full block; ``sym_batch_walk``'s by the replay of its items
+    (``tools/walk_model.py``)."""
+    import walk_model as wm
+    nr, nc = -(-n_rows // 128), -(-n_cols // 128)
+    if not sym_all_walk(root):
+        return batch * 128 * 128 * (nr * (nr + 1) // 2 if tri else nr * nc)
+    return wm.sym_all_replay(batch, n_rows, n_cols, tri, True,
+                             wm.sym_all_blocks(root))["evaluations"]
+
+
+def sym_all_cases(dev, square=False, mesh=False,
+                  laws=("moussaid", "powerlaw")):
+    """(name, call, kernel name filter, reps, work) of the batched
+    symmetric walks without a cutoff (row 1b, ``pair_force_sym_batched``,
+    and row 4-b, ``pair_force_sym_dense_batched``) under each of ``laws``:
+    with ``square`` 1b at phase 27's config #5 (256 crowds of 1,000, seed
+    27) and, under the Moussaid law, at B = 1 x 10,000 (the sym cases'
+    crowd) beside the unbatched ``pair_force_sym`` on the same crowd; with
+    ``mesh`` phase 33's config #5 shapes (one shard's 128 crowds x 250
+    agents, seed 33): 1b on the shard's own agents (the half-ring's square
+    part), 4-b on its rows against the next shard's 250-agent block, and
+    4-b's box form on the same shards sorted, with the 30 m cutoff (for the
+    record).  ``work()``: the bound (every plane read once, the forces
+    written once, the law's operations on the live pairs), the issue
+    floor's units (the live pairs, each once), and the pairs the walk
+    hands the law (:func:`sym_all_evaluations`)."""
+    import numpy as np
+    import batch_cases as bc
+    import shard_cases as sc
+    from carla_social_force_model_tpu_torch.models.params import law_rows
+    from carla_social_force_model_tpu_torch.ops import cuda_forces, pair_grid
+    cs = smoke()
+    root = Path(cuda_forces.__file__).resolve().parents[2]
+    c2 = pair_grid.cutoff_sq(CUTOFF_M)
+
+    def tri_work(law, pl, label):
+        def fn():
+            b, n = pl[0].shape
+            bnd, pairs = law_work(law, pl, pl, float("inf"), 0, 0, sym=True)
+            return (bnd, label, pairs,
+                    sym_all_evaluations(root, b, n, n, True))
+        return fn
+
+    out = []
+    if square:
+        planes = bc.batch_planes(cs.BATCH, cs.BATCH_N, seed=27, device=dev,
+                                 extent=35.0)
+        out += [(f"sym_batched (1b) {law} {cs.BATCH} x {cs.BATCH_N}",
+                 lambda law=law: bc.batch_run(law, "sym", planes,
+                                              bc.law_params(law)),
+                 "pair_force_sym_batched_kernel", 20,
+                 tri_work(law, planes, "pair_force_sym_batched<kTriangle, "
+                          f"{LAW_TYPES[law]}>")) for law in laws]
+        if "moussaid" in laws:
+            one = cs.to_planes(*cs.seeded_crowd(N, 7, float(np.sqrt(N))),
+                               dev)
+            prm = cuda_forces.law_vector("moussaid",
+                                         sc.law_params("moussaid"), dev)
+            b1 = [a[None].contiguous() for a in one]
+            out += [(f"sym_batched (1b) moussaid B=1 x {N}",
+                     lambda: cuda_forces.pair_force_sym_batched(*b1,
+                                                                prm[None]),
+                     "pair_force_sym_batched_kernel", 20,
+                     tri_work("moussaid", b1,
+                              "pair_force_sym_batched<kTriangle, Moussaid>")),
+                    (f"sym (unbatched) {N}",
+                     lambda: cuda_forces.pair_force_sym(*one, prm),
+                     "pair_force_sym_kernel", 20,
+                     lambda: (law_work("moussaid", b1, b1, float("inf"), 0,
+                                       0, sym=True)[0],
+                              "pair_force_sym<kTriangle, Moussaid>",
+                              law_work("moussaid", b1, b1, float("inf"), 0,
+                                       0, sym=True)[1],
+                              128 * 128 * (-(-N // 128)) * (
+                                  -(-N // 128) + 1) // 2))]
+    if mesh:
+        d = cs.MESH_AGENTS
+        k = cs.BATCH_N // d
+        nb = cs.BATCH // cs.MESH_BATCH_SHARDS
+        for sort in (False, True):
+            pl = sc.batch_shard_planes(nb, cs.BATCH_N, seed=33, device=dev,
+                                       extent=35.0, n_shards=d, sort=sort)
+            rows = [a[:, k:2 * k].contiguous() for a in pl]
+            blk = [a[:, 2 * k:3 * k].contiguous() for a in pl]
+            grid = None if not sort else pair_grid.block_grid(
+                pair_grid.box_planes(rows[0], rows[1], rows[5],
+                                     pair_grid.SYM_TILE),
+                pair_grid.box_planes(blk[0], blk[1], blk[5],
+                                     pair_grid.SYM_TILE), CUTOFF_M)
+            for law in laws:
+                args, _ = sc.law_args(law, rows)
+                lprm = law_rows(law, sc.law_params(law), nb, dev)
+                what = "" if law == "moussaid" else f" {law}"
+                if not sort:
+                    out.append((
+                        f"sym_batched (1b) {nb} x {k}" + what,
+                        lambda args=args, lprm=lprm, law=law:
+                        cuda_forces.pair_force_sym_batched(
+                            *args[:6], lprm, law=law),
+                        "pair_force_sym_batched_kernel", 20,
+                        tri_work(law, rows, "pair_force_sym_batched<"
+                                 f"kTriangle, {LAW_TYPES[law]}>")))
+
+                def work(law=law, rows=rows, blk=blk, cut=sort):
+                    bnd, pairs = law_work(
+                        law, rows, blk, c2 if cut else float("inf"), k,
+                        2 * k, 0 if grid is None else
+                        grid.boxes.numel() + grid.row_boxes.numel(),
+                        mirror=True)
+                    label = (f"pair_force_sym_dense_batched<"
+                             f"{'true' if cut else 'false'}, "
+                             f"{LAW_TYPES[law]}>")
+                    return (bnd, label, pairs, None if cut else
+                            sym_all_evaluations(root, nb, k, k, False))
+                out.append((
+                    f"sym_dense_batched (4-b) {nb} x {k} x {k}"
+                    + (f", sorted, {CUTOFF_M:g} m" if sort else "") + what,
+                    lambda args=args, lprm=lprm, law=law, blk=blk, g=grid:
+                    cuda_forces.pair_force_sym_dense_batched(
+                        *args[:6], lprm, tuple(blk[:6]), row_offset=k,
+                        col_offset=2 * k, grid=g, law=law),
+                    "pair_force_sym_dense_batched_kernel", 20, work))
     return out
 
 
@@ -809,7 +961,8 @@ DENSE_COUNTERS = ("blocks", "block cycles", "zeroing cycles",
                   "fold cycles", "stagings", "chunks walked")
 
 #: the C entry of a debug build that gives a kernel's attributes, and the
-#: kernels it knows by ``which`` (label, instantiation, threads a block)
+#: kernels it knows by ``which`` (label, instantiation, threads a block;
+#: None for the 1b and 4-b block, the checkout's: :func:`_sym_all_threads`)
 ATTRIBUTE_KERNELS = (
     ("pair_force_dense_batched<kTable, Moussaid>",
      "pair_force_dense_batched_kernel<kTable, Moussaid>", "kDenseThreads"),
@@ -827,7 +980,14 @@ ATTRIBUTE_KERNELS = (
      "pair_force_sym_batched_kernel<kSymTable, PowerLaw>", "kSymTile"),
     *((f"pair_force_dense_batched<kAllTiles, {law}>",
        f"pair_force_dense_batched_kernel<kAllTiles, {law}>", "kDenseThreads")
-      for law in ("Moussaid", "PowerLaw", "Helbing")))
+      for law in ("Moussaid", "PowerLaw", "Helbing")),
+    *((f"pair_force_sym_batched<kTriangle, {law}>",
+       f"pair_force_sym_batched_kernel<kTriangle, {law}>", None)
+      for law in ("Moussaid", "PowerLaw")),
+    *((f"pair_force_sym_dense_batched<{box}, {law}>",
+       f"pair_force_sym_dense_batched_kernel<{box}, {law}>",
+       "kSymTile" if box == "true" else None)
+      for law in ("Moussaid", "PowerLaw") for box in ("false", "true")))
 
 
 #: the batched ring's counters in a debug build (``sfm_ring_counters`` of
@@ -850,6 +1010,69 @@ RING_ATTRIBUTE_KERNELS = tuple(
     ("ring_force<false, Moussaid>",
      "ring_force_kernel<false, Moussaid, kRingRows, false>",
      "ring_force_kernel<false, Moussaid, kRingRows, false>"),)
+
+
+#: the batched symmetric walks' per-warp counters in a debug build
+#: (``sfm_sym_warps`` of ``csrc/pair_forces.cu``): for each of the first
+#: SYM_WARP_BLOCKS blocks of a launch (blockIdx.y * gridDim.x +
+#: blockIdx.x) and each of its four warps, the warp's own cycles (lane 0's
+#: clock) in loading its rows and staging columns, at block barriers,
+#: walking (its law steps and their shared or shuffled reactions) and
+#: flushing (the forces' atomics and the rows' partials), its cycles in
+#: all, its warp law steps (32 lanes each) and its global atomics; in
+#: ``sym_tile_pair`` (the parent's 1b and 4-b, and 4-b's box form) and
+#: ``sym_batch_walk``
+SYM_WARP_COUNTERS = ("loads and staging cycles", "barrier cycles",
+                     "walking cycles", "flush cycles", "warp cycles",
+                     "law steps", "atomics")
+SYM_WARP_BLOCKS = 16384
+#: the warps a block's record holds (sym_batch_walk's eight; the parent's
+#: tile pair fills four)
+SYM_WARP_SLOTS = 8
+
+
+def _sym_stamp(k: int) -> str:
+    """The warp's cycles since its last stamp, added to phase ``k``."""
+    return ("{ const long long sfm_c1_ = clock64(); sfm_ph_[" + str(k)
+            + "] += sfm_c1_ - sfm_c0_; sfm_c0_ = sfm_c1_; }")
+
+
+def _sym_begin() -> str:
+    """The start of a walk: the warp's phase counters and first stamps (its
+    clock, and the global timer for the block's trace)."""
+    return ("  long long sfm_ph_[" + str(len(SYM_WARP_COUNTERS))
+            + "] = {0};\n  const long long sfm_t0_ = clock64();\n"
+            "  long long sfm_c0_ = sfm_t0_;\n"
+            "  unsigned long long sfm_g0_;\n"
+            "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(sfm_g0_));\n")
+
+
+def _sym_record() -> str:
+    """The end of a walk: the warp's cycles in all, and its counters added
+    to its block's record (lane 0); thread 0 writes the block's trace: its
+    SM, and the global timer at its start and at its end."""
+    n = len(SYM_WARP_COUNTERS)
+    return ("  sfm_ph_[4] += clock64() - sfm_t0_;\n"
+            "  { const unsigned sfm_b_ = blockIdx.y * gridDim.x + blockIdx.x;"
+            f" if (lane == 0 && sfm_b_ < {SYM_WARP_BLOCKS}u) for (int k_ = 0;"
+            f" k_ < {n}; ++k_) atomicAdd(&sfm_sym_warps[(sfm_b_ * "
+            f"{SYM_WARP_SLOTS}u + (unsigned)warp) * {n}u + k_], "
+            "(unsigned long long)sfm_ph_[k_]);"
+            f" if (threadIdx.x == 0 && sfm_b_ < {SYM_WARP_BLOCKS}u) {{ "
+            "unsigned long long sfm_g1_; unsigned sfm_sm_; asm volatile(\"mov."
+            "u64 %0, %%globaltimer;\" : \"=l\"(sfm_g1_)); asm volatile(\"mov."
+            "u32 %0, %%smid;\" : \"=r\"(sfm_sm_)); sfm_sym_trace[sfm_b_ * 3u] "
+            "= sfm_sm_; sfm_sym_trace[sfm_b_ * 3u + 1u] = sfm_g0_; "
+            "sfm_sym_trace[sfm_b_ * 3u + 2u] = sfm_g1_; }"
+            " }\n")
+
+
+def _sym_atomics(*conds: str) -> str:
+    """The warp's atomics: one for each lane and true condition."""
+    terms = " + ".join(f"__popc(__ballot_sync(kAllLanes, {c}))"
+                       for c in conds)
+    return ("  { const int sfm_a_ = " + terms + "; if (lane == 0) "
+            "sfm_ph_[6] += sfm_a_; }\n")
 
 
 #: the debug build's step trace of the batched ring's own body: per block
@@ -918,13 +1141,22 @@ def _ring_entries(own_body: bool) -> str:
         "  return (int)e;\n}\n\n")
 
 
-def _attributes_entry() -> str:
-    """The C source of ``sfm_walk_attributes(which, out)``: the resident
-    blocks an SM, registers, static shared and local bytes of kernel
-    ``which`` of :data:`ATTRIBUTE_KERNELS`."""
+def _sym_all_threads(root: Path) -> str:
+    """The threads of a 1b and 4-b block in the checkout at ``root``:
+    ``kSymAllThreads`` where it has ``sym_batch_walk``, else the parent's
+    ``kSymTile``."""
+    return "kSymAllThreads" if sym_all_walk(root) else "kSymTile"
+
+
+def _attributes_entry(root: Path) -> str:
+    """The C source of ``sfm_walk_attributes(which, out)`` for the checkout
+    at ``root``: the resident blocks an SM, registers, static shared and
+    local bytes of kernel ``which`` of :data:`ATTRIBUTE_KERNELS`."""
+    sym_all = _sym_all_threads(root)
     cases = "".join(
-        f"    case {k}: f = (const void*){inst}; threads = {threads}; "
-        "break;\n" for k, (_, inst, threads) in enumerate(ATTRIBUTE_KERNELS))
+        f"    case {k}: f = (const void*){inst}; threads = "
+        f"{threads or sym_all}; break;\n"
+        for k, (_, inst, threads) in enumerate(ATTRIBUTE_KERNELS))
     return ("int sfm_walk_attributes(int which, int* out) {\n"
             "  const void* f = nullptr;\n  int threads = 0;\n"
             "  switch (which) {\n" + cases +
@@ -985,6 +1217,8 @@ def instrument(root: Path) -> None:
 
     sym = "sym_rows_walk"  # its anchors are required where it exists
     batch = "dense_batch_walk"  # likewise
+    sym_all = "sym_batch_walk"  # likewise
+    n_sym = len(SYM_WARP_COUNTERS)
     n_dense = len(DENSE_COUNTERS)
     old_ring, new_ring = "ring_walk", "ring_batch_walk"
     ring_src = (csrc / "ring.cu").read_text()
@@ -1201,7 +1435,92 @@ def instrument(root: Path) -> None:
              "int sfm_walk_counters_reset() {\n"
              f"  unsigned long long z[{len(COUNTERS)}] = {{0}};\n"
              "  return (int)cudaMemcpyToSymbol(sfm_walk_counters, z, "
-             "sizeof(z));\n}\n" + _attributes_entry(), True, "before"),
+             "sizeof(z));\n}\n" + _attributes_entry(root), True, "before"),
+            # the symmetric walks' per-warp counters: sym_tile_pair (the
+            # parent's 1b and 4-b, 4-b's box form)
+            ('#include "pair_laws.cuh"\n',
+             "static __device__ unsigned long long sfm_sym_warps["
+             f"{SYM_WARP_BLOCKS * SYM_WARP_SLOTS * n_sym}];\n"
+             "static __device__ unsigned long long sfm_sym_trace["
+             f"{SYM_WARP_BLOCKS * 3}];\n", True),
+            ("  __syncthreads();  // the previous tile pair's sums are "
+             "read\n", _sym_begin(), True, "before"),
+            ("  __syncthreads();  // the previous tile pair's sums are "
+             "read\n", "  " + _sym_stamp(1) + "\n", True),
+            ("  const int g0 = cols.off + j0;\n  __syncthreads();\n",
+             "  const int g0 = cols.off + j0;\n  " + _sym_stamp(0)
+             + "\n  __syncthreads();\n  " + _sym_stamp(1) + "\n", True,
+             "replace"),
+            ("      sm.col_x[rg][jj] -= cfx;  // Newton's third law: f_ji = "
+             "-f_ij\n", "      if (lane == 0) sfm_ph_[5] += kR;\n", True),
+            ("  __syncthreads();\n  // thread t adds row t's and column t's "
+             "partials, in a fixed order\n",
+             "  " + _sym_stamp(2) + "\n", True, "before"),
+            ("  // thread t adds row t's and column t's partials, in a fixed "
+             "order\n", "  " + _sym_stamp(1) + "\n", True),
+            ("    atomicAdd(&fxc[jt], sx_sum);\n    atomicAdd(&fyc[jt], "
+             "sy_sum);\n  }\n}\n",
+             "    atomicAdd(&fxc[jt], sx_sum);\n    atomicAdd(&fyc[jt], "
+             "sy_sum);\n  }\n"
+             + _sym_atomics("it < rows.n && rows.alive[it] != 0",
+                            "col_in && cat != 0").replace(
+                 "sfm_a_ = ", "sfm_a_ = 2 * (") .replace("; if", "); if", 1)
+             + "  " + _sym_stamp(3) + "\n" + _sym_record() + "}\n", True,
+             "replace"),
+            # sym_batch_walk (the redesign's 1b and 4-b)
+            ("  const typename Law::Prm p = Law::load(prm);\n\n  // this "
+             "lane's rows i0 + 64 g + lane + 32 r\n",
+             _sym_begin(), sym_all),
+            ("    if (tid >= kSymTile) sm.ra[b][sc].y = qa ? 1.0f : 0.0f;\n",
+             "    " + _sym_stamp(0) + "\n", sym_all),
+            ("    __syncthreads();\n    if (prev >= 0) flush(prev, (q - 1) & "
+             "1);\n",
+             "    __syncthreads();\n    " + _sym_stamp(1) + "\n    if (prev "
+             ">= 0) flush(prev, (q - 1) & 1);\n    " + _sym_stamp(3) + "\n",
+             sym_all, "replace"),
+            ("    if (q + 1 < n_cand) stage(tj + n_split, b ^ 1);\n",
+             "    " + _sym_stamp(0) + "\n", sym_all),
+            ("        float sx = 0.0f, sy = 0.0f, cx = 0.0f, cy = 0.0f;\n",
+             "        if (lane == 0) sfm_ph_[5] += kChunk / 2;\n", sym_all),
+            ("        sm.part[warp][1][jc] += cy;\n        __syncwarp();\n"
+             "      }\n", "      " + _sym_stamp(2) + "\n", sym_all),
+            ("#pragma unroll 1\n        for (int s = 0; s < kChunk; ++s) {\n"
+             "          const int cc = (lane + s) & (kChunk - 1);\n",
+             "        if (lane == 0) sfm_ph_[5] += kChunk * kR;\n", sym_all,
+             "before"),
+            ("      prev = tj;\n    }\n  }\n",
+             "      prev = tj;\n      " + _sym_stamp(2) + "\n    }\n  }\n",
+             sym_all, "replace"),
+            ("    if (j < cols.n && s != 0.0f) atomicAdd(k == 0 ? &fxc[j] : "
+             "&fyc[j], s);\n",
+             "  " + _sym_atomics("j < cols.n && s != 0.0f"), sym_all),
+            ("  __syncthreads();  // every warp's partials of the block's "
+             "rows\n",
+             "  " + _sym_stamp(3) + "\n  __syncthreads();  // every warp's "
+             "partials of the block's rows\n  " + _sym_stamp(1) + "\n",
+             sym_all, "replace"),
+            ("  if (i < rows.n && s != 0.0f) atomicAdd(k == 0 ? &fx[i] : "
+             "&fy[i], s);\n}\n",
+             "  if (i < rows.n && s != 0.0f) atomicAdd(k == 0 ? &fx[i] : "
+             "&fy[i], s);\n" + _sym_atomics("i < rows.n && s != 0.0f")
+             + "  " + _sym_stamp(3) + "\n" + _sym_record() + "}\n",
+             sym_all, "replace"),
+            ("const char* sfm_cuda_error_string(int err) {\n",
+             "int sfm_sym_warps_read(unsigned long long* out) {\n"
+             "  return (int)cudaMemcpyFromSymbol(out, sfm_sym_warps, "
+             "sizeof(sfm_sym_warps));\n}\n"
+             "int sfm_sym_trace_read(unsigned long long* out) {\n"
+             "  return (int)cudaMemcpyFromSymbol(out, sfm_sym_trace, "
+             "sizeof(sfm_sym_trace));\n}\n"
+             "int sfm_sym_warps_reset() {\n  void* p = nullptr;\n"
+             "  cudaError_t e = cudaGetSymbolAddress(&p, sfm_sym_warps);\n"
+             "  if (e == cudaSuccess) e = cudaMemset(p, 0, "
+             "sizeof(sfm_sym_warps));\n"
+             "  if (e == cudaSuccess) e = cudaGetSymbolAddress(&p, "
+             "sfm_sym_trace);\n"
+             "  if (e == cudaSuccess) e = cudaMemset(p, 0, "
+             "sizeof(sfm_sym_trace));\n  return (int)e;\n}\n\n", True,
+             "before"),
             ("const char* sfm_cuda_error_string(int err) {\n",
              "int sfm_dense_counters_read(unsigned long long* out) {\n"
              "  return (int)cudaMemcpyFromSymbol(out, sfm_dense_counters,\n"
@@ -1425,8 +1744,92 @@ def walk_counters(dev, label, card, sink, only=None, trace_out=None):
         line = json.dumps(row)
         print(line, flush=True)
         sink.append(line)
+    sym_warp_counters(lib, label, card, sink, kept)
     dense_counters(lib, label, card, sink, kept)
     ring_counters(lib, label, card, sink, kept, trace_out)
+
+
+def block_trace(trace):
+    """What the blocks' trace (rows of SM, start and end on the global
+    timer, ns; zero rows unrecorded) says of a launch's residency: its span,
+    a block's mean length, the most blocks an SM held at once and the SMs
+    used, and the blocks that started after the first block ended (a
+    later wave)."""
+    import numpy as np
+    t = trace[trace[:, 2] > 0].astype(np.int64)
+    if t.shape[0] == 0:
+        return None
+    sm, start, end = t[:, 0], t[:, 1] - t[:, 1].min(), t[:, 2] - t[:, 1].min()
+    most = 0
+    for k in np.unique(sm):
+        ev = sorted([(s, 1) for s in start[sm == k]]
+                    + [(e, -1) for e in end[sm == k]])
+        cur = 0
+        for _, d in ev:
+            cur += d
+            most = max(most, cur)
+    return {"span_us": float(end.max()) / 1e3,
+            "block_us": float((end - start).mean()) / 1e3,
+            "most_blocks_an_sm": int(most), "sms": int(np.unique(sm).size),
+            "started_late": int((start > end.min()).sum())}
+
+
+def sym_warp_counters(lib, label, card, sink, kept=lambda name: True):
+    """The batched symmetric walks' per-warp counters (``sfm_sym_warps`` of
+    a debug build, :data:`SYM_WARP_COUNTERS`) for one launch of each
+    Moussaid case of :func:`sym_all_cases` (1b at config #5, B = 1 x
+    10,000 and the unbatched walk beside it, the mesh's 1b and 4-b, 4-b's
+    box form): per block (its first :data:`SYM_WARP_BLOCKS`), the mean of
+    its warps' counters (the parent's four, the redesign's eight), its
+    slowest warp's (the most cycles: the block ends with it) and warp 0's
+    (thread 0's, the oldest), averaged over the blocks, with the law steps
+    (evaluations a lane: R a step off the diagonal) and atomics a
+    block."""
+    import ctypes
+    import numpy as np
+    import torch
+    n = len(SYM_WARP_COUNTERS)
+    lib.sfm_sym_warps_read.argtypes = [ctypes.c_void_p]
+    lib.sfm_sym_trace_read.argtypes = [ctypes.c_void_p]
+    out = np.zeros((SYM_WARP_BLOCKS, SYM_WARP_SLOTS, n), dtype=np.uint64)
+    trace = np.zeros((SYM_WARP_BLOCKS, 3), dtype=np.uint64)
+    dev = torch.device("cuda", 0)
+    for name, fn, _, _, _ in sym_all_cases(dev, square=True, mesh=True,
+                                           laws=("moussaid",)):
+        if not kept(name):
+            continue
+        torch.cuda.synchronize()
+        if lib.sfm_sym_warps_reset() != 0:
+            raise RuntimeError("cannot reset the symmetric warp counters")
+        fn()
+        torch.cuda.synchronize()
+        if lib.sfm_sym_warps_read(out.ctypes.data) != 0:
+            raise RuntimeError("cannot read the symmetric warp counters")
+        rec = out.astype(np.float64)
+        rec = rec[rec[:, :, 4].sum(1) > 0]  # the blocks that walked
+        blocks = rec.shape[0]
+        if blocks == 0:
+            continue
+        if lib.sfm_sym_trace_read(trace.ctypes.data) != 0:
+            raise RuntimeError("cannot read the symmetric walks' trace")
+        warps = int((rec[:, :, 4] > 0).sum(1).max())  # a block's warps
+        rec = rec[:, :warps]
+        slow = rec[np.arange(blocks), rec[:, :, 4].argmax(1)]
+
+        def named(v):
+            return {k: float(x) for k, x in zip(SYM_WARP_COUNTERS, v)}
+        row = {"root": label, "case": name, "blocks": blocks,
+               "warps": warps,
+               "mean_warp": named(rec.mean(axis=(0, 1))),
+               "slowest_warp": named(slow.mean(0)),
+               "warp_0": named(rec[:, 0].mean(0)),
+               "per_block": {"law steps": float(rec[:, :, 5].sum(1).mean()),
+                             "atomics": float(rec[:, :, 6].sum(1).mean())},
+               "trace": block_trace(trace),
+               "card": card}
+        line = json.dumps(row)
+        print(line, flush=True)
+        sink.append(line)
 
 
 def dense_counters(lib, label, card, sink, kept=lambda name: True):
@@ -1864,32 +2267,74 @@ def env_cases(dev):
     return [(name, fn, "env_force_kernel", reps) for name, fn, reps in out]
 
 
-def run(cases, label, card, sink, census):
-    """Time each case and print its JSON line; a case with a ``work``
-    callable adds its bound and the issue floor of its units through the
-    SASS census of this checkout's kernels (``census``: label -> census,
-    null where the checkout lacks the kernel)."""
-    from sass_census import floor_ms
-    device_ms = smoke().device_ms
-    for name, fn, kernel, reps, *work in cases:
-        try:
-            ms = device_ms(fn, kernel, reps=reps)
-        except RuntimeError as e:  # a ring grid this checkout cannot hold
-            if "CUDA error 720" not in str(e):
-                raise
-            ms = None
-        row = {"root": label, "case": name, "ms": ms,
-               "timed_by": smoke().TIMED_BY[0] if ms else None}
-        if work:
-            (bound_ms, bound_by), unit_of, units = work[0]()
-            c = census.get(unit_of)
-            row.update(bound_ms=bound_ms, bound_by=bound_by, units=units,
-                       floor_ms=floor_ms(c["per_unit"], units) if c
-                       else None,
-                       per_unit=c["per_unit"] if c else None)
-        line = json.dumps(dict(row, card=card))
-        print(line, flush=True)
-        sink.append(line)
+def run(cases, label, card, sink, census, clock_seconds=0.0):
+    """Time each case and print its JSON line, with the median SM clock
+    that ``nvidia-smi`` read (``chip_smoke.ClockSampler``) while the cases
+    ran (``"sm_clock_of": "cases"``; the lines print once the last case is
+    timed) or, with ``clock_seconds``, while the case ran and then that
+    many seconds more with the card kept on it (``"case"``); a case with a
+    ``work`` callable adds its bound and the issue floor of its units
+    through the SASS census of this checkout's kernels (``census``: label
+    -> census, null where the checkout lacks the kernel), which assumes a
+    1.98 GHz clock, and that floor at the median clock; a ``work`` that
+    also gives the pairs the walk hands the law, masked or not, adds their
+    floor (``eval_floor_ms``)."""
+    import contextlib
+    import time
+    import torch
+    from sass_census import CLOCK_HZ, floor_ms
+    cs = smoke()
+
+    def median(sampler):
+        mhz = sorted(r[0] for r in sampler.rows)
+        return mhz[len(mhz) // 2] if mhz else None
+
+    rows = []  # (row, the case's sampler or None)
+    try:
+        with cs.ClockSampler() as group:
+            for name, fn, kernel, reps, *work in cases:
+                with (cs.ClockSampler() if clock_seconds
+                      else contextlib.nullcontext()) as clock:
+                    try:
+                        ms = cs.device_ms(fn, kernel, reps=reps)
+                    except RuntimeError as e:  # a ring grid this checkout
+                        if "CUDA error 720" not in str(e):  # cannot hold
+                            raise
+                        ms = None
+                    # keep the card on the case while the sampler (an
+                    # nvidia-smi that prints every 200 ms once started)
+                    # reads its clock
+                    end = time.monotonic() + clock_seconds
+                    while ms is not None and time.monotonic() < end:
+                        fn()
+                        torch.cuda.synchronize()
+                row = {"root": label, "case": name, "ms": ms,
+                       "timed_by": cs.TIMED_BY[0] if ms else None}
+                if work:
+                    (bound_ms, bound_by), unit_of, units, *evals = work[0]()
+                    c = census.get(unit_of)
+                    row.update(bound_ms=bound_ms, bound_by=bound_by,
+                               units=units,
+                               floor_ms=floor_ms(c["per_unit"], units)
+                               if c else None,
+                               per_unit=c["per_unit"] if c else None)
+                    if evals and evals[0] is not None:  # pairs the walk
+                        row.update(evaluations=evals[0],  # hands the law
+                                   eval_floor_ms=floor_ms(c["per_unit"],
+                                                          evals[0])
+                                   if c else None)
+                rows.append((row, clock))
+    finally:
+        for row, clock in rows:
+            mhz = median(clock if clock is not None else group)
+            row.update(sm_clock_mhz=mhz,
+                       sm_clock_of="case" if clock is not None else "cases")
+            if row.get("floor_ms") is not None and mhz:  # the floor at the
+                row["floor_ms_at_clock"] = (  # clock the card ran at
+                    row["floor_ms"] * CLOCK_HZ / (1e6 * mhz))
+            line = json.dumps(dict(row, card=card))
+            print(line, flush=True)
+            sink.append(line)
 
 
 def main() -> int:
@@ -1901,10 +2346,17 @@ def main() -> int:
                     help="comma-separated groups: sym, env, dense, "
                     "statics, feed (statics without chunk_argmin), "
                     "capacity, batched, mesh, all_tiles (the batched "
-                    "all-tiles walk's cases of batched and mesh alone)")
+                    "all-tiles walk's cases of batched and mesh alone), "
+                    "sym_all (the batched symmetric walks without a "
+                    "cutoff, 1b and 4-b, and 4-b's box form)")
     ap.add_argument("--only", default=None,
                     help="comma-separated substrings: time only the cases "
                     "whose name holds one of them")
+    ap.add_argument("--clock-seconds", type=float, default=0.0,
+                    help="keep the card on each timed case this many "
+                    "seconds more and give each line the SM clock read "
+                    "under its case (default: the clock read under all "
+                    "the cases)")
     ap.add_argument("--counters", action="store_true",
                     help="patch counters into the checkout at --root (a "
                     "copy made for it) and print the walks' counters "
@@ -1958,19 +2410,23 @@ def main() -> int:
     cases = {"sym": sym_cases, "env": env_cases, "dense": dense_cases,
              "statics": statics_cases, "feed": feed_cases,
              "capacity": capacity_cases, "batched": batched_cases,
-             "mesh": lambda dev: mesh_cases(dev) + ring_cases(dev),
+             "mesh": lambda dev: (mesh_cases(dev) + ring_cases(dev)
+                                  + sym_all_cases(dev, mesh=True)),
              "all_tiles": lambda dev: all_tiles_cases(dev, square=True,
-                                                      mesh=True)}
+                                                      mesh=True),
+             "sym_all": lambda dev: sym_all_cases(dev, square=True,
+                                                  mesh=True)}
     census = {}
-    if groups & {"statics", "feed", "mesh", "batched", "all_tiles"}:
+    if groups & {"statics", "feed", "mesh", "batched", "all_tiles",
+                 "sym_all"}:
         from sass_census import census as sass
         census = sass(cuda_build.LIBRARY, root=root)
     only = None if args.only is None else args.only.split(",")
     run([c for g in ("sym", "env", "dense", "statics", "feed", "capacity",
-                     "batched", "mesh", "all_tiles")
+                     "batched", "mesh", "all_tiles", "sym_all")
          if g in groups for c in cases[g](dev)
          if only is None or any(k in c[0] for k in only)], args.label, card,
-        lines, census)
+        lines, census, args.clock_seconds)
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         with args.out.open("a") as f:

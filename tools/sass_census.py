@@ -137,11 +137,12 @@ KERNELS = (
      "pair_force_dense_batched_kernel<2, Helbing", ("MUFU.EX2", None, None),
      1, "pair", "kDenseRows"),
     # the batched symmetric walks (rows 1b and 1c of PERF.md): the
-    # triangle walk (the unbatched body, sym_walk) and the triangle-box and
-    # table walks (sym_rows_walk) under each antisymmetric law
+    # triangle walk (sym_batch_walk, R = 2 rows a lane; its loop off the
+    # diagonal, R pairs a step) and the triangle-box and table walks
+    # (sym_rows_walk) under each antisymmetric law
     ("pair_force_sym_batched<kTriangle, Moussaid>",
      "pair_force_sym_batched_kernel<0, Moussaid", ("MUFU.EX2", None, None),
-     2, "pair", "kSymRows"),
+     2, "pair", "kSymAllRows"),
     ("pair_force_sym_batched<kTriangleBox, Moussaid>",
      "pair_force_sym_batched_kernel<1, Moussaid", ("MUFU.EX2", None, None),
      2, "pair", "kSymBatchRows"),
@@ -150,13 +151,22 @@ KERNELS = (
      2, "pair", "kSymBatchRows"),
     ("pair_force_sym_batched<kTriangle, PowerLaw>",
      "pair_force_sym_batched_kernel<0, PowerLaw", ("MUFU.EX2", None, None),
-     1, "pair", "kSymRows"),
+     1, "pair", "kSymAllRows"),
     ("pair_force_sym_batched<kTriangleBox, PowerLaw>",
      "pair_force_sym_batched_kernel<1, PowerLaw", ("MUFU.EX2", None, None),
      1, "pair", "kSymBatchRows"),
     ("pair_force_sym_batched<kSymTable, PowerLaw>",
      "pair_force_sym_batched_kernel<2, PowerLaw", ("MUFU.EX2", None, None),
      1, "pair", "kSymBatchRows"),
+    # the batched full-block walk (row 4-b of PERF.md: the half-ring's
+    # blocks on the 2-D mesh) under each antisymmetric law: without the
+    # box test sym_batch_walk, with it the unbatched tile pair
+    # (sym_tile_pair, kSymRowsCut rows a lane)
+    *((f"pair_force_sym_dense_batched<{box}, {law}>",
+       f"pair_force_sym_dense_batched_kernel<{box}, {law}",
+       ("MUFU.EX2", None, None), 2 if law == "Moussaid" else 1, "pair",
+       "kSymRowsCut" if box == "true" else "kSymAllRows")
+      for law in ("Moussaid", "PowerLaw") for box in ("false", "true")),
     ("ring_force<false, Moussaid>",
      "ring_force_kernel<false, Moussaid, 1, false>", ("MUFU.EX2", None, None),
      2,

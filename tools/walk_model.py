@@ -65,8 +65,17 @@ time, where a step serves every lane with a pair in that chunk, and
 ``chunk_walk``'s window is ``kChunkWindow``.  Per block, summed over its 8
 chunk slots.
 
+With ``--sym-all`` it replays instead the splits of the batched symmetric
+all-pairs walk (``sym_batch_walk``: ``pair_force_sym_batched_kernel<
+kTriangle, Law>`` and ``pair_force_sym_dense_batched_kernel<false, Law>``,
+rows 1b and 4-b of PERF.md) at config #5's and the 2-D mesh's shapes, for
+the parent's grid (a block a 128 x 128 tile pair) and the redesign's
+(``sym_all_splits``): blocks, law evaluations and the makespan in items
+over 132 SMs (:func:`sym_all_replay`).  No data: without a cutoff every
+pair is walked.
+
     python3 tools/walk_model.py [--blocks 24] [--window 1,2,3,4,0] \
-        [--square 3] [--sym] [--ring] [--dense]
+        [--square 3] [--sym] [--ring] [--dense] [--sym-all]
 """
 from __future__ import annotations
 
@@ -684,6 +693,195 @@ def dense_main():
                               **dense_replay(b, r, c, new, k)}), flush=True)
 
 
+#: the batched symmetric all-pairs walk's costs in 16-step items a warp
+#: (``kSymAllTileItems``, ``kSymAllDiagItems``, ``kSymAllBlockItems`` of
+#: ``csrc/pair_forces.cu``: a column tile off the diagonal, the diagonal
+#: tile, a block's fixed cost), its rows a lane and warps a block, and its
+#: parent's resident blocks of four warps an SM (``sym_tile_pair`` without
+#: a minimum: 72 registers, 7 blocks)
+SYM_ALL_TILE, SYM_ALL_DIAG, SYM_ALL_FIXED = 4, 2, 1
+SYM_ALL_ROWS, SYM_ALL_WARPS, SYM_PARENT_PER_SM = 2, 8, 7
+#: the diagonal tile's items of each row group, ``(r, c, kind)``: row chunk
+#: r against column chunk c, steps 0-15 (kind 0), 16-31 (1) or 1-16 with
+#: only lanes below 16 at step 16 (2); ``sym_all_diag_item``'s words
+SYM_ALL_DIAG_ITEMS = (
+    ((0, 0, 2), (0, 1, 0), (0, 1, 1), (1, 1, 2), (0, 2, 0), (0, 2, 1),
+     (1, 2, 0), (1, 2, 1)),
+    ((2, 2, 2), (2, 3, 0), (2, 3, 1), (3, 3, 2), (3, 0, 0), (3, 0, 1),
+     (3, 1, 0), (3, 1, 1)))
+
+
+def sym_all_blocks(root=ROOT):
+    """``kSymAllBlocks``: the redesign's resident blocks an SM (its launch
+    bounds), which its split rule takes."""
+    return pair_constant("kSymAllBlocks", root)
+
+
+def sym_all_splits(batch, n_row_tiles, n_col_tiles, tri, per_sm, sms=SMS):
+    """``sym_all_splits`` of ``csrc/pair_forces.cu``: the splits S of a row
+    tile's column run in ``sym_batch_walk``, a power of two up to the
+    longest run's candidates, the least estimate (in items) of the launch's
+    length: the longest block where the blocks fit the resident slots at
+    once, else the blocks' work over the slots plus the last block to
+    start's length, and no less than the longest block; ties to fewer
+    splits."""
+    cap = max(per_sm, 1) * max(sms, 1)
+    nr = n_row_tiles
+    most = nr if tri else n_col_tiles
+    tile, diag, fixed = SYM_ALL_TILE, SYM_ALL_DIAG, SYM_ALL_FIXED
+    items = nr * diag + nr * (nr - 1) // 2 * tile if tri else nr * most * tile
+    best, best_cost = 1, None
+    s = 1
+    while s <= most and nr * s <= 65535:
+        per_crowd = s * (s + 1) // 2 + (nr - s) * s if tri else nr * s
+        blocks = batch * per_crowd
+        if tri:
+            longest = max(diag + (most - 1) // s * tile,
+                          ((most - 2) // s + 1) * tile if s > 1 else 0)
+        else:
+            longest = -(-most // s) * tile
+        last = diag if tri else most // s * tile
+        whole = (longest + fixed) * cap
+        cost = whole if blocks <= cap else max(
+            batch * (items + per_crowd * fixed) + (last + fixed) * cap,
+            whole)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = s, cost
+        s *= 2
+    return best
+
+
+def sym_all_diag_words():
+    """The two 64-bit words of ``sym_all_diag_item`` (byte k of word g:
+    item k of row group g as r | c << 2 | kind << 4)."""
+    return tuple(sum((r | c << 2 | kind << 4) << (8 * k)
+                     for k, (r, c, kind) in enumerate(items))
+                 for items in SYM_ALL_DIAG_ITEMS)
+
+
+def sym_all_block_pairs(ti, split, n_split, n_rows, n_cols, tri):
+    """Every (row, column) slot pair that block (ti, split) of
+    ``sym_batch_walk`` hands the law (live or masked), in its order: its
+    candidate tiles t_first + k S, each tile off the diagonal as warp w's
+    column chunk w % 4 against row group w // 4's 64 rows (lane L's row 64
+    g + 32 r + L meets column 32 c + (L + s) mod 32 at step s), the
+    diagonal tile as warp w's items w % 4 and w % 4 + 4 of its group's
+    :data:`SYM_ALL_DIAG_ITEMS` (skipped where a chunk starts past the
+    agents); a chunk off the diagonal that starts past the columns is
+    skipped.  Slots are of the block's own planes (rows and columns of one
+    crowd); ``(rows, cols)`` int64 arrays, padded slots included."""
+    nct = -(-n_cols // 128)
+    first = (ti if tri else 0) + split
+    lanes = np.arange(32)
+    out_i, out_j = [], []
+    for tj in range(first, nct, n_split):
+        i0, j0 = 128 * ti, 128 * tj
+        for w in range(SYM_ALL_WARPS):
+            g, c = w // 4, w % 4
+            if tri and tj == ti:
+                for k in (w % 4, w % 4 + 4):
+                    r, c, kind = SYM_ALL_DIAG_ITEMS[g][k]
+                    if j0 + 32 * max(r, c) >= n_cols:
+                        continue
+                    s0 = 1 if kind == 2 else 16 * kind
+                    for s in range(s0, s0 + 16):
+                        ln = lanes[:16] if kind == 2 and s == 16 else lanes
+                        out_i.append(i0 + 32 * r + ln)
+                        out_j.append(j0 + 32 * c + (ln + s) % 32)
+                continue
+            if j0 + 32 * c >= n_cols:
+                continue
+            s = np.arange(32)[:, None, None]
+            r = np.arange(SYM_ALL_ROWS)[None, None, :]
+            ln = lanes[None, :, None]
+            shape = (32, 32, SYM_ALL_ROWS)
+            out_i.append(np.broadcast_to(i0 + 64 * g + ln + 32 * r,
+                                         shape).ravel())
+            out_j.append(np.broadcast_to(j0 + 32 * c + (ln + s) % 32,
+                                         shape).ravel())
+    if not out_i:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    return (np.concatenate(out_i).astype(np.int64),
+            np.concatenate(out_j).astype(np.int64))
+
+
+def sym_all_costs(n_row_tiles, n_col_tiles, tri, n_split):
+    """The items of each block (ti, split) of one crowd in launch order
+    (row tiles, then splits; a split without a tile left out), without the
+    fixed cost."""
+    most = n_col_tiles
+    out = []
+    for ti in range(n_row_tiles):
+        first = ti if tri else 0
+        for sp in range(n_split):
+            tiles = range(first + sp, most, n_split)
+            if len(tiles):
+                out.append(sum(SYM_ALL_DIAG if tri and t == ti
+                               else SYM_ALL_TILE for t in tiles))
+    return out
+
+
+def sym_all_replay(batch, n_rows, n_cols, tri, new, per_sm, sms=SMS):
+    """One launch of the batched symmetric all-pairs walk replayed over
+    ``sms`` SMs of ``per_sm`` resident blocks: blocks in launch order
+    (crowds fastest, then row tiles and splits) each take the slot that
+    frees first, and cost their items (16 law steps a lane) plus the fixed
+    cost.  ``new``: ``sym_batch_walk`` with :func:`sym_all_splits`; else
+    the parent (``sym_tile_pair``: a block of four warps a tile pair, 8
+    items a warp, a diagonal tile's too, whose masked half it walks; its
+    items are twice the length of the redesign's, whose blocks hold twice
+    the warps).  Returns the splits, blocks, the pairs handed to the law
+    over the launch (``evaluations``: items x 16 steps x 32 lanes x the
+    warps), its makespan in the redesign's items and the share of slot time
+    the blocks fill."""
+    import heapq
+    nr, nc = -(-n_rows // 128), -(-n_cols // 128)
+    if new:
+        s = sym_all_splits(batch, nr, nc, tri, per_sm, sms)
+        costs = sym_all_costs(nr, nc, tri, s)
+        warps = SYM_ALL_WARPS
+    else:
+        s = None
+        costs = [2 * SYM_ALL_TILE] * (nr * (nr + 1) // 2 if tri
+                                      else nr * nc)
+        warps = 4
+    slots = [(0, x) for x in range(sms * per_sm)]
+    heapq.heapify(slots)
+    span = busy = 0
+    for c in costs:  # each group of `batch` crowds' blocks
+        for _ in range(batch):
+            free, x = heapq.heappop(slots)
+            end = free + c + SYM_ALL_FIXED
+            busy += c + SYM_ALL_FIXED
+            span = max(span, end)
+            heapq.heappush(slots, (end, x))
+    evaluations = batch * sum(costs) * 16 * 32 * warps
+    return {"splits": s, "blocks": batch * len(costs),
+            "evaluations": evaluations, "makespan": span,
+            "fill": round(busy / (span * sms * per_sm), 4)}
+
+
+#: 1b's and 4-b's shapes (config #5, the 2-D mesh's square part and its
+#: full blocks, the bench's B = 1): (label, crowds, rows, columns, triangle)
+SYM_ALL_SHAPES = (("1b config #5: 256 x 1,000", 256, 1_000, 1_000, True),
+                  ("1b mesh: 128 x 250", 128, 250, 250, True),
+                  ("4-b mesh: 128 x 250 x 250", 128, 250, 250, False),
+                  ("1b B = 1 x 10,000", 1, 10_000, 10_000, True))
+
+
+def sym_all_main():
+    """``--sym-all``: :func:`sym_all_replay` of the parent and the redesign
+    at :data:`SYM_ALL_SHAPES` (the parent at its 7 blocks of four warps an
+    SM, as many warps as 3.5 of the redesign's)."""
+    per_sm = sym_all_blocks()
+    for label, b, r, c, tri in SYM_ALL_SHAPES:
+        for rule, new, k in (("parent", False, SYM_PARENT_PER_SM),
+                             ("change", True, per_sm)):
+            print(json.dumps({"shape": label, "rule": rule,
+                              **sym_all_replay(b, r, c, tri, new, k)}),
+                  flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--blocks", type=int, default=24)
@@ -697,7 +895,13 @@ def main() -> int:
     ap.add_argument("--dense", action="store_true",
                     help="replay the batched all-tiles walk's layout (2b, "
                     "2r-b)")
+    ap.add_argument("--sym-all", action="store_true",
+                    help="replay the batched symmetric all-pairs walk's "
+                    "splits (1b, 4-b)")
     args = ap.parse_args()
+    if args.sym_all:
+        sym_all_main()
+        return 0
     if args.ring:
         ring_main()
         return 0
